@@ -2,10 +2,12 @@
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py            # every phase (needs one CUDA card)
-    python3 chip_smoke.py --quick    # build + kernel-vs-plain only
+    python3 chip_smoke.py --quick    # build + kernels-vs-plain only
     python3 chip_smoke.py --profile  # every phase + a device-time breakdown
+    python3 chip_smoke.py --sweep    # every phase + the panel routing sweep
+    python3 chip_smoke.py --log F    # also write the phase lines to file F
 
-Phases, one JSON line each:
+Phases, JSON lines each:
 
 1. env      card name and power limit (nvidia-smi), torch/CUDA versions,
             the kernels' build seconds and ptxas resource lines;
@@ -20,9 +22,31 @@ Phases, one JSON line each:
             count, and no TF32 in any product;
 4. timing   CUDA-event times: kernel per panel shape, factor and
             factor+solve at 1536/4096 beside torch.linalg.lu_factor_ex
-            (+ lu_solve), and the width/route/tail sweep behind the
-            routing defaults;
-5. kernels  one line per ported kernel (launches, error, times, bound).
+            (+ lu_solve); with ``--sweep`` the width/route/tail sweep
+            behind the routing defaults of utils/config.py;
+5. kernels  one line for all ported kernels (launches, error, times,
+            bound).
+
+The batched small-matrix path adds, in the same order:
+
+2b. batched_kernel  the swap, noswap and solve kernels against their
+            plain versions: f32/f64, n = 16/64/128 and rectangular
+            shapes, pivot on/off, zeroed columns in some matrices, exact
+            ties, batch sizes 1000 and 37: ipiv, perm, info equal,
+            factors and solutions bitwise equal;
+3b. batched the four public functions at B = 10 000, n = 64 and n = 128,
+            f32, plus the noswap kernel as its caller reaches it: every
+            output held against the plain versions on the same inputs
+            (ipiv, perm, info equal, factors and solutions bitwise equal:
+            the error the ``kernels`` line reports), residual gate per
+            matrix, ipiv equal to torch.linalg.lu_factor_ex's (f64:
+            everywhere; f32: in all but at most 10 matrices, each a near
+            tie of the two candidates at its first differing step), info
+            exact on zeroed columns, one launch per call, no TF32 on the
+            library-route solve;
+4b. timing  swap, noswap, solve and factor+solve at n = 16/32/64/128,
+            B = 10 000, in turns beside torch.linalg.lu_factor_ex and
+            lu_solve; the plain versions once.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
 before it, and the exit code is not 0.  Without CUDA, or without the
@@ -32,6 +56,7 @@ package beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -41,10 +66,26 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 PEAK_BYTES = 3.35e12
 SOURCE = "recursivefactorization_jl_tpu_torch/csrc/panel_lu.cu"
 REPLACES = "recursivefactorization_jl_tpu/ops/panel.py:411"
+BATCHED_KERNELS = {
+    "batched_lu_swap": ("recursivefactorization_jl_tpu_torch/csrc/batched_lu.cu",
+                        "recursivefactorization_jl_tpu/ops/batched_kernel.py:78"),
+    "batched_lu_noswap": ("recursivefactorization_jl_tpu_torch/csrc/batched_lu.cu",
+                          "recursivefactorization_jl_tpu/ops/batched_kernel.py:78"),
+    "batched_solve": ("recursivefactorization_jl_tpu_torch/csrc/batched_solve.cu",
+                      "recursivefactorization_jl_tpu/ops/batched_kernel.py:415"),
+}
+BATCH_B = 10000
+
+
+LOG = None  # a file that also receives every phase line (--log PATH)
 
 
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    line = json.dumps({"phase": phase, **kw})
+    print(line, flush=True)
+    if LOG is not None:
+        LOG.write(line + "\n")
+        LOG.flush()
 
 
 def fail(msg):
@@ -76,44 +117,87 @@ def bound(m, w, dtype_name, itemsize):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
+def roofline(flops, nbytes, dtype_name):
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def batched_lu_bound(B, m, n, dtype_name, itemsize, with_perm=True):
+    """B LU factorizations of (m, n): the matrices read and written once,
+    ipiv, perm and info written once."""
+    flops, _ = panel_flops_bytes(m, n, itemsize)
+    nbytes = B * (2 * m * n * itemsize + 4 * (min(m, n) + (m if with_perm else 0) + 1))
+    return roofline(B * flops, nbytes, dtype_name)
+
+
+def batched_solve_bound(B, n, nrhs, dtype_name, itemsize):
+    """B solves: the factors read once, the right-hand sides read and the
+    solutions written once; per column n(n-1) multiply-subtracts in each
+    sweep's triangle and n divisions."""
+    flops = B * nrhs * (2 * n * (n - 1) + n)
+    nbytes = B * (n * n + 2 * n * nrhs) * itemsize
+    return roofline(flops, nbytes, dtype_name)
+
+
+def device_rows(prof):
+    """(ms, calls, name) of the device-side events of a torch.profiler
+    run, longest first: the CPU ops that launched them carry the same
+    time again and are left out."""
+    rows = []
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "self_cuda_time_total", 0)
+        if dt > 0:
+            rows.append((dt / 1e3, e.count, e.key[:60]))
+    rows.sort(reverse=True)
+    return rows
+
+
 def profile(rt, card, gen, dev):
-    """Device time by kernel over one factor + solve at 1536 and 4096
+    """Device time by kernel over one factor + solve at 1536 and 4096, and
+    over one batched factor + solve of 10 000 matrices at n = 64 and 128
     (torch.profiler), and the device's idle share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
-    for n in (1536, 4096):
-        M = torch.randn(n, n, generator=gen).to(dev)
-        v = torch.randn(n, generator=gen).to(dev)
-        rt.lu_solve(rt.lu(M, check=False), v)
+    def run(factor, solve, **what):
+        solve(factor())
         torch.cuda.synchronize()
         with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            F = rt.lu(M, check=False)
+            F = factor()
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            rt.lu_solve(F, v)
+            solve(F)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-        rows = []
-        for e in prof.key_averages():
-            # device-side events only: the CPU ops that launched them
-            # carry the same time again
-            if "CUDA" not in str(getattr(e, "device_type", "")):
-                continue
-            dt = getattr(e, "self_device_time_total", None)
-            if dt is None:
-                dt = getattr(e, "self_cuda_time_total", 0)
-            if dt > 0:
-                rows.append((dt / 1e3, e.count, e.key[:60]))
-        rows.sort(reverse=True)
+        rows = device_rows(prof)
         busy = sum(r[0] for r in rows)
         wall = (t2 - t0) * 1e3
-        emit("profile", card=card, n=n, factor_wall_ms=(t1 - t0) * 1e3,
+        emit("profile", card=card, factor_wall_ms=(t1 - t0) * 1e3,
              solve_wall_ms=(t2 - t1) * 1e3, device_busy_ms=busy,
              idle_share=1 - busy / wall if wall > 0 else None,
-             top=[{"ms": r[0], "calls": r[1], "name": r[2]} for r in rows[:12]])
+             top=[{"ms": r[0], "calls": r[1], "name": r[2]} for r in rows[:12]],
+             **what)
+
+    for n in (1536, 4096):
+        M = torch.randn(n, n, generator=gen).to(dev)
+        v = torch.randn(n, generator=gen).to(dev)
+        run(lambda: rt.lu(M, check=False), lambda F: rt.lu_solve(F, v), n=n)
+    for n in (64, 128):
+        A = torch.randn(BATCH_B, n, n, generator=gen).to(dev)
+        b = torch.randn(BATCH_B, n, generator=gen).to(dev)
+        run(lambda: rt.batched_lu_factor_perm(A),
+            lambda F: rt.batched_lu_solve_perm(F[0], F[1], b),
+            path="batched_perm", batch=BATCH_B, n=n)
+        run(lambda: rt.batched_lu_factor(A),
+            lambda F: rt.batched_lu_solve(F[0], F[1], b),
+            path="batched_ipiv", batch=BATCH_B, n=n)
 
 
 def main(argv):
@@ -127,9 +211,15 @@ def main(argv):
     import recursivefactorization_jl_tpu_torch as rt
     from recursivefactorization_jl_tpu_torch.ops import _kernels
     from recursivefactorization_jl_tpu_torch.ops.panel import panel_factor_cuda
+    from recursivefactorization_jl_tpu_torch.ops import batched_kernel as bk
     from recursivefactorization_jl_tpu_torch.ops.unblocked import unblocked_lu
 
     quick = "--quick" in argv
+    if "--log" in argv:
+        global LOG
+        path = argv[argv.index("--log") + 1]
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        LOG = open(path, "w")
     dev = torch.device("cuda")
     card = card_line()
 
@@ -193,6 +283,116 @@ def main(argv):
             fail(f"kernel disagrees with its plain version: {same}")
         if name == "zero_col" and int(info_k) == 0:
             fail("zeroed column gave info 0")
+    # ---- 2b. batched kernels vs plain -----------------------------------
+    def same_bits(x, y):
+        return bool(torch.equal(bits(x.contiguous()), bits(y.contiguous())))
+
+    def abs_err(x, y):
+        return float((x - y).abs().nan_to_num(0.0, 0.0, 0.0).max()) if x.numel() else 0.0
+
+    def batch_input(name, B, m, n, dt, pivot):
+        """(batch on the card, info expected per matrix or None)."""
+        if name == "ties":
+            return torch.randint(-2, 3, (B, m, n), generator=gen).to(dt).to(dev), None
+        X = torch.randn(B, m, n, generator=gen, dtype=dt)
+        if not pivot:
+            X += max(m, n) * torch.eye(m, n, dtype=dt)
+        want = torch.zeros(B, dtype=torch.int32)
+        if name == "zero_col":
+            # a zeroed column in every seventh matrix, at a column that
+            # changes with the matrix
+            for i in range(3, B, 7):
+                c = i % min(m, n)
+                X[i, :, c] = 0
+                want[i] = c + 1 if pivot else -(c + 1)
+        return X.to(dev), want.to(dev)
+
+    batched_err = {k: 0.0 for k in BATCHED_KERNELS}
+    lu_shapes = [(1000, 16, 16), (1000, 64, 64), (37, 128, 128), (37, 96, 40), (37, 40, 96)]
+    n_cases = 0
+    for (B, m, n) in lu_shapes:
+        for dt in (torch.float32, torch.float64):
+            for name, pivot in (("randn", True), ("zero_col", True), ("ties", True),
+                                ("randn", False), ("zero_col", False)):
+                A, want = batch_input(name, B, m, n, dt, pivot)
+                kernels = ["batched_lu_swap"] + (["batched_lu_noswap"] if m == n else [])
+                for kern in kernels:
+                    if kern == "batched_lu_swap":
+                        f_p, ipiv_p, perm_p, info_p = bk.batched_lu_plain(A, pivot, True)
+                        f_k, ipiv_k, perm_k, info_k = bk.batched_lu_cuda(A, pivot, True)
+                        torch.cuda.synchronize()
+                        same = {
+                            "ipiv_equal": bool(torch.equal(ipiv_k, ipiv_p)),
+                            "perm_is_folded_ipiv": bool(torch.equal(
+                                perm_k, rt.batched_ipiv_to_perm(ipiv_k, m))),
+                        }
+                        _, _, none_perm, _ = bk.batched_lu_cuda(A, pivot, False)
+                        same["no_perm_is_none"] = none_perm is None
+                    else:
+                        f_p, perm_p, info_p = bk.batched_lu_noswap_plain(A, pivot)
+                        f_k, perm_k, info_k = bk.batched_lu_noswap_cuda(A, pivot)
+                        torch.cuda.synchronize()
+                        same = {}
+                    same.update(
+                        perm_equal=bool(torch.equal(perm_k, perm_p)),
+                        info_equal=bool(torch.equal(info_k, info_p)),
+                        bitwise=same_bits(f_k, f_p),
+                    )
+                    if want is not None:
+                        same["info_as_expected"] = bool(torch.equal(info_k, want))
+                    err = abs_err(f_k, f_p)
+                    batched_err[kern] = max(batched_err[kern], err)
+                    n_cases += 1
+                    emit("batched_kernel", kernel=kern, shape=[B, m, n], dtype=str(dt)[6:],
+                         input=name, pivot=pivot, nonzero_info=int((info_k != 0).sum()),
+                         max_abs_err=err, **same)
+                    if not all(same.values()):
+                        fail(f"{kern} disagrees with its plain version: {same}")
+    for (B, n) in ((1000, 16), (1000, 64), (37, 128)):
+        for dt in (torch.float32, torch.float64):
+            A, _ = batch_input("randn", B, n, n, dt, True)
+            A[5, :, n // 3] = 0  # a singular matrix: inf/nan there and only there
+            f, ipiv, perm, info = bk.batched_lu_cuda(A, True, True)
+            for nrhs in (None, 3):
+                b = torch.randn((B, n) if nrhs is None else (B, n, nrhs),
+                                generator=gen, dtype=dt).to(dev)
+                x_p = bk.batched_solve_plain(f, b)
+                x_k = bk.batched_solve_cuda(f, b)
+                xp_p = bk.batched_solve_plain(f, b, perm=perm)
+                xp_k = bk.batched_solve_cuda(f, b, perm=perm)
+                xi_k = bk.batched_solve_cuda(f, b, ipiv=ipiv)
+                torch.cuda.synchronize()
+                ok_rows = info == 0
+                finite_k = torch.isfinite(x_k.reshape(B, -1)).all(dim=1)
+                same = {
+                    "bitwise_nonsingular": same_bits(x_k[ok_rows], x_p[ok_rows]),
+                    "bitwise_with_perm": same_bits(xp_k[ok_rows], xp_p[ok_rows]),
+                    "bitwise_with_ipiv": same_bits(xi_k[ok_rows], xp_p[ok_rows]),
+                    "nonfinite_same_place": bool(torch.equal(
+                        torch.isfinite(x_k), torch.isfinite(x_p))),
+                    "nonfinite_only_where_singular": bool(torch.equal(finite_k, ok_rows)),
+                }
+                err = abs_err(x_k[ok_rows], x_p[ok_rows])
+                batched_err["batched_solve"] = max(batched_err["batched_solve"], err)
+                n_cases += 1
+                emit("batched_kernel", kernel="batched_solve", shape=[B, n, n],
+                     rhs=list(b.shape), dtype=str(dt)[6:], max_abs_err=err, **same)
+                if not all(same.values()):
+                    fail(f"batched_solve disagrees with its plain version: {same}")
+    # what the wrappers refuse, and a strided batch (copied, not refused)
+    for bad in (torch.zeros(4, 8, 8, device=dev, dtype=torch.float16),
+                torch.zeros(4, 129, 129, device=dev),
+                torch.zeros(8, 8, device=dev)):
+        try:
+            bk.batched_lu_cuda(bad)
+        except ValueError:
+            continue
+        fail(f"batched_lu_cuda took {tuple(bad.shape)} {bad.dtype}")
+    S = torch.randn(9, 24, 48, generator=gen).to(dev)[:, :, ::2]
+    if not same_bits(bk.batched_lu_cuda(S)[0], bk.batched_lu_plain(S)[0]):
+        fail("strided batch: kernel and plain version differ")
+    emit("batched_kernel", summary=True, cases=n_cases, max_abs_err=batched_err)
+
     if quick:
         print(json.dumps({"ok": True, "quick": True}))
         return 0
@@ -200,7 +400,7 @@ def main(argv):
     # ---- 3. main path ----------------------------------------------------
     matmuls = {torch.matmul, torch.mm, torch.bmm, torch.Tensor.matmul,
                torch.Tensor.__matmul__, torch.Tensor.mm, torch.addmm,
-               torch.Tensor.addmm_}
+               torch.Tensor.addmm_, torch.linalg.solve_triangular}
     from torch.overrides import TorchFunctionMode
 
     class TF32Watch(TorchFunctionMode):
@@ -284,6 +484,162 @@ def main(argv):
         fail("the caller's TF32 setting was not restored")
     torch.backends.cuda.matmul.allow_tf32 = tf32_before
 
+    # ---- 3b. the batched path -------------------------------------------
+    wrappers = {"batched_lu_swap": bk.batched_lu_cuda,
+                "batched_lu_noswap": bk.batched_lu_noswap_cuda,
+                "batched_solve": bk.batched_solve_cuda}
+
+    def batch_resid(A, f, perm):
+        """Per matrix max|LU - A[perm]| and its gate, in f64."""
+        n = A.shape[1]
+        fd = f.double()
+        eye = torch.eye(n, dtype=torch.float64, device=dev)
+        LU_ = torch.bmm(torch.tril(fd, -1) + eye, torch.triu(fd))
+        LU_ -= A.double().gather(1, perm.long()[:, :, None].expand(-1, -1, n))
+        r = LU_.abs().amax(dim=(1, 2))
+        g = 20 * n * torch.finfo(A.dtype).eps * A.abs().amax(dim=(1, 2)).double()
+        return r, g
+
+    def batch_solve_resid(A, x, b):
+        Ad, xd, bd = A.double(), x.double(), b.double()
+        r = torch.bmm(Ad, xd[:, :, None])[:, :, 0] - bd
+        return r.norm(dim=1) / (Ad.flatten(1).norm(dim=1) * xd.norm(dim=1))
+
+    def first_choice_gap(Ai, piv_a, piv_b):
+        """Two pivot sequences of one matrix part at step k.  Eliminate k
+        steps in f64 with the pivots they share and return k and
+        ||c[a]| - |c[b]|| / max|c| for the two rows chosen there from
+        column k."""
+        k = int((piv_a != piv_b).nonzero()[0])
+        M = Ai.double().cpu()
+        for j in range(k):
+            pj = int(piv_a[j])
+            M[[j, pj]] = M[[pj, j]]
+            M[j + 1:, j] /= M[j, j]
+            M[j + 1:, j + 1:] -= torch.outer(M[j + 1:, j], M[j, j + 1:])
+        c = M[:, k].abs()
+        return k, float((c[int(piv_a[k])] - c[int(piv_b[k])]).abs() / c[k:].max())
+
+    batched_launches = {}
+    full_err = {}
+    for n in (64, 128):
+        A = torch.tensor(rng.standard_normal((BATCH_B, n, n)), dtype=torch.float32, device=dev)
+        b = torch.tensor(rng.standard_normal((BATCH_B, n)), dtype=torch.float32, device=dev)
+        b3 = torch.tensor(rng.standard_normal((BATCH_B, n, 2)), dtype=torch.float32, device=dev)
+        Z = A.clone()
+        zrows = torch.arange(0, BATCH_B, 10, device=dev)
+        zcols = zrows % n
+        Z[zrows, :, zcols] = 0
+        want_info = torch.zeros(BATCH_B, dtype=torch.int32, device=dev)
+        want_info[zrows] = (zcols + 1).int()
+        lib_piv = torch.linalg.lu_factor_ex(A)[1] - 1
+        for w in wrappers.values():
+            w.launches = 0
+        # the path, as a user calls it
+        f1, perm1, info1 = rt.batched_lu_factor_perm(A)
+        x1 = rt.batched_lu_solve_perm(f1, perm1, b)
+        f2, ipiv2, info2 = rt.batched_lu_factor(A)
+        x2 = rt.batched_lu_solve(f2, ipiv2, b3)
+        f3, perm3, info3 = bk.batched_lu_noswap(A)
+        x3 = rt.batched_lu_solve_perm(f3, perm3, b)
+        _, _, infoz = rt.batched_lu_factor(Z)
+        torch.cuda.synchronize()
+        got = {k: w.launches for k, w in wrappers.items()}
+        batched_launches[n] = got
+        expect = {"batched_lu_swap": 3, "batched_lu_noswap": 1, "batched_solve": 3}
+        rec = dict(batch=BATCH_B, n=n, dtype="float32", launches=got,
+                   expected_launches=expect)
+        # what the path's launches returned, against the plain versions on
+        # the same inputs at this size
+        fp, ipivp, permp, infop = bk.batched_lu_plain(A, True, True)
+        fn, permn, infon = bk.batched_lu_noswap_plain(A, True)
+        infozp = bk.batched_lu_plain(Z, True, False)[3]
+        xp1 = bk.batched_solve_plain(f1, b, perm=perm1)
+        xp2 = bk.batched_solve_plain(f2, b3, perm=rt.batched_ipiv_to_perm(ipiv2, n))
+        xp3 = bk.batched_solve_plain(f3, b, perm=perm3)
+        rec["plain_equal"] = {
+            "swap_ipiv_perm_info": bool(
+                torch.equal(ipiv2, ipivp) and torch.equal(perm1, permp)
+                and torch.equal(info1, infop) and torch.equal(info2, infop)
+                and torch.equal(infoz, infozp)),
+            "swap_bitwise": same_bits(f1, fp) and same_bits(f2, fp),
+            "noswap_perm_info": bool(torch.equal(perm3, permn) and torch.equal(info3, infon)),
+            "noswap_bitwise": same_bits(f3, fn),
+            "solve_bitwise": same_bits(x1, xp1) and same_bits(x2, xp2) and same_bits(x3, xp3),
+        }
+        full_err[n] = {
+            "batched_lu_swap": max(abs_err(f1, fp), abs_err(f2, fp)),
+            "batched_lu_noswap": abs_err(f3, fn),
+            "batched_solve": max(abs_err(x1, xp1), abs_err(x2, xp2), abs_err(x3, xp3)),
+        }
+        rec["max_abs_err_vs_plain"] = full_err[n]
+        del fp, fn, xp1, xp2, xp3
+        for name, f, perm in (("factor_perm", f1, perm1),
+                              ("factor", f2, rt.batched_ipiv_to_perm(ipiv2, n)),
+                              ("noswap", f3, perm3)):
+            r, g = batch_resid(A, f, perm)
+            rec[f"{name}_scaled_resid_max"] = float((r / (g / 20)).max())
+            rec[f"{name}_resid_ok"] = bool((r < g).all())
+        # The library is the oracle of the pivot rule.  In f64 its pivots
+        # must equal the kernel's in every matrix.  In f32 it rounds
+        # otherwise (blocked, fused multiply-adds), which flips the choice
+        # between two candidates that agree to rounding in a handful of
+        # the 10 000 x n decisions: hold the count of such matrices at 10,
+        # in each of them the two candidates of the first differing step
+        # within n eps max|column| of each other (after an f64
+        # elimination by the pivots both share), and every multiplier at
+        # |l| <= 1, which says each choice was the largest entry of the
+        # kernel's own column.
+        _, ipiv64, _ = rt.batched_lu_factor(A.double())
+        lib_piv64 = torch.linalg.lu_factor_ex(A.double())[1] - 1
+        rec["ipiv_equals_library_f64"] = bool(torch.equal(ipiv64, lib_piv64.int()))
+        differ = int((ipiv2 != lib_piv.int()).any(dim=1).sum())
+        rec["ipiv_f32_matrices_differing_from_library"] = differ
+        gaps = []
+        for i in (ipiv2 != lib_piv.int()).any(dim=1).nonzero().flatten().tolist()[:10]:
+            k, gap = first_choice_gap(A[i], ipiv2[i].cpu(), lib_piv[i].cpu())
+            gaps.append({"matrix": i, "step": k, "gap": gap})
+        rec["ipiv_f32_first_differences"] = gaps
+        tie_gate = n * torch.finfo(torch.float32).eps
+        rec["ipiv_f32_close_to_library"] = differ <= 10 and all(
+            g["gap"] <= tie_gate for g in gaps)
+        rec["multipliers_at_most_one"] = bool((torch.tril(f2, -1).abs() <= 1).all())
+        rec["info_zero_on_randn"] = bool(
+            (info1 == 0).all() and (info2 == 0).all() and (info3 == 0).all())
+        rec["info_exact_on_zeroed_columns"] = bool(torch.equal(infoz, want_info))
+        sr = [batch_solve_resid(A, x1, b), batch_solve_resid(A, x2[:, :, 1], b3[:, :, 1]),
+              batch_solve_resid(A, x3, b)]
+        rec["solve_rel_resid_max"] = [float(t.max()) for t in sr]
+        rec["solve_finite"] = all(bool(torch.isfinite(t).all()) for t in sr)
+        # the library-route solve (trans) under the caller's TF32 setting
+        watch = TF32Watch()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with watch:
+            xt = rt.batched_lu_solve_perm(f1, perm1, b, trans="T")
+            torch.cuda.synchronize()
+        restored = torch.backends.cuda.matmul.allow_tf32 is True
+        torch.backends.cuda.matmul.allow_tf32 = tf32_before
+        rt_res = batch_solve_resid(A.mT, xt, b)
+        rec.update(trans_solve_rel_resid_max=float(rt_res.max()),
+                   trans_solve_watched=len(watch.flags),
+                   trans_solve_tf32_seen=any(watch.flags), tf32_restored=restored)
+        emit("batched", **rec)
+        if got != expect:
+            fail(f"batched kernels launched {got}, expected {expect}")
+        if not all(rec["plain_equal"].values()):
+            fail(f"batched path at n={n} disagrees with the plain versions: "
+                 f"{rec['plain_equal']}")
+        for key in ("factor_perm_resid_ok", "factor_resid_ok", "noswap_resid_ok",
+                    "ipiv_equals_library_f64", "ipiv_f32_close_to_library",
+                    "multipliers_at_most_one", "info_zero_on_randn",
+                    "info_exact_on_zeroed_columns", "solve_finite", "tf32_restored"):
+            if not rec[key]:
+                fail(f"batched path at n={n}: {key} is false")
+        if watch.flags == [] or any(watch.flags) or not np.isfinite(rec["trans_solve_rel_resid_max"]):
+            fail(f"library-route solve: TF32 flags {watch.flags}, residual "
+                 f"{rec['trans_solve_rel_resid_max']}")
+        del A, b, b3, Z, f1, f2, f3, x1, x2, x3, xt
+
     # ---- 4. timing -------------------------------------------------------
     def timed(fn, setup=None, reps=5, warm=2):
         ts = []
@@ -316,20 +672,25 @@ def main(argv):
         kernel_rows.append(row)
         emit("timing", what="panel_kernel", card=card, **row)
 
-    def round_robin(fns, rounds=7, warm=1):
+    def round_robin(fns, rounds=7, warm=1, inner=1):
         """Median CUDA-event ms of each callable, run in turns (every
-        round calls each once), so host noise spreads over all of them."""
+        round times each once), so host noise spreads over all of them.
+        With ``inner`` > 1 a turn queues the callable that many times
+        between its two events and the time is per call: the device stays
+        fed and the host's launch latency falls out of a sub-millisecond
+        kernel's time."""
         ts = {k: [] for k in fns}
         for r in range(warm + rounds):
             for k, fn in fns.items():
                 e0 = torch.cuda.Event(enable_timing=True)
                 e1 = torch.cuda.Event(enable_timing=True)
                 e0.record()
-                fn()
+                for _ in range(inner):
+                    fn()
                 e1.record()
                 torch.cuda.synchronize()
                 if r >= warm:
-                    ts[k].append(e0.elapsed_time(e1))
+                    ts[k].append(e0.elapsed_time(e1) / inner)
         return {k: sorted(v)[len(v) // 2] for k, v in ts.items()}
 
     def e2e(n):
@@ -361,9 +722,10 @@ def main(argv):
     with torch.no_grad():
         e2e(1536)
         e2e(4096)
-        # the routing defaults: panel width, whole-vs-blocked crossover
-        # (small_threshold) and the recursive tail, in turns per size
-        for n in (1024, 1536, 2048, 4096):
+        # the routing defaults of utils/config.py: panel width, whole-vs-
+        # blocked crossover (small_threshold) and the recursive tail, in
+        # turns per size
+        for n in ((1024, 1536, 2048, 4096) if "--sweep" in argv else ()):
             M = torch.randn(n, n, generator=gen).to(dev)
             cfgs = {("blocked", w, None): rt.LUConfig(panel_width=w, small_threshold=0)
                     for w in (64, 128, 256, 512, 1024)}
@@ -379,12 +741,81 @@ def main(argv):
                 emit("timing", what="sweep", card=card, n=n, route=route,
                      panel_width=w, tail_threshold=tail, factor_ms=ms)
 
+        # ---- 4b. the batched kernels, in turns beside the library ---------
+        batched_rows = {}
+        for n in (16, 32, 64, 128):
+            A = torch.randn(BATCH_B, n, n, generator=gen).to(dev)
+            b = torch.randn(BATCH_B, n, generator=gen).to(dev)
+            f, perm, _ = rt.batched_lu_factor_perm(A)
+            _, ipiv, _ = rt.batched_lu_factor(A)
+            rhs = b.gather(1, perm.long())
+            lib_lu, lib_piv, _ = torch.linalg.lu_factor_ex(A)
+            ident = torch.arange(1, n + 1, dtype=lib_piv.dtype, device=dev).repeat(BATCH_B, 1)
+
+            def lib_fs():
+                LU_, piv, _ = torch.linalg.lu_factor_ex(A)
+                torch.linalg.lu_solve(LU_, piv, b[:, :, None])
+
+            t = round_robin({
+                "swap": lambda: bk.batched_lu_cuda(A, True, True),
+                "swap_no_perm": lambda: bk.batched_lu_cuda(A, True, False),
+                "noswap": lambda: bk.batched_lu_noswap_cuda(A, True),
+                "solve": lambda: bk.batched_solve_cuda(f, rhs),
+                "solve_with_perm": lambda: bk.batched_solve_cuda(f, b, perm=perm),
+                "solve_with_ipiv": lambda: bk.batched_solve_cuda(f, b, ipiv=ipiv),
+                "perm_factor_solve": lambda: rt.batched_lu_solve_perm(
+                    *rt.batched_lu_factor_perm(A)[:2], b),
+                "ipiv_factor_solve": lambda: rt.batched_lu_solve(
+                    *rt.batched_lu_factor(A)[:2], b),
+                "ipiv_to_perm": lambda: rt.batched_ipiv_to_perm(ipiv, n),
+                "library_factor": lambda: torch.linalg.lu_factor_ex(A),
+                # the same function as the solve kernel: no row exchange
+                "library_solve": lambda: torch.linalg.lu_solve(f, ident, rhs[:, :, None]),
+                "library_solve_with_pivots": lambda: torch.linalg.lu_solve(
+                    lib_lu, lib_piv, b[:, :, None]),
+                "library_factor_solve": lib_fs,
+            }, inner=4)
+            plain = {
+                "swap": timed(lambda: bk.batched_lu_plain(A, True, True), reps=1, warm=0)[0],
+                "noswap": timed(lambda: bk.batched_lu_noswap_plain(A, True), reps=1, warm=0)[0],
+                "solve": timed(lambda: bk.batched_solve_plain(f, rhs), reps=1, warm=0)[0],
+            }
+            bounds = {
+                "swap": batched_lu_bound(BATCH_B, n, n, "float32", 4),
+                "noswap": batched_lu_bound(BATCH_B, n, n, "float32", 4),
+                "solve": batched_solve_bound(BATCH_B, n, 1, "float32", 4),
+            }
+            batched_rows[n] = dict(t=t, plain=plain, bounds=bounds)
+            emit("timing", what="batched", card=card, batch=BATCH_B, n=n,
+                 dtype="float32", kernel_ms=t, plain_ms=plain,
+                 bound_ms={k: v[0] for k, v in bounds.items()},
+                 bound_by={k: v[1] for k, v in bounds.items()},
+                 launches_per_timing=4,
+                 noswap_over_swap=t["noswap"] / t["swap"])
+            del A, b, f, rhs, lib_lu
+
+        # f64 at the main size: the same kernels on the card's f64 units
+        A = torch.randn(BATCH_B, 64, 64, generator=gen, dtype=torch.float64).to(dev)
+        b = torch.randn(BATCH_B, 64, generator=gen, dtype=torch.float64).to(dev)
+        f, perm, _ = rt.batched_lu_factor_perm(A)
+        t = round_robin({
+            "swap": lambda: bk.batched_lu_cuda(A, True, True),
+            "noswap": lambda: bk.batched_lu_noswap_cuda(A, True),
+            "solve_with_perm": lambda: bk.batched_solve_cuda(f, b, perm=perm),
+            "library_factor": lambda: torch.linalg.lu_factor_ex(A),
+        }, inner=4)
+        emit("timing", what="batched", card=card, batch=BATCH_B, n=64,
+             dtype="float64", kernel_ms=t, launches_per_timing=4,
+             bound_ms={"swap": batched_lu_bound(BATCH_B, 64, 64, "float64", 8)[0],
+                       "solve_with_perm": batched_solve_bound(BATCH_B, 64, 1, "float64", 8)[0]})
+        del A, b, f
+
     if "--profile" in argv:
         profile(rt, card, gen, dev)
 
     # ---- 5. kernels ------------------------------------------------------
     main_row = kernel_rows[[r["shape"] for r in kernel_rows].index(list(main_shape(1536)[1]))]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "panel_lu",
         "route": "cuda",
         "source": SOURCE,
@@ -398,7 +829,29 @@ def main(argv):
         "library_ms": main_row["library_ms"],
         "shape": main_row["shape"],
         "dtype": "float32",
-    }]}), flush=True)
+    }]
+    row = batched_rows[64]
+    for name, key, lib in (("batched_lu_swap", "swap", "library_factor"),
+                           ("batched_lu_noswap", "noswap", "library_factor"),
+                           ("batched_solve", "solve", "library_solve")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": BATCHED_KERNELS[name][0],
+            "replaces": BATCHED_KERNELS[name][1],
+            "launches": batched_launches[64][name],
+            # against the plain version at this shape, in the batched phase
+            "max_abs_err": full_err[64][name],
+            "max_abs_err_all_cases": max(batched_err[name], full_err[128][name]),
+            "ms": row["t"][key],
+            "plain_ms": row["plain"][key],
+            "bound_ms": row["bounds"][key][0],
+            "bound_by": row["bounds"][key][1],
+            "library_ms": row["t"][lib],
+            "shape": [BATCH_B, 64, 64] if key != "solve" else [BATCH_B, 64, 1],
+            "dtype": "float32",
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

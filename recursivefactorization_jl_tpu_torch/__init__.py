@@ -19,11 +19,20 @@ only with ``device='cpu'``, on the kernel's plain PyTorch version.
     x = solve(A, b)                # one-shot: [A|b] factors as one fat LU
     f, ipiv, info = lu_factor(A)
     F = lu_inplace(A)              # overwrites A with the factors
+
+Batches of small matrices (B, m, n), min(m, n) <= 128, run one more pair
+of hand-written kernels (``csrc/batched_lu.cu``, ``csrc/batched_solve.cu``):
+
+    f, perm, info = batched_lu_factor_perm(A)    # L @ U == A[perm] per matrix
+    x = batched_lu_solve_perm(f, perm, b)        # b: (B, n) or (B, n, k)
+    f, ipiv, info = batched_lu_factor(A)         # the exact LAPACK ipiv
+    x = batched_lu_solve(f, ipiv, b)
 """
 
 from .models.lu import (
     LU,
     SingularMatrixError,
+    batched_from_numpy,
     dispatch_route,
     lu,
     lu_factor,
@@ -32,14 +41,31 @@ from .models.lu import (
     normalize_pivot,
 )
 from .models.solve import ldiv, lu_solve, lu_solve_refined, normalize_trans, solve
+from .parallel import (
+    batched_lu_factor,
+    batched_lu_factor_perm,
+    batched_lu_solve,
+    batched_lu_solve_perm,
+)
 from .utils.config import LUConfig, config_from_mapping, default_config
-from .utils.perm import invert_perm, ipiv_to_perm, perm_to_matrix
+from .utils.perm import (
+    batched_ipiv_to_perm,
+    invert_perm,
+    ipiv_to_perm,
+    perm_to_matrix,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "LU",
     "SingularMatrixError",
+    "batched_from_numpy",
+    "batched_ipiv_to_perm",
+    "batched_lu_factor",
+    "batched_lu_factor_perm",
+    "batched_lu_solve",
+    "batched_lu_solve_perm",
     "dispatch_route",
     "lu",
     "lu_factor",

@@ -53,34 +53,17 @@
 #include <climits>
 #include <cstddef>
 
+#include "rf_common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
+using namespace rf;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsMin = 8;  // fewest rows a block owns
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float rmul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double rmul(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float rsub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double rsub(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float rrcp(float p) { return __fdiv_rn(1.0f, p); }
-__device__ __forceinline__ double rrcp(double p) { return __ddiv_rn(1.0, p); }
-__device__ __forceinline__ float mag(float x) { return fabsf(x); }
-__device__ __forceinline__ double mag(double x) { return fabs(x); }
-
-// Is candidate (va, ia) a better pivot than (vb, ib)?  NaN beats numbers,
-// a larger magnitude beats a smaller one, and the smaller row breaks ties.
-// An empty candidate is (-1, INT_MAX) and loses to every row.
-template <typename T>
-__device__ __forceinline__ bool better(T va, int ia, T vb, int ib) {
-  const bool na = isnan(va), nb = isnan(vb);
-  if (na != nb) return na;
-  if (!na && va != vb) return va > vb;
-  return ia < ib;
-}
 
 template <typename T>
 struct PanelArgs {
@@ -248,12 +231,8 @@ int grid_for(int m, int w, int device, int* grid_out, int* rows_out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = static_cast<size_t>(w) * sizeof(T);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(panel_lu_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  err = opt_in_smem(reinterpret_cast<const void*>(panel_lu_kernel<T>), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -337,10 +316,6 @@ int rf_panel_lu_f64(void* a, int m, int w, int lda, int pivot, void* piv,
                     int device, void* stream) {
   return launch<double>(a, m, w, lda, pivot, piv, perm, info, ws, iws, grid,
                         device, stream);
-}
-
-const char* rf_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

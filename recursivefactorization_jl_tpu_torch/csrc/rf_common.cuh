@@ -1,0 +1,61 @@
+// What the package's kernels share: arithmetic that rounds once per
+// operation, the pivot order, the shared-memory opt-in and the C interface's
+// error text.  Every source under csrc/ includes this header, and
+// ops/_kernels.py hashes it with each of them.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace rf {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// One rounding per product, difference and quotient (with -fmad=false at
+// build time), as in the plain PyTorch versions the kernels are held to.
+__device__ __forceinline__ float rmul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double rmul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float rsub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double rsub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float rdiv(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double rdiv(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float rrcp(float p) { return __fdiv_rn(1.0f, p); }
+__device__ __forceinline__ double rrcp(double p) { return __ddiv_rn(1.0, p); }
+__device__ __forceinline__ float mag(float x) { return fabsf(x); }
+__device__ __forceinline__ double mag(double x) { return fabs(x); }
+
+// Is candidate (va, ia) a better pivot than (vb, ib)?  A NaN beats numbers,
+// a larger magnitude beats a smaller one, the smaller row breaks ties.  The
+// empty candidate is (-1, INT_MAX) and loses to every row.
+template <typename T>
+__device__ __forceinline__ bool better(T va, int ia, T vb, int ib) {
+  const bool na = isnan(va), nb = isnan(vb);
+  if (na != nb) return na;
+  if (!na && va != vb) return va > vb;
+  return ia < ib;
+}
+
+// Dynamic shared memory above 48 KB has to be asked for, per kernel.
+inline cudaError_t opt_in_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// Before a launch: select the device, hold the caller's count of dynamic
+// shared memory (from which it decided that the shape fits) to the kernel's
+// own, and opt in.  Returns a cudaError_t code.
+inline int prepare(const void* kernel, int device, size_t smem, int smem_given) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem != static_cast<size_t>(smem_given)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(opt_in_smem(kernel, smem));
+}
+
+}  // namespace rf
+
+extern "C" const char* rf_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -161,6 +161,19 @@ class LU:
         return lu_solve(self, eye)
 
 
+def batched_from_numpy(factors, ipiv_or_perm, info, device=None):
+    """A batched factorization held in numpy arrays (for example one made
+    by the JAX package) as tensors on ``device`` (None means CUDA):
+    ``(factors (B, m, n), ipiv or perm int32, info int32)``, ready for
+    ``batched_lu_solve`` or ``batched_lu_solve_perm``."""
+    dev = resolve_device(device)
+    return (
+        torch.as_tensor(np.array(factors), device=dev),
+        torch.as_tensor(np.array(ipiv_or_perm, dtype=np.int32), device=dev),
+        torch.as_tensor(np.array(info, dtype=np.int32), device=dev),
+    )
+
+
 _FAST = (torch.float32, torch.float64)
 
 

@@ -3,9 +3,9 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` into a shared library
 with a plain C interface and loaded with ``ctypes``.  Libraries go to
 ``build/kernels/`` beside the package (``.gitignore`` lists ``build/``),
-named by a hash of the source and the flags, so a changed source is
-rebuilt at its first use.  Nothing here runs at import time.  A missing
-``nvcc`` or a failed build raises.
+named by a hash of the source, the header the sources share and the flags,
+so a changed source is rebuilt at its first use.  Nothing here runs at
+import time.  A missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -22,7 +22,12 @@ from typing import Dict, Iterable
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-SOURCES = {"panel_lu": PACKAGE_DIR / "csrc" / "panel_lu.cu"}
+SOURCES = {
+    name: PACKAGE_DIR / "csrc" / f"{name}.cu"
+    for name in ("panel_lu", "batched_lu", "batched_solve")
+}
+# included by every source (nvcc finds it beside them)
+COMMON_HEADER = PACKAGE_DIR / "csrc" / "rf_common.cuh"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -40,6 +45,18 @@ SIGNATURES = {
         "rf_panel_lu_grid": (_I, [_I, _I, _I, _I]),
         "rf_panel_lu_f32": (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P]),
         "rf_panel_lu_f64": (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P]),
+        "rf_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "batched_lu": {
+        "rf_batched_lu_swap_f32": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+        "rf_batched_lu_swap_f64": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+        "rf_batched_lu_noswap_f32": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "rf_batched_lu_noswap_f64": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "rf_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "batched_solve": {
+        "rf_batched_solve_f32": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "rf_batched_solve_f64": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
         "rf_error_string": (ctypes.c_char_p, [_I]),
     },
 }
@@ -68,6 +85,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
+    h.update(COMMON_HEADER.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

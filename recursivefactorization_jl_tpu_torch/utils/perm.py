@@ -22,6 +22,29 @@ def ipiv_to_perm(ipiv: torch.Tensor, m: int) -> torch.Tensor:
     return torch.tensor(perm, dtype=torch.int32, device=ipiv.device)
 
 
+def batched_ipiv_to_perm(ipiv: torch.Tensor, m: int) -> torch.Tensor:
+    """:func:`ipiv_to_perm` for a batch: ``ipiv`` (B, k) -> ``perm``
+    (B, m) int32.  One step per pivot, vectorised over the batch, with no
+    host read, so it runs on the card without synchronising."""
+    B, steps = ipiv.shape
+    piv = ipiv.long()
+    perm = torch.arange(m, dtype=torch.int32, device=ipiv.device).repeat(B, 1)
+    for i in range(steps):
+        j = piv[:, i : i + 1]
+        pi = perm[:, i : i + 1].clone()
+        perm[:, i : i + 1] = perm.gather(1, j)
+        perm.scatter_(1, j, pi)
+    return perm
+
+
+def batched_invert_perm(perm: torch.Tensor) -> torch.Tensor:
+    """Inverse of each row permutation of ``perm`` (B, n)."""
+    inv = torch.empty_like(perm)
+    src = torch.arange(perm.shape[1], dtype=perm.dtype, device=perm.device)
+    inv.scatter_(1, perm.long(), src.expand_as(perm))
+    return inv
+
+
 def invert_perm(perm: torch.Tensor) -> torch.Tensor:
     """Inverse permutation: ``inv[perm[i]] = i``."""
     n = perm.shape[0]

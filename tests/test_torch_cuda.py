@@ -1,7 +1,7 @@
-"""The port's Hopper kernel and main path on a CUDA card.
+"""The port's Hopper kernels and main paths on a CUDA card.
 
 Every test here carries the ``cuda`` marker and skips without a card (the
-kernel has no CPU mode).  The file imports neither JAX nor the JAX
+kernels have no CPU mode).  The file imports neither JAX nor the JAX
 package, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import recursivefactorization_jl_tpu_torch as rt
+from recursivefactorization_jl_tpu_torch.ops import batched_kernel as bk
 from recursivefactorization_jl_tpu_torch.ops.panel import panel_factor_cuda
 from recursivefactorization_jl_tpu_torch.ops.unblocked import unblocked_lu
 
@@ -115,3 +116,186 @@ def test_solve_and_inplace_on_the_card():
     A[:, 5] = 0
     with pytest.raises(rt.SingularMatrixError):
         rt.lu(A)
+
+
+# ---------------------------------------------------------------------------
+# the batched kernels: swap, noswap, solve
+# ---------------------------------------------------------------------------
+
+
+def _batch(seed, B, m, n, dtype, pivot, ties=False):
+    g = torch.Generator().manual_seed(seed)
+    if ties:
+        return torch.randint(-2, 3, (B, m, n), generator=g).to(dtype).cuda()
+    A = torch.randn(B, m, n, generator=g, dtype=dtype)
+    if not pivot:
+        A += max(m, n) * torch.eye(m, n, dtype=dtype)
+    A[B // 2, :, min(m, n) // 2] = 0  # a zero pivot in one matrix of the batch
+    return A.cuda()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("shape", [(3, 1, 1), (37, 7, 3), (37, 16, 16), (101, 64, 64),
+                                   (5, 128, 128), (9, 40, 96), (9, 300, 24)])
+def test_batched_swap_kernel_bitwise_equals_plain(dtype, pivot, shape):
+    need_cuda()
+    B, m, n = shape
+    A = _batch(11, B, m, n, dtype, pivot)
+    keep = A.clone()
+    f, ipiv, perm, info = bk.batched_lu_plain(A, pivot, True)
+    before = bk.batched_lu_cuda.launches
+    kf, kipiv, kperm, kinfo = bk.batched_lu_cuda(A, pivot, True)
+    torch.cuda.synchronize()
+    assert bk.batched_lu_cuda.launches == before + 1
+    assert torch.equal(A, keep)  # the input is read, not written
+    assert torch.equal(kipiv, ipiv) and torch.equal(kperm, perm)
+    assert torch.equal(kperm, rt.batched_ipiv_to_perm(kipiv, m))
+    assert torch.equal(kinfo, info)
+    want = torch.zeros(B, dtype=torch.int32)
+    want[B // 2] = (min(m, n) // 2 + 1) * (1 if pivot else -1)
+    assert torch.equal(kinfo.cpu(), want)
+    assert torch.equal(_bits(kf), _bits(f))
+    assert bk.batched_lu_cuda(A, pivot, False)[2] is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [16, 64, 128])
+def test_batched_kernels_on_exact_ties(dtype, n):
+    need_cuda()
+    A = _batch(12, 23, n, n, dtype, True, ties=True)
+    f, ipiv, perm, info = bk.batched_lu_plain(A, True, True)
+    kf, kipiv, kperm, kinfo = bk.batched_lu_cuda(A, True, True)
+    assert torch.equal(kipiv, ipiv) and torch.equal(kperm, perm) and torch.equal(kinfo, info)
+    assert torch.equal(_bits(kf), _bits(f))
+    f, perm, info = bk.batched_lu_noswap_plain(A, True)
+    kf, kperm, kinfo = bk.batched_lu_noswap_cuda(A, True)
+    assert torch.equal(kperm, perm) and torch.equal(kinfo, info)
+    assert torch.equal(_bits(kf), _bits(f))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("shape", [(3, 1, 1), (37, 16, 16), (101, 64, 64), (5, 128, 128)])
+def test_batched_noswap_kernel_bitwise_equals_plain(dtype, pivot, shape):
+    need_cuda()
+    B, n, _ = shape
+    A = _batch(13, B, n, n, dtype, pivot)
+    f, perm, info = bk.batched_lu_noswap_plain(A, pivot)
+    before = bk.batched_lu_noswap_cuda.launches
+    kf, kperm, kinfo = bk.batched_lu_noswap_cuda(A, pivot)
+    torch.cuda.synchronize()
+    assert bk.batched_lu_noswap_cuda.launches == before + 1
+    assert torch.equal(kperm, perm) and torch.equal(kinfo, info)
+    assert int(kinfo[B // 2]) != 0 and int((kinfo != 0).sum()) == 1
+    assert torch.equal(_bits(kf), _bits(f))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nrhs", [None, 1, 5])
+@pytest.mark.parametrize("shape", [(3, 1), (37, 16), (101, 64), (5, 128)])
+def test_batched_solve_kernel_bitwise_equals_plain(dtype, nrhs, shape):
+    need_cuda()
+    B, n = shape
+    g = torch.Generator().manual_seed(14)
+    A = torch.randn(B, n, n, generator=g, dtype=dtype).cuda()
+    b = torch.randn((B, n) if nrhs is None else (B, n, nrhs), generator=g, dtype=dtype).cuda()
+    f, ipiv, perm, info = bk.batched_lu_cuda(A, True, True)
+    assert int((info != 0).sum()) == 0
+    x = bk.batched_solve_plain(f, b)
+    before = bk.batched_solve_cuda.launches
+    kx = bk.batched_solve_cuda(f, b)
+    torch.cuda.synchronize()
+    assert bk.batched_solve_cuda.launches == before + 1
+    assert kx.shape == b.shape
+    assert torch.equal(_bits(kx.contiguous()), _bits(x.contiguous()))
+    # the row order applied inside the kernel: by perm, or by the ipiv swaps
+    xp = bk.batched_solve_plain(f, b, perm=perm)
+    for kw in ({"perm": perm}, {"ipiv": ipiv}, {"perm": perm.long()}):
+        kx = bk.batched_solve_cuda(f, b, **kw)
+        assert torch.equal(_bits(kx.contiguous()), _bits(xp.contiguous()))
+    rel = (torch.bmm(A, xp.reshape(B, n, -1)) - b.reshape(B, n, -1)).abs().max()
+    assert float(rel) < (1e-1 if dtype == torch.float32 else 1e-8)
+
+
+def test_batched_kernels_copy_strided_input_and_reject_the_rest():
+    """A strided batch is copied (not refused); f16, n = 129, 2-D, CPU
+    and non-square (noswap, solve) inputs raise ValueError."""
+    need_cuda()
+    g = torch.Generator().manual_seed(15)
+    S = torch.randn(9, 24, 48, generator=g).cuda()[:, :, ::2]
+    assert not S.is_contiguous()
+    assert torch.equal(bk.batched_lu_cuda(S)[0], bk.batched_lu_plain(S)[0])
+    assert torch.equal(bk.batched_lu_noswap_cuda(S)[0], bk.batched_lu_noswap_plain(S)[0])
+    f = bk.batched_lu_cuda(S)[0]
+    bT = torch.randn(24, 9, generator=g).cuda().T
+    assert torch.equal(bk.batched_solve_cuda(f, bT), bk.batched_solve_plain(f, bT))
+    for bad in (torch.zeros(4, 8, 8, device="cuda", dtype=torch.float16),
+                torch.zeros(4, 129, 129, device="cuda"),
+                torch.zeros(8, 8, device="cuda"),
+                torch.zeros(4, 8, 8)):
+        with pytest.raises(ValueError):
+            bk.batched_lu_cuda(bad)
+        with pytest.raises(ValueError):
+            bk.batched_lu_noswap_cuda(bad)
+    with pytest.raises(ValueError):
+        bk.batched_lu_noswap_cuda(torch.zeros(4, 8, 9, device="cuda"))
+    with pytest.raises(ValueError):
+        bk.batched_solve_cuda(torch.zeros(4, 8, 9, device="cuda"), torch.zeros(4, 8, device="cuda"))
+    with pytest.raises(ValueError):
+        bk.batched_solve_cuda(torch.zeros(4, 129, 129, device="cuda"),
+                              torch.zeros(4, 129, device="cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_public_path_on_the_card(dtype):
+    """The four public functions launch the kernels (one launch per call)
+    and agree with the CPU route: the same pivots, factors bitwise."""
+    need_cuda()
+    rng = np.random.default_rng(16)
+    B, n = 200, 48
+    A = rng.standard_normal((B, n, n))
+    b = rng.standard_normal((B, n, 2))
+    At = torch.tensor(A, dtype=dtype)
+    bt = torch.tensor(b, dtype=dtype)
+    for w in (bk.batched_lu_cuda, bk.batched_solve_cuda):
+        w.launches = 0
+    f, perm, info = rt.batched_lu_factor_perm(At)
+    x = rt.batched_lu_solve_perm(f, perm, bt)
+    f2, ipiv, _ = rt.batched_lu_factor(At)
+    x2 = rt.batched_lu_solve(f2, ipiv, bt[:, :, 0])
+    assert f.is_cuda and x.is_cuda
+    assert bk.batched_lu_cuda.launches == 2 and bk.batched_solve_cuda.launches == 2
+    cf, cperm, cinfo = rt.batched_lu_factor_perm(At, device="cpu")
+    assert torch.equal(perm.cpu(), cperm) and torch.equal(info.cpu(), cinfo)
+    assert torch.equal(_bits(f.cpu()), _bits(cf))
+    assert torch.equal(rt.batched_ipiv_to_perm(ipiv, n), perm)
+    r = np.einsum("bij,bjk->bik", A, x.cpu().double().numpy()) - b
+    assert float(np.abs(r).max()) < (1e-2 if dtype == torch.float32 else 1e-9)
+    assert torch.equal(x2, x[:, :, 0])
+    xt = rt.batched_lu_solve_perm(f, perm, bt[:, :, 0], trans="T")  # library route
+    rt_ = np.einsum("bji,bj->bi", A, xt.cpu().double().numpy()) - b[:, :, 0]
+    assert float(np.abs(rt_).max()) < (1e-2 if dtype == torch.float32 else 1e-9)
+
+
+def test_batched_library_routes_on_the_card():
+    """n = 129 is past the kernels: pivoted batches go to batched
+    torch.linalg.lu_factor_ex, unpivoted ones loop lu_factor_p, solves run
+    batched triangular solves; no batched kernel launches."""
+    need_cuda()
+    rng = np.random.default_rng(17)
+    B, n = 3, 129
+    A = rng.standard_normal((B, n, n)) + n * np.eye(n)
+    At = torch.tensor(A, dtype=torch.float32)
+    b = torch.tensor(rng.standard_normal((B, n)), dtype=torch.float32)
+    for w in (bk.batched_lu_cuda, bk.batched_lu_noswap_cuda, bk.batched_solve_cuda):
+        w.launches = 0
+    for pivot in (True, False):
+        f, perm, info = rt.batched_lu_factor_perm(At, pivot)
+        x = rt.batched_lu_solve_perm(f, perm, b, pivot)
+        assert int((info != 0).sum()) == 0
+        r = np.einsum("bij,bj->bi", A, x.cpu().double().numpy()) - b.double().numpy()
+        assert float(np.abs(r).max()) < 1e-3
+    assert bk.batched_lu_cuda.launches == bk.batched_solve_cuda.launches == 0
+    with pytest.raises(ValueError):
+        rt.batched_lu_factor(At, config=rt.LUConfig(backend="pallas"))

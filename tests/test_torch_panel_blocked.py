@@ -192,5 +192,13 @@ def test_library_name_follows_source_hash(monkeypatch, tmp_path):
     monkeypatch.setitem(_kernels.SOURCES, "probe", src)
     first = _kernels.library_path("probe")
     src.write_text("// b\n")
-    assert _kernels.library_path("probe") != first
+    second = _kernels.library_path("probe")
+    assert second != first
     assert first.parent == _kernels.BUILD_DIR
+    # the header every source includes is part of the name too
+    header = tmp_path / "common.cuh"
+    header.write_bytes(_kernels.COMMON_HEADER.read_bytes())
+    monkeypatch.setattr(_kernels, "COMMON_HEADER", header)
+    assert _kernels.library_path("probe") == second
+    header.write_text("// changed\n")
+    assert _kernels.library_path("probe") != second
