@@ -48,6 +48,26 @@ The batched small-matrix path adds, in the same order:
             B = 10 000, in turns beside torch.linalg.lu_factor_ex and
             lu_solve; the plain versions once.
 
+The complex and half-precision path adds:
+
+2c. kernel  the complex panel kernel (csrc/panel_lu_c64.cu) against its
+            plain version on the real and imaginary planes: complex64 and
+            complex128, the main path's panel shapes, a whole 512 x 512
+            matrix, a ragged tall and a fat panel, pivot on/off, a zeroed
+            column, exact CABS1 ties, a NaN candidate: ipiv, perm and
+            info equal, factors bitwise equal;
+3c. main    ``lu`` + ``lu_solve`` (N, T, H) on complex64 at n=1536 (the
+            entry matrix, plain randn, a zeroed column) and n=4096, on
+            complex128 at 1536, and on bfloat16/float16 at 1536 through
+            the promote route: the residual gate with the type's eps,
+            info, SingularMatrixError under check, launch counts, no TF32
+            product, pivots against torch.linalg.lu_factor_ex (where they
+            part, the two candidates of the first differing step must tie
+            to n*eps in a complex128 elimination), half pivots equal to
+            the float32 run's;
+4c. timing  the complex kernel per panel shape, complex64 factor and
+            factor+solve at 1536/4096 in turns beside the library.
+
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
 before it, and the exit code is not 0.  Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -55,6 +75,8 @@ package beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -62,10 +84,13 @@ import sys
 import time
 
 # H100 SXM data-sheet peaks (dense, outside the tensor cores for f32/f64)
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12,
+              "complex64": 67e12, "complex128": 34e12}
 PEAK_BYTES = 3.35e12
 SOURCE = "recursivefactorization_jl_tpu_torch/csrc/panel_lu.cu"
 REPLACES = "recursivefactorization_jl_tpu/ops/panel.py:411"
+SOURCE_C64 = "recursivefactorization_jl_tpu_torch/csrc/panel_lu_c64.cu"
+REPLACES_C64 = "recursivefactorization_jl_tpu/ops/panel.py:1030"
 BATCHED_KERNELS = {
     "batched_lu_swap": ("recursivefactorization_jl_tpu_torch/csrc/batched_lu.cu",
                         "recursivefactorization_jl_tpu/ops/batched_kernel.py:78"),
@@ -92,6 +117,27 @@ def fail(msg):
     raise AssertionError(msg)
 
 
+@contextlib.contextmanager
+def quiet_c_stdout():
+    """Send the C library's stdout to the null device for the block.  The
+    linear-algebra library behind ``torch.linalg.lu_factor_ex`` prints a
+    size warning from some of its batched routines, which would land
+    between the JSON lines."""
+    libc = ctypes.CDLL(None)
+    sys.stdout.flush()
+    libc.fflush(None)
+    saved = os.dup(1)
+    null = os.open(os.devnull, os.O_WRONLY)
+    os.dup2(null, 1)
+    try:
+        yield
+    finally:
+        libc.fflush(None)
+        os.dup2(saved, 1)
+        os.close(saved)
+        os.close(null)
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -101,17 +147,20 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def panel_flops_bytes(m, w, itemsize):
+def panel_flops_bytes(m, w, itemsize, cplx=False):
     """Operations and bytes of one (m, w) panel LU: the scale and the
-    rank-1 updates; the panel read and written once plus the outputs."""
+    rank-1 updates; the panel read and written once plus the outputs.  A
+    complex multiply is 6 real operations, a multiply-subtract 8."""
     minmn = min(m, w)
-    flops = sum((m - k - 1) + 2 * (m - k - 1) * (w - k - 1) for k in range(minmn))
+    scale, update = (6, 8) if cplx else (1, 2)
+    flops = sum(scale * (m - k - 1) + update * (m - k - 1) * (w - k - 1)
+                for k in range(minmn))
     nbytes = 2 * m * w * itemsize + 4 * (minmn + m + 1)
     return flops, nbytes
 
 
 def bound(m, w, dtype_name, itemsize):
-    flops, nbytes = panel_flops_bytes(m, w, itemsize)
+    flops, nbytes = panel_flops_bytes(m, w, itemsize, dtype_name.startswith("complex"))
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
@@ -158,8 +207,8 @@ def device_rows(prof):
 
 
 def profile(rt, card, gen, dev):
-    """Device time by kernel over one factor + solve at 1536 and 4096, and
-    over one batched factor + solve of 10 000 matrices at n = 64 and 128
+    """Device time by kernel over one factor + solve at 1536 and 4096 in
+    float32 and complex64, and over one batched factor + solve of 10 000 matrices at n = 64 and 128
     (torch.profiler), and the device's idle share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity
@@ -185,10 +234,14 @@ def profile(rt, card, gen, dev):
              top=[{"ms": r[0], "calls": r[1], "name": r[2]} for r in rows[:12]],
              **what)
 
-    for n in (1536, 4096):
-        M = torch.randn(n, n, generator=gen).to(dev)
-        v = torch.randn(n, generator=gen).to(dev)
-        run(lambda: rt.lu(M, check=False), lambda F: rt.lu_solve(F, v), n=n)
+    for n, dt in ((1536, torch.float32), (4096, torch.float32),
+                  (1536, torch.complex64), (4096, torch.complex64)):
+        M = torch.randn(n, n, generator=gen).to(dev).to(dt)
+        v = torch.randn(n, generator=gen).to(dev).to(dt)
+        if dt.is_complex:
+            M = M + 1j * torch.randn(n, n, generator=gen).to(dev)
+        run(lambda: rt.lu(M, check=False), lambda F: rt.lu_solve(F, v), n=n,
+            dtype=str(dt)[6:])
     for n in (64, 128):
         A = torch.randn(BATCH_B, n, n, generator=gen).to(dev)
         b = torch.randn(BATCH_B, n, generator=gen).to(dev)
@@ -210,9 +263,15 @@ def main(argv):
 
     import recursivefactorization_jl_tpu_torch as rt
     from recursivefactorization_jl_tpu_torch.ops import _kernels
-    from recursivefactorization_jl_tpu_torch.ops.panel import panel_factor_cuda
+    from recursivefactorization_jl_tpu_torch.ops.panel import (
+        panel_factor_c64_cuda,
+        panel_factor_cuda,
+    )
     from recursivefactorization_jl_tpu_torch.ops import batched_kernel as bk
-    from recursivefactorization_jl_tpu_torch.ops.unblocked import unblocked_lu
+    from recursivefactorization_jl_tpu_torch.ops.unblocked import (
+        unblocked_lu,
+        unblocked_lu_cabs1,
+    )
 
     quick = "--quick" in argv
     if "--log" in argv:
@@ -283,6 +342,69 @@ def main(argv):
             fail(f"kernel disagrees with its plain version: {same}")
         if name == "zero_col" and int(info_k) == 0:
             fail("zeroed column gave info 0")
+    # ---- 2c. the complex kernel vs plain ---------------------------------
+    def crandn(m, w, dt):
+        real = torch.float32 if dt == torch.complex64 else torch.float64
+        return torch.complex(torch.randn(m, w, generator=gen, dtype=real),
+                             torch.randn(m, w, generator=gen, dtype=real))
+
+    def cbits(t):
+        return bits(torch.view_as_real(t).contiguous())
+
+    c64, c128 = torch.complex64, torch.complex128
+    ccases = []
+    for (m, w) in shapes:  # the main path's panels: the plain version once per case
+        ccases += [((m, w), c64, "randn", True), ((m, w), c64, "zero_col", True),
+                   ((m, w), c128, "randn", True)]
+    ccases += [((512, 512), c64, "randn", True), ((512, 512), c64, "randn", False),
+               ((512, 512), c128, "zero_col", False)]
+    for (m, w) in ((777, 130), (130, 300)):  # ragged tall, fat
+        for dt in (c64, c128):
+            ccases += [((m, w), dt, "randn", True), ((m, w), dt, "randn", False),
+                       ((m, w), dt, "zero_col", True), ((m, w), dt, "ties", True),
+                       ((m, w), dt, "nan", True)]
+    max_err_c = 0.0
+    for (m, w), dt, name, pivot in ccases:
+        X = crandn(m, w, dt)
+        if name == "ties":
+            real = X.real.dtype
+            X = torch.complex(torch.randint(-2, 3, (m, w), generator=gen).to(real),
+                              torch.randint(-2, 3, (m, w), generator=gen).to(real))
+        if not pivot:
+            X += max(m, w) * torch.eye(m, w, dtype=dt)
+        if name == "zero_col":
+            X[:, min(5, w - 1)] = 0
+        if name == "nan":
+            X[m // 2, 7] = complex(float("nan"), 1.0)
+        A = X.to(dev)
+        f_p, piv_p, perm_p, info_p = unblocked_lu_cabs1(A, pivot)
+        P = A.clone()
+        piv_k, perm_k, info_k = panel_factor_c64_cuda(P, pivot)
+        torch.cuda.synchronize()
+        same = {
+            "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
+            "perm_equal": bool(torch.equal(perm_k, perm_p)),
+            "info_equal": int(info_k) == int(info_p),
+            "bitwise": bool(torch.equal(cbits(P), cbits(f_p))),
+        }
+        if name == "nan":
+            same["nan_rows_pivot_last"] = bool((piv_k[7:] == m - 1).all())
+        err = float(torch.view_as_real(P - f_p).abs().nan_to_num(0.0, 0.0, 0.0).max())
+        max_err_c = max(max_err_c, err)
+        emit("kernel", kernel="panel_lu_c64", shape=[m, w], dtype=str(dt)[6:],
+             input=name, pivot=pivot, info=int(info_k), max_abs_err=err, **same)
+        if not all(same.values()):
+            fail(f"complex kernel disagrees with its plain version: {same}")
+        if name == "zero_col" and int(info_k) != (6 if pivot else -6):
+            fail(f"zeroed column 5 gave info {int(info_k)}")
+    for bad in (torch.zeros(8, 4, device=dev), torch.zeros(8, 4, dtype=c64),
+                torch.zeros(8, 4, device=dev, dtype=c64).T):
+        try:
+            panel_factor_c64_cuda(bad, True)
+        except ValueError:
+            continue
+        fail(f"panel_factor_c64_cuda took {tuple(bad.shape)} {bad.dtype} {bad.device}")
+
     # ---- 2b. batched kernels vs plain -----------------------------------
     def same_bits(x, y):
         return bool(torch.equal(bits(x.contiguous()), bits(y.contiguous())))
@@ -413,16 +535,18 @@ def main(argv):
                 self.flags.append(torch.backends.cuda.matmul.allow_tf32)
             return func(*args, **(kwargs or {}))
 
+    def wide(t):
+        return t.to(torch.complex128) if t.is_complex() else t.double()
+
     def resid_gate(A, F):
         n = A.shape[0]
         eps = torch.finfo(A.dtype).eps
-        L, U = F.L.double(), F.U.double()
-        r = float((L @ U - A.double()[F.p.long()]).abs().max())
+        r = float((wide(F.L) @ wide(F.U) - wide(A)[F.p.long()]).abs().max())
         g = 20 * n * eps * float(A.abs().max())
         return r, g
 
     def solve_resid(A, x, b):
-        Ad, xd, bd = A.double(), x.double(), b.double()
+        Ad, xd, bd = wide(A), wide(x), wide(b)
         return float((Ad @ xd - bd).norm() / (Ad.norm() * xd.norm()))
 
     rng = np.random.default_rng(0)
@@ -483,6 +607,131 @@ def main(argv):
     if torch.backends.cuda.matmul.allow_tf32 is not True:
         fail("the caller's TF32 setting was not restored")
     torch.backends.cuda.matmul.allow_tf32 = tf32_before
+
+    # ---- 3c. the complex and half-precision path -------------------------
+    def cabs1(t):
+        return t.real.abs() + t.imag.abs()
+
+    def first_choice_gap_cabs1(A, piv_a, piv_b):
+        """Two pivot sequences of one complex matrix part at step k.
+        Eliminate k steps in complex128 on the card with the pivots they
+        share and return k and ||c[a]| - |c[b]|| / max|c| (CABS1) for the
+        two rows chosen there from column k."""
+        k = int((piv_a != piv_b).nonzero()[0])
+        M = A.to(torch.complex128).clone()
+        for j, pj in enumerate(piv_a[:k].tolist()):
+            if pj != j:
+                M[[j, pj]] = M[[pj, j]]
+            M[j + 1:, j] /= M[j, j]
+            M[j + 1:, j + 1:] -= torch.outer(M[j + 1:, j], M[j, j + 1:])
+        c = cabs1(M[:, k])
+        return k, float((c[int(piv_a[k])] - c[int(piv_b[k])]).abs() / c[k:].max())
+
+    def cnormal(shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+    n = 1536
+    zsing = cnormal((n, n))
+    zsing[:, zc] = 0.0
+    cmats = [
+        ("entry", torch.complex64, cnormal((n, n)) + n * np.eye(n)),
+        ("randn", torch.complex64, cnormal((n, n))),
+        ("zero_col", torch.complex64, zsing),
+        ("randn", torch.complex64, cnormal((4096, 4096))),
+        ("randn", torch.complex128, cnormal((n, n))),
+        ("entry", torch.bfloat16, rng.standard_normal((n, n)) + n * np.eye(n)),
+        ("entry", torch.float16, rng.standard_normal((n, n)) + n * np.eye(n)),
+    ]
+    del zsing
+    torch.backends.cuda.matmul.allow_tf32 = True  # the port must turn it off
+    launches_c = {}
+    for name, dt, M in cmats:
+        n = M.shape[0]
+        cplx = dt.is_complex
+        A = torch.tensor(M, device=dev).to(dt)
+        bn = cnormal(n) if cplx else rng.standard_normal(n)
+        b = torch.tensor(bn, device=dev).to(dt)
+        route = rt.dispatch_route((n, n), torch.float32, True, cfg)
+        expect = 1 if route == "whole" else -(-n // w_main)
+        watch = TF32Watch()
+        panel_factor_cuda.launches = 0
+        panel_factor_c64_cuda.launches = 0
+        with watch:
+            F = rt.lu(A, check=False)
+            xs = {t: rt.lu_solve(F, b, trans=t) for t in ("N", "T", "H")}
+            torch.cuda.synchronize()
+        got = {"panel_lu": panel_factor_cuda.launches,
+               "panel_lu_c64": panel_factor_c64_cuda.launches}
+        want = {"panel_lu": 0 if cplx else expect, "panel_lu_c64": expect if cplx else 0}
+        launches_c[(n, name, dt)] = got["panel_lu_c64"]
+        r, g = resid_gate(A, F)
+        ops = {"N": A, "T": A.T, "H": A.mH}
+        sr = {t: solve_resid(ops[t], xs[t], b) for t in xs}
+        info = int(F.info)
+        eps = torch.finfo(dt).eps
+        rec = dict(n=n, input=name, dtype=str(dt)[6:], route=route,
+                   dispatch=rt.dispatch_route((n, n), dt, True, cfg), launches=got,
+                   expected_launches=want, resid=r, gate=g,
+                   scaled_resid=r / (n * eps * float(A.abs().max())),
+                   solve_rel_resid=sr, info=info, factors_dtype=str(F.factors.dtype)[6:],
+                   matmuls=len(watch.flags), tf32_seen=any(watch.flags))
+        if cplx:
+            lib_piv = (torch.linalg.lu_factor_ex(A)[1] - 1).int()
+            differ = int((F.ipiv != lib_piv).sum())
+            rec["ipiv_steps_differing_from_library"] = differ
+            rec["ipiv_near_tie_or_equal"] = True
+            if differ and name != "zero_col":
+                k, gap = first_choice_gap_cabs1(A, F.ipiv, lib_piv)
+                rec["ipiv_first_difference"] = {"step": k, "gap": gap}
+                rec["ipiv_near_tie_or_equal"] = gap <= n * eps
+            # the CABS1 maximum bounds the modulus of a multiplier by sqrt(2)
+            rec["multipliers_at_most_sqrt2"] = bool(
+                name == "zero_col"
+                or (torch.tril(F.factors, -1).abs() <= 2 ** 0.5 * (1 + 8 * eps)).all())
+        else:
+            G = rt.lu(A.float(), check=False)
+            rec["pivots_equal_f32_run"] = bool(
+                torch.equal(F.ipiv, G.ipiv) and torch.equal(F.p, G.p))
+            rec["factors_are_rounded_f32_run"] = bool(
+                torch.equal(F.factors, G.factors.to(dt)))
+        if name == "zero_col":
+            try:
+                rt.lu(A, check=True)
+                rec["check_raises"] = False
+            except rt.SingularMatrixError:
+                rec["check_raises"] = True
+        emit("main", **rec)
+        if got != want:
+            fail(f"panel kernels launched {got}, expected {want}")
+        if str(F.factors.dtype) != str(dt):
+            fail(f"factors came back as {F.factors.dtype}, not {dt}")
+        if not r < g:
+            fail(f"residual {r} over the gate {g}")
+        if watch.flags == [] or any(watch.flags):
+            fail(f"TF32 products during the run: {watch.flags[:8]}")
+        if name == "zero_col":
+            if info != zc + 1 or not rec["check_raises"]:
+                fail(f"singular matrix: info {info}, check_raises {rec['check_raises']}")
+            continue
+        if info != 0:
+            fail(f"info {info} on a nonsingular matrix")
+        # entry matrices are well conditioned: hold the solves to the type
+        solve_gate = 100 * eps if name == "entry" else float("inf")
+        if not all(np.isfinite(v) and v < solve_gate for v in sr.values()):
+            fail(f"solve residuals {sr} (gate {solve_gate})")
+        if cplx and not (rec["ipiv_near_tie_or_equal"]
+                         and rec["multipliers_at_most_sqrt2"]):
+            fail(f"pivots part from the library's beyond a tie: {rec}")
+        if dt == torch.complex128 and differ:
+            fail(f"complex128 pivots differ from the library's in {differ} steps")
+        if not cplx and not (rec["pivots_equal_f32_run"]
+                             and rec["factors_are_rounded_f32_run"]):
+            fail(f"promote route differs from the float32 run: {rec}")
+        del A, b, F, xs
+    if torch.backends.cuda.matmul.allow_tf32 is not True:
+        fail("the caller's TF32 setting was not restored")
+    torch.backends.cuda.matmul.allow_tf32 = tf32_before
+    del cmats
 
     # ---- 3b. the batched path -------------------------------------------
     wrappers = {"batched_lu_swap": bk.batched_lu_cuda,
@@ -664,13 +913,33 @@ def main(argv):
         reset = lambda: P.copy_(X)  # noqa: E731
         k_ms, _ = timed(lambda: panel_factor_cuda(P, True), reset, reps=10)
         p_ms, _ = timed(lambda: unblocked_lu(X, True), None, reps=2, warm=1)
-        l_ms, _ = timed(lambda: torch.linalg.lu_factor_ex(P), reset, reps=10)
+        with quiet_c_stdout():
+            l_ms, _ = timed(lambda: torch.linalg.lu_factor_ex(P), reset, reps=10)
         b_ms, b_by = bound(m, w, "float32", 4)
         row = dict(shape=[m, w], dtype="float32", kernel_ms=k_ms, plain_ms=p_ms,
                    library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
                    us_per_step=1e3 * k_ms / min(m, w))
         kernel_rows.append(row)
         emit("timing", what="panel_kernel", card=card, **row)
+
+    ckernel_rows = []
+    for (m, w) in shapes + [(512, 512)]:
+        for dt in (c64, c128):
+            if dt == c128 and (m, w) != main_shape(1536)[1]:
+                continue
+            X = crandn(m, w, dt).to(dev)
+            P = torch.empty_like(X)
+            reset = lambda: P.copy_(X)  # noqa: E731
+            k_ms, _ = timed(lambda: panel_factor_c64_cuda(P, True), reset, reps=10)
+            p_ms, _ = timed(lambda: unblocked_lu_cabs1(X, True), None, reps=1, warm=0)
+            with quiet_c_stdout():
+                l_ms, _ = timed(lambda: torch.linalg.lu_factor_ex(P), reset, reps=10)
+            b_ms, b_by = bound(m, w, str(dt)[6:], X.element_size())
+            row = dict(shape=[m, w], dtype=str(dt)[6:], kernel_ms=k_ms, plain_ms=p_ms,
+                       library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                       us_per_step=1e3 * k_ms / min(m, w))
+            ckernel_rows.append(row)
+            emit("timing", what="panel_kernel_c64", card=card, **row)
 
     def round_robin(fns, rounds=7, warm=1, inner=1):
         """Median CUDA-event ms of each callable, run in turns (every
@@ -693,9 +962,10 @@ def main(argv):
                     ts[k].append(e0.elapsed_time(e1) / inner)
         return {k: sorted(v)[len(v) // 2] for k, v in ts.items()}
 
-    def e2e(n):
-        M = torch.randn(n, n, generator=gen).to(dev)
-        v = torch.randn(n, generator=gen).to(dev)
+    def e2e(n, dt=torch.float32):
+        cplx = dt.is_complex
+        M = (crandn(n, n, dt) if cplx else torch.randn(n, n, generator=gen)).to(dev)
+        v = (crandn(n, 1, dt)[:, 0] if cplx else torch.randn(n, generator=gen)).to(dev)
         F = rt.lu(M, check=False)
 
         def lib_fs():
@@ -709,9 +979,9 @@ def main(argv):
             "library_factor": lambda: torch.linalg.lu_factor_ex(M),
             "library_factor_solve": lib_fs,
         })
-        gf = 2 * n**3 / 3 / 1e9
-        emit("timing", what="end_to_end", card=card, n=n,
-             route=rt.dispatch_route((n, n), torch.float32, True, cfg),
+        gf = (8 if cplx else 2) * n**3 / 3 / 1e9
+        emit("timing", what="end_to_end", card=card, n=n, dtype=str(dt)[6:],
+             route=rt.dispatch_route((n, n), dt, True, cfg),
              factor_ms=t["factor"], solve_ms=t["solve"],
              factor_solve_ms=t["factor_solve"],
              factor_gflops=gf / (t["factor"] / 1e3),
@@ -722,11 +992,14 @@ def main(argv):
     with torch.no_grad():
         e2e(1536)
         e2e(4096)
+        e2e(1536, c64)
+        e2e(4096, c64)
         # the routing defaults of utils/config.py: panel width, whole-vs-
         # blocked crossover (small_threshold) and the recursive tail, in
         # turns per size
-        for n in ((1024, 1536, 2048, 4096) if "--sweep" in argv else ()):
-            M = torch.randn(n, n, generator=gen).to(dev)
+        sweep = [(n, dt) for dt in (torch.float32, c64) for n in (1024, 1536, 2048, 4096)]
+        for n, dt in (sweep if "--sweep" in argv else ()):
+            M = (crandn(n, n, dt) if dt.is_complex else torch.randn(n, n, generator=gen)).to(dev)
             cfgs = {("blocked", w, None): rt.LUConfig(panel_width=w, small_threshold=0)
                     for w in (64, 128, 256, 512, 1024)}
             if n <= 2048:
@@ -738,8 +1011,8 @@ def main(argv):
             t = round_robin({k: (lambda c=c: rt.lu(M, check=False, config=c))
                              for k, c in cfgs.items()}, rounds=5)
             for (route, w, tail), ms in t.items():
-                emit("timing", what="sweep", card=card, n=n, route=route,
-                     panel_width=w, tail_threshold=tail, factor_ms=ms)
+                emit("timing", what="sweep", card=card, n=n, dtype=str(dt)[6:],
+                     route=route, panel_width=w, tail_threshold=tail, factor_ms=ms)
 
         # ---- 4b. the batched kernels, in turns beside the library ---------
         batched_rows = {}
@@ -830,6 +1103,23 @@ def main(argv):
         "shape": main_row["shape"],
         "dtype": "float32",
     }]
+    crow = next(r for r in ckernel_rows
+                if r["shape"] == list(main_shape(1536)[1]) and r["dtype"] == "complex64")
+    kernels.append({
+        "name": "panel_lu_c64",
+        "route": "cuda",
+        "source": SOURCE_C64,
+        "replaces": REPLACES_C64,
+        "launches": launches_c[(1536, "entry", c64)],
+        "max_abs_err": max_err_c,
+        "ms": crow["kernel_ms"],
+        "plain_ms": crow["plain_ms"],
+        "bound_ms": crow["bound_ms"],
+        "bound_by": crow["bound_by"],
+        "library_ms": crow["library_ms"],
+        "shape": crow["shape"],
+        "dtype": "complex64",
+    })
     row = batched_rows[64]
     for name, key, lib in (("batched_lu_swap", "swap", "library_factor"),
                            ("batched_lu_noswap", "noswap", "library_factor"),

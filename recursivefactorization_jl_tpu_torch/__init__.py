@@ -6,9 +6,12 @@ package's API and numerical contracts: ``ipiv`` is the 0-based swap
 sequence, ``perm`` the composed permutation (``L @ U == A[perm, :]``),
 ``info`` 0 or the 1-based first zero-pivot step (negative unpivoted).
 
-The panel factorization runs a hand-written Hopper kernel
-(``csrc/panel_lu.cu``, built with ``nvcc`` at first use); triangular
-solves and Schur updates are matmuls with TF32 off.  Entry points take
+The panel factorization runs a hand-written Hopper kernel, built with
+``nvcc`` at first use: ``csrc/panel_lu.cu`` for float32/float64 and
+``csrc/panel_lu_c64.cu`` for complex64/complex128 (CABS1 pivoting, as
+LAPACK ``cgetrf``).  bfloat16/float16 matrices are factored as their
+float32 copies and the factors rounded back.  Triangular solves and
+Schur updates are matmuls with TF32 off.  Entry points take
 ``device=None``, which means CUDA and raises without it; the CPU runs
 only with ``device='cpu'``, on the kernel's plain PyTorch version.
 
@@ -19,6 +22,7 @@ only with ``device='cpu'``, on the kernel's plain PyTorch version.
     x = solve(A, b)                # one-shot: [A|b] factors as one fat LU
     f, ipiv, info = lu_factor(A)
     F = lu_inplace(A)              # overwrites A with the factors
+    F = from_numpy(f, ipiv, info)  # a factorization made elsewhere (numpy)
 
 Batches of small matrices (B, m, n), min(m, n) <= 128, run one more pair
 of hand-written kernels (``csrc/batched_lu.cu``, ``csrc/batched_solve.cu``):
@@ -34,6 +38,7 @@ from .models.lu import (
     SingularMatrixError,
     batched_from_numpy,
     dispatch_route,
+    from_numpy,
     lu,
     lu_factor,
     lu_factor_p,
@@ -67,6 +72,7 @@ __all__ = [
     "batched_lu_solve",
     "batched_lu_solve_perm",
     "dispatch_route",
+    "from_numpy",
     "lu",
     "lu_factor",
     "lu_factor_p",

@@ -13,10 +13,12 @@ namespace rf {
 
 constexpr unsigned kFull = 0xffffffffu;
 
-// One rounding per product, difference and quotient (with -fmad=false at
+// One rounding per product, sum, difference and quotient (with -fmad=false at
 // build time), as in the plain PyTorch versions the kernels are held to.
 __device__ __forceinline__ float rmul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double rmul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float radd(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double radd(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float rsub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double rsub(double a, double b) { return __dsub_rn(a, b); }
 __device__ __forceinline__ float rdiv(float a, float b) { return __fdiv_rn(a, b); }

@@ -22,6 +22,7 @@ import torch
 from ..ops.blocked import blocked_lu
 from ..ops.panel import panel_factor
 from ..utils.config import (
+    HALF_DTYPES,
     LUConfig,
     default_config,
     full_matmul_precision,
@@ -149,7 +150,8 @@ class LU:
             raise ValueError("logabsdet requires a square factorization")
         diag = torch.diagonal(self.factors)
         logabs = torch.sum(torch.log(torch.abs(diag)))
-        sign = torch.prod(torch.sign(diag)) * self._perm_sign()
+        # torch.sgn is z/|z| for complex (torch.sign rejects complex)
+        sign = torch.prod(torch.sgn(diag)) * self._perm_sign()
         return logabs, sign
 
     def inv(self) -> torch.Tensor:
@@ -159,6 +161,15 @@ class LU:
         n = self.factors.shape[0]
         eye = torch.eye(n, dtype=self.factors.dtype, device=self.factors.device)
         return lu_solve(self, eye)
+
+
+def from_numpy(factors, ipiv, info, perm=None, pivoted=True, device=None) -> LU:
+    """A factorization held in numpy arrays (for example one made by the
+    JAX package, complex included) as an :class:`LU` on ``device`` (None
+    means CUDA), ready for ``lu_solve``.  The single-matrix twin of
+    :func:`batched_from_numpy`."""
+    return LU.from_numpy(factors, ipiv, info, perm=perm, pivoted=pivoted,
+                         device=device)
 
 
 def batched_from_numpy(factors, ipiv_or_perm, info, device=None):
@@ -174,7 +185,7 @@ def batched_from_numpy(factors, ipiv_or_perm, info, device=None):
     )
 
 
-_FAST = (torch.float32, torch.float64)
+_FAST = (torch.float32, torch.float64, torch.complex64, torch.complex128)
 
 
 def dispatch_route(shape, dtype, pivot: bool = True,
@@ -182,23 +193,26 @@ def dispatch_route(shape, dtype, pivot: bool = True,
     """Which path :func:`lu_factor` takes for a matrix of this
     ``(shape, dtype, pivot, config)``:
 
+    * ``"promote"``: bfloat16/float16 -- the float32 copy is factored by
+      the route of its own shape, and the factors are cast back;
     * ``"xla"``: ``torch.linalg.lu_factor_ex`` (only with an explicit int
       ``xla_threshold``, pivoted, min(m, n) at or below it);
     * ``"whole"``: one whole-matrix panel call (m >= n, min(m, n) <=
       ``small_threshold``);
     * ``"blocked"``: the blocked right-looking schedule;
-    * ``"generic"``, ``"promote"``, ``"complex-unblocked"``,
-      ``"complex-blocked"``, ``"physical"``: the JAX package's other
-      routes, which raise ``NotImplementedError`` in this slice."""
+    * ``"generic"``, ``"physical"``: the JAX package's other routes, which
+      raise ``NotImplementedError`` until they are ported.
+
+    Complex matrices take ``"whole"`` / ``"blocked"`` by the same rule as
+    real ones (the JAX package's ``"complex-unblocked"`` /
+    ``"complex-blocked"`` and its native c64 window): the panel layer
+    picks the complex kernel on the card and its plain version on the
+    CPU, and both pivot by CABS1."""
     m, n = shape
     minmn = min(m, n)
     config = config or default_config()
-    if dtype in (torch.bfloat16, torch.float16):
+    if dtype in HALF_DTYPES:
         return "promote"
-    if dtype.is_complex:
-        return "complex-unblocked" if (
-            m >= n and minmn <= config.small_threshold
-        ) else "complex-blocked"
     if dtype not in _FAST:
         return "generic"
     if minmn == 0:
@@ -217,9 +231,6 @@ def dispatch_route(shape, dtype, pivot: bool = True,
 
 # the ROADMAP.md item that will port each deferred route
 _DEFERRED = {
-    "promote": "Queue 1 item 10 (half dtypes: the promote route)",
-    "complex-unblocked": "Queue 1 item 10 (complex dtypes)",
-    "complex-blocked": "Queue 1 item 10 (complex dtypes)",
     "physical": "Queue 1 item 11 (physical schedule)",
     "generic": "Queue 1 item 14 (integer and generic dtypes)",
 }
@@ -247,12 +258,22 @@ def _dispatch_factor(A: torch.Tensor, pivot: bool, config: LUConfig):
             stacklevel=3,
         )
     config.resolved_panel_boundary_precision()
+    return _factor_by_route(A, pivot, config)
+
+
+def _factor_by_route(A: torch.Tensor, pivot: bool, config: LUConfig):
     route = dispatch_route(A.shape, A.dtype, pivot, config)
     if route in _DEFERRED:
         raise NotImplementedError(
             f"route {route!r} for {A.dtype} is not ported yet: ROADMAP.md "
             f"{_DEFERRED[route]}"
         )
+    if route == "promote":
+        # Half inputs: factor the exact float32 promotion, round the
+        # factors back.  ipiv, perm and info are those of the float32 run.
+        f, ipiv, perm, info = _factor_by_route(A.float(), pivot, config)
+        A.copy_(f)
+        return A, ipiv, perm, info
     with full_matmul_precision():
         if min(A.shape) == 0:
             return _empty_factorization(A)
@@ -322,7 +343,7 @@ def lu_inplace(A: torch.Tensor, pivot=True, *, check="auto",
     """In-place LU, the ``lu!`` analog: ``A`` is overwritten with the
     packed factors, and the returned ``LU.factors`` is ``A`` itself.
 
-    ``A`` must be a contiguous floating tensor on the device the call
+    ``A`` must be a contiguous floating or complex tensor on the device the call
     runs on (``device=None`` means CUDA)."""
     pivot = normalize_pivot(pivot)
     dev = resolve_device(device)

@@ -4,16 +4,24 @@ and the one-shot ``solve``.
 A pivoted solve gathers the right-hand side by the composed permutation,
 then runs the unit-lower and the upper triangular solves; a no-pivot
 solve skips the gather.  ``trans`` accepts 'N'/False/0 (``A x = b``),
-'T'/True/1 (``A^T x = b``) and 'H'/2 (``A^H x = b``).  Solves run on the
-factorization's device.
+'T'/True/1 (``A^T x = b``) and 'H'/2 (``A^H x = b``, the conjugated
+factors for complex types).  Solves run on the factorization's device.
+
+Half factors (bfloat16/float16, as the ``promote`` route stores them):
+the right-hand side takes the factors' type, as in the JAX package, but
+the substitutions run in float32 and the solution is rounded back to
+the half type.  PyTorch lacks several half operations on the CPU, and
+one rule on both devices keeps the CPU tests valid for the card.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..ops import trsm
-from ..utils.config import full_matmul_precision
+from ..utils.config import HALF_DTYPES, full_matmul_precision
 from ..utils.perm import invert_perm
 
 
@@ -43,6 +51,11 @@ def _lu_solve_impl(factors, perm, b, pivoted: bool, trans=0):
     trans = normalize_trans(trans)
     if factors.shape[0] != factors.shape[1]:
         raise ValueError("lu_solve requires a square factorization")
+    if factors.dtype in HALF_DTYPES:
+        x = _lu_solve_impl(
+            factors.float(), perm, b.to(factors.dtype).float(), pivoted, trans
+        )
+        return x.to(factors.dtype)
     vec = b.ndim == 1
     B = (b[:, None] if vec else b).to(factors.dtype)
     if trans == 0:
@@ -86,8 +99,16 @@ def lu_solve_refined(lu_res, A, b, iters: int = 2, trans=0) -> torch.Tensor:
     """Solve with ``iters`` steps of iterative refinement,
     ``x += A \\ (b - A x)``, re-using the factorization.  The companion of
     the reduced-precision Schur modes; the residual product runs with
-    TF32 off."""
+    TF32 off (for half factors in float32, rounded back at the end)."""
     trans = normalize_trans(trans)
+    if lu_res.factors.dtype in HALF_DTYPES:
+        F32 = dataclasses.replace(lu_res, factors=lu_res.factors.float())
+        dev = lu_res.factors.device
+        x = lu_solve_refined(
+            F32, torch.as_tensor(A, device=dev).float(),
+            torch.as_tensor(b, device=dev).float(), iters, trans,
+        )
+        return x.to(lu_res.factors.dtype)
     perm = lu_res.p if lu_res.pivoted else lu_res.ipiv
     A = torch.as_tensor(A, device=lu_res.factors.device)
     b = _rhs(lu_res, b)
@@ -107,7 +128,9 @@ def solve(A, b, pivot=True, *, trans=0, check="auto", config=None,
     """One-shot ``A \\ b``.  Untransposed square solves factor ``[A | b]``
     as one fat LU, so the forward substitution falls out of the
     factorization and only the upper solve remains; ``trans`` solves
-    compose :func:`~.lu.lu` and :func:`lu_solve`."""
+    compose :func:`~.lu.lu` and :func:`lu_solve`.  A half ``A`` is
+    promoted to float32 for the whole solve and the solution rounded
+    back."""
     from .lu import (
         _check_info,
         _dispatch_factor,
@@ -125,6 +148,10 @@ def solve(A, b, pivot=True, *, trans=0, check="auto", config=None,
     dev = resolve_device(device)
     A = torch.as_tensor(A, device=dev)
     b = torch.as_tensor(b, device=dev)
+    if A.dtype in HALF_DTYPES:
+        x = solve(A.float(), b.to(A.dtype).float(), pivot, trans=trans,
+                  check=check, config=config, device=dev)
+        return x.to(A.dtype)
     if trans != 0 or A.ndim != 2 or A.shape[0] != A.shape[1]:
         F = lu(A, pivot, check=check, config=config, device=dev)
         return lu_solve(F, b, trans)

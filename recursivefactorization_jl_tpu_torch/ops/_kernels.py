@@ -24,7 +24,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 SOURCES = {
     name: PACKAGE_DIR / "csrc" / f"{name}.cu"
-    for name in ("panel_lu", "batched_lu", "batched_solve")
+    for name in ("panel_lu", "panel_lu_c64", "batched_lu", "batched_solve")
 }
 # included by every source (nvcc finds it beside them)
 COMMON_HEADER = PACKAGE_DIR / "csrc" / "rf_common.cuh"
@@ -39,12 +39,19 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_PANEL = (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P])
 # C signatures: name -> (restype, argtypes)
 SIGNATURES = {
     "panel_lu": {
         "rf_panel_lu_grid": (_I, [_I, _I, _I, _I]),
-        "rf_panel_lu_f32": (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P]),
-        "rf_panel_lu_f64": (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P]),
+        "rf_panel_lu_f32": _PANEL,
+        "rf_panel_lu_f64": _PANEL,
+        "rf_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "panel_lu_c64": {
+        "rf_panel_lu_c_grid": (_I, [_I, _I, _I, _I]),
+        "rf_panel_lu_c64": _PANEL,
+        "rf_panel_lu_c128": _PANEL,
         "rf_error_string": (ctypes.c_char_p, [_I]),
     },
     "batched_lu": {

@@ -15,7 +15,12 @@ matrix fits one block's shared memory run the Hopper kernels
 ``torch.linalg.lu_factor_ex`` when pivoted and to a loop of the package's
 own ``lu_factor_p`` when not; what the solve kernel refuses (``trans``,
 n > 128) gathers by the permutation and runs batched
-``torch.linalg.solve_triangular`` with TF32 off.  ``backend='xla'`` forces
+``torch.linalg.solve_triangular`` with TF32 off.  Complex batches take
+those library routes on both devices (the JAX package sends complex64
+batches to its platform LU; there is no complex batched kernel).  Half
+batches (bfloat16/float16) are promoted to float32, run the float32
+routes, kernels included, and the factors or solutions are rounded back.
+``backend='xla'`` forces
 those library routes; ``backend='pallas'`` forces the kernels and raises
 for a shape they cannot run.  On the CPU (``device='cpu'``) the kernels'
 plain versions run instead.  ``device=None`` means CUDA and raises
@@ -33,6 +38,7 @@ from ..models.lu import lu_factor_p, normalize_pivot
 from ..models.solve import normalize_trans
 from ..ops import batched_kernel as bk
 from ..utils.config import (
+    HALF_DTYPES,
     LUConfig,
     default_config,
     full_matmul_precision,
@@ -89,10 +95,10 @@ def _as_batch(A, device, square=False, what="batched_lu_factor"):
     if A.dim() != 3 or (square and A.shape[1] != A.shape[2]):
         want = "(B, n, n)" if square else "(B, m, n)"
         raise ValueError(f"{what} expects {want}, got {tuple(A.shape)}")
-    if not A.dtype.is_floating_point:
+    if not (A.dtype.is_floating_point or A.dtype.is_complex):
         raise NotImplementedError(
             f"{what}: {A.dtype} batches are not ported (ROADMAP.md Queue 1 "
-            "items 10 and 14)"
+            "item 14)"
         )
     return A
 
@@ -125,15 +131,15 @@ def _factor(A, pivot, config, want_perm: bool):
     won clearly at no size, so it is reached only through
     ``ops.batched_kernel.batched_lu_noswap``."""
     _, m, n = A.shape
+    if A.dtype in HALF_DTYPES:
+        f, ipiv, perm, info = _factor(A.float(), pivot, config, want_perm)
+        return f.to(A.dtype), ipiv, perm, info
     kernel = _use_batched_kernel(A.dtype, m, n, config)
+    if A.dtype.is_complex:
+        return _library_lu(A, pivot, config)
     if kernel or A.device.type != "cuda":
-        # on the CPU the plain versions take every shape and floating dtype
+        # on the CPU the plain versions take every shape
         return bk.batched_lu(A, pivot, want_perm)
-    if A.dtype not in (torch.float32, torch.float64):
-        raise NotImplementedError(
-            f"batched LU of {A.dtype} on the card is not ported (ROADMAP.md "
-            "Queue 1 item 10)"
-        )
     return _library_lu(A, pivot, config)
 
 
@@ -207,6 +213,10 @@ def _solve(factors, b, pivoted, trans, config, dev, perm=None, ipiv=None):
             f"right-hand sides {tuple(b.shape)} do not match factors "
             f"{tuple(factors.shape)}"
         )
+    if factors.dtype in HALF_DTYPES:
+        x = _solve(factors.float(), b.to(factors.dtype).float(), pivoted,
+                   trans, config, dev, perm=perm, ipiv=ipiv)
+        return x.to(factors.dtype)
     trans = normalize_trans(trans)
     if not pivoted:
         perm = ipiv = None

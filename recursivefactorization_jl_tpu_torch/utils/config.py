@@ -7,7 +7,10 @@ delegation crossover, the VMEM budgets, the micro-64 band, the bf16x3
 size gates) are facts of the TPU and its compiler and are not carried
 over: on the H100 every ``'auto'`` knob resolves to the full-precision,
 no-delegation choice, and the routing widths come from measurements on
-the card (``PERF.md``, ``chip_smoke.py``).
+the card (``PERF.md``, ``chip_smoke.py``).  Complex matrices use the
+same ``panel_width`` and ``small_threshold`` as real ones; the TPU
+package's complex64 window (its delegation crossover and native ceiling)
+is not carried over either.
 """
 
 from __future__ import annotations
@@ -24,6 +27,10 @@ import torch
 # the whole route covers only the sizes one panel spans anyway.
 DEFAULT_PANEL_WIDTH = 512
 DEFAULT_SMALL_THRESHOLD = 512
+
+# Matrices of these types are factored as their float32 copies (the
+# ``promote`` route), and solves with their factors run in float32.
+HALF_DTYPES = (torch.bfloat16, torch.float16)
 
 # Variants of the TPU panel kernel that the ported kernel stands for.
 FORI_VARIANTS = ("fori", "fori2", "fori3")
@@ -147,7 +154,8 @@ def full_matmul_precision():
     restoring the caller's settings afterwards.
 
     The port's accuracy contract is ~n*eps(f32); a TF32 product keeps
-    about three decimal digits.  The deliberate reduced modes are the
+    about three decimal digits.  The setting governs complex64 products
+    as well (cuBLAS may run them in TF32 when it is allowed).  The deliberate reduced modes are the
     explicit ``schur_precision`` knobs (ops/schur.py), which build their
     bf16 operands by hand."""
     mm = torch.backends.cuda.matmul.allow_tf32

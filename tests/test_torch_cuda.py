@@ -13,8 +13,14 @@ import torch
 
 import recursivefactorization_jl_tpu_torch as rt
 from recursivefactorization_jl_tpu_torch.ops import batched_kernel as bk
-from recursivefactorization_jl_tpu_torch.ops.panel import panel_factor_cuda
-from recursivefactorization_jl_tpu_torch.ops.unblocked import unblocked_lu
+from recursivefactorization_jl_tpu_torch.ops.panel import (
+    panel_factor_c64_cuda,
+    panel_factor_cuda,
+)
+from recursivefactorization_jl_tpu_torch.ops.unblocked import (
+    unblocked_lu,
+    unblocked_lu_cabs1,
+)
 
 torch.set_num_threads(1)
 
@@ -116,6 +122,178 @@ def test_solve_and_inplace_on_the_card():
     A[:, 5] = 0
     with pytest.raises(rt.SingularMatrixError):
         rt.lu(A)
+
+
+# ---------------------------------------------------------------------------
+# the complex panel kernel and the complex / half paths
+# ---------------------------------------------------------------------------
+
+
+def _cbits(t):
+    return _bits(torch.view_as_real(t).contiguous())
+
+
+def _crandn(shape, g, dtype):
+    real = torch.float32 if dtype == torch.complex64 else torch.float64
+    return torch.complex(torch.randn(*shape, generator=g, dtype=real),
+                         torch.randn(*shape, generator=g, dtype=real))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("shape", [(1, 1), (7, 3), (300, 64), (64, 200), (257, 257)])
+def test_c64_kernel_bitwise_equals_plain(dtype, pivot, shape):
+    """Pivots, perm and info exactly, factors bitwise: both round every
+    product, sum, difference and quotient once, in the same order."""
+    need_cuda()
+    g = torch.Generator().manual_seed(21)
+    A = _crandn(shape, g, dtype).cuda()
+    if not pivot:
+        A += max(shape) * torch.eye(*shape, dtype=dtype, device="cuda")
+    A[:, min(shape) // 2] = 0  # a zero pivot inside the factored steps
+    f, piv, perm, info = unblocked_lu_cabs1(A, pivot)
+    P = A.clone()
+    before = panel_factor_c64_cuda.launches
+    kpiv, kperm, kinfo = panel_factor_c64_cuda(P, pivot)
+    torch.cuda.synchronize()
+    assert panel_factor_c64_cuda.launches == before + 1
+    assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
+    assert int(kinfo) == int(info) != 0
+    assert torch.equal(_cbits(P), _cbits(f))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_c64_kernel_ties_and_nan_candidates(dtype):
+    """Exact CABS1 ties take the first row; a NaN candidate makes the
+    pivot row m - 1 (the maximum is NaN and equals no candidate)."""
+    need_cuda()
+    g = torch.Generator().manual_seed(22)
+    m, w = 200, 96
+    T = torch.complex(torch.randint(-2, 3, (m, w), generator=g).double(),
+                      torch.randint(-2, 3, (m, w), generator=g).double()).to(dtype).cuda()
+    N = _crandn((m, w), g, dtype).cuda()
+    N[50, 10] = complex(float("nan"), 1.0)
+    for A in (T, N):
+        f, piv, perm, info = unblocked_lu_cabs1(A, True)
+        P = A.clone()
+        kpiv, kperm, kinfo = panel_factor_c64_cuda(P, True)
+        assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
+        assert int(kinfo) == int(info)
+        assert torch.equal(_cbits(P), _cbits(f))
+    assert bool((kpiv[10:] == m - 1).all())
+
+
+def test_c64_kernel_in_place_on_a_strided_panel():
+    need_cuda()
+    g = torch.Generator().manual_seed(23)
+    A = _crandn((256, 256), g, torch.complex64).cuda()
+    ref = A.clone()
+    view = A[64:, 64:192]
+    piv, perm, info = panel_factor_c64_cuda(view, True)
+    f, piv_p, perm_p, _ = unblocked_lu_cabs1(ref[64:, 64:192], True)
+    torch.cuda.synchronize()
+    assert torch.equal(view, f) and torch.equal(piv, piv_p) and torch.equal(perm, perm_p)
+    # columns outside the panel are untouched
+    assert torch.equal(A[:, :64], ref[:, :64]) and torch.equal(A[:, 192:], ref[:, 192:])
+    assert torch.equal(A[:64], ref[:64])
+
+
+def test_c64_kernel_rejects_bad_panels():
+    need_cuda()
+    z = torch.zeros(8, 4, device="cuda", dtype=torch.complex64)
+    for bad in (torch.zeros(8, 4, device="cuda"), z.T, z.conj(), z[None],
+                z[:, :0], torch.zeros(8, 4, dtype=torch.complex64)):
+        with pytest.raises(ValueError):
+            panel_factor_c64_cuda(bad, True)
+    with pytest.raises(ValueError):
+        panel_factor_cuda(z, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("n,w", [(300, 64), (700, 256)])
+def test_complex_lu_on_the_card_matches_the_cpu_route(dtype, n, w):
+    """The blocked schedule on the card (kernel panels) and on the CPU
+    (plain panels) pivot by CABS1 alike: the same pivots, both under the
+    residual gate; N/T/H solves on the card."""
+    need_cuda()
+    rng = np.random.default_rng(24)
+    A = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    cfg = rt.LUConfig(panel_width=w, small_threshold=w)
+    At = torch.tensor(A, dtype=dtype)
+    before = panel_factor_c64_cuda.launches
+    G = rt.lu(At, config=cfg)
+    assert panel_factor_c64_cuda.launches == before + -(-n // w)
+    C = rt.lu(At, config=cfg, device="cpu")
+    assert G.factors.is_cuda and G.factors.dtype == dtype
+    assert torch.equal(G.ipiv.cpu(), C.ipiv) and torch.equal(G.p.cpu(), C.p)
+    eps = torch.finfo(dtype).eps
+    gate = 20 * n * eps * float(np.abs(A).max())
+    Ad = torch.tensor(A)
+    for F in (G, C):
+        LU = F.L.to(torch.complex128) @ F.U.to(torch.complex128)
+        assert float((LU.cpu() - Ad[F.p.cpu().long()]).abs().max()) < gate
+    b = torch.tensor(rng.standard_normal(n) + 1j * rng.standard_normal(n), dtype=dtype)
+    for trans, op in ((0, Ad), (1, Ad.T), (2, Ad.conj().T)):
+        x = rt.lu_solve(G, b, trans=trans).cpu().to(torch.complex128)
+        assert float((op @ x - b.to(torch.complex128)).abs().max()) < 1e3 * gate
+    x = rt.solve(At, b).cpu().to(torch.complex128)
+    assert float((Ad @ x - b.to(torch.complex128)).abs().max()) < 1e3 * gate
+    At[:, 5] = 0
+    with pytest.raises(rt.SingularMatrixError):
+        rt.lu(At, config=cfg)
+    assert int(rt.lu(At, check=False, config=cfg).info) == 6
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_promotes_through_the_f32_kernel_on_the_card(dtype):
+    need_cuda()
+    rng = np.random.default_rng(25)
+    n = 600
+    A = torch.tensor(rng.standard_normal((n, n)) + n * np.eye(n)).to(dtype)
+    before = panel_factor_cuda.launches
+    F = rt.lu(A)
+    assert panel_factor_cuda.launches == before + 2
+    G = rt.lu(A.float())
+    assert F.factors.dtype == dtype and F.factors.is_cuda
+    assert torch.equal(F.ipiv, G.ipiv) and torch.equal(F.factors, G.factors.to(dtype))
+    C = rt.lu(A, device="cpu")
+    assert torch.equal(F.ipiv.cpu(), C.ipiv)
+    b = torch.tensor(rng.standard_normal(n)).to(dtype)
+    x = rt.lu_solve(F, b)
+    assert x.dtype == dtype
+    r = (A.double().cuda() @ x.double() - b.double().cuda()).abs().max()
+    assert float(r) < 20 * n * torch.finfo(dtype).eps
+
+
+def test_batched_complex_and_half_on_the_card():
+    """Complex batches take the library routes, half batches the f32
+    kernels after promotion."""
+    need_cuda()
+    rng = np.random.default_rng(26)
+    B, n = 50, 32
+    A = rng.standard_normal((B, n, n)) + 1j * rng.standard_normal((B, n, n))
+    b = rng.standard_normal((B, n)) + 1j * rng.standard_normal((B, n))
+    for w in (bk.batched_lu_cuda, bk.batched_solve_cuda):
+        w.launches = 0
+    At, bt = torch.tensor(A, dtype=torch.complex64), torch.tensor(b, dtype=torch.complex64)
+    for pivot in (True, False):
+        M = At + (0 if pivot else n) * torch.eye(n)
+        f, perm, info = rt.batched_lu_factor_perm(M, pivot)
+        assert f.is_cuda and int((info != 0).sum()) == 0
+        for trans in (0, 1, 2):
+            x = rt.batched_lu_solve_perm(f, perm, bt, pivot, trans=trans).cpu()
+            op = M if trans == 0 else (M.mT if trans == 1 else M.mT.conj())
+            r = torch.bmm(op, x[:, :, None])[:, :, 0] - bt
+            assert float(r.abs().max()) < 1e-2
+    assert bk.batched_lu_cuda.launches == bk.batched_solve_cuda.launches == 0
+    H = torch.tensor(A.real + n * np.eye(n)).to(torch.bfloat16)
+    hb = torch.tensor(b.real).to(torch.bfloat16)
+    f, ipiv, info = rt.batched_lu_factor(H)
+    x = rt.batched_lu_solve(f, ipiv, hb)
+    assert f.dtype == x.dtype == torch.bfloat16
+    assert bk.batched_lu_cuda.launches == 1 and bk.batched_solve_cuda.launches == 1
+    f32, ipiv32, _ = rt.batched_lu_factor(H.float())
+    assert torch.equal(ipiv, ipiv32) and torch.equal(f, f32.to(torch.bfloat16))
 
 
 # ---------------------------------------------------------------------------

@@ -300,14 +300,35 @@ def test_xla_threshold_delegates_to_torch_lu():
     assert int(F.info) == 4
 
 
+# ids name the JAX package's route of each dtype
 @pytest.mark.parametrize("dtype,route", [
-    (torch.float16, "promote"), (torch.bfloat16, "promote"),
-    (torch.complex64, "complex-unblocked"), (torch.int32, "generic"),
+    pytest.param(torch.float16, "promote", id="dtype0-promote"),
+    pytest.param(torch.bfloat16, "promote", id="dtype1-promote"),
+    pytest.param(torch.complex64, "whole", id="dtype2-complex-unblocked"),
+    pytest.param(torch.int32, "generic", id="dtype3-generic"),
 ])
 def test_deferred_routes_raise(dtype, route):
+    """The generic route still raises; half matrices take the promote
+    route and complex ones the routes of real matrices, and factor."""
     assert rt.dispatch_route((8, 8), dtype) == route
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.lu(torch.ones(8, 8, dtype=dtype) + torch.eye(8, dtype=dtype), device="cpu")
+    A = torch.ones(8, 8, dtype=dtype) + 8 * torch.eye(8, dtype=dtype)
+    if route == "generic":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            rt.lu(A, device="cpu")
+        return
+    cfg = rt.LUConfig(small_threshold=4, panel_width=4)
+    if dtype.is_complex:
+        assert rt.dispatch_route((8, 8), dtype, True, cfg) == "blocked"
+        assert rt.dispatch_route((8, 8), dtype, True, rt.LUConfig(xla_threshold=8)) == "xla"
+    else:
+        assert rt.dispatch_route((8, 8), dtype, True, cfg) == "promote"
+    for c in (None, cfg):
+        F = rt.lu(A, config=c, device="cpu")
+        assert F.factors.dtype == dtype and int(F.info) == 0
+        G = rt.lu(A.to(torch.complex128 if dtype.is_complex else torch.float32),
+                  config=c, device="cpu")
+        assert torch.equal(F.ipiv, G.ipiv) and torch.equal(F.p, G.p)
+        torch.testing.assert_close(F.factors, G.factors.to(dtype), rtol=1e-5, atol=1e-5)
 
 
 def test_unported_knobs_raise():
