@@ -68,6 +68,38 @@ The complex and half-precision path adds:
 4c. timing  the complex kernel per panel shape, complex64 factor and
             factor+solve at 1536/4096 in turns beside the library.
 
+The opt-in schedules and the RBT solver add:
+
+2d. kernel  the two micro-blocked kernels (csrc/panel_lu_micro.cu: staged
+            ``shadow``, in-place ``basic``) against ``micro_blocked_lu``
+            and each other, and the no-swap kernel
+            (csrc/panel_lu_noswap.cu) against ``unblocked_lu_noswap``, on
+            the main path's panels (the no-swap one also with half the
+            rows taken by earlier panels), a whole 512 x 512, a ragged
+            tall and (micro kernels) a fat panel: f32/f64, pivot on/off,
+            a zeroed column, exact ties, micro 16/32: ipiv / prow, perm /
+            used and info equal, factors bitwise equal; the same on
+            column blocks of a 1536 x 1536 matrix (row stride n, as the
+            blocked schedules hand them over), the no-swap kernel's
+            second block under the mask its first one returned;
+3d. main    ``lu`` + ``lu_solve`` under ``schedule='physical'`` at n=1536
+            (entry matrix, randn, zeroed column) and 4096, f64 at 1536,
+            and under ``panel_variant='shadow'`` / ``'basic'`` at 1536
+            and 4096: residual gate, info, launch counts per kernel, no
+            TF32 product, the permutation against the default route's
+            (equal, or the two candidates of the first differing step tie
+            to n*eps in an f64 elimination).  ``butterfly_solve`` on a
+            Wilkinson matrix of n=800 in f64 (||Ax - b|| <= 1e-10) and on
+            randn + n*I at n=1536 in f32 with refine 0 and 2 beside the
+            pivoted ``lu_solve``; the panel kernel's launches with
+            pivot=False;
+4d. timing  the three kernels per panel shape in turns beside
+            csrc/panel_lu.cu and torch.linalg.lu_factor_ex, their plain
+            versions once; factor and factor+solve at 1536/4096 for the
+            default route, ``physical``, ``shadow``, ``basic`` and the
+            library in turns; RBT beside the pivoted solve; ``--sweep``
+            adds micro 8/16/32/64 x panel width.
+
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
 before it, and the exit code is not 0.  Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -91,6 +123,14 @@ SOURCE = "recursivefactorization_jl_tpu_torch/csrc/panel_lu.cu"
 REPLACES = "recursivefactorization_jl_tpu/ops/panel.py:411"
 SOURCE_C64 = "recursivefactorization_jl_tpu_torch/csrc/panel_lu_c64.cu"
 REPLACES_C64 = "recursivefactorization_jl_tpu/ops/panel.py:1030"
+NEW_PANEL_KERNELS = {
+    "panel_lu_micro_shadow": ("recursivefactorization_jl_tpu_torch/csrc/panel_lu_micro.cu",
+                              "recursivefactorization_jl_tpu/ops/panel.py:266"),
+    "panel_lu_micro_basic": ("recursivefactorization_jl_tpu_torch/csrc/panel_lu_micro.cu",
+                             "recursivefactorization_jl_tpu/ops/panel.py:161"),
+    "panel_lu_noswap": ("recursivefactorization_jl_tpu_torch/csrc/panel_lu_noswap.cu",
+                        "recursivefactorization_jl_tpu/ops/panel.py:742"),
+}
 BATCHED_KERNELS = {
     "batched_lu_swap": ("recursivefactorization_jl_tpu_torch/csrc/batched_lu.cu",
                         "recursivefactorization_jl_tpu/ops/batched_kernel.py:78"),
@@ -208,7 +248,9 @@ def device_rows(prof):
 
 def profile(rt, card, gen, dev):
     """Device time by kernel over one factor + solve at 1536 and 4096 in
-    float32 and complex64, and over one batched factor + solve of 10 000 matrices at n = 64 and 128
+    float32 (the default route, ``schedule='physical'`` and
+    ``panel_variant='shadow'``) and complex64, over two RBT solves at
+    1536, and over one batched factor + solve of 10 000 matrices at n = 64 and 128
     (torch.profiler), and the device's idle share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity
@@ -242,6 +284,19 @@ def profile(rt, card, gen, dev):
             M = M + 1j * torch.randn(n, n, generator=gen).to(dev)
         run(lambda: rt.lu(M, check=False), lambda F: rt.lu_solve(F, v), n=n,
             dtype=str(dt)[6:])
+        if dt.is_complex:
+            continue
+        for name, cfg in (("physical", rt.LUConfig(schedule="physical")),
+                          ("shadow", rt.LUConfig(panel_variant="shadow"))):
+            run(lambda: rt.lu(M, check=False, config=cfg), lambda F: rt.lu_solve(F, v),
+                n=n, dtype=str(dt)[6:], config=name)
+    n = 1536
+    M = (torch.randn(n, n, generator=gen) + n * torch.eye(n)).to(dev)
+    v = torch.randn(n, generator=gen).to(dev)
+    # "factor": workspace + solve; "solve": one more solve of the same workspace
+    run(lambda: rt.butterfly_solve(rt.butterfly_workspace(M, v)),
+        lambda x: rt.butterfly_solve(rt.butterfly_workspace(M, v)), n=n,
+        dtype="float32", path="rbt (both halves: workspace + transform + factor + solve)")
     for n in (64, 128):
         A = torch.randn(BATCH_B, n, n, generator=gen).to(dev)
         b = torch.randn(BATCH_B, n, generator=gen).to(dev)
@@ -264,13 +319,18 @@ def main(argv):
     import recursivefactorization_jl_tpu_torch as rt
     from recursivefactorization_jl_tpu_torch.ops import _kernels
     from recursivefactorization_jl_tpu_torch.ops.panel import (
+        panel_factor_basic_cuda,
         panel_factor_c64_cuda,
         panel_factor_cuda,
+        panel_factor_noswap_cuda,
+        panel_factor_shadow_cuda,
     )
     from recursivefactorization_jl_tpu_torch.ops import batched_kernel as bk
     from recursivefactorization_jl_tpu_torch.ops.unblocked import (
+        micro_blocked_lu,
         unblocked_lu,
         unblocked_lu_cabs1,
+        unblocked_lu_noswap,
     )
 
     quick = "--quick" in argv
@@ -404,6 +464,162 @@ def main(argv):
         except ValueError:
             continue
         fail(f"panel_factor_c64_cuda took {tuple(bad.shape)} {bad.dtype} {bad.device}")
+
+    # ---- 2d. the micro-blocked and the no-swap kernels vs plain -----------
+    f32, f64 = torch.float32, torch.float64
+    micro_wrappers = {"panel_lu_micro_shadow": panel_factor_shadow_cuda,
+                      "panel_lu_micro_basic": panel_factor_basic_cuda}
+
+    def real_input(name, m, w, dt, pivot):
+        if name == "ties":
+            return torch.randint(-2, 3, (m, w), generator=gen).to(dt)
+        X = torch.randn(m, w, generator=gen, dtype=dt)
+        if not pivot:
+            X += max(m, w) * torch.eye(m, w, dtype=dt)
+        if name == "zero_col":
+            X[:, min(5, w - 1)] = 0
+        return X
+
+    new_err = {k: 0.0 for k in NEW_PANEL_KERNELS}
+    mcases = []  # shape, dtype, input, pivot, micro
+    for (m, w) in shapes:
+        mcases += [((m, w), f32, "randn", True, 32), ((m, w), f64, "randn", True, 16)]
+    mcases += [(shapes[0], f32, "zero_col", True, 32), (shapes[0], f32, "ties", True, 16),
+               (shapes[0], f32, "randn", False, 32),
+               ((512, 512), f32, "randn", True, 32), ((512, 512), f64, "zero_col", False, 16)]
+    for dt in (f32, f64):
+        mcases += [((777, 130), dt, "randn", True, 32), ((777, 130), dt, "zero_col", True, 16),
+                   ((777, 130), dt, "ties", True, 32), ((130, 300), dt, "randn", True, 32),
+                   ((130, 300), dt, "zero_col", False, 16)]
+    for (m, w), dt, name, pivot, micro in mcases:
+        A = real_input(name, m, w, dt, pivot).to(dev)
+        f_p, piv_p, perm_p, info_p = micro_blocked_lu(A, pivot, micro)
+        outs = {}
+        for kern, wrapper in micro_wrappers.items():
+            P = A.clone()
+            piv_k, perm_k, info_k = wrapper(P, pivot, micro)
+            torch.cuda.synchronize()
+            outs[kern] = P
+            same = {
+                "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
+                "perm_equal": bool(torch.equal(perm_k, perm_p)),
+                "info_equal": int(info_k) == int(info_p),
+                "bitwise": bool(torch.equal(bits(P), bits(f_p))),
+            }
+            err = float((P - f_p).abs().nan_to_num(0.0).max())
+            new_err[kern] = max(new_err[kern], err)
+            emit("kernel", kernel=kern, shape=[m, w], dtype=str(dt)[6:], input=name,
+                 pivot=pivot, micro=micro, info=int(info_k), max_abs_err=err, **same)
+            if not all(same.values()):
+                fail(f"{kern} disagrees with its plain version: {same}")
+            if name == "zero_col" and int(info_k) != (6 if pivot else -6):
+                fail(f"zeroed column 5 gave info {int(info_k)}")
+        if not torch.equal(bits(outs["panel_lu_micro_shadow"]),
+                           bits(outs["panel_lu_micro_basic"])):
+            fail("the staged and the in-place micro kernel differ")
+        del outs
+
+    ncases = []  # shape, dtype, input, pivot, share of rows taken before
+    for (m, w) in shapes:
+        ncases += [((m, w), f32, "randn", True, 0.0), ((m, w), f32, "randn", True, 0.5)]
+    ncases += [(shapes[0], f32, "zero_col", True, 0.5), (shapes[0], f32, "randn", False, 0.5),
+               (shapes[0], f64, "randn", True, 0.5), (shapes[-1], f32, "ties", True, 0.0),
+               ((512, 512), f32, "randn", True, 0.0), ((512, 512), f64, "zero_col", False, 0.0)]
+    for dt in (f32, f64):
+        ncases += [((777, 130), dt, "randn", True, 0.3), ((777, 130), dt, "ties", True, 0.3),
+                   ((777, 130), dt, "zero_col", False, 0.0)]
+    for (m, w), dt, name, pivot, share in ncases:
+        A = real_input(name, m, w, dt, True).to(dev)  # unpivoted: rows in order
+        used0 = torch.zeros(m, dtype=torch.int32)
+        taken = int(share * m)
+        used0[torch.randperm(m, generator=gen)[:taken]] = 1
+        used0 = used0.to(dev)
+        f_p, prow_p, used_p, info_p = unblocked_lu_noswap(A, used0, pivot)
+        P = A.clone()
+        prow_k, used_k, info_k = panel_factor_noswap_cuda(P, used0, pivot)
+        torch.cuda.synchronize()
+        same = {
+            "prow_equal": bool(torch.equal(prow_k, prow_p)),
+            "used_equal": bool(torch.equal(used_k, used_p)),
+            "info_equal": int(info_k) == int(info_p),
+            "bitwise": bool(torch.equal(bits(P), bits(f_p))),
+            "taken_rows_untouched": bool(torch.equal(P[used0.bool()], A[used0.bool()])),
+            "used_count": int(used_k.sum()) == taken + min(m, w),
+        }
+        err = float((P - f_p).abs().nan_to_num(0.0).max())
+        new_err["panel_lu_noswap"] = max(new_err["panel_lu_noswap"], err)
+        emit("kernel", kernel="panel_lu_noswap", shape=[m, w], dtype=str(dt)[6:],
+             input=name, pivot=pivot, rows_taken_before=taken, info=int(info_k),
+             max_abs_err=err, **same)
+        if not all(same.values()):
+            fail(f"panel_lu_noswap disagrees with its plain version: {same}")
+        if name == "zero_col" and int(info_k) != (6 if pivot else -6):
+            fail(f"zeroed column 5 gave info {int(info_k)}")
+    # the views the main path hands over: a column block of an n x n matrix
+    # (row stride n, not w), and for the no-swap kernel the mask that its
+    # own first panel returned
+    n_v, w_v = 1536, w_main
+    for dt in (f32, f64):
+        M = torch.randn(n_v, n_v, generator=gen, dtype=dt).to(dev)
+        for kern, wrapper in micro_wrappers.items():
+            W = M.clone()
+            view = W[w_v:, w_v:2 * w_v]
+            f_p, piv_p, perm_p, info_p = micro_blocked_lu(M[w_v:, w_v:2 * w_v], True, 32)
+            piv_k, perm_k, info_k = wrapper(view, True, 32)
+            torch.cuda.synchronize()
+            rest = torch.ones(n_v, n_v, dtype=torch.bool, device=dev)
+            rest[w_v:, w_v:2 * w_v] = False
+            same = {
+                "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
+                "perm_equal": bool(torch.equal(perm_k, perm_p)),
+                "info_equal": int(info_k) == int(info_p),
+                "bitwise": bool(torch.equal(bits(view), bits(f_p))),
+                "rest_untouched": bool(torch.equal(W[rest], M[rest])),
+            }
+            err = float((view - f_p).abs().nan_to_num(0.0).max())
+            new_err[kern] = max(new_err[kern], err)
+            emit("kernel", kernel=kern, shape=[n_v - w_v, w_v], lda=n_v, dtype=str(dt)[6:],
+                 input="column block", pivot=True, micro=32, info=int(info_k),
+                 max_abs_err=err, **same)
+            if not all(same.values()):
+                fail(f"{kern} on a column block disagrees with its plain version: {same}")
+        W = M.clone()
+        used_k = used_p = torch.zeros(n_v, dtype=torch.int32, device=dev)
+        for s in (0, w_v):
+            block = slice(s, s + w_v)
+            f_p, prow_p, used_p_next, info_p = unblocked_lu_noswap(M[:, block], used_p, True)
+            prow_k, used_k_next, info_k = panel_factor_noswap_cuda(W[:, block], used_k, True)
+            torch.cuda.synchronize()
+            taken = used_p.bool()
+            same = {
+                "prow_equal": bool(torch.equal(prow_k, prow_p)),
+                "used_equal": bool(torch.equal(used_k_next, used_p_next)),
+                "info_equal": int(info_k) == int(info_p),
+                "bitwise": bool(torch.equal(bits(W[:, block]), bits(f_p))),
+                "taken_rows_untouched": bool(torch.equal(W[taken][:, block], M[taken][:, block])),
+                "rest_untouched": bool(torch.equal(W[:, s + w_v:], M[:, s + w_v:])),
+                "used_count": int(used_k_next.sum()) == s + w_v,
+            }
+            err = float((W[:, block] - f_p).abs().nan_to_num(0.0).max())
+            new_err["panel_lu_noswap"] = max(new_err["panel_lu_noswap"], err)
+            emit("kernel", kernel="panel_lu_noswap", shape=[n_v, w_v], lda=n_v,
+                 dtype=str(dt)[6:], input="column block, mask of the panel before",
+                 pivot=True, rows_taken_before=s, info=int(info_k), max_abs_err=err, **same)
+            if not all(same.values()):
+                fail(f"panel_lu_noswap on a column block disagrees with its plain version: {same}")
+            used_k, used_p = used_k_next, used_p_next
+        del M, W
+    for bad in (lambda: panel_factor_shadow_cuda(torch.zeros(8, 4), True, 4),
+                lambda: panel_factor_basic_cuda(torch.zeros(200, 100, device=dev), True, 65),
+                lambda: panel_factor_noswap_cuda(torch.zeros(8, 4, device=dev),
+                                                 torch.zeros(7, dtype=torch.int32, device=dev), True),
+                lambda: panel_factor_noswap_cuda(torch.zeros(8, 4),
+                                                 torch.zeros(8, dtype=torch.int32), True)):
+        try:
+            bad()
+        except ValueError:
+            continue
+        fail("a new panel wrapper took an argument it must refuse")
 
     # ---- 2b. batched kernels vs plain -----------------------------------
     def same_bits(x, y):
@@ -733,6 +949,166 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = tf32_before
     del cmats
 
+    # ---- 3d. the opt-in schedules and the RBT solver ----------------------
+    panel_wrappers = {"panel_lu": panel_factor_cuda, "panel_lu_c64": panel_factor_c64_cuda,
+                      "panel_lu_micro_shadow": panel_factor_shadow_cuda,
+                      "panel_lu_micro_basic": panel_factor_basic_cuda,
+                      "panel_lu_noswap": panel_factor_noswap_cuda}
+    opt_cfgs = {
+        "physical": (rt.LUConfig(schedule="physical"), "panel_lu_noswap"),
+        "shadow": (rt.LUConfig(panel_variant="shadow"), "panel_lu_micro_shadow"),
+        "basic": (rt.LUConfig(panel_variant="basic"), "panel_lu_micro_basic"),
+    }
+
+    def first_choice_gap_perm(A, perm_a, perm_b):
+        """Two row permutations of one square real matrix part at step k.
+        Eliminate k steps in f64 on the card in the order both share and
+        return k and ||c[a]| - |c[b]|| / max|c| for the two rows chosen
+        there from column k."""
+        k = int((perm_a != perm_b).nonzero()[0])
+        pa = perm_a.long()
+        M = A.double()[pa]
+        for j in range(k):
+            M[j + 1:, j] /= M[j, j]
+            M[j + 1:, j + 1:] -= torch.outer(M[j + 1:, j], M[j, j + 1:])
+        where_b = int((pa == int(perm_b[k])).nonzero()[0])
+        c = M[:, k].abs()
+        return k, float((c[k] - c[where_b]).abs() / c[k:].max())
+
+    n = 1536
+    omats = {
+        ("entry", n): rng.standard_normal((n, n)) + n * np.eye(n),
+        ("randn", n): rng.standard_normal((n, n)),
+        ("zero_col", n): sing,
+        ("randn", 4096): rng.standard_normal((4096, 4096)),
+    }
+    oruns = [("physical", "entry", n, f32), ("physical", "randn", n, f32),
+             ("physical", "zero_col", n, f32), ("physical", "randn", 4096, f32),
+             ("physical", "randn", n, f64)]
+    for variant in ("shadow", "basic"):
+        oruns += [(variant, "entry", n, f32), (variant, "randn", n, f32),
+                  (variant, "randn", 4096, f32)]
+    torch.backends.cuda.matmul.allow_tf32 = True  # the port must turn it off
+    launches_o = {}
+    for what, name, n, dt in oruns:
+        ocfg, kern = opt_cfgs[what]
+        A = torch.tensor(omats[(name, n)], dtype=dt, device=dev)
+        b = torch.tensor(rng.standard_normal(n), dtype=dt, device=dev)
+        expect = -(-n // ocfg.resolved_panel_width())
+        route = rt.dispatch_route((n, n), dt, True, ocfg)
+        watch = TF32Watch()
+        for wr in panel_wrappers.values():
+            wr.launches = 0
+        with watch:
+            F = rt.lu(A, check=False, config=ocfg)
+            x = rt.lu_solve(F, b)
+            torch.cuda.synchronize()
+        got = {k: wr.launches for k, wr in panel_wrappers.items()}
+        want = {k: (expect if k == kern else 0) for k in panel_wrappers}
+        launches_o.setdefault((what, name, n, dt), got[kern])
+        r, g = resid_gate(A, F)
+        sr = solve_resid(A, x, b)
+        info = int(F.info)
+        eps = torch.finfo(dt).eps
+        F0 = rt.lu(A, check=False)  # the default route
+        differ = int((F.p != F0.p).sum())
+        rec = dict(config=what, n=n, input=name, dtype=str(dt)[6:], route=route,
+                   launches=got, expected_launches=want, resid=r, gate=g,
+                   scaled_resid=r / (n * eps * float(A.abs().max())),
+                   solve_rel_resid=sr, info=info, matmuls=len(watch.flags),
+                   tf32_seen=any(watch.flags),
+                   perm_entries_differing_from_default_route=differ,
+                   perm_near_tie_or_equal=True)
+        if what == "physical":
+            rec["ipiv_is_perm_prefix"] = bool(torch.equal(F.ipiv, F.p[:n]))
+        else:
+            rec["ipiv_folds_to_perm"] = bool(torch.equal(rt.ipiv_to_perm(F.ipiv, n), F.p))
+        if differ and name != "zero_col":
+            k, gap = first_choice_gap_perm(A, F.p, F0.p)
+            rec["perm_first_difference"] = {"step": k, "gap": gap}
+            rec["perm_near_tie_or_equal"] = gap <= n * eps
+        if name == "zero_col":
+            try:
+                rt.lu(A, check=True, config=ocfg)
+                rec["check_raises"] = False
+            except rt.SingularMatrixError:
+                rec["check_raises"] = True
+        emit("main", **rec)
+        if got != want:
+            fail(f"{what}: panel kernels launched {got}, expected {want}")
+        if route != ("physical" if what == "physical" else "blocked"):
+            fail(f"{what}: route {route}")
+        if not r < g:
+            fail(f"{what}: residual {r} over the gate {g}")
+        if watch.flags == [] or any(watch.flags):
+            fail(f"TF32 products during the run: {watch.flags[:8]}")
+        if not rec.get("ipiv_is_perm_prefix", True) or not rec.get("ipiv_folds_to_perm", True):
+            fail(f"{what}: ipiv and perm disagree")
+        if name == "zero_col":
+            if info != zc + 1 or not rec["check_raises"]:
+                fail(f"singular matrix: info {info}, check_raises {rec['check_raises']}")
+            continue
+        if info != 0 or not np.isfinite(sr):
+            fail(f"{what}: info {info}, solve residual {sr}")
+        if name == "entry" and not sr < 100 * eps:
+            fail(f"{what}: solve residual {sr} on the entry matrix")
+        if not rec["perm_near_tie_or_equal"]:
+            fail(f"{what}: pivots part from the default route's beyond a tie: {rec}")
+        del A, b, F, F0, x
+    if torch.backends.cuda.matmul.allow_tf32 is not True:
+        fail("the caller's TF32 setting was not restored")
+    torch.backends.cuda.matmul.allow_tf32 = tf32_before
+    del omats
+
+    # RBT: pivot-free, so the panel kernel runs with pivot=False
+    def wilkinson(n):
+        W = np.tril(-np.ones((n, n)), -1) + np.eye(n)
+        W[:, -1] = 1.0
+        return W
+
+    n = 800
+    W, wb = wilkinson(n), rng.random(n)
+    panel_factor_cuda.launches = 0
+    torch.backends.cuda.matmul.allow_tf32 = True
+    watch = TF32Watch()
+    with watch:
+        ws = rt.butterfly_workspace(W, wb)
+        xw, winfo = rt.butterfly_solve(ws, return_info=True)
+        torch.cuda.synchronize()
+    restored = torch.backends.cuda.matmul.allow_tf32 is True
+    torch.backends.cuda.matmul.allow_tf32 = tf32_before
+    werr = float(np.linalg.norm(W @ xw.cpu().numpy() - wb))
+    rbt_launches = panel_factor_cuda.launches
+    rec = dict(what="rbt_wilkinson", n=n, dtype="float64", err_2norm=werr, gate=1e-10,
+               info=int(winfo), launches={"panel_lu": rbt_launches},
+               expected_launches={"panel_lu": -(-n // w_main)}, on_card=bool(xw.is_cuda),
+               tf32_seen=any(watch.flags), tf32_restored=restored)
+    emit("main", **rec)
+    if not (werr <= 1e-10 and int(winfo) == 0 and xw.is_cuda and restored
+            and rbt_launches == -(-n // w_main) and watch.flags and not any(watch.flags)):
+        fail(f"RBT on the Wilkinson matrix: {rec}")
+    n = 1536
+    Ae = torch.tensor(rng.standard_normal((n, n)) + n * np.eye(n), dtype=f32, device=dev)
+    be = torch.tensor(rng.standard_normal(n), dtype=f32, device=dev)
+    panel_factor_cuda.launches = 0
+    ws = rt.butterfly_workspace(Ae, be)
+    xr = {k: rt.butterfly_solve(ws, refine=k) for k in (0, 2)}
+    torch.cuda.synchronize()
+    rbt_launches_1536 = panel_factor_cuda.launches
+    xp = rt.lu_solve(rt.lu(Ae), be)
+    rr = {f"refine_{k}": solve_resid(Ae, v, be) for k, v in xr.items()}
+    rr["pivoted"] = solve_resid(Ae, xp, be)
+    rec = dict(what="rbt_entry", n=n, dtype="float32", solve_rel_resid=rr,
+               launches={"panel_lu": rbt_launches_1536},
+               expected_launches={"panel_lu": 2 * -(-n // w_main)})
+    emit("main", **rec)
+    eps32 = torch.finfo(f32).eps
+    if not (all(np.isfinite(v) and v < 100 * eps32 for v in rr.values())
+            and rr["refine_2"] <= rr["refine_0"] * 1.5
+            and rbt_launches_1536 == 2 * -(-n // w_main)):
+        fail(f"RBT on the entry matrix: {rec}")
+    del Ae, be, ws, xr, xp
+
     # ---- 3b. the batched path -------------------------------------------
     wrappers = {"batched_lu_swap": bk.batched_lu_cuda,
                 "batched_lu_noswap": bk.batched_lu_noswap_cuda,
@@ -941,16 +1317,18 @@ def main(argv):
             ckernel_rows.append(row)
             emit("timing", what="panel_kernel_c64", card=card, **row)
 
-    def round_robin(fns, rounds=7, warm=1, inner=1):
+    def round_robin(fns, rounds=7, warm=1, inner=1, setup=None):
         """Median CUDA-event ms of each callable, run in turns (every
         round times each once), so host noise spreads over all of them.
         With ``inner`` > 1 a turn queues the callable that many times
         between its two events and the time is per call: the device stays
         fed and the host's launch latency falls out of a sub-millisecond
-        kernel's time."""
+        kernel's time.  ``setup`` runs before each timing, outside it."""
         ts = {k: [] for k in fns}
         for r in range(warm + rounds):
             for k, fn in fns.items():
+                if setup is not None:
+                    setup()
                 e0 = torch.cuda.Event(enable_timing=True)
                 e1 = torch.cuda.Event(enable_timing=True)
                 e0.record()
@@ -1083,6 +1461,117 @@ def main(argv):
                        "solve_with_perm": batched_solve_bound(BATCH_B, 64, 1, "float64", 8)[0]})
         del A, b, f
 
+    # ---- 4d. the new panel kernels, the opt-in schedules, RBT -------------
+    micro_main = rt.LUConfig().resolved_panel_micro()
+    new_rows = {}
+    for (m, w) in shapes:
+        X = torch.randn(m, w, generator=gen).to(dev)
+        P = torch.empty_like(X)
+        none_used = torch.zeros(m, dtype=torch.int32, device=dev)
+        half_used = none_used.clone()
+        half_used[torch.randperm(m, generator=gen)[: m // 2].to(dev)] = 1
+        with quiet_c_stdout():
+            t = round_robin({
+                "panel_lu": lambda: panel_factor_cuda(P, True),
+                "panel_lu_micro_shadow": lambda: panel_factor_shadow_cuda(P, True, micro_main),
+                "panel_lu_micro_basic": lambda: panel_factor_basic_cuda(P, True, micro_main),
+                "panel_lu_noswap": lambda: panel_factor_noswap_cuda(P, none_used, True),
+                "panel_lu_noswap_half_used": lambda: panel_factor_noswap_cuda(P, half_used, True),
+                "library": lambda: torch.linalg.lu_factor_ex(P),
+            }, rounds=9, setup=lambda: P.copy_(X))
+        plain = {
+            "panel_lu_micro_shadow": timed(lambda: micro_blocked_lu(X, True, micro_main),
+                                           reps=1, warm=0)[0],
+            "panel_lu_noswap": timed(lambda: unblocked_lu_noswap(X, none_used, True),
+                                     reps=1, warm=0)[0],
+        }
+        plain["panel_lu_micro_basic"] = plain["panel_lu_micro_shadow"]  # one plain version
+        b_ms, b_by = bound(m, w, "float32", 4)
+        hb_ms, _ = bound(m - m // 2, w, "float32", 4)  # the rows this mask leaves
+        new_rows[(m, w)] = dict(t=t, plain=plain, bound=(b_ms, b_by))
+        emit("timing", what="new_panel_kernels", card=card, shape=[m, w], dtype="float32",
+             micro=micro_main, kernel_ms=t, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+             bound_ms_half_used=hb_ms,
+             us_per_step={k: 1e3 * v / min(m, w) for k, v in t.items()})
+        del X, P
+
+    def e2e_opt(n):
+        M = torch.randn(n, n, generator=gen).to(dev)
+        v = torch.randn(n, generator=gen).to(dev)
+        cfgs = {"default": None, **{k: c for k, (c, _) in opt_cfgs.items()}}
+
+        def lib_fs():
+            LU_, piv, _ = torch.linalg.lu_factor_ex(M)
+            torch.linalg.lu_solve(LU_, piv, v[:, None])
+
+        fns = {}
+        for k, c in cfgs.items():
+            fns[f"{k}_factor"] = lambda c=c: rt.lu(M, check=False, config=c)
+            fns[f"{k}_factor_solve"] = lambda c=c: rt.lu_solve(
+                rt.lu(M, check=False, config=c), v)
+        fns["library_factor"] = lambda: torch.linalg.lu_factor_ex(M)
+        fns["library_factor_solve"] = lib_fs
+        t = round_robin(fns, rounds=5)
+        emit("timing", what="end_to_end_opt_in", card=card, n=n, dtype="float32",
+             micro=micro_main, ms=t,
+             physical_over_default=t["physical_factor"] / t["default_factor"],
+             shadow_over_default=t["shadow_factor"] / t["default_factor"],
+             basic_over_default=t["basic_factor"] / t["default_factor"])
+
+    with torch.no_grad():
+        e2e_opt(1536)
+        e2e_opt(4096)
+        n = 1536
+        M = (torch.randn(n, n, generator=gen) + n * torch.eye(n)).to(dev)
+        v = torch.randn(n, generator=gen).to(dev)
+        ws = rt.butterfly_workspace(M, v)
+        t = round_robin({
+            "rbt_workspace_transform_factor_solve": lambda: rt.butterfly_solve(
+                rt.butterfly_workspace(M, v)),
+            "rbt_transform_factor_solve": lambda: rt.butterfly_solve(ws),
+            "rbt_refine_2": lambda: rt.butterfly_solve(ws, refine=2),
+            "rbt_transform": lambda: rt.butterfly_mul(ws.A, ws.uv),
+            "nopivot_factor": lambda: rt.lu(M, False, check=False),
+            "pivoted_factor_solve": lambda: rt.lu_solve(rt.lu(M, check=False), v),
+            "library_solve": lambda: torch.linalg.solve(M, v),
+        }, rounds=5)
+        emit("timing", what="rbt", card=card, n=n, dtype="float32", input="randn + n*I", ms=t)
+        del M, v, ws
+
+        if "--sweep" in argv:
+            # the micro-block width and the panel width of the micro-blocked
+            # kernels: per panel, and through lu at both sizes
+            for m in (1536, 4096):
+                for w in (128, 256, 512):
+                    X = torch.randn(m, w, generator=gen).to(dev)
+                    P = torch.empty_like(X)
+                    fns = {("fori", None): lambda: panel_factor_cuda(P, True)}
+                    for micro in (8, 16, 32, 64):
+                        fns[("shadow", micro)] = lambda mc=micro: panel_factor_shadow_cuda(P, True, mc)
+                        fns[("basic", micro)] = lambda mc=micro: panel_factor_basic_cuda(P, True, mc)
+                    t = round_robin(fns, rounds=5, setup=lambda: P.copy_(X))
+                    for (variant, micro), ms in t.items():
+                        emit("timing", what="sweep_micro_panel", card=card, shape=[m, w],
+                             dtype="float32", variant=variant, micro=micro, kernel_ms=ms,
+                             us_per_step=1e3 * ms / w)
+            for n in (1536, 4096):
+                M = torch.randn(n, n, generator=gen).to(dev)
+                cfgs = {("fori3", w, None): rt.LUConfig(panel_width=w, small_threshold=0)
+                        for w in (256, 512)}
+                cfgs[("physical", 256, None)] = rt.LUConfig(schedule="physical", panel_width=256)
+                cfgs[("physical", 512, None)] = rt.LUConfig(schedule="physical", panel_width=512)
+                for variant in ("shadow", "basic"):
+                    for w in (256, 512):
+                        for micro in (8, 16, 32, 64):
+                            cfgs[(variant, w, micro)] = rt.LUConfig(
+                                panel_variant=variant, panel_width=w, small_threshold=0,
+                                panel_micro=micro)
+                t = round_robin({k: (lambda c=c: rt.lu(M, check=False, config=c))
+                                 for k, c in cfgs.items()}, rounds=5)
+                for (variant, w, micro), ms in t.items():
+                    emit("timing", what="sweep_micro_lu", card=card, n=n, dtype="float32",
+                         variant=variant, panel_width=w, micro=micro, factor_ms=ms)
+
     if "--profile" in argv:
         profile(rt, card, gen, dev)
 
@@ -1139,6 +1628,26 @@ def main(argv):
             "bound_by": row["bounds"][key][1],
             "library_ms": row["t"][lib],
             "shape": [BATCH_B, 64, 64] if key != "solve" else [BATCH_B, 64, 1],
+            "dtype": "float32",
+        })
+    nrow = new_rows[tuple(main_shape(1536)[1])]
+    for name, run in (("panel_lu_micro_shadow", ("shadow", "entry", 1536, f32)),
+                      ("panel_lu_micro_basic", ("basic", "entry", 1536, f32)),
+                      ("panel_lu_noswap", ("physical", "entry", 1536, f32))):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": NEW_PANEL_KERNELS[name][0],
+            "replaces": NEW_PANEL_KERNELS[name][1],
+            "launches": launches_o[run],
+            "max_abs_err": new_err[name],
+            "ms": nrow["t"][name],
+            "plain_ms": nrow["plain"][name],
+            "bound_ms": nrow["bound"][0],
+            "bound_by": nrow["bound"][1],
+            # the panel's LU by one library call (rows in pivot order)
+            "library_ms": nrow["t"]["library"],
+            "shape": list(main_shape(1536)[1]),
             "dtype": "float32",
         })
     print(json.dumps({"kernels": kernels}), flush=True)

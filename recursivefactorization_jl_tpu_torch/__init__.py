@@ -24,6 +24,17 @@ only with ``device='cpu'``, on the kernel's plain PyTorch version.
     F = lu_inplace(A)              # overwrites A with the factors
     F = from_numpy(f, ipiv, info)  # a factorization made elsewhere (numpy)
 
+Opt-in schedules of the single-matrix path (``LUConfig``):
+``schedule='physical'`` never moves a row until one final gather (the
+no-swap kernel ``csrc/panel_lu_noswap.cu``; ``ipiv`` is then the pivot-row
+sequence), and ``panel_variant='shadow'`` / ``'basic'`` run the
+micro-blocked panel kernels of ``csrc/panel_lu_micro.cu``.  The Random
+Butterfly Transform solves without pivoting:
+
+    F = lu(A, config=LUConfig(schedule="physical"))
+    F = lu(A, config=LUConfig(panel_variant="shadow", panel_micro=32))
+    x = butterfly_solve(butterfly_workspace(A, b), refine=1)
+
 Batches of small matrices (B, m, n), min(m, n) <= 128, run one more pair
 of hand-written kernels (``csrc/batched_lu.cu``, ``csrc/batched_solve.cu``):
 
@@ -33,6 +44,14 @@ of hand-written kernels (``csrc/batched_lu.cu``, ``csrc/batched_solve.cu``):
     x = batched_lu_solve(f, ipiv, b)
 """
 
+from .models.butterfly import (
+    BWorkspace,
+    butterfly_from_numpy,
+    butterfly_mul,
+    butterfly_solve,
+    butterfly_workspace,
+    generate_butterfly_values,
+)
 from .models.lu import (
     LU,
     SingularMatrixError,
@@ -63,6 +82,12 @@ from .utils.perm import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "BWorkspace",
+    "butterfly_from_numpy",
+    "butterfly_mul",
+    "butterfly_solve",
+    "butterfly_workspace",
+    "generate_butterfly_values",
     "LU",
     "SingularMatrixError",
     "batched_from_numpy",

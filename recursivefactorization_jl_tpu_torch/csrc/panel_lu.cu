@@ -121,27 +121,12 @@ panel_lu_kernel(PanelArgs<T> p) {
         const T v = mag(p.a[i * lda + k]);
         if (better(v, i, best, bi)) { best = v; bi = i; }
       }
-      for (int off = 16; off > 0; off >>= 1) {
-        const T ov = __shfl_down_sync(kFull, best, off);
-        const int oi = __shfl_down_sync(kFull, bi, off);
-        if (better(ov, oi, best, bi)) { best = ov; bi = oi; }
-      }
-      if (lane == 0) { red_val[warp] = best; red_idx[warp] = bi; }
-      __syncthreads();
-      if (warp == 0) {
-        best = lane < kWarps ? red_val[lane] : T(-1);
-        bi = lane < kWarps ? red_idx[lane] : INT_MAX;
-        for (int off = 16; off > 0; off >>= 1) {
-          const T ov = __shfl_down_sync(kFull, best, off);
-          const int oi = __shfl_down_sync(kFull, bi, off);
-          if (better(ov, oi, best, bi)) { best = ov; bi = oi; }
-        }
-        if (lane == 0) {
-          cval[b] = best;
-          cidx[b] = bi;
-          cpid[b] = bi == INT_MAX ? -1 : p.perm[bi];
-          s_kp = bi;
-        }
+      block_best<kWarps>(best, bi, red_val, red_idx);
+      if (tid == 0) {
+        cval[b] = best;
+        cidx[b] = bi;
+        cpid[b] = bi == INT_MAX ? -1 : p.perm[bi];
+        s_kp = bi;
       }
       __syncthreads();
       const int ci = s_kp;
@@ -169,12 +154,7 @@ panel_lu_kernel(PanelArgs<T> p) {
           const int i = __ldcg(cidx + g);
           if (better(v, i, best, bi)) { best = v; bi = i; bb = g; }
         }
-        for (int off = 16; off > 0; off >>= 1) {
-          const T ov = __shfl_down_sync(kFull, best, off);
-          const int oi = __shfl_down_sync(kFull, bi, off);
-          const int ob = __shfl_down_sync(kFull, bb, off);
-          if (better(ov, oi, best, bi)) { best = ov; bi = oi; bb = ob; }
-        }
+        warp_best(best, bi, bb);
         if (lane == 0) { s_kp = bi; s_src = bb; }
       }
       __syncthreads();

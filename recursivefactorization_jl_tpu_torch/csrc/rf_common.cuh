@@ -7,6 +7,7 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
 
 namespace rf {
@@ -37,6 +38,45 @@ __device__ __forceinline__ bool better(T va, int ia, T vb, int ib) {
   if (na != nb) return na;
   if (!na && va != vb) return va > vb;
   return ia < ib;
+}
+
+// Reduce (best, bi) over a warp by `better`; lane 0 ends with the warp's
+// best candidate.  All 32 lanes call it.
+template <typename T>
+__device__ __forceinline__ void warp_best(T& best, int& bi) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const T ov = __shfl_down_sync(kFull, best, off);
+    const int oi = __shfl_down_sync(kFull, bi, off);
+    if (better(ov, oi, best, bi)) { best = ov; bi = oi; }
+  }
+}
+
+// The same with a tag (the block that proposed the candidate) riding along.
+template <typename T>
+__device__ __forceinline__ void warp_best(T& best, int& bi, int& tag) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const T ov = __shfl_down_sync(kFull, best, off);
+    const int oi = __shfl_down_sync(kFull, bi, off);
+    const int ot = __shfl_down_sync(kFull, tag, off);
+    if (better(ov, oi, best, bi)) { best = ov; bi = oi; tag = ot; }
+  }
+}
+
+// Reduce every thread's (best, bi) over a thread block of kWarps warps;
+// thread 0 ends with the block's best candidate.  red_val and red_idx are
+// shared arrays of kWarps entries.  Every thread calls it; it holds one
+// __syncthreads().
+template <int kWarps, typename T>
+__device__ __forceinline__ void block_best(T& best, int& bi, T* red_val, int* red_idx) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  warp_best(best, bi);
+  if (lane == 0) { red_val[warp] = best; red_idx[warp] = bi; }
+  __syncthreads();
+  if (warp == 0) {
+    best = lane < kWarps ? red_val[lane] : T(-1);
+    bi = lane < kWarps ? red_idx[lane] : INT_MAX;
+    warp_best(best, bi);
+  }
 }
 
 // Dynamic shared memory above 48 KB has to be asked for, per kernel.

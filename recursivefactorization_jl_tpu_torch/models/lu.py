@@ -3,7 +3,10 @@
 The PyTorch counterpart of the JAX package's models/lu.py, with the same
 conventions: ``ipiv`` is the 0-based swap sequence, ``perm`` the composed
 row permutation (``L @ U == A[perm, :]``), ``info`` 0 on success or the
-1-based first zero-pivot step, negative on the no-pivot path.
+1-based first zero-pivot step, negative on the no-pivot path.  Under
+``LUConfig(schedule='physical')`` ``ipiv`` is instead the sequence of
+pivot rows, the prefix of ``perm``; solves, ``det`` and ``inv`` go by
+``perm`` on every route.
 
 Device rule: every entry point takes ``device=None``, which means CUDA
 and raises when CUDA is absent.  The CPU runs only with ``device='cpu'``.
@@ -19,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.blocked import blocked_lu
+from ..ops.blocked import blocked_lu, blocked_lu_physical
 from ..ops.panel import panel_factor
 from ..utils.config import (
     HALF_DTYPES,
@@ -73,7 +76,13 @@ class LU:
     def from_numpy(cls, factors, ipiv, info, perm=None, pivoted=True,
                    device=None) -> "LU":
         """Build an ``LU`` from numpy arrays (for example the JAX package's
-        factorization), on ``device`` (None means CUDA)."""
+        factorization), on ``device`` (None means CUDA).
+
+        Without ``perm`` the permutation is recomposed from ``ipiv`` as a
+        swap sequence.  A factorization made under ``schedule='physical'``
+        therefore needs its ``perm``: its ``ipiv`` is the sequence of
+        pivot rows (``prow``), the prefix of ``perm`` and, for a square
+        matrix, the whole of it, so that ``perm=ipiv`` is enough there."""
         dev = resolve_device(device)
         return cls(
             torch.as_tensor(np.array(factors), device=dev),
@@ -166,8 +175,10 @@ class LU:
 def from_numpy(factors, ipiv, info, perm=None, pivoted=True, device=None) -> LU:
     """A factorization held in numpy arrays (for example one made by the
     JAX package, complex included) as an :class:`LU` on ``device`` (None
-    means CUDA), ready for ``lu_solve``.  The single-matrix twin of
-    :func:`batched_from_numpy`."""
+    means CUDA), ready for ``lu_solve``.  One made under
+    ``schedule='physical'`` needs its ``perm`` (for a square matrix its
+    ``ipiv``, the pivot rows, is that ``perm``).  The single-matrix twin
+    of :func:`batched_from_numpy`."""
     return LU.from_numpy(factors, ipiv, info, perm=perm, pivoted=pivoted,
                          device=device)
 
@@ -200,8 +211,13 @@ def dispatch_route(shape, dtype, pivot: bool = True,
     * ``"whole"``: one whole-matrix panel call (m >= n, min(m, n) <=
       ``small_threshold``);
     * ``"blocked"``: the blocked right-looking schedule;
-    * ``"generic"``, ``"physical"``: the JAX package's other routes, which
-      raise ``NotImplementedError`` until they are ported.
+    * ``"physical"``: the physical-order blocked schedule
+      (``schedule='physical'``, float32/float64, m >= n, any size; half
+      matrices reach it promoted).  Fat matrices fall through to the swap
+      schedule, as in the JAX package, and so do complex ones: the
+      no-swap kernel is real, as the TPU's is float32;
+    * ``"generic"``: integer and other types, which raise
+      ``NotImplementedError`` until they are ported.
 
     Complex matrices take ``"whole"`` / ``"blocked"`` by the same rule as
     real ones (the JAX package's ``"complex-unblocked"`` /
@@ -220,10 +236,10 @@ def dispatch_route(shape, dtype, pivot: bool = True,
     thresh = config.resolved_xla_threshold()
     if thresh is not None and pivot and minmn <= thresh:
         return "xla"
-    if config.schedule == "physical" and m >= n:
-        return "physical"
     if config.schedule not in ("swap", "physical"):
         raise ValueError(f"unknown schedule {config.schedule!r}")
+    if config.schedule == "physical" and m >= n and not dtype.is_complex:
+        return "physical"
     if minmn <= config.small_threshold and m >= n:
         return "whole"
     return "blocked"
@@ -231,7 +247,6 @@ def dispatch_route(shape, dtype, pivot: bool = True,
 
 # the ROADMAP.md item that will port each deferred route
 _DEFERRED = {
-    "physical": "Queue 1 item 11 (physical schedule)",
     "generic": "Queue 1 item 14 (integer and generic dtypes)",
 }
 
@@ -258,6 +273,7 @@ def _dispatch_factor(A: torch.Tensor, pivot: bool, config: LUConfig):
             stacklevel=3,
         )
     config.resolved_panel_boundary_precision()
+    config.check_variants()
     return _factor_by_route(A, pivot, config)
 
 
@@ -285,6 +301,8 @@ def _factor_by_route(A: torch.Tensor, pivot: bool, config: LUConfig):
             return A, ipiv, perm, linfo.to(torch.int32)
         if route == "whole":
             return panel_factor(A, pivot, config)
+        if route == "physical":
+            return blocked_lu_physical(A, pivot, config)
         return blocked_lu(A, pivot, config)
 
 

@@ -24,7 +24,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 SOURCES = {
     name: PACKAGE_DIR / "csrc" / f"{name}.cu"
-    for name in ("panel_lu", "panel_lu_c64", "batched_lu", "batched_solve")
+    for name in ("panel_lu", "panel_lu_c64", "panel_lu_micro",
+                 "panel_lu_noswap", "batched_lu", "batched_solve")
 }
 # included by every source (nvcc finds it beside them)
 COMMON_HEADER = PACKAGE_DIR / "csrc" / "rf_common.cuh"
@@ -40,6 +41,10 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _PANEL = (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P])
+# the same with the micro-block width after pivot
+_PANEL_MICRO = (_I, [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P])
+# panel, m, w, lda, pivot, used0, used, prow, info, ws, iws, grid, device, stream
+_PANEL_NOSWAP = (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P])
 # C signatures: name -> (restype, argtypes)
 SIGNATURES = {
     "panel_lu": {
@@ -52,6 +57,21 @@ SIGNATURES = {
         "rf_panel_lu_c_grid": (_I, [_I, _I, _I, _I]),
         "rf_panel_lu_c64": _PANEL,
         "rf_panel_lu_c128": _PANEL,
+        "rf_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "panel_lu_micro": {
+        "rf_panel_lu_micro_max": (_I, []),
+        "rf_panel_lu_micro_grid": (_I, [_I, _I, _I, _I, _I, _I]),
+        "rf_panel_lu_shadow_f32": _PANEL_MICRO,
+        "rf_panel_lu_shadow_f64": _PANEL_MICRO,
+        "rf_panel_lu_basic_f32": _PANEL_MICRO,
+        "rf_panel_lu_basic_f64": _PANEL_MICRO,
+        "rf_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "panel_lu_noswap": {
+        "rf_panel_lu_noswap_grid": (_I, [_I, _I, _I, _I]),
+        "rf_panel_lu_noswap_f32": _PANEL_NOSWAP,
+        "rf_panel_lu_noswap_f64": _PANEL_NOSWAP,
         "rf_error_string": (ctypes.c_char_p, [_I]),
     },
     "batched_lu": {

@@ -12,17 +12,33 @@ The schedule updates ``A`` in place, where the JAX package wrote new
 arrays with ``.at[].set``.  Fat matrices (m < n) factor the left m x m
 block, then solve for the remaining columns.  With ``tail_threshold``
 set, a narrow enough trailing block is finished in one whole-block
-panel call (the recursion's base case).
+panel call (the recursion's base case).  The panels run
+``blocked_panel_variant`` (None: ``panel_variant``).
+
+``blocked_lu_physical`` is the opt-in ``schedule='physical'``: no row
+moves until one final gather.
+
+    for each panel s (width w), at full height m:
+        1. factor A[:, s:s+w] in place with the no-swap panel kernel,
+           which skips the rows consumed so far
+        2. U12 = L11^-1 @ A[pivot rows, s+w:], L11 gathered from the
+           panel at the pivot rows
+        3. A[:, s+w:] -= Lmasked @ U12, where Lmasked is the panel with
+           zeros wherever the row was consumed at or before that column's
+           step: consumed rows stay as they are, the panel's pivot rows
+           receive their rows of U12, the others their Schur update
+    then factors = A[perm]
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
 
 from ..utils.config import LUConfig, full_matmul_precision
-from .panel import panel_factor
+from .panel import panel_factor, panel_factor_noswap
 from .schur import schur_product
 from .trsm import solve_unit_lower, unit_lower_inverse
 
@@ -73,6 +89,9 @@ def blocked_lu(
     ``ipiv`` is the 0-based global swap sequence of length min(m, n),
     ``perm`` the composed global row permutation (``L @ U == A0[perm]``)
     and ``info`` a 0-d int32 tensor."""
+    variant = config.resolved_blocked_variant()
+    if variant != config.panel_variant:
+        config = dataclasses.replace(config, panel_variant=variant)
     with full_matmul_precision():
         return _blocked_lu(A, pivot, config)
 
@@ -123,3 +142,67 @@ def _blocked_lu(A, pivot, config):
             )
         s += ws
     return A, ipiv, perm, info
+
+
+def blocked_lu_physical(
+    A: torch.Tensor, pivot: bool, config: LUConfig
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Factor a real ``A`` (m x n, m >= n) in place with the physical-
+    order schedule: rows never move during the factorization, so there
+    are no row interchanges inside the panel kernel and no laswp between
+    panels; the price is trailing updates at full height m on every
+    panel and one row gather at the end.
+
+    Returns ``(A, prow, perm, info)``: ``A`` holds the packed factors in
+    pivot order (``L @ U == A0[perm]``), ``perm`` is the composed row
+    permutation (for m > n the rows never chosen follow in ascending
+    order) and ``prow`` its first n entries, the row chosen at each step.
+    ``prow`` is not a swap sequence: solve with ``perm``.  Nothing here
+    waits for the device."""
+    m, n = A.shape
+    if m < n:
+        raise ValueError("blocked_lu_physical requires m >= n")
+    with full_matmul_precision():
+        return _blocked_lu_physical(A, pivot, config)
+
+
+def _blocked_lu_physical(A, pivot, config):
+    m, n = A.shape
+    dev = A.device
+    w = config.resolved_panel_width()
+    prec = config.resolved_schur_precision()
+    used = torch.zeros(m, dtype=torch.int32, device=dev)
+    # the elimination step that consumed each row; n: not consumed
+    taken_at = torch.full((m,), n, dtype=torch.int64, device=dev)
+    prow = torch.empty(n, dtype=torch.int32, device=dev)
+    info = torch.zeros((), dtype=torch.int32, device=dev)
+    steps = torch.arange(n, device=dev)
+
+    s = 0
+    while s < n:
+        ws = min(w, n - s)
+        panel = A[:, s : s + ws]
+        prow_l, used, linfo = panel_factor_noswap(panel, used, pivot)
+        info = _offset_info(info, linfo, s)
+        prow[s : s + ws] = prow_l
+        rows = prow_l.long()
+        taken_at[rows] = steps[s : s + ws]
+        if s + ws < n:
+            # entry (i, r) stays iff row i was still available after
+            # step s + r: the zeros cut the sums of consumed rows, so one
+            # full-height product leaves earlier panels' rows alone,
+            # writes U12 into this panel's pivot rows and updates the rest
+            keep = taken_at[:, None] > steps[None, s : s + ws]
+            Lm = torch.where(keep, panel, torch.zeros((), dtype=A.dtype, device=dev))
+            U12 = unit_lower_inverse(Lm[rows]) @ A[rows, s + ws :]
+            A[:, s + ws :].sub_(schur_product(Lm, U12, prec).to(A.dtype))
+        s += ws
+
+    if m > n:
+        # the rows never chosen, in ascending order, without a host sync
+        rest = torch.argsort(used, stable=True)[: m - n].to(torch.int32)
+        perm = torch.cat([prow, rest])
+    else:
+        perm = prow
+    A.copy_(A[perm.long()])
+    return A, prow, perm, info

@@ -19,7 +19,10 @@ the rounding the kernel reproduces, so the two agree bitwise on the card.
 ``unblocked_lu`` pivots by the modulus ``|a|`` (the JAX function of the
 same name).  ``unblocked_lu_cabs1`` is the plain version of the complex
 kernel (csrc/panel_lu_c64.cu): it pivots by CABS1, ``|re| + |im|``, and
-works on the real and imaginary planes.
+works on the real and imaginary planes.  ``micro_blocked_lu`` is the
+plain version of the two micro-blocked kernels (csrc/panel_lu_micro.cu)
+and ``unblocked_lu_noswap`` that of the physical-order kernel
+(csrc/panel_lu_noswap.cu); both serve real panels only.
 """
 
 from __future__ import annotations
@@ -125,3 +128,136 @@ def unblocked_lu_cabs1(A: torch.Tensor, pivot: bool):
             Re[k + 1 :, k + 1 :].sub_(torch.outer(lre, ure) - torch.outer(lim, uim))
             Im[k + 1 :, k + 1 :].sub_(torch.outer(lre, uim) + torch.outer(lim, ure))
     return A, ipiv, perm, torch.tensor(info, dtype=torch.int32, device=dev)
+
+
+def _delayed_trsm(A, q0: int, p0: int, c0: int) -> None:
+    """Unit-lower solve of rows ``[q0, p0)`` against columns ``c0:`` in
+    place: row i is eliminated from the rows below it before row i + 1,
+    one rounded product and one rounded difference per entry."""
+    for i in range(q0, p0 - 1):
+        A[i + 1 : p0, c0:].sub_(torch.outer(A[i + 1 : p0, i], A[i, c0:]))
+
+
+def _delayed_update(A, q0: int, p0: int) -> None:
+    """``A[p0:, p0:] -= A[p0:, q0:p0] @ A[q0:p0, p0:]`` with the order of
+    the sum fixed: the accumulator starts at 0 and takes ``l[i, j] *
+    u[j, c]`` for j = q0 .. p0 - 1 in turn, every product and every sum
+    rounded once, then one subtraction."""
+    acc = torch.zeros_like(A[p0:, p0:])
+    for j in range(q0, p0):
+        acc.add_(torch.outer(A[p0:, j], A[j, p0:]))
+    A[p0:, p0:].sub_(acc)
+
+
+def micro_blocked_lu(A: torch.Tensor, pivot: bool, micro: int):
+    """Micro-blocked LU of a real ``A`` (m x n).  Returns ``(LU, ipiv,
+    perm, info)`` as :func:`unblocked_lu` does; the input is not modified.
+
+    The plain version of both micro-blocked Hopper kernels (the staged
+    ``shadow`` one and the in-place ``basic`` one) and the CPU route of
+    those variants.  The pivot rule, the zero-pivot rule and info are
+    those of :func:`unblocked_lu`; what differs is when the trailing
+    columns are updated.  With blocks of ``micro`` steps (the last one
+    ragged, none beyond min(m, n)):
+
+    * a step swaps rows across all n columns, scales its column by
+      ``1/p`` and applies its rank-1 update to the columns of its own
+      block only;
+    * at the start of the next block the finished block ``[q0, p0)`` is
+      applied to the columns ``p0:``: a unit-lower solve of the rows
+      ``[q0, p0)`` (row by row), then the rank-``micro`` update of the
+      rows ``p0:`` with the sum's order fixed (:func:`_delayed_update`);
+    * a fat matrix (n > m) ends with the solve of the last block against
+      the columns ``m:``.
+
+    Every product, sum and difference is its own rounded tensor op in the
+    order the kernels use, so kernel and plain version agree bitwise on
+    the card.  In exact arithmetic the result is :func:`unblocked_lu`'s;
+    in floating point the factors differ by the order of the updates."""
+    if A.is_complex():
+        raise ValueError(f"micro_blocked_lu takes a real matrix, got {A.dtype}")
+    if micro < 1:
+        raise ValueError(f"micro must be positive, got {micro}")
+    A = A.clone()
+    m, n = A.shape
+    minmn = min(m, n)
+    dev = A.device
+    ipiv = torch.arange(minmn, dtype=torch.int32, device=dev)
+    perm = torch.arange(m, dtype=torch.int32, device=dev)
+    info = 0
+    for k in range(minmn):
+        p0 = (k // micro) * micro
+        p1 = min(p0 + micro, minmn)
+        if k == p0 and k > 0:
+            _delayed_trsm(A, p0 - micro, p0, p0)
+            _delayed_update(A, p0 - micro, p0)
+        kp = k + int(torch.argmax(A[k:, k].abs())) if pivot else k
+        ipiv[k] = kp
+        nonzero = bool(A[kp, k] != 0)
+        if nonzero and kp != k:
+            A[[k, kp]] = A[[kp, k]]
+            perm[[k, kp]] = perm[[kp, k]]
+        if nonzero:
+            A[k + 1 :, k].mul_(torch.reciprocal(A[k, k]))
+        elif info == 0:
+            info = k + 1 if pivot else -(k + 1)
+        if k + 1 < m and k + 1 < p1:
+            A[k + 1 :, k + 1 : p1].sub_(torch.outer(A[k + 1 :, k], A[k, k + 1 : p1]))
+    if n > minmn and minmn > 0:
+        _delayed_trsm(A, ((minmn - 1) // micro) * micro, minmn, minmn)
+    return A, ipiv, perm, torch.tensor(info, dtype=torch.int32, device=dev)
+
+
+def unblocked_lu_noswap(A: torch.Tensor, used0: torch.Tensor, pivot: bool):
+    """Physical-order LU of a real panel ``A`` (m x w): no row ever moves.
+    Returns ``(LU, prow, used, info)``; the inputs are not modified.
+
+    The plain version of the no-swap Hopper kernel and the CPU route of
+    ``schedule='physical'``.  ``used0`` (m,) marks the rows consumed by
+    earlier panels (nonzero: consumed); they are neither searched nor
+    updated.  Per step k:
+
+    * the pivot row ``prow[k]`` is the available row with the largest
+      ``|a[i, k]|``, the smallest row among ties (a NaN wins over any
+      number); without pivoting it is the first available row;
+    * the row is marked used and keeps its place: from here on it holds
+      row k of U in the columns ``k:`` and its multipliers before them;
+    * the rows still available are scaled by ``1/p`` in column k and take
+      the rank-1 update of the columns ``k+1:``; a zero pivot means no
+      scale, the update still runs and the column still consumes its
+      row; ``info`` is the 1-based first such step, negated without
+      pivoting.
+
+    With no row left to take, ``prow[k]`` is -1 and the step does
+    nothing.  ``L @ U == A[perm]`` for ``perm`` = ``prow`` followed by
+    the rows never taken."""
+    if A.is_complex():
+        raise ValueError(f"unblocked_lu_noswap takes a real panel, got {A.dtype}")
+    A = A.clone()
+    m, w = A.shape
+    dev = A.device
+    if used0.shape != (m,):
+        raise ValueError(f"used0 must have shape ({m},), got {tuple(used0.shape)}")
+    used = (used0 != 0).to(torch.int32)
+    prow = torch.full((min(m, w),), -1, dtype=torch.int32, device=dev)
+    info = 0
+    for k in range(min(m, w)):
+        avail = used == 0
+        if not bool(avail.any()):
+            continue
+        if pivot:
+            mag = torch.where(avail, A[:, k].abs(), torch.full_like(A[:, k], -1))
+            kp = int(torch.argmax(mag))
+        else:
+            kp = int(torch.argmax(avail.to(torch.int32)))
+        prow[k] = kp
+        used[kp] = 1
+        rest = used == 0
+        pv = A[kp, k]
+        if bool(pv != 0):
+            A[rest, k] = A[rest, k] * torch.reciprocal(pv)
+        elif info == 0:
+            info = k + 1 if pivot else -(k + 1)
+        if k + 1 < w:
+            A[rest, k + 1 :] = A[rest, k + 1 :] - torch.outer(A[rest, k], A[kp, k + 1 :])
+    return A, prow, used, torch.tensor(info, dtype=torch.int32, device=dev)

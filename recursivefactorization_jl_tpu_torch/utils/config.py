@@ -32,8 +32,20 @@ DEFAULT_SMALL_THRESHOLD = 512
 # ``promote`` route), and solves with their factors run in float32.
 HALF_DTYPES = (torch.bfloat16, torch.float16)
 
-# Variants of the TPU panel kernel that the ported kernel stands for.
+# Variants of the TPU panel kernel that csrc/panel_lu.cu stands for, and
+# the micro-blocked ones of csrc/panel_lu_micro.cu.
 FORI_VARIANTS = ("fori", "fori2", "fori3")
+MICRO_VARIANTS = ("shadow", "basic")
+
+# What ``panel_micro='auto'`` means for the micro-blocked kernels (the
+# width of the block whose trailing update is delayed).  From
+# chip_smoke.py's ``--sweep`` over 8/16/32/64 on an H100 (PERF.md).
+DEFAULT_PANEL_MICRO = 32
+# The widest block they take (kMicroMax of csrc/panel_lu_micro.cu, which
+# exports it as ``rf_panel_lu_micro_max``; the launcher holds the two
+# together).  The limit is checked on both devices, so that one
+# configuration factors on both or on neither.
+PANEL_MICRO_MAX = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,20 +62,32 @@ class LUConfig:
     * ``backend``: ``'auto'``/``'pallas'`` run the panel kernel; ``'xla'``
       runs the plain panel (the CPU route; on CUDA tensors it raises).
     * ``trsm_block``: block size of the blocked triangular solves.
-    * ``inner_panel_width``, ``panel_micro``, ``panel_outer``,
-      ``panel_unroll``, ``tp_panel_backend``:
-      kept for the mapping's sake.  The Hopper kernel computes the same
-      function for every fori variant and ignores the micro, outer and
-      unroll widths, which shaped the TPU kernel's blocking.
-    * ``panel_variant``, ``blocked_panel_variant``: ``'fori'``,
-      ``'fori2'`` or ``'fori3'`` (or None for the latter); the other TPU
-      variants raise until their kernels are ported.
+    * ``panel_variant``: ``'fori'``, ``'fori2'`` and ``'fori3'`` run the
+      unblocked kernel (csrc/panel_lu.cu computes the same function for
+      all three); ``'shadow'`` and ``'basic'`` run the micro-blocked
+      kernels of csrc/panel_lu_micro.cu (rank-1 updates inside a
+      ``panel_micro``-wide block, one delayed update of the trailing
+      columns per block), staged in shared memory or in place.  Complex
+      panels have one kernel and ignore the variant.
+    * ``blocked_panel_variant``: the variant of the blocked schedule's
+      panels; None means ``panel_variant``.
+    * ``panel_micro``: block width of the micro-blocked kernels; an int
+      from 1 to ``PANEL_MICRO_MAX`` (64) is taken as given, a larger one
+      raises on either device; ``'auto'`` means ``DEFAULT_PANEL_MICRO``.
+      The fori variants ignore it.
+    * ``inner_panel_width``, ``panel_outer``, ``panel_unroll``,
+      ``tp_panel_backend``: kept for the mapping's sake; they shaped the
+      TPU kernels' blocking and the Hopper kernels ignore them.
     * ``panel_boundary_precision``: ``'auto'``/``'float32'``; ``'bf16x3'``
       raises until a blocked kernel has boundary matmuls.
     * ``xla_threshold``: ``'auto'``/None never delegate; an int routes
       pivoted factorizations with min(m, n) at or below it to
       ``torch.linalg.lu_factor_ex``.
-    * ``schedule``: ``'swap'``; ``'physical'`` raises until ported.
+    * ``schedule``: ``'swap'`` moves rows into pivot order as it goes;
+      ``'physical'`` (f32/f64, m >= n) never moves a row until one final
+      gather: the no-swap panel kernel (csrc/panel_lu_noswap.cu) and
+      full-height masked trailing updates.  Its ``ipiv`` is the sequence
+      of pivot rows (the prefix of ``perm``), not a swap sequence.
     * ``tail_threshold``: finish the blocked schedule in one whole-block
       call once the trailing block is this narrow; ``'auto'``/None off.
     """
@@ -105,9 +129,9 @@ class LUConfig:
             return "float32"
         if bp == "bf16x3":
             raise NotImplementedError(
-                "panel_boundary_precision='bf16x3' needs a blocked panel "
-                "kernel with boundary matmuls (ROADMAP.md Queue 1 item 15); "
-                "the Hopper panel kernel has none"
+                "panel_boundary_precision='bf16x3' splits the boundary "
+                "matmuls of the fori kernels (ROADMAP.md Queue 1 item 15); "
+                "the Hopper fori kernel is unblocked and has none"
             )
         raise ValueError(f"unknown panel_boundary_precision {bp!r}")
 
@@ -121,15 +145,32 @@ class LUConfig:
             return DEFAULT_PANEL_WIDTH
         return self.panel_width
 
+    def resolved_panel_micro(self) -> int:
+        if self.panel_micro == "auto":
+            return DEFAULT_PANEL_MICRO
+        if not isinstance(self.panel_micro, int) or self.panel_micro < 1:
+            raise ValueError(
+                f"panel_micro must be 'auto' or a positive int, got "
+                f"{self.panel_micro!r}"
+            )
+        if self.panel_micro > PANEL_MICRO_MAX:
+            raise ValueError(
+                f"panel_micro is at most {PANEL_MICRO_MAX} (the widest block "
+                f"of the micro-blocked kernels), got {self.panel_micro}"
+            )
+        return self.panel_micro
+
+    def resolved_blocked_variant(self) -> str:
+        return self.blocked_panel_variant or self.panel_variant
+
     def check_variants(self) -> None:
-        """Raise for a panel variant (whole-matrix or blocked) that has no
-        Hopper kernel yet."""
+        """Raise for an unknown panel variant (whole-matrix or blocked)."""
+        known = FORI_VARIANTS + MICRO_VARIANTS
         for variant in (self.panel_variant, self.blocked_panel_variant):
-            if variant is not None and variant not in FORI_VARIANTS:
-                raise NotImplementedError(
-                    f"panel variant {variant!r} has no Hopper kernel yet "
-                    "(ROADMAP.md Queue 2); use one of "
-                    + ", ".join(FORI_VARIANTS)
+            if variant is not None and variant not in known:
+                raise ValueError(
+                    f"unknown panel variant {variant!r}; use one of "
+                    + ", ".join(known)
                 )
 
 

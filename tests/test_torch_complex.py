@@ -279,8 +279,12 @@ def test_complex_routing_and_library_delegation():
     F = rt.lu(A, config=xla, device="cpu")
     np.testing.assert_array_equal(to_np(F.ipiv), scipy.linalg.lu_factor(A)[1])
     assert lu_residual(A, F.factors, F.p) < _gate(A, np.complex128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.lu(A, config=rt.LUConfig(schedule="physical"), device="cpu")
+    # the physical schedule's kernel is real: complex matrices keep the
+    # swap schedule under it
+    phys = rt.LUConfig(schedule="physical")
+    assert rt.dispatch_route((50, 50), torch.complex128, True, phys) == "whole"
+    P, D = rt.lu(A, config=phys, device="cpu"), rt.lu(A, device="cpu")
+    assert torch.equal(P.ipiv, D.ipiv) and torch.equal(P.factors, D.factors)
     # the kernel wrapper never takes a CPU tensor (no silent fallback)
     with pytest.raises(ValueError):
         panel_factor_c64_cuda(torch.as_tensor(A), True)

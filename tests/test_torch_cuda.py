@@ -14,13 +14,20 @@ import torch
 import recursivefactorization_jl_tpu_torch as rt
 from recursivefactorization_jl_tpu_torch.ops import batched_kernel as bk
 from recursivefactorization_jl_tpu_torch.ops.panel import (
+    micro_max_cuda,
+    panel_factor_basic_cuda,
     panel_factor_c64_cuda,
     panel_factor_cuda,
+    panel_factor_noswap_cuda,
+    panel_factor_shadow_cuda,
 )
 from recursivefactorization_jl_tpu_torch.ops.unblocked import (
+    micro_blocked_lu,
     unblocked_lu,
     unblocked_lu_cabs1,
+    unblocked_lu_noswap,
 )
+from recursivefactorization_jl_tpu_torch.utils.config import PANEL_MICRO_MAX
 
 torch.set_num_threads(1)
 
@@ -477,3 +484,237 @@ def test_batched_library_routes_on_the_card():
     assert bk.batched_lu_cuda.launches == bk.batched_solve_cuda.launches == 0
     with pytest.raises(ValueError):
         rt.batched_lu_factor(At, config=rt.LUConfig(backend="pallas"))
+
+
+# ---------------------------------------------------------------------------
+# the micro-blocked kernels (shadow, basic), the no-swap kernel, and the
+# paths over them: panel variants, the physical schedule, RBT
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("shape,micro", [
+    ((1, 1), 4), ((7, 3), 2), ((300, 64), 16), ((300, 70), 32), ((64, 200), 16),
+    ((513, 513), 64), ((40, 33), 8), ((200, 24), 32),
+])
+def test_micro_kernels_bitwise_equal_plain_and_each_other(dtype, pivot, shape, micro):
+    """Pivots, perm and info exactly, factors bitwise, for the staged and
+    the in-place kernel: the delayed update sums in one fixed order in all
+    three.  Ragged last blocks, a fat panel, one block spanning the panel."""
+    need_cuda()
+    g = torch.Generator().manual_seed(31)
+    A = torch.randn(*shape, generator=g, dtype=dtype).cuda()
+    if not pivot:
+        A += max(shape) * torch.eye(*shape, dtype=dtype, device="cuda")
+    A[:, min(shape) // 2] = 0  # a zero pivot inside the factored steps
+    f, piv, perm, info = micro_blocked_lu(A, pivot, micro)
+    for wrapper in (panel_factor_shadow_cuda, panel_factor_basic_cuda):
+        P = A.clone()
+        before = wrapper.launches
+        kpiv, kperm, kinfo = wrapper(P, pivot, micro)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
+        assert int(kinfo) == int(info) != 0
+        assert torch.equal(_bits(P), _bits(f))
+
+
+def test_micro_kernels_on_ties_strided_panels_and_bad_arguments():
+    need_cuda()
+    g = torch.Generator().manual_seed(32)
+    T = torch.randint(-2, 3, (200, 96), generator=g).float().cuda()
+    f, piv, perm, info = micro_blocked_lu(T, True, 16)
+    for wrapper in (panel_factor_shadow_cuda, panel_factor_basic_cuda):
+        P = T.clone()
+        kpiv, kperm, kinfo = wrapper(P, True, 16)
+        assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
+        assert int(kinfo) == int(info) and torch.equal(_bits(P), _bits(f))
+        # in place on a column block of a larger matrix
+        A = torch.randn(256, 256, generator=g).cuda()
+        ref = A.clone()
+        view = A[64:, 64:192]
+        vpiv, _, _ = wrapper(view, True, 32)
+        vf, vpiv_p, _, _ = micro_blocked_lu(ref[64:, 64:192], True, 32)
+        assert torch.equal(view, vf) and torch.equal(vpiv, vpiv_p)
+        assert torch.equal(A[:, :64], ref[:, :64]) and torch.equal(A[:, 192:], ref[:, 192:])
+        assert torch.equal(A[:64], ref[:64])
+        for bad, micro in ((torch.zeros(8, 4, device="cuda", dtype=torch.float16), 4),
+                           (torch.zeros(8, 4, device="cuda").T, 4),
+                           (torch.zeros(8, 4, device="cuda", dtype=torch.complex64), 4),
+                           (torch.zeros(200, 100, device="cuda"), 65),
+                           (torch.zeros(8, 4, device="cuda"), 0)):
+            with pytest.raises(ValueError):
+                wrapper(bad, True, micro)
+    # a micro beyond the panel is cut to it: one block, the unblocked result
+    S = torch.randn(40, 24, generator=g).cuda()
+    want = unblocked_lu(S, True)
+    for wrapper in (panel_factor_shadow_cuda, panel_factor_basic_cuda):
+        P = S.clone()
+        spiv, sperm, _ = wrapper(P, True, 500)
+        assert torch.equal(P, want[0]) and torch.equal(spiv, want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("shape,taken", [
+    ((1, 1), 0), ((7, 3), 2), ((300, 64), 0), ((300, 64), 150), ((513, 200), 300),
+    ((256, 256), 0),
+])
+def test_noswap_kernel_bitwise_equals_plain(dtype, pivot, shape, taken):
+    """prow, used and info exactly, factors bitwise, from an empty mask
+    and from one with ``taken`` rows spread over the panel; the rows taken
+    before stay untouched."""
+    need_cuda()
+    g = torch.Generator().manual_seed(33)
+    m, w = shape
+    A = torch.randn(m, w, generator=g, dtype=dtype).cuda()
+    A[:, w // 2] = 0
+    used0 = torch.zeros(m, dtype=torch.int32)
+    used0[torch.randperm(m, generator=g)[:taken]] = 1
+    used0 = used0.cuda()
+    f, prow, used, info = unblocked_lu_noswap(A, used0, pivot)
+    P = A.clone()
+    before = panel_factor_noswap_cuda.launches
+    kprow, kused, kinfo = panel_factor_noswap_cuda(P, used0, pivot)
+    torch.cuda.synchronize()
+    assert panel_factor_noswap_cuda.launches == before + 1
+    assert torch.equal(kprow, prow) and torch.equal(kused, used)
+    assert int(kinfo) == int(info) != 0
+    assert torch.equal(_bits(P), _bits(f))
+    assert torch.equal(P[used0.bool()], A[used0.bool()])
+    assert int(kused.sum()) == taken + min(m, w)
+
+
+def test_noswap_kernel_ties_exhausted_rows_and_bad_arguments():
+    need_cuda()
+    g = torch.Generator().manual_seed(34)
+    T = torch.randint(-2, 3, (200, 96), generator=g).double().cuda()
+    zero = torch.zeros(200, dtype=torch.int32, device="cuda")
+    f, prow, used, info = unblocked_lu_noswap(T, zero, True)
+    P = T.clone()
+    kprow, kused, kinfo = panel_factor_noswap_cuda(P, zero, True)
+    assert torch.equal(kprow, prow) and torch.equal(kused, used)
+    assert int(kinfo) == int(info) and torch.equal(_bits(P), _bits(f))
+    # a bool mask is taken; two rows free for four steps: -1 and no change
+    E = torch.randn(6, 4, generator=g).cuda()
+    few = torch.tensor([1, 1, 1, 0, 0, 1], dtype=torch.bool, device="cuda")
+    f, prow, used, info = unblocked_lu_noswap(E, few, True)
+    P = E.clone()
+    kprow, kused, kinfo = panel_factor_noswap_cuda(P, few, True)
+    assert torch.equal(kprow, prow) and kprow[2:].tolist() == [-1, -1]
+    assert torch.equal(kused, used) and torch.equal(_bits(P), _bits(f))
+    for panel, mask in ((torch.zeros(8, 4, device="cuda", dtype=torch.float16), zero[:8]),
+                        (torch.zeros(8, 4, device="cuda").T, zero[:4]),
+                        (torch.zeros(8, 4, device="cuda"), zero[:7]),
+                        (torch.zeros(8, 4, device="cuda"), zero[:8].float()),
+                        (torch.zeros(8, 4, device="cuda"), zero[:8].cpu())):
+        with pytest.raises(ValueError):
+            panel_factor_noswap_cuda(panel, mask, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("variant", ["shadow", "basic"])
+def test_variant_lu_on_the_card_matches_the_cpu_route(dtype, variant):
+    """``panel_variant`` on the card (the micro-blocked kernels) and on the
+    CPU (their plain version): the same pivots and bitwise the same
+    panels' arithmetic up to the matmuls between them; both under the
+    residual gate; ``blocked_panel_variant`` reaches the same kernel."""
+    need_cuda()
+    rng = np.random.default_rng(35)
+    n, w = 600, 128
+    A = rng.standard_normal((n, n))
+    wrapper = panel_factor_shadow_cuda if variant == "shadow" else panel_factor_basic_cuda
+    cfg = rt.LUConfig(panel_variant=variant, panel_width=w, small_threshold=w,
+                      panel_micro=16)
+    At = torch.tensor(A, dtype=dtype)
+    before = (wrapper.launches, panel_factor_cuda.launches)
+    G = rt.lu(At, config=cfg)
+    assert wrapper.launches == before[0] + -(-n // w)
+    assert panel_factor_cuda.launches == before[1]
+    C = rt.lu(At, config=cfg, device="cpu")
+    assert torch.equal(G.ipiv.cpu(), C.ipiv) and torch.equal(G.p.cpu(), C.p)
+    gate = 20 * n * torch.finfo(dtype).eps * float(np.abs(A).max())
+    for F in (G, C):
+        LU = F.L.double() @ F.U.double()
+        assert float((LU.cpu() - torch.tensor(A)[F.p.cpu().long()]).abs().max()) < gate
+    B = rt.lu(At, config=rt.LUConfig(blocked_panel_variant=variant, panel_width=w,
+                                     small_threshold=w, panel_micro=16))
+    assert torch.equal(B.factors, G.factors) and torch.equal(B.ipiv, G.ipiv)
+    W = rt.lu(At[:w, :w], config=cfg)  # the whole route takes panel_variant
+    assert wrapper.launches == before[0] + 2 * -(-n // w) + 1
+    assert torch.equal(W.ipiv.cpu(), rt.lu(At[:w, :w], config=cfg, device="cpu").ipiv)
+    b = torch.tensor(rng.standard_normal(n), dtype=dtype)
+    x = rt.lu_solve(G, b).cpu().double()
+    assert float((torch.tensor(A) @ x - b.double()).abs().max()) < 1e3 * gate
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,w", [((600, 600), 128), ((700, 500), 256)])
+def test_physical_lu_on_the_card_matches_the_cpu_route(dtype, shape, w):
+    """``schedule='physical'`` on the card (the no-swap kernel) and on the
+    CPU (its plain version): the same prow, perm and info, both under the
+    residual gate; solves and det go by perm."""
+    need_cuda()
+    rng = np.random.default_rng(36)
+    m, n = shape
+    A = rng.standard_normal(shape)
+    cfg = rt.LUConfig(schedule="physical", panel_width=w)
+    At = torch.tensor(A, dtype=dtype)
+    before = (panel_factor_noswap_cuda.launches, panel_factor_cuda.launches)
+    G = rt.lu(At, config=cfg)
+    assert panel_factor_noswap_cuda.launches == before[0] + -(-n // w)
+    assert panel_factor_cuda.launches == before[1]
+    C = rt.lu(At, config=cfg, device="cpu")
+    assert G.factors.is_cuda
+    assert torch.equal(G.ipiv.cpu(), C.ipiv) and torch.equal(G.p.cpu(), C.p)
+    assert torch.equal(G.ipiv, G.p[:n])
+    gate = 20 * max(m, n) * torch.finfo(dtype).eps * float(np.abs(A).max())
+    for F in (G, C):
+        LU = F.L.double() @ F.U.double()
+        assert float((LU.cpu() - torch.tensor(A)[F.p.cpu().long()]).abs().max()) < gate
+    if m == n:
+        b = torch.tensor(rng.standard_normal(n), dtype=dtype)
+        for trans, op in ((0, A), (1, A.T)):
+            x = rt.lu_solve(G, b, trans=trans).cpu().double()
+            assert float((torch.tensor(op) @ x - b.double()).abs().max()) < 1e3 * gate
+        sign, logabs = np.linalg.slogdet(A)
+        la, sg = G.logabsdet()
+        assert float(sg) == sign and abs(float(la) - logabs) < 1e-2
+        At[:, 300] = 0
+        with pytest.raises(rt.SingularMatrixError):
+            rt.lu(At, config=cfg)
+        assert int(rt.lu(At, check=False, config=cfg).info) == 301
+
+
+def test_butterfly_solve_on_the_card():
+    """RBT on the card: the workspace lies on the card, the pivot-free LU
+    launches the panel kernel with pivot=False, and the solution agrees
+    with the CPU route's."""
+    need_cuda()
+    rng = np.random.default_rng(37)
+    n = 602
+    A = rng.standard_normal((n, n)) + n * np.eye(n)
+    b = rng.standard_normal((n, 2))
+    ws = rt.butterfly_workspace(A, b)
+    assert ws.A.is_cuda and ws.uv.is_cuda and ws.A.shape == (604, 604)
+    before = panel_factor_cuda.launches
+    x, info = rt.butterfly_solve(ws, return_info=True, refine=1)
+    assert panel_factor_cuda.launches == before + 2 and int(info) == 0
+    assert x.is_cuda and tuple(x.shape) == (n, 2)
+    assert float(np.abs(A @ x.cpu().numpy() - b).max()) < 1e-9
+    xc = rt.butterfly_solve(rt.butterfly_workspace(A, b, device="cpu"), refine=1)
+    assert float((x.cpu() - xc).abs().max()) < 1e-12
+
+
+def test_butterfly_values_default_to_the_card():
+    """``generate_butterfly_values`` follows the device rule: no device
+    means the card, with the values of the CPU stream; the micro-blocked
+    library's block limit is the one the configuration checks."""
+    need_cuda()
+    uv = rt.generate_butterfly_values(64)
+    assert uv.is_cuda and uv.dtype == torch.float64
+    assert torch.equal(uv.cpu(), rt.generate_butterfly_values(64, device="cpu"))
+    ws = rt.butterfly_workspace(np.eye(64), np.ones(64), uv=uv)
+    assert ws.uv.is_cuda and torch.equal(ws.uv, uv)
+    assert micro_max_cuda() == PANEL_MICRO_MAX

@@ -332,15 +332,20 @@ def test_deferred_routes_raise(dtype, route):
 
 
 def test_unported_knobs_raise():
+    """``panel_boundary_precision='bf16x3'`` still raises; the physical
+    schedule and the micro-blocked variants, which used to, factor."""
     A = np.eye(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.lu(A, config=rt.LUConfig(schedule="physical"), device="cpu")
     with pytest.raises(NotImplementedError):
         rt.lu(A, config=rt.LUConfig(panel_boundary_precision="bf16x3"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        rt.lu(A, config=rt.LUConfig(panel_variant="basic"), device="cpu")
     with pytest.raises(ValueError):
         rt.lu(np.ones(3), device="cpu")
+    M = RNG.standard_normal((8, 8))
+    ref = rt.lu(M, device="cpu")
+    for cfg in (rt.LUConfig(schedule="physical"), rt.LUConfig(panel_variant="basic"),
+                rt.LUConfig(panel_variant="shadow", panel_micro=4)):
+        F = rt.lu(M, config=cfg, device="cpu")
+        assert int(F.info) == 0 and torch.equal(F.p, ref.p)
+        assert lu_residual(M, F.factors, F.p) < residual_gate(M, np.float64, True)
 
 
 def test_selectors_and_empty():

@@ -153,11 +153,13 @@ def test_panel_route_and_wrapper_errors():
     assert panel_route(64, 32, torch.float64, cfg, "cuda") == "kernel"
     with pytest.raises(NotImplementedError):
         panel_route(64, 32, torch.float16, cfg, "cuda")
-    with pytest.raises(NotImplementedError):
-        panel_route(64, 32, torch.float32, rt.LUConfig(panel_variant="shadow"), "cpu")
-    with pytest.raises(NotImplementedError):
-        panel_route(64, 32, torch.float32,
-                    rt.LUConfig(blocked_panel_variant="basic"), "cuda")
+    assert panel_route(64, 32, torch.float32,
+                       rt.LUConfig(panel_variant="shadow"), "cpu") == "micro-blocked"
+    assert panel_route(64, 32, torch.float32,
+                       rt.LUConfig(panel_variant="basic"), "cuda") == "kernel-basic"
+    # the blocked schedule's variant is applied by blocked_lu, not here
+    assert panel_route(64, 32, torch.float32,
+                       rt.LUConfig(blocked_panel_variant="basic"), "cuda") == "kernel"
     with pytest.raises(ValueError):
         panel_route(64, 32, torch.float32, rt.LUConfig(backend="xla"), "cuda")
     with pytest.raises(NotImplementedError):
