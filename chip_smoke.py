@@ -15,15 +15,24 @@ Phases, JSON lines each:
             the main path's panel shapes, f32/f64, pivot on/off, a zeroed
             column and exact ties: ipiv, perm and info equal, factors
             bitwise equal (both round every product and difference once);
+            then every block width b and cluster size C of its cluster
+            route (and one slab for the whole panel) on a 1000 x 100
+            panel, ragged, tied, NaN and unpivoted panels, a whole 512 x
+            512, a fat 64 x 200, a column block of a 4096 x 4096 matrix,
+            8192 x 512, and panels too tall for a cluster (the grid route,
+            counted apart);
 3. main     ``lu`` + ``lu_solve`` of the port at n=1536 (the entry
             matrix randn + n*I, plain randn, a zeroed column) and n=4096
             (randn): residual gate ||LU - A[p]||_max < 20*n*eps*max|A|,
             info, SingularMatrixError under check, the kernel's launch
             count, and no TF32 in any product;
-4. timing   CUDA-event times: kernel per panel shape, factor and
-            factor+solve at 1536/4096 beside torch.linalg.lu_factor_ex
-            (+ lu_solve); with ``--sweep`` the width/route/tail sweep
-            behind the routing defaults of utils/config.py;
+4. timing   CUDA-event times: the barrier microbenchmark (ns per
+            grid.sync(), cluster.sync(), __syncthreads and DSMEM candidate
+            exchange), the panel kernel per panel shape in turns beside
+            the ``shadow`` kernel and torch.linalg.lu_factor_ex, factor
+            and factor+solve at 1536/4096 beside the library (+ lu_solve);
+            with ``--sweep`` the width/route/tail sweep behind the routing
+            defaults of utils/config.py;
 5. kernels  one line for all nine ported kernels (launches, error,
             times, bound).
 
@@ -107,8 +116,10 @@ functions) and its offset kernel add:
             ``offset_panel_lu``: f32/f64, pivot on/off, (4096, 128) at
             offsets 0, 1000 and 3968, randn, a zeroed column and NaN
             candidates, and a column block of a wider matrix (row stride
-            > w): piv, perm and info equal, factors bitwise equal, the rows
-            above the offset untouched;
+            > w), block widths and cluster sizes at offset 1000, one CTA
+            for the 128 live rows, panels too tall for a cluster: piv,
+            perm and info equal, factors bitwise equal, the rows above the
+            offset untouched;
 3e. tp      in an NCCL world of one rank: ``tp_lu`` + ``tp_lu_solve`` at
             n=4096 (f32, w=128 and 512), n=1536 (f64), ``pivot=False`` on
             randn + n*I, a zeroed column 700 (info 701), and the sharded
@@ -121,9 +132,11 @@ functions) and its offset kernel add:
             ranks agree bitwise, pivots against the one-rank run's under the
             same gate, residual gate (a check of the path, not a scaling
             number);
-4e. timing  the offset kernel per panel beside ``lu_factor_ex`` on the
-            live rows, and ``tp_lu_factor`` in the one-rank world beside
-            ``lu`` at the same width and the library.
+4e. timing  the offset kernel per panel beside ``shadow`` and
+            ``lu_factor_ex`` on the live rows, and ``tp_lu_factor`` in the
+            one-rank world beside ``lu`` at the same width and the
+            library; ``--sweep`` adds the panel kernel's b x C sweep per
+            live height and width (f32, and f64 at three shapes).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
 before it, and the exit code is not 0.  Without CUDA, or without the
@@ -446,6 +459,7 @@ def main(argv):
         panel_factor_cuda,
         panel_factor_noswap_cuda,
         panel_factor_shadow_cuda,
+        panel_plan,
     )
     from recursivefactorization_jl_tpu_torch.ops import batched_kernel as bk
     from recursivefactorization_jl_tpu_torch.ops.unblocked import (
@@ -525,6 +539,82 @@ def main(argv):
             fail(f"kernel disagrees with its plain version: {same}")
         if name == "zero_col" and int(info_k) == 0:
             fail("zeroed column gave info 0")
+    # the cluster route's plans (csrc/panel_lu.cu): every block width b and
+    # cluster size C on one panel (ragged last blocks: w = 100), one slab
+    # for the whole panel (b = w), then the shapes of the slice: a whole
+    # 512 x 512 matrix, 8192 x 512, a column block of a 4096 x 4096 matrix
+    # (row stride 4096), and panels too tall for a cluster (the grid route)
+    f32, f64 = torch.float32, torch.float64
+    plans_run = set()
+
+    def check_panel(A, pivot, what, block=0, cluster=0, view=None, grid_route=False):
+        """Factor ``A`` (or the ``view`` of it) with the kernel and compare
+        with unblocked_lu; returns the launch's plan."""
+        nonlocal max_err
+        X = A if view is None else view(A)
+        f_p, piv_p, perm_p, info_p = unblocked_lu(X, pivot)
+        W = A.clone()
+        P = W if view is None else view(W)
+        plan = panel_plan(*P.shape, P.dtype, block=block, cluster=cluster)
+        g0 = panel_factor_cuda.grid_route_launches
+        piv_k, perm_k, info_k = panel_factor_cuda(P, pivot, block=block, cluster=cluster)
+        torch.cuda.synchronize()
+        same = {
+            "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
+            "perm_equal": bool(torch.equal(perm_k, perm_p)),
+            "info_equal": int(info_k) == int(info_p),
+            "bitwise": bool(torch.equal(bits(P), bits(f_p))),
+            "route_as_expected": (panel_factor_cuda.grid_route_launches - g0
+                                  == int(grid_route)) and plan["route"] == (
+                                      "grid" if grid_route else "cluster"),
+        }
+        if view is not None:
+            rest = torch.ones_like(A, dtype=torch.bool)
+            view(rest).fill_(False)
+            same["rest_untouched"] = bool(torch.equal(W[rest], A[rest]))
+        err = float((P - f_p).abs().nan_to_num(0.0).max())
+        max_err = max(max_err, err)
+        emit("kernel", shape=list(P.shape), lda=P.stride(0), dtype=str(P.dtype)[6:],
+             input=what, pivot=pivot, plan=plan, info=int(info_k), max_abs_err=err, **same)
+        if not all(same.values()):
+            fail(f"kernel disagrees with its plain version: {same}")
+        return plan
+
+    for dt in (f32, f64):
+        for (m, w), widths in (((1000, 100), (8, 16, 32, 64, 100)), ((1000, 12), (12,))):
+            X = torch.randn(m, w, generator=gen, dtype=dt).to(dev)
+            X[:, 7] = 0
+            for b in widths:
+                for C in (1, 2, 4, 8, 16):
+                    try:
+                        panel_plan(m, w, dt, block=b, cluster=C)
+                    except RuntimeError:
+                        continue  # this (b, C) does not fit the card
+                    check_panel(X, True, f"zero_col, b={b}, C={C}", block=b, cluster=C)
+                    plans_run.add((str(dt)[6:], b, C))
+    if not {b for _, b, _ in plans_run} >= {8, 16, 32, 64, 100, 12} or \
+            not {C for _, _, C in plans_run} >= {1, 2, 4, 8}:
+        fail(f"the plan cases missed a block width or a cluster size: {sorted(plans_run)}")
+    for dt in (f32, f64):
+        R = torch.randn(777, 130, generator=gen, dtype=dt)
+        check_panel((R + 777 * torch.eye(777, 130, dtype=dt)).to(dev), False, "randn + m*I")
+        T_ = torch.randint(-2, 3, (777, 130), generator=gen).to(dt).to(dev)
+        check_panel(T_, True, "ties")
+        R[400, 3] = R[500, 3] = float("nan")
+        check_panel(R.to(dev), True, "nan")
+        check_panel(torch.randn(512, 512, generator=gen, dtype=dt).to(dev), True, "randn, whole")
+        check_panel(torch.randn(64, 200, generator=gen, dtype=dt).to(dev), True, "randn, fat")
+        M = torch.randn(4096, 4096, generator=gen, dtype=dt).to(dev)
+        check_panel(M, True, "column block", view=lambda t: t[512:, 512:1024])
+        del M
+    check_panel(torch.randn(8192, 512, generator=gen).to(dev), True, "randn")
+    tall = {f32: (100000, 8), f64: (60000, 16)}
+    for dt, (m, w) in tall.items():
+        check_panel(torch.randn(m, w, generator=gen, dtype=dt).to(dev), True, "randn, tall",
+                    grid_route=True)
+    check_panel(torch.randn(2000, 64, generator=gen).to(dev), True, "randn, forced grid",
+                block=-1, grid_route=True)
+
     # ---- 2c. the complex kernel vs plain ---------------------------------
     def crandn(m, w, dt):
         real = torch.float32 if dt == torch.complex64 else torch.float64
@@ -589,7 +679,6 @@ def main(argv):
         fail(f"panel_factor_c64_cuda took {tuple(bad.shape)} {bad.dtype} {bad.device}")
 
     # ---- 2d. the micro-blocked and the no-swap kernels vs plain -----------
-    f32, f64 = torch.float32, torch.float64
     micro_wrappers = {"panel_lu_micro_shadow": panel_factor_shadow_cuda,
                       "panel_lu_micro_basic": panel_factor_basic_cuda}
 
@@ -810,6 +899,54 @@ def main(argv):
         if not all(same.values()):
             fail(f"panel_lu_offset on a column block disagrees with its plain version: {same}")
         del M, W_
+    # the offset kernel's plans: block widths and cluster sizes at ofs 1000,
+    # the plan the launcher picks for 128 live rows, and panels too tall
+    # for a cluster (the grid route)
+    def check_offset(A, ofs, pivot, what, block=0, cluster=0, grid_route=False):
+        nonlocal offset_err
+        f_p, piv_p, perm_p, info_p = offset_panel_lu(A, ofs, pivot)
+        P = A.clone()
+        plan = panel_plan(*P.shape, P.dtype, ofs=ofs, block=block, cluster=cluster)
+        g0 = offset_panel_factor_cuda.grid_route_launches
+        piv_k, perm_k, info_k = offset_panel_factor_cuda(P, ofs, pivot, block=block,
+                                                         cluster=cluster)
+        torch.cuda.synchronize()
+        same = {
+            "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
+            "perm_equal": bool(torch.equal(perm_k, perm_p)),
+            "info_equal": int(info_k) == int(info_p),
+            "bitwise": bool(torch.equal(bits(P), bits(f_p))),
+            "rows_above_untouched": bool(torch.equal(bits(P[:ofs]), bits(A[:ofs]))),
+            "route_as_expected": (offset_panel_factor_cuda.grid_route_launches - g0
+                                  == int(grid_route)) and plan["route"] == (
+                                      "grid" if grid_route else "cluster"),
+        }
+        err = float((P - f_p).abs().nan_to_num(0.0).max())
+        offset_err = max(offset_err, err)
+        emit("kernel", kernel="panel_lu_offset", shape=list(P.shape), ofs=ofs,
+             dtype=str(P.dtype)[6:], input=what, pivot=pivot, plan=plan, info=int(info_k),
+             max_abs_err=err, **same)
+        if not all(same.values()):
+            fail(f"panel_lu_offset disagrees with its plain version: {same}")
+        return plan
+
+    for dt in (f32, f64):
+        X = offset_input("zero_col", H_o, w_o, 1000, dt, True).to(dev)
+        for b in (8, 16, 32, 64, w_o):
+            for C in (2, 4, 8, 16):
+                try:
+                    panel_plan(H_o, w_o, dt, ofs=1000, block=b, cluster=C)
+                except RuntimeError:
+                    continue
+                check_offset(X, 1000, True, f"zero_col, b={b}, C={C}", block=b, cluster=C)
+        plan = check_offset(offset_input("randn", H_o, w_o, H_o - w_o, dt, False).to(dev),
+                            H_o - w_o, False, "randn + H*I, 128 live rows")
+        if plan["cluster"] != 1:
+            fail(f"128 live rows should run on one CTA, plan {plan}")
+    check_offset(torch.randn(100000, 8, generator=gen).to(dev), 5000, True, "randn, tall",
+                 grid_route=True)
+    check_offset(torch.randn(60000, 16, generator=gen, dtype=f64).to(dev), 100, True,
+                 "randn, tall", grid_route=True)
     for bad in (lambda: offset_panel_factor_cuda(torch.zeros(64, 8, device=dev), 57, True),
                 lambda: offset_panel_factor_cuda(torch.zeros(64, 8), 0, True),
                 lambda: offset_panel_factor(torch.zeros(64, 8, device=dev), 0, True,
@@ -985,12 +1122,15 @@ def main(argv):
         expect = 1 if route == "whole" else -(-n // pw)
         watch = TF32Watch()
         panel_factor_cuda.launches = 0
+        panel_factor_cuda.grid_route_launches = 0
         with watch:
             F = rt.lu(A, check=False)
             x = rt.lu_solve(F, b)
             torch.cuda.synchronize()
         got = panel_factor_cuda.launches
         launches[(n, name)] = got
+        if panel_factor_cuda.grid_route_launches:
+            fail("a main-path panel took the grid route")
         r, g = resid_gate(A, F)
         sr = solve_resid(A, x, b)
         info = int(F.info)
@@ -1495,11 +1635,14 @@ def main(argv):
         watch = TF32Watch()
         for wr in tp_wrappers.values():
             wr.launches = 0
+        offset_panel_factor_cuda.grid_route_launches = 0
         with watch:
             F = rt.tp_lu(A, tp_mesh, "tp", w, pivot)
             x = rt.tp_lu_solve(F, b, tp_mesh, "tp", w)
             torch.cuda.synchronize()
         got = {k: wr.launches for k, wr in tp_wrappers.items()}
+        if offset_panel_factor_cuda.grid_route_launches:
+            fail("a tp panel took the grid route")
         want = {k: (n // w if k == "panel_lu_offset" else 0) for k in tp_wrappers}
         tp_launches[(name, n, w)] = got["panel_lu_offset"]
         r, g = resid_gate(A, F)
@@ -1633,41 +1776,6 @@ def main(argv):
         ts.sort()
         return ts[len(ts) // 2], ts
 
-    kernel_rows = []
-    for (m, w) in shapes:
-        X = torch.randn(m, w, generator=gen).to(dev)
-        P = torch.empty_like(X)
-        reset = lambda: P.copy_(X)  # noqa: E731
-        k_ms, _ = timed(lambda: panel_factor_cuda(P, True), reset, reps=10)
-        p_ms, _ = timed(lambda: unblocked_lu(X, True), None, reps=2, warm=1)
-        with quiet_c_stdout():
-            l_ms, _ = timed(lambda: torch.linalg.lu_factor_ex(P), reset, reps=10)
-        b_ms, b_by = bound(m, w, "float32", 4)
-        row = dict(shape=[m, w], dtype="float32", kernel_ms=k_ms, plain_ms=p_ms,
-                   library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-                   us_per_step=1e3 * k_ms / min(m, w))
-        kernel_rows.append(row)
-        emit("timing", what="panel_kernel", card=card, **row)
-
-    ckernel_rows = []
-    for (m, w) in shapes + [(512, 512)]:
-        for dt in (c64, c128):
-            if dt == c128 and (m, w) != main_shape(1536)[1]:
-                continue
-            X = crandn(m, w, dt).to(dev)
-            P = torch.empty_like(X)
-            reset = lambda: P.copy_(X)  # noqa: E731
-            k_ms, _ = timed(lambda: panel_factor_c64_cuda(P, True), reset, reps=10)
-            p_ms, _ = timed(lambda: unblocked_lu_cabs1(X, True), None, reps=1, warm=0)
-            with quiet_c_stdout():
-                l_ms, _ = timed(lambda: torch.linalg.lu_factor_ex(P), reset, reps=10)
-            b_ms, b_by = bound(m, w, str(dt)[6:], X.element_size())
-            row = dict(shape=[m, w], dtype=str(dt)[6:], kernel_ms=k_ms, plain_ms=p_ms,
-                       library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-                       us_per_step=1e3 * k_ms / min(m, w))
-            ckernel_rows.append(row)
-            emit("timing", what="panel_kernel_c64", card=card, **row)
-
     def round_robin(fns, rounds=7, warm=1, inner=1, setup=None):
         """Median CUDA-event ms of each callable, run in turns (every
         round times each once), so host noise spreads over all of them.
@@ -1690,6 +1798,114 @@ def main(argv):
                 if r >= warm:
                     ts[k].append(e0.elapsed_time(e1) / inner)
         return {k: sorted(v)[len(v) // 2] for k, v in ts.items()}
+
+    # the barriers a panel step is built from (csrc/panel_lu.cu
+    # rf_bench_barrier): ns per barrier from two launches of 0 and N
+    lib_panel = _kernels.load("panel_lu")
+    sink = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def barrier_ns(kind, n, iters=20000):
+        def run(k):
+            code = lib_panel.rf_bench_barrier(kind, n, k, 0, sink.data_ptr(), stream)
+            _kernels.check(lib_panel, code, "barrier benchmark")
+        t = round_robin({0: lambda: run(0), iters: lambda: run(iters)}, rounds=5)
+        return 1e6 * (t[iters] - t[0]) / iters
+
+    grids = sorted({132, *(panel_plan(m, w, torch.float32, block=-1)["grid"] for m, w in shapes),
+                    *(panel_plan(H_o, w_o, torch.float32, ofs=o, block=-1)["grid"]
+                      for o in (0, H_o - w_o))})
+    barrier = {"syncthreads_512": barrier_ns(2, 1)}
+    for g in grids:
+        barrier[f"grid_sync_{g}"] = barrier_ns(0, g, 5000)
+    for c in (2, 4, 8, 16):
+        barrier[f"cluster_sync_{c}"] = barrier_ns(1, c)
+        barrier[f"dsmem_exchange_{c}"] = barrier_ns(3, c)
+    emit("timing", what="barrier", card=card, ns=barrier,
+         note="grid_sync_G: cooperative grid of G blocks of 256; cluster_sync_C and "
+              "dsmem_exchange_C: a cluster of C CTAs of 512; the exchange is the "
+              "chain kernel's candidate publish + cluster.sync() + reduction")
+
+    # where a step of the chain kernel goes: thread 0 of CTA 0 stamps
+    # clock64() at each phase boundary (rf_panel_lu_set_trace), one run
+    phases = ("reduce", "publish", "barrier", "agree", "swap", "update")
+
+    def chain_trace(what, shape, run, plan):
+        steps = min(shape[0] - shape[2], shape[1])
+        buf = torch.zeros(steps * 7 + 4 * plan["blocks"], dtype=torch.int64, device=dev)
+        run()  # warm
+        torch.cuda.synchronize()
+        lib_panel.rf_panel_lu_set_trace(buf.data_ptr())
+        try:
+            run()
+            torch.cuda.synchronize()
+        finally:
+            lib_panel.rf_panel_lu_set_trace(None)
+        t = buf.cpu().double()
+        st = t[:steps * 7].view(steps, 7)
+        ends = t[steps * 7:].view(plan["blocks"], 4)
+        ghz = float((ends[:, 3] - ends[:, 1]).sum() / (ends[:, 2] - ends[:, 0]).sum())
+        ns = {name: float((st[:, i + 1] - st[:, i]).median()) / ghz
+              for i, name in enumerate(phases)}
+        emit("timing", what="chain_trace", card=card, kernel=what, shape=list(shape[:2]),
+             ofs=shape[2], plan=plan, sm_ghz=ghz, phase_ns_median=ns,
+             step_ns_median=float((st[:, 6] - st[:, 0]).median()) / ghz,
+             chain_kernels_ms=float((ends[:, 2] - ends[:, 0]).sum()) / 1e6)
+
+    for (m, w) in shapes:
+        X = torch.randn(m, w, generator=gen).to(dev)
+        P = X.clone()
+        chain_trace("panel_lu", (m, w, 0), lambda: panel_factor_cuda(P.copy_(X), True),
+                    panel_plan(m, w, torch.float32))
+    for ofs in (0, H_o - w_o):
+        X = torch.randn(H_o, w_o, generator=gen).to(dev)
+        P = X.clone()
+        chain_trace("panel_lu_offset", (H_o, w_o, ofs),
+                    lambda: offset_panel_factor_cuda(P.copy_(X), ofs, True),
+                    panel_plan(H_o, w_o, torch.float32, ofs=ofs))
+    del X, P
+
+    # the panel kernel per main-path panel, in turns beside PR 4's grid-barrier
+    # design (shadow, micro 32) and the library
+    micro_main = rt.LUConfig().resolved_panel_micro()
+    kernel_rows = []
+    for (m, w) in shapes:
+        X = torch.randn(m, w, generator=gen).to(dev)
+        P = torch.empty_like(X)
+        with quiet_c_stdout():
+            t = round_robin({
+                "panel_lu": lambda: panel_factor_cuda(P, True),
+                "shadow": lambda: panel_factor_shadow_cuda(P, True, micro_main),
+                "library": lambda: torch.linalg.lu_factor_ex(P),
+            }, rounds=9, setup=lambda: P.copy_(X))
+        p_ms, _ = timed(lambda: unblocked_lu(X, True), None, reps=2, warm=1)
+        b_ms, b_by = bound(m, w, "float32", 4)
+        row = dict(shape=[m, w], dtype="float32", plan=panel_plan(m, w, torch.float32),
+                   kernel_ms=t["panel_lu"], shadow_ms=t["shadow"], plain_ms=p_ms,
+                   library_ms=t["library"], bound_ms=b_ms, bound_by=b_by,
+                   us_per_step=1e3 * t["panel_lu"] / min(m, w),
+                   shadow_us_per_step=1e3 * t["shadow"] / min(m, w))
+        kernel_rows.append(row)
+        emit("timing", what="panel_kernel", card=card, **row)
+
+    ckernel_rows = []
+    for (m, w) in shapes + [(512, 512)]:
+        for dt in (c64, c128):
+            if dt == c128 and (m, w) != main_shape(1536)[1]:
+                continue
+            X = crandn(m, w, dt).to(dev)
+            P = torch.empty_like(X)
+            reset = lambda: P.copy_(X)  # noqa: E731
+            k_ms, _ = timed(lambda: panel_factor_c64_cuda(P, True), reset, reps=10)
+            p_ms, _ = timed(lambda: unblocked_lu_cabs1(X, True), None, reps=1, warm=0)
+            with quiet_c_stdout():
+                l_ms, _ = timed(lambda: torch.linalg.lu_factor_ex(P), reset, reps=10)
+            b_ms, b_by = bound(m, w, str(dt)[6:], X.element_size())
+            row = dict(shape=[m, w], dtype=str(dt)[6:], kernel_ms=k_ms, plain_ms=p_ms,
+                       library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                       us_per_step=1e3 * k_ms / min(m, w))
+            ckernel_rows.append(row)
+            emit("timing", what="panel_kernel_c64", card=card, **row)
 
     def e2e(n, dt=torch.float32):
         cplx = dt.is_complex
@@ -1813,7 +2029,6 @@ def main(argv):
         del A, b, f
 
     # ---- 4d. the new panel kernels, the opt-in schedules, RBT -------------
-    micro_main = rt.LUConfig().resolved_panel_micro()
     new_rows = {}
     for (m, w) in shapes:
         X = torch.randn(m, w, generator=gen).to(dev)
@@ -1932,6 +2147,8 @@ def main(argv):
             with quiet_c_stdout():
                 t = round_robin({
                     "panel_lu_offset": lambda: offset_panel_factor_cuda(P, ofs, True),
+                    # PR 4's grid-barrier design on the same live rows
+                    "shadow": lambda: panel_factor_shadow_cuda(P[ofs:], True, micro_main),
                     # the same LU by one library call on the live rows
                     "library": lambda: torch.linalg.lu_factor_ex(P[ofs:]),
                 }, rounds=9, setup=lambda: P.copy_(X))
@@ -1940,9 +2157,35 @@ def main(argv):
             offset_rows[ofs] = dict(kernel_ms=t["panel_lu_offset"], plain_ms=p_ms,
                                     library_ms=t["library"], bound_ms=b_ms, bound_by=b_by)
             emit("timing", what="offset_kernel", card=card, shape=[H_o, w_o], ofs=ofs,
-                 dtype="float32", us_per_step=1e3 * t["panel_lu_offset"] / w_o,
+                 dtype="float32", plan=panel_plan(H_o, w_o, torch.float32, ofs=ofs),
+                 us_per_step=1e3 * t["panel_lu_offset"] / w_o, shadow_ms=t["shadow"],
                  **offset_rows[ofs])
             del X, P
+        if "--sweep" in argv:
+            # the cluster route's block width b and cluster size C per live
+            # height and width (csrc/panel_lu.cu plan_for), in turns; b = w is
+            # one slab for the whole panel; "auto" is the launcher's choice
+            sweep_plans = [(m, 512, f32) for m in (512, 1024, 1536, 2048, 3072, 4096, 8192)]
+            sweep_plans += [(m, 128, f32) for m in (128, 256, 512, 1024, 2048, 4096)]
+            sweep_plans += [(m, 512, f64) for m in (1536, 4096)] + [(4096, 128, f64)]
+            for m, w, dt in sweep_plans:
+                X = torch.randn(m, w, generator=gen, dtype=dt).to(dev)
+                P = torch.empty_like(X)
+                fns = {"auto": lambda: panel_factor_cuda(P, True)}
+                for b in (8, 16, 32, 64, w):
+                    for C in (1, 2, 4, 8, 16):
+                        try:
+                            panel_plan(m, w, dt, block=b, cluster=C)
+                        except RuntimeError:
+                            continue  # does not fit the card
+                        fns[f"b{b}_C{C}"] = (lambda b=b, C=C: panel_factor_cuda(
+                            P, True, block=b, cluster=C))
+                t = round_robin(fns, rounds=5, setup=lambda: P.copy_(X))
+                best = min((k for k in t if k != "auto"), key=t.get)
+                emit("timing", what="sweep_plan", card=card, shape=[m, w], dtype=str(dt)[6:],
+                     auto=panel_plan(m, w, dt), best=best, best_ms=t[best], auto_ms=t["auto"],
+                     ms=t)
+                del X, P
         n = 4096
         M = torch.randn(n, n, generator=gen).to(dev)
         v = torch.randn(n, generator=gen).to(dev)

@@ -61,6 +61,8 @@ from .models.butterfly import (
     butterfly_solve,
     butterfly_workspace,
     generate_butterfly_values,
+    materialize_uv,
+    pad_to_multiple_of_4,
 )
 from .models.lu import (
     LU,
@@ -104,6 +106,8 @@ __all__ = [
     "butterfly_solve",
     "butterfly_workspace",
     "generate_butterfly_values",
+    "materialize_uv",
+    "pad_to_multiple_of_4",
     "LU",
     "SingularMatrixError",
     "batched_from_numpy",

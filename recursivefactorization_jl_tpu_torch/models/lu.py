@@ -313,18 +313,42 @@ def _as_matrix(A, device) -> torch.Tensor:
     return A
 
 
+def _donated(A, device, what) -> torch.Tensor:
+    """``A`` itself, after the checks an in-place factorization needs: a
+    contiguous matrix on the call's device (an integer one raises later,
+    at the route)."""
+    dev = resolve_device(device)
+    if not isinstance(A, torch.Tensor):
+        raise TypeError(f"{what} needs a torch.Tensor to overwrite")
+    if A.device.type != dev.type or (
+        dev.index is not None and A.device.index != dev.index
+    ):
+        raise ValueError(f"{what}: A lies on {A.device}, the call runs on {dev}")
+    if A.ndim != 2 or not A.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous matrix")
+    return A
+
+
 def lu_factor_p(A, pivot=True, *, config: Optional[LUConfig] = None,
-                device=None):
-    """Factor a copy of ``A``: returns ``(factors, ipiv, perm, info)``
-    with ``L @ U == A[perm, :]``.  ``A`` is left unchanged."""
-    A = _as_matrix(A, device).clone(memory_format=torch.contiguous_format)
+                donate: bool = False, device=None):
+    """Factor ``A``: returns ``(factors, ipiv, perm, info)`` with ``L @ U
+    == A[perm, :]``.  ``donate=False`` factors a copy and leaves ``A``
+    unchanged; ``donate=True`` factors ``A`` in place (a contiguous
+    floating or complex tensor on the call's device, as for
+    :func:`lu_inplace`), and ``factors`` is then ``A`` itself."""
+    if donate:
+        A = _donated(A, device, "lu_factor(donate=True)")
+    else:
+        A = _as_matrix(A, device).clone(memory_format=torch.contiguous_format)
     return _dispatch_factor(A, normalize_pivot(pivot), config or default_config())
 
 
 def lu_factor(A, pivot=True, *, config: Optional[LUConfig] = None,
-              device=None):
-    """Factor a copy of ``A``: returns ``(factors, ipiv, info)``."""
-    factors, ipiv, _, info = lu_factor_p(A, pivot, config=config, device=device)
+              donate: bool = False, device=None):
+    """Factor ``A``: returns ``(factors, ipiv, info)``; ``donate`` as for
+    :func:`lu_factor_p`."""
+    factors, ipiv, _, info = lu_factor_p(A, pivot, config=config, donate=donate,
+                                         device=device)
     return factors, ipiv, info
 
 
@@ -364,17 +388,8 @@ def lu_inplace(A: torch.Tensor, pivot=True, *, check="auto",
     ``A`` must be a contiguous floating or complex tensor on the device the call
     runs on (``device=None`` means CUDA)."""
     pivot = normalize_pivot(pivot)
-    dev = resolve_device(device)
-    if not isinstance(A, torch.Tensor):
-        raise TypeError("lu_inplace needs a torch.Tensor to overwrite")
-    if A.device.type != dev.type or (
-        dev.index is not None and A.device.index != dev.index
-    ):
-        raise ValueError(f"lu_inplace: A lies on {A.device}, the call runs on {dev}")
-    if A.ndim != 2 or not A.is_contiguous():
-        raise ValueError("lu_inplace needs a contiguous matrix")
-    factors, ipiv, perm, info = _dispatch_factor(
-        A, pivot, config or default_config()
+    factors, ipiv, perm, info = lu_factor_p(
+        A, pivot, config=config, donate=True, device=device
     )
     if _resolve_check(check):
         _check_info(info, pivot)

@@ -41,20 +41,27 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _PANEL = (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P])
-# the same with one more int after pivot: the micro-block width, or the
-# offset of the offset kernel
+# the same with one more int after pivot: the micro-block width
 _PANEL_MICRO = (_I, [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P])
 # panel, m, w, lda, pivot, used0, used, prow, info, ws, iws, grid, device, stream
 _PANEL_NOSWAP = (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P])
+# csrc/panel_lu.cu: m, w, elem_size, ofs, b, C, device, out[6]
+_PANEL_PLAN = (_I, [_I, _I, _I, _I, _I, _I, _I, _P])
+# panel, m, w, lda, pivot, b, C, piv, perm, info, ws, iws, device, stream
+_PANEL_BC = (_I, [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P])
+# the same with the offset after pivot
+_PANEL_OFS_BC = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P])
 # C signatures: name -> (restype, argtypes)
 SIGNATURES = {
     "panel_lu": {
-        "rf_panel_lu_grid": (_I, [_I, _I, _I, _I]),
-        "rf_panel_lu_f32": _PANEL,
-        "rf_panel_lu_f64": _PANEL,
-        "rf_offset_panel_lu_grid": (_I, [_I, _I, _I, _I, _I]),
-        "rf_offset_panel_lu_f32": _PANEL_MICRO,
-        "rf_offset_panel_lu_f64": _PANEL_MICRO,
+        "rf_panel_lu_plan": _PANEL_PLAN,
+        "rf_panel_lu_f32": _PANEL_BC,
+        "rf_panel_lu_f64": _PANEL_BC,
+        "rf_offset_panel_lu_plan": _PANEL_PLAN,
+        "rf_offset_panel_lu_f32": _PANEL_OFS_BC,
+        "rf_offset_panel_lu_f64": _PANEL_OFS_BC,
+        "rf_bench_barrier": (_I, [_I, _I, _I, _I, _P, _P]),
+        "rf_panel_lu_set_trace": (_I, [_P]),
         "rf_error_string": (ctypes.c_char_p, [_I]),
     },
     "panel_lu_c64": {

@@ -28,6 +28,8 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -139,7 +141,80 @@ def _launch_panel(wrapper, panel, pivot, lib_name, grid_fn, fn_by_real_size,
     return piv, perm, info[0]
 
 
-def panel_factor_cuda(panel: torch.Tensor, pivot: bool):
+@functools.lru_cache(maxsize=256)
+def _plan(m, w, size, ofs, block, cluster, index):
+    """csrc/panel_lu.cu's plan as a tuple (route, b, C or G, blocks, ws
+    reals, iws int32s); ``ofs`` None for the main-path kernel.  Cached: the
+    plan is a function of its arguments on one card."""
+    lib = _kernels.load("panel_lu")
+    out = (ctypes.c_int * 6)()
+    fn = lib.rf_panel_lu_plan if ofs is None else lib.rf_offset_panel_lu_plan
+    code = fn(m, w, size, ofs or 0, block, cluster, index, out)
+    _kernels.check(lib, code, "panel_lu plan")
+    return tuple(out)
+
+
+def panel_plan(m: int, w: int, dtype, ofs=None, block: int = 0,
+               cluster: int = 0, device=None) -> dict:
+    """How csrc/panel_lu.cu factors an (m, w) float32/float64 panel on the
+    card: as the main-path kernel (``ofs=None``) or as the offset kernel
+    from row ``ofs``: ``{"route": "cluster" | "grid", "block": b,
+    "cluster": C, "grid": G, "blocks": launches of the chain kernel,
+    "ws_reals", "iws_ints"}`` (workspace sizes).  ``block`` and ``cluster``
+    0 ask for the launcher's choice (what the main path runs);
+    ``block < 0`` forces the grid route and ``block >= w`` one block.
+    Raises where the card cannot run an explicit choice."""
+    if dtype not in _REAL:
+        raise ValueError(f"panel dtype must be float32/float64, got {dtype}")
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    size = torch.finfo(dtype).bits // 8
+    route, b, c, blocks, ws, iws = _plan(m, w, size, ofs, block, cluster, index)
+    return {"route": "cluster" if route == 1 else "grid",
+            "block": b if route == 1 else None, "cluster": c if route == 1 else None,
+            "grid": c if route == 0 else None, "blocks": blocks,
+            "ws_reals": ws, "iws_ints": iws}
+
+
+def _launch_panel_lu(wrapper, panel, pivot, ofs, block, cluster):
+    """The checks, plan, allocations and launch of csrc/panel_lu.cu (the
+    offset kernel unless ``ofs`` is None).  Adds one to
+    ``wrapper.launches`` at the launch, and one to
+    ``wrapper.grid_route_launches`` when the panel takes the grid route.
+    piv, perm, info and the integer workspace share one allocation."""
+    m, w, lda, index, real, size = _check_panel(wrapper.__name__, panel, _REAL)
+    for name, v in (("block", block), ("cluster", cluster)):
+        if not isinstance(v, int) or isinstance(v, bool):
+            raise ValueError(f"{name} must be an int, got {v!r}")
+    route, _, _, _, ws_reals, iws_ints = _plan(m, w, size, ofs, block, cluster, index)
+    dev = panel.device
+    npiv = min(m - (ofs or 0), w)
+    ints = torch.empty(npiv + m + 1 + iws_ints, dtype=torch.int32, device=dev)
+    piv, perm, info = ints[:npiv], ints[npiv:npiv + m], ints[npiv + m]
+    ws = torch.empty(ws_reals, dtype=real, device=dev) if route == 0 else None
+    lib = _kernels.load("panel_lu")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    wrapper.launches += 1
+    if route == 0:
+        wrapper.grid_route_launches += 1
+    if ofs is not None:
+        fn = lib.rf_offset_panel_lu_f32 if size == 4 else lib.rf_offset_panel_lu_f64
+        extra = (ofs,)
+    else:
+        fn = lib.rf_panel_lu_f32 if size == 4 else lib.rf_panel_lu_f64
+        extra = ()
+    code = fn(
+        panel.data_ptr(), m, w, lda, int(bool(pivot)), *extra, block, cluster,
+        piv.data_ptr(), perm.data_ptr(), info.data_ptr(),
+        None if ws is None else ws.data_ptr(), ints[npiv + m + 1:].data_ptr(), index,
+        stream,
+    )
+    _kernels.check(lib, code, "panel_lu launch")
+    return piv, perm, info
+
+
+def panel_factor_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
+                      cluster: int = 0):
     """Launch the Hopper panel kernel on ``panel`` in place.
 
     ``panel``: CUDA, float32 or float64, 2-D, rows contiguous (unit
@@ -147,19 +222,21 @@ def panel_factor_cuda(panel: torch.Tensor, pivot: bool):
     matrix).  Returns ``(piv, perm, info)``: int32 (min(m, w),) 0-based
     pivot rows, int32 (m,) composed row permutation and a 0-d int32
     info, all on ``panel``'s device, allocated here.  Launches on the
-    current stream and does not synchronise.  ``panel_factor_cuda.
-    launches`` counts the launches."""
-    return _launch_panel(
-        panel_factor_cuda, panel, pivot, "panel_lu", "rf_panel_lu_grid",
-        {4: "rf_panel_lu_f32", 8: "rf_panel_lu_f64"}, _REAL,
-        lambda g, w: 2 * g + 2 * g * w + 2 * w,
-    )
+    current stream and does not synchronise.  ``block`` / ``cluster``
+    pick the cluster route's block width and cluster size (0: the
+    launcher's choice; see :func:`panel_plan`).
+    ``panel_factor_cuda.launches`` counts the launches,
+    ``panel_factor_cuda.grid_route_launches`` those that took the grid
+    route (panels too tall for a cluster)."""
+    return _launch_panel_lu(panel_factor_cuda, panel, pivot, None, block, cluster)
 
 
 panel_factor_cuda.launches = 0
+panel_factor_cuda.grid_route_launches = 0
 
 
-def offset_panel_factor_cuda(panel: torch.Tensor, ofs: int, pivot: bool):
+def offset_panel_factor_cuda(panel: torch.Tensor, ofs: int, pivot: bool, *,
+                             block: int = 0, cluster: int = 0):
     """Launch the Hopper offset kernel on the full-height ``panel`` in
     place: column k eliminates row ``ofs + k``; rows above ``ofs`` are
     neither read nor written.
@@ -170,19 +247,18 @@ def offset_panel_factor_cuda(panel: torch.Tensor, ofs: int, pivot: bool):
     GLOBAL pivot rows, int32 (H,) composed permutation of all H rows, 0-d
     int32 signed panel-local info, all allocated here.  Computes
     ``offset_panel_lu(panel, ofs, pivot)`` bitwise.  Launches on the
-    current stream and does not synchronise.
-    ``offset_panel_factor_cuda.launches`` counts the launches."""
+    current stream and does not synchronise.  ``block`` / ``cluster`` as
+    for :func:`panel_factor_cuda`.  ``offset_panel_factor_cuda.launches``
+    counts the launches, ``.grid_route_launches`` those on the grid
+    route."""
     H, w = _check_panel("offset_panel_factor_cuda", panel, _REAL)[:2]
     if not isinstance(ofs, int) or isinstance(ofs, bool) or not 0 <= ofs <= H - w:
         raise ValueError(f"offset {ofs!r} outside [0, {H - w}] for a {H} x {w} panel")
-    return _launch_panel(
-        offset_panel_factor_cuda, panel, pivot, "panel_lu", "rf_offset_panel_lu_grid",
-        {4: "rf_offset_panel_lu_f32", 8: "rf_offset_panel_lu_f64"}, _REAL,
-        lambda g, w: 2 * g + 2 * g * w + 2 * w, grid_extra=(ofs,), fn_extra=(ofs,),
-    )
+    return _launch_panel_lu(offset_panel_factor_cuda, panel, pivot, ofs, block, cluster)
 
 
 offset_panel_factor_cuda.launches = 0
+offset_panel_factor_cuda.grid_route_launches = 0
 
 
 def panel_factor_c64_cuda(panel: torch.Tensor, pivot: bool):

@@ -26,6 +26,7 @@ from recursivefactorization_jl_tpu_torch.ops.panel import (
     panel_factor_cuda,
     panel_factor_noswap_cuda,
     panel_factor_shadow_cuda,
+    panel_plan,
 )
 from recursivefactorization_jl_tpu_torch.ops.unblocked import (
     micro_blocked_lu,
@@ -87,6 +88,111 @@ def test_kernel_in_place_on_a_strided_panel():
     assert torch.equal(view, f) and torch.equal(piv, piv_p)
     # columns outside the panel are untouched
     assert torch.equal(A[:, :64], ref[:, :64]) and torch.equal(A[:, 192:], ref[:, 192:])
+
+
+# every block width b and cluster size C of csrc/panel_lu.cu's cluster
+# route on a (300, 100) panel (ragged last blocks), one slab for the whole
+# panel (b = w: 100 columns, and 12), and a taller (1200, 100) panel
+_PLANS = [(dt, (300, 100), b, C) for dt in (torch.float32, torch.float64)
+          for b in (8, 16, 32, 64) for C in (1, 2, 4, 8, 16)]
+_PLANS += [(dt, (300, 100), 100, C) for dt in (torch.float32, torch.float64)
+           for C in (2, 4, 8, 16)]
+_PLANS += [(dt, (300, 12), 12, C) for dt in (torch.float32, torch.float64)
+           for C in (1, 2, 4, 8, 16)]
+_PLANS += [(dt, (1200, 100), 8, C) for dt in (torch.float32, torch.float64) for C in (1, 2)]
+
+
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("dtype,shape,block,cluster", _PLANS)
+def test_kernel_plans_bitwise_equal_plain(dtype, shape, pivot, block, cluster):
+    need_cuda()
+    m, w = shape
+    g = torch.Generator().manual_seed(17)
+    A = torch.randn(m, w, generator=g, dtype=dtype)
+    if not pivot:
+        A += m * torch.eye(m, w, dtype=dtype)
+    A[:, 7] = 0
+    A = A.cuda()
+    f, piv, perm, info = unblocked_lu(A, pivot)
+    plan = panel_plan(m, w, dtype, block=block, cluster=cluster)
+    assert plan["route"] == "cluster" and (plan["block"], plan["cluster"]) == (block, cluster)
+    P = A.clone()
+    g0 = panel_factor_cuda.grid_route_launches
+    kpiv, kperm, kinfo = panel_factor_cuda(P, pivot, block=block, cluster=cluster)
+    torch.cuda.synchronize()
+    assert panel_factor_cuda.grid_route_launches == g0
+    assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
+    assert int(kinfo) == int(info) == (8 if pivot else -8)
+    assert torch.equal(_bits(P), _bits(f))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,block,cluster", [
+    ((20, 100), 16, 1), ((12, 100), 16, 4),   # fewer live rows than b
+    ((7, 3), 8, 1), ((64, 200), 64, 2), ((128, 128), 0, 0), ((512, 512), 0, 0),
+])
+def test_kernel_short_fat_and_whole_panels(dtype, shape, block, cluster):
+    need_cuda()
+    g = torch.Generator().manual_seed(18)
+    A = torch.randn(*shape, generator=g, dtype=dtype).cuda()
+    f, piv, perm, info = unblocked_lu(A, True)
+    P = A.clone()
+    kpiv, kperm, kinfo = panel_factor_cuda(P, True, block=block, cluster=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(kpiv, piv) and torch.equal(kperm, perm) and int(kinfo) == int(info)
+    assert torch.equal(_bits(P), _bits(f))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("block,cluster", [(0, 0), (8, 4), (32, 16), (64, 2)])
+def test_kernel_plans_on_a_column_block(dtype, block, cluster):
+    """lda > w: a column block of a row-major matrix, as the blocked
+    schedule hands it over; everything outside the block untouched."""
+    need_cuda()
+    g = torch.Generator().manual_seed(19)
+    M = torch.randn(700, 700, generator=g, dtype=dtype).cuda()
+    ref = M.clone()
+    view = M[128:, 128:256]
+    f, piv, perm, info = unblocked_lu(ref[128:, 128:256], True)
+    kpiv, kperm, kinfo = panel_factor_cuda(view, True, block=block, cluster=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(view), _bits(f)) and torch.equal(kpiv, piv)
+    assert torch.equal(kperm, perm)
+    rest = torch.ones_like(M, dtype=torch.bool)
+    rest[128:, 128:256] = False
+    assert torch.equal(M[rest], ref[rest])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_grid_route_for_tall_panels(dtype):
+    """A panel too tall for a cluster of 16 at b = 8 takes the grid route
+    (counted apart); so does block=-1.  Both stay bitwise."""
+    need_cuda()
+    g = torch.Generator().manual_seed(20)
+    for shape, block in (((100000, 8) if dtype == torch.float32 else (60000, 16), 0),
+                         ((900, 40), -1)):
+        A = torch.randn(*shape, generator=g, dtype=dtype).cuda()
+        assert panel_plan(*shape, dtype, block=block)["route"] == "grid"
+        f, piv, perm, info = unblocked_lu(A, True)
+        P = A.clone()
+        g0 = panel_factor_cuda.grid_route_launches
+        kpiv, kperm, kinfo = panel_factor_cuda(P, True, block=block)
+        torch.cuda.synchronize()
+        assert panel_factor_cuda.grid_route_launches == g0 + 1
+        assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
+        assert torch.equal(_bits(P), _bits(f))
+
+
+def test_kernel_plans_refused_where_they_do_not_fit():
+    need_cuda()
+    for bad in (lambda: panel_plan(5000, 512, torch.float64, block=512, cluster=1),
+                lambda: panel_plan(300, 1000, torch.float32, block=1000, cluster=16),
+                lambda: panel_plan(200000, 8, torch.float32, block=8, cluster=16),
+                lambda: panel_plan(300, 100, torch.float32, block=24, cluster=2),
+                lambda: panel_plan(300, 100, torch.float32, block=32, cluster=3),
+                lambda: panel_plan(300, 100, torch.float32, block=32)):
+        with pytest.raises(RuntimeError):
+            bad()
 
 
 def test_kernel_rejects_bad_panels():
@@ -753,6 +859,42 @@ def test_offset_kernel_bitwise_equals_plain(dtype, pivot, shape, ofs):
     assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
     assert int(kinfo) == int(info) == (w // 2 + 1) * (1 if pivot else -1)
     assert torch.equal(_bits(P), _bits(f)) and torch.equal(_bits(P[:ofs]), _bits(A[:ofs]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("block,cluster", [(8, 1), (32, 4), (64, 16), (0, 0), (64, 2)])
+def test_offset_kernel_plans_leave_the_rows_above(dtype, pivot, block, cluster):
+    need_cuda()
+    H, w, ofs = 600, 64, 100
+    g = torch.Generator().manual_seed(21)
+    A = torch.randn(H, w, generator=g, dtype=dtype)
+    if not pivot:
+        A[ofs + torch.arange(w), torch.arange(w)] += H
+    A = A.cuda()
+    f, piv, perm, info = offset_panel_lu(A, ofs, pivot)
+    P = A.clone()
+    kpiv, kperm, kinfo = offset_panel_factor_cuda(P, ofs, pivot, block=block, cluster=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(kpiv, piv) and torch.equal(kperm, perm) and int(kinfo) == int(info)
+    assert torch.equal(_bits(P), _bits(f)) and torch.equal(_bits(P[:ofs]), _bits(A[:ofs]))
+
+
+def test_offset_kernel_one_cta_for_128_live_rows_and_grid_route_when_tall():
+    need_cuda()
+    plan = panel_plan(4096, 128, torch.float32, ofs=3968)
+    assert plan["route"] == "cluster" and plan["cluster"] == 1
+    g = torch.Generator().manual_seed(22)
+    A = torch.randn(100000, 8, generator=g).cuda()
+    assert panel_plan(100000, 8, torch.float32, ofs=10)["route"] == "grid"
+    f, piv, perm, info = offset_panel_lu(A, 10, True)
+    P = A.clone()
+    g0 = offset_panel_factor_cuda.grid_route_launches
+    kpiv, kperm, kinfo = offset_panel_factor_cuda(P, 10, True)
+    torch.cuda.synchronize()
+    assert offset_panel_factor_cuda.grid_route_launches == g0 + 1
+    assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
+    assert torch.equal(_bits(P), _bits(f))
 
 
 def test_offset_kernel_strided_nan_and_bad_arguments():

@@ -1,0 +1,194 @@
+"""The order of csrc/panel_lu.cu's cluster route, emulated on the CPU, and
+the two public-API repairs (the port exports every name of the JAX
+package; ``lu_factor(donate=True)`` factors in place).
+
+The cluster route of the panel kernel factors a panel in blocks of ``b``
+columns.  For each block ``[k0, k1)`` it first runs the block's pivot
+chain on the slab (the live rows from ``ofs + k0`` down, the block's
+columns only), with every rank-1 update confined to the slab; then it
+applies the block's row swaps to every column outside the slab, solves
+the block's U rows in the columns ``>= k1`` row by row, and updates every
+row below the block with the block's ``b`` rank-1 updates in step order.
+Every element still receives its updates in step order, each product and
+difference rounded on its own, so the result is ``unblocked_lu``'s (and
+``offset_panel_lu``'s) bit for bit.  ``blocked_order_lu`` below does the
+same steps with one rounded tensor op per rounding; the tests hold it to
+the plain versions bitwise (pivots, perm and info exactly).  On the card
+tests/test_torch_cuda.py holds the kernel to the plain versions.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import recursivefactorization_jl_tpu as rf
+import recursivefactorization_jl_tpu_torch as rt
+from recursivefactorization_jl_tpu_torch.ops.unblocked import offset_panel_lu, unblocked_lu
+
+torch.set_num_threads(1)
+
+
+def blocked_order_lu(A, ofs, pivot, b):
+    """The cluster route's order on the (H, w) panel ``A`` from row
+    ``ofs``.  Returns ``(LU, piv, perm, info)`` as ``offset_panel_lu``
+    does (global pivot rows, the permutation of all H rows)."""
+    A = A.clone()
+    H, w = A.shape
+    steps = min(H - ofs, w)
+    piv = torch.arange(steps, dtype=torch.int32) + ofs
+    perm = torch.arange(H, dtype=torch.int32)
+    info = 0
+    for k0 in range(0, steps, b):
+        k1 = min(k0 + b, steps)
+        nb, r0 = k1 - k0, ofs + k0
+        # 1. the chain on the slab: rows [r0, H), columns [k0, k1)
+        S = A[r0:, k0:k1].clone()
+        src = torch.arange(H - r0)  # which slab row each position holds
+        pid = perm[r0:].clone()
+        for kk in range(nb):
+            kp = kk + int(torch.argmax(S[kk:, kk].abs())) if pivot else kk
+            piv[k0 + kk] = r0 + kp
+            nz = bool(S[kp, kk] != 0)
+            if nz and kp != kk:
+                S[[kk, kp]] = S[[kp, kk]]
+                src[[kk, kp]] = src[[kp, kk]]
+                pid[[kk, kp]] = pid[[kp, kk]]
+            if nz:
+                S[kk + 1:, kk].mul_(torch.reciprocal(S[kk, kk]))
+            elif info == 0:
+                info = k0 + kk + 1 if pivot else -(k0 + kk + 1)
+            if kk + 1 < nb:
+                S[kk + 1:, kk + 1:].sub_(torch.outer(S[kk + 1:, kk], S[kk, kk + 1:]))
+        perm[r0:] = pid
+        # 2. the delayed pass: swaps outside the slab, U rows, rows below
+        outside = [c for c in range(w) if not k0 <= c < k1]
+        if outside:
+            A[r0:, outside] = A[r0:][src][:, outside]
+        A[r0:, k0:k1] = S
+        for s in range(nb - 1):
+            A[r0 + s + 1:r0 + nb, k1:].sub_(
+                torch.outer(A[r0 + s + 1:r0 + nb, k0 + s], A[r0 + s, k1:]))
+        for s in range(nb):
+            A[r0 + nb:, k1:].sub_(torch.outer(A[r0 + nb:, k0 + s], A[r0 + s, k1:]))
+    return A, piv, perm, torch.tensor(info, dtype=torch.int32)
+
+
+def _bits(t):
+    return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
+
+
+def _assert_same(got, want):
+    assert torch.equal(got[1], want[1]), "piv"
+    assert torch.equal(got[2], want[2]), "perm"
+    assert int(got[3]) == int(want[3]), "info"
+    assert torch.equal(_bits(got[0]), _bits(want[0])), "factors"
+
+
+def _panel(seed, m, w, dtype, pivot, ofs=0):
+    A = np.random.default_rng(seed).standard_normal((m, w))
+    if not pivot:
+        k = min(m - ofs, w)
+        A[ofs + np.arange(k), np.arange(k)] += m
+    return torch.tensor(A, dtype=dtype)
+
+
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("w", [1, 5, 32, 64])
+@pytest.mark.parametrize("m", [7, 64, 200])
+@pytest.mark.parametrize("b", [1, 3, 8, 32, "w"])
+def test_blocked_order_equals_unblocked_lu(b, m, w, pivot):
+    b = w if b == "w" else b
+    A = _panel(1000 * m + w, m, w, torch.float32, pivot)
+    _assert_same(blocked_order_lu(A, 0, pivot, b), unblocked_lu(A, pivot))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b", [1, 3, 8, 32, "w"])
+def test_blocked_order_on_ties_zero_column_and_nan(dtype, b):
+    m, w = 64, 32
+    b = w if b == "w" else b
+    g = torch.Generator().manual_seed(3)
+    ties = torch.randint(-2, 3, (m, w), generator=g).to(dtype)
+    _assert_same(blocked_order_lu(ties, 0, True, b), unblocked_lu(ties, True))
+    for pivot in (True, False):
+        Z = _panel(5, m, w, dtype, pivot)
+        Z[:, 9] = 0  # a zero pivot at step 10: no swap, no scale, update runs
+        got = blocked_order_lu(Z, 0, pivot, b)
+        _assert_same(got, unblocked_lu(Z, pivot))
+        assert int(got[3]) == (10 if pivot else -10)
+    N = _panel(6, m, w, dtype, True)
+    N[40, 3] = N[50, 3] = float("nan")  # the first NaN row wins
+    got = blocked_order_lu(N, 0, True, b)
+    _assert_same(got, unblocked_lu(N, True))
+    assert int(got[1][3]) == 40
+
+
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("ofs", [1, 37, 136])
+@pytest.mark.parametrize("b", [1, 3, 8, 32, "w"])
+def test_blocked_order_equals_offset_panel_lu(b, ofs, pivot):
+    H, w = 200, 64
+    b = w if b == "w" else b
+    A = _panel(ofs, H, w, torch.float64, pivot, ofs)
+    A[ofs + 20:, 11] = 0
+    got = blocked_order_lu(A, ofs, pivot, b)
+    _assert_same(got, offset_panel_lu(A, ofs, pivot))
+    assert torch.equal(_bits(got[0][:ofs]), _bits(A[:ofs]))  # rows above untouched
+
+
+def test_port_exports_every_public_name_of_the_jax_package():
+    assert set(rf.__all__) <= set(rt.__all__)
+    assert {"materialize_uv", "pad_to_multiple_of_4"} <= set(rt.__all__)
+    for name in rt.__all__:
+        assert getattr(rt, name) is not None
+
+
+@pytest.mark.parametrize("fn", ["lu_factor", "lu_factor_p"])
+def test_lu_factor_donate(fn):
+    """donate=True factors A in place and returns A itself as the factors;
+    donate=False copies and leaves A as it was.  Both give the same bits."""
+    A0 = torch.tensor(np.random.default_rng(8).standard_normal((96, 96)))
+    cfg = rt.LUConfig(panel_width=16, small_threshold=16)
+    call = getattr(rt, fn)
+    A = A0.clone()
+    kept = call(A, config=cfg, device="cpu")
+    assert torch.equal(A, A0) and kept[0] is not A
+    donated = call(A, config=cfg, donate=True, device="cpu")
+    assert donated[0] is A
+    assert torch.equal(_bits(A), _bits(kept[0]))
+    for x, y in zip(donated[1:], kept[1:]):
+        assert torch.equal(x, y)
+
+
+def test_lu_factor_donate_refuses_what_lu_inplace_refuses():
+    A0 = np.random.default_rng(9).standard_normal((8, 8))
+    with pytest.raises(ValueError):
+        rt.lu_factor(torch.tensor(A0).T, donate=True, device="cpu")  # not contiguous
+    with pytest.raises(TypeError):
+        rt.lu_factor(A0, donate=True, device="cpu")  # not a tensor
+    with pytest.raises(ValueError):
+        rt.lu_factor_p(torch.tensor(A0), donate=True, device="meta")  # another device
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Every C function ops/_kernels.py binds for csrc/panel_lu.cu, and every
+    other one its source spells out (some are stamped out by a macro), is
+    declared with as many parameters, pointers where ctypes passes
+    pointers: a mismatch would cut a pointer or shift every argument on
+    the card."""
+    import ctypes
+    import re
+
+    from recursivefactorization_jl_tpu_torch.ops import _kernels
+
+    for name, fns in _kernels.SIGNATURES.items():
+        text = _kernels.SOURCES[name].read_text() + _kernels.COMMON_HEADER.read_text()
+        for fn, (_, argtypes) in fns.items():
+            decl = re.search(r"\b" + fn + r"\(([^)]*)\)\s*\{", text)
+            if decl is None and name != "panel_lu":
+                continue
+            assert decl, f"{name}: {fn} not declared"
+            params = [p.strip() for p in decl.group(1).split(",") if p.strip()]
+            assert len(params) == len(argtypes), (fn, params)
+            for p, t in zip(params, argtypes):
+                assert ("*" in p) == (t is ctypes.c_void_p), (fn, p, t)
