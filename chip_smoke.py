@@ -33,29 +33,42 @@ Phases, JSON lines each:
             and factor+solve at 1536/4096 beside the library (+ lu_solve);
             with ``--sweep`` the width/route/tail sweep behind the routing
             defaults of utils/config.py;
-5. kernels  one line for all nine ported kernels (launches, error,
+5. kernels  one line for all eleven kernel functions (launches, error,
             times, bound).
 
 The batched small-matrix path adds, in the same order:
 
-2b. batched_kernel  the swap, noswap and solve kernels against their
-            plain versions: f32/f64, n = 16/64/128 and rectangular
-            shapes, pivot on/off, zeroed columns in some matrices, exact
-            ties, batch sizes 1000 and 37: ipiv, perm, info equal,
-            factors and solutions bitwise equal;
-3b. batched the four public functions at B = 10 000, n = 64 and n = 128,
-            f32, plus the noswap kernel as its caller reaches it: every
-            output held against the plain versions on the same inputs
-            (ipiv, perm, info equal, factors and solutions bitwise equal:
-            the error the ``kernels`` line reports), residual gate per
-            matrix, ipiv equal to torch.linalg.lu_factor_ex's (f64:
-            everywhere; f32: in all but at most 10 matrices, each a near
-            tie of the two candidates at its first differing step), info
-            exact on zeroed columns, one launch per call, no TF32 on the
+2b. batched_kernel  the swap kernel on each shape's own route (warp,
+            block or tile, ops/batched_kernel.py lu_route) and on the tile
+            route, the noswap and solve kernels, against their plain
+            versions: f32/f64, n = 16/64/128, the routes' boundaries (1,
+            31, 32, 33, 32 x 40, 40 x 32, 20 x 32), tall and wide shapes,
+            batches of 1, 3, 37, 1000 and 1001, pivot on/off, zeroed
+            columns, exact ties, inf and NaN in a pivot row: ipiv, perm,
+            info equal, one launch on the route, factors and solutions
+            bitwise equal (NaN for NaN);
+3b. batched the four public functions at B = 10 000, n = 16 (warp
+            route), 64 and 128 (block route), f32, plus the noswap kernel
+            as its caller reaches it, and a tall batch of 1000 x 300 x 24
+            (tile route): every output held against the plain versions on
+            the same inputs (ipiv, perm, info equal, factors and solutions
+            bitwise equal: the error the ``kernels`` line reports),
+            residual gate per matrix, ipiv equal to
+            torch.linalg.lu_factor_ex's (f64: everywhere; f32: in all but
+            at most 10 matrices, each a near tie of the two candidates at
+            its first differing step), info exact on zeroed columns, one
+            launch per call on the shape's route, no TF32 on the
             library-route solve;
-4b. timing  swap, noswap, solve and factor+solve at n = 16/32/64/128,
+4b. timing  the swap kernel on its own route and on the tile route,
+            noswap, solve and factor+solve at n = 8/16/24/32/48/64/96/128,
             B = 10 000, in turns beside torch.linalg.lu_factor_ex and
-            lu_solve; the plain versions once.
+            lu_solve, f64 at n = 64, the tall batch; the plain versions
+            once; per route the plan (threads, matrices per block, shared
+            memory, registers, local memory, resident blocks per SM and
+            what caps them, waves) and at n = 16/32/64/128 a step's
+            phases from the trace build (csrc/batched_lu.cu compiled with
+            -DRF_BATCHED_TRACE); the new kernels' ptxas lines.
+            ``--batched`` runs phases 1, 2b and 4b alone.
 
 The complex and half-precision path adds:
 
@@ -170,6 +183,12 @@ NEW_PANEL_KERNELS = {
                         "recursivefactorization_jl_tpu/ops/panel.py:742"),
 }
 BATCHED_KERNELS = {
+    # the swap mode's three routes (ops/batched_kernel.py lu_route): a warp
+    # per matrix, a register-tiled block, the shared-memory tile
+    "batched_lu_warp": ("recursivefactorization_jl_tpu_torch/csrc/batched_lu.cu",
+                        "recursivefactorization_jl_tpu/ops/batched_kernel.py:78"),
+    "batched_lu_block": ("recursivefactorization_jl_tpu_torch/csrc/batched_lu.cu",
+                         "recursivefactorization_jl_tpu/ops/batched_kernel.py:78"),
     "batched_lu_swap": ("recursivefactorization_jl_tpu_torch/csrc/batched_lu.cu",
                         "recursivefactorization_jl_tpu/ops/batched_kernel.py:78"),
     "batched_lu_noswap": ("recursivefactorization_jl_tpu_torch/csrc/batched_lu.cu",
@@ -180,6 +199,9 @@ BATCHED_KERNELS = {
 OFFSET_KERNEL = ("recursivefactorization_jl_tpu_torch/csrc/panel_lu.cu",
                  "recursivefactorization_jl_tpu/ops/panel.py:1278")
 BATCH_B = 10000
+ROUTE_KERNEL = {"warp": "batched_lu_warp", "block": "batched_lu_block", "tile": "batched_lu_swap"}
+# the tall batch that takes the tile route on the main path
+TALL_B, TALL_SHAPE = 1000, (300, 24)
 # the tp_ranks phase: D = 2 gloo ranks on the one card
 TP_RANKS_N, TP_RANKS_W, TP_RANKS_SEED = 2048, 128, 5
 
@@ -471,6 +493,8 @@ def main(argv):
     )
 
     quick = "--quick" in argv
+    # phases 1, 2b and 4b only
+    batched_only = "--batched" in argv
     if "--log" in argv:
         global LOG
         path = argv[argv.index("--log") + 1]
@@ -503,215 +527,68 @@ def main(argv):
     def bits(t):
         return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
 
-    # ---- 2. kernel vs plain ---------------------------------------------
-    gen = torch.Generator(device="cpu").manual_seed(1)
-    max_err = 0.0
-    shapes = sorted({main_shape(n)[1] for n in (1536, 4096)})
-    cases = []
-    for (m, w) in shapes:
-        for dt in (torch.float32, torch.float64):
-            base = torch.randn(m, w, generator=gen, dtype=dt)
-            zcol = base.clone()
-            zcol[:, min(5, w - 1)] = 0
-            ties = torch.randint(-2, 3, (m, w), generator=gen).to(dt)
-            for name, X in (("randn", base), ("zero_col", zcol), ("ties", ties)):
-                for pivot in (True, False):
-                    if name == "ties" and not pivot:
-                        continue
-                    cases.append(((m, w), dt, name, pivot, X))
-    for (m, w), dt, name, pivot, X in cases:
-        A = X.to(dev)
-        f_p, piv_p, perm_p, info_p = unblocked_lu(A, pivot)
-        P = A.clone()
-        piv_k, perm_k, info_k = panel_factor_cuda(P, pivot)
-        torch.cuda.synchronize()
-        same = {
-            "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
-            "perm_equal": bool(torch.equal(perm_k, perm_p)),
-            "info_equal": int(info_k) == int(info_p),
-            "bitwise": bool(torch.equal(bits(P), bits(f_p))),
-        }
-        err = float((P - f_p).abs().nan_to_num(0.0).max())
-        max_err = max(max_err, err)
-        emit("kernel", shape=[m, w], dtype=str(dt)[6:], input=name,
-             pivot=pivot, info=int(info_k), max_abs_err=err, **same)
-        if not all(same.values()):
-            fail(f"kernel disagrees with its plain version: {same}")
-        if name == "zero_col" and int(info_k) == 0:
-            fail("zeroed column gave info 0")
-    # the cluster route's plans (csrc/panel_lu.cu): every block width b and
-    # cluster size C on one panel (ragged last blocks: w = 100), one slab
-    # for the whole panel (b = w), then the shapes of the slice: a whole
-    # 512 x 512 matrix, 8192 x 512, a column block of a 4096 x 4096 matrix
-    # (row stride 4096), and panels too tall for a cluster (the grid route)
-    f32, f64 = torch.float32, torch.float64
-    plans_run = set()
-
-    def check_panel(A, pivot, what, block=0, cluster=0, view=None, grid_route=False):
-        """Factor ``A`` (or the ``view`` of it) with the kernel and compare
-        with unblocked_lu; returns the launch's plan."""
-        nonlocal max_err
-        X = A if view is None else view(A)
-        f_p, piv_p, perm_p, info_p = unblocked_lu(X, pivot)
-        W = A.clone()
-        P = W if view is None else view(W)
-        plan = panel_plan(*P.shape, P.dtype, block=block, cluster=cluster)
-        g0 = panel_factor_cuda.grid_route_launches
-        piv_k, perm_k, info_k = panel_factor_cuda(P, pivot, block=block, cluster=cluster)
-        torch.cuda.synchronize()
-        same = {
-            "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
-            "perm_equal": bool(torch.equal(perm_k, perm_p)),
-            "info_equal": int(info_k) == int(info_p),
-            "bitwise": bool(torch.equal(bits(P), bits(f_p))),
-            "route_as_expected": (panel_factor_cuda.grid_route_launches - g0
-                                  == int(grid_route)) and plan["route"] == (
-                                      "grid" if grid_route else "cluster"),
-        }
-        if view is not None:
-            rest = torch.ones_like(A, dtype=torch.bool)
-            view(rest).fill_(False)
-            same["rest_untouched"] = bool(torch.equal(W[rest], A[rest]))
-        err = float((P - f_p).abs().nan_to_num(0.0).max())
-        max_err = max(max_err, err)
-        emit("kernel", shape=list(P.shape), lda=P.stride(0), dtype=str(P.dtype)[6:],
-             input=what, pivot=pivot, plan=plan, info=int(info_k), max_abs_err=err, **same)
-        if not all(same.values()):
-            fail(f"kernel disagrees with its plain version: {same}")
-        return plan
-
-    for dt in (f32, f64):
-        for (m, w), widths in (((1000, 100), (8, 16, 32, 64, 100)), ((1000, 12), (12,))):
-            X = torch.randn(m, w, generator=gen, dtype=dt).to(dev)
-            X[:, 7] = 0
-            for b in widths:
-                for C in (1, 2, 4, 8, 16):
-                    try:
-                        panel_plan(m, w, dt, block=b, cluster=C)
-                    except RuntimeError:
-                        continue  # this (b, C) does not fit the card
-                    check_panel(X, True, f"zero_col, b={b}, C={C}", block=b, cluster=C)
-                    plans_run.add((str(dt)[6:], b, C))
-    if not {b for _, b, _ in plans_run} >= {8, 16, 32, 64, 100, 12} or \
-            not {C for _, _, C in plans_run} >= {1, 2, 4, 8}:
-        fail(f"the plan cases missed a block width or a cluster size: {sorted(plans_run)}")
-    for dt in (f32, f64):
-        R = torch.randn(777, 130, generator=gen, dtype=dt)
-        check_panel((R + 777 * torch.eye(777, 130, dtype=dt)).to(dev), False, "randn + m*I")
-        T_ = torch.randint(-2, 3, (777, 130), generator=gen).to(dt).to(dev)
-        check_panel(T_, True, "ties")
-        R[400, 3] = R[500, 3] = float("nan")
-        check_panel(R.to(dev), True, "nan")
-        check_panel(torch.randn(512, 512, generator=gen, dtype=dt).to(dev), True, "randn, whole")
-        check_panel(torch.randn(64, 200, generator=gen, dtype=dt).to(dev), True, "randn, fat")
-        M = torch.randn(4096, 4096, generator=gen, dtype=dt).to(dev)
-        check_panel(M, True, "column block", view=lambda t: t[512:, 512:1024])
-        del M
-    check_panel(torch.randn(8192, 512, generator=gen).to(dev), True, "randn")
-    tall = {f32: (100000, 8), f64: (60000, 16)}
-    for dt, (m, w) in tall.items():
-        check_panel(torch.randn(m, w, generator=gen, dtype=dt).to(dev), True, "randn, tall",
-                    grid_route=True)
-    check_panel(torch.randn(2000, 64, generator=gen).to(dev), True, "randn, forced grid",
-                block=-1, grid_route=True)
-
-    # ---- 2c. the complex kernel vs plain ---------------------------------
-    def crandn(m, w, dt):
-        real = torch.float32 if dt == torch.complex64 else torch.float64
-        return torch.complex(torch.randn(m, w, generator=gen, dtype=real),
-                             torch.randn(m, w, generator=gen, dtype=real))
-
-    def cbits(t):
-        return bits(torch.view_as_real(t).contiguous())
-
-    c64, c128 = torch.complex64, torch.complex128
-    ccases = []
-    for (m, w) in shapes:  # the main path's panels: the plain version once per case
-        ccases += [((m, w), c64, "randn", True), ((m, w), c64, "zero_col", True),
-                   ((m, w), c128, "randn", True)]
-    ccases += [((512, 512), c64, "randn", True), ((512, 512), c64, "randn", False),
-               ((512, 512), c128, "zero_col", False)]
-    for (m, w) in ((777, 130), (130, 300)):  # ragged tall, fat
-        for dt in (c64, c128):
-            ccases += [((m, w), dt, "randn", True), ((m, w), dt, "randn", False),
-                       ((m, w), dt, "zero_col", True), ((m, w), dt, "ties", True),
-                       ((m, w), dt, "nan", True)]
-    max_err_c = 0.0
-    for (m, w), dt, name, pivot in ccases:
-        X = crandn(m, w, dt)
-        if name == "ties":
-            real = X.real.dtype
-            X = torch.complex(torch.randint(-2, 3, (m, w), generator=gen).to(real),
-                              torch.randint(-2, 3, (m, w), generator=gen).to(real))
-        if not pivot:
-            X += max(m, w) * torch.eye(m, w, dtype=dt)
-        if name == "zero_col":
-            X[:, min(5, w - 1)] = 0
-        if name == "nan":
-            X[m // 2, 7] = complex(float("nan"), 1.0)
-        A = X.to(dev)
-        f_p, piv_p, perm_p, info_p = unblocked_lu_cabs1(A, pivot)
-        P = A.clone()
-        piv_k, perm_k, info_k = panel_factor_c64_cuda(P, pivot)
-        torch.cuda.synchronize()
-        same = {
-            "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
-            "perm_equal": bool(torch.equal(perm_k, perm_p)),
-            "info_equal": int(info_k) == int(info_p),
-            "bitwise": bool(torch.equal(cbits(P), cbits(f_p))),
-        }
-        if name == "nan":
-            same["nan_rows_pivot_last"] = bool((piv_k[7:] == m - 1).all())
-        err = float(torch.view_as_real(P - f_p).abs().nan_to_num(0.0, 0.0, 0.0).max())
-        max_err_c = max(max_err_c, err)
-        emit("kernel", kernel="panel_lu_c64", shape=[m, w], dtype=str(dt)[6:],
-             input=name, pivot=pivot, info=int(info_k), max_abs_err=err, **same)
-        if not all(same.values()):
-            fail(f"complex kernel disagrees with its plain version: {same}")
-        if name == "zero_col" and int(info_k) != (6 if pivot else -6):
-            fail(f"zeroed column 5 gave info {int(info_k)}")
-    for bad in (torch.zeros(8, 4, device=dev), torch.zeros(8, 4, dtype=c64),
-                torch.zeros(8, 4, device=dev, dtype=c64).T):
-        try:
-            panel_factor_c64_cuda(bad, True)
-        except ValueError:
-            continue
-        fail(f"panel_factor_c64_cuda took {tuple(bad.shape)} {bad.dtype} {bad.device}")
-
-    # ---- 2d. the micro-blocked and the no-swap kernels vs plain -----------
-    micro_wrappers = {"panel_lu_micro_shadow": panel_factor_shadow_cuda,
-                      "panel_lu_micro_basic": panel_factor_basic_cuda}
-
-    def real_input(name, m, w, dt, pivot):
-        if name == "ties":
-            return torch.randint(-2, 3, (m, w), generator=gen).to(dt)
-        X = torch.randn(m, w, generator=gen, dtype=dt)
-        if not pivot:
-            X += max(m, w) * torch.eye(m, w, dtype=dt)
-        if name == "zero_col":
-            X[:, min(5, w - 1)] = 0
-        return X
-
-    new_err = {k: 0.0 for k in NEW_PANEL_KERNELS}
-    mcases = []  # shape, dtype, input, pivot, micro
-    for (m, w) in shapes:
-        mcases += [((m, w), f32, "randn", True, 32), ((m, w), f64, "randn", True, 16)]
-    mcases += [(shapes[0], f32, "zero_col", True, 32), (shapes[0], f32, "ties", True, 16),
-               (shapes[0], f32, "randn", False, 32),
-               ((512, 512), f32, "randn", True, 32), ((512, 512), f64, "zero_col", False, 16)]
-    for dt in (f32, f64):
-        mcases += [((777, 130), dt, "randn", True, 32), ((777, 130), dt, "zero_col", True, 16),
-                   ((777, 130), dt, "ties", True, 32), ((130, 300), dt, "randn", True, 32),
-                   ((130, 300), dt, "zero_col", False, 16)]
-    for (m, w), dt, name, pivot, micro in mcases:
-        A = real_input(name, m, w, dt, pivot).to(dev)
-        f_p, piv_p, perm_p, info_p = micro_blocked_lu(A, pivot, micro)
-        outs = {}
-        for kern, wrapper in micro_wrappers.items():
-            P = A.clone()
-            piv_k, perm_k, info_k = wrapper(P, pivot, micro)
+    def timed(fn, setup=None, reps=5, warm=2):
+        ts = []
+        for i in range(warm + reps):
+            if setup is not None:
+                setup()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
             torch.cuda.synchronize()
-            outs[kern] = P
+            if i >= warm:
+                ts.append(e0.elapsed_time(e1))
+        ts.sort()
+        return ts[len(ts) // 2], ts
+
+    def round_robin(fns, rounds=7, warm=1, inner=1, setup=None):
+        """Median CUDA-event ms of each callable, run in turns (every
+        round times each once), so host noise spreads over all of them.
+        With ``inner`` > 1 a turn queues the callable that many times
+        between its two events and the time is per call: the device stays
+        fed and the host's launch latency falls out of a sub-millisecond
+        kernel's time.  ``setup`` runs before each timing, outside it."""
+        ts = {k: [] for k in fns}
+        for r in range(warm + rounds):
+            for k, fn in fns.items():
+                if setup is not None:
+                    setup()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                for _ in range(inner):
+                    fn()
+                e1.record()
+                torch.cuda.synchronize()
+                if r >= warm:
+                    ts[k].append(e0.elapsed_time(e1) / inner)
+        return {k: sorted(v)[len(v) // 2] for k, v in ts.items()}
+
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    # ---- 2. kernel vs plain ---------------------------------------------
+    if not batched_only:
+        max_err = 0.0
+        shapes = sorted({main_shape(n)[1] for n in (1536, 4096)})
+        cases = []
+        for (m, w) in shapes:
+            for dt in (torch.float32, torch.float64):
+                base = torch.randn(m, w, generator=gen, dtype=dt)
+                zcol = base.clone()
+                zcol[:, min(5, w - 1)] = 0
+                ties = torch.randint(-2, 3, (m, w), generator=gen).to(dt)
+                for name, X in (("randn", base), ("zero_col", zcol), ("ties", ties)):
+                    for pivot in (True, False):
+                        if name == "ties" and not pivot:
+                            continue
+                        cases.append(((m, w), dt, name, pivot, X))
+        for (m, w), dt, name, pivot, X in cases:
+            A = X.to(dev)
+            f_p, piv_p, perm_p, info_p = unblocked_lu(A, pivot)
+            P = A.clone()
+            piv_k, perm_k, info_k = panel_factor_cuda(P, pivot)
+            torch.cuda.synchronize()
             same = {
                 "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
                 "perm_equal": bool(torch.equal(perm_k, perm_p)),
@@ -719,247 +596,441 @@ def main(argv):
                 "bitwise": bool(torch.equal(bits(P), bits(f_p))),
             }
             err = float((P - f_p).abs().nan_to_num(0.0).max())
-            new_err[kern] = max(new_err[kern], err)
-            emit("kernel", kernel=kern, shape=[m, w], dtype=str(dt)[6:], input=name,
-                 pivot=pivot, micro=micro, info=int(info_k), max_abs_err=err, **same)
+            max_err = max(max_err, err)
+            emit("kernel", shape=[m, w], dtype=str(dt)[6:], input=name,
+                 pivot=pivot, info=int(info_k), max_abs_err=err, **same)
             if not all(same.values()):
-                fail(f"{kern} disagrees with its plain version: {same}")
+                fail(f"kernel disagrees with its plain version: {same}")
+            if name == "zero_col" and int(info_k) == 0:
+                fail("zeroed column gave info 0")
+        # the cluster route's plans (csrc/panel_lu.cu): every block width b and
+        # cluster size C on one panel (ragged last blocks: w = 100), one slab
+        # for the whole panel (b = w), then the shapes of the slice: a whole
+        # 512 x 512 matrix, 8192 x 512, a column block of a 4096 x 4096 matrix
+        # (row stride 4096), and panels too tall for a cluster (the grid route)
+        f32, f64 = torch.float32, torch.float64
+        plans_run = set()
+
+        def check_panel(A, pivot, what, block=0, cluster=0, view=None, grid_route=False):
+            """Factor ``A`` (or the ``view`` of it) with the kernel and compare
+            with unblocked_lu; returns the launch's plan."""
+            nonlocal max_err
+            X = A if view is None else view(A)
+            f_p, piv_p, perm_p, info_p = unblocked_lu(X, pivot)
+            W = A.clone()
+            P = W if view is None else view(W)
+            plan = panel_plan(*P.shape, P.dtype, block=block, cluster=cluster)
+            g0 = panel_factor_cuda.grid_route_launches
+            piv_k, perm_k, info_k = panel_factor_cuda(P, pivot, block=block, cluster=cluster)
+            torch.cuda.synchronize()
+            same = {
+                "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
+                "perm_equal": bool(torch.equal(perm_k, perm_p)),
+                "info_equal": int(info_k) == int(info_p),
+                "bitwise": bool(torch.equal(bits(P), bits(f_p))),
+                "route_as_expected": (panel_factor_cuda.grid_route_launches - g0
+                                      == int(grid_route)) and plan["route"] == (
+                                          "grid" if grid_route else "cluster"),
+            }
+            if view is not None:
+                rest = torch.ones_like(A, dtype=torch.bool)
+                view(rest).fill_(False)
+                same["rest_untouched"] = bool(torch.equal(W[rest], A[rest]))
+            err = float((P - f_p).abs().nan_to_num(0.0).max())
+            max_err = max(max_err, err)
+            emit("kernel", shape=list(P.shape), lda=P.stride(0), dtype=str(P.dtype)[6:],
+                 input=what, pivot=pivot, plan=plan, info=int(info_k), max_abs_err=err, **same)
+            if not all(same.values()):
+                fail(f"kernel disagrees with its plain version: {same}")
+            return plan
+
+        for dt in (f32, f64):
+            for (m, w), widths in (((1000, 100), (8, 16, 32, 64, 100)), ((1000, 12), (12,))):
+                X = torch.randn(m, w, generator=gen, dtype=dt).to(dev)
+                X[:, 7] = 0
+                for b in widths:
+                    for C in (1, 2, 4, 8, 16):
+                        try:
+                            panel_plan(m, w, dt, block=b, cluster=C)
+                        except RuntimeError:
+                            continue  # this (b, C) does not fit the card
+                        check_panel(X, True, f"zero_col, b={b}, C={C}", block=b, cluster=C)
+                        plans_run.add((str(dt)[6:], b, C))
+        if not {b for _, b, _ in plans_run} >= {8, 16, 32, 64, 100, 12} or \
+                not {C for _, _, C in plans_run} >= {1, 2, 4, 8}:
+            fail(f"the plan cases missed a block width or a cluster size: {sorted(plans_run)}")
+        for dt in (f32, f64):
+            R = torch.randn(777, 130, generator=gen, dtype=dt)
+            check_panel((R + 777 * torch.eye(777, 130, dtype=dt)).to(dev), False, "randn + m*I")
+            T_ = torch.randint(-2, 3, (777, 130), generator=gen).to(dt).to(dev)
+            check_panel(T_, True, "ties")
+            R[400, 3] = R[500, 3] = float("nan")
+            check_panel(R.to(dev), True, "nan")
+            check_panel(torch.randn(512, 512, generator=gen, dtype=dt).to(dev), True, "randn, whole")
+            check_panel(torch.randn(64, 200, generator=gen, dtype=dt).to(dev), True, "randn, fat")
+            M = torch.randn(4096, 4096, generator=gen, dtype=dt).to(dev)
+            check_panel(M, True, "column block", view=lambda t: t[512:, 512:1024])
+            del M
+        check_panel(torch.randn(8192, 512, generator=gen).to(dev), True, "randn")
+        tall = {f32: (100000, 8), f64: (60000, 16)}
+        for dt, (m, w) in tall.items():
+            check_panel(torch.randn(m, w, generator=gen, dtype=dt).to(dev), True, "randn, tall",
+                        grid_route=True)
+        check_panel(torch.randn(2000, 64, generator=gen).to(dev), True, "randn, forced grid",
+                    block=-1, grid_route=True)
+
+        # ---- 2c. the complex kernel vs plain ---------------------------------
+        def crandn(m, w, dt):
+            real = torch.float32 if dt == torch.complex64 else torch.float64
+            return torch.complex(torch.randn(m, w, generator=gen, dtype=real),
+                                 torch.randn(m, w, generator=gen, dtype=real))
+
+        def cbits(t):
+            return bits(torch.view_as_real(t).contiguous())
+
+        c64, c128 = torch.complex64, torch.complex128
+        ccases = []
+        for (m, w) in shapes:  # the main path's panels: the plain version once per case
+            ccases += [((m, w), c64, "randn", True), ((m, w), c64, "zero_col", True),
+                       ((m, w), c128, "randn", True)]
+        ccases += [((512, 512), c64, "randn", True), ((512, 512), c64, "randn", False),
+                   ((512, 512), c128, "zero_col", False)]
+        for (m, w) in ((777, 130), (130, 300)):  # ragged tall, fat
+            for dt in (c64, c128):
+                ccases += [((m, w), dt, "randn", True), ((m, w), dt, "randn", False),
+                           ((m, w), dt, "zero_col", True), ((m, w), dt, "ties", True),
+                           ((m, w), dt, "nan", True)]
+        max_err_c = 0.0
+        for (m, w), dt, name, pivot in ccases:
+            X = crandn(m, w, dt)
+            if name == "ties":
+                real = X.real.dtype
+                X = torch.complex(torch.randint(-2, 3, (m, w), generator=gen).to(real),
+                                  torch.randint(-2, 3, (m, w), generator=gen).to(real))
+            if not pivot:
+                X += max(m, w) * torch.eye(m, w, dtype=dt)
+            if name == "zero_col":
+                X[:, min(5, w - 1)] = 0
+            if name == "nan":
+                X[m // 2, 7] = complex(float("nan"), 1.0)
+            A = X.to(dev)
+            f_p, piv_p, perm_p, info_p = unblocked_lu_cabs1(A, pivot)
+            P = A.clone()
+            piv_k, perm_k, info_k = panel_factor_c64_cuda(P, pivot)
+            torch.cuda.synchronize()
+            same = {
+                "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
+                "perm_equal": bool(torch.equal(perm_k, perm_p)),
+                "info_equal": int(info_k) == int(info_p),
+                "bitwise": bool(torch.equal(cbits(P), cbits(f_p))),
+            }
+            if name == "nan":
+                same["nan_rows_pivot_last"] = bool((piv_k[7:] == m - 1).all())
+            err = float(torch.view_as_real(P - f_p).abs().nan_to_num(0.0, 0.0, 0.0).max())
+            max_err_c = max(max_err_c, err)
+            emit("kernel", kernel="panel_lu_c64", shape=[m, w], dtype=str(dt)[6:],
+                 input=name, pivot=pivot, info=int(info_k), max_abs_err=err, **same)
+            if not all(same.values()):
+                fail(f"complex kernel disagrees with its plain version: {same}")
             if name == "zero_col" and int(info_k) != (6 if pivot else -6):
                 fail(f"zeroed column 5 gave info {int(info_k)}")
-        if not torch.equal(bits(outs["panel_lu_micro_shadow"]),
-                           bits(outs["panel_lu_micro_basic"])):
-            fail("the staged and the in-place micro kernel differ")
-        del outs
+        for bad in (torch.zeros(8, 4, device=dev), torch.zeros(8, 4, dtype=c64),
+                    torch.zeros(8, 4, device=dev, dtype=c64).T):
+            try:
+                panel_factor_c64_cuda(bad, True)
+            except ValueError:
+                continue
+            fail(f"panel_factor_c64_cuda took {tuple(bad.shape)} {bad.dtype} {bad.device}")
 
-    ncases = []  # shape, dtype, input, pivot, share of rows taken before
-    for (m, w) in shapes:
-        ncases += [((m, w), f32, "randn", True, 0.0), ((m, w), f32, "randn", True, 0.5)]
-    ncases += [(shapes[0], f32, "zero_col", True, 0.5), (shapes[0], f32, "randn", False, 0.5),
-               (shapes[0], f64, "randn", True, 0.5), (shapes[-1], f32, "ties", True, 0.0),
-               ((512, 512), f32, "randn", True, 0.0), ((512, 512), f64, "zero_col", False, 0.0)]
-    for dt in (f32, f64):
-        ncases += [((777, 130), dt, "randn", True, 0.3), ((777, 130), dt, "ties", True, 0.3),
-                   ((777, 130), dt, "zero_col", False, 0.0)]
-    for (m, w), dt, name, pivot, share in ncases:
-        A = real_input(name, m, w, dt, True).to(dev)  # unpivoted: rows in order
-        used0 = torch.zeros(m, dtype=torch.int32)
-        taken = int(share * m)
-        used0[torch.randperm(m, generator=gen)[:taken]] = 1
-        used0 = used0.to(dev)
-        f_p, prow_p, used_p, info_p = unblocked_lu_noswap(A, used0, pivot)
-        P = A.clone()
-        prow_k, used_k, info_k = panel_factor_noswap_cuda(P, used0, pivot)
-        torch.cuda.synchronize()
-        same = {
-            "prow_equal": bool(torch.equal(prow_k, prow_p)),
-            "used_equal": bool(torch.equal(used_k, used_p)),
-            "info_equal": int(info_k) == int(info_p),
-            "bitwise": bool(torch.equal(bits(P), bits(f_p))),
-            "taken_rows_untouched": bool(torch.equal(P[used0.bool()], A[used0.bool()])),
-            "used_count": int(used_k.sum()) == taken + min(m, w),
-        }
-        err = float((P - f_p).abs().nan_to_num(0.0).max())
-        new_err["panel_lu_noswap"] = max(new_err["panel_lu_noswap"], err)
-        emit("kernel", kernel="panel_lu_noswap", shape=[m, w], dtype=str(dt)[6:],
-             input=name, pivot=pivot, rows_taken_before=taken, info=int(info_k),
-             max_abs_err=err, **same)
-        if not all(same.values()):
-            fail(f"panel_lu_noswap disagrees with its plain version: {same}")
-        if name == "zero_col" and int(info_k) != (6 if pivot else -6):
-            fail(f"zeroed column 5 gave info {int(info_k)}")
-    # the views the main path hands over: a column block of an n x n matrix
-    # (row stride n, not w), and for the no-swap kernel the mask that its
-    # own first panel returned
-    n_v, w_v = 1536, w_main
-    for dt in (f32, f64):
-        M = torch.randn(n_v, n_v, generator=gen, dtype=dt).to(dev)
-        for kern, wrapper in micro_wrappers.items():
-            W = M.clone()
-            view = W[w_v:, w_v:2 * w_v]
-            f_p, piv_p, perm_p, info_p = micro_blocked_lu(M[w_v:, w_v:2 * w_v], True, 32)
-            piv_k, perm_k, info_k = wrapper(view, True, 32)
+        # ---- 2d. the micro-blocked and the no-swap kernels vs plain -----------
+        micro_wrappers = {"panel_lu_micro_shadow": panel_factor_shadow_cuda,
+                          "panel_lu_micro_basic": panel_factor_basic_cuda}
+
+        def real_input(name, m, w, dt, pivot):
+            if name == "ties":
+                return torch.randint(-2, 3, (m, w), generator=gen).to(dt)
+            X = torch.randn(m, w, generator=gen, dtype=dt)
+            if not pivot:
+                X += max(m, w) * torch.eye(m, w, dtype=dt)
+            if name == "zero_col":
+                X[:, min(5, w - 1)] = 0
+            return X
+
+        new_err = {k: 0.0 for k in NEW_PANEL_KERNELS}
+        mcases = []  # shape, dtype, input, pivot, micro
+        for (m, w) in shapes:
+            mcases += [((m, w), f32, "randn", True, 32), ((m, w), f64, "randn", True, 16)]
+        mcases += [(shapes[0], f32, "zero_col", True, 32), (shapes[0], f32, "ties", True, 16),
+                   (shapes[0], f32, "randn", False, 32),
+                   ((512, 512), f32, "randn", True, 32), ((512, 512), f64, "zero_col", False, 16)]
+        for dt in (f32, f64):
+            mcases += [((777, 130), dt, "randn", True, 32), ((777, 130), dt, "zero_col", True, 16),
+                       ((777, 130), dt, "ties", True, 32), ((130, 300), dt, "randn", True, 32),
+                       ((130, 300), dt, "zero_col", False, 16)]
+        for (m, w), dt, name, pivot, micro in mcases:
+            A = real_input(name, m, w, dt, pivot).to(dev)
+            f_p, piv_p, perm_p, info_p = micro_blocked_lu(A, pivot, micro)
+            outs = {}
+            for kern, wrapper in micro_wrappers.items():
+                P = A.clone()
+                piv_k, perm_k, info_k = wrapper(P, pivot, micro)
+                torch.cuda.synchronize()
+                outs[kern] = P
+                same = {
+                    "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
+                    "perm_equal": bool(torch.equal(perm_k, perm_p)),
+                    "info_equal": int(info_k) == int(info_p),
+                    "bitwise": bool(torch.equal(bits(P), bits(f_p))),
+                }
+                err = float((P - f_p).abs().nan_to_num(0.0).max())
+                new_err[kern] = max(new_err[kern], err)
+                emit("kernel", kernel=kern, shape=[m, w], dtype=str(dt)[6:], input=name,
+                     pivot=pivot, micro=micro, info=int(info_k), max_abs_err=err, **same)
+                if not all(same.values()):
+                    fail(f"{kern} disagrees with its plain version: {same}")
+                if name == "zero_col" and int(info_k) != (6 if pivot else -6):
+                    fail(f"zeroed column 5 gave info {int(info_k)}")
+            if not torch.equal(bits(outs["panel_lu_micro_shadow"]),
+                               bits(outs["panel_lu_micro_basic"])):
+                fail("the staged and the in-place micro kernel differ")
+            del outs
+
+        ncases = []  # shape, dtype, input, pivot, share of rows taken before
+        for (m, w) in shapes:
+            ncases += [((m, w), f32, "randn", True, 0.0), ((m, w), f32, "randn", True, 0.5)]
+        ncases += [(shapes[0], f32, "zero_col", True, 0.5), (shapes[0], f32, "randn", False, 0.5),
+                   (shapes[0], f64, "randn", True, 0.5), (shapes[-1], f32, "ties", True, 0.0),
+                   ((512, 512), f32, "randn", True, 0.0), ((512, 512), f64, "zero_col", False, 0.0)]
+        for dt in (f32, f64):
+            ncases += [((777, 130), dt, "randn", True, 0.3), ((777, 130), dt, "ties", True, 0.3),
+                       ((777, 130), dt, "zero_col", False, 0.0)]
+        for (m, w), dt, name, pivot, share in ncases:
+            A = real_input(name, m, w, dt, True).to(dev)  # unpivoted: rows in order
+            used0 = torch.zeros(m, dtype=torch.int32)
+            taken = int(share * m)
+            used0[torch.randperm(m, generator=gen)[:taken]] = 1
+            used0 = used0.to(dev)
+            f_p, prow_p, used_p, info_p = unblocked_lu_noswap(A, used0, pivot)
+            P = A.clone()
+            prow_k, used_k, info_k = panel_factor_noswap_cuda(P, used0, pivot)
             torch.cuda.synchronize()
-            rest = torch.ones(n_v, n_v, dtype=torch.bool, device=dev)
-            rest[w_v:, w_v:2 * w_v] = False
+            same = {
+                "prow_equal": bool(torch.equal(prow_k, prow_p)),
+                "used_equal": bool(torch.equal(used_k, used_p)),
+                "info_equal": int(info_k) == int(info_p),
+                "bitwise": bool(torch.equal(bits(P), bits(f_p))),
+                "taken_rows_untouched": bool(torch.equal(P[used0.bool()], A[used0.bool()])),
+                "used_count": int(used_k.sum()) == taken + min(m, w),
+            }
+            err = float((P - f_p).abs().nan_to_num(0.0).max())
+            new_err["panel_lu_noswap"] = max(new_err["panel_lu_noswap"], err)
+            emit("kernel", kernel="panel_lu_noswap", shape=[m, w], dtype=str(dt)[6:],
+                 input=name, pivot=pivot, rows_taken_before=taken, info=int(info_k),
+                 max_abs_err=err, **same)
+            if not all(same.values()):
+                fail(f"panel_lu_noswap disagrees with its plain version: {same}")
+            if name == "zero_col" and int(info_k) != (6 if pivot else -6):
+                fail(f"zeroed column 5 gave info {int(info_k)}")
+        # the views the main path hands over: a column block of an n x n matrix
+        # (row stride n, not w), and for the no-swap kernel the mask that its
+        # own first panel returned
+        n_v, w_v = 1536, w_main
+        for dt in (f32, f64):
+            M = torch.randn(n_v, n_v, generator=gen, dtype=dt).to(dev)
+            for kern, wrapper in micro_wrappers.items():
+                W = M.clone()
+                view = W[w_v:, w_v:2 * w_v]
+                f_p, piv_p, perm_p, info_p = micro_blocked_lu(M[w_v:, w_v:2 * w_v], True, 32)
+                piv_k, perm_k, info_k = wrapper(view, True, 32)
+                torch.cuda.synchronize()
+                rest = torch.ones(n_v, n_v, dtype=torch.bool, device=dev)
+                rest[w_v:, w_v:2 * w_v] = False
+                same = {
+                    "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
+                    "perm_equal": bool(torch.equal(perm_k, perm_p)),
+                    "info_equal": int(info_k) == int(info_p),
+                    "bitwise": bool(torch.equal(bits(view), bits(f_p))),
+                    "rest_untouched": bool(torch.equal(W[rest], M[rest])),
+                }
+                err = float((view - f_p).abs().nan_to_num(0.0).max())
+                new_err[kern] = max(new_err[kern], err)
+                emit("kernel", kernel=kern, shape=[n_v - w_v, w_v], lda=n_v, dtype=str(dt)[6:],
+                     input="column block", pivot=True, micro=32, info=int(info_k),
+                     max_abs_err=err, **same)
+                if not all(same.values()):
+                    fail(f"{kern} on a column block disagrees with its plain version: {same}")
+            W = M.clone()
+            used_k = used_p = torch.zeros(n_v, dtype=torch.int32, device=dev)
+            for s in (0, w_v):
+                block = slice(s, s + w_v)
+                f_p, prow_p, used_p_next, info_p = unblocked_lu_noswap(M[:, block], used_p, True)
+                prow_k, used_k_next, info_k = panel_factor_noswap_cuda(W[:, block], used_k, True)
+                torch.cuda.synchronize()
+                taken = used_p.bool()
+                same = {
+                    "prow_equal": bool(torch.equal(prow_k, prow_p)),
+                    "used_equal": bool(torch.equal(used_k_next, used_p_next)),
+                    "info_equal": int(info_k) == int(info_p),
+                    "bitwise": bool(torch.equal(bits(W[:, block]), bits(f_p))),
+                    "taken_rows_untouched": bool(torch.equal(W[taken][:, block], M[taken][:, block])),
+                    "rest_untouched": bool(torch.equal(W[:, s + w_v:], M[:, s + w_v:])),
+                    "used_count": int(used_k_next.sum()) == s + w_v,
+                }
+                err = float((W[:, block] - f_p).abs().nan_to_num(0.0).max())
+                new_err["panel_lu_noswap"] = max(new_err["panel_lu_noswap"], err)
+                emit("kernel", kernel="panel_lu_noswap", shape=[n_v, w_v], lda=n_v,
+                     dtype=str(dt)[6:], input="column block, mask of the panel before",
+                     pivot=True, rows_taken_before=s, info=int(info_k), max_abs_err=err, **same)
+                if not all(same.values()):
+                    fail(f"panel_lu_noswap on a column block disagrees with its plain version: {same}")
+                used_k, used_p = used_k_next, used_p_next
+            del M, W
+        for bad in (lambda: panel_factor_shadow_cuda(torch.zeros(8, 4), True, 4),
+                    lambda: panel_factor_basic_cuda(torch.zeros(200, 100, device=dev), True, 65),
+                    lambda: panel_factor_noswap_cuda(torch.zeros(8, 4, device=dev),
+                                                     torch.zeros(7, dtype=torch.int32, device=dev), True),
+                    lambda: panel_factor_noswap_cuda(torch.zeros(8, 4),
+                                                     torch.zeros(8, dtype=torch.int32), True)):
+            try:
+                bad()
+            except ValueError:
+                continue
+            fail("a new panel wrapper took an argument it must refuse")
+
+        # ---- 2e. the offset kernel vs plain ----------------------------------
+        # the tensor-parallel panel: (4096, 128) at the offsets of the first,
+        # a middle and the last panel of a stage, and a column block of a wider
+        # matrix (row stride > w)
+        def offset_input(name, H, w, ofs, dt, pivot):
+            X = torch.randn(H, w, generator=gen, dtype=dt)
+            if not pivot:
+                X[ofs + torch.arange(w), torch.arange(w)] += H
+            if name == "zero_col":
+                X[ofs:, 5] = 0
+            if name == "nan":
+                X[ofs + 40, 3] = float("nan")
+                X[ofs + 90, 3] = float("nan")
+            return X
+
+        offset_err = 0.0
+        H_o, w_o = 4096, 128
+        ocases = [(dt, pivot, ofs, name) for dt in (f32, f64) for pivot in (True, False)
+                  for ofs in (0, 1000, H_o - w_o) for name in ("randn", "zero_col", "nan")]
+        for dt, pivot, ofs, name in ocases:
+            A = offset_input(name, H_o, w_o, ofs, dt, pivot).to(dev)
+            f_p, piv_p, perm_p, info_p = offset_panel_lu(A, ofs, pivot)
+            P = A.clone()
+            piv_k, perm_k, info_k = offset_panel_factor_cuda(P, ofs, pivot)
+            torch.cuda.synchronize()
+            same = {
+                "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
+                "perm_equal": bool(torch.equal(perm_k, perm_p)),
+                "info_equal": int(info_k) == int(info_p),
+                "bitwise": bool(torch.equal(bits(P), bits(f_p))),
+                "rows_above_untouched": bool(torch.equal(bits(P[:ofs]), bits(A[:ofs]))),
+            }
+            if name == "zero_col":
+                same["info_as_expected"] = int(info_k) == (6 if pivot else -6)
+            if name == "nan" and pivot:
+                same["first_nan_row"] = int(piv_k[3]) == ofs + 40
+            err = float((P - f_p).abs().nan_to_num(0.0).max())
+            offset_err = max(offset_err, err)
+            emit("kernel", kernel="panel_lu_offset", shape=[H_o, w_o], ofs=ofs, dtype=str(dt)[6:],
+                 input=name, pivot=pivot, info=int(info_k), max_abs_err=err, **same)
+            if not all(same.values()):
+                fail(f"panel_lu_offset disagrees with its plain version: {same}")
+        for dt in (f32, f64):
+            M = torch.randn(H_o, 8 * w_o, generator=gen, dtype=dt).to(dev)
+            W_ = M.clone()
+            view = W_[:, 2 * w_o:3 * w_o]
+            f_p, piv_p, perm_p, info_p = offset_panel_lu(M[:, 2 * w_o:3 * w_o], 1000, True)
+            piv_k, perm_k, info_k = offset_panel_factor_cuda(view, 1000, True)
+            torch.cuda.synchronize()
+            rest = torch.ones_like(M, dtype=torch.bool)
+            rest[1000:, 2 * w_o:3 * w_o] = False
             same = {
                 "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
                 "perm_equal": bool(torch.equal(perm_k, perm_p)),
                 "info_equal": int(info_k) == int(info_p),
                 "bitwise": bool(torch.equal(bits(view), bits(f_p))),
-                "rest_untouched": bool(torch.equal(W[rest], M[rest])),
+                "rest_untouched": bool(torch.equal(W_[rest], M[rest])),
             }
             err = float((view - f_p).abs().nan_to_num(0.0).max())
-            new_err[kern] = max(new_err[kern], err)
-            emit("kernel", kernel=kern, shape=[n_v - w_v, w_v], lda=n_v, dtype=str(dt)[6:],
-                 input="column block", pivot=True, micro=32, info=int(info_k),
+            offset_err = max(offset_err, err)
+            emit("kernel", kernel="panel_lu_offset", shape=[H_o, w_o], lda=8 * w_o, ofs=1000,
+                 dtype=str(dt)[6:], input="column block", pivot=True, info=int(info_k),
                  max_abs_err=err, **same)
             if not all(same.values()):
-                fail(f"{kern} on a column block disagrees with its plain version: {same}")
-        W = M.clone()
-        used_k = used_p = torch.zeros(n_v, dtype=torch.int32, device=dev)
-        for s in (0, w_v):
-            block = slice(s, s + w_v)
-            f_p, prow_p, used_p_next, info_p = unblocked_lu_noswap(M[:, block], used_p, True)
-            prow_k, used_k_next, info_k = panel_factor_noswap_cuda(W[:, block], used_k, True)
+                fail(f"panel_lu_offset on a column block disagrees with its plain version: {same}")
+            del M, W_
+        # the offset kernel's plans: block widths and cluster sizes at ofs 1000,
+        # the plan the launcher picks for 128 live rows, and panels too tall
+        # for a cluster (the grid route)
+        def check_offset(A, ofs, pivot, what, block=0, cluster=0, grid_route=False):
+            nonlocal offset_err
+            f_p, piv_p, perm_p, info_p = offset_panel_lu(A, ofs, pivot)
+            P = A.clone()
+            plan = panel_plan(*P.shape, P.dtype, ofs=ofs, block=block, cluster=cluster)
+            g0 = offset_panel_factor_cuda.grid_route_launches
+            piv_k, perm_k, info_k = offset_panel_factor_cuda(P, ofs, pivot, block=block,
+                                                             cluster=cluster)
             torch.cuda.synchronize()
-            taken = used_p.bool()
             same = {
-                "prow_equal": bool(torch.equal(prow_k, prow_p)),
-                "used_equal": bool(torch.equal(used_k_next, used_p_next)),
+                "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
+                "perm_equal": bool(torch.equal(perm_k, perm_p)),
                 "info_equal": int(info_k) == int(info_p),
-                "bitwise": bool(torch.equal(bits(W[:, block]), bits(f_p))),
-                "taken_rows_untouched": bool(torch.equal(W[taken][:, block], M[taken][:, block])),
-                "rest_untouched": bool(torch.equal(W[:, s + w_v:], M[:, s + w_v:])),
-                "used_count": int(used_k_next.sum()) == s + w_v,
+                "bitwise": bool(torch.equal(bits(P), bits(f_p))),
+                "rows_above_untouched": bool(torch.equal(bits(P[:ofs]), bits(A[:ofs]))),
+                "route_as_expected": (offset_panel_factor_cuda.grid_route_launches - g0
+                                      == int(grid_route)) and plan["route"] == (
+                                          "grid" if grid_route else "cluster"),
             }
-            err = float((W[:, block] - f_p).abs().nan_to_num(0.0).max())
-            new_err["panel_lu_noswap"] = max(new_err["panel_lu_noswap"], err)
-            emit("kernel", kernel="panel_lu_noswap", shape=[n_v, w_v], lda=n_v,
-                 dtype=str(dt)[6:], input="column block, mask of the panel before",
-                 pivot=True, rows_taken_before=s, info=int(info_k), max_abs_err=err, **same)
+            err = float((P - f_p).abs().nan_to_num(0.0).max())
+            offset_err = max(offset_err, err)
+            emit("kernel", kernel="panel_lu_offset", shape=list(P.shape), ofs=ofs,
+                 dtype=str(P.dtype)[6:], input=what, pivot=pivot, plan=plan, info=int(info_k),
+                 max_abs_err=err, **same)
             if not all(same.values()):
-                fail(f"panel_lu_noswap on a column block disagrees with its plain version: {same}")
-            used_k, used_p = used_k_next, used_p_next
-        del M, W
-    for bad in (lambda: panel_factor_shadow_cuda(torch.zeros(8, 4), True, 4),
-                lambda: panel_factor_basic_cuda(torch.zeros(200, 100, device=dev), True, 65),
-                lambda: panel_factor_noswap_cuda(torch.zeros(8, 4, device=dev),
-                                                 torch.zeros(7, dtype=torch.int32, device=dev), True),
-                lambda: panel_factor_noswap_cuda(torch.zeros(8, 4),
-                                                 torch.zeros(8, dtype=torch.int32), True)):
-        try:
-            bad()
-        except ValueError:
-            continue
-        fail("a new panel wrapper took an argument it must refuse")
+                fail(f"panel_lu_offset disagrees with its plain version: {same}")
+            return plan
 
-    # ---- 2e. the offset kernel vs plain ----------------------------------
-    # the tensor-parallel panel: (4096, 128) at the offsets of the first,
-    # a middle and the last panel of a stage, and a column block of a wider
-    # matrix (row stride > w)
-    def offset_input(name, H, w, ofs, dt, pivot):
-        X = torch.randn(H, w, generator=gen, dtype=dt)
-        if not pivot:
-            X[ofs + torch.arange(w), torch.arange(w)] += H
-        if name == "zero_col":
-            X[ofs:, 5] = 0
-        if name == "nan":
-            X[ofs + 40, 3] = float("nan")
-            X[ofs + 90, 3] = float("nan")
-        return X
-
-    offset_err = 0.0
-    H_o, w_o = 4096, 128
-    ocases = [(dt, pivot, ofs, name) for dt in (f32, f64) for pivot in (True, False)
-              for ofs in (0, 1000, H_o - w_o) for name in ("randn", "zero_col", "nan")]
-    for dt, pivot, ofs, name in ocases:
-        A = offset_input(name, H_o, w_o, ofs, dt, pivot).to(dev)
-        f_p, piv_p, perm_p, info_p = offset_panel_lu(A, ofs, pivot)
-        P = A.clone()
-        piv_k, perm_k, info_k = offset_panel_factor_cuda(P, ofs, pivot)
-        torch.cuda.synchronize()
-        same = {
-            "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
-            "perm_equal": bool(torch.equal(perm_k, perm_p)),
-            "info_equal": int(info_k) == int(info_p),
-            "bitwise": bool(torch.equal(bits(P), bits(f_p))),
-            "rows_above_untouched": bool(torch.equal(bits(P[:ofs]), bits(A[:ofs]))),
-        }
-        if name == "zero_col":
-            same["info_as_expected"] = int(info_k) == (6 if pivot else -6)
-        if name == "nan" and pivot:
-            same["first_nan_row"] = int(piv_k[3]) == ofs + 40
-        err = float((P - f_p).abs().nan_to_num(0.0).max())
-        offset_err = max(offset_err, err)
-        emit("kernel", kernel="panel_lu_offset", shape=[H_o, w_o], ofs=ofs, dtype=str(dt)[6:],
-             input=name, pivot=pivot, info=int(info_k), max_abs_err=err, **same)
-        if not all(same.values()):
-            fail(f"panel_lu_offset disagrees with its plain version: {same}")
-    for dt in (f32, f64):
-        M = torch.randn(H_o, 8 * w_o, generator=gen, dtype=dt).to(dev)
-        W_ = M.clone()
-        view = W_[:, 2 * w_o:3 * w_o]
-        f_p, piv_p, perm_p, info_p = offset_panel_lu(M[:, 2 * w_o:3 * w_o], 1000, True)
-        piv_k, perm_k, info_k = offset_panel_factor_cuda(view, 1000, True)
-        torch.cuda.synchronize()
-        rest = torch.ones_like(M, dtype=torch.bool)
-        rest[1000:, 2 * w_o:3 * w_o] = False
-        same = {
-            "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
-            "perm_equal": bool(torch.equal(perm_k, perm_p)),
-            "info_equal": int(info_k) == int(info_p),
-            "bitwise": bool(torch.equal(bits(view), bits(f_p))),
-            "rest_untouched": bool(torch.equal(W_[rest], M[rest])),
-        }
-        err = float((view - f_p).abs().nan_to_num(0.0).max())
-        offset_err = max(offset_err, err)
-        emit("kernel", kernel="panel_lu_offset", shape=[H_o, w_o], lda=8 * w_o, ofs=1000,
-             dtype=str(dt)[6:], input="column block", pivot=True, info=int(info_k),
-             max_abs_err=err, **same)
-        if not all(same.values()):
-            fail(f"panel_lu_offset on a column block disagrees with its plain version: {same}")
-        del M, W_
-    # the offset kernel's plans: block widths and cluster sizes at ofs 1000,
-    # the plan the launcher picks for 128 live rows, and panels too tall
-    # for a cluster (the grid route)
-    def check_offset(A, ofs, pivot, what, block=0, cluster=0, grid_route=False):
-        nonlocal offset_err
-        f_p, piv_p, perm_p, info_p = offset_panel_lu(A, ofs, pivot)
-        P = A.clone()
-        plan = panel_plan(*P.shape, P.dtype, ofs=ofs, block=block, cluster=cluster)
-        g0 = offset_panel_factor_cuda.grid_route_launches
-        piv_k, perm_k, info_k = offset_panel_factor_cuda(P, ofs, pivot, block=block,
-                                                         cluster=cluster)
-        torch.cuda.synchronize()
-        same = {
-            "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
-            "perm_equal": bool(torch.equal(perm_k, perm_p)),
-            "info_equal": int(info_k) == int(info_p),
-            "bitwise": bool(torch.equal(bits(P), bits(f_p))),
-            "rows_above_untouched": bool(torch.equal(bits(P[:ofs]), bits(A[:ofs]))),
-            "route_as_expected": (offset_panel_factor_cuda.grid_route_launches - g0
-                                  == int(grid_route)) and plan["route"] == (
-                                      "grid" if grid_route else "cluster"),
-        }
-        err = float((P - f_p).abs().nan_to_num(0.0).max())
-        offset_err = max(offset_err, err)
-        emit("kernel", kernel="panel_lu_offset", shape=list(P.shape), ofs=ofs,
-             dtype=str(P.dtype)[6:], input=what, pivot=pivot, plan=plan, info=int(info_k),
-             max_abs_err=err, **same)
-        if not all(same.values()):
-            fail(f"panel_lu_offset disagrees with its plain version: {same}")
-        return plan
-
-    for dt in (f32, f64):
-        X = offset_input("zero_col", H_o, w_o, 1000, dt, True).to(dev)
-        for b in (8, 16, 32, 64, w_o):
-            for C in (2, 4, 8, 16):
-                try:
-                    panel_plan(H_o, w_o, dt, ofs=1000, block=b, cluster=C)
-                except RuntimeError:
-                    continue
-                check_offset(X, 1000, True, f"zero_col, b={b}, C={C}", block=b, cluster=C)
-        plan = check_offset(offset_input("randn", H_o, w_o, H_o - w_o, dt, False).to(dev),
-                            H_o - w_o, False, "randn + H*I, 128 live rows")
-        if plan["cluster"] != 1:
-            fail(f"128 live rows should run on one CTA, plan {plan}")
-    check_offset(torch.randn(100000, 8, generator=gen).to(dev), 5000, True, "randn, tall",
-                 grid_route=True)
-    check_offset(torch.randn(60000, 16, generator=gen, dtype=f64).to(dev), 100, True,
-                 "randn, tall", grid_route=True)
-    for bad in (lambda: offset_panel_factor_cuda(torch.zeros(64, 8, device=dev), 57, True),
-                lambda: offset_panel_factor_cuda(torch.zeros(64, 8), 0, True),
-                lambda: offset_panel_factor(torch.zeros(64, 8, device=dev), 0, True,
-                                            rt.LUConfig(tp_panel_backend="jax"))):
-        try:
-            bad()
-        except ValueError:
-            continue
-        fail("the offset kernel's wrapper took an argument it must refuse")
+        for dt in (f32, f64):
+            X = offset_input("zero_col", H_o, w_o, 1000, dt, True).to(dev)
+            for b in (8, 16, 32, 64, w_o):
+                for C in (2, 4, 8, 16):
+                    try:
+                        panel_plan(H_o, w_o, dt, ofs=1000, block=b, cluster=C)
+                    except RuntimeError:
+                        continue
+                    check_offset(X, 1000, True, f"zero_col, b={b}, C={C}", block=b, cluster=C)
+            plan = check_offset(offset_input("randn", H_o, w_o, H_o - w_o, dt, False).to(dev),
+                                H_o - w_o, False, "randn + H*I, 128 live rows")
+            if plan["cluster"] != 1:
+                fail(f"128 live rows should run on one CTA, plan {plan}")
+        check_offset(torch.randn(100000, 8, generator=gen).to(dev), 5000, True, "randn, tall",
+                     grid_route=True)
+        check_offset(torch.randn(60000, 16, generator=gen, dtype=f64).to(dev), 100, True,
+                     "randn, tall", grid_route=True)
+        for bad in (lambda: offset_panel_factor_cuda(torch.zeros(64, 8, device=dev), 57, True),
+                    lambda: offset_panel_factor_cuda(torch.zeros(64, 8), 0, True),
+                    lambda: offset_panel_factor(torch.zeros(64, 8, device=dev), 0, True,
+                                                rt.LUConfig(tp_panel_backend="jax"))):
+            try:
+                bad()
+            except ValueError:
+                continue
+            fail("the offset kernel's wrapper took an argument it must refuse")
 
     # ---- 2b. batched kernels vs plain -----------------------------------
     def same_bits(x, y):
-        return bool(torch.equal(bits(x.contiguous()), bits(y.contiguous())))
+        """Bitwise equal, NaN for NaN: a NaN's sign and payload are not
+        compared (in f64 the card propagates an operand's NaN, and the
+        plain version's torch ops and the kernels' rsub may pass on
+        another one)."""
+        x, y = x.contiguous(), y.contiguous()
+        nx, ny = torch.isnan(x), torch.isnan(y)
+        return bool(torch.equal(nx, ny)
+                    and torch.equal(bits(x.masked_fill(nx, 0)), bits(y.masked_fill(ny, 0))))
 
     def abs_err(x, y):
         return float((x - y).abs().nan_to_num(0.0, 0.0, 0.0).max()) if x.numel() else 0.0
@@ -972,6 +1043,15 @@ def main(argv):
         if not pivot:
             X += max(m, n) * torch.eye(m, n, dtype=dt)
         want = torch.zeros(B, dtype=torch.int32)
+        if name == "inf_nan":
+            # in every fifth matrix a row that wins the first pivot carries
+            # inf and NaN into the U row, so later candidates are NaN
+            for i in range(1, B, 5):
+                r = (i // 5) % m
+                X[i, r, 0] = 1e3
+                X[i, r, 1 % n] = float("inf")
+                X[i, r, 2 % n] = float("nan")
+            return X.to(dev), None
         if name == "zero_col":
             # a zeroed column in every seventh matrix, at a column that
             # changes with the matrix
@@ -982,27 +1062,44 @@ def main(argv):
         return X.to(dev), want.to(dev)
 
     batched_err = {k: 0.0 for k in BATCHED_KERNELS}
-    lu_shapes = [(1000, 16, 16), (1000, 64, 64), (37, 128, 128), (37, 96, 40), (37, 40, 96)]
+    lu_shapes = [(1000, 16, 16), (1000, 64, 64), (37, 128, 128), (37, 96, 40), (37, 40, 96),
+                 # the routes' boundaries (warp: m, n <= 32; block: up to 128),
+                 # batches that are not a multiple of the warp route's matrices
+                 # per block (4 or 8), tall and wide batches (the tile route)
+                 (5, 1, 1), (5, 31, 31), (5, 32, 32), (5, 33, 33), (5, 32, 40), (5, 40, 32),
+                 (5, 20, 32), (1, 16, 16), (3, 32, 32), (1001, 16, 16), (1001, 32, 32),
+                 (9, 300, 24), (9, 40, 200)]
+    inputs = (("randn", True), ("zero_col", True), ("ties", True), ("inf_nan", True),
+              ("randn", False), ("zero_col", False))
     n_cases = 0
     for (B, m, n) in lu_shapes:
         for dt in (torch.float32, torch.float64):
-            for name, pivot in (("randn", True), ("zero_col", True), ("ties", True),
-                                ("randn", False), ("zero_col", False)):
+            for name, pivot in inputs:
                 A, want = batch_input(name, B, m, n, dt, pivot)
-                kernels = ["batched_lu_swap"] + (["batched_lu_noswap"] if m == n else [])
-                for kern in kernels:
-                    if kern == "batched_lu_swap":
-                        f_p, ipiv_p, perm_p, info_p = bk.batched_lu_plain(A, pivot, True)
-                        f_k, ipiv_k, perm_k, info_k = bk.batched_lu_cuda(A, pivot, True)
+                own = bk.lu_route(m, n)
+                # every shape on its own route and on the tile route (the
+                # PR 2 design), square ones on the noswap kernel too
+                runs = [own] + (["tile"] if own != "tile" else []) + (["noswap"] if m == n else [])
+                plain = bk.batched_lu_plain(A, pivot, True)
+                for route in runs:
+                    if route != "noswap":
+                        kern = ROUTE_KERNEL[route]
+                        f_p, ipiv_p, perm_p, info_p = plain
+                        before = dict(bk.batched_lu_cuda.route_launches)
+                        f_k, ipiv_k, perm_k, info_k = bk.batched_lu_cuda(A, pivot, True, route=route)
                         torch.cuda.synchronize()
+                        after = bk.batched_lu_cuda.route_launches
                         same = {
                             "ipiv_equal": bool(torch.equal(ipiv_k, ipiv_p)),
                             "perm_is_folded_ipiv": bool(torch.equal(
                                 perm_k, rt.batched_ipiv_to_perm(ipiv_k, m))),
+                            "one_launch_on_route": after[route] - before[route] == 1
+                            and sum(after.values()) - sum(before.values()) == 1,
                         }
-                        _, _, none_perm, _ = bk.batched_lu_cuda(A, pivot, False)
+                        _, _, none_perm, _ = bk.batched_lu_cuda(A, pivot, False, route=route)
                         same["no_perm_is_none"] = none_perm is None
                     else:
+                        kern = "batched_lu_noswap"
                         f_p, perm_p, info_p = bk.batched_lu_noswap_plain(A, pivot)
                         f_k, perm_k, info_k = bk.batched_lu_noswap_cuda(A, pivot)
                         torch.cuda.synchronize()
@@ -1066,6 +1163,220 @@ def main(argv):
     if not same_bits(bk.batched_lu_cuda(S)[0], bk.batched_lu_plain(S)[0]):
         fail("strided batch: kernel and plain version differ")
     emit("batched_kernel", summary=True, cases=n_cases, max_abs_err=batched_err)
+
+
+    # ---- 4b (defined here: --batched runs it right after 2b) -------------
+    NS_TIMED = (8, 16, 24, 32, 48, 64, 96, 128)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def lu_occupancy(n, route, dt=torch.float32):
+        """The swap kernel's plan at (n, n) with what caps its blocks per
+        SM (threads, the 32-block limit, shared memory, registers) and its
+        waves over a batch of BATCH_B."""
+        plan = bk.lu_plan(n, n, dt, route)
+        warps = -(-plan["threads"] // 32)
+        regs_warp = -(-plan["registers"] * 32 // 256) * 256
+        caps = {"threads": 2048 // plan["threads"], "blocks": 32,
+                "shared_memory": 233472 // (plan["smem"] + plan["static_smem"] + 1024),
+                "registers": 65536 // (regs_warp * warps)}
+        grid = -(-BATCH_B // plan["per_block"])
+        plan.update(caps=caps, capped_by=[k for k, v in caps.items()
+                                          if v == plan["blocks_per_sm"]],
+                    grid=grid, sms=sms, waves=grid / (plan["blocks_per_sm"] * sms))
+        return plan
+
+    # clock64() stamps of one step of thread 0 of block 0, by route (the
+    # phases are listed above each kernel in csrc/batched_lu.cu): (a, b)
+    # pairs of stamps summed into each part
+    trace_parts = {
+        "tile": {"search": [(0, 1)], "swap_scale": [(2, 3)], "update": [(4, 5)],
+                 "barrier": [(1, 2), (3, 4), (5, 6)], "step": [(0, 6)]},
+        "warp": {"search": [(0, 1)], "exchange": [(1, 2)], "update": [(2, 3)],
+                 "step": [(0, 3)]},
+        "block": {"search": [(1, 2)], "publish": [(2, 3)], "update": [(4, 5)],
+                  "barrier": [(0, 1), (3, 4)], "step": [(0, 5)]},
+    }
+    trace_lib = []
+
+    def lu_trace(A, route):
+        """Where a step of the swap kernel's ``route`` goes, from the trace
+        build of csrc/batched_lu.cu (a separate library) on the batch A."""
+        if not trace_lib:
+            trace_lib.append(_kernels.load("batched_lu_trace"))
+        lib = trace_lib[0]
+        B, m, n = A.shape
+        k = min(m, n)
+        buf = torch.zeros(8 * k + 4, dtype=torch.int64, device=dev)
+        out = torch.empty_like(A)
+        ipiv = torch.empty((B, k), dtype=torch.int32, device=dev)
+        perm = torch.empty((B, m), dtype=torch.int32, device=dev)
+        info = torch.empty(B, dtype=torch.int32, device=dev)
+        fn = lib.rf_batched_lu_swap_f64 if A.element_size() == 8 else lib.rf_batched_lu_swap_f32
+        stream = torch.cuda.current_stream().cuda_stream
+        args = (A.data_ptr(), out.data_ptr(), ipiv.data_ptr(), perm.data_ptr(), info.data_ptr(),
+                B, m, n, 1, bk.LU_ROUTES.index(route) + 1,
+                bk.lu_smem_bytes(m, n, A.element_size(), route), torch.cuda.current_device(),
+                stream)
+        _kernels.check(lib, fn(*args), "trace build launch")  # warm
+        torch.cuda.synchronize()
+        _kernels.check(lib, lib.rf_batched_lu_set_trace(buf.data_ptr()), "set trace")
+        try:
+            _kernels.check(lib, fn(*args), "trace build launch")
+            torch.cuda.synchronize()
+        finally:
+            lib.rf_batched_lu_set_trace(None)
+        t = buf.cpu().double()
+        st, tail = t[:8 * k].view(k, 8), t[8 * k:]
+        ghz = float((tail[3] - tail[1]) / (tail[2] - tail[0]))
+        ns = {}
+        for part, pairs in trace_parts[route].items():
+            v = sum((st[:, b] - st[:, a] for a, b in pairs), torch.zeros(k, dtype=torch.float64))
+            ns[part] = float(v.median()) / ghz
+        return dict(route=route, sm_ghz=ghz, step_ns_median=ns.pop("step"),
+                    phase_ns_median=ns, first_block_us=float(tail[2] - tail[0]) / 1e3)
+
+    def device_ms(fn, calls=5):
+        """Device time per call of ``fn`` (every kernel it launches), from
+        torch.profiler: at small n a call's host time exceeds its kernels'
+        and the events around queued calls measure the host."""
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return sum(r[0] for r in device_rows(prof)) / calls
+
+    def batched_timing():
+        """Phase 4b: the swap kernel on its own route and on the tile route
+        (the PR 2 design) per n, the noswap and solve kernels and the
+        factor+solve pairs, in turns beside the library; each route's plan
+        and occupancy, and (n = 16, 32, 64, 128) a step's phases from the
+        trace build."""
+        rows = {}
+        for n in NS_TIMED:
+            A = torch.randn(BATCH_B, n, n, generator=gen).to(dev)
+            b = torch.randn(BATCH_B, n, generator=gen).to(dev)
+            f, perm, _ = rt.batched_lu_factor_perm(A)
+            _, ipiv, _ = rt.batched_lu_factor(A)
+            rhs = b.gather(1, perm.long())
+            lib_lu, lib_piv, _ = torch.linalg.lu_factor_ex(A)
+            ident = torch.arange(1, n + 1, dtype=lib_piv.dtype, device=dev).repeat(BATCH_B, 1)
+            route = bk.lu_route(n, n)
+
+            def lib_fs():
+                LU_, piv, _ = torch.linalg.lu_factor_ex(A)
+                torch.linalg.lu_solve(LU_, piv, b[:, :, None])
+
+            fns = {
+                "swap": lambda: bk.batched_lu_cuda(A, True, True),
+                "swap_no_perm": lambda: bk.batched_lu_cuda(A, True, False),
+                "perm_factor_solve": lambda: rt.batched_lu_solve_perm(
+                    *rt.batched_lu_factor_perm(A)[:2], b),
+                "ipiv_factor_solve": lambda: rt.batched_lu_solve(
+                    *rt.batched_lu_factor(A)[:2], b),
+            }
+            if route != "tile":
+                fns["swap_tile"] = lambda: bk.batched_lu_cuda(A, True, True, route="tile")
+            fns.update({
+                "noswap": lambda: bk.batched_lu_noswap_cuda(A, True),
+                "solve": lambda: bk.batched_solve_cuda(f, rhs),
+                "solve_with_perm": lambda: bk.batched_solve_cuda(f, b, perm=perm),
+                "solve_with_ipiv": lambda: bk.batched_solve_cuda(f, b, ipiv=ipiv),
+                "ipiv_to_perm": lambda: rt.batched_ipiv_to_perm(ipiv, n),
+                "library_factor": lambda: torch.linalg.lu_factor_ex(A),
+                # the same function as the solve kernel: no row exchange
+                "library_solve": lambda: torch.linalg.lu_solve(f, ident, rhs[:, :, None]),
+                "library_solve_with_pivots": lambda: torch.linalg.lu_solve(
+                    lib_lu, lib_piv, b[:, :, None]),
+                "library_factor_solve": lib_fs,
+            })
+            t = round_robin(fns, inner=4)
+            dev_t = {k: device_ms(fns[k]) for k in ("swap", "swap_tile", "noswap", "solve",
+                                                     "library_factor", "library_solve")
+                     if k in fns}
+            plain = {
+                "swap": timed(lambda: bk.batched_lu_plain(A, True, True), reps=1, warm=0)[0],
+                "noswap": timed(lambda: bk.batched_lu_noswap_plain(A, True), reps=1, warm=0)[0],
+                "solve": timed(lambda: bk.batched_solve_plain(f, rhs), reps=1, warm=0)[0],
+            }
+            bounds = {
+                "swap": batched_lu_bound(BATCH_B, n, n, "float32", 4),
+                "noswap": batched_lu_bound(BATCH_B, n, n, "float32", 4),
+                "solve": batched_solve_bound(BATCH_B, n, 1, "float32", 4),
+            }
+            plans = {r: lu_occupancy(n, r) for r in dict.fromkeys((route, "tile"))}
+            traces = ({r: lu_trace(A, r) for r in plans} if n in (16, 32, 64, 128) else {})
+            swaps = [k for k in ("swap", "swap_tile") if k in t]
+            rows[n] = dict(t=t, dev=dev_t, plain=plain, bounds=bounds, route=route)
+            emit("timing", what="batched", card=card, batch=BATCH_B, n=n,
+                 dtype="float32", route=route, kernel_ms=t, device_ms=dev_t, plain_ms=plain,
+                 bound_ms={k: v[0] for k, v in bounds.items()},
+                 bound_by={k: v[1] for k, v in bounds.items()},
+                 launches_per_timing=4,
+                 us_per_step={k: 1e3 * t[k] / n for k in swaps},
+                 over_library={k: t[k] / t["library_factor"] for k in swaps},
+                 device_over_library={k: dev_t[k] / dev_t["library_factor"] for k in swaps},
+                 noswap_over_swap=t["noswap"] / t["swap"])
+            for r, plan in plans.items():
+                emit("timing", what="batched_plan", card=card, batch=BATCH_B, n=n,
+                     dtype="float32", kernel=ROUTE_KERNEL[r], **plan,
+                     trace=traces.get(r))
+            del A, b, f, rhs, lib_lu
+
+        # f64 at the main size: the same kernels on the card's f64 units
+        A = torch.randn(BATCH_B, 64, 64, generator=gen, dtype=torch.float64).to(dev)
+        b = torch.randn(BATCH_B, 64, generator=gen, dtype=torch.float64).to(dev)
+        f, perm, _ = rt.batched_lu_factor_perm(A)
+        fns = {
+            "swap": lambda: bk.batched_lu_cuda(A, True, True),
+            "swap_tile": lambda: bk.batched_lu_cuda(A, True, True, route="tile"),
+            "noswap": lambda: bk.batched_lu_noswap_cuda(A, True),
+            "solve_with_perm": lambda: bk.batched_solve_cuda(f, b, perm=perm),
+            "library_factor": lambda: torch.linalg.lu_factor_ex(A),
+        }
+        t = round_robin(fns, inner=4)
+        dev_t = {k: device_ms(f_) for k, f_ in fns.items() if k != "solve_with_perm"}
+        plans = {r: lu_occupancy(64, r, torch.float64) for r in ("block", "tile")}
+        emit("timing", what="batched", card=card, batch=BATCH_B, n=64,
+             dtype="float64", kernel_ms=t, device_ms=dev_t, launches_per_timing=4,
+             bound_ms={"swap": batched_lu_bound(BATCH_B, 64, 64, "float64", 8)[0],
+                       "solve_with_perm": batched_solve_bound(BATCH_B, 64, 1, "float64", 8)[0]},
+             plans=plans)
+        rows["f64"] = dict(t=t, dev=dev_t)
+        del A, b, f
+        # the tall batch of the main path (tile route) beside the library
+        A = torch.randn((TALL_B,) + TALL_SHAPE, generator=gen).to(dev)
+        fns = {"swap": lambda: bk.batched_lu_cuda(A, True, True),
+               "library_factor": lambda: torch.linalg.lu_factor_ex(A)}
+        t = round_robin(fns, inner=4)
+        dev_t = {k: device_ms(f_) for k, f_ in fns.items()}
+        plain = {"swap": timed(lambda: bk.batched_lu_plain(A, True, True), reps=1, warm=0)[0]}
+        bounds = {"swap": batched_lu_bound(TALL_B, *TALL_SHAPE, "float32", 4)}
+        rows["tall"] = dict(t=t, dev=dev_t, plain=plain, bounds=bounds)
+        emit("timing", what="batched", card=card, batch=TALL_B, shape=list(TALL_SHAPE),
+             dtype="float32", route=bk.lu_route(*TALL_SHAPE), kernel_ms=t, device_ms=dev_t,
+             plain_ms=plain,
+             bound_ms=bounds["swap"][0], bound_by=bounds["swap"][1], launches_per_timing=4)
+        del A
+        # the new kernels' ptxas lines: no stack frame, no spill
+        log = _kernels.BUILD_LOG.get("batched_lu", {}).get("log", "").splitlines()
+        lines = []
+        for i, ln in enumerate(log):
+            if "Compiling entry" in ln and ("batched_lu_warp" in ln or "batched_lu_block" in ln):
+                lines.append(" | ".join(x.strip() for x in log[i:i + 4]))
+        spills = [ln for ln in lines if "batched_lu_warp" in ln
+                  and not ("0 bytes stack frame" in ln and "0 bytes spill stores" in ln)]
+        emit("timing", what="batched_ptxas", card=card, lines=lines, warp_route_spills=spills)
+        if spills:
+            fail(f"warp route kernels use local memory: {spills}")
+        return rows
+
+    if batched_only:
+        with torch.no_grad():
+            batched_timing()
+        print(json.dumps({"ok": True, "batched_only": True}))
+        return 0
 
     if quick:
         print(json.dumps({"ok": True, "quick": True}))
@@ -1449,19 +1760,32 @@ def main(argv):
     del Ae, be, ws, xr, xp
 
     # ---- 3b. the batched path -------------------------------------------
-    wrappers = {"batched_lu_swap": bk.batched_lu_cuda,
-                "batched_lu_noswap": bk.batched_lu_noswap_cuda,
+    wrappers = {"batched_lu_noswap": bk.batched_lu_noswap_cuda,
                 "batched_solve": bk.batched_solve_cuda}
 
+    def reset_batched_counts():
+        bk.reset_lu_launches()
+        for w in wrappers.values():
+            w.launches = 0
+
+    def batched_counts():
+        """Launches per kernel since the last reset: the swap kernel's by
+        route (one kernel function each), the noswap and solve kernels'."""
+        got = {ROUTE_KERNEL[r]: c for r, c in bk.batched_lu_cuda.route_launches.items()}
+        got.update({k: w.launches for k, w in wrappers.items()})
+        return got
+
     def batch_resid(A, f, perm):
-        """Per matrix max|LU - A[perm]| and its gate, in f64."""
-        n = A.shape[1]
+        """Per matrix max|LU - A[perm]| and its gate, in f64 ((m, n)
+        matrices: L is m x k, U is k x n, k = min(m, n))."""
+        _, m, n = A.shape
+        k = min(m, n)
         fd = f.double()
-        eye = torch.eye(n, dtype=torch.float64, device=dev)
-        LU_ = torch.bmm(torch.tril(fd, -1) + eye, torch.triu(fd))
+        eye = torch.eye(m, k, dtype=torch.float64, device=dev)
+        LU_ = torch.bmm(torch.tril(fd[:, :, :k], -1) + eye, torch.triu(fd[:, :k, :]))
         LU_ -= A.double().gather(1, perm.long()[:, :, None].expand(-1, -1, n))
         r = LU_.abs().amax(dim=(1, 2))
-        g = 20 * n * torch.finfo(A.dtype).eps * A.abs().amax(dim=(1, 2)).double()
+        g = 20 * max(m, n) * torch.finfo(A.dtype).eps * A.abs().amax(dim=(1, 2)).double()
         return r, g
 
     def batch_solve_resid(A, x, b):
@@ -1486,7 +1810,7 @@ def main(argv):
 
     batched_launches = {}
     full_err = {}
-    for n in (64, 128):
+    for n in (16, 64, 128):
         A = torch.tensor(rng.standard_normal((BATCH_B, n, n)), dtype=torch.float32, device=dev)
         b = torch.tensor(rng.standard_normal((BATCH_B, n)), dtype=torch.float32, device=dev)
         b3 = torch.tensor(rng.standard_normal((BATCH_B, n, 2)), dtype=torch.float32, device=dev)
@@ -1497,8 +1821,7 @@ def main(argv):
         want_info = torch.zeros(BATCH_B, dtype=torch.int32, device=dev)
         want_info[zrows] = (zcols + 1).int()
         lib_piv = torch.linalg.lu_factor_ex(A)[1] - 1
-        for w in wrappers.values():
-            w.launches = 0
+        reset_batched_counts()
         # the path, as a user calls it
         f1, perm1, info1 = rt.batched_lu_factor_perm(A)
         x1 = rt.batched_lu_solve_perm(f1, perm1, b)
@@ -1508,9 +1831,11 @@ def main(argv):
         x3 = rt.batched_lu_solve_perm(f3, perm3, b)
         _, _, infoz = rt.batched_lu_factor(Z)
         torch.cuda.synchronize()
-        got = {k: w.launches for k, w in wrappers.items()}
+        got = batched_counts()
         batched_launches[n] = got
-        expect = {"batched_lu_swap": 3, "batched_lu_noswap": 1, "batched_solve": 3}
+        expect = {k: 0 for k in ROUTE_KERNEL.values()}
+        expect.update({ROUTE_KERNEL[bk.lu_route(n, n)]: 3, "batched_lu_noswap": 1,
+                       "batched_solve": 3})
         rec = dict(batch=BATCH_B, n=n, dtype="float32", launches=got,
                    expected_launches=expect)
         # what the path's launches returned, against the plain versions on
@@ -1532,7 +1857,7 @@ def main(argv):
             "solve_bitwise": same_bits(x1, xp1) and same_bits(x2, xp2) and same_bits(x3, xp3),
         }
         full_err[n] = {
-            "batched_lu_swap": max(abs_err(f1, fp), abs_err(f2, fp)),
+            ROUTE_KERNEL[bk.lu_route(n, n)]: max(abs_err(f1, fp), abs_err(f2, fp)),
             "batched_lu_noswap": abs_err(f3, fn),
             "batched_solve": max(abs_err(x1, xp1), abs_err(x2, xp2), abs_err(x3, xp3)),
         }
@@ -1603,6 +1928,28 @@ def main(argv):
             fail(f"library-route solve: TF32 flags {watch.flags}, residual "
                  f"{rec['trans_solve_rel_resid_max']}")
         del A, b, b3, Z, f1, f2, f3, x1, x2, x3, xt
+
+    # the tile route as a user reaches it: a tall batch, past the register
+    # routes' 128 rows
+    At = torch.tensor(rng.standard_normal((TALL_B,) + TALL_SHAPE), dtype=torch.float32, device=dev)
+    reset_batched_counts()
+    ft, ipt, it = rt.batched_lu_factor(At)
+    torch.cuda.synchronize()
+    got = batched_counts()
+    batched_launches["tall"] = got
+    fp, ipp, _, inp = bk.batched_lu_plain(At, True, False)
+    full_err["tall"] = {"batched_lu_swap": abs_err(ft, fp)}
+    expect = {k: 0 for k in batched_counts()}
+    expect["batched_lu_swap"] = 1
+    r, g = batch_resid(At, ft, rt.batched_ipiv_to_perm(ipt, TALL_SHAPE[0]))
+    rec = dict(batch=TALL_B, shape=list(TALL_SHAPE), dtype="float32", launches=got,
+               expected_launches=expect, bitwise=same_bits(ft, fp),
+               ipiv_info_equal=bool(torch.equal(ipt, ipp) and torch.equal(it, inp)),
+               resid_ok=bool((r < g).all()), max_abs_err_vs_plain=full_err["tall"])
+    emit("batched", **rec)
+    if got != expect or not (rec["bitwise"] and rec["ipiv_info_equal"] and rec["resid_ok"]):
+        fail(f"batched path on the tall batch: {rec}")
+    del At, ft, fp
 
     # ---- 3e. the tensor-parallel path in an NCCL world of one rank --------
     import multiprocessing
@@ -1688,17 +2035,18 @@ def main(argv):
     # the sharded batch: one rank factors and solves all 10 000 matrices
     A = torch.tensor(rng.standard_normal((BATCH_B, 64, 64)), dtype=f32, device=dev)
     b = torch.tensor(rng.standard_normal((BATCH_B, 64)), dtype=f32, device=dev)
-    for wr in wrappers.values():
-        wr.launches = 0
+    reset_batched_counts()
     f, ipiv, info = rt.sharded_batched_lu_factor(A, dp_mesh)
     x = rt.sharded_batched_lu_solve(f, ipiv, b, dp_mesh)
     torch.cuda.synchronize()
-    got = {k: wr.launches for k, wr in wrappers.items()}
+    got = batched_counts()
     f0, ipiv0, info0 = rt.batched_lu_factor(A)
     x0 = rt.batched_lu_solve(f0, ipiv0, b)
     r, g = batch_resid(A, f, rt.batched_ipiv_to_perm(ipiv, 64))
+    want = {k: 0 for k in got}
+    want.update({ROUTE_KERNEL[bk.lu_route(64, 64)]: 1, "batched_solve": 1})
     rec = dict(batch=BATCH_B, n=64, dtype="float32", ranks=1, launches=got,
-               expected_launches={"batched_lu_swap": 1, "batched_lu_noswap": 0, "batched_solve": 1},
+               expected_launches=want,
                equal_to_unsharded=same_bits(f, f0) and same_bits(x, x0)
                and bool(torch.equal(ipiv, ipiv0) and torch.equal(info, info0)),
                resid_ok=bool((r < g).all()), info_zero=bool((info == 0).all()),
@@ -1760,45 +2108,6 @@ def main(argv):
     del tp_d1, p2
 
     # ---- 4. timing -------------------------------------------------------
-    def timed(fn, setup=None, reps=5, warm=2):
-        ts = []
-        for i in range(warm + reps):
-            if setup is not None:
-                setup()
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn()
-            e1.record()
-            torch.cuda.synchronize()
-            if i >= warm:
-                ts.append(e0.elapsed_time(e1))
-        ts.sort()
-        return ts[len(ts) // 2], ts
-
-    def round_robin(fns, rounds=7, warm=1, inner=1, setup=None):
-        """Median CUDA-event ms of each callable, run in turns (every
-        round times each once), so host noise spreads over all of them.
-        With ``inner`` > 1 a turn queues the callable that many times
-        between its two events and the time is per call: the device stays
-        fed and the host's launch latency falls out of a sub-millisecond
-        kernel's time.  ``setup`` runs before each timing, outside it."""
-        ts = {k: [] for k in fns}
-        for r in range(warm + rounds):
-            for k, fn in fns.items():
-                if setup is not None:
-                    setup()
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                for _ in range(inner):
-                    fn()
-                e1.record()
-                torch.cuda.synchronize()
-                if r >= warm:
-                    ts[k].append(e0.elapsed_time(e1) / inner)
-        return {k: sorted(v)[len(v) // 2] for k, v in ts.items()}
-
     # the barriers a panel step is built from (csrc/panel_lu.cu
     # rf_bench_barrier): ns per barrier from two launches of 0 and N
     lib_panel = _kernels.load("panel_lu")
@@ -1960,73 +2269,7 @@ def main(argv):
                      route=route, panel_width=w, tail_threshold=tail, factor_ms=ms)
 
         # ---- 4b. the batched kernels, in turns beside the library ---------
-        batched_rows = {}
-        for n in (16, 32, 64, 128):
-            A = torch.randn(BATCH_B, n, n, generator=gen).to(dev)
-            b = torch.randn(BATCH_B, n, generator=gen).to(dev)
-            f, perm, _ = rt.batched_lu_factor_perm(A)
-            _, ipiv, _ = rt.batched_lu_factor(A)
-            rhs = b.gather(1, perm.long())
-            lib_lu, lib_piv, _ = torch.linalg.lu_factor_ex(A)
-            ident = torch.arange(1, n + 1, dtype=lib_piv.dtype, device=dev).repeat(BATCH_B, 1)
-
-            def lib_fs():
-                LU_, piv, _ = torch.linalg.lu_factor_ex(A)
-                torch.linalg.lu_solve(LU_, piv, b[:, :, None])
-
-            t = round_robin({
-                "swap": lambda: bk.batched_lu_cuda(A, True, True),
-                "swap_no_perm": lambda: bk.batched_lu_cuda(A, True, False),
-                "noswap": lambda: bk.batched_lu_noswap_cuda(A, True),
-                "solve": lambda: bk.batched_solve_cuda(f, rhs),
-                "solve_with_perm": lambda: bk.batched_solve_cuda(f, b, perm=perm),
-                "solve_with_ipiv": lambda: bk.batched_solve_cuda(f, b, ipiv=ipiv),
-                "perm_factor_solve": lambda: rt.batched_lu_solve_perm(
-                    *rt.batched_lu_factor_perm(A)[:2], b),
-                "ipiv_factor_solve": lambda: rt.batched_lu_solve(
-                    *rt.batched_lu_factor(A)[:2], b),
-                "ipiv_to_perm": lambda: rt.batched_ipiv_to_perm(ipiv, n),
-                "library_factor": lambda: torch.linalg.lu_factor_ex(A),
-                # the same function as the solve kernel: no row exchange
-                "library_solve": lambda: torch.linalg.lu_solve(f, ident, rhs[:, :, None]),
-                "library_solve_with_pivots": lambda: torch.linalg.lu_solve(
-                    lib_lu, lib_piv, b[:, :, None]),
-                "library_factor_solve": lib_fs,
-            }, inner=4)
-            plain = {
-                "swap": timed(lambda: bk.batched_lu_plain(A, True, True), reps=1, warm=0)[0],
-                "noswap": timed(lambda: bk.batched_lu_noswap_plain(A, True), reps=1, warm=0)[0],
-                "solve": timed(lambda: bk.batched_solve_plain(f, rhs), reps=1, warm=0)[0],
-            }
-            bounds = {
-                "swap": batched_lu_bound(BATCH_B, n, n, "float32", 4),
-                "noswap": batched_lu_bound(BATCH_B, n, n, "float32", 4),
-                "solve": batched_solve_bound(BATCH_B, n, 1, "float32", 4),
-            }
-            batched_rows[n] = dict(t=t, plain=plain, bounds=bounds)
-            emit("timing", what="batched", card=card, batch=BATCH_B, n=n,
-                 dtype="float32", kernel_ms=t, plain_ms=plain,
-                 bound_ms={k: v[0] for k, v in bounds.items()},
-                 bound_by={k: v[1] for k, v in bounds.items()},
-                 launches_per_timing=4,
-                 noswap_over_swap=t["noswap"] / t["swap"])
-            del A, b, f, rhs, lib_lu
-
-        # f64 at the main size: the same kernels on the card's f64 units
-        A = torch.randn(BATCH_B, 64, 64, generator=gen, dtype=torch.float64).to(dev)
-        b = torch.randn(BATCH_B, 64, generator=gen, dtype=torch.float64).to(dev)
-        f, perm, _ = rt.batched_lu_factor_perm(A)
-        t = round_robin({
-            "swap": lambda: bk.batched_lu_cuda(A, True, True),
-            "noswap": lambda: bk.batched_lu_noswap_cuda(A, True),
-            "solve_with_perm": lambda: bk.batched_solve_cuda(f, b, perm=perm),
-            "library_factor": lambda: torch.linalg.lu_factor_ex(A),
-        }, inner=4)
-        emit("timing", what="batched", card=card, batch=BATCH_B, n=64,
-             dtype="float64", kernel_ms=t, launches_per_timing=4,
-             bound_ms={"swap": batched_lu_bound(BATCH_B, 64, 64, "float64", 8)[0],
-                       "solve_with_perm": batched_solve_bound(BATCH_B, 64, 1, "float64", 8)[0]})
-        del A, b, f
+        batched_rows = batched_timing()
 
     # ---- 4d. the new panel kernels, the opt-in schedules, RBT -------------
     new_rows = {}
@@ -2244,25 +2487,37 @@ def main(argv):
         "shape": crow["shape"],
         "dtype": "complex64",
     })
-    row = batched_rows[64]
-    for name, key, lib in (("batched_lu_swap", "swap", "library_factor"),
-                           ("batched_lu_noswap", "noswap", "library_factor"),
-                           ("batched_solve", "solve", "library_solve")):
+    # each swap route's kernel at the shape of its own main-path run (the
+    # warp route at n = 16, the block route at n = 64, the tile route on the
+    # tall batch), the noswap and solve kernels at n = 64
+    for name, at, key, lib in (("batched_lu_warp", 16, "swap", "library_factor"),
+                               ("batched_lu_block", 64, "swap", "library_factor"),
+                               ("batched_lu_swap", "tall", "swap", "library_factor"),
+                               ("batched_lu_noswap", 64, "noswap", "library_factor"),
+                               ("batched_solve", 64, "solve", "library_solve")):
+        row = batched_rows[at]
+        shape = ([TALL_B, *TALL_SHAPE] if at == "tall"
+                 else [BATCH_B, at, at] if key != "solve" else [BATCH_B, at, 1])
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": BATCHED_KERNELS[name][0],
             "replaces": BATCHED_KERNELS[name][1],
-            "launches": batched_launches[64][name],
+            "launches": batched_launches[at][name],
             # against the plain version at this shape, in the batched phase
-            "max_abs_err": full_err[64][name],
-            "max_abs_err_all_cases": max(batched_err[name], full_err[128][name]),
-            "ms": row["t"][key],
+            "max_abs_err": full_err[at][name],
+            "max_abs_err_all_cases": max([batched_err[name]] + [
+                e[name] for e in full_err.values() if name in e]),
+            # device time (torch.profiler, every kernel of the call); the
+            # CUDA-event time of queued wrapper calls, host included, beside
+            "ms": row["dev"][key],
+            "call_ms": row["t"][key],
             "plain_ms": row["plain"][key],
             "bound_ms": row["bounds"][key][0],
             "bound_by": row["bounds"][key][1],
-            "library_ms": row["t"][lib],
-            "shape": [BATCH_B, 64, 64] if key != "solve" else [BATCH_B, 64, 1],
+            "library_ms": row["dev"][lib],
+            "library_call_ms": row["t"][lib],
+            "shape": shape,
             "dtype": "float32",
         })
     nrow = new_rows[tuple(main_shape(1536)[1])]

@@ -27,6 +27,11 @@ SOURCES = {
     for name in ("panel_lu", "panel_lu_c64", "panel_lu_micro",
                  "panel_lu_noswap", "batched_lu", "batched_solve")
 }
+# a second build of csrc/batched_lu.cu whose swap kernels stamp a phase
+# trace (rf_batched_lu_set_trace), for measurement only; the package's
+# wrappers never load it
+SOURCES["batched_lu_trace"] = SOURCES["batched_lu"]
+EXTRA_FLAGS = {"batched_lu_trace": ("-DRF_BATCHED_TRACE",)}
 # included by every source (nvcc finds it beside them)
 COMMON_HEADER = PACKAGE_DIR / "csrc" / "rf_common.cuh"
 NVCC_FLAGS = (
@@ -51,6 +56,18 @@ _PANEL_PLAN = (_I, [_I, _I, _I, _I, _I, _I, _I, _P])
 _PANEL_BC = (_I, [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P])
 # the same with the offset after pivot
 _PANEL_OFS_BC = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P])
+# a, out, ipiv, perm, info, batch, m, n, pivot, route, smem, device, stream
+_BATCHED_SWAP = (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
+_BATCHED_NOSWAP = (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+_BATCHED_LU = {
+    "rf_batched_lu_swap_f32": _BATCHED_SWAP,
+    "rf_batched_lu_swap_f64": _BATCHED_SWAP,
+    # m, n, elem, route, device, out[10]
+    "rf_batched_lu_swap_plan": (_I, [_I, _I, _I, _I, _I, _P]),
+    "rf_batched_lu_noswap_f32": _BATCHED_NOSWAP,
+    "rf_batched_lu_noswap_f64": _BATCHED_NOSWAP,
+    "rf_error_string": (ctypes.c_char_p, [_I]),
+}
 # C signatures: name -> (restype, argtypes)
 SIGNATURES = {
     "panel_lu": {
@@ -85,13 +102,8 @@ SIGNATURES = {
         "rf_panel_lu_noswap_f64": _PANEL_NOSWAP,
         "rf_error_string": (ctypes.c_char_p, [_I]),
     },
-    "batched_lu": {
-        "rf_batched_lu_swap_f32": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-        "rf_batched_lu_swap_f64": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-        "rf_batched_lu_noswap_f32": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-        "rf_batched_lu_noswap_f64": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-        "rf_error_string": (ctypes.c_char_p, [_I]),
-    },
+    "batched_lu": _BATCHED_LU,
+    "batched_lu_trace": {**_BATCHED_LU, "rf_batched_lu_set_trace": (_I, [_P])},
     "batched_solve": {
         "rf_batched_solve_f32": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
         "rf_batched_solve_f64": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
@@ -124,7 +136,7 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
     h.update(COMMON_HEADER.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, ())).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -138,7 +150,8 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
     t0 = time.perf_counter()
     for name, out in todo.items():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", str(tmp),
+               str(SOURCES[name])]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out)

@@ -9,6 +9,10 @@ csrc/batched_solve.cu):
 * :func:`batched_lu` -- LU of a batch (B, m, n) with LAPACK row
   interchanges: factors, the ipiv swap sequence, optionally the composed
   permutation, info (the swap mode of the TPU kernel ``_lane_kernel``);
+  on the card one of three kernels by shape (:func:`lu_route`): a warp
+  per matrix with its rows in registers at m, n <= 32, a block of 8 x 8
+  or 16 x 16 threads with register tiles up to 128, a shared-memory tile
+  beyond;
 * :func:`batched_lu_noswap` -- LU of a square batch with the rows
   eliminated in physical order under a ``used`` mask and put into pivot
   order once at the end (the noswap mode of ``_lane_kernel``); pivot ties
@@ -42,6 +46,7 @@ Semantics shared by the plain versions and the kernels, per matrix:
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -49,9 +54,8 @@ import torch
 from ..utils.perm import batched_ipiv_to_perm
 from . import _kernels
 
-# min(m, n) up to which the kernels take a batch: one matrix per thread
-# block, held in shared memory for its whole pivot chain.  At 128 the
-# kernels are still ahead of batched torch.linalg.lu_factor_ex on an H100
+# min(m, n) up to which the kernels take a batch.  At 128 the kernels are
+# still ahead of batched torch.linalg.lu_factor_ex on an H100
 # (chip_smoke.py's timing, PERF.md); beyond it nothing was measured.
 KERNEL_MAX_N = 128
 # dynamic shared memory a block may ask for: the 227 KB a Hopper block
@@ -59,11 +63,69 @@ KERNEL_MAX_N = 128
 SMEM_LIMIT = 232448 - 1024
 _FLOATS = (torch.float32, torch.float64)
 
+# The swap kernel's routes (csrc/batched_lu.cu), by shape:
+#   "warp"   m, n <= 32: a warp (half a warp when m <= 16) per matrix, rows
+#            in registers, four warps per block;
+#   "block"  otherwise max(m, n) <= 128: 8 x 8 threads per matrix up to
+#            max(m, n) = 64, 16 x 16 beyond, each with an S x S register
+#            tile (S = 6 or 8);
+#   "tile"   the rest (tall or wide batches): one block per matrix, the
+#            matrix in a shared-memory tile.
+LU_ROUTES = ("warp", "block", "tile")
+WARP_MAX_N = 32
+BLOCK_MAX_N = 128
+_WARP_THREADS = 128
 
-def lu_smem_bytes(m: int, n: int, itemsize: int) -> int:
-    """Dynamic shared memory of one LU block: the (m, n + 1) padded tile,
-    a column of m multipliers, and 2 * m int32 of bookkeeping."""
+
+def _block_grid(m: int, n: int) -> Tuple[int, int]:
+    """The block route's thread grid side and register slots per thread
+    and dimension (csrc/batched_lu.cu block_grid): 8 x 8 threads up to
+    max(m, n) = 64, 16 x 16 beyond; 6 or 8 slots."""
+    big = max(m, n)
+    if big <= 64:
+        return 8, (6 if big <= 48 else 8)
+    return 16, (6 if big <= 96 else 8)
+
+
+def lu_route(m: int, n: int) -> str:
+    """The route the swap kernel takes for (m, n) matrices."""
+    if m <= WARP_MAX_N and n <= WARP_MAX_N:
+        return "warp"
+    if m <= BLOCK_MAX_N and n <= BLOCK_MAX_N:
+        return "block"
+    return "tile"
+
+
+def _route_takes(route: str, m: int, n: int) -> bool:
+    """Each route also takes the shapes of the routes before it."""
+    return route in LU_ROUTES and LU_ROUTES.index(route) >= LU_ROUTES.index(lu_route(m, n))
+
+
+def tile_smem_bytes(m: int, n: int, itemsize: int) -> int:
+    """Dynamic shared memory of one shared-memory tile block (the swap
+    kernel's tile route and the noswap kernel): the (m, n + 1) padded
+    tile, a column of m multipliers, and 2 * m int32 of bookkeeping."""
     return (m * (n + 1) + m) * itemsize + 8 * m
+
+
+def lu_smem_bytes(m: int, n: int, itemsize: int, route: Optional[str] = None) -> int:
+    """Dynamic shared memory of one swap-kernel block for (m, n) matrices
+    under ``route`` (default: the shape's own, :func:`lu_route`).  The
+    kernel refuses a launch whose count differs from its own."""
+    route = route or lu_route(m, n)
+    if route == "warp":
+        lanes = 16 if m <= 16 else 32
+        cols = 8 if n <= 8 else 16 if n <= 16 else 32
+        # per matrix (128 / lanes per block): two (row k, row kp) exchange
+        # buffers of the column capacity, and the m x (n | 1) staging tile
+        return (_WARP_THREADS // lanes) * (4 * cols + m * (n | 1)) * itemsize
+    if route == "block":
+        side, slots = _block_grid(m, n)
+        cap = side * slots
+        # rows k and kp, the multipliers, the candidates' values, a[m - 1, k]
+        # and a[k, k]; the candidates' rows and the permutation
+        return (3 * cap + side + 2) * itemsize + 4 * (side + cap)
+    return tile_smem_bytes(m, n, itemsize)
 
 
 def solve_smem_bytes(n: int, nrhs: int, itemsize: int) -> int:
@@ -74,11 +136,13 @@ def solve_smem_bytes(n: int, nrhs: int, itemsize: int) -> int:
 
 
 def lu_kernel_takes(dtype, m: int, n: int) -> bool:
-    """Can the LU kernels run a batch of (m, n) matrices of ``dtype``?"""
+    """Can the LU kernels run a batch of (m, n) matrices of ``dtype``?
+    The shared-memory tile must fit a block: every route's shapes lie
+    inside that set."""
     return (
         dtype in _FLOATS
         and 0 < min(m, n) <= KERNEL_MAX_N
-        and lu_smem_bytes(m, n, dtype.itemsize) <= SMEM_LIMIT
+        and tile_smem_bytes(m, n, dtype.itemsize) <= SMEM_LIMIT
     )
 
 
@@ -303,7 +367,7 @@ def _refuse_lu_shape(A, what):
         raise ValueError(
             f"{what}: ({m}, {n}) {A.dtype} matrices do not fit the kernel "
             f"(0 < min(m, n) <= {KERNEL_MAX_N} and "
-            f"{lu_smem_bytes(m, n, A.dtype.itemsize)} <= {SMEM_LIMIT} bytes "
+            f"{tile_smem_bytes(m, n, A.dtype.itemsize)} <= {SMEM_LIMIT} bytes "
             "of shared memory)"
         )
 
@@ -314,14 +378,21 @@ def _launch_args(t):
     return index, torch.cuda.current_stream(dev).cuda_stream
 
 
-def batched_lu_cuda(A: torch.Tensor, pivot: bool = True, with_perm: bool = True):
+def batched_lu_cuda(A: torch.Tensor, pivot: bool = True, with_perm: bool = True,
+                    route: Optional[str] = None):
     """Launch the swap kernel: ``A`` (B, m, n) CUDA f32/f64 -> ``(factors,
     ipiv, perm or None, info)``, all allocated here.  ``A`` is read, not
-    written.  Launches once on the current stream and does not
-    synchronise; ``batched_lu_cuda.launches`` counts the launches."""
+    written.  ``route`` (default: the shape's own, :func:`lu_route`)
+    forces "warp", "block" or "tile" where that route takes the shape, and
+    raises where it does not.  Launches once on the current stream and
+    does not synchronise; ``batched_lu_cuda.launches`` counts the launches,
+    ``batched_lu_cuda.route_launches`` the launches by route."""
     A = _cuda_batch(A, "batched_lu_cuda")
     _refuse_lu_shape(A, "batched_lu_cuda")
     B, m, n = A.shape
+    route = route or lu_route(m, n)
+    if not _route_takes(route, m, n):
+        raise ValueError(f"batched_lu_cuda: route {route!r} does not take ({m}, {n})")
     dev = A.device
     out = torch.empty_like(A)
     ipiv = torch.empty((B, min(m, n)), dtype=torch.int32, device=dev)
@@ -333,17 +404,51 @@ def batched_lu_cuda(A: torch.Tensor, pivot: bool = True, with_perm: bool = True)
     fn = lib.rf_batched_lu_swap_f64 if A.element_size() == 8 else lib.rf_batched_lu_swap_f32
     index, stream = _launch_args(A)
     batched_lu_cuda.launches += 1
+    batched_lu_cuda.route_launches[route] += 1
     code = fn(
         A.data_ptr(), out.data_ptr(), ipiv.data_ptr(),
         perm.data_ptr() if with_perm else None, info.data_ptr(),
-        B, m, n, int(bool(pivot)), lu_smem_bytes(m, n, A.element_size()),
-        index, stream,
+        B, m, n, int(bool(pivot)), LU_ROUTES.index(route) + 1,
+        lu_smem_bytes(m, n, A.element_size(), route), index, stream,
     )
     _kernels.check(lib, code, "batched_lu swap launch")
     return out, ipiv, perm, info
 
 
 batched_lu_cuda.launches = 0
+batched_lu_cuda.route_launches = dict.fromkeys(LU_ROUTES, 0)
+
+
+def reset_lu_launches() -> None:
+    """Set the swap kernel's launch counts (all and by route) to 0."""
+    batched_lu_cuda.launches = 0
+    batched_lu_cuda.route_launches = dict.fromkeys(LU_ROUTES, 0)
+
+
+def lu_plan(m: int, n: int, dtype=torch.float32, route: Optional[str] = None,
+            device=None) -> dict:
+    """The swap kernel's launch plan for (m, n) matrices of ``dtype`` on
+    a CUDA device: route, threads and matrices per block, dynamic shared
+    memory, and the compiled kernel's registers, local memory (spills)
+    and resident blocks per SM as the CUDA runtime reports them."""
+    route = route or lu_route(m, n)
+    if not _route_takes(route, m, n):
+        raise ValueError(f"lu_plan: route {route!r} does not take ({m}, {n})")
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    lib = _kernels.load("batched_lu")
+    out = (ctypes.c_int * 10)()
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    code = lib.rf_batched_lu_swap_plan(m, n, itemsize, LU_ROUTES.index(route) + 1, index,
+                                       ctypes.addressof(out))
+    _kernels.check(lib, code, "batched_lu plan")
+    keys = ("route", "threads", "per_block", "smem", "blocks_per_sm", "registers",
+            "local_bytes", "static_smem", "capacity", "max_threads")
+    plan = dict(zip(keys, list(out)))
+    plan["route"] = LU_ROUTES[plan["route"] - 1]
+    if plan["smem"] != lu_smem_bytes(m, n, itemsize, route):
+        raise RuntimeError("lu_plan: the kernel's shared memory differs from lu_smem_bytes")
+    return plan
 
 
 def batched_lu_noswap_cuda(A: torch.Tensor, pivot: bool = True):
@@ -367,7 +472,7 @@ def batched_lu_noswap_cuda(A: torch.Tensor, pivot: bool = True):
     batched_lu_noswap_cuda.launches += 1
     code = fn(
         A.data_ptr(), out.data_ptr(), perm.data_ptr(), info.data_ptr(),
-        B, n, int(bool(pivot)), lu_smem_bytes(n, n, A.element_size()),
+        B, n, int(bool(pivot)), tile_smem_bytes(n, n, A.element_size()),
         index, stream,
     )
     _kernels.check(lib, code, "batched_lu noswap launch")

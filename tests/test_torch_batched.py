@@ -238,11 +238,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_shared_memory_counts():
-    """The eligibility predicate and the launch use one byte count."""
-    assert bk.lu_smem_bytes(64, 64, 4) == (64 * 65 + 64) * 4 + 8 * 64
+    """The eligibility predicate takes the shared-memory tile's byte count
+    (the tile route and the noswap kernel launch with it); the register
+    routes count their own, smaller buffers."""
+    assert bk.tile_smem_bytes(64, 64, 4) == (64 * 65 + 64) * 4 + 8 * 64
+    assert bk.lu_smem_bytes(64, 64, 4, "tile") == bk.tile_smem_bytes(64, 64, 4)
+    # the block route at 64 x 64 (8 x 8 threads): rows k and kp and the
+    # multipliers (3 x 64), 8 candidate values, a[m - 1, k] and a[k, k],
+    # then 8 + 64 ints
+    assert bk.lu_smem_bytes(64, 64, 4) == (3 * 64 + 10) * 4 + 4 * 72
     assert bk.lu_kernel_takes(torch.float32, 128, 128)
     assert bk.lu_kernel_takes(torch.float64, 128, 128)
-    assert bk.lu_smem_bytes(128, 128, 8) > 48 * 1024  # needs the opt-in
+    assert bk.tile_smem_bytes(128, 128, 8) > 48 * 1024  # the tile needs the opt-in
+    assert bk.lu_smem_bytes(128, 128, 8) < 48 * 1024  # the block route does not
     assert not bk.lu_kernel_takes(torch.float32, 129, 129)
     assert not bk.lu_kernel_takes(torch.float16, 8, 8)
     assert not bk.lu_kernel_takes(torch.float32, 4096, 64)  # tile too large
@@ -251,6 +259,145 @@ def test_shared_memory_counts():
     assert bk.solve_kernel_takes(torch.float64, 128, 8)
     assert not bk.solve_kernel_takes(torch.float32, 128, 400)
     assert not bk.solve_kernel_takes(torch.float32, 0, 1)
+
+
+# the swap kernel's routes (csrc/batched_lu.cu): warp at m, n <= 32, block
+# up to 128, the shared-memory tile beyond; the shapes at their boundaries
+BOUNDARY_SHAPES = [(3, 1, 1), (5, 16, 16), (4, 31, 31), (5, 32, 32), (4, 33, 33),
+                   (3, 32, 40), (3, 40, 32), (5, 20, 32)]
+
+
+@pytest.mark.parametrize(
+    "m, n, route, smem4, smem8",
+    [
+        # warp: 128 / lanes matrices per block, each with two (row k, row kp)
+        # exchange buffers of the column capacity (8, 16, 32) and the
+        # m x (n | 1) staging tile
+        (1, 1, "warp", 8 * (4 * 8 + 1) * 4, 8 * (4 * 8 + 1) * 8),
+        (16, 16, "warp", 8 * (4 * 16 + 16 * 17) * 4, 8 * (4 * 16 + 16 * 17) * 8),
+        (17, 5, "warp", 4 * (4 * 8 + 17 * 5) * 4, 4 * (4 * 8 + 17 * 5) * 8),
+        (31, 31, "warp", 4 * (4 * 32 + 31 * 31) * 4, 4 * (4 * 32 + 31 * 31) * 8),
+        (32, 32, "warp", 4 * (4 * 32 + 32 * 33) * 4, 4 * (4 * 32 + 32 * 33) * 8),
+        (20, 32, "warp", 4 * (4 * 32 + 20 * 33) * 4, 4 * (4 * 32 + 20 * 33) * 8),
+        (8, 20, "warp", 8 * (4 * 32 + 8 * 21) * 4, 8 * (4 * 32 + 8 * 21) * 8),
+        # block: a side x side thread grid with S slots, cap = side S:
+        # (3 cap + side + 2) values + (side + cap) ints; (8, 6) up to 48,
+        # (8, 8) up to 64, (16, 6) up to 96, (16, 8) up to 128
+        (33, 33, "block", 154 * 4 + 4 * 56, 154 * 8 + 4 * 56),
+        (32, 40, "block", 154 * 4 + 4 * 56, 154 * 8 + 4 * 56),
+        (40, 32, "block", 154 * 4 + 4 * 56, 154 * 8 + 4 * 56),
+        (48, 10, "block", 154 * 4 + 4 * 56, 154 * 8 + 4 * 56),
+        (64, 64, "block", 202 * 4 + 4 * 72, 202 * 8 + 4 * 72),
+        (65, 3, "block", 306 * 4 + 4 * 112, 306 * 8 + 4 * 112),
+        (96, 96, "block", 306 * 4 + 4 * 112, 306 * 8 + 4 * 112),
+        (20, 100, "block", 402 * 4 + 4 * 144, 402 * 8 + 4 * 144),
+        (128, 128, "block", 402 * 4 + 4 * 144, 402 * 8 + 4 * 144),
+        # tile: (m (n + 1) + m) values + 2 m ints
+        (129, 64, "tile", (129 * 66) * 4 + 8 * 129, (129 * 66) * 8 + 8 * 129),
+        (300, 24, "tile", (300 * 26) * 4 + 8 * 300, (300 * 26) * 8 + 8 * 300),
+        (40, 200, "tile", (40 * 202) * 4 + 8 * 40, (40 * 202) * 8 + 8 * 40),
+    ],
+)
+def test_lu_route_rule_and_its_shared_memory(m, n, route, smem4, smem8):
+    """The route of each shape and the byte count its launch must give
+    (the kernel refuses another), shape by shape."""
+    assert bk.lu_route(m, n) == route
+    assert bk.lu_smem_bytes(m, n, 4) == smem4
+    assert bk.lu_smem_bytes(m, n, 8) == smem8
+    assert bk.lu_smem_bytes(m, n, 8, route) == smem8
+    assert bk.lu_smem_bytes(m, n, 4, "tile") == bk.tile_smem_bytes(m, n, 4)
+    assert max(smem4, smem8) <= bk.SMEM_LIMIT
+
+
+def test_lu_kernel_takes_the_shapes_it_always_took():
+    """The routes change nothing in which shapes the kernels take: 0 <
+    min(m, n) <= 128 and an (m, n + 1) tile, a column and 2 m ints within
+    the shared-memory limit."""
+    for dtype in (torch.float32, torch.float64):
+        size = dtype.itemsize
+        for m in list(range(1, 140, 3)) + [200, 438, 439, 600, 4096, 11571, 11572]:
+            for n in list(range(1, 140, 3)) + [200, 600, 4096, 57850, 57851]:
+                old = (0 < min(m, n) <= 128
+                       and (m * (n + 1) + m) * size + 8 * m <= 232448 - 1024)
+                assert bk.lu_kernel_takes(dtype, m, n) == old, (dtype, m, n)
+
+
+def _pallas_swap(A, dtype, pivot):
+    f, ipiv, perm, info = batched_lu_pallas(jx(A, dtype), pivot, interpret=True, group=4)
+    return np.asarray(f), np.asarray(ipiv), np.asarray(perm), np.asarray(info)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("shape", BOUNDARY_SHAPES)
+def test_swap_plain_matches_pallas_at_route_boundaries(shape, pivot, dtype):
+    """randn with zeroed columns: ipiv, perm, info exact; factors within
+    20 max(m, n) eps max|A|."""
+    B, m, n = shape
+    zero = [(B - 1, min(m, n) // 2)] + ([(0, 0)] if B > 2 else [])
+    A = make_batch(41, B, m, n, pivot, zero, dtype=dtype)
+    f_j, ipiv_j, perm_j, info_j = _pallas_swap(A, dtype, pivot)
+    f, ipiv, perm, info = bk.batched_lu_plain(tc(A, dtype), pivot, True)
+    np.testing.assert_array_equal(to_np(ipiv), ipiv_j)
+    np.testing.assert_array_equal(to_np(perm), perm_j)
+    np.testing.assert_array_equal(to_np(info), info_j)
+    np.testing.assert_array_equal(to_np(info), expected_info(B, pivot, zero))
+    np.testing.assert_allclose(to_np(f), f_j, rtol=0, atol=value_tol(A, dtype))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape", BOUNDARY_SHAPES)
+def test_swap_plain_ties_and_nan_match_pallas_at_route_boundaries(shape, dtype):
+    """Exact ties (integers in [-2, 2]): ipiv, perm, info exact, factors
+    within tolerance.  A NaN candidate (and an inf beside it in the
+    pivot row): ipiv, perm, info exact (the values part by design, see
+    test_nan_among_candidates_picks_the_last_row_as_pallas_does)."""
+    B, m, n = shape
+    rng = np.random.default_rng(42)
+    T = rng.integers(-2, 3, size=(B, m, n)).astype(dtype)
+    f_j, ipiv_j, perm_j, info_j = _pallas_swap(T, dtype, True)
+    f, ipiv, perm, info = bk.batched_lu_plain(tc(T, dtype), True, True)
+    np.testing.assert_array_equal(to_np(ipiv), ipiv_j)
+    np.testing.assert_array_equal(to_np(perm), perm_j)
+    np.testing.assert_array_equal(to_np(info), info_j)
+    np.testing.assert_allclose(to_np(f), f_j, rtol=0, atol=value_tol(T, dtype))
+    A = make_batch(43, B, m, n, True, dtype=dtype)
+    A[B // 2, m // 2, min(1, n - 1)] = np.nan
+    A[B - 1, m - 1, 0] = 1e3
+    A[B - 1, m - 1, n - 1] = np.inf
+    _, ipiv_j, perm_j, info_j = _pallas_swap(A, dtype, True)
+    _, ipiv, perm, info = bk.batched_lu_plain(tc(A, dtype), True, True)
+    np.testing.assert_array_equal(to_np(ipiv), ipiv_j)
+    np.testing.assert_array_equal(to_np(perm), perm_j)
+    np.testing.assert_array_equal(to_np(info), info_j)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape", BOUNDARY_SHAPES)
+def test_batched_lu_factor_matches_jax_at_route_boundaries(shape, dtype):
+    """The public factor functions at the routes' boundaries against the
+    JAX package (its kernels in f32, its default route in f64): ipiv,
+    perm and info exact, factors within 20 max(m, n) eps max|factors|,
+    perm the folded ipiv."""
+    B, m, n = shape
+    zero = [(B - 1, min(m, n) - 1)]
+    A = make_batch(44, B, m, n, True, zero, dtype=dtype)
+    cfg = rf.LUConfig(backend="pallas") if dtype == np.float32 else None
+    f_j, ipiv_j, info_j = jb.batched_lu_factor(jx(A, dtype), True, cfg)
+    f, ipiv, info = rt.batched_lu_factor(A, device="cpu")
+    np.testing.assert_array_equal(to_np(ipiv), np.asarray(ipiv_j))
+    np.testing.assert_array_equal(to_np(info), np.asarray(info_j))
+    np.testing.assert_array_equal(to_np(info), expected_info(B, True, zero))
+    # the scale is that of the factors, which grow past max|A|: the JAX
+    # route rounds in another order than the kernels' plain version
+    np.testing.assert_allclose(to_np(f), np.asarray(f_j), rtol=0,
+                               atol=value_tol(np.asarray(f_j), dtype))
+    if m == n:
+        f2, perm, info2 = rt.batched_lu_factor_perm(A, device="cpu")
+        _, perm_j, _ = jb.batched_lu_factor_perm(jx(A, dtype), True, cfg)
+        np.testing.assert_array_equal(to_np(perm), np.asarray(perm_j))
+        assert torch.equal(f2, f) and torch.equal(info2, info)
+        assert torch.equal(perm, rt.batched_ipiv_to_perm(ipiv, m))
 
 
 # ---------------------------------------------------------------------------

@@ -53,6 +53,15 @@ def _bits(t):
     return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
 
 
+def _same_bits_nan(x, y):
+    """Bitwise equal, NaN for NaN (a NaN's sign and payload are not
+    compared: in f64 the card passes on an operand's NaN, which the plain
+    version's torch ops and a kernel may pick differently)."""
+    nx, ny = torch.isnan(x), torch.isnan(y)
+    return torch.equal(nx, ny) and torch.equal(_bits(x.masked_fill(nx, 0)),
+                                               _bits(y.masked_fill(ny, 0)))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("pivot", [True, False])
 @pytest.mark.parametrize("shape", [(1, 1), (7, 3), (300, 64), (64, 200), (513, 513)])
@@ -435,7 +444,14 @@ def _batch(seed, B, m, n, dtype, pivot, ties=False):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("pivot", [True, False])
 @pytest.mark.parametrize("shape", [(3, 1, 1), (37, 7, 3), (37, 16, 16), (101, 64, 64),
-                                   (5, 128, 128), (9, 40, 96), (9, 300, 24)])
+                                   (5, 128, 128), (9, 40, 96), (9, 300, 24),
+                                   # the routes' boundaries (warp: m, n <= 32)
+                                   (5, 31, 31), (5, 32, 32), (5, 33, 33), (3, 32, 40),
+                                   (3, 40, 32), (5, 20, 32),
+                                   # batches that are not a multiple of the warp
+                                   # route's 4 or 8 matrices per block
+                                   (1, 16, 16), (3, 32, 32), (1001, 16, 16),
+                                   (1001, 32, 32)])
 def test_batched_swap_kernel_bitwise_equals_plain(dtype, pivot, shape):
     need_cuda()
     B, m, n = shape
@@ -443,9 +459,11 @@ def test_batched_swap_kernel_bitwise_equals_plain(dtype, pivot, shape):
     keep = A.clone()
     f, ipiv, perm, info = bk.batched_lu_plain(A, pivot, True)
     before = bk.batched_lu_cuda.launches
+    on_route = bk.batched_lu_cuda.route_launches[bk.lu_route(m, n)]
     kf, kipiv, kperm, kinfo = bk.batched_lu_cuda(A, pivot, True)
     torch.cuda.synchronize()
     assert bk.batched_lu_cuda.launches == before + 1
+    assert bk.batched_lu_cuda.route_launches[bk.lu_route(m, n)] == on_route + 1
     assert torch.equal(A, keep)  # the input is read, not written
     assert torch.equal(kipiv, ipiv) and torch.equal(kperm, perm)
     assert torch.equal(kperm, rt.batched_ipiv_to_perm(kipiv, m))
@@ -455,6 +473,60 @@ def test_batched_swap_kernel_bitwise_equals_plain(dtype, pivot, shape):
     assert torch.equal(kinfo.cpu(), want)
     assert torch.equal(_bits(kf), _bits(f))
     assert bk.batched_lu_cuda(A, pivot, False)[2] is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("route", ["warp", "block", "tile"])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 16, 16), (1001, 32, 32), (5, 20, 32),
+                                   (5, 33, 33), (3, 40, 32), (7, 128, 128), (3, 128, 20)])
+def test_batched_swap_routes_launch_once_and_equal_plain(dtype, route, shape):
+    """Every route that takes a shape (forced by ``route=``) gives the plain
+    version's bits with one launch of its own kernel; a route that does
+    not take the shape raises and launches nothing."""
+    need_cuda()
+    B, m, n = shape
+    A = _batch(18, B, m, n, dtype, True)
+    bk.reset_lu_launches()
+    if route == "warp" and max(m, n) > 32 or route == "block" and max(m, n) > 128:
+        with pytest.raises(ValueError):
+            bk.batched_lu_cuda(A, True, True, route=route)
+        assert bk.batched_lu_cuda.launches == 0
+        return
+    f, ipiv, perm, info = bk.batched_lu_plain(A, True, True)
+    kf, kipiv, kperm, kinfo = bk.batched_lu_cuda(A, True, True, route=route)
+    torch.cuda.synchronize()
+    assert bk.batched_lu_cuda.launches == 1
+    assert bk.batched_lu_cuda.route_launches == {r: int(r == route) for r in bk.LU_ROUTES}
+    assert torch.equal(kipiv, ipiv) and torch.equal(kperm, perm) and torch.equal(kinfo, info)
+    assert torch.equal(_bits(kf), _bits(f))
+    plan = bk.lu_plan(m, n, dtype, route)
+    assert plan["route"] == route and plan["smem"] == bk.lu_smem_bytes(m, n, dtype.itemsize, route)
+    if route == "warp":
+        assert plan["local_bytes"] == 0  # the rows stay in registers
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(9, 8, 8), (9, 16, 16), (9, 32, 32), (9, 33, 33),
+                                   (9, 64, 64), (9, 128, 128), (9, 300, 24)])
+def test_batched_swap_inf_and_nan_in_a_pivot_row(dtype, shape):
+    """A pivot row carrying inf and NaN spreads them through the trailing
+    block (later candidates are inf or NaN, and a NaN makes row m - 1
+    win): every route keeps ipiv, perm, info and the bits of the plain
+    version."""
+    need_cuda()
+    B, m, n = shape
+    A = _batch(19, B, m, n, dtype, True).cpu()
+    for i in range(0, B, 2):
+        r = (3 * i) % m
+        A[i, r, 0] = 1e3
+        A[i, r, 1 % n] = float("inf")
+        A[i, r, 2 % n] = float("nan")
+    A = A.cuda()
+    f, ipiv, perm, info = bk.batched_lu_plain(A, True, True)
+    kf, kipiv, kperm, kinfo = bk.batched_lu_cuda(A, True, True)
+    assert torch.equal(kipiv, ipiv) and torch.equal(kperm, perm) and torch.equal(kinfo, info)
+    assert _same_bits_nan(kf, f)
+    assert bool(torch.isnan(kf).any())  # the case reaches NaN factors
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
