@@ -33,8 +33,8 @@ Phases, JSON lines each:
             and factor+solve at 1536/4096 beside the library (+ lu_solve);
             with ``--sweep`` the width/route/tail sweep behind the routing
             defaults of utils/config.py;
-5. kernels  one line for all eleven kernel functions (launches, error,
-            times, bound).
+5. kernels  one line for every kernel function and route (launches,
+            error, times, bound, library time).
 
 The batched small-matrix path adds, in the same order:
 
@@ -46,7 +46,13 @@ The batched small-matrix path adds, in the same order:
             batches of 1, 3, 37, 1000 and 1001, pivot on/off, zeroed
             columns, exact ties, inf and NaN in a pivot row: ipiv, perm,
             info equal, one launch on the route, factors and solutions
-            bitwise equal (NaN for NaN);
+            bitwise equal (NaN for NaN); the solve kernel on its shape's
+            route (the warp route at n <= 32) and forced onto the block
+            route: n = 1, 8, 15, 16, 17, 31, 32 (64, 128 on the block
+            route), batches of 1, 3, 37 and 1001, no row order, perm or
+            ipiv, a vector, one and five right-hand sides, a zero on U's
+            diagonal: solutions bitwise equal NaN for NaN, one launch on
+            the route;
 3b. batched the four public functions at B = 10 000, n = 16 (warp
             route), 64 and 128 (block route), f32, plus the noswap kernel
             as its caller reaches it, and a tall batch of 1000 x 300 x 24
@@ -57,13 +63,16 @@ The batched small-matrix path adds, in the same order:
             torch.linalg.lu_factor_ex's (f64: everywhere; f32: in all but
             at most 10 matrices, each a near tie of the two candidates at
             its first differing step), info exact on zeroed columns, one
-            launch per call on the shape's route, no TF32 on the
+            launch per call on the shape's route (the solve's too: warp
+            at n = 16, block at 64 and 128), no TF32 on the
             library-route solve;
 4b. timing  the swap kernel on its own route and on the tile route,
             noswap, solve and factor+solve at n = 8/16/24/32/48/64/96/128,
             B = 10 000, in turns beside torch.linalg.lu_factor_ex and
-            lu_solve, f64 at n = 64, the tall batch; the plain versions
-            once; per route the plan (threads, matrices per block, shared
+            lu_solve, f64 at n = 64, the tall batch, the solve on its
+            own route beside the block route forced and lu_solve (device
+            times; eight right-hand sides at n = 16 and 32); the plain
+            versions once; per route the plan (threads, matrices per block, shared
             memory, registers, local memory, resident blocks per SM and
             what caps them, waves) and at n = 16/32/64/128 a step's
             phases from the trace build (csrc/batched_lu.cu compiled with
@@ -73,11 +82,15 @@ The batched small-matrix path adds, in the same order:
 The complex and half-precision path adds:
 
 2c. kernel  the complex panel kernel (csrc/panel_lu_c64.cu) against its
-            plain version on the real and imaginary planes: complex64 and
-            complex128, the main path's panel shapes, a whole 512 x 512
-            matrix, a ragged tall and a fat panel, pivot on/off, a zeroed
-            column, exact CABS1 ties, a NaN candidate: ipiv, perm and
-            info equal, factors bitwise equal;
+            plain version on the real and imaginary planes, on its cluster
+            route: every block width b and cluster size C on a ragged
+            1000 x 100 panel, complex64 and complex128, the main path's
+            panel shapes, a whole 512 x 512 matrix, a ragged tall and a
+            fat panel, a column block, pivot on/off, a zeroed column,
+            exact CABS1 ties, NaN in re, in im and at row m - 1 (every
+            later pivot row m - 1); on its grid route forced and on
+            panels too tall for a cluster: ipiv, perm and info equal,
+            factors bitwise equal, the route counted;
 3c. main    ``lu`` + ``lu_solve`` (N, T, H) on complex64 at n=1536 (the
             entry matrix, plain randn, a zeroed column) and n=4096, on
             complex128 at 1536, and on bfloat16/float16 at 1536 through
@@ -87,8 +100,11 @@ The complex and half-precision path adds:
             part, the two candidates of the first differing step must tie
             to n*eps in a complex128 elimination), half pivots equal to
             the float32 run's;
-4c. timing  the complex kernel per panel shape, complex64 factor and
-            factor+solve at 1536/4096 in turns beside the library.
+4c. timing  the complex kernel per panel shape on both routes in turns
+            beside the library, a step's phases from the chain trace,
+            complex64 factor and factor+solve at 1536/4096 and complex128
+            at 1536 in turns beside the library; ``--sweep`` adds the
+            complex b x C sweep behind the complex entries of plan_for.
 
 The opt-in schedules and the RBT solver add:
 
@@ -193,13 +209,18 @@ BATCHED_KERNELS = {
                         "recursivefactorization_jl_tpu/ops/batched_kernel.py:78"),
     "batched_lu_noswap": ("recursivefactorization_jl_tpu_torch/csrc/batched_lu.cu",
                           "recursivefactorization_jl_tpu/ops/batched_kernel.py:78"),
+    # the solve's two routes (ops/batched_kernel.py solve_route): the block
+    # per matrix (n > 32) and the warp per matrix (n <= 32)
     "batched_solve": ("recursivefactorization_jl_tpu_torch/csrc/batched_solve.cu",
                       "recursivefactorization_jl_tpu/ops/batched_kernel.py:415"),
+    "batched_solve_warp": ("recursivefactorization_jl_tpu_torch/csrc/batched_solve.cu",
+                           "recursivefactorization_jl_tpu/ops/batched_kernel.py:415"),
 }
 OFFSET_KERNEL = ("recursivefactorization_jl_tpu_torch/csrc/panel_lu.cu",
                  "recursivefactorization_jl_tpu/ops/panel.py:1278")
 BATCH_B = 10000
 ROUTE_KERNEL = {"warp": "batched_lu_warp", "block": "batched_lu_block", "tile": "batched_lu_swap"}
+SOLVE_KERNEL = {"warp": "batched_solve_warp", "block": "batched_solve"}
 # the tall batch that takes the tile route on the main path
 TALL_B, TALL_SHAPE = 1000, (300, 24)
 # the tp_ranks phase: D = 2 gloo ranks on the one card
@@ -401,10 +422,17 @@ def profile(rt, card, gen, dev, tp_mesh):
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
-    def run(factor, solve, **what):
+    def run(factor, solve, expect=(), **what):
+        """Profile one factor + solve; ``expect`` names kernels (substrings)
+        the device rows must hold.  Only CUDA activity is recorded: with CPU
+        activity on too, the profiler dropped the batched factor kernel of
+        the window (PERF.md).  A small kernel opens the window, so that a
+        record lost at the start would be that one."""
         solve(factor())
         torch.cuda.synchronize()
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device=dev).add_(1)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             F = factor()
             torch.cuda.synchronize()
@@ -412,14 +440,18 @@ def profile(rt, card, gen, dev, tp_mesh):
             solve(F)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
+        # (busy time includes the opening fill and add of one element, ~2 us)
         rows = device_rows(prof)
         busy = sum(r[0] for r in rows)
         wall = (t2 - t0) * 1e3
+        missing = [k for k in expect if not any(k in r[2] for r in rows)]
         emit("profile", card=card, factor_wall_ms=(t1 - t0) * 1e3,
              solve_wall_ms=(t2 - t1) * 1e3, device_busy_ms=busy,
              idle_share=1 - busy / wall if wall > 0 else None,
              top=[{"ms": r[0], "calls": r[1], "name": r[2]} for r in rows[:12]],
-             **what)
+             expected_kernels=list(expect), missing_kernels=missing, **what)
+        if missing:
+            fail(f"profile: kernels {missing} not recorded ({what})")
 
     for n, dt in ((1536, torch.float32), (4096, torch.float32),
                   (1536, torch.complex64), (4096, torch.complex64)):
@@ -442,15 +474,16 @@ def profile(rt, card, gen, dev, tp_mesh):
     run(lambda: rt.butterfly_solve(rt.butterfly_workspace(M, v)),
         lambda x: rt.butterfly_solve(rt.butterfly_workspace(M, v)), n=n,
         dtype="float32", path="rbt (both halves: workspace + transform + factor + solve)")
-    for n in (64, 128):
+    for n in (16, 64, 128):
         A = torch.randn(BATCH_B, n, n, generator=gen).to(dev)
         b = torch.randn(BATCH_B, n, generator=gen).to(dev)
+        both = ("batched_lu_", "batched_solve_")
         run(lambda: rt.batched_lu_factor_perm(A),
             lambda F: rt.batched_lu_solve_perm(F[0], F[1], b),
-            path="batched_perm", batch=BATCH_B, n=n)
+            expect=both, path="batched_perm", batch=BATCH_B, n=n)
         run(lambda: rt.batched_lu_factor(A),
             lambda F: rt.batched_lu_solve(F[0], F[1], b),
-            path="batched_ipiv", batch=BATCH_B, n=n)
+            expect=both, path="batched_ipiv", batch=BATCH_B, n=n)
     n = 4096
     M = torch.randn(n, n, generator=gen).to(dev)
     v = torch.randn(n, generator=gen).to(dev)
@@ -680,6 +713,12 @@ def main(argv):
                     block=-1, grid_route=True)
 
         # ---- 2c. the complex kernel vs plain ---------------------------------
+        # csrc/panel_lu_c64.cu on its cluster route (csrc/panel_cluster.cuh with
+        # a complex element) and its grid route, against unblocked_lu_cabs1:
+        # every plan b x C on a ragged panel, the main path's panels, ties, a
+        # zeroed column, NaN in re, in im and at row m - 1 (the pivot row is
+        # then m - 1), pivot on and off, complex64 and complex128, the grid
+        # route forced and on panels too tall for a cluster
         def crandn(m, w, dt):
             real = torch.float32 if dt == torch.complex64 else torch.float64
             return torch.complex(torch.randn(m, w, generator=gen, dtype=real),
@@ -689,19 +728,10 @@ def main(argv):
             return bits(torch.view_as_real(t).contiguous())
 
         c64, c128 = torch.complex64, torch.complex128
-        ccases = []
-        for (m, w) in shapes:  # the main path's panels: the plain version once per case
-            ccases += [((m, w), c64, "randn", True), ((m, w), c64, "zero_col", True),
-                       ((m, w), c128, "randn", True)]
-        ccases += [((512, 512), c64, "randn", True), ((512, 512), c64, "randn", False),
-                   ((512, 512), c128, "zero_col", False)]
-        for (m, w) in ((777, 130), (130, 300)):  # ragged tall, fat
-            for dt in (c64, c128):
-                ccases += [((m, w), dt, "randn", True), ((m, w), dt, "randn", False),
-                           ((m, w), dt, "zero_col", True), ((m, w), dt, "ties", True),
-                           ((m, w), dt, "nan", True)]
-        max_err_c = 0.0
-        for (m, w), dt, name, pivot in ccases:
+        max_err_c = {"cluster": 0.0, "grid": 0.0}
+        cplans_run = set()
+
+        def complex_input(name, m, w, dt, pivot):
             X = crandn(m, w, dt)
             if name == "ties":
                 real = X.real.dtype
@@ -711,29 +741,93 @@ def main(argv):
                 X += max(m, w) * torch.eye(m, w, dtype=dt)
             if name == "zero_col":
                 X[:, min(5, w - 1)] = 0
-            if name == "nan":
+            if name == "nan_re":
                 X[m // 2, 7] = complex(float("nan"), 1.0)
-            A = X.to(dev)
-            f_p, piv_p, perm_p, info_p = unblocked_lu_cabs1(A, pivot)
-            P = A.clone()
-            piv_k, perm_k, info_k = panel_factor_c64_cuda(P, pivot)
+            if name == "nan_im":
+                X[m // 2, 7] = complex(1.0, float("nan"))
+            if name == "nan_last_row":
+                X[m - 1, 7] = complex(float("nan"), 1.0)
+            return X
+
+        def check_cpanel(A, pivot, what, block=0, cluster=0, grid_route=False, view=None):
+            """Factor complex ``A`` (or the ``view`` of it) with the kernel and
+            compare with unblocked_lu_cabs1; returns the launch's plan."""
+            X = A if view is None else view(A)
+            f_p, piv_p, perm_p, info_p = unblocked_lu_cabs1(X, pivot)
+            W = A.clone()
+            P = W if view is None else view(W)
+            m, w = P.shape
+            plan = panel_plan(m, w, P.dtype, block=block, cluster=cluster)
+            g0 = panel_factor_c64_cuda.grid_route_launches
+            piv_k, perm_k, info_k = panel_factor_c64_cuda(P, pivot, block=block, cluster=cluster)
             torch.cuda.synchronize()
             same = {
                 "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
                 "perm_equal": bool(torch.equal(perm_k, perm_p)),
                 "info_equal": int(info_k) == int(info_p),
                 "bitwise": bool(torch.equal(cbits(P), cbits(f_p))),
+                "route_as_expected": (panel_factor_c64_cuda.grid_route_launches - g0
+                                      == int(grid_route)) and plan["route"] == (
+                                          "grid" if grid_route else "cluster"),
             }
-            if name == "nan":
+            if view is not None:
+                rest = torch.ones(A.shape, dtype=torch.bool, device=dev)
+                view(rest).fill_(False)
+                same["rest_untouched"] = bool(torch.equal(cbits(W[rest]), cbits(A[rest])))
+            if what.startswith("nan") and pivot and w > 7 and m > 8:
                 same["nan_rows_pivot_last"] = bool((piv_k[7:] == m - 1).all())
+            if what.startswith("zero_col") and min(m, w) > 5:
+                same["info_as_expected"] = int(info_k) == (6 if pivot else -6)
             err = float(torch.view_as_real(P - f_p).abs().nan_to_num(0.0, 0.0, 0.0).max())
-            max_err_c = max(max_err_c, err)
-            emit("kernel", kernel="panel_lu_c64", shape=[m, w], dtype=str(dt)[6:],
-                 input=name, pivot=pivot, info=int(info_k), max_abs_err=err, **same)
+            key = plan["route"]
+            max_err_c[key] = max(max_err_c[key], err)
+            emit("kernel", kernel="panel_lu_c64", shape=[m, w], lda=P.stride(0),
+                 dtype=str(P.dtype)[6:], input=what, pivot=pivot, plan=plan, info=int(info_k),
+                 max_abs_err=err, **same)
             if not all(same.values()):
                 fail(f"complex kernel disagrees with its plain version: {same}")
-            if name == "zero_col" and int(info_k) != (6 if pivot else -6):
-                fail(f"zeroed column 5 gave info {int(info_k)}")
+            return plan
+
+        for dt in (c64, c128):
+            X = complex_input("zero_col", 1000, 100, dt, True).to(dev)
+            for b in (8, 16, 32, 64, 100):
+                for C in (1, 2, 4, 8, 16):
+                    try:
+                        panel_plan(1000, 100, dt, block=b, cluster=C)
+                    except RuntimeError:
+                        continue  # this (b, C) does not fit the card
+                    check_cpanel(X, True, f"zero_col, b={b}, C={C}", block=b, cluster=C)
+                    cplans_run.add((str(dt)[6:], b, C))
+            X = complex_input("nan_re", 1000, 100, dt, True).to(dev)
+            for b, C in ((8, 1), (16, 2), (32, 4), (100, 16)):
+                check_cpanel(X, True, f"nan_re, b={b}, C={C}", block=b, cluster=C)
+        if not {b for _, b, _ in cplans_run} >= {8, 16, 32, 64, 100} or \
+                not {C for _, _, C in cplans_run} >= {1, 2, 4, 8, 16}:
+            fail(f"the complex plan cases missed a block width or a cluster size: "
+                 f"{sorted(cplans_run)}")
+        ccases = []
+        for (m, w) in shapes:  # the main path's panels: the plain version once per case
+            ccases += [((m, w), c64, "randn", True), ((m, w), c64, "zero_col", True),
+                       ((m, w), c128, "randn", True), ((m, w), c64, "nan_re", True)]
+        ccases += [((512, 512), c64, "randn", True), ((512, 512), c64, "randn", False),
+                   ((512, 512), c128, "zero_col", False)]
+        for (m, w) in ((777, 130), (130, 300)):  # ragged tall, fat
+            for dt in (c64, c128):
+                ccases += [((m, w), dt, "randn", True), ((m, w), dt, "randn", False),
+                           ((m, w), dt, "zero_col", True), ((m, w), dt, "zero_col", False),
+                           ((m, w), dt, "ties", True), ((m, w), dt, "nan_re", True),
+                           ((m, w), dt, "nan_im", True), ((m, w), dt, "nan_last_row", True)]
+        for (m, w), dt, name, pivot in ccases:
+            A = complex_input(name, m, w, dt, pivot).to(dev)
+            check_cpanel(A, pivot, name)
+            if (m, w) == (777, 130):  # the same cases on the grid route, forced
+                check_cpanel(A, pivot, f"{name}, forced grid", block=-1, grid_route=True)
+        M = crandn(2048, 2048, c64).to(dev)
+        check_cpanel(M, True, "column block", view=lambda t: t[512:, 512:1024])
+        del M
+        # too tall for a cluster of 16 even at b = 8: the grid route
+        check_cpanel(crandn(60000, 8, c64).to(dev), True, "randn, tall", grid_route=True)
+        check_cpanel(crandn(30000, 8, c128).to(dev), True, "randn, tall", grid_route=True)
         for bad in (torch.zeros(8, 4, device=dev), torch.zeros(8, 4, dtype=c64),
                     torch.zeros(8, 4, device=dev, dtype=c64).T):
             try:
@@ -741,6 +835,22 @@ def main(argv):
             except ValueError:
                 continue
             fail(f"panel_factor_c64_cuda took {tuple(bad.shape)} {bad.dtype} {bad.device}")
+        for bad in (lambda: panel_plan(64, 8, c64, ofs=0),
+                    lambda: panel_plan(64, 8, torch.int32),
+                    lambda: panel_factor_c64_cuda(torch.zeros(64, 8, device=dev, dtype=c64),
+                                                  True, block=True)):
+            try:
+                bad()
+            except ValueError:
+                continue
+            fail("the complex plan took a request it must refuse")
+        try:  # a slab too large for one CTA
+            panel_factor_c64_cuda(torch.zeros(1000, 100, device=dev, dtype=c128), True,
+                                  block=64, cluster=1)
+        except RuntimeError:
+            pass
+        else:
+            fail("the complex kernel took a plan that does not fit the card")
 
         # ---- 2d. the micro-blocked and the no-swap kernels vs plain -----------
         micro_wrappers = {"panel_lu_micro_shadow": panel_factor_shadow_cuda,
@@ -1119,37 +1229,67 @@ def main(argv):
                          max_abs_err=err, **same)
                     if not all(same.values()):
                         fail(f"{kern} disagrees with its plain version: {same}")
-    for (B, n) in ((1000, 16), (1000, 64), (37, 128)):
+    # the solve kernel on each shape's own route (ops/batched_kernel.py
+    # solve_route: warp at n <= 32) and forced onto the block route: the warp
+    # route's lane counts (1, 8, 15, 16, 17, 31, 32), batches that are not a
+    # multiple of its matrices per block, no row order, perm or ipiv, one
+    # right-hand side as a vector, as a column and 5 (one full and one
+    # partial pass of 4), a zero on U's diagonal in one matrix of each batch
+    # (inf / NaN there and only there); n = 64, 128 on the block route
+    solve_cases = [(B, n) for n in (1, 8, 15, 16, 17, 31, 32) for B in (1, 3, 37, 1001)]
+    solve_cases += [(1000, 64), (37, 128)]
+    solve_err = {"warp": 0.0, "block": 0.0}
+    for (B, n) in solve_cases:
         for dt in (torch.float32, torch.float64):
             A, _ = batch_input("randn", B, n, n, dt, True)
-            A[5, :, n // 3] = 0  # a singular matrix: inf/nan there and only there
             f, ipiv, perm, info = bk.batched_lu_cuda(A, True, True)
-            for nrhs in (None, 3):
+            sing = B // 2
+            f[sing, n // 2, n // 2] = 0  # a zero on U's diagonal
+            ok_rows = torch.ones(B, dtype=torch.bool, device=dev)
+            ok_rows[sing] = False
+            own = bk.solve_route(n, 1)
+            for nrhs in (None, 1, 5):
                 b = torch.randn((B, n) if nrhs is None else (B, n, nrhs),
                                 generator=gen, dtype=dt).to(dev)
-                x_p = bk.batched_solve_plain(f, b)
-                x_k = bk.batched_solve_cuda(f, b)
-                xp_p = bk.batched_solve_plain(f, b, perm=perm)
-                xp_k = bk.batched_solve_cuda(f, b, perm=perm)
-                xi_k = bk.batched_solve_cuda(f, b, ipiv=ipiv)
-                torch.cuda.synchronize()
-                ok_rows = info == 0
-                finite_k = torch.isfinite(x_k.reshape(B, -1)).all(dim=1)
-                same = {
-                    "bitwise_nonsingular": same_bits(x_k[ok_rows], x_p[ok_rows]),
-                    "bitwise_with_perm": same_bits(xp_k[ok_rows], xp_p[ok_rows]),
-                    "bitwise_with_ipiv": same_bits(xi_k[ok_rows], xp_p[ok_rows]),
-                    "nonfinite_same_place": bool(torch.equal(
-                        torch.isfinite(x_k), torch.isfinite(x_p))),
-                    "nonfinite_only_where_singular": bool(torch.equal(finite_k, ok_rows)),
-                }
-                err = abs_err(x_k[ok_rows], x_p[ok_rows])
-                batched_err["batched_solve"] = max(batched_err["batched_solve"], err)
-                n_cases += 1
-                emit("batched_kernel", kernel="batched_solve", shape=[B, n, n],
-                     rhs=list(b.shape), dtype=str(dt)[6:], max_abs_err=err, **same)
-                if not all(same.values()):
-                    fail(f"batched_solve disagrees with its plain version: {same}")
+                want = {"none": bk.batched_solve_plain(f, b),
+                        "perm": bk.batched_solve_plain(f, b, perm=perm)}
+                want["ipiv"] = want["perm"]
+                for route in dict.fromkeys((own, "block")):
+                    for order, kw in (("none", {}), ("perm", {"perm": perm}),
+                                      ("ipiv", {"ipiv": ipiv})):
+                        before = dict(bk.batched_solve_cuda.route_launches)
+                        x_k = bk.batched_solve_cuda(f, b, route=route, **kw)
+                        torch.cuda.synchronize()
+                        after = bk.batched_solve_cuda.route_launches
+                        x_p = want[order]
+                        finite_k = torch.isfinite(x_k.reshape(B, -1)).all(dim=1)
+                        same = {
+                            "bitwise": same_bits(x_k, x_p),
+                            "nonfinite_only_where_singular": bool(torch.equal(
+                                finite_k, ok_rows)),
+                            "one_launch_on_route": after[route] - before[route] == 1
+                            and sum(after.values()) - sum(before.values()) == 1,
+                        }
+                        err = abs_err(x_k[ok_rows], x_p[ok_rows])
+                        solve_err[route] = max(solve_err[route], err)
+                        kern = "batched_solve_warp" if route == "warp" else "batched_solve"
+                        batched_err[kern] = max(batched_err[kern], err)
+                        n_cases += 1
+                        emit("batched_kernel", kernel=kern, shape=[B, n, n],
+                             rhs=list(b.shape), order=order, route=route,
+                             dtype=str(dt)[6:], max_abs_err=err, **same)
+                        if not all(same.values()):
+                            fail(f"batched_solve ({route} route) disagrees with its plain "
+                                 f"version: {same}")
+    for bad in (lambda: bk.batched_solve_cuda(torch.zeros(4, 33, 33, device=dev),
+                                              torch.zeros(4, 33, device=dev), route="warp"),
+                lambda: bk.batched_solve_cuda(torch.zeros(4, 8, 8, device=dev),
+                                              torch.zeros(4, 8, device=dev), route="tile")):
+        try:
+            bad()
+        except ValueError:
+            continue
+        fail("batched_solve_cuda took a route that does not take the shape")
     # what the wrappers refuse, and a strided batch (copied, not refused)
     for bad in (torch.zeros(4, 8, 8, device=dev, dtype=torch.float16),
                 torch.zeros(4, 129, 129, device=dev),
@@ -1241,11 +1381,16 @@ def main(argv):
         and the events around queued calls measure the host."""
         fn()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        return sum(r[0] for r in device_rows(prof)) / calls
+        for _ in range(3):  # the profiler once recorded none of a window's kernels
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            busy = sum(r[0] for r in device_rows(prof))
+            if busy > 0:
+                return busy / calls
+        fail("device_ms: the profiler recorded no kernel in three windows")
 
     def batched_timing():
         """Phase 4b: the swap kernel on its own route and on the tile route
@@ -1278,6 +1423,16 @@ def main(argv):
             }
             if route != "tile":
                 fns["swap_tile"] = lambda: bk.batched_lu_cuda(A, True, True, route="tile")
+            solve_route = bk.solve_route(n, 1)
+            if solve_route != "block":
+                # the solve's block route (the PR 2 design) on the same inputs
+                fns["solve_block"] = lambda: bk.batched_solve_cuda(f, rhs, route="block")
+            if n in (16, 32):
+                # eight right-hand sides: two passes of the warp route
+                rhs8 = torch.randn(BATCH_B, n, 8, generator=gen).to(dev)
+                fns["solve_nrhs8"] = lambda: bk.batched_solve_cuda(f, rhs8)
+                fns["solve_block_nrhs8"] = lambda: bk.batched_solve_cuda(f, rhs8, route="block")
+                fns["library_solve_nrhs8"] = lambda: torch.linalg.lu_solve(f, ident, rhs8)
             fns.update({
                 "noswap": lambda: bk.batched_lu_noswap_cuda(A, True),
                 "solve": lambda: bk.batched_solve_cuda(f, rhs),
@@ -1292,8 +1447,9 @@ def main(argv):
                 "library_factor_solve": lib_fs,
             })
             t = round_robin(fns, inner=4)
-            dev_t = {k: device_ms(fns[k]) for k in ("swap", "swap_tile", "noswap", "solve",
-                                                     "library_factor", "library_solve")
+            dev_t = {k: device_ms(fns[k]) for k in (
+                "swap", "swap_tile", "noswap", "solve", "solve_block", "library_factor",
+                "library_solve", "solve_nrhs8", "solve_block_nrhs8", "library_solve_nrhs8")
                      if k in fns}
             plain = {
                 "swap": timed(lambda: bk.batched_lu_plain(A, True, True), reps=1, warm=0)[0],
@@ -1310,13 +1466,16 @@ def main(argv):
             swaps = [k for k in ("swap", "swap_tile") if k in t]
             rows[n] = dict(t=t, dev=dev_t, plain=plain, bounds=bounds, route=route)
             emit("timing", what="batched", card=card, batch=BATCH_B, n=n,
-                 dtype="float32", route=route, kernel_ms=t, device_ms=dev_t, plain_ms=plain,
+                 dtype="float32", route=route, solve_route=solve_route, kernel_ms=t,
+                 device_ms=dev_t, plain_ms=plain,
                  bound_ms={k: v[0] for k, v in bounds.items()},
                  bound_by={k: v[1] for k, v in bounds.items()},
                  launches_per_timing=4,
                  us_per_step={k: 1e3 * t[k] / n for k in swaps},
                  over_library={k: t[k] / t["library_factor"] for k in swaps},
                  device_over_library={k: dev_t[k] / dev_t["library_factor"] for k in swaps},
+                 solve_device_over_library={k: dev_t[k] / dev_t["library_solve"] for k in
+                                            ("solve", "solve_block") if k in dev_t},
                  noswap_over_swap=t["noswap"] / t["swap"])
             for r, plan in plans.items():
                 emit("timing", what="batched_plan", card=card, batch=BATCH_B, n=n,
@@ -1365,11 +1524,26 @@ def main(argv):
         for i, ln in enumerate(log):
             if "Compiling entry" in ln and ("batched_lu_warp" in ln or "batched_lu_block" in ln):
                 lines.append(" | ".join(x.strip() for x in log[i:i + 4]))
+        slog = _kernels.BUILD_LOG.get("batched_solve", {}).get("log", "").splitlines()
+        for i, ln in enumerate(slog):
+            if "Compiling entry" in ln and "batched_solve_warp" in ln:
+                lines.append(" | ".join(x.strip() for x in slog[i:i + 4]))
+        # the LU's warp route has no local memory at all; the solve's warp
+        # kernels may keep a few bytes of frame around the division's
+        # slow-path call, but never room for their row of N values
+        def frame(ln):
+            return int(ln.split(" bytes stack frame")[0].rsplit("|", 1)[-1].strip())
+
+        def row_bytes(ln):
+            name = ln.split("batched_solve_warp_kernelI", 1)[1]
+            return (8 if name[0] == "d" else 4) * int(name.split("Li", 1)[1].split("E", 1)[0])
+
         spills = [ln for ln in lines if "batched_lu_warp" in ln
                   and not ("0 bytes stack frame" in ln and "0 bytes spill stores" in ln)]
+        spills += [ln for ln in lines if "batched_solve_warp" in ln and frame(ln) >= row_bytes(ln)]
         emit("timing", what="batched_ptxas", card=card, lines=lines, warp_route_spills=spills)
         if spills:
-            fail(f"warp route kernels use local memory: {spills}")
+            fail(f"warp route kernels keep their rows in local memory: {spills}")
         return rows
 
     if batched_only:
@@ -1522,13 +1696,16 @@ def main(argv):
         watch = TF32Watch()
         panel_factor_cuda.launches = 0
         panel_factor_c64_cuda.launches = 0
+        panel_factor_c64_cuda.grid_route_launches = 0
         with watch:
             F = rt.lu(A, check=False)
             xs = {t: rt.lu_solve(F, b, trans=t) for t in ("N", "T", "H")}
             torch.cuda.synchronize()
         got = {"panel_lu": panel_factor_cuda.launches,
-               "panel_lu_c64": panel_factor_c64_cuda.launches}
-        want = {"panel_lu": 0 if cplx else expect, "panel_lu_c64": expect if cplx else 0}
+               "panel_lu_c64": panel_factor_c64_cuda.launches,
+               "panel_lu_c64_grid_route": panel_factor_c64_cuda.grid_route_launches}
+        want = {"panel_lu": 0 if cplx else expect, "panel_lu_c64": expect if cplx else 0,
+                "panel_lu_c64_grid_route": 0}
         launches_c[(n, name, dt)] = got["panel_lu_c64"]
         r, g = resid_gate(A, F)
         ops = {"N": A, "T": A.T, "H": A.mH}
@@ -1760,19 +1937,17 @@ def main(argv):
     del Ae, be, ws, xr, xp
 
     # ---- 3b. the batched path -------------------------------------------
-    wrappers = {"batched_lu_noswap": bk.batched_lu_noswap_cuda,
-                "batched_solve": bk.batched_solve_cuda}
-
     def reset_batched_counts():
         bk.reset_lu_launches()
-        for w in wrappers.values():
-            w.launches = 0
+        bk.reset_solve_launches()
+        bk.batched_lu_noswap_cuda.launches = 0
 
     def batched_counts():
-        """Launches per kernel since the last reset: the swap kernel's by
-        route (one kernel function each), the noswap and solve kernels'."""
+        """Launches per kernel since the last reset: the swap and solve
+        kernels' by route (one kernel function each), the noswap kernel's."""
         got = {ROUTE_KERNEL[r]: c for r, c in bk.batched_lu_cuda.route_launches.items()}
-        got.update({k: w.launches for k, w in wrappers.items()})
+        got["batched_lu_noswap"] = bk.batched_lu_noswap_cuda.launches
+        got.update({SOLVE_KERNEL[r]: c for r, c in bk.batched_solve_cuda.route_launches.items()})
         return got
 
     def batch_resid(A, f, perm):
@@ -1833,9 +2008,9 @@ def main(argv):
         torch.cuda.synchronize()
         got = batched_counts()
         batched_launches[n] = got
-        expect = {k: 0 for k in ROUTE_KERNEL.values()}
+        expect = {k: 0 for k in got}
         expect.update({ROUTE_KERNEL[bk.lu_route(n, n)]: 3, "batched_lu_noswap": 1,
-                       "batched_solve": 3})
+                       SOLVE_KERNEL[bk.solve_route(n, 1)]: 3})
         rec = dict(batch=BATCH_B, n=n, dtype="float32", launches=got,
                    expected_launches=expect)
         # what the path's launches returned, against the plain versions on
@@ -1859,7 +2034,8 @@ def main(argv):
         full_err[n] = {
             ROUTE_KERNEL[bk.lu_route(n, n)]: max(abs_err(f1, fp), abs_err(f2, fp)),
             "batched_lu_noswap": abs_err(f3, fn),
-            "batched_solve": max(abs_err(x1, xp1), abs_err(x2, xp2), abs_err(x3, xp3)),
+            SOLVE_KERNEL[bk.solve_route(n, 1)]: max(abs_err(x1, xp1), abs_err(x2, xp2),
+                                                    abs_err(x3, xp3)),
         }
         rec["max_abs_err_vs_plain"] = full_err[n]
         del fp, fn, xp1, xp2, xp3
@@ -2044,7 +2220,8 @@ def main(argv):
     x0 = rt.batched_lu_solve(f0, ipiv0, b)
     r, g = batch_resid(A, f, rt.batched_ipiv_to_perm(ipiv, 64))
     want = {k: 0 for k in got}
-    want.update({ROUTE_KERNEL[bk.lu_route(64, 64)]: 1, "batched_solve": 1})
+    want.update({ROUTE_KERNEL[bk.lu_route(64, 64)]: 1,
+                 SOLVE_KERNEL[bk.solve_route(64, 1)]: 1})
     rec = dict(batch=BATCH_B, n=64, dtype="float32", ranks=1, launches=got,
                expected_launches=want,
                equal_to_unsharded=same_bits(f, f0) and same_bits(x, x0)
@@ -2139,17 +2316,18 @@ def main(argv):
     # clock64() at each phase boundary (rf_panel_lu_set_trace), one run
     phases = ("reduce", "publish", "barrier", "agree", "swap", "update")
 
-    def chain_trace(what, shape, run, plan):
+    def chain_trace(what, shape, run, plan, set_trace=None):
+        set_trace = set_trace or lib_panel.rf_panel_lu_set_trace
         steps = min(shape[0] - shape[2], shape[1])
         buf = torch.zeros(steps * 7 + 4 * plan["blocks"], dtype=torch.int64, device=dev)
         run()  # warm
         torch.cuda.synchronize()
-        lib_panel.rf_panel_lu_set_trace(buf.data_ptr())
+        set_trace(buf.data_ptr())
         try:
             run()
             torch.cuda.synchronize()
         finally:
-            lib_panel.rf_panel_lu_set_trace(None)
+            set_trace(None)
         t = buf.cpu().double()
         st = t[:steps * 7].view(steps, 7)
         ends = t[steps * 7:].view(plan["blocks"], 4)
@@ -2157,7 +2335,8 @@ def main(argv):
         ns = {name: float((st[:, i + 1] - st[:, i]).median()) / ghz
               for i, name in enumerate(phases)}
         emit("timing", what="chain_trace", card=card, kernel=what, shape=list(shape[:2]),
-             ofs=shape[2], plan=plan, sm_ghz=ghz, phase_ns_median=ns,
+             ofs=shape[2], dtype=shape[3] if len(shape) > 3 else "float32", plan=plan,
+             sm_ghz=ghz, phase_ns_median=ns,
              step_ns_median=float((st[:, 6] - st[:, 0]).median()) / ghz,
              chain_kernels_ms=float((ends[:, 2] - ends[:, 0]).sum()) / 1e6)
 
@@ -2172,6 +2351,14 @@ def main(argv):
         chain_trace("panel_lu_offset", (H_o, w_o, ofs),
                     lambda: offset_panel_factor_cuda(P.copy_(X), ofs, True),
                     panel_plan(H_o, w_o, torch.float32, ofs=ofs))
+    lib_c64 = _kernels.load("panel_lu_c64")
+    for (m, w) in shapes:
+        for dt in (c64, c128):
+            X = crandn(m, w, dt).to(dev)
+            P = X.clone()
+            chain_trace("panel_lu_c64", (m, w, 0, str(dt)[6:]),
+                        lambda: panel_factor_c64_cuda(P.copy_(X), True),
+                        panel_plan(m, w, dt), lib_c64.rf_panel_lu_c_set_trace)
     del X, P
 
     # the panel kernel per main-path panel, in turns beside PR 4's grid-barrier
@@ -2197,6 +2384,8 @@ def main(argv):
         kernel_rows.append(row)
         emit("timing", what="panel_kernel", card=card, **row)
 
+    # the complex kernel per panel on its cluster route and, forced, on its
+    # grid route (the PR 3 design), in turns beside the library
     ckernel_rows = []
     for (m, w) in shapes + [(512, 512)]:
         for dt in (c64, c128):
@@ -2204,17 +2393,23 @@ def main(argv):
                 continue
             X = crandn(m, w, dt).to(dev)
             P = torch.empty_like(X)
-            reset = lambda: P.copy_(X)  # noqa: E731
-            k_ms, _ = timed(lambda: panel_factor_c64_cuda(P, True), reset, reps=10)
-            p_ms, _ = timed(lambda: unblocked_lu_cabs1(X, True), None, reps=1, warm=0)
             with quiet_c_stdout():
-                l_ms, _ = timed(lambda: torch.linalg.lu_factor_ex(P), reset, reps=10)
+                t = round_robin({
+                    "cluster": lambda: panel_factor_c64_cuda(P, True),
+                    "grid": lambda: panel_factor_c64_cuda(P, True, block=-1),
+                    "library": lambda: torch.linalg.lu_factor_ex(P),
+                }, rounds=9, setup=lambda: P.copy_(X))
+            p_ms, _ = timed(lambda: unblocked_lu_cabs1(X, True), None, reps=1, warm=0)
             b_ms, b_by = bound(m, w, str(dt)[6:], X.element_size())
-            row = dict(shape=[m, w], dtype=str(dt)[6:], kernel_ms=k_ms, plain_ms=p_ms,
-                       library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-                       us_per_step=1e3 * k_ms / min(m, w))
+            row = dict(shape=[m, w], dtype=str(dt)[6:], plan=panel_plan(m, w, dt),
+                       kernel_ms=t["cluster"], grid_ms=t["grid"], plain_ms=p_ms,
+                       library_ms=t["library"], bound_ms=b_ms, bound_by=b_by,
+                       us_per_step=1e3 * t["cluster"] / min(m, w),
+                       grid_us_per_step=1e3 * t["grid"] / min(m, w),
+                       grid_over_cluster=t["grid"] / t["cluster"])
             ckernel_rows.append(row)
             emit("timing", what="panel_kernel_c64", card=card, **row)
+            del X, P
 
     def e2e(n, dt=torch.float32):
         cplx = dt.is_complex
@@ -2248,6 +2443,7 @@ def main(argv):
         e2e(4096)
         e2e(1536, c64)
         e2e(4096, c64)
+        e2e(1536, c128)
         # the routing defaults of utils/config.py: panel width, whole-vs-
         # blocked crossover (small_threshold) and the recursive tail, in
         # turns per size
@@ -2406,22 +2602,29 @@ def main(argv):
             del X, P
         if "--sweep" in argv:
             # the cluster route's block width b and cluster size C per live
-            # height and width (csrc/panel_lu.cu plan_for), in turns; b = w is
-            # one slab for the whole panel; "auto" is the launcher's choice
+            # height, width and element type (csrc/panel_cluster.cuh plan_for,
+            # the real and the complex entries of its auto rule), in turns;
+            # b = w is one slab for the whole panel; "auto" is the launcher's
+            # choice
             sweep_plans = [(m, 512, f32) for m in (512, 1024, 1536, 2048, 3072, 4096, 8192)]
             sweep_plans += [(m, 128, f32) for m in (128, 256, 512, 1024, 2048, 4096)]
             sweep_plans += [(m, 512, f64) for m in (1536, 4096)] + [(4096, 128, f64)]
+            sweep_plans += [(m, 512, c64) for m in (512, 1024, 1536, 2048, 4096)]
+            sweep_plans += [(m, 512, c128) for m in (1536, 4096)]
             for m, w, dt in sweep_plans:
-                X = torch.randn(m, w, generator=gen, dtype=dt).to(dev)
+                cplx = dt.is_complex
+                X = (crandn(m, w, dt) if cplx
+                     else torch.randn(m, w, generator=gen, dtype=dt)).to(dev)
                 P = torch.empty_like(X)
-                fns = {"auto": lambda: panel_factor_cuda(P, True)}
+                wrapper = panel_factor_c64_cuda if cplx else panel_factor_cuda
+                fns = {"auto": lambda: wrapper(P, True)}
                 for b in (8, 16, 32, 64, w):
                     for C in (1, 2, 4, 8, 16):
                         try:
                             panel_plan(m, w, dt, block=b, cluster=C)
                         except RuntimeError:
                             continue  # does not fit the card
-                        fns[f"b{b}_C{C}"] = (lambda b=b, C=C: panel_factor_cuda(
+                        fns[f"b{b}_C{C}"] = (lambda b=b, C=C: wrapper(
                             P, True, block=b, cluster=C))
                 t = round_robin(fns, rounds=5, setup=lambda: P.copy_(X))
                 best = min((k for k in t if k != "auto"), key=t.get)
@@ -2472,21 +2675,26 @@ def main(argv):
     }]
     crow = next(r for r in ckernel_rows
                 if r["shape"] == list(main_shape(1536)[1]) and r["dtype"] == "complex64")
-    kernels.append({
-        "name": "panel_lu_c64",
-        "route": "cuda",
-        "source": SOURCE_C64,
-        "replaces": REPLACES_C64,
-        "launches": launches_c[(1536, "entry", c64)],
-        "max_abs_err": max_err_c,
-        "ms": crow["kernel_ms"],
-        "plain_ms": crow["plain_ms"],
-        "bound_ms": crow["bound_ms"],
-        "bound_by": crow["bound_by"],
-        "library_ms": crow["library_ms"],
-        "shape": crow["shape"],
-        "dtype": "complex64",
-    })
+    # the complex kernel's two routes: the cluster route (the main path's)
+    # and the grid route (panels too tall for a cluster; none on the main
+    # path), timed forced on the same panel
+    for name, route, key in (("panel_lu_c64", "cluster", "kernel_ms"),
+                             ("panel_lu_c64_grid", "grid", "grid_ms")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": SOURCE_C64,
+            "replaces": REPLACES_C64,
+            "launches": launches_c[(1536, "entry", c64)] if route == "cluster" else 0,
+            "max_abs_err": max_err_c[route],
+            "ms": crow[key],
+            "plain_ms": crow["plain_ms"],
+            "bound_ms": crow["bound_ms"],
+            "bound_by": crow["bound_by"],
+            "library_ms": crow["library_ms"],
+            "shape": crow["shape"],
+            "dtype": "complex64",
+        })
     # each swap route's kernel at the shape of its own main-path run (the
     # warp route at n = 16, the block route at n = 64, the tile route on the
     # tall batch), the noswap and solve kernels at n = 64
@@ -2494,7 +2702,8 @@ def main(argv):
                                ("batched_lu_block", 64, "swap", "library_factor"),
                                ("batched_lu_swap", "tall", "swap", "library_factor"),
                                ("batched_lu_noswap", 64, "noswap", "library_factor"),
-                               ("batched_solve", 64, "solve", "library_solve")):
+                               ("batched_solve", 64, "solve", "library_solve"),
+                               ("batched_solve_warp", 16, "solve", "library_solve")):
         row = batched_rows[at]
         shape = ([TALL_B, *TALL_SHAPE] if at == "tall"
                  else [BATCH_B, at, at] if key != "solve" else [BATCH_B, at, 1])

@@ -1,0 +1,838 @@
+// The cluster route of the panel kernels: the pivot chain of each block of
+// b columns on one thread-block cluster, then the delayed pass on the whole
+// card.  csrc/panel_lu.cu (f32 / f64, main path and offset kernel) and
+// csrc/panel_lu_c64.cu (complex64 / complex128) instantiate it; the design
+// is described at the top of csrc/panel_lu.cu.
+//
+// The templates take the panel's element type T: float, double, or a
+// complex (re, im) pair, float2 or double2.  rf_common.cuh gives each kind
+// its arithmetic: the magnitude that orders the pivots (|a|, or CABS1
+// |re| + |im|), the reciprocal of the pivot, the product and the
+// difference, each product, sum, difference and quotient rounded once in
+// the plain versions' order.  R = Elem<T>::real is the magnitude's type.
+//
+// The NaN rule differs between the two kinds, as it does between their
+// plain versions.  Real panels (ops/unblocked.py `unblocked_lu`): a NaN
+// candidate wins, the first NaN row.  Complex panels (`unblocked_lu_cabs1`):
+// a NaN among a step's candidates makes the pivot row m - 1, the last row
+// of the panel.  Every CTA of the cluster reduces the same candidates, so
+// every CTA sees the NaN: then the owner of row m - 1 publishes that row
+// and one more cluster barrier, taken by all CTAs together, precedes the
+// swap.  Steps without a NaN pay nothing for the rule.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cstddef>
+
+#include "rf_common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using namespace rf;
+
+constexpr int kChainThreads = 512;
+// dynamic shared memory a chain CTA may take: the SM's 227 KB less room for
+// the kernel's static arrays
+constexpr size_t kSmemMax = 232448 - 1024;
+constexpr int kChainWarps = kChainThreads / 32;
+constexpr int kMaxCluster = 16;
+constexpr int kTile = 32;          // columns per CTA of the delayed pass
+constexpr int kDelayThreads = 256;
+constexpr int kDelayWarps = kDelayThreads / 32;
+constexpr int kUpdRows = 64;       // rows per CTA of the rank-b update
+constexpr int kRouteGrid = 0, kRouteCluster = 1;
+constexpr int kPlanGrid = -1;  // plan_for's answer for the grid route
+
+template <typename T>
+struct ChainArgs {
+  T* a;          // panel, row-major with row stride lda
+  int m, lda, ofs, pivot;
+  int k0;        // the block's first step
+  int nb;        // its steps
+  int ncol;      // the slab's columns (nb, or w when one block takes all)
+  int rows;      // slab rows per CTA
+  int* piv;
+  int* perm;
+  int* info;
+  int* moved;    // [0] count, then (row, row it now holds) pairs
+  // optional phase trace (the set_trace entry points): kTracePhases
+  // clock64() stamps per step from thread 0 of CTA 0, then per block the
+  // kernel's first and last %globaltimer (ns) and clock64()
+  long long* trace;
+  int steps, blk;
+};
+
+constexpr int kTracePhases = 7;
+long long* g_trace = nullptr;
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// A step's pivot candidate as a CTA publishes it to every CTA.
+template <typename R>
+struct Cand {
+  R val;     // its magnitude, -1 for none
+  int idx;   // its global row, INT_MAX for none
+  int pid;   // the perm id travelling with the row
+  int src;   // the row it held when the block began
+};
+
+// Byte offsets of a chain CTA's dynamic shared memory: the slab (rows x B,
+// row stride B), the exchange slots ([2][C] candidate rows, [2] copies of
+// row gk, for complex panels one copy of row m - 1, [2][C] candidates,
+// [2] (pid, src) of row gk, for complex panels (pid, src) of row m - 1),
+// then the slab rows' perm ids and origins.  Real panels have the layout
+// they had before complex ones shared it.
+struct ChainSmem {
+  size_t crow, krow, lrow, cand, kinf, linf, pid, src, total;
+};
+
+template <typename T>
+__host__ __device__ inline ChainSmem chain_smem(int rows, int C, int B) {
+  constexpr size_t sz = sizeof(T);
+  constexpr bool last = Elem<T>::complex;
+  ChainSmem s;
+  size_t o = static_cast<size_t>(rows) * B * sz;
+  s.crow = o; o += static_cast<size_t>(2) * C * B * sz;
+  s.krow = o; o += static_cast<size_t>(2) * B * sz;
+  s.lrow = o; o += last ? static_cast<size_t>(B) * sz : 0;
+  s.cand = o; o += static_cast<size_t>(2) * C * sizeof(Cand<typename Elem<T>::real>);
+  s.kinf = o; o += 16;
+  s.linf = o; o += last ? 8 : 0;
+  s.pid = o; o += static_cast<size_t>(rows) * 4;
+  s.src = o; o += static_cast<size_t>(rows) * 4;
+  s.total = o;
+  return s;
+}
+
+// Store x at `ptr` in the shared memory of cluster CTA d (its own with a
+// cluster of one: a plain shared store).
+template <typename V>
+__device__ __forceinline__ void put(cg::cluster_group cluster, int C, V* ptr, int d,
+                                    const V& x) {
+  if (C == 1) {
+    *ptr = x;
+  } else {
+    *cluster.map_shared_rank(ptr, d) = x;
+  }
+}
+
+// The pivot chain of one block on one cluster (see the note at the top of
+// csrc/panel_lu.cu).  Thread mapping: a group of G = min(B, 32) lanes owns
+// slab rows grp, grp + NG, ...; lane li owns columns li, li + G, ...  The
+// same thread swaps, scales, updates and searches an element within a
+// step, so those need no barrier between them.
+template <typename T, int B>
+__global__ void __launch_bounds__(kChainThreads)
+panel_chain_kernel(ChainArgs<T> p) {
+  using R = typename Elem<T>::real;
+  constexpr bool kLastOnNaN = Elem<T>::complex;
+  constexpr int G = B < 32 ? B : 32;
+  constexpr int PER = B / G;
+  constexpr int NG = kChainThreads / G;
+  // a published row: lane l sends columns l % GW + 32 t (t < VPL) to the
+  // CTAs l / GW, l / GW + DSTEP, ...
+  constexpr int GW = B < 32 ? B : 32;
+  constexpr int VPL = B < 32 ? 1 : B / 32;
+  constexpr int DSTEP = 32 / GW;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ R red_val[kChainWarps];
+  __shared__ int red_idx[kChainWarps];
+
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int R_ = p.rows;
+  const ChainSmem L = chain_smem<T>(R_, C, B);
+  T* slab = reinterpret_cast<T*>(smem_raw);
+  T* crow = reinterpret_cast<T*>(smem_raw + L.crow);
+  T* krow = reinterpret_cast<T*>(smem_raw + L.krow);
+  T* lrow = reinterpret_cast<T*>(smem_raw + L.lrow);
+  Cand<R>* cand = reinterpret_cast<Cand<R>*>(smem_raw + L.cand);
+  int* kinf = reinterpret_cast<int*>(smem_raw + L.kinf);
+  int* linf = reinterpret_cast<int*>(smem_raw + L.linf);
+  int* pid = reinterpret_cast<int*>(smem_raw + L.pid);
+  int* src = reinterpret_cast<int*>(smem_raw + L.src);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = tid / G, li = tid % G;
+  const size_t lda = static_cast<size_t>(p.lda);
+  const int nb = p.nb, ncol = p.ncol, k0 = p.k0;
+  const int r0 = p.ofs + k0;           // global row of slab row 0
+  const int M = p.m - r0;              // slab rows
+  const int s0 = rank * R_;            // this CTA's first slab row
+  const int own = max(0, min(M, s0 + R_) - s0);
+  const bool first = k0 == 0;
+
+  if (first) {  // the rows above the offset never move
+    for (int i = rank * kChainThreads + tid; i < p.ofs; i += C * kChainThreads) p.perm[i] = i;
+  }
+  for (int e = tid; e < own * B; e += kChainThreads) {
+    const int q = e / B, c = e % B;
+    if (c < ncol) slab[e] = p.a[(r0 + s0 + q) * lda + k0 + c];
+  }
+  for (int q = tid; q < own; q += kChainThreads) {
+    const int row = r0 + s0 + q;
+    pid[q] = first ? row : p.perm[row];
+    src[q] = row;
+  }
+  __syncthreads();
+
+  // step 0's candidate: column 0 is lane 0 of each group
+  R best = R(-1);
+  int bi = INT_MAX;
+  if (p.pivot && li == 0) {
+    for (int q = grp; q < own; q += NG) {
+      const R v = mag(slab[q * B]);
+      if (better(v, r0 + s0 + q, best, bi)) { best = v; bi = r0 + s0 + q; }
+    }
+  }
+  int info = 0;
+  if (rank == 0 && tid == 0 && !first) info = *p.info;
+
+  const bool tr = p.trace != nullptr && rank == 0 && tid == 0;
+  long long* stamps = tr ? p.trace + static_cast<size_t>(k0) * kTracePhases : nullptr;
+  long long* ends = tr ? p.trace + static_cast<size_t>(p.steps) * kTracePhases + 4 * p.blk : nullptr;
+  if (tr) { ends[0] = global_ns(); ends[1] = clock64(); }
+#define RF_STAMP(phase) \
+  if (tr) stamps[kk * kTracePhases + (phase)] = clock64()
+
+  for (int kk = 0; kk < nb; ++kk) {
+    const int par = kk & 1;
+    const int gk = r0 + kk;
+    const int owner = kk / R_;  // the CTA that holds slab row kk
+    const int slot = par * C + rank;
+    const int lk = kk % G;      // the lane of column kk in each group
+    RF_STAMP(0);
+
+    // ---- reduce the CTA's candidate ----------------------------------------
+    // lane lk of each group holds its rows' candidate (found while the last
+    // step updated column kk); move it to the group's lanes, then down the
+    // warp in log2(32 / G) rounds
+    if (p.pivot) {
+      R v = __shfl_sync(kFull, best, lk, G);
+      int i = __shfl_sync(kFull, bi, lk, G);
+      for (int off = 16; off >= G; off >>= 1) {
+        const R ov = __shfl_down_sync(kFull, v, off);
+        const int oi = __shfl_down_sync(kFull, i, off);
+        if (better(ov, oi, v, i)) { v = ov; i = oi; }
+      }
+      if (lane == 0) { red_val[warp] = v; red_idx[warp] = i; }
+    }
+    __syncthreads();  // also orders the previous step's slab writes
+    RF_STAMP(1);
+
+    // ---- publish it and row gk to every CTA -------------------------------
+    // each lane loads what it sends first and then stores, so the remote
+    // stores go out back to back
+    if (p.pivot && warp == 0) {
+      R v = lane < kChainWarps ? red_val[lane] : R(-1);
+      int i = lane < kChainWarps ? red_idx[lane] : INT_MAX;
+      for (int off = kChainWarps / 2; off > 0; off >>= 1) {
+        const R ov = __shfl_down_sync(kFull, v, off);
+        const int oi = __shfl_down_sync(kFull, i, off);
+        if (better(ov, oi, v, i)) { v = ov; i = oi; }
+      }
+      v = __shfl_sync(kFull, v, 0);
+      i = __shfl_sync(kFull, i, 0);
+      const int q = i == INT_MAX ? -1 : i - r0 - s0;
+      Cand<R> cd;
+      cd.val = v;
+      cd.idx = i;
+      cd.pid = q < 0 ? -1 : pid[q];
+      cd.src = q < 0 ? -1 : src[q];
+      T x[VPL];
+#pragma unroll
+      for (int t = 0; t < VPL; ++t) {
+        const int c = lane % GW + t * 32;
+        x[t] = q >= 0 && c < ncol ? slab[q * B + c] : T{};
+      }
+      if (lane < C) put(cluster, C, cand + slot, lane, cd);
+      if (q >= 0) {
+        for (int d = lane / GW; d < C; d += DSTEP) {
+#pragma unroll
+          for (int t = 0; t < VPL; ++t) {
+            const int c = lane % GW + t * 32;
+            if (c < ncol) put(cluster, C, crow + slot * B + c, d, x[t]);
+          }
+        }
+      }
+    }
+    if (rank == owner && warp == kChainWarps - 1) {
+      const int q = kk - s0;
+      const int kp_id = pid[q], ks_id = src[q];
+      T x[VPL];
+#pragma unroll
+      for (int t = 0; t < VPL; ++t) {
+        const int c = lane % GW + t * 32;
+        x[t] = c < ncol ? slab[q * B + c] : T{};
+      }
+      if (lane < C) {
+        put(cluster, C, kinf + 2 * par, lane, kp_id);
+        put(cluster, C, kinf + 2 * par + 1, lane, ks_id);
+      }
+      for (int d = lane / GW; d < C; d += DSTEP) {
+#pragma unroll
+        for (int t = 0; t < VPL; ++t) {
+          const int c = lane % GW + t * 32;
+          if (c < ncol) put(cluster, C, krow + par * B + c, d, x[t]);
+        }
+      }
+    }
+    RF_STAMP(2);
+    if (C > 1) {
+      cluster.sync();
+    } else {
+      __syncthreads();
+    }
+    RF_STAMP(3);
+
+    // ---- every CTA agrees on the pivot: lanes < C hold one candidate each,
+    // log2(C) butterfly rounds ----------------------------------------------
+    const T* urow;
+    int kp, upid, usrc;
+    if (p.pivot) {
+      R v = R(-1);
+      int i = INT_MAX, g = lane;
+      if (lane < C) {
+        v = cand[par * C + lane].val;
+        i = cand[par * C + lane].idx;
+      }
+      for (int off = 1; off < C; off <<= 1) {
+        const R ov = __shfl_xor_sync(kFull, v, off);
+        const int oi = __shfl_xor_sync(kFull, i, off);
+        const int og = __shfl_xor_sync(kFull, g, off);
+        if (better(ov, oi, v, i)) { v = ov; i = oi; g = og; }
+      }
+      kp = __shfl_sync(kFull, i, 0);
+      const int bg = __shfl_sync(kFull, g, 0);
+      urow = crow + static_cast<size_t>(par * C + bg) * B;
+      upid = cand[par * C + bg].pid;
+      usrc = cand[par * C + bg].src;
+      if (kLastOnNaN && isnan(__shfl_sync(kFull, v, 0))) {
+        // a NaN candidate: the pivot is row m - 1, which its owner publishes
+        // now; every CTA takes this branch and its barrier
+        const int ql = M - 1 - s0;
+        if (ql >= 0 && ql < own && warp == 0) {
+          T x[VPL];
+#pragma unroll
+          for (int t = 0; t < VPL; ++t) {
+            const int c = lane % GW + t * 32;
+            x[t] = c < ncol ? slab[ql * B + c] : T{};
+          }
+          if (lane < C) {
+            put(cluster, C, linf, lane, pid[ql]);
+            put(cluster, C, linf + 1, lane, src[ql]);
+          }
+          for (int d = lane / GW; d < C; d += DSTEP) {
+#pragma unroll
+            for (int t = 0; t < VPL; ++t) {
+              const int c = lane % GW + t * 32;
+              if (c < ncol) put(cluster, C, lrow + c, d, x[t]);
+            }
+          }
+        }
+        if (C > 1) {
+          cluster.sync();
+        } else {
+          __syncthreads();
+        }
+        kp = p.m - 1;
+        urow = lrow;
+        upid = linf[0];
+        usrc = linf[1];
+      }
+    } else {
+      kp = gk;
+      urow = krow + par * B;
+      upid = kinf[2 * par];
+      usrc = kinf[2 * par + 1];
+    }
+    const T pv = urow[kk];
+    const bool nz = nonzero(pv);
+    const bool swap = nz && kp != gk;
+    const T rr = nz ? rrcp(pv) : T{};
+    if (rank == 0 && tid == 0) {
+      p.piv[k0 + kk] = kp;
+      if (!nz && info == 0) info = p.pivot ? k0 + kk + 1 : -(k0 + kk + 1);
+    }
+    RF_STAMP(4);
+
+    // ---- swap rows kk and kp where this CTA holds them ---------------------
+    if (swap) {
+      const int qa = kk - s0, qb = kp - r0 - s0;
+      if (qa >= 0 && qa < own && grp == qa % NG) {
+#pragma unroll
+        for (int j = 0; j < PER; ++j) {
+          const int c = li + j * G;
+          if (c < ncol) slab[qa * B + c] = urow[c];
+        }
+        if (li == 0) { pid[qa] = upid; src[qa] = usrc; }
+      }
+      if (qb >= 0 && qb < own && grp == qb % NG) {
+#pragma unroll
+        for (int j = 0; j < PER; ++j) {
+          const int c = li + j * G;
+          if (c < ncol) slab[qb * B + c] = krow[par * B + c];
+        }
+        if (li == 0) { pid[qb] = kinf[2 * par]; src[qb] = kinf[2 * par + 1]; }
+      }
+    }
+    RF_STAMP(5);
+
+    // ---- scale, update the slab's columns > kk, search column kk + 1 ------
+    // two rows per pass; passes wholly above row kk are skipped, and the
+    // trip count is uniform over the CTA, as the shuffles need
+    T u[PER];
+    bool act[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int c = li + j * G;
+      u[j] = urow[c];
+      act[j] = c > kk && c < ncol;
+    }
+    const int jn = (kk + 1) / G;
+    const bool scale_lane = li == lk;
+    const bool search_lane = p.pivot && kk + 1 < nb && li == (kk + 1) % G;
+    best = R(-1);
+    bi = INT_MAX;
+    for (int q0 = max(0, kk + 1 - s0) / NG * NG; q0 < own; q0 += 2 * NG) {
+      const int qa = q0 + grp, qb = qa + NG;
+      const bool ona = qa < own && s0 + qa > kk;
+      const bool onb = qb < own && s0 + qb > kk;
+      T* ra = slab + qa * B;
+      T* rb = slab + qb * B;
+      T la = T{}, lb = T{};
+      if (scale_lane) {
+        if (ona) {
+          la = ra[kk];
+          if (nz) { la = rmul(la, rr); ra[kk] = la; }
+        }
+        if (onb) {
+          lb = rb[kk];
+          if (nz) { lb = rmul(lb, rr); rb[kk] = lb; }
+        }
+      }
+      la = shfl(la, lk, G);
+      lb = shfl(lb, lk, G);
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        if (!act[j]) continue;
+        const int c = li + j * G;
+        if (ona) {
+          const T x = rsub(ra[c], rmul(la, u[j]));
+          ra[c] = x;
+          if (search_lane && j == jn && better(mag(x), r0 + s0 + qa, best, bi)) {
+            best = mag(x);
+            bi = r0 + s0 + qa;
+          }
+        }
+        if (onb) {
+          const T x = rsub(rb[c], rmul(lb, u[j]));
+          rb[c] = x;
+          if (search_lane && j == jn && better(mag(x), r0 + s0 + qb, best, bi)) {
+            best = mag(x);
+            bi = r0 + s0 + qb;
+          }
+        }
+      }
+    }
+    RF_STAMP(6);
+  }
+#undef RF_STAMP
+
+  // ---- write the slab, perm and the block's row moves back ---------------
+  if (rank == 0 && tid == 0) *p.info = info;
+  __syncthreads();
+  for (int e = tid; e < own * B; e += kChainThreads) {
+    const int q = e / B, c = e % B;
+    if (c < ncol) p.a[(r0 + s0 + q) * lda + k0 + c] = slab[e];
+  }
+  for (int q = tid; q < own; q += kChainThreads) {
+    const int row = r0 + s0 + q;
+    p.perm[row] = pid[q];
+    if (src[q] != row) {
+      const int e = atomicAdd(p.moved, 1);
+      p.moved[1 + 2 * e] = row;
+      p.moved[2 + 2 * e] = src[q];
+    }
+  }
+  // no CTA leaves while another may still write into its shared memory
+  if (C > 1) cluster.sync();
+  if (tr) { ends[2] = global_ns(); ends[3] = clock64(); }
+}
+
+template <typename T>
+struct DelayArgs {
+  T* a;
+  int m, w, lda;
+  int r0;          // global row of the block's first step
+  int k0, nb;      // the block's columns [k0, k0 + nb)
+  const int* moved;
+};
+
+// The delayed pass, part 1: one CTA per 32 columns of [0, w).  Applies the
+// block's row moves to its columns outside the slab (every old value is
+// read before any is written), then solves the block's U rows in its
+// columns >= k0 + nb: row t takes steps 0 .. t-1 in order.
+template <typename T>
+__global__ void __launch_bounds__(kDelayThreads)
+panel_swap_solve_kernel(DelayArgs<T> p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nb = p.nb, k1 = p.k0 + nb;
+  T* buf = reinterpret_cast<T*>(smem_raw);  // [2 nb][kTile] the moved rows' old values
+  T* U = buf + 2 * nb * kTile;               // [nb][kTile]
+  T* Lb = U + nb * kTile;                    // [nb][nb] the block's multipliers
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * kTile + lane;
+  const bool outside = c < p.w && (c < p.k0 || c >= k1);
+  const size_t lda = static_cast<size_t>(p.lda);
+  const int moves = p.moved[0];
+  for (int e = warp; e < moves; e += kDelayWarps) {
+    if (outside) buf[e * kTile + lane] = p.a[p.moved[2 + 2 * e] * lda + c];
+  }
+  __syncthreads();
+  for (int e = warp; e < moves; e += kDelayWarps) {
+    if (outside) p.a[p.moved[1 + 2 * e] * lda + c] = buf[e * kTile + lane];
+  }
+  if ((blockIdx.x + 1) * kTile <= k1 || nb < 2) return;  // no U columns here
+  __syncthreads();
+  const bool right = c < p.w && c >= k1;
+  for (int t = warp; t < nb; t += kDelayWarps) {
+    U[t * kTile + lane] = right ? p.a[(p.r0 + t) * lda + c] : T{};
+  }
+  for (int e = threadIdx.x; e < nb * nb; e += kDelayThreads) {
+    const int t = e / nb, s = e % nb;
+    if (s < t) Lb[e] = p.a[(p.r0 + t) * lda + p.k0 + s];
+  }
+  __syncthreads();
+  for (int s = 0; s + 1 < nb; ++s) {
+    const T us = U[s * kTile + lane];
+    for (int t = s + 1 + warp; t < nb; t += kDelayWarps) {
+      U[t * kTile + lane] = rsub(U[t * kTile + lane], rmul(Lb[t * nb + s], us));
+    }
+    __syncthreads();
+  }
+  if (right) {
+    for (int t = 1 + warp; t < nb; t += kDelayWarps) p.a[(p.r0 + t) * lda + c] = U[t * kTile + lane];
+  }
+}
+
+// The delayed pass, part 2: every row below the block takes the block's nb
+// rank-1 updates in step order; one CTA per 64 rows x 32 columns >= k0+nb.
+template <typename T>
+__global__ void __launch_bounds__(kDelayThreads)
+panel_update_kernel(DelayArgs<T> p) {
+  constexpr int kPer = kUpdRows / kDelayWarps;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nb = p.nb, k1 = p.k0 + nb;
+  T* U = reinterpret_cast<T*>(smem_raw);  // [nb][kTile]
+  T* Lr = U + nb * kTile;                  // [kUpdRows][nb]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = k1 + blockIdx.x * kTile + lane;
+  const int i0 = p.r0 + nb + blockIdx.y * kUpdRows;
+  const size_t lda = static_cast<size_t>(p.lda);
+  for (int t = warp; t < nb; t += kDelayWarps) {
+    U[t * kTile + lane] = c < p.w ? p.a[(p.r0 + t) * lda + c] : T{};
+  }
+  for (int e = threadIdx.x; e < kUpdRows * nb; e += kDelayThreads) {
+    const int r = e / nb, t = e % nb;
+    Lr[e] = i0 + r < p.m ? p.a[(i0 + r) * lda + p.k0 + t] : T{};
+  }
+  __syncthreads();
+  if (c >= p.w) return;
+  T x[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = i0 + warp + j * kDelayWarps;
+    x[j] = i < p.m ? p.a[i * lda + c] : T{};
+  }
+  for (int t = 0; t < nb; ++t) {
+    const T u = U[t * kTile + lane];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      x[j] = rsub(x[j], rmul(Lr[(warp + j * kDelayWarps) * nb + t], u));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = i0 + warp + j * kDelayWarps;
+    if (i < p.m) p.a[i * lda + c] = x[j];
+  }
+}
+
+// ---- plan ----------------------------------------------------------------
+
+constexpr int kWidths[] = {8, 16, 32, 64, 128, 256, 512};
+constexpr int kNumWidths = 7;
+constexpr int kMaxDevices = 16;
+
+template <typename T>
+using ChainFn = void (*)(ChainArgs<T>);
+
+template <typename T>
+ChainFn<T> chain_kernel_for(int B) {
+  switch (B) {
+    case 8: return panel_chain_kernel<T, 8>;
+    case 16: return panel_chain_kernel<T, 16>;
+    case 32: return panel_chain_kernel<T, 32>;
+    case 64: return panel_chain_kernel<T, 64>;
+    case 128: return panel_chain_kernel<T, 128>;
+    case 256: return panel_chain_kernel<T, 256>;
+    default: return panel_chain_kernel<T, 512>;
+  }
+}
+
+inline int width_index(int B) {
+  for (int i = 0; i < kNumWidths; ++i) if (kWidths[i] == B) return i;
+  return -1;
+}
+
+inline cudaLaunchConfig_t chain_config(int C, size_t smem, cudaStream_t stream,
+                                       cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(kChainThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Does the card run a cluster of C chain CTAs of width B with the most
+// shared memory the route uses?  Asked once per (device, type, B, C), with
+// cudaOccupancyMaxActiveClusters; sets the kernel's attributes on the way.
+template <typename T>
+int cluster_ok(int B, int C, int device, bool* ok) {
+  static int cache[kMaxDevices][kNumWidths][5];
+  static bool init = false;
+  if (!init) {
+    for (auto& d : cache) for (auto& b : d) for (int& c : b) c = -1;
+    init = true;
+  }
+  int ci = 0;
+  while ((1 << ci) < C) ++ci;
+  const int wi = width_index(B);
+  if (wi < 0 || (1 << ci) != C || ci > 4 || device < 0 || device >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int& slot = cache[device][wi][ci];
+  if (slot < 0) {
+    const void* fn = reinterpret_cast<const void*>(chain_kernel_for<T>(B));
+    cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(kSmemMax));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (C > 8) {
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = chain_config(C, kSmemMax, nullptr, attr);
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, fn, &cfg) != cudaSuccess) {
+      cudaGetLastError();  // a refused size is an answer, not a sticky error
+      n = 0;
+    }
+    slot = n > 0 ? 1 : 0;
+  }
+  *ok = slot == 1;
+  return 0;
+}
+
+struct Plan {
+  int route;      // kRouteCluster or kRouteGrid
+  int b;          // steps per block (cluster route)
+  int B;          // the chain kernel's slab width: b, or a power of two >= w
+  int C;          // CTAs of the cluster
+  int one_block;  // b >= w: the whole live panel in one slab, no delayed pass
+  int blocks;
+  int grid;       // blocks of the grid route
+  size_t ws_reals, iws_ints;
+};
+
+inline int width_at_least(int w) {
+  int B = 8;
+  while (B < w) B <<= 1;
+  return B;
+}
+
+template <typename T>
+size_t chain_bytes(int M, int B, int C) {
+  const int rows = (M + C - 1) / C;
+  return chain_smem<T>(rows, C, B).total;
+}
+
+// The launcher's own choice of b and C for M live rows, by element type,
+// from the H100 sweeps (`chip_smoke.py --sweep`, PERF.md): the block width
+// b0 (32 up to b32_rows live rows, 16 up to b16_rows, 8 beyond; one block
+// when w <= b) and the cluster size c0 (one CTA up to one_cta_rows, else
+// the smallest power of two with at most rows_per_cta rows per CTA, at
+// most 16).
+struct AutoRule {
+  int b32_rows, b16_rows, one_cta_rows, rows_per_cta;
+};
+template <typename T> struct Auto {
+  static constexpr AutoRule rule{1536, 4096, 128, 32};
+};
+// complex panels: b = 16 from 1024 live rows on (the sweep's best at 1024,
+// 1536, 2048 and 4096 rows of complex64 and at 1536 and 4096 of
+// complex128), C = 16
+template <> struct Auto<float2> {
+  static constexpr AutoRule rule{512, 4096, 128, 32};
+};
+template <> struct Auto<double2> {
+  static constexpr AutoRule rule{512, 4096, 128, 32};
+};
+
+// The plan of a panel with M live rows and w columns.  b_req / C_req: 0
+// picks; b_req < 0 forces the grid route; b_req >= w asks for one block.
+template <typename T>
+int plan_for(int M, int w, int b_req, int C_req, int device, Plan* pl) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int steps = M < w ? M : w;
+  *pl = Plan{};
+  auto fits = [&](int B, int C, bool* ok) -> int {
+    *ok = false;
+    if (chain_bytes<T>(M, B, C) > kSmemMax || C > M) return 0;
+    return cluster_ok<T>(B, C, device, ok);
+  };
+  auto take = [&](int b, int B, int C) {
+    pl->route = kRouteCluster;
+    pl->b = b;
+    pl->B = B;
+    pl->C = C;
+    pl->one_block = b >= w;
+    pl->blocks = (steps + b - 1) / b;
+    pl->ws_reals = 1;
+    pl->iws_ints = static_cast<size_t>(pl->blocks) * (1 + 4 * B);
+  };
+  if (b_req < 0) return kPlanGrid;
+  if (b_req > 0 && C_req > 0) {  // explicit
+    const bool one = b_req >= w;
+    const int B = one ? width_at_least(w) : b_req;
+    if ((!one && B != 8 && B != 16 && B != 32 && B != 64) || B > 512)
+      return static_cast<int>(cudaErrorInvalidValue);
+    bool ok = false;
+    const int err = fits(B, C_req, &ok);
+    if (err != 0) return err;
+    if (!ok) return static_cast<int>(cudaErrorInvalidConfiguration);
+    take(one ? w : b_req, B, C_req);
+    return 0;
+  }
+  if (b_req != 0 || C_req != 0) return static_cast<int>(cudaErrorInvalidValue);
+  // auto (Auto<T>); narrower blocks and larger clusters where that does
+  // not fit; the grid route beyond
+  constexpr AutoRule a = Auto<T>::rule;
+  const int b0 = M <= a.b32_rows ? 32 : M <= a.b16_rows ? 16 : 8;
+  int c0 = 1;
+  while (M > a.one_cta_rows && c0 < kMaxCluster && a.rows_per_cta * c0 < M) c0 *= 2;
+  for (int b : {b0, 16, 8}) {
+    if (b > b0) continue;
+    const int bb = w <= b ? w : b;
+    const int B = width_at_least(bb);
+    for (int C = c0; C <= kMaxCluster; C *= 2) {
+      bool ok = false;
+      const int err = fits(B, C, &ok);
+      if (err != 0) return err;
+      if (ok) { take(bb, B, C); return 0; }
+    }
+  }
+  return kPlanGrid;  // the grid route: the caller fills it in
+}
+
+// The delayed kernels take at most (3 * kTile * 64 + 64 * 64) elements of
+// shared memory (b <= 64): opt in once.
+template <typename T>
+int delay_opt_in() {
+  static bool done = false;
+  if (done) return 0;
+  cudaError_t err = opt_in_smem(reinterpret_cast<const void*>(panel_swap_solve_kernel<T>),
+                                (3 * kTile * 64 + 64 * 64) * sizeof(T));
+  if (err == cudaSuccess)
+    err = opt_in_smem(reinterpret_cast<const void*>(panel_update_kernel<T>),
+                      (kTile * 64 + kUpdRows * 64) * sizeof(T));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  done = true;
+  return 0;
+}
+
+// Factor the panel on the cluster route of plan `pl` (route kRouteCluster):
+// per block of pl.b steps the chain kernel, then, unless one block takes the
+// panel, the two delayed kernels, in turn on `stream` without a host
+// synchronisation.  `iws` holds pl.iws_ints int32s (the blocks' row moves).
+template <typename T>
+int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl, void* piv,
+                void* perm, void* info, void* iws, cudaStream_t stream) {
+  int err = delay_opt_in<T>();
+  if (err != 0) return err;
+  int* moved = static_cast<int*>(iws);
+  cudaError_t e = cudaMemsetAsync(moved, 0, pl.iws_ints * sizeof(int), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int steps = m - ofs < w ? m - ofs : w;
+  for (int k0 = 0, blk = 0; k0 < steps; k0 += pl.b, ++blk) {
+    const int nb = steps - k0 < pl.b ? steps - k0 : pl.b;
+    ChainArgs<T> c;
+    c.a = A;
+    c.m = m;
+    c.lda = lda;
+    c.ofs = ofs;
+    c.pivot = pivot;
+    c.k0 = k0;
+    c.nb = nb;
+    c.ncol = pl.one_block ? w : nb;
+    c.rows = (m - ofs - k0 + pl.C - 1) / pl.C;
+    c.piv = static_cast<int*>(piv);
+    c.perm = static_cast<int*>(perm);
+    c.info = static_cast<int*>(info);
+    c.moved = moved + static_cast<size_t>(blk) * (1 + 4 * pl.B);
+    c.trace = g_trace;
+    c.steps = steps;
+    c.blk = blk;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg =
+        chain_config(pl.C, chain_smem<T>(c.rows, pl.C, pl.B).total, stream, attr);
+    e = cudaLaunchKernelEx(&cfg, chain_kernel_for<T>(pl.B), c);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (pl.one_block) continue;
+    DelayArgs<T> d;
+    d.a = A;
+    d.m = m;
+    d.w = w;
+    d.lda = lda;
+    d.r0 = ofs + k0;
+    d.k0 = k0;
+    d.nb = nb;
+    d.moved = c.moved;
+    if (w > nb) {
+      panel_swap_solve_kernel<T><<<(w + kTile - 1) / kTile, kDelayThreads,
+                                   (3 * kTile * nb + nb * nb) * sizeof(T), stream>>>(d);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    const int cols = w - k0 - nb, rows = m - ofs - k0 - nb;
+    if (cols > 0 && rows > 0) {
+      const dim3 grid((cols + kTile - 1) / kTile, (rows + kUpdRows - 1) / kUpdRows);
+      panel_update_kernel<T><<<grid, kDelayThreads, (kTile * nb + kUpdRows * nb) * sizeof(T),
+                               stream>>>(d);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace

@@ -34,10 +34,27 @@
 // 4-matmul boundary Schur.  They answer Mosaic (no complex type, the lane
 // layout); here a thread loads and stores one (re, im) pair at a time.
 //
-// Design: that of panel_lu.cu with a complex element.  The panel is split by
-// rows over a cooperative grid of up to one block per SM; block b owns rows
-// [b*R, (b+1)*R) and is the only block that reads or writes them.  Each step
-// has ONE grid-wide barrier:
+// Two routes, as for the real kernel (csrc/panel_lu.cu), chosen by the same
+// plan (`plan_for` in csrc/panel_cluster.cuh, with the complex entries of
+// its auto rule):
+//
+// The cluster route: the real kernel's cluster route instantiated for a
+// complex element (float2 / double2; rf_common.cuh gives it CABS1, the
+// reciprocal conj(p) / |p|^2, the complex product and difference in the
+// order above).  Per block of b columns the pivot chain runs on one
+// thread-block cluster with the slab in shared memory, one cluster.sync()
+// per step; then the delayed pass (row moves, U rows, rank-b update) on the
+// whole card.  A NaN among a step's candidates is seen by every CTA of the
+// cluster after the barrier; the owner of row m - 1 then publishes that row
+// and a second cluster barrier precedes the swap (csrc/panel_cluster.cuh).
+// Elements of 8 or 16 bytes make the slab and the exchange slots 2x or 4x
+// the f32 ones, so a cluster holds fewer rows: about 50 000 complex64 or
+// 26 000 complex128 live rows at b = 8, C = 16.
+//
+// The grid route (panel_lu_c_kernel), for panels too tall for a cluster, or
+// forced with b < 0: the panel is split by rows over a cooperative grid of
+// up to one block per SM; block b owns rows [b*R, (b+1)*R) and is the only
+// block that reads or writes them.  Each step has ONE grid-wide barrier:
 //   phase A  every block finds its local candidate and publishes (CABS1
 //            value, row, perm id, the full candidate row); the owner of row
 //            k publishes row k, the owner of row m - 1 publishes that row
@@ -49,11 +66,9 @@
 // The exchange buffers are double-buffered by step parity: a block can only
 // reach step k+2 after every block has left step k's phase B.
 //
-// What bounds it: as for the real kernel, the serial pivot chain (w steps of
-// a block reduction, a grid barrier, a second reduction and dependent L2
-// round trips), not bytes or operations; PERF.md has its time per step.  A
-// later change would keep the slab in shared memory and delay micro-block
-// updates onto the tensor cores, as the note in panel_lu.cu says.
+// What bounds it: as for the real kernel, the serial pivot chain (w steps,
+// each a candidate reduction, an exchange and a barrier), not bytes or
+// operations; PERF.md has its time per step on each route.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -61,6 +76,7 @@
 #include <climits>
 #include <cstddef>
 
+#include "panel_cluster.cuh"
 #include "rf_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -303,17 +319,38 @@ int grid_for(int m, int w, int device, int* grid_out, int* rows_out) {
   return 0;
 }
 
+// The whole plan of an (m, w) panel of complex elements with real parts
+// of type T: the cluster route, or the grid route's grid and workspaces.
 template <typename T>
-int launch(void* a, int m, int w, int lda, int pivot, void* piv, void* perm,
-           void* info, void* ws, void* iws, int grid, int device,
-           void* stream) {
-  using C = typename Pair<T>::type;
+int full_plan(int m, int w, int b, int C, int device, Plan* pl) {
+  if (m < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int r = plan_for<typename Pair<T>::type>(m, w, b, C, device, pl);
+  if (r != kPlanGrid) return r;
   int g = 0, rows = 0;
-  int err = grid_for<T>(m, w, device, &g, &rows);
+  const int err = grid_for<T>(m, w, device, &g, &rows);
   if (err != 0) return err;
-  if (g != grid) return static_cast<int>(cudaErrorInvalidValue);
+  pl->route = kRouteGrid;
+  pl->grid = g;
+  pl->ws_reals = 4 * static_cast<size_t>(g) * w + 8 * static_cast<size_t>(w) + 2 * g;
+  pl->iws_ints = 4 * static_cast<size_t>(g) + 4;
+  return 0;
+}
+
+template <typename T>
+int run(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv, void* perm,
+        void* info, void* ws, void* iws, int device, void* stream_) {
+  using C2 = typename Pair<T>::type;
+  Plan pl;
+  int err = full_plan<T>(m, w, b, C, device, &pl);
+  if (err != 0) return err;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (pl.route == kRouteCluster) {
+    return run_cluster<C2>(static_cast<C2*>(a), m, w, lda, pivot, 0, pl, piv, perm, info, iws,
+                           stream);
+  }
+  const int g = pl.grid;
   PanelArgs<T> p;
-  p.a = static_cast<C*>(a);
+  p.a = static_cast<C2*>(a);
   p.m = m;
   p.w = w;
   p.lda = lda;
@@ -322,7 +359,7 @@ int launch(void* a, int m, int w, int lda, int pivot, void* piv, void* perm,
   p.perm = static_cast<int*>(perm);
   p.info = static_cast<int*>(info);
   // the pairs first: they need the alignment of two reals
-  C* c = static_cast<C*>(ws);
+  C2* c = static_cast<C2*>(ws);
   p.cand_row = c;
   p.krow = p.cand_row + 2 * static_cast<size_t>(g) * w;
   p.lrow = p.krow + 2 * static_cast<size_t>(w);
@@ -332,12 +369,11 @@ int launch(void* a, int m, int w, int lda, int pivot, void* piv, void* perm,
   p.cand_pid = iw + 2 * g;
   p.kpid = iw + 4 * g;
   p.lpid = iw + 4 * g + 2;
-  p.rows = rows;
+  p.rows = (m + g - 1) / g;
   void* args[] = {&p};
   cudaError_t e = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(panel_lu_c_kernel<T>), dim3(g), dim3(kThreads),
-      args, static_cast<size_t>(w) * sizeof(C),
-      static_cast<cudaStream_t>(stream));
+      args, static_cast<size_t>(w) * sizeof(C2), stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -346,35 +382,53 @@ int launch(void* a, int m, int w, int lda, int pivot, void* piv, void* perm,
 
 extern "C" {
 
-// Grid size of a launch on an (m, w) complex panel whose real and imaginary
-// parts have `real_size` bytes each (4: complex64, 8: complex128); the caller
-// sizes the workspaces from it:
-//   ws  (reals of the panel's type): 4*G*w + 8*w + 2*G
-//   iws (int32):                     4*G + 4
-// Returns G >= 1, or minus a cudaError_t code.
-int rf_panel_lu_c_grid(int m, int w, int real_size, int device) {
-  int g = 0, rows = 0;
-  const int err = real_size == 8 ? grid_for<double>(m, w, device, &g, &rows)
-                                 : grid_for<float>(m, w, device, &g, &rows);
-  return err != 0 ? -err : g;
+// The plan of a launch on an (m, w) panel of complex elements of
+// `elem_size` bytes (8: complex64, 16: complex128), with block width `b`
+// and cluster size `C` (0, 0: the launcher's choice; b < 0: the grid route;
+// b >= w: one block); `ofs` must be 0 (the complex kernel has no offset
+// form).  Fills out[6] = {route (1 cluster, 0 grid), b (-1 on the grid
+// route), C (the grid route: its grid), blocks, ws reals (of the real
+// type), iws int32s}; the caller allocates the two workspaces with those
+// sizes (at least one element each).  Returns a cudaError_t code, 0 on
+// success; cudaErrorInvalidConfiguration when an explicit (b, C) does not
+// fit the card.
+int rf_panel_lu_c_plan(int m, int w, int elem_size, int ofs, int b, int C, int device,
+                       int* out) {
+  if (ofs != 0 || (elem_size != 8 && elem_size != 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Plan pl;
+  const int err = elem_size == 16 ? full_plan<double>(m, w, b, C, device, &pl)
+                                  : full_plan<float>(m, w, b, C, device, &pl);
+  if (err != 0) return err;
+  out[0] = pl.route;
+  out[1] = pl.route == kRouteCluster ? pl.b : -1;
+  out[2] = pl.route == kRouteCluster ? pl.C : pl.grid;
+  out[3] = pl.route == kRouteCluster ? pl.blocks : 1;
+  out[4] = static_cast<int>(pl.ws_reals);
+  out[5] = static_cast<int>(pl.iws_ints);
+  return 0;
 }
 
-// Factor the panel in place on `stream`; `a` points at interleaved (re, im)
-// pairs and `lda` counts complex elements.  Returns a cudaError_t code (0 on
-// success) for the launch; faults during the run surface at the next
+// Factor the panel in place on `stream`, with the plan's (b, C) (0, 0 for
+// the launcher's choice); `a` points at interleaved (re, im) pairs and
+// `lda` counts complex elements.  Returns a cudaError_t code (0 on success)
+// for the launches; faults during the run surface at the next
 // synchronisation.
-int rf_panel_lu_c64(void* a, int m, int w, int lda, int pivot, void* piv,
-                    void* perm, void* info, void* ws, void* iws, int grid,
-                    int device, void* stream) {
-  return launch<float>(a, m, w, lda, pivot, piv, perm, info, ws, iws, grid,
-                       device, stream);
+int rf_panel_lu_c64(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv,
+                    void* perm, void* info, void* ws, void* iws, int device, void* stream) {
+  return run<float>(a, m, w, lda, pivot, b, C, piv, perm, info, ws, iws, device, stream);
 }
 
-int rf_panel_lu_c128(void* a, int m, int w, int lda, int pivot, void* piv,
-                     void* perm, void* info, void* ws, void* iws, int grid,
-                     int device, void* stream) {
-  return launch<double>(a, m, w, lda, pivot, piv, perm, info, ws, iws, grid,
-                        device, stream);
+int rf_panel_lu_c128(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv,
+                     void* perm, void* info, void* ws, void* iws, int device, void* stream) {
+  return run<double>(a, m, w, lda, pivot, b, C, piv, perm, info, ws, iws, device, stream);
+}
+
+// Phase trace of the cluster route's chain kernel, as rf_panel_lu_set_trace
+// of csrc/panel_lu.cu describes it, for the complex launches.
+int rf_panel_lu_c_set_trace(void* buf) {
+  g_trace = static_cast<long long*>(buf);
+  return 0;
 }
 
 }  // extern "C"

@@ -28,6 +28,68 @@ __device__ __forceinline__ float rrcp(float p) { return __fdiv_rn(1.0f, p); }
 __device__ __forceinline__ double rrcp(double p) { return __ddiv_rn(1.0, p); }
 __device__ __forceinline__ float mag(float x) { return fabsf(x); }
 __device__ __forceinline__ double mag(double x) { return fabs(x); }
+__device__ __forceinline__ bool nonzero(float x) { return x != 0.0f; }
+__device__ __forceinline__ bool nonzero(double x) { return x != 0.0; }
+
+// The same operations on a complex element, an interleaved (re, im) pair
+// (.x real, .y imaginary), in the rounding order of ops/unblocked.py
+// `unblocked_lu_cabs1` (and of the TPU kernel `_panel_kernel_fori_c64`):
+//   mag     CABS1, |re| + |im| (the pivot order of LAPACK cgetrf);
+//   rrcp    1/p = conj(p) / |p|^2: d = pr*pr + pi*pi, (pr/d, -pi/d); d
+//           overflows or underflows for |p| beyond the square root of the
+//           type's range, a limit the TPU kernel has too;
+//   rmul    the product (a.x*b.x - a.y*b.y, a.x*b.y + a.y*b.x), which is
+//           both the scale l * (1/p) and the update's l * u;
+//   rsub    part by part.
+// So the real kernels' `rsub(a, rmul(l, u))` and `rmul(l, rrcp(p))` are the
+// complex update and scale, each product, sum and difference rounded once.
+template <typename V, typename R>
+__device__ __forceinline__ V cmul(V a, V b) {
+  V z;
+  z.x = rsub(rmul(a.x, b.x), rmul(a.y, b.y));
+  z.y = radd(rmul(a.x, b.y), rmul(a.y, b.x));
+  return z;
+}
+template <typename V, typename R>
+__device__ __forceinline__ V crcp(V p) {
+  const R d = radd(rmul(p.x, p.x), rmul(p.y, p.y));
+  V z;
+  z.x = rdiv(p.x, d);
+  z.y = rdiv(-p.y, d);
+  return z;
+}
+__device__ __forceinline__ float2 rmul(float2 a, float2 b) { return cmul<float2, float>(a, b); }
+__device__ __forceinline__ double2 rmul(double2 a, double2 b) { return cmul<double2, double>(a, b); }
+__device__ __forceinline__ float2 rsub(float2 a, float2 b) {
+  return make_float2(rsub(a.x, b.x), rsub(a.y, b.y));
+}
+__device__ __forceinline__ double2 rsub(double2 a, double2 b) {
+  return make_double2(rsub(a.x, b.x), rsub(a.y, b.y));
+}
+__device__ __forceinline__ float2 rrcp(float2 p) { return crcp<float2, float>(p); }
+__device__ __forceinline__ double2 rrcp(double2 p) { return crcp<double2, double>(p); }
+__device__ __forceinline__ float mag(float2 e) { return radd(fabsf(e.x), fabsf(e.y)); }
+__device__ __forceinline__ double mag(double2 e) { return radd(fabs(e.x), fabs(e.y)); }
+__device__ __forceinline__ bool nonzero(float2 e) { return e.x != 0.0f || e.y != 0.0f; }
+__device__ __forceinline__ bool nonzero(double2 e) { return e.x != 0.0 || e.y != 0.0; }
+
+// An element type's real type (that of its magnitude), and whether it is
+// complex.
+template <typename T> struct Elem { using real = T; static constexpr bool complex = false; };
+template <> struct Elem<float2> { using real = float; static constexpr bool complex = true; };
+template <> struct Elem<double2> { using real = double; static constexpr bool complex = true; };
+
+// __shfl_sync for an element of either kind.
+template <typename T>
+__device__ __forceinline__ T shfl(T v, int src, int width) {
+  return __shfl_sync(kFull, v, src, width);
+}
+__device__ __forceinline__ float2 shfl(float2 v, int src, int width) {
+  return make_float2(__shfl_sync(kFull, v.x, src, width), __shfl_sync(kFull, v.y, src, width));
+}
+__device__ __forceinline__ double2 shfl(double2 v, int src, int width) {
+  return make_double2(__shfl_sync(kFull, v.x, src, width), __shfl_sync(kFull, v.y, src, width));
+}
 
 // Is candidate (va, ia) a better pivot than (vb, ib)?  A NaN beats numbers,
 // a larger magnitude beats a smaller one, the smaller row breaks ties.  The

@@ -32,8 +32,10 @@ SOURCES = {
 # wrappers never load it
 SOURCES["batched_lu_trace"] = SOURCES["batched_lu"]
 EXTRA_FLAGS = {"batched_lu_trace": ("-DRF_BATCHED_TRACE",)}
-# included by every source (nvcc finds it beside them)
-COMMON_HEADER = PACKAGE_DIR / "csrc" / "rf_common.cuh"
+# the headers the sources include (nvcc finds them beside them):
+# rf_common.cuh by every source, panel_cluster.cuh by the two swapping panel
+# kernels; every library's hash covers all of them
+HEADERS = tuple(sorted((PACKAGE_DIR / "csrc").glob("*.cuh")))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -45,12 +47,11 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_PANEL = (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P])
-# the same with one more int after pivot: the micro-block width
+# panel, m, w, lda, pivot, micro, piv, perm, info, ws, iws, grid, device, stream
 _PANEL_MICRO = (_I, [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P])
 # panel, m, w, lda, pivot, used0, used, prow, info, ws, iws, grid, device, stream
 _PANEL_NOSWAP = (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P])
-# csrc/panel_lu.cu: m, w, elem_size, ofs, b, C, device, out[6]
+# csrc/panel_lu.cu, csrc/panel_lu_c64.cu: m, w, elem_size, ofs, b, C, device, out[6]
 _PANEL_PLAN = (_I, [_I, _I, _I, _I, _I, _I, _I, _P])
 # panel, m, w, lda, pivot, b, C, piv, perm, info, ws, iws, device, stream
 _PANEL_BC = (_I, [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P])
@@ -59,6 +60,8 @@ _PANEL_OFS_BC = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P
 # a, out, ipiv, perm, info, batch, m, n, pivot, route, smem, device, stream
 _BATCHED_SWAP = (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
 _BATCHED_NOSWAP = (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+# f, b, x, perm, ipiv, batch, n, nrhs, route, smem, device, stream
+_BATCHED_SOLVE = (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 _BATCHED_LU = {
     "rf_batched_lu_swap_f32": _BATCHED_SWAP,
     "rf_batched_lu_swap_f64": _BATCHED_SWAP,
@@ -82,9 +85,10 @@ SIGNATURES = {
         "rf_error_string": (ctypes.c_char_p, [_I]),
     },
     "panel_lu_c64": {
-        "rf_panel_lu_c_grid": (_I, [_I, _I, _I, _I]),
-        "rf_panel_lu_c64": _PANEL,
-        "rf_panel_lu_c128": _PANEL,
+        "rf_panel_lu_c_plan": _PANEL_PLAN,
+        "rf_panel_lu_c64": _PANEL_BC,
+        "rf_panel_lu_c128": _PANEL_BC,
+        "rf_panel_lu_c_set_trace": (_I, [_P]),
         "rf_error_string": (ctypes.c_char_p, [_I]),
     },
     "panel_lu_micro": {
@@ -105,8 +109,8 @@ SIGNATURES = {
     "batched_lu": _BATCHED_LU,
     "batched_lu_trace": {**_BATCHED_LU, "rf_batched_lu_set_trace": (_I, [_P])},
     "batched_solve": {
-        "rf_batched_solve_f32": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-        "rf_batched_solve_f64": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "rf_batched_solve_f32": _BATCHED_SOLVE,
+        "rf_batched_solve_f64": _BATCHED_SOLVE,
         "rf_error_string": (ctypes.c_char_p, [_I]),
     },
 }
@@ -135,7 +139,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
-    h.update(COMMON_HEADER.read_bytes())
+    for header in HEADERS:
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, ())).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -21,7 +21,10 @@ csrc/batched_solve.cu):
 * :func:`batched_solve` -- unit-lower forward then upper backward
   substitution (``_lane_solve_kernel``) on right-hand sides in pivot
   order: already there, or brought there from the factorization's
-  ``perm`` or ``ipiv``, which the Hopper kernel does in shared memory.
+  ``perm`` or ``ipiv``, which the Hopper kernel does itself; on the card
+  one of two kernels by shape (:func:`solve_route`): a warp per matrix
+  with its factor rows in registers at n <= 32, a block per matrix with
+  the factors in shared memory beyond.
 
 A CPU tensor goes to the plain version, a CUDA tensor launches the
 kernel or raises; there is no fallback between the two.
@@ -101,6 +104,29 @@ def _route_takes(route: str, m: int, n: int) -> bool:
     return route in LU_ROUTES and LU_ROUTES.index(route) >= LU_ROUTES.index(lu_route(m, n))
 
 
+# The solve kernel's routes (csrc/batched_solve.cu), by shape:
+#   "warp"   n <= 32: 8, 16 or 32 lanes per matrix (the fewest that hold n),
+#            row i of the factors and of x in lane i's registers, four
+#            warps per block;
+#   "block"  the rest (and any n when forced): one block per matrix, the
+#            factors and the right-hand sides in shared memory.
+SOLVE_ROUTES = ("warp", "block")
+SOLVE_WARP_MAX_N = 32
+
+
+def solve_route(n: int, nrhs: int) -> str:
+    """The route the solve kernel takes for (n, n) factors and ``nrhs``
+    right-hand sides: the warp route at n <= 32 whatever nrhs (it takes
+    them four at a time; with 8 of them it still took a quarter to a
+    third of the block route's time at n = 16 and 32 on the H100,
+    PERF.md), the block route beyond."""
+    return "warp" if n <= SOLVE_WARP_MAX_N else "block"
+
+
+def _solve_lanes(n: int) -> int:
+    return 8 if n <= 8 else 16 if n <= 16 else 32
+
+
 def tile_smem_bytes(m: int, n: int, itemsize: int) -> int:
     """Dynamic shared memory of one shared-memory tile block (the swap
     kernel's tile route and the noswap kernel): the (m, n + 1) padded
@@ -128,10 +154,16 @@ def lu_smem_bytes(m: int, n: int, itemsize: int, route: Optional[str] = None) ->
     return tile_smem_bytes(m, n, itemsize)
 
 
-def solve_smem_bytes(n: int, nrhs: int, itemsize: int) -> int:
-    """Dynamic shared memory of one solve block: the (n, n + 1) padded
-    factor tile, the working right-hand sides, the solution, and n int32
-    of perm or ipiv."""
+def solve_smem_bytes(n: int, nrhs: int, itemsize: int, route: Optional[str] = None) -> int:
+    """Dynamic shared memory of one solve block under ``route`` (default:
+    the shape's own, :func:`solve_route`).  The
+    block route: the (n, n + 1) padded factor tile, the working
+    right-hand sides, the solution, and n int32 of perm or ipiv.  The
+    warp route: per matrix of the block (128 / lanes of them) the factors'
+    staging tile, n x (n | 1), whatever nrhs.  The kernel refuses a
+    launch whose count differs from its own."""
+    if (route or solve_route(n, nrhs)) == "warp":
+        return (128 // _solve_lanes(n)) * n * (n | 1) * itemsize
     return (n * (n + 1) + 2 * n * nrhs) * itemsize + 4 * n
 
 
@@ -147,12 +179,14 @@ def lu_kernel_takes(dtype, m: int, n: int) -> bool:
 
 
 def solve_kernel_takes(dtype, n: int, nrhs: int) -> bool:
-    """Can the solve kernel run (n, n) factors with ``nrhs`` columns?"""
+    """Can the solve kernel run (n, n) factors with ``nrhs`` columns?
+    Both routes take every such shape up to their own n limit (the block
+    route's shared memory is the larger count)."""
     return (
         dtype in _FLOATS
         and 0 < n <= KERNEL_MAX_N
         and nrhs > 0
-        and solve_smem_bytes(n, nrhs, dtype.itemsize) <= SMEM_LIMIT
+        and solve_smem_bytes(n, nrhs, dtype.itemsize, "block") <= SMEM_LIMIT
     )
 
 
@@ -484,14 +518,19 @@ batched_lu_noswap_cuda.launches = 0
 
 def batched_solve_cuda(factors: torch.Tensor, b: torch.Tensor,
                        perm: Optional[torch.Tensor] = None,
-                       ipiv: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       ipiv: Optional[torch.Tensor] = None,
+                       route: Optional[str] = None) -> torch.Tensor:
     """Launch the solve kernel: ``factors`` (B, n, n) CUDA f32/f64, ``b``
     (B, n) or (B, n, k) -> x of ``b``'s shape, allocated here.  ``perm``
     or ``ipiv`` (B, n) integer tensors on the same device, when given,
     are applied to ``b``'s rows inside the kernel; their entries must lie
-    in [0, n), which is not checked (that would need a host read).  One
+    in [0, n), which is not checked (that would need a host read).
+    ``route`` (default: the shape's own, :func:`solve_route`) forces
+    "warp" or "block" where that route takes the shape (the warp route
+    n <= 32, the block route any n), and raises where it does not.  One
     launch on the current stream, no synchronisation;
-    ``batched_solve_cuda.launches`` counts them."""
+    ``batched_solve_cuda.launches`` counts them,
+    ``batched_solve_cuda.route_launches`` counts them by route."""
     f = _cuda_batch(factors, "batched_solve_cuda", square=True)
     if not isinstance(b, torch.Tensor) or b.device != f.device:
         raise ValueError("batched_solve_cuda: b must lie on the factors' device")
@@ -507,26 +546,38 @@ def batched_solve_cuda(factors: torch.Tensor, b: torch.Tensor,
         raise ValueError(
             f"batched_solve_cuda: n={n}, nrhs={nrhs} {f.dtype} does not fit "
             f"the kernel (0 < n <= {KERNEL_MAX_N} and "
-            f"{solve_smem_bytes(n, nrhs, f.element_size())} <= {SMEM_LIMIT} "
+            f"{solve_smem_bytes(n, nrhs, f.element_size(), 'block')} <= {SMEM_LIMIT} "
             "bytes of shared memory)"
         )
+    route = route or solve_route(n, nrhs)
+    if route not in SOLVE_ROUTES or (route == "warp" and n > SOLVE_WARP_MAX_N):
+        raise ValueError(f"batched_solve_cuda: route {route!r} does not take n={n}")
     x = torch.empty_like(rhs)
     if B > 0:
         lib = _kernels.load("batched_solve")
         fn = lib.rf_batched_solve_f64 if f.element_size() == 8 else lib.rf_batched_solve_f32
         index, stream = _launch_args(f)
         batched_solve_cuda.launches += 1
+        batched_solve_cuda.route_launches[route] += 1
         code = fn(
             f.data_ptr(), rhs.data_ptr(), x.data_ptr(),
             idx.data_ptr() if perm is not None else None,
             idx.data_ptr() if ipiv is not None else None,
-            B, n, nrhs, solve_smem_bytes(n, nrhs, f.element_size()), index, stream,
+            B, n, nrhs, SOLVE_ROUTES.index(route) + 1,
+            solve_smem_bytes(n, nrhs, f.element_size(), route), index, stream,
         )
         _kernels.check(lib, code, "batched_solve launch")
     return x[:, :, 0] if vec else x
 
 
 batched_solve_cuda.launches = 0
+batched_solve_cuda.route_launches = dict.fromkeys(SOLVE_ROUTES, 0)
+
+
+def reset_solve_launches() -> None:
+    """Set the solve kernel's launch counts (all and by route) to 0."""
+    batched_solve_cuda.launches = 0
+    batched_solve_cuda.route_launches = dict.fromkeys(SOLVE_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------

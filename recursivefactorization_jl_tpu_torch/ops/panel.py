@@ -9,7 +9,11 @@ the port of ``_panel_kernel_shadow``, the micro block staged in shared
 memory; ``'basic'``: the port of ``_panel_kernel``, in place).
 complex64/complex128 panels go to csrc/panel_lu_c64.cu (the port of
 ``_panel_kernel_fori_c64``) whatever the variant: the JAX package has no
-other complex kernel either.  A CPU tensor goes to the kernel's plain
+other complex kernel either.  Both csrc/panel_lu.cu and
+csrc/panel_lu_c64.cu run a panel on the cluster route (the pivot chain of
+each block of b columns on one thread-block cluster, then a delayed pass)
+or, for panels too tall for a cluster, on the grid route; ``panel_plan``
+shows the plan.  A CPU tensor goes to the kernel's plain
 version in ops/unblocked.py: ``unblocked_lu``, ``micro_blocked_lu`` or,
 for complex panels, ``unblocked_lu_cabs1``.
 
@@ -110,94 +114,85 @@ def _check_panel(what, panel, dtypes):
     return m, w, lda, index, real, torch.finfo(real).bits // 8
 
 
-def _launch_panel(wrapper, panel, pivot, lib_name, grid_fn, fn_by_real_size,
-                  dtypes, ws_reals, grid_extra=(), fn_extra=()):
-    """The checks, allocations and launch the swapping panel kernels
-    share.  ``fn_by_real_size`` maps the byte size of the panel's real
-    type to the C function; ``ws_reals(G, w)`` is the workspace size in
-    reals; ``grid_extra`` follows the element size in the grid query and
-    ``fn_extra`` follows ``pivot`` in the launch.  Adds one to
-    ``wrapper.launches`` at the launch."""
-    m, w, lda, index, real, size = _check_panel(wrapper.__name__, panel, dtypes)
-    lib = _kernels.load(lib_name)
-    dev = panel.device
-    grid = getattr(lib, grid_fn)(m, w, size, *grid_extra, index)
-    if grid < 1:
-        _kernels.check(lib, -grid, f"{lib_name} grid query")
-    piv = torch.empty(min(m, w), dtype=torch.int32, device=dev)
-    perm = torch.empty(m, dtype=torch.int32, device=dev)
-    info = torch.empty(1, dtype=torch.int32, device=dev)
-    ws = torch.empty(ws_reals(grid, w), dtype=real, device=dev)
-    iws = torch.empty(4 * grid + 4, dtype=torch.int32, device=dev)
-    fn = getattr(lib, fn_by_real_size[size])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    wrapper.launches += 1
-    code = fn(
-        panel.data_ptr(), m, w, lda, int(bool(pivot)), *fn_extra,
-        piv.data_ptr(), perm.data_ptr(), info.data_ptr(), ws.data_ptr(),
-        iws.data_ptr(), grid, index, stream,
-    )
-    _kernels.check(lib, code, f"{lib_name} launch")
-    return piv, perm, info[0]
-
-
 @functools.lru_cache(maxsize=256)
-def _plan(m, w, size, ofs, block, cluster, index):
-    """csrc/panel_lu.cu's plan as a tuple (route, b, C or G, blocks, ws
-    reals, iws int32s); ``ofs`` None for the main-path kernel.  Cached: the
-    plan is a function of its arguments on one card."""
-    lib = _kernels.load("panel_lu")
+def _plan(cplx, m, w, size, ofs, block, cluster, index):
+    """The plan of csrc/panel_lu.cu (``cplx`` False) or csrc/panel_lu_c64.cu
+    as a tuple (route, b, C or G, blocks, ws reals, iws int32s); ``size``
+    is the element's bytes, ``ofs`` None for the main-path kernel.  Cached:
+    the plan is a function of its arguments on one card."""
+    name = "panel_lu_c64" if cplx else "panel_lu"
+    lib = _kernels.load(name)
     out = (ctypes.c_int * 6)()
-    fn = lib.rf_panel_lu_plan if ofs is None else lib.rf_offset_panel_lu_plan
+    fn = (lib.rf_panel_lu_c_plan if cplx else
+          lib.rf_panel_lu_plan if ofs is None else lib.rf_offset_panel_lu_plan)
     code = fn(m, w, size, ofs or 0, block, cluster, index, out)
-    _kernels.check(lib, code, "panel_lu plan")
+    _kernels.check(lib, code, f"{name} plan")
     return tuple(out)
+
+
+def _check_plan_request(dtype, ofs, block, cluster):
+    if dtype not in _REAL + _COMPLEX:
+        raise ValueError(
+            f"panel dtype must be float32/float64/complex64/complex128, got {dtype}")
+    if dtype in _COMPLEX and ofs is not None:
+        raise ValueError("the complex panel kernel has no offset form (ROADMAP.md "
+                         "Queue 1 item 18)")
+    for name, v in (("block", block), ("cluster", cluster)):
+        if not isinstance(v, int) or isinstance(v, bool):
+            raise ValueError(f"{name} must be an int, got {v!r}")
 
 
 def panel_plan(m: int, w: int, dtype, ofs=None, block: int = 0,
                cluster: int = 0, device=None) -> dict:
-    """How csrc/panel_lu.cu factors an (m, w) float32/float64 panel on the
-    card: as the main-path kernel (``ofs=None``) or as the offset kernel
-    from row ``ofs``: ``{"route": "cluster" | "grid", "block": b,
-    "cluster": C, "grid": G, "blocks": launches of the chain kernel,
-    "ws_reals", "iws_ints"}`` (workspace sizes).  ``block`` and ``cluster``
-    0 ask for the launcher's choice (what the main path runs);
-    ``block < 0`` forces the grid route and ``block >= w`` one block.
-    Raises where the card cannot run an explicit choice."""
-    if dtype not in _REAL:
-        raise ValueError(f"panel dtype must be float32/float64, got {dtype}")
+    """How the panel kernel of ``dtype`` factors an (m, w) panel on the
+    card: csrc/panel_lu.cu for float32/float64, as the main-path kernel
+    (``ofs=None``) or as the offset kernel from row ``ofs``;
+    csrc/panel_lu_c64.cu for complex64/complex128 (``ofs=None`` only).
+    Returns ``{"route": "cluster" | "grid", "block": b, "cluster": C,
+    "grid": G, "blocks": launches of the chain kernel, "ws_reals",
+    "iws_ints"}`` (workspace sizes).  ``block`` and ``cluster`` 0 ask for
+    the launcher's choice (what the main path runs); ``block < 0`` forces
+    the grid route and ``block >= w`` one block.  Raises ValueError for a
+    dtype or an offset the kernels do not take, RuntimeError where the
+    card cannot run an explicit choice."""
+    _check_plan_request(dtype, ofs, block, cluster)
     dev = torch.device("cuda") if device is None else torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    size = torch.finfo(dtype).bits // 8
-    route, b, c, blocks, ws, iws = _plan(m, w, size, ofs, block, cluster, index)
+    size = torch.empty((), dtype=dtype).element_size()
+    route, b, c, blocks, ws, iws = _plan(dtype in _COMPLEX, m, w, size, ofs, block,
+                                         cluster, index)
     return {"route": "cluster" if route == 1 else "grid",
             "block": b if route == 1 else None, "cluster": c if route == 1 else None,
             "grid": c if route == 0 else None, "blocks": blocks,
             "ws_reals": ws, "iws_ints": iws}
 
 
-def _launch_panel_lu(wrapper, panel, pivot, ofs, block, cluster):
+def _launch_panel_lu(wrapper, panel, pivot, ofs, block, cluster, dtypes=_REAL):
     """The checks, plan, allocations and launch of csrc/panel_lu.cu (the
-    offset kernel unless ``ofs`` is None).  Adds one to
-    ``wrapper.launches`` at the launch, and one to
-    ``wrapper.grid_route_launches`` when the panel takes the grid route.
-    piv, perm, info and the integer workspace share one allocation."""
-    m, w, lda, index, real, size = _check_panel(wrapper.__name__, panel, _REAL)
-    for name, v in (("block", block), ("cluster", cluster)):
-        if not isinstance(v, int) or isinstance(v, bool):
-            raise ValueError(f"{name} must be an int, got {v!r}")
-    route, _, _, _, ws_reals, iws_ints = _plan(m, w, size, ofs, block, cluster, index)
+    offset kernel unless ``ofs`` is None) or, for ``dtypes`` ``_COMPLEX``,
+    csrc/panel_lu_c64.cu.  Adds one to ``wrapper.launches`` at the launch,
+    and one to ``wrapper.grid_route_launches`` when the panel takes the
+    grid route.  piv, perm, info and the integer workspace share one
+    allocation."""
+    m, w, lda, index, real, size = _check_panel(wrapper.__name__, panel, dtypes)
+    cplx = panel.is_complex()
+    _check_plan_request(panel.dtype, ofs, block, cluster)
+    route, _, _, _, ws_reals, iws_ints = _plan(cplx, m, w, panel.element_size(), ofs, block,
+                                               cluster, index)
     dev = panel.device
     npiv = min(m - (ofs or 0), w)
     ints = torch.empty(npiv + m + 1 + iws_ints, dtype=torch.int32, device=dev)
     piv, perm, info = ints[:npiv], ints[npiv:npiv + m], ints[npiv + m]
     ws = torch.empty(ws_reals, dtype=real, device=dev) if route == 0 else None
-    lib = _kernels.load("panel_lu")
+    lib = _kernels.load("panel_lu_c64" if cplx else "panel_lu")
     stream = torch.cuda.current_stream(dev).cuda_stream
     wrapper.launches += 1
     if route == 0:
         wrapper.grid_route_launches += 1
-    if ofs is not None:
+    if cplx:
+        fn = lib.rf_panel_lu_c64 if size == 4 else lib.rf_panel_lu_c128
+        extra = ()
+    elif ofs is not None:
         fn = lib.rf_offset_panel_lu_f32 if size == 4 else lib.rf_offset_panel_lu_f64
         extra = (ofs,)
     else:
@@ -209,7 +204,7 @@ def _launch_panel_lu(wrapper, panel, pivot, ofs, block, cluster):
         None if ws is None else ws.data_ptr(), ints[npiv + m + 1:].data_ptr(), index,
         stream,
     )
-    _kernels.check(lib, code, "panel_lu launch")
+    _kernels.check(lib, code, f"{'panel_lu_c64' if cplx else 'panel_lu'} launch")
     return piv, perm, info
 
 
@@ -261,7 +256,8 @@ offset_panel_factor_cuda.launches = 0
 offset_panel_factor_cuda.grid_route_launches = 0
 
 
-def panel_factor_c64_cuda(panel: torch.Tensor, pivot: bool):
+def panel_factor_c64_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
+                          cluster: int = 0):
     """Launch the Hopper complex panel kernel on ``panel`` in place, on
     its interleaved (re, im) storage.
 
@@ -272,18 +268,21 @@ def panel_factor_c64_cuda(panel: torch.Tensor, pivot: bool):
     pivot row m - 1.  The scale multiplies by ``conj(p) / |p|^2``, whose
     denominator overflows or underflows for pivots beyond the square
     root of the type's range (LAPACK's ``cladiv`` would not); the TPU
-    kernel has the same limit.  Returns ``(piv, perm, info)`` as
+    kernel has the same limit.  Computes ``unblocked_lu_cabs1(panel,
+    pivot)`` bitwise.  Returns ``(piv, perm, info)`` as
     :func:`panel_factor_cuda` does, launches on the current stream and
-    does not synchronise.  ``panel_factor_c64_cuda.launches`` counts the
-    launches."""
-    return _launch_panel(
-        panel_factor_c64_cuda, panel, pivot, "panel_lu_c64",
-        "rf_panel_lu_c_grid", {4: "rf_panel_lu_c64", 8: "rf_panel_lu_c128"},
-        _COMPLEX, lambda g, w: 4 * g * w + 8 * w + 2 * g,
-    )
+    does not synchronise.  ``block`` / ``cluster`` pick the cluster
+    route's block width and cluster size as for :func:`panel_factor_cuda`
+    (0: the launcher's choice; ``block < 0``: the grid route).
+    ``panel_factor_c64_cuda.launches`` counts the launches,
+    ``panel_factor_c64_cuda.grid_route_launches`` those on the grid
+    route."""
+    return _launch_panel_lu(panel_factor_c64_cuda, panel, pivot, None, block, cluster,
+                            _COMPLEX)
 
 
 panel_factor_c64_cuda.launches = 0
+panel_factor_c64_cuda.grid_route_launches = 0
 
 
 def micro_max_cuda() -> int:
@@ -299,22 +298,38 @@ def micro_max_cuda() -> int:
 
 
 def _launch_micro(wrapper, panel, pivot, micro, shadow):
+    """The checks, allocations and launch of the two micro-blocked
+    kernels.  Adds one to ``wrapper.launches`` at the launch."""
     if not isinstance(micro, int) or micro < 1:
         raise ValueError(f"micro must be a positive int, got {micro!r}")
-    _check_panel(wrapper.__name__, panel, _REAL)
-    micro = min(micro, *panel.shape)  # one block spans the whole panel
+    m, w, lda, index, real, size = _check_panel(wrapper.__name__, panel, _REAL)
+    micro = min(micro, m, w)  # one block spans the whole panel
     if micro > micro_max_cuda():
         raise ValueError(
             f"the micro-blocked kernels take blocks of at most "
             f"{PANEL_MICRO_MAX} steps, got micro={micro}"
         )
+    lib = _kernels.load("panel_lu_micro")
+    dev = panel.device
+    grid = lib.rf_panel_lu_micro_grid(m, w, size, micro, int(shadow), index)
+    if grid < 1:
+        _kernels.check(lib, -grid, "panel_lu_micro grid query")
+    piv = torch.empty(min(m, w), dtype=torch.int32, device=dev)
+    perm = torch.empty(m, dtype=torch.int32, device=dev)
+    info = torch.empty(1, dtype=torch.int32, device=dev)
+    ws = torch.empty(2 * grid + 2 * grid * w + 2 * w, dtype=real, device=dev)
+    iws = torch.empty(4 * grid + 4, dtype=torch.int32, device=dev)
     which = "shadow" if shadow else "basic"
-    return _launch_panel(
-        wrapper, panel, pivot, "panel_lu_micro", "rf_panel_lu_micro_grid",
-        {4: f"rf_panel_lu_{which}_f32", 8: f"rf_panel_lu_{which}_f64"}, _REAL,
-        lambda g, w: 2 * g + 2 * g * w + 2 * w,
-        grid_extra=(micro, int(shadow)), fn_extra=(micro,),
+    fn = getattr(lib, f"rf_panel_lu_{which}_{'f32' if size == 4 else 'f64'}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    wrapper.launches += 1
+    code = fn(
+        panel.data_ptr(), m, w, lda, int(bool(pivot)), micro,
+        piv.data_ptr(), perm.data_ptr(), info.data_ptr(), ws.data_ptr(),
+        iws.data_ptr(), grid, index, stream,
     )
+    _kernels.check(lib, code, "panel_lu_micro launch")
+    return piv, perm, info[0]
 
 
 def panel_factor_shadow_cuda(panel: torch.Tensor, pivot: bool, micro: int):

@@ -309,6 +309,50 @@ def test_lu_route_rule_and_its_shared_memory(m, n, route, smem4, smem8):
     assert max(smem4, smem8) <= bk.SMEM_LIMIT
 
 
+@pytest.mark.parametrize(
+    "n, nrhs, route, lanes",
+    [
+        # warp: 8, 16 or 32 lanes per matrix, 128 / lanes matrices per block,
+        # each with an n x (n | 1) staging tile, whatever nrhs
+        (1, 1, "warp", 8), (8, 1, "warp", 8), (8, 7, "warp", 8), (9, 1, "warp", 16),
+        (15, 3, "warp", 16), (16, 1, "warp", 16), (17, 1, "warp", 32), (31, 64, "warp", 32),
+        (32, 1, "warp", 32), (32, 600, "warp", 32),
+        # block: one block per matrix beyond 32
+        (33, 1, "block", None), (64, 1, "block", None), (64, 9, "block", None),
+        (128, 1, "block", None),
+    ],
+)
+def test_solve_route_rule_and_its_shared_memory(n, nrhs, route, lanes):
+    """The solve kernel's route of each shape and the byte count its launch
+    must give (csrc/batched_solve.cu refuses another), by route."""
+    block = (n * (n + 1) + 2 * n * nrhs) * 4 + 4 * n
+    assert bk.solve_route(n, nrhs) == route
+    assert bk.solve_smem_bytes(n, nrhs, 4, "block") == block
+    if route == "warp":
+        warp = (128 // lanes) * n * (n | 1)
+        assert bk.solve_smem_bytes(n, nrhs, 4) == warp * 4
+        assert bk.solve_smem_bytes(n, nrhs, 8, "warp") == warp * 8
+        assert warp * 8 <= 48 * 1024  # no opt-in at any nrhs
+    else:
+        assert bk.solve_smem_bytes(n, nrhs, 4) == block
+    # the predicate still counts the block route, as before the warp route
+    assert bk.solve_kernel_takes(torch.float32, n, nrhs) == (block <= bk.SMEM_LIMIT)
+
+
+def test_solve_routes_are_counted_apart():
+    """The solve wrapper keeps a launch count per route beside the total,
+    and the reset sets both to 0; CPU tensors launch nothing."""
+    assert set(bk.batched_solve_cuda.route_launches) == set(bk.SOLVE_ROUTES) == {"warp", "block"}
+    bk.batched_solve_cuda.route_launches["warp"] += 1
+    bk.reset_solve_launches()
+    assert bk.batched_solve_cuda.route_launches == {"warp": 0, "block": 0}
+    assert bk.batched_solve_cuda.launches == 0
+    for route in ("warp", "block", "tile"):
+        with pytest.raises(ValueError):
+            bk.batched_solve_cuda(torch.zeros(2, 4, 4), torch.zeros(2, 4), route=route)
+    assert bk.batched_solve_cuda.route_launches == {"warp": 0, "block": 0}
+
+
 def test_lu_kernel_takes_the_shapes_it_always_took():
     """The routes change nothing in which shapes the kernels take: 0 <
     min(m, n) <= 128 and an (m, n + 1) tile, a column and 2 m ints within

@@ -312,6 +312,98 @@ def test_c64_kernel_ties_and_nan_candidates(dtype):
     assert bool((kpiv[10:] == m - 1).all())
 
 
+# every block width b and cluster size C of the complex kernel's cluster
+# route (csrc/panel_cluster.cuh with a complex element) on a (300, 100)
+# panel, and one slab for the whole panel (b = w); complex128 at b = 64 on
+# one CTA needs 300 x 64 x 16 bytes of slab, more than a CTA has
+_CPLANS = [(dt, b, C) for dt in (torch.complex64, torch.complex128)
+           for b in (8, 16, 32, 64) for C in (1, 2, 4, 8, 16)
+           if (dt, b, C) != (torch.complex128, 64, 1)]
+_CPLANS += [(dt, 100, C) for dt in (torch.complex64, torch.complex128) for C in (4, 8, 16)]
+
+
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("dtype,block,cluster", _CPLANS)
+def test_c64_kernel_cluster_plans_bitwise_equal_plain(dtype, block, cluster, pivot):
+    """The cluster route keeps the plain version's bits on every plan, a
+    zeroed column included (no swap, no scale, info 8)."""
+    need_cuda()
+    m, w = 300, 100
+    g = torch.Generator().manual_seed(24)
+    A = _crandn((m, w), g, dtype)
+    if not pivot:
+        A += m * torch.eye(m, w, dtype=dtype)
+    A[:, 7] = 0
+    A = A.cuda()
+    f, piv, perm, info = unblocked_lu_cabs1(A, pivot)
+    plan = panel_plan(m, w, dtype, block=block, cluster=cluster)
+    assert plan["route"] == "cluster" and (plan["block"], plan["cluster"]) == (block, cluster)
+    P = A.clone()
+    g0 = panel_factor_c64_cuda.grid_route_launches
+    kpiv, kperm, kinfo = panel_factor_c64_cuda(P, pivot, block=block, cluster=cluster)
+    torch.cuda.synchronize()
+    assert panel_factor_c64_cuda.grid_route_launches == g0
+    assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
+    assert int(kinfo) == int(info) == (8 if pivot else -8)
+    assert torch.equal(_cbits(P), _cbits(f))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("where", ["re", "im", "last_row", "ties"])
+@pytest.mark.parametrize("block,cluster", [(8, 1), (16, 16), (32, 4), (0, 0)])
+def test_c64_kernel_cluster_route_nan_and_ties(dtype, where, block, cluster):
+    """A NaN among a step's candidates (in re, in im, or in row m - 1
+    itself) makes every later pivot row m - 1 on the cluster route too;
+    exact CABS1 ties take the first row."""
+    need_cuda()
+    m, w = 300, 64
+    g = torch.Generator().manual_seed(25)
+    if where == "ties":
+        A = torch.complex(torch.randint(-2, 3, (m, w), generator=g).double(),
+                          torch.randint(-2, 3, (m, w), generator=g).double()).to(dtype)
+    else:
+        A = _crandn((m, w), g, dtype)
+        row = m - 1 if where == "last_row" else 150
+        A[row, 10] = complex(1.0, float("nan")) if where == "im" else complex(float("nan"), 1.0)
+    A = A.cuda()
+    f, piv, perm, info = unblocked_lu_cabs1(A, True)
+    P = A.clone()
+    kpiv, kperm, kinfo = panel_factor_c64_cuda(P, True, block=block, cluster=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(kpiv, piv) and torch.equal(kperm, perm) and int(kinfo) == int(info)
+    assert _same_bits_nan(torch.view_as_real(P), torch.view_as_real(f))
+    if where != "ties":
+        assert bool((kpiv[10:] == m - 1).all()) and bool((kpiv[:10] != m - 1).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_c64_kernel_grid_route_forced_and_for_tall_panels(dtype):
+    """block=-1 forces the grid route (the PR 3 design); a panel too tall
+    for a cluster of 16 at b = 8 takes it by itself.  Both count apart and
+    stay bitwise."""
+    need_cuda()
+    g = torch.Generator().manual_seed(26)
+    tall = (60000, 8) if dtype == torch.complex64 else (30000, 8)
+    for shape, block in ((tall, 0), ((900, 40), -1)):
+        A = _crandn(shape, g, dtype).cuda()
+        assert panel_plan(*shape, dtype, block=block)["route"] == "grid"
+        f, piv, perm, info = unblocked_lu_cabs1(A, True)
+        P = A.clone()
+        g0 = panel_factor_c64_cuda.grid_route_launches
+        kpiv, kperm, kinfo = panel_factor_c64_cuda(P, True, block=block)
+        torch.cuda.synchronize()
+        assert panel_factor_c64_cuda.grid_route_launches == g0 + 1
+        assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
+        assert torch.equal(_cbits(P), _cbits(f))
+    with pytest.raises(ValueError):
+        panel_plan(900, 40, dtype, ofs=0)
+    with pytest.raises(RuntimeError):
+        panel_plan(5000, 512, dtype, block=512, cluster=1)
+    if dtype == torch.complex128:
+        with pytest.raises(RuntimeError):
+            panel_plan(300, 100, dtype, block=64, cluster=1)
+
+
 def test_c64_kernel_in_place_on_a_strided_panel():
     need_cuda()
     g = torch.Generator().manual_seed(23)
@@ -586,6 +678,60 @@ def test_batched_solve_kernel_bitwise_equals_plain(dtype, nrhs, shape):
         assert torch.equal(_bits(kx.contiguous()), _bits(xp.contiguous()))
     rel = (torch.bmm(A, xp.reshape(B, n, -1)) - b.reshape(B, n, -1)).abs().max()
     assert float(rel) < (1e-1 if dtype == torch.float32 else 1e-8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("route", ["warp", "block"])
+@pytest.mark.parametrize("n", [1, 8, 15, 16, 17, 31, 32])
+def test_batched_solve_routes_bitwise_equal_plain(dtype, route, n):
+    """The solve's warp route (the shape's own at n <= 32) and the block
+    route forced on the same inputs: no row order, perm or ipiv, a vector,
+    one and five right-hand sides, a zero on U's diagonal in one matrix
+    (inf / NaN there only), a batch that is not a multiple of the matrices
+    per block; one launch on the route per call."""
+    need_cuda()
+    g = torch.Generator().manual_seed(27)
+    B = 37
+    A = torch.randn(B, n, n, generator=g, dtype=dtype).cuda()
+    f, ipiv, perm, info = bk.batched_lu_cuda(A, True, True)
+    f[B // 2, n // 2, n // 2] = 0
+    assert bk.solve_route(n, 1) == "warp"
+    for nrhs in (None, 1, 5):
+        b = torch.randn((B, n) if nrhs is None else (B, n, nrhs), generator=g,
+                        dtype=dtype).cuda()
+        x = bk.batched_solve_plain(f, b)
+        xp = bk.batched_solve_plain(f, b, perm=perm)
+        for kw, want in (({}, x), ({"perm": perm}, xp), ({"ipiv": ipiv}, xp)):
+            before = dict(bk.batched_solve_cuda.route_launches)
+            kx = bk.batched_solve_cuda(f, b, route=route, **kw)
+            torch.cuda.synchronize()
+            after = bk.batched_solve_cuda.route_launches
+            assert after[route] == before[route] + 1
+            assert sum(after.values()) == sum(before.values()) + 1
+            assert kx.shape == b.shape
+            assert _same_bits_nan(kx.contiguous(), want.contiguous())
+            finite = torch.isfinite(kx.reshape(B, -1)).all(dim=1)
+            assert not bool(finite[B // 2]) and int(finite.sum()) == B - 1
+
+
+def test_batched_solve_warp_route_on_the_public_path():
+    """The public solves at n = 16 launch the warp route, at n = 64 the
+    block route; the warp route refuses n > 32."""
+    need_cuda()
+    g = torch.Generator().manual_seed(28)
+    for n, route in ((16, "warp"), (64, "block")):
+        A = torch.randn(500, n, n, generator=g).cuda()
+        b = torch.randn(500, n, generator=g).cuda()
+        f, perm, _ = rt.batched_lu_factor_perm(A)
+        bk.reset_solve_launches()
+        x = rt.batched_lu_solve_perm(f, perm, b)
+        torch.cuda.synchronize()
+        assert bk.batched_solve_cuda.route_launches == {
+            "warp": int(route == "warp"), "block": int(route == "block")}
+        assert torch.equal(_bits(x), _bits(bk.batched_solve_plain(f, b, perm=perm)))
+    with pytest.raises(ValueError):
+        bk.batched_solve_cuda(torch.zeros(4, 33, 33, device="cuda"),
+                              torch.zeros(4, 33, device="cuda"), route="warp")
 
 
 def test_batched_kernels_copy_strided_input_and_reject_the_rest():

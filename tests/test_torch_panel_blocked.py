@@ -197,10 +197,10 @@ def test_library_name_follows_source_hash(monkeypatch, tmp_path):
     second = _kernels.library_path("probe")
     assert second != first
     assert first.parent == _kernels.BUILD_DIR
-    # the header every source includes is part of the name too
+    # the headers the sources include are part of the name too
     header = tmp_path / "common.cuh"
-    header.write_bytes(_kernels.COMMON_HEADER.read_bytes())
-    monkeypatch.setattr(_kernels, "COMMON_HEADER", header)
+    header.write_bytes(_kernels.HEADERS[0].read_bytes())
+    monkeypatch.setattr(_kernels, "HEADERS", (header,) + _kernels.HEADERS[1:])
     assert _kernels.library_path("probe") == second
     header.write_text("// changed\n")
     assert _kernels.library_path("probe") != second

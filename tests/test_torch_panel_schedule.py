@@ -23,7 +23,12 @@ import torch
 
 import recursivefactorization_jl_tpu as rf
 import recursivefactorization_jl_tpu_torch as rt
-from recursivefactorization_jl_tpu_torch.ops.unblocked import offset_panel_lu, unblocked_lu
+from recursivefactorization_jl_tpu_torch.ops import panel as panel_mod
+from recursivefactorization_jl_tpu_torch.ops.unblocked import (
+    offset_panel_lu,
+    unblocked_lu,
+    unblocked_lu_cabs1,
+)
 
 torch.set_num_threads(1)
 
@@ -73,7 +78,81 @@ def blocked_order_lu(A, ofs, pivot, b):
     return A, piv, perm, torch.tensor(info, dtype=torch.int32)
 
 
+def _outer_sub(Re, Im, lre, lim, ure, uim):
+    """The complex rank-1 update on the planes, each product, sum and
+    difference a rounded tensor op (``unblocked_lu_cabs1``'s order)."""
+    Re.sub_(torch.outer(lre, ure) - torch.outer(lim, uim))
+    Im.sub_(torch.outer(lre, uim) + torch.outer(lim, ure))
+
+
+def blocked_order_lu_cabs1(A, pivot, b):
+    """The cluster route's order on the complex (m, w) panel ``A``, with the
+    complex kernel's rules: CABS1 pivots (the first row of the largest
+    |re| + |im|; a NaN among the candidates makes the pivot row m - 1),
+    the scale by conj(p) / |p|^2 and the complex update, each rounding a
+    tensor op on the real and imaginary planes.  Returns ``(LU, piv,
+    perm, info)`` as ``unblocked_lu_cabs1`` does."""
+    A = A.clone()
+    V = torch.view_as_real(A)
+    Re, Im = V[..., 0], V[..., 1]
+    m, w = A.shape
+    steps = min(m, w)
+    piv = torch.arange(steps, dtype=torch.int32)
+    perm = torch.arange(m, dtype=torch.int32)
+    info = 0
+    for k0 in range(0, steps, b):
+        k1 = min(k0 + b, steps)
+        nb = k1 - k0
+        # 1. the chain on the slab: rows [k0, m), columns [k0, k1)
+        S = V[k0:, k0:k1].clone()
+        Sre, Sim = S[..., 0], S[..., 1]
+        src = torch.arange(m - k0)
+        pid = perm[k0:].clone()
+        for kk in range(nb):
+            kp = kk
+            if pivot:
+                cabs = Sre[kk:, kk].abs() + Sim[kk:, kk].abs()
+                hit = (cabs == cabs.max()).nonzero()
+                kp = kk + int(hit[0]) if hit.numel() else m - k0 - 1
+            piv[k0 + kk] = k0 + kp
+            nz = bool((Sre[kp, kk] != 0) | (Sim[kp, kk] != 0))
+            if nz and kp != kk:
+                S[[kk, kp]] = S[[kp, kk]]
+                src[[kk, kp]] = src[[kp, kk]]
+                pid[[kk, kp]] = pid[[kp, kk]]
+            lre, lim = Sre[kk + 1:, kk], Sim[kk + 1:, kk]
+            if nz:
+                pr, pi = Sre[kk, kk], Sim[kk, kk]
+                d = pr * pr + pi * pi
+                ir, ii = pr / d, -pi / d
+                sre = lre * ir - lim * ii
+                sim = lre * ii + lim * ir
+                lre.copy_(sre)
+                lim.copy_(sim)
+            elif info == 0:
+                info = k0 + kk + 1 if pivot else -(k0 + kk + 1)
+            if kk + 1 < nb:
+                _outer_sub(Sre[kk + 1:, kk + 1:], Sim[kk + 1:, kk + 1:], lre, lim,
+                           Sre[kk, kk + 1:], Sim[kk, kk + 1:])
+        perm[k0:] = pid
+        # 2. the delayed pass: swaps outside the slab, U rows, rows below
+        outside = [c for c in range(w) if not k0 <= c < k1]
+        if outside:
+            V[k0:, outside] = V[k0:][src][:, outside]
+        V[k0:, k0:k1] = S
+        for s in range(nb - 1):
+            rows = slice(k0 + s + 1, k0 + nb)
+            _outer_sub(Re[rows, k1:], Im[rows, k1:], Re[rows, k0 + s], Im[rows, k0 + s],
+                       Re[k0 + s, k1:], Im[k0 + s, k1:])
+        for s in range(nb):
+            _outer_sub(Re[k0 + nb:, k1:], Im[k0 + nb:, k1:], Re[k0 + nb:, k0 + s],
+                       Im[k0 + nb:, k0 + s], Re[k0 + s, k1:], Im[k0 + s, k1:])
+    return A, piv, perm, torch.tensor(info, dtype=torch.int32)
+
+
 def _bits(t):
+    if t.is_complex():
+        t = torch.view_as_real(t).contiguous()
     return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
 
 
@@ -136,6 +215,84 @@ def test_blocked_order_equals_offset_panel_lu(b, ofs, pivot):
     assert torch.equal(_bits(got[0][:ofs]), _bits(A[:ofs]))  # rows above untouched
 
 
+def _complex_panel(name, m, w, dtype, pivot):
+    rng = np.random.default_rng([m, w, len(name), ord(name[-1])])
+    if name == "ties":  # exact CABS1 ties on integer parts
+        A = rng.integers(-2, 3, (m, w)) + 1j * rng.integers(-2, 3, (m, w))
+    else:
+        A = rng.standard_normal((m, w)) + 1j * rng.standard_normal((m, w))
+    if not pivot:
+        A[np.arange(min(m, w)), np.arange(min(m, w))] += m
+    if name == "zero_col":
+        A[:, 9] = 0
+    if name == "nan_re":
+        A[40, 3] = complex(np.nan, 1.0)
+    if name == "nan_im":
+        A[40, 3] = complex(1.0, np.nan)
+    if name == "nan_last_row":
+        A[m - 1, 3] = complex(np.nan, 1.0)
+    return torch.tensor(A, dtype=dtype)
+
+
+@pytest.mark.parametrize("name, pivot", [("randn", True), ("randn", False), ("ties", True),
+                                         ("zero_col", True), ("zero_col", False),
+                                         ("nan_re", True), ("nan_im", True),
+                                         ("nan_last_row", True)])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("b", [8, 16, 32, "w"])
+def test_complex_blocked_order_equals_unblocked_lu_cabs1(b, dtype, name, pivot):
+    """The cluster route's delayed order keeps the complex kernel's bits:
+    ties take the first row, a zeroed column gives info 10 (-10 unpivoted)
+    with no swap and no scale, and a NaN in re, in im or at row m - 1 makes
+    every later pivot row m - 1."""
+    m, w = 96, 40  # ragged last blocks at b = 16 and 32
+    b = w if b == "w" else b
+    A = _complex_panel(name, m, w, dtype, pivot)
+    got = blocked_order_lu_cabs1(A, pivot, b)
+    want = unblocked_lu_cabs1(A, pivot)
+    nan = torch.isnan(torch.view_as_real(want[0]))
+    assert torch.equal(torch.isnan(torch.view_as_real(got[0])), nan)
+    _assert_same((got[0].masked_fill(nan.any(-1), 0),) + got[1:],
+                 (want[0].masked_fill(nan.any(-1), 0),) + want[1:])
+    if name == "zero_col":
+        assert int(got[3]) == (10 if pivot else -10)
+    if name.startswith("nan"):
+        assert (got[1][3:] == m - 1).all() and (got[1][:3] != m - 1).all()
+
+
+def test_panel_plan_takes_complex_dtypes_and_refuses_bad_requests(monkeypatch):
+    """panel_plan hands complex dtypes to csrc/panel_lu_c64.cu's plan (with
+    the element's byte size) and refuses, before any build, what no kernel
+    takes: other dtypes, an offset on a complex panel (no complex offset
+    kernel), a block or cluster that is not an int."""
+    asked = []
+
+    def fake_plan(cplx, m, w, size, ofs, block, cluster, index):
+        asked.append((cplx, m, w, size, ofs, block, cluster, index))
+        return (1, 16, 4, 3, 1, 99) if block >= 0 else (0, -1, 132, 1, 7, 8)
+
+    monkeypatch.setattr(panel_mod, "_plan", fake_plan)
+    plan = panel_mod.panel_plan(1000, 40, torch.complex64, device="cuda:0")
+    assert plan == {"route": "cluster", "block": 16, "cluster": 4, "grid": None, "blocks": 3,
+                    "ws_reals": 1, "iws_ints": 99}
+    plan = panel_mod.panel_plan(1000, 40, torch.complex128, block=-1, device="cuda:0")
+    assert plan["route"] == "grid" and plan["grid"] == 132 and plan["block"] is None
+    panel_mod.panel_plan(1000, 40, torch.float64, ofs=5, block=8, cluster=2, device="cuda:0")
+    assert asked == [(True, 1000, 40, 8, None, 0, 0, 0), (True, 1000, 40, 16, None, -1, 0, 0),
+                     (False, 1000, 40, 8, 5, 8, 2, 0)]
+    for kw in ({"dtype": torch.complex64, "ofs": 0}, {"dtype": torch.int32},
+               {"dtype": torch.float16}, {"dtype": torch.complex64, "block": True},
+               {"dtype": torch.float32, "cluster": 2.0}):
+        with pytest.raises(ValueError):
+            panel_mod.panel_plan(1000, 40, device="cuda:0", **kw)
+    assert len(asked) == 3
+    with pytest.raises(ValueError):  # the launching wrapper takes CUDA tensors only
+        panel_mod.panel_factor_c64_cuda(torch.zeros(8, 4, dtype=torch.complex64), True,
+                                        block=8, cluster=1)
+    assert panel_mod.panel_factor_c64_cuda.launches == 0
+    assert panel_mod.panel_factor_c64_cuda.grid_route_launches == 0
+
+
 def test_port_exports_every_public_name_of_the_jax_package():
     assert set(rf.__all__) <= set(rt.__all__)
     assert {"materialize_uv", "pad_to_multiple_of_4"} <= set(rt.__all__)
@@ -171,21 +328,25 @@ def test_lu_factor_donate_refuses_what_lu_inplace_refuses():
 
 
 def test_ctypes_signatures_match_the_c_entry_points():
-    """Every C function ops/_kernels.py binds for csrc/panel_lu.cu, and every
-    other one its source spells out (some are stamped out by a macro), is
-    declared with as many parameters, pointers where ctypes passes
-    pointers: a mismatch would cut a pointer or shift every argument on
-    the card."""
+    """Every C function ops/_kernels.py binds for csrc/panel_lu.cu,
+    csrc/panel_lu_c64.cu and csrc/batched_solve.cu, and every other one its
+    source spells out (some are stamped out by a macro), is declared with
+    as many parameters, pointers where ctypes passes pointers: a mismatch
+    would cut a pointer or shift every argument on the card."""
     import ctypes
     import re
 
     from recursivefactorization_jl_tpu_torch.ops import _kernels
 
+    spelled_out = {"panel_lu", "panel_lu_c64", "batched_solve"}
+    assert {"rf_panel_lu_c_plan", "rf_panel_lu_c64", "rf_panel_lu_c128",
+            "rf_panel_lu_c_set_trace"} <= set(_kernels.SIGNATURES["panel_lu_c64"])
+    headers = "".join(h.read_text() for h in _kernels.HEADERS)
     for name, fns in _kernels.SIGNATURES.items():
-        text = _kernels.SOURCES[name].read_text() + _kernels.COMMON_HEADER.read_text()
+        text = _kernels.SOURCES[name].read_text() + headers
         for fn, (_, argtypes) in fns.items():
             decl = re.search(r"\b" + fn + r"\(([^)]*)\)\s*\{", text)
-            if decl is None and name != "panel_lu":
+            if decl is None and name not in spelled_out:
                 continue
             assert decl, f"{name}: {fn} not declared"
             params = [p.strip() for p in decl.group(1).split(",") if p.strip()]
