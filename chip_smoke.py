@@ -108,32 +108,44 @@ The complex and half-precision path adds:
 
 The opt-in schedules and the RBT solver add:
 
-2d. kernel  the two micro-blocked kernels (csrc/panel_lu_micro.cu: staged
-            ``shadow``, in-place ``basic``) against ``micro_blocked_lu``
-            and each other, and the no-swap kernel
-            (csrc/panel_lu_noswap.cu) against ``unblocked_lu_noswap``, on
-            the main path's panels (the no-swap one also with half the
-            rows taken by earlier panels), a whole 512 x 512, a ragged
-            tall and (micro kernels) a fat panel: f32/f64, pivot on/off,
-            a zeroed column, exact ties, micro 16/32: ipiv / prow, perm /
-            used and info equal, factors bitwise equal; the same on
-            column blocks of a 1536 x 1536 matrix (row stride n, as the
-            blocked schedules hand them over), the no-swap kernel's
-            second block under the mask its first one returned;
+2d. kernel  the micro-blocked kernels (csrc/panel_lu_micro.cu) against
+            ``micro_blocked_lu`` and each other, on their cluster route
+            (blocks of micro steps, one kernel for ``shadow`` and
+            ``basic``) and forced onto their grid routes (the staged and
+            in-place grid-barrier kernels), and the no-swap kernel
+            (csrc/panel_lu_noswap.cu) against ``unblocked_lu_noswap`` on
+            its cluster route (sized by the live count, or for m without
+            one) and its grid route forced: the main path's panels (the
+            no-swap one also with half the rows taken by earlier panels),
+            a whole 512 x 512, a ragged tall and (micro kernels) a fat
+            panel: f32/f64, pivot on/off, a zeroed column, exact ties,
+            NaN candidates, scattered masks, 38 rows left for 130 steps
+            (prow -1), micro 12/16/32: ipiv / prow, perm / used and info
+            equal, factors bitwise equal (NaN for NaN), the route counted;
+            every plan (micro 8/12/16/32/64 x C; b 8/16/32/64/one block x
+            C under a mask) on a 1000 x 100 panel; a live count too small
+            for the mask, in a child process: the launch must fail; the
+            same on column blocks of a 1536 x 1536 matrix (row stride n,
+            as the blocked schedules hand them over), the no-swap
+            kernel's second block under the mask its first one returned;
 3d. main    ``lu`` + ``lu_solve`` under ``schedule='physical'`` at n=1536
             (entry matrix, randn, zeroed column) and 4096, f64 at 1536,
             and under ``panel_variant='shadow'`` / ``'basic'`` at 1536
-            and 4096: residual gate, info, launch counts per kernel, no
-            TF32 product, the permutation against the default route's
+            and 4096: residual gate, info, launch counts per kernel and
+            none on a grid route, no TF32 product, the permutation
+            against the default route's
             (equal, or the two candidates of the first differing step tie
             to n*eps in an f64 elimination).  ``butterfly_solve`` on a
             Wilkinson matrix of n=800 in f64 (||Ax - b|| <= 1e-10) and on
             randn + n*I at n=1536 in f32 with refine 0 and 2 beside the
             pivoted ``lu_solve``; the panel kernel's launches with
             pivot=False;
-4d. timing  the three kernels per panel shape in turns beside
-            csrc/panel_lu.cu and torch.linalg.lu_factor_ex, their plain
-            versions once; factor and factor+solve at 1536/4096 for the
+4d. timing  the micro-blocked and no-swap kernels per panel shape on their
+            cluster and (forced) grid routes in turns beside
+            csrc/panel_lu.cu and torch.linalg.lu_factor_ex, the micro
+            route at micro 8/16/64, the no-swap kernel with half the rows
+            taken, their plain versions once, a step's phases from their
+            chain traces; factor and factor+solve at 1536/4096 for the
             default route, ``physical``, ``shadow``, ``basic`` and the
             library in turns; RBT beside the pivoted solve; ``--sweep``
             adds micro 8/16/32/64 x panel width.
@@ -191,6 +203,9 @@ REPLACES = "recursivefactorization_jl_tpu/ops/panel.py:411"
 SOURCE_C64 = "recursivefactorization_jl_tpu_torch/csrc/panel_lu_c64.cu"
 REPLACES_C64 = "recursivefactorization_jl_tpu/ops/panel.py:1030"
 NEW_PANEL_KERNELS = {
+    # each on its cluster route (the main path's) and, "_grid", on its grid
+    # route (the grid-barrier kernels: panels too tall for a cluster, or
+    # block=-1)
     "panel_lu_micro_shadow": ("recursivefactorization_jl_tpu_torch/csrc/panel_lu_micro.cu",
                               "recursivefactorization_jl_tpu/ops/panel.py:266"),
     "panel_lu_micro_basic": ("recursivefactorization_jl_tpu_torch/csrc/panel_lu_micro.cu",
@@ -198,6 +213,25 @@ NEW_PANEL_KERNELS = {
     "panel_lu_noswap": ("recursivefactorization_jl_tpu_torch/csrc/panel_lu_noswap.cu",
                         "recursivefactorization_jl_tpu/ops/panel.py:742"),
 }
+NEW_PANEL_KERNELS.update({f"{k}_grid": v for k, v in list(NEW_PANEL_KERNELS.items())})
+# a child process that launches the no-swap kernel with a live count too
+# small for its mask: the chain kernel traps (which ends that process's CUDA
+# context), and the error must surface at the synchronisation
+WRONG_LIVE_PROBE = """
+import sys, torch
+from recursivefactorization_jl_tpu_torch.ops.panel import noswap_plan, panel_factor_noswap_cuda
+P = torch.randn(1536, 512, device="cuda")
+used0 = torch.zeros(1536, dtype=torch.int32, device="cuda")
+print("plan", noswap_plan(1536, 512, torch.float32, live=100), flush=True)
+try:
+    panel_factor_noswap_cuda(P, used0, True, live=100)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", str(e).splitlines()[0][:200])
+    sys.exit(0)
+print("no error")
+sys.exit(1)
+"""
 BATCHED_KERNELS = {
     # the swap mode's three routes (ops/batched_kernel.py lu_route): a warp
     # per matrix, a register-tiled block, the shared-memory tile
@@ -514,6 +548,8 @@ def main(argv):
         panel_factor_cuda,
         panel_factor_noswap_cuda,
         panel_factor_shadow_cuda,
+        micro_plan,
+        noswap_plan,
         panel_plan,
     )
     from recursivefactorization_jl_tpu_torch.ops import batched_kernel as bk
@@ -864,7 +900,14 @@ def main(argv):
                 X += max(m, w) * torch.eye(m, w, dtype=dt)
             if name == "zero_col":
                 X[:, min(5, w - 1)] = 0
+            if name == "nan":  # two NaN candidates in column 3: the first wins
+                X[m // 3, 3] = X[m // 2, 3] = float("nan")
             return X
+
+        def same_bits_nan(x, y):
+            nx, ny = torch.isnan(x), torch.isnan(y)
+            return bool(torch.equal(nx, ny)) and bool(
+                torch.equal(bits(x.masked_fill(nx, 0)), bits(y.masked_fill(ny, 0))))
 
         new_err = {k: 0.0 for k in NEW_PANEL_KERNELS}
         mcases = []  # shape, dtype, input, pivot, micro
@@ -877,33 +920,71 @@ def main(argv):
             mcases += [((777, 130), dt, "randn", True, 32), ((777, 130), dt, "zero_col", True, 16),
                        ((777, 130), dt, "ties", True, 32), ((130, 300), dt, "randn", True, 32),
                        ((130, 300), dt, "zero_col", False, 16)]
-        for (m, w), dt, name, pivot, micro in mcases:
-            A = real_input(name, m, w, dt, pivot).to(dev)
-            f_p, piv_p, perm_p, info_p = micro_blocked_lu(A, pivot, micro)
+        mcases += [((777, 130), f32, "nan", True, 12), ((1000, 100), f64, "randn", True, 12),
+                   ((130, 300), f32, "randn", True, 12)]
+
+        def check_micro(A, pivot, micro, what, block=0, cluster=0, plain=None):
+            """Both micro wrappers on ``A`` (a tensor or a view) against
+            micro_blocked_lu, on the cluster route (block 0) or the grid
+            route (block -1); returns the factored panels."""
+            f_p, piv_p, perm_p, info_p = plain or micro_blocked_lu(A, pivot, micro)
+            m, w = A.shape
+            grid_route = block < 0
             outs = {}
             for kern, wrapper in micro_wrappers.items():
+                key = f"{kern}_grid" if grid_route else kern
+                plan = micro_plan(m, w, A.dtype, micro, kern.rsplit("_", 1)[1], block=block,
+                                  cluster=cluster)
                 P = A.clone()
-                piv_k, perm_k, info_k = wrapper(P, pivot, micro)
+                g0 = wrapper.grid_route_launches
+                piv_k, perm_k, info_k = wrapper(P, pivot, micro, block=block, cluster=cluster)
                 torch.cuda.synchronize()
                 outs[kern] = P
                 same = {
                     "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
                     "perm_equal": bool(torch.equal(perm_k, perm_p)),
                     "info_equal": int(info_k) == int(info_p),
-                    "bitwise": bool(torch.equal(bits(P), bits(f_p))),
+                    "bitwise": same_bits_nan(P, f_p),
+                    "route_as_expected": (wrapper.grid_route_launches - g0 == int(grid_route)
+                                          and plan["route"] == ("grid" if grid_route
+                                                                else "cluster")),
                 }
                 err = float((P - f_p).abs().nan_to_num(0.0).max())
-                new_err[kern] = max(new_err[kern], err)
-                emit("kernel", kernel=kern, shape=[m, w], dtype=str(dt)[6:], input=name,
-                     pivot=pivot, micro=micro, info=int(info_k), max_abs_err=err, **same)
+                new_err[key] = max(new_err[key], err)
+                emit("kernel", kernel=key, shape=[m, w], dtype=str(A.dtype)[6:], input=what,
+                     pivot=pivot, micro=micro, plan=plan, info=int(info_k), max_abs_err=err,
+                     **same)
                 if not all(same.values()):
-                    fail(f"{kern} disagrees with its plain version: {same}")
-                if name == "zero_col" and int(info_k) != (6 if pivot else -6):
+                    fail(f"{key} disagrees with its plain version: {same}")
+                if what.startswith("zero_col") and int(info_k) != (6 if pivot else -6):
                     fail(f"zeroed column 5 gave info {int(info_k)}")
-            if not torch.equal(bits(outs["panel_lu_micro_shadow"]),
-                               bits(outs["panel_lu_micro_basic"])):
-                fail("the staged and the in-place micro kernel differ")
-            del outs
+            return outs
+
+        for (m, w), dt, name, pivot, micro in mcases:
+            A = real_input(name, m, w, dt, pivot).to(dev)
+            plain = micro_blocked_lu(A, pivot, micro)
+            for block in (0, -1):
+                outs = check_micro(A, pivot, micro, name, block=block, plain=plain)
+                if not same_bits_nan(outs["panel_lu_micro_shadow"], outs["panel_lu_micro_basic"]):
+                    fail("the staged and the in-place micro kernel differ")
+            del outs, plain
+        # every plan of the micro route: blocks of micro in {8, 12, 16, 32, 64}
+        # steps on every cluster size that fits a ragged 1000 x 100 panel
+        mplans = set()
+        for dt in (f32, f64):
+            X = real_input("zero_col", 1000, 100, dt, True).to(dev)
+            for micro in (8, 12, 16, 32, 64):
+                plain = micro_blocked_lu(X, True, micro)
+                for C in (1, 2, 4, 8, 16):
+                    try:
+                        micro_plan(1000, 100, dt, micro, cluster=C)
+                    except RuntimeError:
+                        continue  # this (micro, C) does not fit the card
+                    check_micro(X, True, micro, f"zero_col, C={C}", cluster=C, plain=plain)
+                    mplans.add((str(dt)[6:], micro, C))
+        if not {b for _, b, _ in mplans} >= {8, 12, 16, 32, 64} or \
+                not {C for _, _, C in mplans} >= {1, 2, 4, 8, 16}:
+            fail(f"the micro plan cases missed a block width or a cluster size: {sorted(mplans)}")
 
         ncases = []  # shape, dtype, input, pivot, share of rows taken before
         for (m, w) in shapes:
@@ -913,34 +994,91 @@ def main(argv):
                    ((512, 512), f32, "randn", True, 0.0), ((512, 512), f64, "zero_col", False, 0.0)]
         for dt in (f32, f64):
             ncases += [((777, 130), dt, "randn", True, 0.3), ((777, 130), dt, "ties", True, 0.3),
-                       ((777, 130), dt, "zero_col", False, 0.0)]
-        for (m, w), dt, name, pivot, share in ncases:
-            A = real_input(name, m, w, dt, True).to(dev)  # unpivoted: rows in order
-            used0 = torch.zeros(m, dtype=torch.int32)
-            taken = int(share * m)
-            used0[torch.randperm(m, generator=gen)[:taken]] = 1
-            used0 = used0.to(dev)
-            f_p, prow_p, used_p, info_p = unblocked_lu_noswap(A, used0, pivot)
+                       ((777, 130), dt, "zero_col", False, 0.0), ((777, 130), dt, "nan", True, 0.3),
+                       ((777, 130), dt, "randn", True, 0.95)]  # 38 rows for 130 steps
+
+        def check_noswap(A, used0, pivot, what, live=None, block=0, cluster=0, plain=None):
+            """The no-swap wrapper on ``A`` under ``used0`` against
+            unblocked_lu_noswap: the cluster route sized for ``live`` rows
+            (block 0 or an explicit b, C) or the grid route (block -1)."""
+            f_p, prow_p, used_p, info_p = plain or unblocked_lu_noswap(A, used0, pivot)
+            m, w = A.shape
+            taken = int((used0 != 0).sum())
+            plan = noswap_plan(m, w, A.dtype, live=live, block=block, cluster=cluster)
+            grid_route = plan["route"] == "grid"
+            key = "panel_lu_noswap_grid" if grid_route else "panel_lu_noswap"
             P = A.clone()
-            prow_k, used_k, info_k = panel_factor_noswap_cuda(P, used0, pivot)
+            g0 = panel_factor_noswap_cuda.grid_route_launches
+            prow_k, used_k, info_k = panel_factor_noswap_cuda(P, used0, pivot, live=live,
+                                                              block=block, cluster=cluster)
             torch.cuda.synchronize()
             same = {
                 "prow_equal": bool(torch.equal(prow_k, prow_p)),
                 "used_equal": bool(torch.equal(used_k, used_p)),
                 "info_equal": int(info_k) == int(info_p),
-                "bitwise": bool(torch.equal(bits(P), bits(f_p))),
-                "taken_rows_untouched": bool(torch.equal(P[used0.bool()], A[used0.bool()])),
-                "used_count": int(used_k.sum()) == taken + min(m, w),
+                "bitwise": same_bits_nan(P, f_p),
+                "taken_rows_untouched": same_bits_nan(P[used0.bool()], A[used0.bool()]),
+                "used_count": int(used_k.sum()) == min(m, taken + min(m, w)),
+                "route_as_expected": (panel_factor_noswap_cuda.grid_route_launches - g0
+                                      == int(grid_route)) and grid_route == (block < 0),
             }
+            if what.startswith("nan") and pivot:
+                same["first_nan_row"] = int(prow_k[3]) in (m // 3, m // 2) or \
+                    bool(used0[m // 3] and used0[m // 2])
             err = float((P - f_p).abs().nan_to_num(0.0).max())
-            new_err["panel_lu_noswap"] = max(new_err["panel_lu_noswap"], err)
-            emit("kernel", kernel="panel_lu_noswap", shape=[m, w], dtype=str(dt)[6:],
-                 input=name, pivot=pivot, rows_taken_before=taken, info=int(info_k),
-                 max_abs_err=err, **same)
+            new_err[key] = max(new_err[key], err)
+            emit("kernel", kernel=key, shape=[m, w], lda=A.stride(0), dtype=str(A.dtype)[6:],
+                 input=what, pivot=pivot, rows_taken_before=taken, live=live, plan=plan,
+                 info=int(info_k), max_abs_err=err, **same)
             if not all(same.values()):
-                fail(f"panel_lu_noswap disagrees with its plain version: {same}")
-            if name == "zero_col" and int(info_k) != (6 if pivot else -6):
+                fail(f"{key} disagrees with its plain version: {same}")
+            if what.startswith("zero_col") and int(info_k) != (6 if pivot else -6):
                 fail(f"zeroed column 5 gave info {int(info_k)}")
+
+        def scattered(m, share):
+            used0 = torch.zeros(m, dtype=torch.int32)
+            used0[torch.randperm(m, generator=gen)[:int(share * m)]] = 1
+            return used0.to(dev)
+
+        for (m, w), dt, name, pivot, share in ncases:
+            A = real_input(name, m, w, dt, True).to(dev)  # unpivoted: rows in order
+            used0 = scattered(m, share)
+            plain = unblocked_lu_noswap(A, used0, pivot)
+            live = m - int(used0.sum())
+            check_noswap(A, used0, pivot, name, live=live, plain=plain)
+            check_noswap(A, used0, pivot, f"{name}, no live count", plain=plain)
+            if (m, w) == (777, 130):  # the same cases on the grid route, forced
+                check_noswap(A, used0, pivot, f"{name}, forced grid", block=-1, plain=plain)
+        # every plan of the cluster route on a ragged 1000 x 100 panel with 300
+        # rows taken before: b in {8, 16, 32, 64, 100 (one block)} x C
+        nplans = set()
+        for dt in (f32, f64):
+            X = real_input("zero_col", 1000, 100, dt, True).to(dev)
+            used0 = scattered(1000, 0.3)
+            plain = unblocked_lu_noswap(X, used0, True)
+            for b in (8, 16, 32, 64, 100):
+                for C in (1, 2, 4, 8, 16):
+                    try:
+                        noswap_plan(1000, 100, dt, live=700, block=b, cluster=C)
+                    except RuntimeError:
+                        continue  # this (b, C) does not fit the card
+                    check_noswap(X, used0, True, f"zero_col, b={b}, C={C}", live=700, block=b,
+                                 cluster=C, plain=plain)
+                    nplans.add((str(dt)[6:], b, C))
+        if not {b for _, b, _ in nplans} >= {8, 16, 32, 64, 100} or \
+                not {C for _, _, C in nplans} >= {1, 2, 4, 8, 16}:
+            fail(f"the no-swap plan cases missed a block width or a cluster size: "
+                 f"{sorted(nplans)}")
+        # a live count too small for the mask: the launch must fail, in a
+        # child process (the trap ends its CUDA context)
+        probe = subprocess.run([sys.executable, "-c", WRONG_LIVE_PROBE], capture_output=True,
+                               text=True, timeout=300,
+                               cwd=os.path.dirname(os.path.abspath(__file__)))
+        emit("kernel", kernel="panel_lu_noswap", input="live count 100 for 1536 free rows",
+             child_rc=probe.returncode, child_out=probe.stdout[-400:],
+             child_err=probe.stderr[-400:])
+        if probe.returncode != 0 or "raised:" not in probe.stdout:
+            fail("a live count too small for the mask did not fail the launch")
         # the views the main path hands over: a column block of an n x n matrix
         # (row stride n, not w), and for the no-swap kernel the mask that its
         # own first panel returned
@@ -974,7 +1112,8 @@ def main(argv):
             for s in (0, w_v):
                 block = slice(s, s + w_v)
                 f_p, prow_p, used_p_next, info_p = unblocked_lu_noswap(M[:, block], used_p, True)
-                prow_k, used_k_next, info_k = panel_factor_noswap_cuda(W[:, block], used_k, True)
+                prow_k, used_k_next, info_k = panel_factor_noswap_cuda(W[:, block], used_k, True,
+                                                                       live=n_v - s)
                 torch.cuda.synchronize()
                 taken = used_p.bool()
                 same = {
@@ -997,6 +1136,11 @@ def main(argv):
             del M, W
         for bad in (lambda: panel_factor_shadow_cuda(torch.zeros(8, 4), True, 4),
                     lambda: panel_factor_basic_cuda(torch.zeros(200, 100, device=dev), True, 65),
+                    lambda: panel_factor_shadow_cuda(torch.zeros(200, 100, device=dev), True, 8,
+                                                     block=8),
+                    lambda: panel_factor_noswap_cuda(torch.zeros(8, 4, device=dev),
+                                                     torch.zeros(8, dtype=torch.int32, device=dev),
+                                                     True, live=9),
                     lambda: panel_factor_noswap_cuda(torch.zeros(8, 4, device=dev),
                                                      torch.zeros(7, dtype=torch.int32, device=dev), True),
                     lambda: panel_factor_noswap_cuda(torch.zeros(8, 4),
@@ -1826,12 +1970,15 @@ def main(argv):
         watch = TF32Watch()
         for wr in panel_wrappers.values():
             wr.launches = 0
+            wr.grid_route_launches = 0
         with watch:
             F = rt.lu(A, check=False, config=ocfg)
             x = rt.lu_solve(F, b)
             torch.cuda.synchronize()
         got = {k: wr.launches for k, wr in panel_wrappers.items()}
         want = {k: (expect if k == kern else 0) for k in panel_wrappers}
+        # every panel of these sizes fits a cluster: no grid-route launch
+        grid_got = {k: wr.grid_route_launches for k, wr in panel_wrappers.items()}
         launches_o.setdefault((what, name, n, dt), got[kern])
         r, g = resid_gate(A, F)
         sr = solve_resid(A, x, b)
@@ -1840,7 +1987,8 @@ def main(argv):
         F0 = rt.lu(A, check=False)  # the default route
         differ = int((F.p != F0.p).sum())
         rec = dict(config=what, n=n, input=name, dtype=str(dt)[6:], route=route,
-                   launches=got, expected_launches=want, resid=r, gate=g,
+                   launches=got, expected_launches=want, grid_route_launches=grid_got,
+                   resid=r, gate=g,
                    scaled_resid=r / (n * eps * float(A.abs().max())),
                    solve_rel_resid=sr, info=info, matmuls=len(watch.flags),
                    tf32_seen=any(watch.flags),
@@ -1863,6 +2011,8 @@ def main(argv):
         emit("main", **rec)
         if got != want:
             fail(f"{what}: panel kernels launched {got}, expected {want}")
+        if any(grid_got.values()):
+            fail(f"{what}: grid-route launches {grid_got}, expected none")
         if route != ("physical" if what == "physical" else "blocked"):
             fail(f"{what}: route {route}")
         if not r < g:
@@ -2468,6 +2618,12 @@ def main(argv):
         batched_rows = batched_timing()
 
     # ---- 4d. the new panel kernels, the opt-in schedules, RBT -------------
+    # the micro-blocked and the no-swap kernel per main-path panel on their
+    # cluster routes and, forced, on their grid routes (the grid-barrier
+    # kernels), in
+    # turns beside csrc/panel_lu.cu and the library; the no-swap kernel also
+    # with half the rows taken, sized by the live count as the physical
+    # schedule sizes it; the micro route at micro 8 / 16 / 64 too
     new_rows = {}
     for (m, w) in shapes:
         X = torch.randn(m, w, generator=gen).to(dev)
@@ -2475,29 +2631,64 @@ def main(argv):
         none_used = torch.zeros(m, dtype=torch.int32, device=dev)
         half_used = none_used.clone()
         half_used[torch.randperm(m, generator=gen)[: m // 2].to(dev)] = 1
+        half_live = m - m // 2
+        fns = {
+            "panel_lu": lambda: panel_factor_cuda(P, True),
+            "panel_lu_micro_shadow": lambda: panel_factor_shadow_cuda(P, True, micro_main),
+            "panel_lu_micro_basic": lambda: panel_factor_basic_cuda(P, True, micro_main),
+            "panel_lu_micro_shadow_grid": lambda: panel_factor_shadow_cuda(
+                P, True, micro_main, block=-1),
+            "panel_lu_micro_basic_grid": lambda: panel_factor_basic_cuda(
+                P, True, micro_main, block=-1),
+            "panel_lu_noswap": lambda: panel_factor_noswap_cuda(P, none_used, True, live=m),
+            "panel_lu_noswap_grid": lambda: panel_factor_noswap_cuda(P, none_used, True,
+                                                                     block=-1),
+            "panel_lu_noswap_half_used": lambda: panel_factor_noswap_cuda(
+                P, half_used, True, live=half_live),
+            "panel_lu_noswap_half_used_grid": lambda: panel_factor_noswap_cuda(
+                P, half_used, True, block=-1),
+            "library": lambda: torch.linalg.lu_factor_ex(P),
+        }
+        for mc in (8, 16, 64):
+            fns[f"micro_{mc}"] = lambda mc=mc: panel_factor_shadow_cuda(P, True, mc)
         with quiet_c_stdout():
-            t = round_robin({
-                "panel_lu": lambda: panel_factor_cuda(P, True),
-                "panel_lu_micro_shadow": lambda: panel_factor_shadow_cuda(P, True, micro_main),
-                "panel_lu_micro_basic": lambda: panel_factor_basic_cuda(P, True, micro_main),
-                "panel_lu_noswap": lambda: panel_factor_noswap_cuda(P, none_used, True),
-                "panel_lu_noswap_half_used": lambda: panel_factor_noswap_cuda(P, half_used, True),
-                "library": lambda: torch.linalg.lu_factor_ex(P),
-            }, rounds=9, setup=lambda: P.copy_(X))
+            t = round_robin(fns, rounds=9, setup=lambda: P.copy_(X))
         plain = {
             "panel_lu_micro_shadow": timed(lambda: micro_blocked_lu(X, True, micro_main),
                                            reps=1, warm=0)[0],
             "panel_lu_noswap": timed(lambda: unblocked_lu_noswap(X, none_used, True),
                                      reps=1, warm=0)[0],
         }
-        plain["panel_lu_micro_basic"] = plain["panel_lu_micro_shadow"]  # one plain version
+        for k in ("panel_lu_micro_shadow", "panel_lu_micro_basic", "panel_lu_noswap"):
+            plain[k] = plain[k.replace("basic", "shadow")]  # one plain version per pair
+            plain[f"{k}_grid"] = plain[k]
         b_ms, b_by = bound(m, w, "float32", 4)
-        hb_ms, _ = bound(m - m // 2, w, "float32", 4)  # the rows this mask leaves
+        hb_ms, _ = bound(half_live, w, "float32", 4)  # the rows this mask leaves
+        grid_over_cluster = {k: t[f"{k}_grid"] / t[k] for k in (
+            "panel_lu_micro_shadow", "panel_lu_micro_basic", "panel_lu_noswap",
+            "panel_lu_noswap_half_used")}
+        grid_over_cluster["panel_lu_micro_basic_grid_over_shadow"] = (
+            t["panel_lu_micro_basic_grid"] / t["panel_lu_micro_shadow"])
+        plans = {"micro": micro_plan(m, w, torch.float32, micro_main),
+                 "noswap": noswap_plan(m, w, torch.float32, live=m),
+                 "noswap_half_used": noswap_plan(m, w, torch.float32, live=half_live)}
         new_rows[(m, w)] = dict(t=t, plain=plain, bound=(b_ms, b_by))
         emit("timing", what="new_panel_kernels", card=card, shape=[m, w], dtype="float32",
-             micro=micro_main, kernel_ms=t, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-             bound_ms_half_used=hb_ms,
+             micro=micro_main, plans=plans, kernel_ms=t, plain_ms=plain, bound_ms=b_ms,
+             bound_by=b_by, bound_ms_half_used=hb_ms, grid_over_cluster=grid_over_cluster,
              us_per_step={k: 1e3 * v / min(m, w) for k, v in t.items()})
+        # where a step of the new chains goes (the phase trace of their
+        # chain kernels; the no-swap chain has no swap phase)
+        lib_micro = _kernels.load("panel_lu_micro")
+        lib_noswap = _kernels.load("panel_lu_noswap")
+        chain_trace("panel_lu_micro", (m, w, 0), lambda: panel_factor_shadow_cuda(
+            P.copy_(X), True, micro_main), plans["micro"], lib_micro.rf_panel_lu_micro_set_trace)
+        chain_trace("panel_lu_noswap", (m, w, 0), lambda: panel_factor_noswap_cuda(
+            P.copy_(X), none_used, True, live=m), plans["noswap"],
+            lib_noswap.rf_panel_lu_noswap_set_trace)
+        chain_trace("panel_lu_noswap_half_used", (m, w, 0), lambda: panel_factor_noswap_cuda(
+            P.copy_(X), half_used, True, live=half_live), plans["noswap_half_used"],
+            lib_noswap.rf_panel_lu_noswap_set_trace)
         del X, P
 
     def e2e_opt(n):
@@ -2729,16 +2920,22 @@ def main(argv):
             "shape": shape,
             "dtype": "float32",
         })
+    # the micro-blocked and no-swap kernels on their cluster routes (the main
+    # path's) and on their grid routes (none on the main path: every panel
+    # of these sizes fits a cluster), timed forced on the same panel
     nrow = new_rows[tuple(main_shape(1536)[1])]
     for name, run in (("panel_lu_micro_shadow", ("shadow", "entry", 1536, f32)),
                       ("panel_lu_micro_basic", ("basic", "entry", 1536, f32)),
-                      ("panel_lu_noswap", ("physical", "entry", 1536, f32))):
+                      ("panel_lu_noswap", ("physical", "entry", 1536, f32)),
+                      ("panel_lu_micro_shadow_grid", None),
+                      ("panel_lu_micro_basic_grid", None),
+                      ("panel_lu_noswap_grid", None)):
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": NEW_PANEL_KERNELS[name][0],
             "replaces": NEW_PANEL_KERNELS[name][1],
-            "launches": launches_o[run],
+            "launches": launches_o[run] if run else 0,
             "max_abs_err": new_err[name],
             "ms": nrow["t"][name],
             "plain_ms": nrow["plain"][name],

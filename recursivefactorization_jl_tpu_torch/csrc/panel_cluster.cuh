@@ -1,7 +1,10 @@
 // The cluster route of the panel kernels: the pivot chain of each block of
 // b columns on one thread-block cluster, then the delayed pass on the whole
-// card.  csrc/panel_lu.cu (f32 / f64, main path and offset kernel) and
-// csrc/panel_lu_c64.cu (complex64 / complex128) instantiate it; the design
+// card.  csrc/panel_lu.cu (f32 / f64, main path and offset kernel),
+// csrc/panel_lu_c64.cu (complex64 / complex128) and csrc/panel_lu_micro.cu
+// (the micro-blocked kernels: blocks of exactly `micro` steps, the trailing
+// update summed first) instantiate it; csrc/panel_lu_noswap.cu brings its
+// own chain and delayed kernels and takes the plan from here.  The design
 // is described at the top of csrc/panel_lu.cu.
 //
 // The templates take the panel's element type T: float, double, or a
@@ -529,7 +532,11 @@ panel_swap_solve_kernel(DelayArgs<T> p) {
 
 // The delayed pass, part 2: every row below the block takes the block's nb
 // rank-1 updates in step order; one CTA per 64 rows x 32 columns >= k0+nb.
-template <typename T>
+// kSumFirst (the micro-blocked kernels, real elements only): the order of
+// ops/unblocked.py `_delayed_update` instead, an accumulator from 0 takes
+// l[i, j] * u[j, c] for j = k0 .. k0+nb-1 in turn, each product and sum
+// rounded once, then one difference.
+template <typename T, bool kSumFirst = false>
 __global__ void __launch_bounds__(kDelayThreads)
 panel_update_kernel(DelayArgs<T> p) {
   constexpr int kPer = kUpdRows / kDelayWarps;
@@ -556,11 +563,26 @@ panel_update_kernel(DelayArgs<T> p) {
     const int i = i0 + warp + j * kDelayWarps;
     x[j] = i < p.m ? p.a[i * lda + c] : T{};
   }
-  for (int t = 0; t < nb; ++t) {
-    const T u = U[t * kTile + lane];
+  if constexpr (kSumFirst) {
+    T acc[kPer];
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      x[j] = rsub(x[j], rmul(Lr[(warp + j * kDelayWarps) * nb + t], u));
+    for (int j = 0; j < kPer; ++j) acc[j] = T(0);
+    for (int t = 0; t < nb; ++t) {
+      const T u = U[t * kTile + lane];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        acc[j] = radd(acc[j], rmul(Lr[(warp + j * kDelayWarps) * nb + t], u));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) x[j] = rsub(x[j], acc[j]);
+  } else {
+    for (int t = 0; t < nb; ++t) {
+      const T u = U[t * kTile + lane];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        x[j] = rsub(x[j], rmul(Lr[(warp + j * kDelayWarps) * nb + t], u));
+      }
     }
   }
 #pragma unroll
@@ -613,10 +635,19 @@ inline cudaLaunchConfig_t chain_config(int C, size_t smem, cudaStream_t stream,
   return cfg;
 }
 
-// Does the card run a cluster of C chain CTAs of width B with the most
-// shared memory the route uses?  Asked once per (device, type, B, C), with
-// cudaOccupancyMaxActiveClusters; sets the kernel's attributes on the way.
+// The chain kernels a plan is made for: the swapping chain above by
+// default; csrc/panel_lu_noswap.cu passes its own (a type with the same
+// static fn(B)).
 template <typename T>
+struct SwapChain {
+  static const void* fn(int B) { return reinterpret_cast<const void*>(chain_kernel_for<T>(B)); }
+};
+
+// Does the card run a cluster of C chain CTAs of width B with the most
+// shared memory the route uses?  Asked once per (device, chain kernel, B,
+// C), with cudaOccupancyMaxActiveClusters; sets the kernel's attributes on
+// the way.
+template <typename T, typename K = SwapChain<T>>
 int cluster_ok(int B, int C, int device, bool* ok) {
   static int cache[kMaxDevices][kNumWidths][5];
   static bool init = false;
@@ -631,7 +662,7 @@ int cluster_ok(int B, int C, int device, bool* ok) {
     return static_cast<int>(cudaErrorInvalidValue);
   int& slot = cache[device][wi][ci];
   if (slot < 0) {
-    const void* fn = reinterpret_cast<const void*>(chain_kernel_for<T>(B));
+    const void* fn = K::fn(B);
     cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(kSmemMax));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -699,8 +730,11 @@ template <> struct Auto<double2> {
 
 // The plan of a panel with M live rows and w columns.  b_req / C_req: 0
 // picks; b_req < 0 forces the grid route; b_req >= w asks for one block.
-template <typename T>
-int plan_for(int M, int w, int b_req, int C_req, int device, Plan* pl) {
+// With any_b (the micro-blocked kernels) b_req > 0 is the block's step
+// count whatever it is (1 .. 64; the slab takes the width at or above it)
+// and C_req 0 picks the cluster for it.  K: the chain kernel family.
+template <typename T, typename K = SwapChain<T>>
+int plan_for(int M, int w, int b_req, int C_req, int device, Plan* pl, bool any_b = false) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int steps = M < w ? M : w;
@@ -708,7 +742,7 @@ int plan_for(int M, int w, int b_req, int C_req, int device, Plan* pl) {
   auto fits = [&](int B, int C, bool* ok) -> int {
     *ok = false;
     if (chain_bytes<T>(M, B, C) > kSmemMax || C > M) return 0;
-    return cluster_ok<T>(B, C, device, ok);
+    return cluster_ok<T, K>(B, C, device, ok);
   };
   auto take = [&](int b, int B, int C) {
     pl->route = kRouteCluster;
@@ -720,26 +754,38 @@ int plan_for(int M, int w, int b_req, int C_req, int device, Plan* pl) {
     pl->ws_reals = 1;
     pl->iws_ints = static_cast<size_t>(pl->blocks) * (1 + 4 * B);
   };
-  if (b_req < 0) return kPlanGrid;
-  if (b_req > 0 && C_req > 0) {  // explicit
-    const bool one = b_req >= w;
-    const int B = one ? width_at_least(w) : b_req;
-    if ((!one && B != 8 && B != 16 && B != 32 && B != 64) || B > 512)
-      return static_cast<int>(cudaErrorInvalidValue);
-    bool ok = false;
-    const int err = fits(B, C_req, &ok);
-    if (err != 0) return err;
-    if (!ok) return static_cast<int>(cudaErrorInvalidConfiguration);
-    take(one ? w : b_req, B, C_req);
-    return 0;
-  }
-  if (b_req != 0 || C_req != 0) return static_cast<int>(cudaErrorInvalidValue);
-  // auto (Auto<T>); narrower blocks and larger clusters where that does
-  // not fit; the grid route beyond
+  // the auto rule's cluster size (Auto<T>): one CTA up to one_cta_rows, else
+  // the smallest power of two with at most rows_per_cta rows per CTA
   constexpr AutoRule a = Auto<T>::rule;
-  const int b0 = M <= a.b32_rows ? 32 : M <= a.b16_rows ? 16 : 8;
   int c0 = 1;
   while (M > a.one_cta_rows && c0 < kMaxCluster && a.rows_per_cta * c0 < M) c0 *= 2;
+  if (b_req < 0) return kPlanGrid;
+  if (b_req > 0 && (C_req > 0 || any_b)) {  // explicit b
+    const bool one = b_req >= w;
+    const int B = one ? width_at_least(w) : any_b ? width_at_least(b_req) : b_req;
+    if ((!one && !any_b && B != 8 && B != 16 && B != 32 && B != 64) || B > 512 ||
+        (!one && B > 64))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (C_req > 0) {
+      bool ok = false;
+      const int err = fits(B, C_req, &ok);
+      if (err != 0) return err;
+      if (!ok) return static_cast<int>(cudaErrorInvalidConfiguration);
+      take(one ? w : b_req, B, C_req);
+      return 0;
+    }
+    for (int C = c0; C <= kMaxCluster; C *= 2) {
+      bool ok = false;
+      const int err = fits(B, C, &ok);
+      if (err != 0) return err;
+      if (ok) { take(one ? w : b_req, B, C); return 0; }
+    }
+    return kPlanGrid;
+  }
+  if (b_req != 0 || C_req != 0) return static_cast<int>(cudaErrorInvalidValue);
+  // auto: b0 by the rule; narrower blocks and larger clusters where that
+  // does not fit; the grid route beyond
+  const int b0 = M <= a.b32_rows ? 32 : M <= a.b16_rows ? 16 : 8;
   for (int b : {b0, 16, 8}) {
     if (b > b0) continue;
     const int bb = w <= b ? w : b;
@@ -756,14 +802,14 @@ int plan_for(int M, int w, int b_req, int C_req, int device, Plan* pl) {
 
 // The delayed kernels take at most (3 * kTile * 64 + 64 * 64) elements of
 // shared memory (b <= 64): opt in once.
-template <typename T>
+template <typename T, bool kSumFirst = false>
 int delay_opt_in() {
   static bool done = false;
   if (done) return 0;
   cudaError_t err = opt_in_smem(reinterpret_cast<const void*>(panel_swap_solve_kernel<T>),
                                 (3 * kTile * 64 + 64 * 64) * sizeof(T));
   if (err == cudaSuccess)
-    err = opt_in_smem(reinterpret_cast<const void*>(panel_update_kernel<T>),
+    err = opt_in_smem(reinterpret_cast<const void*>(panel_update_kernel<T, kSumFirst>),
                       (kTile * 64 + kUpdRows * 64) * sizeof(T));
   if (err != cudaSuccess) return static_cast<int>(err);
   done = true;
@@ -774,10 +820,11 @@ int delay_opt_in() {
 // per block of pl.b steps the chain kernel, then, unless one block takes the
 // panel, the two delayed kernels, in turn on `stream` without a host
 // synchronisation.  `iws` holds pl.iws_ints int32s (the blocks' row moves).
-template <typename T>
+// kSumFirst: the micro-blocked kernels' order of the trailing update.
+template <typename T, bool kSumFirst = false>
 int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl, void* piv,
                 void* perm, void* info, void* iws, cudaStream_t stream) {
-  int err = delay_opt_in<T>();
+  int err = delay_opt_in<T, kSumFirst>();
   if (err != 0) return err;
   int* moved = static_cast<int*>(iws);
   cudaError_t e = cudaMemsetAsync(moved, 0, pl.iws_ints * sizeof(int), stream);
@@ -826,8 +873,8 @@ int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl,
     const int cols = w - k0 - nb, rows = m - ofs - k0 - nb;
     if (cols > 0 && rows > 0) {
       const dim3 grid((cols + kTile - 1) / kTile, (rows + kUpdRows - 1) / kUpdRows);
-      panel_update_kernel<T><<<grid, kDelayThreads, (kTile * nb + kUpdRows * nb) * sizeof(T),
-                               stream>>>(d);
+      panel_update_kernel<T, kSumFirst><<<grid, kDelayThreads,
+                                          (kTile * nb + kUpdRows * nb) * sizeof(T), stream>>>(d);
       e = cudaGetLastError();
       if (e != cudaSuccess) return static_cast<int>(e);
     }

@@ -31,12 +31,28 @@
 // walks a row here) and writes them back when the block is finished; pivot
 // search, scale and rank-1 updates then touch shared memory only.
 //
-// Design.  As in csrc/panel_lu.cu the panel is split by rows over a
-// cooperative grid of up to one thread block per SM; block b owns rows
-// [b*R, (b+1)*R) and is the only one that writes them during the steps.  A
-// step has ONE grid barrier (candidates published, then every block reduces
-// them to the same winner).  The delayed update adds TWO grid barriers per
-// micro block:
+// Two routes, chosen by shape, or by the caller with b < 0 for the grid
+// route.
+//
+// The cluster route (both variants: they compute the same bits) is the
+// swapping kernels' cluster route of csrc/panel_cluster.cuh with blocks of
+// exactly `micro` steps (block boundaries at multiples of micro; the slab
+// takes the template width at or above micro): per block the pivot chain
+// on one thread-block cluster, the block's row moves applied outside the
+// slab, the U rows solved row by row (the unit-lower solve above), then
+// the trailing update of the rows below in this kernel's order, the sum
+// from 0 first and one difference (panel_update_kernel<T, true>).  A fat
+// panel's last block solves against the columns m .. w-1 there too.  A
+// panel whose rows do not fit a cluster takes the grid route.
+// tests/test_torch_panel_cluster_routes.py emulates the route's order.
+//
+// The grid route (the grid-barrier design; the staged and the in-place
+// kernel below).  As in csrc/panel_lu.cu's grid route the panel is split
+// by rows over a cooperative grid of up to one thread block per SM; block
+// b owns rows [b*R, (b+1)*R) and is the only one that writes them during
+// the steps.  A step has ONE grid barrier (candidates published, then every
+// block reduces them to the same winner).  The delayed update adds TWO grid
+// barriers per micro block:
 //   B1  after the block's last step: its rows are final everywhere;
 //       then the unit-lower solve, split by COLUMNS over all threads of the
 //       grid (a column's solve is independent of the others; the micro x
@@ -51,8 +67,8 @@
 // micro + 2 (the unblocked kernel: micro).  Rows that another thread block
 // may have written are read with __ldcg (from L2, never a stale L1 line).
 //
-// What bounds it.  The serial pivot chain, as in csrc/panel_lu.cu; the
-// micro-blocking cuts the rank-1 work inside the chain from w to at most
+// What bounds both routes: the serial pivot chain, as in csrc/panel_lu.cu;
+// the micro-blocking cuts the rank-1 work inside the chain from w to at most
 // micro - 1 columns per row and step and moves the rest into one pass per
 // block.  The block width is limited to kMicroMax steps (thread-local column
 // of the solve, two registers of multipliers per lane in the update).
@@ -63,6 +79,7 @@
 #include <climits>
 #include <cstddef>
 
+#include "panel_cluster.cuh"
 #include "rf_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -372,14 +389,42 @@ int grid_for(int m, int w, int micro, int device, int* grid_out, int* rows_out) 
   return 0;
 }
 
+// The plan of a launch: the cluster route with blocks of `micro` steps
+// (b = 0; C = 0 picks the cluster) or, where the panel does not fit a
+// cluster or b < 0, the grid route of the staged (kShadow) or the in-place
+// kernel.
 template <typename T, bool kShadow>
-int launch(void* a, int m, int w, int lda, int pivot, int micro, void* piv,
-           void* perm, void* info, void* ws, void* iws, int grid, int device,
-           void* stream) {
+int full_plan(int m, int w, int micro, int b, int C, int device, Plan* pl) {
+  const int minmn = m < w ? m : w;
+  if (m < 1 || w < 1 || micro < 1 || micro > kMicroMax || micro > minmn || b > 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int r = b < 0 ? kPlanGrid : plan_for<T>(m, w, micro, C, device, pl, true);
+  if (r != kPlanGrid) return r;
   int g = 0, rows = 0;
-  int err = grid_for<T, kShadow>(m, w, micro, device, &g, &rows);
+  const int err = grid_for<T, kShadow>(m, w, micro, device, &g, &rows);
   if (err != 0) return err;
-  if (g != grid) return static_cast<int>(cudaErrorInvalidValue);
+  *pl = Plan{};
+  pl->route = kRouteGrid;
+  pl->grid = g;
+  pl->blocks = 1;
+  pl->ws_reals = 2 * static_cast<size_t>(g) + 2 * static_cast<size_t>(g) * w + 2 * w;
+  pl->iws_ints = 4 * static_cast<size_t>(g) + 2;
+  return 0;
+}
+
+template <typename T, bool kShadow>
+int run(void* a, int m, int w, int lda, int pivot, int micro, int b, int C, void* piv,
+        void* perm, void* info, void* ws, void* iws, int device, void* stream_) {
+  Plan pl;
+  int err = full_plan<T, kShadow>(m, w, micro, b, C, device, &pl);
+  if (err != 0) return err;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (pl.route == kRouteCluster) {
+    return run_cluster<T, true>(static_cast<T*>(a), m, w, lda, pivot, 0, pl, piv, perm, info,
+                                iws, stream);
+  }
+  const int g = pl.grid;
+  const int rows = (m + g - 1) / g;
   MicroArgs<T> p;
   p.a = static_cast<T*>(a);
   p.m = m;
@@ -402,8 +447,7 @@ int launch(void* a, int m, int w, int lda, int pivot, int micro, void* piv,
   void* args[] = {&p};
   cudaError_t e = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(panel_lu_micro_kernel<T, kShadow>), dim3(g),
-      dim3(kThreads), args, smem_bytes<T, kShadow>(w, micro, rows),
-      static_cast<cudaStream_t>(stream));
+      dim3(kThreads), args, smem_bytes<T, kShadow>(w, micro, rows), stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -415,42 +459,72 @@ extern "C" {
 // The widest micro block the kernels take.
 int rf_panel_lu_micro_max() { return kMicroMax; }
 
-// Grid size of a launch on an (m, w) panel of elements of `elem_size` bytes
-// (4 or 8) with blocks of `micro` steps (1 .. 64, at most min(m, w)), for the
-// staged kernel (shadow != 0) or the in-place one; the caller sizes the
-// workspaces from it:
-//   ws  (elements of the panel's type): 2*G + 2*G*w + 2*w
-//   iws (int32):                        4*G + 2
-// Returns G >= 1, or minus a cudaError_t code.
-int rf_panel_lu_micro_grid(int m, int w, int elem_size, int micro, int shadow,
-                           int device) {
-  int g = 0, rows = 0, err = 0;
+// The plan of a launch on an (m, w) panel of elements of `elem_size` bytes
+// (4 or 8) with blocks of `micro` steps (1 .. 64, at most min(m, w)) for
+// the staged (shadow != 0) or the in-place variant: b = 0 for the
+// launcher's choice (the cluster route where the panel fits a cluster),
+// b < 0 for the grid route; C = 0 picks the cluster size.  Fills out[6] =
+// {route (1 cluster, 0 grid), b (-1 on the grid route), C (the grid route:
+// its grid), blocks, ws elements, iws int32s}.  Returns a cudaError_t
+// code, 0 on success; cudaErrorInvalidConfiguration when an explicit C
+// does not fit the card.
+int rf_panel_lu_micro_plan(int m, int w, int elem_size, int micro, int shadow, int b, int C,
+                           int device, int* out) {
+  Plan pl;
+  int err = 0;
   if (elem_size == 8) {
-    err = shadow ? grid_for<double, true>(m, w, micro, device, &g, &rows)
-                 : grid_for<double, false>(m, w, micro, device, &g, &rows);
+    err = shadow ? full_plan<double, true>(m, w, micro, b, C, device, &pl)
+                 : full_plan<double, false>(m, w, micro, b, C, device, &pl);
   } else {
-    err = shadow ? grid_for<float, true>(m, w, micro, device, &g, &rows)
-                 : grid_for<float, false>(m, w, micro, device, &g, &rows);
+    err = shadow ? full_plan<float, true>(m, w, micro, b, C, device, &pl)
+                 : full_plan<float, false>(m, w, micro, b, C, device, &pl);
   }
-  return err != 0 ? -err : g;
+  if (err != 0) return err;
+  out[0] = pl.route;
+  out[1] = pl.route == kRouteCluster ? pl.b : -1;
+  out[2] = pl.route == kRouteCluster ? pl.C : pl.grid;
+  out[3] = pl.route == kRouteCluster ? pl.blocks : 1;
+  out[4] = static_cast<int>(pl.ws_reals);
+  out[5] = static_cast<int>(pl.iws_ints);
+  return 0;
 }
 
-// Factor the panel in place on `stream`.  Each returns a cudaError_t code
-// (0 on success) for the launch; faults during the run surface at the next
-// synchronisation.
-#define RF_MICRO_ENTRY(name, T, kShadow)                                      \
-  int name(void* a, int m, int w, int lda, int pivot, int micro, void* piv,   \
-           void* perm, void* info, void* ws, void* iws, int grid, int device, \
-           void* stream) {                                                    \
-    return launch<T, kShadow>(a, m, w, lda, pivot, micro, piv, perm, info,    \
-                              ws, iws, grid, device, stream);                 \
-  }
+// Factor the panel in place on `stream` with the plan of (micro, b, C).
+// Each returns a cudaError_t code (0 on success) for the launches; faults
+// during the run surface at the next synchronisation.
+int rf_panel_lu_shadow_f32(void* a, int m, int w, int lda, int pivot, int micro, int b, int C,
+                           void* piv, void* perm, void* info, void* ws, void* iws, int device,
+                           void* stream) {
+  return run<float, true>(a, m, w, lda, pivot, micro, b, C, piv, perm, info, ws, iws, device,
+                          stream);
+}
 
-RF_MICRO_ENTRY(rf_panel_lu_shadow_f32, float, true)
-RF_MICRO_ENTRY(rf_panel_lu_shadow_f64, double, true)
-RF_MICRO_ENTRY(rf_panel_lu_basic_f32, float, false)
-RF_MICRO_ENTRY(rf_panel_lu_basic_f64, double, false)
+int rf_panel_lu_shadow_f64(void* a, int m, int w, int lda, int pivot, int micro, int b, int C,
+                           void* piv, void* perm, void* info, void* ws, void* iws, int device,
+                           void* stream) {
+  return run<double, true>(a, m, w, lda, pivot, micro, b, C, piv, perm, info, ws, iws, device,
+                           stream);
+}
 
-#undef RF_MICRO_ENTRY
+int rf_panel_lu_basic_f32(void* a, int m, int w, int lda, int pivot, int micro, int b, int C,
+                          void* piv, void* perm, void* info, void* ws, void* iws, int device,
+                          void* stream) {
+  return run<float, false>(a, m, w, lda, pivot, micro, b, C, piv, perm, info, ws, iws, device,
+                           stream);
+}
+
+int rf_panel_lu_basic_f64(void* a, int m, int w, int lda, int pivot, int micro, int b, int C,
+                          void* piv, void* perm, void* info, void* ws, void* iws, int device,
+                          void* stream) {
+  return run<double, false>(a, m, w, lda, pivot, micro, b, C, piv, perm, info, ws, iws,
+                            device, stream);
+}
+
+// Phase trace of the cluster route's chain kernel, as rf_panel_lu_set_trace
+// of csrc/panel_lu.cu.
+int rf_panel_lu_micro_set_trace(void* buf) {
+  g_trace = static_cast<long long*>(buf);
+  return 0;
+}
 
 }  // extern "C"

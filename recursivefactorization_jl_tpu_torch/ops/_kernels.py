@@ -33,8 +33,8 @@ SOURCES = {
 SOURCES["batched_lu_trace"] = SOURCES["batched_lu"]
 EXTRA_FLAGS = {"batched_lu_trace": ("-DRF_BATCHED_TRACE",)}
 # the headers the sources include (nvcc finds them beside them):
-# rf_common.cuh by every source, panel_cluster.cuh by the two swapping panel
-# kernels; every library's hash covers all of them
+# rf_common.cuh by every source, panel_cluster.cuh by the four panel
+# kernels' sources; every library's hash covers all of them
 HEADERS = tuple(sorted((PACKAGE_DIR / "csrc").glob("*.cuh")))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -47,11 +47,13 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# panel, m, w, lda, pivot, micro, piv, perm, info, ws, iws, grid, device, stream
-_PANEL_MICRO = (_I, [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P])
-# panel, m, w, lda, pivot, used0, used, prow, info, ws, iws, grid, device, stream
-_PANEL_NOSWAP = (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P])
-# csrc/panel_lu.cu, csrc/panel_lu_c64.cu: m, w, elem_size, ofs, b, C, device, out[6]
+# panel, m, w, lda, pivot, micro, b, C, piv, perm, info, ws, iws, device, stream
+_PANEL_MICRO = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P])
+# panel, m, w, lda, pivot, live, b, C, used0, used, prow, info, ws, iws, device,
+# stream
+_PANEL_NOSWAP = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P])
+# csrc/panel_lu.cu, csrc/panel_lu_c64.cu: m, w, elem_size, ofs, b, C, device,
+# out[6]; csrc/panel_lu_noswap.cu the same with the live row count for ofs
 _PANEL_PLAN = (_I, [_I, _I, _I, _I, _I, _I, _I, _P])
 # panel, m, w, lda, pivot, b, C, piv, perm, info, ws, iws, device, stream
 _PANEL_BC = (_I, [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P])
@@ -93,17 +95,20 @@ SIGNATURES = {
     },
     "panel_lu_micro": {
         "rf_panel_lu_micro_max": (_I, []),
-        "rf_panel_lu_micro_grid": (_I, [_I, _I, _I, _I, _I, _I]),
+        # m, w, elem_size, micro, shadow, b, C, device, out[6]
+        "rf_panel_lu_micro_plan": (_I, [_I, _I, _I, _I, _I, _I, _I, _I, _P]),
         "rf_panel_lu_shadow_f32": _PANEL_MICRO,
         "rf_panel_lu_shadow_f64": _PANEL_MICRO,
         "rf_panel_lu_basic_f32": _PANEL_MICRO,
         "rf_panel_lu_basic_f64": _PANEL_MICRO,
+        "rf_panel_lu_micro_set_trace": (_I, [_P]),
         "rf_error_string": (ctypes.c_char_p, [_I]),
     },
     "panel_lu_noswap": {
-        "rf_panel_lu_noswap_grid": (_I, [_I, _I, _I, _I]),
+        "rf_panel_lu_noswap_plan": _PANEL_PLAN,
         "rf_panel_lu_noswap_f32": _PANEL_NOSWAP,
         "rf_panel_lu_noswap_f64": _PANEL_NOSWAP,
+        "rf_panel_lu_noswap_set_trace": (_I, [_P]),
         "rf_error_string": (ctypes.c_char_p, [_I]),
     },
     "batched_lu": _BATCHED_LU,

@@ -20,7 +20,7 @@ moves until one final gather.
 
     for each panel s (width w), at full height m:
         1. factor A[:, s:s+w] in place with the no-swap panel kernel,
-           which skips the rows consumed so far
+           which skips the rows consumed so far (m - s of them are left)
         2. U12 = L11^-1 @ A[pivot rows, s+w:], L11 gathered from the
            panel at the pivot rows
         3. A[:, s+w:] -= Lmasked @ U12, where Lmasked is the panel with
@@ -182,7 +182,8 @@ def _blocked_lu_physical(A, pivot, config):
     while s < n:
         ws = min(w, n - s)
         panel = A[:, s : s + ws]
-        prow_l, used, linfo = panel_factor_noswap(panel, used, pivot)
+        # every earlier step consumed one row: m - s are left
+        prow_l, used, linfo = panel_factor_noswap(panel, used, pivot, live=m - s)
         info = _offset_info(info, linfo, s)
         prow[s : s + ws] = prow_l
         rows = prow_l.long()

@@ -17,9 +17,16 @@ shows the plan.  A CPU tensor goes to the kernel's plain
 version in ops/unblocked.py: ``unblocked_lu``, ``micro_blocked_lu`` or,
 for complex panels, ``unblocked_lu_cabs1``.
 
+The micro-blocked kernels run on the same cluster route with blocks of
+exactly ``micro`` steps and their own order of the trailing update
+(``micro_plan`` shows the plan); both variants compute the same bits
+there, and each keeps its grid-barrier kernel as the grid route.
+
 ``panel_factor_noswap`` is the panel layer of ``schedule='physical'``:
 csrc/panel_lu_noswap.cu (the port of ``_panel_kernel_noswap``) on the
-card, ``unblocked_lu_noswap`` on the CPU.
+card, ``unblocked_lu_noswap`` on the CPU.  On the card it runs a cluster
+route of its own (the available rows compacted per block, no row moves;
+``noswap_plan``) or, for panels too tall for a cluster, its grid route.
 
 ``offset_panel_factor`` is the panel layer of the tensor-parallel LU
 (parallel/blockcyclic.py): the offset kernel of csrc/panel_lu.cu (the
@@ -27,7 +34,9 @@ port of ``_offset_panel_kernel``) on the card, ``offset_panel_lu`` on the
 CPU.
 
 There is no fallback between kernel and plain version: a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises.  A route is chosen by the panel's shape or
+by an explicit ``block`` (``block=-1``: the grid route); every wrapper
+counts its launches and, apart, those on the grid route.
 """
 
 from __future__ import annotations
@@ -137,9 +146,20 @@ def _check_plan_request(dtype, ofs, block, cluster):
     if dtype in _COMPLEX and ofs is not None:
         raise ValueError("the complex panel kernel has no offset form (ROADMAP.md "
                          "Queue 1 item 18)")
-    for name, v in (("block", block), ("cluster", cluster)):
-        if not isinstance(v, int) or isinstance(v, bool):
-            raise ValueError(f"{name} must be an int, got {v!r}")
+    _check_block_cluster(block, cluster)
+
+
+def _device_index(device):
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _plan_dict(plan) -> dict:
+    route, b, c, blocks, ws, iws = plan
+    return {"route": "cluster" if route == 1 else "grid",
+            "block": b if route == 1 else None, "cluster": c if route == 1 else None,
+            "grid": c if route == 0 else None, "blocks": blocks,
+            "ws_reals": ws, "iws_ints": iws}
 
 
 def panel_plan(m: int, w: int, dtype, ofs=None, block: int = 0,
@@ -156,15 +176,99 @@ def panel_plan(m: int, w: int, dtype, ofs=None, block: int = 0,
     dtype or an offset the kernels do not take, RuntimeError where the
     card cannot run an explicit choice."""
     _check_plan_request(dtype, ofs, block, cluster)
-    dev = torch.device("cuda") if device is None else torch.device(device)
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
     size = torch.empty((), dtype=dtype).element_size()
-    route, b, c, blocks, ws, iws = _plan(dtype in _COMPLEX, m, w, size, ofs, block,
-                                         cluster, index)
-    return {"route": "cluster" if route == 1 else "grid",
-            "block": b if route == 1 else None, "cluster": c if route == 1 else None,
-            "grid": c if route == 0 else None, "blocks": blocks,
-            "ws_reals": ws, "iws_ints": iws}
+    return _plan_dict(_plan(dtype in _COMPLEX, m, w, size, ofs, block, cluster,
+                            _device_index(device)))
+
+
+@functools.lru_cache(maxsize=256)
+def _micro_plan(m, w, size, micro, shadow, block, cluster, index):
+    """The plan of csrc/panel_lu_micro.cu, as :func:`_plan`'s tuple."""
+    lib = _kernels.load("panel_lu_micro")
+    out = (ctypes.c_int * 6)()
+    code = lib.rf_panel_lu_micro_plan(m, w, size, micro, int(shadow), block, cluster, index,
+                                      out)
+    _kernels.check(lib, code, "panel_lu_micro plan")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=256)
+def _noswap_plan(m, w, size, live, block, cluster, index):
+    """The plan of csrc/panel_lu_noswap.cu, as :func:`_plan`'s tuple."""
+    lib = _kernels.load("panel_lu_noswap")
+    out = (ctypes.c_int * 6)()
+    code = lib.rf_panel_lu_noswap_plan(m, w, size, live, block, cluster, index, out)
+    _kernels.check(lib, code, "panel_lu_noswap plan")
+    return tuple(out)
+
+
+def _check_micro_request(micro, block, cluster):
+    """The micro-blocked kernels' own checks: ``micro`` a positive int,
+    ``block`` 0 (the launcher's choice: blocks of ``micro`` steps) or
+    negative (the grid route), ``cluster`` a non-negative int."""
+    if not isinstance(micro, int) or isinstance(micro, bool) or micro < 1:
+        raise ValueError(f"micro must be a positive int, got {micro!r}")
+    _check_block_cluster(block, cluster)
+    if block > 0:
+        raise ValueError(
+            f"the micro-blocked kernels' blocks are micro steps wide: block takes 0 "
+            f"(the launcher's choice) or -1 (the grid route), got {block}")
+
+
+def _check_block_cluster(block, cluster):
+    for name, v in (("block", block), ("cluster", cluster)):
+        if not isinstance(v, int) or isinstance(v, bool):
+            raise ValueError(f"{name} must be an int, got {v!r}")
+    if cluster < 0:
+        raise ValueError(f"cluster must be 0 (the launcher's choice) or a cluster size, "
+                         f"got {cluster}")
+
+
+def micro_plan(m: int, w: int, dtype, micro: int, variant: str = "shadow",
+               block: int = 0, cluster: int = 0, device=None) -> dict:
+    """How csrc/panel_lu_micro.cu factors an (m, w) float32/float64 panel
+    with blocks of ``micro`` steps (cut to min(m, w), then at most
+    ``PANEL_MICRO_MAX``): the cluster route with b = micro where the panel
+    fits a cluster, else the grid route of ``variant`` (``'shadow'`` or
+    ``'basic'``; the cluster route is the same for both).  ``block=-1``
+    forces the grid route; ``cluster`` 0 picks the cluster size.  Returns
+    :func:`panel_plan`'s dict."""
+    _check_micro_request(micro, block, cluster)
+    if dtype not in _REAL:
+        raise ValueError(f"the micro-blocked kernels take float32/float64, got {dtype}")
+    if variant not in ("shadow", "basic"):
+        raise ValueError(f"variant must be 'shadow' or 'basic', got {variant!r}")
+    micro = min(micro, m, w)
+    if micro > PANEL_MICRO_MAX:
+        raise ValueError(f"the micro-blocked kernels take blocks of at most "
+                         f"{PANEL_MICRO_MAX} steps, got micro={micro}")
+    size = torch.empty((), dtype=dtype).element_size()
+    return _plan_dict(_micro_plan(m, w, size, micro, variant == "shadow", block, cluster,
+                                  _device_index(device)))
+
+
+def _check_live(live, m):
+    if live is None:
+        return m
+    if not isinstance(live, int) or isinstance(live, bool) or not 0 <= live <= m:
+        raise ValueError(f"live must be an int in [0, {m}] (the rows the mask leaves), "
+                         f"got {live!r}")
+    return live
+
+
+def noswap_plan(m: int, w: int, dtype, live=None, block: int = 0, cluster: int = 0,
+                device=None) -> dict:
+    """How csrc/panel_lu_noswap.cu factors an (m, w) float32/float64 panel
+    of which ``live`` rows are available (None: m): its cluster route,
+    the slab sized for ``live`` rows, or the grid route for panels too
+    tall for a cluster.  ``block`` / ``cluster`` as for
+    :func:`panel_plan`.  Returns :func:`panel_plan`'s dict."""
+    _check_block_cluster(block, cluster)
+    if dtype not in _REAL:
+        raise ValueError(f"the no-swap kernel takes float32/float64, got {dtype}")
+    live = _check_live(live, m)
+    size = torch.empty((), dtype=dtype).element_size()
+    return _plan_dict(_noswap_plan(m, w, size, live, block, cluster, _device_index(device)))
 
 
 def _launch_panel_lu(wrapper, panel, pivot, ofs, block, cluster, dtypes=_REAL):
@@ -297,80 +401,101 @@ def micro_max_cuda() -> int:
     return limit
 
 
-def _launch_micro(wrapper, panel, pivot, micro, shadow):
-    """The checks, allocations and launch of the two micro-blocked
-    kernels.  Adds one to ``wrapper.launches`` at the launch."""
-    if not isinstance(micro, int) or micro < 1:
-        raise ValueError(f"micro must be a positive int, got {micro!r}")
+def _launch_micro(wrapper, panel, pivot, micro, shadow, block, cluster):
+    """The checks, plan, allocations and launch of the two micro-blocked
+    kernels.  Adds one to ``wrapper.launches`` at the launch, and one to
+    ``wrapper.grid_route_launches`` when the panel takes the grid route.
+    piv, perm, info and the integer workspace share one allocation."""
+    _check_micro_request(micro, block, cluster)
     m, w, lda, index, real, size = _check_panel(wrapper.__name__, panel, _REAL)
     micro = min(micro, m, w)  # one block spans the whole panel
-    if micro > micro_max_cuda():
+    if micro > PANEL_MICRO_MAX:
         raise ValueError(
             f"the micro-blocked kernels take blocks of at most "
             f"{PANEL_MICRO_MAX} steps, got micro={micro}"
         )
-    lib = _kernels.load("panel_lu_micro")
+    route, _, _, _, ws_reals, iws_ints = _micro_plan(m, w, size, micro, shadow, block,
+                                                     cluster, index)
     dev = panel.device
-    grid = lib.rf_panel_lu_micro_grid(m, w, size, micro, int(shadow), index)
-    if grid < 1:
-        _kernels.check(lib, -grid, "panel_lu_micro grid query")
-    piv = torch.empty(min(m, w), dtype=torch.int32, device=dev)
-    perm = torch.empty(m, dtype=torch.int32, device=dev)
-    info = torch.empty(1, dtype=torch.int32, device=dev)
-    ws = torch.empty(2 * grid + 2 * grid * w + 2 * w, dtype=real, device=dev)
-    iws = torch.empty(4 * grid + 4, dtype=torch.int32, device=dev)
+    npiv = min(m, w)
+    ints = torch.empty(npiv + m + 1 + iws_ints, dtype=torch.int32, device=dev)
+    piv, perm, info = ints[:npiv], ints[npiv:npiv + m], ints[npiv + m]
+    ws = torch.empty(ws_reals, dtype=real, device=dev) if route == 0 else None
+    lib = _kernels.load("panel_lu_micro")
     which = "shadow" if shadow else "basic"
     fn = getattr(lib, f"rf_panel_lu_{which}_{'f32' if size == 4 else 'f64'}")
     stream = torch.cuda.current_stream(dev).cuda_stream
     wrapper.launches += 1
+    if route == 0:
+        wrapper.grid_route_launches += 1
     code = fn(
-        panel.data_ptr(), m, w, lda, int(bool(pivot)), micro,
-        piv.data_ptr(), perm.data_ptr(), info.data_ptr(), ws.data_ptr(),
-        iws.data_ptr(), grid, index, stream,
+        panel.data_ptr(), m, w, lda, int(bool(pivot)), micro, block, cluster,
+        piv.data_ptr(), perm.data_ptr(), info.data_ptr(),
+        None if ws is None else ws.data_ptr(), ints[npiv + m + 1:].data_ptr(), index, stream,
     )
     _kernels.check(lib, code, "panel_lu_micro launch")
-    return piv, perm, info[0]
+    return piv, perm, info
 
 
-def panel_factor_shadow_cuda(panel: torch.Tensor, pivot: bool, micro: int):
-    """Launch the staged micro-blocked kernel (``panel_variant='shadow'``)
-    on ``panel`` in place: each thread block keeps its rows of the
-    current ``micro``-wide block in shared memory.  Arguments, returns
-    and stream rule as :func:`panel_factor_cuda`; ``micro`` is cut to
-    min(m, w) and may then be at most ``PANEL_MICRO_MAX``.  Computes
-    ``micro_blocked_lu(panel, pivot, micro)`` bitwise.
-    ``panel_factor_shadow_cuda.launches`` counts the launches."""
-    return _launch_micro(panel_factor_shadow_cuda, panel, pivot, micro, True)
+def panel_factor_shadow_cuda(panel: torch.Tensor, pivot: bool, micro: int, *,
+                             block: int = 0, cluster: int = 0):
+    """Launch the micro-blocked kernel of ``panel_variant='shadow'`` on
+    ``panel`` in place.  Arguments, returns and stream rule as
+    :func:`panel_factor_cuda`; ``micro`` is cut to min(m, w) and may then
+    be at most ``PANEL_MICRO_MAX``.  Computes ``micro_blocked_lu(panel,
+    pivot, micro)`` bitwise.  A panel that fits a thread-block cluster
+    takes the cluster route with blocks of ``micro`` steps (``cluster``: 0
+    picks the size); taller panels, and ``block=-1``, take the grid route,
+    the grid-barrier kernel that stages each thread block's rows of the
+    current block in shared memory (see :func:`micro_plan`).
+    ``panel_factor_shadow_cuda.launches`` counts the launches,
+    ``.grid_route_launches`` those on the grid route."""
+    return _launch_micro(panel_factor_shadow_cuda, panel, pivot, micro, True, block, cluster)
 
 
 panel_factor_shadow_cuda.launches = 0
+panel_factor_shadow_cuda.grid_route_launches = 0
 
 
-def panel_factor_basic_cuda(panel: torch.Tensor, pivot: bool, micro: int):
-    """Launch the in-place micro-blocked kernel (``panel_variant=
-    'basic'``) on ``panel``: as :func:`panel_factor_shadow_cuda`, with
-    the micro block read and written in device memory.
-    ``panel_factor_basic_cuda.launches`` counts the launches."""
-    return _launch_micro(panel_factor_basic_cuda, panel, pivot, micro, False)
+def panel_factor_basic_cuda(panel: torch.Tensor, pivot: bool, micro: int, *,
+                            block: int = 0, cluster: int = 0):
+    """Launch the micro-blocked kernel of ``panel_variant='basic'``: as
+    :func:`panel_factor_shadow_cuda`, the same cluster route, and on the
+    grid route the grid-barrier kernel that reads and writes the current
+    block in device memory.  ``panel_factor_basic_cuda.launches`` counts the
+    launches, ``.grid_route_launches`` those on the grid route."""
+    return _launch_micro(panel_factor_basic_cuda, panel, pivot, micro, False, block, cluster)
 
 
 panel_factor_basic_cuda.launches = 0
+panel_factor_basic_cuda.grid_route_launches = 0
 
 
 def panel_factor_noswap_cuda(panel: torch.Tensor, used0: torch.Tensor,
-                             pivot: bool):
+                             pivot: bool, *, live=None, block: int = 0,
+                             cluster: int = 0):
     """Launch the physical-order kernel on the full-height ``panel`` in
     place: no row moves.
 
     ``panel``: CUDA, float32 or float64, 2-D, rows contiguous.
     ``used0``: (m,) on the same device, nonzero where an earlier panel
     consumed the row; at least min(m, w) rows should be free (a step
-    that finds none writes -1 and does nothing).  Returns ``(prow, used,
+    that finds none writes -1 and does nothing).  ``live``: how many rows
+    ``used0`` leaves (None: m), which sizes the cluster route's slab; a
+    mask that leaves more rows than the plan for ``live`` holds makes the
+    launch fail at the next synchronisation (a trap on the card, which
+    ends the process's CUDA context), never a result on part of the rows.
+    ``block`` / ``cluster`` as for :func:`panel_factor_cuda` (``block=-1``:
+    the grid route; see :func:`noswap_plan`).  Returns ``(prow, used,
     info)``: int32 (min(m, w),) pivot row of each step, int32 (m,) 0/1
     mask of the rows consumed so far, 0-d int32 info, all allocated
     here.  Computes ``unblocked_lu_noswap(panel, used0, pivot)`` bitwise.
     Launches on the current stream and does not synchronise.
-    ``panel_factor_noswap_cuda.launches`` counts the launches."""
+    ``panel_factor_noswap_cuda.launches`` counts the launches,
+    ``.grid_route_launches`` those on the grid route."""
+    _check_block_cluster(block, cluster)
+    if isinstance(panel, torch.Tensor) and panel.dim() == 2:
+        live = _check_live(live, panel.shape[0])
     m, w, lda, index, real, size = _check_panel(
         "panel_factor_noswap_cuda", panel, _REAL)
     dev = panel.device
@@ -379,29 +504,29 @@ def panel_factor_noswap_cuda(panel: torch.Tensor, used0: torch.Tensor,
             or used0.dtype.is_complex):
         raise ValueError(
             f"used0 must be an integer or bool ({m},) tensor on {dev}")
+    route, _, _, _, ws_reals, iws_ints = _noswap_plan(m, w, size, live, block, cluster, index)
     used0 = used0.to(torch.int32).contiguous()
+    npiv = min(m, w)
+    ints = torch.empty(npiv + m + 1 + iws_ints, dtype=torch.int32, device=dev)
+    prow, used, info = ints[:npiv], ints[npiv:npiv + m], ints[npiv + m]
+    ws = torch.empty(ws_reals, dtype=real, device=dev) if route == 0 else None
     lib = _kernels.load("panel_lu_noswap")
-    grid = lib.rf_panel_lu_noswap_grid(m, w, size, index)
-    if grid < 1:
-        _kernels.check(lib, -grid, "panel_lu_noswap grid query")
-    prow = torch.empty(min(m, w), dtype=torch.int32, device=dev)
-    used = torch.empty(m, dtype=torch.int32, device=dev)
-    info = torch.empty(1, dtype=torch.int32, device=dev)
-    ws = torch.empty(2 * grid + 2 * grid * w, dtype=real, device=dev)
-    iws = torch.empty(2 * grid, dtype=torch.int32, device=dev)
     fn = lib.rf_panel_lu_noswap_f32 if size == 4 else lib.rf_panel_lu_noswap_f64
     stream = torch.cuda.current_stream(dev).cuda_stream
     panel_factor_noswap_cuda.launches += 1
+    if route == 0:
+        panel_factor_noswap_cuda.grid_route_launches += 1
     code = fn(
-        panel.data_ptr(), m, w, lda, int(bool(pivot)), used0.data_ptr(),
-        used.data_ptr(), prow.data_ptr(), info.data_ptr(), ws.data_ptr(),
-        iws.data_ptr(), grid, index, stream,
+        panel.data_ptr(), m, w, lda, int(bool(pivot)), live, block, cluster,
+        used0.data_ptr(), used.data_ptr(), prow.data_ptr(), info.data_ptr(),
+        None if ws is None else ws.data_ptr(), ints[npiv + m + 1:].data_ptr(), index, stream,
     )
     _kernels.check(lib, code, "panel_lu_noswap launch")
-    return prow, used, info[0]
+    return prow, used, info
 
 
 panel_factor_noswap_cuda.launches = 0
+panel_factor_noswap_cuda.grid_route_launches = 0
 
 
 def panel_factor(
@@ -436,13 +561,16 @@ def panel_factor(
     return panel, piv, perm, info
 
 
-def panel_factor_noswap(panel: torch.Tensor, used0: torch.Tensor, pivot: bool):
+def panel_factor_noswap(panel: torch.Tensor, used0: torch.Tensor, pivot: bool,
+                        live=None):
     """Factor the full-height real ``panel`` **in place** in physical row
     order, skipping the rows ``used0`` marks.  Returns ``(prow, used,
-    info)``.  CUDA tensors launch csrc/panel_lu_noswap.cu, CPU tensors
-    run ``unblocked_lu_noswap``."""
+    info)``.  CUDA tensors launch csrc/panel_lu_noswap.cu (``live``, the
+    rows ``used0`` leaves, sizes its plan; None: m), CPU tensors run
+    ``unblocked_lu_noswap``."""
     if panel.device.type == "cuda":
-        return panel_factor_noswap_cuda(panel, used0, pivot)
+        return panel_factor_noswap_cuda(panel, used0, pivot, live=live)
+    _check_live(live, panel.shape[0])
     f, prow, used, info = unblocked_lu_noswap(panel, used0, pivot)
     panel.copy_(f)
     return prow, used, info

@@ -19,6 +19,8 @@ import recursivefactorization_jl_tpu_torch as rt
 from recursivefactorization_jl_tpu_torch.ops import batched_kernel as bk
 from recursivefactorization_jl_tpu_torch.ops.panel import (
     micro_max_cuda,
+    micro_plan,
+    noswap_plan,
     offset_panel_factor,
     offset_panel_factor_cuda,
     panel_factor_basic_cuda,
@@ -942,6 +944,70 @@ def test_noswap_kernel_ties_exhausted_rows_and_bad_arguments():
                         (torch.zeros(8, 4, device="cuda"), zero[:8].cpu())):
         with pytest.raises(ValueError):
             panel_factor_noswap_cuda(panel, mask, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("micro", [1, 8, 12, 32, 64])
+@pytest.mark.parametrize("shape", [(700, 130), (130, 300)])
+def test_micro_kernels_on_both_routes(shape, micro, dtype):
+    """The cluster route (blocks of exactly ``micro`` steps, both variants
+    the same kernel) and the grid route forced with ``block=-1`` (each
+    variant its own kernel): the plain version's bits on both, one launch
+    each, the grid route counted apart; a tall panel and a fat one."""
+    need_cuda()
+    g = torch.Generator().manual_seed(38)
+    A = torch.randn(*shape, generator=g, dtype=dtype).cuda()
+    A[:, 9] = 0
+    mc = min(micro, *shape)
+    f, piv, perm, info = micro_blocked_lu(A, True, mc)
+    for wrapper, variant in ((panel_factor_shadow_cuda, "shadow"),
+                             (panel_factor_basic_cuda, "basic")):
+        for block in (0, -1):
+            assert micro_plan(*shape, dtype, micro, variant, block=block)["route"] == \
+                ("cluster" if block == 0 else "grid")
+            P = A.clone()
+            before = (wrapper.launches, wrapper.grid_route_launches)
+            kpiv, kperm, kinfo = wrapper(P, True, micro, block=block)
+            torch.cuda.synchronize()
+            assert (wrapper.launches, wrapper.grid_route_launches) == \
+                (before[0] + 1, before[1] + (block < 0))
+            assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
+            assert int(kinfo) == int(info) == 10 and torch.equal(_bits(P), _bits(f))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("taken", [0, 333, 995])
+def test_noswap_kernel_on_both_routes_and_plans(dtype, taken):
+    """The cluster route with the live count given, with none (the plan
+    sized for m), with explicit block widths and cluster sizes, and the
+    grid route forced: the plain version's bits (NaN for NaN) on each,
+    grid launches counted apart; 995 rows taken leave 5 for 64 steps."""
+    need_cuda()
+    g = torch.Generator().manual_seed(39)
+    m, w = 1000, 64
+    A = torch.randn(m, w, generator=g, dtype=dtype)
+    A[m // 3, 2] = A[m // 2, 2] = float("nan")
+    A = A.cuda()
+    used0 = torch.zeros(m, dtype=torch.int32)
+    used0[torch.randperm(m, generator=g)[:taken]] = 1
+    used0 = used0.cuda()
+    f, prow, used, info = unblocked_lu_noswap(A, used0, True)
+    live = m - taken
+    for kw in ({"live": live}, {}, {"live": live, "block": 8, "cluster": 1},
+               {"live": live, "block": 32, "cluster": 4}, {"block": -1}):
+        plan = noswap_plan(m, w, dtype, **kw)
+        assert plan["route"] == ("grid" if kw.get("block", 0) < 0 else "cluster")
+        P = A.clone()
+        before = (panel_factor_noswap_cuda.launches, panel_factor_noswap_cuda.grid_route_launches)
+        kprow, kused, kinfo = panel_factor_noswap_cuda(P, used0, True, **kw)
+        torch.cuda.synchronize()
+        assert panel_factor_noswap_cuda.launches == before[0] + 1
+        assert panel_factor_noswap_cuda.grid_route_launches == before[1] + (plan["route"] == "grid")
+        assert torch.equal(kprow, prow) and torch.equal(kused, used)
+        assert int(kinfo) == int(info) and _same_bits_nan(P, f)
+        assert torch.equal(_bits(P[used0.bool()]), _bits(A[used0.bool()]))
+    if taken == 995:
+        assert (prow[5:] == -1).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -329,18 +329,32 @@ def test_lu_factor_donate_refuses_what_lu_inplace_refuses():
 
 def test_ctypes_signatures_match_the_c_entry_points():
     """Every C function ops/_kernels.py binds for csrc/panel_lu.cu,
-    csrc/panel_lu_c64.cu and csrc/batched_solve.cu, and every other one its
-    source spells out (some are stamped out by a macro), is declared with
-    as many parameters, pointers where ctypes passes pointers: a mismatch
-    would cut a pointer or shift every argument on the card."""
+    csrc/panel_lu_c64.cu, csrc/panel_lu_micro.cu, csrc/panel_lu_noswap.cu
+    and csrc/batched_solve.cu, and every other one its source spells out
+    (some are stamped out by a macro), is declared with as many parameters,
+    pointers where ctypes passes pointers: a mismatch would cut a pointer
+    or shift every argument on the card.  The micro-blocked and no-swap
+    entry points take the cluster route's block and cluster (and the
+    no-swap ones the live row count)."""
     import ctypes
     import re
 
     from recursivefactorization_jl_tpu_torch.ops import _kernels
 
-    spelled_out = {"panel_lu", "panel_lu_c64", "batched_solve"}
+    spelled_out = {"panel_lu", "panel_lu_c64", "panel_lu_micro", "panel_lu_noswap",
+                   "batched_solve"}
     assert {"rf_panel_lu_c_plan", "rf_panel_lu_c64", "rf_panel_lu_c128",
             "rf_panel_lu_c_set_trace"} <= set(_kernels.SIGNATURES["panel_lu_c64"])
+    assert {"rf_panel_lu_micro_plan", "rf_panel_lu_shadow_f32", "rf_panel_lu_shadow_f64",
+            "rf_panel_lu_basic_f32", "rf_panel_lu_basic_f64",
+            "rf_panel_lu_micro_set_trace"} <= set(_kernels.SIGNATURES["panel_lu_micro"])
+    assert {"rf_panel_lu_noswap_plan", "rf_panel_lu_noswap_f32", "rf_panel_lu_noswap_f64",
+            "rf_panel_lu_noswap_set_trace"} <= set(_kernels.SIGNATURES["panel_lu_noswap"])
+    for name, params in (("rf_panel_lu_shadow_f32", ("int micro", "int b", "int C")),
+                         ("rf_panel_lu_noswap_f64", ("int live", "int b", "int C"))):
+        src = _kernels.SOURCES["panel_lu_noswap" if "noswap" in name else "panel_lu_micro"]
+        decl = re.search(r"\b" + name + r"\(([^)]*)\)", src.read_text()).group(1)
+        assert all(p in decl for p in params), (name, decl)
     headers = "".join(h.read_text() for h in _kernels.HEADERS)
     for name, fns in _kernels.SIGNATURES.items():
         text = _kernels.SOURCES[name].read_text() + headers
