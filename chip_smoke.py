@@ -40,43 +40,47 @@ The batched small-matrix path adds, in the same order:
 
 2b. batched_kernel  the swap kernel on each shape's own route (warp,
             block or tile, ops/batched_kernel.py lu_route) and on the tile
-            route, the noswap and solve kernels, against their plain
-            versions: f32/f64, n = 16/64/128, the routes' boundaries (1,
-            31, 32, 33, 32 x 40, 40 x 32, 20 x 32), tall and wide shapes,
-            batches of 1, 3, 37, 1000 and 1001, pivot on/off, zeroed
-            columns, exact ties, inf and NaN in a pivot row: ipiv, perm,
-            info equal, one launch on the route, factors and solutions
-            bitwise equal (NaN for NaN); the solve kernel on its shape's
-            route (the warp route at n <= 32) and forced onto the block
-            route: n = 1, 8, 15, 16, 17, 31, 32 (64, 128 on the block
-            route), batches of 1, 3, 37 and 1001, no row order, perm or
-            ipiv, a vector, one and five right-hand sides, a zero on U's
+            route, the noswap kernel on its own route (warp or block,
+            noswap_route), on the tile route and (n <= 32) on the block
+            route, against their plain versions: f32/f64, n = 16/64/128,
+            the routes' boundaries (1, 8, 17, 31, 32, 33, 127, 32 x 40,
+            40 x 32, 20 x 32), tall and wide shapes, batches of 1, 3, 37,
+            1000 and 1001, pivot on/off, zeroed columns, exact ties, inf
+            and NaN in a pivot row, a NaN candidate after row m - 1 won the
+            first step (the noswap mode picks it again): ipiv, perm, info
+            equal, one launch on the route, factors and solutions bitwise
+            equal (NaN for NaN); the solve kernel on its shape's route
+            (warp at n <= 32, wide up to 128) and forced onto the block
+            route: n = 1, 8, 15, 16, 17, 31, 32, 33, 48, 64, 96, 127, 128,
+            batches of 1, 3, 37, 1000 and 1001, no row order, perm or ipiv,
+            a vector, one and five right-hand sides, a zero on U's
             diagonal: solutions bitwise equal NaN for NaN, one launch on
-            the route;
+            the route; forced routes that do not take the shape raise;
 3b. batched the four public functions at B = 10 000, n = 16 (warp
-            route), 64 and 128 (block route), f32, plus the noswap kernel
-            as its caller reaches it, and a tall batch of 1000 x 300 x 24
-            (tile route): every output held against the plain versions on
-            the same inputs (ipiv, perm, info equal, factors and solutions
-            bitwise equal: the error the ``kernels`` line reports),
-            residual gate per matrix, ipiv equal to
-            torch.linalg.lu_factor_ex's (f64: everywhere; f32: in all but
-            at most 10 matrices, each a near tie of the two candidates at
-            its first differing step), info exact on zeroed columns, one
-            launch per call on the shape's route (the solve's too: warp
-            at n = 16, block at 64 and 128), no TF32 on the
-            library-route solve;
-4b. timing  the swap kernel on its own route and on the tile route,
-            noswap, solve and factor+solve at n = 8/16/24/32/48/64/96/128,
-            B = 10 000, in turns beside torch.linalg.lu_factor_ex and
-            lu_solve, f64 at n = 64, the tall batch, the solve on its
-            own route beside the block route forced and lu_solve (device
-            times; eight right-hand sides at n = 16 and 32); the plain
-            versions once; per route the plan (threads, matrices per block, shared
-            memory, registers, local memory, resident blocks per SM and
-            what caps them, waves) and at n = 16/32/64/128 a step's
-            phases from the trace build (csrc/batched_lu.cu compiled with
-            -DRF_BATCHED_TRACE); the new kernels' ptxas lines.
+            routes), 64 and 128 (block routes, the solve's wide route),
+            f32, plus the noswap kernel as its caller reaches it, and a
+            tall batch of 1000 x 300 x 24 (tile route): every output held
+            against the plain versions on the same inputs (ipiv, perm, info
+            equal, factors and solutions bitwise equal: the error the
+            ``kernels`` line reports), residual gate per matrix, ipiv equal
+            to torch.linalg.lu_factor_ex's (f64: everywhere; f32: in all
+            but at most 10 matrices, each a near tie of the two candidates
+            at its first differing step), info exact on zeroed columns, one
+            launch per call on the shape's route (swap, noswap and solve),
+            no TF32 on the library-route solve;
+4b. timing  the swap and noswap kernels on their own routes and on the
+            tile route, the solve on its own route and on the block route,
+            and factor+solve at n = 8/16/24/32/48/64/96/128, B = 10 000, in
+            turns beside torch.linalg.lu_factor_ex and lu_solve; f64 at
+            n = 64 (factor, noswap, the solve with 1 and 8 right-hand
+            sides) and the solve at n = 128; the tall batch (device times;
+            eight right-hand sides at n = 16, 32 and 64); the plain
+            versions once; per route and kernel the plan (threads, matrices
+            per block, shared memory, registers, local memory, resident
+            blocks per SM and what caps them, waves) and at n = 16/32/64/
+            128 a step's phases from the trace build (csrc/batched_lu.cu
+            compiled with -DRF_BATCHED_TRACE), swap and noswap; the
+            register routes' ptxas lines.
             ``--batched`` runs phases 1, 2b and 4b alone.
 
 The complex and half-precision path adds:
@@ -241,20 +245,31 @@ BATCHED_KERNELS = {
                          "recursivefactorization_jl_tpu/ops/batched_kernel.py:78"),
     "batched_lu_swap": ("recursivefactorization_jl_tpu_torch/csrc/batched_lu.cu",
                         "recursivefactorization_jl_tpu/ops/batched_kernel.py:78"),
+    # the noswap mode's routes (ops/batched_kernel.py noswap_route): the warp
+    # and block kernels in their noswap mode, the original tile only when forced
+    "batched_lu_noswap_warp": ("recursivefactorization_jl_tpu_torch/csrc/batched_lu.cu",
+                               "recursivefactorization_jl_tpu/ops/batched_kernel.py:78"),
+    "batched_lu_noswap_block": ("recursivefactorization_jl_tpu_torch/csrc/batched_lu.cu",
+                                "recursivefactorization_jl_tpu/ops/batched_kernel.py:78"),
     "batched_lu_noswap": ("recursivefactorization_jl_tpu_torch/csrc/batched_lu.cu",
                           "recursivefactorization_jl_tpu/ops/batched_kernel.py:78"),
-    # the solve's two routes (ops/batched_kernel.py solve_route): the block
-    # per matrix (n > 32) and the warp per matrix (n <= 32)
+    # the solve's three routes (ops/batched_kernel.py solve_route): the warp
+    # per matrix (n <= 32), the warp with rows l + 32 r per lane (32 < n <=
+    # 128), the original block per matrix (only when forced)
     "batched_solve": ("recursivefactorization_jl_tpu_torch/csrc/batched_solve.cu",
                       "recursivefactorization_jl_tpu/ops/batched_kernel.py:415"),
     "batched_solve_warp": ("recursivefactorization_jl_tpu_torch/csrc/batched_solve.cu",
+                           "recursivefactorization_jl_tpu/ops/batched_kernel.py:415"),
+    "batched_solve_wide": ("recursivefactorization_jl_tpu_torch/csrc/batched_solve.cu",
                            "recursivefactorization_jl_tpu/ops/batched_kernel.py:415"),
 }
 OFFSET_KERNEL = ("recursivefactorization_jl_tpu_torch/csrc/panel_lu.cu",
                  "recursivefactorization_jl_tpu/ops/panel.py:1278")
 BATCH_B = 10000
 ROUTE_KERNEL = {"warp": "batched_lu_warp", "block": "batched_lu_block", "tile": "batched_lu_swap"}
-SOLVE_KERNEL = {"warp": "batched_solve_warp", "block": "batched_solve"}
+NOSWAP_KERNEL = {"warp": "batched_lu_noswap_warp", "block": "batched_lu_noswap_block",
+                 "tile": "batched_lu_noswap"}
+SOLVE_KERNEL = {"warp": "batched_solve_warp", "block": "batched_solve", "wide": "batched_solve_wide"}
 # the tall batch that takes the tile route on the main path
 TALL_B, TALL_SHAPE = 1000, (300, 24)
 # the tp_ranks phase: D = 2 gloo ranks on the one card
@@ -448,7 +463,8 @@ def profile(rt, card, gen, dev, tp_mesh):
     """Device time by kernel over one factor + solve at 1536 and 4096 in
     float32 (the default route, ``schedule='physical'`` and
     ``panel_variant='shadow'``) and complex64, over two RBT solves at
-    1536, over one batched factor + solve of 10 000 matrices at n = 64 and 128,
+    1536, over one batched factor + solve of 10 000 matrices at n = 16, 64
+    and 128 (perm, ipiv and noswap pairs),
     and over ``tp_lu`` + ``tp_lu_solve`` on ``tp_mesh`` (one rank) beside
     ``lu`` + ``lu_solve`` at n = 4096, w = 128 and 512 (torch.profiler),
     and the device's idle share of the wall time."""
@@ -456,34 +472,42 @@ def profile(rt, card, gen, dev, tp_mesh):
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
+    from recursivefactorization_jl_tpu_torch.ops import batched_kernel as bk
+
     def run(factor, solve, expect=(), **what):
         """Profile one factor + solve; ``expect`` names kernels (substrings)
         the device rows must hold.  Only CUDA activity is recorded: with CPU
         activity on too, the profiler dropped the batched factor kernel of
-        the window (PERF.md).  A small kernel opens the window, so that a
-        record lost at the start would be that one."""
+        the window (PERF.md), and with CUDA activity alone it once dropped
+        the 5 ms factor kernel at n = 128: a window that lacks an
+        expected kernel is taken again, up to three windows.  A small
+        kernel opens the window, so that a record lost at the start would
+        be that one."""
         solve(factor())
         torch.cuda.synchronize()
-        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.zeros(1, device=dev).add_(1)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            F = factor()
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            solve(F)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-        # (busy time includes the opening fill and add of one element, ~2 us)
-        rows = device_rows(prof)
+        for attempt in range(1, 4):
+            with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.zeros(1, device=dev).add_(1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                F = factor()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                solve(F)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+            # (busy time includes the opening fill and add of one element, ~2 us)
+            rows = device_rows(prof)
+            missing = [k for k in expect if not any(k in r[2] for r in rows)]
+            if not missing:
+                break
         busy = sum(r[0] for r in rows)
         wall = (t2 - t0) * 1e3
-        missing = [k for k in expect if not any(k in r[2] for r in rows)]
         emit("profile", card=card, factor_wall_ms=(t1 - t0) * 1e3,
              solve_wall_ms=(t2 - t1) * 1e3, device_busy_ms=busy,
              idle_share=1 - busy / wall if wall > 0 else None,
              top=[{"ms": r[0], "calls": r[1], "name": r[2]} for r in rows[:12]],
-             expected_kernels=list(expect), missing_kernels=missing, **what)
+             expected_kernels=list(expect), missing_kernels=missing, windows=attempt, **what)
         if missing:
             fail(f"profile: kernels {missing} not recorded ({what})")
 
@@ -518,6 +542,11 @@ def profile(rt, card, gen, dev, tp_mesh):
         run(lambda: rt.batched_lu_factor(A),
             lambda F: rt.batched_lu_solve(F[0], F[1], b),
             expect=both, path="batched_ipiv", batch=BATCH_B, n=n)
+        # the noswap kernel (warp or block route in its noswap mode)
+        run(lambda: bk.batched_lu_noswap(A),
+            lambda F: rt.batched_lu_solve_perm(F[0], F[1], b),
+            expect=("batched_lu_warp" if n <= 32 else "batched_lu_block_noswap",
+                    "batched_solve_"), path="batched_noswap", batch=BATCH_B, n=n)
     n = 4096
     M = torch.randn(n, n, generator=gen).to(dev)
     v = torch.randn(n, generator=gen).to(dev)
@@ -1306,6 +1335,13 @@ def main(argv):
                 X[i, r, 1 % n] = float("inf")
                 X[i, r, 2 % n] = float("nan")
             return X.to(dev), None
+        if name == "nan_used_last" and m > 1 and n > 1:
+            # in every third matrix row m - 1 wins the first pivot, and a NaN
+            # in row 0 of column 1 then makes the NaN rule pick row m - 1
+            # again (the noswap mode: a row that is used already)
+            X[::3, m - 1, 0] = 1e3
+            X[::3, 0, 1] = float("nan")
+            return X.to(dev), None
         if name == "zero_col":
             # a zeroed column in every seventh matrix, at a column that
             # changes with the matrix
@@ -1322,9 +1358,11 @@ def main(argv):
                  # per block (4 or 8), tall and wide batches (the tile route)
                  (5, 1, 1), (5, 31, 31), (5, 32, 32), (5, 33, 33), (5, 32, 40), (5, 40, 32),
                  (5, 20, 32), (1, 16, 16), (3, 32, 32), (1001, 16, 16), (1001, 32, 32),
-                 (9, 300, 24), (9, 40, 200)]
+                 (9, 300, 24), (9, 40, 200),
+                 # the noswap mode's warp widths and block grids (8, 17, 127)
+                 (37, 8, 8), (37, 17, 17), (37, 127, 127)]
     inputs = (("randn", True), ("zero_col", True), ("ties", True), ("inf_nan", True),
-              ("randn", False), ("zero_col", False))
+              ("nan_used_last", True), ("randn", False), ("zero_col", False))
     n_cases = 0
     for (B, m, n) in lu_shapes:
         for dt in (torch.float32, torch.float64):
@@ -1332,11 +1370,16 @@ def main(argv):
                 A, want = batch_input(name, B, m, n, dt, pivot)
                 own = bk.lu_route(m, n)
                 # every shape on its own route and on the tile route (the
-                # PR 2 design), square ones on the noswap kernel too
-                runs = [own] + (["tile"] if own != "tile" else []) + (["noswap"] if m == n else [])
+                # original design), square ones on the noswap kernel too: its own
+                # route, the tile route and (n <= 32) the block route forced
+                runs = [own] + (["tile"] if own != "tile" else [])
+                if m == n:
+                    runs += ["noswap_" + r for r in dict.fromkeys(
+                        (bk.noswap_route(n), "tile", "block"))]
                 plain = bk.batched_lu_plain(A, pivot, True)
+                plain_noswap = bk.batched_lu_noswap_plain(A, pivot) if m == n else None
                 for route in runs:
-                    if route != "noswap":
+                    if not route.startswith("noswap_"):
                         kern = ROUTE_KERNEL[route]
                         f_p, ipiv_p, perm_p, info_p = plain
                         before = dict(bk.batched_lu_cuda.route_launches)
@@ -1353,11 +1396,15 @@ def main(argv):
                         _, _, none_perm, _ = bk.batched_lu_cuda(A, pivot, False, route=route)
                         same["no_perm_is_none"] = none_perm is None
                     else:
-                        kern = "batched_lu_noswap"
-                        f_p, perm_p, info_p = bk.batched_lu_noswap_plain(A, pivot)
-                        f_k, perm_k, info_k = bk.batched_lu_noswap_cuda(A, pivot)
+                        nroute = route[len("noswap_"):]
+                        kern = NOSWAP_KERNEL[nroute]
+                        f_p, perm_p, info_p = plain_noswap
+                        before = dict(bk.batched_lu_noswap_cuda.route_launches)
+                        f_k, perm_k, info_k = bk.batched_lu_noswap_cuda(A, pivot, route=nroute)
                         torch.cuda.synchronize()
-                        same = {}
+                        after = bk.batched_lu_noswap_cuda.route_launches
+                        same = {"one_launch_on_route": after[nroute] - before[nroute] == 1
+                                and sum(after.values()) - sum(before.values()) == 1}
                     same.update(
                         perm_equal=bool(torch.equal(perm_k, perm_p)),
                         info_equal=bool(torch.equal(info_k, info_p)),
@@ -1374,15 +1421,17 @@ def main(argv):
                     if not all(same.values()):
                         fail(f"{kern} disagrees with its plain version: {same}")
     # the solve kernel on each shape's own route (ops/batched_kernel.py
-    # solve_route: warp at n <= 32) and forced onto the block route: the warp
-    # route's lane counts (1, 8, 15, 16, 17, 31, 32), batches that are not a
-    # multiple of its matrices per block, no row order, perm or ipiv, one
-    # right-hand side as a vector, as a column and 5 (one full and one
-    # partial pass of 4), a zero on U's diagonal in one matrix of each batch
-    # (inf / NaN there and only there); n = 64, 128 on the block route
+    # solve_route: warp at n <= 32, wide up to 128) and forced onto the block
+    # route: the warp route's lane counts (1, 8, 15, 16, 17, 31, 32), the
+    # wide route's rows per lane (33, 48, 64: two; 96: three; 127, 128:
+    # four), batches that are not a multiple of either's matrices per
+    # block, no row order, perm or ipiv, one right-hand side as a vector, as
+    # a column and 5 (one full and one partial pass of 4), a zero on U's
+    # diagonal in one matrix of each batch (inf / NaN there and only there)
     solve_cases = [(B, n) for n in (1, 8, 15, 16, 17, 31, 32) for B in (1, 3, 37, 1001)]
-    solve_cases += [(1000, 64), (37, 128)]
-    solve_err = {"warp": 0.0, "block": 0.0}
+    solve_cases += [(B, n) for n in (33, 48, 96, 127) for B in (1, 37)]
+    solve_cases += [(1000, 64), (37, 128), (1001, 128)]
+    solve_err = dict.fromkeys(bk.SOLVE_ROUTES, 0.0)
     for (B, n) in solve_cases:
         for dt in (torch.float32, torch.float64):
             A, _ = batch_input("randn", B, n, n, dt, True)
@@ -1416,7 +1465,7 @@ def main(argv):
                         }
                         err = abs_err(x_k[ok_rows], x_p[ok_rows])
                         solve_err[route] = max(solve_err[route], err)
-                        kern = "batched_solve_warp" if route == "warp" else "batched_solve"
+                        kern = SOLVE_KERNEL[route]
                         batched_err[kern] = max(batched_err[kern], err)
                         n_cases += 1
                         emit("batched_kernel", kernel=kern, shape=[B, n, n],
@@ -1427,13 +1476,19 @@ def main(argv):
                                  f"version: {same}")
     for bad in (lambda: bk.batched_solve_cuda(torch.zeros(4, 33, 33, device=dev),
                                               torch.zeros(4, 33, device=dev), route="warp"),
+                lambda: bk.batched_solve_cuda(torch.zeros(4, 32, 32, device=dev),
+                                              torch.zeros(4, 32, device=dev), route="wide"),
                 lambda: bk.batched_solve_cuda(torch.zeros(4, 8, 8, device=dev),
-                                              torch.zeros(4, 8, device=dev), route="tile")):
+                                              torch.zeros(4, 8, device=dev), route="tile"),
+                lambda: bk.batched_lu_noswap_cuda(torch.zeros(4, 33, 33, device=dev),
+                                                  route="warp"),
+                lambda: bk.batched_lu_noswap_cuda(torch.zeros(4, 8, 8, device=dev),
+                                                  route="wide")):
         try:
             bad()
         except ValueError:
             continue
-        fail("batched_solve_cuda took a route that does not take the shape")
+        fail("a batched wrapper took a route that does not take the shape")
     # what the wrappers refuse, and a strided batch (copied, not refused)
     for bad in (torch.zeros(4, 8, 8, device=dev, dtype=torch.float16),
                 torch.zeros(4, 129, 129, device=dev),
@@ -1453,24 +1508,30 @@ def main(argv):
     NS_TIMED = (8, 16, 24, 32, 48, 64, 96, 128)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def lu_occupancy(n, route, dt=torch.float32):
-        """The swap kernel's plan at (n, n) with what caps its blocks per
-        SM (threads, the 32-block limit, shared memory, registers) and its
-        waves over a batch of BATCH_B."""
-        plan = bk.lu_plan(n, n, dt, route)
+    def occupancy(plan, batch=BATCH_B):
+        """A kernel's plan with what caps its blocks per SM (threads, the
+        32-block limit, shared memory, registers) and its waves over a
+        batch of ``batch`` matrices."""
         warps = -(-plan["threads"] // 32)
         regs_warp = -(-plan["registers"] * 32 // 256) * 256
         caps = {"threads": 2048 // plan["threads"], "blocks": 32,
                 "shared_memory": 233472 // (plan["smem"] + plan["static_smem"] + 1024),
                 "registers": 65536 // (regs_warp * warps)}
-        grid = -(-BATCH_B // plan["per_block"])
+        grid = -(-batch // plan["per_block"])
         plan.update(caps=caps, capped_by=[k for k, v in caps.items()
                                           if v == plan["blocks_per_sm"]],
-                    grid=grid, sms=sms, waves=grid / (plan["blocks_per_sm"] * sms))
+                    grid=grid, sms=sms, waves=grid / (plan["blocks_per_sm"] * sms),
+                    resident_matrices_per_sm=plan["blocks_per_sm"] * plan["per_block"])
         return plan
 
+    def lu_occupancy(n, route, dt=torch.float32, swap=True):
+        """The swap (or noswap) kernel's plan at (n, n) with its caps and
+        waves."""
+        return occupancy(bk.lu_plan(n, n, dt, route, swap=swap))
+
     # clock64() stamps of one step of thread 0 of block 0, by route (the
-    # phases are listed above each kernel in csrc/batched_lu.cu): (a, b)
+    # phases are listed above each kernel in csrc/batched_lu.cu; the noswap
+    # mode stamps the same phases on the warp and block routes): (a, b)
     # pairs of stamps summed into each part
     trace_parts = {
         "tile": {"search": [(0, 1)], "swap_scale": [(2, 3)], "update": [(4, 5)],
@@ -1482,9 +1543,10 @@ def main(argv):
     }
     trace_lib = []
 
-    def lu_trace(A, route):
-        """Where a step of the swap kernel's ``route`` goes, from the trace
-        build of csrc/batched_lu.cu (a separate library) on the batch A."""
+    def lu_trace(A, route, swap=True):
+        """Where a step of the swap (or noswap) kernel's ``route`` goes, from
+        the trace build of csrc/batched_lu.cu (a separate library) on the
+        batch A."""
         if not trace_lib:
             trace_lib.append(_kernels.load("batched_lu_trace"))
         lib = trace_lib[0]
@@ -1495,12 +1557,20 @@ def main(argv):
         ipiv = torch.empty((B, k), dtype=torch.int32, device=dev)
         perm = torch.empty((B, m), dtype=torch.int32, device=dev)
         info = torch.empty(B, dtype=torch.int32, device=dev)
-        fn = lib.rf_batched_lu_swap_f64 if A.element_size() == 8 else lib.rf_batched_lu_swap_f32
+        f64 = A.element_size() == 8
         stream = torch.cuda.current_stream().cuda_stream
-        args = (A.data_ptr(), out.data_ptr(), ipiv.data_ptr(), perm.data_ptr(), info.data_ptr(),
-                B, m, n, 1, bk.LU_ROUTES.index(route) + 1,
-                bk.lu_smem_bytes(m, n, A.element_size(), route), torch.cuda.current_device(),
-                stream)
+        r = bk.LU_ROUTES.index(route) + 1
+        if swap:
+            fn = lib.rf_batched_lu_swap_f64 if f64 else lib.rf_batched_lu_swap_f32
+            args = (A.data_ptr(), out.data_ptr(), ipiv.data_ptr(), perm.data_ptr(),
+                    info.data_ptr(), B, m, n, 1, r,
+                    bk.lu_smem_bytes(m, n, A.element_size(), route),
+                    torch.cuda.current_device(), stream)
+        else:
+            fn = lib.rf_batched_lu_noswap_f64 if f64 else lib.rf_batched_lu_noswap_f32
+            args = (A.data_ptr(), out.data_ptr(), perm.data_ptr(), info.data_ptr(), B, n, 1, r,
+                    bk.noswap_smem_bytes(n, A.element_size(), route),
+                    torch.cuda.current_device(), stream)
         _kernels.check(lib, fn(*args), "trace build launch")  # warm
         torch.cuda.synchronize()
         _kernels.check(lib, lib.rf_batched_lu_set_trace(buf.data_ptr()), "set trace")
@@ -1514,10 +1584,17 @@ def main(argv):
         ghz = float((tail[3] - tail[1]) / (tail[2] - tail[0]))
         ns = {}
         for part, pairs in trace_parts[route].items():
-            v = sum((st[:, b] - st[:, a] for a, b in pairs), torch.zeros(k, dtype=torch.float64))
+            v = sum((st[:, b_] - st[:, a_] for a_, b_ in pairs), torch.zeros(k, dtype=torch.float64))
             ns[part] = float(v.median()) / ghz
-        return dict(route=route, sm_ghz=ghz, step_ns_median=ns.pop("step"),
-                    phase_ns_median=ns, first_block_us=float(tail[2] - tail[0]) / 1e3)
+        # the steps' halves: on the noswap block route every row slot stays in
+        # the update, on the swap route the finished ones drop out
+        step = sum((st[:, b_] - st[:, a_] for a_, b_ in trace_parts[route]["step"]),
+                   torch.zeros(k, dtype=torch.float64)) / ghz
+        return dict(route=route, mode="swap" if swap else "noswap", sm_ghz=ghz,
+                    step_ns_median=ns.pop("step"), phase_ns_median=ns,
+                    step_ns_first_half_mean=float(step[:k // 2].mean()) if k > 1 else None,
+                    step_ns_second_half_mean=float(step[k // 2:].mean()),
+                    first_block_us=float(tail[2] - tail[0]) / 1e3)
 
     def device_ms(fn, calls=5):
         """Device time per call of ``fn`` (every kernel it launches), from
@@ -1538,10 +1615,11 @@ def main(argv):
 
     def batched_timing():
         """Phase 4b: the swap kernel on its own route and on the tile route
-        (the PR 2 design) per n, the noswap and solve kernels and the
-        factor+solve pairs, in turns beside the library; each route's plan
-        and occupancy, and (n = 16, 32, 64, 128) a step's phases from the
-        trace build."""
+        (the original design) per n, the noswap kernel on its own route and on
+        the tile route, the solve on its own route and on the block route,
+        and the factor+solve pairs, in turns beside the library; each
+        route's plan and occupancy, and (n = 16, 32, 64, 128) a step's
+        phases from the trace build, both modes."""
         rows = {}
         for n in NS_TIMED:
             A = torch.randn(BATCH_B, n, n, generator=gen).to(dev)
@@ -1552,6 +1630,7 @@ def main(argv):
             lib_lu, lib_piv, _ = torch.linalg.lu_factor_ex(A)
             ident = torch.arange(1, n + 1, dtype=lib_piv.dtype, device=dev).repeat(BATCH_B, 1)
             route = bk.lu_route(n, n)
+            nroute = bk.noswap_route(n)
 
             def lib_fs():
                 LU_, piv, _ = torch.linalg.lu_factor_ex(A)
@@ -1564,6 +1643,8 @@ def main(argv):
                     *rt.batched_lu_factor_perm(A)[:2], b),
                 "ipiv_factor_solve": lambda: rt.batched_lu_solve(
                     *rt.batched_lu_factor(A)[:2], b),
+                "noswap_factor_solve": lambda: rt.batched_lu_solve_perm(
+                    *bk.batched_lu_noswap(A)[:2], b),
             }
             if route != "tile":
                 fns["swap_tile"] = lambda: bk.batched_lu_cuda(A, True, True, route="tile")
@@ -1571,14 +1652,15 @@ def main(argv):
             if solve_route != "block":
                 # the solve's block route (the PR 2 design) on the same inputs
                 fns["solve_block"] = lambda: bk.batched_solve_cuda(f, rhs, route="block")
-            if n in (16, 32):
-                # eight right-hand sides: two passes of the warp route
+            if n in (16, 32, 64):
+                # eight right-hand sides: two passes of the warp or wide route
                 rhs8 = torch.randn(BATCH_B, n, 8, generator=gen).to(dev)
                 fns["solve_nrhs8"] = lambda: bk.batched_solve_cuda(f, rhs8)
                 fns["solve_block_nrhs8"] = lambda: bk.batched_solve_cuda(f, rhs8, route="block")
                 fns["library_solve_nrhs8"] = lambda: torch.linalg.lu_solve(f, ident, rhs8)
             fns.update({
                 "noswap": lambda: bk.batched_lu_noswap_cuda(A, True),
+                "noswap_tile": lambda: bk.batched_lu_noswap_cuda(A, True, route="tile"),
                 "solve": lambda: bk.batched_solve_cuda(f, rhs),
                 "solve_with_perm": lambda: bk.batched_solve_cuda(f, b, perm=perm),
                 "solve_with_ipiv": lambda: bk.batched_solve_cuda(f, b, ipiv=ipiv),
@@ -1592,9 +1674,10 @@ def main(argv):
             })
             t = round_robin(fns, inner=4)
             dev_t = {k: device_ms(fns[k]) for k in (
-                "swap", "swap_tile", "noswap", "solve", "solve_block", "library_factor",
-                "library_solve", "solve_nrhs8", "solve_block_nrhs8", "library_solve_nrhs8")
-                     if k in fns}
+                "swap", "swap_tile", "noswap", "noswap_tile", "solve", "solve_block",
+                "solve_with_perm", "solve_with_ipiv", "library_factor", "library_solve",
+                "solve_nrhs8", "solve_block_nrhs8", "library_solve_nrhs8",
+                "perm_factor_solve", "ipiv_factor_solve") if k in fns}
             plain = {
                 "swap": timed(lambda: bk.batched_lu_plain(A, True, True), reps=1, warm=0)[0],
                 "noswap": timed(lambda: bk.batched_lu_noswap_plain(A, True), reps=1, warm=0)[0],
@@ -1605,13 +1688,21 @@ def main(argv):
                 "noswap": batched_lu_bound(BATCH_B, n, n, "float32", 4),
                 "solve": batched_solve_bound(BATCH_B, n, 1, "float32", 4),
             }
-            plans = {r: lu_occupancy(n, r) for r in dict.fromkeys((route, "tile"))}
-            traces = ({r: lu_trace(A, r) for r in plans} if n in (16, 32, 64, 128) else {})
-            swaps = [k for k in ("swap", "swap_tile") if k in t]
+            plans = {("swap", r): lu_occupancy(n, r) for r in dict.fromkeys((route, "tile"))}
+            plans.update({("noswap", r): lu_occupancy(n, r, swap=False)
+                          for r in dict.fromkeys((nroute, "tile"))})
+            plans.update({("solve", r): occupancy(bk.solve_plan(n, 1, torch.float32, r))
+                          for r in dict.fromkeys((solve_route, "block"))})
+            traces = {}
+            if n in (16, 32, 64, 128):
+                traces[("swap", route)] = lu_trace(A, route)
+                traces[("noswap", nroute)] = lu_trace(A, nroute, swap=False)
+                traces[("swap", "tile")] = lu_trace(A, "tile")
+            swaps = [k for k in ("swap", "swap_tile", "noswap", "noswap_tile") if k in t]
             rows[n] = dict(t=t, dev=dev_t, plain=plain, bounds=bounds, route=route)
             emit("timing", what="batched", card=card, batch=BATCH_B, n=n,
-                 dtype="float32", route=route, solve_route=solve_route, kernel_ms=t,
-                 device_ms=dev_t, plain_ms=plain,
+                 dtype="float32", route=route, noswap_route=nroute, solve_route=solve_route,
+                 kernel_ms=t, device_ms=dev_t, plain_ms=plain,
                  bound_ms={k: v[0] for k, v in bounds.items()},
                  bound_by={k: v[1] for k, v in bounds.items()},
                  launches_per_timing=4,
@@ -1620,34 +1711,70 @@ def main(argv):
                  device_over_library={k: dev_t[k] / dev_t["library_factor"] for k in swaps},
                  solve_device_over_library={k: dev_t[k] / dev_t["library_solve"] for k in
                                             ("solve", "solve_block") if k in dev_t},
-                 noswap_over_swap=t["noswap"] / t["swap"])
-            for r, plan in plans.items():
+                 noswap_over_swap=t["noswap"] / t["swap"],
+                 noswap_device_over_swap=dev_t["noswap"] / dev_t["swap"])
+            for (mode, r), plan in plans.items():
+                kern = {"swap": ROUTE_KERNEL, "noswap": NOSWAP_KERNEL,
+                        "solve": SOLVE_KERNEL}[mode][r]
                 emit("timing", what="batched_plan", card=card, batch=BATCH_B, n=n,
-                     dtype="float32", kernel=ROUTE_KERNEL[r], **plan,
-                     trace=traces.get(r))
+                     dtype="float32", kernel=kern, **plan, trace=traces.get((mode, r)))
             del A, b, f, rhs, lib_lu
 
-        # f64 at the main size: the same kernels on the card's f64 units
+        # f64 at the main size: the same kernels on the card's f64 units;
+        # the solve with 1 and 8 right-hand sides on each route beside lu_solve
         A = torch.randn(BATCH_B, 64, 64, generator=gen, dtype=torch.float64).to(dev)
         b = torch.randn(BATCH_B, 64, generator=gen, dtype=torch.float64).to(dev)
+        b8 = torch.randn(BATCH_B, 64, 8, generator=gen, dtype=torch.float64).to(dev)
         f, perm, _ = rt.batched_lu_factor_perm(A)
+        rhs = b.gather(1, perm.long())
+        ident = torch.arange(1, 65, dtype=torch.int32, device=dev).repeat(BATCH_B, 1)
         fns = {
             "swap": lambda: bk.batched_lu_cuda(A, True, True),
             "swap_tile": lambda: bk.batched_lu_cuda(A, True, True, route="tile"),
             "noswap": lambda: bk.batched_lu_noswap_cuda(A, True),
+            "noswap_tile": lambda: bk.batched_lu_noswap_cuda(A, True, route="tile"),
+            "solve": lambda: bk.batched_solve_cuda(f, rhs),
+            "solve_block": lambda: bk.batched_solve_cuda(f, rhs, route="block"),
+            "solve_nrhs8": lambda: bk.batched_solve_cuda(f, b8),
+            "solve_block_nrhs8": lambda: bk.batched_solve_cuda(f, b8, route="block"),
             "solve_with_perm": lambda: bk.batched_solve_cuda(f, b, perm=perm),
             "library_factor": lambda: torch.linalg.lu_factor_ex(A),
+            "library_solve": lambda: torch.linalg.lu_solve(f, ident, rhs[:, :, None]),
+            "library_solve_nrhs8": lambda: torch.linalg.lu_solve(f, ident, b8),
         }
         t = round_robin(fns, inner=4)
         dev_t = {k: device_ms(f_) for k, f_ in fns.items() if k != "solve_with_perm"}
-        plans = {r: lu_occupancy(64, r, torch.float64) for r in ("block", "tile")}
+        plans = {ROUTE_KERNEL[r]: lu_occupancy(64, r, torch.float64) for r in ("block", "tile")}
+        plans.update({NOSWAP_KERNEL[r]: lu_occupancy(64, r, torch.float64, swap=False)
+                      for r in ("block", "tile")})
+        plans.update({SOLVE_KERNEL[r]: occupancy(bk.solve_plan(64, 1, torch.float64, r))
+                      for r in ("wide", "block")})
+        f64_bounds = {"swap": batched_lu_bound(BATCH_B, 64, 64, "float64", 8),
+                      "solve": batched_solve_bound(BATCH_B, 64, 1, "float64", 8)}
         emit("timing", what="batched", card=card, batch=BATCH_B, n=64,
              dtype="float64", kernel_ms=t, device_ms=dev_t, launches_per_timing=4,
-             bound_ms={"swap": batched_lu_bound(BATCH_B, 64, 64, "float64", 8)[0],
-                       "solve_with_perm": batched_solve_bound(BATCH_B, 64, 1, "float64", 8)[0]},
-             plans=plans)
-        rows["f64"] = dict(t=t, dev=dev_t)
-        del A, b, f
+             bound_ms={k: v[0] for k, v in f64_bounds.items()},
+             bound_by={k: v[1] for k, v in f64_bounds.items()},
+             noswap_device_over_swap=dev_t["noswap"] / dev_t["swap"], plans=plans)
+        rows["f64"] = dict(t=t, dev=dev_t, bounds=f64_bounds)
+        del A, b, b8, f, rhs
+        # the wide route at n = 128 in f64: one matrix's tile is 33.8 KB
+        # (the block route's 139 KB allows one block per SM)
+        A = torch.randn(BATCH_B, 128, 128, generator=gen, dtype=torch.float64).to(dev)
+        b = torch.randn(BATCH_B, 128, generator=gen, dtype=torch.float64).to(dev)
+        f, perm, _ = rt.batched_lu_factor_perm(A)
+        rhs = b.gather(1, perm.long())
+        ident = torch.arange(1, 129, dtype=torch.int32, device=dev).repeat(BATCH_B, 1)
+        fns = {"solve": lambda: bk.batched_solve_cuda(f, rhs),
+               "solve_block": lambda: bk.batched_solve_cuda(f, rhs, route="block"),
+               "library_solve": lambda: torch.linalg.lu_solve(f, ident, rhs[:, :, None])}
+        dev_t = {k: device_ms(f_) for k, f_ in fns.items()}
+        plans = {SOLVE_KERNEL[r]: occupancy(bk.solve_plan(128, 1, torch.float64, r))
+                 for r in ("wide", "block")}
+        emit("timing", what="batched_solve", card=card, batch=BATCH_B, n=128,
+             dtype="float64", device_ms=dev_t,
+             bound_ms=batched_solve_bound(BATCH_B, 128, 1, "float64", 8)[0], plans=plans)
+        del A, b, f, rhs
         # the tall batch of the main path (tile route) beside the library
         A = torch.randn((TALL_B,) + TALL_SHAPE, generator=gen).to(dev)
         fns = {"swap": lambda: bk.batched_lu_cuda(A, True, True),
@@ -1662,7 +1789,7 @@ def main(argv):
              plain_ms=plain,
              bound_ms=bounds["swap"][0], bound_by=bounds["swap"][1], launches_per_timing=4)
         del A
-        # the new kernels' ptxas lines: no stack frame, no spill
+        # the register routes' ptxas lines: no stack frame, no spill
         log = _kernels.BUILD_LOG.get("batched_lu", {}).get("log", "").splitlines()
         lines = []
         for i, ln in enumerate(log):
@@ -1670,24 +1797,32 @@ def main(argv):
                 lines.append(" | ".join(x.strip() for x in log[i:i + 4]))
         slog = _kernels.BUILD_LOG.get("batched_solve", {}).get("log", "").splitlines()
         for i, ln in enumerate(slog):
-            if "Compiling entry" in ln and "batched_solve_warp" in ln:
+            if "Compiling entry" in ln and ("batched_solve_warp" in ln or "batched_solve_wide" in ln):
                 lines.append(" | ".join(x.strip() for x in slog[i:i + 4]))
-        # the LU's warp route has no local memory at all; the solve's warp
-        # kernels may keep a few bytes of frame around the division's
-        # slow-path call, but never room for their row of N values
+        # the LU's warp route (both modes) has no local memory at all; the
+        # solve's register kernels may keep a frame for the division's
+        # slow-path call (up to 16 bytes: every f64 instance of the wide
+        # route has one), but never a larger one that could hold the x they
+        # keep (warp: a row of N values; wide: R x RC values)
         def frame(ln):
             return int(ln.split(" bytes stack frame")[0].rsplit("|", 1)[-1].strip())
 
-        def row_bytes(ln):
-            name = ln.split("batched_solve_warp_kernelI", 1)[1]
-            return (8 if name[0] == "d" else 4) * int(name.split("Li", 1)[1].split("E", 1)[0])
+        def held_bytes(ln):
+            for kind in ("batched_solve_warp_kernelI", "batched_solve_wide_kernelI"):
+                if kind in ln:
+                    name = ln.split(kind, 1)[1]
+                    size = 8 if name[0] == "d" else 4
+                    a_, b_ = (int(v.split("E", 1)[0]) for v in name.split("Li", 3)[1:3])
+                    return size * (a_ if "warp" in kind else a_ * b_)
+            return 0
 
         spills = [ln for ln in lines if "batched_lu_warp" in ln
                   and not ("0 bytes stack frame" in ln and "0 bytes spill stores" in ln)]
-        spills += [ln for ln in lines if "batched_solve_warp" in ln and frame(ln) >= row_bytes(ln)]
-        emit("timing", what="batched_ptxas", card=card, lines=lines, warp_route_spills=spills)
+        spills += [ln for ln in lines if "batched_solve_" in ln
+                   and frame(ln) > 16 and frame(ln) >= held_bytes(ln)]
+        emit("timing", what="batched_ptxas", card=card, lines=lines, register_route_spills=spills)
         if spills:
-            fail(f"warp route kernels keep their rows in local memory: {spills}")
+            fail(f"register route kernels keep their values in local memory: {spills}")
         return rows
 
     if batched_only:
@@ -2090,13 +2225,13 @@ def main(argv):
     def reset_batched_counts():
         bk.reset_lu_launches()
         bk.reset_solve_launches()
-        bk.batched_lu_noswap_cuda.launches = 0
+        bk.reset_noswap_launches()
 
     def batched_counts():
-        """Launches per kernel since the last reset: the swap and solve
-        kernels' by route (one kernel function each), the noswap kernel's."""
+        """Launches per kernel since the last reset: the swap, noswap and
+        solve kernels' by route (one kernel function each)."""
         got = {ROUTE_KERNEL[r]: c for r, c in bk.batched_lu_cuda.route_launches.items()}
-        got["batched_lu_noswap"] = bk.batched_lu_noswap_cuda.launches
+        got.update({NOSWAP_KERNEL[r]: c for r, c in bk.batched_lu_noswap_cuda.route_launches.items()})
         got.update({SOLVE_KERNEL[r]: c for r, c in bk.batched_solve_cuda.route_launches.items()})
         return got
 
@@ -2159,7 +2294,7 @@ def main(argv):
         got = batched_counts()
         batched_launches[n] = got
         expect = {k: 0 for k in got}
-        expect.update({ROUTE_KERNEL[bk.lu_route(n, n)]: 3, "batched_lu_noswap": 1,
+        expect.update({ROUTE_KERNEL[bk.lu_route(n, n)]: 3, NOSWAP_KERNEL[bk.noswap_route(n)]: 1,
                        SOLVE_KERNEL[bk.solve_route(n, 1)]: 3})
         rec = dict(batch=BATCH_B, n=n, dtype="float32", launches=got,
                    expected_launches=expect)
@@ -2183,7 +2318,7 @@ def main(argv):
         }
         full_err[n] = {
             ROUTE_KERNEL[bk.lu_route(n, n)]: max(abs_err(f1, fp), abs_err(f2, fp)),
-            "batched_lu_noswap": abs_err(f3, fn),
+            NOSWAP_KERNEL[bk.noswap_route(n)]: abs_err(f3, fn),
             SOLVE_KERNEL[bk.solve_route(n, 1)]: max(abs_err(x1, xp1), abs_err(x2, xp2),
                                                     abs_err(x3, xp3)),
         }
@@ -2886,18 +3021,24 @@ def main(argv):
             "shape": crow["shape"],
             "dtype": "complex64",
         })
-    # each swap route's kernel at the shape of its own main-path run (the
-    # warp route at n = 16, the block route at n = 64, the tile route on the
-    # tall batch), the noswap and solve kernels at n = 64
+    # each route's kernel at the shape of its own main-path run (the warp
+    # routes at n = 16, the block and wide routes at n = 64, the tile route
+    # on the tall batch); the routes that only a forced call takes (the
+    # noswap tile, the solve's block route) at n = 64, 0 launches on the
+    # main path
     for name, at, key, lib in (("batched_lu_warp", 16, "swap", "library_factor"),
                                ("batched_lu_block", 64, "swap", "library_factor"),
                                ("batched_lu_swap", "tall", "swap", "library_factor"),
-                               ("batched_lu_noswap", 64, "noswap", "library_factor"),
-                               ("batched_solve", 64, "solve", "library_solve"),
-                               ("batched_solve_warp", 16, "solve", "library_solve")):
+                               ("batched_lu_noswap_warp", 16, "noswap", "library_factor"),
+                               ("batched_lu_noswap_block", 64, "noswap", "library_factor"),
+                               ("batched_lu_noswap", 64, "noswap_tile", "library_factor"),
+                               ("batched_solve_warp", 16, "solve", "library_solve"),
+                               ("batched_solve_wide", 64, "solve", "library_solve"),
+                               ("batched_solve", 64, "solve_block", "library_solve")):
         row = batched_rows[at]
+        base_key = key.split("_")[0]  # the plain version and the bound
         shape = ([TALL_B, *TALL_SHAPE] if at == "tall"
-                 else [BATCH_B, at, at] if key != "solve" else [BATCH_B, at, 1])
+                 else [BATCH_B, at, at] if base_key != "solve" else [BATCH_B, at, 1])
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -2905,16 +3046,17 @@ def main(argv):
             "replaces": BATCHED_KERNELS[name][1],
             "launches": batched_launches[at][name],
             # against the plain version at this shape, in the batched phase
-            "max_abs_err": full_err[at][name],
+            # (a forced route: over every case of phase 2b)
+            "max_abs_err": full_err[at].get(name, batched_err[name]),
             "max_abs_err_all_cases": max([batched_err[name]] + [
                 e[name] for e in full_err.values() if name in e]),
             # device time (torch.profiler, every kernel of the call); the
             # CUDA-event time of queued wrapper calls, host included, beside
             "ms": row["dev"][key],
             "call_ms": row["t"][key],
-            "plain_ms": row["plain"][key],
-            "bound_ms": row["bounds"][key][0],
-            "bound_by": row["bounds"][key][1],
+            "plain_ms": row["plain"][base_key],
+            "bound_ms": row["bounds"][base_key][0],
+            "bound_by": row["bounds"][base_key][1],
             "library_ms": row["dev"][lib],
             "library_call_ms": row["t"][lib],
             "shape": shape,

@@ -18,10 +18,13 @@
 //           and info records the first such step (1-based, negated without
 //           pivoting).
 //   noswap  Square matrices; rows stay where they are.  Per step k the pivot
-//           is searched among the rows not used yet (ties by physical row),
-//           that row becomes used, and every other unused row is scaled and
-//           updated from it.  The rows are written back in pivot order, so
-//           the factors come out as L @ U == A[perm, :] without a gather.
+//           is the largest |a[i, k]| over the rows not used yet (ties by
+//           physical row; a NaN among them selects row n - 1 even when that
+//           row is used), perm[k] = kp, that row becomes used, and every
+//           other unused row is scaled by r = 1/p (not on a zero pivot) and
+//           gets a[i, j] - l[i] * u[j] from row kp.  The rows are written
+//           out in pivot order (out[k] = row perm[k]), so the factors come
+//           out as L @ U == A[perm, :] without a gather.
 //
 // Every product and difference is rounded on its own (__fmul_rn, __fsub_rn,
 // and -fmad=false at build time), the scale is x * (1/p), and every element
@@ -29,9 +32,12 @@
 //
 // Design.  The TPU kernel puts 128 matrices side by side on the lane axis of
 // a transposed (n, m, G) block, pads the batch to a multiple of G and masks
-// whole-block vector passes.  None of that is carried over.  The swap mode
-// has three routes, chosen by the shape (`swap_route`, mirrored by
-// ops/batched_kernel.py `lu_route`):
+// whole-block vector passes.  None of that is carried over.  Both modes
+// have three routes, chosen by the shape (`own_route`, mirrored by
+// ops/batched_kernel.py `lu_route` and `noswap_route`); the warp and block
+// routes are one kernel function each with the mode a compile-time choice
+// (the warp kernel's kSwap flag) or a sibling that shares the grid, the
+// pivot reduction and the row publication (the block route):
 //
 //   warp   m <= 32 and n <= 32: one warp (or half a warp when m <= 16) per
 //          matrix, several matrices per block.  Lane i holds row i in
@@ -43,7 +49,10 @@
 //          lane reads the U row from there, lanes k and kp their new row),
 //          and a step has no barrier, only one __syncwarp.  Loads and
 //          stores go through shared memory, so that global accesses stay
-//          coalesced.
+//          coalesced.  Noswap: lane i keeps physical row i; the search runs
+//          over the lanes not used yet, lane kp alone publishes its row
+//          from column k on, and the rows leave through the staging tile
+//          gathered by perm.
 //   block  32 < max(m, n) <= 128: one block of BT x BT threads per matrix
 //          (8 x 8 up to max(m, n) = 64, 16 x 16 beyond); thread (ty, tx)
 //          keeps the elements (ty + BT i, tx + BT j) in registers (an S x S
@@ -54,14 +63,18 @@
 //          __syncthreads() per step.  Cyclic ownership keeps the shrinking
 //          trailing block spread over all threads, and the step loop is
 //          unrolled over the tile's slots so that finished slots drop out.
+//          Noswap: a used bit per row slot; the finished column slots drop
+//          out, but the rows of every slot stay in the update (the used
+//          rows are scattered), and the rows leave by the step that picked
+//          them.
 //   tile   every other shape the kernels take (max(m, n) > 128: tall or wide
 //          batches, whose tile does not fit the registers): one block per
 //          matrix, the matrix in a shared-memory tile with row stride n + 1.
 //          Warp 0 searches the pivot and does the step's bookkeeping; the
 //          interchange and the scale share a phase; the update is spread
-//          over the block.  Three __syncthreads() per step.
-//
-// The noswap kernel keeps the shared-memory tile design of the tile route.
+//          over the block.  Three __syncthreads() per step.  The noswap
+//          mode's tile kernel (the original noswap kernel) is this route in that mode;
+//          no shape takes it unless it is forced.
 //
 // What bounds them.  By the roofline, bytes: each matrix is read and written
 // once, and the 2n^3/3 operations per matrix are a fraction of that time at
@@ -69,13 +82,15 @@
 // the instructions each step issues besides its multiply-subtracts: the
 // search and exchange in the warp route; in the block route the selects
 // over the tile for row kp's runtime slot, the fused candidate search and
-// the two barriers (PERF.md, PR 7); in the tile route three barriers and
-// the shared-memory traffic of the rank-1 update.
+// the two barriers (PERF.md), and in its noswap mode the row slots that
+// stay in the update (PERF.md); in the tile route three
+// barriers and the shared-memory traffic of the rank-1 update.
 //
 // Built with -DRF_BATCHED_TRACE (the separate library `batched_lu_trace` of
 // ops/_kernels.py), thread 0 of block 0 stamps clock64() at the phase
-// boundaries of each step (rf_batched_lu_set_trace); the production library
-// has no trace code.
+// boundaries of each step (rf_batched_lu_set_trace; the warp and block
+// routes in both modes, the swap mode's tile route); the production
+// library has no trace code.
 
 #include <cuda_runtime.h>
 
@@ -144,7 +159,7 @@ __device__ __forceinline__ void warp_best(T& best, int& bi) {
   }
 }
 
-// Shared-memory layout of the tile route and the noswap kernel (see
+// Shared-memory layout of the tile route in both modes (see
 // tile_smem_bytes in ops/batched_kernel.py): tile m x (n + 1), lcol m, then
 // 2 * m ints.
 template <typename T>
@@ -282,7 +297,7 @@ __global__ void __launch_bounds__(kMaxThreads) batched_lu_swap_kernel(const T* _
   RF_TRACE_END(minmn);
 }
 
-// ---- noswap ------------------------------------------------------------------
+// ---- tile route, noswap mode (the original kernel; forced only) --------------
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads) batched_lu_noswap_kernel(const T* __restrict__ a, T* __restrict__ out,
                                          int* __restrict__ perm, int* __restrict__ info,
@@ -439,8 +454,11 @@ template <> struct Vec16<double> {
 
 // ---- warp route --------------------------------------------------------------
 // W lanes per matrix (16 or 32), NC columns held per lane (8, 16 or 32).
-// Trace phases: 0 step start, 1 pivot known, 2 rows exchanged,
-// 3 update done.
+// kSwap: the swap mode; without it the noswap mode (square matrices, rows in
+// physical order, the pivot row of step k written to perm[k] and the rows
+// written out in that order).
+// Trace phases: 0 step start, 1 pivot known, 2 rows exchanged (noswap: row
+// kp published), 3 update done.
 constexpr int kWarpThreads = 128;
 
 // Resident blocks per SM asked of the register allocator: at 32 f32
@@ -449,7 +467,7 @@ constexpr int kWarpThreads = 128;
 template <typename T, int NC>
 constexpr int warp_min_blocks() { return sizeof(T) == 4 && NC == 32 ? 6 : 1; }
 
-template <typename T, int W, int NC>
+template <typename T, int W, int NC, bool kSwap>
 __global__ void __launch_bounds__(kWarpThreads, warp_min_blocks<T, NC>()) batched_lu_warp_kernel(
     const T* __restrict__ a, T* __restrict__ out, int* __restrict__ ipiv,
     int* __restrict__ perm, int* __restrict__ info, int batch, int m, int n, int pivot) {
@@ -458,6 +476,10 @@ __global__ void __launch_bounds__(kWarpThreads, warp_min_blocks<T, NC>()) batche
   using VT = typename V::type;
   constexpr int G = kWarpThreads / W;  // matrices per block
   constexpr int VL = V::n;
+  // per group, the exchange buffers: two of (row k, row kp) in the swap
+  // mode, two of row kp in the noswap mode (double-buffered: one __syncwarp
+  // per step)
+  constexpr int XB = (kSwap ? 4 : 2) * NC;
   const int lane = threadIdx.x % W;    // the row this lane holds
   const int grp = threadIdx.x / W;
   const int half = (threadIdx.x & 31) / W;  // this group's half of the warp (W = 16)
@@ -465,10 +487,9 @@ __global__ void __launch_bounds__(kWarpThreads, warp_min_blocks<T, NC>()) batche
   const size_t mat = static_cast<size_t>(blockIdx.x) * G + grp;
   const bool live = mat < static_cast<size_t>(batch);
   const int ld = n | 1;  // odd: a lane-per-row walk hits distinct banks
-  // per group: two buffers of (row k, row kp) for the exchange, then the
-  // staging tile m x ld
-  T* xb = reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(grp) * 4 * NC;
-  T* st = reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(G) * 4 * NC +
+  // per group: the exchange buffers, then the staging tile m x ld
+  T* xb = reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(grp) * XB;
+  T* st = reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(G) * XB +
           static_cast<size_t>(grp) * m * ld;
   const int minmn = m < n ? m : n;
   const int count = m * n;
@@ -489,16 +510,21 @@ __global__ void __launch_bounds__(kWarpThreads, warp_min_blocks<T, NC>()) batche
 #pragma unroll
   for (int j = 0; j < NC; ++j) r[j] = (live && lane < m && j < n) ? st[lane * ld + j] : T(0);
 
+  // swap: my_piv = ipiv[lane], p = entry `lane` of the composed permutation;
+  // noswap: my_piv = the pivot row of step `lane`, used = this row is taken
   int info_v = 0, my_piv = 0;
-  int p = lane;  // entry `lane` of the composed permutation
+  int p = lane;
+  bool used = false;
 #pragma unroll
   for (int k = 0; k < NC; ++k) {
     if (k >= minmn) continue;  // no exit from the unrolled loop
     RF_STAMP(k, 0);
+    // the candidates: rows k.. (swap), or the rows not used yet (noswap)
+    const bool cand = kSwap ? (lane >= k && lane < m) : (!used && lane < m);
     int kp = k;
     if (pivot) {
       unsigned top;
-      const bool won = max_key(gmask, lane >= k && lane < m, r[k], top);
+      const bool won = max_key(gmask, cand, r[k], top);
       const unsigned who = (__ballot_sync(kFull, won) >> (W * half)) &
                            (W == 32 ? kFull : 0xffffu);
       kp = max_is_nan(top, T(0)) ? m - 1 : __ffs(who) - 1;
@@ -507,61 +533,95 @@ __global__ void __launch_bounds__(kWarpThreads, warp_min_blocks<T, NC>()) batche
     const bool nz = pv != T(0);
     if (!nz && info_v == 0) info_v = pivot ? k + 1 : -(k + 1);
     if (lane == k) my_piv = kp;
-    // the permutation swaps entries k and kp, zero pivot or not
-    const int psrc = lane == k ? kp : (lane == kp ? k : lane);
-    p = __shfl_sync(kFull, p, psrc, W);
-    RF_STAMP(k, 1);
-
-    // Rows k and kp go through shared memory: lane kp (when rows swap) reads
-    // row k and keeps its own old row as U; every other lane reads row kq,
-    // which is U (and row k's new content).
-    const bool sw = nz && kp != k;
-    const bool is_kp = sw && lane == kp;
-    const bool moves = lane == k || is_kp;
-    T* buf = xb + (k & 1) * 2 * NC;  // double-buffered: one __syncwarp per step
-    if (lane == k) {
-#pragma unroll
-      for (int c = 0; c < NC; c += VL) *reinterpret_cast<VT*>(buf + c) = V::make(r + c);
-    }
-    if (is_kp) {
-#pragma unroll
-      for (int c = 0; c < NC; c += VL) *reinterpret_cast<VT*>(buf + NC + c) = V::make(r + c);
-    }
-    __syncwarp();
-    RF_STAMP(k, 2);
-    const T* src = (sw && !is_kp) ? buf + NC : buf;
-    const bool below = lane > k && lane < m;
     const T rc = nz ? rcp_rn(pv) : T(1);
-    // selects, not branches: the lanes differ in every condition
     T l = T(0);
+    if constexpr (kSwap) {
+      // the permutation swaps entries k and kp, zero pivot or not
+      const int psrc = lane == k ? kp : (lane == kp ? k : lane);
+      p = __shfl_sync(kFull, p, psrc, W);
+      RF_STAMP(k, 1);
+
+      // Rows k and kp go through shared memory: lane kp (when rows swap)
+      // reads row k and keeps its own old row as U; every other lane reads
+      // row kq, which is U (and row k's new content).
+      const bool sw = nz && kp != k;
+      const bool is_kp = sw && lane == kp;
+      const bool moves = lane == k || is_kp;
+      T* buf = xb + (k & 1) * 2 * NC;
+      if (lane == k) {
 #pragma unroll
-    for (int c = 0; c < NC; c += VL) {
-      if (c + VL <= k) {
-        // columns before k: the interchange only (lanes k and kp)
-        if (moves) {
-          const VT v = *reinterpret_cast<const VT*>(src + c);
-#pragma unroll
-          for (int e = 0; e < VL; ++e) r[c + e] = V::get(v, e);
-        }
-        continue;
+        for (int c = 0; c < NC; c += VL) *reinterpret_cast<VT*>(buf + c) = V::make(r + c);
       }
-      const VT v = *reinterpret_cast<const VT*>(src + c);
+      if (is_kp) {
 #pragma unroll
-      for (int e = 0; e < VL; ++e) {
-        const int j = c + e;
-        const T x = V::get(v, e);
-        if (j < k) {
-          r[j] = moves ? x : r[j];
-        } else if (j == k) {
-          // column k: the interchange and the scale
-          const T y = moves ? x : r[k];
-          r[k] = (below && nz) ? rmul(y, rc) : y;
-          l = r[k];
-        } else {
-          const T u = is_kp ? r[j] : x;
-          const T y = moves ? x : r[j];
-          const T z = rsub(y, rmul(l, u));
-          r[j] = below ? z : y;
+        for (int c = 0; c < NC; c += VL) *reinterpret_cast<VT*>(buf + NC + c) = V::make(r + c);
+      }
+      __syncwarp();
+      RF_STAMP(k, 2);
+      const T* src = (sw && !is_kp) ? buf + NC : buf;
+      const bool below = lane > k && lane < m;
+      // selects, not branches: the lanes differ in every condition
+#pragma unroll
+      for (int c = 0; c < NC; c += VL) {
+        if (c + VL <= k) {
+          // columns before k: the interchange only (lanes k and kp)
+          if (moves) {
+            const VT v = *reinterpret_cast<const VT*>(src + c);
+#pragma unroll
+            for (int e = 0; e < VL; ++e) r[c + e] = V::get(v, e);
+          }
+          continue;
+        }
+        const VT v = *reinterpret_cast<const VT*>(src + c);
+#pragma unroll
+        for (int e = 0; e < VL; ++e) {
+          const int j = c + e;
+          const T x = V::get(v, e);
+          if (j < k) {
+            r[j] = moves ? x : r[j];
+          } else if (j == k) {
+            // column k: the interchange and the scale
+            const T y = moves ? x : r[k];
+            r[k] = (below && nz) ? rmul(y, rc) : y;
+            l = r[k];
+          } else {
+            const T u = is_kp ? r[j] : x;
+            const T y = moves ? x : r[j];
+            const T z = rsub(y, rmul(l, u));
+            r[j] = below ? z : y;
+          }
+        }
+      }
+    } else {
+      // every other row not used yet is eliminated (a NaN pins row m - 1
+      // even when it is used: then no row becomes used at this step)
+      const bool elim = cand && lane != kp;
+      used = used || lane == kp;
+      RF_STAMP(k, 1);
+      // row kp goes through shared memory, from the vector holding column k
+      T* buf = xb + (k & 1) * NC;
+      if (lane == kp) {
+#pragma unroll
+        for (int c = 0; c < NC; c += VL) {
+          if (c + VL > k) *reinterpret_cast<VT*>(buf + c) = V::make(r + c);
+        }
+      }
+      __syncwarp();
+      RF_STAMP(k, 2);
+#pragma unroll
+      for (int c = 0; c < NC; c += VL) {
+        if (c + VL <= k) continue;  // columns before k stay
+        const VT v = *reinterpret_cast<const VT*>(buf + c);
+#pragma unroll
+        for (int e = 0; e < VL; ++e) {
+          const int j = c + e;
+          if (j == k) {
+            r[k] = (elim && nz) ? rmul(r[k], rc) : r[k];
+            l = r[k];
+          } else if (j > k) {
+            const T z = rsub(r[j], rmul(l, V::get(v, e)));
+            r[j] = elim ? z : r[j];
+          }
         }
       }
     }
@@ -575,14 +635,31 @@ __global__ void __launch_bounds__(kWarpThreads, warp_min_blocks<T, NC>()) batche
     }
   }
   __syncwarp();
-  if (live) {
-    for (int e = lane; e < count; e += W) {
-      const int i = e / n, j = e - i * n;
-      out[base + e] = st[i * ld + j];
+  if constexpr (kSwap) {
+    if (live) {
+      for (int e = lane; e < count; e += W) {
+        const int i = e / n, j = e - i * n;
+        out[base + e] = st[i * ld + j];
+      }
+      if (lane < minmn) ipiv[mat * minmn + lane] = my_piv;
+      if (perm != nullptr && lane < m) perm[mat * m + lane] = p;
+      if (lane == 0) info[mat] = info_v;
     }
-    if (lane < minmn) ipiv[mat * minmn + lane] = my_piv;
-    if (perm != nullptr && lane < m) perm[mat * m + lane] = p;
-    if (lane == 0) info[mat] = info_v;
+  } else {
+    // rows leave in pivot order, out[i] = row prow[i], gathered from the
+    // staging tile (a row picked twice by the NaN rule is written twice);
+    // the exchange buffers, free now, hold prow
+    int* prow = reinterpret_cast<int*>(xb);
+    if (lane < n) prow[lane] = my_piv;
+    __syncwarp();
+    if (live) {
+      for (int e = lane; e < count; e += W) {
+        const int i = e / n, j = e - i * n;
+        out[base + e] = st[prow[i] * ld + j];
+      }
+      if (lane < n) perm[mat * n + lane] = my_piv;
+      if (lane == 0) info[mat] = info_v;
+    }
   }
   RF_TRACE_END(minmn);
 }
@@ -841,6 +918,220 @@ __global__ void __launch_bounds__(BT * BT, block_min_blocks<T, BT>()) batched_lu
   RF_TRACE_END(minmn);
 }
 
+// ---- block route, noswap mode ----------------------------------------------------
+// The swap route's grid and register tile on a square matrix whose rows stay
+// in physical order.  A row leaves the update when it becomes the pivot row,
+// wherever it lies, so every row slot stays in the update (only the column
+// slots before ks drop out), each under a used flag: bit i of `used` for row
+// ty + BT i (rows past n start used).  Row kp's columns are published from
+// its runtime slot as on the swap route; nothing is interchanged.  The rows
+// leave in pivot order: row r goes to out[inv[r]], row n - 1 (which the NaN
+// rule may pick at several steps) to every step that picked it.  Trace
+// phases as on the swap route.
+
+// Shared-memory layout (see block_smem_bytes): urow, lcol (BT S
+// each), the candidates' values (BT), a[n - 1, k] (1), then as ints the
+// candidates' rows (BT), the pivot row of each step (BT S, kept by thread 0)
+// and, at the end, the step of each row (BT S).
+template <typename T, int BT, int S>
+struct NoswapSmem {
+  T* urow;   // row kp from column slot ks on
+  T* lcol;   // the multipliers of the step (rows being eliminated)
+  T* cval;   // per thread row: its best candidate, signed
+  T* clast;  // a[n - 1, k]: the pivot when a NaN wins
+  int* cidx;
+  int* prow;
+  int* inv;
+  __device__ NoswapSmem(unsigned char* raw) {
+    urow = reinterpret_cast<T*>(raw);
+    lcol = urow + BT * S;
+    cval = lcol + BT * S;
+    clast = cval + BT;
+    cidx = reinterpret_cast<int*>(clast + 1);
+    prow = cidx + BT;
+    inv = prow + BT * S;
+  }
+};
+
+// The candidates of column c, held in col[i] for the rows ty + BT i of a
+// thread with tx == c % BT: per thread row the best of its rows not used yet
+// (row c alone without pivoting).  Rows ascend with the slot, so a strictly
+// larger key keeps the smallest row among equals (and any NaN beats every
+// number).  Also publishes a[n - 1, c] from the thread row holding it.
+template <typename T, int BT, int S>
+__device__ __forceinline__ void noswap_candidates(const NoswapSmem<T, BT, S>& sm, const T (&col)[S],
+                                                  unsigned used, int pivot, int c, int ty,
+                                                  int lrow, int lslot) {
+  T cb = T(0), last = T(0);
+  int ci = INT_MAX;
+  unsigned long long kb = 0;
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const int row = ty + BT * i;
+    const bool ok = pivot ? !((used >> i) & 1u) : row == c;
+    const unsigned long long key = order_key(col[i]);
+    if (ok && (ci == INT_MAX || key > kb)) { cb = col[i]; ci = row; kb = key; }
+    if (i == lslot) last = col[i];
+  }
+  sm.cval[ty] = cb;
+  sm.cidx[ty] = ci;
+  if (ty == lrow) sm.clast[0] = last;
+}
+
+template <typename T, int BT, int S>
+__global__ void __launch_bounds__(BT * BT, block_min_blocks<T, BT>()) batched_lu_block_noswap_kernel(
+    const T* __restrict__ a, T* __restrict__ out, int* __restrict__ /*ipiv*/,
+    int* __restrict__ perm, int* __restrict__ info, int /*batch*/, int /*m*/, int n, int pivot) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int NT = BT * BT;
+  static_assert(NT % 32 == 0, "the block route needs whole warps");
+  static_assert(S <= 32, "one used bit per row slot");
+  NoswapSmem<T, BT, S> sm(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int ty = tid / BT, tx = tid % BT;
+  const size_t mat = blockIdx.x;
+  const size_t base = mat * n * n;
+  const int lrow = (n - 1) % BT, lslot = (n - 1) / BT;  // where row n - 1 lives
+  RF_TRACE_BEGIN(n);
+
+  T x[S][S];
+  unsigned used = 0;
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const int row = ty + BT * i;
+    if (row >= n) used |= 1u << i;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const int col = tx + BT * j;
+      x[i][j] = (row < n && col < n) ? a[base + static_cast<size_t>(row) * n + col] : T(0);
+    }
+  }
+  if (tx == 0) {
+    T col[S];
+#pragma unroll
+    for (int i = 0; i < S; ++i) col[i] = x[i][0];
+    noswap_candidates<T, BT, S>(sm, col, used, pivot, 0, ty, lrow, lslot);
+  }
+  int info_v = 0;  // kept by thread 0
+
+#pragma unroll
+  for (int ks = 0; ks < S; ++ks) {
+    for (int kk = 0; kk < BT; ++kk) {
+      const int k = ks * BT + kk;
+      if (k >= n) break;
+      RF_STAMP(k, 0);
+      __syncthreads();  // the candidates of column k are published
+      RF_STAMP(k, 1);
+
+      // ---- the pivot: every warp reduces the BT candidates itself ---------
+      const T cv = sm.cval[lane % BT];
+      const int cr = sm.cidx[lane % BT];
+      unsigned top;
+      const bool won = max_key(kFull, cr != INT_MAX, cv, top);
+      const int bi = static_cast<int>(__reduce_min_sync(kFull, won ? static_cast<unsigned>(cr)
+                                                                   : 0xffffffffu));
+      const bool nanwin = pivot && max_is_nan(top, T(0));
+      const int kp = nanwin ? n - 1 : bi;
+      const int kpr = kp % BT, kps = kp / BT;  // kp's thread row and slot (any)
+      const T pv = nanwin ? sm.clast[0] : sm.cval[kpr];
+      const bool nz = pv != T(0);
+      const T rc = nz ? rcp_rn(pv) : T(1);
+      if (tid == 0) {
+        sm.prow[k] = kp;
+        if (!nz && info_v == 0) info_v = pivot ? k + 1 : -(k + 1);
+      }
+      // from here on "not used" means: eliminated at this step (a NaN pins
+      // row n - 1 even when it is used: then no row becomes used)
+      if (ty == kpr) used |= 1u << kps;
+      RF_STAMP(k, 2);
+
+      // ---- publish row kp and the multipliers ------------------------------
+      if (ty == kpr) {
+#pragma unroll
+        for (int j = ks; j < S; ++j) {
+          T v = x[0][j];
+#pragma unroll
+          for (int i = 1; i < S; ++i) {
+            if (i == kps) v = x[i][j];
+          }
+          sm.urow[tx + BT * j] = v;
+        }
+      }
+      if (tx == kk) {
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+          if (!((used >> i) & 1u)) {
+            const T l = nz ? rmul(x[i][ks], rc) : x[i][ks];
+            x[i][ks] = l;
+            sm.lcol[ty + BT * i] = l;
+          }
+        }
+      }
+      RF_STAMP(k, 3);
+      __syncthreads();
+      RF_STAMP(k, 4);
+
+      // ---- update, next candidates -----------------------------------------
+      T u[S];
+#pragma unroll
+      for (int j = ks; j < S; ++j) u[j] = sm.urow[tx + BT * j];
+      const bool col_in = tx > kk;
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        const bool el = !((used >> i) & 1u);
+        const T l = sm.lcol[ty + BT * i];
+#pragma unroll
+        for (int j = ks; j < S; ++j) {
+          const T z = rsub(x[i][j], rmul(l, u[j]));
+          const bool in = el && (j > ks || col_in);
+          x[i][j] = in ? z : x[i][j];
+        }
+      }
+      const int k1 = k + 1;
+      if (k1 < n && tx == k1 % BT) {
+        const bool next_slot = kk + 1 == BT;
+        T col[S];
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+          col[i] = x[i][ks];
+          if (ks + 1 < S && next_slot) col[i] = x[i][ks + 1 < S ? ks + 1 : ks];
+        }
+        noswap_candidates<T, BT, S>(sm, col, used, pivot, k1, ty, lrow, lslot);
+      }
+      RF_STAMP(k, 5);
+    }
+  }
+
+  // ---- rows out in pivot order -----------------------------------------------
+  __syncthreads();  // thread 0's last pivot row
+  for (int r = tid; r < n; r += NT) sm.inv[r] = -1;
+  __syncthreads();
+  for (int q = tid; q < n; q += NT) {
+    const int r = sm.prow[q];
+    if (r != n - 1) sm.inv[r] = q;
+    perm[mat * n + q] = r;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const int row = ty + BT * i;
+    if (row >= n) continue;
+    // the steps that picked this row: inv[row], or (row n - 1) each q with
+    // prow[q] == n - 1
+    const bool last = row == n - 1;
+    for (int q = last ? 0 : sm.inv[row]; q >= 0 && q < n; q = last ? q + 1 : n) {
+      if (last && sm.prow[q] != row) continue;
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        const int col = tx + BT * j;
+        if (col < n) out[base + static_cast<size_t>(q) * n + col] = x[i][j];
+      }
+    }
+  }
+  if (tid == 0) info[mat] = info_v;
+  RF_TRACE_END(n);
+}
+
 // Threads of a block and lanes per row of the update, from the shape: about
 // 16 tile entries per thread, between 2 and 32 warps; a row of the update
 // gets as many lanes as it has columns, up to a warp.
@@ -858,10 +1149,12 @@ size_t smem_bytes(int m, int n, size_t elem) {
   return (static_cast<size_t>(m) * (n + 1) + m) * elem + 8 * static_cast<size_t>(m);
 }
 
-// ---- the swap mode's routes --------------------------------------------------
+// ---- routes --------------------------------------------------------------------
+// Both modes take the same three routes by shape; the noswap mode's matrices
+// are square (m == n).
 enum Route { kAuto = 0, kWarp = 1, kBlock = 2, kTile = 3 };
 
-int swap_route(int m, int n) {
+int own_route(int m, int n) {
   if (m <= 32 && n <= 32) return kWarp;
   if (m <= 128 && n <= 128) return kBlock;
   return kTile;
@@ -882,38 +1175,57 @@ void block_grid(int m, int n, int* bt, int* s) {
   *s = big <= 48 ? 6 : (big <= 64 ? 8 : (big <= 96 ? 6 : 8));
 }
 
-size_t warp_smem_bytes(int m, int n, size_t elem) {
+size_t warp_smem_bytes(bool swap, int m, int n, size_t elem) {
   const size_t g = kWarpThreads / warp_lanes(m);
-  return g * (4 * static_cast<size_t>(warp_cols(n)) + static_cast<size_t>(m) * (n | 1)) * elem;
+  const size_t xb = (swap ? 4 : 2) * static_cast<size_t>(warp_cols(n));
+  return g * (xb + static_cast<size_t>(m) * (n | 1)) * elem;
 }
 
-size_t block_smem_bytes(int m, int n, size_t elem) {
+size_t block_smem_bytes(bool swap, int m, int n, size_t elem) {
   int bt = 0, s = 0;
   block_grid(m, n, &bt, &s);
   const size_t cap = static_cast<size_t>(bt) * s;
-  return (3 * cap + bt + 2) * elem + 4 * (bt + cap);
+  if (swap) return (3 * cap + bt + 2) * elem + 4 * (bt + cap);
+  return (2 * cap + bt + 1) * elem + 4 * (bt + 2 * cap);
 }
 
 template <typename T>
 using LuKernel = void (*)(const T*, T*, int*, int*, int*, int, int, int, int);
 
 template <typename T, int W>
-LuKernel<T> warp_kernel_w(int nc) {
-  if (nc == 8) return batched_lu_warp_kernel<T, W, 8>;
-  if (nc == 16) return batched_lu_warp_kernel<T, W, 16>;
-  return batched_lu_warp_kernel<T, W, 32>;
+LuKernel<T> swap_warp_kernel(int nc) {
+  if (nc == 8) return batched_lu_warp_kernel<T, W, 8, true>;
+  if (nc == 16) return batched_lu_warp_kernel<T, W, 16, true>;
+  return batched_lu_warp_kernel<T, W, 32, true>;
+}
+
+template <typename T, bool kSwap>
+LuKernel<T> warp_kernel(int w, int nc) {
+  if constexpr (!kSwap) {
+    // square: 16 lanes hold at most 16 columns, 32 lanes more than 16
+    if (w == 16) return nc == 8 ? batched_lu_warp_kernel<T, 16, 8, false>
+                                : batched_lu_warp_kernel<T, 16, 16, false>;
+    return batched_lu_warp_kernel<T, 32, 32, false>;
+  }
+  return w == 16 ? swap_warp_kernel<T, 16>(nc) : swap_warp_kernel<T, 32>(nc);
+}
+
+template <typename T, int BT, int S>
+LuKernel<T> block_kernel_mode(bool swap) {
+  return swap ? batched_lu_block_kernel<T, BT, S> : batched_lu_block_noswap_kernel<T, BT, S>;
 }
 
 template <typename T>
-LuKernel<T> block_kernel(int bt, int s) {
-  if (bt == 8) return s == 6 ? batched_lu_block_kernel<T, 8, 6> : batched_lu_block_kernel<T, 8, 8>;
-  return s == 6 ? batched_lu_block_kernel<T, 16, 6> : batched_lu_block_kernel<T, 16, 8>;
+LuKernel<T> block_kernel(bool swap, int bt, int s) {
+  if (bt == 8) return s == 6 ? block_kernel_mode<T, 8, 6>(swap) : block_kernel_mode<T, 8, 8>(swap);
+  return s == 6 ? block_kernel_mode<T, 16, 6>(swap) : block_kernel_mode<T, 16, 8>(swap);
 }
 
-// What a launch of `route` (kAuto: the shape's own) does with (m, n):
-// the kernel, threads per block, matrices per block and dynamic shared memory.
+// What a launch of `route` (kAuto: the shape's own) does with (m, n) in
+// either mode: the kernel, threads per block, matrices per block and dynamic
+// shared memory.
 template <typename T>
-struct SwapPlan {
+struct LuPlan {
   int route = 0, threads = 0, per_block = 1, lw = 0, cap = 0;
   size_t smem = 0;
   const void* fn = nullptr;
@@ -921,40 +1233,44 @@ struct SwapPlan {
 };
 
 template <typename T>
-SwapPlan<T> swap_plan(int m, int n, int route) {
-  SwapPlan<T> p;
-  p.route = route == kAuto ? swap_route(m, n) : route;
+LuPlan<T> lu_plan(bool swap, int m, int n, int route) {
+  LuPlan<T> p;
+  p.route = route == kAuto ? own_route(m, n) : route;
   if (p.route == kWarp) {
     const int w = warp_lanes(m);
     p.cap = warp_cols(n);
-    p.rk = w == 16 ? warp_kernel_w<T, 16>(p.cap) : warp_kernel_w<T, 32>(p.cap);
+    p.rk = swap ? warp_kernel<T, true>(w, p.cap) : warp_kernel<T, false>(w, p.cap);
     p.threads = kWarpThreads;
     p.per_block = kWarpThreads / w;
-    p.smem = warp_smem_bytes(m, n, sizeof(T));
+    p.smem = warp_smem_bytes(swap, m, n, sizeof(T));
     p.fn = reinterpret_cast<const void*>(p.rk);
   } else if (p.route == kBlock) {
     int bt = 0, s = 0;
     block_grid(m, n, &bt, &s);
     p.cap = bt * s;
-    p.rk = block_kernel<T>(bt, s);
+    p.rk = block_kernel<T>(swap, bt, s);
     p.threads = bt * bt;
-    p.smem = block_smem_bytes(m, n, sizeof(T));
+    p.smem = block_smem_bytes(swap, m, n, sizeof(T));
     p.fn = reinterpret_cast<const void*>(p.rk);
   } else {
     block_shape(m, n, &p.threads, &p.lw);
     p.smem = smem_bytes(m, n, sizeof(T));
-    p.fn = reinterpret_cast<const void*>(batched_lu_swap_kernel<T>);
+    p.fn = swap ? reinterpret_cast<const void*>(batched_lu_swap_kernel<T>)
+                : reinterpret_cast<const void*>(batched_lu_noswap_kernel<T>);
   }
   return p;
 }
 
+// One launch in either mode.  The noswap mode writes the pivot rows to
+// `perm` and takes no ipiv.
 template <typename T>
-int launch_swap(const void* a, void* out, void* ipiv, void* perm, void* info,
-                int batch, int m, int n, int pivot, int route, int smem_given,
-                int device, void* stream) {
-  if (batch < 1 || m < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+int launch_lu(bool swap, const void* a, void* out, void* ipiv, void* perm, void* info,
+              int batch, int m, int n, int pivot, int route, int smem_given,
+              int device, void* stream) {
+  if (batch < 1 || m < 1 || n < 1 || (!swap && m != n))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (route != kAuto && !route_takes(route, m, n)) return static_cast<int>(cudaErrorInvalidValue);
-  const SwapPlan<T> p = swap_plan<T>(m, n, route);
+  const LuPlan<T> p = lu_plan<T>(swap, m, n, route);
   int err = prepare(p.fn, device, p.smem, smem_given);
   if (err != 0) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -966,9 +1282,12 @@ int launch_swap(const void* a, void* out, void* ipiv, void* perm, void* info,
   if (p.rk != nullptr) {
     const int grid = (batch + p.per_block - 1) / p.per_block;
     p.rk<<<dim3(grid), dim3(p.threads), p.smem, st>>>(A, O, ip, pe, in, batch, m, n, pivot);
-  } else {
+  } else if (swap) {
     batched_lu_swap_kernel<T><<<dim3(batch), dim3(p.threads), p.smem, st>>>(
         A, O, ip, pe, in, m, n, pivot, p.lw);
+  } else {
+    batched_lu_noswap_kernel<T><<<dim3(batch), dim3(p.threads), p.smem, st>>>(
+        A, O, pe, in, n, pivot, p.lw);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -976,12 +1295,12 @@ int launch_swap(const void* a, void* out, void* ipiv, void* perm, void* info,
 // out[0..9]: route, threads, matrices per block, dynamic shared memory,
 // resident blocks per SM, registers per thread, local memory per thread
 // (bytes: spills and stack), static shared memory, column capacity (warp
-// route) or tile rows (block route, 16 S), max threads per block
+// route) or tile rows (block route, BT S), max threads per block
 template <typename T>
-int plan_swap(int m, int n, int route, int device, int* out) {
-  if (m < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+int plan_lu(bool swap, int m, int n, int route, int device, int* out) {
+  if (m < 1 || n < 1 || (!swap && m != n)) return static_cast<int>(cudaErrorInvalidValue);
   if (route != kAuto && !route_takes(route, m, n)) return static_cast<int>(cudaErrorInvalidValue);
-  const SwapPlan<T> p = swap_plan<T>(m, n, route);
+  const LuPlan<T> p = lu_plan<T>(swap, m, n, route);
   int err = prepare(p.fn, device, p.smem, static_cast<int>(p.smem));
   if (err != 0) return err;
   cudaFuncAttributes at;
@@ -1003,29 +1322,13 @@ int plan_swap(int m, int n, int route, int device, int* out) {
   return 0;
 }
 
-template <typename T>
-int launch_noswap(const void* a, void* out, void* perm, void* info, int batch,
-                  int n, int pivot, int smem_given, int device, void* stream) {
-  if (batch < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(n, n, sizeof(T));
-  int err = prepare(reinterpret_cast<const void*>(batched_lu_noswap_kernel<T>), device, smem, smem_given);
-  if (err != 0) return err;
-  int threads = 0, lw = 0;
-  block_shape(n, n, &threads, &lw);
-  batched_lu_noswap_kernel<T><<<dim3(batch), dim3(threads), smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<T*>(out), static_cast<int*>(perm),
-      static_cast<int*>(info), n, pivot, lw);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
 
 // Factor `batch` row-major (m, n) matrices at `a` into `out` (another buffer
 // than `a`) on `stream`.  ipiv (batch, min(m, n)), perm (batch, m) or null, info
-// (batch,), all int32.  `route` 0 takes the shape's own route (swap_route),
+// (batch,), all int32.  `route` 0 takes the shape's own route (own_route),
 // 1 / 2 / 3 force the warp / block / tile route (refused where the route
 // does not take the shape).  `smem` is the caller's count of dynamic shared
 // memory for that route and must equal the kernel's.  Returns a cudaError_t
@@ -1034,49 +1337,57 @@ extern "C" {
 int rf_batched_lu_swap_f32(const void* a, void* out, void* ipiv, void* perm,
                            void* info, int batch, int m, int n, int pivot,
                            int route, int smem, int device, void* stream) {
-  return launch_swap<float>(a, out, ipiv, perm, info, batch, m, n, pivot, route,
-                            smem, device, stream);
+  return launch_lu<float>(true, a, out, ipiv, perm, info, batch, m, n, pivot, route,
+                          smem, device, stream);
 }
 
 int rf_batched_lu_swap_f64(const void* a, void* out, void* ipiv, void* perm,
                            void* info, int batch, int m, int n, int pivot,
                            int route, int smem, int device, void* stream) {
-  return launch_swap<double>(a, out, ipiv, perm, info, batch, m, n, pivot, route,
-                             smem, device, stream);
+  return launch_lu<double>(true, a, out, ipiv, perm, info, batch, m, n, pivot, route,
+                           smem, device, stream);
 }
 
 // The launch plan of the swap mode for (m, n) of `elem` bytes (4 or 8) under
 // `route` (as above), with the kernel's resources and occupancy on `device`:
-// out[10] as plan_swap says.
+// out[10] as plan_lu says.
 int rf_batched_lu_swap_plan(int m, int n, int elem, int route, int device, int* out) {
-  if (elem == 8) return plan_swap<double>(m, n, route, device, out);
-  if (elem == 4) return plan_swap<float>(m, n, route, device, out);
+  if (elem == 8) return plan_lu<double>(true, m, n, route, device, out);
+  if (elem == 4) return plan_lu<float>(true, m, n, route, device, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The same for square (n, n) matrices in physical order; perm (batch, n).
+// The same for square (n, n) matrices in physical order: perm (batch, n)
+// receives the pivot row of each step, and the factors leave in that order.
+// The routes are the swap mode's (warp n <= 32, block n <= 128, tile).
 int rf_batched_lu_noswap_f32(const void* a, void* out, void* perm, void* info,
-                             int batch, int n, int pivot, int smem, int device,
+                             int batch, int n, int pivot, int route, int smem, int device,
                              void* stream) {
-  return launch_noswap<float>(a, out, perm, info, batch, n, pivot, smem, device,
-                              stream);
+  return launch_lu<float>(false, a, out, nullptr, perm, info, batch, n, n, pivot, route,
+                          smem, device, stream);
 }
 
 int rf_batched_lu_noswap_f64(const void* a, void* out, void* perm, void* info,
-                             int batch, int n, int pivot, int smem, int device,
+                             int batch, int n, int pivot, int route, int smem, int device,
                              void* stream) {
-  return launch_noswap<double>(a, out, perm, info, batch, n, pivot, smem, device,
-                               stream);
+  return launch_lu<double>(false, a, out, nullptr, perm, info, batch, n, n, pivot, route,
+                           smem, device, stream);
+}
+
+int rf_batched_lu_noswap_plan(int n, int elem, int route, int device, int* out) {
+  if (elem == 8) return plan_lu<double>(false, n, n, route, device, out);
+  if (elem == 4) return plan_lu<float>(false, n, n, route, device, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 #ifdef RF_BATCHED_TRACE
-// Phase trace of the swap routes, for measurement (trace build only): with
-// `buf` non-null every later swap launch writes, from thread 0 of block 0
-// (the first matrix), clock64() stamps into buf[8 * step + phase] (the
-// phases of each route are listed above its kernel) and into
+// Phase trace, for measurement (trace build only): with `buf` non-null every
+// later launch of the warp or block route (either mode) writes, from thread 0
+// of block 0 (the first matrix), clock64() stamps into buf[8 * step + phase]
+// (the phases of each route are listed above its kernel) and into
 // buf[8 * min(m, n) + {0, 1, 2, 3}] the kernel's first %globaltimer (ns),
-// clock64(), last %globaltimer, clock64().  buf holds int64s on the device;
-// null turns the trace off.
+// clock64(), last %globaltimer, clock64(); the swap mode's tile route too.
+// buf holds int64s on the device; null turns the trace off.
 int rf_batched_lu_set_trace(void* buf) {
   long long* p = static_cast<long long*>(buf);
   return static_cast<int>(cudaMemcpyToSymbol(g_trace, &p, sizeof(p)));

@@ -27,7 +27,7 @@ SOURCES = {
     for name in ("panel_lu", "panel_lu_c64", "panel_lu_micro",
                  "panel_lu_noswap", "batched_lu", "batched_solve")
 }
-# a second build of csrc/batched_lu.cu whose swap kernels stamp a phase
+# a second build of csrc/batched_lu.cu whose kernels stamp a phase
 # trace (rf_batched_lu_set_trace), for measurement only; the package's
 # wrappers never load it
 SOURCES["batched_lu_trace"] = SOURCES["batched_lu"]
@@ -61,7 +61,8 @@ _PANEL_BC = (_I, [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P])
 _PANEL_OFS_BC = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P])
 # a, out, ipiv, perm, info, batch, m, n, pivot, route, smem, device, stream
 _BATCHED_SWAP = (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
-_BATCHED_NOSWAP = (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+# a, out, perm, info, batch, n, pivot, route, smem, device, stream
+_BATCHED_NOSWAP = (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 # f, b, x, perm, ipiv, batch, n, nrhs, route, smem, device, stream
 _BATCHED_SOLVE = (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 _BATCHED_LU = {
@@ -71,6 +72,8 @@ _BATCHED_LU = {
     "rf_batched_lu_swap_plan": (_I, [_I, _I, _I, _I, _I, _P]),
     "rf_batched_lu_noswap_f32": _BATCHED_NOSWAP,
     "rf_batched_lu_noswap_f64": _BATCHED_NOSWAP,
+    # n, elem, route, device, out[10]
+    "rf_batched_lu_noswap_plan": (_I, [_I, _I, _I, _I, _P]),
     "rf_error_string": (ctypes.c_char_p, [_I]),
 }
 # C signatures: name -> (restype, argtypes)
@@ -116,6 +119,8 @@ SIGNATURES = {
     "batched_solve": {
         "rf_batched_solve_f32": _BATCHED_SOLVE,
         "rf_batched_solve_f64": _BATCHED_SOLVE,
+        # n, nrhs, elem, route, device, out[10]
+        "rf_batched_solve_plan": (_I, [_I, _I, _I, _I, _I, _P]),
         "rf_error_string": (ctypes.c_char_p, [_I]),
     },
 }

@@ -17,14 +17,20 @@ csrc/batched_solve.cu):
   eliminated in physical order under a ``used`` mask and put into pivot
   order once at the end (the noswap mode of ``_lane_kernel``); pivot ties
   break by physical row, so on exact ties its permutation may differ
-  from LAPACK's;
+  from LAPACK's, and a NaN candidate selects row n - 1 even when that row
+  is used; on the card the same kernels as the swap mode in their noswap
+  mode (:func:`noswap_route`): the warp route at n <= 32 (lane i keeps
+  physical row i), the register-tiled block route up to 128 (a used bit
+  per row slot), the shared-memory tile only when forced;
 * :func:`batched_solve` -- unit-lower forward then upper backward
   substitution (``_lane_solve_kernel``) on right-hand sides in pivot
   order: already there, or brought there from the factorization's
   ``perm`` or ``ipiv``, which the Hopper kernel does itself; on the card
   one of two kernels by shape (:func:`solve_route`): a warp per matrix
-  with its factor rows in registers at n <= 32, a block per matrix with
-  the factors in shared memory beyond.
+  with its factor rows in registers at n <= 32, a warp per matrix with
+  rows l + 32 r of x in lane l and the factors streamed through shared
+  memory 32 columns at a time up to 128; the original block per matrix only
+  when forced.
 
 A CPU tensor goes to the plain version, a CUDA tensor launches the
 kernel or raises; there is no fallback between the two.
@@ -90,6 +96,12 @@ def _block_grid(m: int, n: int) -> Tuple[int, int]:
     return 16, (6 if big <= 96 else 8)
 
 
+def _warp_grid(m: int, n: int) -> Tuple[int, int]:
+    """The warp route's lanes per matrix and columns held per lane
+    (csrc/batched_lu.cu warp_lanes, warp_cols)."""
+    return (16 if m <= 16 else 32), (8 if n <= 8 else 16 if n <= 16 else 32)
+
+
 def lu_route(m: int, n: int) -> str:
     """The route the swap kernel takes for (m, n) matrices."""
     if m <= WARP_MAX_N and n <= WARP_MAX_N:
@@ -104,14 +116,29 @@ def _route_takes(route: str, m: int, n: int) -> bool:
     return route in LU_ROUTES and LU_ROUTES.index(route) >= LU_ROUTES.index(lu_route(m, n))
 
 
+# The noswap kernel takes the swap kernel's routes on its square (n, n)
+# matrices (csrc/batched_lu.cu, the same kernel functions in their noswap
+# mode): "warp" at n <= 32, "block" up to 128, and "tile" (the original
+# shared-memory kernel) only when forced.
+
+
+def noswap_route(n: int) -> str:
+    """The route the noswap kernel takes for (n, n) matrices."""
+    return lu_route(n, n)
+
+
 # The solve kernel's routes (csrc/batched_solve.cu), by shape:
 #   "warp"   n <= 32: 8, 16 or 32 lanes per matrix (the fewest that hold n),
 #            row i of the factors and of x in lane i's registers, four
 #            warps per block;
-#   "block"  the rest (and any n when forced): one block per matrix, the
+#   "wide"   32 < n <= 128: a warp per matrix, rows l + 32 r of x in lane
+#            l's registers, the factors through a shared-memory tile of 32
+#            columns at a time; 1, 2 or 4 warps per block;
+#   "block"  any n when forced (the original design): one block per matrix, the
 #            factors and the right-hand sides in shared memory.
-SOLVE_ROUTES = ("warp", "block")
+SOLVE_ROUTES = ("warp", "block", "wide")
 SOLVE_WARP_MAX_N = 32
+SOLVE_WIDE_LD = 33
 
 
 def solve_route(n: int, nrhs: int) -> str:
@@ -119,8 +146,34 @@ def solve_route(n: int, nrhs: int) -> str:
     right-hand sides: the warp route at n <= 32 whatever nrhs (it takes
     them four at a time; with 8 of them it still took a quarter to a
     third of the block route's time at n = 16 and 32 on the H100,
-    PERF.md), the block route beyond."""
-    return "warp" if n <= SOLVE_WARP_MAX_N else "block"
+    PERF.md), the wide route up to 128 (four at a time as well), the
+    block route beyond (no shape the kernels take)."""
+    if n <= SOLVE_WARP_MAX_N:
+        return "warp"
+    return "wide" if n <= KERNEL_MAX_N else "block"
+
+
+def _solve_route_takes(route: str, n: int) -> bool:
+    if route == "warp":
+        return n <= SOLVE_WARP_MAX_N
+    if route == "wide":
+        return SOLVE_WARP_MAX_N < n <= KERNEL_MAX_N
+    return route == "block"
+
+
+def wide_group(n: int, itemsize: int) -> int:
+    """Matrices (warps) per block of the solve's wide route
+    (csrc/batched_solve.cu wide_group): 1, 2 or 4, whichever leaves the
+    most warps resident per SM by the n x 33 tile each one holds (32
+    blocks, 64 warps and 228 KB of shared memory per SM, 1 KB of it per
+    block kept by the runtime); the fewest on a tie."""
+    tile = n * SOLVE_WIDE_LD * itemsize
+    best, best_warps = 1, 0
+    for g in (1, 2, 4):
+        warps = min(64, min(32, 233472 // (g * tile + 1024)) * g)
+        if warps > best_warps:
+            best, best_warps = g, warps
+    return best
 
 
 def _solve_lanes(n: int) -> int:
@@ -140,8 +193,7 @@ def lu_smem_bytes(m: int, n: int, itemsize: int, route: Optional[str] = None) ->
     kernel refuses a launch whose count differs from its own."""
     route = route or lu_route(m, n)
     if route == "warp":
-        lanes = 16 if m <= 16 else 32
-        cols = 8 if n <= 8 else 16 if n <= 16 else 32
+        lanes, cols = _warp_grid(m, n)
         # per matrix (128 / lanes per block): two (row k, row kp) exchange
         # buffers of the column capacity, and the m x (n | 1) staging tile
         return (_WARP_THREADS // lanes) * (4 * cols + m * (n | 1)) * itemsize
@@ -154,16 +206,39 @@ def lu_smem_bytes(m: int, n: int, itemsize: int, route: Optional[str] = None) ->
     return tile_smem_bytes(m, n, itemsize)
 
 
+def noswap_smem_bytes(n: int, itemsize: int, route: Optional[str] = None) -> int:
+    """Dynamic shared memory of one noswap-kernel block for (n, n)
+    matrices under ``route`` (default: :func:`noswap_route`).  The warp
+    route: per matrix two row-kp exchange buffers of the column capacity
+    and the n x (n | 1) staging tile.  The block route: row kp, the
+    multipliers, the candidates' values and a[n - 1, k]; the candidates'
+    rows, the pivot row of each step and the step of each row.  The tile
+    route: :func:`tile_smem_bytes`."""
+    route = route or noswap_route(n)
+    if route == "warp":
+        lanes, cols = _warp_grid(n, n)
+        return (_WARP_THREADS // lanes) * (2 * cols + n * (n | 1)) * itemsize
+    if route == "block":
+        side, slots = _block_grid(n, n)
+        cap = side * slots
+        return (2 * cap + side + 1) * itemsize + 4 * (side + 2 * cap)
+    return tile_smem_bytes(n, n, itemsize)
+
+
 def solve_smem_bytes(n: int, nrhs: int, itemsize: int, route: Optional[str] = None) -> int:
     """Dynamic shared memory of one solve block under ``route`` (default:
-    the shape's own, :func:`solve_route`).  The
-    block route: the (n, n + 1) padded factor tile, the working
-    right-hand sides, the solution, and n int32 of perm or ipiv.  The
-    warp route: per matrix of the block (128 / lanes of them) the factors'
-    staging tile, n x (n | 1), whatever nrhs.  The kernel refuses a
-    launch whose count differs from its own."""
-    if (route or solve_route(n, nrhs)) == "warp":
+    the shape's own, :func:`solve_route`).  The block route: the (n, n +
+    1) padded factor tile, the working right-hand sides, the solution,
+    and n int32 of perm or ipiv.  The warp route: per matrix of the block
+    (128 / lanes of them) the factors' staging tile, n x (n | 1),
+    whatever nrhs.  The wide route: per matrix of the block
+    (:func:`wide_group`) an n x 33 tile, whatever nrhs.  The kernel
+    refuses a launch whose count differs from its own."""
+    route = route or solve_route(n, nrhs)
+    if route == "warp":
         return (128 // _solve_lanes(n)) * n * (n | 1) * itemsize
+    if route == "wide":
+        return wide_group(n, itemsize) * n * SOLVE_WIDE_LD * itemsize
     return (n * (n + 1) + 2 * n * nrhs) * itemsize + 4 * n
 
 
@@ -179,14 +254,14 @@ def lu_kernel_takes(dtype, m: int, n: int) -> bool:
 
 
 def solve_kernel_takes(dtype, n: int, nrhs: int) -> bool:
-    """Can the solve kernel run (n, n) factors with ``nrhs`` columns?
-    Both routes take every such shape up to their own n limit (the block
-    route's shared memory is the larger count)."""
+    """Can the solve kernel run (n, n) factors with ``nrhs`` columns on
+    their own route (:func:`solve_route`)?  The warp and wide routes hold
+    a tile of the factors only, so every nrhs fits."""
     return (
         dtype in _FLOATS
         and 0 < n <= KERNEL_MAX_N
         and nrhs > 0
-        and solve_smem_bytes(n, nrhs, dtype.itemsize, "block") <= SMEM_LIMIT
+        and solve_smem_bytes(n, nrhs, dtype.itemsize) <= SMEM_LIMIT
     )
 
 
@@ -460,39 +535,53 @@ def reset_lu_launches() -> None:
 
 
 def lu_plan(m: int, n: int, dtype=torch.float32, route: Optional[str] = None,
-            device=None) -> dict:
-    """The swap kernel's launch plan for (m, n) matrices of ``dtype`` on
-    a CUDA device: route, threads and matrices per block, dynamic shared
-    memory, and the compiled kernel's registers, local memory (spills)
-    and resident blocks per SM as the CUDA runtime reports them."""
+            device=None, swap: bool = True) -> dict:
+    """The launch plan of the swap kernel (``swap=False``: the noswap
+    kernel, m == n) for (m, n) matrices of ``dtype`` on a CUDA device:
+    route, threads and matrices per block, dynamic shared memory, and the
+    compiled kernel's registers, local memory (spills) and resident
+    blocks per SM as the CUDA runtime reports them."""
     route = route or lu_route(m, n)
-    if not _route_takes(route, m, n):
+    if not _route_takes(route, m, n) or not (swap or m == n):
         raise ValueError(f"lu_plan: route {route!r} does not take ({m}, {n})")
     dev = torch.device("cuda") if device is None else torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     lib = _kernels.load("batched_lu")
     out = (ctypes.c_int * 10)()
     itemsize = torch.empty((), dtype=dtype).element_size()
-    code = lib.rf_batched_lu_swap_plan(m, n, itemsize, LU_ROUTES.index(route) + 1, index,
-                                       ctypes.addressof(out))
+    r = LU_ROUTES.index(route) + 1
+    if swap:
+        code = lib.rf_batched_lu_swap_plan(m, n, itemsize, r, index, ctypes.addressof(out))
+        want = lu_smem_bytes(m, n, itemsize, route)
+    else:
+        code = lib.rf_batched_lu_noswap_plan(n, itemsize, r, index, ctypes.addressof(out))
+        want = noswap_smem_bytes(n, itemsize, route)
     _kernels.check(lib, code, "batched_lu plan")
     keys = ("route", "threads", "per_block", "smem", "blocks_per_sm", "registers",
             "local_bytes", "static_smem", "capacity", "max_threads")
     plan = dict(zip(keys, list(out)))
     plan["route"] = LU_ROUTES[plan["route"] - 1]
-    if plan["smem"] != lu_smem_bytes(m, n, itemsize, route):
-        raise RuntimeError("lu_plan: the kernel's shared memory differs from lu_smem_bytes")
+    if plan["smem"] != want:
+        raise RuntimeError("lu_plan: the kernel's shared memory differs from the wrapper's count")
     return plan
 
 
-def batched_lu_noswap_cuda(A: torch.Tensor, pivot: bool = True):
+def batched_lu_noswap_cuda(A: torch.Tensor, pivot: bool = True, route: Optional[str] = None):
     """Launch the noswap kernel: ``A`` (B, n, n) CUDA f32/f64 ->
     ``(factors, perm, info)``.  The kernel writes the rows back in pivot
-    order, so no gather follows it.  One launch on the current stream, no
-    synchronisation; ``batched_lu_noswap_cuda.launches`` counts them."""
+    order, so no gather follows it.  ``route`` (default:
+    :func:`noswap_route`) forces "warp", "block" or "tile" where that
+    route takes n, and raises where it does not.  One launch on the
+    current stream, no synchronisation; ``batched_lu_noswap_cuda.launches``
+    counts them, ``.route_launches`` counts them by route."""
+    if route is not None and isinstance(A, torch.Tensor) and A.dim() == 3:
+        if not _route_takes(route, A.shape[1], A.shape[2]):
+            raise ValueError(f"batched_lu_noswap_cuda: route {route!r} does not take "
+                             f"{tuple(A.shape[1:])}")
     A = _cuda_batch(A, "batched_lu_noswap_cuda", square=True)
     _refuse_lu_shape(A, "batched_lu_noswap_cuda")
     B, n, _ = A.shape
+    route = route or noswap_route(n)
     dev = A.device
     out = torch.empty_like(A)
     perm = torch.empty((B, n), dtype=torch.int32, device=dev)
@@ -504,16 +593,24 @@ def batched_lu_noswap_cuda(A: torch.Tensor, pivot: bool = True):
           else lib.rf_batched_lu_noswap_f32)
     index, stream = _launch_args(A)
     batched_lu_noswap_cuda.launches += 1
+    batched_lu_noswap_cuda.route_launches[route] += 1
     code = fn(
         A.data_ptr(), out.data_ptr(), perm.data_ptr(), info.data_ptr(),
-        B, n, int(bool(pivot)), tile_smem_bytes(n, n, A.element_size()),
-        index, stream,
+        B, n, int(bool(pivot)), LU_ROUTES.index(route) + 1,
+        noswap_smem_bytes(n, A.element_size(), route), index, stream,
     )
     _kernels.check(lib, code, "batched_lu noswap launch")
     return out, perm, info
 
 
 batched_lu_noswap_cuda.launches = 0
+batched_lu_noswap_cuda.route_launches = dict.fromkeys(LU_ROUTES, 0)
+
+
+def reset_noswap_launches() -> None:
+    """Set the noswap kernel's launch counts (all and by route) to 0."""
+    batched_lu_noswap_cuda.launches = 0
+    batched_lu_noswap_cuda.route_launches = dict.fromkeys(LU_ROUTES, 0)
 
 
 def batched_solve_cuda(factors: torch.Tensor, b: torch.Tensor,
@@ -526,11 +623,16 @@ def batched_solve_cuda(factors: torch.Tensor, b: torch.Tensor,
     are applied to ``b``'s rows inside the kernel; their entries must lie
     in [0, n), which is not checked (that would need a host read).
     ``route`` (default: the shape's own, :func:`solve_route`) forces
-    "warp" or "block" where that route takes the shape (the warp route
-    n <= 32, the block route any n), and raises where it does not.  One
+    "warp", "wide" or "block" where that route takes the shape (the warp
+    route n <= 32, the wide route 32 < n <= 128, the block route any n
+    whose tile and right-hand sides fit), and raises where it does not.  One
     launch on the current stream, no synchronisation;
     ``batched_solve_cuda.launches`` counts them,
     ``batched_solve_cuda.route_launches`` counts them by route."""
+    if route is not None and isinstance(factors, torch.Tensor) and factors.dim() == 3:
+        if route not in SOLVE_ROUTES or not _solve_route_takes(route, factors.shape[1]):
+            raise ValueError(f"batched_solve_cuda: route {route!r} does not take "
+                             f"n={factors.shape[1]}")
     f = _cuda_batch(factors, "batched_solve_cuda", square=True)
     if not isinstance(b, torch.Tensor) or b.device != f.device:
         raise ValueError("batched_solve_cuda: b must lie on the factors' device")
@@ -545,13 +647,15 @@ def batched_solve_cuda(factors: torch.Tensor, b: torch.Tensor,
     if not solve_kernel_takes(f.dtype, n, nrhs):
         raise ValueError(
             f"batched_solve_cuda: n={n}, nrhs={nrhs} {f.dtype} does not fit "
-            f"the kernel (0 < n <= {KERNEL_MAX_N} and "
-            f"{solve_smem_bytes(n, nrhs, f.element_size(), 'block')} <= {SMEM_LIMIT} "
-            "bytes of shared memory)"
+            f"the kernel (0 < n <= {KERNEL_MAX_N})"
         )
     route = route or solve_route(n, nrhs)
-    if route not in SOLVE_ROUTES or (route == "warp" and n > SOLVE_WARP_MAX_N):
-        raise ValueError(f"batched_solve_cuda: route {route!r} does not take n={n}")
+    smem = solve_smem_bytes(n, nrhs, f.element_size(), route)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"batched_solve_cuda: route {route!r} needs {smem} > {SMEM_LIMIT} bytes of "
+            f"shared memory for n={n}, nrhs={nrhs} {f.dtype}"
+        )
     x = torch.empty_like(rhs)
     if B > 0:
         lib = _kernels.load("batched_solve")
@@ -563,8 +667,7 @@ def batched_solve_cuda(factors: torch.Tensor, b: torch.Tensor,
             f.data_ptr(), rhs.data_ptr(), x.data_ptr(),
             idx.data_ptr() if perm is not None else None,
             idx.data_ptr() if ipiv is not None else None,
-            B, n, nrhs, SOLVE_ROUTES.index(route) + 1,
-            solve_smem_bytes(n, nrhs, f.element_size(), route), index, stream,
+            B, n, nrhs, SOLVE_ROUTES.index(route) + 1, smem, index, stream,
         )
         _kernels.check(lib, code, "batched_solve launch")
     return x[:, :, 0] if vec else x
@@ -572,6 +675,32 @@ def batched_solve_cuda(factors: torch.Tensor, b: torch.Tensor,
 
 batched_solve_cuda.launches = 0
 batched_solve_cuda.route_launches = dict.fromkeys(SOLVE_ROUTES, 0)
+
+
+def solve_plan(n: int, nrhs: int = 1, dtype=torch.float32, route: Optional[str] = None,
+               device=None) -> dict:
+    """The solve kernel's launch plan for (n, n) factors and ``nrhs``
+    right-hand sides of ``dtype`` on a CUDA device, with the keys of
+    :func:`lu_plan` ("capacity": lanes per matrix on the warp route,
+    rows per lane on the wide route)."""
+    route = route or solve_route(n, nrhs)
+    if route not in SOLVE_ROUTES or not _solve_route_takes(route, n):
+        raise ValueError(f"solve_plan: route {route!r} does not take n={n}")
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    lib = _kernels.load("batched_solve")
+    out = (ctypes.c_int * 10)()
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    code = lib.rf_batched_solve_plan(n, nrhs, itemsize, SOLVE_ROUTES.index(route) + 1, index,
+                                     ctypes.addressof(out))
+    _kernels.check(lib, code, "batched_solve plan")
+    keys = ("route", "threads", "per_block", "smem", "blocks_per_sm", "registers",
+            "local_bytes", "static_smem", "capacity", "max_threads")
+    plan = dict(zip(keys, list(out)))
+    plan["route"] = SOLVE_ROUTES[plan["route"] - 1]
+    if plan["smem"] != solve_smem_bytes(n, nrhs, itemsize, route):
+        raise RuntimeError("solve_plan: the kernel's shared memory differs from solve_smem_bytes")
+    return plan
 
 
 def reset_solve_launches() -> None:

@@ -129,11 +129,13 @@ def _factor(A, pivot, config, want_perm: bool):
     shape, dtype and device.
 
     The kernel route is the swap kernel at every size, with the perm
-    composed inside the launch where it is wanted.  Swap/noswap crossover:
-    never -- in chip_smoke.py's timing (NVIDIA H100 80GB HBM3, 700 W,
-    10 000 f32 matrices, n = 16, 32, 64, 128; PERF.md) the noswap kernel
-    won clearly at no size, so it is reached only through
-    ``ops.batched_kernel.batched_lu_noswap``."""
+    composed inside the launch where it is wanted.  The noswap kernel is
+    reached only through ``ops.batched_kernel.batched_lu_noswap``: its
+    warp route beats the swap kernel's at n <= 32 in chip_smoke.py's
+    timing (NVIDIA H100 80GB HBM3, 700 W, 10 000 f32 matrices; PERF.md),
+    but it breaks pivot ties by physical row and gives no ipiv,
+    so routing ``batched_lu_factor_perm`` there is a change of its
+    results, not of its speed alone (ROADMAP item 21)."""
     _, m, n = A.shape
     if A.dtype in HALF_DTYPES:
         f, ipiv, perm, info = _factor(A.float(), pivot, config, want_perm)

@@ -255,10 +255,14 @@ def test_shared_memory_counts():
     assert not bk.lu_kernel_takes(torch.float16, 8, 8)
     assert not bk.lu_kernel_takes(torch.float32, 4096, 64)  # tile too large
     assert bk.lu_kernel_takes(torch.float32, 600, 64)
-    assert bk.solve_smem_bytes(64, 1, 4) == (64 * 65 + 2 * 64) * 4 + 4 * 64
+    assert bk.solve_smem_bytes(64, 1, 4, "block") == (64 * 65 + 2 * 64) * 4 + 4 * 64
     assert bk.solve_kernel_takes(torch.float64, 128, 8)
-    assert not bk.solve_kernel_takes(torch.float32, 128, 400)
+    # the wide route holds a tile of the factors only: any nrhs fits, where
+    # the block route's right-hand sides would not (forcing it raises)
+    assert bk.solve_kernel_takes(torch.float32, 128, 400)
+    assert bk.solve_smem_bytes(128, 400, 4, "block") > bk.SMEM_LIMIT
     assert not bk.solve_kernel_takes(torch.float32, 0, 1)
+    assert not bk.solve_kernel_takes(torch.float32, 129, 1)
 
 
 # the swap kernel's routes (csrc/batched_lu.cu): warp at m, n <= 32, block
@@ -317,14 +321,16 @@ def test_lu_route_rule_and_its_shared_memory(m, n, route, smem4, smem8):
         (1, 1, "warp", 8), (8, 1, "warp", 8), (8, 7, "warp", 8), (9, 1, "warp", 16),
         (15, 3, "warp", 16), (16, 1, "warp", 16), (17, 1, "warp", 32), (31, 64, "warp", 32),
         (32, 1, "warp", 32), (32, 600, "warp", 32),
-        # block: one block per matrix beyond 32
-        (33, 1, "block", None), (64, 1, "block", None), (64, 9, "block", None),
-        (128, 1, "block", None),
+        # wide: a warp per matrix beyond 32, 1, 2 or 4 per block (lanes: the
+        # f32 count; see test_wide_solve_route_rule)
+        (33, 1, "wide", 4), (64, 1, "wide", 2), (64, 9, "wide", 2),
+        (128, 1, "wide", 1),
     ],
 )
 def test_solve_route_rule_and_its_shared_memory(n, nrhs, route, lanes):
     """The solve kernel's route of each shape and the byte count its launch
-    must give (csrc/batched_solve.cu refuses another), by route."""
+    must give (csrc/batched_solve.cu refuses another), by route: lanes per
+    matrix on the warp route, matrices per block on the wide route."""
     block = (n * (n + 1) + 2 * n * nrhs) * 4 + 4 * n
     assert bk.solve_route(n, nrhs) == route
     assert bk.solve_smem_bytes(n, nrhs, 4, "block") == block
@@ -334,23 +340,108 @@ def test_solve_route_rule_and_its_shared_memory(n, nrhs, route, lanes):
         assert bk.solve_smem_bytes(n, nrhs, 8, "warp") == warp * 8
         assert warp * 8 <= 48 * 1024  # no opt-in at any nrhs
     else:
-        assert bk.solve_smem_bytes(n, nrhs, 4) == block
-    # the predicate still counts the block route, as before the warp route
-    assert bk.solve_kernel_takes(torch.float32, n, nrhs) == (block <= bk.SMEM_LIMIT)
+        assert bk.wide_group(n, 4) == lanes
+        assert bk.solve_smem_bytes(n, nrhs, 4) == lanes * n * 33 * 4
+    # the predicate counts the shape's own route, which holds no rhs
+    assert bk.solve_kernel_takes(torch.float32, n, nrhs)
 
 
 def test_solve_routes_are_counted_apart():
     """The solve wrapper keeps a launch count per route beside the total,
     and the reset sets both to 0; CPU tensors launch nothing."""
-    assert set(bk.batched_solve_cuda.route_launches) == set(bk.SOLVE_ROUTES) == {"warp", "block"}
+    assert (set(bk.batched_solve_cuda.route_launches) == set(bk.SOLVE_ROUTES)
+            == {"warp", "wide", "block"})
     bk.batched_solve_cuda.route_launches["warp"] += 1
     bk.reset_solve_launches()
-    assert bk.batched_solve_cuda.route_launches == {"warp": 0, "block": 0}
+    assert bk.batched_solve_cuda.route_launches == {"warp": 0, "wide": 0, "block": 0}
     assert bk.batched_solve_cuda.launches == 0
     for route in ("warp", "block", "tile"):
         with pytest.raises(ValueError):
             bk.batched_solve_cuda(torch.zeros(2, 4, 4), torch.zeros(2, 4), route=route)
-    assert bk.batched_solve_cuda.route_launches == {"warp": 0, "block": 0}
+    assert bk.batched_solve_cuda.route_launches == {"warp": 0, "wide": 0, "block": 0}
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize(
+    "n, route, side, slots",
+    [(1, "warp", None, None), (31, "warp", None, None), (32, "warp", None, None),
+     (33, "block", 8, 6), (64, "block", 8, 8), (96, "block", 16, 6), (128, "block", 16, 8)],
+)
+def test_noswap_route_rule_and_its_shared_memory(n, route, side, slots, itemsize):
+    """The noswap kernel takes the swap kernel's route for (n, n) and counts
+    its own shared memory: on the warp route one pair of row-kp buffers
+    per matrix (the swap mode holds two pairs), on the block route row kp,
+    the multipliers, BT candidates and a[n - 1, k], then BT + 2 BT S ints
+    (candidates' rows, pivot row per step, step per row); the tile route
+    is the shared-memory tile's count."""
+    assert bk.noswap_route(n) == route == bk.lu_route(n, n)
+    if route == "warp":
+        lanes = 16 if n <= 16 else 32
+        cols = 8 if n <= 8 else 16 if n <= 16 else 32
+        want = (128 // lanes) * (2 * cols + n * (n | 1)) * itemsize
+        assert bk.lu_smem_bytes(n, n, itemsize) - want == (128 // lanes) * 2 * cols * itemsize
+    else:
+        cap = side * slots
+        want = (2 * cap + side + 1) * itemsize + 4 * (side + 2 * cap)
+    assert bk.noswap_smem_bytes(n, itemsize) == want
+    assert bk.noswap_smem_bytes(n, itemsize, route) == want
+    assert bk.noswap_smem_bytes(n, itemsize, "tile") == bk.tile_smem_bytes(n, n, itemsize)
+    assert want <= 48 * 1024  # no opt-in on the register routes
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 64, 96, 128])
+def test_wide_solve_route_rule(n, itemsize):
+    """The solve's route and shared memory at the route boundaries: warp up
+    to 32, wide beyond with an n x 33 tile per matrix and 1, 2 or 4
+    matrices per block (the most resident warps per SM by shared memory:
+    32 blocks, 64 warps, 228 KB with 1 KB per block), the block route's
+    count whatever route the shape takes."""
+    route = bk.solve_route(n, 1)
+    assert route == ("warp" if n <= 32 else "wide")
+    block = (n * (n + 1) + 2 * n) * itemsize + 4 * n
+    assert bk.solve_smem_bytes(n, 1, itemsize, "block") == block
+    if route == "wide":
+        tile = n * 33 * itemsize
+        resident = {g: min(64, min(32, 233472 // (g * tile + 1024)) * g) for g in (1, 2, 4)}
+        g = bk.wide_group(n, itemsize)
+        assert resident[g] == max(resident.values())
+        assert all(resident[h] < resident[g] for h in (1, 2, 4) if h < g)
+        assert bk.solve_smem_bytes(n, 1, itemsize) == g * tile
+        assert bk.solve_smem_bytes(n, 7, itemsize) == g * tile  # whatever nrhs
+    assert bk.solve_kernel_takes(torch.float32 if itemsize == 4 else torch.float64, n, 1)
+
+
+@pytest.mark.parametrize(
+    "what, shape, route",
+    [("noswap", (2, 33, 33), "warp"), ("noswap", (2, 129, 129), "block"),
+     ("noswap", (2, 8, 8), "wide"), ("solve", (2, 33, 33), "warp"),
+     ("solve", (2, 32, 32), "wide"), ("solve", (2, 129, 129), "wide"),
+     ("solve", (2, 8, 8), "tile")],
+)
+def test_forced_route_that_does_not_take_the_shape_raises(what, shape, route):
+    """Forcing a route that does not take the shape raises before anything
+    else is checked (here: before the CPU tensor is refused), and nothing
+    is launched."""
+    bk.reset_noswap_launches()
+    bk.reset_solve_launches()
+    A = torch.zeros(shape)
+    with pytest.raises(ValueError, match="route"):
+        if what == "noswap":
+            bk.batched_lu_noswap_cuda(A, True, route=route)
+        else:
+            bk.batched_solve_cuda(A, torch.zeros(shape[:2]), route=route)
+    assert bk.batched_lu_noswap_cuda.launches == bk.batched_solve_cuda.launches == 0
+    assert not any(bk.batched_lu_noswap_cuda.route_launches.values())
+
+
+def test_noswap_routes_are_counted_apart():
+    assert set(bk.batched_lu_noswap_cuda.route_launches) == set(bk.LU_ROUTES)
+    bk.batched_lu_noswap_cuda.route_launches["block"] += 1
+    bk.batched_lu_noswap_cuda.launches += 1
+    bk.reset_noswap_launches()
+    assert bk.batched_lu_noswap_cuda.route_launches == {"warp": 0, "block": 0, "tile": 0}
+    assert bk.batched_lu_noswap_cuda.launches == 0
 
 
 def test_lu_kernel_takes_the_shapes_it_always_took():
@@ -442,6 +533,63 @@ def test_batched_lu_factor_matches_jax_at_route_boundaries(shape, dtype):
         np.testing.assert_array_equal(to_np(perm), np.asarray(perm_j))
         assert torch.equal(f2, f) and torch.equal(info2, info)
         assert torch.equal(perm, rt.batched_ipiv_to_perm(ipiv, m))
+
+
+@pytest.mark.parametrize("case", ["randn", "ties", "nan_used_last", "nan_free_last"])
+@pytest.mark.parametrize("n", [31, 32, 33])
+def test_noswap_plain_matches_pallas_at_route_boundaries(n, case):
+    """The noswap plain version against the interpret-mode Pallas kernel at
+    the warp / block boundary: randn with a zeroed column, exact ties
+    (integers in [-2, 2]), and a NaN candidate at step 1, after row n - 1
+    won step 0 (the NaN rule picks it again although it is used) or while
+    it is still free.  perm and info exact; factors within 20 n eps max|A|
+    where they are finite (with a NaN the values part by design, see
+    test_nan_among_candidates_picks_the_last_row_as_pallas_does)."""
+    B = 5
+    if case == "ties":
+        A = np.random.default_rng(45).integers(-2, 3, size=(B, n, n)).astype(F32)
+    else:
+        A = make_batch(46, B, n, n, True, zero=[(B - 1, n // 2)] if case == "randn" else [])
+    if case.startswith("nan"):
+        if case == "nan_used_last":
+            A[::2, n - 1, 0] = 1e3  # row n - 1 wins step 0
+        A[::2, 0, 1] = np.nan
+    f_j, perm_j, info_j = batched_lu_pallas_noswap(jx(A, F32), True, interpret=True, group=4)
+    f, perm, info = bk.batched_lu_noswap_plain(tc(A, F32), True)
+    np.testing.assert_array_equal(to_np(perm), np.asarray(perm_j))
+    np.testing.assert_array_equal(to_np(info), np.asarray(info_j))
+    if case == "nan_used_last":
+        assert (to_np(perm)[::2, :2] == n - 1).all()  # row n - 1 twice
+    elif case == "nan_free_last":
+        assert (to_np(perm)[::2, 1] == n - 1).all()
+    else:
+        np.testing.assert_allclose(to_np(f), np.asarray(f_j), rtol=0, atol=value_tol(A))
+        for i in range(B):
+            assert sorted(to_np(perm)[i]) == list(range(n))
+
+
+@pytest.mark.parametrize("nrhs", [None, 3])
+@pytest.mark.parametrize("n", [33, 48])
+def test_solve_plain_matches_pallas_on_the_wide_route(n, nrhs):
+    """The solve's plain version against the interpret-mode Pallas kernel
+    at n = 33 and 48 (the wide route's two-rows-per-lane shapes), on
+    pre-permuted right-hand sides; within 50 x 20 n eps max|x| as
+    test_solve_plain_matches_pallas, and every solve through perm or ipiv
+    equal to the pre-permuted one."""
+    B = 6
+    A = make_batch(47, B, n, n, True)
+    rng = np.random.default_rng(48)
+    b = rng.standard_normal((B, n) if nrhs is None else (B, n, nrhs)).astype(F32)
+    f, ipiv, perm, _ = bk.batched_lu_plain(tc(A, F32), True, True)
+    idx = perm.long() if nrhs is None else perm.long()[:, :, None].expand(B, n, nrhs)
+    rhs = tc(b, F32).gather(1, idx)
+    x_j = np.asarray(batched_solve_pallas(jx(to_np(f), F32), jx(to_np(rhs), F32),
+                                          interpret=True, group=4))
+    x = bk.batched_solve_plain(f, rhs)
+    tol = 20 * n * EPS[F32] * float(np.max(np.abs(x_j))) * 50
+    np.testing.assert_allclose(to_np(x), x_j, rtol=0, atol=tol)
+    assert torch.equal(bk.batched_solve_plain(f, tc(b, F32), perm=perm), x)
+    assert torch.equal(bk.batched_solve_plain(f, tc(b, F32), ipiv=ipiv), x)
 
 
 # ---------------------------------------------------------------------------

@@ -717,23 +717,116 @@ def test_batched_solve_routes_bitwise_equal_plain(dtype, route, n):
 
 
 def test_batched_solve_warp_route_on_the_public_path():
-    """The public solves at n = 16 launch the warp route, at n = 64 the
-    block route; the warp route refuses n > 32."""
+    """The public solves at n = 16 launch the warp route, at n = 64 and
+    128 the wide route; the warp route refuses n > 32, the wide route
+    n <= 32."""
     need_cuda()
     g = torch.Generator().manual_seed(28)
-    for n, route in ((16, "warp"), (64, "block")):
+    for n, route in ((16, "warp"), (64, "wide"), (128, "wide")):
         A = torch.randn(500, n, n, generator=g).cuda()
         b = torch.randn(500, n, generator=g).cuda()
         f, perm, _ = rt.batched_lu_factor_perm(A)
         bk.reset_solve_launches()
         x = rt.batched_lu_solve_perm(f, perm, b)
         torch.cuda.synchronize()
-        assert bk.batched_solve_cuda.route_launches == {
-            "warp": int(route == "warp"), "block": int(route == "block")}
+        assert bk.batched_solve_cuda.route_launches == {r: int(r == route)
+                                                        for r in bk.SOLVE_ROUTES}
         assert torch.equal(_bits(x), _bits(bk.batched_solve_plain(f, b, perm=perm)))
     with pytest.raises(ValueError):
         bk.batched_solve_cuda(torch.zeros(4, 33, 33, device="cuda"),
                               torch.zeros(4, 33, device="cuda"), route="warp")
+    with pytest.raises(ValueError):
+        bk.batched_solve_cuda(torch.zeros(4, 32, 32, device="cuda"),
+                              torch.zeros(4, 32, device="cuda"), route="wide")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 8, 16, 17, 31, 32, 33, 64, 127, 128])
+def test_batched_noswap_routes_bitwise_equal_plain(dtype, n):
+    """The noswap kernel on the route its shape names (warp at n <= 32,
+    block beyond) and forced onto the tile route (and, at n <= 32, the
+    block route): batches of 1, 37 and 1001, pivot on and off, exact ties,
+    a zeroed column, a NaN candidate after row n - 1 won the first step
+    (the NaN rule picks it again): factors (NaN for NaN), perm and info
+    equal to the plain version's, one launch on the route per call."""
+    need_cuda()
+    own = bk.noswap_route(n)
+    assert own == ("warp" if n <= 32 else "block")
+    g = torch.Generator().manual_seed(29)
+    for B in (1, 37, 1001):
+        cases = []
+        for pivot in (True, False):
+            X = torch.randn(B, n, n, generator=g, dtype=dtype)
+            if not pivot:
+                X += n * torch.eye(n, dtype=dtype)
+            X[B // 2, :, n // 2] = 0  # a zero pivot in one matrix
+            cases.append(("zero_col", pivot, X))
+        cases.append(("ties", True, torch.randint(-2, 3, (B, n, n), generator=g).to(dtype)))
+        if n > 1:
+            N = torch.randn(B, n, n, generator=g, dtype=dtype)
+            N[::2, n - 1, 0] = 1e3
+            N[::2, 0, 1] = float("nan")
+            cases.append(("nan", True, N))
+        for name, pivot, X in cases:
+            A = X.cuda()
+            f, perm, info = bk.batched_lu_noswap_plain(A, pivot)
+            if name == "nan":
+                assert (perm[::2, :2] == n - 1).all()
+            if name == "zero_col":
+                assert int(info[B // 2]) == (n // 2 + 1) * (1 if pivot else -1)
+            for route in dict.fromkeys((own, "tile", "block")):
+                bk.reset_noswap_launches()
+                kf, kperm, kinfo = bk.batched_lu_noswap_cuda(A, pivot, route=route)
+                torch.cuda.synchronize()
+                assert bk.batched_lu_noswap_cuda.route_launches == {
+                    r: int(r == route) for r in bk.LU_ROUTES}, (name, route)
+                assert torch.equal(kperm, perm) and torch.equal(kinfo, info), (name, route)
+                assert _same_bits_nan(kf, f), (name, route, B)
+    with pytest.raises(ValueError):
+        bk.batched_lu_noswap_cuda(torch.zeros(4, 33, 33, device="cuda"), route="warp")
+    plan = bk.lu_plan(n, n, dtype, own, swap=False)
+    assert plan["route"] == own and plan["smem"] == bk.noswap_smem_bytes(n, dtype.itemsize)
+    if own == "warp":
+        assert plan["local_bytes"] == 0  # the rows stay in registers
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [33, 48, 64, 96, 128])
+def test_batched_solve_wide_route_bitwise_equals_plain(dtype, n):
+    """The solve's wide route (the shape's own at 32 < n <= 128) and the
+    block route forced on the same inputs: no row order, perm or ipiv, one
+    right-hand side as a vector and as a column, five (one full and one
+    partial pass of four), a zero on U's diagonal in one matrix (inf / NaN
+    there only), batches of 1, 37 and 1001 (not a multiple of the matrices
+    per block): bitwise equal to the plain version NaN for NaN, one launch
+    on the route per call."""
+    need_cuda()
+    assert bk.solve_route(n, 1) == "wide"
+    g = torch.Generator().manual_seed(30)
+    for B in (1, 37, 1001):
+        A = torch.randn(B, n, n, generator=g, dtype=dtype).cuda()
+        f, ipiv, perm, info = bk.batched_lu_cuda(A, True, True)
+        sing = B // 2
+        f[sing, n // 2, n // 2] = 0
+        for nrhs in (None, 1, 5):
+            b = torch.randn((B, n) if nrhs is None else (B, n, nrhs), generator=g,
+                            dtype=dtype).cuda()
+            x = bk.batched_solve_plain(f, b)
+            xp = bk.batched_solve_plain(f, b, perm=perm)
+            for route in ("wide", "block"):
+                for kw, want in (({}, x), ({"perm": perm}, xp), ({"ipiv": ipiv}, xp)):
+                    bk.reset_solve_launches()
+                    kx = bk.batched_solve_cuda(f, b, route=route, **kw)
+                    torch.cuda.synchronize()
+                    assert bk.batched_solve_cuda.route_launches == {
+                        r: int(r == route) for r in bk.SOLVE_ROUTES}
+                    assert kx.shape == b.shape
+                    assert _same_bits_nan(kx.contiguous(), want.contiguous()), (route, kw, B)
+                    finite = torch.isfinite(kx.reshape(B, -1)).all(dim=1)
+                    assert not bool(finite[sing]) and int(finite.sum()) == B - 1
+    plan = bk.solve_plan(n, 1, dtype)
+    assert plan["route"] == "wide" and plan["per_block"] == bk.wide_group(n, dtype.itemsize)
+    assert plan["smem"] == bk.solve_smem_bytes(n, 1, dtype.itemsize)
 
 
 def test_batched_kernels_copy_strided_input_and_reject_the_rest():
