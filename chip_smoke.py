@@ -10,7 +10,9 @@
 Phases, JSON lines each:
 
 1. env      card name and power limit (nvidia-smi), torch/CUDA versions,
-            the kernels' build seconds and ptxas resource lines;
+            the kernels' build seconds, build directory and ptxas resource
+            lines; then ``warmup``: utils.warmup.warmup at 1536 x 1536
+            float32 after the build, timed;
 2. kernel   the Hopper panel kernel against its plain PyTorch version on
             the main path's panel shapes, f32/f64, pivot on/off, a zeroed
             column and exact ties: ipiv, perm and info equal, factors
@@ -25,7 +27,12 @@ Phases, JSON lines each:
             matrix randn + n*I, plain randn, a zeroed column) and n=4096
             (randn): residual gate ||LU - A[p]||_max < 20*n*eps*max|A|,
             info, SingularMatrixError under check, the kernel's launch
-            count, and no TF32 in any product;
+            count, and no TF32 in any product; the entry matrix again with
+            PyTorch's current TF32 API set to 'tf32' by the caller (no TF32
+            product, the setting restored); an int32 matrix of n=1536
+            (the generic route: float64 factors and solution on the float64
+            panel kernel, pivots, perm, info and factors equal to those of
+            its float64 copy);
 4. timing   CUDA-event times: the barrier microbenchmark (ns per
             grid.sync(), cluster.sync(), __syncthreads and DSMEM candidate
             exchange), the panel kernel per panel shape in turns beside
@@ -165,23 +172,38 @@ functions) and its offset kernel add:
             for the 128 live rows, panels too tall for a cluster: piv,
             perm and info equal, factors bitwise equal, the rows above the
             offset untouched;
-3e. tp      in an NCCL world of one rank: ``tp_lu`` + ``tp_lu_solve`` at
-            n=4096 (f32, w=128 and 512), n=1536 (f64), ``pivot=False`` on
-            randn + n*I, a zeroed column 700 (info 701), and the sharded
-            batched functions at 10 000 x 64 x 64: residual gate, info,
-            n/w launches of the offset kernel per factor and none of the
-            other panel kernels, pivots equal to ``lu(config=
+3e. tp      in an NCCL world of one rank: ``tp_lu`` + ``tp_lu_solve``
+            (N, T, H) at n=4096 (f32, w=128 and 512), n=1536 (f64),
+            ``pivot=False`` on randn + n*I, a zeroed column 700 (info 701),
+            complex64 at n=4096 and complex128 at 1536 (the complex offset
+            kernel), bfloat16 / float16 at 1536 (promoted) and int32 at 1536
+            (float64), and the sharded batched functions at 10 000 x 64 x
+            64: residual gate, info, n/w launches of the type's offset
+            kernel per factor and none of the other panel kernels, the
+            factors' and solutions' type, pivots equal to ``lu(config=
             LUConfig(panel_width=w))``'s or parting at a step whose two
-            candidates tie to n*eps, the batch equal to the unsharded one;
-3f. tp_ranks two gloo ranks spawned on the one card, n=2048, w=128: the
-            ranks agree bitwise, pivots against the one-rank run's under the
-            same gate, residual gate (a check of the path, not a scaling
-            number);
+            candidates tie to n*eps (CABS1 for complex), the batch equal to
+            the unsharded one;
+3f. tp_ranks two gloo ranks spawned on the one card, n=2048, w=128, in
+            float32 and complex64: the ranks agree bitwise, float32 pivots
+            against the one-rank run's under the same gate, residual gate,
+            n/w launches of the type's offset kernel (a check of the path,
+            not a scaling number);
+2f. kernel  the offset form of the complex kernel (csrc/panel_lu_c64.cu)
+            against ``offset_panel_lu_cabs1`` on its cluster route and
+            forced onto its grid route: complex64 (4096, 128) and
+            complex128 (1536, 128) at offsets 0, 1000 and H - w, randn, a
+            zeroed column, a NaN candidate (every later pivot row H - 1),
+            pivot on/off, a column block of a wider matrix: piv, perm and
+            info equal, factors bitwise equal (NaN for NaN), the rows above
+            the offset untouched, the route counted;
 4e. timing  the offset kernel per panel beside ``shadow`` and
-            ``lu_factor_ex`` on the live rows, and ``tp_lu_factor`` in the
-            one-rank world beside ``lu`` at the same width and the
-            library; ``--sweep`` adds the panel kernel's b x C sweep per
-            live height and width (f32, and f64 at three shapes).
+            ``lu_factor_ex`` on the live rows, the complex offset kernel on
+            both routes beside ``lu_factor_ex`` on the live rows, and
+            ``tp_lu_factor`` in the one-rank world beside ``lu`` at the
+            same width and the library, in float32 and complex64;
+            ``--sweep`` adds the panel kernel's b x C sweep per live height
+            and width (f32, and f64 at three shapes).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
 before it, and the exit code is not 0.  Without CUDA, or without the
@@ -206,6 +228,9 @@ SOURCE = "recursivefactorization_jl_tpu_torch/csrc/panel_lu.cu"
 REPLACES = "recursivefactorization_jl_tpu/ops/panel.py:411"
 SOURCE_C64 = "recursivefactorization_jl_tpu_torch/csrc/panel_lu_c64.cu"
 REPLACES_C64 = "recursivefactorization_jl_tpu/ops/panel.py:1030"
+# the complex offset form carries complex tp_lu, where the JAX package runs
+# its pure-JAX offset panel (no TPU kernel of its own)
+REPLACES_C64_OFFSET = "recursivefactorization_jl_tpu/parallel/blockcyclic.py:72"
 NEW_PANEL_KERNELS = {
     # each on its cluster route (the main path's) and, "_grid", on its grid
     # route (the grid-barrier kernels: panels too tall for a cluster, or
@@ -366,8 +391,10 @@ def batched_solve_bound(B, n, nrhs, dtype_name, itemsize):
 def offset_panel_bound(H, w, ofs, dtype_name, itemsize):
     """The offset kernel on an (H, w) panel from row ``ofs``: the LU of the
     H - ofs live rows, those rows read and written once, piv (w,), perm
-    (H,) and info written once."""
-    flops, _ = panel_flops_bytes(H - ofs, w, itemsize)
+    (H,) and info written once (``itemsize``: bytes per element, 8 / 16
+    for complex64 / complex128, whose operations count as
+    ``panel_flops_bytes`` says)."""
+    flops, _ = panel_flops_bytes(H - ofs, w, itemsize, dtype_name.startswith("complex"))
     return roofline(flops, 2 * (H - ofs) * w * itemsize + 4 * (w + H + 1), dtype_name)
 
 
@@ -379,22 +406,25 @@ def free_port():
         return s.getsockname()[1]
 
 
-def tp_ranks_input():
-    """The tp_ranks phase's matrix and right-hand side (numpy, float64),
-    made alike in every rank and in the parent."""
+def tp_ranks_input(cplx=False):
+    """The tp_ranks phase's matrix and right-hand side (numpy, float64 or
+    complex128), made alike in every rank and in the parent."""
     import numpy as np
 
     rng = np.random.default_rng(TP_RANKS_SEED)
-    return (rng.standard_normal((TP_RANKS_N, TP_RANKS_N)),
-            rng.standard_normal(TP_RANKS_N))
+    M, v = rng.standard_normal((TP_RANKS_N, TP_RANKS_N)), rng.standard_normal(TP_RANKS_N)
+    if cplx:
+        M = M + 1j * rng.standard_normal((TP_RANKS_N, TP_RANKS_N))
+        v = v + 1j * rng.standard_normal(TP_RANKS_N)
+    return M, v
 
 
 def tp_rank(rank, world, port, out):
     """One rank of the tp_ranks phase, in a spawned process: join a gloo
     group of ``world`` ranks on card 0, factor and solve the phase's matrix
-    with ``tp_lu`` / ``tp_lu_solve`` in float32, and put what the parent
-    checks on ``out`` (an error's traceback instead, so that no rank
-    waits for nothing)."""
+    with ``tp_lu`` / ``tp_lu_solve`` in float32 and in complex64, and put
+    what the parent checks on ``out``, a list with one record per type (an
+    error's traceback instead, so that no rank waits for nothing)."""
     import datetime
     import hashlib
     import traceback
@@ -406,7 +436,9 @@ def tp_rank(rank, world, port, out):
 
         import recursivefactorization_jl_tpu_torch as rt
         from recursivefactorization_jl_tpu_torch.ops.panel import (
+            offset_panel_factor_c64_cuda,
             offset_panel_factor_cuda,
+            panel_factor_c64_cuda,
             panel_factor_cuda,
         )
 
@@ -415,28 +447,35 @@ def tp_rank(rank, world, port, out):
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                                 world_size=world, timeout=datetime.timedelta(seconds=120))
         mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("tp",))
-        M, v = tp_ranks_input()
-        A = torch.tensor(M, dtype=torch.float32, device="cuda")
-        b = torch.tensor(v, dtype=torch.float32, device="cuda")
-        offset_panel_factor_cuda.launches = 0
-        panel_factor_cuda.launches = 0
-        t0 = time.perf_counter()
-        F = rt.tp_lu(A, mesh, "tp", TP_RANKS_W)
-        x = rt.tp_lu_solve(F, b, mesh, "tp", TP_RANKS_W)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"panel_lu_offset": offset_panel_factor_cuda.launches,
-                    "panel_lu": panel_factor_cuda.launches}
-        n = TP_RANKS_N
-        r = float((F.L.double() @ F.U.double() - A.double()[F.p.long()]).abs().max())
-        g = 20 * n * torch.finfo(torch.float32).eps * float(A.abs().max())
-        Ad, xd = A.double(), x.double()
-        sr = float((Ad @ xd - b.double()).norm() / (Ad.norm() * xd.norm()))
-        out.put(dict(
-            rank=rank, ok=True, ipiv=F.ipiv.cpu().numpy(), perm=F.p.cpu().numpy(),
-            info=int(F.info), launches=launches, resid=r, gate=g, solve_rel_resid=sr,
-            factor_solve_wall_s=wall, backend=dist.get_backend(mesh.get_group("tp")),
-            factors_sha256=hashlib.sha256(F.factors.cpu().numpy().tobytes()).hexdigest()))
+        wrappers = {"panel_lu_offset": offset_panel_factor_cuda,
+                    "panel_lu_c64_offset": offset_panel_factor_c64_cuda,
+                    "panel_lu": panel_factor_cuda, "panel_lu_c64": panel_factor_c64_cuda}
+        records = []
+        for dt in (torch.float32, torch.complex64):
+            M, v = tp_ranks_input(dt.is_complex)
+            A = torch.tensor(M, device="cuda").to(dt)
+            b = torch.tensor(v, device="cuda").to(dt)
+            for wr in wrappers.values():
+                wr.launches = 0
+            t0 = time.perf_counter()
+            F = rt.tp_lu(A, mesh, "tp", TP_RANKS_W)
+            x = rt.tp_lu_solve(F, b, mesh, "tp", TP_RANKS_W)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: wr.launches for k, wr in wrappers.items()}
+            n = TP_RANKS_N
+            wd = torch.complex128 if dt.is_complex else torch.float64
+            r = float((F.L.to(wd) @ F.U.to(wd) - A.to(wd)[F.p.long()]).abs().max())
+            g = 20 * n * torch.finfo(torch.float32).eps * float(A.abs().max())
+            Ad, xd = A.to(wd), x.to(wd)
+            sr = float((Ad @ xd - b.to(wd)).norm() / (Ad.norm() * xd.norm()))
+            records.append(dict(
+                dtype=str(dt)[6:], ipiv=F.ipiv.cpu().numpy(), perm=F.p.cpu().numpy(),
+                info=int(F.info), launches=launches, resid=r, gate=g, solve_rel_resid=sr,
+                factor_solve_wall_s=wall,
+                factors_sha256=hashlib.sha256(F.factors.cpu().numpy().tobytes()).hexdigest()))
+        out.put(dict(rank=rank, ok=True, backend=dist.get_backend(mesh.get_group("tp")),
+                     records=records))
         dist.destroy_process_group()
     except Exception:  # noqa: BLE001 - reported to the parent
         out.put(dict(rank=rank, ok=False, error=traceback.format_exc()))
@@ -571,6 +610,7 @@ def main(argv):
     from recursivefactorization_jl_tpu_torch.ops import _kernels
     from recursivefactorization_jl_tpu_torch.ops.panel import (
         offset_panel_factor,
+        offset_panel_factor_c64_cuda,
         offset_panel_factor_cuda,
         panel_factor_basic_cuda,
         panel_factor_c64_cuda,
@@ -585,10 +625,12 @@ def main(argv):
     from recursivefactorization_jl_tpu_torch.ops.unblocked import (
         micro_blocked_lu,
         offset_panel_lu,
+        offset_panel_lu_cabs1,
         unblocked_lu,
         unblocked_lu_cabs1,
         unblocked_lu_noswap,
     )
+    from recursivefactorization_jl_tpu_torch.utils import warmup
 
     quick = "--quick" in argv
     # phases 1, 2b and 4b only
@@ -612,8 +654,15 @@ def main(argv):
     ]
     emit("env", card=card, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, build_seconds=build_s, ptxas=ptxas)
+         cuda=torch.version.cuda, build_seconds=build_s, build_dir=str(_kernels.BUILD_DIR),
+         ptxas=ptxas)
     print(card, flush=True)
+    # utils.warmup after the build: the first factor + solve at the entry
+    # point's size (the kernels are built, so it only loads them)
+    t0 = time.perf_counter()
+    warmup.warmup(((1536, 1536),), (torch.float32,))
+    emit("warmup", card=card, shapes=[[1536, 1536]], dtypes=["float32"],
+         seconds=time.perf_counter() - t0, build_seconds=build_s)
 
     cfg = rt.default_config()
     w_main = cfg.resolved_panel_width()
@@ -900,7 +949,7 @@ def main(argv):
             except ValueError:
                 continue
             fail(f"panel_factor_c64_cuda took {tuple(bad.shape)} {bad.dtype} {bad.device}")
-        for bad in (lambda: panel_plan(64, 8, c64, ofs=0),
+        for bad in (lambda: panel_plan(64, 8, torch.float16),
                     lambda: panel_plan(64, 8, torch.int32),
                     lambda: panel_factor_c64_cuda(torch.zeros(64, 8, device=dev, dtype=c64),
                                                   True, block=True)):
@@ -1303,6 +1352,98 @@ def main(argv):
             except ValueError:
                 continue
             fail("the offset kernel's wrapper took an argument it must refuse")
+
+        # ---- 2f. the complex offset kernel vs plain --------------------------
+        # the offset form of csrc/panel_lu_c64.cu (the panel step of complex
+        # tp_lu) on its cluster route and forced onto its grid route
+        # (block=-1), against offset_panel_lu_cabs1: complex64 4096 x 128 and
+        # complex128 1536 x 128 (the tp cells' panels) at the offsets of the
+        # first, a middle and the last panel of a stage; randn, a zeroed
+        # column, a NaN candidate (the pivot row is then H - 1), pivot on and
+        # off; a column block of a wider matrix; an offset beyond H - w
+        def cbits_nan_equal(x, y):
+            """Bitwise equal, NaN for NaN (a NaN's payload not compared)."""
+            x, y = torch.view_as_real(x), torch.view_as_real(y)
+            nx, ny = torch.isnan(x), torch.isnan(y)
+            return bool(torch.equal(nx, ny)) and bool(torch.equal(
+                bits(x.masked_fill(nx, 0).contiguous()), bits(y.masked_fill(ny, 0).contiguous())))
+
+        coffset_err = {"cluster": 0.0, "grid": 0.0}
+        coffset_shapes = {c64: (4096, 128), c128: (1536, 128)}
+        for dt, (H_c, w_c) in coffset_shapes.items():
+            for ofs in (0, 1000, H_c - w_c):
+                for name, pivot in (("randn", True), ("randn", False), ("zero_col", True),
+                                    ("zero_col", False), ("nan", True)):
+                    X = crandn(H_c, w_c, dt)
+                    if not pivot:
+                        X[ofs + torch.arange(w_c), torch.arange(w_c)] += H_c
+                    if name == "zero_col":
+                        X[ofs:, 5] = 0
+                    if name == "nan":
+                        X[ofs + 40, 3] = complex(float("nan"), 1.0)
+                    A = X.to(dev)
+                    f_p, piv_p, perm_p, info_p = offset_panel_lu_cabs1(A, ofs, pivot)
+                    for route, block in (("cluster", 0), ("grid", -1)):
+                        P = A.clone()
+                        plan = panel_plan(H_c, w_c, dt, ofs=ofs, block=block)
+                        g0 = offset_panel_factor_c64_cuda.grid_route_launches
+                        piv_k, perm_k, info_k = offset_panel_factor_c64_cuda(P, ofs, pivot,
+                                                                             block=block)
+                        torch.cuda.synchronize()
+                        same = {
+                            "ipiv_equal": bool(torch.equal(piv_k, piv_p)),
+                            "perm_equal": bool(torch.equal(perm_k, perm_p)),
+                            "info_equal": int(info_k) == int(info_p),
+                            "bitwise": cbits_nan_equal(P, f_p),
+                            "rows_above_untouched": bool(torch.equal(cbits(P[:ofs]),
+                                                                     cbits(A[:ofs]))),
+                            "route_as_expected": plan["route"] == route and (
+                                offset_panel_factor_c64_cuda.grid_route_launches - g0
+                                == int(route == "grid")),
+                        }
+                        if name == "zero_col":
+                            same["info_as_expected"] = int(info_k) == (6 if pivot else -6)
+                        if name == "nan":
+                            same["nan_takes_row_H_minus_1"] = bool((piv_k[3:] == H_c - 1).all())
+                        err = float(torch.view_as_real(P - f_p).abs().nan_to_num(0.0, 0.0, 0.0)
+                                    .max())
+                        coffset_err[route] = max(coffset_err[route], err)
+                        emit("kernel", kernel="panel_lu_c64_offset", route=route,
+                             shape=[H_c, w_c], ofs=ofs, dtype=str(dt)[6:], input=name,
+                             pivot=pivot, plan=plan, info=int(info_k), max_abs_err=err, **same)
+                        if not all(same.values()):
+                            fail(f"the complex offset kernel disagrees with its plain "
+                                 f"version: {same}")
+                    del X, A, P
+        M = crandn(4096, 8 * 128, c64).to(dev)
+        W_ = M.clone()
+        view = W_[:, 256:384]
+        f_p, piv_p, perm_p, info_p = offset_panel_lu_cabs1(M[:, 256:384], 1000, True)
+        piv_k, perm_k, info_k = offset_panel_factor_c64_cuda(view, 1000, True)
+        torch.cuda.synchronize()
+        rest = torch.ones(M.shape, dtype=torch.bool, device=dev)
+        rest[1000:, 256:384] = False
+        same = {"ipiv_equal": bool(torch.equal(piv_k, piv_p)),
+                "perm_equal": bool(torch.equal(perm_k, perm_p)),
+                "info_equal": int(info_k) == int(info_p),
+                "bitwise": cbits_nan_equal(view, f_p),
+                "rest_untouched": bool(torch.equal(cbits(W_[rest]), cbits(M[rest])))}
+        emit("kernel", kernel="panel_lu_c64_offset", route="cluster", shape=[4096, 128],
+             lda=8 * 128, ofs=1000, dtype="complex64", input="column block", pivot=True,
+             info=int(info_k), **same)
+        if not all(same.values()):
+            fail(f"the complex offset kernel on a column block: {same}")
+        del M, W_, view, rest
+        for bad, exc in ((lambda: panel_plan(64, 8, c64, ofs=57), RuntimeError),
+                         (lambda: offset_panel_factor_c64_cuda(
+                             torch.zeros(64, 8, device=dev, dtype=c64), 57, True), ValueError),
+                         (lambda: offset_panel_factor_c64_cuda(
+                             torch.zeros(64, 8, device=dev), 0, True), ValueError)):
+            try:
+                bad()
+            except exc:
+                continue
+            fail("the complex offset kernel took a request it must refuse")
 
     # ---- 2b. batched kernels vs plain -----------------------------------
     def same_bits(x, y):
@@ -1841,6 +1982,13 @@ def main(argv):
                torch.Tensor.addmm_, torch.linalg.solve_triangular}
     from torch.overrides import TorchFunctionMode
 
+    def tf32_allowed():
+        mm = torch.backends.cuda.matmul
+        try:
+            return bool(mm.allow_tf32)
+        except RuntimeError:  # PyTorch refuses the legacy flag once the current API is set
+            return mm.fp32_precision == "tf32"
+
     class TF32Watch(TorchFunctionMode):
         def __init__(self):
             super().__init__()
@@ -1848,7 +1996,7 @@ def main(argv):
 
         def __torch_function__(self, func, types, args=(), kwargs=None):
             if func in matmuls:
-                self.flags.append(torch.backends.cuda.matmul.allow_tf32)
+                self.flags.append(tf32_allowed())
             return func(*args, **(kwargs or {}))
 
     def wide(t):
@@ -1926,6 +2074,62 @@ def main(argv):
     if torch.backends.cuda.matmul.allow_tf32 is not True:
         fail("the caller's TF32 setting was not restored")
     torch.backends.cuda.matmul.allow_tf32 = tf32_before
+
+    # PyTorch's current TF32 API: a caller who set fp32_precision = 'tf32'
+    # still gets full-precision products, and the setting back
+    n = 1536
+    A = torch.tensor(entry, dtype=torch.float32, device=dev)
+    b = torch.tensor(rng.standard_normal(n), dtype=torch.float32, device=dev)
+    mm = torch.backends.cuda.matmul
+    precision_before = mm.fp32_precision
+    mm.fp32_precision = "tf32"
+    watch = TF32Watch()
+    with watch:
+        F = rt.lu(A, check=False)
+        x = rt.lu_solve(F, b)
+        torch.cuda.synchronize()
+    restored = mm.fp32_precision == "tf32"
+    mm.fp32_precision = precision_before
+    r, g = resid_gate(A, F)
+    rec = dict(n=n, input="entry", tf32_api="fp32_precision='tf32'", resid=r, gate=g,
+               solve_rel_resid=solve_resid(A, x, b), info=int(F.info),
+               matmuls=len(watch.flags), tf32_seen=any(watch.flags), restored=restored)
+    emit("main", **rec)
+    if not (r < g and rec["info"] == 0 and watch.flags and not any(watch.flags) and restored
+            and rec["solve_rel_resid"] < 100 * torch.finfo(torch.float32).eps):
+        fail(f"the current TF32 API: {rec}")
+
+    # the generic route: an int32 matrix factors as its float64 copy, on the
+    # float64 panel kernel; the solve of an int32 right-hand side in float64
+    Ai = torch.tensor(rng.integers(-100, 100, (n, n)), dtype=torch.int32, device=dev)
+    bi = torch.tensor(rng.integers(-100, 100, n), dtype=torch.int32, device=dev)
+    route, (pm, pw) = main_shape(n)
+    expect = 1 if route == "whole" else -(-n // pw)
+    panel_factor_cuda.launches = 0
+    panel_factor_cuda.grid_route_launches = 0
+    F = rt.lu(Ai, check=False)
+    x = rt.lu_solve(F, bi)
+    torch.cuda.synchronize()
+    got = panel_factor_cuda.launches
+    G = rt.lu(Ai.double(), check=False)
+    r, g = resid_gate(Ai.double(), F)
+    rec = dict(n=n, input="randint(-100, 100)", dtype="int32",
+               dispatch=rt.dispatch_route((n, n), torch.int32, True, cfg), launches=got,
+               expected_launches=expect, factors_dtype=str(F.factors.dtype)[6:],
+               solution_dtype=str(x.dtype)[6:], resid=r, gate=g,
+               solve_rel_resid=solve_resid(Ai.double(), x, bi.double()), info=int(F.info),
+               ipiv_equal_f64_run=bool(torch.equal(F.ipiv, G.ipiv)),
+               perm_equal_f64_run=bool(torch.equal(F.p, G.p)),
+               info_equal_f64_run=int(F.info) == int(G.info),
+               factors_equal_f64_run=bool(torch.equal(F.factors, G.factors)))
+    emit("main", **rec)
+    if not (got == expect and panel_factor_cuda.grid_route_launches == 0 and r < g
+            and rec["info"] == 0 and rec["factors_dtype"] == rec["solution_dtype"] == "float64"
+            and rec["ipiv_equal_f64_run"] and rec["perm_equal_f64_run"]
+            and rec["info_equal_f64_run"] and rec["factors_equal_f64_run"]
+            and np.isfinite(rec["solve_rel_resid"])):
+        fail(f"the generic route: {rec}")
+    del A, b, F, G, x, Ai, bi
 
     # ---- 3c. the complex and half-precision path -------------------------
     def cabs1(t):
@@ -2429,45 +2633,68 @@ def main(argv):
         ("entry", 4096): rng.standard_normal((4096, 4096)) + 4096 * np.eye(4096),
         ("zero_col", 1536): sing,
         ("randn", TP_RANKS_N): M2048,
+        ("crandn", 4096): cnormal((4096, 4096)),
+        ("crandn", 1536): cnormal((1536, 1536)),
+        ("randint", 1536): rng.integers(-100, 100, (1536, 1536)),
     }
+    # complex tp on the complex offset kernel (complex64 at the f32 cell's
+    # size), half tp through the promote route and int32 tp as float64, both
+    # on the real offset kernel
     truns = [("randn", 4096, f32, 128, True), ("randn", 4096, f32, 512, True),
              ("randn", 1536, f64, 128, True), ("entry", 4096, f32, 128, False),
-             ("zero_col", 1536, f32, 128, True), ("randn", TP_RANKS_N, f32, TP_RANKS_W, True)]
-    tp_wrappers = {"panel_lu_offset": offset_panel_factor_cuda, **panel_wrappers}
+             ("zero_col", 1536, f32, 128, True), ("randn", TP_RANKS_N, f32, TP_RANKS_W, True),
+             ("crandn", 4096, c64, 128, True), ("crandn", 1536, c128, 128, True),
+             ("randn", 1536, torch.bfloat16, 128, True), ("randn", 1536, torch.float16, 128, True),
+             ("randint", 1536, torch.int32, 128, True)]
+    tp_wrappers = {"panel_lu_offset": offset_panel_factor_cuda,
+                   "panel_lu_c64_offset": offset_panel_factor_c64_cuda, **panel_wrappers}
     torch.backends.cuda.matmul.allow_tf32 = True  # the port must turn it off
     tp_launches = {}
     for name, n, dt, w, pivot in truns:
-        A = torch.tensor(tmats[(name, n)], dtype=dt, device=dev)
-        bv = v2048 if n == TP_RANKS_N else rng.standard_normal(n)
-        b = torch.tensor(bv, dtype=dt, device=dev)
+        cplx = dt.is_complex
+        integer = not (dt.is_floating_point or cplx)
+        A = torch.tensor(tmats[(name, n)], device=dev).to(dt)
+        bv = v2048 if n == TP_RANKS_N else cnormal(n) if cplx else rng.standard_normal(n)
+        b = torch.tensor(bv, device=dev).to(dt)
         watch = TF32Watch()
         for wr in tp_wrappers.values():
             wr.launches = 0
         offset_panel_factor_cuda.grid_route_launches = 0
+        offset_panel_factor_c64_cuda.grid_route_launches = 0
         with watch:
             F = rt.tp_lu(A, tp_mesh, "tp", w, pivot)
-            x = rt.tp_lu_solve(F, b, tp_mesh, "tp", w)
+            xs = {t: rt.tp_lu_solve(F, b, tp_mesh, "tp", w, trans=t) for t in ("N", "T", "H")}
             torch.cuda.synchronize()
         got = {k: wr.launches for k, wr in tp_wrappers.items()}
-        if offset_panel_factor_cuda.grid_route_launches:
+        if offset_panel_factor_cuda.grid_route_launches + \
+                offset_panel_factor_c64_cuda.grid_route_launches:
             fail("a tp panel took the grid route")
-        want = {k: (n // w if k == "panel_lu_offset" else 0) for k in tp_wrappers}
-        tp_launches[(name, n, w)] = got["panel_lu_offset"]
-        r, g = resid_gate(A, F)
-        sr = solve_resid(A, x, b)
+        kern = "panel_lu_c64_offset" if cplx else "panel_lu_offset"
+        want = {k: (n // w if k == kern else 0) for k in tp_wrappers}
+        tp_launches[(name, n, w, str(dt)[6:])] = got[kern]
+        Aw = A.double() if integer else A  # the generic route's factors are float64
+        r, g = resid_gate(Aw, F)
+        ops = {"N": Aw, "T": Aw.T, "H": Aw.mH}
+        sr = {t: solve_resid(ops[t], xs[t], b) for t in xs}
         info = int(F.info)
-        eps = torch.finfo(dt).eps
+        eps = torch.finfo(Aw.dtype).eps
         G = rt.lu(A, pivot, check=False, config=rt.LUConfig(panel_width=w))
         differ = int((F.p != G.p).sum())
+        want_dtype = torch.float64 if integer else dt
         rec = dict(n=n, input=name, dtype=str(dt)[6:], panel_width=w, pivot=pivot, ranks=1,
                    backend=dist.get_backend(tp_mesh.get_group("tp")), launches=got,
                    expected_launches=want, resid=r, gate=g,
-                   scaled_resid=r / (n * eps * float(A.abs().max())), solve_rel_resid=sr,
-                   info=info, matmuls=len(watch.flags), tf32_seen=any(watch.flags),
+                   scaled_resid=r / (n * eps * float(Aw.abs().max())), solve_rel_resid=sr,
+                   info=info, factors_dtype=str(F.factors.dtype)[6:],
+                   solution_dtype=str(xs["N"].dtype)[6:],
+                   matmuls=len(watch.flags), tf32_seen=any(watch.flags),
                    perm_entries_differing_from_lu=differ, perm_near_tie_or_equal=True,
                    ipiv_equal_lu=bool(torch.equal(F.ipiv, G.ipiv)))
         if differ and name != "zero_col":
-            k, gap = first_choice_gap_perm(A, F.p, G.p)
+            if cplx:  # CABS1 pivots: the gap of the two candidates' CABS1
+                k, gap = first_choice_gap_cabs1(A, F.ipiv, G.ipiv)
+            else:
+                k, gap = first_choice_gap_perm(A, F.p, G.p)
             rec["perm_first_difference"] = {"step": k, "gap": gap}
             rec["perm_near_tie_or_equal"] = gap <= n * eps
         emit("tp", **rec)
@@ -2475,19 +2702,22 @@ def main(argv):
             fail(f"tp: kernels launched {got}, expected {want}")
         if not r < g:
             fail(f"tp: residual {r} over the gate {g}")
+        if F.factors.dtype != want_dtype or any(x.dtype != want_dtype for x in xs.values()):
+            fail(f"tp: factors {F.factors.dtype} / solutions of {dt} not {want_dtype}")
         if watch.flags == [] or any(watch.flags):
             fail(f"TF32 products during the run: {watch.flags[:8]}")
         if info != (zc + 1 if name == "zero_col" else 0):
             fail(f"tp: info {info} on {name}")
-        if name != "zero_col" and not (np.isfinite(sr) and rec["perm_near_tie_or_equal"]):
+        if name != "zero_col" and not (all(np.isfinite(v) for v in sr.values())
+                                       and rec["perm_near_tie_or_equal"]):
             fail(f"tp: solve residual {sr} or pivots parting beyond a tie: {rec}")
-        if name == "entry" and not sr < 100 * eps:
+        if name == "entry" and not sr["N"] < 100 * eps:
             fail(f"tp: solve residual {sr} on the entry matrix")
         if n == TP_RANKS_N:
             tp_d1 = dict(A=A, p=F.p.clone(), ipiv=F.ipiv.clone())
         else:
             del A
-        del b, F, G, x
+        del b, F, G, xs
     if torch.backends.cuda.matmul.allow_tf32 is not True:
         fail("the caller's TF32 setting was not restored")
     torch.backends.cuda.matmul.allow_tf32 = tf32_before
@@ -2537,36 +2767,43 @@ def main(argv):
         if not d["ok"]:
             fail(f"tp_ranks: rank {d['rank']} failed:\n{d['error']}")
     n = TP_RANKS_N
-    p2 = torch.tensor(ranks[0]["perm"], device=dev)
-    differ = int((p2 != tp_d1["p"]).sum())
-    rec = dict(n=n, dtype="float32", panel_width=TP_RANKS_W, ranks=2,
-               backend=ranks[0]["backend"],
-               launches=[d["launches"] for d in ranks],
-               expected_launches={"panel_lu_offset": n // TP_RANKS_W, "panel_lu": 0},
-               resid=[d["resid"] for d in ranks], gate=ranks[0]["gate"],
-               solve_rel_resid=[d["solve_rel_resid"] for d in ranks],
-               info=[d["info"] for d in ranks],
-               factor_solve_wall_s=[d["factor_solve_wall_s"] for d in ranks],
-               ranks_agree=all(np.array_equal(d["ipiv"], ranks[0]["ipiv"])
-                               and np.array_equal(d["perm"], ranks[0]["perm"])
-                               and d["factors_sha256"] == ranks[0]["factors_sha256"]
-                               for d in ranks),
-               perm_entries_differing_from_one_rank=differ,
-               ipiv_equal_one_rank=bool(np.array_equal(ranks[0]["ipiv"],
-                                                       tp_d1["ipiv"].cpu().numpy())),
-               perm_near_tie_or_equal=True,
-               note="two ranks time-share one card and broadcast through the host "
-                    "(gloo): a check of the path, not a scaling number")
-    if differ:
-        k, gap = first_choice_gap_perm(tp_d1["A"], p2, tp_d1["p"])
-        rec["perm_first_difference"] = {"step": k, "gap": gap}
-        rec["perm_near_tie_or_equal"] = gap <= n * torch.finfo(f32).eps
-    emit("tp_ranks", **rec)
-    if not (rec["ranks_agree"] and rec["perm_near_tie_or_equal"]
-            and all(d["launches"] == rec["expected_launches"] for d in ranks)
-            and all(d["resid"] < d["gate"] and d["info"] == 0 and np.isfinite(d["solve_rel_resid"])
-                    for d in ranks)):
-        fail(f"tp_ranks: {rec}")
+    # float32: pivots against the one-rank run of the tp phase; complex64
+    # (on the complex offset kernel): the ranks agree bitwise, a path check
+    for i, dtn in enumerate(("float32", "complex64")):
+        recs = [d["records"][i] for d in ranks]
+        kern = "panel_lu_c64_offset" if dtn == "complex64" else "panel_lu_offset"
+        want = {"panel_lu_offset": 0, "panel_lu_c64_offset": 0, "panel_lu": 0, "panel_lu_c64": 0}
+        want[kern] = n // TP_RANKS_W
+        rec = dict(n=n, dtype=dtn, panel_width=TP_RANKS_W, ranks=2,
+                   backend=ranks[0]["backend"],
+                   launches=[d["launches"] for d in recs], expected_launches=want,
+                   resid=[d["resid"] for d in recs], gate=recs[0]["gate"],
+                   solve_rel_resid=[d["solve_rel_resid"] for d in recs],
+                   info=[d["info"] for d in recs],
+                   factor_solve_wall_s=[d["factor_solve_wall_s"] for d in recs],
+                   ranks_agree=all(np.array_equal(d["ipiv"], recs[0]["ipiv"])
+                                   and np.array_equal(d["perm"], recs[0]["perm"])
+                                   and d["factors_sha256"] == recs[0]["factors_sha256"]
+                                   for d in recs),
+                   perm_near_tie_or_equal=True,
+                   note="two ranks time-share one card and broadcast through the host "
+                        "(gloo): a check of the path, not a scaling number")
+        if dtn == "float32":
+            p2 = torch.tensor(recs[0]["perm"], device=dev)
+            differ = int((p2 != tp_d1["p"]).sum())
+            rec["perm_entries_differing_from_one_rank"] = differ
+            rec["ipiv_equal_one_rank"] = bool(np.array_equal(recs[0]["ipiv"],
+                                                             tp_d1["ipiv"].cpu().numpy()))
+            if differ:
+                k, gap = first_choice_gap_perm(tp_d1["A"], p2, tp_d1["p"])
+                rec["perm_first_difference"] = {"step": k, "gap": gap}
+                rec["perm_near_tie_or_equal"] = gap <= n * torch.finfo(f32).eps
+        emit("tp_ranks", **rec)
+        if not (rec["ranks_agree"] and rec["perm_near_tie_or_equal"]
+                and all(d["launches"] == want for d in recs)
+                and all(d["resid"] < d["gate"] and d["info"] == 0
+                        and np.isfinite(d["solve_rel_resid"]) for d in recs)):
+            fail(f"tp_ranks: {rec}")
     del tp_d1, p2
 
     # ---- 4. timing -------------------------------------------------------
@@ -2926,6 +3163,31 @@ def main(argv):
                  us_per_step=1e3 * t["panel_lu_offset"] / w_o, shadow_ms=t["shadow"],
                  **offset_rows[ofs])
             del X, P
+        # the complex offset kernel (the panel of complex tp_lu) on both
+        # routes, beside one library call on the live rows: complex64 at the
+        # tp cell's panel, complex128 at the f64 cell's
+        coffset_rows = {}
+        for dt, H_c, ofs_list in ((c64, 4096, (0, 1000, 4096 - 128)), (c128, 1536, (0,))):
+            w_c = 128
+            for ofs in ofs_list:
+                X = crandn(H_c, w_c, dt).to(dev)
+                P = torch.empty_like(X)
+                with quiet_c_stdout():
+                    t = round_robin({
+                        "cluster": lambda: offset_panel_factor_c64_cuda(P, ofs, True),
+                        "grid": lambda: offset_panel_factor_c64_cuda(P, ofs, True, block=-1),
+                        "library": lambda: torch.linalg.lu_factor_ex(P[ofs:]),
+                    }, rounds=9, setup=lambda: P.copy_(X))
+                p_ms = timed(lambda: offset_panel_lu_cabs1(X, ofs, True), reps=1, warm=0)[0]
+                b_ms, b_by = offset_panel_bound(H_c, w_c, ofs, str(dt)[6:], X.element_size())
+                coffset_rows[(str(dt)[6:], ofs)] = dict(
+                    kernel_ms=t["cluster"], grid_ms=t["grid"], plain_ms=p_ms,
+                    library_ms=t["library"], bound_ms=b_ms, bound_by=b_by)
+                emit("timing", what="offset_kernel_c64", card=card, shape=[H_c, w_c], ofs=ofs,
+                     dtype=str(dt)[6:], plan=panel_plan(H_c, w_c, dt, ofs=ofs),
+                     us_per_step=1e3 * t["cluster"] / w_c,
+                     **coffset_rows[(str(dt)[6:], ofs)])
+                del X, P
         if "--sweep" in argv:
             # the cluster route's block width b and cluster size C per live
             # height, width and element type (csrc/panel_cluster.cuh plan_for,
@@ -2977,6 +3239,20 @@ def main(argv):
              tp_over_lu_w128=t["tp_factor_w128"] / t["lu_factor_w128"],
              tp_over_lu_w512=t["tp_factor_w512"] / t["lu_factor_w512"])
         del M, v, Ftp, Flu
+        # complex64 tp at one rank beside complex64 lu at the same widths
+        M = crandn(n, n, c64).to(dev)
+        fns = {}
+        for w in (128, 512):
+            cfg_w = rt.LUConfig(panel_width=w)
+            fns[f"tp_factor_w{w}"] = lambda w=w: rt.tp_lu_factor(M, tp_mesh, "tp", w)
+            fns[f"lu_factor_w{w}"] = lambda c=cfg_w: rt.lu(M, check=False, config=c)
+        fns["library_factor"] = lambda: torch.linalg.lu_factor_ex(M)
+        t = round_robin(fns, rounds=5)
+        emit("timing", what="tp_one_rank", card=card, n=n, dtype="complex64", ranks=1,
+             backend=dist.get_backend(tp_mesh.get_group("tp")), ms=t,
+             tp_over_lu_w128=t["tp_factor_w128"] / t["lu_factor_w128"],
+             tp_over_lu_w512=t["tp_factor_w512"] / t["lu_factor_w512"])
+        del M
 
     if "--profile" in argv:
         profile(rt, card, gen, dev, tp_mesh)
@@ -3095,7 +3371,7 @@ def main(argv):
         "source": OFFSET_KERNEL[0],
         "replaces": OFFSET_KERNEL[1],
         # the tp phase's first run: tp_lu at n = 4096, w = 128, one rank
-        "launches": tp_launches[("randn", 4096, 128)],
+        "launches": tp_launches[("randn", 4096, 128, "float32")],
         "max_abs_err": offset_err,
         "ms": orow["kernel_ms"],
         "plain_ms": orow["plain_ms"],
@@ -3107,6 +3383,30 @@ def main(argv):
         "ofs": 0,
         "dtype": "float32",
     })
+    # the complex offset kernel on its cluster route (the tp path's) and its
+    # grid route (none on the path), timed forced on the same panel
+    corow = coffset_rows[("complex64", 0)]
+    for name, route, key in (("panel_lu_c64_offset", "cluster", "kernel_ms"),
+                             ("panel_lu_c64_offset_grid", "grid", "grid_ms")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": SOURCE_C64,
+            "replaces": REPLACES_C64_OFFSET,
+            # the tp phase's complex64 run: tp_lu at n = 4096, w = 128, one rank
+            "launches": tp_launches[("crandn", 4096, 128, "complex64")] if route == "cluster"
+            else 0,
+            "max_abs_err": coffset_err[route],
+            "ms": corow[key],
+            "plain_ms": corow["plain_ms"],
+            "bound_ms": corow["bound_ms"],
+            "bound_by": corow["bound_by"],
+            # torch.linalg.lu_factor_ex on the live rows panel[ofs:]
+            "library_ms": corow["library_ms"],
+            "shape": [4096, 128],
+            "ofs": 0,
+            "dtype": "complex64",
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -29,6 +29,19 @@
 // pivot whose magnitude is beyond the square root of the type's range, where
 // LAPACK's cladiv would still divide safely.
 //
+// The offset form (entry points rf_offset_panel_lu_c*: the panel step of
+// the complex tensor-parallel LU, parallel/blockcyclic.py) runs the same
+// steps on a full-height (m x w) panel from row `ofs`: column k eliminates
+// row ofs + k, the search runs over rows >= ofs + k, the published pivot
+// rows are global, perm is the permutation of all m rows (the identity
+// above `ofs`), rows < ofs are never read or written, and a NaN candidate
+// makes the pivot row m - 1.  It computes ops/unblocked.py
+// `offset_panel_lu_cabs1`, which is `unblocked_lu_cabs1` of rows ofs: with
+// the indices shifted.  The JAX package runs its pure-JAX
+// parallel/blockcyclic.py `_offset_panel_lu` there (no TPU kernel; it
+// pivots by the modulus); the cluster and grid routes below take the
+// offset as csrc/panel_lu.cu's offset kernel does.
+//
 // What is not carried over from the TPU kernel: the split into two f32
 // planes, the transposed (micro + 1, m) shadows, `micro`, `unroll` and the
 // 4-matmul boundary Schur.  They answer Mosaic (no complex type, the lane
@@ -99,22 +112,23 @@ struct PanelArgs {
   using C = typename Pair<T>::type;
   C* a;           // panel, row-major with row stride lda (in complex elements)
   int m, w, lda;
+  int ofs;        // first row of the elimination (kOffset kernels only)
   int pivot;
-  int* piv;       // (min(m, w),)  0-based pivot row of each step
+  int* piv;       // (steps,)      0-based pivot row of each step
   int* perm;      // (m,)          composed row permutation
   int* info;      // (1,)
   C* cand_row;    // [2][G][w]     candidate rows
-  C* krow;        // [2][w]        row k before the swap
+  C* krow;        // [2][w]        row gk before the swap
   C* lrow;        // [2][w]        row m - 1 before the swap
   T* cand_val;    // [2][G]        CABS1 of each block's candidate
   int* cand_idx;  // [2][G]        candidate row index
   int* cand_pid;  // [2][G]        perm id travelling with the candidate row
-  int* kpid;      // [2]           perm id of row k
+  int* kpid;      // [2]           perm id of row gk
   int* lpid;      // [2]           perm id of row m - 1
   int rows;       // rows per block
 };
 
-template <typename T>
+template <typename T, bool kOffset>
 __global__ void __launch_bounds__(kThreads)
 panel_lu_c_kernel(PanelArgs<T> p) {
   using C = typename Pair<T>::type;
@@ -129,16 +143,22 @@ panel_lu_c_kernel(PanelArgs<T> p) {
   const int lane = tid & 31, warp = tid >> 5;
   const int m = p.m, w = p.w;
   const size_t lda = static_cast<size_t>(p.lda);
-  const int minmn = m < w ? m : w;
-  const int r0 = b * p.rows;
+  const int ofs = kOffset ? p.ofs : 0;
+  const int steps = min(m - ofs, w);
+  const int r0 = ofs + b * p.rows;
   const int r1 = min(m, r0 + p.rows);
   const bool own_last = m - 1 >= r0 && m - 1 < r1;
   int info = 0;  // kept by block 0, thread 0
 
   for (int i = r0 + tid; i < r1; i += kThreads) p.perm[i] = i;
+  if (kOffset) {
+    // the rows above the offset never move
+    for (int i = b * kThreads + tid; i < ofs; i += G * kThreads) p.perm[i] = i;
+  }
   __syncthreads();
 
-  for (int k = 0; k < minmn; ++k) {
+  for (int k = 0; k < steps; ++k) {
+    const int gk = ofs + k;  // the row that column k eliminates
     const int par = k & 1;
     T* cval = p.cand_val + par * G;
     int* cidx = p.cand_idx + par * G;
@@ -146,13 +166,13 @@ panel_lu_c_kernel(PanelArgs<T> p) {
     C* crow = p.cand_row + static_cast<size_t>(par) * G * w;
     C* krow = p.krow + static_cast<size_t>(par) * w;
     C* lrow = p.lrow + static_cast<size_t>(par) * w;
-    const bool own_k = k >= r0 && k < r1;
+    const bool own_k = gk >= r0 && gk < r1;
 
-    // ---- phase A: publish the local candidate, row k and row m - 1 ------
+    // ---- phase A: publish the local candidate, row gk and row m - 1 -----
     if (p.pivot) {
       T best = T(-1);
       int bi = INT_MAX;
-      for (int i = max(k, r0) + tid; i < r1; i += kThreads) {
+      for (int i = max(gk, r0) + tid; i < r1; i += kThreads) {
         const C e = p.a[i * lda + k];
         const T v = radd(mag(e.x), mag(e.y));
         if (better(v, i, best, bi)) { best = v; bi = i; }
@@ -193,9 +213,9 @@ panel_lu_c_kernel(PanelArgs<T> p) {
       }
     }
     if (own_k) {
-      const C* src = p.a + k * lda;
+      const C* src = p.a + gk * lda;
       for (int j = tid; j < w; j += kThreads) krow[j] = src[j];
-      if (tid == 0) p.kpid[par] = p.perm[k];
+      if (tid == 0) p.kpid[par] = p.perm[gk];
     }
 
     grid.sync();
@@ -225,7 +245,7 @@ panel_lu_c_kernel(PanelArgs<T> p) {
       }
       __syncthreads();
     }
-    const int kp = p.pivot ? s_kp : k;
+    const int kp = p.pivot ? s_kp : gk;
     const int src_block = p.pivot ? s_src : 0;
     const C* u = !p.pivot ? krow
                  : src_block < 0 ? lrow
@@ -235,14 +255,14 @@ panel_lu_c_kernel(PanelArgs<T> p) {
 
     const C pv = urow[k];
     const bool nz = pv.x != T(0) || pv.y != T(0);
-    const bool do_swap = nz && kp != k;
+    const bool do_swap = nz && kp != gk;
     if (do_swap) {
       if (own_k) {
-        C* dst = p.a + k * lda;
+        C* dst = p.a + gk * lda;
         for (int j = tid; j < w; j += kThreads) dst[j] = urow[j];
         if (tid == 0) {
-          p.perm[k] = src_block < 0 ? __ldcg(p.lpid + par)
-                                    : __ldcg(cpid + src_block);
+          p.perm[gk] = src_block < 0 ? __ldcg(p.lpid + par)
+                                     : __ldcg(cpid + src_block);
         }
       }
       if (kp >= r0 && kp < r1) {
@@ -264,7 +284,7 @@ panel_lu_c_kernel(PanelArgs<T> p) {
       ir = rdiv(pv.x, d);
       ii = rdiv(-pv.y, d);
     }
-    for (int i = max(k + 1, r0) + warp; i < r1; i += kWarps) {
+    for (int i = max(gk + 1, r0) + warp; i < r1; i += kWarps) {
       C* row = p.a + i * lda;
       T lx = T(0), ly = T(0);
       if (lane == 0) {
@@ -294,19 +314,20 @@ panel_lu_c_kernel(PanelArgs<T> p) {
   if (b == 0 && tid == 0) *p.info = info;
 }
 
-template <typename T>
+// Grid over the `m` live rows (those at and below the offset).
+template <typename T, bool kOffset>
 int grid_for(int m, int w, int device, int* grid_out, int* rows_out) {
   using C = typename Pair<T>::type;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = static_cast<size_t>(w) * sizeof(C);
-  err = opt_in_smem(reinterpret_cast<const void*>(panel_lu_c_kernel<T>), smem);
+  err = opt_in_smem(reinterpret_cast<const void*>(panel_lu_c_kernel<T, kOffset>), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, panel_lu_c_kernel<T>, kThreads, smem);
+      &per_sm, panel_lu_c_kernel<T, kOffset>, kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   int g = sms;  // one block per SM at most: the barrier is the cost
@@ -320,14 +341,17 @@ int grid_for(int m, int w, int device, int* grid_out, int* rows_out) {
 }
 
 // The whole plan of an (m, w) panel of complex elements with real parts
-// of type T: the cluster route, or the grid route's grid and workspaces.
-template <typename T>
-int full_plan(int m, int w, int b, int C, int device, Plan* pl) {
-  if (m < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int r = plan_for<typename Pair<T>::type>(m, w, b, C, device, pl);
+// of type T whose elimination starts at row `ofs` (0 unless kOffset): the
+// cluster route, or the grid route's grid and workspaces, for the m - ofs
+// live rows.
+template <typename T, bool kOffset>
+int full_plan(int m, int w, int ofs, int b, int C, int device, Plan* pl) {
+  if (m < 1 || w < 1 || ofs < 0 || (kOffset ? ofs + w > m : ofs != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int r = plan_for<typename Pair<T>::type>(m - ofs, w, b, C, device, pl);
   if (r != kPlanGrid) return r;
   int g = 0, rows = 0;
-  const int err = grid_for<T>(m, w, device, &g, &rows);
+  const int err = grid_for<T, kOffset>(m - ofs, w, device, &g, &rows);
   if (err != 0) return err;
   pl->route = kRouteGrid;
   pl->grid = g;
@@ -336,17 +360,17 @@ int full_plan(int m, int w, int b, int C, int device, Plan* pl) {
   return 0;
 }
 
-template <typename T>
-int run(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv, void* perm,
-        void* info, void* ws, void* iws, int device, void* stream_) {
+template <typename T, bool kOffset>
+int run(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C, void* piv,
+        void* perm, void* info, void* ws, void* iws, int device, void* stream_) {
   using C2 = typename Pair<T>::type;
   Plan pl;
-  int err = full_plan<T>(m, w, b, C, device, &pl);
+  int err = full_plan<T, kOffset>(m, w, ofs, b, C, device, &pl);
   if (err != 0) return err;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (pl.route == kRouteCluster) {
-    return run_cluster<C2>(static_cast<C2*>(a), m, w, lda, pivot, 0, pl, piv, perm, info, iws,
-                           stream);
+    return run_cluster<C2>(static_cast<C2*>(a), m, w, lda, pivot, ofs, pl, piv, perm, info,
+                           iws, stream);
   }
   const int g = pl.grid;
   PanelArgs<T> p;
@@ -354,6 +378,7 @@ int run(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv, void
   p.m = m;
   p.w = w;
   p.lda = lda;
+  p.ofs = ofs;
   p.pivot = pivot;
   p.piv = static_cast<int*>(piv);
   p.perm = static_cast<int*>(perm);
@@ -369,36 +394,21 @@ int run(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv, void
   p.cand_pid = iw + 2 * g;
   p.kpid = iw + 4 * g;
   p.lpid = iw + 4 * g + 2;
-  p.rows = (m + g - 1) / g;
+  p.rows = (m - ofs + g - 1) / g;
   void* args[] = {&p};
   cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(panel_lu_c_kernel<T>), dim3(g), dim3(kThreads),
+      reinterpret_cast<void*>(panel_lu_c_kernel<T, kOffset>), dim3(g), dim3(kThreads),
       args, static_cast<size_t>(w) * sizeof(C2), stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" {
-
-// The plan of a launch on an (m, w) panel of complex elements of
-// `elem_size` bytes (8: complex64, 16: complex128), with block width `b`
-// and cluster size `C` (0, 0: the launcher's choice; b < 0: the grid route;
-// b >= w: one block); `ofs` must be 0 (the complex kernel has no offset
-// form).  Fills out[6] = {route (1 cluster, 0 grid), b (-1 on the grid
-// route), C (the grid route: its grid), blocks, ws reals (of the real
-// type), iws int32s}; the caller allocates the two workspaces with those
-// sizes (at least one element each).  Returns a cudaError_t code, 0 on
-// success; cudaErrorInvalidConfiguration when an explicit (b, C) does not
-// fit the card.
-int rf_panel_lu_c_plan(int m, int w, int elem_size, int ofs, int b, int C, int device,
-                       int* out) {
-  if (ofs != 0 || (elem_size != 8 && elem_size != 16))
-    return static_cast<int>(cudaErrorInvalidValue);
+template <bool kOffset>
+int plan_entry(int m, int w, int elem_size, int ofs, int b, int C, int device, int* out) {
+  if (elem_size != 8 && elem_size != 16) return static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
-  const int err = elem_size == 16 ? full_plan<double>(m, w, b, C, device, &pl)
-                                  : full_plan<float>(m, w, b, C, device, &pl);
+  const int err = elem_size == 16 ? full_plan<double, kOffset>(m, w, ofs, b, C, device, &pl)
+                                  : full_plan<float, kOffset>(m, w, ofs, b, C, device, &pl);
   if (err != 0) return err;
   out[0] = pl.route;
   out[1] = pl.route == kRouteCluster ? pl.b : -1;
@@ -409,6 +419,31 @@ int rf_panel_lu_c_plan(int m, int w, int elem_size, int ofs, int b, int C, int d
   return 0;
 }
 
+}  // namespace
+
+extern "C" {
+
+// The plan of a launch on an (m, w) panel of complex elements of
+// `elem_size` bytes (8: complex64, 16: complex128), with block width `b`
+// and cluster size `C` (0, 0: the launcher's choice; b < 0: the grid route;
+// b >= w: one block); `ofs` must be 0 for the main-path kernel (0 <= ofs
+// <= m - w for the offset kernel, rf_offset_panel_lu_c_plan).  Fills
+// out[6] = {route (1 cluster, 0 grid), b (-1 on the grid route), C (the
+// grid route: its grid), blocks, ws reals (of the real type), iws int32s};
+// the caller allocates the two workspaces with those sizes (at least one
+// element each).  Returns a cudaError_t code, 0 on success;
+// cudaErrorInvalidConfiguration when an explicit (b, C) does not fit the
+// card.
+int rf_panel_lu_c_plan(int m, int w, int elem_size, int ofs, int b, int C, int device,
+                       int* out) {
+  return plan_entry<false>(m, w, elem_size, ofs, b, C, device, out);
+}
+
+int rf_offset_panel_lu_c_plan(int m, int w, int elem_size, int ofs, int b, int C, int device,
+                              int* out) {
+  return plan_entry<true>(m, w, elem_size, ofs, b, C, device, out);
+}
+
 // Factor the panel in place on `stream`, with the plan's (b, C) (0, 0 for
 // the launcher's choice); `a` points at interleaved (re, im) pairs and
 // `lda` counts complex elements.  Returns a cudaError_t code (0 on success)
@@ -416,12 +451,34 @@ int rf_panel_lu_c_plan(int m, int w, int elem_size, int ofs, int b, int C, int d
 // synchronisation.
 int rf_panel_lu_c64(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv,
                     void* perm, void* info, void* ws, void* iws, int device, void* stream) {
-  return run<float>(a, m, w, lda, pivot, b, C, piv, perm, info, ws, iws, device, stream);
+  return run<float, false>(a, m, w, lda, pivot, 0, b, C, piv, perm, info, ws, iws, device,
+                           stream);
 }
 
 int rf_panel_lu_c128(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv,
                      void* perm, void* info, void* ws, void* iws, int device, void* stream) {
-  return run<double>(a, m, w, lda, pivot, b, C, piv, perm, info, ws, iws, device, stream);
+  return run<double, false>(a, m, w, lda, pivot, 0, b, C, piv, perm, info, ws, iws, device,
+                            stream);
+}
+
+// The offset kernel: factor rows [ofs, m) of the complex panel in place on
+// `stream`, as rf_offset_panel_lu_f32 of csrc/panel_lu.cu does for real
+// panels: piv (w,) holds global rows, perm (m,) the permutation of all m
+// rows (the identity above `ofs`), info the signed panel-local step; rows
+// < ofs are neither read nor written.  A NaN among a step's candidates
+// makes the pivot row m - 1, the last row of the panel.
+int rf_offset_panel_lu_c64(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C,
+                           void* piv, void* perm, void* info, void* ws, void* iws, int device,
+                           void* stream) {
+  return run<float, true>(a, m, w, lda, pivot, ofs, b, C, piv, perm, info, ws, iws, device,
+                          stream);
+}
+
+int rf_offset_panel_lu_c128(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C,
+                            void* piv, void* perm, void* info, void* ws, void* iws, int device,
+                            void* stream) {
+  return run<double, true>(a, m, w, lda, pivot, ofs, b, C, piv, perm, info, ws, iws, device,
+                           stream);
 }
 
 // Phase trace of the cluster route's chain kernel, as rf_panel_lu_set_trace

@@ -216,8 +216,11 @@ def dispatch_route(shape, dtype, pivot: bool = True,
       matrices reach it promoted).  Fat matrices fall through to the swap
       schedule, as in the JAX package, and so do complex ones: the
       no-swap kernel is real, as the TPU's is float32;
-    * ``"generic"``: integer and other types, which raise
-      ``NotImplementedError`` until they are ported.
+    * ``"generic"``: integer and bool types -- the float64 copy is
+      factored by the route of its own shape, as scipy's ``lu_factor``
+      does, and the factors stay float64 (the JAX package computes in the
+      integer type and gets wrong factors: ``[[2, 1], [4, 3]]`` gives
+      ``[[4, 3], [0, 1]]`` there).
 
     Complex matrices take ``"whole"`` / ``"blocked"`` by the same rule as
     real ones (the JAX package's ``"complex-unblocked"`` /
@@ -243,12 +246,6 @@ def dispatch_route(shape, dtype, pivot: bool = True,
     if minmn <= config.small_threshold and m >= n:
         return "whole"
     return "blocked"
-
-
-# the ROADMAP.md item that will port each deferred route
-_DEFERRED = {
-    "generic": "Queue 1 item 14 (integer and generic dtypes)",
-}
 
 
 def _empty_factorization(A):
@@ -279,11 +276,10 @@ def _dispatch_factor(A: torch.Tensor, pivot: bool, config: LUConfig):
 
 def _factor_by_route(A: torch.Tensor, pivot: bool, config: LUConfig):
     route = dispatch_route(A.shape, A.dtype, pivot, config)
-    if route in _DEFERRED:
-        raise NotImplementedError(
-            f"route {route!r} for {A.dtype} is not ported yet: ROADMAP.md "
-            f"{_DEFERRED[route]}"
-        )
+    if route == "generic":
+        # integer and bool inputs: factor the float64 copy; the factors
+        # stay float64 (A cannot hold them)
+        return _factor_by_route(A.to(torch.float64), pivot, config)
     if route == "promote":
         # Half inputs: factor the exact float32 promotion, round the
         # factors back.  ipiv, perm and info are those of the float32 run.
@@ -315,11 +311,14 @@ def _as_matrix(A, device) -> torch.Tensor:
 
 def _donated(A, device, what) -> torch.Tensor:
     """``A`` itself, after the checks an in-place factorization needs: a
-    contiguous matrix on the call's device (an integer one raises later,
-    at the route)."""
+    contiguous floating or complex matrix on the call's device (an integer
+    or bool one cannot hold its float64 factors)."""
     dev = resolve_device(device)
     if not isinstance(A, torch.Tensor):
         raise TypeError(f"{what} needs a torch.Tensor to overwrite")
+    if not (A.dtype.is_floating_point or A.dtype.is_complex):
+        raise TypeError(f"{what} needs a floating or complex tensor to hold the factors, "
+                        f"got {A.dtype}: an integer matrix factors as float64 out of place")
     if A.device.type != dev.type or (
         dev.index is not None and A.device.index != dev.index
     ):

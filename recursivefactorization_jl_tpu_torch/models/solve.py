@@ -111,6 +111,8 @@ def lu_solve_refined(lu_res, A, b, iters: int = 2, trans=0) -> torch.Tensor:
         return x.to(lu_res.factors.dtype)
     perm = lu_res.p if lu_res.pivoted else lu_res.ipiv
     A = torch.as_tensor(A, device=lu_res.factors.device)
+    if not (A.dtype.is_floating_point or A.dtype.is_complex):
+        A = A.to(lu_res.factors.dtype)  # an integer matrix's factors are float64
     b = _rhs(lu_res, b)
     x = _lu_solve_impl(lu_res.factors, perm, b, lu_res.pivoted, trans)
     bm = b if b.ndim > 1 else b[:, None]
@@ -152,6 +154,8 @@ def solve(A, b, pivot=True, *, trans=0, check="auto", config=None,
         x = solve(A.float(), b.to(A.dtype).float(), pivot, trans=trans,
                   check=check, config=config, device=dev)
         return x.to(A.dtype)
+    if not (A.dtype.is_floating_point or A.dtype.is_complex):
+        A = A.to(torch.float64)  # the generic route: integer and bool as float64
     if trans != 0 or A.ndim != 2 or A.shape[0] != A.shape[1]:
         F = lu(A, pivot, check=check, config=config, device=dev)
         return lu_solve(F, b, trans)

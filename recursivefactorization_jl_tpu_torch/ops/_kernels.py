@@ -2,10 +2,14 @@
 
 Each source under ``csrc/`` is compiled by ``nvcc`` into a shared library
 with a plain C interface and loaded with ``ctypes``.  Libraries go to
-``build/kernels/`` beside the package (``.gitignore`` lists ``build/``),
-named by a hash of the source, the header the sources share and the flags,
-so a changed source is rebuilt at its first use.  Nothing here runs at
-import time.  A missing ``nvcc`` or a failed build raises.
+``BUILD_DIR`` (:func:`default_build_dir`: ``build/kernels/`` of the
+checkout the package sits in, which ``.gitignore`` lists, or a user cache
+directory for an installed package; ``utils.warmup.enable_persistent_cache``
+moves it), named by a hash of the source, the headers the sources share
+and the flags, so a changed source is rebuilt at its first use.  The
+sources and headers are the package's data, so an installed wheel builds
+them too.  Nothing here runs at import time but the directory's
+resolution.  A missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -21,7 +25,23 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
-BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+# the build directory of an installed package (the JAX package keeps its
+# compilation cache beside it, in ~/.cache/recursivefactorization_jl_tpu/xla)
+USER_CACHE = Path("~/.cache/recursivefactorization_jl_tpu_torch/kernels")
+
+
+def default_build_dir() -> Path:
+    """Where the kernels are built unless ``enable_persistent_cache`` says
+    otherwise: ``build/kernels/`` of the checkout when the package sits in
+    one (its parent holds ``pyproject.toml``), else :data:`USER_CACHE`,
+    never a directory beside an installed package."""
+    root = PACKAGE_DIR.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "kernels"
+    return USER_CACHE.expanduser()
+
+
+BUILD_DIR = default_build_dir()
 SOURCES = {
     name: PACKAGE_DIR / "csrc" / f"{name}.cu"
     for name in ("panel_lu", "panel_lu_c64", "panel_lu_micro",
@@ -93,6 +113,9 @@ SIGNATURES = {
         "rf_panel_lu_c_plan": _PANEL_PLAN,
         "rf_panel_lu_c64": _PANEL_BC,
         "rf_panel_lu_c128": _PANEL_BC,
+        "rf_offset_panel_lu_c_plan": _PANEL_PLAN,
+        "rf_offset_panel_lu_c64": _PANEL_OFS_BC,
+        "rf_offset_panel_lu_c128": _PANEL_OFS_BC,
         "rf_panel_lu_c_set_trace": (_I, [_P]),
         "rf_error_string": (ctypes.c_char_p, [_I]),
     },

@@ -31,7 +31,8 @@ route of its own (the available rows compacted per block, no row moves;
 ``offset_panel_factor`` is the panel layer of the tensor-parallel LU
 (parallel/blockcyclic.py): the offset kernel of csrc/panel_lu.cu (the
 port of ``_offset_panel_kernel``) on the card, ``offset_panel_lu`` on the
-CPU.
+CPU; complex panels take the offset form of csrc/panel_lu_c64.cu on the
+card and ``offset_panel_lu_cabs1`` on the CPU.
 
 There is no fallback between kernel and plain version: a CUDA tensor
 launches the kernel or raises.  A route is chosen by the panel's shape or
@@ -52,6 +53,7 @@ from . import _kernels
 from .unblocked import (
     micro_blocked_lu,
     offset_panel_lu,
+    offset_panel_lu_cabs1,
     unblocked_lu,
     unblocked_lu_cabs1,
     unblocked_lu_noswap,
@@ -87,7 +89,7 @@ def panel_route(m: int, w: int, dtype, config: LUConfig, device="cuda") -> str:
         raise NotImplementedError(
             "the Hopper panel kernels take float32/float64/complex64/"
             f"complex128, not {dtype} (half types reach them promoted to "
-            "float32; integer and generic types: ROADMAP.md Queue 1 item 14)"
+            "float32, integer and bool types converted to float64)"
         )
     if config.backend == "xla":
         raise ValueError(
@@ -132,20 +134,19 @@ def _plan(cplx, m, w, size, ofs, block, cluster, index):
     name = "panel_lu_c64" if cplx else "panel_lu"
     lib = _kernels.load(name)
     out = (ctypes.c_int * 6)()
-    fn = (lib.rf_panel_lu_c_plan if cplx else
-          lib.rf_panel_lu_plan if ofs is None else lib.rf_offset_panel_lu_plan)
+    if cplx:
+        fn = lib.rf_panel_lu_c_plan if ofs is None else lib.rf_offset_panel_lu_c_plan
+    else:
+        fn = lib.rf_panel_lu_plan if ofs is None else lib.rf_offset_panel_lu_plan
     code = fn(m, w, size, ofs or 0, block, cluster, index, out)
     _kernels.check(lib, code, f"{name} plan")
     return tuple(out)
 
 
-def _check_plan_request(dtype, ofs, block, cluster):
+def _check_plan_request(dtype, block, cluster):
     if dtype not in _REAL + _COMPLEX:
         raise ValueError(
             f"panel dtype must be float32/float64/complex64/complex128, got {dtype}")
-    if dtype in _COMPLEX and ofs is not None:
-        raise ValueError("the complex panel kernel has no offset form (ROADMAP.md "
-                         "Queue 1 item 18)")
     _check_block_cluster(block, cluster)
 
 
@@ -167,15 +168,15 @@ def panel_plan(m: int, w: int, dtype, ofs=None, block: int = 0,
     """How the panel kernel of ``dtype`` factors an (m, w) panel on the
     card: csrc/panel_lu.cu for float32/float64, as the main-path kernel
     (``ofs=None``) or as the offset kernel from row ``ofs``;
-    csrc/panel_lu_c64.cu for complex64/complex128 (``ofs=None`` only).
+    csrc/panel_lu_c64.cu for complex64/complex128, likewise.
     Returns ``{"route": "cluster" | "grid", "block": b, "cluster": C,
     "grid": G, "blocks": launches of the chain kernel, "ws_reals",
     "iws_ints"}`` (workspace sizes).  ``block`` and ``cluster`` 0 ask for
     the launcher's choice (what the main path runs); ``block < 0`` forces
     the grid route and ``block >= w`` one block.  Raises ValueError for a
-    dtype or an offset the kernels do not take, RuntimeError where the
-    card cannot run an explicit choice."""
-    _check_plan_request(dtype, ofs, block, cluster)
+    dtype the kernels do not take, RuntimeError for an offset outside
+    [0, m - w] and where the card cannot run an explicit choice."""
+    _check_plan_request(dtype, block, cluster)
     size = torch.empty((), dtype=dtype).element_size()
     return _plan_dict(_plan(dtype in _COMPLEX, m, w, size, ofs, block, cluster,
                             _device_index(device)))
@@ -280,7 +281,7 @@ def _launch_panel_lu(wrapper, panel, pivot, ofs, block, cluster, dtypes=_REAL):
     allocation."""
     m, w, lda, index, real, size = _check_panel(wrapper.__name__, panel, dtypes)
     cplx = panel.is_complex()
-    _check_plan_request(panel.dtype, ofs, block, cluster)
+    _check_plan_request(panel.dtype, block, cluster)
     route, _, _, _, ws_reals, iws_ints = _plan(cplx, m, w, panel.element_size(), ofs, block,
                                                cluster, index)
     dev = panel.device
@@ -293,15 +294,10 @@ def _launch_panel_lu(wrapper, panel, pivot, ofs, block, cluster, dtypes=_REAL):
     wrapper.launches += 1
     if route == 0:
         wrapper.grid_route_launches += 1
-    if cplx:
-        fn = lib.rf_panel_lu_c64 if size == 4 else lib.rf_panel_lu_c128
-        extra = ()
-    elif ofs is not None:
-        fn = lib.rf_offset_panel_lu_f32 if size == 4 else lib.rf_offset_panel_lu_f64
-        extra = (ofs,)
-    else:
-        fn = lib.rf_panel_lu_f32 if size == 4 else lib.rf_panel_lu_f64
-        extra = ()
+    kind = ("c64" if size == 4 else "c128") if cplx else ("f32" if size == 4 else "f64")
+    prefix = "rf_panel_lu" if ofs is None else "rf_offset_panel_lu"
+    fn = getattr(lib, f"{prefix}_{kind}")
+    extra = () if ofs is None else (ofs,)
     code = fn(
         panel.data_ptr(), m, w, lda, int(bool(pivot)), *extra, block, cluster,
         piv.data_ptr(), perm.data_ptr(), info.data_ptr(),
@@ -350,14 +346,18 @@ def offset_panel_factor_cuda(panel: torch.Tensor, ofs: int, pivot: bool, *,
     for :func:`panel_factor_cuda`.  ``offset_panel_factor_cuda.launches``
     counts the launches, ``.grid_route_launches`` those on the grid
     route."""
-    H, w = _check_panel("offset_panel_factor_cuda", panel, _REAL)[:2]
-    if not isinstance(ofs, int) or isinstance(ofs, bool) or not 0 <= ofs <= H - w:
-        raise ValueError(f"offset {ofs!r} outside [0, {H - w}] for a {H} x {w} panel")
+    _check_offset(offset_panel_factor_cuda, panel, ofs, _REAL)
     return _launch_panel_lu(offset_panel_factor_cuda, panel, pivot, ofs, block, cluster)
 
 
 offset_panel_factor_cuda.launches = 0
 offset_panel_factor_cuda.grid_route_launches = 0
+
+
+def _check_offset(wrapper, panel, ofs, dtypes):
+    H, w = _check_panel(wrapper.__name__, panel, dtypes)[:2]
+    if not isinstance(ofs, int) or isinstance(ofs, bool) or not 0 <= ofs <= H - w:
+        raise ValueError(f"offset {ofs!r} outside [0, {H - w}] for a {H} x {w} panel")
 
 
 def panel_factor_c64_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
@@ -387,6 +387,32 @@ def panel_factor_c64_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
 
 panel_factor_c64_cuda.launches = 0
 panel_factor_c64_cuda.grid_route_launches = 0
+
+
+def offset_panel_factor_c64_cuda(panel: torch.Tensor, ofs: int, pivot: bool, *,
+                                 block: int = 0, cluster: int = 0):
+    """Launch the offset form of the Hopper complex panel kernel on the
+    full-height ``panel`` in place: column k eliminates row ``ofs + k``;
+    rows above ``ofs`` are neither read nor written.
+
+    ``panel``: CUDA, complex64 or complex128, 2-D, rows contiguous, not a
+    lazily conjugated view, H x w with ``0 <= ofs <= H - w``.  Pivots by
+    CABS1 as :func:`panel_factor_c64_cuda` does; a NaN among a step's
+    candidates makes the pivot row H - 1.  Returns ``(piv, perm, info)``
+    as :func:`offset_panel_factor_cuda` does (global pivot rows, the
+    permutation of all H rows, the signed panel-local info) and computes
+    ``offset_panel_lu_cabs1(panel, ofs, pivot)`` bitwise.  Launches on the
+    current stream and does not synchronise.  ``block`` / ``cluster`` as
+    for :func:`panel_factor_cuda` (``block=-1``: the grid route).
+    ``offset_panel_factor_c64_cuda.launches`` counts the launches,
+    ``.grid_route_launches`` those on the grid route."""
+    _check_offset(offset_panel_factor_c64_cuda, panel, ofs, _COMPLEX)
+    return _launch_panel_lu(offset_panel_factor_c64_cuda, panel, pivot, ofs, block, cluster,
+                            _COMPLEX)
+
+
+offset_panel_factor_c64_cuda.launches = 0
+offset_panel_factor_c64_cuda.grid_route_launches = 0
 
 
 def micro_max_cuda() -> int:
@@ -578,8 +604,9 @@ def panel_factor_noswap(panel: torch.Tensor, used0: torch.Tensor, pivot: bool,
 
 def offset_panel_route(device, config: LUConfig) -> str:
     """Which implementation runs the offset panel step on ``device``:
-    ``"kernel"`` (CUDA: the offset kernel of csrc/panel_lu.cu) or
-    ``"plain"`` (CPU: ``offset_panel_lu``).  ``config.tp_panel_backend``
+    ``"kernel"`` (CUDA: the offset kernel of csrc/panel_lu.cu, or for
+    complex panels that of csrc/panel_lu_c64.cu) or ``"plain"`` (CPU:
+    ``offset_panel_lu``, or ``offset_panel_lu_cabs1``).  ``config.tp_panel_backend``
     ``'auto'`` and ``'pallas'`` mean the kernel on CUDA; ``'jax'`` names
     the plain version, which runs on the CPU only, and raises for CUDA, as
     ``backend='xla'`` does in :func:`panel_route`."""
@@ -598,9 +625,12 @@ def offset_panel_factor(panel: torch.Tensor, ofs: int, pivot: bool, config: LUCo
     panel step of the tensor-parallel LU).  Returns ``(panel, piv, perm,
     info)`` as :func:`offset_panel_factor_cuda` describes them; the route
     is :func:`offset_panel_route`'s."""
+    cplx = panel.is_complex()
     if offset_panel_route(panel.device, config) == "kernel":
-        piv, perm, info = offset_panel_factor_cuda(panel, ofs, pivot)
+        launch = offset_panel_factor_c64_cuda if cplx else offset_panel_factor_cuda
+        piv, perm, info = launch(panel, ofs, pivot)
         return panel, piv, perm, info
-    f, piv, perm, info = offset_panel_lu(panel, ofs, pivot)
+    plain = offset_panel_lu_cabs1 if cplx else offset_panel_lu
+    f, piv, perm, info = plain(panel, ofs, pivot)
     panel.copy_(f)
     return panel, piv, perm, info

@@ -24,7 +24,8 @@ plain version of the two micro-blocked kernels (csrc/panel_lu_micro.cu)
 and ``unblocked_lu_noswap`` that of the physical-order kernel
 (csrc/panel_lu_noswap.cu); both serve real panels only.
 ``offset_panel_lu`` is the plain version of the offset kernel (the
-tensor-parallel panel of csrc/panel_lu.cu, ``kOffset``).
+tensor-parallel panel of csrc/panel_lu.cu, ``kOffset``), and
+``offset_panel_lu_cabs1`` that of the complex one (csrc/panel_lu_c64.cu).
 """
 
 from __future__ import annotations
@@ -155,6 +156,28 @@ def unblocked_lu_cabs1(A: torch.Tensor, pivot: bool):
             Re[k + 1 :, k + 1 :].sub_(torch.outer(lre, ure) - torch.outer(lim, uim))
             Im[k + 1 :, k + 1 :].sub_(torch.outer(lre, uim) + torch.outer(lim, ure))
     return A, ipiv, perm, torch.tensor(info, dtype=torch.int32, device=dev)
+
+
+def offset_panel_lu_cabs1(panel: torch.Tensor, ofs: int, pivot: bool):
+    """:func:`offset_panel_lu` for a complex panel: the LU of the rows
+    ``ofs:`` of the full-height ``panel`` (H x w) by
+    :func:`unblocked_lu_cabs1` (CABS1 pivots; a NaN candidate makes the
+    pivot row H - 1), with the pivot rows shifted to global rows and the
+    permutation of all H rows.  Returns ``(LU, piv, perm, info)`` as
+    :func:`offset_panel_lu` does; the input is not modified.
+
+    The plain version of the complex offset kernel (csrc/panel_lu_c64.cu,
+    ``rf_offset_panel_lu_c*``) and the CPU route of the complex
+    tensor-parallel panel step.  The JAX package's
+    ``_offset_panel_lu`` pivots complex panels by the modulus instead."""
+    H, w = panel.shape
+    if not 0 <= ofs <= H - w:
+        raise ValueError(f"offset {ofs} outside [0, {H - w}] for a {H} x {w} panel")
+    f, piv, perm, info = unblocked_lu_cabs1(panel[ofs:], pivot)
+    out = panel.resolve_conj().clone()
+    out[ofs:] = f
+    head = torch.arange(ofs, dtype=torch.int32, device=panel.device)
+    return out, piv + ofs, torch.cat([head, perm + ofs]), info
 
 
 def _delayed_trsm(A, q0: int, p0: int, c0: int) -> None:

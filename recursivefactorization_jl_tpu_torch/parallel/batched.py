@@ -23,6 +23,8 @@ those library routes on both devices (the JAX package sends complex64
 batches to its platform LU; there is no complex batched kernel).  Half
 batches (bfloat16/float16) are promoted to float32, run the float32
 routes, kernels included, and the factors or solutions are rounded back.
+Integer and bool batches run the float64 routes, kernels included, and
+their factors stay float64.
 ``backend='xla'`` forces
 those library routes; ``backend='pallas'`` forces the kernels and raises
 for a shape they cannot run.  On the CPU (``device='cpu'``) the kernels'
@@ -100,10 +102,9 @@ def _as_batch(A, device, square=False, what="batched_lu_factor"):
         want = "(B, n, n)" if square else "(B, m, n)"
         raise ValueError(f"{what} expects {want}, got {tuple(A.shape)}")
     if not (A.dtype.is_floating_point or A.dtype.is_complex):
-        raise NotImplementedError(
-            f"{what}: {A.dtype} batches are not ported (ROADMAP.md Queue 1 "
-            "item 14)"
-        )
+        # integer and bool batches factor as float64, as scipy's lu_factor
+        # does (the single-device generic route)
+        A = A.to(torch.float64)
     return A
 
 

@@ -39,8 +39,16 @@ every rank the whole factors.  A factorization makes nb = n/w panel
 broadcasts and that one ``all_reduce``; a solve makes 2*nb broadcasts of
 an (n, k) update.
 
-float32 and float64 run the offset kernel on the card; complex and half
-matrices raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 18).
+float32 and float64 panels run the offset kernel of csrc/panel_lu.cu on
+the card, complex64 and complex128 ones the offset form of
+csrc/panel_lu_c64.cu (CABS1 pivots, as the single-device complex ``lu``;
+the JAX package's pure-JAX panel pivots by the modulus there).  Half
+matrices (bfloat16, float16) take the ``promote`` route of the
+single-device ``lu``: the float32 copy is factored and the factors are
+rounded back; a half solve runs in float32 and rounds the solution back.
+Integer and bool matrices are factored as their float64 copies, as
+scipy's ``lu_factor`` does, and the factors stay float64 (the
+single-device ``generic`` route).
 """
 
 from __future__ import annotations
@@ -74,17 +82,15 @@ from .collectives import axis_group, broadcast, gather_by_sum
 STAGES = 4
 
 
-def _check_dtype(dtype, what: str) -> None:
-    if dtype in (torch.float32, torch.float64):
-        return
-    if dtype.is_complex or dtype in HALF_DTYPES:
-        raise NotImplementedError(
-            f"{what}: {dtype} is not ported to the tensor-parallel path "
-            "(ROADMAP.md Queue 1 item 18); the single-device lu takes it"
-        )
-    raise NotImplementedError(
-        f"{what}: {dtype} matrices are not ported (ROADMAP.md Queue 1 item 14)"
-    )
+def _working_dtype(dtype):
+    """The type the panel loop runs in for a matrix of ``dtype``: float32
+    for half types, float64 for integer and bool types, the type itself
+    otherwise."""
+    if dtype in HALF_DTYPES:
+        return torch.float32
+    if not (dtype.is_floating_point or dtype.is_complex):
+        return torch.float64
+    return dtype
 
 
 def _padded(M: torch.Tensor, N: int) -> torch.Tensor:
@@ -166,7 +172,13 @@ def tp_lu_factor_p(
     n = A.shape[0]
     if A.ndim != 2 or A.shape[1] != n:
         raise ValueError(f"tp_lu_factor expects a square matrix, got {tuple(A.shape)}")
-    _check_dtype(A.dtype, "tp_lu_factor")
+    work = _working_dtype(A.dtype)
+    if work != A.dtype:
+        # half: the exact float32 promotion, its factors rounded back;
+        # integer and bool: float64, as the single-device generic route
+        F, ipiv, perm, info = tp_lu_factor_p(A.to(work), mesh, axis, panel_width, pivot,
+                                             config, A.device)
+        return (F.to(A.dtype) if A.dtype in HALF_DTYPES else F), ipiv, perm, info
     offset_panel_route(A.device, config)  # raise before any collective
     group, D, me = axis_group(mesh, axis)
     w = panel_width
@@ -276,19 +288,26 @@ def tp_lu_solve(
     right-hand sides stay replicated and each panel step broadcasts one
     update from its owner (2 * nb broadcasts in all).  ``b`` is (n,) or
     (n, k).  ``trans`` takes 0/'N', 1/'T' and 2/'H' (the same for real
-    factors): the transposed factors are distributed and the two sweeps
-    swap their triangles, then the result is un-permuted.  The semantics
-    are those of :func:`~..models.solve.lu_solve`."""
+    factors): the transposed factors (conjugated for 2/'H') are
+    distributed and the two sweeps swap their triangles, then the result is
+    un-permuted.  The semantics are those of
+    :func:`~..models.solve.lu_solve`: half factors solve in float32, with
+    the right-hand side rounded to the half type first and the solution
+    rounded back."""
     t = normalize_trans(trans)
     dev = resolve_device(device)
     F = torch.as_tensor(lu_res.factors, device=dev)
     n = F.shape[0]
     if F.ndim != 2 or F.shape[1] != n:
         raise ValueError("tp_lu_solve requires a square factorization")
-    _check_dtype(F.dtype, "tp_lu_solve")
     b = torch.as_tensor(b, device=dev)
     vec = b.ndim == 1
-    B = (b[:, None] if vec else b).to(F.dtype)
+    B = b[:, None] if vec else b
+    out = F.dtype if F.dtype in HALF_DTYPES else None
+    if out is not None:
+        B = B.to(out)  # the rhs takes the half type, as in the single-device solve
+    F = F.to(_working_dtype(F.dtype))
+    B = B.to(F.dtype)
     if B.ndim != 2 or B.shape[0] != n:
         raise ValueError(f"rhs rows {B.shape[0]} do not match factorization size {n}")
     p = lu_res.p.to(dev).long() if lu_res.pivoted else None
@@ -296,7 +315,9 @@ def tp_lu_solve(
         if p is not None:
             B = B[p]
     else:
-        F = F.T  # A = P^T L U  =>  A^T x = b: U^T y = b, L^T z = y, x = P^T z
+        # A = P^T L U  =>  A^T x = b: U^T y = b, L^T z = y, x = P^T z; A^H
+        # conjugates the factors
+        F = F.mH.resolve_conj() if t == 2 else F.T
     group, D, me = axis_group(mesh, axis)
     w = panel_width
     N = n + (-n % (D * w))
@@ -308,4 +329,6 @@ def tp_lu_solve(
     x = r[:n]
     if t != 0 and p is not None:
         x = x[invert_perm(p)]
+    if out is not None:
+        x = x.to(out)
     return x[:, 0] if vec else x

@@ -208,16 +208,33 @@ def full_matmul_precision():
     about three decimal digits.  The setting governs complex64 products
     as well (cuBLAS may run them in TF32 when it is allowed).  The deliberate reduced modes are the
     explicit ``schur_precision`` knobs (ops/schur.py), which build their
-    bf16 operands by hand."""
-    mm = torch.backends.cuda.matmul.allow_tf32
-    cd = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    bf16 operands by hand.
+
+    PyTorch has two APIs for the setting, and once a caller has set the
+    current one (``torch.backends.cuda.matmul.fp32_precision``,
+    ``torch.backends.cudnn.conv.fp32_precision``) it refuses to read the
+    legacy flags (``allow_tf32``).  So the block saves, sets to
+    ``'ieee'`` and restores the current attributes when the legacy flags
+    cannot be read, and the legacy flags otherwise (a caller who set
+    those, or neither, can read them inside the block, and finds them
+    as they were after it)."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    try:
+        legacy = (matmul.allow_tf32, cudnn.allow_tf32)
+    except RuntimeError:
+        legacy = None
+    if legacy is None:
+        saved = (matmul.fp32_precision, cudnn.conv.fp32_precision)
+        matmul.fp32_precision = cudnn.conv.fp32_precision = "ieee"
+    else:
+        matmul.allow_tf32 = cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = mm
-        torch.backends.cudnn.allow_tf32 = cd
+        if legacy is None:
+            matmul.fp32_precision, cudnn.conv.fp32_precision = saved
+        else:
+            matmul.allow_tf32, cudnn.allow_tf32 = legacy
 
 
 def resolve_device(device=None) -> torch.device:

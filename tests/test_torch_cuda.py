@@ -22,6 +22,7 @@ from recursivefactorization_jl_tpu_torch.ops.panel import (
     micro_plan,
     noswap_plan,
     offset_panel_factor,
+    offset_panel_factor_c64_cuda,
     offset_panel_factor_cuda,
     panel_factor_basic_cuda,
     panel_factor_c64_cuda,
@@ -33,6 +34,7 @@ from recursivefactorization_jl_tpu_torch.ops.panel import (
 from recursivefactorization_jl_tpu_torch.ops.unblocked import (
     micro_blocked_lu,
     offset_panel_lu,
+    offset_panel_lu_cabs1,
     unblocked_lu,
     unblocked_lu_cabs1,
     unblocked_lu_noswap,
@@ -397,8 +399,10 @@ def test_c64_kernel_grid_route_forced_and_for_tall_panels(dtype):
         assert panel_factor_c64_cuda.grid_route_launches == g0 + 1
         assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
         assert torch.equal(_cbits(P), _cbits(f))
-    with pytest.raises(ValueError):
-        panel_plan(900, 40, dtype, ofs=0)
+    # the offset form plans the live rows; an offset beyond m - w is refused
+    assert panel_plan(900, 40, dtype, ofs=0, block=-1)["route"] == "grid"
+    with pytest.raises(RuntimeError):
+        panel_plan(900, 40, dtype, ofs=861)
     with pytest.raises(RuntimeError):
         panel_plan(5000, 512, dtype, block=512, cluster=1)
     if dtype == torch.complex128:
@@ -1345,3 +1349,238 @@ def test_tp_on_the_card_in_a_world_of_one_rank():
         assert torch.equal(f, f0) and torch.equal(ipiv, ipiv0) and torch.equal(info, info0)
     finally:
         dist.destroy_process_group()
+
+
+def _offset_complex(H, w, ofs, dtype, pivot, name, g):
+    A = _crandn((H, w), g, dtype)
+    if not pivot:
+        A[ofs + torch.arange(w), torch.arange(w)] += H
+    if name == "zero_col":
+        A[ofs:, w // 2] = 0
+    if name == "nan":
+        A[ofs + min(10, H - ofs - 1), 3] = complex(float("nan"), 1.0)
+    if name == "ties":
+        real = A.real.dtype
+        A = torch.complex(torch.randint(-2, 3, (H, w), generator=g).to(real),
+                          torch.randint(-2, 3, (H, w), generator=g).to(real))
+    return A.cuda()
+
+
+def _same_cbits_nan(x, y):
+    return _same_bits_nan(torch.view_as_real(x).contiguous(),
+                          torch.view_as_real(y).contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("block", [0, -1])
+@pytest.mark.parametrize("shape,ofs", [((1, 1), 0), ((40, 8), 32), ((300, 64), 0),
+                                       ((300, 64), 100), ((1024, 128), 896),
+                                       ((513, 256), 1)])
+def test_offset_c64_kernel_bitwise_equals_plain(dtype, pivot, block, shape, ofs):
+    """The offset form of the complex kernel on its cluster route and its
+    grid route (``block=-1``) against ``offset_panel_lu_cabs1``: global
+    pivot rows, the permutation of all rows, info, factors bitwise, the
+    rows above the offset untouched; randn, a zeroed column, exact CABS1
+    ties and (pivoted) a NaN candidate, whose step and every later one
+    take row H - 1."""
+    need_cuda()
+    H, w = shape
+    g = torch.Generator().manual_seed(13)
+    names = ("randn", "zero_col") + (("ties", "nan") if pivot and w > 4 else ())
+    for name in names:
+        A = _offset_complex(H, w, ofs, dtype, pivot, name, g)
+        f, piv, perm, info = offset_panel_lu_cabs1(A, ofs, pivot)
+        P = A.clone()
+        k0, g0 = offset_panel_factor_c64_cuda.launches, offset_panel_factor_c64_cuda.grid_route_launches
+        kpiv, kperm, kinfo = offset_panel_factor_c64_cuda(P, ofs, pivot, block=block)
+        torch.cuda.synchronize()
+        assert offset_panel_factor_c64_cuda.launches == k0 + 1
+        assert offset_panel_factor_c64_cuda.grid_route_launches - g0 == (block < 0)
+        assert torch.equal(kpiv, piv) and torch.equal(kperm, perm), name
+        assert int(kinfo) == int(info), name
+        assert _same_cbits_nan(P, f) and torch.equal(_cbits(P[:ofs]), _cbits(A[:ofs])), name
+        if name == "zero_col" and w > 1:
+            assert int(kinfo) == (w // 2 + 1) * (1 if pivot else -1)
+        if name == "nan":
+            assert (kpiv[3:] == H - 1).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("block,cluster", [(8, 1), (16, 4), (32, 16), (0, 0), (64, 4)])
+def test_offset_c64_kernel_plans_leave_the_rows_above(dtype, block, cluster):
+    """Block widths and cluster sizes of the complex offset kernel's
+    cluster route (each fits the card for both types at 500 live rows)."""
+    need_cuda()
+    H, w, ofs = 600, 64, 100
+    g = torch.Generator().manual_seed(23)
+    A = _offset_complex(H, w, ofs, dtype, True, "zero_col", g)
+    f, piv, perm, info = offset_panel_lu_cabs1(A, ofs, True)
+    P = A.clone()
+    plan = panel_plan(H, w, dtype, ofs=ofs, block=block, cluster=cluster)
+    assert plan["route"] == "cluster"
+    kpiv, kperm, kinfo = offset_panel_factor_c64_cuda(P, ofs, True, block=block,
+                                                      cluster=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(kpiv, piv) and torch.equal(kperm, perm) and int(kinfo) == int(info)
+    assert torch.equal(_cbits(P), _cbits(f)) and torch.equal(_cbits(P[:ofs]), _cbits(A[:ofs]))
+
+
+def test_offset_c64_kernel_strided_and_bad_arguments():
+    need_cuda()
+    g = torch.Generator().manual_seed(14)
+    M = _crandn((512, 512), g, torch.complex64).cuda()
+    ref = M.clone()
+    view = M[:, 128:256]
+    f, piv, perm, info = offset_panel_lu_cabs1(ref[:, 128:256], 200, True)
+    kpiv, kperm, kinfo = offset_panel_factor_c64_cuda(view, 200, True)
+    torch.cuda.synchronize()
+    assert torch.equal(_cbits(view), _cbits(f)) and torch.equal(kpiv, piv)
+    assert torch.equal(kperm, perm)
+    rest = torch.ones(512, 512, dtype=torch.bool, device="cuda")
+    rest[200:, 128:256] = False
+    assert torch.equal(M[rest], ref[rest])
+    A = _crandn((256, 64), g, torch.complex64).cuda()
+    for bad in (lambda: offset_panel_factor_c64_cuda(A, 193, True),
+                lambda: offset_panel_factor_c64_cuda(A, -1, True),
+                lambda: offset_panel_factor_c64_cuda(A.cpu(), 0, True),
+                lambda: offset_panel_factor_c64_cuda(A.real.contiguous(), 0, True),
+                lambda: offset_panel_factor_c64_cuda(A.conj(), 0, True),
+                lambda: offset_panel_factor_cuda(A, 0, True)):
+        with pytest.raises(ValueError):
+            bad()
+
+
+def _one_rank_world():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    return init_device_mesh("cuda", (1,), mesh_dim_names=("tp",))
+
+
+def test_tp_complex_half_and_integer_on_the_card_in_a_world_of_one_rank():
+    """Complex matrices run the complex offset kernel (n / w launches, no
+    real offset launch), half ones the float32 offset kernel on their
+    promotion, integer ones the float64 offset kernel; pivots equal the
+    single-device ``lu``'s at the same width, and the solves (N, T, H)
+    meet their residual gates."""
+    need_cuda()
+    mesh = _one_rank_world()
+    try:
+        rng = np.random.default_rng(42)
+        n, w = 640, 128
+        cfg = rt.LUConfig(panel_width=w, small_threshold=0)
+        cases = [
+            (torch.complex64, rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))),
+            (torch.complex128, rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))),
+            (torch.bfloat16, rng.standard_normal((n, n)) + n * np.eye(n)),
+            (torch.float16, rng.standard_normal((n, n)) + n * np.eye(n)),
+            (torch.int32, rng.integers(-100, 100, (n, n))),
+        ]
+        for dt, M in cases:
+            A = torch.tensor(M, device="cuda").to(dt)
+            cplx = dt.is_complex
+            counts = (offset_panel_factor_cuda.launches, offset_panel_factor_c64_cuda.launches)
+            F = rt.tp_lu(A, mesh, "tp", w)
+            torch.cuda.synchronize()
+            got = (offset_panel_factor_cuda.launches - counts[0],
+                   offset_panel_factor_c64_cuda.launches - counts[1])
+            assert got == ((0, n // w) if cplx else (n // w, 0)), (dt, got)
+            want = torch.float64 if dt == torch.int32 else dt
+            assert F.factors.dtype == want and int(F.info) == 0
+            G = rt.lu(A, config=cfg)
+            assert torch.equal(F.ipiv, G.ipiv) and torch.equal(F.p, G.p), dt
+            work = F.factors.to(torch.complex128 if cplx else torch.float64)
+            L = torch.tril(work, -1) + torch.eye(n, dtype=work.dtype, device="cuda")
+            Aw = A.to(work.dtype)
+            # the factors' own precision: half, the complex type's, float64
+            eps = torch.finfo(F.factors.real.dtype if cplx else F.factors.dtype).eps
+            r = float((L @ torch.triu(work) - Aw[F.p.long()]).abs().max())
+            assert r < 20 * n * eps * float(Aw.abs().max()), (dt, r)
+            b = torch.tensor(rng.standard_normal(n), device="cuda").to(F.factors.dtype)
+            for t in ("N", "T", "H"):
+                x = rt.tp_lu_solve(F, b, mesh, "tp", w, trans=t)
+                op = {"N": Aw, "T": Aw.T, "H": Aw.mH}[t]
+                res = float((op @ x.to(work.dtype) - b.to(work.dtype)).abs().max())
+                assert x.dtype == F.factors.dtype and res < 1e-1, (dt, t, res)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_full_precision_under_the_current_tf32_api_on_the_card():
+    """With ``fp32_precision = 'tf32'`` set by the caller, ``lu`` +
+    ``lu_solve`` on the card run every matmul under ``'ieee'`` (no TF32
+    product: the residual stays under the float32 gate) and the caller's
+    setting comes back."""
+    need_cuda()
+    from torch.overrides import TorchFunctionMode
+
+    mm, conv = torch.backends.cuda.matmul, torch.backends.cudnn.conv
+    before = (mm.fp32_precision, conv.fp32_precision)
+    seen = []
+
+    class Watch(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__, torch.mm):
+                seen.append(mm.fp32_precision)
+            return func(*args, **(kwargs or {}))
+
+    try:
+        mm.fp32_precision = "tf32"
+        conv.fp32_precision = "tf32"
+        g = torch.Generator().manual_seed(5)
+        n = 1536
+        A = torch.randn(n, n, generator=g).cuda()
+        b = torch.randn(n, generator=g).cuda()
+        with Watch():
+            F = rt.lu(A)
+            x = rt.lu_solve(F, b)
+            torch.cuda.synchronize()
+        assert seen and set(seen) == {"ieee"}
+        assert (mm.fp32_precision, conv.fp32_precision) == ("tf32", "tf32")
+        r = float((F.L.double() @ F.U.double() - A.double()[F.p.long()]).abs().max())
+        assert r < 20 * n * torch.finfo(torch.float32).eps * float(A.abs().max())
+        assert float((A.double() @ x.double() - b.double()).abs().max()) < 1e-2
+    finally:
+        mm.fp32_precision, conv.fp32_precision = before
+
+
+def test_integer_matrices_run_the_float64_kernels():
+    """An int32 matrix and an int32 batch factor on the float64 kernels
+    (the panel kernel, the batched swap kernel and solve), bitwise as
+    their float64 copies do."""
+    need_cuda()
+    rng = np.random.default_rng(43)
+    A = torch.tensor(rng.integers(-100, 100, (1536, 1536)), dtype=torch.int32, device="cuda")
+    k0 = panel_factor_cuda.launches
+    F = rt.lu(A)
+    x = rt.lu_solve(F, torch.arange(1536, dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    assert panel_factor_cuda.launches - k0 == 3 and F.factors.dtype == x.dtype == torch.float64
+    G = rt.lu(A.double())
+    assert torch.equal(F.factors, G.factors) and torch.equal(F.p, G.p)
+    Ab = torch.tensor(rng.integers(-100, 100, (1000, 16, 16)), dtype=torch.int32, device="cuda")
+    bb = torch.tensor(rng.integers(-100, 100, (1000, 16)), dtype=torch.int32, device="cuda")
+    f, ipiv, info = rt.batched_lu_factor(Ab)
+    xb = rt.batched_lu_solve(f, ipiv, bb)
+    f2, ipiv2, info2 = rt.batched_lu_factor(Ab.double())
+    assert f.dtype == xb.dtype == torch.float64
+    assert torch.equal(f, f2) and torch.equal(ipiv, ipiv2) and torch.equal(info, info2)
+    assert torch.equal(xb, rt.batched_lu_solve(f2, ipiv2, bb.double()))
+
+
+def test_warmup_builds_and_runs_on_the_card(tmp_path):
+    need_cuda()
+    from recursivefactorization_jl_tpu_torch.utils import profiling, warmup
+
+    warmup.warmup(((256, 256), (300, 200)), (torch.float32, torch.complex64, torch.int32))
+    A = torch.randn(512, 512, device="cuda")
+    best, F = profiling.timed(lambda M: rt.lu(M), A, reps=2)
+    assert best > 0 and F.factors.is_cuda
+    stats = profiling.marginal_time_stats(lambda M: rt.lu(M), A, k1=1, k2=3, reps=2)
+    assert stats["time_s"] > 0 and stats["k2"] == 3
+    with profiling.trace(str(tmp_path)):
+        rt.lu(A)
+    assert (tmp_path / profiling.TRACE_FILE).is_file()

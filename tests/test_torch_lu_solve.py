@@ -308,13 +308,17 @@ def test_xla_threshold_delegates_to_torch_lu():
     pytest.param(torch.int32, "generic", id="dtype3-generic"),
 ])
 def test_deferred_routes_raise(dtype, route):
-    """The generic route still raises; half matrices take the promote
-    route and complex ones the routes of real matrices, and factor."""
+    """None of these routes raises any more: the generic route factors the
+    float64 copy and keeps float64 factors, half matrices take the promote
+    route and complex ones the routes of real matrices."""
     assert rt.dispatch_route((8, 8), dtype) == route
     A = torch.ones(8, 8, dtype=dtype) + 8 * torch.eye(8, dtype=dtype)
     if route == "generic":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rt.lu(A, device="cpu")
+        F = rt.lu(A, device="cpu")
+        G = rt.lu(A.double(), device="cpu")
+        assert F.factors.dtype == torch.float64 and int(F.info) == 0
+        assert torch.equal(F.ipiv, G.ipiv) and torch.equal(F.p, G.p)
+        assert torch.equal(F.factors, G.factors)
         return
     cfg = rt.LUConfig(small_threshold=4, panel_width=4)
     if dtype.is_complex:

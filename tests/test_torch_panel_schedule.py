@@ -262,9 +262,9 @@ def test_complex_blocked_order_equals_unblocked_lu_cabs1(b, dtype, name, pivot):
 
 def test_panel_plan_takes_complex_dtypes_and_refuses_bad_requests(monkeypatch):
     """panel_plan hands complex dtypes to csrc/panel_lu_c64.cu's plan (with
-    the element's byte size) and refuses, before any build, what no kernel
-    takes: other dtypes, an offset on a complex panel (no complex offset
-    kernel), a block or cluster that is not an int."""
+    the element's byte size), with an offset too (its offset form), and
+    refuses, before any build, what no kernel takes: other dtypes, a block
+    or cluster that is not an int."""
     asked = []
 
     def fake_plan(cplx, m, w, size, ofs, block, cluster, index):
@@ -278,14 +278,15 @@ def test_panel_plan_takes_complex_dtypes_and_refuses_bad_requests(monkeypatch):
     plan = panel_mod.panel_plan(1000, 40, torch.complex128, block=-1, device="cuda:0")
     assert plan["route"] == "grid" and plan["grid"] == 132 and plan["block"] is None
     panel_mod.panel_plan(1000, 40, torch.float64, ofs=5, block=8, cluster=2, device="cuda:0")
+    panel_mod.panel_plan(1000, 40, torch.complex64, ofs=960, device="cuda:0")
     assert asked == [(True, 1000, 40, 8, None, 0, 0, 0), (True, 1000, 40, 16, None, -1, 0, 0),
-                     (False, 1000, 40, 8, 5, 8, 2, 0)]
-    for kw in ({"dtype": torch.complex64, "ofs": 0}, {"dtype": torch.int32},
+                     (False, 1000, 40, 8, 5, 8, 2, 0), (True, 1000, 40, 8, 960, 0, 0, 0)]
+    for kw in ({"dtype": torch.int32}, {"dtype": torch.int32, "ofs": 0},
                {"dtype": torch.float16}, {"dtype": torch.complex64, "block": True},
                {"dtype": torch.float32, "cluster": 2.0}):
         with pytest.raises(ValueError):
             panel_mod.panel_plan(1000, 40, device="cuda:0", **kw)
-    assert len(asked) == 3
+    assert len(asked) == 4
     with pytest.raises(ValueError):  # the launching wrapper takes CUDA tensors only
         panel_mod.panel_factor_c64_cuda(torch.zeros(8, 4, dtype=torch.complex64), True,
                                         block=8, cluster=1)
@@ -344,6 +345,7 @@ def test_ctypes_signatures_match_the_c_entry_points():
     spelled_out = {"panel_lu", "panel_lu_c64", "panel_lu_micro", "panel_lu_noswap",
                    "batched_solve"}
     assert {"rf_panel_lu_c_plan", "rf_panel_lu_c64", "rf_panel_lu_c128",
+            "rf_offset_panel_lu_c_plan", "rf_offset_panel_lu_c64", "rf_offset_panel_lu_c128",
             "rf_panel_lu_c_set_trace"} <= set(_kernels.SIGNATURES["panel_lu_c64"])
     assert {"rf_panel_lu_micro_plan", "rf_panel_lu_shadow_f32", "rf_panel_lu_shadow_f64",
             "rf_panel_lu_basic_f32", "rf_panel_lu_basic_f64",

@@ -299,17 +299,27 @@ def test_tp_solve_collective_canary(pools, f64_case):
 
 
 def test_tp_and_sharded_refuse_what_is_not_ported(pools):
-    raised = pools[2].run("raises")["raised"]
-    assert raised == {
-        "complex": "NotImplementedError",
-        "half": "NotImplementedError",
-        "integer": "NotImplementedError",
+    """The refusals that stand (not square, rhs rows, a batch that does not
+    split, an unknown panel backend); complex, half and integer matrices,
+    which were refused until their port, now factor: complex in their own
+    type, half rounded back from float32, integer as float64."""
+    got = pools[2].run("raises")
+    assert got["raised"] == {
+        "complex": None,
+        "half": None,
+        "integer": None,
         "not_square": "ValueError",
         "rhs_rows": "ValueError",
-        "complex_solve": "NotImplementedError",
+        "complex_solve": None,
         "batch_split": "ValueError",
         "tp_backend": "ValueError",
-    }, raised
+    }, got["raised"]
+    assert got["results"] == {
+        "complex": {"dtype": "torch.complex128", "info": 0},
+        "half": {"dtype": "torch.float16", "info": 0},
+        "integer": {"dtype": "torch.float64", "info": 0},
+        "complex_solve": {"dtype": "torch.complex64", "info": None},
+    }, got["results"]
 
 
 def test_entry_points_default_to_the_card():

@@ -30,35 +30,53 @@ def _recording(name, fn):
     return call
 
 
+def _np(t):
+    """``t`` as a numpy array; bfloat16 and float16 (which numpy lacks or
+    the test compares in float32) as their exact float32 values."""
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return t.numpy()
+
+
+def _input(A, dtype):
+    """``A`` as a tensor of the named torch dtype (None: as numpy gives it)."""
+    A = torch.as_tensor(A)
+    return A if dtype is None else A.to(getattr(torch, dtype))
+
+
 def _factorization(F):
-    return dict(F=F.factors.numpy(), ipiv=F.ipiv.numpy(), perm=F.p.numpy(),
-                info=int(F.info))
+    return dict(F=_np(F.factors), ipiv=F.ipiv.numpy(), perm=F.p.numpy(),
+                info=int(F.info), dtype=str(F.factors.dtype))
 
 
-def tp_factor(meshes, A, w, pivot=True, config=None):
-    """``tp_lu_factor_p`` of ``A``, with the collectives it made."""
+def tp_factor(meshes, A, w, pivot=True, config=None, dtype=None):
+    """``tp_lu_factor_p`` of ``A`` (of the torch type ``dtype``), with the
+    collectives it made."""
     cfg = rt.config_from_mapping(config or {})
-    F, ipiv, perm, info = rt.tp_lu_factor_p(A, meshes["tp"], "tp", w, pivot, cfg,
-                                            device="cpu")
-    return dict(F=F.numpy(), ipiv=ipiv.numpy(), perm=perm.numpy(), info=int(info),
-                calls=list(CALLS))
+    F, ipiv, perm, info = rt.tp_lu_factor_p(_input(A, dtype), meshes["tp"], "tp", w, pivot,
+                                            cfg, device="cpu")
+    return dict(F=_np(F), ipiv=ipiv.numpy(), perm=perm.numpy(), info=int(info),
+                dtype=str(F.dtype), calls=list(CALLS))
 
 
-def tp_solve(meshes, A, w, rhs, pivot=True, single_device=False):
-    """Factor ``A`` with ``tp_lu`` (or the single-device ``lu``) and solve
-    each ``(b, trans)`` of ``rhs`` with ``tp_lu_solve``; the collectives of
-    each solve apart."""
+def tp_solve(meshes, A, w, rhs, pivot=True, single_device=False, dtype=None):
+    """Factor ``A`` (of the torch type ``dtype``) with ``tp_lu`` (or the
+    single-device ``lu``) and solve each ``(b, trans)`` of ``rhs`` with
+    ``tp_lu_solve``; the collectives of each solve apart."""
     mesh = meshes["tp"]
+    A = _input(A, dtype)
     if single_device:
         F = rt.lu(A, pivot, check=False, device="cpu")
     else:
         F = rt.tp_lu(A, mesh, "tp", w, pivot, device="cpu")
-    xs, calls = [], []
+    xs, calls, xdtypes = [], [], []
     for b, trans in rhs:
         del CALLS[:]
-        xs.append(rt.tp_lu_solve(F, b, mesh, "tp", w, trans, device="cpu").numpy())
+        x = rt.tp_lu_solve(F, b, mesh, "tp", w, trans, device="cpu")
+        xs.append(_np(x))
+        xdtypes.append(str(x.dtype))
         calls.append(list(CALLS))
-    return dict(x=xs, calls=calls, **_factorization(F))
+    return dict(x=xs, x_dtype=xdtypes, calls=calls, **_factorization(F))
 
 
 def sharded(meshes, A, b, pivot=True):
@@ -94,14 +112,20 @@ def raises(meshes):
             np.eye(64), mesh, "tp", 32, config=rt.LUConfig(tp_panel_backend="mosaic"),
             device="cpu"),
     }
-    out = {}
+    out, results = {}, {}
     for name, call in bad.items():
         try:
-            call()
+            got = call()
             out[name] = None
         except Exception as e:  # noqa: BLE001 - the name is the result
             out[name] = type(e).__name__
-    return dict(raised=out, calls=list(CALLS))
+            continue
+        # what a call that no longer raises returns: the type of its
+        # factors or solution, and info for a factorization
+        first = got if isinstance(got, torch.Tensor) else got[0]
+        results[name] = dict(dtype=str(first.dtype),
+                             info=None if isinstance(got, torch.Tensor) else int(got[-1]))
+    return dict(raised=out, results=results, calls=list(CALLS))
 
 
 TASKS = {f.__name__: f for f in (tp_factor, tp_solve, sharded, raises)}
