@@ -205,6 +205,37 @@ functions) and its offset kernel add:
             ``--sweep`` adds the panel kernel's b x C sweep per live height
             and width (f32, and f64 at three shapes).
 
+The boundary knob, ``panel_boundary_precision='bf16x3'`` (the tensor-core
+update of csrc/panel_cluster.cuh in csrc/panel_lu.cu's bf16x3 form), adds:
+
+2g. kernel  the update alone at nb = 8, 16, 20, 32 and 64 on 1000 x 300
+            and 8192 x 512 views (row stride > width) against the exact
+            float64 sum of its three split products: the worst ratio to
+            2^-24 ((nb + 2) sum |products| + |result|) must be at most 1,
+            nothing outside C written; against its plain version (the
+            split in torch) for the kernels line; an inf in L and in U:
+            NaN where the plain version has NaN; then f32 panels 1536 /
+            4096 / 8192 x 512 in 32-step blocks (randn pivoted and not, a
+            zeroed column, exact ties, a NaN) against ``micro_blocked_lu
+            (..., 'bf16x3')`` on the card: info equal, one update per
+            boundary, ipiv equal or parting at a tie within 2^-8 of the
+            column, with equal pivots perm and NaN equal and the factors
+            within twice the knob's own effect (plain bf16x3 - plain
+            float32), the residual gate; a 40000-row panel refused;
+3g. main    ``lu`` + ``lu_solve`` under the knob at n = 1536 (entry
+            matrix, randn, a zeroed column), 4096 and 8192 (randn), alone
+            and with ``schur_precision='bf16x3'``: residual gate beside the
+            float32 form's scaled residual on the same matrix, info, no
+            TF32 product, panel launches (all in the bf16x3 form, none on
+            a grid route) and update launches per ``lu``;
+4g. timing  in turns: the update alone at each main-path panel's first
+            boundary beside its plain version and one float32
+            ``addmm_``; the panel per shape in the bf16x3 form beside the
+            float32 form at the same block width, at its default plan and
+            the library; ``lu`` factor and factor+solve at 1536 / 4096 /
+            8192 under float32, bf16x3 and bf16x3 + bf16x3 Schur beside
+            the library.
+
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
 before it, and the exit code is not 0.  Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -500,8 +531,9 @@ def device_rows(prof):
 
 def profile(rt, card, gen, dev, tp_mesh):
     """Device time by kernel over one factor + solve at 1536 and 4096 in
-    float32 (the default route, ``schedule='physical'`` and
-    ``panel_variant='shadow'``) and complex64, over two RBT solves at
+    float32 (the default route, ``schedule='physical'``,
+    ``panel_variant='shadow'`` and ``panel_boundary_precision='bf16x3'``)
+    and complex64, over two RBT solves at
     1536, over one batched factor + solve of 10 000 matrices at n = 16, 64
     and 128 (perm, ipiv and noswap pairs),
     and over ``tp_lu`` + ``tp_lu_solve`` on ``tp_mesh`` (one rank) beside
@@ -561,7 +593,8 @@ def profile(rt, card, gen, dev, tp_mesh):
         if dt.is_complex:
             continue
         for name, cfg in (("physical", rt.LUConfig(schedule="physical")),
-                          ("shadow", rt.LUConfig(panel_variant="shadow"))):
+                          ("shadow", rt.LUConfig(panel_variant="shadow")),
+                          ("bf16x3", rt.LUConfig(panel_boundary_precision="bf16x3"))):
             run(lambda: rt.lu(M, check=False, config=cfg), lambda F: rt.lu_solve(F, v),
                 n=n, dtype=str(dt)[6:], config=name)
     n = 1536
@@ -596,6 +629,382 @@ def profile(rt, card, gen, dev, tp_mesh):
         cfg = rt.LUConfig(panel_width=w)
         run(lambda: rt.lu(M, check=False, config=cfg), lambda F: rt.lu_solve(F, v),
             n=n, dtype="float32", panel_width=w)
+
+
+def first_choice_gap(A, pa, pb):
+    """Two pivot sequences of one real matrix or panel part at step k:
+    eliminate k steps in float64 with the pivots they share (columns k and
+    before: they alone decide column k) and return k and ||c[a]| - |c[b]||
+    / max|c| for the two rows chosen there from column k."""
+    import torch
+
+    k = int((pa != pb).nonzero()[0])
+    M = A[:, :k + 1].double().clone()
+    for j in range(k):
+        pj = int(pa[j])
+        M[[j, pj]] = M[[pj, j]]
+        M[j + 1:, j] /= M[j, j]
+        M[j + 1:, j + 1:] -= torch.outer(M[j + 1:, j], M[j, j + 1:])
+    c = M[:, k].abs()
+    return k, float((c[int(pa[k])] - c[int(pb[k])]).abs() / c[k:].max())
+
+
+# ---- panel_boundary_precision='bf16x3': phases 2g, 3g and 4g ---------------
+
+# the kernel of the bf16x3 update (built into csrc/panel_lu.cu's library) and
+# the TPU kernel's boundary matmul it replaces (`mmb` in _panel_kernel_fori)
+BF16X3_UPDATE = ("recursivefactorization_jl_tpu_torch/csrc/panel_cluster.cuh",
+                 "recursivefactorization_jl_tpu/ops/panel.py:472")
+# H100 SXM data sheet: dense bf16 on the tensor cores
+PEAK_BF16 = 989e12
+BF16X3_SHAPES = ((1536, 512), (4096, 512), (8192, 512))
+BF16X3_MICRO = 32  # LUConfig().resolved_panel_micro(): the knob's block width
+# where the kernel's and the plain version's pivots part, the two candidates
+# must tie to a bf16's precision relative to the column (both are bf16x3
+# computations, which part by the split's rounding)
+BF16X3_TIE = 2.0 ** -8
+
+
+def bf16x3_reference(C, L, U):
+    """``C - (hh + hl + lh)`` in float64 (the products of two bf16 values are
+    exact there) and the sum of the three products' magnitudes."""
+    import torch
+
+    def split(X):
+        h = X.to(torch.bfloat16)
+        return h.double(), (X - h.float()).to(torch.bfloat16).double()
+
+    lh, ll = split(L)
+    uh, ul = split(U)
+    ref = C.double() - (lh @ uh + lh @ ul + ll @ uh)
+    mag = lh.abs() @ uh.abs() + lh.abs() @ ul.abs() + ll.abs() @ uh.abs()
+    return ref, mag
+
+
+def bf16x3_ratio(out, ref, mag, nb):
+    """The worst |out - ref| over the deterministic bound 2^-24 ((nb + 2)
+    sum |products| + |ref|) of the tensor-core sums and the two roundings
+    after them."""
+    import torch
+
+    err = (out.double() - ref).abs()
+    bnd = 2.0 ** -24 * ((nb + 2) * mag + ref.abs())
+    r = torch.where(bnd > 0, err / bnd.clamp_min(1e-300), (err > 0).double() * float("inf"))
+    return float(r.max())
+
+
+def bf16x3_blocks(m, w, b):
+    """The block boundaries of an (m, w) panel in blocks of b steps:
+    (rows, cols, nb) of each update the launcher issues."""
+    b = min(b, m, w)
+    steps = min(m, w)
+    out = []
+    if b >= w:
+        return out
+    for k0 in range(0, steps, b):
+        nb = min(b, steps - k0)
+        rows, cols = m - k0 - nb, w - k0 - nb
+        if rows > 0 and cols > 0:
+            out.append((rows, cols, nb))
+    return out
+
+
+def bf16x3_update_bound(rows, cols, nb):
+    """One update: L, U and C read once, C written once; three products of
+    2 rows cols nb operations at the bf16 tensor-core peak."""
+    t_ops = 3 * 2 * rows * cols * nb / PEAK_BF16
+    t_bytes = 4 * (rows * nb + nb * cols + 2 * rows * cols) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def bf16x3_panel_bound(m, w, b):
+    """A panel in the bf16x3 form: the panel's float32 operations less its
+    delayed updates' products at the f32 peak, plus those updates' three
+    bf16 products at the bf16 peak; or the panel's bytes."""
+    flops, nbytes = panel_flops_bytes(m, w, 4)
+    upd = sum(2 * r * c * nb for r, c, nb in bf16x3_blocks(m, w, b))
+    t_ops = (flops - upd) / PEAK_FLOPS["float32"] + 3 * upd / PEAK_BF16
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def bf16x3_kernel_phase(dev, gen):
+    """Phase 2g: the bf16x3 update alone against the exact sum of its split
+    products and against its plain version, then the bf16x3 form of the
+    panel kernel against ``micro_blocked_lu(..., 'bf16x3')`` on the card.
+    Returns the largest |kernel - plain| of the update."""
+    import torch
+
+    from recursivefactorization_jl_tpu_torch.ops.panel import (
+        bf16x3_plan,
+        panel_factor_cuda,
+        panel_update_bf16x3_cuda,
+    )
+    from recursivefactorization_jl_tpu_torch.ops.schur import schur_product
+    from recursivefactorization_jl_tpu_torch.ops.unblocked import micro_blocked_lu
+
+    max_err = 0.0
+    for nb in (8, 16, 20, 32, 64):
+        for rows, cols in ((1000, 300), (8192, 512)):
+            big = torch.randn(rows + nb + 1, cols + nb + 3, generator=gen).to(dev)
+            C, L, U = big[nb:nb + rows, nb:nb + cols], big[nb:nb + rows, :nb], big[:nb, nb:nb + cols]
+            ref, mag = bf16x3_reference(C, L, U)
+            plain = C - schur_product(L, U, "bf16x3")
+            before = big.clone()
+            k0 = panel_update_bf16x3_cuda.launches
+            panel_update_bf16x3_cuda(C, L, U)
+            torch.cuda.synchronize()
+            outside = torch.ones_like(big, dtype=torch.bool)
+            outside[nb:nb + rows, nb:nb + cols] = False
+            err = float((C - plain).abs().max())
+            max_err = max(max_err, err)
+            rec = dict(kernel="panel_lu_bf16x3_update", nb=nb, shape=[rows, cols],
+                       lda=big.stride(0), worst_ratio_to_bound=bf16x3_ratio(C, ref, mag, nb),
+                       plain_worst_ratio_to_bound=bf16x3_ratio(plain, ref, mag, nb),
+                       max_abs_err=err, launched=panel_update_bf16x3_cuda.launches - k0,
+                       rest_untouched=bool(torch.equal(big[outside], before[outside])))
+            emit("kernel", **rec)
+            if not (rec["worst_ratio_to_bound"] <= 1 and rec["launched"] == 1
+                    and rec["rest_untouched"]):
+                fail(f"the bf16x3 update: {rec}")
+    # an inf in L or U: NaN where the plain version has NaN
+    L, U, C = (torch.randn(*s, generator=gen).to(dev) for s in ((512, 32), (32, 480), (512, 480)))
+    L[3, 2], U[5, 7] = float("inf"), float("-inf")
+    plain = C - schur_product(L, U, "bf16x3")
+    panel_update_bf16x3_cuda(C, L, U)
+    nan_same = bool(torch.equal(torch.isnan(C), torch.isnan(plain)))
+    emit("kernel", kernel="panel_lu_bf16x3_update", input="inf in L and in U",
+         nan_count=int(torch.isnan(C).sum()), nan_equal_plain=nan_same)
+    if not nan_same:
+        fail("the bf16x3 update's NaN entries are not the plain version's")
+
+    for m, w in BF16X3_SHAPES:
+        base = torch.randn(m, w, generator=gen)
+        for name, pivot in (("randn", True), ("randn", False), ("zero_col", True),
+                            ("ties", True), ("nan", True)):
+            A = (torch.randint(-2, 3, (m, w), generator=gen).float() if name == "ties"
+                 else base.clone()).to(dev)
+            if name == "zero_col":
+                A[:, 100] = 0
+            if name == "nan":
+                A[30, 9] = float("nan")
+            if not pivot:
+                A += m * torch.eye(m, w, device=dev)
+            P = A.clone()
+            u0 = panel_factor_cuda.bf16x3_update_launches
+            piv, perm, info = panel_factor_cuda(P, pivot, block=BF16X3_MICRO, precision="bf16x3")
+            torch.cuda.synchronize()
+            updates = panel_factor_cuda.bf16x3_update_launches - u0
+            f, rpiv, rperm, rinfo = micro_blocked_lu(A, pivot, BF16X3_MICRO, "bf16x3")
+            f32 = micro_blocked_lu(A, pivot, BF16X3_MICRO)[0]
+            rec = dict(kernel="panel_lu_bf16x3", shape=[m, w], input=name, pivot=pivot,
+                       plan=bf16x3_plan(m, w, BF16X3_MICRO), info=int(info),
+                       info_equal=int(info) == int(rinfo), ipiv_equal=bool(torch.equal(piv, rpiv)),
+                       updates=updates, expected_updates=len(bf16x3_blocks(m, w, BF16X3_MICRO)))
+            ok = rec["info_equal"] and updates == rec["expected_updates"]
+            finite = bool(torch.isfinite(A).all())
+            if not rec["ipiv_equal"]:
+                rec["first_differing_step"], rec["tie_gap"] = first_choice_gap(A, piv, rpiv)
+                ok = ok and finite and rec["tie_gap"] <= BF16X3_TIE
+            else:
+                spread = float((f - f32).nan_to_num(0).abs().max())
+                diff = float((P - f).nan_to_num(0).abs().max())
+                rec.update(perm_equal=bool(torch.equal(perm, rperm)),
+                           nan_equal=bool(torch.equal(torch.isnan(P), torch.isnan(f))),
+                           max_abs_err=diff, knob_effect=spread,
+                           tolerance=2 * spread + 2.0 ** -20 * float(f.nan_to_num(0).abs().max()))
+                ok = ok and rec["perm_equal"] and rec["nan_equal"] and diff <= rec["tolerance"]
+            if finite:
+                k = min(m, w)
+                Lm = torch.tril(P[:, :k].double(), -1) + torch.eye(m, k, dtype=torch.float64,
+                                                                   device=dev)
+                r = float((Lm @ torch.triu(P[:k].double()) - A.double()[perm.long()]).abs().max())
+                g = 20 * m * torch.finfo(torch.float32).eps * float(A.abs().max())
+                rec.update(resid=r, gate=g if pivot else 10 * g ** 0.5)
+                ok = ok and r < rec["gate"]
+            emit("kernel", **rec)
+            if not ok:
+                fail(f"the bf16x3 panel disagrees with its plain version: {rec}")
+            if name == "zero_col" and int(info) != 101:
+                fail(f"zeroed column 100 gave info {int(info)}")
+    # a panel too tall for a cluster is refused, never factored without the
+    # split: the tallest 512-wide panel each block width plans (to 1024 rows)
+    for b in (BF16X3_MICRO, 8):
+        m = 16384
+        while m <= 131072:
+            try:
+                bf16x3_plan(m + 1024, 512, b)
+            except NotImplementedError as e:
+                refused = str(e)
+                break
+            m += 1024
+        else:
+            fail(f"the bf16x3 form planned every 512-wide panel to 131072 rows at b {b}")
+        emit("kernel", kernel="panel_lu_bf16x3", width=512, block=b, tallest_planned=m,
+             refused=[m + 1024, 512], message=refused[:160])
+    return max_err
+
+
+def bf16x3_main_phase(rt, dev, TF32Watch, resid_gate, solve_resid):
+    """Phase 3g: ``lu`` + ``lu_solve`` under ``panel_boundary_precision=
+    'bf16x3'`` at n = 1536 / 4096 / 8192, alone and with ``schur_precision=
+    'bf16x3'``.  Returns the launch counts per run."""
+    import numpy as np
+    import torch
+
+    from recursivefactorization_jl_tpu_torch.ops.panel import (
+        panel_factor_cuda,
+        panel_update_bf16x3_cuda,
+    )
+
+    rng = np.random.default_rng(12)
+    cfg = rt.LUConfig()
+    w = cfg.resolved_panel_width()
+    b = cfg.resolved_panel_micro()
+    counts = {}
+    runs = [(1536, "entry"), (1536, "randn"), (1536, "zero_col"), (4096, "randn"),
+            (8192, "randn")]
+    tf32_before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True  # the port must turn it off
+    for n, name in runs:
+        M = rng.standard_normal((n, n), dtype=np.float32)
+        if name == "entry":
+            M += np.float32(n) * np.eye(n, dtype=np.float32)
+        if name == "zero_col":
+            M[:, 700] = 0
+        A = torch.from_numpy(M).to(dev)
+        v = torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).to(dev)
+        del M
+        route = rt.dispatch_route((n, n), torch.float32, True, cfg)
+        panels = [(n - s, min(w, n - s)) for s in range(0, n, w)] if route == "blocked" \
+            else [(n, n)]
+        expect_updates = sum(len(bf16x3_blocks(pm, pw, b)) for pm, pw in panels)
+        # the float32 form on the same matrix, for its scaled residual
+        F32 = rt.lu(A, check=False)
+        r32 = resid_gate(A, F32)[0] / (n * torch.finfo(torch.float32).eps * float(A.abs().max()))
+        del F32
+        for schur in ("float32", "bf16x3") if name != "zero_col" else ("float32",):
+            knob = rt.LUConfig(panel_boundary_precision="bf16x3", schur_precision=schur)
+            watch = TF32Watch()
+            panel_factor_cuda.launches = panel_factor_cuda.grid_route_launches = 0
+            panel_factor_cuda.bf16x3_launches = panel_factor_cuda.bf16x3_update_launches = 0
+            panel_update_bf16x3_cuda.launches = 0
+            with watch:
+                F = rt.lu(A, check=False, config=knob)
+                x = rt.lu_solve(F, v)
+                torch.cuda.synchronize()
+            got = dict(panel_launches=panel_factor_cuda.launches,
+                       bf16x3_panel_launches=panel_factor_cuda.bf16x3_launches,
+                       bf16x3_update_launches=panel_factor_cuda.bf16x3_update_launches,
+                       grid_route_launches=panel_factor_cuda.grid_route_launches)
+            counts[(n, name, schur)] = got
+            r, g = resid_gate(A, F)
+            rec = dict(what="bf16x3", n=n, input=name, schur_precision=schur, route=route,
+                       **got, expected_panels=len(panels), expected_updates=expect_updates,
+                       resid=r, gate=g,
+                       scaled_resid=r / (n * torch.finfo(torch.float32).eps * float(A.abs().max())),
+                       float32_scaled_resid=r32,
+                       solve_rel_resid=solve_resid(A, x, v), info=int(F.info),
+                       matmuls=len(watch.flags), tf32_seen=any(watch.flags))
+            emit("main", **rec)
+            want_info = 701 if name == "zero_col" else 0
+            if not (got["panel_launches"] == got["bf16x3_panel_launches"] == len(panels)
+                    and got["bf16x3_update_launches"] == expect_updates
+                    and got["grid_route_launches"] == 0 and r < g and rec["info"] == want_info
+                    and watch.flags and not any(watch.flags)
+                    and (name == "zero_col" or np.isfinite(rec["solve_rel_resid"]))):
+                fail(f"lu under panel_boundary_precision='bf16x3': {rec}")
+        del A, v, F, x
+    if torch.backends.cuda.matmul.allow_tf32 is not True:
+        fail("the caller's TF32 setting was not restored")
+    torch.backends.cuda.matmul.allow_tf32 = tf32_before
+    return counts
+
+
+def bf16x3_timing_phase(rt, dev, gen, card, round_robin, timed):
+    """Phase 4g, in turns within this call: the update alone at the first
+    boundary of each main-path panel beside its plain version and one
+    float32 library product; the panel kernel per main-path panel in its
+    bf16x3 form beside its float32 form at the same block width, at the
+    default plan and the library; ``lu`` factor and factor+solve at 1536 /
+    4096 / 8192 under float32, bf16x3 and bf16x3 + bf16x3 Schur beside the
+    library.  Returns the update's rows."""
+    import torch
+
+    from recursivefactorization_jl_tpu_torch.ops.panel import (
+        bf16x3_plan,
+        panel_factor_cuda,
+        panel_plan,
+        panel_update_bf16x3_cuda,
+    )
+    from recursivefactorization_jl_tpu_torch.ops.schur import schur_product
+    from recursivefactorization_jl_tpu_torch.ops.unblocked import micro_blocked_lu
+    from recursivefactorization_jl_tpu_torch.utils.config import full_matmul_precision
+
+    b = BF16X3_MICRO
+    update_rows = {}
+    for m, w in BF16X3_SHAPES:
+        rows, cols, nb = bf16x3_blocks(m, w, b)[0]
+        big = torch.randn(rows + nb, w, generator=gen).to(dev)
+        C0 = big[nb:, nb:].clone()
+        C, L, U = big[nb:, nb:], big[nb:, :nb], big[:nb, nb:]
+        with full_matmul_precision():
+            t = round_robin({
+                "kernel": lambda: panel_update_bf16x3_cuda(C, L, U),
+                "plain": lambda: C.sub_(schur_product(L, U, "bf16x3")),
+                "library": lambda: C.addmm_(L, U, alpha=-1),
+            }, rounds=9, inner=20, setup=lambda: C.copy_(C0))
+        b_ms, b_by = bf16x3_update_bound(rows, cols, nb)
+        row = dict(shape=[rows, cols], nb=nb, lda=big.stride(0), kernel_ms=t["kernel"],
+                   plain_ms=t["plain"], library_ms=t["library"], bound_ms=b_ms, bound_by=b_by,
+                   library_call="C.addmm_(L, U, alpha=-1), float32, TF32 off")
+        update_rows[(m, w)] = row
+        emit("timing", what="bf16x3_update", card=card, **row)
+        del big, C0, C, L, U
+    for m, w in BF16X3_SHAPES:
+        X = torch.randn(m, w, generator=gen).to(dev)
+        P = torch.empty_like(X)
+        plan = bf16x3_plan(m, w, b)
+        with quiet_c_stdout():
+            t = round_robin({
+                "bf16x3": lambda: panel_factor_cuda(P, True, block=b, precision="bf16x3"),
+                "float32_same_b": lambda: panel_factor_cuda(P, True, block=b,
+                                                            cluster=plan["cluster"]),
+                "float32_default": lambda: panel_factor_cuda(P, True),
+                "library": lambda: torch.linalg.lu_factor_ex(P),
+            }, rounds=9, setup=lambda: P.copy_(X))
+        p_ms, _ = timed(lambda: micro_blocked_lu(X, True, b, "bf16x3"), None, reps=1, warm=0)
+        b_ms, b_by = bf16x3_panel_bound(m, w, b)
+        emit("timing", what="bf16x3_panel", card=card, shape=[m, w], block=b, plan=plan,
+             default_plan=panel_plan(m, w, torch.float32), ms=t, plain_ms=p_ms,
+             bound_ms=b_ms, bound_by=b_by, updates=len(bf16x3_blocks(m, w, b)),
+             bf16x3_over_float32_same_b=t["bf16x3"] / t["float32_same_b"],
+             bf16x3_over_float32_default=t["bf16x3"] / t["float32_default"])
+        del X, P
+    cfgs = {"float32": rt.LUConfig(),
+            "bf16x3": rt.LUConfig(panel_boundary_precision="bf16x3"),
+            "bf16x3_schur": rt.LUConfig(panel_boundary_precision="bf16x3",
+                                        schur_precision="bf16x3")}
+    for n in (1536, 4096, 8192):
+        M = torch.randn(n, n, generator=gen).to(dev)
+        v = torch.randn(n, generator=gen).to(dev)
+        fns = {}
+        for k, c in cfgs.items():
+            fns[f"{k}_factor"] = lambda c=c: rt.lu(M, check=False, config=c)
+            fns[f"{k}_factor_solve"] = lambda c=c: rt.lu_solve(rt.lu(M, check=False, config=c), v)
+
+        def lib_fs():
+            LU_, piv, _ = torch.linalg.lu_factor_ex(M)
+            torch.linalg.lu_solve(LU_, piv, v[:, None])
+
+        fns["library_factor"] = lambda: torch.linalg.lu_factor_ex(M)
+        fns["library_factor_solve"] = lib_fs
+        t = round_robin(fns, rounds=7 if n < 8192 else 5)
+        emit("timing", what="bf16x3_end_to_end", card=card, n=n, dtype="float32", ms=t,
+             bf16x3_over_float32=t["bf16x3_factor"] / t["float32_factor"],
+             bf16x3_schur_over_float32=t["bf16x3_schur_factor"] / t["float32_factor"])
+        del M, v
+    return update_rows
 
 
 def main(argv):
@@ -1444,6 +1853,10 @@ def main(argv):
             except exc:
                 continue
             fail("the complex offset kernel took a request it must refuse")
+
+    # ---- 2g. the bf16x3 form of the panel kernel vs plain -------------------
+    if not batched_only:
+        bf16x3_err = bf16x3_kernel_phase(dev, gen)
 
     # ---- 2b. batched kernels vs plain -----------------------------------
     def same_bits(x, y):
@@ -2425,6 +2838,9 @@ def main(argv):
         fail(f"RBT on the entry matrix: {rec}")
     del Ae, be, ws, xr, xp
 
+    # ---- 3g. lu under panel_boundary_precision='bf16x3' -------------------
+    bf16x3_counts = bf16x3_main_phase(rt, dev, TF32Watch, resid_gate, solve_resid)
+
     # ---- 3b. the batched path -------------------------------------------
     def reset_batched_counts():
         bk.reset_lu_launches()
@@ -2456,21 +2872,6 @@ def main(argv):
         Ad, xd, bd = A.double(), x.double(), b.double()
         r = torch.bmm(Ad, xd[:, :, None])[:, :, 0] - bd
         return r.norm(dim=1) / (Ad.flatten(1).norm(dim=1) * xd.norm(dim=1))
-
-    def first_choice_gap(Ai, piv_a, piv_b):
-        """Two pivot sequences of one matrix part at step k.  Eliminate k
-        steps in f64 with the pivots they share and return k and
-        ||c[a]| - |c[b]|| / max|c| for the two rows chosen there from
-        column k."""
-        k = int((piv_a != piv_b).nonzero()[0])
-        M = Ai.double().cpu()
-        for j in range(k):
-            pj = int(piv_a[j])
-            M[[j, pj]] = M[[pj, j]]
-            M[j + 1:, j] /= M[j, j]
-            M[j + 1:, j + 1:] -= torch.outer(M[j + 1:, j], M[j, j + 1:])
-        c = M[:, k].abs()
-        return k, float((c[int(piv_a[k])] - c[int(piv_b[k])]).abs() / c[k:].max())
 
     batched_launches = {}
     full_err = {}
@@ -3254,6 +3655,9 @@ def main(argv):
              tp_over_lu_w512=t["tp_factor_w512"] / t["lu_factor_w512"])
         del M
 
+    # ---- 4g. the bf16x3 form, in turns beside the float32 form -------------
+    bf16x3_rows = bf16x3_timing_phase(rt, dev, gen, card, round_robin, timed)
+
     if "--profile" in argv:
         profile(rt, card, gen, dev, tp_mesh)
     dist.destroy_process_group()
@@ -3407,6 +3811,30 @@ def main(argv):
             "ofs": 0,
             "dtype": "complex64",
         })
+    # the bf16x3 update kernel at the first boundary of the 1536 main path's
+    # first panel; its launches are those of phase 3g's first run (lu + lu_solve
+    # of the entry matrix at n = 1536 under panel_boundary_precision='bf16x3')
+    brow = bf16x3_rows[tuple(main_shape(1536)[1])]
+    kernels.append({
+        "name": "panel_lu_bf16x3_update",
+        "route": "cuda",
+        "source": BF16X3_UPDATE[0],
+        "replaces": BF16X3_UPDATE[1],
+        "launches": bf16x3_counts[(1536, "entry", "float32")]["bf16x3_update_launches"],
+        # against its plain version (ops/schur.py's split on the card), over
+        # phase 2g's isolated updates
+        "max_abs_err": bf16x3_err,
+        "ms": brow["kernel_ms"],
+        "plain_ms": brow["plain_ms"],
+        "bound_ms": brow["bound_ms"],
+        "bound_by": brow["bound_by"],
+        # one float32 product C - L @ U (Tensor.addmm_, TF32 off): the function
+        # the split approximates; no library call computes the split itself
+        "library_ms": brow["library_ms"],
+        "shape": brow["shape"],
+        "nb": brow["nb"],
+        "dtype": "float32",
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

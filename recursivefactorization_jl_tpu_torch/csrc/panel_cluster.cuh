@@ -1,9 +1,11 @@
 // The cluster route of the panel kernels: the pivot chain of each block of
 // b columns on one thread-block cluster, then the delayed pass on the whole
-// card.  csrc/panel_lu.cu (f32 / f64, main path and offset kernel),
-// csrc/panel_lu_c64.cu (complex64 / complex128) and csrc/panel_lu_micro.cu
-// (the micro-blocked kernels: blocks of exactly `micro` steps, the trailing
-// update summed first) instantiate it; csrc/panel_lu_noswap.cu brings its
+// card.  csrc/panel_lu.cu (f32 / f64, main path and offset kernel; f32
+// under panel_boundary_precision='bf16x3' with the trailing update split
+// into bf16 halves on the tensor cores), csrc/panel_lu_c64.cu (complex64 /
+// complex128) and csrc/panel_lu_micro.cu (the micro-blocked kernels: blocks
+// of exactly `micro` steps, the trailing update summed first) instantiate
+// it; csrc/panel_lu_noswap.cu brings its
 // own chain and delayed kernels and takes the plan from here.  The design
 // is described at the top of csrc/panel_lu.cu.
 //
@@ -26,10 +28,12 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstddef>
+#include <type_traits>
 
 #include "rf_common.cuh"
 
@@ -530,15 +534,28 @@ panel_swap_solve_kernel(DelayArgs<T> p) {
   }
 }
 
+// The form of the delayed rank-b update, one per launcher instantiation:
+//   kStepOrder  every row below the block takes the block's nb rank-1
+//               updates in step order (panel_update_kernel): the plain
+//               version's bits, csrc/panel_lu.cu and csrc/panel_lu_c64.cu;
+//   kSumFirst   the order of ops/unblocked.py `_delayed_update`
+//               (panel_update_kernel, real elements only): the micro-blocked
+//               kernels of csrc/panel_lu_micro.cu;
+//   kBf16x3     C -= hh + (hl + lh) on the tensor cores
+//               (panel_update_bf16x3_kernel, float only): csrc/panel_lu.cu
+//               under panel_boundary_precision='bf16x3'.
+enum UpdateForm { kStepOrder, kSumFirst, kBf16x3 };
+
 // The delayed pass, part 2: every row below the block takes the block's nb
 // rank-1 updates in step order; one CTA per 64 rows x 32 columns >= k0+nb.
 // kSumFirst (the micro-blocked kernels, real elements only): the order of
 // ops/unblocked.py `_delayed_update` instead, an accumulator from 0 takes
 // l[i, j] * u[j, c] for j = k0 .. k0+nb-1 in turn, each product and sum
 // rounded once, then one difference.
-template <typename T, bool kSumFirst = false>
+template <typename T, int kForm = kStepOrder>
 __global__ void __launch_bounds__(kDelayThreads)
 panel_update_kernel(DelayArgs<T> p) {
+  static_assert(kForm == kStepOrder || kForm == kSumFirst, "see panel_update_bf16x3_kernel");
   constexpr int kPer = kUpdRows / kDelayWarps;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nb = p.nb, k1 = p.k0 + nb;
@@ -563,7 +580,7 @@ panel_update_kernel(DelayArgs<T> p) {
     const int i = i0 + warp + j * kDelayWarps;
     x[j] = i < p.m ? p.a[i * lda + c] : T{};
   }
-  if constexpr (kSumFirst) {
+  if constexpr (kForm == kSumFirst) {
     T acc[kPer];
 #pragma unroll
     for (int j = 0; j < kPer; ++j) acc[j] = T(0);
@@ -590,6 +607,149 @@ panel_update_kernel(DelayArgs<T> p) {
     const int i = i0 + warp + j * kDelayWarps;
     if (i < p.m) p.a[i * lda + c] = x[j];
   }
+}
+
+// The delayed pass, part 2 in its bf16x3 form (float panels): the port of
+// the TPU kernel's `mmb` boundary Schur update (ops/panel.py:472-502 and
+// :700-706 of the JAX package) and of ops/schur.py's split,
+//   C -= hh + (hl + lh),  a = ah + al, ah = bf16(a), al = bf16(a - ah),
+// for L (rows x nb) and U (nb x cols), each value split once, rounding to
+// nearest; the three products are bf16 x bf16 with f32 accumulation on the
+// tensor cores (mma.sync m16n8k16): hh into one accumulator, hl and lh into
+// a second, then one sum and one difference, each rounded once.  The ll
+// term is dropped, as in ops/schur.py.  An inf in L or U makes its low half
+// NaN (inf - inf), as in the plain version.  The tensor cores sum in their
+// own order, so the kernel agrees with its plain version to the bf16x3
+// class, not bitwise; chip_smoke.py (phase 2g) holds it to the exact sum of
+// the three products within (K + 2) * 2^-24 of the sum of their magnitudes.
+//
+// A CTA of four warps takes a 64 x 64 tile of C, a warp 32 x 32 of it (two
+// 16-row by four 8-column fragments).  It stages the split halves of its L
+// rows (row-major, k contiguous) and U columns (column-major, k contiguous)
+// in shared memory, K = nb zero-padded to a multiple of 16; a staged row of
+// kTcLd = 72 bf16 (36 words) puts the eight rows of a fragment load on
+// distinct banks.
+constexpr int kTcTile = 64, kTcThreads = 128, kTcKMax = 64, kTcLd = kTcKMax + 8;
+
+struct Bf16x3Args {
+  const float* l;  // rows x nb, row stride ldl
+  const float* u;  // nb x cols, row stride ldu
+  float* c;        // rows x cols, row stride ldc
+  int ldl, ldu, ldc, rows, cols, nb;
+};
+
+__device__ __forceinline__ void split_bf16(float x, __nv_bfloat16* hi, __nv_bfloat16* lo) {
+  const __nv_bfloat16 h = __float2bfloat16_rn(x);
+  *hi = h;
+  *lo = __float2bfloat16_rn(__fsub_rn(x, __bfloat162float(h)));
+}
+
+// two consecutive bf16 of a staged row: one 32-bit fragment register
+__device__ __forceinline__ unsigned pair_at(const __nv_bfloat16* s, int row, int k) {
+  return *reinterpret_cast<const unsigned*>(s + row * kTcLd + k);
+}
+
+// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 sums
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a, const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTcThreads)
+panel_update_bf16x3_kernel(Bf16x3Args p) {
+  static_assert(std::is_same<T, float>::value, "the bf16x3 update takes float panels");
+  __shared__ __align__(16) __nv_bfloat16 lh[kTcTile * kTcLd], ll[kTcTile * kTcLd];
+  __shared__ __align__(16) __nv_bfloat16 uh[kTcTile * kTcLd], ul[kTcTile * kTcLd];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = blockIdx.y * kTcTile, c0 = blockIdx.x * kTcTile;
+  const int nb = p.nb, kp = (nb + 15) & ~15;
+  for (int e = tid; e < kTcTile * kp; e += kTcThreads) {
+    const int r = e / kp, k = e % kp;
+    const float x =
+        r0 + r < p.rows && k < nb ? p.l[static_cast<size_t>(r0 + r) * p.ldl + k] : 0.0f;
+    split_bf16(x, &lh[r * kTcLd + k], &ll[r * kTcLd + k]);
+  }
+  for (int e = tid; e < kp * kTcTile; e += kTcThreads) {
+    const int k = e / kTcTile, c = e % kTcTile;
+    const float x =
+        k < nb && c0 + c < p.cols ? p.u[static_cast<size_t>(k) * p.ldu + c0 + c] : 0.0f;
+    split_bf16(x, &uh[c * kTcLd + k], &ul[c * kTcLd + k]);
+  }
+  __syncthreads();
+  // the fragment layout of mma.m16n8k16 (PTX ISA): lane = 4 g + t
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  float hi[2][4][4], lo[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) hi[i][j][q] = lo[i][j][q] = 0.0f;
+  for (int k0 = 0; k0 < kp; k0 += 16) {
+    const int ka = k0 + 2 * t, kb = ka + 8;
+    unsigned ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = wm + 16 * i + g;
+      ah[i][0] = pair_at(lh, r, ka);
+      ah[i][1] = pair_at(lh, r + 8, ka);
+      ah[i][2] = pair_at(lh, r, kb);
+      ah[i][3] = pair_at(lh, r + 8, kb);
+      al[i][0] = pair_at(ll, r, ka);
+      al[i][1] = pair_at(ll, r + 8, ka);
+      al[i][2] = pair_at(ll, r, kb);
+      al[i][3] = pair_at(ll, r + 8, kb);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = wn + 8 * j + g;
+      bh[j][0] = pair_at(uh, c, ka);
+      bh[j][1] = pair_at(uh, c, kb);
+      bl[j][0] = pair_at(ul, c, ka);
+      bl[j][1] = pair_at(ul, c, kb);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        mma_bf16(hi[i][j], ah[i], bh[j]);
+        mma_bf16(lo[i][j], ah[i], bl[j]);
+        mma_bf16(lo[i][j], al[i], bh[j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + wm + 16 * i + g + 8 * h;
+        const int c = c0 + wn + 8 * j + 2 * t;
+        if (r >= p.rows) continue;
+        float* row = p.c + static_cast<size_t>(r) * p.ldc;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if (c + q < p.cols)
+            row[c + q] = __fsub_rn(row[c + q], __fadd_rn(hi[i][j][2 * h + q], lo[i][j][2 * h + q]));
+        }
+      }
+}
+
+// Launch the bf16x3 update of `a` (1 <= nb <= kTcKMax) on `stream` (T =
+// float; a template so that only the sources that launch it build it).
+template <typename T>
+int launch_update_bf16x3(const Bf16x3Args& a, cudaStream_t stream) {
+  if (a.nb < 1 || a.nb > kTcKMax || a.rows < 0 || a.cols < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.rows == 0 || a.cols == 0) return 0;
+  const dim3 grid((a.cols + kTcTile - 1) / kTcTile, (a.rows + kTcTile - 1) / kTcTile);
+  panel_update_bf16x3_kernel<T><<<grid, kTcThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- plan ----------------------------------------------------------------
@@ -801,16 +961,19 @@ int plan_for(int M, int w, int b_req, int C_req, int device, Plan* pl, bool any_
 }
 
 // The delayed kernels take at most (3 * kTile * 64 + 64 * 64) elements of
-// shared memory (b <= 64): opt in once.
-template <typename T, bool kSumFirst = false>
+// shared memory (b <= 64): opt in once.  The bf16x3 update's 36 KB are
+// static.
+template <typename T, int kForm = kStepOrder>
 int delay_opt_in() {
   static bool done = false;
   if (done) return 0;
   cudaError_t err = opt_in_smem(reinterpret_cast<const void*>(panel_swap_solve_kernel<T>),
                                 (3 * kTile * 64 + 64 * 64) * sizeof(T));
-  if (err == cudaSuccess)
-    err = opt_in_smem(reinterpret_cast<const void*>(panel_update_kernel<T, kSumFirst>),
-                      (kTile * 64 + kUpdRows * 64) * sizeof(T));
+  if constexpr (kForm != kBf16x3) {
+    if (err == cudaSuccess)
+      err = opt_in_smem(reinterpret_cast<const void*>(panel_update_kernel<T, kForm>),
+                        (kTile * 64 + kUpdRows * 64) * sizeof(T));
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   done = true;
   return 0;
@@ -820,11 +983,14 @@ int delay_opt_in() {
 // per block of pl.b steps the chain kernel, then, unless one block takes the
 // panel, the two delayed kernels, in turn on `stream` without a host
 // synchronisation.  `iws` holds pl.iws_ints int32s (the blocks' row moves).
-// kSumFirst: the micro-blocked kernels' order of the trailing update.
-template <typename T, bool kSumFirst = false>
+// kForm: the form of the trailing update (UpdateForm).  `updates`, where
+// given, receives the number of update launches.
+template <typename T, int kForm = kStepOrder>
 int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl, void* piv,
-                void* perm, void* info, void* iws, cudaStream_t stream) {
-  int err = delay_opt_in<T, kSumFirst>();
+                void* perm, void* info, void* iws, cudaStream_t stream,
+                int* updates = nullptr) {
+  if (updates != nullptr) *updates = 0;
+  int err = delay_opt_in<T, kForm>();
   if (err != 0) return err;
   int* moved = static_cast<int*>(iws);
   cudaError_t e = cudaMemsetAsync(moved, 0, pl.iws_ints * sizeof(int), stream);
@@ -872,11 +1038,25 @@ int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl,
     }
     const int cols = w - k0 - nb, rows = m - ofs - k0 - nb;
     if (cols > 0 && rows > 0) {
-      const dim3 grid((cols + kTile - 1) / kTile, (rows + kUpdRows - 1) / kUpdRows);
-      panel_update_kernel<T, kSumFirst><<<grid, kDelayThreads,
-                                          (kTile * nb + kUpdRows * nb) * sizeof(T), stream>>>(d);
-      e = cudaGetLastError();
-      if (e != cudaSuccess) return static_cast<int>(e);
+      if constexpr (kForm == kBf16x3) {
+        Bf16x3Args u;
+        u.l = A + static_cast<size_t>(d.r0 + nb) * lda + k0;
+        u.u = A + static_cast<size_t>(d.r0) * lda + k0 + nb;
+        u.c = A + static_cast<size_t>(d.r0 + nb) * lda + k0 + nb;
+        u.ldl = u.ldu = u.ldc = lda;
+        u.rows = rows;
+        u.cols = cols;
+        u.nb = nb;
+        err = launch_update_bf16x3<T>(u, stream);
+        if (err != 0) return err;
+      } else {
+        const dim3 grid((cols + kTile - 1) / kTile, (rows + kUpdRows - 1) / kUpdRows);
+        panel_update_kernel<T, kForm><<<grid, kDelayThreads,
+                                        (kTile * nb + kUpdRows * nb) * sizeof(T), stream>>>(d);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return static_cast<int>(e);
+      }
+      if (updates != nullptr) ++*updates;
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,6 +1,7 @@
 // Partial-pivot LU of a tall (m x w) panel, or of a whole matrix, on Hopper.
 //
-// Two kernels of the JAX package, one launcher (`run<T>`):
+// Two kernels of the JAX package, one launcher (`run<T>`), and the bf16x3
+// form of the first (entry points rf_panel_lu_bf16x3_*, below):
 //
 // * the main-path kernel (entry points rf_panel_lu_*, ofs = 0) replaces the
 //   TPU kernel recursivefactorization_jl_tpu/ops/panel.py
@@ -373,6 +374,23 @@ int plan_entry(int m, int w, int elem_size, int ofs, int b, int C, int device, i
   return 0;
 }
 
+// ---- panel_boundary_precision='bf16x3' -----------------------------------
+//
+// The main-path kernel in blocks of exactly b steps (the configuration's
+// panel_micro, any b from 1 to 64; the slab takes the width at or above
+// it), each block's trailing update in the bf16x3 form on the tensor cores
+// (panel_update_bf16x3_kernel, csrc/panel_cluster.cuh); the chain and the
+// swap / solve pass are the float32 form's.  Plain version: ops/unblocked.py
+// `micro_blocked_lu(..., 'bf16x3')`.  Only the cluster route has block
+// boundaries: a panel too tall for a cluster at width b is refused
+// (cudaErrorNotSupported), never factored without the split.
+int bf16x3_plan(int m, int w, int b, int C, int device, Plan* pl) {
+  if (m < 1 || w < 1 || b < 1 || b > kTcKMax || C < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int r = plan_for<float>(m, w, b, C, device, pl, true);
+  return r == kPlanGrid ? static_cast<int>(cudaErrorNotSupported) : r;
+}
+
 // ---- barrier microbenchmark ------------------------------------------------
 
 __global__ void bench_grid_sync_kernel(int iters, int* sink) {
@@ -528,6 +546,61 @@ int rf_offset_panel_lu_f64(void* a, int m, int w, int lda, int pivot, int ofs, i
                            void* stream) {
   return run<double, true>(a, m, w, lda, pivot, ofs, b, C, piv, perm, info, ws, iws, device,
                            stream);
+}
+
+// The plan of the bf16x3 form on an (m, w) float32 panel with blocks of b
+// steps (1 .. 64; b >= w: one block, no boundary) and cluster size C (0:
+// the launcher's choice).  Fills out[6] as rf_panel_lu_plan does (route 1,
+// the cluster route).  Returns cudaErrorNotSupported for a panel too tall
+// for a cluster at width b, cudaErrorInvalidConfiguration when an explicit
+// C does not fit the card.
+int rf_panel_lu_bf16x3_plan(int m, int w, int b, int C, int device, int* out) {
+  Plan pl;
+  const int err = bf16x3_plan(m, w, b, C, device, &pl);
+  if (err != 0) return err;
+  out[0] = pl.route;
+  out[1] = pl.b;
+  out[2] = pl.C;
+  out[3] = pl.blocks;
+  out[4] = static_cast<int>(pl.ws_reals);
+  out[5] = static_cast<int>(pl.iws_ints);
+  return 0;
+}
+
+// Factor the float32 panel in place on `stream` in the bf16x3 form, with the
+// plan of (b, C); `iws` holds the plan's iws int32s.  `updates` (host) gets
+// the number of bf16x3 update launches.  Returns a cudaError_t code.
+int rf_panel_lu_bf16x3_f32(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv,
+                           void* perm, void* info, void* iws, int* updates, int device,
+                           void* stream) {
+  Plan pl;
+  const int err = bf16x3_plan(m, w, b, C, device, &pl);
+  if (err != 0) return err;
+  return run_cluster<float, kBf16x3>(static_cast<float*>(a), m, w, lda, pivot, 0, pl, piv,
+                                     perm, info, iws, static_cast<cudaStream_t>(stream),
+                                     updates);
+}
+
+// One bf16x3 update on `stream`: c (rows x cols, row stride ldc) -=
+// hh + (hl + lh) of l (rows x nb, row stride ldl) and u (nb x cols, row
+// stride ldu), 1 <= nb <= 64; float32 device pointers, c disjoint from l
+// and u.  Returns a cudaError_t code.
+int rf_panel_update_bf16x3_f32(const void* l, int ldl, const void* u, int ldu, void* c,
+                               int ldc, int rows, int cols, int nb, int device,
+                               void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  Bf16x3Args args;
+  args.l = static_cast<const float*>(l);
+  args.u = static_cast<const float*>(u);
+  args.c = static_cast<float*>(c);
+  args.ldl = ldl;
+  args.ldu = ldu;
+  args.ldc = ldc;
+  args.rows = rows;
+  args.cols = cols;
+  args.nb = nb;
+  return launch_update_bf16x3<float>(args, static_cast<cudaStream_t>(stream));
 }
 
 // Phase trace of the cluster route's chain kernel, for measurement: with

@@ -41,7 +41,7 @@
 // on one thread-block cluster, the block's row moves applied outside the
 // slab, the U rows solved row by row (the unit-lower solve above), then
 // the trailing update of the rows below in this kernel's order, the sum
-// from 0 first and one difference (panel_update_kernel<T, true>).  A fat
+// from 0 first and one difference (panel_update_kernel<T, kSumFirst>).  A fat
 // panel's last block solves against the columns m .. w-1 there too.  A
 // panel whose rows do not fit a cluster takes the grid route.
 // tests/test_torch_panel_cluster_routes.py emulates the route's order.
@@ -420,7 +420,7 @@ int run(void* a, int m, int w, int lda, int pivot, int micro, int b, int C, void
   if (err != 0) return err;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (pl.route == kRouteCluster) {
-    return run_cluster<T, true>(static_cast<T*>(a), m, w, lda, pivot, 0, pl, piv, perm, info,
+    return run_cluster<T, kSumFirst>(static_cast<T*>(a), m, w, lda, pivot, 0, pl, piv, perm, info,
                                 iws, stream);
   }
   const int g = pl.grid;

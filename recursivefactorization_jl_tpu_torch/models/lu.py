@@ -269,7 +269,7 @@ def _dispatch_factor(A: torch.Tensor, pivot: bool, config: LUConfig):
             "use 'bf16x3' for near-f32 accuracy at most of the speedup",
             stacklevel=3,
         )
-    config.resolved_panel_boundary_precision()
+    config.resolved_panel_boundary_precision()  # an unknown value raises here
     config.check_variants()
     return _factor_by_route(A, pivot, config)
 

@@ -17,6 +17,15 @@ shows the plan.  A CPU tensor goes to the kernel's plain
 version in ops/unblocked.py: ``unblocked_lu``, ``micro_blocked_lu`` or,
 for complex panels, ``unblocked_lu_cabs1``.
 
+Under ``panel_boundary_precision='bf16x3'`` a float32 panel of a fori
+variant runs csrc/panel_lu.cu in blocks of exactly ``panel_micro`` steps
+on the cluster route, each block's trailing update split into bf16 halves
+on the tensor cores (``panel_factor_cuda(..., precision='bf16x3')``,
+``bf16x3_plan``; the update alone: ``panel_update_bf16x3_cuda``); its
+plain version is ``micro_blocked_lu(..., 'bf16x3')``.  A panel too tall
+for a cluster at that width raises ``NotImplementedError``: the grid route
+has no block boundaries.
+
 The micro-blocked kernels run on the same cluster route with blocks of
 exactly ``micro`` steps and their own order of the trailing update
 (``micro_plan`` shows the plan); both variants compute the same bits
@@ -48,7 +57,7 @@ from typing import Tuple
 
 import torch
 
-from ..utils.config import FORI_VARIANTS, PANEL_MICRO_MAX, LUConfig
+from ..utils.config import DEFAULT_PANEL_MICRO, FORI_VARIANTS, PANEL_MICRO_MAX, LUConfig
 from . import _kernels
 from .unblocked import (
     micro_blocked_lu,
@@ -75,15 +84,25 @@ def panel_route(m: int, w: int, dtype, config: LUConfig, device="cuda") -> str:
     * ``"unblocked"``: the plain version (CPU tensors, or
       ``backend='xla'`` on the CPU): the CABS1 one for complex panels;
     * ``"micro-blocked"``: the plain version of the micro-blocked
-      kernels (CPU tensors, f32/f64, ``'shadow'`` or ``'basic'``).
+      kernels (CPU tensors, f32/f64, ``'shadow'`` or ``'basic'``);
+    * ``"kernel-bf16x3"`` / ``"micro-blocked-bf16x3"``: a float32 panel of
+      a fori variant under ``panel_boundary_precision='bf16x3'``, on the
+      card (csrc/panel_lu.cu's bf16x3 form) / on the CPU
+      (``micro_blocked_lu(..., 'bf16x3')``).  Other types and variants
+      ignore the knob.
 
     Complex panels ignore the variant.  The TPU package's ``"split"``
     route answers the program size of its statically unrolled kernels;
     it is not ported: the Hopper kernels take any width.
     """
     config.check_variants()
-    micro = config.panel_variant not in FORI_VARIANTS and dtype in _REAL
+    fori = config.panel_variant in FORI_VARIANTS
+    micro = not fori and dtype in _REAL
+    bf16x3 = (fori and dtype == torch.float32
+              and config.resolved_panel_boundary_precision() == "bf16x3")
     if torch.device(device).type != "cuda":
+        if bf16x3:
+            return "micro-blocked-bf16x3"
         return "micro-blocked" if micro else "unblocked"
     if dtype not in _REAL + _COMPLEX:
         raise NotImplementedError(
@@ -96,6 +115,8 @@ def panel_route(m: int, w: int, dtype, config: LUConfig, device="cuda") -> str:
             "backend='xla' selects the plain panel, which runs only on "
             "CPU tensors"
         )
+    if bf16x3:
+        return "kernel-bf16x3"
     return f"kernel-{config.panel_variant}" if micro else "kernel"
 
 
@@ -308,8 +329,82 @@ def _launch_panel_lu(wrapper, panel, pivot, ofs, block, cluster, dtypes=_REAL):
     return piv, perm, info
 
 
+# cudaErrorNotSupported: the bf16x3 form refuses a panel too tall for a cluster
+_NOT_SUPPORTED = 801
+
+
+@functools.lru_cache(maxsize=256)
+def _bf16x3_plan(m, w, b, cluster, index):
+    """The plan of csrc/panel_lu.cu's bf16x3 form, as :func:`_plan`'s tuple."""
+    lib = _kernels.load("panel_lu")
+    out = (ctypes.c_int * 6)()
+    code = lib.rf_panel_lu_bf16x3_plan(m, w, b, cluster, index, out)
+    if code == _NOT_SUPPORTED:
+        raise NotImplementedError(
+            f"panel_boundary_precision='bf16x3' runs on the cluster route only, and a "
+            f"{m} x {w} panel does not fit a cluster at blocks of {b} steps (the grid "
+            f"route has no block boundaries; ROADMAP.md Queue 1 item 22): use "
+            f"panel_boundary_precision='float32' or a narrower panel_micro")
+    _kernels.check(lib, code, "panel_lu bf16x3 plan")
+    return tuple(out)
+
+
+def _bf16x3_block(block, m, w):
+    """The bf16x3 form's steps per block: ``block`` (0: DEFAULT_PANEL_MICRO),
+    at most PANEL_MICRO_MAX, cut to min(m, w)."""
+    if not isinstance(block, int) or isinstance(block, bool) or block < 0:
+        raise ValueError(f"the bf16x3 form takes block 0 (DEFAULT_PANEL_MICRO) or a "
+                         f"positive block width, got {block!r}; it has no grid route")
+    b = block or DEFAULT_PANEL_MICRO
+    if b > PANEL_MICRO_MAX:
+        raise ValueError(f"the bf16x3 form takes blocks of at most {PANEL_MICRO_MAX} "
+                         f"steps, got {b}")
+    return min(b, m, w)
+
+
+def bf16x3_plan(m: int, w: int, block: int = 0, cluster: int = 0, device=None) -> dict:
+    """How csrc/panel_lu.cu factors an (m, w) float32 panel under
+    ``panel_boundary_precision='bf16x3'``: the cluster route with blocks of
+    ``block`` steps (0: ``DEFAULT_PANEL_MICRO``; cut to min(m, w); one block
+    when that reaches w), ``cluster`` 0 picking the cluster size.  Returns
+    :func:`panel_plan`'s dict.  Raises NotImplementedError for a panel too
+    tall for a cluster at that width."""
+    _check_block_cluster(block, cluster)
+    b = _bf16x3_block(block, m, w)
+    return _plan_dict(_bf16x3_plan(m, w, b, cluster, _device_index(device)))
+
+
+def _launch_bf16x3(panel, pivot, block, cluster):
+    """The checks, plan, allocations and launch of csrc/panel_lu.cu's
+    bf16x3 form, for :func:`panel_factor_cuda`."""
+    wrapper = panel_factor_cuda
+    _check_block_cluster(block, cluster)
+    m, w, lda, index, _, _ = _check_panel(wrapper.__name__, panel, (torch.float32,))
+    b = _bf16x3_block(block, m, w)
+    iws_ints = _bf16x3_plan(m, w, b, cluster, index)[5]
+    dev = panel.device
+    npiv = min(m, w)
+    ints = torch.empty(npiv + m + 1 + iws_ints, dtype=torch.int32, device=dev)
+    piv, perm, info = ints[:npiv], ints[npiv:npiv + m], ints[npiv + m]
+    lib = _kernels.load("panel_lu")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    updates = ctypes.c_int(0)
+    wrapper.launches += 1
+    wrapper.bf16x3_launches += 1
+    code = lib.rf_panel_lu_bf16x3_f32(
+        panel.data_ptr(), m, w, lda, int(bool(pivot)), b, cluster,
+        piv.data_ptr(), perm.data_ptr(), info.data_ptr(), ints[npiv + m + 1:].data_ptr(),
+        ctypes.byref(updates), index, stream,
+    )
+    # the update kernels the launcher issued (one per block boundary with
+    # rows and columns below and right of the block)
+    wrapper.bf16x3_update_launches += updates.value
+    _kernels.check(lib, code, "panel_lu bf16x3 launch")
+    return piv, perm, info
+
+
 def panel_factor_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
-                      cluster: int = 0):
+                      cluster: int = 0, precision: str = "float32"):
     """Launch the Hopper panel kernel on ``panel`` in place.
 
     ``panel``: CUDA, float32 or float64, 2-D, rows contiguous (unit
@@ -322,12 +417,78 @@ def panel_factor_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
     launcher's choice; see :func:`panel_plan`).
     ``panel_factor_cuda.launches`` counts the launches,
     ``panel_factor_cuda.grid_route_launches`` those that took the grid
-    route (panels too tall for a cluster)."""
+    route (panels too tall for a cluster).
+
+    ``precision='bf16x3'`` (float32 panels): the form of
+    ``panel_boundary_precision='bf16x3'``, blocks of exactly ``block`` steps
+    (0: ``DEFAULT_PANEL_MICRO``; at most ``PANEL_MICRO_MAX``, cut to
+    min(m, w)) on the cluster route, each block's trailing update split
+    into bf16 halves on the tensor cores (see :func:`bf16x3_plan`).  It
+    agrees with ``micro_blocked_lu(panel, pivot, block, 'bf16x3')`` to the
+    bf16x3 class, not bitwise.  A panel too tall for a cluster at that
+    width raises NotImplementedError.  ``.bf16x3_launches`` counts these
+    launches (``.launches`` counts them too), ``.bf16x3_update_launches``
+    the update kernels they issued."""
+    if precision == "bf16x3":
+        return _launch_bf16x3(panel, pivot, block, cluster)
+    if precision != "float32":
+        raise ValueError(f"precision must be 'float32' or 'bf16x3', got {precision!r}")
     return _launch_panel_lu(panel_factor_cuda, panel, pivot, None, block, cluster)
 
 
 panel_factor_cuda.launches = 0
 panel_factor_cuda.grid_route_launches = 0
+panel_factor_cuda.bf16x3_launches = 0
+panel_factor_cuda.bf16x3_update_launches = 0
+
+
+def _rows_stride(t):
+    """The row stride of a 2-D tensor whose rows are contiguous."""
+    return t.stride(0) if t.shape[0] > 1 else t.shape[1]
+
+
+def panel_update_bf16x3_cuda(C: torch.Tensor, L: torch.Tensor, U: torch.Tensor):
+    """``C -= hh + (hl + lh)``, the bf16x3 split of ``L @ U``, in place on
+    the tensor cores: one launch of the update kernel of csrc/panel_lu.cu's
+    bf16x3 form (``panel_update_bf16x3_kernel``), alone.
+
+    ``C`` (rows, cols), ``L`` (rows, nb), ``U`` (nb, cols): CUDA float32 on
+    one device, rows contiguous, 1 <= nb <= 64; ``C`` must share no memory
+    with ``L`` or ``U``.  The plain version is ``C.sub_(schur_product(L, U,
+    'bf16x3'))`` (ops/schur.py); the tensor cores sum in their own order,
+    so the two agree to the bf16x3 class, not bitwise.  Returns ``C``;
+    launches on the current stream and does not synchronise.
+    ``panel_update_bf16x3_cuda.launches`` counts the launches."""
+    for name, t in (("C", C), ("L", L), ("U", U)):
+        if (not isinstance(t, torch.Tensor) or t.device.type != "cuda"
+                or t.dtype != torch.float32 or t.dim() != 2):
+            raise ValueError(f"{name} must be a 2-D CUDA float32 tensor")
+        if t.shape[1] > 1 and t.stride(1) != 1:
+            raise ValueError(f"{name}'s rows must be contiguous")
+        if not t.shape[1] <= _rows_stride(t) < 2**31:
+            raise ValueError(f"unsupported row stride {t.stride(0)} of {name}")
+    rows, cols = C.shape
+    nb = L.shape[1]
+    if L.shape[0] != rows or U.shape != (nb, cols):
+        raise ValueError(f"shapes do not match: C {tuple(C.shape)}, L {tuple(L.shape)}, "
+                         f"U {tuple(U.shape)}")
+    if not 1 <= nb <= PANEL_MICRO_MAX:
+        raise ValueError(f"nb must be in [1, {PANEL_MICRO_MAX}], got {nb}")
+    if not C.device == L.device == U.device:
+        raise ValueError("C, L and U must lie on one device")
+    dev = C.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    lib = _kernels.load("panel_lu")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    panel_update_bf16x3_cuda.launches += 1
+    code = lib.rf_panel_update_bf16x3_f32(
+        L.data_ptr(), _rows_stride(L), U.data_ptr(), _rows_stride(U), C.data_ptr(),
+        _rows_stride(C), rows, cols, nb, index, stream)
+    _kernels.check(lib, code, "panel_lu bf16x3 update")
+    return C
+
+
+panel_update_bf16x3_cuda.launches = 0
 
 
 def offset_panel_factor_cuda(panel: torch.Tensor, ofs: int, pivot: bool, *,
@@ -564,11 +725,13 @@ def panel_factor(
     the 1-based (sign-carrying) panel-local info."""
     m, w = panel.shape
     route = panel_route(m, w, panel.dtype, config, panel.device)
-    config.resolved_panel_boundary_precision()
     if route == "kernel":
         cplx = panel.dtype.is_complex
         launch = panel_factor_c64_cuda if cplx else panel_factor_cuda
         piv, perm, info = launch(panel, pivot)
+    elif route == "kernel-bf16x3":
+        piv, perm, info = panel_factor_cuda(
+            panel, pivot, block=config.resolved_panel_micro(), precision="bf16x3")
     elif route == "kernel-shadow":
         piv, perm, info = panel_factor_shadow_cuda(
             panel, pivot, config.resolved_panel_micro())
@@ -579,6 +742,9 @@ def panel_factor(
         if route == "micro-blocked":
             f, piv, perm, info = micro_blocked_lu(
                 panel, pivot, config.resolved_panel_micro())
+        elif route == "micro-blocked-bf16x3":
+            f, piv, perm, info = micro_blocked_lu(
+                panel, pivot, config.resolved_panel_micro(), "bf16x3")
         elif panel.dtype.is_complex:
             f, piv, perm, info = unblocked_lu_cabs1(panel, pivot)
         else:

@@ -21,8 +21,10 @@ same name).  ``unblocked_lu_cabs1`` is the plain version of the complex
 kernel (csrc/panel_lu_c64.cu): it pivots by CABS1, ``|re| + |im|``, and
 works on the real and imaginary planes.  ``micro_blocked_lu`` is the
 plain version of the two micro-blocked kernels (csrc/panel_lu_micro.cu)
-and ``unblocked_lu_noswap`` that of the physical-order kernel
-(csrc/panel_lu_noswap.cu); both serve real panels only.
+and, with ``precision='bf16x3'``, of csrc/panel_lu.cu's bf16x3 form
+(``panel_boundary_precision='bf16x3'``); ``unblocked_lu_noswap`` is that
+of the physical-order kernel (csrc/panel_lu_noswap.cu); both serve real
+panels only.
 ``offset_panel_lu`` is the plain version of the offset kernel (the
 tensor-parallel panel of csrc/panel_lu.cu, ``kOffset``), and
 ``offset_panel_lu_cabs1`` that of the complex one (csrc/panel_lu_c64.cu).
@@ -31,6 +33,8 @@ tensor-parallel panel of csrc/panel_lu.cu, ``kOffset``), and
 from __future__ import annotations
 
 import torch
+
+from .schur import schur_product
 
 
 def unblocked_lu(A: torch.Tensor, pivot: bool):
@@ -199,7 +203,15 @@ def _delayed_update(A, q0: int, p0: int) -> None:
     A[p0:, p0:].sub_(acc)
 
 
-def micro_blocked_lu(A: torch.Tensor, pivot: bool, micro: int):
+def _delayed_update_bf16x3(A, q0: int, p0: int) -> None:
+    """``A[p0:, p0:] -= hh + (hl + lh)``: the bf16x3 split of
+    ``A[p0:, q0:p0] @ A[q0:p0, p0:]`` (ops/schur.py), each of the three
+    products bf16 x bf16 with an f32 sum, the ``ll`` term dropped."""
+    A[p0:, p0:].sub_(schur_product(A[p0:, q0:p0], A[q0:p0, p0:], "bf16x3"))
+
+
+def micro_blocked_lu(A: torch.Tensor, pivot: bool, micro: int,
+                     precision: str = "float32"):
     """Micro-blocked LU of a real ``A`` (m x n).  Returns ``(LU, ipiv,
     perm, info)`` as :func:`unblocked_lu` does; the input is not modified.
 
@@ -223,11 +235,22 @@ def micro_blocked_lu(A: torch.Tensor, pivot: bool, micro: int):
     Every product, sum and difference is its own rounded tensor op in the
     order the kernels use, so kernel and plain version agree bitwise on
     the card.  In exact arithmetic the result is :func:`unblocked_lu`'s;
-    in floating point the factors differ by the order of the updates."""
+    in floating point the factors differ by the order of the updates.
+
+    ``precision='bf16x3'`` (float32 only) replaces the rank-``micro``
+    update by :func:`_delayed_update_bf16x3`: the plain version of
+    csrc/panel_lu.cu under ``panel_boundary_precision='bf16x3'``, whose
+    tensor-core sums agree with it to the bf16x3 class, not bitwise.
+    The solve of the U rows stays in f32."""
     if A.is_complex():
         raise ValueError(f"micro_blocked_lu takes a real matrix, got {A.dtype}")
     if micro < 1:
         raise ValueError(f"micro must be positive, got {micro}")
+    if precision not in ("float32", "bf16x3"):
+        raise ValueError(f"unknown precision {precision!r}")
+    if precision == "bf16x3" and A.dtype != torch.float32:
+        raise ValueError(f"the bf16x3 update takes float32, got {A.dtype}")
+    update = _delayed_update_bf16x3 if precision == "bf16x3" else _delayed_update
     A = A.clone()
     m, n = A.shape
     minmn = min(m, n)
@@ -240,7 +263,7 @@ def micro_blocked_lu(A: torch.Tensor, pivot: bool, micro: int):
         p1 = min(p0 + micro, minmn)
         if k == p0 and k > 0:
             _delayed_trsm(A, p0 - micro, p0, p0)
-            _delayed_update(A, p0 - micro, p0)
+            update(A, p0 - micro, p0)
         kp = k + int(torch.argmax(A[k:, k].abs())) if pivot else k
         ipiv[k] = kp
         nonzero = bool(A[kp, k] != 0)

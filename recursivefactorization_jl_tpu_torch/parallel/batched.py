@@ -118,8 +118,10 @@ def _library_lu(A: torch.Tensor, pivot: bool, config: LUConfig):
         f, piv, info = torch.linalg.lu_factor_ex(A)
         ipiv = (piv - 1).to(torch.int32)
         return f, ipiv, batched_ipiv_to_perm(ipiv, m), info.to(torch.int32)
-    # the loop runs the panel kernel whatever backend routed the batch here
-    cfg = dataclasses.replace(config, backend="auto")
+    # the loop runs the panel kernel whatever backend routed the batch here,
+    # in its float32 form: the batched functions ignore
+    # panel_boundary_precision, as the JAX package's lane kernel does
+    cfg = dataclasses.replace(config, backend="auto", panel_boundary_precision="float32")
     parts = [lu_factor_p(A[i], False, config=cfg, device=A.device) for i in range(B)]
     f, ipiv, perm, info = (torch.stack(p) for p in zip(*parts))
     return f, ipiv, perm, info

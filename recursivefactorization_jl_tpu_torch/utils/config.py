@@ -74,7 +74,8 @@ class LUConfig:
     * ``panel_micro``: block width of the micro-blocked kernels; an int
       from 1 to ``PANEL_MICRO_MAX`` (64) is taken as given, a larger one
       raises on either device; ``'auto'`` means ``DEFAULT_PANEL_MICRO``.
-      The fori variants ignore it.
+      The fori variants use it as their block width under
+      ``panel_boundary_precision='bf16x3'`` and ignore it otherwise.
     * ``tp_panel_backend``: the panel step of the tensor-parallel LU
       (parallel/blockcyclic.py): ``'auto'``/``'pallas'`` run the offset
       kernel of csrc/panel_lu.cu on CUDA tensors; ``'jax'`` runs its plain
@@ -83,8 +84,20 @@ class LUConfig:
     * ``inner_panel_width``, ``panel_outer``, ``panel_unroll``: kept for
       the mapping's sake; they shaped the TPU kernels' blocking and the
       Hopper kernels ignore them.
-    * ``panel_boundary_precision``: ``'auto'``/``'float32'``; ``'bf16x3'``
-      raises until a blocked kernel has boundary matmuls.
+    * ``panel_boundary_precision``: the precision of the fori variants'
+      boundary updates on float32 panels.  ``'auto'``/``'float32'``: the
+      unblocked kernel (every update in f32, in step order).
+      ``'bf16x3'``: the panel runs in blocks of ``panel_micro`` steps
+      (ops/unblocked.py ``micro_blocked_lu(..., 'bf16x3')``); at each
+      block boundary the block's U rows are solved in f32 and the rows
+      below take the rank-``panel_micro`` update as the split
+      ``hh + (hl + lh)`` of ops/schur.py, on the tensor cores on the card
+      (csrc/panel_cluster.cuh ``panel_update_bf16x3_kernel``).  Other
+      types, the micro-blocked variants, ``schedule='physical'``, the
+      tensor-parallel panel and the batched functions run as under
+      ``'float32'``; half matrices reach the panel promoted to float32 and
+      take the split.  The TPU package's ``'auto'`` size gate is not
+      carried over.
     * ``xla_threshold``: ``'auto'``/None never delegate; an int routes
       pivoted factorizations with min(m, n) at or below it to
       ``torch.linalg.lu_factor_ex``.
@@ -130,15 +143,11 @@ class LUConfig:
 
     def resolved_panel_boundary_precision(self) -> str:
         bp = self.panel_boundary_precision
-        if bp in ("auto", "float32"):
+        if bp == "auto":
             return "float32"
-        if bp == "bf16x3":
-            raise NotImplementedError(
-                "panel_boundary_precision='bf16x3' splits the boundary "
-                "matmuls of the fori kernels (ROADMAP.md Queue 1 item 15); "
-                "the Hopper fori kernel is unblocked and has none"
-            )
-        raise ValueError(f"unknown panel_boundary_precision {bp!r}")
+        if bp not in ("float32", "bf16x3"):
+            raise ValueError(f"unknown panel_boundary_precision {bp!r}")
+        return bp
 
     def resolved_xla_threshold(self) -> Optional[int]:
         if self.xla_threshold == "auto":

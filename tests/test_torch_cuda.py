@@ -18,6 +18,7 @@ from torch.distributed.device_mesh import init_device_mesh
 import recursivefactorization_jl_tpu_torch as rt
 from recursivefactorization_jl_tpu_torch.ops import batched_kernel as bk
 from recursivefactorization_jl_tpu_torch.ops.panel import (
+    bf16x3_plan,
     micro_max_cuda,
     micro_plan,
     noswap_plan,
@@ -30,7 +31,9 @@ from recursivefactorization_jl_tpu_torch.ops.panel import (
     panel_factor_noswap_cuda,
     panel_factor_shadow_cuda,
     panel_plan,
+    panel_update_bf16x3_cuda,
 )
+from recursivefactorization_jl_tpu_torch.ops.schur import schur_product
 from recursivefactorization_jl_tpu_torch.ops.unblocked import (
     micro_blocked_lu,
     offset_panel_lu,
@@ -1584,3 +1587,242 @@ def test_warmup_builds_and_runs_on_the_card(tmp_path):
     with profiling.trace(str(tmp_path)):
         rt.lu(A)
     assert (tmp_path / profiling.TRACE_FILE).is_file()
+
+
+# ---- panel_boundary_precision='bf16x3' ---------------------------------------
+
+
+def _split_reference(C, L, U):
+    """``C - (hh + hl + lh)`` in float64 (each product of two bf16 values is
+    exact there) and the sum of the three products' magnitudes."""
+    def split(X):
+        h = X.to(torch.bfloat16)
+        return h.double(), (X - h.float()).to(torch.bfloat16).double()
+
+    lh, ll = split(L)
+    uh, ul = split(U)
+    ref = C.double() - (lh @ uh + lh @ ul + ll @ uh)
+    mag = lh.abs() @ uh.abs() + lh.abs() @ ul.abs() + ll.abs() @ uh.abs()
+    return ref, mag
+
+
+@pytest.mark.parametrize("nb", [1, 8, 16, 20, 32, 64])
+@pytest.mark.parametrize("rows,cols", [(1, 1), (100, 37), (300, 200)])
+def test_bf16x3_update_within_its_accumulation_bound(nb, rows, cols):
+    """The tensor-core update alone against the exact sum of its three split
+    products: within 2^-24 ((nb + 2) * sum |products| + |result|) everywhere
+    (the bound chip_smoke.py's phase 2g prints the worst ratio to), on
+    views whose row strides exceed their widths; nothing else written."""
+    need_cuda()
+    g = torch.Generator().manual_seed(nb * 1000 + rows)
+    big = torch.randn(rows + nb + 3, cols + nb + 5, generator=g).cuda()
+    C = big[nb:nb + rows, nb:nb + cols]
+    L = big[nb:nb + rows, :nb]
+    U = big[:nb, nb:nb + cols]
+    ref, mag = _split_reference(C, L, U)
+    before = big.clone()
+    k0 = panel_update_bf16x3_cuda.launches
+    assert panel_update_bf16x3_cuda(C, L, U) is C
+    torch.cuda.synchronize()
+    assert panel_update_bf16x3_cuda.launches == k0 + 1
+    bound = 2.0 ** -24 * ((nb + 2) * mag + ref.abs())
+    assert bool(((C.double() - ref).abs() <= bound).all())
+    outside = torch.ones_like(big, dtype=torch.bool)
+    outside[nb:nb + rows, nb:nb + cols] = False
+    assert torch.equal(big[outside], before[outside])
+
+
+def test_bf16x3_update_inf_and_nan_as_the_plain_version():
+    """An inf in L or U makes its low half NaN: the kernel's NaN entries are
+    the plain version's, and the finite ones agree to the bf16x3 class."""
+    need_cuda()
+    g = torch.Generator().manual_seed(3)
+    L, U, C = (torch.randn(*s, generator=g).cuda() for s in ((50, 16), (16, 40), (50, 40)))
+    L[3, 2] = float("inf")
+    U[5, 7] = float("-inf")
+    C[9, 9] = float("nan")
+    plain = C - schur_product(L, U, "bf16x3")
+    panel_update_bf16x3_cuda(C, L, U)
+    assert torch.equal(torch.isnan(C), torch.isnan(plain))
+    assert int(torch.isnan(C).sum()) == 40 + 50 - 1 + 1  # row 3, column 7, C[9, 9]
+    assert float((C - plain).nan_to_num(0).abs().max()) < 1e-5
+
+
+def _first_choice_gap(A, pa, pb):
+    """Two pivot sequences of one panel part at step k: eliminate k steps in
+    float64 with the pivots they share; the two candidates' gap relative
+    to the column's maximum."""
+    k = int((pa != pb).nonzero()[0])
+    M = A.double().clone()
+    for j in range(k):
+        pj = int(pa[j])
+        M[[j, pj]] = M[[pj, j]]
+        M[j + 1:, j] /= M[j, j]
+        M[j + 1:, j + 1:] -= torch.outer(M[j + 1:, j], M[j, j + 1:])
+    c = M[:, k].abs()
+    return float((c[int(pa[k])] - c[int(pb[k])]).abs() / c[k:].max())
+
+
+def _panel_residual(A, f, perm):
+    m, w = A.shape
+    k = min(m, w)
+    L = torch.tril(f[:, :k].double(), -1) + torch.eye(m, k, dtype=torch.float64, device=f.device)
+    return float((L @ torch.triu(f[:k].double()) - A.double()[perm.long()]).abs().max())
+
+
+# the two candidates of a step where the kernel's and the plain version's
+# pivots part must tie to this (a bf16's precision, relative to the column)
+BF16X3_TIE = 2.0 ** -8
+
+
+def _check_bf16x3_panel(A, out, ref, ref32, pivot):
+    """The kernel's bf16x3 panel against ``micro_blocked_lu(..., 'bf16x3')``
+    on the card: info equal; ipiv equal, or parting at a tie; with equal
+    pivots perm equal, NaN where the plain version has NaN and the factors
+    within twice the knob's own effect on the same input (max |plain
+    bf16x3 - plain float32|); the residual under the gate."""
+    P, piv, perm, info = out
+    f, rpiv, rperm, rinfo = ref
+    assert int(info) == int(rinfo)
+    finite = bool(torch.isfinite(A).all())
+    if not torch.equal(piv, rpiv):
+        assert finite and _first_choice_gap(A, piv, rpiv) <= BF16X3_TIE
+    else:
+        assert torch.equal(perm, rperm)
+        assert torch.equal(torch.isnan(P), torch.isnan(f))
+        spread = float((f - ref32).nan_to_num(0).abs().max())
+        diff = float((P - f).nan_to_num(0).abs().max())
+        assert diff <= 2 * spread + 2.0 ** -20 * float(f.nan_to_num(0).abs().max()), (diff, spread)
+    if finite:
+        m, w = A.shape
+        gate = 20 * max(m, w) * torch.finfo(torch.float32).eps * float(A.abs().max())
+        assert _panel_residual(A, P, perm) < (gate if pivot else 10 * gate ** 0.5)
+
+
+@pytest.mark.parametrize("shape,b,pivot,kind", [
+    ((300, 64), 16, True, "randn"),
+    ((300, 64), 16, False, "randn"),
+    ((64, 200), 16, True, "randn"),        # fat
+    ((1000, 100), 20, True, "ties"),       # ragged last block
+    ((513, 513), 32, True, "zero_col"),
+    ((100, 40), 7, True, "nan"),
+    ((1536, 512), 32, True, "randn"),
+    ((4096, 512), 32, True, "randn"),
+    ((4096, 256), 64, False, "randn"),
+    ((1, 5), 8, True, "randn"),
+    ((33, 33), 1, True, "randn"),
+])
+def test_bf16x3_panel_matches_plain(shape, b, pivot, kind):
+    need_cuda()
+    g = torch.Generator().manual_seed(sum(shape) + b)
+    A = torch.randn(*shape, generator=g)
+    if kind == "ties":
+        A = torch.randint(-2, 3, shape, generator=g).float()
+    A = A.cuda()
+    if kind == "zero_col":
+        A[:, 100] = 0
+    if kind == "nan":
+        A[30, 9] = float("nan")
+    if not pivot:
+        A += max(shape) * torch.eye(*shape, device="cuda")
+    P = A.clone()
+    k0, u0 = panel_factor_cuda.bf16x3_launches, panel_factor_cuda.bf16x3_update_launches
+    out = (P, *panel_factor_cuda(P, pivot, block=b, precision="bf16x3"))
+    torch.cuda.synchronize()
+    m, w = shape
+    bb = min(b, m, w)
+    steps = min(m, w)
+    # one update per block with rows below it and columns right of it
+    want = sum(1 for k0_ in range(0, steps, bb)
+               if m - k0_ - min(bb, steps - k0_) > 0 and w - k0_ - min(bb, steps - k0_) > 0
+               and bb < w)
+    assert panel_factor_cuda.bf16x3_launches == k0 + 1
+    assert panel_factor_cuda.bf16x3_update_launches - u0 == want
+    ref = micro_blocked_lu(A, pivot, b, "bf16x3")
+    ref32 = micro_blocked_lu(A, pivot, b)[0]
+    _check_bf16x3_panel(A, out, ref, ref32, pivot)
+
+
+def test_bf16x3_one_block_is_the_float32_kernel():
+    """A block that spans the panel leaves no boundary: the bf16x3 form is
+    then the float32 kernel's result bit for bit, with no update launch."""
+    need_cuda()
+    A = torch.randn(700, 48, generator=torch.Generator().manual_seed(2)).cuda()
+    P, Q = A.clone(), A.clone()
+    u0 = panel_factor_cuda.bf16x3_update_launches
+    a = panel_factor_cuda(P, True, block=64, precision="bf16x3")
+    b = panel_factor_cuda(Q, True)
+    torch.cuda.synchronize()
+    assert panel_factor_cuda.bf16x3_update_launches == u0
+    assert torch.equal(P, Q) and all(torch.equal(x, y) for x, y in zip(a, b))
+    assert bf16x3_plan(700, 48, 64)["blocks"] == 1
+
+
+def test_bf16x3_panel_too_tall_for_a_cluster_raises():
+    """The grid route has no block boundaries, so the bf16x3 form refuses a
+    panel too tall for a cluster at its block width (NotImplementedError,
+    no launch) instead of factoring it without the split; a narrower block
+    plans it."""
+    need_cuda()
+    m = 40000
+    with pytest.raises(NotImplementedError, match="item 22"):
+        bf16x3_plan(m, 512, 32)
+    P = torch.zeros(m, 512, device="cuda")
+    k0, g0 = panel_factor_cuda.launches, panel_factor_cuda.bf16x3_launches
+    with pytest.raises(NotImplementedError, match=str(m)):
+        panel_factor_cuda(P, True, block=32, precision="bf16x3")
+    assert (panel_factor_cuda.launches, panel_factor_cuda.bf16x3_launches) == (k0, g0)
+    assert bf16x3_plan(24000, 512, 32)["route"] == "cluster"
+    assert bf16x3_plan(m, 512, 8)["route"] == "cluster"
+    # lu's whole route hands the 40000 x 512 matrix to the panel layer
+    A = torch.randn(m, 512, generator=torch.Generator().manual_seed(4)).cuda()
+    with pytest.raises(NotImplementedError, match="item 22"):
+        rt.lu(A, config=rt.LUConfig(panel_boundary_precision="bf16x3"))
+
+
+@pytest.mark.parametrize("schur", ["float32", "bf16x3"])
+def test_bf16x3_lu_and_solve_on_the_card(schur):
+    """``lu`` + ``lu_solve`` under the knob at n = 1536 (three 512-wide
+    panels of 32-step blocks): the residual gate, info, every panel on the
+    bf16x3 form (15 update launches each), the pivots of the CPU's plain
+    route on the same input (or a tie at the first step they part)."""
+    need_cuda()
+    n = 1536
+    g = torch.Generator().manual_seed(12)
+    A = torch.randn(n, n, generator=g)
+    b = torch.randn(n, generator=g)
+    cfg = rt.LUConfig(panel_boundary_precision="bf16x3", schur_precision=schur)
+    k0, u0 = panel_factor_cuda.bf16x3_launches, panel_factor_cuda.bf16x3_update_launches
+    F = rt.lu(A.cuda(), config=cfg)
+    x = rt.lu_solve(F, b.cuda())
+    torch.cuda.synchronize()
+    assert panel_factor_cuda.bf16x3_launches - k0 == 3
+    assert panel_factor_cuda.bf16x3_update_launches - u0 == 45
+    assert int(F.info) == 0
+    Ad = A.double().cuda()
+    gate = 20 * n * torch.finfo(torch.float32).eps * float(A.abs().max())
+    assert float((F.L.double() @ F.U.double() - Ad[F.p.long()]).abs().max()) < gate
+    # normwise backward error of the solve (float32 gives ~1e-7 here)
+    xd = x.double()
+    assert float((Ad @ xd - b.double().cuda()).norm() / (Ad.norm() * xd.norm())) < 1e-4
+    G = rt.lu(A, config=cfg, device="cpu")
+    if not torch.equal(F.ipiv.cpu(), G.ipiv):
+        k = int((F.ipiv.cpu() != G.ipiv).nonzero()[0])
+        assert _first_choice_gap(A[:, :k + 1].cuda(), F.ipiv[:k + 1], G.ipiv[:k + 1].cuda()) \
+            <= BF16X3_TIE
+
+
+def test_bf16x3_knob_leaves_the_batched_library_loop_in_float32():
+    """An unpivoted batch the batched kernel does not take runs a loop of
+    ``lu_factor_p`` on the card; the knob does not reach it (the batched
+    functions ignore it, as the JAX package's lane kernel does)."""
+    need_cuda()
+    g = torch.Generator().manual_seed(6)
+    B = (torch.randn(2, 300, 300, generator=g) + 300 * torch.eye(300)).cuda()
+    k0 = panel_factor_cuda.bf16x3_launches
+    a = rt.batched_lu_factor(B, pivot=False,
+                             config=rt.LUConfig(panel_boundary_precision="bf16x3"))
+    b = rt.batched_lu_factor(B, pivot=False)
+    torch.cuda.synchronize()
+    assert panel_factor_cuda.bf16x3_launches == k0
+    assert all(torch.equal(x, y) for x, y in zip(a, b))

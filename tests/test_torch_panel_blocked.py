@@ -162,9 +162,13 @@ def test_panel_route_and_wrapper_errors():
                        rt.LUConfig(blocked_panel_variant="basic"), "cuda") == "kernel"
     with pytest.raises(ValueError):
         panel_route(64, 32, torch.float32, rt.LUConfig(backend="xla"), "cuda")
-    with pytest.raises(NotImplementedError):
+    # the boundary knob factors (the bf16x3 form's plain version on the
+    # CPU); an unknown value raises
+    P = torch.zeros(8, 4)
+    assert panel_factor(P, True, rt.LUConfig(panel_boundary_precision="bf16x3"))[0] is P
+    with pytest.raises(ValueError):
         panel_factor(torch.zeros(8, 4), True,
-                     rt.LUConfig(panel_boundary_precision="bf16x3"))
+                     rt.LUConfig(panel_boundary_precision="bf16"))
     # the kernel wrapper never takes a CPU tensor (no silent fallback)
     with pytest.raises(ValueError):
         panel_factor_cuda(torch.zeros(8, 4), True)

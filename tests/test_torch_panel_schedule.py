@@ -336,7 +336,9 @@ def test_ctypes_signatures_match_the_c_entry_points():
     pointers where ctypes passes pointers: a mismatch would cut a pointer
     or shift every argument on the card.  The micro-blocked and no-swap
     entry points take the cluster route's block and cluster (and the
-    no-swap ones the live row count)."""
+    no-swap ones the live row count); the bf16x3 form takes its block,
+    cluster and a host count of its update launches, its update alone the
+    three row strides and nb."""
     import ctypes
     import re
 
@@ -352,9 +354,16 @@ def test_ctypes_signatures_match_the_c_entry_points():
             "rf_panel_lu_micro_set_trace"} <= set(_kernels.SIGNATURES["panel_lu_micro"])
     assert {"rf_panel_lu_noswap_plan", "rf_panel_lu_noswap_f32", "rf_panel_lu_noswap_f64",
             "rf_panel_lu_noswap_set_trace"} <= set(_kernels.SIGNATURES["panel_lu_noswap"])
-    for name, params in (("rf_panel_lu_shadow_f32", ("int micro", "int b", "int C")),
-                         ("rf_panel_lu_noswap_f64", ("int live", "int b", "int C"))):
-        src = _kernels.SOURCES["panel_lu_noswap" if "noswap" in name else "panel_lu_micro"]
+    # the bf16x3 form (panel_boundary_precision='bf16x3') and its update alone
+    assert {"rf_panel_lu_bf16x3_plan", "rf_panel_lu_bf16x3_f32",
+            "rf_panel_update_bf16x3_f32"} <= set(_kernels.SIGNATURES["panel_lu"])
+    for name, params, lib in (
+            ("rf_panel_lu_shadow_f32", ("int micro", "int b", "int C"), "panel_lu_micro"),
+            ("rf_panel_lu_noswap_f64", ("int live", "int b", "int C"), "panel_lu_noswap"),
+            ("rf_panel_lu_bf16x3_f32", ("int b", "int C", "int* updates"), "panel_lu"),
+            ("rf_panel_update_bf16x3_f32", ("int ldl", "int ldu", "int ldc", "int nb"),
+             "panel_lu")):
+        src = _kernels.SOURCES[lib]
         decl = re.search(r"\b" + name + r"\(([^)]*)\)", src.read_text()).group(1)
         assert all(p in decl for p in params), (name, decl)
     headers = "".join(h.read_text() for h in _kernels.HEADERS)
