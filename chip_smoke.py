@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernels-vs-plain only
+    python3 chip_smoke.py --bf16x3   # build + phases 2g and 4g only
     python3 chip_smoke.py --profile  # every phase + a device-time breakdown
     python3 chip_smoke.py --sweep    # every phase + the panel routing sweep
     python3 chip_smoke.py --log F    # also write the phase lines to file F
@@ -208,33 +209,42 @@ functions) and its offset kernel add:
 The boundary knob, ``panel_boundary_precision='bf16x3'`` (the tensor-core
 update of csrc/panel_cluster.cuh in csrc/panel_lu.cu's bf16x3 form), adds:
 
-2g. kernel  the update alone at nb = 8, 16, 20, 32 and 64 on 1000 x 300
-            and 8192 x 512 views (row stride > width) against the exact
-            float64 sum of its three split products: the worst ratio to
-            2^-24 ((nb + 2) sum |products| + |result|) must be at most 1,
-            nothing outside C written; against its plain version (the
-            split in torch) for the kernels line; an inf in L and in U:
-            NaN where the plain version has NaN; then f32 panels 1536 /
-            4096 / 8192 x 512 in 32-step blocks (randn pivoted and not, a
-            zeroed column, exact ties, a NaN) against ``micro_blocked_lu
-            (..., 'bf16x3')`` on the card: info equal, one update per
-            boundary, ipiv equal or parting at a tie within 2^-8 of the
-            column, with equal pivots perm and NaN equal and the factors
-            within twice the knob's own effect (plain bf16x3 - plain
-            float32), the residual gate; a 40000-row panel refused;
+2g. kernel  the update alone at nb = 1, 8, 16, 20, 32, 40 and 64 on views
+            of 1000 x 300 (row stride on 16 bytes and off them), 8192 x
+            512, 33 x 4065 and 4065 x 33 against the exact float64 sum of
+            its three split products: the worst ratio to 2^-24 ((nb + 2)
+            sum |products| + |result|) must be at most 1, nothing outside
+            C written; the tiled kernel bit for bit equal to the simple
+            kernel; against its plain version (the split in torch) for the
+            kernels line; an inf in L and in U: NaN where the plain version
+            has NaN; then f32 panels 1536 / 4096 / 8192 x 512 in 32-step
+            blocks (randn pivoted and not, a zeroed column, exact ties, a
+            NaN) against ``micro_blocked_lu(..., 'bf16x3')`` on the card:
+            info equal, one update per boundary, ipiv equal or parting at
+            a tie within 2^-8 of the column, with equal pivots perm and
+            NaN equal and the factors within twice the knob's own effect
+            (plain bf16x3 - plain float32), the residual gate; each panel
+            on the tiled update bit for bit the panel on the simple one; a
+            40000-row panel refused;
 3g. main    ``lu`` + ``lu_solve`` under the knob at n = 1536 (entry
             matrix, randn, a zeroed column), 4096 and 8192 (randn), alone
             and with ``schur_precision='bf16x3'``: residual gate beside the
             float32 form's scaled residual on the same matrix, info, no
             TF32 product, panel launches (all in the bf16x3 form, none on
-            a grid route) and update launches per ``lu``;
+            a grid route) and update launches per ``lu`` (none on the
+            simple kernel);
 4g. timing  in turns: the update alone at each main-path panel's first
-            boundary beside its plain version and one float32
-            ``addmm_``; the panel per shape in the bf16x3 form beside the
+            boundary (tiled, simple, plain, one float32 ``addmm_``) by
+            CUDA events over 20 queued calls, and by device time on the
+            same operands (L2-warm) and on operands rotated over copies
+            that hold twice the L2 (cold); the panel per shape in the
+            bf16x3 form on the tiled and on the simple update beside the
             float32 form at the same block width, at its default plan and
             the library; ``lu`` factor and factor+solve at 1536 / 4096 /
             8192 under float32, bf16x3 and bf16x3 + bf16x3 Schur beside
-            the library.
+            the library.  ``--profile`` adds ``lu`` + ``lu_solve`` under
+            the knob at 1536 and 4096: the updates' device time and
+            launches.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
 before it, and the exit code is not 0.  Without CUDA, or without the
@@ -529,6 +539,132 @@ def device_rows(prof):
     return rows
 
 
+def device_ms(fn, calls=5):
+    """Device time per call of ``fn`` (every kernel it launches), from
+    torch.profiler: at small n a call's host time exceeds its kernels'
+    and the events around queued calls measure the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler once recorded none of a window's kernels
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(r[0] for r in device_rows(prof))
+        if busy > 0:
+            return busy / calls
+    fail("device_ms: the profiler recorded no kernel in three windows")
+
+
+def device_span_ms(fn, setup, calls=5):
+    """Calls of ``fn`` (``setup`` before each, outside the window), each
+    under torch.profiler: the medians of its device span (from its first
+    kernel's start to its last kernel's end: the host's time before the
+    first launch left out), of its kernels' busy time, of its chain
+    kernels' time and of the host's time to enqueue it, in ms."""
+    import torch
+
+    setup()
+    fn()
+    rec = []
+    while len(rec) < calls:
+        for _ in range(3):  # the profiler once recorded none of a window's kernels
+            setup()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+            ev = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                  if "CUDA" in str(getattr(e, "device_type", ""))]
+            if ev:
+                break
+        else:
+            fail("device_span_ms: the profiler recorded no kernel in three windows")
+        rec.append(((max(t for _, t, _ in ev) - min(s for s, _, _ in ev)) / 1e3,
+                    sum(t - s for s, t, _ in ev) / 1e3,
+                    sum(t - s for s, t, n in ev if "panel_chain_kernel" in n) / 1e3,
+                    (t1 - t0) * 1e3))
+    return dict(zip(("span", "busy", "chain", "host_enqueue"),
+                    (sorted(x)[len(x) // 2] for x in zip(*rec))))
+
+
+def bf16x3_update_rows(rows):
+    """The bf16x3 update kernels among a profiled window's device rows
+    (:func:`device_rows`): their device ms, launches and time per launch,
+    beside the chain kernels' ms.  The updates run in turn with the chains
+    on one stream, so all of their time is on the panels' critical path."""
+    ups = [r for r in rows if "panel_update_bf16x3" in r[2]]
+    ms, calls = sum(r[0] for r in ups), sum(r[1] for r in ups)
+    return dict(update_ms=ms, update_launches=calls,
+                update_us_per_launch=1e3 * ms / calls if calls else None,
+                chain_ms=sum(r[0] for r in rows if "panel_chain_kernel" in r[2]))
+
+
+def profile_run(dev, card, factor, solve, expect=(), updates=False, **what):
+    """Profile one factor + solve; ``expect`` names kernels (substrings)
+    the device rows must hold.  Only CUDA activity is recorded: with CPU
+    activity on too, the profiler dropped the batched factor kernel of
+    the window (PERF.md), and with CUDA activity alone it once dropped
+    the 5 ms factor kernel at n = 128: a window that lacks an
+    expected kernel is taken again, up to three windows.  A small
+    kernel opens the window, so that a record lost at the start would
+    be that one.  ``updates``: the bf16x3 updates' device time
+    (:func:`bf16x3_update_rows`) in the line."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    solve(factor())
+    torch.cuda.synchronize()
+    for attempt in range(1, 4):
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device=dev).add_(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            F = factor()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            solve(F)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        # (busy time includes the opening fill and add of one element, ~2 us)
+        rows = device_rows(prof)
+        missing = [k for k in expect if not any(k in r[2] for r in rows)]
+        if not missing:
+            break
+    busy = sum(r[0] for r in rows)
+    wall = (t2 - t0) * 1e3
+    emit("profile", card=card, factor_wall_ms=(t1 - t0) * 1e3,
+         solve_wall_ms=(t2 - t1) * 1e3, device_busy_ms=busy,
+         idle_share=1 - busy / wall if wall > 0 else None,
+         top=[{"ms": r[0], "calls": r[1], "name": r[2]} for r in rows[:12]],
+         expected_kernels=list(expect), missing_kernels=missing, windows=attempt, **what,
+         **(bf16x3_update_rows(rows) if updates else {}))
+    if missing:
+        fail(f"profile: kernels {missing} not recorded ({what})")
+
+
+def bf16x3_profile(rt, card, gen, dev):
+    """``lu`` + ``lu_solve`` under ``panel_boundary_precision='bf16x3'`` at
+    n = 1536 and 4096 under the profiler: device time by kernel and the
+    updates' time and launches."""
+    import torch
+
+    cfg = rt.LUConfig(panel_boundary_precision="bf16x3")
+    for n in (1536, 4096):
+        M = torch.randn(n, n, generator=gen).to(dev)
+        v = torch.randn(n, generator=gen).to(dev)
+        profile_run(dev, card, lambda: rt.lu(M, check=False, config=cfg),
+                    lambda F: rt.lu_solve(F, v), expect=("panel_update_bf16x3_tiled",),
+                    updates=True, n=n, dtype="float32", config="bf16x3")
+
+
 def profile(rt, card, gen, dev, tp_mesh):
     """Device time by kernel over one factor + solve at 1536 and 4096 in
     float32 (the default route, ``schedule='physical'``,
@@ -540,47 +676,11 @@ def profile(rt, card, gen, dev, tp_mesh):
     ``lu`` + ``lu_solve`` at n = 4096, w = 128 and 512 (torch.profiler),
     and the device's idle share of the wall time."""
     import torch
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as tprofile
 
     from recursivefactorization_jl_tpu_torch.ops import batched_kernel as bk
 
     def run(factor, solve, expect=(), **what):
-        """Profile one factor + solve; ``expect`` names kernels (substrings)
-        the device rows must hold.  Only CUDA activity is recorded: with CPU
-        activity on too, the profiler dropped the batched factor kernel of
-        the window (PERF.md), and with CUDA activity alone it once dropped
-        the 5 ms factor kernel at n = 128: a window that lacks an
-        expected kernel is taken again, up to three windows.  A small
-        kernel opens the window, so that a record lost at the start would
-        be that one."""
-        solve(factor())
-        torch.cuda.synchronize()
-        for attempt in range(1, 4):
-            with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-                torch.zeros(1, device=dev).add_(1)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                F = factor()
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                solve(F)
-                torch.cuda.synchronize()
-                t2 = time.perf_counter()
-            # (busy time includes the opening fill and add of one element, ~2 us)
-            rows = device_rows(prof)
-            missing = [k for k in expect if not any(k in r[2] for r in rows)]
-            if not missing:
-                break
-        busy = sum(r[0] for r in rows)
-        wall = (t2 - t0) * 1e3
-        emit("profile", card=card, factor_wall_ms=(t1 - t0) * 1e3,
-             solve_wall_ms=(t2 - t1) * 1e3, device_busy_ms=busy,
-             idle_share=1 - busy / wall if wall > 0 else None,
-             top=[{"ms": r[0], "calls": r[1], "name": r[2]} for r in rows[:12]],
-             expected_kernels=list(expect), missing_kernels=missing, windows=attempt, **what)
-        if missing:
-            fail(f"profile: kernels {missing} not recorded ({what})")
+        profile_run(dev, card, factor, solve, expect, **what)
 
     for n, dt in ((1536, torch.float32), (4096, torch.float32),
                   (1536, torch.complex64), (4096, torch.complex64)):
@@ -593,10 +693,10 @@ def profile(rt, card, gen, dev, tp_mesh):
         if dt.is_complex:
             continue
         for name, cfg in (("physical", rt.LUConfig(schedule="physical")),
-                          ("shadow", rt.LUConfig(panel_variant="shadow")),
-                          ("bf16x3", rt.LUConfig(panel_boundary_precision="bf16x3"))):
+                          ("shadow", rt.LUConfig(panel_variant="shadow"))):
             run(lambda: rt.lu(M, check=False, config=cfg), lambda F: rt.lu_solve(F, v),
                 n=n, dtype=str(dt)[6:], config=name)
+    bf16x3_profile(rt, card, gen, dev)
     n = 1536
     M = (torch.randn(n, n, generator=gen) + n * torch.eye(n)).to(dev)
     v = torch.randn(n, generator=gen).to(dev)
@@ -730,53 +830,80 @@ def bf16x3_panel_bound(m, w, b):
 
 def bf16x3_kernel_phase(dev, gen):
     """Phase 2g: the bf16x3 update alone against the exact sum of its split
-    products and against its plain version, then the bf16x3 form of the
-    panel kernel against ``micro_blocked_lu(..., 'bf16x3')`` on the card.
-    Returns the largest |kernel - plain| of the update."""
+    products, against its plain version and, bit for bit, the tiled kernel
+    against the simple kernel; then the bf16x3 form of the panel kernel
+    against ``micro_blocked_lu(..., 'bf16x3')`` on the card, and on the
+    tiled update bit for bit against the simple one.  Returns the largest
+    |kernel - plain| of each update kernel."""
     import torch
 
     from recursivefactorization_jl_tpu_torch.ops.panel import (
         bf16x3_plan,
+        bf16x3_update_plan,
         panel_factor_cuda,
         panel_update_bf16x3_cuda,
     )
     from recursivefactorization_jl_tpu_torch.ops.schur import schur_product
     from recursivefactorization_jl_tpu_torch.ops.unblocked import micro_blocked_lu
 
-    max_err = 0.0
-    for nb in (8, 16, 20, 32, 64):
-        for rows, cols in ((1000, 300), (8192, 512)):
-            big = torch.randn(rows + nb + 1, cols + nb + 3, generator=gen).to(dev)
-            C, L, U = big[nb:nb + rows, nb:nb + cols], big[nb:nb + rows, :nb], big[:nb, nb:nb + cols]
+    def i32(t):
+        return t.contiguous().view(torch.int32)
+
+    max_err = {"tiled": 0.0, "simple": 0.0}
+    # (rows, cols, pad): C, L and U are views of one matrix whose row stride
+    # is 64 + cols + pad; pad 0 keeps every operand on 16 bytes where nb is a
+    # multiple of 4 (the panel's case), pad 3 puts every row off them
+    for nb in (1, 8, 16, 20, 32, 40, 64):
+        for rows, cols, pad in ((1000, 300, 0), (1000, 300, 3), (8192, 512, 0), (33, 4065, 0),
+                                (4065, 33, 0)):
+            big = torch.randn(rows + 64, 64 + cols + pad, generator=gen).to(dev)
+
+            def views(X):
+                return X[64:, 64:64 + cols], X[64:, 64 - nb:64], X[64 - nb:64, 64:64 + cols]
+
+            C, L, U = views(big)
             ref, mag = bf16x3_reference(C, L, U)
             plain = C - schur_product(L, U, "bf16x3")
-            before = big.clone()
-            k0 = panel_update_bf16x3_cuda.launches
-            panel_update_bf16x3_cuda(C, L, U)
-            torch.cuda.synchronize()
             outside = torch.ones_like(big, dtype=torch.bool)
-            outside[nb:nb + rows, nb:nb + cols] = False
-            err = float((C - plain).abs().max())
-            max_err = max(max_err, err)
+            outside[64:, 64:64 + cols] = False
+            runs = {}
+            for upd in ("tiled", "simple"):
+                X = big.clone()
+                k0 = panel_update_bf16x3_cuda.launches
+                panel_update_bf16x3_cuda(*views(X), _update=upd)
+                torch.cuda.synchronize()
+                if panel_update_bf16x3_cuda.launches != k0 + 1:
+                    fail("the bf16x3 update's launch count")
+                if not torch.equal(X[outside], big[outside]):
+                    fail(f"the bf16x3 update wrote outside C ({upd})")
+                runs[upd] = views(X)[0]
+            tiled, simple = runs["tiled"], runs["simple"]
             rec = dict(kernel="panel_lu_bf16x3_update", nb=nb, shape=[rows, cols],
-                       lda=big.stride(0), worst_ratio_to_bound=bf16x3_ratio(C, ref, mag, nb),
+                       lda=big.stride(0), plan=bf16x3_update_plan(rows, cols, nb),
+                       worst_ratio_to_bound=bf16x3_ratio(tiled, ref, mag, nb),
+                       simple_worst_ratio_to_bound=bf16x3_ratio(simple, ref, mag, nb),
                        plain_worst_ratio_to_bound=bf16x3_ratio(plain, ref, mag, nb),
-                       max_abs_err=err, launched=panel_update_bf16x3_cuda.launches - k0,
-                       rest_untouched=bool(torch.equal(big[outside], before[outside])))
+                       max_abs_err=float((tiled - plain).abs().max()),
+                       bitwise_simple=bool(torch.equal(i32(tiled), i32(simple))))
+            max_err["tiled"] = max(max_err["tiled"], rec["max_abs_err"])
+            max_err["simple"] = max(max_err["simple"], float((simple - plain).abs().max()))
             emit("kernel", **rec)
-            if not (rec["worst_ratio_to_bound"] <= 1 and rec["launched"] == 1
-                    and rec["rest_untouched"]):
+            if not (rec["worst_ratio_to_bound"] <= 1 and rec["bitwise_simple"]):
                 fail(f"the bf16x3 update: {rec}")
+            del big, ref, mag, plain, runs, tiled, simple
     # an inf in L or U: NaN where the plain version has NaN
     L, U, C = (torch.randn(*s, generator=gen).to(dev) for s in ((512, 32), (32, 480), (512, 480)))
     L[3, 2], U[5, 7] = float("inf"), float("-inf")
     plain = C - schur_product(L, U, "bf16x3")
+    S = C.clone()
     panel_update_bf16x3_cuda(C, L, U)
+    panel_update_bf16x3_cuda(S, L, U, _update="simple")
     nan_same = bool(torch.equal(torch.isnan(C), torch.isnan(plain)))
     emit("kernel", kernel="panel_lu_bf16x3_update", input="inf in L and in U",
-         nan_count=int(torch.isnan(C).sum()), nan_equal_plain=nan_same)
-    if not nan_same:
-        fail("the bf16x3 update's NaN entries are not the plain version's")
+         nan_count=int(torch.isnan(C).sum()), nan_equal_plain=nan_same,
+         bitwise_simple=bool(torch.equal(i32(C), i32(S))))
+    if not (nan_same and torch.equal(i32(C), i32(S))):
+        fail("the bf16x3 update's NaN entries are not the plain version's or the simple kernel's")
 
     for m, w in BF16X3_SHAPES:
         base = torch.randn(m, w, generator=gen)
@@ -790,18 +917,27 @@ def bf16x3_kernel_phase(dev, gen):
                 A[30, 9] = float("nan")
             if not pivot:
                 A += m * torch.eye(m, w, device=dev)
-            P = A.clone()
-            u0 = panel_factor_cuda.bf16x3_update_launches
-            piv, perm, info = panel_factor_cuda(P, pivot, block=BF16X3_MICRO, precision="bf16x3")
-            torch.cuda.synchronize()
-            updates = panel_factor_cuda.bf16x3_update_launches - u0
+            # the tiled update (the main path's), then the simple one
+            outs = {}
+            for upd in ("tiled", "simple"):
+                Q = A.clone()
+                u0 = panel_factor_cuda.bf16x3_update_launches
+                got = panel_factor_cuda(Q, pivot, block=BF16X3_MICRO, precision="bf16x3",
+                                        _update=upd)
+                torch.cuda.synchronize()
+                outs[upd] = (Q, *got, panel_factor_cuda.bf16x3_update_launches - u0)
+            P, piv, perm, info, updates = outs["tiled"]
             f, rpiv, rperm, rinfo = micro_blocked_lu(A, pivot, BF16X3_MICRO, "bf16x3")
             f32 = micro_blocked_lu(A, pivot, BF16X3_MICRO)[0]
             rec = dict(kernel="panel_lu_bf16x3", shape=[m, w], input=name, pivot=pivot,
                        plan=bf16x3_plan(m, w, BF16X3_MICRO), info=int(info),
                        info_equal=int(info) == int(rinfo), ipiv_equal=bool(torch.equal(piv, rpiv)),
-                       updates=updates, expected_updates=len(bf16x3_blocks(m, w, BF16X3_MICRO)))
-            ok = rec["info_equal"] and updates == rec["expected_updates"]
+                       updates=updates, simple_updates=outs["simple"][4],
+                       expected_updates=len(bf16x3_blocks(m, w, BF16X3_MICRO)),
+                       bitwise_simple=all(torch.equal(i32(x), i32(y)) for x, y in
+                                          zip(outs["tiled"][:4], outs["simple"][:4])))
+            ok = (rec["info_equal"] and rec["bitwise_simple"]
+                  and updates == rec["simple_updates"] == rec["expected_updates"])
             finite = bool(torch.isfinite(A).all())
             if not rec["ipiv_equal"]:
                 rec["first_differing_step"], rec["tie_gap"] = first_choice_gap(A, piv, rpiv)
@@ -827,6 +963,7 @@ def bf16x3_kernel_phase(dev, gen):
                 fail(f"the bf16x3 panel disagrees with its plain version: {rec}")
             if name == "zero_col" and int(info) != 101:
                 fail(f"zeroed column 100 gave info {int(info)}")
+            del outs, P, f, f32
     # a panel too tall for a cluster is refused, never factored without the
     # split: the tallest 512-wide panel each block width plans (to 1024 rows)
     for b in (BF16X3_MICRO, 8):
@@ -888,6 +1025,7 @@ def bf16x3_main_phase(rt, dev, TF32Watch, resid_gate, solve_resid):
             watch = TF32Watch()
             panel_factor_cuda.launches = panel_factor_cuda.grid_route_launches = 0
             panel_factor_cuda.bf16x3_launches = panel_factor_cuda.bf16x3_update_launches = 0
+            panel_factor_cuda.bf16x3_simple_update_launches = 0
             panel_update_bf16x3_cuda.launches = 0
             with watch:
                 F = rt.lu(A, check=False, config=knob)
@@ -896,6 +1034,7 @@ def bf16x3_main_phase(rt, dev, TF32Watch, resid_gate, solve_resid):
             got = dict(panel_launches=panel_factor_cuda.launches,
                        bf16x3_panel_launches=panel_factor_cuda.bf16x3_launches,
                        bf16x3_update_launches=panel_factor_cuda.bf16x3_update_launches,
+                       bf16x3_simple_update_launches=panel_factor_cuda.bf16x3_simple_update_launches,
                        grid_route_launches=panel_factor_cuda.grid_route_launches)
             counts[(n, name, schur)] = got
             r, g = resid_gate(A, F)
@@ -910,6 +1049,7 @@ def bf16x3_main_phase(rt, dev, TF32Watch, resid_gate, solve_resid):
             want_info = 701 if name == "zero_col" else 0
             if not (got["panel_launches"] == got["bf16x3_panel_launches"] == len(panels)
                     and got["bf16x3_update_launches"] == expect_updates
+                    and got["bf16x3_simple_update_launches"] == 0
                     and got["grid_route_launches"] == 0 and r < g and rec["info"] == want_info
                     and watch.flags and not any(watch.flags)
                     and (name == "zero_col" or np.isfinite(rec["solve_rel_resid"]))):
@@ -923,16 +1063,23 @@ def bf16x3_main_phase(rt, dev, TF32Watch, resid_gate, solve_resid):
 
 def bf16x3_timing_phase(rt, dev, gen, card, round_robin, timed):
     """Phase 4g, in turns within this call: the update alone at the first
-    boundary of each main-path panel beside its plain version and one
-    float32 library product; the panel kernel per main-path panel in its
-    bf16x3 form beside its float32 form at the same block width, at the
-    default plan and the library; ``lu`` factor and factor+solve at 1536 /
-    4096 / 8192 under float32, bf16x3 and bf16x3 + bf16x3 Schur beside the
+    boundary of each main-path panel (the tiled kernel, the simple kernel,
+    the plain version and one float32 library product), by CUDA events over
+    queued calls and by torch.profiler's device time, on the same operands
+    (L2-warm, as in the panel) and on operands rotated over copies that
+    hold twice the L2 (cold, what the byte bound assumes); the panel kernel
+    per main-path panel in its bf16x3 form (on the tiled and on the simple
+    update) beside its float32 form at the same block width, at the default
+    plan and the library; ``lu`` factor and factor+solve at 1536 / 4096 /
+    8192 under float32, bf16x3 and bf16x3 + bf16x3 Schur beside the
     library.  Returns the update's rows."""
+    import itertools
+
     import torch
 
     from recursivefactorization_jl_tpu_torch.ops.panel import (
         bf16x3_plan,
+        bf16x3_update_plan,
         panel_factor_cuda,
         panel_plan,
         panel_update_bf16x3_cuda,
@@ -942,43 +1089,71 @@ def bf16x3_timing_phase(rt, dev, gen, card, round_robin, timed):
     from recursivefactorization_jl_tpu_torch.utils.config import full_matmul_precision
 
     b = BF16X3_MICRO
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size", 50 << 20)
     update_rows = {}
+    forms = {
+        "kernel": lambda C, L, U: panel_update_bf16x3_cuda(C, L, U),
+        "simple": lambda C, L, U: panel_update_bf16x3_cuda(C, L, U, _update="simple"),
+        "plain": lambda C, L, U: C.sub_(schur_product(L, U, "bf16x3")),
+        "library": lambda C, L, U: C.addmm_(L, U, alpha=-1),
+    }
     for m, w in BF16X3_SHAPES:
         rows, cols, nb = bf16x3_blocks(m, w, b)[0]
         big = torch.randn(rows + nb, w, generator=gen).to(dev)
         C0 = big[nb:, nb:].clone()
         C, L, U = big[nb:, nb:], big[nb:, :nb], big[:nb, nb:]
+        # copies of the operands that hold twice the L2: a call on one finds
+        # none of it in the L2, which the others' calls since its last have
+        # filled twice over
+        copies = max(4, -(-2 * l2 // (big.numel() * 4)))
+        bigs = [big.clone() for _ in range(copies)]
+        sets = [(X[nb:, nb:], X[nb:, :nb], X[:nb, nb:]) for X in bigs]
+        turn = itertools.cycle(range(copies))
         with full_matmul_precision():
-            t = round_robin({
-                "kernel": lambda: panel_update_bf16x3_cuda(C, L, U),
-                "plain": lambda: C.sub_(schur_product(L, U, "bf16x3")),
-                "library": lambda: C.addmm_(L, U, alpha=-1),
-            }, rounds=9, inner=20, setup=lambda: C.copy_(C0))
+            t = round_robin({k: lambda f=f: f(C, L, U) for k, f in forms.items()}, rounds=9,
+                            inner=20, setup=lambda: C.copy_(C0))
+            warm = {k: device_ms(lambda f=f: f(C, L, U), calls=20) for k, f in forms.items()}
+            cold = {k: device_ms(lambda f=f: f(*sets[next(turn)]), calls=max(20, copies))
+                    for k, f in forms.items()}
         b_ms, b_by = bf16x3_update_bound(rows, cols, nb)
-        row = dict(shape=[rows, cols], nb=nb, lda=big.stride(0), kernel_ms=t["kernel"],
-                   plain_ms=t["plain"], library_ms=t["library"], bound_ms=b_ms, bound_by=b_by,
+        row = dict(shape=[rows, cols], nb=nb, lda=big.stride(0),
+                   plan=bf16x3_update_plan(rows, cols, nb), kernel_ms=t["kernel"],
+                   simple_ms=t["simple"], plain_ms=t["plain"], library_ms=t["library"],
+                   device_ms_warm=warm, device_ms_cold=cold, cold_copies=copies,
+                   l2_bytes=l2, bound_ms=b_ms, bound_by=b_by,
+                   kernel_over_bound=cold["kernel"] / b_ms,
+                   simple_over_bound=cold["simple"] / b_ms,
+                   warm_kernel_over_bound=warm["kernel"] / b_ms,
                    library_call="C.addmm_(L, U, alpha=-1), float32, TF32 off")
         update_rows[(m, w)] = row
         emit("timing", what="bf16x3_update", card=card, **row)
-        del big, C0, C, L, U
+        del big, C0, C, L, U, bigs, sets
     for m, w in BF16X3_SHAPES:
         X = torch.randn(m, w, generator=gen).to(dev)
         P = torch.empty_like(X)
         plan = bf16x3_plan(m, w, b)
+        panels = {
+            "bf16x3": lambda: panel_factor_cuda(P, True, block=b, precision="bf16x3"),
+            "bf16x3_simple": lambda: panel_factor_cuda(P, True, block=b, precision="bf16x3",
+                                                       _update="simple"),
+        }
         with quiet_c_stdout():
             t = round_robin({
-                "bf16x3": lambda: panel_factor_cuda(P, True, block=b, precision="bf16x3"),
+                **panels,
                 "float32_same_b": lambda: panel_factor_cuda(P, True, block=b,
                                                             cluster=plan["cluster"]),
                 "float32_default": lambda: panel_factor_cuda(P, True),
                 "library": lambda: torch.linalg.lu_factor_ex(P),
-            }, rounds=9, setup=lambda: P.copy_(X))
+            }, rounds=10, setup=lambda: P.copy_(X), mirror=True)
+        span = {k: device_span_ms(f, lambda: P.copy_(X)) for k, f in panels.items()}
         p_ms, _ = timed(lambda: micro_blocked_lu(X, True, b, "bf16x3"), None, reps=1, warm=0)
         b_ms, b_by = bf16x3_panel_bound(m, w, b)
         emit("timing", what="bf16x3_panel", card=card, shape=[m, w], block=b, plan=plan,
              default_plan=panel_plan(m, w, torch.float32), ms=t, plain_ms=p_ms,
-             bound_ms=b_ms, bound_by=b_by, updates=len(bf16x3_blocks(m, w, b)),
+             device_ms=span, bound_ms=b_ms, bound_by=b_by,
+             updates=len(bf16x3_blocks(m, w, b)),
              bf16x3_over_float32_same_b=t["bf16x3"] / t["float32_same_b"],
+             tiled_over_simple=t["bf16x3"] / t["bf16x3_simple"],
              bf16x3_over_float32_default=t["bf16x3"] / t["float32_default"])
         del X, P
     cfgs = {"float32": rt.LUConfig(),
@@ -1099,16 +1274,18 @@ def main(argv):
         ts.sort()
         return ts[len(ts) // 2], ts
 
-    def round_robin(fns, rounds=7, warm=1, inner=1, setup=None):
+    def round_robin(fns, rounds=7, warm=1, inner=1, setup=None, mirror=False):
         """Median CUDA-event ms of each callable, run in turns (every
         round times each once), so host noise spreads over all of them.
         With ``inner`` > 1 a turn queues the callable that many times
         between its two events and the time is per call: the device stays
         fed and the host's launch latency falls out of a sub-millisecond
-        kernel's time.  ``setup`` runs before each timing, outside it."""
+        kernel's time.  ``setup`` runs before each timing, outside it.
+        ``mirror``: every other round runs the callables in reverse order,
+        so no one of them always follows the same other."""
         ts = {k: [] for k in fns}
         for r in range(warm + rounds):
-            for k, fn in fns.items():
+            for k, fn in (reversed(fns.items()) if mirror and r % 2 else fns.items()):
                 if setup is not None:
                     setup()
                 e0 = torch.cuda.Event(enable_timing=True)
@@ -1123,6 +1300,13 @@ def main(argv):
         return {k: sorted(v)[len(v) // 2] for k, v in ts.items()}
 
     gen = torch.Generator(device="cpu").manual_seed(1)
+    if "--bf16x3" in argv:  # phases 1, 2g and 4g (and the bf16x3 profile) only
+        bf16x3_kernel_phase(dev, gen)
+        bf16x3_timing_phase(rt, dev, gen, card, round_robin, timed)
+        if "--profile" in argv:
+            bf16x3_profile(rt, card, gen, dev)
+        print(json.dumps({"ok": True, "bf16x3_only": True}))
+        return 0
     # ---- 2. kernel vs plain ---------------------------------------------
     if not batched_only:
         max_err = 0.0
@@ -2149,23 +2333,6 @@ def main(argv):
                     step_ns_first_half_mean=float(step[:k // 2].mean()) if k > 1 else None,
                     step_ns_second_half_mean=float(step[k // 2:].mean()),
                     first_block_us=float(tail[2] - tail[0]) / 1e3)
-
-    def device_ms(fn, calls=5):
-        """Device time per call of ``fn`` (every kernel it launches), from
-        torch.profiler: at small n a call's host time exceeds its kernels'
-        and the events around queued calls measure the host."""
-        fn()
-        torch.cuda.synchronize()
-        for _ in range(3):  # the profiler once recorded none of a window's kernels
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-            busy = sum(r[0] for r in device_rows(prof))
-            if busy > 0:
-                return busy / calls
-        fail("device_ms: the profiler recorded no kernel in three windows")
 
     def batched_timing():
         """Phase 4b: the swap kernel on its own route and on the tile route
@@ -3811,30 +3978,46 @@ def main(argv):
             "ofs": 0,
             "dtype": "complex64",
         })
-    # the bf16x3 update kernel at the first boundary of the 1536 main path's
-    # first panel; its launches are those of phase 3g's first run (lu + lu_solve
-    # of the entry matrix at n = 1536 under panel_boundary_precision='bf16x3')
+    # the bf16x3 update's two kernels at the first boundary of the 1536 main
+    # path's first panel: the tiled kernel (the main path's) and the simple
+    # kernel (forced only); their launches are those of phase 3g's first
+    # run (lu + lu_solve of the entry matrix at n = 1536 under
+    # panel_boundary_precision='bf16x3')
     brow = bf16x3_rows[tuple(main_shape(1536)[1])]
-    kernels.append({
-        "name": "panel_lu_bf16x3_update",
-        "route": "cuda",
-        "source": BF16X3_UPDATE[0],
-        "replaces": BF16X3_UPDATE[1],
-        "launches": bf16x3_counts[(1536, "entry", "float32")]["bf16x3_update_launches"],
-        # against its plain version (ops/schur.py's split on the card), over
-        # phase 2g's isolated updates
-        "max_abs_err": bf16x3_err,
-        "ms": brow["kernel_ms"],
-        "plain_ms": brow["plain_ms"],
-        "bound_ms": brow["bound_ms"],
-        "bound_by": brow["bound_by"],
-        # one float32 product C - L @ U (Tensor.addmm_, TF32 off): the function
-        # the split approximates; no library call computes the split itself
-        "library_ms": brow["library_ms"],
-        "shape": brow["shape"],
-        "nb": brow["nb"],
-        "dtype": "float32",
-    })
+    bcount = bf16x3_counts[(1536, "entry", "float32")]
+    simple = bcount["bf16x3_simple_update_launches"]
+    for name, key, launched in (
+            ("panel_lu_bf16x3_update", "kernel", bcount["bf16x3_update_launches"] - simple),
+            ("panel_lu_bf16x3_update_simple", "simple", simple)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": BF16X3_UPDATE[0],
+            "replaces": BF16X3_UPDATE[1],
+            "launches": launched,
+            # against its plain version (ops/schur.py's split on the card),
+            # over phase 2g's isolated updates
+            "max_abs_err": bf16x3_err["tiled" if key == "kernel" else "simple"],
+            # device time (torch.profiler) on operands rotated past the L2,
+            # as the byte bound assumes; beside it the device time on the
+            # same operands (L2-warm, as in the panel) and the CUDA-event
+            # time of 20 queued wrapper calls, host included
+            "ms": brow["device_ms_cold"][key],
+            "warm_ms": brow["device_ms_warm"][key],
+            "call_ms": brow[f"{key}_ms"],
+            "plain_ms": brow["device_ms_cold"]["plain"],
+            "plain_call_ms": brow["plain_ms"],
+            "bound_ms": brow["bound_ms"],
+            "bound_by": brow["bound_by"],
+            # one float32 product C - L @ U (Tensor.addmm_, TF32 off): the
+            # function the split approximates; no library call computes the
+            # split itself
+            "library_ms": brow["device_ms_cold"]["library"],
+            "library_call_ms": brow["library_ms"],
+            "shape": brow["shape"],
+            "nb": brow["nb"],
+            "dtype": "float32",
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -33,6 +33,7 @@
 
 #include <climits>
 #include <cstddef>
+#include <cstdint>
 #include <type_traits>
 
 #include "rf_common.cuh"
@@ -55,6 +56,7 @@ constexpr int kDelayWarps = kDelayThreads / 32;
 constexpr int kUpdRows = 64;       // rows per CTA of the rank-b update
 constexpr int kRouteGrid = 0, kRouteCluster = 1;
 constexpr int kPlanGrid = -1;  // plan_for's answer for the grid route
+constexpr int kMaxDevices = 16;
 
 template <typename T>
 struct ChainArgs {
@@ -542,7 +544,8 @@ panel_swap_solve_kernel(DelayArgs<T> p) {
 //               (panel_update_kernel, real elements only): the micro-blocked
 //               kernels of csrc/panel_lu_micro.cu;
 //   kBf16x3     C -= hh + (hl + lh) on the tensor cores
-//               (panel_update_bf16x3_kernel, float only): csrc/panel_lu.cu
+//               (panel_update_bf16x3_tiled_kernel, float only; the simple
+//               panel_update_bf16x3_kernel where forced): csrc/panel_lu.cu
 //               under panel_boundary_precision='bf16x3'.
 enum UpdateForm { kStepOrder, kSumFirst, kBf16x3 };
 
@@ -623,8 +626,9 @@ panel_update_kernel(DelayArgs<T> p) {
 // class, not bitwise; chip_smoke.py (phase 2g) holds it to the exact sum of
 // the three products within (K + 2) * 2^-24 of the sum of their magnitudes.
 //
-// A CTA of four warps takes a 64 x 64 tile of C, a warp 32 x 32 of it (two
-// 16-row by four 8-column fragments).  It stages the split halves of its L
+// This is the simple route, forced only: the tiled kernel below computes
+// the same bits faster.  A CTA of four warps takes a 64 x 64 tile of C, a
+// warp 32 x 32 of it (two 16-row by four 8-column fragments).  It stages the split halves of its L
 // rows (row-major, k contiguous) and U columns (column-major, k contiguous)
 // in shared memory, K = nb zero-padded to a multiple of 16; a staged row of
 // kTcLd = 72 bf16 (36 words) puts the eight rows of a fragment load on
@@ -740,23 +744,308 @@ panel_update_bf16x3_kernel(Bf16x3Args p) {
       }
 }
 
-// Launch the bf16x3 update of `a` (1 <= nb <= kTcKMax) on `stream` (T =
-// float; a template so that only the sources that launch it build it).
+// The bf16x3 update tiled for the memory path (panel_update_bf16x3_tiled_
+// kernel, the route the panel takes; the kernel above stays as the simple
+// route, forced only).  It runs the same products in the same order: per
+// element K in chunks of 16 ascending on mma.sync m16n8k16 with the same
+// fragments, hh into one accumulator, hl then lh into a second, then one sum
+// and one difference.  So the two kernels agree bit for bit at every shape.
+//
+// What bounds the update is bytes: C read and written once is ~12x the
+// three products' time at the bf16 tensor-core peak (1504 x 480 x 32: 5.8 MB,
+// 1.7 us at 3.35 TB/s, against 0.14 us).  The design serves the memory path:
+//   * each warp's 16 C rows go into shared memory by cp.async at entry, so
+//     their latency overlaps the staging and the products; the result
+//     leaves through the same rows in 16-byte row-contiguous stores;
+//   * L and U are read with 16-byte loads (all of a thread's loads before
+//     its first split), split once, and stored as they lie: L's halves
+//     row-major, k contiguous, U's halves k-major, n contiguous; ldmatrix
+//     (.trans for U) reads the fragments without bank conflicts from rows
+//     of KP + 8 and TN + 8 bf16;
+//   * the tile is TM x TN (TM / 16 warps, a warp takes 16 rows and all TN
+//     columns), chosen from (rows, cols) by tile_plan; each CTA splits its
+//     own L rows and U columns again (L2 hits: the panel is in L2).
+// Operands off 16 bytes, or a row stride that is not a multiple of 4, take
+// 4-byte copies and loads in the same pattern.
+template <int TM, int TN, int KP>
+struct TcTile {
+  static constexpr int kThreads = 2 * TM;  // a warp per 16 rows
+  static constexpr int kCld = TN + 8;      // floats per staged C row
+  static constexpr int kLld = KP + 8;      // bf16 per staged L row
+  static constexpr int kUld = TN + 8;      // bf16 per staged U row
+  static constexpr size_t kCBytes = static_cast<size_t>(TM) * kCld * 4;
+  static constexpr size_t kLBytes = static_cast<size_t>(TM) * kLld * 2;  // one half
+  static constexpr size_t kUBytes = static_cast<size_t>(KP) * kUld * 2;  // one half
+  static constexpr size_t kSmem = kCBytes + 2 * kLBytes + 2 * kUBytes;
+};
+
+__device__ __forceinline__ void tc_copy16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void tc_copy4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory, lane l addressing row l % 8
+// of matrix l / 8; .trans hands each lane a column pair instead of a row pair
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// row[c .. c + 3], the columns at or past n read as 0 (a row outside the
+// operand: row == nullptr): one 16-byte load where vec and all four lie inside
+__device__ __forceinline__ float4 tc_load4(const float* row, int c, int n, bool vec) {
+  float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (row == nullptr) return x;
+  if (vec && c + 3 < n) return *reinterpret_cast<const float4*>(row + c);
+  if (c < n) x.x = row[c];
+  if (c + 1 < n) x.y = row[c + 1];
+  if (c + 2 < n) x.z = row[c + 2];
+  if (c + 3 < n) x.w = row[c + 3];
+  return x;
+}
+
+// the halves of four floats, one 8-byte store each
+__device__ __forceinline__ void tc_split4(const float4& x, __nv_bfloat16* hi, __nv_bfloat16* lo) {
+  union { __nv_bfloat16 h[4]; uint2 u; } h, l;
+  split_bf16(x.x, &h.h[0], &l.h[0]);
+  split_bf16(x.y, &h.h[1], &l.h[1]);
+  split_bf16(x.z, &h.h[2], &l.h[2]);
+  split_bf16(x.w, &h.h[3], &l.h[3]);
+  *reinterpret_cast<uint2*>(hi) = h.u;
+  *reinterpret_cast<uint2*>(lo) = l.u;
+}
+
+template <int TM, int TN, int KP>
+__global__ void __launch_bounds__(TcTile<TM, TN, KP>::kThreads)
+panel_update_bf16x3_tiled_kernel(Bf16x3Args p, int vec) {
+  using S = TcTile<TM, TN, KP>;
+  constexpr int kThreads = S::kThreads;
+  constexpr int CV = TN / 4;                   // 4-float vectors per C or U row
+  constexpr int LV = KP / 4;                   // 4-float vectors per L row
+  constexpr int NL = TM * LV / kThreads;       // L vectors per thread
+  constexpr int NU = (KP * CV + kThreads - 1) / kThreads;  // U vectors per thread, at most
+  constexpr int kBatch = NU < 8 ? NU : 8;      // U vectors loaded before a split
+  static_assert(NL * kThreads == TM * LV && TN % 16 == 0, "tile shapes");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* cs = reinterpret_cast<float*>(smem_raw);
+  __nv_bfloat16* lh = reinterpret_cast<__nv_bfloat16*>(smem_raw + S::kCBytes);
+  __nv_bfloat16* ll = lh + TM * S::kLld;
+  __nv_bfloat16* uh = ll + TM * S::kLld;
+  __nv_bfloat16* ul = uh + KP * S::kUld;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = blockIdx.x * TM, c0 = blockIdx.y * TN;
+  const int rows = p.rows, cols = p.cols, nb = p.nb;
+
+  // ---- this warp's 16 C rows into shared memory, in flight from here on ---
+#pragma unroll
+  for (int i = 0; i < TN / 8; ++i) {
+    const int v = lane + 32 * i, r = warp * 16 + v / CV, c = (v % CV) * 4;
+    if (r0 + r >= rows) continue;
+    const float* g = p.c + static_cast<size_t>(r0 + r) * p.ldc + c0 + c;
+    float* s = cs + r * S::kCld + c;
+    if (vec && c0 + c + 3 < cols) {
+      tc_copy16(s, g);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (c0 + c + q < cols) tc_copy4(s + q, g + q);
+    }
+  }
+
+  // ---- L's rows and U's columns of the tile, split into bf16 halves -------
+  float4 xl[NL];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const int v = tid + i * kThreads, r = v / LV;
+    xl[i] = tc_load4(r0 + r < rows ? p.l + static_cast<size_t>(r0 + r) * p.ldl : nullptr,
+                     (v % LV) * 4, nb, vec);
+  }
+#pragma unroll
+  for (int i0 = 0; i0 < NU; i0 += kBatch) {
+    float4 xu[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch && i0 + i < NU; ++i) {
+      const int v = tid + (i0 + i) * kThreads, k = v / CV;
+      xu[i] = tc_load4(k < nb && v < KP * CV ? p.u + static_cast<size_t>(k) * p.ldu + c0 : nullptr,
+                       (v % CV) * 4, cols - c0, vec);
+    }
+    if (i0 == 0) {
+#pragma unroll
+      for (int i = 0; i < NL; ++i) {
+        const int v = tid + i * kThreads, e = (v / LV) * S::kLld + (v % LV) * 4;
+        tc_split4(xl[i], lh + e, ll + e);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch && i0 + i < NU; ++i) {
+      const int v = tid + (i0 + i) * kThreads, e = (v / CV) * S::kUld + (v % CV) * 4;
+      if (v < KP * CV) tc_split4(xu[i], uh + e, ul + e);
+    }
+  }
+  __syncthreads();
+
+  // ---- the products (the fragment layout of mma.m16n8k16: lane = 4 g + t) -
+  float hi[TN / 8][4], lo[TN / 8][4];
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) hi[j][q] = lo[j][q] = 0.0f;
+  // A: lanes 0-15 address rows 0-15 at k, lanes 16-31 the same rows at k + 8;
+  // B (.trans): lanes 0-15 address k rows 0-15 at column n, 16-31 at n + 8
+  const int ao = (warp * 16 + (lane & 15)) * S::kLld + (lane >> 4) * 8;
+  const int bo = (lane & 15) * S::kUld + (lane >> 4) * 8;
+#pragma unroll
+  for (int k0 = 0; k0 < KP; k0 += 16) {
+    unsigned ah[4], al[4];
+    ldsm_x4(ah, lh + ao + k0);
+    ldsm_x4(al, ll + ao + k0);
+#pragma unroll
+    for (int j = 0; j < TN / 8; j += 2) {
+      unsigned bh[4], bl[4];
+      ldsm_x4_trans(bh, uh + bo + k0 * S::kUld + 8 * j);
+      ldsm_x4_trans(bl, ul + bo + k0 * S::kUld + 8 * j);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mma_bf16(hi[j + h], ah, bh + 2 * h);
+        mma_bf16(lo[j + h], ah, bl + 2 * h);
+        mma_bf16(lo[j + h], al, bh + 2 * h);
+      }
+    }
+  }
+
+  // ---- C - (hi + lo) in this warp's staged rows, then out -----------------
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncwarp();
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float2* s = reinterpret_cast<float2*>(cs + (warp * 16 + g + 8 * h) * S::kCld + 8 * j + 2 * t);
+      float2 x = *s;
+      x.x = __fsub_rn(x.x, __fadd_rn(hi[j][2 * h], lo[j][2 * h]));
+      x.y = __fsub_rn(x.y, __fadd_rn(hi[j][2 * h + 1], lo[j][2 * h + 1]));
+      *s = x;
+    }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < TN / 8; ++i) {
+    const int v = lane + 32 * i, r = warp * 16 + v / CV, c = (v % CV) * 4;
+    if (r0 + r >= rows) continue;
+    float* g2 = p.c + static_cast<size_t>(r0 + r) * p.ldc + c0 + c;
+    const float* s = cs + r * S::kCld + c;
+    if (vec && c0 + c + 3 < cols) {
+      *reinterpret_cast<float4*>(g2) = *reinterpret_cast<const float4*>(s);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (c0 + c + q < cols) g2[q] = s[q];
+    }
+  }
+}
+
+// The tiled kernel's plan: TN = 16 for at most 32 columns (a panel's last
+// boundary), else 32; TM = 128 past 2048 rows, else 64; KP = nb rounded up
+// to 16.  Grid: x row tiles, y column tiles.  Chosen by measurement on an
+// H100 (PERF.md, row 1b): a CTA's time is the latency of its staging, which
+// a taller tile shares among more warps, so fewer and taller CTAs beat a
+// grid sized to fill the SMs.  Only these tiles are built.
+struct TcPlan {
+  int tm, tn, kp, gx, gy;
+};
+
+inline TcPlan tile_plan(int rows, int cols, int nb) {
+  TcPlan q;
+  q.kp = (nb + 15) & ~15;
+  q.tn = cols <= 32 ? 16 : 32;
+  q.tm = rows > 2048 ? 128 : 64;
+  q.gx = (rows + q.tm - 1) / q.tm;
+  q.gy = (cols + q.tn - 1) / q.tn;
+  return q;
+}
+
+template <int TM, int TN, int KP>
+int launch_tiled(const Bf16x3Args& a, const TcPlan& q, int vec, cudaStream_t stream) {
+  using S = TcTile<TM, TN, KP>;
+  if constexpr (S::kSmem > 48 * 1024) {  // past the default: opt in once per device
+    static bool opted[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess && (dev < 0 || dev >= kMaxDevices)) e = cudaErrorInvalidDevice;
+    if (e == cudaSuccess && !opted[dev]) {
+      e = opt_in_smem(reinterpret_cast<const void*>(panel_update_bf16x3_tiled_kernel<TM, TN, KP>),
+                      S::kSmem);
+      opted[dev] = e == cudaSuccess;
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  panel_update_bf16x3_tiled_kernel<TM, TN, KP>
+      <<<dim3(q.gx, q.gy), S::kThreads, S::kSmem, stream>>>(a, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TM, int TN>
+int launch_tiled_kp(const Bf16x3Args& a, const TcPlan& q, int vec, cudaStream_t stream) {
+  switch (q.kp) {
+    case 16: return launch_tiled<TM, TN, 16>(a, q, vec, stream);
+    case 32: return launch_tiled<TM, TN, 32>(a, q, vec, stream);
+    case 48: return launch_tiled<TM, TN, 48>(a, q, vec, stream);
+    default: return launch_tiled<TM, TN, 64>(a, q, vec, stream);
+  }
+}
+
+template <int TN>
+int launch_tiled_tm(const Bf16x3Args& a, const TcPlan& q, int vec, cudaStream_t stream) {
+  return q.tm == 64 ? launch_tiled_kp<64, TN>(a, q, vec, stream)
+                    : launch_tiled_kp<128, TN>(a, q, vec, stream);
+}
+
+// The routes of the bf16x3 update: kUpdTiled (tile_plan's tile), kUpdSimple
+// (panel_update_bf16x3_kernel, forced only).
+constexpr int kUpdTiled = 0, kUpdSimple = 1;
+
+// Launch the bf16x3 update of `a` (1 <= nb <= kTcKMax) on `stream` on
+// `route`.  T = float; a template so that only the sources that launch it
+// build it.
 template <typename T>
-int launch_update_bf16x3(const Bf16x3Args& a, cudaStream_t stream) {
+int launch_update_bf16x3(const Bf16x3Args& a, cudaStream_t stream, int route = kUpdTiled) {
   if (a.nb < 1 || a.nb > kTcKMax || a.rows < 0 || a.cols < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.rows == 0 || a.cols == 0) return 0;
-  const dim3 grid((a.cols + kTcTile - 1) / kTcTile, (a.rows + kTcTile - 1) / kTcTile);
-  panel_update_bf16x3_kernel<T><<<grid, kTcThreads, 0, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (route == kUpdSimple) {
+    const dim3 grid((a.cols + kTcTile - 1) / kTcTile, (a.rows + kTcTile - 1) / kTcTile);
+    panel_update_bf16x3_kernel<T><<<grid, kTcThreads, 0, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (route != kUpdTiled) return static_cast<int>(cudaErrorInvalidValue);
+  const TcPlan q = tile_plan(a.rows, a.cols, a.nb);
+  if (q.gy > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const auto aligned = [](const void* ptr, int ld) {
+    return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0 && ld % 4 == 0;
+  };
+  const int vec = aligned(a.l, a.ldl) && aligned(a.u, a.ldu) && aligned(a.c, a.ldc);
+  return q.tn == 16 ? launch_tiled_tm<16>(a, q, vec, stream)
+                    : launch_tiled_tm<32>(a, q, vec, stream);
 }
 
 // ---- plan ----------------------------------------------------------------
 
 constexpr int kWidths[] = {8, 16, 32, 64, 128, 256, 512};
 constexpr int kNumWidths = 7;
-constexpr int kMaxDevices = 16;
 
 template <typename T>
 using ChainFn = void (*)(ChainArgs<T>);
@@ -984,11 +1273,12 @@ int delay_opt_in() {
 // panel, the two delayed kernels, in turn on `stream` without a host
 // synchronisation.  `iws` holds pl.iws_ints int32s (the blocks' row moves).
 // kForm: the form of the trailing update (UpdateForm).  `updates`, where
-// given, receives the number of update launches.
+// given, receives the number of update launches.  `route`: the bf16x3
+// form's update kernel (kUpdTiled, or kUpdSimple where forced).
 template <typename T, int kForm = kStepOrder>
 int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl, void* piv,
                 void* perm, void* info, void* iws, cudaStream_t stream,
-                int* updates = nullptr) {
+                int* updates = nullptr, int route = kUpdTiled) {
   if (updates != nullptr) *updates = 0;
   int err = delay_opt_in<T, kForm>();
   if (err != 0) return err;
@@ -1047,7 +1337,7 @@ int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl,
         u.rows = rows;
         u.cols = cols;
         u.nb = nb;
-        err = launch_update_bf16x3<T>(u, stream);
+        err = launch_update_bf16x3<T>(u, stream, route);
         if (err != 0) return err;
       } else {
         const dim3 grid((cols + kTile - 1) / kTile, (rows + kUpdRows - 1) / kUpdRows);

@@ -379,11 +379,11 @@ int plan_entry(int m, int w, int elem_size, int ofs, int b, int C, int device, i
 // The main-path kernel in blocks of exactly b steps (the configuration's
 // panel_micro, any b from 1 to 64; the slab takes the width at or above
 // it), each block's trailing update in the bf16x3 form on the tensor cores
-// (panel_update_bf16x3_kernel, csrc/panel_cluster.cuh); the chain and the
-// swap / solve pass are the float32 form's.  Plain version: ops/unblocked.py
-// `micro_blocked_lu(..., 'bf16x3')`.  Only the cluster route has block
-// boundaries: a panel too tall for a cluster at width b is refused
-// (cudaErrorNotSupported), never factored without the split.
+// (panel_update_bf16x3_tiled_kernel, csrc/panel_cluster.cuh); the chain
+// and the swap / solve pass are the float32 form's.  Plain version:
+// ops/unblocked.py `micro_blocked_lu(..., 'bf16x3')`.  Only the cluster
+// route has block boundaries: a panel too tall for a cluster at width b is
+// refused (cudaErrorNotSupported), never factored without the split.
 int bf16x3_plan(int m, int w, int b, int C, int device, Plan* pl) {
   if (m < 1 || w < 1 || b < 1 || b > kTcKMax || C < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -568,26 +568,30 @@ int rf_panel_lu_bf16x3_plan(int m, int w, int b, int C, int device, int* out) {
 }
 
 // Factor the float32 panel in place on `stream` in the bf16x3 form, with the
-// plan of (b, C); `iws` holds the plan's iws int32s.  `updates` (host) gets
-// the number of bf16x3 update launches.  Returns a cudaError_t code.
-int rf_panel_lu_bf16x3_f32(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv,
-                           void* perm, void* info, void* iws, int* updates, int device,
-                           void* stream) {
+// plan of (b, C); `iws` holds the plan's iws int32s.  `simple` = 1 forces
+// the simple update kernel (default 0: the tiled one).  `updates` (host)
+// gets the number of bf16x3 update launches.  Returns a cudaError_t code.
+int rf_panel_lu_bf16x3_f32(void* a, int m, int w, int lda, int pivot, int b, int C, int simple,
+                           void* piv, void* perm, void* info, void* iws, int* updates,
+                           int device, void* stream) {
+  if (simple != 0 && simple != 1) return static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
   const int err = bf16x3_plan(m, w, b, C, device, &pl);
   if (err != 0) return err;
   return run_cluster<float, kBf16x3>(static_cast<float*>(a), m, w, lda, pivot, 0, pl, piv,
                                      perm, info, iws, static_cast<cudaStream_t>(stream),
-                                     updates);
+                                     updates, simple ? kUpdSimple : kUpdTiled);
 }
 
 // One bf16x3 update on `stream`: c (rows x cols, row stride ldc) -=
 // hh + (hl + lh) of l (rows x nb, row stride ldl) and u (nb x cols, row
 // stride ldu), 1 <= nb <= 64; float32 device pointers, c disjoint from l
-// and u.  Returns a cudaError_t code.
+// and u.  `simple` = 1 forces the simple kernel (default 0: the tiled one
+// on its plan's tile).  Returns a cudaError_t code.
 int rf_panel_update_bf16x3_f32(const void* l, int ldl, const void* u, int ldu, void* c,
-                               int ldc, int rows, int cols, int nb, int device,
+                               int ldc, int rows, int cols, int nb, int simple, int device,
                                void* stream) {
+  if (simple != 0 && simple != 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   Bf16x3Args args;
@@ -600,7 +604,23 @@ int rf_panel_update_bf16x3_f32(const void* l, int ldl, const void* u, int ldu, v
   args.rows = rows;
   args.cols = cols;
   args.nb = nb;
-  return launch_update_bf16x3<float>(args, static_cast<cudaStream_t>(stream));
+  return launch_update_bf16x3<float>(args, static_cast<cudaStream_t>(stream),
+                                     simple ? kUpdSimple : kUpdTiled);
+}
+
+// The tiled update's plan for (rows, cols, nb): out[5] = rows and columns
+// of the tile, K padded to 16, the grid's row and column tiles (tile_plan).
+// Returns a cudaError_t code.
+int rf_panel_update_bf16x3_plan(int rows, int cols, int nb, int* out) {
+  if (rows < 1 || cols < 1 || nb < 1 || nb > kTcKMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const TcPlan q = tile_plan(rows, cols, nb);
+  out[0] = q.tm;
+  out[1] = q.tn;
+  out[2] = q.kp;
+  out[3] = q.gx;
+  out[4] = q.gy;
+  return 0;
 }
 
 // Phase trace of the cluster route's chain kernel, for measurement: with

@@ -79,9 +79,9 @@ _PANEL_PLAN = (_I, [_I, _I, _I, _I, _I, _I, _I, _P])
 _PANEL_BC = (_I, [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P])
 # the same with the offset after pivot
 _PANEL_OFS_BC = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P])
-# the bf16x3 form: panel, m, w, lda, pivot, b, C, piv, perm, info, iws, updates
-# (host int), device, stream
-_PANEL_BF16X3 = (_I, [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P])
+# the bf16x3 form: panel, m, w, lda, pivot, b, C, simple, piv, perm, info,
+# iws, updates (host int), device, stream
+_PANEL_BF16X3 = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P])
 # a, out, ipiv, perm, info, batch, m, n, pivot, route, smem, device, stream
 _BATCHED_SWAP = (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
 # a, out, perm, info, batch, n, pivot, route, smem, device, stream
@@ -111,8 +111,10 @@ SIGNATURES = {
         # m, w, b, C, device, out[6]
         "rf_panel_lu_bf16x3_plan": (_I, [_I, _I, _I, _I, _I, _P]),
         "rf_panel_lu_bf16x3_f32": _PANEL_BF16X3,
-        # l, ldl, u, ldu, c, ldc, rows, cols, nb, device, stream
-        "rf_panel_update_bf16x3_f32": (_I, [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P]),
+        # l, ldl, u, ldu, c, ldc, rows, cols, nb, simple, device, stream
+        "rf_panel_update_bf16x3_f32": (_I, [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P]),
+        # rows, cols, nb, out[5]
+        "rf_panel_update_bf16x3_plan": (_I, [_I, _I, _I, _P]),
         "rf_bench_barrier": (_I, [_I, _I, _I, _I, _P, _P]),
         "rf_panel_lu_set_trace": (_I, [_P]),
         "rf_error_string": (ctypes.c_char_p, [_I]),

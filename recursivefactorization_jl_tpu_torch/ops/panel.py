@@ -21,10 +21,11 @@ Under ``panel_boundary_precision='bf16x3'`` a float32 panel of a fori
 variant runs csrc/panel_lu.cu in blocks of exactly ``panel_micro`` steps
 on the cluster route, each block's trailing update split into bf16 halves
 on the tensor cores (``panel_factor_cuda(..., precision='bf16x3')``,
-``bf16x3_plan``; the update alone: ``panel_update_bf16x3_cuda``); its
-plain version is ``micro_blocked_lu(..., 'bf16x3')``.  A panel too tall
-for a cluster at that width raises ``NotImplementedError``: the grid route
-has no block boundaries.
+``bf16x3_plan``, ``bf16x3_updates``; the update alone:
+``panel_update_bf16x3_cuda``, its tile ``bf16x3_update_plan``); its plain
+version is ``micro_blocked_lu(..., 'bf16x3')``.  A panel too tall for a
+cluster at that width raises ``NotImplementedError``: the grid route has no
+block boundaries.
 
 The micro-blocked kernels run on the same cluster route with blocks of
 exactly ``micro`` steps and their own order of the trailing update
@@ -374,11 +375,49 @@ def bf16x3_plan(m: int, w: int, block: int = 0, cluster: int = 0, device=None) -
     return _plan_dict(_bf16x3_plan(m, w, b, cluster, _device_index(device)))
 
 
-def _launch_bf16x3(panel, pivot, block, cluster):
+# the bf16x3 form's update kernels: the tiled one, or the simple one where
+# forced (the `simple` argument of its C entry points)
+BF16X3_UPDATES = ("tiled", "simple")
+
+
+def bf16x3_updates(m: int, w: int, block: int = 0):
+    """The update launches of an (m, w) float32 panel in the bf16x3 form:
+    ``(rows, cols, nb)`` of each, in launch order, as csrc/panel_cluster.cuh
+    `run_cluster` issues them: one after each block with rows below it and
+    columns right of it, on all those rows and columns.  A panel of one
+    block has none."""
+    b = _bf16x3_block(block, m, w)
+    steps = min(m, w)
+    out = []
+    if b >= w:
+        return out
+    for k0 in range(0, steps, b):
+        nb = min(b, steps - k0)
+        rows, cols = m - k0 - nb, w - k0 - nb
+        if rows > 0 and cols > 0:
+            out.append((rows, cols, nb))
+    return out
+
+
+def bf16x3_update_plan(rows: int, cols: int, nb: int) -> dict:
+    """The tile and grid of the tiled bf16x3 update (csrc/panel_cluster.cuh
+    `tile_plan`) as the compiled launcher makes them: ``tm`` x ``tn`` C
+    elements per CTA, ``kp`` (nb padded to 16), ``grid`` (row tiles, column
+    tiles), ``threads`` (a warp per 16 tile rows)."""
+    lib = _kernels.load("panel_lu")
+    out = (ctypes.c_int * 5)()
+    code = lib.rf_panel_update_bf16x3_plan(rows, cols, nb, out)
+    _kernels.check(lib, code, "panel_lu bf16x3 update plan")
+    return dict(tm=out[0], tn=out[1], kp=out[2], grid=(out[3], out[4]), threads=2 * out[0])
+
+
+def _launch_bf16x3(panel, pivot, block, cluster, update):
     """The checks, plan, allocations and launch of csrc/panel_lu.cu's
     bf16x3 form, for :func:`panel_factor_cuda`."""
     wrapper = panel_factor_cuda
     _check_block_cluster(block, cluster)
+    if update not in BF16X3_UPDATES:
+        raise ValueError(f"_update must be one of {BF16X3_UPDATES}, got {update!r}")
     m, w, lda, index, _, _ = _check_panel(wrapper.__name__, panel, (torch.float32,))
     b = _bf16x3_block(block, m, w)
     iws_ints = _bf16x3_plan(m, w, b, cluster, index)[5]
@@ -393,18 +432,22 @@ def _launch_bf16x3(panel, pivot, block, cluster):
     wrapper.bf16x3_launches += 1
     code = lib.rf_panel_lu_bf16x3_f32(
         panel.data_ptr(), m, w, lda, int(bool(pivot)), b, cluster,
+        int(update == "simple"),
         piv.data_ptr(), perm.data_ptr(), info.data_ptr(), ints[npiv + m + 1:].data_ptr(),
         ctypes.byref(updates), index, stream,
     )
     # the update kernels the launcher issued (one per block boundary with
-    # rows and columns below and right of the block)
+    # rows and columns below and right of the block: bf16x3_updates)
     wrapper.bf16x3_update_launches += updates.value
+    if update == "simple":
+        wrapper.bf16x3_simple_update_launches += updates.value
     _kernels.check(lib, code, "panel_lu bf16x3 launch")
     return piv, perm, info
 
 
 def panel_factor_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
-                      cluster: int = 0, precision: str = "float32"):
+                      cluster: int = 0, precision: str = "float32",
+                      _update: str = "tiled"):
     """Launch the Hopper panel kernel on ``panel`` in place.
 
     ``panel``: CUDA, float32 or float64, 2-D, rows contiguous (unit
@@ -426,11 +469,15 @@ def panel_factor_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
     into bf16 halves on the tensor cores (see :func:`bf16x3_plan`).  It
     agrees with ``micro_blocked_lu(panel, pivot, block, 'bf16x3')`` to the
     bf16x3 class, not bitwise.  A panel too tall for a cluster at that
-    width raises NotImplementedError.  ``.bf16x3_launches`` counts these
+    width raises NotImplementedError.  Each block's trailing update runs on
+    the tiled update kernel (:func:`bf16x3_updates` lists the launches);
+    ``_update='simple'`` forces the simple update kernel, bit for bit the
+    same result, for comparison.  ``.bf16x3_launches`` counts these
     launches (``.launches`` counts them too), ``.bf16x3_update_launches``
-    the update kernels they issued."""
+    the update kernels they issued, ``.bf16x3_simple_update_launches``
+    those on the simple kernel."""
     if precision == "bf16x3":
-        return _launch_bf16x3(panel, pivot, block, cluster)
+        return _launch_bf16x3(panel, pivot, block, cluster, _update)
     if precision != "float32":
         raise ValueError(f"precision must be 'float32' or 'bf16x3', got {precision!r}")
     return _launch_panel_lu(panel_factor_cuda, panel, pivot, None, block, cluster)
@@ -440,6 +487,7 @@ panel_factor_cuda.launches = 0
 panel_factor_cuda.grid_route_launches = 0
 panel_factor_cuda.bf16x3_launches = 0
 panel_factor_cuda.bf16x3_update_launches = 0
+panel_factor_cuda.bf16x3_simple_update_launches = 0
 
 
 def _rows_stride(t):
@@ -447,18 +495,24 @@ def _rows_stride(t):
     return t.stride(0) if t.shape[0] > 1 else t.shape[1]
 
 
-def panel_update_bf16x3_cuda(C: torch.Tensor, L: torch.Tensor, U: torch.Tensor):
+def panel_update_bf16x3_cuda(C: torch.Tensor, L: torch.Tensor, U: torch.Tensor, *,
+                             _update: str = "tiled"):
     """``C -= hh + (hl + lh)``, the bf16x3 split of ``L @ U``, in place on
     the tensor cores: one launch of the update kernel of csrc/panel_lu.cu's
-    bf16x3 form (``panel_update_bf16x3_kernel``), alone.
+    bf16x3 form (``panel_update_bf16x3_tiled_kernel`` on the tile of
+    :func:`bf16x3_update_plan`), alone.
 
     ``C`` (rows, cols), ``L`` (rows, nb), ``U`` (nb, cols): CUDA float32 on
     one device, rows contiguous, 1 <= nb <= 64; ``C`` must share no memory
     with ``L`` or ``U``.  The plain version is ``C.sub_(schur_product(L, U,
     'bf16x3'))`` (ops/schur.py); the tensor cores sum in their own order,
-    so the two agree to the bf16x3 class, not bitwise.  Returns ``C``;
-    launches on the current stream and does not synchronise.
-    ``panel_update_bf16x3_cuda.launches`` counts the launches."""
+    so the two agree to the bf16x3 class, not bitwise.  ``_update='simple'``
+    forces the simple kernel (64 x 64 tiles; bit for bit the tiled kernel's
+    result), for comparison.  Returns ``C``; launches on the current stream
+    and does not synchronise.  ``panel_update_bf16x3_cuda.launches`` counts
+    the launches, ``.simple_launches`` those on the simple kernel."""
+    if _update not in BF16X3_UPDATES:
+        raise ValueError(f"_update must be one of {BF16X3_UPDATES}, got {_update!r}")
     for name, t in (("C", C), ("L", L), ("U", U)):
         if (not isinstance(t, torch.Tensor) or t.device.type != "cuda"
                 or t.dtype != torch.float32 or t.dim() != 2):
@@ -480,15 +534,18 @@ def panel_update_bf16x3_cuda(C: torch.Tensor, L: torch.Tensor, U: torch.Tensor):
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     lib = _kernels.load("panel_lu")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    panel_update_bf16x3_cuda.launches += 1
+    wrapper = panel_update_bf16x3_cuda
+    wrapper.launches += 1
+    wrapper.simple_launches += _update == "simple"
     code = lib.rf_panel_update_bf16x3_f32(
         L.data_ptr(), _rows_stride(L), U.data_ptr(), _rows_stride(U), C.data_ptr(),
-        _rows_stride(C), rows, cols, nb, index, stream)
+        _rows_stride(C), rows, cols, nb, int(_update == "simple"), index, stream)
     _kernels.check(lib, code, "panel_lu bf16x3 update")
     return C
 
 
 panel_update_bf16x3_cuda.launches = 0
+panel_update_bf16x3_cuda.simple_launches = 0
 
 
 def offset_panel_factor_cuda(panel: torch.Tensor, ofs: int, pivot: bool, *,

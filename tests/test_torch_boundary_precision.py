@@ -31,6 +31,7 @@ from recursivefactorization_jl_tpu.ops.panel import panel_factor_pallas
 import recursivefactorization_jl_tpu_torch as rt
 from recursivefactorization_jl_tpu_torch.ops.panel import (
     bf16x3_plan,
+    bf16x3_updates,
     offset_panel_factor,
     panel_factor,
     panel_factor_cuda,
@@ -324,6 +325,60 @@ def test_the_float32_path_is_unchanged(shape, micro, pivot):
         out = panel_factor(P, pivot, cfg)
         _same(out[1:], unblocked_lu(A, pivot)[1:])
         assert torch.equal(P, unblocked_lu(A, pivot)[0])
+
+
+def _serial_boundaries(m, w, b):
+    """(rows, cols, nb) of each block boundary with rows below the block and
+    columns right of it, worked out afresh."""
+    b = min(b, m, w)
+    steps = min(m, w)
+    if b >= w:
+        return []
+    out = []
+    for k0 in range(0, steps, b):
+        nb = min(b, steps - k0)
+        if m - k0 - nb > 0 and w - k0 - nb > 0:
+            out.append((m - k0 - nb, w - k0 - nb, nb))
+    return out
+
+
+@pytest.mark.parametrize("m,w,b", [(1536, 512, 32), (4096, 512, 32), (8192, 512, 32),
+                                   (1000, 100, 20), (64, 200, 16), (100, 40, 7), (33, 33, 1),
+                                   (200, 96, 64), (700, 48, 64), (1, 5, 8), (5, 1, 8),
+                                   (96, 97, 32), (97, 96, 32)])
+def test_bf16x3_update_launches_per_boundary(m, w, b):
+    """``bf16x3_updates`` lists the launches csrc/panel_cluster.cuh's
+    `run_cluster` issues: one per block boundary with rows below the block
+    and columns right of it, on all of them; that is every block but the
+    last, and none where one block takes the panel."""
+    got = bf16x3_updates(m, w, b)
+    assert got == _serial_boundaries(m, w, b)
+    bb, steps = min(b, m, w), min(m, w)
+    assert len(got) == (0 if bb >= w else -(-steps // bb) - 1)
+
+
+def test_bf16x3_update_launches_per_lu():
+    """Per ``lu`` under the knob (512-wide panels of 32-step blocks): 45 /
+    120 / 240 update launches at n = 1536 / 4096 / 8192, one per block
+    boundary; the launches chip_smoke.py phase 3g counts on the card."""
+    cfg = rt.LUConfig()
+    w, b = cfg.resolved_panel_width(), cfg.resolved_panel_micro()
+    for n, want in ((1536, 45), (4096, 120), (8192, 240)):
+        panels = [(n - s, min(w, n - s)) for s in range(0, n, w)]
+        assert sum(len(bf16x3_updates(pm, pw, b)) for pm, pw in panels) == want
+
+
+def test_bf16x3_update_options_refused_before_the_card():
+    """A bad update kernel raises ValueError before any tensor reaches a
+    kernel, and counts no launch."""
+    T = torch.zeros(8, 8)
+    with pytest.raises(ValueError, match="_update"):
+        panel_factor_cuda(T, True, precision=BF, _update="wgmma")
+    for bad in ("plain", None, (64, 32)):
+        with pytest.raises(ValueError, match="_update"):
+            panel_update_bf16x3_cuda(T, T, T, _update=bad)
+    assert panel_factor_cuda.bf16x3_launches == 0
+    assert panel_update_bf16x3_cuda.launches == 0
 
 
 def test_panel_routes_under_the_knob():

@@ -19,6 +19,8 @@ import recursivefactorization_jl_tpu_torch as rt
 from recursivefactorization_jl_tpu_torch.ops import batched_kernel as bk
 from recursivefactorization_jl_tpu_torch.ops.panel import (
     bf16x3_plan,
+    bf16x3_update_plan,
+    bf16x3_updates,
     micro_max_cuda,
     micro_plan,
     noswap_plan,
@@ -1646,6 +1648,137 @@ def test_bf16x3_update_inf_and_nan_as_the_plain_version():
     assert torch.equal(torch.isnan(C), torch.isnan(plain))
     assert int(torch.isnan(C).sum()) == 40 + 50 - 1 + 1  # row 3, column 7, C[9, 9]
     assert float((C - plain).nan_to_num(0).abs().max()) < 1e-5
+
+
+# (rows, cols, pad): C, L and U are views of one matrix of row stride
+# 64 + cols + pad; with a row stride and nb that are multiples of 4 every
+# operand lies on 16 bytes (the panel's case), pad 3 puts rows off them;
+# the shapes take each of the plan's four tiles (64 or 128 rows, 16 or 32
+# columns)
+_UPDATE_LAYOUTS = [(1, 1, 0), (1, 300, 0), (300, 1, 3), (33, 4065, 3), (4065, 33, 3),
+                   (1000, 300, 0), (1000, 300, 3), (2049, 96, 0), (4065, 17, 0)]
+
+
+def _update_views(X, rows, cols, nb):
+    return X[64:, 64:64 + cols], X[64:, 64 - nb:64], X[64 - nb:64, 64:64 + cols]
+
+
+@pytest.mark.parametrize("nb", [1, 8, 16, 20, 32, 64])
+@pytest.mark.parametrize("rows,cols,pad", _UPDATE_LAYOUTS)
+def test_bf16x3_tiled_update_bitwise_equals_the_simple_kernel(nb, rows, cols, pad):
+    """The tiled update runs the simple kernel's products in the simple
+    kernel's order: bit for bit its result, ragged, on 16-byte rows and off
+    them; nothing outside C written; each launch counted, the simple
+    kernel's apart."""
+    need_cuda()
+    g = torch.Generator().manual_seed(7 * nb + rows + cols)
+    big = torch.randn(rows + 64, 64 + cols + pad, generator=g).cuda()
+    simple, X = big.clone(), big.clone()
+    k0, s0 = panel_update_bf16x3_cuda.launches, panel_update_bf16x3_cuda.simple_launches
+    panel_update_bf16x3_cuda(*_update_views(simple, rows, cols, nb), _update="simple")
+    panel_update_bf16x3_cuda(*_update_views(X, rows, cols, nb))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(X), _bits(simple))
+    outside = torch.ones_like(big, dtype=torch.bool)
+    outside[64:, 64:64 + cols] = False
+    assert torch.equal(X[outside], big[outside])
+    assert panel_update_bf16x3_cuda.launches == k0 + 2
+    assert panel_update_bf16x3_cuda.simple_launches == s0 + 1
+
+
+def test_bf16x3_tiled_update_inf_and_nan_as_the_simple_kernel():
+    """An inf in L or U (its low half NaN) and a NaN in C: the tiled
+    kernel's NaN entries are the plain version's, and its bits the simple
+    kernel's."""
+    need_cuda()
+    g = torch.Generator().manual_seed(5)
+    L, U, C = (torch.randn(*s, generator=g).cuda() for s in ((130, 32), (32, 70), (130, 70)))
+    L[3, 2] = float("inf")
+    U[5, 7] = float("-inf")
+    C[99, 9] = float("nan")
+    plain = C - schur_product(L, U, "bf16x3")
+    S = C.clone()
+    panel_update_bf16x3_cuda(C, L, U)
+    panel_update_bf16x3_cuda(S, L, U, _update="simple")
+    assert torch.equal(torch.isnan(C), torch.isnan(plain))
+    assert torch.equal(_bits(C), _bits(S))
+
+
+@pytest.mark.parametrize("rows,cols,nb,want", [
+    (1504, 480, 32, (64, 32, 32, (24, 15))),    # the 1536 panel's first boundary
+    (1504, 32, 32, (64, 16, 32, (24, 2))),      # its last
+    (4064, 480, 32, (128, 32, 32, (32, 15))),
+    (8160, 32, 32, (128, 16, 32, (64, 2))),
+    (2048, 33, 1, (64, 32, 16, (32, 2))),
+    (2049, 1, 17, (128, 16, 32, (17, 1))),
+    (1, 1, 48, (64, 16, 48, (1, 1))),
+    (63, 4065, 64, (64, 32, 64, (1, 128))),
+])
+def test_bf16x3_update_plan(rows, cols, nb, want):
+    """The tiled update's tile (csrc/panel_cluster.cuh `tile_plan`): 16
+    columns for at most 32, else 32; 128 rows past 2048, else 64; K padded
+    to 16; a warp per 16 tile rows."""
+    need_cuda()
+    tm, tn, kp, grid = want
+    assert bf16x3_update_plan(rows, cols, nb) == dict(tm=tm, tn=tn, kp=kp, grid=grid,
+                                                      threads=2 * tm)
+
+
+@pytest.mark.parametrize("shape,b,kind", [
+    ((1536, 512), 32, "randn"),
+    ((4096, 512), 32, "ties"),
+    ((1000, 100), 20, "randn"),            # ragged last block
+    ((64, 200), 16, "randn"),              # fat: columns past the last step
+    ((100, 40), 7, "nan"),
+    ((300, 64), 16, "unpivoted"),
+    ((33, 33), 1, "randn"),
+    ((513, 513), 32, "zero_col"),
+    ((200, 96), 64, "randn"),              # two blocks: one boundary
+])
+def test_bf16x3_tiled_panel_bitwise_equals_the_simple_update(shape, b, kind):
+    """A bf16x3 panel on the tiled update kernel is bit for bit the panel
+    on the simple one (factors, piv, perm, info), with the launches
+    bf16x3_updates lists, counted apart where forced onto the simple
+    kernel."""
+    need_cuda()
+    g = torch.Generator().manual_seed(sum(shape) + b)
+    A = torch.randn(*shape, generator=g)
+    if kind == "ties":
+        A = torch.randint(-2, 3, shape, generator=g).float()
+    if kind == "zero_col":
+        A[:, 100] = 0
+    if kind == "nan":
+        A[30, 9] = float("nan")
+    if kind == "unpivoted":
+        A += max(shape) * torch.eye(*shape)
+    A = A.cuda()
+    pivot = kind != "unpivoted"
+    want = len(bf16x3_updates(*shape, b))
+    outs = {}
+    for upd in ("tiled", "simple"):
+        P = A.clone()
+        u0 = panel_factor_cuda.bf16x3_update_launches
+        s0 = panel_factor_cuda.bf16x3_simple_update_launches
+        got = panel_factor_cuda(P, pivot, block=b, precision="bf16x3", _update=upd)
+        torch.cuda.synchronize()
+        assert panel_factor_cuda.bf16x3_update_launches - u0 == want
+        assert panel_factor_cuda.bf16x3_simple_update_launches - s0 == (
+            want if upd == "simple" else 0)
+        outs[upd] = (P, *got)
+    for x, y in zip(outs["tiled"], outs["simple"]):
+        assert torch.equal(_bits(x), _bits(y))
+
+
+def test_bf16x3_update_kernel_refusals():
+    need_cuda()
+    P = torch.randn(64, 64, device="cuda")
+    with pytest.raises(ValueError):
+        panel_factor_cuda(P, True, block=16, precision="bf16x3", _update="wgmma")
+    C, L, U = torch.zeros(8, 8, device="cuda"), torch.zeros(8, 4, device="cuda"), \
+        torch.zeros(4, 8, device="cuda")
+    for bad in ("plain", None, (64, 32)):
+        with pytest.raises(ValueError):
+            panel_update_bf16x3_cuda(C, L, U, _update=bad)
 
 
 def _first_choice_gap(A, pa, pb):

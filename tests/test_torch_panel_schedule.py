@@ -337,8 +337,9 @@ def test_ctypes_signatures_match_the_c_entry_points():
     or shift every argument on the card.  The micro-blocked and no-swap
     entry points take the cluster route's block and cluster (and the
     no-swap ones the live row count); the bf16x3 form takes its block,
-    cluster and a host count of its update launches, its update alone the
-    three row strides and nb."""
+    cluster, the update kernel to force and a host count of its update
+    launches, its update alone the three row strides, nb and the kernel to
+    force, its plan the shape alone."""
     import ctypes
     import re
 
@@ -355,13 +356,16 @@ def test_ctypes_signatures_match_the_c_entry_points():
     assert {"rf_panel_lu_noswap_plan", "rf_panel_lu_noswap_f32", "rf_panel_lu_noswap_f64",
             "rf_panel_lu_noswap_set_trace"} <= set(_kernels.SIGNATURES["panel_lu_noswap"])
     # the bf16x3 form (panel_boundary_precision='bf16x3') and its update alone
-    assert {"rf_panel_lu_bf16x3_plan", "rf_panel_lu_bf16x3_f32",
-            "rf_panel_update_bf16x3_f32"} <= set(_kernels.SIGNATURES["panel_lu"])
+    assert {"rf_panel_lu_bf16x3_plan", "rf_panel_lu_bf16x3_f32", "rf_panel_update_bf16x3_f32",
+            "rf_panel_update_bf16x3_plan"} <= set(_kernels.SIGNATURES["panel_lu"])
     for name, params, lib in (
             ("rf_panel_lu_shadow_f32", ("int micro", "int b", "int C"), "panel_lu_micro"),
             ("rf_panel_lu_noswap_f64", ("int live", "int b", "int C"), "panel_lu_noswap"),
-            ("rf_panel_lu_bf16x3_f32", ("int b", "int C", "int* updates"), "panel_lu"),
-            ("rf_panel_update_bf16x3_f32", ("int ldl", "int ldu", "int ldc", "int nb"),
+            ("rf_panel_lu_bf16x3_f32", ("int b", "int C", "int simple", "int* updates"),
+             "panel_lu"),
+            ("rf_panel_update_bf16x3_f32", ("int ldl", "int ldu", "int ldc", "int nb",
+                                            "int simple"), "panel_lu"),
+            ("rf_panel_update_bf16x3_plan", ("int rows", "int cols", "int nb", "int* out"),
              "panel_lu")):
         src = _kernels.SOURCES[lib]
         decl = re.search(r"\b" + name + r"\(([^)]*)\)", src.read_text()).group(1)
