@@ -135,7 +135,10 @@ The opt-in schedules and the RBT solver add:
             (prow -1), micro 12/16/32: ipiv / prow, perm / used and info
             equal, factors bitwise equal (NaN for NaN), the route counted;
             every plan (micro 8/12/16/32/64 x C; b 8/16/32/64/one block x
-            C under a mask) on a 1000 x 100 panel; a live count too small
+            C under a mask) on a 1000 x 100 panel; micro 65/128/256/512 on
+            the main path's panels in f32 and f64, on the cluster route
+            and with every block's chain forced onto the grid (the grid
+            block chain, counted); a live count too small
             for the mask, in a child process: the launch must fail; the
             same on column blocks of a 1536 x 1536 matrix (row stride n,
             as the blocked schedules hand them over), the no-swap
@@ -209,8 +212,8 @@ functions) and its offset kernel add:
 The boundary knob, ``panel_boundary_precision='bf16x3'`` (the tensor-core
 update of csrc/panel_cluster.cuh in csrc/panel_lu.cu's bf16x3 form), adds:
 
-2g. kernel  the update alone at nb = 1, 8, 16, 20, 32, 40 and 64 on views
-            of 1000 x 300 (row stride on 16 bytes and off them), 8192 x
+2g. kernel  the update alone at nb = 1, 8, 16, 20, 32, 40, 64, 80 and 256
+            on views of 1000 x 300 (row stride on 16 bytes and off them), 8192 x
             512, 33 x 4065 and 4065 x 33 against the exact float64 sum of
             its three split products: the worst ratio to 2^-24 ((nb + 2)
             sum |products| + |result|) must be at most 1, nothing outside
@@ -224,15 +227,22 @@ update of csrc/panel_cluster.cuh in csrc/panel_lu.cu's bf16x3 form), adds:
             a tie within 2^-8 of the column, with equal pivots perm and
             NaN equal and the factors within twice the knob's own effect
             (plain bf16x3 - plain float32), the residual gate; each panel
-            on the tiled update bit for bit the panel on the simple one; a
-            40000-row panel refused;
+            on the tiled update bit for bit the panel on the simple one;
+            panels too tall for a cluster (28 672 x 64 at b 32, 100 000 x 64
+            at b 8: their blocks' chains on the grid, counted against the
+            plan) against the plain version the same way; every block's
+            chain forced onto the grid at 1536 / 4096 x 512, bit for bit
+            the cluster chain's result;
 3g. main    ``lu`` + ``lu_solve`` under the knob at n = 1536 (entry
             matrix, randn, a zeroed column), 4096 and 8192 (randn), alone
-            and with ``schur_precision='bf16x3'``: residual gate beside the
-            float32 form's scaled residual on the same matrix, info, no
-            TF32 product, panel launches (all in the bf16x3 form, none on
-            a grid route) and update launches per ``lu`` (none on the
-            simple kernel);
+            and with ``schur_precision='bf16x3'``, and at n = 28 672 (randn
+            made on the card; its first four panels too tall for a cluster,
+            their blocks' chains on the grid; residuals a block of rows at a
+            time): residual gate beside the float32 form's scaled residual
+            on the same matrix, info, no TF32 product, panel launches (all
+            in the bf16x3 form, none on a grid route), update launches per
+            ``lu`` (none on the simple kernel) and the grid chain's blocks
+            (as the plans count them; some only at 28 672);
 4g. timing  in turns: the update alone at each main-path panel's first
             boundary (tiled, simple, plain, one float32 ``addmm_``) by
             CUDA events over 20 queued calls, and by device time on the
@@ -240,10 +250,16 @@ update of csrc/panel_cluster.cuh in csrc/panel_lu.cu's bf16x3 form), adds:
             that hold twice the L2 (cold); the panel per shape in the
             bf16x3 form on the tiled and on the simple update beside the
             float32 form at the same block width, at its default plan and
-            the library; ``lu`` factor and factor+solve at 1536 / 4096 /
-            8192 under float32, bf16x3 and bf16x3 + bf16x3 Schur beside
-            the library.  ``--profile`` adds ``lu`` + ``lu_solve`` under
-            the knob at 1536 and 4096: the updates' device time and
+            the library; the grid block chain's device time per step
+            beside the cluster chain on the same blocks and the float32
+            form's grid route (``panel_lu_kernel``) at 1536 / 4096 x 512
+            and 28 672 x 512; the delayed kernels' device time per launch at
+            nb = 64 / 128 / 256 on 4096 x 512 (micro route and bf16x3
+            form); ``lu`` factor at n = 28 672 under float32 and bf16x3
+            beside the library; ``lu`` factor and factor+solve at 1536 /
+            4096 / 8192 under float32, bf16x3 and bf16x3 + bf16x3 Schur
+            beside the library.  ``--profile`` adds ``lu`` + ``lu_solve``
+            under the knob at 1536 and 4096: the updates' device time and
             launches.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -539,6 +555,33 @@ def device_rows(prof):
     return rows
 
 
+# windows a device-time measurement opens before it gives up: on the H100 the
+# profiler has recorded none of a window's kernels, once in three windows in a
+# row (the 8160-row update of phase 4g)
+PROFILER_WINDOWS = 6
+
+
+def profiled_rows(run, rows, what, before=None):
+    """``rows(prof)`` of a torch.profiler window over ``run()`` (which
+    synchronises; ``before()`` runs ahead of each window, outside it),
+    opening up to PROFILER_WINDOWS windows while the profiler records no
+    kernel in one."""
+    import torch
+
+    for attempt in range(PROFILER_WINDOWS):
+        if attempt:
+            time.sleep(0.5)
+        if before is not None:
+            before()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+        got = rows(prof)
+        if got:
+            return got
+    fail(f"{what}: the profiler recorded no kernel in {PROFILER_WINDOWS} windows")
+
+
 def device_ms(fn, calls=5):
     """Device time per call of ``fn`` (every kernel it launches), from
     torch.profiler: at small n a call's host time exceeds its kernels'
@@ -547,16 +590,13 @@ def device_ms(fn, calls=5):
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # the profiler once recorded none of a window's kernels
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        busy = sum(r[0] for r in device_rows(prof))
-        if busy > 0:
-            return busy / calls
-    fail("device_ms: the profiler recorded no kernel in three windows")
+
+    def run():
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+
+    return sum(r[0] for r in profiled_rows(run, device_rows, "device_ms")) / calls
 
 
 def device_span_ms(fn, setup, calls=5):
@@ -569,29 +609,58 @@ def device_span_ms(fn, setup, calls=5):
 
     setup()
     fn()
+    host = []
+
+    def before():
+        setup()
+        torch.cuda.synchronize()
+
+    def run():
+        t0 = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+
+    def events(prof):
+        return [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                if "CUDA" in str(getattr(e, "device_type", ""))]
+
     rec = []
     while len(rec) < calls:
-        for _ in range(3):  # the profiler once recorded none of a window's kernels
-            setup()
-            torch.cuda.synchronize()
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                t1 = time.perf_counter()
-                torch.cuda.synchronize()
-            ev = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                  if "CUDA" in str(getattr(e, "device_type", ""))]
-            if ev:
-                break
-        else:
-            fail("device_span_ms: the profiler recorded no kernel in three windows")
+        ev = profiled_rows(run, events, "device_span_ms", before)
         rec.append(((max(t for _, t, _ in ev) - min(s for s, _, _ in ev)) / 1e3,
                     sum(t - s for s, t, _ in ev) / 1e3,
                     sum(t - s for s, t, n in ev if "panel_chain_kernel" in n) / 1e3,
-                    (t1 - t0) * 1e3))
+                    host[-1] * 1e3))
     return dict(zip(("span", "busy", "chain", "host_enqueue"),
                     (sorted(x)[len(x) // 2] for x in zip(*rec))))
+
+
+def kernel_device_ms(fn, names, setup=None, calls=3):
+    """Device time per call (ms) and launches per call of the kernels of
+    ``fn`` whose names hold each of ``names``, from torch.profiler over
+    ``calls`` calls (``setup`` before each, inside the window: name the
+    kernels so that its own are not counted)."""
+    import torch
+
+    if setup is not None:
+        setup()
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(calls):
+            if setup is not None:
+                setup()
+            fn()
+        torch.cuda.synchronize()
+
+    rows = profiled_rows(run, device_rows, "kernel_device_ms")
+    out = {}
+    for k in names:
+        hit = [r for r in rows if k in r[2]]
+        out[k] = (sum(r[0] for r in hit) / calls, sum(r[1] for r in hit) / calls)
+    return out
 
 
 def bf16x3_update_rows(rows):
@@ -833,8 +902,10 @@ def bf16x3_kernel_phase(dev, gen):
     products, against its plain version and, bit for bit, the tiled kernel
     against the simple kernel; then the bf16x3 form of the panel kernel
     against ``micro_blocked_lu(..., 'bf16x3')`` on the card, and on the
-    tiled update bit for bit against the simple one.  Returns the largest
-    |kernel - plain| of each update kernel."""
+    tiled update bit for bit against the simple one, on panels too tall
+    for a cluster too; every block's chain forced onto the grid against
+    the cluster chain.  Returns the largest |kernel - plain| of each update
+    kernel and |grid chain - cluster chain|."""
     import torch
 
     from recursivefactorization_jl_tpu_torch.ops.panel import (
@@ -853,19 +924,21 @@ def bf16x3_kernel_phase(dev, gen):
     # (rows, cols, pad): C, L and U are views of one matrix whose row stride
     # is 64 + cols + pad; pad 0 keeps every operand on 16 bytes where nb is a
     # multiple of 4 (the panel's case), pad 3 puts every row off them
-    for nb in (1, 8, 16, 20, 32, 40, 64):
+    # (nb past 64: the kernels go through K in chunks of 64)
+    for nb in (1, 8, 16, 20, 32, 40, 64, 80, 256):
+        o = max(64, nb)
         for rows, cols, pad in ((1000, 300, 0), (1000, 300, 3), (8192, 512, 0), (33, 4065, 0),
                                 (4065, 33, 0)):
-            big = torch.randn(rows + 64, 64 + cols + pad, generator=gen).to(dev)
+            big = torch.randn(rows + o, o + cols + pad, generator=gen).to(dev)
 
             def views(X):
-                return X[64:, 64:64 + cols], X[64:, 64 - nb:64], X[64 - nb:64, 64:64 + cols]
+                return X[o:, o:o + cols], X[o:, o - nb:o], X[o - nb:o, o:o + cols]
 
             C, L, U = views(big)
             ref, mag = bf16x3_reference(C, L, U)
             plain = C - schur_product(L, U, "bf16x3")
             outside = torch.ones_like(big, dtype=torch.bool)
-            outside[64:, 64:64 + cols] = False
+            outside[o:, o:o + cols] = False
             runs = {}
             for upd in ("tiled", "simple"):
                 X = big.clone()
@@ -905,6 +978,70 @@ def bf16x3_kernel_phase(dev, gen):
     if not (nan_same and torch.equal(i32(C), i32(S))):
         fail("the bf16x3 update's NaN entries are not the plain version's or the simple kernel's")
 
+    def check_panel(A, name, pivot, b, updates=("tiled", "simple"), lda=None, col=0):
+        """The bf16x3 panel on ``updates`` against micro_blocked_lu(...,
+        'bf16x3') on the card (and each update kernel's panel bit for bit
+        the first's); the grid chain's launches, as the launcher reports
+        them, counted against the plan.  ``lda``: the kernel factors the
+        panel as columns ``col`` ... of an m x lda matrix (a column block of
+        lu's matrix), not as a contiguous copy."""
+        m, w = A.shape
+        plan = bf16x3_plan(m, w, b)
+        outs = {}
+        for upd in updates:
+            if lda is None:
+                Q = A.clone()
+            else:
+                Q = torch.empty(m, lda, device=dev)[:, col:col + w]
+                Q.copy_(A)
+            u0 = panel_factor_cuda.bf16x3_update_launches
+            g0 = panel_factor_cuda.grid_block_launches
+            got = panel_factor_cuda(Q, pivot, block=b, precision="bf16x3", _update=upd)
+            torch.cuda.synchronize()
+            outs[upd] = (Q, *got, panel_factor_cuda.bf16x3_update_launches - u0,
+                         panel_factor_cuda.grid_block_launches - g0)
+        first = outs[updates[0]]
+        P, piv, perm, info, updates_n, grid_blocks = first
+        f, rpiv, rperm, rinfo = micro_blocked_lu(A, pivot, b, "bf16x3")
+        f32 = micro_blocked_lu(A, pivot, b)[0]
+        rec = dict(kernel="panel_lu_bf16x3", shape=[m, w], input=name, pivot=pivot, block=b,
+                   lda=P.stride(0), col=col, plan=plan, info=int(info),
+                   info_equal=int(info) == int(rinfo), ipiv_equal=bool(torch.equal(piv, rpiv)),
+                   updates=updates_n, expected_updates=len(bf16x3_blocks(m, w, b)),
+                   grid_block_launches=grid_blocks,
+                   bitwise_across_updates=all(
+                       torch.equal(i32(x), i32(y)) for o in outs.values()
+                       for x, y in zip(first[:4], o[:4])))
+        if "simple" in outs:
+            rec["simple_updates"] = outs["simple"][4]
+        ok = (rec["info_equal"] and rec["bitwise_across_updates"]
+              and all(o[4] == rec["expected_updates"] for o in outs.values())
+              and all(o[5] == plan["grid_blocks"] for o in outs.values()))
+        finite = bool(torch.isfinite(A).all())
+        if not rec["ipiv_equal"]:
+            rec["first_differing_step"], rec["tie_gap"] = first_choice_gap(A, piv, rpiv)
+            ok = ok and finite and rec["tie_gap"] <= BF16X3_TIE
+        else:
+            spread = float((f - f32).nan_to_num(0).abs().max())
+            diff = float((P - f).nan_to_num(0).abs().max())
+            rec.update(perm_equal=bool(torch.equal(perm, rperm)),
+                       nan_equal=bool(torch.equal(torch.isnan(P), torch.isnan(f))),
+                       max_abs_err=diff, knob_effect=spread,
+                       tolerance=2 * spread + 2.0 ** -20 * float(f.nan_to_num(0).abs().max()))
+            ok = ok and rec["perm_equal"] and rec["nan_equal"] and diff <= rec["tolerance"]
+        if finite:
+            k = min(m, w)
+            Lm = torch.tril(P[:, :k].double(), -1) + torch.eye(m, k, dtype=torch.float64,
+                                                               device=dev)
+            r = float((Lm @ torch.triu(P[:k].double()) - A.double()[perm.long()]).abs().max())
+            g = 20 * m * torch.finfo(torch.float32).eps * float(A.abs().max())
+            rec.update(resid=r, gate=g if pivot else 10 * g ** 0.5)
+            ok = ok and r < rec["gate"]
+        emit("kernel", **rec)
+        if not ok:
+            fail(f"the bf16x3 panel disagrees with its plain version: {rec}")
+        return info
+
     for m, w in BF16X3_SHAPES:
         base = torch.randn(m, w, generator=gen)
         for name, pivot in (("randn", True), ("randn", False), ("zero_col", True),
@@ -918,78 +1055,111 @@ def bf16x3_kernel_phase(dev, gen):
             if not pivot:
                 A += m * torch.eye(m, w, device=dev)
             # the tiled update (the main path's), then the simple one
-            outs = {}
-            for upd in ("tiled", "simple"):
-                Q = A.clone()
-                u0 = panel_factor_cuda.bf16x3_update_launches
-                got = panel_factor_cuda(Q, pivot, block=BF16X3_MICRO, precision="bf16x3",
-                                        _update=upd)
-                torch.cuda.synchronize()
-                outs[upd] = (Q, *got, panel_factor_cuda.bf16x3_update_launches - u0)
-            P, piv, perm, info, updates = outs["tiled"]
-            f, rpiv, rperm, rinfo = micro_blocked_lu(A, pivot, BF16X3_MICRO, "bf16x3")
-            f32 = micro_blocked_lu(A, pivot, BF16X3_MICRO)[0]
-            rec = dict(kernel="panel_lu_bf16x3", shape=[m, w], input=name, pivot=pivot,
-                       plan=bf16x3_plan(m, w, BF16X3_MICRO), info=int(info),
-                       info_equal=int(info) == int(rinfo), ipiv_equal=bool(torch.equal(piv, rpiv)),
-                       updates=updates, simple_updates=outs["simple"][4],
-                       expected_updates=len(bf16x3_blocks(m, w, BF16X3_MICRO)),
-                       bitwise_simple=all(torch.equal(i32(x), i32(y)) for x, y in
-                                          zip(outs["tiled"][:4], outs["simple"][:4])))
-            ok = (rec["info_equal"] and rec["bitwise_simple"]
-                  and updates == rec["simple_updates"] == rec["expected_updates"])
-            finite = bool(torch.isfinite(A).all())
-            if not rec["ipiv_equal"]:
-                rec["first_differing_step"], rec["tie_gap"] = first_choice_gap(A, piv, rpiv)
-                ok = ok and finite and rec["tie_gap"] <= BF16X3_TIE
-            else:
-                spread = float((f - f32).nan_to_num(0).abs().max())
-                diff = float((P - f).nan_to_num(0).abs().max())
-                rec.update(perm_equal=bool(torch.equal(perm, rperm)),
-                           nan_equal=bool(torch.equal(torch.isnan(P), torch.isnan(f))),
-                           max_abs_err=diff, knob_effect=spread,
-                           tolerance=2 * spread + 2.0 ** -20 * float(f.nan_to_num(0).abs().max()))
-                ok = ok and rec["perm_equal"] and rec["nan_equal"] and diff <= rec["tolerance"]
-            if finite:
-                k = min(m, w)
-                Lm = torch.tril(P[:, :k].double(), -1) + torch.eye(m, k, dtype=torch.float64,
-                                                                   device=dev)
-                r = float((Lm @ torch.triu(P[:k].double()) - A.double()[perm.long()]).abs().max())
-                g = 20 * m * torch.finfo(torch.float32).eps * float(A.abs().max())
-                rec.update(resid=r, gate=g if pivot else 10 * g ** 0.5)
-                ok = ok and r < rec["gate"]
-            emit("kernel", **rec)
-            if not ok:
-                fail(f"the bf16x3 panel disagrees with its plain version: {rec}")
+            info = check_panel(A, name, pivot, BF16X3_MICRO)
             if name == "zero_col" and int(info) != 101:
                 fail(f"zeroed column 100 gave info {int(info)}")
-            del outs, P, f, f32
-    # a panel too tall for a cluster is refused, never factored without the
-    # split: the tallest 512-wide panel each block width plans (to 1024 rows)
-    for b in (BF16X3_MICRO, 8):
-        m = 16384
-        while m <= 131072:
-            try:
-                bf16x3_plan(m + 1024, 512, b)
-            except NotImplementedError as e:
-                refused = str(e)
-                break
-            m += 1024
-        else:
-            fail(f"the bf16x3 form planned every 512-wide panel to 131072 rows at b {b}")
-        emit("kernel", kernel="panel_lu_bf16x3", width=512, block=b, tallest_planned=m,
-             refused=[m + 1024, 512], message=refused[:160])
+    # panels too tall for a cluster at their block width (28 672 rows at b
+    # 32, 100 000 at b 8): the blocks whose live rows do not fit one run
+    # their chain on the grid, the block boundaries where they are
+    for (m, w), b in (((28672, 64), BF16X3_MICRO), ((100000, 64), 8)):
+        A = torch.randn(m, w, generator=gen).to(dev)
+        if bf16x3_plan(m, w, b)["grid_blocks"] == 0:
+            fail(f"the {m} x {w} panel at b {b} planned no block on the grid chain")
+        check_panel(A, "randn, too tall for a cluster", True, b, updates=("tiled",))
+        del A
+    # lu's panels at n = 28 672 as lu hands them over: the first column
+    # block of the n x n matrix (28 672 x 512, row stride n: 512-wide
+    # blocks, delayed passes of up to 480 columns on up to 28 640 rows) and
+    # rows 512.. of the second (28 160 x 512 at column 512)
+    n, w = BF16X3_TALL_N, max(w for _, w in BF16X3_SHAPES)
+    for m, col in ((n, 0), (n - w, w)):
+        A = torch.randn(m, w, generator=gen).to(dev)
+        if bf16x3_plan(m, w, BF16X3_MICRO)["grid_blocks"] == 0:
+            fail(f"lu's {m} x {w} panel at b {BF16X3_MICRO} planned no block on the grid chain")
+        check_panel(A, f"randn, column block {col // w} of lu at n {n}", True, BF16X3_MICRO,
+                    updates=("tiled",), lda=n, col=col)
+        del A
+    # every block's chain forced onto the grid on panels that fit a cluster:
+    # bit for bit the cluster chain's result (both rounded once per product
+    # and difference, the same winner at every step)
+    for m, w in ((1536, 512), (4096, 512)):
+        A = torch.randn(m, w, generator=gen)
+        A[:, 100] = 0
+        A = A.to(dev)
+        outs = {}
+        for chain in ("auto", "grid"):
+            Q = A.clone()
+            g0 = panel_factor_cuda.grid_block_launches
+            got = panel_factor_cuda(Q, True, block=BF16X3_MICRO, precision="bf16x3", _chain=chain)
+            torch.cuda.synchronize()
+            outs[chain] = (Q, *got, panel_factor_cuda.grid_block_launches - g0)
+        plan = bf16x3_plan(m, w, BF16X3_MICRO, _chain="grid")
+        same = all(torch.equal(i32(x), i32(y)) for x, y in zip(outs["auto"][:4], outs["grid"][:4]))
+        err = float((outs["grid"][0] - outs["auto"][0]).abs().max())
+        max_err["grid_chain"] = max(max_err.get("grid_chain", 0.0), err)
+        rec = dict(kernel="panel_grid_chain", form="bf16x3", shape=[m, w], block=BF16X3_MICRO,
+                   plan=plan, grid_block_launches=outs["grid"][4], cluster_run_grid_blocks=
+                   outs["auto"][4], bitwise_cluster_chain=same, max_abs_err=err,
+                   info=int(outs["grid"][3]))
+        emit("kernel", **rec)
+        if not (same and outs["grid"][4] == plan["blocks"] == plan["grid_blocks"]
+                and outs["auto"][4] == 0 and int(outs["grid"][3]) == 101):
+            fail(f"the grid chain is not the cluster chain's result: {rec}")
+        del A, outs
     return max_err
+
+
+def chunked_lu_resid(A, F, rows=2048):
+    """``max |L U - A[p]|`` in float64 and the gate 20 n eps max|A| of a
+    large square factorization, L taken from ``F.factors`` a block of rows
+    at a time (U in float64 once): n = 28 672 needs 6.6 GB for U, not the
+    26 GB of the whole product."""
+    import torch
+
+    n = A.shape[0]
+    U = torch.triu(F.factors).double()
+    p = F.p.long()
+    r = 0.0
+    for i0 in range(0, n, rows):
+        i1 = min(n, i0 + rows)
+        Lc = torch.tril(F.factors[i0:i1].double(), diagonal=i0 - 1)
+        Lc[torch.arange(i1 - i0), torch.arange(i0, i1)] = 1.0
+        r = max(r, float((Lc @ U - A[p[i0:i1]].double()).abs().max()))
+        del Lc
+    del U
+    return r, 20 * n * torch.finfo(A.dtype).eps * float(A.abs().max())
+
+
+def chunked_solve_resid(A, x, b, rows=4096):
+    """``||A x - b|| / (||A|| ||x||)`` in float64, A a block of rows at a
+    time."""
+    import torch
+
+    xd, bd = x.double(), b.double()
+    rr, an = 0.0, 0.0
+    for i0 in range(0, A.shape[0], rows):
+        Ad = A[i0:i0 + rows].double()
+        rr += float(((Ad @ xd - bd[i0:i0 + rows]) ** 2).sum())
+        an += float((Ad ** 2).sum())
+    return (rr / an) ** 0.5 / float(xd.norm())
+
+
+# lu under the knob at this n: its first four 512-wide panels have more than
+# 26 624 live rows, too many for a cluster at 32-step blocks, so their
+# blocks' chains run on the grid
+BF16X3_TALL_N = 28672
 
 
 def bf16x3_main_phase(rt, dev, TF32Watch, resid_gate, solve_resid):
     """Phase 3g: ``lu`` + ``lu_solve`` under ``panel_boundary_precision=
     'bf16x3'`` at n = 1536 / 4096 / 8192, alone and with ``schur_precision=
-    'bf16x3'``.  Returns the launch counts per run."""
+    'bf16x3'``, and at n = 28 672 (panels too tall for a cluster: the grid
+    chain).  Returns the launch counts per run."""
     import numpy as np
     import torch
 
     from recursivefactorization_jl_tpu_torch.ops.panel import (
+        bf16x3_plan,
         panel_factor_cuda,
         panel_update_bf16x3_cuda,
     )
@@ -1000,56 +1170,73 @@ def bf16x3_main_phase(rt, dev, TF32Watch, resid_gate, solve_resid):
     b = cfg.resolved_panel_micro()
     counts = {}
     runs = [(1536, "entry"), (1536, "randn"), (1536, "zero_col"), (4096, "randn"),
-            (8192, "randn")]
+            (8192, "randn"), (BF16X3_TALL_N, "randn")]
     tf32_before = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True  # the port must turn it off
     for n, name in runs:
-        M = rng.standard_normal((n, n), dtype=np.float32)
-        if name == "entry":
-            M += np.float32(n) * np.eye(n, dtype=np.float32)
-        if name == "zero_col":
-            M[:, 700] = 0
-        A = torch.from_numpy(M).to(dev)
-        v = torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).to(dev)
-        del M
+        big = n == BF16X3_TALL_N
+        if big:  # made on the card (3.3 GB): the residuals a block of rows at a time
+            g = torch.Generator(device=dev).manual_seed(12)
+            A = torch.randn(n, n, generator=g, device=dev)
+            v = torch.randn(n, generator=g, device=dev)
+            lu_resid, sol_resid = chunked_lu_resid, chunked_solve_resid
+        else:
+            M = rng.standard_normal((n, n), dtype=np.float32)
+            if name == "entry":
+                M += np.float32(n) * np.eye(n, dtype=np.float32)
+            if name == "zero_col":
+                M[:, 700] = 0
+            A = torch.from_numpy(M).to(dev)
+            v = torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).to(dev)
+            del M
+            lu_resid, sol_resid = resid_gate, solve_resid
         route = rt.dispatch_route((n, n), torch.float32, True, cfg)
         panels = [(n - s, min(w, n - s)) for s in range(0, n, w)] if route == "blocked" \
             else [(n, n)]
         expect_updates = sum(len(bf16x3_blocks(pm, pw, b)) for pm, pw in panels)
+        # the blocks whose live rows do not fit a cluster (the plan's count)
+        expect_grid = sum(bf16x3_plan(pm, pw, b)["grid_blocks"] for pm, pw in panels)
         # the float32 form on the same matrix, for its scaled residual
         F32 = rt.lu(A, check=False)
-        r32 = resid_gate(A, F32)[0] / (n * torch.finfo(torch.float32).eps * float(A.abs().max()))
+        r32 = lu_resid(A, F32)[0] / (n * torch.finfo(torch.float32).eps * float(A.abs().max()))
         del F32
-        for schur in ("float32", "bf16x3") if name != "zero_col" else ("float32",):
+        for schur in ("float32", "bf16x3") if name != "zero_col" and not big else ("float32",):
             knob = rt.LUConfig(panel_boundary_precision="bf16x3", schur_precision=schur)
             watch = TF32Watch()
             panel_factor_cuda.launches = panel_factor_cuda.grid_route_launches = 0
             panel_factor_cuda.bf16x3_launches = panel_factor_cuda.bf16x3_update_launches = 0
             panel_factor_cuda.bf16x3_simple_update_launches = 0
+            panel_factor_cuda.grid_block_launches = 0
             panel_update_bf16x3_cuda.launches = 0
+            t0 = time.perf_counter()
             with watch:
                 F = rt.lu(A, check=False, config=knob)
                 x = rt.lu_solve(F, v)
                 torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
             got = dict(panel_launches=panel_factor_cuda.launches,
                        bf16x3_panel_launches=panel_factor_cuda.bf16x3_launches,
                        bf16x3_update_launches=panel_factor_cuda.bf16x3_update_launches,
                        bf16x3_simple_update_launches=panel_factor_cuda.bf16x3_simple_update_launches,
-                       grid_route_launches=panel_factor_cuda.grid_route_launches)
+                       grid_route_launches=panel_factor_cuda.grid_route_launches,
+                       grid_block_launches=panel_factor_cuda.grid_block_launches)
             counts[(n, name, schur)] = got
-            r, g = resid_gate(A, F)
+            r, g = lu_resid(A, F)
             rec = dict(what="bf16x3", n=n, input=name, schur_precision=schur, route=route,
                        **got, expected_panels=len(panels), expected_updates=expect_updates,
-                       resid=r, gate=g,
+                       expected_grid_blocks=expect_grid, resid=r, gate=g,
                        scaled_resid=r / (n * torch.finfo(torch.float32).eps * float(A.abs().max())),
                        float32_scaled_resid=r32,
-                       solve_rel_resid=solve_resid(A, x, v), info=int(F.info),
-                       matmuls=len(watch.flags), tf32_seen=any(watch.flags))
+                       solve_rel_resid=sol_resid(A, x, v), info=int(F.info),
+                       matmuls=len(watch.flags), tf32_seen=any(watch.flags),
+                       factor_solve_wall_s=wall)
             emit("main", **rec)
             want_info = 701 if name == "zero_col" else 0
             if not (got["panel_launches"] == got["bf16x3_panel_launches"] == len(panels)
                     and got["bf16x3_update_launches"] == expect_updates
                     and got["bf16x3_simple_update_launches"] == 0
+                    and got["grid_block_launches"] == expect_grid
+                    and (expect_grid > 0) == big
                     and got["grid_route_launches"] == 0 and r < g and rec["info"] == want_info
                     and watch.flags and not any(watch.flags)
                     and (name == "zero_col" or np.isfinite(rec["solve_rel_resid"]))):
@@ -1080,7 +1267,9 @@ def bf16x3_timing_phase(rt, dev, gen, card, round_robin, timed):
     from recursivefactorization_jl_tpu_torch.ops.panel import (
         bf16x3_plan,
         bf16x3_update_plan,
+        micro_plan,
         panel_factor_cuda,
+        panel_factor_shadow_cuda,
         panel_plan,
         panel_update_bf16x3_cuda,
     )
@@ -1128,6 +1317,7 @@ def bf16x3_timing_phase(rt, dev, gen, card, round_robin, timed):
         update_rows[(m, w)] = row
         emit("timing", what="bf16x3_update", card=card, **row)
         del big, C0, C, L, U, bigs, sets
+    plain_panel_ms = {}
     for m, w in BF16X3_SHAPES:
         X = torch.randn(m, w, generator=gen).to(dev)
         P = torch.empty_like(X)
@@ -1147,6 +1337,7 @@ def bf16x3_timing_phase(rt, dev, gen, card, round_robin, timed):
             }, rounds=10, setup=lambda: P.copy_(X), mirror=True)
         span = {k: device_span_ms(f, lambda: P.copy_(X)) for k, f in panels.items()}
         p_ms, _ = timed(lambda: micro_blocked_lu(X, True, b, "bf16x3"), None, reps=1, warm=0)
+        plain_panel_ms[(m, w)] = p_ms
         b_ms, b_by = bf16x3_panel_bound(m, w, b)
         emit("timing", what="bf16x3_panel", card=card, shape=[m, w], block=b, plan=plan,
              default_plan=panel_plan(m, w, torch.float32), ms=t, plain_ms=p_ms,
@@ -1156,10 +1347,92 @@ def bf16x3_timing_phase(rt, dev, gen, card, round_robin, timed):
              tiled_over_simple=t["bf16x3"] / t["bf16x3_simple"],
              bf16x3_over_float32_default=t["bf16x3"] / t["float32_default"])
         del X, P
+    # the grid block chain: per step beside the cluster chain on the same
+    # blocks (every block's chain forced onto the grid) and beside the float32
+    # form's grid route (panel_lu_kernel, block=-1), device time by kernel;
+    # on the first panel of lu at n = 28 672 (too tall for a cluster at b 32)
+    # beside the float32 form's own plan
+    names = ("panel_grid_chain_kernel", "panel_chain_kernel", "panel_lu_kernel")
+    grid_rows = {}
+    for m, w in BF16X3_SHAPES[:2] + ((BF16X3_TALL_N, 512),):
+        X = torch.randn(m, w, generator=gen).to(dev)
+        P = torch.empty_like(X)
+        runs = {
+            "bf16x3": lambda: panel_factor_cuda(P, True, block=b, precision="bf16x3"),
+            "bf16x3_grid_chain": lambda: panel_factor_cuda(P, True, block=b, precision="bf16x3",
+                                                           _chain="grid"),
+            "float32_grid_route": lambda: panel_factor_cuda(P, True, block=-1),
+            "float32_default": lambda: panel_factor_cuda(P, True),
+        }
+        if m == BF16X3_TALL_N:  # the cluster chain cannot take these blocks at b 32
+            del runs["bf16x3_grid_chain"]
+        with quiet_c_stdout():
+            t = round_robin({**runs, "library": lambda: torch.linalg.lu_factor_ex(P)},
+                            rounds=5 if m == BF16X3_TALL_N else 7, setup=lambda: P.copy_(X),
+                            mirror=True)
+        dev_t = {k: kernel_device_ms(f, names, setup=lambda: P.copy_(X)) for k, f in runs.items()}
+        # per step from the mean launch (the profiler may drop a launch's
+        # record): a chain launch covers its block's steps, panel_lu_kernel
+        # the panel's
+        blocks = {"bf16x3": bf16x3_plan(m, w, b)["blocks"],
+                  "bf16x3_grid_chain": bf16x3_plan(m, w, b)["blocks"],
+                  "float32_grid_route": 1,
+                  "float32_default": panel_plan(m, w, torch.float32)["blocks"]}
+        steps = min(m, w)
+        per_step = {k: {n_: 1e3 * v[0] / v[1] * blocks[k] / steps for n_, v in d.items() if v[1]}
+                    for k, d in dev_t.items()}
+        b_ms, b_by = bf16x3_panel_bound(m, w, b)
+        grid_rows[(m, w)] = dict(
+            shape=[m, w], block=b, plan=bf16x3_plan(m, w, b), ms=t, bound_ms=b_ms, bound_by=b_by,
+            plain_ms=plain_panel_ms.get((m, w)),
+            chain_device_ms={k: {n_: v for n_, v in d.items() if v[1]} for k, d in dev_t.items()},
+            chain_us_per_step=per_step)
+        emit("timing", what="grid_chain", card=card, **grid_rows[(m, w)])
+        del X, P
+    # the delayed kernels at nb = 64 / 128 / 256 on a 4096 x 512 panel:
+    # swap / solve and the sum-first update (the micro route), the bf16x3
+    # update (the bf16x3 form), device time per launch
+    X = torch.randn(4096, 512, generator=gen).to(dev)
+    P = torch.empty_like(X)
+    delayed = ("panel_swap_solve_kernel", "panel_update_kernel", "panel_update_bf16x3_tiled")
+    for nb in (64, 128, 256):
+        rec = {}
+        forms = {"micro": lambda: panel_factor_shadow_cuda(P, True, nb),
+                 "bf16x3": lambda: panel_factor_cuda(P, True, block=nb, precision="bf16x3")}
+        for form, fn in forms.items():
+            d = kernel_device_ms(fn, delayed, setup=lambda: P.copy_(X))
+            rec[form] = {k: {"ms_per_launch": v[0] / v[1], "launches": v[1]}
+                         for k, v in d.items() if v[1]}
+        # the panels whole, on their plans and with every chain on the grid
+        t = round_robin({**forms,
+                         "micro_grid_chain": lambda: panel_factor_shadow_cuda(P, True, nb,
+                                                                              _chain="grid"),
+                         "bf16x3_grid_chain": lambda: panel_factor_cuda(
+                             P, True, block=nb, precision="bf16x3", _chain="grid")},
+                        rounds=5, setup=lambda: P.copy_(X), mirror=True)
+        emit("timing", what="delayed_kernels", card=card, shape=[4096, 512], nb=nb,
+             micro_plan=micro_plan(4096, 512, torch.float32, nb),
+             bf16x3_plan=bf16x3_plan(4096, 512, nb), panel_ms=t, **rec)
+    del X, P
     cfgs = {"float32": rt.LUConfig(),
             "bf16x3": rt.LUConfig(panel_boundary_precision="bf16x3"),
             "bf16x3_schur": rt.LUConfig(panel_boundary_precision="bf16x3",
                                         schur_precision="bf16x3")}
+    # lu at n = 28 672 (its first four panels on the grid chain) in turns
+    # beside the float32 form and the library
+    n = BF16X3_TALL_N
+    g = torch.Generator(device=dev).manual_seed(13)
+    M = torch.randn(n, n, generator=g, device=dev)
+    with quiet_c_stdout():
+        t = round_robin({"float32_factor": lambda: rt.lu(M, check=False, config=cfgs["float32"]),
+                         "bf16x3_factor": lambda: rt.lu(M, check=False, config=cfgs["bf16x3"]),
+                         "library_factor": lambda: torch.linalg.lu_factor_ex(M)},
+                        rounds=3, mirror=True)
+    emit("timing", what="bf16x3_end_to_end", card=card, n=n, dtype="float32", ms=t,
+         bf16x3_over_float32=t["bf16x3_factor"] / t["float32_factor"],
+         bf16x3_over_library=t["bf16x3_factor"] / t["library_factor"])
+    tall_row = dict(n=n, ms=t)
+    del M
     for n in (1536, 4096, 8192):
         M = torch.randn(n, n, generator=gen).to(dev)
         v = torch.randn(n, generator=gen).to(dev)
@@ -1179,7 +1452,7 @@ def bf16x3_timing_phase(rt, dev, gen, card, round_robin, timed):
              bf16x3_over_float32=t["bf16x3_factor"] / t["float32_factor"],
              bf16x3_schur_over_float32=t["bf16x3_schur_factor"] / t["float32_factor"])
         del M, v
-    return update_rows
+    return update_rows, grid_rows, tall_row
 
 
 def main(argv):
@@ -1581,6 +1854,7 @@ def main(argv):
                 torch.equal(bits(x.masked_fill(nx, 0)), bits(y.masked_fill(ny, 0))))
 
         new_err = {k: 0.0 for k in NEW_PANEL_KERNELS}
+        new_err["panel_grid_chain"] = 0.0
         mcases = []  # shape, dtype, input, pivot, micro
         for (m, w) in shapes:
             mcases += [((m, w), f32, "randn", True, 32), ((m, w), f64, "randn", True, 16)]
@@ -1594,21 +1868,24 @@ def main(argv):
         mcases += [((777, 130), f32, "nan", True, 12), ((1000, 100), f64, "randn", True, 12),
                    ((130, 300), f32, "randn", True, 12)]
 
-        def check_micro(A, pivot, micro, what, block=0, cluster=0, plain=None):
+        def check_micro(A, pivot, micro, what, block=0, cluster=0, plain=None, chain="auto"):
             """Both micro wrappers on ``A`` (a tensor or a view) against
-            micro_blocked_lu, on the cluster route (block 0) or the grid
-            route (block -1); returns the factored panels."""
+            micro_blocked_lu, on the cluster route (block 0; ``chain``
+            'grid': every block's chain on the grid) or the grid route
+            (block -1); returns the factored panels."""
             f_p, piv_p, perm_p, info_p = plain or micro_blocked_lu(A, pivot, micro)
             m, w = A.shape
             grid_route = block < 0
             outs = {}
             for kern, wrapper in micro_wrappers.items():
-                key = f"{kern}_grid" if grid_route else kern
+                key = (f"{kern}_grid" if grid_route
+                       else "panel_grid_chain" if chain == "grid" else kern)
                 plan = micro_plan(m, w, A.dtype, micro, kern.rsplit("_", 1)[1], block=block,
-                                  cluster=cluster)
+                                  cluster=cluster, _chain=chain)
                 P = A.clone()
-                g0 = wrapper.grid_route_launches
-                piv_k, perm_k, info_k = wrapper(P, pivot, micro, block=block, cluster=cluster)
+                g0 = (wrapper.grid_route_launches, wrapper.grid_block_launches)
+                piv_k, perm_k, info_k = wrapper(P, pivot, micro, block=block, cluster=cluster,
+                                                _chain=chain)
                 torch.cuda.synchronize()
                 outs[kern] = P
                 same = {
@@ -1616,10 +1893,14 @@ def main(argv):
                     "perm_equal": bool(torch.equal(perm_k, perm_p)),
                     "info_equal": int(info_k) == int(info_p),
                     "bitwise": same_bits_nan(P, f_p),
-                    "route_as_expected": (wrapper.grid_route_launches - g0 == int(grid_route)
+                    "route_as_expected": (wrapper.grid_route_launches - g0[0] == int(grid_route)
                                           and plan["route"] == ("grid" if grid_route
                                                                 else "cluster")),
+                    "grid_blocks_as_planned": wrapper.grid_block_launches - g0[1] == (
+                        0 if grid_route else plan["grid_blocks"]),
                 }
+                if chain == "grid":
+                    same["every_block_on_the_grid"] = plan["grid_blocks"] == plan["blocks"]
                 err = float((P - f_p).abs().nan_to_num(0.0).max())
                 new_err[key] = max(new_err[key], err)
                 emit("kernel", kernel=key, shape=[m, w], dtype=str(A.dtype)[6:], input=what,
@@ -1656,6 +1937,22 @@ def main(argv):
         if not {b for _, b, _ in mplans} >= {8, 12, 16, 32, 64} or \
                 not {C for _, _, C in mplans} >= {1, 2, 4, 8, 16}:
             fail(f"the micro plan cases missed a block width or a cluster size: {sorted(mplans)}")
+        # blocks past the grid route's 64 steps (the delayed kernels stage
+        # them in chunks; a block whose live rows do not fit a cluster runs
+        # its chain on the grid), and every block's chain forced onto the
+        # grid: the main path's panels, f32 and f64
+        for (m, w) in shapes:
+            for dt in (f32, f64):
+                A = real_input("zero_col", m, w, dt, True).to(dev)
+                for micro in (65, 128, 256, 512):
+                    plain = micro_blocked_lu(A, True, micro)
+                    for chain in ("auto", "grid"):
+                        outs = check_micro(A, True, micro, f"zero_col, micro {micro}",
+                                           plain=plain, chain=chain)
+                        if not same_bits_nan(outs["panel_lu_micro_shadow"],
+                                             outs["panel_lu_micro_basic"]):
+                            fail("the staged and the in-place micro kernel differ")
+                del A, plain, outs
 
         ncases = []  # shape, dtype, input, pivot, share of rows taken before
         for (m, w) in shapes:
@@ -1806,7 +2103,11 @@ def main(argv):
                 used_k, used_p = used_k_next, used_p_next
             del M, W
         for bad in (lambda: panel_factor_shadow_cuda(torch.zeros(8, 4), True, 4),
-                    lambda: panel_factor_basic_cuda(torch.zeros(200, 100, device=dev), True, 65),
+                    # the grid route takes at most 64 steps (the cluster route any)
+                    lambda: panel_factor_basic_cuda(torch.zeros(200, 100, device=dev), True, 65,
+                                                    block=-1),
+                    lambda: panel_factor_basic_cuda(torch.zeros(200, 100, device=dev), True, 8,
+                                                    _chain="wide"),
                     lambda: panel_factor_shadow_cuda(torch.zeros(200, 100, device=dev), True, 8,
                                                      block=8),
                     lambda: panel_factor_noswap_cuda(torch.zeros(8, 4, device=dev),
@@ -3823,7 +4124,8 @@ def main(argv):
         del M
 
     # ---- 4g. the bf16x3 form, in turns beside the float32 form -------------
-    bf16x3_rows = bf16x3_timing_phase(rt, dev, gen, card, round_robin, timed)
+    bf16x3_rows, grid_rows, tall_row = bf16x3_timing_phase(rt, dev, gen, card, round_robin,
+                                                           timed)
 
     if "--profile" in argv:
         profile(rt, card, gen, dev, tp_mesh)
@@ -4018,6 +4320,33 @@ def main(argv):
             "nb": brow["nb"],
             "dtype": "float32",
         })
+    # the grid block chain (the blocked forms' chain for blocks too tall for a
+    # cluster): its launches those of phase 3g's lu at n = 28 672 under the
+    # knob; held bit for bit to the plain version (the micro-blocked route
+    # with every block's chain on the grid, phase 2d) and to the cluster
+    # chain (the bf16x3 form, phase 2g); timed as the 4096 x 512 bf16x3
+    # panel with every block's chain on the grid, its chain kernels' device
+    # time per step beside
+    grow = grid_rows[(4096, 512)]
+    kernels.append({
+        "name": "panel_grid_chain",
+        "route": "cuda",
+        "source": BF16X3_UPDATE[0],
+        "replaces": REPLACES,
+        "launches": bf16x3_counts[(BF16X3_TALL_N, "randn", "float32")]["grid_block_launches"],
+        "max_abs_err": max(new_err["panel_grid_chain"], bf16x3_err["grid_chain"]),
+        "ms": grow["ms"]["bf16x3_grid_chain"],
+        "plain_ms": grow["plain_ms"],
+        "bound_ms": grow["bound_ms"],
+        "bound_by": grow["bound_by"],
+        "library_ms": grow["ms"]["library"],
+        "chain_us_per_step": grow["chain_us_per_step"]["bf16x3_grid_chain"],
+        "cluster_chain_us_per_step": grow["chain_us_per_step"]["bf16x3"],
+        "lu_tall_ms": tall_row["ms"],
+        "shape": grow["shape"],
+        "block": grow["block"],
+        "dtype": "float32",
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -9,6 +9,15 @@
 // own chain and delayed kernels and takes the plan from here.  The design
 // is described at the top of csrc/panel_lu.cu.
 //
+// The two blocked forms (the bf16x3 form and the micro-blocked kernels)
+// take any block width b and any panel height.  A block whose live rows do
+// not fit a cluster at its slab width (or whose b passes the widest slab,
+// 512) runs its chain on the grid instead (panel_grid_chain_kernel: one
+// cooperative grid, one grid barrier per step, the block's columns in
+// device memory), which writes the same row moves and computes the same
+// bits; the delayed pass follows unchanged.  The delayed kernels stage
+// their operands in chunks, so they take any b too.
+//
 // The templates take the panel's element type T: float, double, or a
 // complex (re, im) pair, float2 or double2.  rf_common.cuh gives each kind
 // its arithmetic: the magnitude that orders the pivots (|a|, or CABS1
@@ -480,6 +489,203 @@ panel_chain_kernel(ChainArgs<T> p) {
   if (tr) { ends[2] = global_ns(); ends[3] = clock64(); }
 }
 
+// The pivot chain of one block on the whole card, for a block whose live
+// rows do not fit a cluster at its slab width (the blocked forms only: the
+// bf16x3 form and the micro-blocked kernels).  A cooperative grid of G
+// CTAs; CTA g owns the live rows [r0 + g R, r0 + (g + 1) R), which stay in
+// device memory, and only the block's ncol columns [k0, k0 + ncol) are
+// read or written.  A step has ONE grid barrier, as the grid route of
+// csrc/panel_lu.cu:
+//   phase A  every CTA finds its candidate in column k0 + kk (first-
+//            occurrence argmax over its rows >= gk, a NaN first) and
+//            publishes it (|value|, row, perm id, origin) with its ncol
+//            entries; the owner of row gk publishes that row;
+//                                                         -- grid.sync() --
+//   phase B  every CTA reduces the G candidates to the same winner; the
+//            owners of rows gk and kp swap them in the block's columns
+//            (with their perm ids and origins); every CTA scales its rows
+//            below gk and updates them in the block's columns > kk.
+// Each product and difference is the cluster chain's, rounded once, and
+// the winner is the same (`better` orders every candidate), so the block
+// ends as the cluster chain leaves it, bit for bit.  Every row that moved
+// goes into the block's `moved` record (row, the row it held when the block
+// began) as the cluster chain writes it, and the delayed pass follows
+// unchanged.  Real elements only.
+constexpr int kGridThreads = 256;
+constexpr int kGridWarps = kGridThreads / 32;
+
+template <typename T>
+struct GridChainArgs {
+  T* a;          // panel, row-major with row stride lda
+  int m, lda, ofs, pivot;
+  int k0, nb;    // the block's first step and its steps
+  int ncol;      // its columns (nb, or w when one block takes all)
+  int rows;      // live rows per CTA
+  int* piv;
+  int* perm;
+  int* info;
+  int* moved;    // [0] count, then (row, row it held when the block began) pairs
+  T* cval;       // [2][G]        |candidate| per CTA
+  T* crow;       // [2][G][ncol]  candidate rows
+  T* krow;       // [2][ncol]     row gk before the swap
+  int* cidx;     // [2][G]        candidate row
+  int* cpid;     // [2][G]        its perm id
+  int* csrc;     // [2][G]        its origin
+  int* kinf;     // [2][2]        perm id and origin of row gk
+  int* src;      // [m - ofs - k0] origin of each live row
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kGridThreads)
+panel_grid_chain_kernel(GridChainArgs<T> p) {
+  static_assert(!Elem<T>::complex, "the grid chain takes real panels");
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* urow = reinterpret_cast<T*>(smem_raw);  // the pivot row's ncol entries
+  __shared__ T red_val[kGridWarps];
+  __shared__ int red_idx[kGridWarps];
+  __shared__ int s_kp, s_src;
+
+  const int G = gridDim.x, b = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const size_t lda = static_cast<size_t>(p.lda);
+  const int nb = p.nb, ncol = p.ncol, k0 = p.k0;
+  const int r0 = p.ofs + k0;  // global row of the block's first step
+  const int rs = r0 + b * p.rows;
+  const int re = min(p.m, rs + p.rows);
+  const bool first = k0 == 0;
+  T* A = p.a + k0;  // A[i * lda + j]: row i, the block's column j
+
+  if (first) {  // the rows above the offset never move
+    for (int i = b * kGridThreads + tid; i < p.ofs; i += G * kGridThreads) p.perm[i] = i;
+  }
+  for (int i = rs + tid; i < re; i += kGridThreads) {
+    if (first) p.perm[i] = i;
+    p.src[i - r0] = i;
+  }
+  __syncthreads();
+  int info = 0;  // kept by CTA 0, thread 0
+  if (b == 0 && tid == 0 && !first) info = *p.info;
+
+  for (int kk = 0; kk < nb; ++kk) {
+    const int gk = r0 + kk;
+    const int par = kk & 1;
+    T* cval = p.cval + par * G;
+    int* cidx = p.cidx + par * G;
+    int* cpid = p.cpid + par * G;
+    int* csrc = p.csrc + par * G;
+    T* crow = p.crow + static_cast<size_t>(par) * G * ncol;
+    T* krow = p.krow + static_cast<size_t>(par) * ncol;
+    int* kinf = p.kinf + 2 * par;
+    const bool own_k = gk >= rs && gk < re;
+
+    // ---- phase A: publish the CTA's candidate and row gk ----------------
+    if (p.pivot) {
+      T best = T(-1);
+      int bi = INT_MAX;
+      for (int i = max(gk, rs) + tid; i < re; i += kGridThreads) {
+        const T v = mag(A[i * lda + kk]);
+        if (better(v, i, best, bi)) { best = v; bi = i; }
+      }
+      block_best<kGridWarps>(best, bi, red_val, red_idx);
+      if (tid == 0) {
+        cval[b] = best;
+        cidx[b] = bi;
+        cpid[b] = bi == INT_MAX ? -1 : p.perm[bi];
+        csrc[b] = bi == INT_MAX ? -1 : p.src[bi - r0];
+        s_kp = bi;
+      }
+      __syncthreads();
+      const int ci = s_kp;
+      if (ci != INT_MAX) {
+        T* dst = crow + static_cast<size_t>(b) * ncol;
+        for (int j = tid; j < ncol; j += kGridThreads) dst[j] = A[ci * lda + j];
+      }
+    }
+    if (own_k) {
+      for (int j = tid; j < ncol; j += kGridThreads) krow[j] = A[gk * lda + j];
+      if (tid == 0) {
+        kinf[0] = p.perm[gk];
+        kinf[1] = p.src[gk - r0];
+      }
+    }
+
+    grid.sync();
+
+    // ---- phase B: agree on the pivot, swap, scale, update ---------------
+    int kp = gk, wb = 0;
+    if (p.pivot) {
+      if (warp == 0) {
+        T best = T(-1);
+        int bi = INT_MAX, bb = -1;
+        for (int g = lane; g < G; g += 32) {
+          const T v = __ldcg(cval + g);
+          const int i = __ldcg(cidx + g);
+          if (better(v, i, best, bi)) { best = v; bi = i; bb = g; }
+        }
+        warp_best(best, bi, bb);
+        if (lane == 0) { s_kp = bi; s_src = bb; }
+      }
+      __syncthreads();
+      kp = s_kp;
+      wb = s_src;
+    }
+    const T* u = p.pivot ? crow + static_cast<size_t>(wb) * ncol : krow;
+    for (int j = tid; j < ncol; j += kGridThreads) urow[j] = __ldcg(u + j);
+    __syncthreads();
+
+    const T pv = urow[kk];
+    const bool nz = nonzero(pv);
+    if (nz && kp != gk) {
+      if (own_k) {
+        for (int j = tid; j < ncol; j += kGridThreads) A[gk * lda + j] = urow[j];
+        if (tid == 0) {
+          p.perm[gk] = __ldcg(cpid + wb);
+          p.src[gk - r0] = __ldcg(csrc + wb);
+        }
+      }
+      if (kp >= rs && kp < re) {
+        for (int j = tid; j < ncol; j += kGridThreads) A[kp * lda + j] = __ldcg(krow + j);
+        if (tid == 0) {
+          p.perm[kp] = __ldcg(kinf);
+          p.src[kp - r0] = __ldcg(kinf + 1);
+        }
+      }
+    }
+    if (b == 0 && tid == 0) {
+      p.piv[k0 + kk] = kp;
+      if (!nz && info == 0) info = p.pivot ? k0 + kk + 1 : -(k0 + kk + 1);
+    }
+    __syncthreads();
+
+    const T rr = nz ? rrcp(pv) : T{};
+    for (int i = max(gk + 1, rs) + warp; i < re; i += kGridWarps) {
+      T* row = A + i * lda;
+      T l = T{};
+      if (lane == 0) {
+        l = row[kk];
+        if (nz) {
+          l = rmul(l, rr);
+          row[kk] = l;
+        }
+      }
+      l = __shfl_sync(kFull, l, 0);
+      for (int j = kk + 1 + lane; j < ncol; j += 32) row[j] = rsub(row[j], rmul(l, urow[j]));
+    }
+    __syncthreads();
+  }
+  if (b == 0 && tid == 0) *p.info = info;
+  // the block's row moves, as the cluster chain records them
+  for (int i = rs + tid; i < re; i += kGridThreads) {
+    const int s = p.src[i - r0];
+    if (s != i) {
+      const int e = atomicAdd(p.moved, 1);
+      p.moved[1 + 2 * e] = i;
+      p.moved[2 + 2 * e] = s;
+    }
+  }
+}
+
 template <typename T>
 struct DelayArgs {
   T* a;
@@ -487,52 +693,85 @@ struct DelayArgs {
   int r0;          // global row of the block's first step
   int k0, nb;      // the block's columns [k0, k0 + nb)
   const int* moved;
+  int tc, S;       // panel_swap_solve_kernel: columns per CTA, steps of L per chunk
 };
 
-// The delayed pass, part 1: one CTA per 32 columns of [0, w).  Applies the
+// The swap / solve kernel's staging (solve_plan): tc of a CTA's kTile lanes
+// take a column each; the moved rows' old values ([2 nb][tc], read before
+// any is written) and then, in the same shared memory, the block's U rows
+// ([nb][tc]) with S of its steps' multipliers at a time ([nb][S]).  Up to
+// nb = 64 that is tc = kTile and S = nb, one chunk; wider blocks take
+// fewer columns per CTA and more chunks.
+constexpr int kSolveChunk = 64;
+
+struct SolvePlan {
+  int tc, S;
+  size_t smem;
+};
+
+template <typename T>
+inline SolvePlan solve_plan(int nb) {
+  for (int tc = kTile; tc >= 1; tc >>= 1) {
+    for (int S = nb < kSolveChunk ? nb : kSolveChunk; S >= 1; S >>= 1) {
+      const size_t moves = static_cast<size_t>(2) * nb * tc;
+      const size_t solve = static_cast<size_t>(nb) * tc + static_cast<size_t>(nb) * S;
+      const size_t smem = (moves > solve ? moves : solve) * sizeof(T);
+      if (smem <= kSmemMax) return SolvePlan{tc, S, smem};
+    }
+  }
+  return SolvePlan{0, 0, 0};
+}
+
+// The delayed pass, part 1: one CTA per tc columns of [0, w).  Applies the
 // block's row moves to its columns outside the slab (every old value is
 // read before any is written), then solves the block's U rows in its
-// columns >= k0 + nb: row t takes steps 0 .. t-1 in order.
+// columns >= k0 + nb: row t takes steps 0 .. t-1 in order (the steps'
+// multipliers staged S at a time, in step order).
 template <typename T>
 __global__ void __launch_bounds__(kDelayThreads)
 panel_swap_solve_kernel(DelayArgs<T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nb = p.nb, k1 = p.k0 + nb;
-  T* buf = reinterpret_cast<T*>(smem_raw);  // [2 nb][kTile] the moved rows' old values
-  T* U = buf + 2 * nb * kTile;               // [nb][kTile]
-  T* Lb = U + nb * kTile;                    // [nb][nb] the block's multipliers
+  const int nb = p.nb, k1 = p.k0 + nb, tc = p.tc, S = p.S;
+  T* buf = reinterpret_cast<T*>(smem_raw);  // [moves][tc] the moved rows' old values
+  T* U = buf;                                // [nb][tc] once the moves are done
+  T* Lc = U + static_cast<size_t>(nb) * tc;  // [nb][S] multipliers of S steps
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * kTile + lane;
-  const bool outside = c < p.w && (c < p.k0 || c >= k1);
+  const bool on = lane < tc;
+  const int c = blockIdx.x * tc + lane;
+  const bool outside = on && c < p.w && (c < p.k0 || c >= k1);
   const size_t lda = static_cast<size_t>(p.lda);
   const int moves = p.moved[0];
   for (int e = warp; e < moves; e += kDelayWarps) {
-    if (outside) buf[e * kTile + lane] = p.a[p.moved[2 + 2 * e] * lda + c];
+    if (outside) buf[e * tc + lane] = p.a[p.moved[2 + 2 * e] * lda + c];
   }
   __syncthreads();
   for (int e = warp; e < moves; e += kDelayWarps) {
-    if (outside) p.a[p.moved[1 + 2 * e] * lda + c] = buf[e * kTile + lane];
+    if (outside) p.a[p.moved[1 + 2 * e] * lda + c] = buf[e * tc + lane];
   }
-  if ((blockIdx.x + 1) * kTile <= k1 || nb < 2) return;  // no U columns here
-  __syncthreads();
-  const bool right = c < p.w && c >= k1;
+  if ((blockIdx.x + 1) * tc <= k1 || nb < 2) return;  // no U columns here
+  __syncthreads();  // U takes the moves' buffer
+  const bool right = on && c < p.w && c >= k1;
   for (int t = warp; t < nb; t += kDelayWarps) {
-    U[t * kTile + lane] = right ? p.a[(p.r0 + t) * lda + c] : T{};
+    if (on) U[t * tc + lane] = right ? p.a[(p.r0 + t) * lda + c] : T{};
   }
-  for (int e = threadIdx.x; e < nb * nb; e += kDelayThreads) {
-    const int t = e / nb, s = e % nb;
-    if (s < t) Lb[e] = p.a[(p.r0 + t) * lda + p.k0 + s];
-  }
-  __syncthreads();
-  for (int s = 0; s + 1 < nb; ++s) {
-    const T us = U[s * kTile + lane];
-    for (int t = s + 1 + warp; t < nb; t += kDelayWarps) {
-      U[t * kTile + lane] = rsub(U[t * kTile + lane], rmul(Lb[t * nb + s], us));
+  for (int s0 = 0; s0 + 1 < nb; s0 += S) {
+    const int s1 = s0 + S < nb - 1 ? s0 + S : nb - 1;  // steps [s0, s1)
+    // step s's multipliers of the rows t > s
+    for (int e = threadIdx.x; e < (nb - s0 - 1) * S; e += kDelayThreads) {
+      const int t = s0 + 1 + e / S, s = s0 + e % S;
+      if (s < s1 && s < t) Lc[t * S + (s - s0)] = p.a[(p.r0 + t) * lda + p.k0 + s];
     }
     __syncthreads();
+    for (int s = s0; s < s1; ++s) {
+      const T us = on ? U[s * tc + lane] : T{};
+      for (int t = s + 1 + warp; t < nb; t += kDelayWarps) {
+        if (on) U[t * tc + lane] = rsub(U[t * tc + lane], rmul(Lc[t * S + (s - s0)], us));
+      }
+      __syncthreads();
+    }
   }
   if (right) {
-    for (int t = 1 + warp; t < nb; t += kDelayWarps) p.a[(p.r0 + t) * lda + c] = U[t * kTile + lane];
+    for (int t = 1 + warp; t < nb; t += kDelayWarps) p.a[(p.r0 + t) * lda + c] = U[t * tc + lane];
   }
 }
 
@@ -554,60 +793,99 @@ enum UpdateForm { kStepOrder, kSumFirst, kBf16x3 };
 // kSumFirst (the micro-blocked kernels, real elements only): the order of
 // ops/unblocked.py `_delayed_update` instead, an accumulator from 0 takes
 // l[i, j] * u[j, c] for j = k0 .. k0+nb-1 in turn, each product and sum
-// rounded once, then one difference.
-template <typename T, int kForm = kStepOrder>
+// rounded once, then one difference.  Up to kUpdK steps the block's U rows
+// and the CTA's L rows are staged once (kWide false); a wider block stages
+// them kUpdK steps at a time (kWide true), x (step order) or the
+// accumulator (sum first) carrying over from one chunk to the next, so the
+// order is the same for every nb.  Two instantiations, so that the narrow
+// one keeps its registers (the chunk loop holds x and the accumulator
+// across the staging).
+constexpr int kUpdK = 64;
+
+// panel_update_kernel's staging of steps [q0, q0 + qn) of the block: its U
+// rows in the CTA's columns ([qn][kTile]) and the CTA's L rows
+// ([kUpdRows][kc]).
+template <typename T>
+__device__ __forceinline__ void update_stage(const DelayArgs<T>& p, T* U, T* Lr, int kc, int q0,
+                                             int qn, int c, bool on, int i0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t lda = static_cast<size_t>(p.lda);
+  for (int t = warp; t < qn; t += kDelayWarps) {
+    U[t * kTile + lane] = on ? p.a[(p.r0 + q0 + t) * lda + c] : T{};
+  }
+  for (int e = threadIdx.x; e < kUpdRows * qn; e += kDelayThreads) {
+    const int r = e / qn, t = e % qn;
+    Lr[r * kc + t] = i0 + r < p.m ? p.a[(i0 + r) * lda + p.k0 + q0 + t] : T{};
+  }
+}
+
+// The staged steps taken in step order by this thread's kPer rows: into x
+// (kStepOrder) or into the accumulator (kSumFirst).
+template <typename T, int kForm, int kPer>
+__device__ __forceinline__ void update_take(T (&x)[kPer], T (&acc)[kPer], const T* U,
+                                            const T* Lr, int kc, int qn) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int t = 0; t < qn; ++t) {
+    const T u = U[t * kTile + lane];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const T l = Lr[(warp + j * kDelayWarps) * kc + t];
+      if constexpr (kForm == kSumFirst) {
+        acc[j] = radd(acc[j], rmul(l, u));
+      } else {
+        x[j] = rsub(x[j], rmul(l, u));
+      }
+    }
+  }
+}
+
+template <typename T, int kForm = kStepOrder, bool kWide = false>
 __global__ void __launch_bounds__(kDelayThreads)
 panel_update_kernel(DelayArgs<T> p) {
   static_assert(kForm == kStepOrder || kForm == kSumFirst, "see panel_update_bf16x3_kernel");
   constexpr int kPer = kUpdRows / kDelayWarps;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nb = p.nb, k1 = p.k0 + nb;
-  T* U = reinterpret_cast<T*>(smem_raw);  // [nb][kTile]
-  T* Lr = U + nb * kTile;                  // [kUpdRows][nb]
+  const int kc = kWide ? kUpdK : nb;       // steps staged per chunk
+  T* U = reinterpret_cast<T*>(smem_raw);  // [kc][kTile]
+  T* Lr = U + kc * kTile;                  // [kUpdRows][kc]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c = k1 + blockIdx.x * kTile + lane;
+  const bool on = c < p.w;
   const int i0 = p.r0 + nb + blockIdx.y * kUpdRows;
   const size_t lda = static_cast<size_t>(p.lda);
-  for (int t = warp; t < nb; t += kDelayWarps) {
-    U[t * kTile + lane] = c < p.w ? p.a[(p.r0 + t) * lda + c] : T{};
-  }
-  for (int e = threadIdx.x; e < kUpdRows * nb; e += kDelayThreads) {
-    const int r = e / nb, t = e % nb;
-    Lr[e] = i0 + r < p.m ? p.a[(i0 + r) * lda + p.k0 + t] : T{};
-  }
-  __syncthreads();
-  if (c >= p.w) return;
-  T x[kPer];
+  T x[kPer], acc[kPer];
+  if constexpr (!kWide) {  // one chunk; x read once it is staged
+    update_stage(p, U, Lr, kc, 0, nb, c, on, i0);
+    __syncthreads();
+    if (!on) return;
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int i = i0 + warp + j * kDelayWarps;
-    x[j] = i < p.m ? p.a[i * lda + c] : T{};
-  }
-  if constexpr (kForm == kSumFirst) {
-    T acc[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) acc[j] = T(0);
-    for (int t = 0; t < nb; ++t) {
-      const T u = U[t * kTile + lane];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        acc[j] = radd(acc[j], rmul(Lr[(warp + j * kDelayWarps) * nb + t], u));
-      }
+    for (int j = 0; j < kPer; ++j) {
+      const int i = i0 + warp + j * kDelayWarps;
+      x[j] = i < p.m ? p.a[i * lda + c] : T{};
+      acc[j] = T{};
     }
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) x[j] = rsub(x[j], acc[j]);
+    update_take<T, kForm, kPer>(x, acc, U, Lr, kc, nb);
   } else {
-    for (int t = 0; t < nb; ++t) {
-      const T u = U[t * kTile + lane];
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        x[j] = rsub(x[j], rmul(Lr[(warp + j * kDelayWarps) * nb + t], u));
-      }
+    for (int j = 0; j < kPer; ++j) {
+      const int i = i0 + warp + j * kDelayWarps;
+      x[j] = on && i < p.m ? p.a[i * lda + c] : T{};
+      acc[j] = T{};
     }
+    for (int q0 = 0; q0 < nb; q0 += kc) {
+      const int qn = nb - q0 < kc ? nb - q0 : kc;
+      if (q0 > 0) __syncthreads();  // the last chunk is read
+      update_stage(p, U, Lr, kc, q0, qn, c, on, i0);
+      __syncthreads();
+      if (on) update_take<T, kForm, kPer>(x, acc, U, Lr, kc, qn);
+    }
+    if (!on) return;
   }
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
     const int i = i0 + warp + j * kDelayWarps;
+    if constexpr (kForm == kSumFirst) x[j] = rsub(x[j], acc[j]);
     if (i < p.m) p.a[i * lda + c] = x[j];
   }
 }
@@ -630,9 +908,10 @@ panel_update_kernel(DelayArgs<T> p) {
 // the same bits faster.  A CTA of four warps takes a 64 x 64 tile of C, a
 // warp 32 x 32 of it (two 16-row by four 8-column fragments).  It stages the split halves of its L
 // rows (row-major, k contiguous) and U columns (column-major, k contiguous)
-// in shared memory, K = nb zero-padded to a multiple of 16; a staged row of
-// kTcLd = 72 bf16 (36 words) puts the eight rows of a fragment load on
-// distinct banks.
+// in shared memory, kTcKMax steps of K at a time (the last chunk's steps
+// zero-padded to a multiple of 16; both accumulators carry over from one
+// chunk to the next); a staged row of kTcLd = 72 bf16 (36 words) puts the
+// eight rows of a fragment load on distinct banks.
 constexpr int kTcTile = 64, kTcThreads = 128, kTcKMax = 64, kTcLd = kTcKMax + 8;
 
 struct Bf16x3Args {
@@ -670,20 +949,6 @@ panel_update_bf16x3_kernel(Bf16x3Args p) {
   __shared__ __align__(16) __nv_bfloat16 uh[kTcTile * kTcLd], ul[kTcTile * kTcLd];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r0 = blockIdx.y * kTcTile, c0 = blockIdx.x * kTcTile;
-  const int nb = p.nb, kp = (nb + 15) & ~15;
-  for (int e = tid; e < kTcTile * kp; e += kTcThreads) {
-    const int r = e / kp, k = e % kp;
-    const float x =
-        r0 + r < p.rows && k < nb ? p.l[static_cast<size_t>(r0 + r) * p.ldl + k] : 0.0f;
-    split_bf16(x, &lh[r * kTcLd + k], &ll[r * kTcLd + k]);
-  }
-  for (int e = tid; e < kp * kTcTile; e += kTcThreads) {
-    const int k = e / kTcTile, c = e % kTcTile;
-    const float x =
-        k < nb && c0 + c < p.cols ? p.u[static_cast<size_t>(k) * p.ldu + c0 + c] : 0.0f;
-    split_bf16(x, &uh[c * kTcLd + k], &ul[c * kTcLd + k]);
-  }
-  __syncthreads();
   // the fragment layout of mma.m16n8k16 (PTX ISA): lane = 4 g + t
   const int g = lane >> 2, t = lane & 3;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
@@ -694,37 +959,54 @@ panel_update_bf16x3_kernel(Bf16x3Args p) {
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int q = 0; q < 4; ++q) hi[i][j][q] = lo[i][j][q] = 0.0f;
-  for (int k0 = 0; k0 < kp; k0 += 16) {
-    const int ka = k0 + 2 * t, kb = ka + 8;
-    unsigned ah[2][4], al[2][4], bh[4][2], bl[4][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = wm + 16 * i + g;
-      ah[i][0] = pair_at(lh, r, ka);
-      ah[i][1] = pair_at(lh, r + 8, ka);
-      ah[i][2] = pair_at(lh, r, kb);
-      ah[i][3] = pair_at(lh, r + 8, kb);
-      al[i][0] = pair_at(ll, r, ka);
-      al[i][1] = pair_at(ll, r + 8, ka);
-      al[i][2] = pair_at(ll, r, kb);
-      al[i][3] = pair_at(ll, r + 8, kb);
+  for (int kc0 = 0; kc0 < p.nb; kc0 += kTcKMax) {
+    const int nb = p.nb - kc0 < kTcKMax ? p.nb - kc0 : kTcKMax, kp = (nb + 15) & ~15;
+    if (kc0 > 0) __syncthreads();  // every warp has read the last chunk
+    for (int e = tid; e < kTcTile * kp; e += kTcThreads) {
+      const int r = e / kp, k = e % kp;
+      const float x =
+          r0 + r < p.rows && k < nb ? p.l[static_cast<size_t>(r0 + r) * p.ldl + kc0 + k] : 0.0f;
+      split_bf16(x, &lh[r * kTcLd + k], &ll[r * kTcLd + k]);
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = wn + 8 * j + g;
-      bh[j][0] = pair_at(uh, c, ka);
-      bh[j][1] = pair_at(uh, c, kb);
-      bl[j][0] = pair_at(ul, c, ka);
-      bl[j][1] = pair_at(ul, c, kb);
+    for (int e = tid; e < kp * kTcTile; e += kTcThreads) {
+      const int k = e / kTcTile, c = e % kTcTile;
+      const float x = k < nb && c0 + c < p.cols
+                          ? p.u[static_cast<size_t>(kc0 + k) * p.ldu + c0 + c] : 0.0f;
+      split_bf16(x, &uh[c * kTcLd + k], &ul[c * kTcLd + k]);
     }
+    __syncthreads();
+    for (int k0 = 0; k0 < kp; k0 += 16) {
+      const int ka = k0 + 2 * t, kb = ka + 8;
+      unsigned ah[2][4], al[2][4], bh[4][2], bl[4][2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < 2; ++i) {
+        const int r = wm + 16 * i + g;
+        ah[i][0] = pair_at(lh, r, ka);
+        ah[i][1] = pair_at(lh, r + 8, ka);
+        ah[i][2] = pair_at(lh, r, kb);
+        ah[i][3] = pair_at(lh, r + 8, kb);
+        al[i][0] = pair_at(ll, r, ka);
+        al[i][1] = pair_at(ll, r + 8, ka);
+        al[i][2] = pair_at(ll, r, kb);
+        al[i][3] = pair_at(ll, r + 8, kb);
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        mma_bf16(hi[i][j], ah[i], bh[j]);
-        mma_bf16(lo[i][j], ah[i], bl[j]);
-        mma_bf16(lo[i][j], al[i], bh[j]);
+        const int c = wn + 8 * j + g;
+        bh[j][0] = pair_at(uh, c, ka);
+        bh[j][1] = pair_at(uh, c, kb);
+        bl[j][0] = pair_at(ul, c, ka);
+        bl[j][1] = pair_at(ul, c, kb);
       }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma_bf16(hi[i][j], ah[i], bh[j]);
+          mma_bf16(lo[i][j], ah[i], bl[j]);
+          mma_bf16(lo[i][j], al[i], bh[j]);
+        }
+    }
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -748,8 +1030,10 @@ panel_update_bf16x3_kernel(Bf16x3Args p) {
 // kernel, the route the panel takes; the kernel above stays as the simple
 // route, forced only).  It runs the same products in the same order: per
 // element K in chunks of 16 ascending on mma.sync m16n8k16 with the same
-// fragments, hh into one accumulator, hl then lh into a second, then one sum
-// and one difference.  So the two kernels agree bit for bit at every shape.
+// fragments (staged KP <= 64 steps at a time, past 64 in chunks of 64 as the
+// simple kernel stages them), hh into one accumulator, hl then lh into a
+// second, then one sum and one difference.  So the two kernels agree bit for
+// bit at every shape.
 //
 // What bounds the update is bytes: C read and written once is ~12x the
 // three products' time at the bf16 tensor-core peak (1504 x 480 x 32: 5.8 MB,
@@ -829,9 +1113,12 @@ __device__ __forceinline__ void tc_split4(const float4& x, __nv_bfloat16* hi, __
   *reinterpret_cast<uint2*>(lo) = l.u;
 }
 
+// The tiled kernel's staging of steps [kc0, kc0 + nb) (nb <= KP): the
+// tile's L rows and U columns, split into bf16 halves (steps past nb zero).
 template <int TM, int TN, int KP>
-__global__ void __launch_bounds__(TcTile<TM, TN, KP>::kThreads)
-panel_update_bf16x3_tiled_kernel(Bf16x3Args p, int vec) {
+__device__ __forceinline__ void tc_stage(const Bf16x3Args& p, int vec, int kc0, int nb, int r0,
+                                         int c0, __nv_bfloat16* lh, __nv_bfloat16* ll,
+                                         __nv_bfloat16* uh, __nv_bfloat16* ul) {
   using S = TcTile<TM, TN, KP>;
   constexpr int kThreads = S::kThreads;
   constexpr int CV = TN / 4;                   // 4-float vectors per C or U row
@@ -840,6 +1127,84 @@ panel_update_bf16x3_tiled_kernel(Bf16x3Args p, int vec) {
   constexpr int NU = (KP * CV + kThreads - 1) / kThreads;  // U vectors per thread, at most
   constexpr int kBatch = NU < 8 ? NU : 8;      // U vectors loaded before a split
   static_assert(NL * kThreads == TM * LV && TN % 16 == 0, "tile shapes");
+  const int tid = threadIdx.x, rows = p.rows, cols = p.cols;
+  const float* lsrc = p.l + kc0;
+  const float* usrc = p.u + static_cast<size_t>(kc0) * p.ldu;
+  float4 xl[NL];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const int v = tid + i * kThreads, r = v / LV;
+    xl[i] = tc_load4(r0 + r < rows ? lsrc + static_cast<size_t>(r0 + r) * p.ldl : nullptr,
+                     (v % LV) * 4, nb, vec);
+  }
+#pragma unroll
+  for (int i0 = 0; i0 < NU; i0 += kBatch) {
+    float4 xu[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch && i0 + i < NU; ++i) {
+      const int v = tid + (i0 + i) * kThreads, k = v / CV;
+      xu[i] = tc_load4(k < nb && v < KP * CV ? usrc + static_cast<size_t>(k) * p.ldu + c0 : nullptr,
+                       (v % CV) * 4, cols - c0, vec);
+    }
+    if (i0 == 0) {
+#pragma unroll
+      for (int i = 0; i < NL; ++i) {
+        const int v = tid + i * kThreads, e = (v / LV) * S::kLld + (v % LV) * 4;
+        tc_split4(xl[i], lh + e, ll + e);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch && i0 + i < NU; ++i) {
+      const int v = tid + (i0 + i) * kThreads, e = (v / CV) * S::kUld + (v % CV) * 4;
+      if (v < KP * CV) tc_split4(xu[i], uh + e, ul + e);
+    }
+  }
+}
+
+// The staged steps' products into the warp's accumulators, the first kp
+// steps (a multiple of 16) in chunks of 16 ascending (the fragment layout
+// of mma.m16n8k16: lane = 4 g + t).  A: lanes 0-15 address rows 0-15 at k,
+// lanes 16-31 the same rows at k + 8; B (.trans): lanes 0-15 address k rows
+// 0-15 at column n, 16-31 at n + 8.
+template <int TM, int TN, int KP>
+__device__ __forceinline__ void tc_products(float (&hi)[TN / 8][4], float (&lo)[TN / 8][4],
+                                            const __nv_bfloat16* lh, const __nv_bfloat16* ll,
+                                            const __nv_bfloat16* uh, const __nv_bfloat16* ul,
+                                            int kp) {
+  using S = TcTile<TM, TN, KP>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ao = (warp * 16 + (lane & 15)) * S::kLld + (lane >> 4) * 8;
+  const int bo = (lane & 15) * S::kUld + (lane >> 4) * 8;
+#pragma unroll
+  for (int k0 = 0; k0 < KP; k0 += 16) {
+    if (k0 >= kp) break;
+    unsigned ah[4], al[4];
+    ldsm_x4(ah, lh + ao + k0);
+    ldsm_x4(al, ll + ao + k0);
+#pragma unroll
+    for (int j = 0; j < TN / 8; j += 2) {
+      unsigned bh[4], bl[4];
+      ldsm_x4_trans(bh, uh + bo + k0 * S::kUld + 8 * j);
+      ldsm_x4_trans(bl, ul + bo + k0 * S::kUld + 8 * j);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mma_bf16(hi[j + h], ah, bh + 2 * h);
+        mma_bf16(lo[j + h], ah, bl + 2 * h);
+        mma_bf16(lo[j + h], al, bh + 2 * h);
+      }
+    }
+  }
+}
+
+// kWide false: K = nb <= KP staged once; kWide true (KP = 64): K in chunks
+// of KP, both accumulators carrying over.  Two instantiations, so that the
+// narrow one keeps its registers (a chunk loop holds the accumulators
+// across the staging).
+template <int TM, int TN, int KP, bool kWide = false>
+__global__ void __launch_bounds__(TcTile<TM, TN, KP>::kThreads)
+panel_update_bf16x3_tiled_kernel(Bf16x3Args p, int vec) {
+  using S = TcTile<TM, TN, KP>;
+  constexpr int CV = TN / 4;  // 4-float vectors per C row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* cs = reinterpret_cast<float*>(smem_raw);
   __nv_bfloat16* lh = reinterpret_cast<__nv_bfloat16*>(smem_raw + S::kCBytes);
@@ -848,7 +1213,7 @@ panel_update_bf16x3_tiled_kernel(Bf16x3Args p, int vec) {
   __nv_bfloat16* ul = uh + KP * S::kUld;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r0 = blockIdx.x * TM, c0 = blockIdx.y * TN;
-  const int rows = p.rows, cols = p.cols, nb = p.nb;
+  const int rows = p.rows, cols = p.cols;
 
   // ---- this warp's 16 C rows into shared memory, in flight from here on ---
 #pragma unroll
@@ -866,64 +1231,28 @@ panel_update_bf16x3_tiled_kernel(Bf16x3Args p, int vec) {
     }
   }
 
-  // ---- L's rows and U's columns of the tile, split into bf16 halves -------
-  float4 xl[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    const int v = tid + i * kThreads, r = v / LV;
-    xl[i] = tc_load4(r0 + r < rows ? p.l + static_cast<size_t>(r0 + r) * p.ldl : nullptr,
-                     (v % LV) * 4, nb, vec);
-  }
-#pragma unroll
-  for (int i0 = 0; i0 < NU; i0 += kBatch) {
-    float4 xu[kBatch];
-#pragma unroll
-    for (int i = 0; i < kBatch && i0 + i < NU; ++i) {
-      const int v = tid + (i0 + i) * kThreads, k = v / CV;
-      xu[i] = tc_load4(k < nb && v < KP * CV ? p.u + static_cast<size_t>(k) * p.ldu + c0 : nullptr,
-                       (v % CV) * 4, cols - c0, vec);
-    }
-    if (i0 == 0) {
-#pragma unroll
-      for (int i = 0; i < NL; ++i) {
-        const int v = tid + i * kThreads, e = (v / LV) * S::kLld + (v % LV) * 4;
-        tc_split4(xl[i], lh + e, ll + e);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kBatch && i0 + i < NU; ++i) {
-      const int v = tid + (i0 + i) * kThreads, e = (v / CV) * S::kUld + (v % CV) * 4;
-      if (v < KP * CV) tc_split4(xu[i], uh + e, ul + e);
-    }
-  }
-  __syncthreads();
-
-  // ---- the products (the fragment layout of mma.m16n8k16: lane = 4 g + t) -
+  // ---- L's rows and U's columns of the tile, split into bf16 halves, then
+  // the products ------------------------------------------------------------
   float hi[TN / 8][4], lo[TN / 8][4];
+  if constexpr (!kWide) {
+    tc_stage<TM, TN, KP>(p, vec, 0, p.nb, r0, c0, lh, ll, uh, ul);
+    __syncthreads();
 #pragma unroll
-  for (int j = 0; j < TN / 8; ++j)
+    for (int j = 0; j < TN / 8; ++j)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) hi[j][q] = lo[j][q] = 0.0f;
-  // A: lanes 0-15 address rows 0-15 at k, lanes 16-31 the same rows at k + 8;
-  // B (.trans): lanes 0-15 address k rows 0-15 at column n, 16-31 at n + 8
-  const int ao = (warp * 16 + (lane & 15)) * S::kLld + (lane >> 4) * 8;
-  const int bo = (lane & 15) * S::kUld + (lane >> 4) * 8;
+      for (int q = 0; q < 4; ++q) hi[j][q] = lo[j][q] = 0.0f;
+    tc_products<TM, TN, KP>(hi, lo, lh, ll, uh, ul, KP);
+  } else {
 #pragma unroll
-  for (int k0 = 0; k0 < KP; k0 += 16) {
-    unsigned ah[4], al[4];
-    ldsm_x4(ah, lh + ao + k0);
-    ldsm_x4(al, ll + ao + k0);
+    for (int j = 0; j < TN / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < TN / 8; j += 2) {
-      unsigned bh[4], bl[4];
-      ldsm_x4_trans(bh, uh + bo + k0 * S::kUld + 8 * j);
-      ldsm_x4_trans(bl, ul + bo + k0 * S::kUld + 8 * j);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mma_bf16(hi[j + h], ah, bh + 2 * h);
-        mma_bf16(lo[j + h], ah, bl + 2 * h);
-        mma_bf16(lo[j + h], al, bh + 2 * h);
-      }
+      for (int q = 0; q < 4; ++q) hi[j][q] = lo[j][q] = 0.0f;
+    for (int kc0 = 0; kc0 < p.nb; kc0 += KP) {
+      const int nb = p.nb - kc0 < KP ? p.nb - kc0 : KP;  // the chunk's steps
+      if (kc0 > 0) __syncthreads();  // every warp has read the last chunk
+      tc_stage<TM, TN, KP>(p, vec, kc0, nb, r0, c0, lh, ll, uh, ul);
+      __syncthreads();
+      tc_products<TM, TN, KP>(hi, lo, lh, ll, uh, ul, (nb + 15) & ~15);
     }
   }
 
@@ -960,7 +1289,8 @@ panel_update_bf16x3_tiled_kernel(Bf16x3Args p, int vec) {
 
 // The tiled kernel's plan: TN = 16 for at most 32 columns (a panel's last
 // boundary), else 32; TM = 128 past 2048 rows, else 64; KP = nb rounded up
-// to 16.  Grid: x row tiles, y column tiles.  Chosen by measurement on an
+// to 16, at most 64 (wider blocks go through K in chunks of 64).  Grid: x
+// row tiles, y column tiles.  Chosen by measurement on an
 // H100 (PERF.md, row 1b): a CTA's time is the latency of its staging, which
 // a taller tile shares among more warps, so fewer and taller CTAs beat a
 // grid sized to fill the SMs.  Only these tiles are built.
@@ -970,7 +1300,7 @@ struct TcPlan {
 
 inline TcPlan tile_plan(int rows, int cols, int nb) {
   TcPlan q;
-  q.kp = (nb + 15) & ~15;
+  q.kp = nb < kTcKMax ? (nb + 15) & ~15 : kTcKMax;
   q.tn = cols <= 32 ? 16 : 32;
   q.tm = rows > 2048 ? 128 : 64;
   q.gx = (rows + q.tm - 1) / q.tm;
@@ -978,7 +1308,7 @@ inline TcPlan tile_plan(int rows, int cols, int nb) {
   return q;
 }
 
-template <int TM, int TN, int KP>
+template <int TM, int TN, int KP, bool kWide = false>
 int launch_tiled(const Bf16x3Args& a, const TcPlan& q, int vec, cudaStream_t stream) {
   using S = TcTile<TM, TN, KP>;
   if constexpr (S::kSmem > 48 * 1024) {  // past the default: opt in once per device
@@ -987,13 +1317,14 @@ int launch_tiled(const Bf16x3Args& a, const TcPlan& q, int vec, cudaStream_t str
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess && (dev < 0 || dev >= kMaxDevices)) e = cudaErrorInvalidDevice;
     if (e == cudaSuccess && !opted[dev]) {
-      e = opt_in_smem(reinterpret_cast<const void*>(panel_update_bf16x3_tiled_kernel<TM, TN, KP>),
-                      S::kSmem);
+      e = opt_in_smem(
+          reinterpret_cast<const void*>(panel_update_bf16x3_tiled_kernel<TM, TN, KP, kWide>),
+          S::kSmem);
       opted[dev] = e == cudaSuccess;
     }
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  panel_update_bf16x3_tiled_kernel<TM, TN, KP>
+  panel_update_bf16x3_tiled_kernel<TM, TN, KP, kWide>
       <<<dim3(q.gx, q.gy), S::kThreads, S::kSmem, stream>>>(a, vec);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1004,7 +1335,9 @@ int launch_tiled_kp(const Bf16x3Args& a, const TcPlan& q, int vec, cudaStream_t 
     case 16: return launch_tiled<TM, TN, 16>(a, q, vec, stream);
     case 32: return launch_tiled<TM, TN, 32>(a, q, vec, stream);
     case 48: return launch_tiled<TM, TN, 48>(a, q, vec, stream);
-    default: return launch_tiled<TM, TN, 64>(a, q, vec, stream);
+    default:
+      return a.nb > 64 ? launch_tiled<TM, TN, 64, true>(a, q, vec, stream)
+                       : launch_tiled<TM, TN, 64>(a, q, vec, stream);
   }
 }
 
@@ -1018,12 +1351,11 @@ int launch_tiled_tm(const Bf16x3Args& a, const TcPlan& q, int vec, cudaStream_t 
 // (panel_update_bf16x3_kernel, forced only).
 constexpr int kUpdTiled = 0, kUpdSimple = 1;
 
-// Launch the bf16x3 update of `a` (1 <= nb <= kTcKMax) on `stream` on
-// `route`.  T = float; a template so that only the sources that launch it
-// build it.
+// Launch the bf16x3 update of `a` (nb >= 1) on `stream` on `route`.  T =
+// float; a template so that only the sources that launch it build it.
 template <typename T>
 int launch_update_bf16x3(const Bf16x3Args& a, cudaStream_t stream, int route = kUpdTiled) {
-  if (a.nb < 1 || a.nb > kTcKMax || a.rows < 0 || a.cols < 0)
+  if (a.nb < 1 || a.rows < 0 || a.cols < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.rows == 0 || a.cols == 0) return 0;
   if (route == kUpdSimple) {
@@ -1136,11 +1468,17 @@ struct Plan {
   int route;      // kRouteCluster or kRouteGrid
   int b;          // steps per block (cluster route)
   int B;          // the chain kernel's slab width: b, or a power of two >= w
-  int C;          // CTAs of the cluster
+  int C;          // CTAs of the cluster (0: no block's chain runs on one)
   int one_block;  // b >= w: the whole live panel in one slab, no delayed pass
   int blocks;
   int grid;       // blocks of the grid route
   size_t ws_reals, iws_ints;
+  // the blocked forms: the leading blocks whose chain runs on the grid
+  // (panel_grid_chain_kernel, on gchain CTAs), and where that chain's
+  // workspace starts in iws (int32s)
+  int grid_blocks;
+  int gchain;
+  size_t gws;
 };
 
 inline int width_at_least(int w) {
@@ -1179,11 +1517,16 @@ template <> struct Auto<double2> {
 
 // The plan of a panel with M live rows and w columns.  b_req / C_req: 0
 // picks; b_req < 0 forces the grid route; b_req >= w asks for one block.
-// With any_b (the micro-blocked kernels) b_req > 0 is the block's step
-// count whatever it is (1 .. 64; the slab takes the width at or above it)
-// and C_req 0 picks the cluster for it.  K: the chain kernel family.
+// With any_b (the blocked forms: the micro-blocked kernels and the bf16x3
+// form) b_req > 0 is the block's step count whatever it is (the slab takes
+// the width at or above it) and C_req 0 picks the cluster for it; the
+// leading blocks whose live rows do not fit a cluster of kMaxCluster at
+// that width (every block where the width passes 512, or with grid_chain)
+// run their chain on the grid (pl->grid_blocks; grid_chain_plan sizes
+// it).  K: the chain kernel family.
 template <typename T, typename K = SwapChain<T>>
-int plan_for(int M, int w, int b_req, int C_req, int device, Plan* pl, bool any_b = false) {
+int plan_for(int M, int w, int b_req, int C_req, int device, Plan* pl, bool any_b = false,
+             bool grid_chain = false) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int steps = M < w ? M : w;
@@ -1202,6 +1545,7 @@ int plan_for(int M, int w, int b_req, int C_req, int device, Plan* pl, bool any_
     pl->blocks = (steps + b - 1) / b;
     pl->ws_reals = 1;
     pl->iws_ints = static_cast<size_t>(pl->blocks) * (1 + 4 * B);
+    if (grid_chain) pl->grid_blocks = pl->blocks;
   };
   // the auto rule's cluster size (Auto<T>): one CTA up to one_cta_rows, else
   // the smallest power of two with at most rows_per_cta rows per CTA
@@ -1212,26 +1556,44 @@ int plan_for(int M, int w, int b_req, int C_req, int device, Plan* pl, bool any_
   if (b_req > 0 && (C_req > 0 || any_b)) {  // explicit b
     const bool one = b_req >= w;
     const int B = one ? width_at_least(w) : any_b ? width_at_least(b_req) : b_req;
-    if ((!one && !any_b && B != 8 && B != 16 && B != 32 && B != 64) || B > 512 ||
-        (!one && B > 64))
+    if ((!one && !any_b && B != 8 && B != 16 && B != 32 && B != 64) || (!any_b && B > 512))
       return static_cast<int>(cudaErrorInvalidValue);
+    const int b = one ? w : b_req;
     if (C_req > 0) {
       bool ok = false;
-      const int err = fits(B, C_req, &ok);
+      const int err = B > 512 ? 0 : fits(B, C_req, &ok);
       if (err != 0) return err;
       if (!ok) return static_cast<int>(cudaErrorInvalidConfiguration);
-      take(one ? w : b_req, B, C_req);
+      take(b, B, C_req);
       return 0;
     }
-    for (int C = c0; C <= kMaxCluster; C *= 2) {
-      bool ok = false;
-      const int err = fits(B, C, &ok);
-      if (err != 0) return err;
-      if (ok) { take(one ? w : b_req, B, C); return 0; }
+    if (B <= 512) {
+      for (int C = c0; C <= kMaxCluster; C *= 2) {
+        bool ok = false;
+        const int err = fits(B, C, &ok);
+        if (err != 0) return err;
+        if (ok) { take(b, B, C); return 0; }
+      }
     }
-    return kPlanGrid;
+    if (!any_b) return kPlanGrid;
+    // the leading blocks on the grid chain, the rest on a cluster of
+    // kMaxCluster (their live rows shrink by b per block)
+    int C = 0;
+    if (B <= 512) {
+      bool ok = false;
+      const int err = cluster_ok<T, K>(B, kMaxCluster, device, &ok);
+      if (err != 0) return err;
+      if (ok) C = kMaxCluster;
+    }
+    take(b, B, C);
+    if (!grid_chain) {
+      while (pl->grid_blocks < pl->blocks &&
+             (C == 0 || chain_bytes<T>(M - pl->grid_blocks * b, B, C) > kSmemMax))
+        ++pl->grid_blocks;
+    }
+    return 0;
   }
-  if (b_req != 0 || C_req != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (b_req != 0 || C_req != 0 || grid_chain) return static_cast<int>(cudaErrorInvalidValue);
   // auto: b0 by the rule; narrower blocks and larger clusters where that
   // does not fit; the grid route beyond
   const int b0 = M <= a.b32_rows ? 32 : M <= a.b16_rows ? 16 : 8;
@@ -1249,19 +1611,71 @@ int plan_for(int M, int w, int b_req, int C_req, int device, Plan* pl, bool any_
   return kPlanGrid;  // the grid route: the caller fills it in
 }
 
-// The delayed kernels take at most (3 * kTile * 64 + 64 * 64) elements of
-// shared memory (b <= 64): opt in once.  The bf16x3 update's 36 KB are
-// static.
+// The grid chain's reals in iws: where they start (the first address on 16
+// bytes at or after iws + pl.gws) and how many int32s they take.
+template <typename T>
+size_t grid_chain_real_ints(int g, int ncol) {
+  const size_t reals = 2 * static_cast<size_t>(g) + 2 * static_cast<size_t>(g) * ncol +
+                       2 * static_cast<size_t>(ncol);
+  return (reals * sizeof(T) + 3) / 4;
+}
+
+inline int* grid_chain_ws(int* iws, const Plan& pl) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(iws + pl.gws);
+  return reinterpret_cast<int*>((p + 15) & ~static_cast<uintptr_t>(15));
+}
+
+// The grid chain's CTAs and workspace for plan `pl` of a real panel with M
+// live rows (a no-op when no block runs its chain on the grid): up to one
+// CTA per SM, at least kRowsPerGridCta rows each; its workspace (the
+// candidates, the published rows and every live row's origin) goes after
+// the blocks' row moves in iws.
+constexpr int kRowsPerGridCta = 8;
+
+template <typename T>
+int grid_chain_plan(int M, int device, Plan* pl) {
+  if (pl->grid_blocks == 0) return 0;
+  const int ncol = pl->b;  // a block's columns at most (w for one block)
+  const size_t smem = static_cast<size_t>(ncol) * sizeof(T);
+  const void* fn = reinterpret_cast<const void*>(panel_grid_chain_kernel<T>);
+  cudaError_t err = opt_in_smem(fn, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, panel_grid_chain_kernel<T>,
+                                                      kGridThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  int g = sms;  // one CTA per SM at most: the barrier is the cost
+  const int by_rows = (M + kRowsPerGridCta - 1) / kRowsPerGridCta;
+  if (by_rows < g) g = by_rows;
+  if (g < 1) g = 1;
+  pl->gchain = g;
+  pl->gws = pl->iws_ints;
+  // 3 more ints to put the reals on 16 bytes (grid_chain_ws)
+  pl->iws_ints = pl->gws + 3 + grid_chain_real_ints<T>(g, ncol) + 6 * static_cast<size_t>(g) +
+                 4 + M;
+  return 0;
+}
+
+
+// The delayed kernels' shared memory (solve_plan: at most kSmemMax; the
+// update: kUpdK steps of U and L): opt in once.  The bf16x3 update's 36 KB
+// are static.
 template <typename T, int kForm = kStepOrder>
 int delay_opt_in() {
   static bool done = false;
   if (done) return 0;
   cudaError_t err = opt_in_smem(reinterpret_cast<const void*>(panel_swap_solve_kernel<T>),
-                                (3 * kTile * 64 + 64 * 64) * sizeof(T));
+                                kSmemMax);
   if constexpr (kForm != kBf16x3) {
     if (err == cudaSuccess)
       err = opt_in_smem(reinterpret_cast<const void*>(panel_update_kernel<T, kForm>),
-                        (kTile * 64 + kUpdRows * 64) * sizeof(T));
+                        (kTile + kUpdRows) * kUpdK * sizeof(T));
+    if (err == cudaSuccess)
+      err = opt_in_smem(reinterpret_cast<const void*>(panel_update_kernel<T, kForm, true>),
+                        (kTile + kUpdRows) * kUpdK * sizeof(T));
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   done = true;
@@ -1269,17 +1683,20 @@ int delay_opt_in() {
 }
 
 // Factor the panel on the cluster route of plan `pl` (route kRouteCluster):
-// per block of pl.b steps the chain kernel, then, unless one block takes the
+// per block of pl.b steps the chain kernel (on the cluster, or for the
+// plan's leading grid_blocks on the grid), then, unless one block takes the
 // panel, the two delayed kernels, in turn on `stream` without a host
-// synchronisation.  `iws` holds pl.iws_ints int32s (the blocks' row moves).
-// kForm: the form of the trailing update (UpdateForm).  `updates`, where
-// given, receives the number of update launches.  `route`: the bf16x3
-// form's update kernel (kUpdTiled, or kUpdSimple where forced).
+// synchronisation.  `iws` holds pl.iws_ints int32s (the blocks' row moves,
+// then the grid chain's workspace).  kForm: the form of the trailing update
+// (UpdateForm).  `updates` and `grids`, where given, receive the number of
+// update launches and of grid-chain launches.  `route`: the bf16x3 form's
+// update kernel (kUpdTiled, or kUpdSimple where forced).
 template <typename T, int kForm = kStepOrder>
 int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl, void* piv,
                 void* perm, void* info, void* iws, cudaStream_t stream,
-                int* updates = nullptr, int route = kUpdTiled) {
+                int* updates = nullptr, int route = kUpdTiled, int* grids = nullptr) {
   if (updates != nullptr) *updates = 0;
+  if (grids != nullptr) *grids = 0;
   int err = delay_opt_in<T, kForm>();
   if (err != 0) return err;
   int* moved = static_cast<int*>(iws);
@@ -1288,28 +1705,69 @@ int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl,
   const int steps = m - ofs < w ? m - ofs : w;
   for (int k0 = 0, blk = 0; k0 < steps; k0 += pl.b, ++blk) {
     const int nb = steps - k0 < pl.b ? steps - k0 : pl.b;
-    ChainArgs<T> c;
-    c.a = A;
-    c.m = m;
-    c.lda = lda;
-    c.ofs = ofs;
-    c.pivot = pivot;
-    c.k0 = k0;
-    c.nb = nb;
-    c.ncol = pl.one_block ? w : nb;
-    c.rows = (m - ofs - k0 + pl.C - 1) / pl.C;
-    c.piv = static_cast<int*>(piv);
-    c.perm = static_cast<int*>(perm);
-    c.info = static_cast<int*>(info);
-    c.moved = moved + static_cast<size_t>(blk) * (1 + 4 * pl.B);
-    c.trace = g_trace;
-    c.steps = steps;
-    c.blk = blk;
-    cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg =
-        chain_config(pl.C, chain_smem<T>(c.rows, pl.C, pl.B).total, stream, attr);
-    e = cudaLaunchKernelEx(&cfg, chain_kernel_for<T>(pl.B), c);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    const int ncol = pl.one_block ? w : nb;
+    int* bmoved = moved + static_cast<size_t>(blk) * (1 + 4 * pl.B);
+    if (blk < pl.grid_blocks) {
+      if constexpr (kForm == kStepOrder) {
+        return static_cast<int>(cudaErrorInvalidValue);  // the float32 forms have no grid chain
+      } else {
+        const int g = pl.gchain;
+        GridChainArgs<T> c;
+        c.a = A;
+        c.m = m;
+        c.lda = lda;
+        c.ofs = ofs;
+        c.pivot = pivot;
+        c.k0 = k0;
+        c.nb = nb;
+        c.ncol = ncol;
+        c.rows = (m - ofs - k0 + g - 1) / g;
+        c.piv = static_cast<int*>(piv);
+        c.perm = static_cast<int*>(perm);
+        c.info = static_cast<int*>(info);
+        c.moved = bmoved;
+        int* ws = grid_chain_ws(moved, pl);
+        T* f = reinterpret_cast<T*>(ws);
+        c.cval = f;
+        c.crow = f + 2 * static_cast<size_t>(g);
+        c.krow = c.crow + 2 * static_cast<size_t>(g) * ncol;
+        int* gi = ws + grid_chain_real_ints<T>(g, pl.b);
+        c.cidx = gi;
+        c.cpid = gi + 2 * g;
+        c.csrc = gi + 4 * g;
+        c.kinf = gi + 6 * g;
+        c.src = gi + 6 * g + 4;
+        void* args[] = {&c};
+        e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(panel_grid_chain_kernel<T>),
+                                        dim3(g), dim3(kGridThreads), args,
+                                        static_cast<size_t>(ncol) * sizeof(T), stream);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        if (grids != nullptr) ++*grids;
+      }
+    } else {
+      ChainArgs<T> c;
+      c.a = A;
+      c.m = m;
+      c.lda = lda;
+      c.ofs = ofs;
+      c.pivot = pivot;
+      c.k0 = k0;
+      c.nb = nb;
+      c.ncol = ncol;
+      c.rows = (m - ofs - k0 + pl.C - 1) / pl.C;
+      c.piv = static_cast<int*>(piv);
+      c.perm = static_cast<int*>(perm);
+      c.info = static_cast<int*>(info);
+      c.moved = bmoved;
+      c.trace = g_trace;
+      c.steps = steps;
+      c.blk = blk;
+      cudaLaunchAttribute attr[1];
+      const cudaLaunchConfig_t cfg =
+          chain_config(pl.C, chain_smem<T>(c.rows, pl.C, pl.B).total, stream, attr);
+      e = cudaLaunchKernelEx(&cfg, chain_kernel_for<T>(pl.B), c);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
     if (pl.one_block) continue;
     DelayArgs<T> d;
     d.a = A;
@@ -1319,10 +1777,13 @@ int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl,
     d.r0 = ofs + k0;
     d.k0 = k0;
     d.nb = nb;
-    d.moved = c.moved;
+    d.moved = bmoved;
     if (w > nb) {
-      panel_swap_solve_kernel<T><<<(w + kTile - 1) / kTile, kDelayThreads,
-                                   (3 * kTile * nb + nb * nb) * sizeof(T), stream>>>(d);
+      const SolvePlan sp = solve_plan<T>(nb);
+      if (sp.tc == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+      d.tc = sp.tc;
+      d.S = sp.S;
+      panel_swap_solve_kernel<T><<<(w + sp.tc - 1) / sp.tc, kDelayThreads, sp.smem, stream>>>(d);
       e = cudaGetLastError();
       if (e != cudaSuccess) return static_cast<int>(e);
     }
@@ -1340,9 +1801,14 @@ int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl,
         err = launch_update_bf16x3<T>(u, stream, route);
         if (err != 0) return err;
       } else {
+        const int kc = nb < kUpdK ? nb : kUpdK;
         const dim3 grid((cols + kTile - 1) / kTile, (rows + kUpdRows - 1) / kUpdRows);
-        panel_update_kernel<T, kForm><<<grid, kDelayThreads,
-                                        (kTile * nb + kUpdRows * nb) * sizeof(T), stream>>>(d);
+        const size_t smem = (kTile * kc + kUpdRows * kc) * sizeof(T);
+        if (nb > kUpdK) {
+          panel_update_kernel<T, kForm, true><<<grid, kDelayThreads, smem, stream>>>(d);
+        } else {
+          panel_update_kernel<T, kForm><<<grid, kDelayThreads, smem, stream>>>(d);
+        }
         e = cudaGetLastError();
         if (e != cudaSuccess) return static_cast<int>(e);
       }

@@ -377,18 +377,20 @@ int plan_entry(int m, int w, int elem_size, int ofs, int b, int C, int device, i
 // ---- panel_boundary_precision='bf16x3' -----------------------------------
 //
 // The main-path kernel in blocks of exactly b steps (the configuration's
-// panel_micro, any b from 1 to 64; the slab takes the width at or above
-// it), each block's trailing update in the bf16x3 form on the tensor cores
+// panel_micro, any b >= 1; the slab takes the width at or above it), each
+// block's trailing update in the bf16x3 form on the tensor cores
 // (panel_update_bf16x3_tiled_kernel, csrc/panel_cluster.cuh); the chain
 // and the swap / solve pass are the float32 form's.  Plain version:
-// ops/unblocked.py `micro_blocked_lu(..., 'bf16x3')`.  Only the cluster
-// route has block boundaries: a panel too tall for a cluster at width b is
-// refused (cudaErrorNotSupported), never factored without the split.
-int bf16x3_plan(int m, int w, int b, int C, int device, Plan* pl) {
-  if (m < 1 || w < 1 || b < 1 || b > kTcKMax || C < 0)
+// ops/unblocked.py `micro_blocked_lu(..., 'bf16x3')`.  A block whose live
+// rows do not fit a cluster at width b (or whose b passes 512) runs its
+// chain on the grid (panel_grid_chain_kernel), with the same bits and the
+// same delayed pass, so every panel keeps its block boundaries; `chain` = 1
+// puts every block's chain there.
+int bf16x3_plan(int m, int w, int b, int C, int chain, int device, Plan* pl) {
+  if (m < 1 || w < 1 || b < 1 || C < 0 || (chain != 0 && chain != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int r = plan_for<float>(m, w, b, C, device, pl, true);
-  return r == kPlanGrid ? static_cast<int>(cudaErrorNotSupported) : r;
+  const int r = plan_for<float>(m, w, b, C, device, pl, true, chain == 1);
+  return r != 0 ? r : grid_chain_plan<float>(m, device, pl);
 }
 
 // ---- barrier microbenchmark ------------------------------------------------
@@ -549,14 +551,16 @@ int rf_offset_panel_lu_f64(void* a, int m, int w, int lda, int pivot, int ofs, i
 }
 
 // The plan of the bf16x3 form on an (m, w) float32 panel with blocks of b
-// steps (1 .. 64; b >= w: one block, no boundary) and cluster size C (0:
-// the launcher's choice).  Fills out[6] as rf_panel_lu_plan does (route 1,
-// the cluster route).  Returns cudaErrorNotSupported for a panel too tall
-// for a cluster at width b, cudaErrorInvalidConfiguration when an explicit
+// steps (any b >= 1; b >= w: one block, no boundary), cluster size C (0:
+// the launcher's choice) and `chain` 1 to run every block's chain on the
+// grid (0: only the blocks too tall for a cluster).  Fills out[7] as
+// rf_panel_lu_plan fills out[6] (route 1, the cluster route; C 0 where no
+// block's chain runs on a cluster), and out[6] = the blocks whose chain
+// runs on the grid.  Returns cudaErrorInvalidConfiguration when an explicit
 // C does not fit the card.
-int rf_panel_lu_bf16x3_plan(int m, int w, int b, int C, int device, int* out) {
+int rf_panel_lu_bf16x3_plan(int m, int w, int b, int C, int chain, int device, int* out) {
   Plan pl;
-  const int err = bf16x3_plan(m, w, b, C, device, &pl);
+  const int err = bf16x3_plan(m, w, b, C, chain, device, &pl);
   if (err != 0) return err;
   out[0] = pl.route;
   out[1] = pl.b;
@@ -564,29 +568,31 @@ int rf_panel_lu_bf16x3_plan(int m, int w, int b, int C, int device, int* out) {
   out[3] = pl.blocks;
   out[4] = static_cast<int>(pl.ws_reals);
   out[5] = static_cast<int>(pl.iws_ints);
+  out[6] = pl.grid_blocks;
   return 0;
 }
 
 // Factor the float32 panel in place on `stream` in the bf16x3 form, with the
-// plan of (b, C); `iws` holds the plan's iws int32s.  `simple` = 1 forces
-// the simple update kernel (default 0: the tiled one).  `updates` (host)
-// gets the number of bf16x3 update launches.  Returns a cudaError_t code.
+// plan of (b, C, chain); `iws` holds the plan's iws int32s.  `simple` = 1
+// forces the simple update kernel (default 0: the tiled one).  `updates`
+// and `grids` (host) get the number of bf16x3 update launches and of grid
+// chain launches.  Returns a cudaError_t code.
 int rf_panel_lu_bf16x3_f32(void* a, int m, int w, int lda, int pivot, int b, int C, int simple,
-                           void* piv, void* perm, void* info, void* iws, int* updates,
-                           int device, void* stream) {
+                           int chain, void* piv, void* perm, void* info, void* iws, int* updates,
+                           int* grids, int device, void* stream) {
   if (simple != 0 && simple != 1) return static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
-  const int err = bf16x3_plan(m, w, b, C, device, &pl);
+  const int err = bf16x3_plan(m, w, b, C, chain, device, &pl);
   if (err != 0) return err;
   return run_cluster<float, kBf16x3>(static_cast<float*>(a), m, w, lda, pivot, 0, pl, piv,
                                      perm, info, iws, static_cast<cudaStream_t>(stream),
-                                     updates, simple ? kUpdSimple : kUpdTiled);
+                                     updates, simple ? kUpdSimple : kUpdTiled, grids);
 }
 
 // One bf16x3 update on `stream`: c (rows x cols, row stride ldc) -=
 // hh + (hl + lh) of l (rows x nb, row stride ldl) and u (nb x cols, row
-// stride ldu), 1 <= nb <= 64; float32 device pointers, c disjoint from l
-// and u.  `simple` = 1 forces the simple kernel (default 0: the tiled one
+// stride ldu), nb >= 1 (past 64 in chunks of 64 steps); float32 device
+// pointers, c disjoint from l and u.  `simple` = 1 forces the simple kernel (default 0: the tiled one
 // on its plan's tile).  Returns a cudaError_t code.
 int rf_panel_update_bf16x3_f32(const void* l, int ldl, const void* u, int ldu, void* c,
                                int ldc, int rows, int cols, int nb, int simple, int device,
@@ -609,11 +615,11 @@ int rf_panel_update_bf16x3_f32(const void* l, int ldl, const void* u, int ldu, v
 }
 
 // The tiled update's plan for (rows, cols, nb): out[5] = rows and columns
-// of the tile, K padded to 16, the grid's row and column tiles (tile_plan).
+// of the tile, the steps staged per chunk (nb padded to 16, at most 64),
+// the grid's row and column tiles (tile_plan).
 // Returns a cudaError_t code.
 int rf_panel_update_bf16x3_plan(int rows, int cols, int nb, int* out) {
-  if (rows < 1 || cols < 1 || nb < 1 || nb > kTcKMax)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows < 1 || cols < 1 || nb < 1) return static_cast<int>(cudaErrorInvalidValue);
   const TcPlan q = tile_plan(rows, cols, nb);
   out[0] = q.tm;
   out[1] = q.tn;

@@ -42,8 +42,12 @@
 // slab, the U rows solved row by row (the unit-lower solve above), then
 // the trailing update of the rows below in this kernel's order, the sum
 // from 0 first and one difference (panel_update_kernel<T, kSumFirst>).  A fat
-// panel's last block solves against the columns m .. w-1 there too.  A
-// panel whose rows do not fit a cluster takes the grid route.
+// panel's last block solves against the columns m .. w-1 there too.  Any
+// micro: a block whose rows do not fit a cluster at its width runs its
+// chain on the grid (panel_grid_chain_kernel, the same bits); `chain` = 1
+// puts every block's chain there.  A panel whose rows do not fit a
+// cluster takes the grid route below where micro <= kMicroMax, the cluster
+// route with its leading blocks' chains on the grid beyond.
 // tests/test_torch_panel_cluster_routes.py emulates the route's order.
 //
 // The grid route (the grid-barrier design; the staged and the in-place
@@ -70,8 +74,9 @@
 // What bounds both routes: the serial pivot chain, as in csrc/panel_lu.cu;
 // the micro-blocking cuts the rank-1 work inside the chain from w to at most
 // micro - 1 columns per row and step and moves the rest into one pass per
-// block.  The block width is limited to kMicroMax steps (thread-local column
-// of the solve, two registers of multipliers per lane in the update).
+// block.  The grid route's block width is limited to kMicroMax steps
+// (thread-local column of the solve, two registers of multipliers per lane
+// in the update); the cluster route takes any.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -91,7 +96,7 @@ using namespace rf;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsMin = 8;    // fewest rows a block owns
-constexpr int kMicroMax = 64;  // widest micro block
+constexpr int kMicroMax = 64;  // widest micro block of the grid route
 constexpr int kColTile = 64;   // columns of U staged per pass of the update
 
 template <typename T>
@@ -390,15 +395,23 @@ int grid_for(int m, int w, int micro, int device, int* grid_out, int* rows_out) 
 }
 
 // The plan of a launch: the cluster route with blocks of `micro` steps
-// (b = 0; C = 0 picks the cluster) or, where the panel does not fit a
-// cluster or b < 0, the grid route of the staged (kShadow) or the in-place
-// kernel.
+// (b = 0; C = 0 picks the cluster; `chain` = 1 runs every block's chain on
+// the grid) or, where the panel does not fit a cluster and micro <=
+// kMicroMax, or where b < 0, the grid route of the staged (kShadow) or the
+// in-place kernel.  Past kMicroMax a panel too tall for a cluster keeps the
+// cluster route, its leading blocks' chains on the grid.
 template <typename T, bool kShadow>
-int full_plan(int m, int w, int micro, int b, int C, int device, Plan* pl) {
+int full_plan(int m, int w, int micro, int b, int C, int chain, int device, Plan* pl) {
   const int minmn = m < w ? m : w;
-  if (m < 1 || w < 1 || micro < 1 || micro > kMicroMax || micro > minmn || b > 0)
+  if (m < 1 || w < 1 || micro < 1 || micro > minmn || b > 0 || (chain != 0 && chain != 1) ||
+      (b < 0 && (chain != 0 || micro > kMicroMax)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int r = b < 0 ? kPlanGrid : plan_for<T>(m, w, micro, C, device, pl, true);
+  int r = kPlanGrid;
+  if (b == 0) {
+    r = plan_for<T>(m, w, micro, C, device, pl, true, chain == 1);
+    if (r == 0 && pl->grid_blocks > 0 && chain == 0 && micro <= kMicroMax) r = kPlanGrid;
+    if (r == 0) return grid_chain_plan<T>(m, device, pl);
+  }
   if (r != kPlanGrid) return r;
   int g = 0, rows = 0;
   const int err = grid_for<T, kShadow>(m, w, micro, device, &g, &rows);
@@ -413,15 +426,17 @@ int full_plan(int m, int w, int micro, int b, int C, int device, Plan* pl) {
 }
 
 template <typename T, bool kShadow>
-int run(void* a, int m, int w, int lda, int pivot, int micro, int b, int C, void* piv,
-        void* perm, void* info, void* ws, void* iws, int device, void* stream_) {
+int run(void* a, int m, int w, int lda, int pivot, int micro, int b, int C, int chain,
+        void* piv, void* perm, void* info, void* ws, void* iws, int* grids, int device,
+        void* stream_) {
+  *grids = 0;
   Plan pl;
-  int err = full_plan<T, kShadow>(m, w, micro, b, C, device, &pl);
+  int err = full_plan<T, kShadow>(m, w, micro, b, C, chain, device, &pl);
   if (err != 0) return err;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (pl.route == kRouteCluster) {
     return run_cluster<T, kSumFirst>(static_cast<T*>(a), m, w, lda, pivot, 0, pl, piv, perm, info,
-                                iws, stream);
+                                     iws, stream, nullptr, kUpdTiled, grids);
   }
   const int g = pl.grid;
   const int rows = (m + g - 1) / g;
@@ -456,28 +471,30 @@ int run(void* a, int m, int w, int lda, int pivot, int micro, int b, int C, void
 
 extern "C" {
 
-// The widest micro block the kernels take.
+// The widest micro block of the grid route (the cluster route takes any).
 int rf_panel_lu_micro_max() { return kMicroMax; }
 
 // The plan of a launch on an (m, w) panel of elements of `elem_size` bytes
-// (4 or 8) with blocks of `micro` steps (1 .. 64, at most min(m, w)) for
+// (4 or 8) with blocks of `micro` steps (at least 1, at most min(m, w)) for
 // the staged (shadow != 0) or the in-place variant: b = 0 for the
-// launcher's choice (the cluster route where the panel fits a cluster),
-// b < 0 for the grid route; C = 0 picks the cluster size.  Fills out[6] =
-// {route (1 cluster, 0 grid), b (-1 on the grid route), C (the grid route:
-// its grid), blocks, ws elements, iws int32s}.  Returns a cudaError_t
-// code, 0 on success; cudaErrorInvalidConfiguration when an explicit C
-// does not fit the card.
+// launcher's choice (the cluster route where the panel fits a cluster, or
+// past kMicroMax steps), b < 0 for the grid route (micro <= kMicroMax); C
+// = 0 picks the cluster size; `chain` = 1 runs every block's chain on the
+// grid.  Fills out[7] = {route (1 cluster, 0 grid), b (-1 on the grid
+// route), C (the grid route: its grid), blocks, ws elements, iws int32s,
+// the blocks whose chain runs on the grid}.  Returns a cudaError_t code, 0
+// on success; cudaErrorInvalidConfiguration when an explicit C does not fit
+// the card.
 int rf_panel_lu_micro_plan(int m, int w, int elem_size, int micro, int shadow, int b, int C,
-                           int device, int* out) {
+                           int chain, int device, int* out) {
   Plan pl;
   int err = 0;
   if (elem_size == 8) {
-    err = shadow ? full_plan<double, true>(m, w, micro, b, C, device, &pl)
-                 : full_plan<double, false>(m, w, micro, b, C, device, &pl);
+    err = shadow ? full_plan<double, true>(m, w, micro, b, C, chain, device, &pl)
+                 : full_plan<double, false>(m, w, micro, b, C, chain, device, &pl);
   } else {
-    err = shadow ? full_plan<float, true>(m, w, micro, b, C, device, &pl)
-                 : full_plan<float, false>(m, w, micro, b, C, device, &pl);
+    err = shadow ? full_plan<float, true>(m, w, micro, b, C, chain, device, &pl)
+                 : full_plan<float, false>(m, w, micro, b, C, chain, device, &pl);
   }
   if (err != 0) return err;
   out[0] = pl.route;
@@ -486,38 +503,40 @@ int rf_panel_lu_micro_plan(int m, int w, int elem_size, int micro, int shadow, i
   out[3] = pl.route == kRouteCluster ? pl.blocks : 1;
   out[4] = static_cast<int>(pl.ws_reals);
   out[5] = static_cast<int>(pl.iws_ints);
+  out[6] = pl.grid_blocks;
   return 0;
 }
 
-// Factor the panel in place on `stream` with the plan of (micro, b, C).
-// Each returns a cudaError_t code (0 on success) for the launches; faults
-// during the run surface at the next synchronisation.
+// Factor the panel in place on `stream` with the plan of (micro, b, C,
+// chain); `grids` (host) gets the number of grid-chain launches.  Each
+// returns a cudaError_t code (0 on success) for the launches; faults during
+// the run surface at the next synchronisation.
 int rf_panel_lu_shadow_f32(void* a, int m, int w, int lda, int pivot, int micro, int b, int C,
-                           void* piv, void* perm, void* info, void* ws, void* iws, int device,
-                           void* stream) {
-  return run<float, true>(a, m, w, lda, pivot, micro, b, C, piv, perm, info, ws, iws, device,
-                          stream);
+                           int chain, void* piv, void* perm, void* info, void* ws, void* iws,
+                           int* grids, int device, void* stream) {
+  return run<float, true>(a, m, w, lda, pivot, micro, b, C, chain, piv, perm, info, ws, iws,
+                          grids, device, stream);
 }
 
 int rf_panel_lu_shadow_f64(void* a, int m, int w, int lda, int pivot, int micro, int b, int C,
-                           void* piv, void* perm, void* info, void* ws, void* iws, int device,
-                           void* stream) {
-  return run<double, true>(a, m, w, lda, pivot, micro, b, C, piv, perm, info, ws, iws, device,
-                           stream);
+                           int chain, void* piv, void* perm, void* info, void* ws, void* iws,
+                           int* grids, int device, void* stream) {
+  return run<double, true>(a, m, w, lda, pivot, micro, b, C, chain, piv, perm, info, ws, iws,
+                           grids, device, stream);
 }
 
 int rf_panel_lu_basic_f32(void* a, int m, int w, int lda, int pivot, int micro, int b, int C,
-                          void* piv, void* perm, void* info, void* ws, void* iws, int device,
-                          void* stream) {
-  return run<float, false>(a, m, w, lda, pivot, micro, b, C, piv, perm, info, ws, iws, device,
-                           stream);
+                          int chain, void* piv, void* perm, void* info, void* ws, void* iws,
+                          int* grids, int device, void* stream) {
+  return run<float, false>(a, m, w, lda, pivot, micro, b, C, chain, piv, perm, info, ws, iws,
+                           grids, device, stream);
 }
 
 int rf_panel_lu_basic_f64(void* a, int m, int w, int lda, int pivot, int micro, int b, int C,
-                          void* piv, void* perm, void* info, void* ws, void* iws, int device,
-                          void* stream) {
-  return run<double, false>(a, m, w, lda, pivot, micro, b, C, piv, perm, info, ws, iws,
-                            device, stream);
+                          int chain, void* piv, void* perm, void* info, void* ws, void* iws,
+                          int* grids, int device, void* stream) {
+  return run<double, false>(a, m, w, lda, pivot, micro, b, C, chain, piv, perm, info, ws, iws,
+                            grids, device, stream);
 }
 
 // Phase trace of the cluster route's chain kernel, as rf_panel_lu_set_trace

@@ -67,8 +67,9 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# panel, m, w, lda, pivot, micro, b, C, piv, perm, info, ws, iws, device, stream
-_PANEL_MICRO = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P])
+# panel, m, w, lda, pivot, micro, b, C, chain, piv, perm, info, ws, iws, grids
+# (host int), device, stream
+_PANEL_MICRO = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P])
 # panel, m, w, lda, pivot, live, b, C, used0, used, prow, info, ws, iws, device,
 # stream
 _PANEL_NOSWAP = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P])
@@ -79,9 +80,9 @@ _PANEL_PLAN = (_I, [_I, _I, _I, _I, _I, _I, _I, _P])
 _PANEL_BC = (_I, [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P])
 # the same with the offset after pivot
 _PANEL_OFS_BC = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P])
-# the bf16x3 form: panel, m, w, lda, pivot, b, C, simple, piv, perm, info,
-# iws, updates (host int), device, stream
-_PANEL_BF16X3 = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P])
+# the bf16x3 form: panel, m, w, lda, pivot, b, C, simple, chain, piv, perm,
+# info, iws, updates (host int), grids (host int), device, stream
+_PANEL_BF16X3 = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P])
 # a, out, ipiv, perm, info, batch, m, n, pivot, route, smem, device, stream
 _BATCHED_SWAP = (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
 # a, out, perm, info, batch, n, pivot, route, smem, device, stream
@@ -108,8 +109,8 @@ SIGNATURES = {
         "rf_offset_panel_lu_plan": _PANEL_PLAN,
         "rf_offset_panel_lu_f32": _PANEL_OFS_BC,
         "rf_offset_panel_lu_f64": _PANEL_OFS_BC,
-        # m, w, b, C, device, out[6]
-        "rf_panel_lu_bf16x3_plan": (_I, [_I, _I, _I, _I, _I, _P]),
+        # m, w, b, C, chain, device, out[7]
+        "rf_panel_lu_bf16x3_plan": (_I, [_I, _I, _I, _I, _I, _I, _P]),
         "rf_panel_lu_bf16x3_f32": _PANEL_BF16X3,
         # l, ldl, u, ldu, c, ldc, rows, cols, nb, simple, device, stream
         "rf_panel_update_bf16x3_f32": (_I, [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P]),
@@ -131,8 +132,8 @@ SIGNATURES = {
     },
     "panel_lu_micro": {
         "rf_panel_lu_micro_max": (_I, []),
-        # m, w, elem_size, micro, shadow, b, C, device, out[6]
-        "rf_panel_lu_micro_plan": (_I, [_I, _I, _I, _I, _I, _I, _I, _I, _P]),
+        # m, w, elem_size, micro, shadow, b, C, chain, device, out[7]
+        "rf_panel_lu_micro_plan": (_I, [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
         "rf_panel_lu_shadow_f32": _PANEL_MICRO,
         "rf_panel_lu_shadow_f64": _PANEL_MICRO,
         "rf_panel_lu_basic_f32": _PANEL_MICRO,

@@ -23,14 +23,19 @@ on the cluster route, each block's trailing update split into bf16 halves
 on the tensor cores (``panel_factor_cuda(..., precision='bf16x3')``,
 ``bf16x3_plan``, ``bf16x3_updates``; the update alone:
 ``panel_update_bf16x3_cuda``, its tile ``bf16x3_update_plan``); its plain
-version is ``micro_blocked_lu(..., 'bf16x3')``.  A panel too tall for a
-cluster at that width raises ``NotImplementedError``: the grid route has no
-block boundaries.
+version is ``micro_blocked_lu(..., 'bf16x3')``.  It takes any block width
+and any panel height: a block whose live rows do not fit a cluster (or
+wider than 512 columns) runs its pivot chain on the grid instead
+(``panel_grid_chain_kernel`` of csrc/panel_cluster.cuh, the same bits),
+and the block boundaries stay where they are.
 
 The micro-blocked kernels run on the same cluster route with blocks of
 exactly ``micro`` steps and their own order of the trailing update
 (``micro_plan`` shows the plan); both variants compute the same bits
-there, and each keeps its grid-barrier kernel as the grid route.
+there, and each keeps its grid-barrier kernel as the grid route for
+panels too tall for a cluster at ``micro`` <= ``PANEL_MICRO_MAX``.  A
+wider ``micro`` on such a panel keeps the cluster route with its leading
+blocks' chains on the grid, as the bf16x3 form does.
 
 ``panel_factor_noswap`` is the panel layer of ``schedule='physical'``:
 csrc/panel_lu_noswap.cu (the port of ``_panel_kernel_noswap``) on the
@@ -47,7 +52,10 @@ card and ``offset_panel_lu_cabs1`` on the CPU.
 There is no fallback between kernel and plain version: a CUDA tensor
 launches the kernel or raises.  A route is chosen by the panel's shape or
 by an explicit ``block`` (``block=-1``: the grid route); every wrapper
-counts its launches and, apart, those on the grid route.
+counts its launches and, apart, those on the grid route; the blocked forms
+count the blocks whose chain ran on the grid (``.grid_block_launches``).
+Their private ``_chain='grid'`` puts every block's chain on the grid, to
+hold the grid chain against the cluster chain.
 """
 
 from __future__ import annotations
@@ -178,11 +186,25 @@ def _device_index(device):
 
 
 def _plan_dict(plan) -> dict:
-    route, b, c, blocks, ws, iws = plan
-    return {"route": "cluster" if route == 1 else "grid",
-            "block": b if route == 1 else None, "cluster": c if route == 1 else None,
-            "grid": c if route == 0 else None, "blocks": blocks,
-            "ws_reals": ws, "iws_ints": iws}
+    route, b, c, blocks, ws, iws = plan[:6]
+    out = {"route": "cluster" if route == 1 else "grid",
+           "block": b if route == 1 else None, "cluster": c if route == 1 else None,
+           "grid": c if route == 0 else None, "blocks": blocks,
+           "ws_reals": ws, "iws_ints": iws}
+    if len(plan) > 6:  # the blocked forms: blocks whose chain runs on the grid
+        out["grid_blocks"] = plan[6]
+    return out
+
+
+# the blocked forms' chains: "auto" (on a cluster where the block's live
+# rows fit one, else on the grid) or "grid" (every block's, forced)
+CHAINS = ("auto", "grid")
+
+
+def _check_chain(chain):
+    if chain not in CHAINS:
+        raise ValueError(f"_chain must be one of {CHAINS}, got {chain!r}")
+    return int(chain == "grid")
 
 
 def panel_plan(m: int, w: int, dtype, ofs=None, block: int = 0,
@@ -205,12 +227,13 @@ def panel_plan(m: int, w: int, dtype, ofs=None, block: int = 0,
 
 
 @functools.lru_cache(maxsize=256)
-def _micro_plan(m, w, size, micro, shadow, block, cluster, index):
-    """The plan of csrc/panel_lu_micro.cu, as :func:`_plan`'s tuple."""
+def _micro_plan(m, w, size, micro, shadow, block, cluster, chain, index):
+    """The plan of csrc/panel_lu_micro.cu, as :func:`_plan`'s tuple and the
+    blocks whose chain runs on the grid."""
     lib = _kernels.load("panel_lu_micro")
-    out = (ctypes.c_int * 6)()
-    code = lib.rf_panel_lu_micro_plan(m, w, size, micro, int(shadow), block, cluster, index,
-                                      out)
+    out = (ctypes.c_int * 7)()
+    code = lib.rf_panel_lu_micro_plan(m, w, size, micro, int(shadow), block, cluster, chain,
+                                      index, out)
     _kernels.check(lib, code, "panel_lu_micro plan")
     return tuple(out)
 
@@ -225,10 +248,12 @@ def _noswap_plan(m, w, size, live, block, cluster, index):
     return tuple(out)
 
 
-def _check_micro_request(micro, block, cluster):
+def _check_micro_request(micro, block, cluster, chain="auto"):
     """The micro-blocked kernels' own checks: ``micro`` a positive int,
     ``block`` 0 (the launcher's choice: blocks of ``micro`` steps) or
-    negative (the grid route), ``cluster`` a non-negative int."""
+    negative (the grid route, which takes ``micro`` <= PANEL_MICRO_MAX
+    after the cut to the panel), ``cluster`` a non-negative int, ``chain``
+    one of CHAINS (with block 0).  Returns the chain's C value."""
     if not isinstance(micro, int) or isinstance(micro, bool) or micro < 1:
         raise ValueError(f"micro must be a positive int, got {micro!r}")
     _check_block_cluster(block, cluster)
@@ -236,6 +261,20 @@ def _check_micro_request(micro, block, cluster):
         raise ValueError(
             f"the micro-blocked kernels' blocks are micro steps wide: block takes 0 "
             f"(the launcher's choice) or -1 (the grid route), got {block}")
+    chain = _check_chain(chain)
+    if chain and block < 0:
+        raise ValueError("_chain='grid' runs the cluster route's blocks; block=-1 picks the "
+                         "grid route, which has none")
+    return chain
+
+
+def _check_grid_micro(micro, block):
+    """The grid route (block=-1) takes blocks of at most PANEL_MICRO_MAX
+    steps (``micro`` already cut to the panel)."""
+    if block < 0 and micro > PANEL_MICRO_MAX:
+        raise ValueError(f"the micro-blocked kernels' grid route (block=-1) takes blocks of "
+                         f"at most {PANEL_MICRO_MAX} steps, got micro={micro}; the cluster "
+                         f"route (block=0) takes any")
 
 
 def _check_block_cluster(block, cluster):
@@ -248,26 +287,26 @@ def _check_block_cluster(block, cluster):
 
 
 def micro_plan(m: int, w: int, dtype, micro: int, variant: str = "shadow",
-               block: int = 0, cluster: int = 0, device=None) -> dict:
+               block: int = 0, cluster: int = 0, device=None, _chain: str = "auto") -> dict:
     """How csrc/panel_lu_micro.cu factors an (m, w) float32/float64 panel
-    with blocks of ``micro`` steps (cut to min(m, w), then at most
-    ``PANEL_MICRO_MAX``): the cluster route with b = micro where the panel
-    fits a cluster, else the grid route of ``variant`` (``'shadow'`` or
-    ``'basic'``; the cluster route is the same for both).  ``block=-1``
-    forces the grid route; ``cluster`` 0 picks the cluster size.  Returns
-    :func:`panel_plan`'s dict."""
-    _check_micro_request(micro, block, cluster)
+    with blocks of ``micro`` steps (cut to min(m, w)): the cluster route
+    with b = micro where the panel fits a cluster, else the grid route of
+    ``variant`` (``'shadow'`` or ``'basic'``; the cluster route is the same
+    for both) up to ``PANEL_MICRO_MAX`` steps, and past that the cluster
+    route with its leading blocks' chains on the grid.  ``block=-1`` forces
+    the grid route; ``cluster`` 0 picks the cluster size; ``_chain='grid'``
+    puts every block's chain on the grid.  Returns :func:`panel_plan`'s
+    dict with ``grid_blocks``, the blocks whose chain runs on the grid."""
+    chain = _check_micro_request(micro, block, cluster, _chain)
     if dtype not in _REAL:
         raise ValueError(f"the micro-blocked kernels take float32/float64, got {dtype}")
     if variant not in ("shadow", "basic"):
         raise ValueError(f"variant must be 'shadow' or 'basic', got {variant!r}")
     micro = min(micro, m, w)
-    if micro > PANEL_MICRO_MAX:
-        raise ValueError(f"the micro-blocked kernels take blocks of at most "
-                         f"{PANEL_MICRO_MAX} steps, got micro={micro}")
+    _check_grid_micro(micro, block)
     size = torch.empty((), dtype=dtype).element_size()
     return _plan_dict(_micro_plan(m, w, size, micro, variant == "shadow", block, cluster,
-                                  _device_index(device)))
+                                  chain, _device_index(device)))
 
 
 def _check_live(live, m):
@@ -330,49 +369,40 @@ def _launch_panel_lu(wrapper, panel, pivot, ofs, block, cluster, dtypes=_REAL):
     return piv, perm, info
 
 
-# cudaErrorNotSupported: the bf16x3 form refuses a panel too tall for a cluster
-_NOT_SUPPORTED = 801
-
-
 @functools.lru_cache(maxsize=256)
-def _bf16x3_plan(m, w, b, cluster, index):
-    """The plan of csrc/panel_lu.cu's bf16x3 form, as :func:`_plan`'s tuple."""
+def _bf16x3_plan(m, w, b, cluster, chain, index):
+    """The plan of csrc/panel_lu.cu's bf16x3 form, as :func:`_plan`'s tuple
+    and the blocks whose chain runs on the grid."""
     lib = _kernels.load("panel_lu")
-    out = (ctypes.c_int * 6)()
-    code = lib.rf_panel_lu_bf16x3_plan(m, w, b, cluster, index, out)
-    if code == _NOT_SUPPORTED:
-        raise NotImplementedError(
-            f"panel_boundary_precision='bf16x3' runs on the cluster route only, and a "
-            f"{m} x {w} panel does not fit a cluster at blocks of {b} steps (the grid "
-            f"route has no block boundaries; ROADMAP.md Queue 1 item 22): use "
-            f"panel_boundary_precision='float32' or a narrower panel_micro")
+    out = (ctypes.c_int * 7)()
+    code = lib.rf_panel_lu_bf16x3_plan(m, w, b, cluster, chain, index, out)
     _kernels.check(lib, code, "panel_lu bf16x3 plan")
     return tuple(out)
 
 
 def _bf16x3_block(block, m, w):
     """The bf16x3 form's steps per block: ``block`` (0: DEFAULT_PANEL_MICRO),
-    at most PANEL_MICRO_MAX, cut to min(m, w)."""
+    any positive width, cut to min(m, w)."""
     if not isinstance(block, int) or isinstance(block, bool) or block < 0:
         raise ValueError(f"the bf16x3 form takes block 0 (DEFAULT_PANEL_MICRO) or a "
                          f"positive block width, got {block!r}; it has no grid route")
-    b = block or DEFAULT_PANEL_MICRO
-    if b > PANEL_MICRO_MAX:
-        raise ValueError(f"the bf16x3 form takes blocks of at most {PANEL_MICRO_MAX} "
-                         f"steps, got {b}")
-    return min(b, m, w)
+    return min(block or DEFAULT_PANEL_MICRO, m, w)
 
 
-def bf16x3_plan(m: int, w: int, block: int = 0, cluster: int = 0, device=None) -> dict:
+def bf16x3_plan(m: int, w: int, block: int = 0, cluster: int = 0, device=None,
+                _chain: str = "auto") -> dict:
     """How csrc/panel_lu.cu factors an (m, w) float32 panel under
     ``panel_boundary_precision='bf16x3'``: the cluster route with blocks of
     ``block`` steps (0: ``DEFAULT_PANEL_MICRO``; cut to min(m, w); one block
-    when that reaches w), ``cluster`` 0 picking the cluster size.  Returns
-    :func:`panel_plan`'s dict.  Raises NotImplementedError for a panel too
-    tall for a cluster at that width."""
+    when that reaches w), ``cluster`` 0 picking the cluster size.  The
+    leading blocks whose live rows do not fit a cluster at that width (every
+    block past 512 columns, or every block with ``_chain='grid'``) run their
+    chain on the grid.  Returns :func:`panel_plan`'s dict with
+    ``grid_blocks``, the count of those blocks."""
     _check_block_cluster(block, cluster)
+    chain = _check_chain(_chain)
     b = _bf16x3_block(block, m, w)
-    return _plan_dict(_bf16x3_plan(m, w, b, cluster, _device_index(device)))
+    return _plan_dict(_bf16x3_plan(m, w, b, cluster, chain, _device_index(device)))
 
 
 # the bf16x3 form's update kernels: the tiled one, or the simple one where
@@ -411,34 +441,37 @@ def bf16x3_update_plan(rows: int, cols: int, nb: int) -> dict:
     return dict(tm=out[0], tn=out[1], kp=out[2], grid=(out[3], out[4]), threads=2 * out[0])
 
 
-def _launch_bf16x3(panel, pivot, block, cluster, update):
+def _launch_bf16x3(panel, pivot, block, cluster, update, chain):
     """The checks, plan, allocations and launch of csrc/panel_lu.cu's
     bf16x3 form, for :func:`panel_factor_cuda`."""
     wrapper = panel_factor_cuda
     _check_block_cluster(block, cluster)
     if update not in BF16X3_UPDATES:
         raise ValueError(f"_update must be one of {BF16X3_UPDATES}, got {update!r}")
+    chain = _check_chain(chain)
     m, w, lda, index, _, _ = _check_panel(wrapper.__name__, panel, (torch.float32,))
     b = _bf16x3_block(block, m, w)
-    iws_ints = _bf16x3_plan(m, w, b, cluster, index)[5]
+    iws_ints = _bf16x3_plan(m, w, b, cluster, chain, index)[5]
     dev = panel.device
     npiv = min(m, w)
     ints = torch.empty(npiv + m + 1 + iws_ints, dtype=torch.int32, device=dev)
     piv, perm, info = ints[:npiv], ints[npiv:npiv + m], ints[npiv + m]
     lib = _kernels.load("panel_lu")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    updates = ctypes.c_int(0)
+    updates, grids = ctypes.c_int(0), ctypes.c_int(0)
     wrapper.launches += 1
     wrapper.bf16x3_launches += 1
     code = lib.rf_panel_lu_bf16x3_f32(
         panel.data_ptr(), m, w, lda, int(bool(pivot)), b, cluster,
-        int(update == "simple"),
+        int(update == "simple"), chain,
         piv.data_ptr(), perm.data_ptr(), info.data_ptr(), ints[npiv + m + 1:].data_ptr(),
-        ctypes.byref(updates), index, stream,
+        ctypes.byref(updates), ctypes.byref(grids), index, stream,
     )
-    # the update kernels the launcher issued (one per block boundary with
-    # rows and columns below and right of the block: bf16x3_updates)
+    # the update and grid-chain kernels the launcher issued (one update per
+    # block boundary with rows and columns below and right of the block:
+    # bf16x3_updates; one grid chain per block of the plan's grid_blocks)
     wrapper.bf16x3_update_launches += updates.value
+    wrapper.grid_block_launches += grids.value
     if update == "simple":
         wrapper.bf16x3_simple_update_launches += updates.value
     _kernels.check(lib, code, "panel_lu bf16x3 launch")
@@ -447,7 +480,7 @@ def _launch_bf16x3(panel, pivot, block, cluster, update):
 
 def panel_factor_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
                       cluster: int = 0, precision: str = "float32",
-                      _update: str = "tiled"):
+                      _update: str = "tiled", _chain: str = "auto"):
     """Launch the Hopper panel kernel on ``panel`` in place.
 
     ``panel``: CUDA, float32 or float64, 2-D, rows contiguous (unit
@@ -464,20 +497,25 @@ def panel_factor_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
 
     ``precision='bf16x3'`` (float32 panels): the form of
     ``panel_boundary_precision='bf16x3'``, blocks of exactly ``block`` steps
-    (0: ``DEFAULT_PANEL_MICRO``; at most ``PANEL_MICRO_MAX``, cut to
-    min(m, w)) on the cluster route, each block's trailing update split
-    into bf16 halves on the tensor cores (see :func:`bf16x3_plan`).  It
-    agrees with ``micro_blocked_lu(panel, pivot, block, 'bf16x3')`` to the
-    bf16x3 class, not bitwise.  A panel too tall for a cluster at that
-    width raises NotImplementedError.  Each block's trailing update runs on
-    the tiled update kernel (:func:`bf16x3_updates` lists the launches);
-    ``_update='simple'`` forces the simple update kernel, bit for bit the
-    same result, for comparison.  ``.bf16x3_launches`` counts these
-    launches (``.launches`` counts them too), ``.bf16x3_update_launches``
-    the update kernels they issued, ``.bf16x3_simple_update_launches``
-    those on the simple kernel."""
+    (0: ``DEFAULT_PANEL_MICRO``; any width, cut to min(m, w)) on the
+    cluster route, each block's trailing update split into bf16 halves on
+    the tensor cores (see :func:`bf16x3_plan`).  It agrees with
+    ``micro_blocked_lu(panel, pivot, block, 'bf16x3')`` to the bf16x3
+    class, not bitwise.  A block whose live rows do not fit a cluster runs
+    its chain on the grid (``_chain='grid'``: every block's, bit for bit
+    the cluster chain's result, for comparison).  Each block's trailing
+    update runs on the tiled update kernel (:func:`bf16x3_updates` lists
+    the launches); ``_update='simple'`` forces the simple update kernel,
+    bit for bit the same result, for comparison.  ``.bf16x3_launches``
+    counts these launches (``.launches`` counts them too),
+    ``.bf16x3_update_launches`` the update kernels they issued,
+    ``.bf16x3_simple_update_launches`` those on the simple kernel,
+    ``.grid_block_launches`` the blocks whose chain ran on the grid."""
     if precision == "bf16x3":
-        return _launch_bf16x3(panel, pivot, block, cluster, _update)
+        return _launch_bf16x3(panel, pivot, block, cluster, _update, _chain)
+    if _chain != "auto":
+        raise ValueError("_chain applies to precision='bf16x3' (the float32 form has no "
+                         "grid chain: its tall panels take the grid route)")
     if precision != "float32":
         raise ValueError(f"precision must be 'float32' or 'bf16x3', got {precision!r}")
     return _launch_panel_lu(panel_factor_cuda, panel, pivot, None, block, cluster)
@@ -488,6 +526,7 @@ panel_factor_cuda.grid_route_launches = 0
 panel_factor_cuda.bf16x3_launches = 0
 panel_factor_cuda.bf16x3_update_launches = 0
 panel_factor_cuda.bf16x3_simple_update_launches = 0
+panel_factor_cuda.grid_block_launches = 0
 
 
 def _rows_stride(t):
@@ -503,7 +542,8 @@ def panel_update_bf16x3_cuda(C: torch.Tensor, L: torch.Tensor, U: torch.Tensor, 
     :func:`bf16x3_update_plan`), alone.
 
     ``C`` (rows, cols), ``L`` (rows, nb), ``U`` (nb, cols): CUDA float32 on
-    one device, rows contiguous, 1 <= nb <= 64; ``C`` must share no memory
+    one device, rows contiguous, nb >= 1 (past 64 through K in chunks of
+    64); ``C`` must share no memory
     with ``L`` or ``U``.  The plain version is ``C.sub_(schur_product(L, U,
     'bf16x3'))`` (ops/schur.py); the tensor cores sum in their own order,
     so the two agree to the bf16x3 class, not bitwise.  ``_update='simple'``
@@ -526,8 +566,8 @@ def panel_update_bf16x3_cuda(C: torch.Tensor, L: torch.Tensor, U: torch.Tensor, 
     if L.shape[0] != rows or U.shape != (nb, cols):
         raise ValueError(f"shapes do not match: C {tuple(C.shape)}, L {tuple(L.shape)}, "
                          f"U {tuple(U.shape)}")
-    if not 1 <= nb <= PANEL_MICRO_MAX:
-        raise ValueError(f"nb must be in [1, {PANEL_MICRO_MAX}], got {nb}")
+    if nb < 1:
+        raise ValueError(f"nb must be at least 1, got {nb}")
     if not C.device == L.device == U.device:
         raise ValueError("C, L and U must lie on one device")
     dev = C.device
@@ -634,8 +674,8 @@ offset_panel_factor_c64_cuda.grid_route_launches = 0
 
 
 def micro_max_cuda() -> int:
-    """The widest micro block the built csrc/panel_lu_micro.cu takes;
-    raises if it is not the ``PANEL_MICRO_MAX`` the configuration checks."""
+    """The widest micro block of the built csrc/panel_lu_micro.cu's grid
+    route; raises if it is not the ``PANEL_MICRO_MAX`` the wrappers check."""
     limit = _kernels.load("panel_lu_micro").rf_panel_lu_micro_max()
     if limit != PANEL_MICRO_MAX:
         raise RuntimeError(
@@ -645,21 +685,19 @@ def micro_max_cuda() -> int:
     return limit
 
 
-def _launch_micro(wrapper, panel, pivot, micro, shadow, block, cluster):
+def _launch_micro(wrapper, panel, pivot, micro, shadow, block, cluster, chain):
     """The checks, plan, allocations and launch of the two micro-blocked
-    kernels.  Adds one to ``wrapper.launches`` at the launch, and one to
-    ``wrapper.grid_route_launches`` when the panel takes the grid route.
-    piv, perm, info and the integer workspace share one allocation."""
-    _check_micro_request(micro, block, cluster)
+    kernels.  Adds one to ``wrapper.launches`` at the launch, one to
+    ``wrapper.grid_route_launches`` when the panel takes the grid route,
+    and to ``wrapper.grid_block_launches`` the grid-chain launches the C
+    launcher reports.  piv, perm, info and the integer workspace share one
+    allocation."""
+    chain = _check_micro_request(micro, block, cluster, chain)
     m, w, lda, index, real, size = _check_panel(wrapper.__name__, panel, _REAL)
     micro = min(micro, m, w)  # one block spans the whole panel
-    if micro > PANEL_MICRO_MAX:
-        raise ValueError(
-            f"the micro-blocked kernels take blocks of at most "
-            f"{PANEL_MICRO_MAX} steps, got micro={micro}"
-        )
-    route, _, _, _, ws_reals, iws_ints = _micro_plan(m, w, size, micro, shadow, block,
-                                                     cluster, index)
+    _check_grid_micro(micro, block)
+    route, _, _, _, ws_reals, iws_ints, _ = _micro_plan(
+        m, w, size, micro, shadow, block, cluster, chain, index)
     dev = panel.device
     npiv = min(m, w)
     ints = torch.empty(npiv + m + 1 + iws_ints, dtype=torch.int32, device=dev)
@@ -669,50 +707,61 @@ def _launch_micro(wrapper, panel, pivot, micro, shadow, block, cluster):
     which = "shadow" if shadow else "basic"
     fn = getattr(lib, f"rf_panel_lu_{which}_{'f32' if size == 4 else 'f64'}")
     stream = torch.cuda.current_stream(dev).cuda_stream
+    grids = ctypes.c_int(0)
     wrapper.launches += 1
     if route == 0:
         wrapper.grid_route_launches += 1
     code = fn(
-        panel.data_ptr(), m, w, lda, int(bool(pivot)), micro, block, cluster,
+        panel.data_ptr(), m, w, lda, int(bool(pivot)), micro, block, cluster, chain,
         piv.data_ptr(), perm.data_ptr(), info.data_ptr(),
-        None if ws is None else ws.data_ptr(), ints[npiv + m + 1:].data_ptr(), index, stream,
+        None if ws is None else ws.data_ptr(), ints[npiv + m + 1:].data_ptr(),
+        ctypes.byref(grids), index, stream,
     )
+    wrapper.grid_block_launches += grids.value
     _kernels.check(lib, code, "panel_lu_micro launch")
     return piv, perm, info
 
 
 def panel_factor_shadow_cuda(panel: torch.Tensor, pivot: bool, micro: int, *,
-                             block: int = 0, cluster: int = 0):
+                             block: int = 0, cluster: int = 0, _chain: str = "auto"):
     """Launch the micro-blocked kernel of ``panel_variant='shadow'`` on
     ``panel`` in place.  Arguments, returns and stream rule as
-    :func:`panel_factor_cuda`; ``micro`` is cut to min(m, w) and may then
-    be at most ``PANEL_MICRO_MAX``.  Computes ``micro_blocked_lu(panel,
-    pivot, micro)`` bitwise.  A panel that fits a thread-block cluster
-    takes the cluster route with blocks of ``micro`` steps (``cluster``: 0
-    picks the size); taller panels, and ``block=-1``, take the grid route,
-    the grid-barrier kernel that stages each thread block's rows of the
-    current block in shared memory (see :func:`micro_plan`).
+    :func:`panel_factor_cuda`; ``micro`` (any positive int) is cut to
+    min(m, w).  Computes ``micro_blocked_lu(panel, pivot, micro)`` bitwise.
+    A panel that fits a thread-block cluster takes the cluster route with
+    blocks of ``micro`` steps (``cluster``: 0 picks the size); taller
+    panels, and ``block=-1``, take the grid route, the grid-barrier kernel
+    that stages each thread block's rows of the current block in shared
+    memory, up to ``PANEL_MICRO_MAX`` steps; past that a taller panel keeps
+    the cluster route with its leading blocks' chains on the grid (see
+    :func:`micro_plan`; ``_chain='grid'`` puts every block's there).
     ``panel_factor_shadow_cuda.launches`` counts the launches,
-    ``.grid_route_launches`` those on the grid route."""
-    return _launch_micro(panel_factor_shadow_cuda, panel, pivot, micro, True, block, cluster)
+    ``.grid_route_launches`` those on the grid route,
+    ``.grid_block_launches`` the blocks whose chain ran on the grid."""
+    return _launch_micro(panel_factor_shadow_cuda, panel, pivot, micro, True, block, cluster,
+                         _chain)
 
 
 panel_factor_shadow_cuda.launches = 0
 panel_factor_shadow_cuda.grid_route_launches = 0
+panel_factor_shadow_cuda.grid_block_launches = 0
 
 
 def panel_factor_basic_cuda(panel: torch.Tensor, pivot: bool, micro: int, *,
-                            block: int = 0, cluster: int = 0):
+                            block: int = 0, cluster: int = 0, _chain: str = "auto"):
     """Launch the micro-blocked kernel of ``panel_variant='basic'``: as
     :func:`panel_factor_shadow_cuda`, the same cluster route, and on the
     grid route the grid-barrier kernel that reads and writes the current
     block in device memory.  ``panel_factor_basic_cuda.launches`` counts the
-    launches, ``.grid_route_launches`` those on the grid route."""
-    return _launch_micro(panel_factor_basic_cuda, panel, pivot, micro, False, block, cluster)
+    launches, ``.grid_route_launches`` those on the grid route,
+    ``.grid_block_launches`` the blocks whose chain ran on the grid."""
+    return _launch_micro(panel_factor_basic_cuda, panel, pivot, micro, False, block, cluster,
+                         _chain)
 
 
 panel_factor_basic_cuda.launches = 0
 panel_factor_basic_cuda.grid_route_launches = 0
+panel_factor_basic_cuda.grid_block_launches = 0
 
 
 def panel_factor_noswap_cuda(panel: torch.Tensor, used0: torch.Tensor,

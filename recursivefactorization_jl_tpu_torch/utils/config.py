@@ -41,10 +41,11 @@ MICRO_VARIANTS = ("shadow", "basic")
 # width of the block whose trailing update is delayed).  From
 # chip_smoke.py's ``--sweep`` over 8/16/32/64 on an H100 (PERF.md).
 DEFAULT_PANEL_MICRO = 32
-# The widest block they take (kMicroMax of csrc/panel_lu_micro.cu, which
-# exports it as ``rf_panel_lu_micro_max``; the launcher holds the two
-# together).  The limit is checked on both devices, so that one
-# configuration factors on both or on neither.
+# The widest block of the micro-blocked kernels' grid route (kMicroMax of
+# csrc/panel_lu_micro.cu, which exports it as ``rf_panel_lu_micro_max``;
+# the launcher holds the two together).  The configuration takes any
+# ``panel_micro``: the cluster route, and its grid chain for panels too
+# tall for a cluster, take any block width.
 PANEL_MICRO_MAX = 64
 
 
@@ -71,10 +72,11 @@ class LUConfig:
       panels have one kernel and ignore the variant.
     * ``blocked_panel_variant``: the variant of the blocked schedule's
       panels; None means ``panel_variant``.
-    * ``panel_micro``: block width of the micro-blocked kernels; an int
-      from 1 to ``PANEL_MICRO_MAX`` (64) is taken as given, a larger one
-      raises on either device; ``'auto'`` means ``DEFAULT_PANEL_MICRO``.
-      The fori variants use it as their block width under
+    * ``panel_micro``: block width of the micro-blocked kernels; any
+      positive int is taken as given (a value at or above a panel's
+      min(m, w) makes that panel one block, with no boundary inside it, as
+      in the JAX package); ``'auto'`` means ``DEFAULT_PANEL_MICRO``.  The
+      fori variants use it as their block width under
       ``panel_boundary_precision='bf16x3'`` and ignore it otherwise.
     * ``tp_panel_backend``: the panel step of the tensor-parallel LU
       (parallel/blockcyclic.py): ``'auto'``/``'pallas'`` run the offset
@@ -166,11 +168,6 @@ class LUConfig:
             raise ValueError(
                 f"panel_micro must be 'auto' or a positive int, got "
                 f"{self.panel_micro!r}"
-            )
-        if self.panel_micro > PANEL_MICRO_MAX:
-            raise ValueError(
-                f"panel_micro is at most {PANEL_MICRO_MAX} (the widest block "
-                f"of the micro-blocked kernels), got {self.panel_micro}"
             )
         return self.panel_micro
 

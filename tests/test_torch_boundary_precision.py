@@ -113,6 +113,34 @@ def test_plain_matches_jax_fori2_bf16x3(shape, b, pivot):
         assert resid < JAX_TEST_RESID
 
 
+@pytest.mark.parametrize("b", [80, 96, 128])
+def test_plain_past_64_matches_jax_fori2_bf16x3(b):
+    """Blocks past 64 steps on a 96 x 96 panel, ipiv, perm and info equal
+    to the JAX package's fori2 kernel with the knob, the factors within
+    the JAX test's own tolerance at this size and the residual under its
+    bound.  At b = 80 one boundary (an 80-step block, then 16): the knob
+    changes only the trailing 16 x 16 block, which is held to the bf16x3
+    class; elsewhere the port's factors are its float32 form's bit for
+    bit.  At b >= w one block, no boundary: the port's factors are
+    ``unblocked_lu``'s bit for bit."""
+    shape = (96, 96)
+    port = _port_panel(shape, b, True)
+    ref = _jax_panel(shape, b, True, BF)
+    assert_pivots_equal(port, ref)
+    np.testing.assert_allclose(to_np(port[0]), ref[0], atol=JAX_TEST_ATOL)
+    assert lu_residual(_matrix(shape), port[0], port[2]) < JAX_TEST_RESID
+    if b < 96:
+        f32 = _port_panel(shape, b, True, "float32")[0]
+        knob = torch.zeros(shape, dtype=torch.bool)
+        knob[b:, b:] = True
+        assert torch.equal(port[0][~knob], f32[~knob])
+        _assert_bf16x3_class(port[0][b:, b:], ref[0][b:, b:],
+                             _jax_panel(shape, b, True, "float32")[0][b:, b:])
+    else:
+        for x, y in zip(port, unblocked_lu(tc(_matrix(shape), np.float32), True)):
+            assert torch.equal(x, y)
+
+
 def _cfgs(**kw):
     """The same knob in both packages (the JAX side on its Pallas kernels in
     interpret mode, the port on the CPU)."""
@@ -345,7 +373,9 @@ def _serial_boundaries(m, w, b):
 @pytest.mark.parametrize("m,w,b", [(1536, 512, 32), (4096, 512, 32), (8192, 512, 32),
                                    (1000, 100, 20), (64, 200, 16), (100, 40, 7), (33, 33, 1),
                                    (200, 96, 64), (700, 48, 64), (1, 5, 8), (5, 1, 8),
-                                   (96, 97, 32), (97, 96, 32)])
+                                   (96, 97, 32), (97, 96, 32), (4096, 512, 65),
+                                   (4096, 512, 128), (1536, 512, 256), (28672, 512, 32),
+                                   (300, 700, 200), (1536, 512, 512), (1536, 512, 5000)])
 def test_bf16x3_update_launches_per_boundary(m, w, b):
     """``bf16x3_updates`` lists the launches csrc/panel_cluster.cuh's
     `run_cluster` issues: one per block boundary with rows below the block
@@ -435,8 +465,10 @@ def test_invalid_values_raise():
         micro_blocked_lu(T, True, 4, "bf16")
     with pytest.raises(ValueError):
         micro_blocked_lu(T.double(), True, 4, BF)
-    with pytest.raises(ValueError):
-        rt.lu(A, config=rt.LUConfig(panel_boundary_precision=BF, panel_micro=65), device="cpu")
+    # the knob takes any block width (a block past 64 steps, on the CPU and
+    # on the card), as the JAX package does
+    F = rt.lu(A, config=rt.LUConfig(panel_boundary_precision=BF, panel_micro=65), device="cpu")
+    assert torch.equal(F.factors, unblocked_lu(T, True)[0]) and int(F.info) == 0
     # the kernel wrappers never take a CPU tensor (no silent fallback)
     with pytest.raises(ValueError):
         panel_factor_cuda(T, True, precision=BF)
@@ -446,7 +478,12 @@ def test_invalid_values_raise():
         panel_factor_cuda(T, True, block=-1, precision=BF)  # no grid route
     with pytest.raises(ValueError):
         panel_update_bf16x3_cuda(T, T, T)
-    with pytest.raises(ValueError):
-        bf16x3_plan(64, 32, block=65)
+    for bad in (dict(block=-1), dict(block=True), dict(_chain="cluster")):
+        with pytest.raises(ValueError):
+            bf16x3_plan(64, 32, **bad)
+    with pytest.raises(ValueError, match="_chain"):
+        panel_factor_cuda(T, True, precision=BF, _chain="wide")
+    with pytest.raises(ValueError, match="_chain"):  # the float32 form has no grid chain
+        panel_factor_cuda(T, True, _chain="grid")
     assert panel_factor_cuda.bf16x3_launches == 0
     assert panel_update_bf16x3_cuda.launches == 0

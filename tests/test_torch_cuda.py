@@ -977,10 +977,16 @@ def test_micro_kernels_on_ties_strided_panels_and_bad_arguments():
         for bad, micro in ((torch.zeros(8, 4, device="cuda", dtype=torch.float16), 4),
                            (torch.zeros(8, 4, device="cuda").T, 4),
                            (torch.zeros(8, 4, device="cuda", dtype=torch.complex64), 4),
-                           (torch.zeros(200, 100, device="cuda"), 65),
                            (torch.zeros(8, 4, device="cuda"), 0)):
             with pytest.raises(ValueError):
                 wrapper(bad, True, micro)
+        # past 64 steps: the cluster route takes it (the grid route does not)
+        W = torch.randn(200, 100, generator=g).cuda()
+        wf, wpiv, _, _ = micro_blocked_lu(W, True, 65)
+        P = W.clone()
+        assert torch.equal(wrapper(P, True, 65)[0], wpiv) and torch.equal(P, wf)
+        with pytest.raises(ValueError):
+            wrapper(W.clone(), True, 65, block=-1)
     # a micro beyond the panel is cut to it: one block, the unblocked result
     S = torch.randn(40, 24, generator=g).cuda()
     want = unblocked_lu(S, True)
@@ -1075,6 +1081,63 @@ def test_micro_kernels_on_both_routes(shape, micro, dtype):
                 (before[0] + 1, before[1] + (block < 0))
             assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
             assert int(kinfo) == int(info) == 10 and torch.equal(_bits(P), _bits(f))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(1536, 512), (700, 300), (300, 700)])
+@pytest.mark.parametrize("micro", [65, 128, 256, "w"])
+def test_micro_kernels_past_64_bitwise_equal_plain(shape, micro, dtype):
+    """Blocks past the grid route's 64 steps on the cluster route (the
+    delayed kernels staging them in chunks), both variants, and every
+    block's chain forced onto the grid: the plain version's bits, one
+    launch each, the grid chain's blocks counted (micro = w: one block)."""
+    need_cuda()
+    g = torch.Generator().manual_seed(40)
+    A = torch.randn(*shape, generator=g, dtype=dtype).cuda()
+    A[:, 9] = 0
+    mc = min(shape[1] if micro == "w" else micro, *shape)
+    f, piv, perm, info = micro_blocked_lu(A, True, mc)
+    blocks = -(-min(shape) // mc)
+    for wrapper, variant in ((panel_factor_shadow_cuda, "shadow"),
+                             (panel_factor_basic_cuda, "basic")):
+        for chain in ("auto", "grid"):
+            plan = micro_plan(*shape, dtype, mc, variant, _chain=chain)
+            assert plan["route"] == "cluster" and plan["blocks"] == blocks
+            if chain == "grid":
+                assert plan["grid_blocks"] == blocks
+            P = A.clone()
+            before = (wrapper.launches, wrapper.grid_route_launches, wrapper.grid_block_launches)
+            kpiv, kperm, kinfo = wrapper(P, True, mc, _chain=chain)
+            torch.cuda.synchronize()
+            assert (wrapper.launches, wrapper.grid_route_launches, wrapper.grid_block_launches) \
+                == (before[0] + 1, before[1], before[2] + plan["grid_blocks"])
+            assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
+            assert int(kinfo) == int(info) == 10 and torch.equal(_bits(P), _bits(f))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,micro", [((30000, 256), 128), ((28000, 600), 600)])
+def test_micro_kernels_past_64_on_panels_too_tall_for_a_cluster(shape, micro, dtype):
+    """Past 64 steps a panel too tall for a cluster keeps the cluster
+    route with its leading blocks' chains on the grid (a 600-wide block:
+    past the widest slab, so on the grid whatever the height): the plain
+    version's bits, no grid-route launch."""
+    need_cuda()
+    g = torch.Generator().manual_seed(41)
+    A = torch.randn(*shape, generator=g, dtype=dtype).cuda()
+    f, piv, perm, info = micro_blocked_lu(A, True, micro)
+    plan = micro_plan(*shape, dtype, micro)
+    assert plan["route"] == "cluster" and plan["grid_blocks"] >= 1
+    P = A.clone()
+    before = (panel_factor_basic_cuda.grid_route_launches,
+              panel_factor_basic_cuda.grid_block_launches)
+    kpiv, kperm, kinfo = panel_factor_basic_cuda(P, True, micro)
+    torch.cuda.synchronize()
+    assert (panel_factor_basic_cuda.grid_route_launches,
+            panel_factor_basic_cuda.grid_block_launches) == \
+        (before[0], before[1] + plan["grid_blocks"])
+    assert torch.equal(kpiv, piv) and torch.equal(kperm, perm) and int(kinfo) == int(info)
+    assert torch.equal(_bits(P), _bits(f))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -1209,7 +1272,7 @@ def test_butterfly_solve_on_the_card():
 def test_butterfly_values_default_to_the_card():
     """``generate_butterfly_values`` follows the device rule: no device
     means the card, with the values of the CPU stream; the micro-blocked
-    library's block limit is the one the configuration checks."""
+    library's grid-route block limit is the one the wrappers check."""
     need_cuda()
     uv = rt.generate_butterfly_values(64)
     assert uv.is_cuda and uv.dtype == torch.float64
@@ -1891,26 +1954,84 @@ def test_bf16x3_one_block_is_the_float32_kernel():
     assert bf16x3_plan(700, 48, 64)["blocks"] == 1
 
 
-def test_bf16x3_panel_too_tall_for_a_cluster_raises():
-    """The grid route has no block boundaries, so the bf16x3 form refuses a
-    panel too tall for a cluster at its block width (NotImplementedError,
-    no launch) instead of factoring it without the split; a narrower block
-    plans it."""
+def test_bf16x3_panel_too_tall_for_a_cluster_factors():
+    """A 40 000 x 512 panel (too tall for a cluster at 32-step blocks: every
+    block's chain on the grid) and ``lu`` of a 40 000 x 512 matrix (its
+    whole route: the same panel) under the knob, against
+    ``micro_blocked_lu(..., 'bf16x3')`` on the card: info equal, ipiv equal
+    or parting at a tie, factors in the class, the residual gate; the grid
+    chain's blocks counted, no grid-route launch."""
     need_cuda()
-    m = 40000
-    with pytest.raises(NotImplementedError, match="item 22"):
-        bf16x3_plan(m, 512, 32)
-    P = torch.zeros(m, 512, device="cuda")
-    k0, g0 = panel_factor_cuda.launches, panel_factor_cuda.bf16x3_launches
-    with pytest.raises(NotImplementedError, match=str(m)):
-        panel_factor_cuda(P, True, block=32, precision="bf16x3")
-    assert (panel_factor_cuda.launches, panel_factor_cuda.bf16x3_launches) == (k0, g0)
-    assert bf16x3_plan(24000, 512, 32)["route"] == "cluster"
-    assert bf16x3_plan(m, 512, 8)["route"] == "cluster"
-    # lu's whole route hands the 40000 x 512 matrix to the panel layer
-    A = torch.randn(m, 512, generator=torch.Generator().manual_seed(4)).cuda()
-    with pytest.raises(NotImplementedError, match="item 22"):
-        rt.lu(A, config=rt.LUConfig(panel_boundary_precision="bf16x3"))
+    m, w, b = 40000, 512, 32
+    plan = bf16x3_plan(m, w, b)
+    assert plan["route"] == "cluster" and plan["grid_blocks"] == plan["blocks"] == 16
+    assert bf16x3_plan(24000, w, b)["grid_blocks"] == 0
+    assert bf16x3_plan(m, w, 8)["grid_blocks"] == 0
+    A = torch.randn(m, w, generator=torch.Generator().manual_seed(4)).cuda()
+    ref = micro_blocked_lu(A, True, b, "bf16x3")
+    ref32 = micro_blocked_lu(A, True, b)[0]
+    P = A.clone()
+    k0 = (panel_factor_cuda.grid_block_launches, panel_factor_cuda.grid_route_launches)
+    out = (P, *panel_factor_cuda(P, True, block=b, precision="bf16x3"))
+    torch.cuda.synchronize()
+    assert (panel_factor_cuda.grid_block_launches, panel_factor_cuda.grid_route_launches) == \
+        (k0[0] + 16, k0[1])
+    _check_bf16x3_panel(A, out, ref, ref32, True)
+    F = rt.lu(A, config=rt.LUConfig(panel_boundary_precision="bf16x3"))
+    torch.cuda.synchronize()
+    assert panel_factor_cuda.grid_block_launches == k0[0] + 32
+    _check_bf16x3_panel(A, (F.factors, F.ipiv, F.p, F.info), ref, ref32, True)
+
+
+@pytest.mark.parametrize("shape,b", [((1536, 512), 32), ((4096, 512), 32), ((1000, 100), 20),
+                                     ((64, 200), 16), ((513, 513), 64), ((1536, 512), 128),
+                                     ((700, 300), 300)])
+def test_bf16x3_grid_chain_bitwise_equals_the_cluster_chain(shape, b):
+    """Every block's chain forced onto the grid on panels that fit a
+    cluster: factors, piv, perm and info bit for bit the cluster chain's,
+    with as many update launches; the grid chain's blocks counted."""
+    need_cuda()
+    g = torch.Generator().manual_seed(sum(shape) + b)
+    A = torch.randn(*shape, generator=g)
+    A[:, 7] = 0
+    A = A.cuda()
+    plan = bf16x3_plan(*shape, b)
+    outs = {}
+    for chain in ("auto", "grid"):
+        P = A.clone()
+        k0 = (panel_factor_cuda.grid_block_launches, panel_factor_cuda.bf16x3_update_launches)
+        got = panel_factor_cuda(P, True, block=b, precision="bf16x3", _chain=chain)
+        torch.cuda.synchronize()
+        outs[chain] = (P, *got)
+        assert panel_factor_cuda.grid_block_launches - k0[0] == \
+            (plan["blocks"] if chain == "grid" else plan["grid_blocks"])
+        assert panel_factor_cuda.bf16x3_update_launches - k0[1] == len(bf16x3_updates(*shape, b))
+    for x, y in zip(outs["auto"], outs["grid"]):
+        assert torch.equal(_bits(x), _bits(y))
+    assert int(outs["auto"][3]) == 8
+
+
+@pytest.mark.parametrize("nb", [65, 80, 128, 256])
+@pytest.mark.parametrize("rows,cols,pad", [(1000, 300, 0), (1000, 300, 3), (4065, 33, 0)])
+def test_bf16x3_update_past_64_steps(nb, rows, cols, pad):
+    """The update through K in chunks of 64: the tiled kernel bit for bit
+    the simple one, both within the class of the plain split."""
+    need_cuda()
+    g = torch.Generator().manual_seed(nb + rows + cols + pad)
+    big = torch.randn(rows + nb, nb + cols + pad, generator=g).cuda()
+
+    def views(X):
+        return X[nb:, nb:nb + cols], X[nb:, :nb], X[:nb, nb:nb + cols]
+
+    simple, tiled = big.clone(), big.clone()
+    panel_update_bf16x3_cuda(*views(simple), _update="simple")
+    panel_update_bf16x3_cuda(*views(tiled))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(tiled), _bits(simple))
+    C, L, U = views(big)
+    plain = C - schur_product(L, U, "bf16x3")
+    assert float((views(tiled)[0] - plain).abs().max()) < 1e-4 * nb
+    assert bf16x3_update_plan(rows, cols, nb)["kp"] == 64
 
 
 @pytest.mark.parametrize("schur", ["float32", "bf16x3"])

@@ -17,11 +17,19 @@ index, in the columns right of the block and updates every listed row still
 available with the block's rank-1 updates in step order.  Rows consumed
 before the block are never touched.
 
-``blocked_order_micro`` and ``blocked_order_lu_noswap`` do these steps with
-one rounded tensor op per rounding; the tests hold them bitwise to the
-plain versions, and the plain versions once more to the JAX package on the
-same seeds.  On the card tests/test_torch_cuda.py and ``chip_smoke.py``
-hold the kernels to the plain versions.
+A block whose live rows do not fit a cluster (the blocked forms: the
+micro-blocked kernels and the bf16x3 form) runs its chain on the grid
+instead: the live rows split into ranges, one candidate per range reduced
+by the kernels' `better`, the block's columns in place, the row moves read
+off each row's origin; ``grid_chain_order_micro`` emulates that order, and
+the tests hold it bitwise to the cluster route's.
+
+``blocked_order_micro``, ``grid_chain_order_micro`` and
+``blocked_order_lu_noswap`` do these steps with one rounded tensor op per
+rounding; the tests hold them bitwise to the plain versions, and the plain
+versions once more to the JAX package on the same seeds.  On the card
+tests/test_torch_cuda.py and ``chip_smoke.py`` hold the kernels to the
+plain versions.
 """
 
 import numpy as np
@@ -92,6 +100,109 @@ def blocked_order_micro(A, pivot, micro):
             acc = torch.zeros_like(A[k1:, k1:])
             for s in range(nb):
                 acc.add_(torch.outer(A[k1:, k0 + s], A[k0 + s, k1:]))
+            A[k1:, k1:].sub_(acc)
+    return A, piv, perm, torch.tensor(info, dtype=torch.int32)
+
+
+def _better(va, ia, vb, ib):
+    """csrc/rf_common.cuh `better`: a NaN beats numbers, a larger
+    magnitude a smaller one, the smaller row breaks ties."""
+    na, nb = va != va, vb != vb
+    if na != nb:
+        return na
+    if not na and va != vb:
+        return va > vb
+    return ia < ib
+
+
+def grid_chain_order_micro(A, pivot, micro, grid_blocks, G):
+    """The micro-blocked route's order with the chains of the leading
+    ``grid_blocks`` blocks on the grid (csrc/panel_cluster.cuh
+    `panel_grid_chain_kernel` on G CTAs): the live rows split into G
+    ranges, the block's columns in place; per step every range's
+    candidate (its first row of the largest magnitude, a NaN first), the G
+    candidates reduced by `better`, rows gk and kp swapped in the block's
+    columns with their perm ids and origins, the rows below scaled and
+    updated in the block's columns; then every row whose origin changed
+    is a row move, and the delayed pass follows as on the cluster route.
+    The later blocks take the cluster route (``blocked_order_micro``'s
+    chain).  Returns ``(LU, piv, perm, info)`` as ``micro_blocked_lu``
+    does."""
+    A = A.clone()
+    m, w = A.shape
+    steps = min(m, w)
+    piv = torch.arange(steps, dtype=torch.int32)
+    perm = torch.arange(m, dtype=torch.int32)
+    info = 0
+    for blk, k0 in enumerate(range(0, steps, micro)):
+        k1 = min(k0 + micro, steps)
+        nb = k1 - k0
+        if blk < grid_blocks:
+            rows = -(-(m - k0) // G)
+            src = torch.arange(k0, m)
+            for kk in range(nb):
+                gk, col = k0 + kk, k0 + kk
+                kp = gk
+                if pivot:
+                    best, bi = -1.0, m
+                    for g in range(G):
+                        lo, hi = max(gk, k0 + g * rows), min(m, k0 + (g + 1) * rows)
+                        if lo >= hi:
+                            continue
+                        mags = A[lo:hi, col].abs()
+                        q = lo + int(torch.argmax(mags))  # the first NaN, else the first max
+                        v = float(A[q, col].abs())
+                        if _better(v, q, best, bi):
+                            best, bi = v, q
+                    kp = bi
+                piv[gk] = kp
+                nz = bool(A[kp, col] != 0)
+                if nz and kp != gk:
+                    A[[gk, kp], k0:k1] = A[[kp, gk], k0:k1]
+                    perm[[gk, kp]] = perm[[kp, gk]]
+                    src[[gk - k0, kp - k0]] = src[[kp - k0, gk - k0]]
+                if nz:
+                    A[gk + 1:, col].mul_(torch.reciprocal(A[gk, col]))
+                elif info == 0:
+                    info = gk + 1 if pivot else -(gk + 1)
+                if kk + 1 < nb:
+                    A[gk + 1:, col + 1:k1].sub_(torch.outer(A[gk + 1:, col], A[gk, col + 1:k1]))
+            S = A[k0:, k0:k1].clone()
+        else:
+            S = A[k0:, k0:k1].clone()
+            src = torch.arange(m - k0)
+            pid = perm[k0:].clone()
+            for kk in range(nb):
+                kp = kk + int(torch.argmax(S[kk:, kk].abs())) if pivot else kk
+                piv[k0 + kk] = k0 + kp
+                nz = bool(S[kp, kk] != 0)
+                if nz and kp != kk:
+                    S[[kk, kp]] = S[[kp, kk]]
+                    src[[kk, kp]] = src[[kp, kk]]
+                    pid[[kk, kp]] = pid[[kp, kk]]
+                if nz:
+                    S[kk + 1:, kk].mul_(torch.reciprocal(S[kk, kk]))
+                elif info == 0:
+                    info = k0 + kk + 1 if pivot else -(k0 + kk + 1)
+                if kk + 1 < nb:
+                    S[kk + 1:, kk + 1:].sub_(torch.outer(S[kk + 1:, kk], S[kk, kk + 1:]))
+            perm[k0:] = pid
+            src = src + k0
+        # the delayed pass: the row moves outside the block's columns (every
+        # old value read before any is written), U rows, then the sum first
+        moved = [(i, int(s)) for i, s in zip(range(k0, m), src.tolist()) if s != i]
+        outside = [c for c in range(w) if not k0 <= c < k1]
+        if moved and outside:
+            dst = [i for i, _ in moved]
+            old = A[[s_ for _, s_ in moved]][:, outside].clone()
+            A[torch.tensor(dst)[:, None], torch.tensor(outside)[None, :]] = old
+        A[k0:, k0:k1] = S
+        for s_ in range(nb - 1):
+            A[k0 + s_ + 1:k1, k1:].sub_(torch.outer(A[k0 + s_ + 1:k1, k0 + s_], A[k0 + s_, k1:]))
+        if k1 < m and k1 < w:
+            acc = torch.zeros_like(A[k1:, k1:])
+            for s_ in range(nb):
+                acc.add_(torch.outer(A[k1:, k0 + s_], A[k0 + s_, k1:]))
             A[k1:, k1:].sub_(acc)
     return A, piv, perm, torch.tensor(info, dtype=torch.int32)
 
@@ -207,6 +318,62 @@ def test_micro_cluster_order_equals_micro_blocked_lu(micro, shape, pivot, dtype)
     A = _panel(7 * m + w, m, w, dtype, pivot)
     mc = min(micro, m, w)
     _assert_same(blocked_order_micro(A, pivot, mc), micro_blocked_lu(A, pivot, mc))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(256, 240), (240, 256), (256, 130)])
+@pytest.mark.parametrize("micro", [65, 96, 128, 200, 256])
+def test_micro_cluster_order_past_64_equals_micro_blocked_lu(micro, shape, dtype):
+    """Blocks of 65 to 256 steps (the delayed kernels stage them in chunks,
+    in the same order): tall, fat and narrow panels, ragged last blocks,
+    one block where micro covers the panel; pivots, perm and info exactly,
+    factors bitwise."""
+    m, w = shape
+    A = _panel(5 * m + w + micro, m, w, dtype, True)
+    mc = min(micro, m, w)
+    _assert_same(blocked_order_micro(A, True, mc), micro_blocked_lu(A, True, mc))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("micro, shape, grid_blocks, G", [
+    (16, (200, 64), 99, 7),     # every block's chain on the grid, ragged row ranges
+    (32, (200, 64), 1, 132),    # the first on the grid (more CTAs than rows), then a cluster
+    (12, (96, 40), 2, 5),       # ragged last block
+    (16, (40, 96), 99, 3),      # fat: the last block's solve
+    (96, (256, 200), 99, 16),   # past 64 steps
+    (130, (256, 256), 1, 9),
+    (256, (256, 200), 99, 4),   # one block on the grid (no delayed pass)
+])
+@pytest.mark.parametrize("pivot", [True, False])
+def test_grid_chain_order_equals_micro_blocked_lu(micro, shape, grid_blocks, G, pivot, dtype):
+    """The grid block chain's step order (candidates per row range, reduced
+    by `better`; the block's columns in place; the row moves from the
+    rows' origins), alone and followed by cluster blocks: pivots, perm and
+    info exactly, factors bitwise, as the cluster route gives them."""
+    m, w = shape
+    A = _panel(7 * m + w + micro, m, w, dtype, pivot)
+    mc = min(micro, m, w)
+    got = grid_chain_order_micro(A, pivot, mc, grid_blocks, G)
+    _assert_same(got, micro_blocked_lu(A, pivot, mc))
+    _assert_same(got, blocked_order_micro(A, pivot, mc))
+
+
+@pytest.mark.parametrize("kind, pivot", [("ties", True), ("zero_col", True),
+                                         ("zero_col", False), ("nan", True)])
+@pytest.mark.parametrize("micro, G", [(12, 5), (16, 132), (80, 7)])
+def test_grid_chain_order_on_ties_zero_column_and_nan(kind, pivot, micro, G):
+    """Exact ties across row ranges (the smallest row wins the reduction),
+    a zeroed column 9 (no swap, no scale, the update runs, info 10 / -10)
+    and two NaN candidates in column 3 in different ranges (the first NaN
+    row wins) on the grid chain."""
+    m, w = 96, 48
+    A = _panel(11, m, w, torch.float32, pivot, kind)
+    got = grid_chain_order_micro(A, pivot, min(micro, w), 99, G)
+    _assert_same(got, micro_blocked_lu(A, pivot, min(micro, w)))
+    if kind == "zero_col":
+        assert int(got[3]) == (10 if pivot else -10)
+    if kind == "nan":
+        assert int(got[1][3]) == m // 3
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -334,7 +501,8 @@ def test_noswap_plain_matches_pallas_on_the_emulation_seeds(shape, mask, pivot, 
 @pytest.mark.parametrize("kw, match", [
     ({"micro": 0}, "micro"), ({"micro": 2.0}, "micro"), ({"micro": True}, "micro"),
     ({"block": 8}, "block"), ({"block": 1.0}, "block"), ({"cluster": -2}, "cluster"),
-    ({"cluster": False}, "cluster"),
+    ({"cluster": False}, "cluster"), ({"_chain": "cluster"}, "_chain"),
+    ({"block": -1, "_chain": "grid"}, "_chain"),
 ])
 @pytest.mark.parametrize("variant", ["shadow", "basic"])
 def test_micro_wrappers_refuse_bad_arguments(variant, kw, match):
@@ -342,15 +510,16 @@ def test_micro_wrappers_refuse_bad_arguments(variant, kw, match):
     -1 only; ``cluster`` a size or 0; nothing is launched or counted."""
     wrapper = panel_mod.panel_factor_shadow_cuda if variant == "shadow" \
         else panel_mod.panel_factor_basic_cuda
-    args = {"micro": 4, "block": 0, "cluster": 0, **kw}
-    before = (wrapper.launches, wrapper.grid_route_launches)
+    args = {"micro": 4, "block": 0, "cluster": 0, "_chain": "auto", **kw}
+    before = (wrapper.launches, wrapper.grid_route_launches, wrapper.grid_block_launches)
     with pytest.raises(ValueError, match=match):
         wrapper(torch.zeros(8, 4), True, args["micro"], block=args["block"],
-                cluster=args["cluster"])
+                cluster=args["cluster"], _chain=args["_chain"])
     with pytest.raises(ValueError, match=match):
         panel_mod.micro_plan(64, 32, torch.float32, args["micro"], variant,
-                             block=args["block"], cluster=args["cluster"], device="cuda:0")
-    assert (wrapper.launches, wrapper.grid_route_launches) == before
+                             block=args["block"], cluster=args["cluster"], device="cuda:0",
+                             _chain=args["_chain"])
+    assert (wrapper.launches, wrapper.grid_route_launches, wrapper.grid_block_launches) == before
 
 
 @pytest.mark.parametrize("kw, match", [
@@ -379,9 +548,9 @@ def test_micro_and_noswap_plans_pass_their_requests_on(monkeypatch):
     build."""
     asked = []
 
-    def fake_micro(m, w, size, micro, shadow, block, cluster, index):
-        asked.append(("micro", m, w, size, micro, shadow, block, cluster, index))
-        return (1, micro, 16, 2, 1, 99) if block == 0 else (0, -1, 132, 1, 7, 8)
+    def fake_micro(m, w, size, micro, shadow, block, cluster, chain, index):
+        asked.append(("micro", m, w, size, micro, shadow, block, cluster, chain, index))
+        return (1, micro, 16, 2, 1, 99, chain) if block == 0 else (0, -1, 132, 1, 7, 8, 0)
 
     def fake_noswap(m, w, size, live, block, cluster, index):
         asked.append(("noswap", m, w, size, live, block, cluster, index))
@@ -391,22 +560,38 @@ def test_micro_and_noswap_plans_pass_their_requests_on(monkeypatch):
     monkeypatch.setattr(panel_mod, "_noswap_plan", fake_noswap)
     plan = panel_mod.micro_plan(1000, 40, torch.float32, 64, "basic", device="cuda:0")
     assert plan == {"route": "cluster", "block": 40, "cluster": 16, "grid": None,
-                    "blocks": 2, "ws_reals": 1, "iws_ints": 99}
+                    "blocks": 2, "ws_reals": 1, "iws_ints": 99, "grid_blocks": 0}
     plan = panel_mod.micro_plan(1000, 40, torch.float64, 12, block=-1, device="cuda:0")
     assert plan["route"] == "grid" and plan["grid"] == 132
     assert panel_mod.noswap_plan(300, 64, torch.float32, device="cuda:0")["iws_ints"] == 301
     panel_mod.noswap_plan(300, 64, torch.float64, live=150, block=8, cluster=4, device="cuda:0")
-    assert asked == [("micro", 1000, 40, 4, 40, False, 0, 0, 0),
-                     ("micro", 1000, 40, 8, 12, True, -1, 0, 0),
+    # past the grid route's 64 steps: the cluster route's plan, any width
+    plan = panel_mod.micro_plan(200, 100, torch.float32, 65, device="cuda:0")
+    assert plan["block"] == 65 and plan["grid_blocks"] == 0
+    plan = panel_mod.micro_plan(300, 256, torch.float32, 200, _chain="grid", device="cuda:0")
+    assert plan["grid_blocks"] == 1
+    assert asked == [("micro", 1000, 40, 4, 40, False, 0, 0, 0, 0),
+                     ("micro", 1000, 40, 8, 12, True, -1, 0, 0, 0),
                      ("noswap", 300, 64, 4, 300, 0, 0, 0),
-                     ("noswap", 300, 64, 8, 150, 8, 4, 0)]
+                     ("noswap", 300, 64, 8, 150, 8, 4, 0),
+                     ("micro", 200, 100, 4, 65, True, 0, 0, 0, 0),
+                     ("micro", 300, 256, 4, 200, True, 0, 0, 1, 0)]
     for bad in (lambda: panel_mod.micro_plan(64, 32, torch.complex64, 8, device="cuda:0"),
                 lambda: panel_mod.micro_plan(64, 32, torch.float32, 8, "fori", device="cuda:0"),
-                lambda: panel_mod.micro_plan(200, 100, torch.float32, 65, device="cuda:0"),
+                # the grid route (block=-1) takes at most 64 steps after the cut
+                lambda: panel_mod.micro_plan(200, 100, torch.float32, 65, block=-1,
+                                             device="cuda:0"),
+                lambda: panel_mod.micro_plan(200, 100, torch.float32, 8, block=-1,
+                                             _chain="grid", device="cuda:0"),
+                lambda: panel_mod.micro_plan(200, 100, torch.float32, 8, _chain="all",
+                                             device="cuda:0"),
                 lambda: panel_mod.noswap_plan(64, 32, torch.float16, device="cuda:0")):
         with pytest.raises(ValueError):
             bad()
-    assert len(asked) == 4
+    assert len(asked) == 6
+    # a micro past 64 cut to 64 or less by the panel takes the grid route
+    panel_mod.micro_plan(200, 40, torch.float32, 65, block=-1, device="cuda:0")
+    assert asked[-1] == ("micro", 200, 40, 4, 40, True, -1, 0, 0, 0)
 
 
 def test_physical_schedule_passes_the_live_count(monkeypatch):

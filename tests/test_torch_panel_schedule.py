@@ -336,10 +336,13 @@ def test_ctypes_signatures_match_the_c_entry_points():
     pointers where ctypes passes pointers: a mismatch would cut a pointer
     or shift every argument on the card.  The micro-blocked and no-swap
     entry points take the cluster route's block and cluster (and the
-    no-swap ones the live row count); the bf16x3 form takes its block,
-    cluster, the update kernel to force and a host count of its update
-    launches, its update alone the three row strides, nb and the kernel to
-    force, its plan the shape alone."""
+    no-swap ones the live row count, the micro-blocked ones and their plan
+    the chain to force, the micro-blocked ones a host count of their grid
+    chain launches); the bf16x3 form takes its block, cluster, the update
+    kernel and the chain to force and host counts of its update and grid
+    chain launches, its plan the chain too, its update alone the three row
+    strides, nb and the kernel to force, the update's plan the shape
+    alone."""
     import ctypes
     import re
 
@@ -359,10 +362,13 @@ def test_ctypes_signatures_match_the_c_entry_points():
     assert {"rf_panel_lu_bf16x3_plan", "rf_panel_lu_bf16x3_f32", "rf_panel_update_bf16x3_f32",
             "rf_panel_update_bf16x3_plan"} <= set(_kernels.SIGNATURES["panel_lu"])
     for name, params, lib in (
-            ("rf_panel_lu_shadow_f32", ("int micro", "int b", "int C"), "panel_lu_micro"),
+            ("rf_panel_lu_shadow_f32", ("int micro", "int b", "int C", "int chain",
+                                        "int* grids"), "panel_lu_micro"),
+            ("rf_panel_lu_micro_plan", ("int micro", "int chain", "int* out"), "panel_lu_micro"),
             ("rf_panel_lu_noswap_f64", ("int live", "int b", "int C"), "panel_lu_noswap"),
-            ("rf_panel_lu_bf16x3_f32", ("int b", "int C", "int simple", "int* updates"),
-             "panel_lu"),
+            ("rf_panel_lu_bf16x3_f32", ("int b", "int C", "int simple", "int chain",
+                                        "int* updates", "int* grids"), "panel_lu"),
+            ("rf_panel_lu_bf16x3_plan", ("int b", "int C", "int chain", "int* out"), "panel_lu"),
             ("rf_panel_update_bf16x3_f32", ("int ldl", "int ldu", "int ldc", "int nb",
                                             "int simple"), "panel_lu"),
             ("rf_panel_update_bf16x3_plan", ("int rows", "int cols", "int nb", "int* out"),

@@ -138,6 +138,22 @@ def test_micro_blocked_equals_unblocked_when_one_block_spans_it():
         micro_blocked_lu(A.to(torch.complex64), True, 8)
 
 
+@pytest.mark.parametrize("shape", [(40, 24), (64, 64), (12, 30), (96, 200)])
+@pytest.mark.parametrize("dtype,precision", [(np.float32, "float32"), (np.float64, "float32"),
+                                             (np.float32, "bf16x3")])
+@pytest.mark.parametrize("extra", [0, 1, 1000])
+def test_micro_at_or_past_min_mn_is_unblocked_lu_bitwise(shape, dtype, precision, extra):
+    """micro >= min(m, n) leaves one block with no boundary inside it: the
+    float32 form's factors, ipiv, perm and info are ``unblocked_lu``'s bit
+    for bit (a fat panel's trailing columns take the same products and
+    differences in the same order through the last block's solve), and the
+    bf16x3 form, with no update to split, the same."""
+    A = tc(np.random.default_rng(sum(shape) + extra).standard_normal(shape), dtype)
+    got = micro_blocked_lu(A, True, min(shape) + extra, precision)
+    for a, b in zip(got, unblocked_lu(A, True)):
+        assert torch.equal(a, b)
+
+
 def test_nan_candidate_wins_as_in_the_unblocked_kernel():
     """Deliberate difference from the static-unroll Pallas kernels, which
     clamp the pivot to row m - 1 when a candidate is NaN: the port takes
@@ -249,15 +265,19 @@ def test_variant_routes_and_micro_resolution():
     assert rt.LUConfig(panel_micro=8).resolved_panel_micro() == 8
     assert rt.LUConfig(blocked_panel_variant="basic").resolved_blocked_variant() == "basic"
     assert rt.LUConfig(panel_variant="shadow").resolved_blocked_variant() == "shadow"
-    for bad in (0, -4, "wide", 2.5, PANEL_MICRO_MAX + 1):
+    for bad in (0, -4, "wide", 2.5):
         with pytest.raises(ValueError):
             rt.LUConfig(panel_micro=bad).resolved_panel_micro()
     assert rt.LUConfig(panel_micro=PANEL_MICRO_MAX).resolved_panel_micro() == 64
-    # the kernels' block limit holds on the CPU route too: one
-    # configuration factors on both devices or on neither
-    with pytest.raises(ValueError, match="at most 64"):
-        rt.lu(_matrix((80, 80), True), device="cpu",
-              config=rt.LUConfig(panel_variant="basic", panel_micro=65))
+    # any positive width, as the JAX LUConfig takes it: past the grid
+    # route's 64 steps too (the cluster route and its grid chain take any)
+    for wide in (PANEL_MICRO_MAX + 1, 200, 10 ** 6):
+        assert rt.LUConfig(panel_micro=wide).resolved_panel_micro() == wide
+    A = _matrix((80, 80), True)
+    F = rt.lu(A, device="cpu", config=rt.LUConfig(panel_variant="basic", panel_micro=65))
+    want = micro_blocked_lu(tc(A, np.float32), True, 65)
+    assert torch.equal(F.factors, want[0]) and torch.equal(F.ipiv, want[1])
+    assert int(F.info) == 0 and lu_residual(A, F.factors, F.p) < residual_gate(A, np.float32, True)
     # the complex route factors under a micro variant (its own kernel's
     # plain version, CABS1)
     Z = _matrix((24, 24), True) + 1j * _matrix((24, 24), True)
@@ -270,3 +290,52 @@ def test_variant_routes_and_micro_resolution():
             wrapper(torch.zeros(8, 4), True, 4)
         with pytest.raises(ValueError):
             wrapper(torch.zeros(8, 4), True, 0)
+
+
+# micro past the grid route's 64 steps, on the JAX package's interpret-mode
+# kernels (each compiles a statically unrolled kernel: a few seconds each)
+@pytest.mark.parametrize("variant", ["shadow", "basic"])
+@pytest.mark.parametrize("micro", [80, 96])
+def test_micro_past_64_matches_pallas_kernels(variant, micro):
+    """A 96 x 96 float32 randn panel (numpy default_rng(0)) at micro 80 (a
+    real 80-step block, then 16) and 96 (one block): ipiv, perm and info
+    equal to the Pallas kernel's, factors within the JAX tests' tolerance
+    scaled by the largest entry (as tests/test_torch_panel_cluster_routes.py
+    has it); at micro >= w the port's factors are ``unblocked_lu``'s bit
+    for bit."""
+    A = np.random.default_rng(0).standard_normal((96, 96)).astype(np.float32)
+    port = micro_blocked_lu(tc(A, np.float32), True, micro)
+    ref = panel_factor_pallas(jx(A, np.float32), True, interpret=True, variant=variant,
+                              micro=micro)
+    assert_pivots_equal(port, ref)
+    scale = max(1.0, float(np.max(np.abs(np.asarray(ref[0])))))
+    np.testing.assert_allclose(to_np(port[0]), np.asarray(ref[0]), atol=ATOL32 * scale)
+    if micro >= 96:
+        for a, b in zip(port, unblocked_lu(tc(A, np.float32), True)):
+            assert torch.equal(a, b)
+
+
+# the configurations the port refused before: micro past 64 under the
+# bf16x3 knob (fori3), under shadow, and under fori with micro past n
+_F5 = [dict(panel_micro=128, panel_boundary_precision="bf16x3"),
+       dict(panel_micro=96, panel_variant="shadow"),
+       dict(panel_variant="fori", panel_micro=200, panel_boundary_precision="bf16x3")]
+
+
+@pytest.mark.parametrize("n,seed", [(96, 0), (130, 1)])
+@pytest.mark.parametrize("cfg", _F5, ids=["bf16x3_micro128", "shadow_micro96", "fori_micro200"])
+def test_wide_micro_configurations_factor_as_in_jax(cfg, n, seed):
+    """``lu`` of an n x n float32 randn matrix (numpy default_rng(seed))
+    under each configuration in both packages: ipiv, perm and info equal,
+    the factors together within the residual gate, the residual under it;
+    the port's factors are ``micro_blocked_lu``'s on the whole route."""
+    A = np.random.default_rng(seed).standard_normal((n, n)).astype(np.float32)
+    F = rt.lu(A, config=rt.LUConfig(**cfg), device="cpu")
+    G = rf.lu(jx(A, np.float32), config=rf.LUConfig(**cfg))
+    assert_pivots_equal((F.factors, F.ipiv, F.p, F.info), (G.factors, G.ipiv, G.p, G.info))
+    gate = residual_gate(A, np.float32, True)
+    np.testing.assert_allclose(to_np(F.factors), np.asarray(G.factors), atol=gate)
+    assert lu_residual(A, F.factors, F.p) < gate
+    prec = cfg.get("panel_boundary_precision", "float32")
+    want = micro_blocked_lu(tc(A, np.float32), True, cfg["panel_micro"], prec)
+    assert torch.equal(F.factors, want[0])
