@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernels-vs-plain only
     python3 chip_smoke.py --bf16x3   # build + phases 2g and 4g only
+    python3 chip_smoke.py --graph    # build + phase 3h only
     python3 chip_smoke.py --profile  # every phase + a device-time breakdown
     python3 chip_smoke.py --sweep    # every phase + the panel routing sweep
     python3 chip_smoke.py --log F    # also write the phase lines to file F
@@ -261,6 +262,37 @@ update of csrc/panel_cluster.cuh in csrc/panel_lu.cu's bf16x3 form), adds:
             beside the library.  ``--profile`` adds ``lu`` + ``lu_solve``
             under the knob at 1536 and 4096: the updates' device time and
             launches.
+
+The compiled entry points (utils/graphs.py: a CUDA graph per key, the
+counterpart of the JAX package's jax.jit programs, filled by
+utils.warmup.warmup) add:
+
+3h. graph   for each key (float32 n = 1536: the entry matrix, randn and
+            a zeroed column; float32 4096; float64, complex64,
+            ``schedule='physical'`` and ``panel_boundary_precision=
+            'bf16x3'`` at 1536; the bf16x3 form's cooperative grid block
+            chain on a 28 672 x 64 matrix; the smallest (m, 512) float32
+            matrix whose panel takes the cooperative grid route of
+            csrc/panel_lu.cu, found from plan_for): the eager call once
+            under torch.cuda.set_sync_debug_mode("error"), ``warmup`` (a
+            key it cannot capture must raise naming the key; the two
+            cooperative keys may be refused so, and are reported), the
+            memory_reserved the programs hold, ``lu`` + ``lu_solve`` by
+            replay bit for bit the eager call's (factors, ipiv, perm,
+            info, x; NaN for NaN) on each input and on a second one, one
+            replay per program and call, info, the residual gate,
+            SingularMatrixError under check; the batched perm and ipiv
+            pairs at 10 000 x 16 and 10 000 x 64 captured by
+            ``graphs.capturing()``; the entry step (the jitted step of
+            __graft_entry__.py: factor + solve) captured as one program;
+            CUDA-event ms per call in turns (eager, replay, the library's
+            lu_factor_ex + lu_solve) for the pair and for the solve alone,
+            and the idle share of each under torch.profiler; at the end
+            ``utils.warmup.clear_caches`` and the memory it frees.  The
+            ``warmup`` line of phase 1 captures too; its programs are
+            freed before phase 2, so that the main path runs eagerly
+            through the wrappers whose launches it counts.
+            ``--graph`` runs phases 1 and 3h alone.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
 before it, and the exit code is not 0.  Without CUDA, or without the
@@ -1455,6 +1487,364 @@ def bf16x3_timing_phase(rt, dev, gen, card, round_robin, timed):
     return update_rows, grid_rows, tall_row
 
 
+# phase 3h: the keys whose programs are captured, (name, shape, dtype name,
+# LUConfig fields, inputs); "entry" is randn + n*I (__graft_entry__.py's
+# matrix), "zero_col" randn with column 700 zeroed (info 701).  Tall keys
+# capture the factor only (warmup solves square shapes).  The grid route's
+# shape is found on the card: the smallest (m, 512) whose panel plan_for
+# sends to the cooperative grid kernel
+GRAPH_KEYS = (
+    ("f32", (1536, 1536), "float32", {}, ("entry", "randn", "zero_col")),
+    ("f32", (4096, 4096), "float32", {}, ("randn",)),
+    ("f64", (1536, 1536), "float64", {}, ("randn",)),
+    ("c64", (1536, 1536), "complex64", {}, ("randn",)),
+    ("physical", (1536, 1536), "float32", {"schedule": "physical"}, ("randn",)),
+    ("bf16x3", (1536, 1536), "float32", {"panel_boundary_precision": "bf16x3"}, ("randn",)),
+    # the bf16x3 form's blocks too tall for a cluster: the cooperative grid
+    # block chain (panel_grid_chain_kernel)
+    ("grid_chain", (28672, 64), "float32", {"panel_boundary_precision": "bf16x3"},
+     ("randn",)),
+)
+GRAPH_BATCHES = ((BATCH_B, 16), (BATCH_B, 64))
+# the capture stream's cuBLAS workspaces stay after the programs are freed
+GRAPH_WORKSPACE_SLACK = 64 << 20
+
+
+def graph_phase(rt, dev, card, round_robin):
+    """Phase 3h: the compiled entry points.  For every key of GRAPH_KEYS,
+    the batched pairs at GRAPH_BATCHES, the entry step captured whole and
+    the smallest shape on the panel kernel's cooperative grid route: the
+    eager call once under ``torch.cuda.set_sync_debug_mode("error")``,
+    ``utils.warmup.warmup`` (or ``graphs.capturing()``), the memory the
+    programs hold, every output of the replay bit for bit the eager
+    call's (NaN for NaN) on each input and on a second input, the
+    residual gate, CUDA-event ms per call in turns (eager, replay,
+    library) and the idle share of each under torch.profiler; at the end
+    ``clear_caches`` and the memory it gives back."""
+    import torch
+
+    from recursivefactorization_jl_tpu_torch.models import lu as lu_mod
+    from recursivefactorization_jl_tpu_torch.models import solve as solve_mod
+    from recursivefactorization_jl_tpu_torch.ops.panel import bf16x3_plan, panel_plan
+    from recursivefactorization_jl_tpu_torch.parallel import batched as batched_mod
+    from recursivefactorization_jl_tpu_torch.utils import graphs, warmup
+
+    warmup.clear_caches()
+    gen = torch.Generator(device=dev).manual_seed(16)
+    out = {}
+
+    def bits_equal(xs, ys):
+        for x, y in zip(xs, ys):
+            if x.dtype != y.dtype or x.shape != y.shape:
+                return False
+            if not (x.is_floating_point() or x.is_complex()):
+                if not torch.equal(x, y):
+                    return False
+                continue
+            if x.is_complex():
+                x, y = torch.view_as_real(x), torch.view_as_real(y)
+            ints = {8: torch.int64, 4: torch.int32, 2: torch.int16}[x.element_size()]
+            nx, ny = torch.isnan(x), torch.isnan(y)
+            if not (torch.equal(nx, ny) and torch.equal(x.masked_fill(nx, 0).view(ints),
+                                                        y.masked_fill(ny, 0).view(ints))):
+                return False
+        return True
+
+    def reserved():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    def no_sync(fn):
+        """``fn()`` with every synchronising torch call an error."""
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return res
+
+    def replays():
+        return sum(p.replays for p in graphs.programs().values())
+
+    def idle(fns, calls=3):
+        """Idle share of the wall, device busy ms and device records per
+        call of each callable, under torch.profiler (CUDA activity)."""
+        res = {}
+        for k, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            wall = []
+
+            def run():
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                wall.append((time.perf_counter() - t0) * 1e3)
+
+            rows = profiled_rows(run, device_rows, f"graph idle {k}")
+            busy = sum(r[0] for r in rows)
+            res[k] = dict(idle_share=1 - busy / wall[-1], busy_ms=busy / calls,
+                          device_records=sum(r[1] for r in rows) / calls)
+        return res
+
+    def host_ms(fns, reps=5):
+        """Median host time (ms) to enqueue one call of each callable: what
+        the host spends before the call returns, the device not waited
+        for."""
+        res = {}
+        for k, fn in fns.items():
+            ts = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            res[k] = sorted(ts)[len(ts) // 2]
+        return res
+
+    def matrix(shape, dtype, kind):
+        A = torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
+        if kind == "entry":
+            A += shape[0] * torch.eye(*shape, device=dev, dtype=dtype)
+        if kind == "zero_col":
+            A[:, 700] = 0
+        return A
+
+    def scaled_resid(A, F):
+        wide = torch.complex128 if A.is_complex() else torch.float64
+        r = float((F.L.to(wide) @ F.U.to(wide) - A.to(wide)[F.p.long()]).abs().max())
+        eps = torch.finfo(A.real.dtype if A.is_complex() else A.dtype).eps
+        return r / (A.shape[0] * eps * float(A.abs().max()))
+
+    def smallest_grid_rows(w=512):
+        """The fewest rows (a multiple of 512) of an (m, w) float32 panel
+        that plan_for sends to the grid route, or None up to 2**20."""
+        def grid(k):
+            return panel_plan(512 * k, w, torch.float32)["route"] == "grid"
+        hi = 1
+        while not grid(hi):
+            hi *= 2
+            if hi > 2048:
+                return None
+        lo = hi // 2
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (lo, mid) if grid(mid) else (mid, hi)
+        return 512 * hi
+
+    r_start = reserved()
+    held_total = 0
+    m_grid = smallest_grid_rows()
+    keys = list(GRAPH_KEYS)
+    if m_grid is not None:
+        keys.append(("grid_route", (m_grid, 512), "float32", {}, ("randn",)))
+    for name, shape, dname, fields, inputs in keys:
+        dtype = getattr(torch, dname)
+        cfg = rt.LUConfig(**fields)
+        square = shape[0] == shape[1]
+        mats = [matrix(shape, dtype, k) for k in inputs] + [matrix(shape, dtype, "randn")]
+        b = torch.randn(shape[1], generator=gen, device=dev, dtype=dtype)
+
+        def call(A):
+            F = rt.lu(A, check=False, config=cfg)
+            return (F, rt.lu_solve(F, b)) if square else (F, None)
+
+        def outputs(F, x):
+            return (F.factors, F.ipiv, F.p, F.info) + ((x,) if x is not None else ())
+
+        rec = dict(key=name, shape=list(shape), dtype=dname, config=fields,
+                   inputs=list(inputs), card=card)
+        eager = [no_sync(lambda A=A: call(A)) for A in mats]
+        rec["eager_no_sync"] = True
+        before = set(graphs.programs())
+        r0 = reserved()
+        try:
+            warmup.warmup((shape,), (dtype,), config=cfg)
+        except RuntimeError as e:
+            rec.update(captured=False, error=str(e)[:400])
+            emit("graph", **rec)
+            if name not in ("grid_route", "grid_chain") or "lu_factor" not in str(e):
+                fail(f"warmup could not capture {name}: {e}")
+            out[(name, shape[0])] = rec
+            continue
+        rec["held_bytes"] = reserved() - r0
+        held_total += rec["held_bytes"]
+        rec["programs"] = [k[0] for k in graphs.programs() if k not in before]
+        n0 = replays()
+        got = [call(A) for A in mats]
+        torch.cuda.synchronize()
+        rec["replays"] = replays() - n0
+        rec["bitwise"] = [bits_equal(outputs(*g), outputs(*e)) for g, e in zip(got, eager)]
+        rec["info"] = [int(g[0].info) for g in got]
+        rec["scaled_resid"] = [scaled_resid(A, g[0]) for A, g in zip(mats, got)]
+        if name == "grid_chain":
+            rec["grid_blocks"] = bf16x3_plan(*shape, 32)["grid_blocks"]
+        if name == "grid_route":
+            rec["plan"] = panel_plan(*shape, torch.float32)
+        if "zero_col" in inputs:
+            try:
+                rt.lu(mats[list(inputs).index("zero_col")], config=cfg)
+                rec["check_raises"] = False
+            except rt.SingularMatrixError:
+                rec["check_raises"] = True
+        A, (Fe, xe) = mats[0], eager[0]
+        pe = Fe.p if square else None
+
+        def eager_call():
+            # what the entry points run for a key without a program
+            f, _, p, _ = lu_mod._lu_factor_impl(A, True, cfg)
+            return solve_mod._lu_solve_impl(f, p, b, True, 0) if square else f
+
+        fns = {
+            "eager": eager_call,
+            "replay": lambda: call(A),
+            "library": (lambda: torch.linalg.lu_solve(*torch.linalg.lu_factor_ex(A)[:2],
+                                                      b[:, None])) if square
+            else (lambda: torch.linalg.lu_factor_ex(A)),
+        }
+        rec["ms"] = round_robin(fns, rounds=7, mirror=True)
+        if square:
+            LUl, piv, _ = torch.linalg.lu_factor_ex(A)
+            rec["solve_ms"] = round_robin({
+                "eager": lambda: solve_mod._lu_solve_impl(Fe.factors, pe, b, True, 0),
+                "replay": lambda: rt.lu_solve(Fe, b),
+                "library": lambda: torch.linalg.lu_solve(LUl, piv, b[:, None]),
+            }, rounds=9, inner=4, mirror=True)
+            del LUl, piv
+        rec["profile"] = idle(fns)
+        rec["host_ms"] = host_ms(fns)
+        emit("graph", captured=True, **rec)
+        out[(name, shape[0])] = rec
+        # the factor's program is new; the solve's key holds no config, so
+        # another key's warmup may have captured it already (as jax.jit
+        # shares the solve's program)
+        calls_per_input = 2 if square else 1
+        ok = (rec["programs"][:1] == ["lu_factor"]
+              and set(rec["programs"]) <= {"lu_factor", "lu_solve"} and all(rec["bitwise"])
+              and rec["replays"] == len(mats) * calls_per_input)
+        for k, i, sr in zip(list(inputs) + ["second"], rec["info"], rec["scaled_resid"]):
+            ok = ok and (i == 701 if k == "zero_col" else i == 0 and sr < 20)
+        if "zero_col" in inputs:
+            ok = ok and rec["check_raises"]
+        if name == "grid_chain":
+            ok = ok and rec["grid_blocks"] > 0
+        if name == "grid_route":
+            ok = ok and rec["plan"]["route"] == "grid"
+        if not ok:
+            fail(f"graph key {name}: {rec}")
+        del mats, eager, got, fns, A, Fe, xe
+
+    # the batched pairs, captured by graphs.capturing() around the calls
+    cfg = rt.default_config()
+    for B, n in GRAPH_BATCHES:
+        A, A2 = (torch.randn(B, n, n, generator=gen, device=dev) for _ in range(2))
+        b = torch.randn(B, n, generator=gen, device=dev)
+
+        def pairs(A):
+            f, perm, info = rt.batched_lu_factor_perm(A)
+            g, ipiv, ginfo = rt.batched_lu_factor(A)
+            return (f, perm, info, rt.batched_lu_solve_perm(f, perm, b),
+                    g, ipiv, ginfo, rt.batched_lu_solve(g, ipiv, b))
+
+        rec = dict(key="batched", shape=[B, n, n], dtype="float32", card=card)
+        eager = [no_sync(lambda A=A: pairs(A)) for A in (A, A2)]
+        rec["eager_no_sync"] = True
+        before = set(graphs.programs())
+        r0 = reserved()
+        with graphs.capturing():
+            pairs(A)
+        rec["held_bytes"] = reserved() - r0
+        held_total += rec["held_bytes"]
+        rec["programs"] = [k[0] for k in graphs.programs() if k not in before]
+        n0 = replays()
+        got = [pairs(M) for M in (A, A2)]
+        torch.cuda.synchronize()
+        rec["replays"] = replays() - n0
+        rec["bitwise"] = [bits_equal(g, e) for g, e in zip(got, eager)]
+        rec["info_nonzero"] = int((got[0][2] != 0).sum())
+        fe, pe = eager[0][0], eager[0][1]
+
+        def eager_pair():
+            # what the perm pair runs for a key without a program
+            f, perm, _ = batched_mod._batched_lu_factor_perm_impl(A, True, cfg)
+            return batched_mod._solve_impl(f, b, perm, 0, cfg, "perm")
+
+        fns = {
+            "eager": eager_pair,
+            "replay": lambda: rt.batched_lu_solve_perm(*rt.batched_lu_factor_perm(A)[:2], b),
+            "library": lambda: torch.linalg.lu_solve(*torch.linalg.lu_factor_ex(A)[:2],
+                                                     b[:, :, None]),
+        }
+        with quiet_c_stdout():
+            rec["ms"] = round_robin(fns, rounds=7, inner=4, mirror=True)
+            LUl, piv, _ = torch.linalg.lu_factor_ex(A)
+            rec["solve_ms"] = round_robin({
+                "eager": lambda: batched_mod._solve_impl(fe, b, pe, 0, cfg, "perm"),
+                "replay": lambda: rt.batched_lu_solve_perm(fe, pe, b),
+                "library": lambda: torch.linalg.lu_solve(LUl, piv, b[:, :, None]),
+            }, rounds=9, inner=4, mirror=True)
+            del LUl, piv
+            rec["profile"] = idle(fns)
+            rec["host_ms"] = host_ms(fns)
+        emit("graph", captured=True, **rec)
+        out[("batched", n)] = rec
+        if not (sorted(rec["programs"]) == sorted(["batched_lu_factor_perm", "batched_lu_factor",
+                                                   "batched_lu_solve_perm", "batched_lu_solve"])
+                and all(rec["bitwise"]) and rec["replays"] == 8):
+            fail(f"graph key batched {n}: {rec}")
+        del A, A2, b, eager, got, fns, fe, pe
+
+    # the entry step (__graft_entry__.py's jitted step): factor + solve as
+    # one program, the factor in place on the program's copy of A
+    n = 1536
+
+    def step(A, b):
+        factors, ipiv, perm, info = lu_mod._dispatch_factor(A, True, cfg)
+        return solve_mod._lu_solve_impl(factors, perm, b, True, 0), info
+
+    A, A2 = matrix((n, n), torch.float32, "entry"), matrix((n, n), torch.float32, "entry")
+    b = torch.randn(n, generator=gen, device=dev)
+    rec = dict(key="entry_step", shape=[n, n], dtype="float32", card=card)
+    eager = [no_sync(lambda M=M: step(M.clone(), b)) for M in (A, A2)]
+    rec["eager_no_sync"] = True
+    r0 = reserved()
+    program = graphs.capture("entry_step", step, (A, b), ())
+    rec["held_bytes"] = reserved() - r0
+    held_total += rec["held_bytes"]
+    got = [program(M, b) for M in (A, A2)]
+    torch.cuda.synchronize()
+    rec["bitwise"] = [bits_equal(g, e) for g, e in zip(got, eager)]
+    rec["info"] = [int(g[1]) for g in got]
+    fns = {"eager": lambda: step(A.clone(), b), "replay": lambda: program(A, b),
+           "library": lambda: torch.linalg.lu_solve(*torch.linalg.lu_factor_ex(A)[:2],
+                                                    b[:, None])}
+    rec["ms"] = round_robin(fns, rounds=7, mirror=True)
+    rec["profile"] = idle(fns)
+    rec["host_ms"] = host_ms(fns)
+    emit("graph", captured=True, **rec)
+    out["entry_step"] = rec
+    if not (all(rec["bitwise"]) and rec["info"] == [0, 0]):
+        fail(f"graph key entry_step: {rec}")
+    del program, got, eager, fns, A, A2, b
+
+    r_held = reserved()
+    warmup.clear_caches()
+    r_end = reserved()
+    rec = dict(key="clear_caches", card=card, reserved_start=r_start, reserved_held=r_held,
+               reserved_end=r_end, freed_bytes=r_held - r_end, held_bytes_measured=held_total,
+               programs_left=len(graphs.programs()))
+    emit("graph", **rec)
+    if not (rec["programs_left"] == 0 and r_end - r_start <= GRAPH_WORKSPACE_SLACK
+            and r_held - r_end > 0):
+        fail(f"clear_caches did not free the programs: {rec}")
+    return out
+
+
 def main(argv):
     import torch
 
@@ -1487,7 +1877,7 @@ def main(argv):
         unblocked_lu_cabs1,
         unblocked_lu_noswap,
     )
-    from recursivefactorization_jl_tpu_torch.utils import warmup
+    from recursivefactorization_jl_tpu_torch.utils import graphs, warmup
 
     quick = "--quick" in argv
     # phases 1, 2b and 4b only
@@ -1515,11 +1905,15 @@ def main(argv):
          ptxas=ptxas)
     print(card, flush=True)
     # utils.warmup after the build: the first factor + solve at the entry
-    # point's size (the kernels are built, so it only loads them)
+    # point's size (the kernels are built, so it only loads them) and the
+    # capture of their programs; then the programs are freed, so that the
+    # main path below runs eagerly through the wrappers it counts
     t0 = time.perf_counter()
     warmup.warmup(((1536, 1536),), (torch.float32,))
     emit("warmup", card=card, shapes=[[1536, 1536]], dtypes=["float32"],
-         seconds=time.perf_counter() - t0, build_seconds=build_s)
+         seconds=time.perf_counter() - t0, build_seconds=build_s,
+         programs=[k[0] for k in graphs.programs()])
+    warmup.clear_caches()
 
     cfg = rt.default_config()
     w_main = cfg.resolved_panel_width()
@@ -1573,6 +1967,10 @@ def main(argv):
         return {k: sorted(v)[len(v) // 2] for k, v in ts.items()}
 
     gen = torch.Generator(device="cpu").manual_seed(1)
+    if "--graph" in argv:  # phases 1 and 3h only
+        graph_phase(rt, dev, card, round_robin)
+        print(json.dumps({"ok": True, "graph_only": True}))
+        return 0
     if "--bf16x3" in argv:  # phases 1, 2g and 4g (and the bf16x3 profile) only
         bf16x3_kernel_phase(dev, gen)
         bf16x3_timing_phase(rt, dev, gen, card, round_robin, timed)
@@ -4126,6 +4524,7 @@ def main(argv):
     # ---- 4g. the bf16x3 form, in turns beside the float32 form -------------
     bf16x3_rows, grid_rows, tall_row = bf16x3_timing_phase(rt, dev, gen, card, round_robin,
                                                            timed)
+    graph_phase(rt, dev, card, round_robin)
 
     if "--profile" in argv:
         profile(rt, card, gen, dev, tp_mesh)

@@ -10,7 +10,15 @@ pivot rows, the prefix of ``perm``; solves, ``det`` and ``inv`` go by
 
 Device rule: every entry point takes ``device=None``, which means CUDA
 and raises when CUDA is absent.  The CPU runs only with ``device='cpu'``.
-There is no tracing, so ``check='auto'`` always checks.
+``check='auto'`` always checks, after the factorization, as the JAX
+package checks outside its jitted program.
+
+Compiled programs: ``lu_factor_p`` (and so ``lu_factor`` and ``lu``) is
+the counterpart of the JAX package's jitted ``_lu_factor``, keyed on
+``(shape, dtype, device, pivot, config)``: a key that
+``utils.warmup.warmup`` captured runs as the replay of its CUDA graph
+(utils/graphs.py), any other key eagerly.  ``donate=True`` and
+``lu_inplace`` run eagerly.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from ..utils.config import (
     full_matmul_precision,
     resolve_device,
 )
+from ..utils import graphs
 from ..utils.perm import ipiv_to_perm, perm_to_matrix
 
 
@@ -328,18 +337,25 @@ def _donated(A, device, what) -> torch.Tensor:
     return A
 
 
+def _lu_factor_impl(A: torch.Tensor, pivot: bool, config: LUConfig):
+    """The program of :func:`lu_factor_p` (the JAX package's jitted
+    ``_lu_factor``): factor a copy of ``A``."""
+    return _dispatch_factor(A.clone(memory_format=torch.contiguous_format), pivot, config)
+
+
 def lu_factor_p(A, pivot=True, *, config: Optional[LUConfig] = None,
                 donate: bool = False, device=None):
     """Factor ``A``: returns ``(factors, ipiv, perm, info)`` with ``L @ U
     == A[perm, :]``.  ``donate=False`` factors a copy and leaves ``A``
-    unchanged; ``donate=True`` factors ``A`` in place (a contiguous
+    unchanged, by the replay of the key's program where ``warmup``
+    captured one; ``donate=True`` factors ``A`` in place (a contiguous
     floating or complex tensor on the call's device, as for
-    :func:`lu_inplace`), and ``factors`` is then ``A`` itself."""
+    :func:`lu_inplace`), eagerly, and ``factors`` is then ``A`` itself."""
+    pivot = normalize_pivot(pivot)
+    config = config or default_config()
     if donate:
-        A = _donated(A, device, "lu_factor(donate=True)")
-    else:
-        A = _as_matrix(A, device).clone(memory_format=torch.contiguous_format)
-    return _dispatch_factor(A, normalize_pivot(pivot), config or default_config())
+        return _dispatch_factor(_donated(A, device, "lu_factor(donate=True)"), pivot, config)
+    return graphs.call("lu_factor", _lu_factor_impl, (_as_matrix(A, device),), (pivot, config))
 
 
 def lu_factor(A, pivot=True, *, config: Optional[LUConfig] = None,

@@ -12,15 +12,22 @@ the right-hand side takes the factors' type, as in the JAX package, but
 the substitutions run in float32 and the solution is rounded back to
 the half type.  PyTorch lacks several half operations on the CPU, and
 one rule on both devices keeps the CPU tests valid for the card.
+
+Compiled programs: ``lu_solve`` / ``ldiv`` (``_lu_solve_impl``),
+``lu_solve_refined`` (``_lu_solve_refined_impl``) and the fused ``solve``
+(``_solve_fused_impl``) are the counterparts of the JAX package's jitted
+functions of the same names, keyed as they are: the tensors' shapes,
+dtypes and device, ``pivoted`` and ``trans`` (and ``iters``, or ``pivot``
+and ``config``).  A key that ``utils.warmup.warmup`` captured runs as the
+replay of its CUDA graph (utils/graphs.py), any other key eagerly.
 """
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from ..ops import trsm
+from ..utils import graphs
 from ..utils.config import HALF_DTYPES, full_matmul_precision
 from ..utils.perm import invert_perm
 
@@ -83,10 +90,8 @@ def lu_solve(lu_res, b, trans=0) -> torch.Tensor:
     """Solve ``A x = b`` given ``lu_res = lu(A)``; ``b`` moves to the
     factorization's device."""
     perm = lu_res.p if lu_res.pivoted else lu_res.ipiv
-    return _lu_solve_impl(
-        lu_res.factors, perm, _rhs(lu_res, b), lu_res.pivoted,
-        normalize_trans(trans),
-    )
+    return graphs.call("lu_solve", _lu_solve_impl, (lu_res.factors, perm, _rhs(lu_res, b)),
+                       (lu_res.pivoted, normalize_trans(trans)))
 
 
 def ldiv(lu_res, b) -> torch.Tensor:
@@ -94,34 +99,34 @@ def ldiv(lu_res, b) -> torch.Tensor:
     return lu_solve(lu_res, b)
 
 
-@full_matmul_precision()
 def lu_solve_refined(lu_res, A, b, iters: int = 2, trans=0) -> torch.Tensor:
     """Solve with ``iters`` steps of iterative refinement,
     ``x += A \\ (b - A x)``, re-using the factorization.  The companion of
     the reduced-precision Schur modes; the residual product runs with
     TF32 off (for half factors in float32, rounded back at the end)."""
-    trans = normalize_trans(trans)
-    if lu_res.factors.dtype in HALF_DTYPES:
-        F32 = dataclasses.replace(lu_res, factors=lu_res.factors.float())
-        dev = lu_res.factors.device
-        x = lu_solve_refined(
-            F32, torch.as_tensor(A, device=dev).float(),
-            torch.as_tensor(b, device=dev).float(), iters, trans,
-        )
-        return x.to(lu_res.factors.dtype)
     perm = lu_res.p if lu_res.pivoted else lu_res.ipiv
     A = torch.as_tensor(A, device=lu_res.factors.device)
+    return graphs.call("lu_solve_refined", _lu_solve_refined_impl,
+                       (lu_res.factors, perm, A, _rhs(lu_res, b)),
+                       (lu_res.pivoted, normalize_trans(trans), iters))
+
+
+@full_matmul_precision()
+def _lu_solve_refined_impl(factors, perm, A, b, pivoted: bool, trans: int, iters: int):
+    if factors.dtype in HALF_DTYPES:
+        x = _lu_solve_refined_impl(factors.float(), perm, A.float(), b.float(), pivoted,
+                                   trans, iters)
+        return x.to(factors.dtype)
     if not (A.dtype.is_floating_point or A.dtype.is_complex):
-        A = A.to(lu_res.factors.dtype)  # an integer matrix's factors are float64
-    b = _rhs(lu_res, b)
-    x = _lu_solve_impl(lu_res.factors, perm, b, lu_res.pivoted, trans)
+        A = A.to(factors.dtype)  # an integer matrix's factors are float64
+    x = _lu_solve_impl(factors, perm, b, pivoted, trans)
     bm = b if b.ndim > 1 else b[:, None]
     op = A if trans == 0 else (A.T if trans == 1 else A.conj().T)
     for _ in range(iters):
         xm = x if x.ndim > 1 else x[:, None]
         r = bm.to(A.dtype) - op @ xm
         r = r if b.ndim > 1 else r[:, 0]
-        x = x + _lu_solve_impl(lu_res.factors, perm, r, lu_res.pivoted, trans)
+        x = x + _lu_solve_impl(factors, perm, r, pivoted, trans)
     return x
 
 
@@ -133,16 +138,7 @@ def solve(A, b, pivot=True, *, trans=0, check="auto", config=None,
     compose :func:`~.lu.lu` and :func:`lu_solve`.  A half ``A`` is
     promoted to float32 for the whole solve and the solution rounded
     back."""
-    from .lu import (
-        _check_info,
-        _dispatch_factor,
-        _resolve_check,
-        default_config,
-        dispatch_route,
-        lu,
-        normalize_pivot,
-    )
-    from ..ops.panel import panel_factor
+    from .lu import _check_info, _resolve_check, default_config, lu, normalize_pivot
     from ..utils.config import resolve_device
 
     trans = normalize_trans(trans)
@@ -159,17 +155,25 @@ def solve(A, b, pivot=True, *, trans=0, check="auto", config=None,
     if trans != 0 or A.ndim != 2 or A.shape[0] != A.shape[1]:
         F = lu(A, pivot, check=check, config=config, device=dev)
         return lu_solve(F, b, trans)
-    cfg = config or default_config()
-    n = A.shape[0]
     vec = b.ndim == 1
     B = (b[:, None] if vec else b).to(A.dtype)
-    Ab = torch.cat([A, B], dim=1)
-    with full_matmul_precision():
-        if dispatch_route(A.shape, A.dtype, pivot, cfg) == "whole":
-            f, _, _, info = panel_factor(Ab, pivot, cfg)
-        else:
-            f, _, _, info = _dispatch_factor(Ab, pivot, cfg)
-        x = trsm.solve_upper(f[:, :n], f[:, n:], cfg.trsm_block)
+    x, info = graphs.call("solve", _solve_fused_impl, (A, B), (pivot, config or default_config()))
     if _resolve_check(check):
         _check_info(info, pivot)
     return x[:, 0] if vec else x
+
+
+@full_matmul_precision()
+def _solve_fused_impl(A, B, pivot: bool, config):
+    """The fused solve's program: ``(x, info)`` of ``[A | B]``'s fat LU
+    and the upper solve."""
+    from .lu import _dispatch_factor, dispatch_route
+    from ..ops.panel import panel_factor
+
+    n = A.shape[0]
+    Ab = torch.cat([A, B], dim=1)
+    if dispatch_route(A.shape, A.dtype, pivot, config) == "whole":
+        f, _, _, info = panel_factor(Ab, pivot, config)
+    else:
+        f, _, _, info = _dispatch_factor(Ab, pivot, config)
+    return trsm.solve_upper(f[:, :n], f[:, n:], config.trsm_block), info

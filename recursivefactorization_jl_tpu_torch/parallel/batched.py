@@ -30,6 +30,12 @@ those library routes; ``backend='pallas'`` forces the kernels and raises
 for a shape they cannot run.  On the CPU (``device='cpu'``) the kernels'
 plain versions run instead.  ``device=None`` means CUDA and raises
 without it.
+
+The four unsharded functions are the counterparts of the JAX package's
+jitted ones, keyed on the tensors' shapes, dtypes and device and on
+``pivot`` / ``pivoted``, ``trans`` and ``config``: a key that was
+captured (utils/graphs.py, ``utils.warmup``) runs as the replay of its
+CUDA graph, any other key eagerly.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import torch
 from ..models.lu import lu_factor_p, normalize_pivot
 from ..models.solve import normalize_trans
 from ..ops import batched_kernel as bk
+from ..utils import graphs
 from ..utils.config import (
     HALF_DTYPES,
     LUConfig,
@@ -101,10 +108,6 @@ def _as_batch(A, device, square=False, what="batched_lu_factor"):
     if A.dim() != 3 or (square and A.shape[1] != A.shape[2]):
         want = "(B, n, n)" if square else "(B, m, n)"
         raise ValueError(f"{what} expects {want}, got {tuple(A.shape)}")
-    if not (A.dtype.is_floating_point or A.dtype.is_complex):
-        # integer and bool batches factor as float64, as scipy's lu_factor
-        # does (the single-device generic route)
-        A = A.to(torch.float64)
     return A
 
 
@@ -139,6 +142,10 @@ def _factor(A, pivot, config, want_perm: bool):
     but it breaks pivot ties by physical row and gives no ipiv,
     so routing ``batched_lu_factor_perm`` there is a change of its
     results, not of its speed alone (ROADMAP item 21)."""
+    if not (A.dtype.is_floating_point or A.dtype.is_complex):
+        # integer and bool batches factor as float64, as scipy's lu_factor
+        # does (the single-device generic route)
+        A = A.to(torch.float64)
     _, m, n = A.shape
     if A.dtype in HALF_DTYPES:
         f, ipiv, perm, info = _factor(A.float(), pivot, config, want_perm)
@@ -158,10 +165,12 @@ def batched_lu_factor(
     """Factor a batch ``A`` (B, m, n).  Returns ``(factors (B, m, n), ipiv
     (B, min(m, n)), info (B,))``; per matrix the conventions are those of
     :func:`~..models.lu.lu_factor`.  ``A`` is left unchanged."""
-    A = _as_batch(A, device)
-    f, ipiv, _, info = _factor(
-        A, normalize_pivot(pivot), config or default_config(), False
-    )
+    return graphs.call("batched_lu_factor", _batched_lu_factor_impl, (_as_batch(A, device),),
+                       (normalize_pivot(pivot), config or default_config()))
+
+
+def _batched_lu_factor_impl(A, pivot, config):
+    f, ipiv, _, info = _factor(A, pivot, config, False)
     return f, ipiv, info
 
 
@@ -175,9 +184,12 @@ def batched_lu_factor_perm(
     The factors are those of :func:`batched_lu_factor` and perm equals
     ``ipiv_to_perm(ipiv)``."""
     A = _as_batch(A, device, square=True, what="batched_lu_factor_perm")
-    f, _, perm, info = _factor(
-        A, normalize_pivot(pivot), config or default_config(), True
-    )
+    return graphs.call("batched_lu_factor_perm", _batched_lu_factor_perm_impl, (A,),
+                       (normalize_pivot(pivot), config or default_config()))
+
+
+def _batched_lu_factor_perm_impl(A, pivot, config):
+    f, _, perm, info = _factor(A, pivot, config, True)
     return f, perm, info
 
 
@@ -208,9 +220,11 @@ def _triangular_solve(factors, perm, b, pivoted: bool, trans: int):
     return x[:, :, 0] if vec else x
 
 
-def _solve(factors, b, pivoted, trans, config, dev, perm=None, ipiv=None):
-    """The solve behind both public functions: ``perm`` or ``ipiv`` says
-    how ``b``'s rows get into pivot order."""
+def _solve(kind, factors, b, pivoted, trans, config, dev, order):
+    """The solve behind both public functions: ``order`` is ``perm``
+    (``kind`` ``"batched_lu_solve_perm"``) or ``ipiv``, which says how
+    ``b``'s rows get into pivot order; checks, then the program of the
+    key."""
     factors = torch.as_tensor(factors, device=dev)
     b = torch.as_tensor(b, device=dev)
     if factors.dim() != 3 or factors.shape[1] != factors.shape[2]:
@@ -222,20 +236,22 @@ def _solve(factors, b, pivoted, trans, config, dev, perm=None, ipiv=None):
             f"right-hand sides {tuple(b.shape)} do not match factors "
             f"{tuple(factors.shape)}"
         )
+    order = torch.as_tensor(order, device=dev) if pivoted else None
+    by = "perm" if kind == "batched_lu_solve_perm" else "ipiv"
+    return graphs.call(kind, _solve_impl, (factors, b, order),
+                       (normalize_trans(trans), config or default_config(), by))
+
+
+def _solve_impl(factors, b, order, trans, config, by):
+    """Both substitutions by the route of the factors' shape, dtype and
+    device; ``order`` (None: no row order) is a ``perm`` or, ``by`` says,
+    an ``ipiv``."""
     if factors.dtype in HALF_DTYPES:
-        x = _solve(factors.float(), b.to(factors.dtype).float(), pivoted,
-                   trans, config, dev, perm=perm, ipiv=ipiv)
+        x = _solve_impl(factors.float(), b.to(factors.dtype).float(), order, trans, config, by)
         return x.to(factors.dtype)
-    trans = normalize_trans(trans)
-    if not pivoted:
-        perm = ipiv = None
-    if perm is not None:
-        perm = torch.as_tensor(perm, device=dev)
-    if ipiv is not None:
-        ipiv = torch.as_tensor(ipiv, device=dev)
-    config = config or default_config()
+    perm, ipiv = (order, None) if by == "perm" else (None, order)
     kernel = _use_solve_kernel(factors, b, trans, config)
-    if dev.type != "cuda" and config.backend != "xla":
+    if factors.device.type != "cuda" and config.backend != "xla":
         # the plain substitution takes any n; transposed solves have no
         # kernel and stay with the triangular solves
         kernel = trans == 0 and factors.dtype.is_floating_point
@@ -243,7 +259,7 @@ def _solve(factors, b, pivoted, trans, config, dev, perm=None, ipiv=None):
         return bk.batched_solve(factors, b, perm, ipiv)
     if ipiv is not None:
         perm = batched_ipiv_to_perm(ipiv, factors.shape[1])
-    return _triangular_solve(factors, perm, b, pivoted, trans)
+    return _triangular_solve(factors, perm, b, order is not None, trans)
 
 
 def batched_lu_solve_perm(
@@ -256,7 +272,8 @@ def batched_lu_solve_perm(
     gathers ``b`` by ``perm`` and does both substitutions; the rest runs
     batched triangular solves.  With ``pivoted=False`` ``perm`` is
     ignored."""
-    return _solve(factors, b, pivoted, trans, config, resolve_device(device), perm=perm)
+    return _solve("batched_lu_solve_perm", factors, b, pivoted, trans, config,
+                  resolve_device(device), perm)
 
 
 def batched_lu_solve(
@@ -268,7 +285,8 @@ def batched_lu_solve(
     On the kernel route the interchanges are applied to ``b`` inside the
     launch; the library route first folds them into a permutation (one
     small step per pivot, no host read)."""
-    return _solve(factors, b, pivoted, trans, config, resolve_device(device), ipiv=ipiv)
+    return _solve("batched_lu_solve", factors, b, pivoted, trans, config,
+                  resolve_device(device), ipiv)
 
 
 def _my_share(B: int, group_size: int, rank: int) -> slice:

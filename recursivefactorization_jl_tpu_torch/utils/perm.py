@@ -14,12 +14,11 @@ import torch
 
 def ipiv_to_perm(ipiv: torch.Tensor, m: int) -> torch.Tensor:
     """Fold the swap sequence ``ipiv`` into a permutation vector ``p`` of
-    length ``m`` such that ``A[p, :]`` applies the interchanges in order."""
-    piv = ipiv.detach().to("cpu", torch.int64).tolist()
-    perm = list(range(m))
-    for i, j in enumerate(piv):
-        perm[i], perm[j] = perm[j], perm[i]
-    return torch.tensor(perm, dtype=torch.int32, device=ipiv.device)
+    length ``m`` such that ``A[p, :]`` applies the interchanges in order.
+    The fold runs on ``ipiv``'s device, one step per pivot, with no host
+    read (as the JAX package's traced fold does), so a captured entry
+    point may reach it."""
+    return batched_ipiv_to_perm(ipiv[None], m)[0]
 
 
 def batched_ipiv_to_perm(ipiv: torch.Tensor, m: int) -> torch.Tensor:

@@ -2,18 +2,31 @@
 utils/warmup.py.
 
 The JAX package keeps compiled XLA programs in a persistent cache and
-pre-compiles its entry points.  The port has no tracing or compilation
-of its own; what a first call pays for is the ``nvcc`` build of the CUDA
-kernels (one process per source, all started together) and, per shape,
-the first launch's set-up (the cluster-size queries and plans that the
-launchers cache).
+pre-compiles its jitted entry points for the shapes a workload uses.
+The port's counterpart of a jitted program is a CUDA graph per key
+(utils/graphs.py).  What a first call pays for is the ``nvcc`` build of
+the CUDA kernels (one process per source, all started together), per
+shape the first launch's set-up (the cluster-size queries and plans that
+the launchers cache) and, without a warmup, one launch from Python at a
+time on every call.
 
 * :func:`enable_persistent_cache` sets the directory the kernels are
   built into and loaded from (``ops._kernels.BUILD_DIR``).  A library
   there is named by a hash of its source, the headers and the flags, so
   a later process with the same sources loads it without ``nvcc``.
-* :func:`warmup` builds every kernel and runs ``lu_factor`` (and
-  ``lu_solve`` for square shapes) once per shape and dtype.
+* :func:`warmup` builds every kernel, runs ``lu_factor`` (and
+  ``lu_solve`` of a vector for square shapes) once per shape and dtype,
+  and on the card captures the program of each of those keys: from then
+  on a call with that key (``lu_factor``, ``lu_factor_p`` or ``lu`` of a
+  matrix of that shape and dtype with the same ``pivot`` and ``config``;
+  ``lu_solve`` / ``ldiv`` of such a factorization and a vector of its
+  dtype, untransposed) runs as one copy into the program's inputs, one
+  graph replay and copies of its outputs, with the eager call's results
+  bit for bit.  Each key holds its graph's memory pool (about the memory
+  of one eager call of its shape) until :func:`clear_caches`.  A key
+  whose capture fails raises there, naming the key and the CUDA error.
+* :func:`clear_caches` frees every captured program and its memory (the
+  counterpart of ``jax.clear_caches``); later calls run eagerly again.
 """
 
 from __future__ import annotations
@@ -25,7 +38,8 @@ from typing import Iterable, Sequence, Tuple
 import torch
 
 from ..ops import _kernels
-from .config import resolve_device
+from . import graphs
+from .config import default_config, resolve_device
 
 
 def enable_persistent_cache(path: str = str(_kernels.USER_CACHE)) -> None:
@@ -49,22 +63,42 @@ def warmup(
     device=None,
 ) -> None:
     """Build every kernel, then factor (and, for a square shape and
-    ``solve``, solve with) the identity of each shape and dtype once, so
-    that the first real call pays neither the build nor the first launch.
-    ``device=None`` means CUDA and raises without it, as at every entry
-    point; on the CPU nothing is built and the plain versions run."""
-    from ..models.lu import LU, lu_factor_p
-    from ..models.solve import lu_solve
+    ``solve``, solve a vector with) the identity of each shape and dtype
+    once, and on the card capture the program of each of those keys, so
+    that a later call with the key pays neither the build, nor the first
+    launch, nor one host call per kernel.  ``device=None`` means CUDA and
+    raises without it, as at every entry point; on the CPU nothing is
+    built or captured and the plain versions run."""
+    from ..models.lu import normalize_pivot
 
     dev = resolve_device(device)
+    pivot = normalize_pivot(pivot)
+    config = config or default_config()
     if dev.type == "cuda":
         _kernels.build()
     for dtype in dtypes:
         for m, n in shapes:
             A = torch.eye(m, n, device=dev).to(dtype)
-            factors, ipiv, perm, info = lu_factor_p(A, pivot, config=config, device=dev)
-            if solve and m == n:
-                lu_solve(LU(factors, ipiv, info, pivoted=pivot, perm=perm),
-                         torch.zeros(n, dtype=factors.dtype, device=dev))
+            _factor_and_solve(A, pivot, solve and m == n, config)
+            if dev.type == "cuda":
+                with graphs.capturing():
+                    _factor_and_solve(A, pivot, solve and m == n, config)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _factor_and_solve(A, pivot, solve, config):
+    from ..models.lu import LU, lu_factor_p
+    from ..models.solve import lu_solve
+
+    factors, ipiv, perm, info = lu_factor_p(A, pivot, config=config, device=A.device)
+    if solve:
+        lu_solve(LU(factors, ipiv, info, pivoted=pivot, perm=perm),
+                 torch.zeros(A.shape[1], dtype=factors.dtype, device=A.device))
+
+
+def clear_caches() -> None:
+    """Free every program :func:`warmup` captured, with its graph's memory
+    pool (the counterpart of ``jax.clear_caches()``).  Later calls of
+    those keys run eagerly until a new warmup."""
+    graphs.clear()

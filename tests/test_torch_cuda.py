@@ -44,6 +44,7 @@ from recursivefactorization_jl_tpu_torch.ops.unblocked import (
     unblocked_lu_cabs1,
     unblocked_lu_noswap,
 )
+from recursivefactorization_jl_tpu_torch.utils import graphs, warmup
 from recursivefactorization_jl_tpu_torch.utils.config import PANEL_MICRO_MAX
 
 torch.set_num_threads(1)
@@ -2080,3 +2081,170 @@ def test_bf16x3_knob_leaves_the_batched_library_loop_in_float32():
     torch.cuda.synchronize()
     assert panel_factor_cuda.bf16x3_launches == k0
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# ---------------------------------------------------------------------------
+# the compiled entry points (utils/graphs.py): replays of captured programs
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def no_programs():
+    """A card and an empty program cache, emptied again afterwards."""
+    need_cuda()
+    warmup.clear_caches()
+    yield
+    warmup.clear_caches()
+
+
+def _replays():
+    return sum(p.replays for p in graphs.programs().values())
+
+
+def _card_matrix(shape, dtype, seed, shift=True):
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn(*shape, generator=g, dtype=torch.float64)
+    if dtype.is_complex:
+        A = torch.complex(A, torch.randn(*shape, generator=g, dtype=torch.float64))
+    if shift and len(shape) > 1:
+        A = A + shape[-1] * torch.eye(shape[-2], shape[-1], dtype=A.dtype)
+    return A.to(dtype).cuda()
+
+
+def _same_results(xs, ys):
+    """Each pair bitwise equal, NaN for NaN (any float, complex or
+    integer type)."""
+    def same(x, y):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if not (x.is_floating_point() or x.is_complex()):
+            return torch.equal(x, y)
+        if x.is_complex():
+            x, y = torch.view_as_real(x), torch.view_as_real(y)
+        ints = {8: torch.int64, 4: torch.int32, 2: torch.int16}[x.element_size()]
+        nx, ny = torch.isnan(x), torch.isnan(y)
+        return torch.equal(nx, ny) and torch.equal(x.masked_fill(nx, 0).view(ints),
+                                                   y.masked_fill(ny, 0).view(ints))
+    return all(same(x, y) for x, y in zip(xs, ys))
+
+
+def _lu_outputs(F):
+    return (F.factors, F.ipiv, F.p, F.info)
+
+
+@pytest.mark.parametrize("dtype,fields", [
+    (torch.float32, {}), (torch.float64, {}), (torch.complex64, {}), (torch.bfloat16, {}),
+    (torch.int32, {}), (torch.float32, {"schedule": "physical"}),
+    (torch.float32, {"panel_boundary_precision": "bf16x3"}),
+    (torch.float32, {"panel_variant": "shadow"}),
+])
+def test_warmed_lu_and_lu_solve_replay_bitwise_equal_eager(no_programs, dtype, fields):
+    """``warmup`` captures the factor and the vector solve of its key; the
+    replays give the eager call's bits, a second input gives its own
+    result, and a key that was not warmed runs eagerly."""
+    n, cfg = 700, rt.LUConfig(**fields)
+    A, A2 = (_card_matrix((n, n), dtype, s, shift=False) for s in (1, 2))
+    eager = rt.lu(A, check=False, config=cfg)
+    b = _card_matrix((n,), eager.factors.dtype, 3)
+    xe = rt.lu_solve(eager, b)
+    eager2 = rt.lu(A2, check=False, config=cfg)
+    warmup.warmup(((n, n),), (dtype,), config=cfg)
+    assert [k[0] for k in graphs.programs()] == ["lu_factor", "lu_solve"]
+    r0 = _replays()
+    F = rt.lu(A, check=False, config=cfg)
+    x = rt.lu_solve(F, b)
+    F2 = rt.lu(A2, check=False, config=cfg)
+    assert _replays() - r0 == 3
+    assert _same_results(_lu_outputs(F), _lu_outputs(eager)) and _same_results([x], [xe])
+    assert _same_results(_lu_outputs(F2), _lu_outputs(eager2))
+    assert not torch.equal(F2.factors, F.factors)
+    # not warmed: another shape, another config, a matrix right-hand side
+    rt.lu(A[:-1, :-1], check=False, config=cfg)
+    rt.lu(A, check=False, config=rt.LUConfig(trsm_block=64, **fields))
+    rt.lu_solve(F, torch.stack([b, b], 1))
+    assert _replays() - r0 == 3 and len(graphs.programs()) == 2
+
+
+def test_warmed_zeroed_column_checks_the_copied_info(no_programs):
+    A = _card_matrix((600, 600), torch.float32, 4)
+    A[:, 123] = 0
+    warmup.warmup(((600, 600),), (torch.float32,))
+    r0 = _replays()
+    with pytest.raises(rt.SingularMatrixError):
+        rt.lu(A)
+    F = rt.lu(A, check=False)
+    assert int(F.info) == 124 and _replays() - r0 == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex128])
+@pytest.mark.parametrize("trans", [0, 1, 2])
+def test_captured_solves_replay_bitwise_equal_eager(no_programs, dtype, trans):
+    """``lu_solve`` (N / T / H, a matrix right-hand side), ``lu_solve_refined``
+    and the fused ``solve``, each captured per its key."""
+    n = 640
+    A = _card_matrix((n, n), dtype, 5, shift=False)
+    F = rt.lu(A, check=False)
+    B, B2 = (_card_matrix((n, 3), dtype, s) for s in (6, 7))
+    calls = [lambda B: rt.lu_solve(F, B, trans),
+             lambda B: rt.lu_solve_refined(F, A, B[:, 0], iters=2, trans=trans),
+             lambda B: rt.solve(A, B, trans=trans, check=False)]
+    eager = [[c(B), c(B2)] for c in calls]
+    with graphs.capturing():
+        for c in calls:
+            c(B)
+    kinds = sorted(k[0] for k in graphs.programs())
+    assert kinds == sorted(["lu_solve", "lu_solve_refined", "solve" if trans == 0 else "lu_factor"])
+    r0 = _replays()
+    for c, (e, e2) in zip(calls, eager):
+        assert _same_results([c(B)], [e]) and _same_results([c(B2)], [e2])
+    assert _replays() - r0 == 6 + (2 if trans else 0)  # a transposed solve is lu + lu_solve
+
+
+@pytest.mark.parametrize("n", [16, 64])
+def test_captured_batched_pairs_replay_bitwise_equal_eager(no_programs, n):
+    A, A2 = (_card_matrix((1000, n, n), torch.float32, s, shift=False) for s in (8, 9))
+    b = _card_matrix((1000, n), torch.float32, 10)
+
+    def pairs(A):
+        f, perm, info = rt.batched_lu_factor_perm(A)
+        x = rt.batched_lu_solve_perm(f, perm, b)
+        g, ipiv, ginfo = rt.batched_lu_factor(A)
+        y = rt.batched_lu_solve(g, ipiv, b)
+        return f, perm, info, x, g, ipiv, ginfo, y
+
+    eager, eager2 = pairs(A), pairs(A2)
+    launches = (bk.batched_lu_cuda.launches, bk.batched_solve_cuda.launches)
+    with graphs.capturing():
+        pairs(A)
+    assert len(graphs.programs()) == 4
+    r0 = _replays()
+    assert _same_results(pairs(A), eager) and _same_results(pairs(A2), eager2)
+    assert _replays() - r0 == 8
+    # the warm runs and the captures went through the wrappers, the replays do not
+    assert bk.batched_lu_cuda.launches - launches[0] == 4
+    assert bk.batched_solve_cuda.launches - launches[1] == 4
+
+
+def test_clearing_the_programs_frees_their_memory(no_programs):
+    A = _card_matrix((1024, 1024), torch.float32, 11)
+    warmup.warmup(((1024, 1024),), (torch.float32,))  # the capture stream's workspaces
+    warmup.clear_caches()
+    r0 = torch.cuda.memory_reserved()
+    warmup.warmup(((1024, 1024),), (torch.float32,))
+    torch.cuda.empty_cache()
+    r1 = torch.cuda.memory_reserved()
+    warmup.clear_caches()
+    r2 = torch.cuda.memory_reserved()
+    assert r1 - r0 >= A.numel() * A.element_size()  # the static input and factors at least
+    assert r2 <= r0
+    F = rt.lu(A, check=False)  # eager again
+    assert graphs.programs() == {} and int(F.info) == 0
+
+
+def test_a_capture_that_fails_names_its_key(no_programs):
+    """A program that synchronises cannot be captured: ``capture`` raises
+    with the key and the CUDA error, and caches nothing."""
+    A = torch.eye(8, device="cuda")
+    with pytest.raises(RuntimeError, match="could not capture the program of .*sync_probe"):
+        graphs.capture("sync_probe", lambda A: A * float(A.sum()), (A,), ())
+    assert graphs.programs() == {}
