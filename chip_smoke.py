@@ -287,12 +287,32 @@ utils.warmup.warmup) add:
             __graft_entry__.py: factor + solve) captured as one program;
             CUDA-event ms per call in turns (eager, replay, the library's
             lu_factor_ex + lu_solve) for the pair and for the solve alone,
-            and the idle share of each under torch.profiler; at the end
-            ``utils.warmup.clear_caches`` and the memory it frees.  The
+            and the idle share of each under torch.profiler.  Then the
+            keys ``graphs.capturing()`` captures around the rest of the
+            entry points (GRAPH_MORE): ``lu_inplace`` (the donated
+            program: f32 1536 on the entry matrix and a zeroed column,
+            info 701 and SingularMatrixError through the copied info, and
+            4096; beside ``lu`` by replay), the RBT solver (a Wilkinson
+            matrix of n = 801 in f64, padded to 804, and randn + n*I at
+            1536 in f32, refine 0 and 2, a vector and a matrix right-hand
+            side: ``butterfly_workspace`` with its values held as the
+            program's constant, ``butterfly_solve``, ``UV``), ``tp_lu`` +
+            ``tp_lu_solve`` N/T/H in the NCCL world of one rank (n = 4096
+            f32 at w = 128 and 512, complex64 at w = 128) and the sharded
+            pair there at 10 000 x 64 x 64: the eager call under the sync
+            debug mode (RBT: the programs' own code, its values made
+            first: their copy from the CPU generator is the one host
+            operation, made outside the graph), the capture, every output
+            of the replay bit for bit the eager call's on two inputs, the
+            gates, ms in turns (eager, replay, library), idle shares, host
+            ms, memory held; a gloo group asked to capture must raise
+            naming its backend.  At the end ``utils.warmup.clear_caches``
+            and the memory it frees.  The
             ``warmup`` line of phase 1 captures too; its programs are
             freed before phase 2, so that the main path runs eagerly
             through the wrappers whose launches it counts.
-            ``--graph`` runs phases 1 and 3h alone.
+            ``--graph`` runs phases 1 and 3h alone (in an NCCL world of
+            one rank of its own).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
 before it, and the exit code is not 0.  Without CUDA, or without the
@@ -1506,11 +1526,23 @@ GRAPH_KEYS = (
      ("randn",)),
 )
 GRAPH_BATCHES = ((BATCH_B, 16), (BATCH_B, 64))
+# the keys captured by graphs.capturing() around the rest of the entry
+# points: (kind, n, dtype name, inputs or panel width, refine / rhs columns)
+GRAPH_MORE = (
+    ("lu_inplace", 1536, "float32", ("entry", "zero_col")),
+    ("lu_inplace", 4096, "float32", ("randn",)),
+    ("rbt", 801, "float64", ((0, None), (2, 4), (0, 4), (2, None))),
+    ("rbt", 1536, "float32", ((0, None), (2, 4), (0, 4), (2, None))),
+    ("tp", 4096, "float32", 128),
+    ("tp", 4096, "float32", 512),
+    ("tp", 4096, "complex64", 128),
+    ("sharded", 64, "float32", BATCH_B),
+)
 # the capture stream's cuBLAS workspaces stay after the programs are freed
 GRAPH_WORKSPACE_SLACK = 64 << 20
 
 
-def graph_phase(rt, dev, card, round_robin):
+def graph_phase(rt, dev, card, round_robin, tp_mesh, dp_mesh):
     """Phase 3h: the compiled entry points.  For every key of GRAPH_KEYS,
     the batched pairs at GRAPH_BATCHES, the entry step captured whole and
     the smallest shape on the panel kernel's cooperative grid route: the
@@ -1519,8 +1551,11 @@ def graph_phase(rt, dev, card, round_robin):
     programs hold, every output of the replay bit for bit the eager
     call's (NaN for NaN) on each input and on a second input, the
     residual gate, CUDA-event ms per call in turns (eager, replay,
-    library) and the idle share of each under torch.profiler; at the end
-    ``clear_caches`` and the memory it gives back."""
+    library) and the idle share of each under torch.profiler; the same
+    for the keys of GRAPH_MORE, captured by ``graphs.capturing()`` (the
+    tp and sharded ones over ``tp_mesh`` / ``dp_mesh``, NCCL worlds of
+    one rank); at the end ``clear_caches`` and the memory it gives
+    back."""
     import torch
 
     from recursivefactorization_jl_tpu_torch.models import lu as lu_mod
@@ -1832,6 +1867,9 @@ def graph_phase(rt, dev, card, round_robin):
         fail(f"graph key entry_step: {rec}")
     del program, got, eager, fns, A, A2, b
 
+    held_total += graph_more(rt, dev, card, round_robin, tp_mesh, dp_mesh, gen, bits_equal,
+                             reserved, no_sync, replays, idle, host_ms, matrix, scaled_resid)
+
     r_held = reserved()
     warmup.clear_caches()
     r_end = reserved()
@@ -1843,6 +1881,249 @@ def graph_phase(rt, dev, card, round_robin):
             and r_held - r_end > 0):
         fail(f"clear_caches did not free the programs: {rec}")
     return out
+
+
+def graph_more(rt, dev, card, round_robin, tp_mesh, dp_mesh, gen, bits_equal, reserved,
+               no_sync, replays, idle, host_ms, matrix, scaled_resid):
+    """Phase 3h's keys of GRAPH_MORE (graph_phase's helpers passed in).
+    Returns the bytes their programs hold."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from recursivefactorization_jl_tpu_torch.models import butterfly as rbt_mod
+    from recursivefactorization_jl_tpu_torch.models import lu as lu_mod
+    from recursivefactorization_jl_tpu_torch.parallel import batched as batched_mod
+    from recursivefactorization_jl_tpu_torch.parallel import blockcyclic as tp_mod
+    from recursivefactorization_jl_tpu_torch.utils import graphs
+
+    cfg = rt.default_config()
+    held_total = 0
+
+    def wide(t):
+        return t.to(torch.complex128) if t.is_complex() else t.double()
+
+    def solve_resid(A, x, b):
+        Ad, xd, bd = wide(A), wide(x), wide(b)
+        return float((Ad @ xd - bd).norm() / (Ad.norm() * xd.norm()))
+
+    def key(rec, run, inputs, eager_no_sync, fns, want_programs, want_replays):
+        """Eager under the sync debug mode, the capture, the replays bit
+        for bit on each input, ms in turns, idle shares, host ms and the
+        memory held; ``rec`` gets them.  Returns the replays' outputs."""
+        nonlocal held_total
+        eager = [run(*M) for M in inputs]
+        for M in inputs:
+            no_sync(lambda M=M: eager_no_sync(*M))
+        rec["eager_no_sync"] = True
+        before = set(graphs.programs())
+        r0 = reserved()
+        with graphs.capturing():
+            run(*inputs[0])
+        rec["held_bytes"] = reserved() - r0
+        held_total += rec["held_bytes"]
+        rec["programs"] = sorted(k[0] for k in graphs.programs() if k not in before)
+        n0 = replays()
+        got = [run(*M) for M in inputs]
+        torch.cuda.synchronize()
+        rec["replays"] = replays() - n0
+        rec["bitwise"] = [bits_equal(g, e) for g, e in zip(got, eager)]
+        rec["ms"] = round_robin(fns, rounds=7, mirror=True)
+        rec["profile"] = idle(fns)
+        rec["host_ms"] = host_ms(fns)
+        rec["ok_programs"] = rec["programs"] == sorted(want_programs)
+        rec["ok_replays"] = rec["replays"] == want_replays
+        return got
+
+    def done(rec, ok):
+        emit("graph", captured=True, **rec)
+        if not (ok and rec["ok_programs"] and rec["ok_replays"] and all(rec["bitwise"])):
+            fail(f"graph key {rec['key']}: {rec}")
+
+    for kind, n, dname, what in GRAPH_MORE:
+        dtype = getattr(torch, dname)
+        rec = dict(key=kind, n=n, dtype=dname, card=card)
+        if kind == "lu_inplace":
+            mats = [(matrix((n, n), dtype, k),) for k in what] + [(matrix((n, n), dtype,
+                                                                          "randn"),)]
+            rec["inputs"] = list(what) + ["second"]
+
+            def run(A):
+                T = A.clone()
+                F = rt.lu_inplace(T, check=False)
+                if F.factors is not T:
+                    fail("lu_inplace: the factors are not the caller's tensor")
+                return F.factors, F.ipiv, F.p, F.info
+
+            A = mats[0][0]
+            fns = {"eager": lambda: lu_mod._dispatch_factor(A.clone(), True, cfg),
+                   "replay": lambda: run(A),
+                   "library": lambda: torch.linalg.lu_factor_ex(A)}
+            if n == 1536:  # lu's program of this key, captured by the warmup above
+                fns["lu_replay"] = lambda: rt.lu(A, check=False, config=rt.LUConfig())
+            got = key(rec, run, mats, run, fns, ["lu_factor_donated"], len(mats))
+            if n == 1536:
+                n0 = replays()
+                fns["lu_replay"]()
+                rec["lu_replay_replays"] = replays() - n0
+            rec["info"] = [int(g[3]) for g in got]
+            rec["scaled_resid"] = [scaled_resid(M[0], rt.LU(g[0], g[1], g[3], perm=g[2]))
+                                   for M, g in zip(mats, got)]
+            ok = True
+            for k, i, sr in zip(rec["inputs"], rec["info"], rec["scaled_resid"]):
+                ok = ok and (i == 701 if k == "zero_col" else i == 0 and sr < 20)
+            if "zero_col" in what:
+                try:
+                    rt.lu_inplace(mats[list(what).index("zero_col")][0].clone())
+                    rec["check_raises"] = False
+                except rt.SingularMatrixError:
+                    rec["check_raises"] = True
+                ok = ok and rec["check_raises"]
+            done(rec, ok)
+            del mats, got, fns, A
+        elif kind == "rbt":
+            if dtype == torch.float64:  # Wilkinson's matrix, pivot growth 2^(n-1)
+                W = torch.eye(n, dtype=dtype, device=dev) - torch.ones(
+                    n, n, dtype=dtype, device=dev).tril(-1)
+                W[:, -1] = 1
+                A, A2 = W, W + 0.5 * torch.eye(n, dtype=dtype, device=dev)
+                rec["inputs"] = ["wilkinson", "wilkinson + I/2"]
+            else:
+                A, A2 = matrix((n, n), dtype, "entry"), matrix((n, n), dtype, "entry")
+                rec["inputs"] = ["entry", "entry (second)"]
+            rec["padded"] = n + (-n) % 4
+            # the values of every key of this size: their copy from the CPU
+            # generator is the one host operation, made outside the graphs
+            uv = rbt_mod.generate_butterfly_values(rec["padded"], rbt_mod.DEFAULT_SEED, dtype,
+                                                   dev)
+            for refine, cols in what:
+                shape = (n,) if cols is None else (n, cols)
+                b, b2 = (torch.rand(*shape, generator=gen, device=dev, dtype=dtype)
+                         for _ in range(2))
+                sub = dict(rec, refine=refine, rhs=list(shape))
+
+                def run(A, b, refine=refine):
+                    ws = rt.butterfly_workspace(A, b)
+                    x, info = rt.butterfly_solve(ws, refine=refine, return_info=True)
+                    return (ws.A, ws.b, ws.uv, x, info) + tuple(ws.UV())
+
+                def body(A, b, refine=refine):
+                    # the programs' own code on the values made first
+                    Ap, bp, _ = rbt_mod._workspace_arrays(A, b, uv, rbt_mod.DEFAULT_SEED)
+                    return (rbt_mod._butterfly_solve_impl(Ap, bp, uv, cfg, refine),
+                            rbt_mod.materialize_uv(uv, rec["padded"]))
+
+                ws = rt.butterfly_workspace(A, b)
+                fns = {"eager": lambda ws=ws, r=refine: rbt_mod._butterfly_solve_impl(
+                           ws.A, ws.b, ws.uv, cfg, r),
+                       "replay": lambda ws=ws, r=refine: rt.butterfly_solve(ws, refine=r),
+                       "library": lambda b=b: torch.linalg.lu_solve(
+                           *torch.linalg.lu_factor_ex(A)[:2], b[:, None] if b.ndim == 1 else b)}
+                # the workspace's program is new for each right-hand side's
+                # shape, the solve's for each (shape, refine), UV's once
+                want = ["butterfly_workspace", "butterfly_solve"]
+                if (refine, cols) == what[0]:
+                    want.append("materialize_uv")
+                if (refine, cols) in what[2:]:  # the workspace key came earlier
+                    want.remove("butterfly_workspace")
+                got = key(sub, run, [(A, b), (A2, b2)], body, fns, want, 6)
+                sub["info"] = [int(g[4]) for g in got]
+                x = got[0][3]
+                if dtype == torch.float64:
+                    sub["err_2norm"] = float((wide(A) @ wide(x[:n]) - wide(b)).norm())
+                    ok = sub["err_2norm"] <= 1e-10
+                else:
+                    sub["solve_rel_resid"] = solve_resid(A, x[:n], b)
+                    ok = sub["solve_rel_resid"] < 100 * torch.finfo(dtype).eps
+                ok = ok and sub["info"] == [0, 0]
+                done(sub, ok)
+                del got, fns, ws
+            del A, A2, uv
+        elif kind == "tp":
+            w = what
+            group = tp_mesh.get_group("tp")
+            rec.update(panel_width=w, backend=dist.get_backend(group), ranks=1,
+                       inputs=["randn", "randn (second)"])
+            mats = [(matrix((n, n), dtype, "randn"),) for _ in range(2)]
+            b = torch.randn(n, generator=gen, device=dev, dtype=dtype)
+
+            def run(A, w=w):
+                F = rt.tp_lu(A, tp_mesh, "tp", w)
+                return (F.factors, F.ipiv, F.p, F.info) + tuple(
+                    rt.tp_lu_solve(F, b, tp_mesh, "tp", w, trans=t) for t in ("N", "T", "H"))
+
+            def eager_pair(A, w=w):
+                F, ipiv, perm, info = tp_mod._tp_lu_factor_impl(A, group, w, True, cfg)
+                return tp_mod._tp_lu_solve_impl(F, b, perm[:n], group, w, 0)
+
+            A = mats[0][0]
+            fns = {"eager": lambda: eager_pair(A), "replay": lambda: rt.tp_lu_solve(
+                       rt.tp_lu(A, tp_mesh, "tp", w), b, tp_mesh, "tp", w),
+                   "library": lambda: torch.linalg.lu_solve(*torch.linalg.lu_factor_ex(A)[:2],
+                                                            b[:, None])}
+            got = key(rec, run, mats, run, fns,
+                      ["tp_lu_factor", "tp_lu_solve", "tp_lu_solve", "tp_lu_solve"], 8)
+            rec["info"] = [int(g[3]) for g in got]
+            rec["scaled_resid"] = [scaled_resid(M[0], rt.LU(g[0], g[1], g[3], perm=g[2]))
+                                   for M, g in zip(mats, got)]
+            rec["solve_rel_resid"] = {t: solve_resid(op, x, b) for t, op, x in zip(
+                "NTH", (A, A.T, A.mH), got[0][4:])}
+            ok = (rec["info"] == [0, 0] and all(r < 20 for r in rec["scaled_resid"])
+                  and all(np.isfinite(v) for v in rec["solve_rel_resid"].values()))
+            done(rec, ok)
+            del mats, got, fns, A, b
+        else:  # the sharded pair
+            B = what
+            group = dp_mesh.get_group("dp")
+            rec.update(shape=[B, n, n], backend=dist.get_backend(group), ranks=1,
+                       inputs=["randn", "randn (second)"])
+            mats = [(torch.randn(B, n, n, generator=gen, device=dev),) for _ in range(2)]
+            b = torch.randn(B, n, generator=gen, device=dev)
+
+            def run(A):
+                f, ipiv, info = rt.sharded_batched_lu_factor(A, dp_mesh, "dp")
+                return f, ipiv, info, rt.sharded_batched_lu_solve(f, ipiv, b, dp_mesh, "dp")
+
+            def eager_pair(A):
+                f, ipiv, info = batched_mod._sharded_factor_impl(A, group, True, cfg)
+                return batched_mod._sharded_solve_impl(f, ipiv, b, group, True, cfg)
+
+            A = mats[0][0]
+            fns = {"eager": lambda: eager_pair(A), "replay": lambda: run(A),
+                   "library": lambda: torch.linalg.lu_solve(*torch.linalg.lu_factor_ex(A)[:2],
+                                                            b[:, :, None])}
+            with quiet_c_stdout():
+                got = key(rec, run, mats, run, fns,
+                          ["sharded_batched_lu_factor", "sharded_batched_lu_solve"], 4)
+            unsharded = rt.batched_lu_factor(A)
+            rec["equal_unsharded"] = bits_equal(got[0][:3], unsharded)
+            done(rec, rec["equal_unsharded"])
+            del mats, got, fns, A, b, unsharded
+
+    # a gloo group asked to capture raises, naming its backend; outside
+    # capturing() it runs eagerly (gloo stages CUDA tensors through the host)
+    gloo = dist.new_group([0], backend="gloo")
+
+    class GlooMesh:
+        def get_group(self, axis):
+            return gloo
+
+    A = matrix((512, 512), torch.float32, "entry")
+    rec = dict(key="gloo_refused", card=card, n=512)
+    try:
+        with graphs.capturing():
+            rt.tp_lu(A, GlooMesh(), "tp", 128)
+        rec["raised"] = None
+    except RuntimeError as e:
+        rec.update(raised=str(e)[-160:], names_key=str(e).startswith(
+            "could not capture the program of ('tp_lu_factor'"), names_backend="'gloo'" in str(e))
+    rec["eager_info"] = int(rt.tp_lu(A, GlooMesh(), "tp", 128).info)
+    emit("graph", **rec)
+    if not (rec["raised"] and rec["names_key"] and rec["names_backend"]
+            and rec["eager_info"] == 0):
+        fail(f"a gloo group asked to capture: {rec}")
+    dist.destroy_process_group(gloo)
+    return held_total
 
 
 def main(argv):
@@ -1968,7 +2249,18 @@ def main(argv):
 
     gen = torch.Generator(device="cpu").manual_seed(1)
     if "--graph" in argv:  # phases 1 and 3h only
-        graph_phase(rt, dev, card, round_robin)
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                                world_size=1)
+        try:
+            graph_phase(rt, dev, card, round_robin,
+                        init_device_mesh("cuda", (1,), mesh_dim_names=("tp",)),
+                        init_device_mesh("cuda", (1,), mesh_dim_names=("dp",)))
+        finally:
+            warmup.clear_caches()
+            dist.destroy_process_group()
         print(json.dumps({"ok": True, "graph_only": True}))
         return 0
     if "--bf16x3" in argv:  # phases 1, 2g and 4g (and the bf16x3 profile) only
@@ -4524,7 +4816,7 @@ def main(argv):
     # ---- 4g. the bf16x3 form, in turns beside the float32 form -------------
     bf16x3_rows, grid_rows, tall_row = bf16x3_timing_phase(rt, dev, gen, card, round_robin,
                                                            timed)
-    graph_phase(rt, dev, card, round_robin)
+    graph_phase(rt, dev, card, round_robin, tp_mesh, dp_mesh)
 
     if "--profile" in argv:
         profile(rt, card, gen, dev, tp_mesh)

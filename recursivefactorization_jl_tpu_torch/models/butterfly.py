@@ -22,6 +22,23 @@ The random stream is not part of the API, and ``torch`` cannot reproduce
 JAX's: the values come from an explicit ``torch.Generator`` on the CPU
 (the same stream whatever the device), and ``butterfly_workspace`` also
 takes ``uv=`` so that a caller, or a test, supplies them.
+
+Compiled programs (utils/graphs.py), the counterparts of the JAX
+package's jitted ``_workspace_arrays``, ``_butterfly_solve_impl`` and
+``_materialize_uv_jit``, keyed as they are and captured by
+``graphs.capturing()``:
+
+* ``butterfly_workspace`` (without ``uv=``): keyed on the shapes, dtypes
+  and device of ``A`` and ``b`` and on ``seed``.  The values depend on
+  the padded size, the seed, the dtype and the device alone, and their
+  copy from the CPU generator cannot be recorded, so the program makes
+  them once, outside its graph, and holds them as its constant; the
+  graph pads ``A`` and ``b``;
+* ``butterfly_solve``: keyed on the padded shapes, ``config`` and
+  ``refine``; the cut to ``ws.n`` and ``return_info`` stay outside, so
+  the sizes that pad alike share a program.  The nested pivot-free
+  ``lu_factor`` runs its eager code inside the capture;
+* ``BWorkspace.UV``: keyed on ``uv`` and the padded size.
 """
 
 from __future__ import annotations
@@ -32,6 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import graphs
 from ..utils.config import (
     LUConfig,
     default_config,
@@ -166,8 +184,7 @@ def pad_to_multiple_of_4(A: torch.Tensor) -> torch.Tensor:
         return A
     Ap = torch.zeros(n + xn, n + xn, dtype=A.dtype, device=A.device)
     Ap[:n, :n] = A
-    idx = torch.arange(n, n + xn, device=A.device)
-    Ap[idx, idx] = 1
+    Ap.diagonal()[n:].fill_(1)  # no host scalar copied in: capture-safe
     return Ap
 
 
@@ -185,7 +202,18 @@ class BWorkspace:
 
     def UV(self):
         """The dense ``(U, V)`` butterfly factors of the padded size."""
-        return materialize_uv(self.uv, self.A.shape[0])
+        return graphs.call("materialize_uv", materialize_uv, (self.uv,), (self.A.shape[0],))
+
+
+def _workspace_arrays(A, b, uv, seed):
+    """The program of :func:`butterfly_workspace`: ``A`` and ``b`` padded
+    to a multiple of 4, and ``uv`` (the program's constant) as it is."""
+    Ap = pad_to_multiple_of_4(A)
+    n, np_ = A.shape[0], Ap.shape[0]
+    if np_ != n:
+        pad = torch.zeros((np_ - n,) + tuple(b.shape[1:]), dtype=b.dtype, device=b.device)
+        b = torch.cat([b, pad])
+    return Ap, b, uv
 
 
 def butterfly_workspace(A, b, seed: int = DEFAULT_SEED, *, uv=None,
@@ -194,7 +222,8 @@ def butterfly_workspace(A, b, seed: int = DEFAULT_SEED, *, uv=None,
     to a multiple of 4 (the right-hand side, a vector or a matrix, with
     zeros: the pad block is the identity and its part of the solution is
     dropped) and draw the 4n butterfly values from ``seed``, or take them
-    from ``uv`` (4 x the padded size)."""
+    from ``uv`` (4 x the padded size).  Without ``uv`` this is the
+    ``butterfly_workspace`` program of its key (module docstring)."""
     dev = resolve_device(device)
     A = torch.as_tensor(A, device=dev)
     b = torch.as_tensor(b, device=dev)
@@ -203,21 +232,19 @@ def butterfly_workspace(A, b, seed: int = DEFAULT_SEED, *, uv=None,
     n = A.shape[0]
     if b.shape[0] != n:
         raise ValueError(f"right-hand side has {b.shape[0]} rows, A has {n}")
-    Ap = pad_to_multiple_of_4(A)
-    np_ = Ap.shape[0]
-    if np_ != n:
-        pad = torch.zeros((np_ - n,) + tuple(b.shape[1:]), dtype=b.dtype, device=dev)
-        b = torch.cat([b, pad])
+    np_ = n + (-n) % 4
     if uv is None:
-        uv = generate_butterfly_values(np_, seed, Ap.dtype, dev)
-    else:
-        if not isinstance(uv, torch.Tensor):
-            uv = np.array(uv)  # a writable copy: numpy views of JAX arrays are not
-        uv = torch.as_tensor(uv, device=dev).to(Ap.dtype)
-        if uv.shape != (4 * np_,):
-            raise ValueError(
-                f"uv must hold 4 x {np_} values, got shape {tuple(uv.shape)}")
-    return BWorkspace(A=Ap, b=b, uv=uv, n=n)
+        Ap, bp, uv = graphs.call(
+            "butterfly_workspace", _workspace_arrays, (A, b), (seed,),
+            constants=lambda: (generate_butterfly_values(np_, seed, A.dtype, dev),))
+        return BWorkspace(A=Ap, b=bp, uv=uv, n=n)
+    if not isinstance(uv, torch.Tensor):
+        uv = np.array(uv)  # a writable copy: numpy views of JAX arrays are not
+    uv = torch.as_tensor(uv, device=dev).to(A.dtype)
+    if uv.shape != (4 * np_,):
+        raise ValueError(f"uv must hold 4 x {np_} values, got shape {tuple(uv.shape)}")
+    Ap, bp, _ = _workspace_arrays(A, b, uv, seed)
+    return BWorkspace(A=Ap, b=bp, uv=uv, n=n)
 
 
 def butterfly_from_numpy(A, b, uv, n: int, device=None) -> BWorkspace:
@@ -236,23 +263,32 @@ def butterfly_from_numpy(A, b, uv, n: int, device=None) -> BWorkspace:
                       n=int(n))
 
 
-@full_matmul_precision()
 def butterfly_solve(ws: BWorkspace, *, config: Optional[LUConfig] = None,
                     return_info: bool = False, refine: int = 0):
     """Pivot-free RBT solve: ``A~ = U^T A V``, LU without pivoting,
     ``x = V (A~)^-1 U^T b``, cut back to the original size.  Runs on the
-    workspace's device.
+    workspace's device, by the replay of the ``butterfly_solve`` program
+    of its key where one was captured.
 
     ``refine`` adds that many steps of iterative refinement on the padded
     system with the same factorization (``r = b - A x``, ``x += V A~^-1
     U^T r``).  Without pivoting the growth of a generic matrix costs
     accuracy; in float32 prefer the pivoted ``lu_solve`` unless the
     matrix suits the transform."""
+    config = config or default_config()
+    x, info = graphs.call("butterfly_solve", _butterfly_solve_impl, (ws.A, ws.b, ws.uv),
+                          (config, refine))
+    x = x[: ws.n]
+    return (x, info) if return_info else x
+
+
+@full_matmul_precision()
+def _butterfly_solve_impl(A, b, uv, config: LUConfig, refine: int):
+    """The program of :func:`butterfly_solve` on the padded system:
+    ``(x, info)``."""
     from .lu import lu_factor
     from .solve import _lu_solve_impl
 
-    config = config or default_config()
-    A, b, uv = ws.A, ws.b, ws.uv
     At = butterfly_mul(A, uv)
     factors, ipiv, info = lu_factor(At, pivot=False, config=config,
                                     device=At.device)
@@ -266,5 +302,4 @@ def butterfly_solve(ws: BWorkspace, *, config: Optional[LUConfig] = None,
     for _ in range(refine):
         r = b.to(x.dtype) - A @ x
         x = x + rbt_apply(r)
-    x = x[: ws.n]
-    return (x, info) if return_info else x
+    return x, info

@@ -18,7 +18,11 @@ the counterpart of the JAX package's jitted ``_lu_factor``, keyed on
 ``(shape, dtype, device, pivot, config)``: a key that
 ``utils.warmup.warmup`` captured runs as the replay of its CUDA graph
 (utils/graphs.py), any other key eagerly.  ``donate=True`` and
-``lu_inplace`` run eagerly.
+``lu_inplace`` are the counterpart of the jitted ``_lu_factor_donated``,
+a program of their own kind (``lu_factor_donated``) with the same key,
+captured by ``graphs.capturing()``: its graph factors its static copy of
+``A`` in place, and a replay copies ``A`` in and the factors back into
+``A``, which stays the returned ``factors``.
 """
 
 from __future__ import annotations
@@ -350,11 +354,15 @@ def lu_factor_p(A, pivot=True, *, config: Optional[LUConfig] = None,
     unchanged, by the replay of the key's program where ``warmup``
     captured one; ``donate=True`` factors ``A`` in place (a contiguous
     floating or complex tensor on the call's device, as for
-    :func:`lu_inplace`), eagerly, and ``factors`` is then ``A`` itself."""
+    :func:`lu_inplace`), by the replay of the ``lu_factor_donated``
+    program where ``graphs.capturing()`` captured one, and ``factors`` is
+    then ``A`` itself."""
     pivot = normalize_pivot(pivot)
     config = config or default_config()
     if donate:
-        return _dispatch_factor(_donated(A, device, "lu_factor(donate=True)"), pivot, config)
+        A = _donated(A, device, "lu_factor(donate=True)")
+        return graphs.call("lu_factor_donated", _dispatch_factor, (A,), (pivot, config),
+                           donate=True)
     return graphs.call("lu_factor", _lu_factor_impl, (_as_matrix(A, device),), (pivot, config))
 
 

@@ -35,7 +35,13 @@ The four unsharded functions are the counterparts of the JAX package's
 jitted ones, keyed on the tensors' shapes, dtypes and device and on
 ``pivot`` / ``pivoted``, ``trans`` and ``config``: a key that was
 captured (utils/graphs.py, ``utils.warmup``) runs as the replay of its
-CUDA graph, any other key eagerly.
+CUDA graph, any other key eagerly.  The two sharded functions are a
+program per rank and group (the JAX package's ``jax.jit`` of its
+``shard_map``), keyed on the same and on the group (name, size, rank);
+inside their capture the nested batched function runs eagerly and the
+``all_reduce`` gathers are recorded.  ``graphs.capturing()`` captures
+them on an NCCL group only, and every rank must make the same calls
+inside it, in the same order, and replay them together.
 """
 
 from __future__ import annotations
@@ -319,7 +325,14 @@ def sharded_batched_lu_factor(
     the whole ``(factors, ipiv, info)``.  B must divide by D."""
     A = _as_batch(A, device)
     group, D, me = axis_group(mesh, axis)
-    share = _my_share(A.shape[0], D, me)
+    _my_share(A.shape[0], D, me)  # raise before the program
+    return graphs.call("sharded_batched_lu_factor", _sharded_factor_impl, (A,),
+                       (group, normalize_pivot(pivot), config or default_config()))
+
+
+def _sharded_factor_impl(A, group, pivot, config):
+    """The program of :func:`sharded_batched_lu_factor` on this rank."""
+    share = _my_share(A.shape[0], group.size(), group.rank())
     parts = batched_lu_factor(A[share], pivot, config, device=A.device)
     return _gather_batch(parts, A.shape[0], share, group)
 
@@ -334,9 +347,15 @@ def sharded_batched_lu_solve(
     dev = resolve_device(device)
     factors = torch.as_tensor(factors, device=dev)
     group, D, me = axis_group(mesh, axis)
-    share = _my_share(factors.shape[0], D, me)
-    x = batched_lu_solve(
-        factors[share], torch.as_tensor(ipiv, device=dev)[share],
-        torch.as_tensor(b, device=dev)[share], pivoted, config=config, device=dev,
-    )
+    _my_share(factors.shape[0], D, me)  # raise before the program
+    tensors = (factors, torch.as_tensor(ipiv, device=dev), torch.as_tensor(b, device=dev))
+    return graphs.call("sharded_batched_lu_solve", _sharded_solve_impl, tensors,
+                       (group, pivoted, config or default_config()))
+
+
+def _sharded_solve_impl(factors, ipiv, b, group, pivoted, config):
+    """The program of :func:`sharded_batched_lu_solve` on this rank."""
+    share = _my_share(factors.shape[0], group.size(), group.rank())
+    x = batched_lu_solve(factors[share], ipiv[share], b[share], pivoted, config=config,
+                         device=factors.device)
     return _gather_batch([x], factors.shape[0], share, group)[0]

@@ -49,6 +49,19 @@ rounded back; a half solve runs in float32 and rounds the solution back.
 Integer and bool matrices are factored as their float64 copies, as
 scipy's ``lu_factor`` does, and the factors stay float64 (the
 single-device ``generic`` route).
+
+Compiled programs (utils/graphs.py): the JAX package builds a fresh
+``jax.jit(run)`` per call of :func:`tp_lu_factor_p` and
+:func:`tp_lu_solve`; here each is a program per rank, keyed on what
+``run`` depends on: the matrix's shape, dtype and device, the group (its
+name, size and the rank), ``panel_width``, ``pivot`` and ``config`` (the
+solve: the factors', right-hand side's and permutation's shapes and
+dtypes, the group, ``panel_width`` and ``trans``).  A half or integer
+matrix's promotion lies inside its program, one per outer key.
+``graphs.capturing()`` captures them on an NCCL group only (a gloo
+group raises), and every rank of the group must make the same calls
+inside it, in the same order, and replay them together: the warm run and
+the capture each issue the program's broadcasts and its ``all_reduce``.
 """
 
 from __future__ import annotations
@@ -75,6 +88,7 @@ from ..utils.config import (
     full_matmul_precision,
     resolve_device,
 )
+from ..utils import graphs
 from ..utils.perm import invert_perm
 from .collectives import axis_group, broadcast, gather_by_sum
 
@@ -102,7 +116,7 @@ def _padded(M: torch.Tensor, N: int) -> torch.Tensor:
         return M
     P = M.new_zeros(N, N)
     P[:n, :n] = M
-    P.diagonal()[n:] = 1
+    P.diagonal()[n:].fill_(1)
     return P
 
 
@@ -165,23 +179,30 @@ def tp_lu_factor_p(
 ):
     """Like :func:`tp_lu_factor` but also returns the composed row
     permutation of the padded matrix: ``(factors, ipiv, perm (N,),
-    info)``."""
+    info)``.  By the replay of the rank's program where one was captured
+    (module docstring)."""
     config = config or default_config()
     pivot = normalize_pivot(pivot)
     A = torch.as_tensor(A, device=resolve_device(device))
     n = A.shape[0]
     if A.ndim != 2 or A.shape[1] != n:
         raise ValueError(f"tp_lu_factor expects a square matrix, got {tuple(A.shape)}")
+    offset_panel_route(A.device, config)  # raise before any collective
+    group = axis_group(mesh, axis)[0]
+    return graphs.call("tp_lu_factor", _tp_lu_factor_impl, (A,),
+                       (group, panel_width, pivot, config))
+
+
+def _tp_lu_factor_impl(A, group, w: int, pivot: bool, config: LUConfig):
+    """The program of :func:`tp_lu_factor_p` on this rank."""
     work = _working_dtype(A.dtype)
     if work != A.dtype:
         # half: the exact float32 promotion, its factors rounded back;
         # integer and bool: float64, as the single-device generic route
-        F, ipiv, perm, info = tp_lu_factor_p(A.to(work), mesh, axis, panel_width, pivot,
-                                             config, A.device)
+        F, ipiv, perm, info = _tp_lu_factor_impl(A.to(work), group, w, pivot, config)
         return (F.to(A.dtype) if A.dtype in HALF_DTYPES else F), ipiv, perm, info
-    offset_panel_route(A.device, config)  # raise before any collective
-    group, D, me = axis_group(mesh, axis)
-    w = panel_width
+    D, me = group.size(), group.rank()
+    n = A.shape[0]
     N = n + (-n % (D * w))
     A_loc = _local_blocks(_padded(A, N), w, D, me)
     with full_matmul_precision():
@@ -293,7 +314,9 @@ def tp_lu_solve(
     un-permuted.  The semantics are those of
     :func:`~..models.solve.lu_solve`: half factors solve in float32, with
     the right-hand side rounded to the half type first and the solution
-    rounded back."""
+    rounded back.  The permutation ``lu_res.p`` is found before the
+    rank's program, which replays where one was captured (module
+    docstring)."""
     t = normalize_trans(trans)
     dev = resolve_device(device)
     F = torch.as_tensor(lu_res.factors, device=dev)
@@ -301,6 +324,17 @@ def tp_lu_solve(
     if F.ndim != 2 or F.shape[1] != n:
         raise ValueError("tp_lu_solve requires a square factorization")
     b = torch.as_tensor(b, device=dev)
+    if b.ndim not in (1, 2) or b.shape[0] != n:
+        raise ValueError(f"rhs of shape {tuple(b.shape)} does not match factorization size {n}")
+    p = torch.as_tensor(lu_res.p, device=dev) if lu_res.pivoted else None
+    group = axis_group(mesh, axis)[0]
+    return graphs.call("tp_lu_solve", _tp_lu_solve_impl, (F, b, p), (group, panel_width, t))
+
+
+def _tp_lu_solve_impl(F, b, p, group, w: int, t: int):
+    """The program of :func:`tp_lu_solve` on this rank: ``p`` is the
+    factorization's permutation, None when it did not pivot."""
+    n = F.shape[0]
     vec = b.ndim == 1
     B = b[:, None] if vec else b
     out = F.dtype if F.dtype in HALF_DTYPES else None
@@ -308,9 +342,8 @@ def tp_lu_solve(
         B = B.to(out)  # the rhs takes the half type, as in the single-device solve
     F = F.to(_working_dtype(F.dtype))
     B = B.to(F.dtype)
-    if B.ndim != 2 or B.shape[0] != n:
-        raise ValueError(f"rhs rows {B.shape[0]} do not match factorization size {n}")
-    p = lu_res.p.to(dev).long() if lu_res.pivoted else None
+    if p is not None:
+        p = p.long()
     if t == 0:
         if p is not None:
             B = B[p]
@@ -318,8 +351,7 @@ def tp_lu_solve(
         # A = P^T L U  =>  A^T x = b: U^T y = b, L^T z = y, x = P^T z; A^H
         # conjugates the factors
         F = F.mH.resolve_conj() if t == 2 else F.T
-    group, D, me = axis_group(mesh, axis)
-    w = panel_width
+    D, me = group.size(), group.rank()
     N = n + (-n % (D * w))
     F_loc = _local_blocks(_padded(F, N), w, D, me)
     r = B.new_zeros(N, B.shape[1])  # zero padding: the padded solve is a no-op

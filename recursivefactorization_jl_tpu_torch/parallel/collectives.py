@@ -3,6 +3,13 @@ parallel/batched.py).
 
 Only ``broadcast`` and ``all_reduce`` are used: both run on CUDA tensors
 under NCCL and under gloo (gloo's ``all_gather`` takes CPU tensors only).
+
+Both may be recorded in a CUDA graph on an NCCL group (utils/graphs.py):
+they are issued with ``async_op=False``, and c10d's wait on an NCCL work
+only makes the caller's stream wait for NCCL's, on the device; they read
+nothing on the host, and the group's rank map is host data.  The
+communicator must exist before a capture, which the program's warm run
+gives it.
 """
 
 from __future__ import annotations

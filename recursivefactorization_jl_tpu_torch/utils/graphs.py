@@ -7,7 +7,10 @@ replayed.  Here the program of a key is a CUDA graph: the entry point's
 eager code, recorded once on the card by ``torch.cuda.graph`` and then
 replayed with one host call.  The key is what ``jax.jit`` keys on: the
 kind of entry point, the shape, dtype and device of each tensor argument
-and the static arguments (``pivot``, ``config``, ``trans``, ...).
+and the static arguments (``pivot``, ``config``, ``trans``, ...).  A
+``torch.distributed`` process group among the statics enters the key as
+its name, size and rank (a program of the tensor-parallel or sharded
+functions is one per rank and group).
 
 A call whose key has a program runs as one copy into the program's static
 inputs, one ``CUDAGraph.replay()`` and fresh copies of its outputs (JAX
@@ -18,6 +21,26 @@ it): each graph keeps its memory pool for as long as it lives, which a
 JAX executable does not, so the cache holds only the keys the caller
 warmed, and :func:`clear` frees them (``utils.warmup.clear_caches``, the
 counterpart of ``jax.clear_caches``).
+
+Three kinds of program go beyond copy in, replay, copies out:
+
+* constants: tensors that are a function of the key alone (RBT's
+  butterfly values, drawn from a CPU generator and copied to the card,
+  which a capture cannot record) are made once, outside the capture, by
+  the ``constants`` callable given to :func:`call`, and held by the
+  program; ``fn`` takes them after the tensors, on every call;
+* donated programs (``donate=True``, ``lu_inplace``): the program
+  factors its static copy of tensor 0 in place, and a replay copies
+  output 0 back into the caller's tensor 0 and returns that tensor
+  itself, not a clone;
+* programs over a process group: only NCCL collectives are captured.  A
+  capture request for a key whose group runs another backend (gloo
+  stages CUDA tensors through the host) raises ``RuntimeError`` naming
+  the key and the backend.  Every rank of the group must make the same
+  calls inside :func:`capturing`, in the same order, and replay them
+  together: the warm run and the capture each issue the collectives.  A
+  replay refuses a group other than the one it was captured on (call
+  :func:`clear` before destroying a group whose programs were captured).
 
 Capture rules.  Before it records a key, :func:`capture` runs the program
 once on a side stream, the stream the capture then uses (one per device,
@@ -52,6 +75,7 @@ import threading
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 # key -> program; filled only inside ``capturing()``
 _PROGRAMS: Dict[tuple, "_Program"] = {}
@@ -68,34 +92,67 @@ class _State(threading.local):
 _STATE = _State()
 
 
+def _is_group(s) -> bool:
+    return dist.is_available() and isinstance(s, dist.ProcessGroup)
+
+
+def _groups(statics) -> tuple:
+    return tuple(s for s in statics if _is_group(s))
+
+
 def program_key(kind: str, tensors: Sequence[Optional[torch.Tensor]], statics: tuple) -> tuple:
     """The key of an entry point's program: ``kind``, the shape, dtype and
     device of each tensor argument (None for an argument left out) and the
     static arguments, which must hash (``LUConfig`` is a frozen
-    dataclass)."""
+    dataclass); a process group enters as ``("group", name, size,
+    rank)``."""
     sig = tuple(None if t is None else (tuple(t.shape), t.dtype, t.device) for t in tensors)
-    return (kind, sig, tuple(statics))
+    stat = tuple(("group", s.group_name, s.size(), s.rank()) if _is_group(s) else s
+                 for s in statics)
+    return (kind, sig, stat)
+
+
+def _cuda_backend(group) -> str:
+    """The backend that runs the group's collectives on CUDA tensors
+    (``"nccl"``, ``"gloo"``, ...; a mixed group names one per device)."""
+    name = str(dist.get_backend(group))
+    for part in name.split(","):
+        dev, _, backend = part.rpartition(":")
+        if dev in ("", "cuda"):
+            return backend
+    return name
 
 
 class _Program:
-    """One captured program: static inputs, the graph, static outputs."""
+    """One captured program: static inputs, constants, the graph, static
+    outputs."""
 
-    def __init__(self, fn: Callable, tensors, statics, device: torch.device):
+    donate = False  # output 0 goes back into the caller's tensor 0
+    groups: tuple = ()  # the process groups the program's collectives run on
+
+    def __init__(self, fn: Callable, tensors, statics, device: torch.device,
+                 constants: Optional[Callable] = None, donate: bool = False):
         self.inputs = tuple(None if t is None else t.clone(memory_format=torch.contiguous_format)
                             for t in tensors)
+        # held for the program's life: every replay reads them
+        self.constants = tuple(constants()) if constants is not None else ()
         stream = _STREAMS.get(device)
         if stream is None:
             stream = _STREAMS[device] = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
-            # the warm run, on copies: builds, plans and cuBLAS's choices
-            fn(*(None if t is None else t.clone() for t in self.inputs), *statics)
+            # the warm run, on copies: builds, plans, cuBLAS's choices and
+            # a process group's communicator
+            fn(*(None if t is None else t.clone() for t in self.inputs), *self.constants,
+               *statics)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
-            out = fn(*self.inputs, *statics)
+            out = fn(*self.inputs, *self.constants, *statics)
         torch.cuda.current_stream(device).wait_stream(stream)
         self.single = isinstance(out, torch.Tensor)
         self.outputs = (out,) if self.single else tuple(out)
+        self.groups = _groups(statics)
+        self.donate = donate
         self.device = device
         self.replays = 0
         self._lock = threading.Lock()
@@ -109,26 +166,39 @@ class _Program:
                 if static is not None:
                     static.copy_(t)
             self.graph.replay()
-            out = tuple(o.clone() for o in self.outputs)
+            if self.donate:
+                out = (tensors[0].copy_(self.outputs[0]),) + tuple(
+                    o.clone() for o in self.outputs[1:])
+            else:
+                out = tuple(o.clone() for o in self.outputs)
             self._done.record(stream)
             self.replays += 1
         return out[0] if self.single else out
 
 
-def capture(kind: str, fn: Callable, tensors, statics) -> _Program:
-    """The program of ``fn(*tensors, *statics)``'s key, captured now if
-    the cache lacks it.  Raises ``RuntimeError`` naming the key and the
-    CUDA error where the capture fails, ``ValueError`` for CPU tensors."""
+def capture(kind: str, fn: Callable, tensors, statics, *,
+            constants: Optional[Callable] = None, donate: bool = False) -> _Program:
+    """The program of ``fn(*tensors, *constants(), *statics)``'s key,
+    captured now if the cache lacks it.  Raises ``RuntimeError`` naming
+    the key and the CUDA error where the capture fails, or the backend of
+    a process group among the statics that is not NCCL; ``ValueError``
+    for CPU tensors."""
     key = program_key(kind, tensors, statics)
     device = next(t.device for t in tensors if t is not None)
     if device.type != "cuda":
         raise ValueError(f"only CUDA tensors are captured, not {key}")
+    for group in _groups(statics):
+        backend = _cuda_backend(group)
+        if backend != "nccl":
+            raise RuntimeError(
+                f"could not capture the program of {key}: its process group runs the "
+                f"{backend!r} backend on CUDA tensors; only NCCL collectives are captured")
     with _CAPTURE_LOCK:
         if key in _PROGRAMS:
             return _PROGRAMS[key]
         saved, _STATE.capture = _STATE.capture, False  # no nested programs
         try:
-            program = _Program(fn, tensors, statics, device)
+            program = _Program(fn, tensors, statics, device, constants, donate)
         except RuntimeError as e:
             raise RuntimeError(f"could not capture the program of {key}: {e}") from e
         finally:
@@ -137,20 +207,27 @@ def capture(kind: str, fn: Callable, tensors, statics) -> _Program:
     return program
 
 
-def call(kind: str, fn: Callable, tensors: Tuple[Optional[torch.Tensor], ...], statics: tuple):
-    """``fn(*tensors, *statics)``: by replay of its key's program where one
-    was captured, else eagerly; inside :func:`capturing` a CUDA key without
-    a program is captured first.  ``fn`` takes the tensors (None for an
-    argument left out) and then the statics."""
+def call(kind: str, fn: Callable, tensors: Tuple[Optional[torch.Tensor], ...], statics: tuple,
+         *, constants: Optional[Callable] = None, donate: bool = False):
+    """``fn(*tensors, *constants(), *statics)``: by replay of its key's
+    program where one was captured, else eagerly; inside :func:`capturing`
+    a CUDA key without a program is captured first.  ``fn`` takes the
+    tensors (None for an argument left out), then the constants (tensors
+    that depend on the key alone, made by ``constants()`` on every eager
+    call and once per program), then the statics.  ``donate``: ``fn``
+    writes its output 0 into tensor 0, and so does a replay."""
     key = program_key(kind, tensors, statics)
     device = next(t.device for t in tensors if t is not None)
     if device.type != "cuda" or torch.cuda.is_current_stream_capturing():
-        return fn(*tensors, *statics)
+        return fn(*tensors, *(constants() if constants is not None else ()), *statics)
     program = _PROGRAMS.get(key)
     if program is None and _STATE.capture:
-        program = capture(kind, fn, tensors, statics)
+        program = capture(kind, fn, tensors, statics, constants=constants, donate=donate)
     if program is None:
-        return fn(*tensors, *statics)
+        return fn(*tensors, *(constants() if constants is not None else ()), *statics)
+    if any(a is not b for a, b in zip(program.groups, _groups(statics))):
+        raise RuntimeError(f"the program of {key} was captured on another process group "
+                           "of that name; clear the programs when a group is destroyed")
     return program(*tensors)
 
 

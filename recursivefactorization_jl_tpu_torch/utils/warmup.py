@@ -25,6 +25,19 @@ time on every call.
   bit for bit.  Each key holds its graph's memory pool (about the memory
   of one eager call of its shape) until :func:`clear_caches`.  A key
   whose capture fails raises there, naming the key and the CUDA error.
+* Every other entry point with a program is captured by the calls made
+  inside ``utils.graphs.capturing()`` (``warmup`` keeps the JAX
+  signature, which warms ``lu_factor`` / ``lu_solve`` only): ``lu_solve``
+  with ``trans`` or a matrix right-hand side, ``lu_solve_refined``,
+  ``solve``, the four batched functions; ``lu_inplace`` /
+  ``lu_factor(donate=True)`` (the ``lu_factor_donated`` program: a
+  replay copies ``A`` in and the factors back into ``A``);
+  ``butterfly_workspace`` (its butterfly values made once, outside the
+  graph, as the program's constant), ``butterfly_solve`` and
+  ``BWorkspace.UV``; ``tp_lu_factor(_p)`` / ``tp_lu`` / ``tp_lu_solve``
+  and ``sharded_batched_lu_factor`` / ``_solve``, a program per rank on
+  an NCCL group only (a gloo group raises), entered on every rank with
+  the same calls in the same order.
 * :func:`clear_caches` frees every captured program and its memory (the
   counterpart of ``jax.clear_caches``); later calls run eagerly again.
 """
@@ -98,7 +111,9 @@ def _factor_and_solve(A, pivot, solve, config):
 
 
 def clear_caches() -> None:
-    """Free every program :func:`warmup` captured, with its graph's memory
-    pool (the counterpart of ``jax.clear_caches()``).  Later calls of
-    those keys run eagerly until a new warmup."""
+    """Free every captured program (by :func:`warmup` or
+    ``graphs.capturing()``, every kind), with its graph's memory pool and
+    constants (the counterpart of ``jax.clear_caches()``).  Later calls of
+    those keys run eagerly until they are captured again.  Call it before
+    destroying a process group whose programs were captured."""
     graphs.clear()

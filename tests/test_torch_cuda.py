@@ -2248,3 +2248,160 @@ def test_a_capture_that_fails_names_its_key(no_programs):
     with pytest.raises(RuntimeError, match="could not capture the program of .*sync_probe"):
         graphs.capture("sync_probe", lambda A: A * float(A.sum()), (A,), ())
     assert graphs.programs() == {}
+
+
+# the rest of the compiled entry points: lu_inplace / donate=True, the RBT
+# solver, and tp_* and the sharded batch over an NCCL group
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64])
+def test_captured_lu_inplace_replays_bitwise_equal_eager(no_programs, dtype):
+    """``lu_inplace`` / ``lu_factor(donate=True)``: the ``lu_factor_donated``
+    program factors its copy, a replay copies the factors back into the
+    caller's tensor, which stays ``factors``; a zeroed column raises
+    through the copied info."""
+    n = 700
+    A, A2 = (_card_matrix((n, n), dtype, s, shift=False) for s in (21, 22))
+    eager = [rt.lu_inplace(M.clone(), check=False) for M in (A, A2)]
+    with graphs.capturing():
+        rt.lu_inplace(A.clone(), check=False)
+    assert [k[0] for k in graphs.programs()] == ["lu_factor_donated"]
+    r0 = _replays()
+    for M, e in zip((A, A2), eager):
+        T = M.clone()
+        F = rt.lu_inplace(T, check=False)
+        assert F.factors is T and _same_results(_lu_outputs(F), _lu_outputs(e))
+    T = A2.clone()
+    factors, ipiv, perm, info = rt.lu_factor_p(T, donate=True)
+    assert factors is T and _same_results((factors, ipiv, perm, info), _lu_outputs(eager[1]))
+    Z = A.clone()
+    Z[:, 123] = 0
+    with pytest.raises(rt.SingularMatrixError):
+        rt.lu_inplace(Z)
+    assert _replays() - r0 == 4 and len(graphs.programs()) == 1
+
+
+def _wilkinson(n, dtype):
+    W = torch.eye(n, dtype=torch.float64) - torch.tril(torch.ones(n, n, dtype=torch.float64), -1)
+    W[:, -1] = 1
+    return W.to(dtype).cuda()
+
+
+@pytest.mark.parametrize("dtype,refine", [(torch.float64, 0), (torch.float64, 2),
+                                          (torch.float32, 2)])
+@pytest.mark.parametrize("nrhs", [None, 3])
+def test_captured_rbt_replays_bitwise_equal_eager(no_programs, dtype, refine, nrhs):
+    """``butterfly_workspace`` (its values held as the program's
+    constant), ``butterfly_solve`` and ``UV`` at n = 201 (padded to 204):
+    replays bit for bit the eager calls on two inputs; n = 202 pads alike
+    and replays the same solve program."""
+    n = 201
+    A = _wilkinson(n, dtype) if dtype == torch.float64 else _card_matrix((n, n), dtype, 23)
+    A2 = _card_matrix((n, n), dtype, 24)
+    shape = (n,) if nrhs is None else (n, nrhs)
+    b, b2 = (_card_matrix(shape, dtype, s) for s in (25, 26))
+
+    def run(A, b):
+        ws = rt.butterfly_workspace(A, b)
+        x, info = rt.butterfly_solve(ws, refine=refine, return_info=True)
+        return (ws.A, ws.b, ws.uv, x, info) + tuple(ws.UV())
+
+    eager = [run(A, b), run(A2, b2)]
+    B3, b3 = _card_matrix((202, 202), dtype, 27), _card_matrix((202,) + shape[1:], dtype, 28)
+    ws3 = rt.butterfly_workspace(B3, b3)
+    x3 = rt.butterfly_solve(ws3, refine=refine)
+    with graphs.capturing():
+        run(A, b)
+    kinds = sorted(k[0] for k in graphs.programs())
+    assert kinds == ["butterfly_solve", "butterfly_workspace", "materialize_uv"]
+    held = [p for k, p in graphs.programs().items() if k[0] == "butterfly_workspace"][0]
+    assert len(held.constants) == 1 and torch.equal(held.constants[0], eager[0][2])
+    r0 = _replays()
+    assert _same_results(run(A, b), eager[0]) and _same_results(run(A2, b2), eager[1])
+    assert _same_results([rt.butterfly_solve(ws3, refine=refine)], [x3])
+    assert _replays() - r0 == 7 and len(graphs.programs()) == 3
+    if dtype == torch.float64 and nrhs is None:
+        r = (A.double() @ eager[0][3][:n].double() - b.double()).abs().max()
+        assert float(r) <= 1e-10
+
+
+class _GroupMesh:
+    """A one-dimension mesh over a given group (``axis_group`` asks only
+    ``get_group``)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def get_group(self, axis):
+        return self.group
+
+
+def test_captured_tp_and_sharded_replay_bitwise_equal_eager(no_programs):
+    """In an NCCL world of one rank: ``tp_lu`` + ``tp_lu_solve`` N / T / H
+    (f32 and complex64) and the sharded pair, captured per rank and
+    group, replay the eager calls' bits on two inputs; a gloo group asked
+    to capture raises with its backend named."""
+    mesh = _one_rank_world()
+    try:
+        n, w = 640, 128
+        for dtype in (torch.float32, torch.complex64):
+            A, A2 = (_card_matrix((n, n), dtype, s, shift=False) for s in (31, 32))
+            b = _card_matrix((n, 2), dtype, 33)
+
+            def run(A):
+                F = rt.tp_lu(A, mesh, "tp", w)
+                return _lu_outputs(F) + tuple(rt.tp_lu_solve(F, b, mesh, "tp", w, trans=t)
+                                              for t in ("N", "T", "H"))
+
+            eager = [run(A), run(A2)]
+            before = set(graphs.programs())
+            with graphs.capturing():
+                run(A)
+            new = sorted(k[0] for k in graphs.programs() if k not in before)
+            assert new == ["tp_lu_factor", "tp_lu_solve", "tp_lu_solve", "tp_lu_solve"]
+            r0 = _replays()
+            assert _same_results(run(A), eager[0]) and _same_results(run(A2), eager[1])
+            assert _replays() - r0 == 8
+        Ab, Ab2 = (_card_matrix((6, 32, 32), torch.float32, s, shift=False) for s in (34, 35))
+        bb = _card_matrix((6, 32), torch.float32, 36)
+
+        def pair(A):
+            f, ipiv, info = rt.sharded_batched_lu_factor(A, mesh, "tp")
+            return f, ipiv, info, rt.sharded_batched_lu_solve(f, ipiv, bb, mesh, "tp")
+
+        eager = [pair(Ab), pair(Ab2)]
+        with graphs.capturing():
+            pair(Ab)
+        r0 = _replays()
+        assert _same_results(pair(Ab), eager[0]) and _same_results(pair(Ab2), eager[1])
+        assert _replays() - r0 == 4
+        gloo = _GroupMesh(dist.new_group([0], backend="gloo"))
+        with graphs.capturing(), pytest.raises(RuntimeError, match="tp_lu_factor.*'gloo'"):
+            rt.tp_lu(A, gloo, "tp", w)
+        F = rt.tp_lu(A, gloo, "tp", w)  # eager outside capturing()
+        assert int(F.info) == 0
+    finally:
+        warmup.clear_caches()
+        dist.destroy_process_group()
+
+
+def test_clearing_frees_the_new_programs(no_programs):
+    A = _card_matrix((1024, 1024), torch.float32, 37)
+    b = _card_matrix((1024,), torch.float32, 38)
+
+    def capture_all():
+        with graphs.capturing():
+            rt.lu_inplace(A.clone(), check=False)
+            rt.butterfly_solve(rt.butterfly_workspace(A, b))
+
+    capture_all()  # the capture stream's workspaces
+    warmup.clear_caches()
+    r0 = torch.cuda.memory_reserved()
+    capture_all()
+    assert len(graphs.programs()) == 3
+    torch.cuda.empty_cache()
+    r1 = torch.cuda.memory_reserved()
+    warmup.clear_caches()
+    r2 = torch.cuda.memory_reserved()
+    assert r1 - r0 >= 2 * A.numel() * A.element_size() and r2 <= r0
+    assert graphs.programs() == {} and int(rt.lu_inplace(A.clone()).info) == 0

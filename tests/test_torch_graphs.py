@@ -9,6 +9,13 @@
     tensors with the card's routes taken and the kernel launchers replaced
     by stand-ins, while every host read of a tensor fails the test.
 (c) ``warmup`` on the CPU captures nothing and changes no result.
+(d) The same for ``lu_inplace`` / ``donate=True`` and the RBT solver:
+    their keys against the JAX package's ``_lu_factor_donated``,
+    ``_workspace_arrays``, ``_butterfly_solve_impl`` and
+    ``_materialize_uv_jit``, their glue under the guards (a program's
+    constants are made with the guards lifted, as outside its graph), and
+    ``capturing()`` on the CPU.  tests/test_torch_graphs_dist.py does the
+    same for the distributed functions.
 
 The captures and replays themselves run only on the card
 (tests/test_torch_cuda.py, ``chip_smoke.py`` phase 3h).
@@ -19,7 +26,9 @@ import pytest
 import torch
 
 import recursivefactorization_jl_tpu as rf
+from recursivefactorization_jl_tpu.models import butterfly as jax_butterfly
 from recursivefactorization_jl_tpu.models.lu import _lu_factor as jax_lu_factor
+from recursivefactorization_jl_tpu.models.lu import _lu_factor_donated as jax_lu_factor_donated
 from recursivefactorization_jl_tpu.models.solve import _lu_solve_impl as jax_lu_solve_impl
 
 import recursivefactorization_jl_tpu_torch as rt
@@ -58,6 +67,18 @@ def _sequence(seed=16, calls=30):
     return seq
 
 
+def _spy_keys(mp, keys):
+    """Every program key the entry points compute goes into ``keys``."""
+    real_key = graphs.program_key
+
+    def spy(kind, tensors, statics):
+        key = real_key(kind, tensors, statics)
+        keys.add(key)
+        return key
+
+    mp.setattr(graphs, "program_key", spy)
+
+
 def test_program_keys_match_the_jit_cache_of_the_jax_package(monkeypatch):
     seq = _sequence()
     jax_lu_factor.clear_cache()
@@ -69,14 +90,7 @@ def test_program_keys_match_the_jit_cache_of_the_jax_package(monkeypatch):
     jax_programs = (jax_lu_factor._cache_size(), jax_lu_solve_impl._cache_size())
 
     keys = set()
-    real_key = graphs.program_key
-
-    def spy(kind, tensors, statics):
-        key = real_key(kind, tensors, statics)
-        keys.add(key)
-        return key
-
-    monkeypatch.setattr(graphs, "program_key", spy)
+    _spy_keys(monkeypatch, keys)
     for A, pivot, cfg, solve in seq:
         F = rt.lu(A, pivot, check=False, config=rt.LUConfig(**cfg), device="cpu")
         if solve is not None:
@@ -143,7 +157,7 @@ def _install_card_route(mp, calls):
         calls["noswap"] = calls.get("noswap", 0) + 1
         rows = torch.argsort(used0, stable=True)[: min(P.shape)]
         used = used0.to(torch.int32).clone()
-        used[rows] = 1
+        used.index_fill_(0, rows, 1)
         return rows.to(torch.int32), used, torch.zeros((), dtype=torch.int32)
 
     def batched_stub(A, pivot=True, with_perm=True):
@@ -166,11 +180,23 @@ def _install_card_route(mp, calls):
     mp.setattr(bk, "batched_solve", solve_stub)
 
 
+def _guard_setitem(real):
+    def setitem(self, index, value):
+        idx = index if isinstance(index, tuple) else (index,)
+        if isinstance(value, (bool, int, float, complex)) and any(
+                isinstance(i, torch.Tensor) for i in idx):
+            # index_put_ takes the number as a CPU tensor: a host copy on the card
+            raise HostRead("a Python number stored through a tensor index on the card route")
+        return real(self, index, value)
+    return setitem
+
+
 def _install_guards(mp):
     for name in ("item", "__bool__", "__int__", "__float__", "__index__", "tolist", "numpy",
                  "cpu"):
         mp.setattr(torch.Tensor, name, _guard(name))
     mp.setattr(torch.Tensor, "to", _guard_to(torch.Tensor.to))
+    mp.setattr(torch.Tensor, "__setitem__", _guard_setitem(torch.Tensor.__setitem__))
 
 
 def _well_conditioned(shape, dtype, seed):
@@ -374,3 +400,222 @@ def test_a_replay_copies_in_and_returns_fresh_outputs(monkeypatch):
     assert program.replays == 2 and x2.data_ptr() != program.outputs[0].data_ptr()
     assert [k for k, _ in log] == ["wait", "record", "wait", "record"]
     assert all(e is program._done for _, e in log)
+
+
+# ---------------------------------------------------------------------------
+# the donated factor and the RBT solver: keys, glue, CPU captures
+# ---------------------------------------------------------------------------
+
+_GUARDED = ("item", "__bool__", "__int__", "__float__", "__index__", "tolist", "numpy", "cpu",
+            "to", "__setitem__")
+_REAL = {name: getattr(torch.Tensor, name) for name in _GUARDED}
+
+
+class _HostReadsAllowed:
+    """Within the block the guards of (b) are lifted (the tensors a
+    program makes once, outside its graph, as its constants)."""
+
+    def __enter__(self):
+        self.guarded = {name: getattr(torch.Tensor, name) for name in _GUARDED}
+        for name, fn in _REAL.items():
+            setattr(torch.Tensor, name, fn)
+
+    def __exit__(self, *exc):
+        for name, fn in self.guarded.items():
+            setattr(torch.Tensor, name, fn)
+
+
+def _constants_outside_the_guards(mp):
+    """``graphs.call`` with a program's constants made where host reads
+    are allowed: only the program's own code (what the graph records)
+    stays guarded."""
+    real_call = graphs.call
+
+    def call(kind, fn, tensors, statics, *, constants=None, donate=False):
+        if constants is not None:
+            with _HostReadsAllowed():
+                made = constants()
+            constants = lambda: made  # noqa: E731
+        return real_call(kind, fn, tensors, statics, constants=constants, donate=donate)
+
+    mp.setattr(graphs, "call", call)
+
+
+def test_donated_keys_match_the_jit_cache_of_the_jax_package(monkeypatch):
+    """A seeded run of ``lu_inplace`` calls makes as many distinct
+    ``lu_factor_donated`` keys as the JAX package's ``_lu_factor_donated``
+    compiles (its ``lu_inplace`` donates when ``check=False``)."""
+    seq = [(A, pivot, cfg) for A, pivot, cfg, _ in _sequence(seed=17, calls=24)]
+    jax_lu_factor_donated.clear_cache()
+    for A, pivot, cfg in seq:
+        rf.lu_inplace(np.array(A), pivot, check=False, config=rf.LUConfig(**cfg))
+    jax_programs = jax_lu_factor_donated._cache_size()
+
+    keys = set()
+    _spy_keys(monkeypatch, keys)
+    for A, pivot, cfg in seq:
+        T = torch.from_numpy(A.copy())
+        F = rt.lu_inplace(T, pivot, check=False, config=rt.LUConfig(**cfg), device="cpu")
+        assert F.factors is T
+    port_programs = sum(k[0] == "lu_factor_donated" for k in keys)
+    assert port_programs == jax_programs
+    assert 1 < port_programs < len(seq)
+
+
+def test_rbt_keys_match_the_jit_caches_of_the_jax_package(monkeypatch):
+    """n = 9..20 (padded to 12 / 16 / 20), two seeds, refine 0 / 1: the
+    port's ``butterfly_workspace`` / ``butterfly_solve`` / ``UV`` keys
+    against ``_workspace_arrays`` / ``_butterfly_solve_impl`` /
+    ``_materialize_uv_jit``."""
+    rng = np.random.default_rng(18)
+    calls = []
+    for n in range(9, 21):
+        for seed in (888, 5):
+            refine = int(rng.integers(2)) if n % 3 else n % 2
+            A = rng.standard_normal((n, n)) + n * np.eye(n)
+            b = rng.standard_normal(n) if n % 2 else rng.standard_normal((n, 2))
+            calls.append((A, b, seed, refine))
+    jitted = (jax_butterfly._workspace_arrays, jax_butterfly._butterfly_solve_impl,
+              jax_butterfly._materialize_uv_jit)
+    for f in jitted:
+        f.clear_cache()
+    for A, b, seed, refine in calls:
+        ws = rf.butterfly_workspace(A, b, seed)
+        rf.butterfly_solve(ws, refine=refine)
+        ws.UV()
+    jax_programs = tuple(f._cache_size() for f in jitted)
+
+    keys = set()
+    _spy_keys(monkeypatch, keys)
+    for A, b, seed, refine in calls:
+        ws = rt.butterfly_workspace(A, b, seed, device="cpu")
+        x = rt.butterfly_solve(ws, refine=refine)
+        assert x.shape == b.shape
+        ws.UV()
+    port_programs = tuple(sum(k[0] == kind for k in keys)
+                          for kind in ("butterfly_workspace", "butterfly_solve", "materialize_uv"))
+    assert port_programs == jax_programs
+    # one workspace per (n, b's shape, seed), one solve per padded shape and
+    # refine, one UV per padded size
+    assert port_programs[0] == len(calls) and port_programs[2] == 3
+
+
+_DONATED_CASES = [c for c in _FACTOR_CASES if c[0] != "generic"]
+
+
+@pytest.mark.parametrize("name,shape,dtype,fields,pivot,launchers", _DONATED_CASES,
+                         ids=[c[0] for c in _DONATED_CASES])
+def test_donated_factor_glue_reads_no_device_value(monkeypatch, name, shape, dtype, fields,
+                                                   pivot, launchers):
+    """``lu_inplace`` / ``lu_factor(donate=True)`` (the ``lu_factor_donated``
+    program) on every route the card takes; ``factors`` stays ``A``."""
+    cfg = rt.LUConfig(**fields)
+    A, A2 = ((_well_conditioned(shape, torch.float64, s) * 10).to(dtype) for s in (1, 2))
+    calls = {}
+    with monkeypatch.context() as mp:
+        _install_card_route(mp, calls)
+        if name.endswith("_sparse"):
+            mp.setattr(blocked, "SPARSE_LASWP_MIN_BYTES", 0)
+        _install_guards(mp)
+        F = rt.lu_inplace(A, pivot, check=False, config=cfg, device="cpu")
+        factors, ipiv, perm, info = rt.lu_factor_p(A2, pivot, config=cfg, donate=True,
+                                                   device="cpu")
+    assert set(calls) == launchers
+    assert F.factors is A and factors is A2
+    assert perm.shape == (shape[0],) and info.shape == ()
+
+
+@pytest.mark.parametrize("n,dtype", [(38, torch.float32), (40, torch.float64)])
+@pytest.mark.parametrize("refine", [0, 2])
+@pytest.mark.parametrize("nrhs", [None, 3])
+def test_rbt_glue_reads_no_device_value(monkeypatch, n, dtype, refine, nrhs):
+    """``butterfly_workspace`` (the butterfly values made outside the
+    guards, as a program makes its constant outside its graph),
+    ``butterfly_solve`` with its nested pivot-free ``lu_factor`` on the
+    blocked route, and ``BWorkspace.UV``."""
+    A = _well_conditioned((n, n), dtype, 11)
+    b = _well_conditioned((n,) if nrhs is None else (n, nrhs), dtype, 12)
+    cfg = rt.LUConfig(**_SMALL)
+    calls = {}
+    with monkeypatch.context() as mp:
+        _install_card_route(mp, calls)
+        _constants_outside_the_guards(mp)
+        _install_guards(mp)
+        ws = rt.butterfly_workspace(A, b, device="cpu")
+        x, info = rt.butterfly_solve(ws, config=cfg, return_info=True, refine=refine)
+        U, V = ws.UV()
+    assert calls == {"panel_factor_cuda": 3}
+    assert ws.A.shape == (40, 40) and x.shape == b.shape and info.shape == ()
+    assert U.shape == V.shape == (40, 40)
+
+
+def test_the_rbt_guard_sees_values_made_inside_the_program(monkeypatch):
+    """The butterfly values' copy from the CPU generator is a host
+    operation: made inside the guarded program, it is caught."""
+    with monkeypatch.context() as mp:
+        _install_guards(mp)
+        with pytest.raises(HostRead):
+            rt.generate_butterfly_values(8, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64])
+def test_capturing_on_the_cpu_captures_nothing_for_the_new_entry_points(dtype):
+    """``capturing()`` around ``lu_inplace``, the RBT calls and ``UV`` on
+    CPU tensors makes no program and changes no result."""
+    n = 22
+    A = _well_conditioned((n, n), dtype, 13)
+    b = _well_conditioned((n, 2), dtype, 14)
+
+    def run():
+        F = rt.lu_inplace(A.clone(), device="cpu")
+        ws = rt.butterfly_workspace(A, b, seed=3, device="cpu")
+        x = rt.butterfly_solve(ws, refine=1)
+        return (F.factors, F.ipiv, F.p, F.info, ws.A, ws.b, ws.uv, x) + tuple(ws.UV())
+
+    before = run()
+    with graphs.capturing():
+        during = run()
+    warmup.warmup(((n, n),), (dtype,), device="cpu")
+    assert graphs.programs() == {}
+    for x, y, z in zip(before, during, run()):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_the_guards_catch_a_number_stored_through_a_tensor_index(monkeypatch):
+    """``A[idx, idx] = 1`` copies the number in from the host on the card
+    (a capture refuses it); a fill through a view does not."""
+    A = torch.zeros(4, 4)
+    idx = torch.arange(2)
+    with monkeypatch.context() as mp:
+        _install_guards(mp)
+        with pytest.raises(HostRead):
+            A[idx, idx] = 1
+        A.diagonal()[2:].fill_(1)
+        A[1:, :2] = A[:3, 2:]
+    assert A.diagonal().tolist() == [0, 0, 1, 1]
+
+
+def test_a_donated_replay_writes_the_callers_tensor(monkeypatch):
+    """A donated program's replay copies output 0 into the caller's tensor
+    0 and returns that tensor itself; the other outputs are fresh copies."""
+    import threading
+
+    log = []
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _StandInStream(log))
+
+    def fn(A):  # in place, as _dispatch_factor factors its input
+        A.mul_(2)
+        return A, A.sum()
+
+    program = object.__new__(graphs._Program)
+    program.inputs = (torch.zeros(3),)
+    program.outputs = fn(program.inputs[0])
+    program.single, program.replays, program.device = False, 0, torch.device("cpu")
+    program.donate = True
+    program._lock, program._done = threading.Lock(), _StandInEvent(log)
+    program.graph = _StandInGraph(program, lambda A: fn(A.clone()))
+    T = torch.tensor([1.0, 2.0, 3.0])
+    factors, total = program(T)
+    assert factors is T and torch.equal(T, torch.tensor([2.0, 4.0, 6.0]))
+    assert float(total) == 12.0 and total.data_ptr() != program.outputs[1].data_ptr()
+    assert [k for k, _ in log] == ["wait", "record"]
