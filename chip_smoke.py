@@ -2173,7 +2173,7 @@ def main(argv):
 
     # ---- 1. env ----------------------------------------------------------
     t0 = time.perf_counter()
-    _kernels.build()
+    _kernels.build((*_kernels.SOURCES, *_kernels.VARIANTS))  # the trace build too
     build_s = time.perf_counter() - t0
     ptxas = [
         ln.strip() for rec in _kernels.BUILD_LOG.values()

@@ -45,6 +45,7 @@ from ..utils.config import (
 )
 from ..utils import graphs
 from ..utils.perm import ipiv_to_perm, perm_to_matrix
+from ..utils.profiling import span
 
 
 class SingularMatrixError(Exception):
@@ -343,8 +344,11 @@ def _donated(A, device, what) -> torch.Tensor:
 
 def _lu_factor_impl(A: torch.Tensor, pivot: bool, config: LUConfig):
     """The program of :func:`lu_factor_p` (the JAX package's jitted
-    ``_lu_factor``): factor a copy of ``A``."""
-    return _dispatch_factor(A.clone(memory_format=torch.contiguous_format), pivot, config)
+    ``_lu_factor``): factor a copy of ``A`` (the copy in span
+    ``lu.clone``)."""
+    with span("lu.clone", A):
+        A = A.clone(memory_format=torch.contiguous_format)
+    return _dispatch_factor(A, pivot, config)
 
 
 def lu_factor_p(A, pivot=True, *, config: Optional[LUConfig] = None,

@@ -20,6 +20,10 @@ functions of the same names, keyed as they are: the tensors' shapes,
 dtypes and device, ``pivoted`` and ``trans`` (and ``iters``, or ``pivot``
 and ``config``).  A key that ``utils.warmup.warmup`` captured runs as the
 replay of its CUDA graph (utils/graphs.py), any other key eagerly.
+
+Spans (``utils/profiling.py``): ``solve.permute`` (the gather by the
+permutation), ``solve.forward`` and ``solve.backward`` (the two
+substitutions, in the order they run).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from ..ops import trsm
 from ..utils import graphs
 from ..utils.config import HALF_DTYPES, full_matmul_precision
 from ..utils.perm import invert_perm
+from ..utils.profiling import span
 
 
 def normalize_trans(trans) -> int:
@@ -67,18 +72,24 @@ def _lu_solve_impl(factors, perm, b, pivoted: bool, trans=0):
     B = (b[:, None] if vec else b).to(factors.dtype)
     if trans == 0:
         if pivoted:
-            B = B[perm.long()]
-        y = trsm.solve_unit_lower(factors, B)
-        x = trsm.solve_upper(factors, y)
+            with span("solve.permute", factors):
+                B = B[perm.long()]
+        with span("solve.forward", factors):
+            y = trsm.solve_unit_lower(factors, B)
+        with span("solve.backward", factors):
+            x = trsm.solve_upper(factors, y)
     else:
         # A = P^T L U  =>  A^T x = b  <=>  U^T y = b, L^T z = y, x = P^T z
         ft = factors.T
         if trans == 2 and factors.dtype.is_complex:
             ft = ft.conj()
-        y = trsm.solve_lower(ft, B)
-        x = trsm.solve_unit_upper(ft, y)
+        with span("solve.forward", factors):
+            y = trsm.solve_lower(ft, B)
+        with span("solve.backward", factors):
+            x = trsm.solve_unit_upper(ft, y)
         if pivoted:
-            x = x[invert_perm(perm).long()]
+            with span("solve.permute", factors):
+                x = x[invert_perm(perm).long()]
     return x[:, 0] if vec else x
 
 
@@ -176,4 +187,5 @@ def _solve_fused_impl(A, B, pivot: bool, config):
         f, _, _, info = panel_factor(Ab, pivot, config)
     else:
         f, _, _, info = _dispatch_factor(Ab, pivot, config)
-    return trsm.solve_upper(f[:, :n], f[:, n:], config.trsm_block), info
+    with span("solve.backward", A):
+        return trsm.solve_upper(f[:, :n], f[:, n:], config.trsm_block), info

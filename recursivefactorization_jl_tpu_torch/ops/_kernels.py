@@ -47,11 +47,11 @@ SOURCES = {
     for name in ("panel_lu", "panel_lu_c64", "panel_lu_micro",
                  "panel_lu_noswap", "batched_lu", "batched_solve")
 }
-# a second build of csrc/batched_lu.cu whose kernels stamp a phase
-# trace (rf_batched_lu_set_trace), for measurement only; the package's
-# wrappers never load it
-SOURCES["batched_lu_trace"] = SOURCES["batched_lu"]
-EXTRA_FLAGS = {"batched_lu_trace": ("-DRF_BATCHED_TRACE",)}
+# second builds of a source with flags of their own, for measurement only:
+# name -> (source, flags).  batched_lu_trace's kernels stamp a phase trace
+# (rf_batched_lu_set_trace); the package's wrappers never load it, and
+# build() builds it only when named (load() does)
+VARIANTS = {"batched_lu_trace": ("batched_lu", ("-DRF_BATCHED_TRACE",))}
 # the headers the sources include (nvcc finds them beside them):
 # rf_common.cuh by every source, panel_cluster.cuh by the four panel
 # kernels' sources; every library's hash covers all of them
@@ -181,17 +181,30 @@ def nvcc_path() -> str:
     )
 
 
+def source(name: str) -> Path:
+    """The source file of library ``name`` (of :data:`SOURCES` or
+    :data:`VARIANTS`)."""
+    return SOURCES[VARIANTS[name][0] if name in VARIANTS else name]
+
+
+def _source_and_flags(name: str):
+    return source(name), NVCC_FLAGS + VARIANTS.get(name, (name, ()))[1]
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(SOURCES[name].read_bytes())
+    source, flags = _source_and_flags(name)
+    h = hashlib.sha256(source.read_bytes())
     for header in HEADERS:
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, ())).encode())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
-    """Compile the named kernels that are not built yet, one ``nvcc`` per
-    source, all started together.  Returns name -> library path."""
+    """Compile the named kernels that are not built yet (default: the
+    package's own, :data:`SOURCES`; a name of :data:`VARIANTS` too), one
+    ``nvcc`` per library, all started together.  Returns name -> library
+    path."""
     names = list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = {n: library_path(n) for n in names if not library_path(n).exists()}
@@ -199,8 +212,8 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
     t0 = time.perf_counter()
     for name, out in todo.items():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", str(tmp),
-               str(SOURCES[name])]
+        source, flags = _source_and_flags(name)
+        cmd = [nvcc_path(), *flags, "-o", str(tmp), str(source)]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out)

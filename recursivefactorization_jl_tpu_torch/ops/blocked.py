@@ -8,6 +8,12 @@
         3. TRSM:  U12 = L11^-1 @ A12 via triangular inverse + matmul
         4. Schur: A22 -= L21 @ U12
 
+Each step is cut into spans with no gap between them
+(``utils/profiling.py``): ``blocked.panel`` (1, with the ipiv / info
+bookkeeping), ``blocked.laswp`` (2), ``blocked.trsm`` (3),
+``blocked.schur`` (4), and ``blocked.tail`` for the recursive tail's
+panel call.
+
 The schedule updates ``A`` in place, where the JAX package wrote new
 arrays with ``.at[].set``.  Fat matrices (m < n) factor the left m x m
 block, then solve for the remaining columns.  With ``tail_threshold``
@@ -28,6 +34,9 @@ moves until one final gather.
            step: consumed rows stay as they are, the panel's pivot rows
            receive their rows of U12, the others their Schur update
     then factors = A[perm]
+
+Its spans: ``blocked.panel`` (1), ``blocked.trsm`` (2, with the mask),
+``blocked.schur`` (3) and ``blocked.laswp`` for the final gather.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from typing import Tuple
 import torch
 
 from ..utils.config import LUConfig, full_matmul_precision
+from ..utils.profiling import span
 from .panel import panel_factor, panel_factor_noswap
 from .schur import schur_product
 from .trsm import solve_unit_lower, unit_lower_inverse
@@ -104,8 +114,10 @@ def _blocked_lu(A, pivot, config):
         _, ipiv, perm, info = _blocked_lu(A[:, :m], pivot, config)
         AR = A[:, m:]
         if pivot:
-            AR.copy_(AR[perm.long()])
-        AR.copy_(solve_unit_lower(A[:, :m], AR, config.trsm_block))
+            with span("blocked.laswp", A):
+                AR.copy_(AR[perm.long()])
+        with span("blocked.trsm", A):
+            AR.copy_(solve_unit_lower(A[:, :m], AR, config.trsm_block))
         return A, ipiv, perm, info
 
     minmn = n
@@ -122,24 +134,30 @@ def _blocked_lu(A, pivot, config):
         if pivot and s > 0 and tail is not None and n - s <= tail:
             # Recursive tail: factor the trailing block in one call, then
             # pull its row permutation through the finished L columns.
-            _, piv_l, perm_l, linfo = panel_factor(A[s:, s:], pivot, config)
-            ipiv[s:] = piv_l + s
-            info = _offset_info(info, linfo, s)
-            _laswp(A, perm, perm_l, piv_l, s, [(0, s)])
+            with span("blocked.tail", A):
+                _, piv_l, perm_l, linfo = panel_factor(A[s:, s:], pivot, config)
+                ipiv[s:] = piv_l + s
+                info = _offset_info(info, linfo, s)
+            with span("blocked.laswp", A):
+                _laswp(A, perm, perm_l, piv_l, s, [(0, s)])
             return A, ipiv, perm, info
         ws = min(w, n - s)
-        _, piv_l, perm_l, linfo = panel_factor(A[s:, s : s + ws], pivot, config)
-        ipiv[s : s + ws] = piv_l + s
-        info = _offset_info(info, linfo, s)
+        with span("blocked.panel", A):
+            _, piv_l, perm_l, linfo = panel_factor(A[s:, s : s + ws], pivot, config)
+            ipiv[s : s + ws] = piv_l + s
+            info = _offset_info(info, linfo, s)
         if pivot:
-            _laswp(A, perm, perm_l, piv_l, s, [(0, s), (s + ws, n)])
+            with span("blocked.laswp", A):
+                _laswp(A, perm, perm_l, piv_l, s, [(0, s), (s + ws, n)])
         if s + ws < n:
-            L11_inv = unit_lower_inverse(A[s : s + ws, s : s + ws])
-            A12 = A[s : s + ws, s + ws :]
-            A12.copy_(L11_inv @ A12)
-            A[s + ws :, s + ws :].sub_(
-                schur_product(A[s + ws :, s : s + ws], A12, prec).to(A.dtype)
-            )
+            with span("blocked.trsm", A):
+                L11_inv = unit_lower_inverse(A[s : s + ws, s : s + ws])
+                A12 = A[s : s + ws, s + ws :]
+                A12.copy_(L11_inv @ A12)
+            with span("blocked.schur", A):
+                A[s + ws :, s + ws :].sub_(
+                    schur_product(A[s + ws :, s : s + ws], A12, prec).to(A.dtype)
+                )
         s += ws
     return A, ipiv, perm, info
 
@@ -182,28 +200,32 @@ def _blocked_lu_physical(A, pivot, config):
     while s < n:
         ws = min(w, n - s)
         panel = A[:, s : s + ws]
-        # every earlier step consumed one row: m - s are left
-        prow_l, used, linfo = panel_factor_noswap(panel, used, pivot, live=m - s)
-        info = _offset_info(info, linfo, s)
-        prow[s : s + ws] = prow_l
-        rows = prow_l.long()
-        taken_at[rows] = steps[s : s + ws]
+        with span("blocked.panel", A):
+            # every earlier step consumed one row: m - s are left
+            prow_l, used, linfo = panel_factor_noswap(panel, used, pivot, live=m - s)
+            info = _offset_info(info, linfo, s)
+            prow[s : s + ws] = prow_l
+            rows = prow_l.long()
+            taken_at[rows] = steps[s : s + ws]
         if s + ws < n:
             # entry (i, r) stays iff row i was still available after
             # step s + r: the zeros cut the sums of consumed rows, so one
             # full-height product leaves earlier panels' rows alone,
             # writes U12 into this panel's pivot rows and updates the rest
-            keep = taken_at[:, None] > steps[None, s : s + ws]
-            Lm = torch.where(keep, panel, torch.zeros((), dtype=A.dtype, device=dev))
-            U12 = unit_lower_inverse(Lm[rows]) @ A[rows, s + ws :]
-            A[:, s + ws :].sub_(schur_product(Lm, U12, prec).to(A.dtype))
+            with span("blocked.trsm", A):
+                keep = taken_at[:, None] > steps[None, s : s + ws]
+                Lm = torch.where(keep, panel, torch.zeros((), dtype=A.dtype, device=dev))
+                U12 = unit_lower_inverse(Lm[rows]) @ A[rows, s + ws :]
+            with span("blocked.schur", A):
+                A[:, s + ws :].sub_(schur_product(Lm, U12, prec).to(A.dtype))
         s += ws
 
-    if m > n:
-        # the rows never chosen, in ascending order, without a host sync
-        rest = torch.argsort(used, stable=True)[: m - n].to(torch.int32)
-        perm = torch.cat([prow, rest])
-    else:
-        perm = prow
-    A.copy_(A[perm.long()])
+    with span("blocked.laswp", A):
+        if m > n:
+            # the rows never chosen, in ascending order, without a host sync
+            rest = torch.argsort(used, stable=True)[: m - n].to(torch.int32)
+            perm = torch.cat([prow, rest])
+        else:
+            perm = prow
+        A.copy_(A[perm.long()])
     return A, prow, perm, info

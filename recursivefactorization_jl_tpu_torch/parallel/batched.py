@@ -42,6 +42,9 @@ inside their capture the nested batched function runs eagerly and the
 ``all_reduce`` gathers are recorded.  ``graphs.capturing()`` captures
 them on an NCCL group only, and every rank must make the same calls
 inside it, in the same order, and replay them together.
+
+Spans (``utils/profiling.py``): ``batched.factor`` and ``batched.solve``
+around the factorization and the substitutions of every route.
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ from ..utils.config import (
     resolve_device,
 )
 from ..utils.perm import batched_invert_perm, batched_ipiv_to_perm
+from ..utils.profiling import span
 from .collectives import axis_group, gather_by_sum
 
 
@@ -176,7 +180,8 @@ def batched_lu_factor(
 
 
 def _batched_lu_factor_impl(A, pivot, config):
-    f, ipiv, _, info = _factor(A, pivot, config, False)
+    with span("batched.factor", A):
+        f, ipiv, _, info = _factor(A, pivot, config, False)
     return f, ipiv, info
 
 
@@ -195,7 +200,8 @@ def batched_lu_factor_perm(
 
 
 def _batched_lu_factor_perm_impl(A, pivot, config):
-    f, _, perm, info = _factor(A, pivot, config, True)
+    with span("batched.factor", A):
+        f, _, perm, info = _factor(A, pivot, config, True)
     return f, perm, info
 
 
@@ -261,11 +267,12 @@ def _solve_impl(factors, b, order, trans, config, by):
         # the plain substitution takes any n; transposed solves have no
         # kernel and stay with the triangular solves
         kernel = trans == 0 and factors.dtype.is_floating_point
-    if kernel and factors.shape[0] > 0:
-        return bk.batched_solve(factors, b, perm, ipiv)
-    if ipiv is not None:
-        perm = batched_ipiv_to_perm(ipiv, factors.shape[1])
-    return _triangular_solve(factors, perm, b, order is not None, trans)
+    with span("batched.solve", factors):
+        if kernel and factors.shape[0] > 0:
+            return bk.batched_solve(factors, b, perm, ipiv)
+        if ipiv is not None:
+            perm = batched_ipiv_to_perm(ipiv, factors.shape[1])
+        return _triangular_solve(factors, perm, b, order is not None, trans)
 
 
 def batched_lu_solve_perm(

@@ -61,6 +61,13 @@ recording serves every input of the key.  Inside a capture an entry point
 called by another one runs its eager code, which the outer capture
 records.  CPU tensors are never captured.
 
+Spans and counters (``utils/profiling.py``): every call opens a span
+named by its kind, and inside it ``graphs.copy_in``, ``graphs.replay``
+and ``graphs.copy_out`` (a replay), ``graphs.eager`` (a CUDA call whose
+key has no program) or ``graphs.capture``.  A program captured while
+recording holds its spans as graph nodes and reports them per replay.
+:func:`stats` counts replays, captures and eager CUDA calls, always.
+
 Threads and streams: a program's static buffers are shared by its
 callers, so a replay enqueues its copy in, replay and copies out under the
 program's lock, and waits (on the device) for the previous replay's
@@ -77,12 +84,19 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from . import profiling
+
 # key -> program; filled only inside ``capturing()``
 _PROGRAMS: Dict[tuple, "_Program"] = {}
 # held while a program is captured and entered into _PROGRAMS
 _CAPTURE_LOCK = threading.Lock()
 # device -> the side stream of every warm run and capture on it
 _STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+# captures made and CUDA calls run eagerly for want of a program, and the
+# replays of programs since freed (stats())
+_COUNTS = {"captures": 0, "eager": 0, "freed_replays": 0}
 
 
 class _State(threading.local):
@@ -129,6 +143,8 @@ class _Program:
 
     donate = False  # output 0 goes back into the caller's tensor 0
     groups: tuple = ()  # the process groups the program's collectives run on
+    # the spans its capture recorded as graph nodes (profiling.capture_spans)
+    spans: tuple = ()
 
     def __init__(self, fn: Callable, tensors, statics, device: torch.device,
                  constants: Optional[Callable] = None, donate: bool = False):
@@ -146,8 +162,10 @@ class _Program:
             fn(*(None if t is None else t.clone() for t in self.inputs), *self.constants,
                *statics)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
-            out = fn(*self.inputs, *self.constants, *statics)
+        with profiling.capture_spans() as spans:
+            with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
+                out = fn(*self.inputs, *self.constants, *statics)
+        self.spans = tuple(tuple(t) for t in spans)
         torch.cuda.current_stream(device).wait_stream(stream)
         self.single = isinstance(out, torch.Tensor)
         self.outputs = (out,) if self.single else tuple(out)
@@ -162,15 +180,20 @@ class _Program:
         with self._lock:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(self._done)
-            for static, t in zip(self.inputs, tensors):
-                if static is not None:
-                    static.copy_(t)
-            self.graph.replay()
-            if self.donate:
-                out = (tensors[0].copy_(self.outputs[0]),) + tuple(
-                    o.clone() for o in self.outputs[1:])
-            else:
-                out = tuple(o.clone() for o in self.outputs)
+            profiling.before_replay(self)
+            with profiling.span("graphs.copy_in"):
+                for static, t in zip(self.inputs, tensors):
+                    if static is not None:
+                        static.copy_(t)
+            with profiling.span("graphs.replay") as replay:
+                self.graph.replay()
+            profiling.after_replay(self, replay)
+            with profiling.span("graphs.copy_out"):
+                if self.donate:
+                    out = (tensors[0].copy_(self.outputs[0]),) + tuple(
+                        o.clone() for o in self.outputs[1:])
+                else:
+                    out = tuple(o.clone() for o in self.outputs)
             self._done.record(stream)
             self.replays += 1
         return out[0] if self.single else out
@@ -198,12 +221,14 @@ def capture(kind: str, fn: Callable, tensors, statics, *,
             return _PROGRAMS[key]
         saved, _STATE.capture = _STATE.capture, False  # no nested programs
         try:
-            program = _Program(fn, tensors, statics, device, constants, donate)
+            with profiling.span("graphs.capture", device):
+                program = _Program(fn, tensors, statics, device, constants, donate)
         except RuntimeError as e:
             raise RuntimeError(f"could not capture the program of {key}: {e}") from e
         finally:
             _STATE.capture = saved
         _PROGRAMS[key] = program
+        _COUNTS["captures"] += 1
     return program
 
 
@@ -218,17 +243,20 @@ def call(kind: str, fn: Callable, tensors: Tuple[Optional[torch.Tensor], ...], s
     writes its output 0 into tensor 0, and so does a replay."""
     key = program_key(kind, tensors, statics)
     device = next(t.device for t in tensors if t is not None)
-    if device.type != "cuda" or torch.cuda.is_current_stream_capturing():
-        return fn(*tensors, *(constants() if constants is not None else ()), *statics)
-    program = _PROGRAMS.get(key)
-    if program is None and _STATE.capture:
-        program = capture(kind, fn, tensors, statics, constants=constants, donate=donate)
-    if program is None:
-        return fn(*tensors, *(constants() if constants is not None else ()), *statics)
-    if any(a is not b for a, b in zip(program.groups, _groups(statics))):
-        raise RuntimeError(f"the program of {key} was captured on another process group "
-                           "of that name; clear the programs when a group is destroyed")
-    return program(*tensors)
+    with profiling.span(kind, device):
+        if device.type != "cuda" or torch.cuda.is_current_stream_capturing():
+            return fn(*tensors, *(constants() if constants is not None else ()), *statics)
+        program = _PROGRAMS.get(key)
+        if program is None and _STATE.capture:
+            program = capture(kind, fn, tensors, statics, constants=constants, donate=donate)
+        if program is None:
+            _COUNTS["eager"] += 1
+            with profiling.span("graphs.eager"):
+                return fn(*tensors, *(constants() if constants is not None else ()), *statics)
+        if any(a is not b for a, b in zip(program.groups, _groups(statics))):
+            raise RuntimeError(f"the program of {key} was captured on another process group "
+                               "of that name; clear the programs when a group is destroyed")
+        return program(*tensors)
 
 
 @contextlib.contextmanager
@@ -247,6 +275,16 @@ def programs() -> Dict[tuple, _Program]:
     return dict(_PROGRAMS)
 
 
+def stats() -> Dict[str, int]:
+    """Counts since the process started: ``replays`` of every program
+    (the sum of each program's ``.replays``, freed ones included),
+    ``captures`` made and ``eager`` CUDA calls of a key without a
+    program."""
+    live = sum(p.replays for p in list(_PROGRAMS.values()))
+    return {"replays": _COUNTS["freed_replays"] + live, "captures": _COUNTS["captures"],
+            "eager": _COUNTS["eager"]}
+
+
 def clear() -> None:
     """Free every captured program and its memory pool: the graphs are
     reset, their static tensors dropped and the caching allocator's free
@@ -254,6 +292,7 @@ def clear() -> None:
     with _CAPTURE_LOCK:
         held = list(_PROGRAMS.values())
         _PROGRAMS.clear()
+        _COUNTS["freed_replays"] += sum(p.replays for p in held)
     while held:
         held.pop().graph.reset()
     if torch.cuda.is_available() and torch.cuda.is_initialized():

@@ -14,7 +14,8 @@ time on every call.
   built into and loaded from (``ops._kernels.BUILD_DIR``).  A library
   there is named by a hash of its source, the headers and the flags, so
   a later process with the same sources loads it without ``nvcc``.
-* :func:`warmup` builds every kernel, runs ``lu_factor`` (and
+* :func:`warmup` builds the package's kernels (not the measurement-only
+  builds of ``ops._kernels.VARIANTS``), runs ``lu_factor`` (and
   ``lu_solve`` of a vector for square shapes) once per shape and dtype,
   and on the card captures the program of each of those keys: from then
   on a call with that key (``lu_factor``, ``lu_factor_p`` or ``lu`` of a
@@ -75,7 +76,7 @@ def warmup(
     config=None,
     device=None,
 ) -> None:
-    """Build every kernel, then factor (and, for a square shape and
+    """Build the package's kernels, then factor (and, for a square shape and
     ``solve``, solve a vector with) the identity of each shape and dtype
     once, and on the card capture the program of each of those keys, so
     that a later call with the key pays neither the build, nor the first

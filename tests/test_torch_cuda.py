@@ -44,7 +44,7 @@ from recursivefactorization_jl_tpu_torch.ops.unblocked import (
     unblocked_lu_cabs1,
     unblocked_lu_noswap,
 )
-from recursivefactorization_jl_tpu_torch.utils import graphs, warmup
+from recursivefactorization_jl_tpu_torch.utils import graphs, profiling, warmup
 from recursivefactorization_jl_tpu_torch.utils.config import PANEL_MICRO_MAX
 
 torch.set_num_threads(1)
@@ -2405,3 +2405,110 @@ def test_clearing_frees_the_new_programs(no_programs):
     r2 = torch.cuda.memory_reserved()
     assert r1 - r0 >= 2 * A.numel() * A.element_size() and r2 <= r0
     assert graphs.programs() == {} and int(rt.lu_inplace(A.clone()).info) == 0
+
+
+# spans (utils/profiling.py): device spans inside replays, counters
+
+
+def _subtree(spans, top):
+    """The names of ``top``'s descendants, depth first in id order."""
+    kids = {}
+    for s in spans:
+        kids.setdefault(s.parent, []).append(s)
+    out = []
+
+    def walk(sid):
+        for c in sorted(kids.get(sid, []), key=lambda s: s.id):
+            out.append(c.name)
+            walk(c.id)
+    walk(top.id)
+    return out
+
+
+def _calls(spans, kind):
+    return [s for s in spans if s.parent is None and s.name == kind]
+
+
+def _child(spans, parent, name):
+    (c,) = [s for s in spans if s.parent == parent.id and s.name == name]
+    return c
+
+
+def test_a_key_captured_while_recording_replays_its_spans(no_programs):
+    """A program captured while recording reports, per replay, the spans of
+    its eager call (as children of ``graphs.replay``, on the device's clock,
+    inside the replay's own device span); one captured while not recording
+    reports none.  ``graphs.stats`` counts the captures, replays and eager
+    calls."""
+    n, cfg = 1100, rt.LUConfig(panel_width=256)
+    A = _card_matrix((n, n), torch.float32, 41, shift=False)
+    b = _card_matrix((n,), torch.float32, 42)
+    before = graphs.stats()
+    with profiling.recording() as rec:
+        F = rt.lu(A, check=False, config=cfg)
+        rt.lu_solve(F, b)
+    eager = rec.collect()
+    after_eager = graphs.stats()
+    assert after_eager["eager"] - before["eager"] == 2
+    (ef,), (es,) = _calls(eager, "lu_factor"), _calls(eager, "lu_solve")
+    want_f = _subtree(eager, _child(eager, ef, "graphs.eager"))
+    want_s = _subtree(eager, _child(eager, es, "graphs.eager"))
+    assert want_f[0] == "lu.clone" and want_f.count("blocked.panel") == 5
+    assert want_s == ["solve.permute", "solve.forward", "solve.backward"]
+    assert all(s.clock == "host+device" for s in eager)
+
+    with profiling.recording() as rec:
+        warmup.warmup(((n, n),), (torch.float32,), config=cfg)
+        rec.collect()
+        r0 = graphs.stats()
+        for _ in range(3):
+            F = rt.lu(A, check=False, config=cfg)
+            rt.lu_solve(F, b)
+    spans = rec.collect()
+    stats = graphs.stats()
+    assert stats["captures"] - after_eager["captures"] == 2
+    assert stats["replays"] - r0["replays"] == 6 and stats["eager"] == r0["eager"]
+    for kind, want in (("lu_factor", want_f), ("lu_solve", want_s)):
+        calls = _calls(spans, kind)
+        assert len(calls) == 3
+        for c in calls:
+            assert [x.name for x in spans if x.parent == c.id] == [
+                "graphs.copy_in", "graphs.replay", "graphs.copy_out"]
+            replay = _child(spans, c, "graphs.replay")
+            assert _subtree(spans, replay) == want
+            inner = [x for x in spans if x.parent == replay.id]
+            assert all(x.clock == "device" and x.call == c.call for x in inner)
+            lo, hi = replay.device_ms
+            assert all(lo - 1e-3 <= x.device_ms[0] <= x.device_ms[1] <= hi + 1e-3 for x in inner)
+            assert c.device_ms[0] == 0.0 and c.device_ms[1] >= hi
+
+    # captured while not recording: no span nodes, the same bits
+    warmup.clear_caches()
+    warmup.warmup(((n, n),), (torch.float32,), config=cfg)
+    assert all(p.spans == () for p in graphs.programs().values())
+    with profiling.recording() as rec:
+        F2 = rt.lu(A, check=False, config=cfg)
+    spans = rec.collect()
+    (c,) = _calls(spans, "lu_factor")
+    assert _subtree(spans, _child(spans, c, "graphs.replay")) == []
+    assert _same_results(_lu_outputs(F2), _lu_outputs(F))
+
+
+def test_captured_batched_pairs_replay_their_spans(no_programs):
+    A = _card_matrix((1000, 64, 64), torch.float32, 43, shift=False)
+    b = _card_matrix((1000, 64), torch.float32, 44)
+    with profiling.recording() as rec:
+        with graphs.capturing():
+            f, ipiv, _ = rt.batched_lu_factor(A)
+            rt.batched_lu_solve(f, ipiv, b)
+        rec.collect()
+        for _ in range(2):
+            f, ipiv, _ = rt.batched_lu_factor(A)
+            rt.batched_lu_solve(f, ipiv, b)
+    spans = rec.collect()
+    for kind, inner in (("batched_lu_factor", "batched.factor"),
+                        ("batched_lu_solve", "batched.solve")):
+        calls = _calls(spans, kind)
+        assert len(calls) == 2
+        for c in calls:
+            assert _subtree(spans, _child(spans, c, "graphs.replay")) == [inner]

@@ -378,7 +378,7 @@ def test_ctypes_signatures_match_the_c_entry_points():
         assert all(p in decl for p in params), (name, decl)
     headers = "".join(h.read_text() for h in _kernels.HEADERS)
     for name, fns in _kernels.SIGNATURES.items():
-        text = _kernels.SOURCES[name].read_text() + headers
+        text = _kernels.source(name).read_text() + headers
         for fn, (_, argtypes) in fns.items():
             decl = re.search(r"\b" + fn + r"\(([^)]*)\)\s*\{", text)
             if decl is None and name not in spelled_out:

@@ -86,3 +86,35 @@ def test_enable_persistent_cache_moves_the_build_directory(tmp_path, monkeypatch
     assert _kernels.BUILD_DIR == tmp_path / "home" / ".cache" / \
         "recursivefactorization_jl_tpu_torch" / "kernels"
     assert os.path.isdir(_kernels.BUILD_DIR)
+
+
+def test_warmup_builds_only_the_packages_own_kernels(tmp_path, monkeypatch):
+    """``build()``'s default (what ``warmup`` builds) is the package's six
+    sources; the trace build of csrc/batched_lu.cu is built only when
+    named (``load("batched_lu_trace")`` names it), with its own flag."""
+    assert "batched_lu_trace" not in _kernels.SOURCES
+    assert _kernels.build.__defaults__[0] == tuple(_kernels.SOURCES)
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_kernels, "nvcc_path", lambda: "nvcc")
+    commands = []
+
+    class Done:
+        returncode = 0
+
+        def __init__(self, cmd, **kw):
+            commands.append(cmd)
+            open(cmd[cmd.index("-o") + 1], "w").close()
+
+        def communicate(self):
+            return "", None
+
+    monkeypatch.setattr(_kernels.subprocess, "Popen", Done)
+    built = _kernels.build(["batched_lu_trace"])
+    (cmd,) = commands
+    assert "-DRF_BATCHED_TRACE" in cmd and cmd[-1] == str(_kernels.SOURCES["batched_lu"])
+    assert built["batched_lu_trace"].is_file()
+    assert _kernels.library_path("batched_lu_trace") != _kernels.library_path("batched_lu")
+    commands.clear()
+    _kernels.build()
+    assert len(commands) == len(_kernels.SOURCES)
+    assert not any("-DRF_BATCHED_TRACE" in c for c in commands)
