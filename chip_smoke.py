@@ -4393,14 +4393,21 @@ def main(argv):
               "dsmem_exchange_C: a cluster of C CTAs of 512; the exchange is the "
               "chain kernel's candidate publish + cluster.sync() + reduction")
 
-    # where a step of the chain kernel goes: thread 0 of CTA 0 stamps
-    # clock64() at each phase boundary (rf_panel_lu_set_trace), one run
-    phases = ("reduce", "publish", "barrier", "agree", "swap", "update")
+    # where a step of the chain kernel goes: CTA 0 stamps clock64() at each
+    # phase boundary (rf_panel_lu_set_trace), one run.  panel_chain_kernel
+    # (9 stamps a step): thread 0, in warp 0, which publishes the candidate,
+    # stamps phases 0-7; thread 32, in warp 1, which publishes nothing,
+    # stamps the end of its share of the deferred update (8).  The no-swap
+    # chain keeps its 7 stamps (NOSWAP_PHASES).
+    phases = ("reduce", "publish", "deferred", "wait", "agree", "swap", "lookahead")
+    NOSWAP_PHASES = ("reduce", "publish", "barrier", "agree", "swap", "update")
 
-    def chain_trace(what, shape, run, plan, set_trace=None):
+    def chain_trace(what, shape, run, plan, set_trace=None, names=phases):
         set_trace = set_trace or lib_panel.rf_panel_lu_set_trace
+        # stamps a step: one per phase boundary, and warp 1's for panel_chain_kernel
+        P = len(names) + 1 + (names is phases)
         steps = min(shape[0] - shape[2], shape[1])
-        buf = torch.zeros(steps * 7 + 4 * plan["blocks"], dtype=torch.int64, device=dev)
+        buf = torch.zeros(steps * P + 4 * plan["blocks"], dtype=torch.int64, device=dev)
         run()  # warm
         torch.cuda.synchronize()
         set_trace(buf.data_ptr())
@@ -4410,18 +4417,30 @@ def main(argv):
         finally:
             set_trace(None)
         t = buf.cpu().double()
-        st = t[:steps * 7].view(steps, 7)
-        ends = t[steps * 7:].view(plan["blocks"], 4)
+        st = t[:steps * P].view(steps, P)
+        ends = t[steps * P:].view(plan["blocks"], 4)
         ghz = float((ends[:, 3] - ends[:, 1]).sum() / (ends[:, 2] - ends[:, 0]).sum())
         ns = {name: float((st[:, i + 1] - st[:, i]).median()) / ghz
-              for i, name in enumerate(phases)}
+              for i, name in enumerate(names)}
+        extra = {}
+        if names is phases:
+            # the exchange, as warp 0 sees it: from the candidate barrier to
+            # the end of its wait; warp 1's deferred update runs from the same
+            # barrier to stamp 8, and the share of it that ended inside the
+            # exchange is hidden
+            exchange = st[:, 4] - st[:, 1]
+            deferred = st[:, 8] - st[:, 1]
+            hidden = torch.minimum(deferred, exchange) / deferred.clamp(min=1)
+            extra = dict(exchange_ns_median=float(exchange.median()) / ghz,
+                         deferred_warp1_ns_median=float(deferred.median()) / ghz,
+                         hidden_share_median=float(hidden[1:].median()))
         emit("timing", what="chain_trace", card=card, kernel=what, shape=list(shape[:2]),
              ofs=shape[2], dtype=shape[3] if len(shape) > 3 else "float32", plan=plan,
              sm_ghz=ghz, phase_ns_median=ns,
-             step_ns_median=float((st[:, 6] - st[:, 0]).median()) / ghz,
-             chain_kernels_ms=float((ends[:, 2] - ends[:, 0]).sum()) / 1e6)
+             step_ns_median=float((st[:, len(names)] - st[:, 0]).median()) / ghz,
+             chain_kernels_ms=float((ends[:, 2] - ends[:, 0]).sum()) / 1e6, **extra)
 
-    for (m, w) in shapes:
+    for (m, w) in shapes + [(8192, 512)]:  # and the n = 8192 lu's first panel
         X = torch.randn(m, w, generator=gen).to(dev)
         P = X.clone()
         chain_trace("panel_lu", (m, w, 0), lambda: panel_factor_cuda(P.copy_(X), True),
@@ -4616,10 +4635,10 @@ def main(argv):
             P.copy_(X), True, micro_main), plans["micro"], lib_micro.rf_panel_lu_micro_set_trace)
         chain_trace("panel_lu_noswap", (m, w, 0), lambda: panel_factor_noswap_cuda(
             P.copy_(X), none_used, True, live=m), plans["noswap"],
-            lib_noswap.rf_panel_lu_noswap_set_trace)
+            lib_noswap.rf_panel_lu_noswap_set_trace, NOSWAP_PHASES)
         chain_trace("panel_lu_noswap_half_used", (m, w, 0), lambda: panel_factor_noswap_cuda(
             P.copy_(X), half_used, True, live=half_live), plans["noswap_half_used"],
-            lib_noswap.rf_panel_lu_noswap_set_trace)
+            lib_noswap.rf_panel_lu_noswap_set_trace, NOSWAP_PHASES)
         del X, P
 
     def e2e_opt(n):

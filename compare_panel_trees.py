@@ -2,7 +2,7 @@
 """Time the panel kernels of two checkouts of this repo in turns on one CUDA
 card.
 
-    python3 compare_panel_trees.py OLD NEW [--rounds 7] [--routes] [--out FILE]
+    python3 compare_panel_trees.py OLD NEW [--rounds 7] [--routes] [--chain] [--out FILE]
 
 OLD and NEW are the roots of two checkouts (for example the parent commit,
 unpacked with ``git archive`` into a gitignored directory, and ``.``).  The
@@ -15,6 +15,14 @@ plans) by CUDA events around each call, the input restored before each
 call outside the pair, and prints one JSON line of medians over ``rounds``
 rounds of 5 calls.  The parent then prints, per case, both readings of each
 tree and NEW / OLD of the slower reading of each.
+
+``--chain`` also traces one call of every case on each tree (the phase
+trace of the chain kernel, ``rf_*_set_trace``) and prints, per case, the
+median device time of a chain step (clock64() from one step's start to the
+next's within a launch, at the SM clock the trace's %globaltimer gives) and
+the chain kernels' time per step, both trees side by side.  The stamps per
+step are read from the tree's csrc/panel_cluster.cuh, so trees with
+different phase traces compare.
 
 ``--routes`` (NEW only) also times the tall micro panels of ``ROUTE_CASES``
 on their default route (the grid-barrier kernel ``panel_lu_micro_kernel``
@@ -36,10 +44,13 @@ import time
 CASES = (
     ("f32 1536x512", "panel_factor_cuda", "float32", (1536, 512), (True,), {}),
     ("f32 4096x512", "panel_factor_cuda", "float32", (4096, 512), (True,), {}),
+    ("f32 8192x512", "panel_factor_cuda", "float32", (8192, 512), (True,), {}),
     ("f64 1536x512", "panel_factor_cuda", "float64", (1536, 512), (True,), {}),
+    ("f64 4096x512", "panel_factor_cuda", "float64", (4096, 512), (True,), {}),
     ("c64 1536x512", "panel_factor_c64_cuda", "complex64", (1536, 512), (True,), {}),
     ("c64 4096x512", "panel_factor_c64_cuda", "complex64", (4096, 512), (True,), {}),
     ("c128 1536x512", "panel_factor_c64_cuda", "complex128", (1536, 512), (True,), {}),
+    ("c128 4096x512", "panel_factor_c64_cuda", "complex128", (4096, 512), (True,), {}),
     ("shadow f32 1536x512 micro 32", "panel_factor_shadow_cuda", "float32", (1536, 512),
      (True, 32), {}),
     ("shadow f32 4096x512 micro 32", "panel_factor_shadow_cuda", "float32", (4096, 512),
@@ -102,7 +113,57 @@ def time_calls(fn, A, rounds):
     return median(ms)
 
 
-def worker(rounds, routes):
+# the library and trace switch of each wrapper's chain kernel
+TRACE_FN = {"panel_factor_cuda": ("panel_lu", "rf_panel_lu_set_trace"),
+            "offset_panel_factor_cuda": ("panel_lu", "rf_panel_lu_set_trace"),
+            "panel_factor_c64_cuda": ("panel_lu_c64", "rf_panel_lu_c_set_trace"),
+            "panel_factor_shadow_cuda": ("panel_lu_micro", "rf_panel_lu_micro_set_trace"),
+            "panel_factor_basic_cuda": ("panel_lu_micro", "rf_panel_lu_micro_set_trace")}
+
+
+def trace_phases():
+    """Stamps per step of this tree's chain trace (csrc/panel_cluster.cuh)."""
+    import re
+
+    text = open("recursivefactorization_jl_tpu_torch/csrc/panel_cluster.cuh").read()
+    found = (re.search(r"kChainTracePhases = (\d+);", text)
+             or re.search(r"kTracePhases = (\d+);", text))
+    return int(found.group(1))
+
+
+def chain_steps(fn, A, steps, set_trace):
+    """One traced call of ``fn`` on a copy of ``A``: the median ns of a
+    chain step (one step's start to the next's within a launch) and the
+    chain kernels' ns per step."""
+    import torch
+
+    P = trace_phases()
+    buf = torch.zeros(steps * P + 4 * steps, dtype=torch.int64, device=A.device)
+    Q = A.clone()
+    fn(Q)
+    torch.cuda.synchronize()
+    set_trace(buf.data_ptr())
+    try:
+        Q.copy_(A)
+        fn(Q)
+        torch.cuda.synchronize()
+    finally:
+        set_trace(None)
+    t = buf.cpu().double()
+    st = t[:steps * P].view(steps, P)[:, 0]
+    ends = t[steps * P:].view(steps, 4)
+    ends = ends[ends[:, 0] != 0]
+    ghz = float((ends[:, 3] - ends[:, 1]).sum() / (ends[:, 2] - ends[:, 0]).sum())
+    d = st[1:] - st[:-1]
+    # a step's start to the next's within one launch (clock64 counts on
+    # across launches on another SM, so a launch boundary reads at random)
+    d = d[(d > 0) & (d < 20 * d.median())]
+    return {"step_ns_median": float(d.median()) / ghz,
+            "chain_ns_per_step": float((ends[:, 2] - ends[:, 0]).sum()) / steps,
+            "sm_ghz": ghz, "launches": int(ends.shape[0])}
+
+
+def worker(rounds, routes, chain=False):
     """One tree's process: build, time CASES (and ROUTE_CASES), print one
     JSON line."""
     import torch
@@ -120,6 +181,12 @@ def worker(rounds, routes):
         A = torch.randn(m, w, generator=gen, dtype=getattr(torch, dtype)).cuda()
         fn = getattr(P, wrapper)
         out["ms"][name] = time_calls(lambda Q: fn(Q, *args, **kw), A, rounds)
+        if chain:
+            lib, switch = TRACE_FN[wrapper]
+            ofs = args[0] if wrapper.startswith("offset") else 0
+            out.setdefault("chain", {})[name] = chain_steps(
+                lambda Q: fn(Q, *args, **kw), A, min(m - ofs, w),
+                getattr(_kernels.load(lib), switch))
     if routes:
         out["routes"] = {}
         for name, wrapper, dtype, (m, w), micro in ROUTE_CASES:
@@ -160,7 +227,7 @@ def main(argv):
     if argv and argv[0] == "--worker":
         # the tree's package, not the one beside this script (sys.path[0])
         sys.path.insert(0, os.getcwd())
-        worker(int(argv[1]), argv[2] == "1")
+        worker(int(argv[1]), argv[2] == "1", argv[3] == "1")
         return 0
     import argparse
 
@@ -169,6 +236,7 @@ def main(argv):
     ap.add_argument("new")
     ap.add_argument("--rounds", type=int, default=7)
     ap.add_argument("--routes", action="store_true")
+    ap.add_argument("--chain", action="store_true")
     ap.add_argument("--out")
     a = ap.parse_args(argv)
     log = open(a.out, "w") if a.out else None
@@ -185,7 +253,7 @@ def main(argv):
         tree = os.path.abspath(getattr(a, which))
         routes = a.routes and which == "new" and not res["new"]
         p = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
-                            str(a.rounds), "1" if routes else "0"],
+                            str(a.rounds), "1" if routes else "0", "1" if a.chain else "0"],
                            cwd=tree, capture_output=True, text=True, timeout=1200)
         got = [ln[7:] for ln in p.stdout.splitlines() if ln.startswith("RESULT ")]
         if p.returncode != 0 or not got:
@@ -204,6 +272,13 @@ def main(argv):
         n = median([r["ms"][name] for r in res["new"]])
         say({"case": name, "old_ms": [r["ms"][name] for r in res["old"]],
              "new_ms": [r["ms"][name] for r in res["new"]], "new_over_old": n / o})
+        if a.chain:
+            step = {w: [r["chain"][name]["step_ns_median"] for r in res[w]] for w in res}
+            per = {w: [r["chain"][name]["chain_ns_per_step"] for r in res[w]] for w in res}
+            say({"chain_case": name, "old_step_ns": step["old"], "new_step_ns": step["new"],
+                 "step_new_over_old": median(step["new"]) / median(step["old"]),
+                 "old_chain_ns_per_step": per["old"], "new_chain_ns_per_step": per["new"],
+                 "chain_new_over_old": median(per["new"]) / median(per["old"])})
     for r in res["new"]:
         for name, v in r.get("routes", {}).items():
             say({"route_case": name, "bitwise": v["bitwise"], "auto_ms": v["ms"]["auto"],

@@ -9,6 +9,16 @@
 // own chain and delayed kernels and takes the plan from here.  The design
 // is described at the top of csrc/panel_lu.cu.
 //
+// The chain kernel (panel_chain_kernel) runs each step with a one-column
+// look-ahead: the step's rank-1 update reaches only the next step's
+// column, scaled and searched by one thread per row, and the rows the
+// next step publishes; the rest waits for the next step, whose threads
+// apply it between their arrive on the split cluster barrier and their
+// wait, while the candidate exchange is in flight.  Every instantiation
+// takes it (the real and complex elements, the main-path, offset, micro-
+// blocked and bf16x3 forms); the launcher counts the launches that do (a
+// cluster of C > 1: with one CTA the wait is a __syncthreads()).
+//
 // The two blocked forms (the bf16x3 form and the micro-blocked kernels)
 // take any block width b and any panel height.  A block whose live rows do
 // not fit a cluster at its slab width (or whose b passes the widest slab,
@@ -31,8 +41,9 @@
 // a NaN among a step's candidates makes the pivot row m - 1, the last row
 // of the panel.  Every CTA of the cluster reduces the same candidates, so
 // every CTA sees the NaN: then the owner of row m - 1 publishes that row
-// and one more cluster barrier, taken by all CTAs together, precedes the
-// swap.  Steps without a NaN pay nothing for the rule.
+// (brought up to date in the look-ahead column too) and one more full
+// cluster barrier, taken by all CTAs together, precedes the swap.  Steps
+// without a NaN pay nothing for the rule.
 
 #pragma once
 
@@ -43,6 +54,7 @@
 #include <climits>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
 #include "rf_common.cuh"
@@ -79,13 +91,16 @@ struct ChainArgs {
   int* perm;
   int* info;
   int* moved;    // [0] count, then (row, row it now holds) pairs
-  // optional phase trace (the set_trace entry points): kTracePhases
-  // clock64() stamps per step from thread 0 of CTA 0, then per block the
-  // kernel's first and last %globaltimer (ns) and clock64()
+  // optional phase trace (the set_trace entry points): kChainTracePhases
+  // clock64() stamps per step from CTA 0 (threads 0 and 32), then per block
+  // the kernel's first and last %globaltimer (ns) and clock64()
   long long* trace;
   int steps, blk;
 };
 
+// stamps per step of the chain kernel's trace (panel_chain_kernel; the
+// no-swap chain of csrc/panel_lu_noswap.cu keeps its own kTracePhases)
+constexpr int kChainTracePhases = 9;
 constexpr int kTracePhases = 7;
 long long* g_trace = nullptr;
 
@@ -105,7 +120,8 @@ struct Cand {
 };
 
 // Byte offsets of a chain CTA's dynamic shared memory: the slab (rows x B,
-// row stride B), the exchange slots ([2][C] candidate rows, [2] copies of
+// row stride B; `padded`: one more element after every slab_rpw rows, see
+// slab_rpw), the exchange slots ([2][C] candidate rows, [2] copies of
 // row gk, for complex panels one copy of row m - 1, [2][C] candidates,
 // [2] (pid, src) of row gk, for complex panels (pid, src) of row m - 1),
 // then the slab rows' perm ids and origins.  Real panels have the layout
@@ -114,12 +130,25 @@ struct ChainSmem {
   size_t crow, krow, lrow, cand, kinf, linf, pid, src, total;
 };
 
+// The padded slab (panel_chain_kernel) puts one spare element after every
+// slab_rpw rows, the rows that a warp's groups read side by side (128 bytes
+// of a row-wise access), so that those reads stay on distinct banks and a
+// column read by consecutive rows on consecutive lanes does too.
+__host__ __device__ constexpr int slab_rpw(int B, int elem_bytes) {
+  return 128 / ((B < 32 ? B : 32) * elem_bytes) > 1 ? 128 / ((B < 32 ? B : 32) * elem_bytes) : 1;
+}
+
 template <typename T>
-__host__ __device__ inline ChainSmem chain_smem(int rows, int C, int B) {
+__host__ __device__ inline ChainSmem chain_smem(int rows, int C, int B, bool padded = false) {
   constexpr size_t sz = sizeof(T);
   constexpr bool last = Elem<T>::complex;
   ChainSmem s;
   size_t o = static_cast<size_t>(rows) * B * sz;
+  if (padded) {
+    const int rpw = slab_rpw(B, static_cast<int>(sz));
+    o += static_cast<size_t>((rows + rpw - 1) / rpw) * sz;
+    o = (o + 15) & ~static_cast<size_t>(15);
+  }
   s.crow = o; o += static_cast<size_t>(2) * C * B * sz;
   s.krow = o; o += static_cast<size_t>(2) * B * sz;
   s.lrow = o; o += last ? static_cast<size_t>(B) * sz : 0;
@@ -144,11 +173,87 @@ __device__ __forceinline__ void put(cg::cluster_group cluster, int C, V* ptr, in
   }
 }
 
+// Store the 16 bytes w at `ptr` (16-byte aligned) in the shared memory of
+// cluster CTA d: one st.shared::cluster.v4 (a plain shared store with a
+// cluster of one).
+__device__ __forceinline__ void put16(int C, void* ptr, int d, const uint4& w) {
+  if (C == 1) {
+    *static_cast<uint4*>(ptr) = w;
+    return;
+  }
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+  unsigned ra;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(ra) : "r"(a), "r"(d));
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(ra), "r"(w.x),
+               "r"(w.y), "r"(w.z), "r"(w.w)
+               : "memory");
+}
+
+// The cluster barrier split in two (PTX barrier.cluster, sm_90): a thread's
+// arrive releases its earlier writes, to its own CTA's shared memory and to
+// the other CTAs'; its wait returns once every thread of the cluster has
+// arrived, and acquires what they released.  Every thread takes both, in
+// pairs, as it would take cluster.sync(); a whole warp at once (.aligned:
+// the warp is converged first).
+__device__ __forceinline__ void cluster_arrive() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  __syncwarp();
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// A warp's best candidate by `better` in two or three redux.sync: each
+// lane's (v, i) becomes an unsigned key ordered as `better` orders values
+// (0 for none, a magnitude's bits + 1, every NaN one key above all numbers;
+// magnitudes are >= 0), the largest key wins, then the smallest row among
+// the lanes that hold it.  Every lane ends with the winner.  Double
+// magnitudes take their key in two halves.
+__device__ __forceinline__ void warp_best_key(float& v, int& i) {
+  const unsigned k = i == INT_MAX ? 0u : isnan(v) ? 0xffffffffu : __float_as_uint(v) + 1u;
+  const unsigned mk = __reduce_max_sync(kFull, k);
+  i = static_cast<int>(__reduce_min_sync(kFull, k == mk ? static_cast<unsigned>(i) : ~0u));
+  v = mk == 0u ? -1.0f : mk == 0xffffffffu ? __int_as_float(0x7fffffff) : __uint_as_float(mk - 1u);
+}
+
+__device__ __forceinline__ void warp_best_key(double& v, int& i) {
+  const unsigned long long k =
+      i == INT_MAX ? 0ull : isnan(v) ? ~0ull : __double_as_longlong(v) + 1ull;
+  const unsigned hi = static_cast<unsigned>(k >> 32), lo = static_cast<unsigned>(k);
+  const unsigned mh = __reduce_max_sync(kFull, hi);
+  const unsigned ml = __reduce_max_sync(kFull, hi == mh ? lo : 0u);
+  const bool top = hi == mh && lo == ml;
+  i = static_cast<int>(__reduce_min_sync(kFull, top ? static_cast<unsigned>(i) : ~0u));
+  const unsigned long long mk = (static_cast<unsigned long long>(mh) << 32) | ml;
+  v = mk == 0ull ? -1.0 : mk == ~0ull ? __longlong_as_double(0x7fffffffffffffffll)
+                                      : __longlong_as_double(static_cast<long long>(mk - 1ull));
+}
+
 // The pivot chain of one block on one cluster (see the note at the top of
-// csrc/panel_lu.cu).  Thread mapping: a group of G = min(B, 32) lanes owns
-// slab rows grp, grp + NG, ...; lane li owns columns li, li + G, ...  The
-// same thread swaps, scales, updates and searches an element within a
-// step, so those need no barrier between them.
+// csrc/panel_lu.cu).  Two thread mappings:
+//   groups  a group of G = min(B, 32) lanes owns slab rows grp, grp + NG,
+//           ...; lane li owns columns li, li + G, ...: the deferred update
+//           and the swap (and the row published after a complex NaN
+//           candidate: lane l sends columns l % G + 32 t, its u[t]);
+//   rows    thread t owns slab rows t, t + 512, ...: the look-ahead column
+//           and the candidate search.
+// The slab is padded (slab_rpw) so that both read shared memory on
+// distinct banks.
+//
+// One-column look-ahead: step kk's rank-1 update reaches column kk + 1 in
+// step kk (the row threads scale column kk, bring column kk + 1 up to date
+// and search it) and the rest of the row in step kk + 1: column kk + 2 as
+// that step's look-ahead column, the columns past it in the deferred pass,
+// which every thread runs between its arrive on the cluster barrier and
+// its wait, inside the candidate exchange.  The rows that step kk + 1
+// publishes (the CTA's candidate, row gk + 1) take it first, in all their
+// columns > kk + 1, in the sending warp, which writes them back; the
+// deferred pass and the look-ahead skip them.  What a thread touches after
+// its wait is its own (the swap: the deferred update's elements, by the
+// same group lanes; the look-ahead: columns no other thread writes in the
+// step) or was written before a warp's arrive (the published rows), so the
+// split barrier needs no other one.
 template <typename T, int B>
 __global__ void __launch_bounds__(kChainThreads)
 panel_chain_kernel(ChainArgs<T> p) {
@@ -157,11 +262,17 @@ panel_chain_kernel(ChainArgs<T> p) {
   constexpr int G = B < 32 ? B : 32;
   constexpr int PER = B / G;
   constexpr int NG = kChainThreads / G;
-  // a published row: lane l sends columns l % GW + 32 t (t < VPL) to the
-  // CTAs l / GW, l / GW + DSTEP, ...
-  constexpr int GW = B < 32 ? B : 32;
-  constexpr int VPL = B < 32 ? 1 : B / 32;
-  constexpr int DSTEP = 32 / GW;
+  // a row published after a NaN candidate: lane l sends columns
+  // l % G + 32 t (t < PER) to the CTAs l / G, l / G + DSTEP, ...
+  constexpr int DSTEP = 32 / G;
+  // any other published row goes in V pieces of 16 bytes (E16 elements):
+  // lane l sends piece l % V to the CTAs l / V, l / V + DV, ... (V <= 32),
+  // or pieces l, l + 32, ... (NCH of them) to every CTA
+  constexpr int E16 = 16 / static_cast<int>(sizeof(T));
+  constexpr int V = B / E16;
+  constexpr int NCH = V > 32 ? V / 32 : 1;
+  constexpr int DV = V > 32 ? 1 : 32 / V;
+  constexpr int RPW = slab_rpw(B, sizeof(T));
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ R red_val[kChainWarps];
@@ -170,7 +281,7 @@ panel_chain_kernel(ChainArgs<T> p) {
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int R_ = p.rows;
-  const ChainSmem L = chain_smem<T>(R_, C, B);
+  const ChainSmem L = chain_smem<T>(R_, C, B, true);
   T* slab = reinterpret_cast<T*>(smem_raw);
   T* crow = reinterpret_cast<T*>(smem_raw + L.crow);
   T* krow = reinterpret_cast<T*>(smem_raw + L.krow);
@@ -180,6 +291,8 @@ panel_chain_kernel(ChainArgs<T> p) {
   int* linf = reinterpret_cast<int*>(smem_raw + L.linf);
   int* pid = reinterpret_cast<int*>(smem_raw + L.pid);
   int* src = reinterpret_cast<int*>(smem_raw + L.src);
+  // slab row q, padded
+  auto row = [&](int q) { return slab + q * B + q / RPW; };
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grp = tid / G, li = tid % G;
@@ -196,167 +309,234 @@ panel_chain_kernel(ChainArgs<T> p) {
   }
   for (int e = tid; e < own * B; e += kChainThreads) {
     const int q = e / B, c = e % B;
-    if (c < ncol) slab[e] = p.a[(r0 + s0 + q) * lda + k0 + c];
+    if (c < ncol) row(q)[c] = p.a[(r0 + s0 + q) * lda + k0 + c];
   }
   for (int q = tid; q < own; q += kChainThreads) {
-    const int row = r0 + s0 + q;
-    pid[q] = first ? row : p.perm[row];
-    src[q] = row;
+    const int r = r0 + s0 + q;
+    pid[q] = first ? r : p.perm[r];
+    src[q] = r;
   }
   __syncthreads();
 
-  // step 0's candidate: column 0 is lane 0 of each group
+  // step 0's candidate, by the row threads
   R best = R(-1);
   int bi = INT_MAX;
-  if (p.pivot && li == 0) {
-    for (int q = grp; q < own; q += NG) {
-      const R v = mag(slab[q * B]);
+  if (p.pivot) {
+    for (int q = tid; q < own; q += kChainThreads) {
+      const R v = mag(row(q)[0]);
       if (better(v, r0 + s0 + q, best, bi)) { best = v; bi = r0 + s0 + q; }
     }
   }
   int info = 0;
   if (rank == 0 && tid == 0 && !first) info = *p.info;
+  // the last step's pivot row: in this thread's group columns (u), and its
+  // entry in the column after next (un2: step kk's look-ahead column takes
+  // step kk - 1's update too)
+  T u[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) u[j] = T{};
+  T un2 = T{};
+  const T* uprev = nullptr;  // the last pivot row's slot, for the rows published next
 
-  const bool tr = p.trace != nullptr && rank == 0 && tid == 0;
-  long long* stamps = tr ? p.trace + static_cast<size_t>(k0) * kTracePhases : nullptr;
-  long long* ends = tr ? p.trace + static_cast<size_t>(p.steps) * kTracePhases + 4 * p.blk : nullptr;
-  if (tr) { ends[0] = global_ns(); ends[1] = clock64(); }
+  // step kd's rank-1 update of this CTA's slab rows below row kd in the
+  // columns >= cmin, rows qx and qy excepted (they took it early); the
+  // group mapping, two rows per pass
+  auto deferred = [&](int kd, int cmin, int qx, int qy) {
+    bool act[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int c = li + j * G;
+      act[j] = c >= cmin && c < ncol;
+    }
+    for (int q0 = max(0, kd + 1 - s0) / NG * NG; q0 < own; q0 += 2 * NG) {
+      const int qa = q0 + grp, qb = qa + NG;
+      const bool ona = qa < own && s0 + qa > kd && qa != qx && qa != qy;
+      const bool onb = qb < own && s0 + qb > kd && qb != qx && qb != qy;
+      T* ra = row(qa);
+      T* rb = row(qb);
+      const T la = ona ? ra[kd] : T{};
+      const T lb = onb ? rb[kd] : T{};
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        if (!act[j]) continue;
+        const int c = li + j * G;
+        if (ona) ra[c] = rsub(ra[c], rmul(la, u[j]));
+        if (onb) rb[c] = rsub(rb[c], rmul(lb, u[j]));
+      }
+    }
+  };
+
+  const bool tr = p.trace != nullptr && rank == 0 && (tid == 0 || tid == 32);
+  long long* stamps = tr ? p.trace + static_cast<size_t>(k0) * kChainTracePhases : nullptr;
+  long long* ends =
+      tr ? p.trace + static_cast<size_t>(p.steps) * kChainTracePhases + 4 * p.blk : nullptr;
+  if (tr && tid == 0) { ends[0] = global_ns(); ends[1] = clock64(); }
 #define RF_STAMP(phase) \
-  if (tr) stamps[kk * kTracePhases + (phase)] = clock64()
+  if (tr && tid == 0) stamps[kk * kChainTracePhases + (phase)] = clock64()
 
   for (int kk = 0; kk < nb; ++kk) {
     const int par = kk & 1;
     const int gk = r0 + kk;
     const int owner = kk / R_;  // the CTA that holds slab row kk
     const int slot = par * C + rank;
-    const int lk = kk % G;      // the lane of column kk in each group
+    const bool late = kk > 0;   // step kk - 1's update is due in columns > kk
     RF_STAMP(0);
 
     // ---- reduce the CTA's candidate ----------------------------------------
-    // lane lk of each group holds its rows' candidate (found while the last
-    // step updated column kk); move it to the group's lanes, then down the
-    // warp in log2(32 / G) rounds
+    // the row threads hold their rows' candidates in column kk (found while
+    // the last step updated it): down each warp, then over the warps in
+    // every warp, so that each warp knows the row the CTA publishes (the
+    // deferred update skips it)
+    R cv = R(-1);
+    int ci = INT_MAX;
     if (p.pivot) {
-      R v = __shfl_sync(kFull, best, lk, G);
-      int i = __shfl_sync(kFull, bi, lk, G);
-      for (int off = 16; off >= G; off >>= 1) {
-        const R ov = __shfl_down_sync(kFull, v, off);
-        const int oi = __shfl_down_sync(kFull, i, off);
-        if (better(ov, oi, v, i)) { v = ov; i = oi; }
-      }
+      R v = best;
+      int i = bi;
+      warp_best_key(v, i);
       if (lane == 0) { red_val[warp] = v; red_idx[warp] = i; }
     }
     __syncthreads();  // also orders the previous step's slab writes
     RF_STAMP(1);
+    if (p.pivot) {
+      cv = lane < kChainWarps ? red_val[lane] : R(-1);
+      ci = lane < kChainWarps ? red_idx[lane] : INT_MAX;
+      warp_best_key(cv, ci);
+    }
+    const int qc = ci == INT_MAX ? -1 : ci - r0 - s0;  // the candidate's slab row here
+    const int qk = rank == owner ? kk - s0 : -1;       // row gk's, on its owner
 
-    // ---- publish it and row gk to every CTA -------------------------------
-    // each lane loads what it sends first and then stores, so the remote
-    // stores go out back to back
-    if (p.pivot && warp == 0) {
-      R v = lane < kChainWarps ? red_val[lane] : R(-1);
-      int i = lane < kChainWarps ? red_idx[lane] : INT_MAX;
-      for (int off = kChainWarps / 2; off > 0; off >>= 1) {
-        const R ov = __shfl_down_sync(kFull, v, off);
-        const int oi = __shfl_down_sync(kFull, i, off);
-        if (better(ov, oi, v, i)) { v = ov; i = oi; }
-      }
-      v = __shfl_sync(kFull, v, 0);
-      i = __shfl_sync(kFull, i, 0);
-      const int q = i == INT_MAX ? -1 : i - r0 - s0;
-      Cand<R> cd;
-      cd.val = v;
-      cd.idx = i;
-      cd.pid = q < 0 ? -1 : pid[q];
-      cd.src = q < 0 ? -1 : src[q];
-      T x[VPL];
+    // ---- publish the candidate and row gk to every CTA ---------------------
+    // the sending warp brings the row up to date first (step kk - 1's update
+    // in columns > kk, from its multiplier and the last pivot row, whose slot
+    // nobody writes before this CTA's arrive) and writes it back; it sends
+    // the row in 16-byte pieces, each lane loading what it sends first, so
+    // the remote stores go out back to back
+    auto take_row = [&](int q, T (&x)[NCH][E16]) {
+      T* r = row(q);
+      const T l = late ? r[kk - 1] : T{};
 #pragma unroll
-      for (int t = 0; t < VPL; ++t) {
-        const int c = lane % GW + t * 32;
-        x[t] = q >= 0 && c < ncol ? slab[q * B + c] : T{};
-      }
-      if (lane < C) put(cluster, C, cand + slot, lane, cd);
-      if (q >= 0) {
-        for (int d = lane / GW; d < C; d += DSTEP) {
+      for (int m = 0; m < NCH; ++m) {
+        const int j = V > 32 ? lane + 32 * m : lane % V;
 #pragma unroll
-          for (int t = 0; t < VPL; ++t) {
-            const int c = lane % GW + t * 32;
-            if (c < ncol) put(cluster, C, crow + slot * B + c, d, x[t]);
+        for (int e = 0; e < E16; ++e) {
+          const int c = j * E16 + e;
+          x[m][e] = c < ncol ? r[c] : T{};
+          if (late && c > kk && c < ncol) x[m][e] = rsub(x[m][e], rmul(l, uprev[c]));
+        }
+      }
+      __syncwarp();  // every lane has read the row before one writes it
+      if (late && (V > 32 || lane < V)) {
+#pragma unroll
+        for (int m = 0; m < NCH; ++m) {
+          const int j = V > 32 ? lane + 32 * m : lane;
+#pragma unroll
+          for (int e = 0; e < E16; ++e) {
+            const int c = j * E16 + e;
+            if (c > kk && c < ncol) r[c] = x[m][e];
           }
         }
       }
-    }
-    if (rank == owner && warp == kChainWarps - 1) {
-      const int q = kk - s0;
-      const int kp_id = pid[q], ks_id = src[q];
-      T x[VPL];
+    };
+    auto send_row = [&](T* dst, const T (&x)[NCH][E16]) {
 #pragma unroll
-      for (int t = 0; t < VPL; ++t) {
-        const int c = lane % GW + t * 32;
-        x[t] = c < ncol ? slab[q * B + c] : T{};
+      for (int m = 0; m < NCH; ++m) {
+        const int j = V > 32 ? lane + 32 * m : lane % V;
+        uint4 wd;
+        memcpy(&wd, x[m], 16);
+        for (int d = V > 32 ? 0 : lane / V; d < C; d += DV) put16(C, dst + j * E16, d, wd);
       }
+    };
+    auto send_cand = [&](const Cand<R>& cd) {
+      if (lane >= C) return;
+      if constexpr (sizeof(Cand<R>) == 16) {
+        uint4 wd;
+        memcpy(&wd, &cd, 16);
+        put16(C, cand + slot, lane, wd);
+      } else {
+        put(cluster, C, cand + slot, lane, cd);
+      }
+    };
+    // the candidate is row gk itself: warp 0 sends it as both
+    const bool both = qc >= 0 && qc == qk;
+    if (p.pivot && warp == 0) {
+      Cand<R> cd;
+      cd.val = cv;
+      cd.idx = ci;
+      cd.pid = qc < 0 ? -1 : pid[qc];
+      cd.src = qc < 0 ? -1 : src[qc];
+      T x[NCH][E16];
+      if (qc >= 0) take_row(qc, x);
+      send_cand(cd);
+      if (qc >= 0) send_row(crow + slot * B, x);
+      if (both) {
+        if (lane < C) {
+          put(cluster, C, kinf + 2 * par, lane, cd.pid);
+          put(cluster, C, kinf + 2 * par + 1, lane, cd.src);
+        }
+        send_row(krow + par * B, x);
+      }
+    }
+    if (qk >= 0 && !both && warp == kChainWarps - 1) {
+      const int kp_id = pid[qk], ks_id = src[qk];
+      T x[NCH][E16];
+      take_row(qk, x);
       if (lane < C) {
         put(cluster, C, kinf + 2 * par, lane, kp_id);
         put(cluster, C, kinf + 2 * par + 1, lane, ks_id);
       }
-      for (int d = lane / GW; d < C; d += DSTEP) {
-#pragma unroll
-        for (int t = 0; t < VPL; ++t) {
-          const int c = lane % GW + t * 32;
-          if (c < ncol) put(cluster, C, krow + par * B + c, d, x[t]);
-        }
-      }
+      send_row(krow + par * B, x);
     }
+    // ---- arrive; step kk - 1's update in columns > kk + 1; wait ------------
+    if (C > 1) cluster_arrive();
     RF_STAMP(2);
+    if (late) deferred(kk - 1, kk + 2, qc, qk);
+    RF_STAMP(3);
+    if (tr && tid == 32) stamps[kk * kChainTracePhases + 8] = clock64();
     if (C > 1) {
-      cluster.sync();
+      cluster_wait();  // converges the warp first: its lanes have read their multipliers
     } else {
       __syncthreads();
     }
-    RF_STAMP(3);
+    RF_STAMP(4);
 
-    // ---- every CTA agrees on the pivot: lanes < C hold one candidate each,
-    // log2(C) butterfly rounds ----------------------------------------------
+    // ---- every CTA agrees on the pivot: lanes < C hold one candidate each;
+    // the winner's CTA follows from its row -----------------------------------
     const T* urow;
     int kp, upid, usrc;
     if (p.pivot) {
       R v = R(-1);
-      int i = INT_MAX, g = lane;
+      int i = INT_MAX;
       if (lane < C) {
         v = cand[par * C + lane].val;
         i = cand[par * C + lane].idx;
       }
-      for (int off = 1; off < C; off <<= 1) {
-        const R ov = __shfl_xor_sync(kFull, v, off);
-        const int oi = __shfl_xor_sync(kFull, i, off);
-        const int og = __shfl_xor_sync(kFull, g, off);
-        if (better(ov, oi, v, i)) { v = ov; i = oi; g = og; }
-      }
-      kp = __shfl_sync(kFull, i, 0);
-      const int bg = __shfl_sync(kFull, g, 0);
+      warp_best_key(v, i);
+      kp = i;
+      const int bg = (kp - r0) / R_;
       urow = crow + static_cast<size_t>(par * C + bg) * B;
       upid = cand[par * C + bg].pid;
       usrc = cand[par * C + bg].src;
-      if (kLastOnNaN && isnan(__shfl_sync(kFull, v, 0))) {
+      if (kLastOnNaN && isnan(v)) {
         // a NaN candidate: the pivot is row m - 1, which its owner publishes
-        // now; every CTA takes this branch and its barrier
+        // now, up to date (step kk - 1's update in column kk + 1 too, unless
+        // it took it early); every CTA takes this branch and its barriers
+        // (the first orders the deferred update's writes before the read)
+        __syncthreads();
         const int ql = M - 1 - s0;
         if (ql >= 0 && ql < own && warp == 0) {
-          T x[VPL];
+          const T* r = row(ql);
+          const bool due = late && ql != qc && ql != qk;
+          const T l = due ? r[kk - 1] : T{};
 #pragma unroll
-          for (int t = 0; t < VPL; ++t) {
-            const int c = lane % GW + t * 32;
-            x[t] = c < ncol ? slab[ql * B + c] : T{};
+          for (int t = 0; t < PER; ++t) {
+            const int c = lane % G + t * 32;
+            T x = c < ncol ? r[c] : T{};
+            if (due && c == kk + 1) x = rsub(x, rmul(l, u[t]));
+            for (int d = lane / G; d < C && c < ncol; d += DSTEP) put(cluster, C, lrow + c, d, x);
           }
           if (lane < C) {
             put(cluster, C, linf, lane, pid[ql]);
             put(cluster, C, linf + 1, lane, src[ql]);
-          }
-          for (int d = lane / GW; d < C; d += DSTEP) {
-#pragma unroll
-            for (int t = 0; t < VPL; ++t) {
-              const int c = lane % GW + t * 32;
-              if (c < ncol) put(cluster, C, lrow + c, d, x[t]);
-            }
           }
         }
         if (C > 1) {
@@ -383,110 +563,97 @@ panel_chain_kernel(ChainArgs<T> p) {
       p.piv[k0 + kk] = kp;
       if (!nz && info == 0) info = p.pivot ? k0 + kk + 1 : -(k0 + kk + 1);
     }
-    RF_STAMP(4);
+    RF_STAMP(5);
 
-    // ---- swap rows kk and kp where this CTA holds them ---------------------
+    // ---- swap rows kk and kp where this CTA holds them (row kp's columns kk
+    // and kk + 1 go to its look-ahead thread instead) ------------------------
+    const int qs = swap ? kp - r0 - s0 : -1;  // row kp's slab row, swapped
     if (swap) {
-      const int qa = kk - s0, qb = kp - r0 - s0;
+      const int qa = kk - s0;
       if (qa >= 0 && qa < own && grp == qa % NG) {
+        T* ra = row(qa);
 #pragma unroll
         for (int j = 0; j < PER; ++j) {
           const int c = li + j * G;
-          if (c < ncol) slab[qa * B + c] = urow[c];
+          if (c < ncol) ra[c] = urow[c];
         }
         if (li == 0) { pid[qa] = upid; src[qa] = usrc; }
       }
-      if (qb >= 0 && qb < own && grp == qb % NG) {
+      if (qs >= 0 && qs < own && grp == qs % NG) {
+        T* rb = row(qs);
 #pragma unroll
         for (int j = 0; j < PER; ++j) {
           const int c = li + j * G;
-          if (c < ncol) slab[qb * B + c] = krow[par * B + c];
+          if (c < ncol && c != kk && c != kk + 1) rb[c] = krow[par * B + c];
         }
-        if (li == 0) { pid[qb] = kinf[2 * par]; src[qb] = kinf[2 * par + 1]; }
-      }
-    }
-    RF_STAMP(5);
-
-    // ---- scale, update the slab's columns > kk, search column kk + 1 ------
-    // two rows per pass; passes wholly above row kk are skipped, and the
-    // trip count is uniform over the CTA, as the shuffles need
-    T u[PER];
-    bool act[PER];
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int c = li + j * G;
-      u[j] = urow[c];
-      act[j] = c > kk && c < ncol;
-    }
-    const int jn = (kk + 1) / G;
-    const bool scale_lane = li == lk;
-    const bool search_lane = p.pivot && kk + 1 < nb && li == (kk + 1) % G;
-    best = R(-1);
-    bi = INT_MAX;
-    for (int q0 = max(0, kk + 1 - s0) / NG * NG; q0 < own; q0 += 2 * NG) {
-      const int qa = q0 + grp, qb = qa + NG;
-      const bool ona = qa < own && s0 + qa > kk;
-      const bool onb = qb < own && s0 + qb > kk;
-      T* ra = slab + qa * B;
-      T* rb = slab + qb * B;
-      T la = T{}, lb = T{};
-      if (scale_lane) {
-        if (ona) {
-          la = ra[kk];
-          if (nz) { la = rmul(la, rr); ra[kk] = la; }
-        }
-        if (onb) {
-          lb = rb[kk];
-          if (nz) { lb = rmul(lb, rr); rb[kk] = lb; }
-        }
-      }
-      la = shfl(la, lk, G);
-      lb = shfl(lb, lk, G);
-#pragma unroll
-      for (int j = 0; j < PER; ++j) {
-        if (!act[j]) continue;
-        const int c = li + j * G;
-        if (ona) {
-          const T x = rsub(ra[c], rmul(la, u[j]));
-          ra[c] = x;
-          if (search_lane && j == jn && better(mag(x), r0 + s0 + qa, best, bi)) {
-            best = mag(x);
-            bi = r0 + s0 + qa;
-          }
-        }
-        if (onb) {
-          const T x = rsub(rb[c], rmul(lb, u[j]));
-          rb[c] = x;
-          if (search_lane && j == jn && better(mag(x), r0 + s0 + qb, best, bi)) {
-            best = mag(x);
-            bi = r0 + s0 + qb;
-          }
-        }
+        if (li == 0) { pid[qs] = kinf[2 * par]; src[qs] = kinf[2 * par + 1]; }
       }
     }
     RF_STAMP(6);
+
+    // ---- the row threads: scale column kk, bring column kk + 1 up to date
+    // (step kk - 1's update where it is still due, then step kk's) and
+    // search it --------------------------------------------------------------
+#pragma unroll
+    for (int j = 0; j < PER; ++j) u[j] = urow[li + j * G];
+    uprev = urow;
+    const bool ahead = kk + 1 < ncol;
+    const bool search = p.pivot && kk + 1 < nb;
+    const T un = ahead ? urow[kk + 1] : T{};
+    const T unp = un2;
+    un2 = kk + 2 < ncol ? urow[kk + 2] : T{};
+    best = R(-1);
+    bi = INT_MAX;
+    for (int q = max(0, kk + 1 - s0) / kChainThreads * kChainThreads + tid; q < own;
+         q += kChainThreads) {
+      if (s0 + q <= kk) continue;
+      T* r = row(q);
+      const bool moved = q == qs;  // its row came in the swap, up to date
+      T l = moved ? krow[par * B + kk] : r[kk];
+      T x = ahead ? (moved ? krow[par * B + kk + 1] : r[kk + 1]) : T{};
+      if (late && ahead && !moved && q != qc && q != qk) x = rsub(x, rmul(r[kk - 1], unp));
+      if (nz) {  // a moved row always: the swap needs a nonzero pivot
+        l = rmul(l, rr);
+        r[kk] = l;
+      }
+      if (ahead) {
+        x = rsub(x, rmul(l, un));
+        r[kk + 1] = x;
+        if (search && better(mag(x), r0 + s0 + q, best, bi)) {
+          best = mag(x);
+          bi = r0 + s0 + q;
+        }
+      }
+    }
+    RF_STAMP(7);
   }
 #undef RF_STAMP
+  // the last step's update in the columns past nb (one block of a panel
+  // with fewer live rows than columns), once its multipliers are written
+  if (ncol > nb + 1) {
+    __syncthreads();
+    deferred(nb - 1, nb + 1, -1, -1);
+  }
 
   // ---- write the slab, perm and the block's row moves back ---------------
   if (rank == 0 && tid == 0) *p.info = info;
   __syncthreads();
   for (int e = tid; e < own * B; e += kChainThreads) {
     const int q = e / B, c = e % B;
-    if (c < ncol) p.a[(r0 + s0 + q) * lda + k0 + c] = slab[e];
+    if (c < ncol) p.a[(r0 + s0 + q) * lda + k0 + c] = row(q)[c];
   }
   for (int q = tid; q < own; q += kChainThreads) {
-    const int row = r0 + s0 + q;
-    p.perm[row] = pid[q];
-    if (src[q] != row) {
+    const int r = r0 + s0 + q;
+    p.perm[r] = pid[q];
+    if (src[q] != r) {
       const int e = atomicAdd(p.moved, 1);
-      p.moved[1 + 2 * e] = row;
+      p.moved[1 + 2 * e] = r;
       p.moved[2 + 2 * e] = src[q];
     }
   }
   // no CTA leaves while another may still write into its shared memory
   if (C > 1) cluster.sync();
-  if (tr) { ends[2] = global_ns(); ends[3] = clock64(); }
+  if (tr && tid == 0) { ends[2] = global_ns(); ends[3] = clock64(); }
 }
 
 // The pivot chain of one block on the whole card, for a block whose live
@@ -1422,7 +1589,14 @@ inline cudaLaunchConfig_t chain_config(int C, size_t smem, cudaStream_t stream,
 template <typename T>
 struct SwapChain {
   static const void* fn(int B) { return reinterpret_cast<const void*>(chain_kernel_for<T>(B)); }
+  static constexpr bool padded = true;  // its slab takes chain_smem's padding
 };
+
+// Does chain family K pad its slab (K::padded; a family without it does not)?
+template <typename K, typename = void>
+struct PaddedSlab : std::false_type {};
+template <typename K>
+struct PaddedSlab<K, std::void_t<decltype(K::padded)>> : std::bool_constant<K::padded> {};
 
 // Does the card run a cluster of C chain CTAs of width B with the most
 // shared memory the route uses?  Asked once per (device, chain kernel, B,
@@ -1487,10 +1661,10 @@ inline int width_at_least(int w) {
   return B;
 }
 
-template <typename T>
+template <typename T, typename K = SwapChain<T>>
 size_t chain_bytes(int M, int B, int C) {
   const int rows = (M + C - 1) / C;
-  return chain_smem<T>(rows, C, B).total;
+  return chain_smem<T>(rows, C, B, PaddedSlab<K>::value).total;
 }
 
 // The launcher's own choice of b and C for M live rows, by element type,
@@ -1533,7 +1707,7 @@ int plan_for(int M, int w, int b_req, int C_req, int device, Plan* pl, bool any_
   *pl = Plan{};
   auto fits = [&](int B, int C, bool* ok) -> int {
     *ok = false;
-    if (chain_bytes<T>(M, B, C) > kSmemMax || C > M) return 0;
+    if (chain_bytes<T, K>(M, B, C) > kSmemMax || C > M) return 0;
     return cluster_ok<T, K>(B, C, device, ok);
   };
   auto take = [&](int b, int B, int C) {
@@ -1588,7 +1762,7 @@ int plan_for(int M, int w, int b_req, int C_req, int device, Plan* pl, bool any_
     take(b, B, C);
     if (!grid_chain) {
       while (pl->grid_blocks < pl->blocks &&
-             (C == 0 || chain_bytes<T>(M - pl->grid_blocks * b, B, C) > kSmemMax))
+             (C == 0 || chain_bytes<T, K>(M - pl->grid_blocks * b, B, C) > kSmemMax))
         ++pl->grid_blocks;
     }
     return 0;
@@ -1688,15 +1862,19 @@ int delay_opt_in() {
 // panel, the two delayed kernels, in turn on `stream` without a host
 // synchronisation.  `iws` holds pl.iws_ints int32s (the blocks' row moves,
 // then the grid chain's workspace).  kForm: the form of the trailing update
-// (UpdateForm).  `updates` and `grids`, where given, receive the number of
-// update launches and of grid-chain launches.  `route`: the bf16x3 form's
-// update kernel (kUpdTiled, or kUpdSimple where forced).
+// (UpdateForm).  `updates`, `grids` and `lookaheads`, where given, receive
+// the number of update launches, of grid-chain launches and of chain
+// launches that took the look-ahead step with its split cluster barrier
+// (every cluster chain of C > 1 CTAs).  `route`: the bf16x3 form's update
+// kernel (kUpdTiled, or kUpdSimple where forced).
 template <typename T, int kForm = kStepOrder>
 int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl, void* piv,
                 void* perm, void* info, void* iws, cudaStream_t stream,
-                int* updates = nullptr, int route = kUpdTiled, int* grids = nullptr) {
+                int* updates = nullptr, int route = kUpdTiled, int* grids = nullptr,
+                int* lookaheads = nullptr) {
   if (updates != nullptr) *updates = 0;
   if (grids != nullptr) *grids = 0;
+  if (lookaheads != nullptr) *lookaheads = 0;
   int err = delay_opt_in<T, kForm>();
   if (err != 0) return err;
   int* moved = static_cast<int*>(iws);
@@ -1764,9 +1942,10 @@ int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl,
       c.blk = blk;
       cudaLaunchAttribute attr[1];
       const cudaLaunchConfig_t cfg =
-          chain_config(pl.C, chain_smem<T>(c.rows, pl.C, pl.B).total, stream, attr);
+          chain_config(pl.C, chain_smem<T>(c.rows, pl.C, pl.B, true).total, stream, attr);
       e = cudaLaunchKernelEx(&cfg, chain_kernel_for<T>(pl.B), c);
       if (e != cudaSuccess) return static_cast<int>(e);
+      if (lookaheads != nullptr && pl.C > 1) ++*lookaheads;
     }
     if (pl.one_block) continue;
     DelayArgs<T> d;

@@ -48,39 +48,54 @@
 //   1. chain: one cluster of C CTAs (C in 1, 2, 4, 8, 16) loads the slab,
 //      the live rows [ofs + k0, m) x the block's columns, into shared
 //      memory, each CTA a contiguous range of rows, and runs the block's
-//      steps there.  A step: each CTA reduces its pivot candidate (found
-//      while the previous step updated the column) by shuffles, one
-//      __syncthreads(); warp 0 writes it (|v|, row, perm id, the row's
-//      entries) into a slot of every CTA's shared memory by DSMEM, lanes
-//      spread over the CTAs, and the owner of row gk sends that row the
-//      same way; ONE cluster barrier; every thread reduces the C
-//      candidates to the same winner in log2(C) shuffle rounds, the owners
-//      of rows gk and kp take the swapped rows from their own CTA's slots,
-//      and every CTA scales and updates its rows in the slab's columns
-//      only, a group of min(b, 32) lanes per row.  The slots are double-buffered by step
-//      parity: a CTA can only write step k+2's slots after every CTA has
-//      passed step k+1's barrier, so after it read step k's.  With C = 1
-//      the barrier is a __syncthreads().  The slab, piv, perm, info and the
-//      list of rows that moved go back to device memory.
+//      steps there with a one-column look-ahead.  Step kk:
+//        a. each CTA reduces its pivot candidate in column kk, which the
+//           last step brought up to date (redux.sync over each warp, then
+//           over the warps: one __syncthreads());
+//        b. warp 0 brings the candidate row up to date (step kk - 1's
+//           update, still due in its columns > kk), writes it back and
+//           sends it with (|v|, row, perm id, origin) into a slot of every
+//           CTA's shared memory by DSMEM, in 16-byte stores; the owner of
+//           row gk does the same for that row;
+//        c. every thread arrives on the cluster barrier (barrier.cluster.
+//           arrive.release), the sending warps once their stores are out,
+//           applies step kk - 1's update to its rows' columns > kk + 1, the
+//           two rows just sent excepted, and then waits (barrier.cluster.
+//           wait.acquire): the bulk of the update runs inside the
+//           exchange's latency;
+//        d. every thread reduces the C candidates to the same winner, the
+//           owners of rows gk and kp take the swapped rows from their own
+//           CTA's slots, and one thread per row below gk scales column kk
+//           and brings column kk + 1 up to date (step kk - 1's update where
+//           it is still due, then step kk's), searching it for the next
+//           step's candidate.
+//      The slots are double-buffered by step parity: a CTA can only write
+//      step k+2's slots after every CTA has passed step k+1's barrier, so
+//      after it read step k's; step kk - 1's pivot row, which the sending
+//      warps read in step kk, is still in its slot until this CTA arrives.
+//      With C = 1 the wait is a __syncthreads().  The slab, piv, perm,
+//      info and the list of rows that moved go back to device memory.
 //   2. the delayed pass, on the whole card: the block's row moves are
 //      applied to every column outside the slab (rows swap whole, as in the
 //      plain version), the block's U rows are solved in the columns >= k0+b
 //      (row k0+t takes steps k0 .. k0+t-1 in order), and every row below
 //      the block takes the block's b rank-1 updates in step order.
 // Every element still receives its updates in step order, each product and
-// difference rounded on its own: an update is delayed, never reordered or
-// summed first, so the result is the plain version's bit for bit
-// (tests/test_torch_panel_schedule.py emulates this order on the CPU).
+// difference rounded on its own: an update is deferred or delayed, never
+// reordered or summed first, so the result is the plain version's bit for
+// bit (tests/test_torch_panel_schedule.py emulates both orders on the CPU).
 // A panel no wider than b is one block, with no delayed pass.
 //
 // What the H100 measured (PERF.md; `chip_smoke.py` timing phase, the
-// barrier microbenchmark and this kernel's phase trace): a cluster barrier
-// costs ~0.65 us and a DSMEM candidate exchange 0.9-1.7 us against 1.1 us
-// for a grid barrier of 132 blocks; a step of ~3-4 us splits into the
-// candidate reduction and publish (~1 us), the barrier (~0.45 us), the
-// agreement and swap (~0.5 us) and the slab update (~1.5 us).  Every
-// thread's redundant work counts 4x (4 warps per scheduler), so the phases
-// are written for few instructions per thread.  A variant with the slab in
+// barrier microbenchmark and this kernel's phase trace, `chain_trace`):
+// a cluster barrier costs ~0.5 us after its last arrive, and publishing a
+// candidate ~0.8 us; before the look-ahead a step of ~3.0-3.4 us at C = 16
+// ran the candidate reduction and publish, the barrier, the agreement and
+// swap and the slab update one after another.  Every thread's redundant
+// work counts 4x (4 warps per scheduler), so the phases are written for
+// few instructions per thread: the argmax reductions are redux.sync on
+// keys, the look-ahead column takes one thread per row (the padded slab
+// keeps a column's rows on distinct banks).  A variant with the slab in
 // registers (each thread whole rows) was measured slower: its row arrays
 // went to local memory.
 //
@@ -322,7 +337,9 @@ int full_plan(int m, int w, int ofs, int b, int C, int device, Plan* pl) {
 
 template <typename T, bool kOffset>
 int run(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C, void* piv,
-        void* perm, void* info, void* ws, void* iws, int device, void* stream_) {
+        void* perm, void* info, void* ws, void* iws, int* lookaheads, int device,
+        void* stream_) {
+  *lookaheads = 0;
   Plan pl;
   int err = full_plan<T, kOffset>(m, w, ofs, b, C, device, &pl);
   if (err != 0) return err;
@@ -356,7 +373,8 @@ int run(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C, void* 
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
   }
-  return run_cluster<T>(A, m, w, lda, pivot, ofs, pl, piv, perm, info, iws, stream);
+  return run_cluster<T>(A, m, w, lda, pivot, ofs, pl, piv, perm, info, iws, stream, nullptr,
+                        kUpdTiled, nullptr, lookaheads);
 }
 
 template <bool kOffset>
@@ -519,35 +537,39 @@ int rf_offset_panel_lu_plan(int m, int w, int elem_size, int ofs, int b, int C, 
 }
 
 // Factor the panel in place on `stream`, with the plan's (b, C) (0, 0 for
-// the launcher's choice).  Returns a cudaError_t code (0 on success) for
-// the launches; faults during the run surface at the next synchronisation.
+// the launcher's choice).  `lookaheads` (host) gets the number of chain
+// launches that took the look-ahead step (every block's, on a cluster of
+// C > 1).  Returns a cudaError_t code (0 on success) for the launches;
+// faults during the run surface at the next synchronisation.
 int rf_panel_lu_f32(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv,
-                    void* perm, void* info, void* ws, void* iws, int device, void* stream) {
-  return run<float, false>(a, m, w, lda, pivot, 0, b, C, piv, perm, info, ws, iws, device,
-                           stream);
+                    void* perm, void* info, void* ws, void* iws, int* lookaheads, int device,
+                    void* stream) {
+  return run<float, false>(a, m, w, lda, pivot, 0, b, C, piv, perm, info, ws, iws, lookaheads,
+                           device, stream);
 }
 
 int rf_panel_lu_f64(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv,
-                    void* perm, void* info, void* ws, void* iws, int device, void* stream) {
-  return run<double, false>(a, m, w, lda, pivot, 0, b, C, piv, perm, info, ws, iws, device,
-                            stream);
+                    void* perm, void* info, void* ws, void* iws, int* lookaheads, int device,
+                    void* stream) {
+  return run<double, false>(a, m, w, lda, pivot, 0, b, C, piv, perm, info, ws, iws, lookaheads,
+                            device, stream);
 }
 
 // The offset kernel: factor rows [ofs, m) of the panel in place on
 // `stream`: piv (w,) holds global rows, perm (m,) the permutation of all m
 // rows, info the signed panel-local step.
 int rf_offset_panel_lu_f32(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C,
-                           void* piv, void* perm, void* info, void* ws, void* iws, int device,
-                           void* stream) {
-  return run<float, true>(a, m, w, lda, pivot, ofs, b, C, piv, perm, info, ws, iws, device,
-                          stream);
+                           void* piv, void* perm, void* info, void* ws, void* iws,
+                           int* lookaheads, int device, void* stream) {
+  return run<float, true>(a, m, w, lda, pivot, ofs, b, C, piv, perm, info, ws, iws, lookaheads,
+                          device, stream);
 }
 
 int rf_offset_panel_lu_f64(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C,
-                           void* piv, void* perm, void* info, void* ws, void* iws, int device,
-                           void* stream) {
-  return run<double, true>(a, m, w, lda, pivot, ofs, b, C, piv, perm, info, ws, iws, device,
-                           stream);
+                           void* piv, void* perm, void* info, void* ws, void* iws,
+                           int* lookaheads, int device, void* stream) {
+  return run<double, true>(a, m, w, lda, pivot, ofs, b, C, piv, perm, info, ws, iws, lookaheads,
+                           device, stream);
 }
 
 // The plan of the bf16x3 form on an (m, w) float32 panel with blocks of b
@@ -574,19 +596,22 @@ int rf_panel_lu_bf16x3_plan(int m, int w, int b, int C, int chain, int device, i
 
 // Factor the float32 panel in place on `stream` in the bf16x3 form, with the
 // plan of (b, C, chain); `iws` holds the plan's iws int32s.  `simple` = 1
-// forces the simple update kernel (default 0: the tiled one).  `updates`
-// and `grids` (host) get the number of bf16x3 update launches and of grid
-// chain launches.  Returns a cudaError_t code.
+// forces the simple update kernel (default 0: the tiled one).  `updates`,
+// `grids` and `lookaheads` (host) get the number of bf16x3 update launches,
+// of grid chain launches and of cluster chain launches that took the
+// look-ahead step.  Returns a cudaError_t code.
 int rf_panel_lu_bf16x3_f32(void* a, int m, int w, int lda, int pivot, int b, int C, int simple,
                            int chain, void* piv, void* perm, void* info, void* iws, int* updates,
-                           int* grids, int device, void* stream) {
+                           int* grids, int* lookaheads, int device, void* stream) {
+  *updates = *grids = *lookaheads = 0;
   if (simple != 0 && simple != 1) return static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
   const int err = bf16x3_plan(m, w, b, C, chain, device, &pl);
   if (err != 0) return err;
   return run_cluster<float, kBf16x3>(static_cast<float*>(a), m, w, lda, pivot, 0, pl, piv,
                                      perm, info, iws, static_cast<cudaStream_t>(stream),
-                                     updates, simple ? kUpdSimple : kUpdTiled, grids);
+                                     updates, simple ? kUpdSimple : kUpdTiled, grids,
+                                     lookaheads);
 }
 
 // One bf16x3 update on `stream`: c (rows x cols, row stride ldc) -=
@@ -630,13 +655,17 @@ int rf_panel_update_bf16x3_plan(int rows, int cols, int nb, int* out) {
 }
 
 // Phase trace of the cluster route's chain kernel, for measurement: with
-// `buf` non-null every later chain launch writes, from thread 0 of CTA 0,
-// 7 clock64() stamps per step into buf[7 * step + phase] (phases: step
-// start, after the reduction's barrier, after the publish, after the
-// cluster barrier, after the pivot agreement, after the swap, after the
-// update) and per block i buf[7 * steps + 4 * i + {0, 1, 2, 3}] = the
-// kernel's first %globaltimer (ns), clock64(), last %globaltimer,
-// clock64().  buf holds int64s on the device; null turns the trace off.
+// `buf` non-null every later chain launch writes, from CTA 0, 9 clock64()
+// stamps per step into buf[9 * step + phase]: from thread 0 (warp 0, which
+// publishes the candidate) phases 0-7, the step's start, after the
+// candidate reduction's barrier, after the publish (its arrive on the
+// cluster barrier), after its share of the deferred update, after the
+// wait, after the pivot agreement, after the swap, after the look-ahead
+// column (the step's end); from thread 32 (warp 1, which publishes
+// nothing) phase 8, the end of its share of the deferred update.  Per
+// block i, buf[9 * steps + 4 * i + {0, 1, 2, 3}] = the kernel's first
+// %globaltimer (ns), clock64(), last %globaltimer, clock64().  buf holds
+// int64s on the device; null turns the trace off.
 int rf_panel_lu_set_trace(void* buf) {
   g_trace = static_cast<long long*>(buf);
   return 0;

@@ -54,6 +54,9 @@ launches the kernel or raises.  A route is chosen by the panel's shape or
 by an explicit ``block`` (``block=-1``: the grid route); every wrapper
 counts its launches and, apart, those on the grid route; the blocked forms
 count the blocks whose chain ran on the grid (``.grid_block_launches``).
+Every wrapper of a kernel that runs ``panel_chain_kernel`` counts the chain
+launches that took its look-ahead step, on a cluster of more than one CTA
+(``.lookahead_chain_launches``).
 Their private ``_chain='grid'`` puts every block's chain on the grid, to
 hold the grid chain against the cluster chain.
 """
@@ -337,9 +340,10 @@ def _launch_panel_lu(wrapper, panel, pivot, ofs, block, cluster, dtypes=_REAL):
     """The checks, plan, allocations and launch of csrc/panel_lu.cu (the
     offset kernel unless ``ofs`` is None) or, for ``dtypes`` ``_COMPLEX``,
     csrc/panel_lu_c64.cu.  Adds one to ``wrapper.launches`` at the launch,
-    and one to ``wrapper.grid_route_launches`` when the panel takes the
-    grid route.  piv, perm, info and the integer workspace share one
-    allocation."""
+    one to ``wrapper.grid_route_launches`` when the panel takes the grid
+    route, and to ``wrapper.lookahead_chain_launches`` the chain launches
+    that took the look-ahead step, as the C launcher reports them.  piv,
+    perm, info and the integer workspace share one allocation."""
     m, w, lda, index, real, size = _check_panel(wrapper.__name__, panel, dtypes)
     cplx = panel.is_complex()
     _check_plan_request(panel.dtype, block, cluster)
@@ -359,12 +363,14 @@ def _launch_panel_lu(wrapper, panel, pivot, ofs, block, cluster, dtypes=_REAL):
     prefix = "rf_panel_lu" if ofs is None else "rf_offset_panel_lu"
     fn = getattr(lib, f"{prefix}_{kind}")
     extra = () if ofs is None else (ofs,)
+    lookaheads = ctypes.c_int(0)
     code = fn(
         panel.data_ptr(), m, w, lda, int(bool(pivot)), *extra, block, cluster,
         piv.data_ptr(), perm.data_ptr(), info.data_ptr(),
-        None if ws is None else ws.data_ptr(), ints[npiv + m + 1:].data_ptr(), index,
-        stream,
+        None if ws is None else ws.data_ptr(), ints[npiv + m + 1:].data_ptr(),
+        ctypes.byref(lookaheads), index, stream,
     )
+    wrapper.lookahead_chain_launches += lookaheads.value
     _kernels.check(lib, code, f"{'panel_lu_c64' if cplx else 'panel_lu'} launch")
     return piv, perm, info
 
@@ -458,20 +464,22 @@ def _launch_bf16x3(panel, pivot, block, cluster, update, chain):
     piv, perm, info = ints[:npiv], ints[npiv:npiv + m], ints[npiv + m]
     lib = _kernels.load("panel_lu")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    updates, grids = ctypes.c_int(0), ctypes.c_int(0)
+    updates, grids, lookaheads = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     wrapper.launches += 1
     wrapper.bf16x3_launches += 1
     code = lib.rf_panel_lu_bf16x3_f32(
         panel.data_ptr(), m, w, lda, int(bool(pivot)), b, cluster,
         int(update == "simple"), chain,
         piv.data_ptr(), perm.data_ptr(), info.data_ptr(), ints[npiv + m + 1:].data_ptr(),
-        ctypes.byref(updates), ctypes.byref(grids), index, stream,
+        ctypes.byref(updates), ctypes.byref(grids), ctypes.byref(lookaheads), index, stream,
     )
-    # the update and grid-chain kernels the launcher issued (one update per
-    # block boundary with rows and columns below and right of the block:
-    # bf16x3_updates; one grid chain per block of the plan's grid_blocks)
+    # the update and chain kernels the launcher issued (one update per block
+    # boundary with rows and columns below and right of the block:
+    # bf16x3_updates; one grid chain per block of the plan's grid_blocks; a
+    # look-ahead chain per other block on a cluster of C > 1)
     wrapper.bf16x3_update_launches += updates.value
     wrapper.grid_block_launches += grids.value
+    wrapper.lookahead_chain_launches += lookaheads.value
     if update == "simple":
         wrapper.bf16x3_simple_update_launches += updates.value
     _kernels.check(lib, code, "panel_lu bf16x3 launch")
@@ -493,7 +501,9 @@ def panel_factor_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
     launcher's choice; see :func:`panel_plan`).
     ``panel_factor_cuda.launches`` counts the launches,
     ``panel_factor_cuda.grid_route_launches`` those that took the grid
-    route (panels too tall for a cluster).
+    route (panels too tall for a cluster),
+    ``panel_factor_cuda.lookahead_chain_launches`` the chain launches
+    (one per block) that took the look-ahead step on a cluster of C > 1.
 
     ``precision='bf16x3'`` (float32 panels): the form of
     ``panel_boundary_precision='bf16x3'``, blocks of exactly ``block`` steps
@@ -527,6 +537,7 @@ panel_factor_cuda.bf16x3_launches = 0
 panel_factor_cuda.bf16x3_update_launches = 0
 panel_factor_cuda.bf16x3_simple_update_launches = 0
 panel_factor_cuda.grid_block_launches = 0
+panel_factor_cuda.lookahead_chain_launches = 0
 
 
 def _rows_stride(t):
@@ -603,13 +614,15 @@ def offset_panel_factor_cuda(panel: torch.Tensor, ofs: int, pivot: bool, *,
     current stream and does not synchronise.  ``block`` / ``cluster`` as
     for :func:`panel_factor_cuda`.  ``offset_panel_factor_cuda.launches``
     counts the launches, ``.grid_route_launches`` those on the grid
-    route."""
+    route, ``.lookahead_chain_launches`` the chain launches that took the
+    look-ahead step."""
     _check_offset(offset_panel_factor_cuda, panel, ofs, _REAL)
     return _launch_panel_lu(offset_panel_factor_cuda, panel, pivot, ofs, block, cluster)
 
 
 offset_panel_factor_cuda.launches = 0
 offset_panel_factor_cuda.grid_route_launches = 0
+offset_panel_factor_cuda.lookahead_chain_launches = 0
 
 
 def _check_offset(wrapper, panel, ofs, dtypes):
@@ -638,13 +651,15 @@ def panel_factor_c64_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
     (0: the launcher's choice; ``block < 0``: the grid route).
     ``panel_factor_c64_cuda.launches`` counts the launches,
     ``panel_factor_c64_cuda.grid_route_launches`` those on the grid
-    route."""
+    route, ``.lookahead_chain_launches`` the chain launches that took the
+    look-ahead step."""
     return _launch_panel_lu(panel_factor_c64_cuda, panel, pivot, None, block, cluster,
                             _COMPLEX)
 
 
 panel_factor_c64_cuda.launches = 0
 panel_factor_c64_cuda.grid_route_launches = 0
+panel_factor_c64_cuda.lookahead_chain_launches = 0
 
 
 def offset_panel_factor_c64_cuda(panel: torch.Tensor, ofs: int, pivot: bool, *,
@@ -663,7 +678,9 @@ def offset_panel_factor_c64_cuda(panel: torch.Tensor, ofs: int, pivot: bool, *,
     current stream and does not synchronise.  ``block`` / ``cluster`` as
     for :func:`panel_factor_cuda` (``block=-1``: the grid route).
     ``offset_panel_factor_c64_cuda.launches`` counts the launches,
-    ``.grid_route_launches`` those on the grid route."""
+    ``.grid_route_launches`` those on the grid route,
+    ``.lookahead_chain_launches`` the chain launches that took the
+    look-ahead step."""
     _check_offset(offset_panel_factor_c64_cuda, panel, ofs, _COMPLEX)
     return _launch_panel_lu(offset_panel_factor_c64_cuda, panel, pivot, ofs, block, cluster,
                             _COMPLEX)
@@ -671,6 +688,7 @@ def offset_panel_factor_c64_cuda(panel: torch.Tensor, ofs: int, pivot: bool, *,
 
 offset_panel_factor_c64_cuda.launches = 0
 offset_panel_factor_c64_cuda.grid_route_launches = 0
+offset_panel_factor_c64_cuda.lookahead_chain_launches = 0
 
 
 def micro_max_cuda() -> int:
@@ -689,9 +707,10 @@ def _launch_micro(wrapper, panel, pivot, micro, shadow, block, cluster, chain):
     """The checks, plan, allocations and launch of the two micro-blocked
     kernels.  Adds one to ``wrapper.launches`` at the launch, one to
     ``wrapper.grid_route_launches`` when the panel takes the grid route,
-    and to ``wrapper.grid_block_launches`` the grid-chain launches the C
-    launcher reports.  piv, perm, info and the integer workspace share one
-    allocation."""
+    and to ``wrapper.grid_block_launches`` and
+    ``wrapper.lookahead_chain_launches`` the grid-chain launches and the
+    look-ahead chain launches the C launcher reports.  piv, perm, info and
+    the integer workspace share one allocation."""
     chain = _check_micro_request(micro, block, cluster, chain)
     m, w, lda, index, real, size = _check_panel(wrapper.__name__, panel, _REAL)
     micro = min(micro, m, w)  # one block spans the whole panel
@@ -707,7 +726,7 @@ def _launch_micro(wrapper, panel, pivot, micro, shadow, block, cluster, chain):
     which = "shadow" if shadow else "basic"
     fn = getattr(lib, f"rf_panel_lu_{which}_{'f32' if size == 4 else 'f64'}")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    grids = ctypes.c_int(0)
+    grids, lookaheads = ctypes.c_int(0), ctypes.c_int(0)
     wrapper.launches += 1
     if route == 0:
         wrapper.grid_route_launches += 1
@@ -715,9 +734,10 @@ def _launch_micro(wrapper, panel, pivot, micro, shadow, block, cluster, chain):
         panel.data_ptr(), m, w, lda, int(bool(pivot)), micro, block, cluster, chain,
         piv.data_ptr(), perm.data_ptr(), info.data_ptr(),
         None if ws is None else ws.data_ptr(), ints[npiv + m + 1:].data_ptr(),
-        ctypes.byref(grids), index, stream,
+        ctypes.byref(grids), ctypes.byref(lookaheads), index, stream,
     )
     wrapper.grid_block_launches += grids.value
+    wrapper.lookahead_chain_launches += lookaheads.value
     _kernels.check(lib, code, "panel_lu_micro launch")
     return piv, perm, info
 
@@ -737,7 +757,9 @@ def panel_factor_shadow_cuda(panel: torch.Tensor, pivot: bool, micro: int, *,
     :func:`micro_plan`; ``_chain='grid'`` puts every block's there).
     ``panel_factor_shadow_cuda.launches`` counts the launches,
     ``.grid_route_launches`` those on the grid route,
-    ``.grid_block_launches`` the blocks whose chain ran on the grid."""
+    ``.grid_block_launches`` the blocks whose chain ran on the grid,
+    ``.lookahead_chain_launches`` those whose chain took the look-ahead
+    step on a cluster."""
     return _launch_micro(panel_factor_shadow_cuda, panel, pivot, micro, True, block, cluster,
                          _chain)
 
@@ -745,6 +767,7 @@ def panel_factor_shadow_cuda(panel: torch.Tensor, pivot: bool, micro: int, *,
 panel_factor_shadow_cuda.launches = 0
 panel_factor_shadow_cuda.grid_route_launches = 0
 panel_factor_shadow_cuda.grid_block_launches = 0
+panel_factor_shadow_cuda.lookahead_chain_launches = 0
 
 
 def panel_factor_basic_cuda(panel: torch.Tensor, pivot: bool, micro: int, *,
@@ -754,7 +777,9 @@ def panel_factor_basic_cuda(panel: torch.Tensor, pivot: bool, micro: int, *,
     grid route the grid-barrier kernel that reads and writes the current
     block in device memory.  ``panel_factor_basic_cuda.launches`` counts the
     launches, ``.grid_route_launches`` those on the grid route,
-    ``.grid_block_launches`` the blocks whose chain ran on the grid."""
+    ``.grid_block_launches`` the blocks whose chain ran on the grid,
+    ``.lookahead_chain_launches`` those whose chain took the look-ahead
+    step on a cluster."""
     return _launch_micro(panel_factor_basic_cuda, panel, pivot, micro, False, block, cluster,
                          _chain)
 
@@ -762,6 +787,7 @@ def panel_factor_basic_cuda(panel: torch.Tensor, pivot: bool, micro: int, *,
 panel_factor_basic_cuda.launches = 0
 panel_factor_basic_cuda.grid_route_launches = 0
 panel_factor_basic_cuda.grid_block_launches = 0
+panel_factor_basic_cuda.lookahead_chain_launches = 0
 
 
 def panel_factor_noswap_cuda(panel: torch.Tensor, used0: torch.Tensor,

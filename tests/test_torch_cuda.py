@@ -46,6 +46,7 @@ from recursivefactorization_jl_tpu_torch.ops.unblocked import (
 )
 from recursivefactorization_jl_tpu_torch.utils import graphs, profiling, warmup
 from recursivefactorization_jl_tpu_torch.utils.config import PANEL_MICRO_MAX
+from lookahead_cases import KINDS, lookahead_panel
 
 torch.set_num_threads(1)
 
@@ -1653,6 +1654,163 @@ def test_warmup_builds_and_runs_on_the_card(tmp_path):
     with profiling.trace(str(tmp_path)):
         rt.lu(A)
     assert (tmp_path / profiling.TRACE_FILE).is_file()
+
+
+# ---- the chain kernel's one-column look-ahead ------------------------------
+#
+# csrc/panel_cluster.cuh `panel_chain_kernel` defers most of a step's update
+# behind the next candidate exchange and brings the rows that step publishes
+# up to date first.  These panels put the pivots on those rows, at the
+# benchmark cells' plans (f32 4096 x 512 at b 16, C 16; 8192 x 512 at b 8,
+# C 16) and on the live rows of an n = 8192 lu; every result bitwise.
+
+
+def _plain_for(dtype):
+    return unblocked_lu_cabs1 if dtype.is_complex else unblocked_lu
+
+
+def _factor_for(dtype):
+    return panel_factor_c64_cuda if dtype.is_complex else panel_factor_cuda
+
+
+def _check_chain(A, pivot=True, block=0, cluster=0):
+    """Factor A on the card with (block, cluster); bitwise against the
+    plain version, NaN for NaN.  Returns the launch's look-ahead chains."""
+    m, w = A.shape
+    f, piv, perm, info = _plain_for(A.dtype)(A, pivot)
+    P = A.clone()
+    fn = _factor_for(A.dtype)
+    n0 = fn.lookahead_chain_launches
+    kpiv, kperm, kinfo = fn(P, pivot, block=block, cluster=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(kpiv, piv) and torch.equal(kperm, perm) and int(kinfo) == int(info)
+    if A.is_complex():
+        assert _same_bits_nan(torch.view_as_real(P), torch.view_as_real(f))
+    else:
+        assert _same_bits_nan(P, f)
+    return fn.lookahead_chain_launches - n0
+
+
+_CELL_PLANS = [((4096, 512), 16, 16), ((8192, 512), 8, 16)]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("shape,block,cluster", _CELL_PLANS)
+def test_lookahead_chain_at_the_cells_plans(shape, block, cluster, kind):
+    """The cells' plans, on random panels and on pivots at the published
+    rows: every winner row gk itself, winners on CTA boundaries, one row its
+    CTA's candidate in many steps running.  Every chain launch takes the
+    look-ahead (C = 16)."""
+    need_cuda()
+    m, w = shape
+    A = lookahead_panel(kind, m, w, cluster)
+    plan = panel_plan(m, w, torch.float32, block=block, cluster=cluster)
+    assert _check_chain(A.cuda(), block=block, cluster=cluster) == plan["blocks"]
+    assert plan == panel_plan(m, w, torch.float32)  # the launcher's own choice
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lookahead_chain_on_the_live_rows_of_an_n8192_lu(dtype):
+    """The panels of an n = 8192 lu (8192 - 512 k live rows, 512 columns) on
+    their own plans: b 8 above 4096 rows, 16 at 2048-4096, 32 below."""
+    need_cuda()
+    g = torch.Generator().manual_seed(41)
+    for rows in range(8192, 0, -512):
+        A = torch.randn(rows, 512, generator=g, dtype=dtype).cuda()
+        plan = panel_plan(rows, 512, dtype)
+        got = _check_chain(A)
+        assert got == (plan["blocks"] if plan["cluster"] > 1 else 0)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex64, torch.complex128])
+def test_lookahead_chain_other_elements_at_4096(dtype, kind):
+    need_cuda()
+    m, w = 4096, 512
+    plan = panel_plan(m, w, dtype)
+    A = lookahead_panel(kind, m, w, plan["cluster"], dtype)
+    assert _check_chain(A.cuda()) == plan["blocks"]
+
+
+@pytest.mark.parametrize("where", ["middle", "boundary", "last_row", "published"])
+def test_lookahead_chain_complex_nan_candidate(where):
+    """A NaN candidate makes the pivot row m - 1, published after the
+    exchange: up to date in its look-ahead column too, whether row m - 1
+    took the deferred update early or not."""
+    need_cuda()
+    m, w = 4096, 512
+    C = panel_plan(m, w, torch.complex64)["cluster"]
+    A = lookahead_panel("repeat", m, w, C, torch.complex64, seed=2)
+    rows = -(-m // C)
+    row = {"middle": 1500, "boundary": 2 * rows - 1, "last_row": m - 1,
+           "published": 3 * rows}[where]
+    A[row, 20] = complex(float("nan"), 1.0)
+    _check_chain(A.cuda())
+
+
+def test_lookahead_counters_on_every_wrapper_and_in_an_lu(monkeypatch):
+    """`.lookahead_chain_launches` counts the chain launches of a C > 1
+    plan on every wrapper of panel_chain_kernel, none on a C = 1 plan or on
+    the grid route; in an eager lu at n = 4096 and 8192 every chain launch
+    takes it."""
+    need_cuda()
+    g = torch.Generator().manual_seed(43)
+    A = torch.randn(1536, 512, generator=g).cuda()
+    cases = [
+        (panel_factor_cuda, lambda P: panel_factor_cuda(P, True), panel_plan(1536, 512,
+                                                                            torch.float32)),
+        (panel_factor_cuda, lambda P: panel_factor_cuda(P, True, block=32, cluster=1),
+         panel_plan(1536, 512, torch.float32, block=32, cluster=1)),
+        (panel_factor_cuda, lambda P: panel_factor_cuda(P, True, block=-1),
+         panel_plan(1536, 512, torch.float32, block=-1)),
+        (panel_factor_cuda, lambda P: panel_factor_cuda(P, True, precision="bf16x3"),
+         bf16x3_plan(1536, 512)),
+        (offset_panel_factor_cuda, lambda P: offset_panel_factor_cuda(P, 1000, True),
+         panel_plan(1536, 512, torch.float32, ofs=1000)),
+        (panel_factor_shadow_cuda, lambda P: panel_factor_shadow_cuda(P, True, 32),
+         micro_plan(1536, 512, torch.float32, 32)),
+        (panel_factor_basic_cuda, lambda P: panel_factor_basic_cuda(P, True, 32),
+         micro_plan(1536, 512, torch.float32, 32, "basic")),
+    ]
+    for fn, call, plan in cases:
+        n0 = fn.lookahead_chain_launches
+        call(A.clone())
+        torch.cuda.synchronize()
+        want = (plan["blocks"] - plan.get("grid_blocks", 0)
+                if plan["route"] == "cluster" and plan["cluster"] > 1 else 0)
+        assert fn.lookahead_chain_launches - n0 == want, (plan, want)
+    Z = (A[:, :256] + 1j * A[:, 256:]).to(torch.complex64)
+    for fn, call in ((panel_factor_c64_cuda, lambda: panel_factor_c64_cuda(Z.clone(), True)),
+                     (offset_panel_factor_c64_cuda,
+                      lambda: offset_panel_factor_c64_cuda(Z.clone(), 0, True))):
+        n0 = fn.lookahead_chain_launches
+        call()
+        assert fn.lookahead_chain_launches - n0 == panel_plan(1536, 256, torch.complex64)["blocks"]
+    from recursivefactorization_jl_tpu_torch.ops import panel as panel_mod
+
+    # the lu's panels: a spy in the wrapper's place records their shapes;
+    # the wrapper counts on the name it is called by, the spy
+    shapes = []
+    real = panel_mod.panel_factor_cuda
+
+    def spy(P, *args, **kw):
+        shapes.append(tuple(P.shape))
+        return real(P, *args, **kw)
+
+    for attr in ("launches", "grid_route_launches", "lookahead_chain_launches"):
+        setattr(spy, attr, 0)
+    monkeypatch.setattr(panel_mod, "panel_factor_cuda", spy)
+    warmup.clear_caches()  # eager calls, through the wrappers
+    for n in (4096, 8192):
+        M = torch.randn(n, n, generator=g).cuda()
+        shapes.clear()
+        n0 = spy.lookahead_chain_launches
+        rt.lu(M, device="cuda")
+        torch.cuda.synchronize()
+        plans = [panel_plan(m, w, torch.float32) for m, w in shapes]
+        assert shapes, "the lu called no panel kernel"
+        assert all(p["route"] == "cluster" and p["cluster"] > 1 for p in plans), (shapes, plans)
+        assert spy.lookahead_chain_launches - n0 == sum(p["blocks"] for p in plans), shapes
 
 
 # ---- panel_boundary_precision='bf16x3' ---------------------------------------

@@ -13,8 +13,12 @@ Every element still receives its updates in step order, each product and
 difference rounded on its own, so the result is ``unblocked_lu``'s (and
 ``offset_panel_lu``'s) bit for bit.  ``blocked_order_lu`` below does the
 same steps with one rounded tensor op per rounding; the tests hold it to
-the plain versions bitwise (pivots, perm and info exactly).  On the card
-tests/test_torch_cuda.py holds the kernel to the plain versions.
+the plain versions bitwise (pivots, perm and info exactly).
+``lookahead_order_lu`` does the chain kernel's step order inside a block
+(the one-column look-ahead: most of a step's update deferred behind the
+next candidate exchange, the rows that exchange sends brought up to date
+first), for real and complex panels.  On the card tests/test_torch_cuda.py
+holds the kernel to the plain versions.
 """
 
 import numpy as np
@@ -23,6 +27,7 @@ import torch
 
 import recursivefactorization_jl_tpu as rf
 import recursivefactorization_jl_tpu_torch as rt
+from lookahead_cases import KINDS, lookahead_panel, scaled_rows
 from recursivefactorization_jl_tpu_torch.ops import panel as panel_mod
 from recursivefactorization_jl_tpu_torch.ops.unblocked import (
     offset_panel_lu,
@@ -150,6 +155,166 @@ def blocked_order_lu_cabs1(A, pivot, b):
     return A, piv, perm, torch.tensor(info, dtype=torch.int32)
 
 
+class _RealOps:
+    """One element kind's arithmetic, one rounded tensor op per rounding:
+    real elements."""
+
+    @staticmethod
+    def mag(x):
+        return x.abs()
+
+    @staticmethod
+    def mul(a, b):
+        return a * b
+
+    @staticmethod
+    def rcp(p):
+        return torch.reciprocal(p)
+
+    @staticmethod
+    def nonzero(p):
+        return bool(p != 0)
+
+
+class _Cabs1Ops:
+    """The same on (re, im) pairs, the last dimension of a real view:
+    CABS1 magnitudes and the complex kernel's product and reciprocal."""
+
+    @staticmethod
+    def mag(x):
+        return x[..., 0].abs() + x[..., 1].abs()
+
+    @staticmethod
+    def mul(a, b):
+        return torch.stack((a[..., 0] * b[..., 0] - a[..., 1] * b[..., 1],
+                            a[..., 0] * b[..., 1] + a[..., 1] * b[..., 0]), -1)
+
+    @staticmethod
+    def rcp(p):
+        d = p[0] * p[0] + p[1] * p[1]
+        return torch.stack((p[0] / d, -p[1] / d))
+
+    @staticmethod
+    def nonzero(p):
+        return bool((p[0] != 0) | (p[1] != 0))
+
+
+def _first_best(v):
+    """The kernels' pivot order on magnitudes ``v``: the first NaN, else
+    the first of the largest."""
+    nan = torch.isnan(v).nonzero()
+    return int(nan[0]) if nan.numel() else int((v == v.max()).nonzero()[0])
+
+
+def _rank1(E, S, rows, kd, cmin, u):
+    """Step kd's update of slab ``rows`` in the columns >= cmin."""
+    if rows and cmin < S.shape[1]:
+        idx = torch.tensor(rows)
+        S[idx, cmin:] = S[idx, cmin:] - E.mul(S[idx, kd][:, None], u[cmin:][None])
+
+
+def lookahead_order_lu(A, ofs, pivot, b, C):
+    """The cluster route's order with the chain kernel's one-column
+    look-ahead, on the (H, w) panel ``A`` from row ``ofs`` (real or
+    complex) and a cluster of ``C`` CTAs.  Per step kk of a block:
+
+    1. each CTA's candidate in column kk (its rows >= kk), which is up to
+       date;
+    2. the rows the step publishes (every candidate, row kk) take step
+       kk - 1's update in their columns > kk;
+    3. every other row >= kk takes it in its columns > kk + 1 (the
+       deferred update, inside the exchange on the card);
+    4. the pivot (complex panels: row m - 1 after a NaN candidate, brought
+       up to date in column kk + 1 as its owner publishes it), the swap;
+    5. the rows below kk: column kk scaled, column kk + 1 takes step
+       kk - 1's update where it is still due (not a published row, not the
+       row the swap brought) and step kk's, the look-ahead column.
+
+    After the block's last step the columns past it (one block of a panel
+    with fewer live rows than columns) take its update; then the delayed
+    pass, as in ``blocked_order_lu``.  Returns ``(LU, piv, perm, info)``
+    as ``offset_panel_lu`` (``unblocked_lu_cabs1`` for complex) does."""
+    cplx = A.is_complex()
+    E = _Cabs1Ops if cplx else _RealOps
+    A = A.clone()
+    V = torch.view_as_real(A) if cplx else A
+    H, w = A.shape
+    steps = min(H - ofs, w)
+    piv = torch.arange(steps, dtype=torch.int32) + ofs
+    perm = torch.arange(H, dtype=torch.int32)
+    info = 0
+    one = b >= w
+    for k0 in range(0, steps, b):
+        k1 = min(k0 + b, steps)
+        nb, r0 = k1 - k0, ofs + k0
+        ncol = w if one else nb
+        M = H - r0
+        R = -(-M // C)
+        S = V[r0:, k0:k0 + ncol].clone()
+        src = torch.arange(M)
+        pid = perm[r0:].clone()
+        u = None
+        for kk in range(nb):
+            late, ahead = kk > 0, kk + 1 < ncol
+            cands = []
+            if pivot:
+                for s0 in range(0, M, R):
+                    lo, hi = max(kk, s0), min(M, s0 + R)
+                    if lo < hi:
+                        q = lo + _first_best(E.mag(S[lo:hi, kk]))
+                        cands.append((q, E.mag(S[q, kk])))
+            pub = {q for q, _ in cands} | {kk}
+            if late:
+                _rank1(E, S, sorted(pub), kk - 1, kk + 1, u)
+                _rank1(E, S, [q for q in range(kk, M) if q not in pub], kk - 1, kk + 2, u)
+            kp, urow = kk, S[kk].clone()
+            if pivot:
+                best = min(cands, key=lambda c: (0, 0.0, c[0]) if bool(torch.isnan(c[1]))
+                           else (1, -float(c[1]), c[0]))
+                kp, urow = best[0], S[best[0]].clone()
+                if cplx and bool(torch.isnan(best[1])):
+                    kp, urow = M - 1, S[M - 1].clone()
+                    if late and ahead and kp not in pub:
+                        urow[kk + 1] = urow[kk + 1] - E.mul(S[kp, kk - 1], u[kk + 1])
+            piv[k0 + kk] = r0 + kp
+            nz = E.nonzero(urow[kk])
+            moved = -1
+            if nz and kp != kk:
+                S[kp] = S[kk].clone()
+                S[kk] = urow
+                src[[kk, kp]] = src[[kp, kk]]
+                pid[[kk, kp]] = pid[[kp, kk]]
+                moved = kp
+            elif not nz and info == 0:
+                info = k0 + kk + 1 if pivot else -(k0 + kk + 1)
+            if nz:
+                S[kk + 1:, kk] = E.mul(S[kk + 1:, kk], E.rcp(urow[kk]))
+            if ahead:
+                due = [q for q in range(kk + 1, M) if late and q != moved and q not in pub]
+                if due:
+                    idx = torch.tensor(due)
+                    S[idx, kk + 1] = S[idx, kk + 1] - E.mul(S[idx, kk - 1], u[kk + 1])
+                S[kk + 1:, kk + 1] = S[kk + 1:, kk + 1] - E.mul(S[kk + 1:, kk], urow[kk + 1])
+            u = urow
+        if ncol > nb + 1:
+            _rank1(E, S, list(range(nb, M)), nb - 1, nb + 1, u)
+        perm[r0:] = pid
+        # the delayed pass: swaps outside the slab, U rows, rows below
+        outside = [c for c in range(w) if not k0 <= c < k0 + ncol]
+        if outside:
+            V[r0:, outside] = V[r0:][src][:, outside]
+        V[r0:, k0:k0 + ncol] = S
+        if one:
+            continue
+        for s in range(nb - 1):
+            rows = slice(r0 + s + 1, r0 + nb)
+            V[rows, k1:] = V[rows, k1:] - E.mul(V[rows, k0 + s][:, None], V[r0 + s, k1:][None])
+        for s in range(nb):
+            rows = slice(r0 + nb, H)
+            V[rows, k1:] = V[rows, k1:] - E.mul(V[rows, k0 + s][:, None], V[r0 + s, k1:][None])
+    return A, piv, perm, torch.tensor(info, dtype=torch.int32)
+
+
 def _bits(t):
     if t.is_complex():
         t = torch.view_as_real(t).contiguous()
@@ -256,6 +421,97 @@ def test_complex_blocked_order_equals_unblocked_lu_cabs1(b, dtype, name, pivot):
                  (want[0].masked_fill(nan.any(-1), 0),) + want[1:])
     if name == "zero_col":
         assert int(got[3]) == (10 if pivot else -10)
+    if name.startswith("nan"):
+        assert (got[1][3:] == m - 1).all() and (got[1][:3] != m - 1).all()
+
+
+@pytest.mark.parametrize("C", [4, 16])
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("w", [1, 5, 32, 64])
+@pytest.mark.parametrize("m", [7, 64, 200])
+@pytest.mark.parametrize("b", [1, 3, 8, 32, "w"])
+def test_lookahead_order_equals_unblocked_lu(b, m, w, pivot, C):
+    """The chain kernel's one-column look-ahead (the update deferred behind
+    the next exchange, the published rows brought up to date first and
+    skipped) keeps unblocked_lu's bits."""
+    b = w if b == "w" else b
+    A = _panel(1000 * m + w, m, w, torch.float32, pivot)
+    _assert_same(lookahead_order_lu(A, 0, pivot, b, C), unblocked_lu(A, pivot))
+
+
+@pytest.mark.parametrize("C", [1, 4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b", [1, 3, 8, 32, "w"])
+def test_lookahead_order_on_ties_zero_column_and_nan(dtype, b, C):
+    m, w = 64, 32
+    b = w if b == "w" else b
+    g = torch.Generator().manual_seed(3)
+    ties = torch.randint(-2, 3, (m, w), generator=g).to(dtype)
+    _assert_same(lookahead_order_lu(ties, 0, True, b, C), unblocked_lu(ties, True))
+    for pivot in (True, False):
+        Z = _panel(5, m, w, dtype, pivot)
+        Z[:, 9] = 0  # a zero pivot at step 10: no swap, no scale, update runs
+        got = lookahead_order_lu(Z, 0, pivot, b, C)
+        _assert_same(got, unblocked_lu(Z, pivot))
+        assert int(got[3]) == (10 if pivot else -10)
+    N = _panel(6, m, w, dtype, True)
+    N[40, 3] = N[50, 3] = float("nan")  # the first NaN row wins
+    got = lookahead_order_lu(N, 0, True, b, C)
+    _assert_same(got, unblocked_lu(N, True))
+    assert int(got[1][3]) == 40
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64])
+@pytest.mark.parametrize("b", [8, 16, "w"])
+def test_lookahead_order_on_pivots_at_published_rows(b, dtype, kind):
+    """Pivots on the rows the look-ahead brings up to date early: every
+    winner row gk itself (``diag``), winners on CTA boundaries, the same
+    row its CTA's candidate in many steps running."""
+    m, w, C = 200, 48, 8
+    b = w if b == "w" else b
+    A = lookahead_panel(kind, m, w, C, dtype)
+    plain = unblocked_lu_cabs1 if dtype.is_complex else unblocked_lu
+    want = plain(A, True)
+    _assert_same(lookahead_order_lu(A, 0, True, b, C), want)
+    if kind == "diag":
+        assert torch.equal(want[1], torch.arange(w, dtype=torch.int32))
+    elif kind != "randn":  # the first steps' winners are the scaled rows
+        assert int(want[1][0]) in scaled_rows(kind, m, C)
+
+
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("ofs", [1, 37, 136])
+@pytest.mark.parametrize("b", [1, 3, 8, 32, "w"])
+def test_lookahead_order_equals_offset_panel_lu(b, ofs, pivot):
+    H, w = 200, 64
+    b = w if b == "w" else b
+    A = _panel(ofs, H, w, torch.float64, pivot, ofs)
+    A[ofs + 20:, 11] = 0
+    got = lookahead_order_lu(A, ofs, pivot, b, 16)
+    _assert_same(got, offset_panel_lu(A, ofs, pivot))
+    assert torch.equal(_bits(got[0][:ofs]), _bits(A[:ofs]))  # rows above untouched
+
+
+@pytest.mark.parametrize("name, pivot", [("randn", True), ("randn", False), ("ties", True),
+                                         ("zero_col", True), ("zero_col", False),
+                                         ("nan_re", True), ("nan_im", True),
+                                         ("nan_last_row", True)])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("b", [8, 16, 32, "w"])
+def test_complex_lookahead_order_equals_unblocked_lu_cabs1(b, dtype, name, pivot):
+    """The look-ahead keeps the complex kernel's bits, the NaN rule too:
+    row m - 1, published after a NaN candidate, takes the update its
+    look-ahead column still owes."""
+    m, w = 96, 40
+    b = w if b == "w" else b
+    A = _complex_panel(name, m, w, dtype, pivot)
+    got = lookahead_order_lu(A, 0, pivot, b, 16)
+    want = unblocked_lu_cabs1(A, pivot)
+    nan = torch.isnan(torch.view_as_real(want[0]))
+    assert torch.equal(torch.isnan(torch.view_as_real(got[0])), nan)
+    _assert_same((got[0].masked_fill(nan.any(-1), 0),) + got[1:],
+                 (want[0].masked_fill(nan.any(-1), 0),) + want[1:])
     if name.startswith("nan"):
         assert (got[1][3:] == m - 1).all() and (got[1][:3] != m - 1).all()
 
