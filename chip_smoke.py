@@ -5,6 +5,7 @@
     python3 chip_smoke.py --quick    # build + kernels-vs-plain only
     python3 chip_smoke.py --bf16x3   # build + phases 2g and 4g only
     python3 chip_smoke.py --graph    # build + phase 3h only
+    python3 chip_smoke.py --plans    # build + the float64 b x C sweep only
     python3 chip_smoke.py --profile  # every phase + a device-time breakdown
     python3 chip_smoke.py --sweep    # every phase + the panel routing sweep
     python3 chip_smoke.py --log F    # also write the phase lines to file F
@@ -208,7 +209,10 @@ functions) and its offset kernel add:
             ``tp_lu_factor`` in the one-rank world beside ``lu`` at the
             same width and the library, in float32 and complex64;
             ``--sweep`` adds the panel kernel's b x C sweep per live height
-            and width (f32, and f64 at three shapes).
+            and width (f32; f64 at every height of an n = 4096 lu, 512 to
+            4096 rows x 512, and 4096 x 128; complex), each plan's spread
+            between three turns beside it (``plan_sweep``); ``--plans``
+            runs the build and the f64 heights alone.
 
 The boundary knob, ``panel_boundary_precision='bf16x3'`` (the tensor-core
 update of csrc/panel_cluster.cuh in csrc/panel_lu.cu's bf16x3 form), adds:
@@ -268,10 +272,11 @@ counterpart of the JAX package's jax.jit programs, filled by
 utils.warmup.warmup) add:
 
 3h. graph   for each key (float32 n = 1536: the entry matrix, randn and
-            a zeroed column; float32 4096; float64, complex64,
-            ``schedule='physical'`` and ``panel_boundary_precision=
-            'bf16x3'`` at 1536; the bf16x3 form's cooperative grid block
-            chain on a 28 672 x 64 matrix; the smallest (m, 512) float32
+            a zeroed column; float32 4096; float64 at 1536 and 4096 (the
+            benchmark's float64 cell); complex64, ``schedule='physical'``
+            and ``panel_boundary_precision='bf16x3'`` at 1536; the bf16x3
+            form's cooperative grid block chain on a 28 672 x 64 matrix;
+            the smallest (m, 512) float32
             matrix whose panel takes the cooperative grid route of
             csrc/panel_lu.cu, found from plan_for): the eager call once
             under torch.cuda.set_sync_debug_mode("error"), ``warmup`` (a
@@ -281,7 +286,10 @@ utils.warmup.warmup) add:
             replay bit for bit the eager call's (factors, ipiv, perm,
             info, x; NaN for NaN) on each input and on a second one, one
             replay per program and call, info, the residual gate,
-            SingularMatrixError under check; the batched perm and ipiv
+            SingularMatrixError under check, the panel chain launches by
+            plan (``.chain_launches_by_plan``, zeroed before the key's
+            eager calls: each on ``panel_plan``'s own plan of a live
+            height); the batched perm and ipiv
             pairs at 10 000 x 16 and 10 000 x 64 captured by
             ``graphs.capturing()``; the entry step (the jitted step of
             __graft_entry__.py: factor + solve) captured as one program;
@@ -1507,6 +1515,63 @@ def bf16x3_timing_phase(rt, dev, gen, card, round_robin, timed):
     return update_rows, grid_rows, tall_row
 
 
+# the live heights of the float64 panels of a blocked lu at n = 4096 (512
+# columns each): what the benchmark's float64 cell factors
+F64_LU_HEIGHTS = tuple(range(512, 4097, 512))
+
+
+def plan_sweep(dev, card, gen, round_robin, shapes, turns=3):
+    """The cluster route's block width b and cluster size C per live height,
+    width and element type (csrc/panel_cluster.cuh ``plan_for``, the
+    entries of its auto rule ``Auto<T, K>``): every b x C that fits the card
+    (b = w: one slab for the whole panel) and ``auto``, the launcher's own
+    choice, timed in turns, in ``turns`` runs of ``round_robin`` of 5
+    rounds each.  Per plan: the median of its turns' medians and their
+    spread ((largest - smallest) / median); ``beats_auto`` when the best
+    plan's gain over ``auto`` passes both plans' spreads.  One
+    ``sweep_plan`` line per shape."""
+    import statistics
+
+    import torch
+
+    from recursivefactorization_jl_tpu_torch.ops.panel import (
+        panel_factor_c64_cuda,
+        panel_factor_cuda,
+        panel_plan,
+    )
+
+    rows = []
+    for m, w, dt in shapes:
+        cplx = dt.is_complex
+        real = torch.float32 if dt == torch.complex64 else torch.float64
+        X = (torch.complex(torch.randn(m, w, generator=gen, dtype=real),
+                           torch.randn(m, w, generator=gen, dtype=real)) if cplx
+             else torch.randn(m, w, generator=gen, dtype=dt)).to(dev)
+        P = torch.empty_like(X)
+        wrapper = panel_factor_c64_cuda if cplx else panel_factor_cuda
+        fns = {"auto": lambda: wrapper(P, True)}
+        for b in (8, 16, 32, 64, w):
+            for C in (1, 2, 4, 8, 16):
+                try:
+                    panel_plan(m, w, dt, block=b, cluster=C)
+                except RuntimeError:
+                    continue  # does not fit the card
+                fns[f"b{b}_C{C}"] = (lambda b=b, C=C: wrapper(P, True, block=b, cluster=C))
+        per = [round_robin(fns, rounds=5, setup=lambda: P.copy_(X)) for _ in range(turns)]
+        ms = {k: statistics.median(t[k] for t in per) for k in fns}
+        spread = {k: (max(t[k] for t in per) - min(t[k] for t in per)) / ms[k] for k in fns}
+        best = min((k for k in ms if k != "auto"), key=ms.get)
+        gain = 1 - ms[best] / ms["auto"]
+        row = dict(shape=[m, w], dtype=str(dt)[6:], auto=panel_plan(m, w, dt), best=best,
+                   best_ms=ms[best], auto_ms=ms["auto"], gain=gain,
+                   spread_best=spread[best], spread_auto=spread["auto"],
+                   beats_auto=gain > max(spread[best], spread["auto"]), ms=ms, spread=spread)
+        emit("timing", what="sweep_plan", card=card, **row)
+        rows.append(row)
+        del X, P
+    return rows
+
+
 # phase 3h: the keys whose programs are captured, (name, shape, dtype name,
 # LUConfig fields, inputs); "entry" is randn + n*I (__graft_entry__.py's
 # matrix), "zero_col" randn with column 700 zeroed (info 701).  Tall keys
@@ -1517,6 +1582,7 @@ GRAPH_KEYS = (
     ("f32", (1536, 1536), "float32", {}, ("entry", "randn", "zero_col")),
     ("f32", (4096, 4096), "float32", {}, ("randn",)),
     ("f64", (1536, 1536), "float64", {}, ("randn",)),
+    ("f64", (4096, 4096), "float64", {}, ("randn",)),
     ("c64", (1536, 1536), "complex64", {}, ("randn",)),
     ("physical", (1536, 1536), "float32", {"schedule": "physical"}, ("randn",)),
     ("bf16x3", (1536, 1536), "float32", {"panel_boundary_precision": "bf16x3"}, ("randn",)),
@@ -1560,7 +1626,11 @@ def graph_phase(rt, dev, card, round_robin, tp_mesh, dp_mesh):
 
     from recursivefactorization_jl_tpu_torch.models import lu as lu_mod
     from recursivefactorization_jl_tpu_torch.models import solve as solve_mod
-    from recursivefactorization_jl_tpu_torch.ops.panel import bf16x3_plan, panel_plan
+    from recursivefactorization_jl_tpu_torch.ops.panel import (
+        bf16x3_plan,
+        panel_factor_cuda,
+        panel_plan,
+    )
     from recursivefactorization_jl_tpu_torch.parallel import batched as batched_mod
     from recursivefactorization_jl_tpu_torch.utils import graphs, warmup
 
@@ -1694,6 +1764,7 @@ def graph_phase(rt, dev, card, round_robin, tp_mesh, dp_mesh):
 
         rec = dict(key=name, shape=list(shape), dtype=dname, config=fields,
                    inputs=list(inputs), card=card)
+        panel_factor_cuda.chain_launches_by_plan = {}
         eager = [no_sync(lambda A=A: call(A)) for A in mats]
         rec["eager_no_sync"] = True
         before = set(graphs.programs())
@@ -1721,6 +1792,17 @@ def graph_phase(rt, dev, card, round_robin, tp_mesh, dp_mesh):
             rec["grid_blocks"] = bf16x3_plan(*shape, 32)["grid_blocks"]
         if name == "grid_route":
             rec["plan"] = panel_plan(*shape, torch.float32)
+        # the chains of the eager calls and of the capture, by plan; on the
+        # default schedule each is the launcher's plan of a live height
+        chains = panel_factor_cuda.chain_launches_by_plan
+        rec["chain_launches_by_plan"] = {f"{d}_b{b}_C{c}": k for (d, b, c), k in chains.items()}
+        real = dname in ("float32", "float64")
+        heights = range(shape[0], 0, -512) if square and real and not fields else ()
+        plans = {(dname, p["block"], p["cluster"]) for p in
+                 (panel_plan(m, min(512, shape[1]), dtype) for m in heights)
+                 if p["route"] == "cluster"}
+        if heights and not (chains and set(chains) <= plans):
+            fail(f"graph key {name} {shape}: chain plans {chains}, the launcher's {plans}")
         if "zero_col" in inputs:
             try:
                 rt.lu(mats[list(inputs).index("zero_col")], config=cfg)
@@ -2248,6 +2330,11 @@ def main(argv):
         return {k: sorted(v)[len(v) // 2] for k, v in ts.items()}
 
     gen = torch.Generator(device="cpu").manual_seed(1)
+    if "--plans" in argv:  # phase 1 and the float64 b x C sweep only
+        plan_sweep(dev, card, gen, round_robin,
+                   [(m, 512, torch.float64) for m in F64_LU_HEIGHTS])
+        print(json.dumps({"ok": True, "plans_only": True}))
+        return 0
     if "--graph" in argv:  # phases 1 and 3h only
         import torch.distributed as dist
         from torch.distributed.device_mesh import init_device_mesh
@@ -4767,37 +4854,12 @@ def main(argv):
                      **coffset_rows[(str(dt)[6:], ofs)])
                 del X, P
         if "--sweep" in argv:
-            # the cluster route's block width b and cluster size C per live
-            # height, width and element type (csrc/panel_cluster.cuh plan_for,
-            # the real and the complex entries of its auto rule), in turns;
-            # b = w is one slab for the whole panel; "auto" is the launcher's
-            # choice
             sweep_plans = [(m, 512, f32) for m in (512, 1024, 1536, 2048, 3072, 4096, 8192)]
             sweep_plans += [(m, 128, f32) for m in (128, 256, 512, 1024, 2048, 4096)]
-            sweep_plans += [(m, 512, f64) for m in (1536, 4096)] + [(4096, 128, f64)]
+            sweep_plans += [(m, 512, f64) for m in F64_LU_HEIGHTS] + [(4096, 128, f64)]
             sweep_plans += [(m, 512, c64) for m in (512, 1024, 1536, 2048, 4096)]
             sweep_plans += [(m, 512, c128) for m in (1536, 4096)]
-            for m, w, dt in sweep_plans:
-                cplx = dt.is_complex
-                X = (crandn(m, w, dt) if cplx
-                     else torch.randn(m, w, generator=gen, dtype=dt)).to(dev)
-                P = torch.empty_like(X)
-                wrapper = panel_factor_c64_cuda if cplx else panel_factor_cuda
-                fns = {"auto": lambda: wrapper(P, True)}
-                for b in (8, 16, 32, 64, w):
-                    for C in (1, 2, 4, 8, 16):
-                        try:
-                            panel_plan(m, w, dt, block=b, cluster=C)
-                        except RuntimeError:
-                            continue  # does not fit the card
-                        fns[f"b{b}_C{C}"] = (lambda b=b, C=C: wrapper(
-                            P, True, block=b, cluster=C))
-                t = round_robin(fns, rounds=5, setup=lambda: P.copy_(X))
-                best = min((k for k in t if k != "auto"), key=t.get)
-                emit("timing", what="sweep_plan", card=card, shape=[m, w], dtype=str(dt)[6:],
-                     auto=panel_plan(m, w, dt), best=best, best_ms=t[best], auto_ms=t["auto"],
-                     ms=t)
-                del X, P
+            plan_sweep(dev, card, gen, round_robin, sweep_plans)
         n = 4096
         M = torch.randn(n, n, generator=gen).to(dev)
         v = torch.randn(n, generator=gen).to(dev)

@@ -1667,16 +1667,16 @@ size_t chain_bytes(int M, int B, int C) {
   return chain_smem<T>(rows, C, B, PaddedSlab<K>::value).total;
 }
 
-// The launcher's own choice of b and C for M live rows, by element type,
-// from the H100 sweeps (`chip_smoke.py --sweep`, PERF.md): the block width
-// b0 (32 up to b32_rows live rows, 16 up to b16_rows, 8 beyond; one block
-// when w <= b) and the cluster size c0 (one CTA up to one_cta_rows, else
-// the smallest power of two with at most rows_per_cta rows per CTA, at
-// most 16).
+// The launcher's own choice of b and C for M live rows, by element type
+// and chain family K, from the H100 sweeps (`chip_smoke.py --sweep`,
+// PERF.md): the block width b0 (32 up to b32_rows live rows, 16 up to
+// b16_rows, 8 beyond; one block when w <= b) and the cluster size c0 (one
+// CTA up to one_cta_rows, else the smallest power of two with at most
+// rows_per_cta rows per CTA, at most 16).
 struct AutoRule {
   int b32_rows, b16_rows, one_cta_rows, rows_per_cta;
 };
-template <typename T> struct Auto {
+template <typename T, typename K = SwapChain<T>> struct Auto {
   static constexpr AutoRule rule{1536, 4096, 128, 32};
 };
 // complex panels: b = 16 from 1024 live rows on (the sweep's best at 1024,
@@ -1687,6 +1687,14 @@ template <> struct Auto<float2> {
 };
 template <> struct Auto<double2> {
   static constexpr AutoRule rule{512, 4096, 128, 32};
+};
+// float64 panels on the swap chain: b = 32 up to 3584 live rows (the float64
+// sweep at 512..4096 rows x 512, the heights of an n = 4096 lu: b 32 beat
+// b 16 by 2.2-4.3% at 2048, 2560, 3072 and 3584 rows, past the spread between
+// turns; at 4096 by 2.1%, within it), C = 16; the no-swap chain keeps the
+// generic rule
+template <> struct Auto<double> {
+  static constexpr AutoRule rule{3584, 4096, 128, 32};
 };
 
 // The plan of a panel with M live rows and w columns.  b_req / C_req: 0
@@ -1721,9 +1729,9 @@ int plan_for(int M, int w, int b_req, int C_req, int device, Plan* pl, bool any_
     pl->iws_ints = static_cast<size_t>(pl->blocks) * (1 + 4 * B);
     if (grid_chain) pl->grid_blocks = pl->blocks;
   };
-  // the auto rule's cluster size (Auto<T>): one CTA up to one_cta_rows, else
-  // the smallest power of two with at most rows_per_cta rows per CTA
-  constexpr AutoRule a = Auto<T>::rule;
+  // the auto rule's cluster size (Auto<T, K>): one CTA up to one_cta_rows,
+  // else the smallest power of two with at most rows_per_cta rows per CTA
+  constexpr AutoRule a = Auto<T, K>::rule;
   int c0 = 1;
   while (M > a.one_cta_rows && c0 < kMaxCluster && a.rows_per_cta * c0 < M) c0 *= 2;
   if (b_req < 0) return kPlanGrid;

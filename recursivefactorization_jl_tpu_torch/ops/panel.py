@@ -56,7 +56,10 @@ counts its launches and, apart, those on the grid route; the blocked forms
 count the blocks whose chain ran on the grid (``.grid_block_launches``).
 Every wrapper of a kernel that runs ``panel_chain_kernel`` counts the chain
 launches that took its look-ahead step, on a cluster of more than one CTA
-(``.lookahead_chain_launches``).
+(``.lookahead_chain_launches``), and every chain launch on a cluster by its
+plan (``.chain_launches_by_plan``: a dict keyed (dtype name, b, C)), so a
+run shows which rule of csrc/panel_cluster.cuh's ``Auto<T>`` its chains
+took.
 Their private ``_chain='grid'`` puts every block's chain on the grid, to
 hold the grid chain against the cluster chain.
 """
@@ -197,6 +200,15 @@ def _plan_dict(plan) -> dict:
     if len(plan) > 6:  # the blocked forms: blocks whose chain runs on the grid
         out["grid_blocks"] = plan[6]
     return out
+
+
+def _count_chains(wrapper, dtype, route, b, cluster, chains):
+    """Add ``chains`` chain launches of plan (b, C) to
+    ``wrapper.chain_launches_by_plan``, on the cluster route only."""
+    if route == 1 and cluster > 0 and chains > 0:
+        key = (str(dtype)[6:], b, cluster)
+        counts = wrapper.chain_launches_by_plan
+        counts[key] = counts.get(key, 0) + chains
 
 
 # the blocked forms' chains: "auto" (on a cluster where the block's live
@@ -342,13 +354,14 @@ def _launch_panel_lu(wrapper, panel, pivot, ofs, block, cluster, dtypes=_REAL):
     csrc/panel_lu_c64.cu.  Adds one to ``wrapper.launches`` at the launch,
     one to ``wrapper.grid_route_launches`` when the panel takes the grid
     route, and to ``wrapper.lookahead_chain_launches`` the chain launches
-    that took the look-ahead step, as the C launcher reports them.  piv,
-    perm, info and the integer workspace share one allocation."""
+    that took the look-ahead step, as the C launcher reports them; counts
+    the chain launches in ``wrapper.chain_launches_by_plan``.  piv, perm,
+    info and the integer workspace share one allocation."""
     m, w, lda, index, real, size = _check_panel(wrapper.__name__, panel, dtypes)
     cplx = panel.is_complex()
     _check_plan_request(panel.dtype, block, cluster)
-    route, _, _, _, ws_reals, iws_ints = _plan(cplx, m, w, panel.element_size(), ofs, block,
-                                               cluster, index)
+    route, b, c, blocks, ws_reals, iws_ints = _plan(cplx, m, w, panel.element_size(), ofs,
+                                                    block, cluster, index)
     dev = panel.device
     npiv = min(m - (ofs or 0), w)
     ints = torch.empty(npiv + m + 1 + iws_ints, dtype=torch.int32, device=dev)
@@ -372,6 +385,7 @@ def _launch_panel_lu(wrapper, panel, pivot, ofs, block, cluster, dtypes=_REAL):
     )
     wrapper.lookahead_chain_launches += lookaheads.value
     _kernels.check(lib, code, f"{'panel_lu_c64' if cplx else 'panel_lu'} launch")
+    _count_chains(wrapper, panel.dtype, route, b, c, blocks)
     return piv, perm, info
 
 
@@ -457,7 +471,7 @@ def _launch_bf16x3(panel, pivot, block, cluster, update, chain):
     chain = _check_chain(chain)
     m, w, lda, index, _, _ = _check_panel(wrapper.__name__, panel, (torch.float32,))
     b = _bf16x3_block(block, m, w)
-    iws_ints = _bf16x3_plan(m, w, b, cluster, chain, index)[5]
+    route, _, c, blocks, _, iws_ints, _ = _bf16x3_plan(m, w, b, cluster, chain, index)
     dev = panel.device
     npiv = min(m, w)
     ints = torch.empty(npiv + m + 1 + iws_ints, dtype=torch.int32, device=dev)
@@ -483,6 +497,7 @@ def _launch_bf16x3(panel, pivot, block, cluster, update, chain):
     if update == "simple":
         wrapper.bf16x3_simple_update_launches += updates.value
     _kernels.check(lib, code, "panel_lu bf16x3 launch")
+    _count_chains(wrapper, panel.dtype, route, b, c, blocks - grids.value)
     return piv, perm, info
 
 
@@ -503,7 +518,10 @@ def panel_factor_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
     ``panel_factor_cuda.grid_route_launches`` those that took the grid
     route (panels too tall for a cluster),
     ``panel_factor_cuda.lookahead_chain_launches`` the chain launches
-    (one per block) that took the look-ahead step on a cluster of C > 1.
+    (one per block) that took the look-ahead step on a cluster of C > 1,
+    ``panel_factor_cuda.chain_launches_by_plan`` every chain launch on a
+    cluster by its plan, ``{(dtype name, b, C): launches}``; every wrapper
+    of ``panel_chain_kernel`` keeps both.
 
     ``precision='bf16x3'`` (float32 panels): the form of
     ``panel_boundary_precision='bf16x3'``, blocks of exactly ``block`` steps
@@ -538,6 +556,7 @@ panel_factor_cuda.bf16x3_update_launches = 0
 panel_factor_cuda.bf16x3_simple_update_launches = 0
 panel_factor_cuda.grid_block_launches = 0
 panel_factor_cuda.lookahead_chain_launches = 0
+panel_factor_cuda.chain_launches_by_plan = {}
 
 
 def _rows_stride(t):
@@ -623,6 +642,7 @@ def offset_panel_factor_cuda(panel: torch.Tensor, ofs: int, pivot: bool, *,
 offset_panel_factor_cuda.launches = 0
 offset_panel_factor_cuda.grid_route_launches = 0
 offset_panel_factor_cuda.lookahead_chain_launches = 0
+offset_panel_factor_cuda.chain_launches_by_plan = {}
 
 
 def _check_offset(wrapper, panel, ofs, dtypes):
@@ -660,6 +680,7 @@ def panel_factor_c64_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
 panel_factor_c64_cuda.launches = 0
 panel_factor_c64_cuda.grid_route_launches = 0
 panel_factor_c64_cuda.lookahead_chain_launches = 0
+panel_factor_c64_cuda.chain_launches_by_plan = {}
 
 
 def offset_panel_factor_c64_cuda(panel: torch.Tensor, ofs: int, pivot: bool, *,
@@ -689,6 +710,7 @@ def offset_panel_factor_c64_cuda(panel: torch.Tensor, ofs: int, pivot: bool, *,
 offset_panel_factor_c64_cuda.launches = 0
 offset_panel_factor_c64_cuda.grid_route_launches = 0
 offset_panel_factor_c64_cuda.lookahead_chain_launches = 0
+offset_panel_factor_c64_cuda.chain_launches_by_plan = {}
 
 
 def micro_max_cuda() -> int:
@@ -709,13 +731,14 @@ def _launch_micro(wrapper, panel, pivot, micro, shadow, block, cluster, chain):
     ``wrapper.grid_route_launches`` when the panel takes the grid route,
     and to ``wrapper.grid_block_launches`` and
     ``wrapper.lookahead_chain_launches`` the grid-chain launches and the
-    look-ahead chain launches the C launcher reports.  piv, perm, info and
-    the integer workspace share one allocation."""
+    look-ahead chain launches the C launcher reports; counts the cluster
+    chain launches in ``wrapper.chain_launches_by_plan``.  piv, perm, info
+    and the integer workspace share one allocation."""
     chain = _check_micro_request(micro, block, cluster, chain)
     m, w, lda, index, real, size = _check_panel(wrapper.__name__, panel, _REAL)
     micro = min(micro, m, w)  # one block spans the whole panel
     _check_grid_micro(micro, block)
-    route, _, _, _, ws_reals, iws_ints, _ = _micro_plan(
+    route, b, c, blocks, ws_reals, iws_ints, _ = _micro_plan(
         m, w, size, micro, shadow, block, cluster, chain, index)
     dev = panel.device
     npiv = min(m, w)
@@ -739,6 +762,7 @@ def _launch_micro(wrapper, panel, pivot, micro, shadow, block, cluster, chain):
     wrapper.grid_block_launches += grids.value
     wrapper.lookahead_chain_launches += lookaheads.value
     _kernels.check(lib, code, "panel_lu_micro launch")
+    _count_chains(wrapper, panel.dtype, route, b, c, blocks - grids.value)
     return piv, perm, info
 
 
@@ -768,6 +792,7 @@ panel_factor_shadow_cuda.launches = 0
 panel_factor_shadow_cuda.grid_route_launches = 0
 panel_factor_shadow_cuda.grid_block_launches = 0
 panel_factor_shadow_cuda.lookahead_chain_launches = 0
+panel_factor_shadow_cuda.chain_launches_by_plan = {}
 
 
 def panel_factor_basic_cuda(panel: torch.Tensor, pivot: bool, micro: int, *,
@@ -788,6 +813,7 @@ panel_factor_basic_cuda.launches = 0
 panel_factor_basic_cuda.grid_route_launches = 0
 panel_factor_basic_cuda.grid_block_launches = 0
 panel_factor_basic_cuda.lookahead_chain_launches = 0
+panel_factor_basic_cuda.chain_launches_by_plan = {}
 
 
 def panel_factor_noswap_cuda(panel: torch.Tensor, used0: torch.Tensor,

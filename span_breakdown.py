@@ -22,7 +22,10 @@ own pool, entry and closed loop (``bench_port/harness.py``), one process:
    operation ending it, ``idle_by_launch``);
 4. ``launched``: the programs freed, three eager calls under the profiler
    with CPU activity too: each device operation put down to the span
-   open on the host when it was launched (``launched_by_span``);
+   open on the host when it was launched (``launched_by_span``), and the
+   panel chain launches of those calls by plan (dtype, b, C), from the
+   port's ``.chain_launches_by_plan`` counters: which rule of the chain's
+   plan the cell took;
 5. ``off`` again: recaptured with the recorder off, one more untraced
    window (the two ``off`` windows bracket the others).
 
@@ -50,6 +53,7 @@ sys.path.insert(0, str(ROOT))
 
 from bench_port import harness, record  # noqa: E402
 from bench_port.traffic import Pool, Traffic  # noqa: E402
+from recursivefactorization_jl_tpu_torch.ops import panel as panel_mod  # noqa: E402
 from recursivefactorization_jl_tpu_torch.utils import graphs, profiling  # noqa: E402
 
 READERS = ("copy_ms", "outside_panel_ms", "panel_ms", "batched_kernel_ms",
@@ -57,6 +61,21 @@ READERS = ("copy_ms", "outside_panel_ms", "panel_ms", "batched_kernel_ms",
 # idle gaps shorter than this are counted, not listed one by one
 GAP_NS = 50_000
 STEPS = ("blocked.schur", "blocked.trsm", "blocked.laswp")
+# the port's wrappers of the kernels that run panel_chain_kernel
+CHAIN_WRAPPERS = ("panel_factor_cuda", "offset_panel_factor_cuda", "panel_factor_c64_cuda",
+                  "offset_panel_factor_c64_cuda", "panel_factor_shadow_cuda",
+                  "panel_factor_basic_cuda")
+
+
+def chain_launches() -> dict:
+    """The panel chain launches so far by plan, ``"<dtype>_b<b>_C<C>"``,
+    summed over the wrappers of ``panel_chain_kernel``."""
+    out = {}
+    for name in CHAIN_WRAPPERS:
+        for (dtype, b, c), k in getattr(panel_mod, name).chain_launches_by_plan.items():
+            key = f"{dtype}_b{b}_C{c}"
+            out[key] = out.get(key, 0) + k
+    return out
 
 
 def card_line() -> str:
@@ -184,7 +203,8 @@ def launched_by_span(entry, traffic, pool, device, calls=3) -> dict:
     runs the eager call's operations in the same order, so this is where
     a replay's time goes too, with no device clock to line up.  Returns
     ms per call: {"by_span": {span: {"panel"|"copy"|"other": ms}},
-    "top_ops": {operation: {span: ms}}}."""
+    "top_ops": {operation: {span: ms}}}, and the chain launches per call by
+    plan ("chains")."""
     from torch.profiler import ProfilerActivity, profile
 
     metrics = harness.BENCH_DIR / "metrics"
@@ -192,6 +212,7 @@ def launched_by_span(entry, traffic, pool, device, calls=3) -> dict:
     is_copy = harness.load_module(metrics / "copy_ms.py").is_copy
     entry.call(*pool.inputs(traffic.next()), device)
     torch.cuda.synchronize(device)
+    chains0 = chain_launches()
     with profiling.recording() as rec:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -210,7 +231,9 @@ def launched_by_span(entry, traffic, pool, device, calls=3) -> dict:
         by_op.setdefault(short, {}).setdefault(where, 0.0)
         by_op[short][where] += op.seconds * 1e3 / calls
     top = sorted(by_op.items(), key=lambda kv: -sum(kv[1].values()))[:12]
-    return {"by_span": dict(sorted(by_span.items())), "top_ops": dict(top)}
+    chains = {k: (v - chains0.get(k, 0)) / calls for k, v in chain_launches().items()
+              if v > chains0.get(k, 0)}
+    return {"by_span": dict(sorted(by_span.items())), "top_ops": dict(top), "chains": chains}
 
 
 def idle_by_launch(prof, spans, calls) -> dict:
@@ -274,8 +297,13 @@ def run_cell(cell_name, seed, seconds, device, n=None):
             torch.cuda.synchronize(device)
 
     # 1. off
+    chains0 = chain_launches()
     entry.warm(*pool.inputs(0), device)
     sync()
+    # the warm-up's eager calls and captures: one chain launch per block
+    out["chain_launches_by_plan_warm"] = {k: v - chains0.get(k, 0)
+                                          for k, v in chain_launches().items()
+                                          if v > chains0.get(k, 0)}
     off = window(entry, traffic, pool, seconds, device, dtype, kind, False, seed)
     out["gflops_off"] = gflops(off)
     if cuda:
@@ -374,6 +402,7 @@ def run_cell(cell_name, seed, seconds, device, n=None):
         launched = launched_by_span(entry, traffic, pool, device)
         out["launched_ms_by_span"] = launched["by_span"]
         out["launched_top_ops"] = launched["top_ops"]
+        out["chain_launches_per_call_by_plan"] = launched["chains"]
         if cell["entry"] == "lu_solve":
             by = launched["by_span"]
             steps = sum(sum(by.get(f"lu_factor:{k}", {}).values()) for k in STEPS)

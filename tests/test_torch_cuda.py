@@ -47,6 +47,7 @@ from recursivefactorization_jl_tpu_torch.ops.unblocked import (
 from recursivefactorization_jl_tpu_torch.utils import graphs, profiling, warmup
 from recursivefactorization_jl_tpu_torch.utils.config import PANEL_MICRO_MAX
 from lookahead_cases import KINDS, lookahead_panel
+from plan_rules import AUTO_PLANS, WIDTH
 
 torch.set_num_threads(1)
 
@@ -1712,7 +1713,8 @@ def test_lookahead_chain_at_the_cells_plans(shape, block, cluster, kind):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_lookahead_chain_on_the_live_rows_of_an_n8192_lu(dtype):
     """The panels of an n = 8192 lu (8192 - 512 k live rows, 512 columns) on
-    their own plans: b 8 above 4096 rows, 16 at 2048-4096, 32 below."""
+    their own plans: b 8 above 4096 rows, 16 at 2048-4096, 32 below (float64:
+    16 at 4096 only)."""
     need_cuda()
     g = torch.Generator().manual_seed(41)
     for rows in range(8192, 0, -512):
@@ -1799,6 +1801,7 @@ def test_lookahead_counters_on_every_wrapper_and_in_an_lu(monkeypatch):
 
     for attr in ("launches", "grid_route_launches", "lookahead_chain_launches"):
         setattr(spy, attr, 0)
+    spy.chain_launches_by_plan = {}
     monkeypatch.setattr(panel_mod, "panel_factor_cuda", spy)
     warmup.clear_caches()  # eager calls, through the wrappers
     for n in (4096, 8192):
@@ -2332,6 +2335,51 @@ def test_warmed_zeroed_column_checks_the_copied_info(no_programs):
         rt.lu(A)
     F = rt.lu(A, check=False)
     assert int(F.info) == 124 and _replays() - r0 == 2
+
+
+@pytest.mark.parametrize("dtype", sorted(AUTO_PLANS))
+def test_the_launchers_auto_plans_are_the_pinned_ones(dtype):
+    """The compiled launcher's own (b, C) at 512 columns is tests/plan_rules.py's
+    table, which a CPU test holds the header's rules to."""
+    need_cuda()
+    for m, want in AUTO_PLANS[dtype].items():
+        plan = panel_plan(m, WIDTH, getattr(torch, dtype))
+        assert plan["route"] == "cluster" and (plan["block"], plan["cluster"]) == want, (m, plan)
+
+
+def test_warmed_float64_lu_at_4096_replays_bitwise_on_the_float64_rule(no_programs):
+    """The float64 cell's shape: lu + lu_solve at n = 4096 after ``warmup``
+    replay bit for bit the eager calls, and every chain launch the panels
+    made (eagerly and while the programs were captured) was on a plan of
+    the float64 rule at the live heights 4096 .. 512."""
+    from recursivefactorization_jl_tpu_torch.ops import panel as panel_mod
+
+    n, dtype = 4096, torch.float64
+    g = torch.Generator(device="cuda").manual_seed(2147483659)
+    A = torch.rand(n, n, generator=g, device="cuda", dtype=dtype) - 0.5
+    b = torch.rand(n, generator=g, device="cuda", dtype=dtype) - 0.5
+    wrapper = panel_mod.panel_factor_cuda
+    wrapper.chain_launches_by_plan = {}
+    n0 = wrapper.lookahead_chain_launches
+    eager = rt.lu(A, check=False)
+    xe = rt.lu_solve(eager, b)
+    eager_counts = dict(wrapper.chain_launches_by_plan)
+    warmup.warmup(((n, n),), (dtype,))
+    r0 = _replays()
+    F = rt.lu(A, check=False)
+    x = rt.lu_solve(F, b)
+    torch.cuda.synchronize()
+    assert _replays() - r0 == 2
+    assert _same_results(_lu_outputs(F), _lu_outputs(eager)) and _same_results([x], [xe])
+    heights = range(n, 0, -WIDTH)
+    rule = {("float64",) + AUTO_PLANS["float64"][m] for m in heights}
+    counts = wrapper.chain_launches_by_plan
+    assert eager_counts and set(counts) <= rule, counts
+    # one chain launch per block of every panel, each on its own plan
+    per_call = sum(-(-WIDTH // AUTO_PLANS["float64"][m][0]) for m in heights)
+    assert sum(eager_counts.values()) == per_call
+    assert sum(counts.values()) % per_call == 0
+    assert wrapper.lookahead_chain_launches - n0 == sum(counts.values())  # C > 1 everywhere
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.complex128])
