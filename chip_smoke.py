@@ -4483,10 +4483,13 @@ def main(argv):
     # where a step of the chain kernel goes: CTA 0 stamps clock64() at each
     # phase boundary (rf_panel_lu_set_trace), one run.  panel_chain_kernel
     # (9 stamps a step): thread 0, in warp 0, which publishes the candidate,
-    # stamps phases 0-7; thread 32, in warp 1, which publishes nothing,
-    # stamps the end of its share of the deferred update (8).  The no-swap
-    # chain keeps its 7 stamps (NOSWAP_PHASES).
-    phases = ("reduce", "publish", "deferred", "wait", "agree", "swap", "lookahead")
+    # stamps phases 0-7 (the step's start, reduced, published: its sends and
+    # its arrival on the exchange's mbarrier, its deferred share done, data
+    # in: its wait returned, agreed, swapped, looked ahead); thread 32, in
+    # warp 1, which publishes nothing, stamps the end of its share of the
+    # deferred update (8).  A phase is named by the stamp that ends it.  The
+    # no-swap chain keeps its 7 stamps (NOSWAP_PHASES).
+    phases = ("reduce", "publish", "deferred", "data_in", "agree", "swap", "lookahead")
     NOSWAP_PHASES = ("reduce", "publish", "barrier", "agree", "swap", "update")
 
     def chain_trace(what, shape, run, plan, set_trace=None, names=phases):
@@ -4512,9 +4515,9 @@ def main(argv):
         extra = {}
         if names is phases:
             # the exchange, as warp 0 sees it: from the candidate barrier to
-            # the end of its wait; warp 1's deferred update runs from the same
-            # barrier to stamp 8, and the share of it that ended inside the
-            # exchange is hidden
+            # data in; warp 1's deferred update runs from the same barrier to
+            # stamp 8, and the share of it that ended inside the exchange is
+            # hidden
             exchange = st[:, 4] - st[:, 1]
             deferred = st[:, 8] - st[:, 1]
             hidden = torch.minimum(deferred, exchange) / deferred.clamp(min=1)

@@ -22,7 +22,11 @@ median device time of a chain step (clock64() from one step's start to the
 next's within a launch, at the SM clock the trace's %globaltimer gives) and
 the chain kernels' time per step, both trees side by side.  The stamps per
 step are read from the tree's csrc/panel_cluster.cuh, so trees with
-different phase traces compare.
+different phase traces compare; where a tree has the chain kernel's 9
+stamps it also prints the median of each phase (``PHASES``, each named by
+the stamp that ends it: reduced, published, the deferred share done, data
+in, agreed, swapped, looked ahead), the exchange (reduced to data in, warp
+0) and the share of warp 1's deferred update that the exchange hid.
 
 ``--routes`` (NEW only) also times the tall micro panels of ``ROUTE_CASES``
 on their default route (the grid-barrier kernel ``panel_lu_micro_kernel``
@@ -131,10 +135,17 @@ def trace_phases():
     return int(found.group(1))
 
 
+# panel_chain_kernel's stamps: phases 0-7 from warp 0, the end of warp 1's
+# deferred share at 8
+PHASES = ("reduce", "publish", "deferred", "data_in", "agree", "swap", "lookahead")
+
+
 def chain_steps(fn, A, steps, set_trace):
     """One traced call of ``fn`` on a copy of ``A``: the median ns of a
     chain step (one step's start to the next's within a launch) and the
-    chain kernels' ns per step."""
+    chain kernels' ns per step; with 9 stamps a step, the median ns of
+    each phase, of the exchange and the hidden share of warp 1's deferred
+    update."""
     import torch
 
     P = trace_phases()
@@ -150,7 +161,8 @@ def chain_steps(fn, A, steps, set_trace):
     finally:
         set_trace(None)
     t = buf.cpu().double()
-    st = t[:steps * P].view(steps, P)[:, 0]
+    stamps = t[:steps * P].view(steps, P)
+    st = stamps[:, 0]
     ends = t[steps * P:].view(steps, 4)
     ends = ends[ends[:, 0] != 0]
     ghz = float((ends[:, 3] - ends[:, 1]).sum() / (ends[:, 2] - ends[:, 0]).sum())
@@ -158,9 +170,18 @@ def chain_steps(fn, A, steps, set_trace):
     # a step's start to the next's within one launch (clock64 counts on
     # across launches on another SM, so a launch boundary reads at random)
     d = d[(d > 0) & (d < 20 * d.median())]
-    return {"step_ns_median": float(d.median()) / ghz,
-            "chain_ns_per_step": float((ends[:, 2] - ends[:, 0]).sum()) / steps,
-            "sm_ghz": ghz, "launches": int(ends.shape[0])}
+    out = {"step_ns_median": float(d.median()) / ghz,
+           "chain_ns_per_step": float((ends[:, 2] - ends[:, 0]).sum()) / steps,
+           "sm_ghz": ghz, "launches": int(ends.shape[0])}
+    if P == len(PHASES) + 2:
+        out["phase_ns_median"] = {name: float((stamps[:, i + 1] - stamps[:, i]).median()) / ghz
+                                  for i, name in enumerate(PHASES)}
+        exchange = stamps[:, 4] - stamps[:, 1]
+        deferred = stamps[:, 8] - stamps[:, 1]
+        hidden = torch.minimum(deferred, exchange) / deferred.clamp(min=1)
+        out["exchange_ns_median"] = float(exchange.median()) / ghz
+        out["hidden_share_median"] = float(hidden[1:].median())
+    return out
 
 
 def worker(rounds, routes, chain=False):
@@ -279,6 +300,13 @@ def main(argv):
                  "step_new_over_old": median(step["new"]) / median(step["old"]),
                  "old_chain_ns_per_step": per["old"], "new_chain_ns_per_step": per["new"],
                  "chain_new_over_old": median(per["new"]) / median(per["old"])})
+            for w in res:  # the phases of each tree, by turn
+                runs = [r["chain"][name] for r in res[w] if "phase_ns_median" in r["chain"][name]]
+                if runs:
+                    say({"chain_phases": name, "tree": w,
+                         "phase_ns_median": [r["phase_ns_median"] for r in runs],
+                         "exchange_ns_median": [r["exchange_ns_median"] for r in runs],
+                         "hidden_share_median": [r["hidden_share_median"] for r in runs]})
     for r in res["new"]:
         for name, v in r.get("routes", {}).items():
             say({"route_case": name, "bitwise": v["bitwise"], "auto_ms": v["ms"]["auto"],

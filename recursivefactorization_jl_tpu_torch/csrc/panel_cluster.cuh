@@ -13,11 +13,13 @@
 // look-ahead: the step's rank-1 update reaches only the next step's
 // column, scaled and searched by one thread per row, and the rows the
 // next step publishes; the rest waits for the next step, whose threads
-// apply it between their arrive on the split cluster barrier and their
-// wait, while the candidate exchange is in flight.  Every instantiation
-// takes it (the real and complex elements, the main-path, offset, micro-
-// blocked and bf16x3 forms); the launcher counts the launches that do (a
-// cluster of C > 1: with one CTA the wait is a __syncthreads()).
+// apply it after the step's sends and before their wait for the data,
+// while the candidate exchange is in flight.  The exchange completes
+// per-parity mbarriers with its data (st.async), with no cluster barrier
+// per step.  Every instantiation takes both (the real and complex
+// elements, the main-path, offset, micro-blocked and bf16x3 forms); the
+// launcher counts the launches that do (a cluster of C > 1: with one CTA
+// the wait is a __syncthreads()).
 //
 // The two blocked forms (the bf16x3 form and the micro-blocked kernels)
 // take any block width b and any panel height.  A block whose live rows do
@@ -161,6 +163,24 @@ __host__ __device__ inline ChainSmem chain_smem(int rows, int C, int B, bool pad
   return s;
 }
 
+// The bytes a chain CTA receives in step kk of a block on a cluster of C > 1
+// (panel_chain_kernel: what its exchange mbarrier of the step's parity
+// expects), for M slab rows, `rows` per CTA and slab width B: every CTA's
+// candidate (empty where it has none; without pivoting it only paces the
+// slots), with pivoting the candidate row of every CTA that holds a slab
+// row at or below row kk (such a CTA always has a candidate), and row kk
+// with its perm id and origin.  A function of the plan and the step,
+// never of the data.
+template <typename T>
+__host__ __device__ inline unsigned chain_exchange_bytes(int M, int rows, int C, int B, int kk,
+                                                         bool pivot) {
+  const int holders = (M + rows - 1) / rows;  // the CTAs that hold a slab row
+  const int live = (holders < C ? holders : C) - kk / rows;
+  const size_t row = static_cast<size_t>(B) * sizeof(T);
+  return static_cast<unsigned>(C * sizeof(Cand<typename Elem<T>::real>) + row + 8 +
+                               (pivot ? live * row : 0));
+}
+
 // Store x at `ptr` in the shared memory of cluster CTA d (its own with a
 // cluster of one: a plain shared store).
 template <typename V>
@@ -173,35 +193,107 @@ __device__ __forceinline__ void put(cg::cluster_group cluster, int C, V* ptr, in
   }
 }
 
-// Store the 16 bytes w at `ptr` (16-byte aligned) in the shared memory of
-// cluster CTA d: one st.shared::cluster.v4 (a plain shared store with a
-// cluster of one).
-__device__ __forceinline__ void put16(int C, void* ptr, int d, const uint4& w) {
-  if (C == 1) {
-    *static_cast<uint4*>(ptr) = w;
-    return;
-  }
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-  unsigned ra;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(ra) : "r"(a), "r"(d));
-  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(ra), "r"(w.x),
-               "r"(w.y), "r"(w.z), "r"(w.w)
-               : "memory");
-}
-
 // The cluster barrier split in two (PTX barrier.cluster, sm_90): a thread's
-// arrive releases its earlier writes, to its own CTA's shared memory and to
-// the other CTAs'; its wait returns once every thread of the cluster has
-// arrived, and acquires what they released.  Every thread takes both, in
-// pairs, as it would take cluster.sync(); a whole warp at once (.aligned:
-// the warp is converged first).
-__device__ __forceinline__ void cluster_arrive() {
+// arrive (here relaxed: it releases nothing) and its wait, which returns
+// once every thread of the cluster has arrived.  Every thread takes both,
+// in pairs, as it would take cluster.sync(); a whole warp at once
+// (.aligned: the warp is converged first).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
   __syncwarp();
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 }
 __device__ __forceinline__ void cluster_wait() {
   __syncwarp();
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The chain's exchange (PTX, sm_90): an mbarrier in each CTA's shared
+// memory that the step's data completes.  The receiver arms it with the
+// bytes it expects (arrive.expect_tx); every sender's st.async to it
+// counts its bytes off (complete_tx); its wait returns once the bytes and
+// the arrivals are in, and acquires the data at cluster scope.  Addresses
+// are 32-bit shared-window ones; `remote` maps one to cluster CTA d.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ unsigned remote(unsigned a, int d) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(d));
+  return r;
+}
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+// one arrival that releases this thread's earlier writes; the _tx form
+// raises the bytes the phase expects by tx first
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(unsigned bar, unsigned tx) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(tx)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// Wait for the phase of `parity` to complete.  A phase that never does (a
+// byte count that disagrees with what was sent) traps after a second of
+// %globaltimer, so the launch fails instead of spinning: the timer is read
+// only once the first try has failed.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = global_ns();
+  while (!mbar_try_wait(bar, parity)) {
+    if (global_ns() - t0 > 1000000000ll) __trap();
+  }
+}
+// st.async of 16 / 8 bytes to cluster address a, completing their bytes on
+// the mbarrier at cluster address bar (in the same CTA as a)
+__device__ __forceinline__ void st_async16(unsigned a, const uint4& w, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];" ::"r"(a),
+      "r"(w.x), "r"(w.y), "r"(w.z), "r"(w.w), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async8(unsigned a, unsigned x, unsigned y, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];" ::"r"(
+          a),
+      "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+// Store x (16 bytes on 16, or a multiple of 8 on 8) at `ptr` in the shared
+// memory of cluster CTA d by st.async, completing on its mbarrier `bar`
+// (this CTA's address of it); with a cluster of one a plain store.
+template <typename V>
+__device__ __forceinline__ void put_async(int C, V* ptr, int d, const V& x, unsigned bar) {
+  static_assert(sizeof(V) % 8 == 0, "st.async moves 8 or 16 bytes");
+  if (C == 1) {
+    *ptr = x;
+    return;
+  }
+  const unsigned a = remote(smem_u32(ptr), d), b = remote(bar, d);
+  if constexpr (sizeof(V) == 16) {
+    uint4 w;
+    memcpy(&w, &x, 16);
+    st_async16(a, w, b);
+  } else {
+    unsigned w[sizeof(V) / 4];
+    memcpy(w, &x, sizeof(V));
+#pragma unroll
+    for (int i = 0; i < static_cast<int>(sizeof(V) / 4); i += 2) {
+      st_async8(a + 4 * i, w[i], w[i + 1], b);
+    }
+  }
 }
 
 // A warp's best candidate by `better` in two or three redux.sync: each
@@ -231,11 +323,13 @@ __device__ __forceinline__ void warp_best_key(double& v, int& i) {
 }
 
 // The pivot chain of one block on one cluster (see the note at the top of
-// csrc/panel_lu.cu).  Two thread mappings:
+// csrc/panel_lu.cu).  Three thread mappings:
 //   groups  a group of G = min(B, 32) lanes owns slab rows grp, grp + NG,
-//           ...; lane li owns columns li, li + G, ...: the deferred update
-//           and the swap (and the row published after a complex NaN
-//           candidate: lane l sends columns l % G + 32 t, its u[t]);
+//           ...; lane li owns columns li, li + G, ...: the swap (and the
+//           row published after a complex NaN candidate: lane l sends
+//           columns l % G + 32 t, its u[t]);
+//   update  the same groups of the warps between the two sending warps
+//           (NGD of them): the deferred update;
 //   rows    thread t owns slab rows t, t + 512, ...: the look-ahead column
 //           and the candidate search.
 // The slab is padded (slab_rpw) so that both read shared memory on
@@ -245,15 +339,51 @@ __device__ __forceinline__ void warp_best_key(double& v, int& i) {
 // step kk (the row threads scale column kk, bring column kk + 1 up to date
 // and search it) and the rest of the row in step kk + 1: column kk + 2 as
 // that step's look-ahead column, the columns past it in the deferred pass,
-// which every thread runs between its arrive on the cluster barrier and
-// its wait, inside the candidate exchange.  The rows that step kk + 1
-// publishes (the CTA's candidate, row gk + 1) take it first, in all their
-// columns > kk + 1, in the sending warp, which writes them back; the
-// deferred pass and the look-ahead skip them.  What a thread touches after
-// its wait is its own (the swap: the deferred update's elements, by the
-// same group lanes; the look-ahead: columns no other thread writes in the
-// step) or was written before a warp's arrive (the published rows), so the
-// split barrier needs no other one.
+// which the warps between the two sending warps run before their wait,
+// inside the candidate exchange (the sending warps wait for the data
+// alone: they publish last, and a share of the update behind their sends
+// would set the step's pace).  The rows that step kk + 1 publishes (the
+// CTA's candidate, row gk + 1) take it first, in all their columns > kk + 1,
+// in the sending warp, which writes them back; the deferred pass and the
+// look-ahead skip them.  What a thread touches after its wait was not
+// written in the step by a thread that may still be in its deferred share
+// (the swap: rows gk and kp, which are the rows the deferred pass skips,
+// kp being its CTA's candidate; the look-ahead: columns kk and kk + 1,
+// which the deferred pass leaves alone) or was written back by a sending
+// warp before its arrival (below).
+//
+// The exchange (C > 1): each CTA has two mbarriers, one per step parity,
+// the parity of the double-buffered slots.  Every remote store of a step is
+// an st.async that completes its bytes on the receiver's barrier of the
+// step's parity: warp 0 sends the CTA's candidate to every CTA (always,
+// empty without one: the candidates pace the slots, see below), its row
+// where it has one, and row gk where that is the candidate; the owner's
+// last warp sends row gk otherwise, with its (perm id, origin).  No sender
+// waits for its stores.  The barrier expects two arrivals a phase, one by
+// each of those two warps after it has written its rows back and sent
+// them: warp 0's raises the phase's byte count by chain_exchange_bytes (a
+// function of the plan and the step), the last warp's by nothing.  A
+// thread's wait (try_wait.parity.acquire.cluster) returns once both have
+// arrived and every byte has landed, and acquires both: the data, and the
+// rows the two warps wrote back (a __syncwarp orders a warp's lanes before
+// its arriving lane).  That is all the CTA-local order the exchange needs:
+// no named barrier, no __syncthreads() beyond the reduction's.  A count
+// that disagreed with what was sent would trap in the bounded wait
+// (mbar_wait), not spin.
+//
+// The slots stay safe without a barrier between CTAs: a slot of parity par
+// is rewritten two steps later.  A CTA sends step kk + 2's data only after
+// its wait of step kk + 1, which needs every CTA's candidate of step kk + 1;
+// each CTA sends that only after its reduction's __syncthreads() of step
+// kk + 1, by which all its threads have left step kk and its reads of the
+// parity's slots (the last pivot row's slot, read once more while step
+// kk + 1's rows are written back, is read by the sending warp before it
+// sends).  The reductions' per-warp slots are double-buffered by parity for
+// the same reason: a warp may start step kk + 1 while another still reads
+// step kk's.  The mbarriers are set up at entry, before the cluster barrier
+// that every CTA passes before its first remote store; the complex NaN rule
+// keeps its cluster.sync(), and so does the kernel's exit.  A cluster of one
+// waits at a __syncthreads() and stores plainly.
 template <typename T, int B>
 __global__ void __launch_bounds__(kChainThreads)
 panel_chain_kernel(ChainArgs<T> p) {
@@ -275,8 +405,9 @@ panel_chain_kernel(ChainArgs<T> p) {
   constexpr int RPW = slab_rpw(B, sizeof(T));
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ R red_val[kChainWarps];
-  __shared__ int red_idx[kChainWarps];
+  __shared__ R red_val[2][kChainWarps];
+  __shared__ int red_idx[2][kChainWarps];
+  __shared__ __align__(8) unsigned long long xbar[2];  // the exchange's mbarriers
 
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -303,7 +434,16 @@ panel_chain_kernel(ChainArgs<T> p) {
   const int s0 = rank * R_;            // this CTA's first slab row
   const int own = max(0, min(M, s0 + R_) - s0);
   const bool first = k0 == 0;
+  const unsigned bar0 = smem_u32(xbar);  // parity par's barrier: bar0 + 8 par
 
+  if (C > 1) {
+    if (tid == 0) {
+      mbar_init(bar0, 2);
+      mbar_init(bar0 + 8, 2);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    cluster_arrive_relaxed();  // waited for after the slab is loaded
+  }
   if (first) {  // the rows above the offset never move
     for (int i = rank * kChainThreads + tid; i < p.ofs; i += C * kChainThreads) p.perm[i] = i;
   }
@@ -316,6 +456,7 @@ panel_chain_kernel(ChainArgs<T> p) {
     pid[q] = first ? r : p.perm[r];
     src[q] = r;
   }
+  if (C > 1) cluster_wait();  // every CTA's barriers are set up
   __syncthreads();
 
   // step 0's candidate, by the row threads
@@ -340,16 +481,21 @@ panel_chain_kernel(ChainArgs<T> p) {
 
   // step kd's rank-1 update of this CTA's slab rows below row kd in the
   // columns >= cmin, rows qx and qy excepted (they took it early); the
-  // group mapping, two rows per pass
+  // group mapping over the warps between the two sending warps (warp 0 and
+  // the last; NGD groups, dgrp this thread's), two rows per pass
+  constexpr int NGD = (kChainThreads - 64) / G;
+  const int dgrp = (tid - 32) / G;
+  const bool dwarp = warp > 0 && warp < kChainWarps - 1;
   auto deferred = [&](int kd, int cmin, int qx, int qy) {
+    if (!dwarp) return;
     bool act[PER];
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
       const int c = li + j * G;
       act[j] = c >= cmin && c < ncol;
     }
-    for (int q0 = max(0, kd + 1 - s0) / NG * NG; q0 < own; q0 += 2 * NG) {
-      const int qa = q0 + grp, qb = qa + NG;
+    for (int q0 = max(0, kd + 1 - s0) / NGD * NGD; q0 < own; q0 += 2 * NGD) {
+      const int qa = q0 + dgrp, qb = qa + NGD;
       const bool ona = qa < own && s0 + qa > kd && qa != qx && qa != qy;
       const bool onb = qb < own && s0 + qb > kd && qb != qx && qb != qy;
       T* ra = row(qa);
@@ -393,13 +539,13 @@ panel_chain_kernel(ChainArgs<T> p) {
       R v = best;
       int i = bi;
       warp_best_key(v, i);
-      if (lane == 0) { red_val[warp] = v; red_idx[warp] = i; }
+      if (lane == 0) { red_val[par][warp] = v; red_idx[par][warp] = i; }
     }
     __syncthreads();  // also orders the previous step's slab writes
     RF_STAMP(1);
     if (p.pivot) {
-      cv = lane < kChainWarps ? red_val[lane] : R(-1);
-      ci = lane < kChainWarps ? red_idx[lane] : INT_MAX;
+      cv = lane < kChainWarps ? red_val[par][lane] : R(-1);
+      ci = lane < kChainWarps ? red_idx[par][lane] : INT_MAX;
       warp_best_key(cv, ci);
     }
     const int qc = ci == INT_MAX ? -1 : ci - r0 - s0;  // the candidate's slab row here
@@ -408,9 +554,12 @@ panel_chain_kernel(ChainArgs<T> p) {
     // ---- publish the candidate and row gk to every CTA ---------------------
     // the sending warp brings the row up to date first (step kk - 1's update
     // in columns > kk, from its multiplier and the last pivot row, whose slot
-    // nobody writes before this CTA's arrive) and writes it back; it sends
-    // the row in 16-byte pieces, each lane loading what it sends first, so
-    // the remote stores go out back to back
+    // nobody writes before this CTA has sent its candidate) and writes it
+    // back; it sends the row in 16-byte pieces, each lane loading what it
+    // sends first, so the remote stores go out back to back, each completing
+    // on the receiver's barrier of the step's parity (bar, this CTA's
+    // address of it)
+    const unsigned bar = bar0 + 8 * par;
     auto take_row = [&](int q, T (&x)[NCH][E16]) {
       T* r = row(q);
       const T l = late ? r[kk - 1] : T{};
@@ -443,22 +592,31 @@ panel_chain_kernel(ChainArgs<T> p) {
         const int j = V > 32 ? lane + 32 * m : lane % V;
         uint4 wd;
         memcpy(&wd, x[m], 16);
-        for (int d = V > 32 ? 0 : lane / V; d < C; d += DV) put16(C, dst + j * E16, d, wd);
+        for (int d = V > 32 ? 0 : lane / V; d < C; d += DV)
+          put_async(C, reinterpret_cast<uint4*>(dst + j * E16), d, wd, bar);
       }
     };
-    auto send_cand = [&](const Cand<R>& cd) {
-      if (lane >= C) return;
-      if constexpr (sizeof(Cand<R>) == 16) {
-        uint4 wd;
-        memcpy(&wd, &cd, 16);
-        put16(C, cand + slot, lane, wd);
+    // row gk's perm id and origin, one 8-byte store to each CTA
+    auto send_kinf = [&](int id, int from) {
+      if (lane < C) {
+        put_async(C, reinterpret_cast<int2*>(kinf + 2 * par), lane, make_int2(id, from), bar);
+      }
+    };
+    // the two sending warps arrive once a step, after their write-backs;
+    // warp 0 with the bytes this CTA receives in the step
+    auto arrive = [&](bool bytes) {
+      if (C == 1) return;
+      __syncwarp();
+      if (lane != 0) return;
+      if (bytes) {
+        mbar_arrive_tx(bar, chain_exchange_bytes<T>(M, R_, C, B, kk, p.pivot != 0));
       } else {
-        put(cluster, C, cand + slot, lane, cd);
+        mbar_arrive(bar);
       }
     };
     // the candidate is row gk itself: warp 0 sends it as both
     const bool both = qc >= 0 && qc == qk;
-    if (p.pivot && warp == 0) {
+    if (warp == 0) {
       Cand<R> cd;
       cd.val = cv;
       cd.idx = ci;
@@ -466,34 +624,31 @@ panel_chain_kernel(ChainArgs<T> p) {
       cd.src = qc < 0 ? -1 : src[qc];
       T x[NCH][E16];
       if (qc >= 0) take_row(qc, x);
-      send_cand(cd);
+      if (lane < C) put_async(C, cand + slot, lane, cd, bar);
       if (qc >= 0) send_row(crow + slot * B, x);
       if (both) {
-        if (lane < C) {
-          put(cluster, C, kinf + 2 * par, lane, cd.pid);
-          put(cluster, C, kinf + 2 * par + 1, lane, cd.src);
-        }
+        send_kinf(cd.pid, cd.src);
         send_row(krow + par * B, x);
       }
+      arrive(true);
     }
-    if (qk >= 0 && !both && warp == kChainWarps - 1) {
-      const int kp_id = pid[qk], ks_id = src[qk];
-      T x[NCH][E16];
-      take_row(qk, x);
-      if (lane < C) {
-        put(cluster, C, kinf + 2 * par, lane, kp_id);
-        put(cluster, C, kinf + 2 * par + 1, lane, ks_id);
+    if (warp == kChainWarps - 1) {
+      if (qk >= 0 && !both) {
+        T x[NCH][E16];
+        send_kinf(pid[qk], src[qk]);
+        take_row(qk, x);
+        send_row(krow + par * B, x);
       }
-      send_row(krow + par * B, x);
+      arrive(false);
     }
-    // ---- arrive; step kk - 1's update in columns > kk + 1; wait ------------
-    if (C > 1) cluster_arrive();
     RF_STAMP(2);
+    // ---- step kk - 1's update in columns > kk + 1; wait for the data -------
     if (late) deferred(kk - 1, kk + 2, qc, qk);
     RF_STAMP(3);
     if (tr && tid == 32) stamps[kk * kChainTracePhases + 8] = clock64();
     if (C > 1) {
-      cluster_wait();  // converges the warp first: its lanes have read their multipliers
+      __syncwarp();  // the warp's lanes have read their multipliers
+      mbar_wait(bar, (kk >> 1) & 1);
     } else {
       __syncthreads();
     }
@@ -1870,19 +2025,21 @@ int delay_opt_in() {
 // panel, the two delayed kernels, in turn on `stream` without a host
 // synchronisation.  `iws` holds pl.iws_ints int32s (the blocks' row moves,
 // then the grid chain's workspace).  kForm: the form of the trailing update
-// (UpdateForm).  `updates`, `grids` and `lookaheads`, where given, receive
-// the number of update launches, of grid-chain launches and of chain
-// launches that took the look-ahead step with its split cluster barrier
-// (every cluster chain of C > 1 CTAs).  `route`: the bf16x3 form's update
-// kernel (kUpdTiled, or kUpdSimple where forced).
+// (UpdateForm).  `updates`, `grids`, `lookaheads` and `mbarriers`, where
+// given, receive the number of update launches, of grid-chain launches, of
+// chain launches that took the look-ahead step and of those whose
+// candidate exchange ran on the per-parity mbarriers (both: every cluster
+// chain of C > 1 CTAs).  `route`: the bf16x3 form's update kernel
+// (kUpdTiled, or kUpdSimple where forced).
 template <typename T, int kForm = kStepOrder>
 int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl, void* piv,
                 void* perm, void* info, void* iws, cudaStream_t stream,
                 int* updates = nullptr, int route = kUpdTiled, int* grids = nullptr,
-                int* lookaheads = nullptr) {
+                int* lookaheads = nullptr, int* mbarriers = nullptr) {
   if (updates != nullptr) *updates = 0;
   if (grids != nullptr) *grids = 0;
   if (lookaheads != nullptr) *lookaheads = 0;
+  if (mbarriers != nullptr) *mbarriers = 0;
   int err = delay_opt_in<T, kForm>();
   if (err != 0) return err;
   int* moved = static_cast<int*>(iws);
@@ -1954,6 +2111,7 @@ int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl,
       e = cudaLaunchKernelEx(&cfg, chain_kernel_for<T>(pl.B), c);
       if (e != cudaSuccess) return static_cast<int>(e);
       if (lookaheads != nullptr && pl.C > 1) ++*lookaheads;
+      if (mbarriers != nullptr && pl.C > 1) ++*mbarriers;
     }
     if (pl.one_block) continue;
     DelayArgs<T> d;

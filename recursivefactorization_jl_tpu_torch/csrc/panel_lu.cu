@@ -55,14 +55,18 @@
 //        b. warp 0 brings the candidate row up to date (step kk - 1's
 //           update, still due in its columns > kk), writes it back and
 //           sends it with (|v|, row, perm id, origin) into a slot of every
-//           CTA's shared memory by DSMEM, in 16-byte stores; the owner of
-//           row gk does the same for that row;
-//        c. every thread arrives on the cluster barrier (barrier.cluster.
-//           arrive.release), the sending warps once their stores are out,
-//           applies step kk - 1's update to its rows' columns > kk + 1, the
-//           two rows just sent excepted, and then waits (barrier.cluster.
-//           wait.acquire): the bulk of the update runs inside the
-//           exchange's latency;
+//           CTA's shared memory by DSMEM, in 16-byte st.async stores that
+//           complete on the receiver's mbarrier of the step's parity; the
+//           owner of row gk does the same for that row; both warps then
+//           arrive on their own CTA's barrier (warp 0's arrival carries
+//           the bytes the CTA expects in the step, chain_exchange_bytes);
+//        c. the warps between the two sending warps apply step kk - 1's
+//           update to their rows' columns > kk + 1, the two rows just sent
+//           excepted; every thread then waits on its CTA's barrier
+//           (try_wait.parity.acquire.cluster) until the step's data is in:
+//           the bulk of the update runs inside the exchange's latency, the
+//           sending warps wait for the data alone, and no barrier spans
+//           the cluster;
 //        d. every thread reduces the C candidates to the same winner, the
 //           owners of rows gk and kp take the swapped rows from their own
 //           CTA's slots, and one thread per row below gk scales column kk
@@ -70,9 +74,10 @@
 //           it is still due, then step kk's), searching it for the next
 //           step's candidate.
 //      The slots are double-buffered by step parity: a CTA can only write
-//      step k+2's slots after every CTA has passed step k+1's barrier, so
-//      after it read step k's; step kk - 1's pivot row, which the sending
-//      warps read in step kk, is still in its slot until this CTA arrives.
+//      step k+2's slots after its wait of step k+1, which needs every
+//      CTA's candidate of step k+1, sent after that CTA's step k+1
+//      reduction, so after it read step k's; step kk - 1's pivot row,
+//      which the sending warps read in step kk, they read before they send.
 //      With C = 1 the wait is a __syncthreads().  The slab, piv, perm,
 //      info and the list of rows that moved go back to device memory.
 //   2. the delayed pass, on the whole card: the block's row moves are
@@ -337,9 +342,9 @@ int full_plan(int m, int w, int ofs, int b, int C, int device, Plan* pl) {
 
 template <typename T, bool kOffset>
 int run(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C, void* piv,
-        void* perm, void* info, void* ws, void* iws, int* lookaheads, int device,
-        void* stream_) {
-  *lookaheads = 0;
+        void* perm, void* info, void* ws, void* iws, int* lookaheads, int* mbarriers,
+        int device, void* stream_) {
+  *lookaheads = *mbarriers = 0;
   Plan pl;
   int err = full_plan<T, kOffset>(m, w, ofs, b, C, device, &pl);
   if (err != 0) return err;
@@ -374,7 +379,7 @@ int run(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C, void* 
     return static_cast<int>(cudaGetLastError());
   }
   return run_cluster<T>(A, m, w, lda, pivot, ofs, pl, piv, perm, info, iws, stream, nullptr,
-                        kUpdTiled, nullptr, lookaheads);
+                        kUpdTiled, nullptr, lookaheads, mbarriers);
 }
 
 template <bool kOffset>
@@ -430,7 +435,8 @@ __global__ void __launch_bounds__(kChainThreads) bench_syncthreads_kernel(int it
   if (threadIdx.x == 0) *sink = iters;
 }
 
-// One candidate exchange as the chain kernel makes it (f32, a 32-wide
+// One candidate exchange in the cluster-barrier form the chain kernel used
+// before its exchange moved onto per-parity mbarriers (f32, a 32-wide
 // slab): warp 0 writes a candidate (|v|, row, perm id, origin) and its 32
 // entries into a slot of every CTA, lanes spread over the CTAs; one
 // cluster.sync(); every thread reduces the C candidates.
@@ -537,22 +543,23 @@ int rf_offset_panel_lu_plan(int m, int w, int elem_size, int ofs, int b, int C, 
 }
 
 // Factor the panel in place on `stream`, with the plan's (b, C) (0, 0 for
-// the launcher's choice).  `lookaheads` (host) gets the number of chain
-// launches that took the look-ahead step (every block's, on a cluster of
-// C > 1).  Returns a cudaError_t code (0 on success) for the launches;
-// faults during the run surface at the next synchronisation.
+// the launcher's choice).  `lookaheads` and `mbarriers` (host) get the
+// number of chain launches that took the look-ahead step and the mbarrier
+// exchange (every block's, on a cluster of C > 1).  Returns a cudaError_t
+// code (0 on success) for the launches; faults during the run surface at
+// the next synchronisation.
 int rf_panel_lu_f32(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv,
-                    void* perm, void* info, void* ws, void* iws, int* lookaheads, int device,
-                    void* stream) {
+                    void* perm, void* info, void* ws, void* iws, int* lookaheads, int* mbarriers,
+                    int device, void* stream) {
   return run<float, false>(a, m, w, lda, pivot, 0, b, C, piv, perm, info, ws, iws, lookaheads,
-                           device, stream);
+                           mbarriers, device, stream);
 }
 
 int rf_panel_lu_f64(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv,
-                    void* perm, void* info, void* ws, void* iws, int* lookaheads, int device,
-                    void* stream) {
+                    void* perm, void* info, void* ws, void* iws, int* lookaheads, int* mbarriers,
+                    int device, void* stream) {
   return run<double, false>(a, m, w, lda, pivot, 0, b, C, piv, perm, info, ws, iws, lookaheads,
-                            device, stream);
+                            mbarriers, device, stream);
 }
 
 // The offset kernel: factor rows [ofs, m) of the panel in place on
@@ -560,16 +567,16 @@ int rf_panel_lu_f64(void* a, int m, int w, int lda, int pivot, int b, int C, voi
 // rows, info the signed panel-local step.
 int rf_offset_panel_lu_f32(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C,
                            void* piv, void* perm, void* info, void* ws, void* iws,
-                           int* lookaheads, int device, void* stream) {
+                           int* lookaheads, int* mbarriers, int device, void* stream) {
   return run<float, true>(a, m, w, lda, pivot, ofs, b, C, piv, perm, info, ws, iws, lookaheads,
-                          device, stream);
+                          mbarriers, device, stream);
 }
 
 int rf_offset_panel_lu_f64(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C,
                            void* piv, void* perm, void* info, void* ws, void* iws,
-                           int* lookaheads, int device, void* stream) {
+                           int* lookaheads, int* mbarriers, int device, void* stream) {
   return run<double, true>(a, m, w, lda, pivot, ofs, b, C, piv, perm, info, ws, iws, lookaheads,
-                           device, stream);
+                           mbarriers, device, stream);
 }
 
 // The plan of the bf16x3 form on an (m, w) float32 panel with blocks of b
@@ -597,13 +604,15 @@ int rf_panel_lu_bf16x3_plan(int m, int w, int b, int C, int chain, int device, i
 // Factor the float32 panel in place on `stream` in the bf16x3 form, with the
 // plan of (b, C, chain); `iws` holds the plan's iws int32s.  `simple` = 1
 // forces the simple update kernel (default 0: the tiled one).  `updates`,
-// `grids` and `lookaheads` (host) get the number of bf16x3 update launches,
-// of grid chain launches and of cluster chain launches that took the
-// look-ahead step.  Returns a cudaError_t code.
+// `grids`, `lookaheads` and `mbarriers` (host) get the number of bf16x3
+// update launches, of grid chain launches and of cluster chain launches
+// that took the look-ahead step and the mbarrier exchange.  Returns a
+// cudaError_t code.
 int rf_panel_lu_bf16x3_f32(void* a, int m, int w, int lda, int pivot, int b, int C, int simple,
                            int chain, void* piv, void* perm, void* info, void* iws, int* updates,
-                           int* grids, int* lookaheads, int device, void* stream) {
-  *updates = *grids = *lookaheads = 0;
+                           int* grids, int* lookaheads, int* mbarriers, int device,
+                           void* stream) {
+  *updates = *grids = *lookaheads = *mbarriers = 0;
   if (simple != 0 && simple != 1) return static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
   const int err = bf16x3_plan(m, w, b, C, chain, device, &pl);
@@ -611,7 +620,7 @@ int rf_panel_lu_bf16x3_f32(void* a, int m, int w, int lda, int pivot, int b, int
   return run_cluster<float, kBf16x3>(static_cast<float*>(a), m, w, lda, pivot, 0, pl, piv,
                                      perm, info, iws, static_cast<cudaStream_t>(stream),
                                      updates, simple ? kUpdSimple : kUpdTiled, grids,
-                                     lookaheads);
+                                     lookaheads, mbarriers);
 }
 
 // One bf16x3 update on `stream`: c (rows x cols, row stride ldc) -=
@@ -658,12 +667,12 @@ int rf_panel_update_bf16x3_plan(int rows, int cols, int nb, int* out) {
 // `buf` non-null every later chain launch writes, from CTA 0, 9 clock64()
 // stamps per step into buf[9 * step + phase]: from thread 0 (warp 0, which
 // publishes the candidate) phases 0-7, the step's start, after the
-// candidate reduction's barrier, after the publish (its arrive on the
-// cluster barrier), after its share of the deferred update, after the
-// wait, after the pivot agreement, after the swap, after the look-ahead
-// column (the step's end); from thread 32 (warp 1, which publishes
-// nothing) phase 8, the end of its share of the deferred update.  Per
-// block i, buf[9 * steps + 4 * i + {0, 1, 2, 3}] = the kernel's first
+// candidate reduction's barrier, published (its sends and its arrival on
+// the exchange's mbarrier), after its share of the deferred update, data
+// in (its wait returned), after the pivot agreement, after the swap, after
+// the look-ahead column (the step's end); from thread 32 (warp 1, which
+// publishes nothing) phase 8, the end of its share of the deferred update.
+// Per block i, buf[9 * steps + 4 * i + {0, 1, 2, 3}] = the kernel's first
 // %globaltimer (ns), clock64(), last %globaltimer, clock64().  buf holds
 // int64s on the device; null turns the trace off.
 int rf_panel_lu_set_trace(void* buf) {
@@ -674,8 +683,9 @@ int rf_panel_lu_set_trace(void* buf) {
 // Barrier microbenchmark: one launch of `iters` barriers of kind 0
 // (grid.sync() over a cooperative grid of n blocks of 256 threads), 1
 // (cluster.sync() over a cluster of n CTAs of 512), 2 (__syncthreads() in
-// one CTA of 512) or 3 (the chain kernel's candidate exchange over a
-// cluster of n: DSMEM writes to every CTA, cluster.sync(), the reduction).
+// one CTA of 512) or 3 (a candidate exchange in the chain kernel's former
+// cluster-barrier form over a cluster of n: DSMEM writes to every CTA,
+// cluster.sync(), the reduction).
 // `sink` is one int32 on the device.  Time two launches with different
 // `iters` to take the launch out.
 int rf_bench_barrier(int kind, int n, int iters, int device, void* sink, void* stream) {

@@ -362,17 +362,17 @@ int full_plan(int m, int w, int ofs, int b, int C, int device, Plan* pl) {
 
 template <typename T, bool kOffset>
 int run(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C, void* piv,
-        void* perm, void* info, void* ws, void* iws, int* lookaheads, int device,
-        void* stream_) {
+        void* perm, void* info, void* ws, void* iws, int* lookaheads, int* mbarriers,
+        int device, void* stream_) {
   using C2 = typename Pair<T>::type;
-  *lookaheads = 0;
+  *lookaheads = *mbarriers = 0;
   Plan pl;
   int err = full_plan<T, kOffset>(m, w, ofs, b, C, device, &pl);
   if (err != 0) return err;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (pl.route == kRouteCluster) {
     return run_cluster<C2>(static_cast<C2*>(a), m, w, lda, pivot, ofs, pl, piv, perm, info,
-                           iws, stream, nullptr, kUpdTiled, nullptr, lookaheads);
+                           iws, stream, nullptr, kUpdTiled, nullptr, lookaheads, mbarriers);
   }
   const int g = pl.grid;
   PanelArgs<T> p;
@@ -448,22 +448,23 @@ int rf_offset_panel_lu_c_plan(int m, int w, int elem_size, int ofs, int b, int C
 
 // Factor the panel in place on `stream`, with the plan's (b, C) (0, 0 for
 // the launcher's choice); `a` points at interleaved (re, im) pairs and
-// `lda` counts complex elements.  `lookaheads` (host) gets the number of
-// chain launches that took the look-ahead step (on a cluster of C > 1).
+// `lda` counts complex elements.  `lookaheads` and `mbarriers` (host) get
+// the number of chain launches that took the look-ahead step and the
+// mbarrier exchange (on a cluster of C > 1).
 // Returns a cudaError_t code (0 on success) for the launches; faults during
 // the run surface at the next synchronisation.
 int rf_panel_lu_c64(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv,
-                    void* perm, void* info, void* ws, void* iws, int* lookaheads, int device,
-                    void* stream) {
+                    void* perm, void* info, void* ws, void* iws, int* lookaheads, int* mbarriers,
+                    int device, void* stream) {
   return run<float, false>(a, m, w, lda, pivot, 0, b, C, piv, perm, info, ws, iws, lookaheads,
-                           device, stream);
+                           mbarriers, device, stream);
 }
 
 int rf_panel_lu_c128(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv,
-                     void* perm, void* info, void* ws, void* iws, int* lookaheads, int device,
-                     void* stream) {
+                     void* perm, void* info, void* ws, void* iws, int* lookaheads, int* mbarriers,
+                     int device, void* stream) {
   return run<double, false>(a, m, w, lda, pivot, 0, b, C, piv, perm, info, ws, iws, lookaheads,
-                            device, stream);
+                            mbarriers, device, stream);
 }
 
 // The offset kernel: factor rows [ofs, m) of the complex panel in place on
@@ -474,16 +475,16 @@ int rf_panel_lu_c128(void* a, int m, int w, int lda, int pivot, int b, int C, vo
 // makes the pivot row m - 1, the last row of the panel.
 int rf_offset_panel_lu_c64(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C,
                            void* piv, void* perm, void* info, void* ws, void* iws,
-                           int* lookaheads, int device, void* stream) {
+                           int* lookaheads, int* mbarriers, int device, void* stream) {
   return run<float, true>(a, m, w, lda, pivot, ofs, b, C, piv, perm, info, ws, iws, lookaheads,
-                          device, stream);
+                          mbarriers, device, stream);
 }
 
 int rf_offset_panel_lu_c128(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C,
                             void* piv, void* perm, void* info, void* ws, void* iws,
-                            int* lookaheads, int device, void* stream) {
+                            int* lookaheads, int* mbarriers, int device, void* stream) {
   return run<double, true>(a, m, w, lda, pivot, ofs, b, C, piv, perm, info, ws, iws, lookaheads,
-                           device, stream);
+                           mbarriers, device, stream);
 }
 
 // Phase trace of the cluster route's chain kernel, as rf_panel_lu_set_trace

@@ -428,15 +428,16 @@ int full_plan(int m, int w, int micro, int b, int C, int chain, int device, Plan
 template <typename T, bool kShadow>
 int run(void* a, int m, int w, int lda, int pivot, int micro, int b, int C, int chain,
         void* piv, void* perm, void* info, void* ws, void* iws, int* grids, int* lookaheads,
-        int device, void* stream_) {
-  *grids = *lookaheads = 0;
+        int* mbarriers, int device, void* stream_) {
+  *grids = *lookaheads = *mbarriers = 0;
   Plan pl;
   int err = full_plan<T, kShadow>(m, w, micro, b, C, chain, device, &pl);
   if (err != 0) return err;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (pl.route == kRouteCluster) {
     return run_cluster<T, kSumFirst>(static_cast<T*>(a), m, w, lda, pivot, 0, pl, piv, perm, info,
-                                     iws, stream, nullptr, kUpdTiled, grids, lookaheads);
+                                     iws, stream, nullptr, kUpdTiled, grids, lookaheads,
+                                     mbarriers);
   }
   const int g = pl.grid;
   const int rows = (m + g - 1) / g;
@@ -508,36 +509,41 @@ int rf_panel_lu_micro_plan(int m, int w, int elem_size, int micro, int shadow, i
 }
 
 // Factor the panel in place on `stream` with the plan of (micro, b, C,
-// chain); `grids` and `lookaheads` (host) get the number of grid-chain
-// launches and of cluster chain launches that took the look-ahead step.  Each
-// returns a cudaError_t code (0 on success) for the launches; faults during
-// the run surface at the next synchronisation.
+// chain); `grids`, `lookaheads` and `mbarriers` (host) get the number of
+// grid-chain launches and of cluster chain launches that took the
+// look-ahead step and the mbarrier exchange.  Each returns a cudaError_t
+// code (0 on success) for the launches; faults during the run surface at
+// the next synchronisation.
 int rf_panel_lu_shadow_f32(void* a, int m, int w, int lda, int pivot, int micro, int b, int C,
                            int chain, void* piv, void* perm, void* info, void* ws, void* iws,
-                           int* grids, int* lookaheads, int device, void* stream) {
+                           int* grids, int* lookaheads, int* mbarriers, int device,
+                          void* stream) {
   return run<float, true>(a, m, w, lda, pivot, micro, b, C, chain, piv, perm, info, ws, iws,
-                          grids, lookaheads, device, stream);
+                          grids, lookaheads, mbarriers, device, stream);
 }
 
 int rf_panel_lu_shadow_f64(void* a, int m, int w, int lda, int pivot, int micro, int b, int C,
                            int chain, void* piv, void* perm, void* info, void* ws, void* iws,
-                           int* grids, int* lookaheads, int device, void* stream) {
+                           int* grids, int* lookaheads, int* mbarriers, int device,
+                          void* stream) {
   return run<double, true>(a, m, w, lda, pivot, micro, b, C, chain, piv, perm, info, ws, iws,
-                           grids, lookaheads, device, stream);
+                           grids, lookaheads, mbarriers, device, stream);
 }
 
 int rf_panel_lu_basic_f32(void* a, int m, int w, int lda, int pivot, int micro, int b, int C,
                           int chain, void* piv, void* perm, void* info, void* ws, void* iws,
-                          int* grids, int* lookaheads, int device, void* stream) {
+                          int* grids, int* lookaheads, int* mbarriers, int device,
+                          void* stream) {
   return run<float, false>(a, m, w, lda, pivot, micro, b, C, chain, piv, perm, info, ws, iws,
-                           grids, lookaheads, device, stream);
+                           grids, lookaheads, mbarriers, device, stream);
 }
 
 int rf_panel_lu_basic_f64(void* a, int m, int w, int lda, int pivot, int micro, int b, int C,
                           int chain, void* piv, void* perm, void* info, void* ws, void* iws,
-                          int* grids, int* lookaheads, int device, void* stream) {
+                          int* grids, int* lookaheads, int* mbarriers, int device,
+                          void* stream) {
   return run<double, false>(a, m, w, lda, pivot, micro, b, C, chain, piv, perm, info, ws, iws,
-                            grids, lookaheads, device, stream);
+                            grids, lookaheads, mbarriers, device, stream);
 }
 
 // Phase trace of the cluster route's chain kernel, as rf_panel_lu_set_trace

@@ -68,8 +68,9 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # panel, m, w, lda, pivot, micro, b, C, chain, piv, perm, info, ws, iws, grids
-# (host int), lookaheads (host int), device, stream
-_PANEL_MICRO = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P])
+# (host int), lookaheads (host int), mbarriers (host int), device, stream
+_PANEL_MICRO = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                     _P])
 # panel, m, w, lda, pivot, live, b, C, used0, used, prow, info, ws, iws, device,
 # stream
 _PANEL_NOSWAP = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P])
@@ -77,14 +78,15 @@ _PANEL_NOSWAP = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I
 # out[6]; csrc/panel_lu_noswap.cu the same with the live row count for ofs
 _PANEL_PLAN = (_I, [_I, _I, _I, _I, _I, _I, _I, _P])
 # panel, m, w, lda, pivot, b, C, piv, perm, info, ws, iws, lookaheads (host
-# int), device, stream
-_PANEL_BC = (_I, [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P])
+# int), mbarriers (host int), device, stream
+_PANEL_BC = (_I, [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P])
 # the same with the offset after pivot
-_PANEL_OFS_BC = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P])
+_PANEL_OFS_BC = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P])
 # the bf16x3 form: panel, m, w, lda, pivot, b, C, simple, chain, piv, perm,
 # info, iws, updates (host int), grids (host int), lookaheads (host int),
-# device, stream
-_PANEL_BF16X3 = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P])
+# mbarriers (host int), device, stream
+_PANEL_BF16X3 = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                      _P])
 # a, out, ipiv, perm, info, batch, m, n, pivot, route, smem, device, stream
 _BATCHED_SWAP = (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
 # a, out, perm, info, batch, n, pivot, route, smem, device, stream

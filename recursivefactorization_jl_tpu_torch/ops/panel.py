@@ -56,7 +56,9 @@ counts its launches and, apart, those on the grid route; the blocked forms
 count the blocks whose chain ran on the grid (``.grid_block_launches``).
 Every wrapper of a kernel that runs ``panel_chain_kernel`` counts the chain
 launches that took its look-ahead step, on a cluster of more than one CTA
-(``.lookahead_chain_launches``), and every chain launch on a cluster by its
+(``.lookahead_chain_launches``), those whose candidate exchange ran on the
+per-parity mbarriers (``.mbarrier_exchange_launches``: the same launches),
+and every chain launch on a cluster by its
 plan (``.chain_launches_by_plan``: a dict keyed (dtype name, b, C)), so a
 run shows which rule of csrc/panel_cluster.cuh's ``Auto<T>`` its chains
 took.
@@ -353,8 +355,10 @@ def _launch_panel_lu(wrapper, panel, pivot, ofs, block, cluster, dtypes=_REAL):
     offset kernel unless ``ofs`` is None) or, for ``dtypes`` ``_COMPLEX``,
     csrc/panel_lu_c64.cu.  Adds one to ``wrapper.launches`` at the launch,
     one to ``wrapper.grid_route_launches`` when the panel takes the grid
-    route, and to ``wrapper.lookahead_chain_launches`` the chain launches
-    that took the look-ahead step, as the C launcher reports them; counts
+    route, and to ``wrapper.lookahead_chain_launches`` and
+    ``wrapper.mbarrier_exchange_launches`` the chain launches that took the
+    look-ahead step and the mbarrier exchange, as the C launcher reports
+    them; counts
     the chain launches in ``wrapper.chain_launches_by_plan``.  piv, perm,
     info and the integer workspace share one allocation."""
     m, w, lda, index, real, size = _check_panel(wrapper.__name__, panel, dtypes)
@@ -376,14 +380,15 @@ def _launch_panel_lu(wrapper, panel, pivot, ofs, block, cluster, dtypes=_REAL):
     prefix = "rf_panel_lu" if ofs is None else "rf_offset_panel_lu"
     fn = getattr(lib, f"{prefix}_{kind}")
     extra = () if ofs is None else (ofs,)
-    lookaheads = ctypes.c_int(0)
+    lookaheads, mbarriers = ctypes.c_int(0), ctypes.c_int(0)
     code = fn(
         panel.data_ptr(), m, w, lda, int(bool(pivot)), *extra, block, cluster,
         piv.data_ptr(), perm.data_ptr(), info.data_ptr(),
         None if ws is None else ws.data_ptr(), ints[npiv + m + 1:].data_ptr(),
-        ctypes.byref(lookaheads), index, stream,
+        ctypes.byref(lookaheads), ctypes.byref(mbarriers), index, stream,
     )
     wrapper.lookahead_chain_launches += lookaheads.value
+    wrapper.mbarrier_exchange_launches += mbarriers.value
     _kernels.check(lib, code, f"{'panel_lu_c64' if cplx else 'panel_lu'} launch")
     _count_chains(wrapper, panel.dtype, route, b, c, blocks)
     return piv, perm, info
@@ -478,22 +483,25 @@ def _launch_bf16x3(panel, pivot, block, cluster, update, chain):
     piv, perm, info = ints[:npiv], ints[npiv:npiv + m], ints[npiv + m]
     lib = _kernels.load("panel_lu")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    updates, grids, lookaheads = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    updates, grids, lookaheads, mbarriers = (ctypes.c_int(0) for _ in range(4))
     wrapper.launches += 1
     wrapper.bf16x3_launches += 1
     code = lib.rf_panel_lu_bf16x3_f32(
         panel.data_ptr(), m, w, lda, int(bool(pivot)), b, cluster,
         int(update == "simple"), chain,
         piv.data_ptr(), perm.data_ptr(), info.data_ptr(), ints[npiv + m + 1:].data_ptr(),
-        ctypes.byref(updates), ctypes.byref(grids), ctypes.byref(lookaheads), index, stream,
+        ctypes.byref(updates), ctypes.byref(grids), ctypes.byref(lookaheads),
+        ctypes.byref(mbarriers), index, stream,
     )
     # the update and chain kernels the launcher issued (one update per block
     # boundary with rows and columns below and right of the block:
     # bf16x3_updates; one grid chain per block of the plan's grid_blocks; a
-    # look-ahead chain per other block on a cluster of C > 1)
+    # look-ahead chain per other block on a cluster of C > 1, each on the
+    # mbarrier exchange)
     wrapper.bf16x3_update_launches += updates.value
     wrapper.grid_block_launches += grids.value
     wrapper.lookahead_chain_launches += lookaheads.value
+    wrapper.mbarrier_exchange_launches += mbarriers.value
     if update == "simple":
         wrapper.bf16x3_simple_update_launches += updates.value
     _kernels.check(lib, code, "panel_lu bf16x3 launch")
@@ -519,9 +527,11 @@ def panel_factor_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
     route (panels too tall for a cluster),
     ``panel_factor_cuda.lookahead_chain_launches`` the chain launches
     (one per block) that took the look-ahead step on a cluster of C > 1,
+    ``panel_factor_cuda.mbarrier_exchange_launches`` those whose candidate
+    exchange ran on the per-parity mbarriers (every one of them),
     ``panel_factor_cuda.chain_launches_by_plan`` every chain launch on a
     cluster by its plan, ``{(dtype name, b, C): launches}``; every wrapper
-    of ``panel_chain_kernel`` keeps both.
+    of ``panel_chain_kernel`` keeps all three.
 
     ``precision='bf16x3'`` (float32 panels): the form of
     ``panel_boundary_precision='bf16x3'``, blocks of exactly ``block`` steps
@@ -556,6 +566,7 @@ panel_factor_cuda.bf16x3_update_launches = 0
 panel_factor_cuda.bf16x3_simple_update_launches = 0
 panel_factor_cuda.grid_block_launches = 0
 panel_factor_cuda.lookahead_chain_launches = 0
+panel_factor_cuda.mbarrier_exchange_launches = 0
 panel_factor_cuda.chain_launches_by_plan = {}
 
 
@@ -642,6 +653,7 @@ def offset_panel_factor_cuda(panel: torch.Tensor, ofs: int, pivot: bool, *,
 offset_panel_factor_cuda.launches = 0
 offset_panel_factor_cuda.grid_route_launches = 0
 offset_panel_factor_cuda.lookahead_chain_launches = 0
+offset_panel_factor_cuda.mbarrier_exchange_launches = 0
 offset_panel_factor_cuda.chain_launches_by_plan = {}
 
 
@@ -680,6 +692,7 @@ def panel_factor_c64_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
 panel_factor_c64_cuda.launches = 0
 panel_factor_c64_cuda.grid_route_launches = 0
 panel_factor_c64_cuda.lookahead_chain_launches = 0
+panel_factor_c64_cuda.mbarrier_exchange_launches = 0
 panel_factor_c64_cuda.chain_launches_by_plan = {}
 
 
@@ -710,6 +723,7 @@ def offset_panel_factor_c64_cuda(panel: torch.Tensor, ofs: int, pivot: bool, *,
 offset_panel_factor_c64_cuda.launches = 0
 offset_panel_factor_c64_cuda.grid_route_launches = 0
 offset_panel_factor_c64_cuda.lookahead_chain_launches = 0
+offset_panel_factor_c64_cuda.mbarrier_exchange_launches = 0
 offset_panel_factor_c64_cuda.chain_launches_by_plan = {}
 
 
@@ -749,7 +763,7 @@ def _launch_micro(wrapper, panel, pivot, micro, shadow, block, cluster, chain):
     which = "shadow" if shadow else "basic"
     fn = getattr(lib, f"rf_panel_lu_{which}_{'f32' if size == 4 else 'f64'}")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    grids, lookaheads = ctypes.c_int(0), ctypes.c_int(0)
+    grids, lookaheads, mbarriers = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     wrapper.launches += 1
     if route == 0:
         wrapper.grid_route_launches += 1
@@ -757,10 +771,11 @@ def _launch_micro(wrapper, panel, pivot, micro, shadow, block, cluster, chain):
         panel.data_ptr(), m, w, lda, int(bool(pivot)), micro, block, cluster, chain,
         piv.data_ptr(), perm.data_ptr(), info.data_ptr(),
         None if ws is None else ws.data_ptr(), ints[npiv + m + 1:].data_ptr(),
-        ctypes.byref(grids), ctypes.byref(lookaheads), index, stream,
+        ctypes.byref(grids), ctypes.byref(lookaheads), ctypes.byref(mbarriers), index, stream,
     )
     wrapper.grid_block_launches += grids.value
     wrapper.lookahead_chain_launches += lookaheads.value
+    wrapper.mbarrier_exchange_launches += mbarriers.value
     _kernels.check(lib, code, "panel_lu_micro launch")
     _count_chains(wrapper, panel.dtype, route, b, c, blocks - grids.value)
     return piv, perm, info
@@ -792,6 +807,7 @@ panel_factor_shadow_cuda.launches = 0
 panel_factor_shadow_cuda.grid_route_launches = 0
 panel_factor_shadow_cuda.grid_block_launches = 0
 panel_factor_shadow_cuda.lookahead_chain_launches = 0
+panel_factor_shadow_cuda.mbarrier_exchange_launches = 0
 panel_factor_shadow_cuda.chain_launches_by_plan = {}
 
 
@@ -813,6 +829,7 @@ panel_factor_basic_cuda.launches = 0
 panel_factor_basic_cuda.grid_route_launches = 0
 panel_factor_basic_cuda.grid_block_launches = 0
 panel_factor_basic_cuda.lookahead_chain_launches = 0
+panel_factor_basic_cuda.mbarrier_exchange_launches = 0
 panel_factor_basic_cuda.chain_launches_by_plan = {}
 
 

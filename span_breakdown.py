@@ -25,7 +25,9 @@ own pool, entry and closed loop (``bench_port/harness.py``), one process:
    open on the host when it was launched (``launched_by_span``), and the
    panel chain launches of those calls by plan (dtype, b, C), from the
    port's ``.chain_launches_by_plan`` counters: which rule of the chain's
-   plan the cell took;
+   plan the cell took; and per call the chain launches that took the
+   look-ahead and those whose exchange ran on the per-parity mbarriers
+   (``.lookahead_chain_launches``, ``.mbarrier_exchange_launches``);
 5. ``off`` again: recaptured with the recorder off, one more untraced
    window (the two ``off`` windows bracket the others).
 
@@ -76,6 +78,16 @@ def chain_launches() -> dict:
             key = f"{dtype}_b{b}_C{c}"
             out[key] = out.get(key, 0) + k
     return out
+
+
+def chain_count(attr) -> int:
+    """A chain launch counter (``lookahead_chain_launches``,
+    ``mbarrier_exchange_launches``) summed over the wrappers of
+    ``panel_chain_kernel``; 0 where a wrapper has no such counter."""
+    return sum(getattr(getattr(panel_mod, name), attr, 0) for name in CHAIN_WRAPPERS)
+
+
+COUNTERS = ("lookahead_chain_launches", "mbarrier_exchange_launches")
 
 
 def card_line() -> str:
@@ -203,8 +215,8 @@ def launched_by_span(entry, traffic, pool, device, calls=3) -> dict:
     runs the eager call's operations in the same order, so this is where
     a replay's time goes too, with no device clock to line up.  Returns
     ms per call: {"by_span": {span: {"panel"|"copy"|"other": ms}},
-    "top_ops": {operation: {span: ms}}}, and the chain launches per call by
-    plan ("chains")."""
+    "top_ops": {operation: {span: ms}}}, the chain launches per call by plan
+    ("chains") and the chain launch counters per call ("counters")."""
     from torch.profiler import ProfilerActivity, profile
 
     metrics = harness.BENCH_DIR / "metrics"
@@ -213,6 +225,7 @@ def launched_by_span(entry, traffic, pool, device, calls=3) -> dict:
     entry.call(*pool.inputs(traffic.next()), device)
     torch.cuda.synchronize(device)
     chains0 = chain_launches()
+    counts0 = {c: chain_count(c) for c in COUNTERS}
     with profiling.recording() as rec:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -233,7 +246,9 @@ def launched_by_span(entry, traffic, pool, device, calls=3) -> dict:
     top = sorted(by_op.items(), key=lambda kv: -sum(kv[1].values()))[:12]
     chains = {k: (v - chains0.get(k, 0)) / calls for k, v in chain_launches().items()
               if v > chains0.get(k, 0)}
-    return {"by_span": dict(sorted(by_span.items())), "top_ops": dict(top), "chains": chains}
+    counters = {c: (chain_count(c) - counts0[c]) / calls for c in COUNTERS}
+    return {"by_span": dict(sorted(by_span.items())), "top_ops": dict(top), "chains": chains,
+            "counters": counters}
 
 
 def idle_by_launch(prof, spans, calls) -> dict:
@@ -403,6 +418,7 @@ def run_cell(cell_name, seed, seconds, device, n=None):
         out["launched_ms_by_span"] = launched["by_span"]
         out["launched_top_ops"] = launched["top_ops"]
         out["chain_launches_per_call_by_plan"] = launched["chains"]
+        out["chain_counters_per_call"] = launched["counters"]
         if cell["entry"] == "lu_solve":
             by = launched["by_span"]
             steps = sum(sum(by.get(f"lu_factor:{k}", {}).values()) for k in STEPS)

@@ -61,3 +61,41 @@ def rule_plan(rule, m, w=WIDTH):
 def rule_of(dtype_name, rules=None):
     rules = header_rules() if rules is None else rules
     return rules.get(ELEMENT[dtype_name], rules["T"])
+
+
+# ---- the chain's exchange: bytes a CTA receives in a step ------------------
+#
+# csrc/panel_cluster.cuh `chain_exchange_bytes` arms each CTA's mbarrier of
+# the step's parity with what it will receive; a count that disagrees with
+# what is sent traps (or, without the bound, spins).  ``EXCHANGE_RULE`` pins
+# its body (whitespace aside) and ``exchange_bytes`` mirrors it.
+
+# bytes of an element and of a candidate (`Cand<R>`: the magnitude, row,
+# perm id and origin; 16 with a float magnitude, 24 with a double one)
+ITEM_BYTES = {"float32": 4, "float64": 8, "complex64": 8, "complex128": 16}
+CAND_BYTES = {"float32": 16, "float64": 24, "complex64": 16, "complex128": 24}
+EXCHANGE_RULE = (
+    "const int holders = (M + rows - 1) / rows; "
+    "const int live = (holders < C ? holders : C) - kk / rows; "
+    "const size_t row = static_cast<size_t>(B) * sizeof(T); "
+    "return static_cast<unsigned>(C * sizeof(Cand<typename Elem<T>::real>) + row + 8 + "
+    "(pivot ? live * row : 0));")
+
+
+def header_exchange_rule(text=None):
+    """The body of the header's ``chain_exchange_bytes``, comments dropped
+    and whitespace collapsed."""
+    text = HEADER.read_text() if text is None else text
+    m = re.search(r"chain_exchange_bytes\([^)]*\)\s*\{(.*?)\n\}", text, re.S)
+    return " ".join(re.sub(r"//[^\n]*", "", m.group(1)).split()) if m else None
+
+
+def exchange_bytes(dtype_name, M, rows, C, B, kk, pivot):
+    """What a chain CTA of a cluster of C receives in step kk of a block of
+    M slab rows, ``rows`` per CTA, slab width B: every CTA's candidate, with
+    pivoting the candidate row of every CTA holding a slab row >= kk, and
+    row kk with its (perm id, origin)."""
+    holders = -(-M // rows)
+    live = min(holders, C) - kk // rows
+    row = B * ITEM_BYTES[dtype_name]
+    return C * CAND_BYTES[dtype_name] + row + 8 + (live * row if pivot else 0)

@@ -1799,7 +1799,8 @@ def test_lookahead_counters_on_every_wrapper_and_in_an_lu(monkeypatch):
         shapes.append(tuple(P.shape))
         return real(P, *args, **kw)
 
-    for attr in ("launches", "grid_route_launches", "lookahead_chain_launches"):
+    for attr in ("launches", "grid_route_launches", "lookahead_chain_launches",
+                 "mbarrier_exchange_launches"):
         setattr(spy, attr, 0)
     spy.chain_launches_by_plan = {}
     monkeypatch.setattr(panel_mod, "panel_factor_cuda", spy)
@@ -1814,6 +1815,114 @@ def test_lookahead_counters_on_every_wrapper_and_in_an_lu(monkeypatch):
         assert shapes, "the lu called no panel kernel"
         assert all(p["route"] == "cluster" and p["cluster"] > 1 for p in plans), (shapes, plans)
         assert spy.lookahead_chain_launches - n0 == sum(p["blocks"] for p in plans), shapes
+
+
+# ---- the chain's exchange on per-parity mbarriers --------------------------
+#
+# On a cluster of C > 1 panel_chain_kernel's step waits on its CTA's mbarrier
+# until the bytes that chain_exchange_bytes counts have landed (a count that
+# disagrees traps).  These panels put the count where it is easiest to get
+# wrong: heights that are no multiple of C x rows (at 45 rows and C = 16 one
+# CTA holds no row), CTAs that run out of live rows inside a block, every b
+# and C, every element type, with and without pivoting; every result bitwise.
+
+_EXCHANGE_SHAPES = ((45, 40), (301, 100))
+
+
+def _exchange_panel(m, w, dtype, pivot, seed):
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn(m, w, generator=g, dtype=dtype)
+    if not pivot:
+        A += m * torch.eye(m, w, dtype=dtype)
+    A[:, 7] = 0
+    return A.cuda()
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8, 16])
+@pytest.mark.parametrize("block", [8, 16, 32, 64])
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64,
+                                   torch.complex128])
+def test_mbarrier_exchange_on_ragged_heights(dtype, pivot, block, cluster):
+    need_cuda()
+    fn = _factor_for(dtype)
+    for m, w in _EXCHANGE_SHAPES:
+        A = _exchange_panel(m, w, dtype, pivot, 61)
+        plan = panel_plan(m, w, dtype, block=block, cluster=cluster)
+        assert plan["route"] == "cluster" and plan["cluster"] == cluster, plan
+        n0 = fn.mbarrier_exchange_launches
+        assert _check_chain(A, pivot, block, cluster) == plan["blocks"]
+        assert fn.mbarrier_exchange_launches - n0 == plan["blocks"]
+
+
+@pytest.mark.parametrize("where", ["first", "boundary", "last_row"])
+@pytest.mark.parametrize("cluster", [2, 16])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_mbarrier_exchange_complex_nan_candidate_on_a_ragged_height(dtype, cluster, where):
+    """A NaN candidate (pivot row m - 1, published after the exchange behind
+    a cluster barrier) on a height that is no multiple of C x rows."""
+    need_cuda()
+    m, w = 301, 100
+    rows = -(-m // cluster)
+    A = _exchange_panel(m, w, dtype, True, 62).cpu()
+    row = {"first": 3, "boundary": rows - 1, "last_row": m - 1}[where]
+    A[row, 20] = complex(float("nan"), 1.0)
+    _check_chain(A.cuda(), True, 16, cluster)
+
+
+@pytest.mark.parametrize("ofs", [0, 1000, 3968])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64,
+                                   torch.complex128])
+def test_mbarrier_exchange_offset_kernel(dtype, ofs):
+    """The offset kernel (the panel of tp_lu) at 4096 x 128: bitwise against
+    its plain version, every chain launch of a C > 1 plan on the mbarrier
+    exchange (at ofs 3968, 128 live rows, one CTA: none)."""
+    need_cuda()
+    H, w = 4096, 128
+    g = torch.Generator().manual_seed(63)
+    A = torch.randn(H, w, generator=g, dtype=dtype).cuda()
+    cplx = dtype.is_complex
+    plain = offset_panel_lu_cabs1 if cplx else offset_panel_lu
+    fn = offset_panel_factor_c64_cuda if cplx else offset_panel_factor_cuda
+    f, piv, perm, info = plain(A, ofs, True)
+    P = A.clone()
+    n0 = fn.mbarrier_exchange_launches
+    kpiv, kperm, kinfo = fn(P, ofs, True)
+    torch.cuda.synchronize()
+    assert torch.equal(kpiv, piv) and torch.equal(kperm, perm) and int(kinfo) == int(info)
+    if cplx:
+        assert _same_bits_nan(torch.view_as_real(P), torch.view_as_real(f))
+    else:
+        assert _same_bits_nan(P, f)
+    plan = panel_plan(H, w, dtype, ofs=ofs)
+    want = plan["blocks"] if plan["cluster"] > 1 else 0
+    assert fn.mbarrier_exchange_launches - n0 == want
+    assert (want == 0) == (ofs == 3968)
+
+
+def test_mbarrier_exchange_counter_in_an_lu_and_on_one_cta():
+    """`.mbarrier_exchange_launches` counts every chain launch of a C > 1
+    plan: in an eager lu at n = 4096, each panel's chain launches (the
+    look-ahead count and the launches by plan agree); none on a C = 1
+    panel."""
+    need_cuda()
+    g = torch.Generator().manual_seed(64)
+    fn = panel_factor_cuda
+    n0 = fn.mbarrier_exchange_launches
+    fn(torch.randn(1536, 512, generator=g).cuda(), True, block=32, cluster=1)
+    torch.cuda.synchronize()
+    assert fn.mbarrier_exchange_launches == n0
+    M = torch.randn(4096, 4096, generator=g).cuda()
+    warmup.clear_caches()  # eager calls, through the wrappers
+    by_plan = dict(fn.chain_launches_by_plan)
+    n0, l0 = fn.mbarrier_exchange_launches, fn.lookahead_chain_launches
+    rt.lu(M, device="cuda")
+    torch.cuda.synchronize()
+    grown = {k: v - by_plan.get(k, 0) for k, v in fn.chain_launches_by_plan.items()
+             if v > by_plan.get(k, 0)}
+    assert grown and all(c > 1 for _, _, c in grown)
+    n = fn.mbarrier_exchange_launches - n0
+    assert n == fn.lookahead_chain_launches - l0 == sum(grown.values())
 
 
 # ---- panel_boundary_precision='bf16x3' ---------------------------------------

@@ -28,6 +28,18 @@ import torch
 import recursivefactorization_jl_tpu as rf
 import recursivefactorization_jl_tpu_torch as rt
 from lookahead_cases import KINDS, lookahead_panel, scaled_rows
+from plan_rules import (
+    AUTO_PLANS,
+    CAND_BYTES,
+    EXCHANGE_RULE,
+    HEADER,
+    ITEM_BYTES,
+    WIDTH,
+    exchange_bytes,
+    header_exchange_rule,
+    rule_of,
+    rule_plan,
+)
 from recursivefactorization_jl_tpu_torch.ops import panel as panel_mod
 from recursivefactorization_jl_tpu_torch.ops.unblocked import (
     offset_panel_lu,
@@ -516,6 +528,115 @@ def test_complex_lookahead_order_equals_unblocked_lu_cabs1(b, dtype, name, pivot
         assert (got[1][3:] == m - 1).all() and (got[1][:3] != m - 1).all()
 
 
+# ---- the chain's exchange: the bytes each CTA receives in a step -----------
+#
+# panel_chain_kernel arms each CTA's mbarrier of the step's parity with
+# chain_exchange_bytes (tests/plan_rules.py mirrors it); the emulation below
+# replays who sends what in each step (the candidate search over the CTA's
+# rows, warp 0's candidate and row, the owner's row gk, each row in the
+# kernel's 16-byte pieces by lane) and counts what each CTA receives.
+
+INT_MAX = 2**31 - 1
+
+
+def _row_bytes_by_receiver(dtype_name, B, C):
+    """What each CTA receives when one CTA sends one row (send_row: V pieces
+    of 16 bytes; lane l sends piece l % V to the CTAs l / V, l / V + DV, ...
+    when V <= 32, else pieces l, l + 32, ... to every CTA)."""
+    V = B * ITEM_BYTES[dtype_name] // 16
+    NCH, DV = (V // 32, 1) if V > 32 else (1, 32 // V)
+    got = [0] * C
+    for lane in range(32):
+        for _ in range(NCH):
+            for d in range(0 if V > 32 else lane // V, C, DV):
+                got[d] += 16
+    return got
+
+
+def _sent_in_a_block(dtype_name, mags, nb, C, B, pivot):
+    """Per step of a block with M = len(mags) slab rows (the magnitudes of
+    a step's column: the search ranks them as the kernel's `better` does,
+    a NaN first, then the largest, then the first row) on a cluster of C,
+    the bytes each CTA receives."""
+    M = len(mags)
+    rows = -(-M // C)
+    row = _row_bytes_by_receiver(dtype_name, B, C)
+    cand = CAND_BYTES[dtype_name]
+    steps = []
+    for kk in range(nb):
+        got = [0] * C
+        for d in range(C):
+            s0 = d * rows
+            seg = mags[max(kk, s0):min(M, s0 + rows)]
+            qc = -1
+            if pivot and seg.size and (np.isnan(seg) | (seg > -1)).any():
+                nan = np.flatnonzero(np.isnan(seg))
+                qc = max(kk, s0) - s0 + int(nan[0] if nan.size else np.argmax(seg))
+            qk = kk - s0 if d == kk // rows else -1
+            for lane in range(min(C, 32)):  # warp 0: the candidate, to every CTA
+                got[lane] += cand
+            if qc >= 0:  # its row
+                got = [g + r for g, r in zip(got, row)]
+            if qk >= 0:  # row gk and its (perm id, origin): warp 0 when qc == qk, else
+                got = [g + r + 8 for g, r in zip(got, row)]  # the last warp
+        steps.append(got)
+    return steps
+
+
+def _check_exchange(dtype_name, m, w, b, C, pivot, rng):
+    """Every block of an (m, w) panel on plan (b, C): the rule equals what
+    every CTA receives at every step."""
+    steps = min(m, w)
+    B = b if b < w else 1 << max(3, (w - 1).bit_length())
+    for k0 in range(0, steps, b):
+        M = m - k0
+        mags = np.abs(rng.standard_normal(M))
+        mags[rng.integers(0, M, 3)] = 0.0
+        mags[rng.integers(0, M, 2)] = mags[0]  # ties
+        if rng.random() < 0.5:
+            mags[rng.integers(0, M)] = np.nan
+        rows = -(-M // C)
+        nb = min(b, steps - k0)
+        for kk, got in enumerate(_sent_in_a_block(dtype_name, mags, nb, C, B, pivot)):
+            want = exchange_bytes(dtype_name, M, rows, C, B, kk, pivot)
+            assert got == [want] * C, (dtype_name, m, w, b, C, pivot, k0, kk, got, want)
+
+
+def test_exchange_byte_rule_is_the_headers():
+    """csrc/panel_cluster.cuh's chain_exchange_bytes is the rule that
+    tests/plan_rules.py mirrors, and the chain kernel arms its barrier with it."""
+    assert header_exchange_rule() == EXCHANGE_RULE
+    text = HEADER.read_text()
+    assert "mbar_arrive_tx(bar, chain_exchange_bytes<T>(M, R_, C, B, kk, p.pivot != 0))" in text
+
+
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("dtype_name", sorted(ITEM_BYTES))
+def test_exchange_bytes_equal_what_the_ctas_send_on_ragged_heights(dtype_name, pivot):
+    """Heights that are no multiple of C x rows (some CTAs hold fewer rows,
+    at 45 rows and C = 16 one holds none), where CTAs run out of live rows
+    partway through a block, at every b and C of the cluster route."""
+    rng = np.random.default_rng([4, len(dtype_name), pivot])
+    for m, w in ((45, 40), (301, 100), (1001, 100)):
+        for b in (8, 16, 32, 64):
+            for C in (2, 4, 8, 16):
+                _check_exchange(dtype_name, m, w, b, C, pivot, rng)
+
+
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("dtype_name,n", [("float32", 4096), ("float32", 8192),
+                                          ("float64", 4096), ("complex64", 4096),
+                                          ("complex128", 4096)])
+def test_exchange_bytes_equal_what_the_ctas_send_at_the_cells_plans(dtype_name, n, pivot):
+    """Every panel of a blocked lu at n (n - 512 k live rows, 512 columns)
+    on its auto plan: the pinned one (tests/plan_rules.py), the header's
+    rule where none is pinned."""
+    rng = np.random.default_rng([5, n, len(dtype_name), pivot])
+    for m in range(n, 0, -WIDTH):
+        b, C = AUTO_PLANS[dtype_name].get(m) or rule_plan(rule_of(dtype_name), m)
+        _check_exchange(dtype_name, m, WIDTH, b, C, pivot, rng)
+
+
 def test_panel_plan_takes_complex_dtypes_and_refuses_bad_requests(monkeypatch):
     """panel_plan hands complex dtypes to csrc/panel_lu_c64.cu's plan (with
     the element's byte size), with an offset too (its offset form), and
@@ -598,7 +719,9 @@ def test_ctypes_signatures_match_the_c_entry_points():
     kernel and the chain to force and host counts of its update and grid
     chain launches, its plan the chain too, its update alone the three row
     strides, nb and the kernel to force, the update's plan the shape
-    alone."""
+    alone.  Every entry point of a panel_chain_kernel launch takes host
+    counts of the launches that took the look-ahead and of those that took
+    the mbarrier exchange, in that order."""
     import ctypes
     import re
 
@@ -620,6 +743,17 @@ def test_ctypes_signatures_match_the_c_entry_points():
     for name, params, lib in (
             ("rf_panel_lu_shadow_f32", ("int micro", "int b", "int C", "int chain",
                                         "int* grids"), "panel_lu_micro"),
+            # the chain launches' host counts: look-ahead, then mbarrier exchange
+            ("rf_panel_lu_f32", ("int* lookaheads, int* mbarriers, int device",), "panel_lu"),
+            ("rf_offset_panel_lu_f64", ("int ofs", "int* lookaheads, int* mbarriers"),
+             "panel_lu"),
+            ("rf_panel_lu_c128", ("int* lookaheads, int* mbarriers, int device",),
+             "panel_lu_c64"),
+            ("rf_offset_panel_lu_c64", ("int* lookaheads, int* mbarriers",), "panel_lu_c64"),
+            ("rf_panel_lu_basic_f64", ("int* grids, int* lookaheads, int* mbarriers",),
+             "panel_lu_micro"),
+            ("rf_panel_lu_bf16x3_f32", ("int* grids, int* lookaheads, int* mbarriers",),
+             "panel_lu"),
             ("rf_panel_lu_micro_plan", ("int micro", "int chain", "int* out"), "panel_lu_micro"),
             ("rf_panel_lu_noswap_f64", ("int live", "int b", "int C"), "panel_lu_noswap"),
             ("rf_panel_lu_bf16x3_f32", ("int b", "int C", "int simple", "int chain",
@@ -630,7 +764,8 @@ def test_ctypes_signatures_match_the_c_entry_points():
             ("rf_panel_update_bf16x3_plan", ("int rows", "int cols", "int nb", "int* out"),
              "panel_lu")):
         src = _kernels.SOURCES[lib]
-        decl = re.search(r"\b" + name + r"\(([^)]*)\)", src.read_text()).group(1)
+        decl = " ".join(re.search(r"\b" + name + r"\(([^)]*)\)", src.read_text()).group(1)
+                        .split())
         assert all(p in decl for p in params), (name, decl)
     headers = "".join(h.read_text() for h in _kernels.HEADERS)
     for name, fns in _kernels.SIGNATURES.items():
