@@ -36,9 +36,7 @@ Phases, JSON lines each:
             (the generic route: float64 factors and solution on the float64
             panel kernel, pivots, perm, info and factors equal to those of
             its float64 copy);
-4. timing   CUDA-event times: the barrier microbenchmark (ns per
-            grid.sync(), cluster.sync(), __syncthreads and DSMEM candidate
-            exchange), the panel kernel per panel shape in turns beside
+4. timing   CUDA-event times: the panel kernel per panel shape in turns beside
             the ``shadow`` kernel and torch.linalg.lu_factor_ex, factor
             and factor+solve at 1536/4096 beside the library (+ lu_solve);
             with ``--sweep`` the width/route/tail sweep behind the routing
@@ -51,21 +49,20 @@ The batched small-matrix path adds, in the same order:
 2b. batched_kernel  the swap kernel on each shape's own route (warp,
             block or tile, ops/batched_kernel.py lu_route) and on the tile
             route, the noswap kernel on its own route (warp or block,
-            noswap_route), on the tile route and (n <= 32) on the block
-            route, against their plain versions: f32/f64, n = 16/64/128,
-            the routes' boundaries (1, 8, 17, 31, 32, 33, 127, 32 x 40,
-            40 x 32, 20 x 32), tall and wide shapes, batches of 1, 3, 37,
-            1000 and 1001, pivot on/off, zeroed columns, exact ties, inf
-            and NaN in a pivot row, a NaN candidate after row m - 1 won the
-            first step (the noswap mode picks it again): ipiv, perm, info
-            equal, one launch on the route, factors and solutions bitwise
-            equal (NaN for NaN); the solve kernel on its shape's route
-            (warp at n <= 32, wide up to 128) and forced onto the block
-            route: n = 1, 8, 15, 16, 17, 31, 32, 33, 48, 64, 96, 127, 128,
-            batches of 1, 3, 37, 1000 and 1001, no row order, perm or ipiv,
-            a vector, one and five right-hand sides, a zero on U's
-            diagonal: solutions bitwise equal NaN for NaN, one launch on
-            the route; forced routes that do not take the shape raise;
+            noswap_route) and (n <= 32) on the block route, against their
+            plain versions: f32/f64, n = 16/64/128, the routes' boundaries
+            (1, 8, 17, 31, 32, 33, 127, 32 x 40, 40 x 32, 20 x 32), tall
+            and wide shapes, batches of 1, 3, 37, 1000 and 1001, pivot on/off,
+            zeroed columns, exact ties, inf and NaN in a pivot row, a NaN
+            candidate after row m - 1 won the first step (the noswap mode picks
+            it again): ipiv, perm, info equal, one launch on the route, factors
+            and solutions bitwise equal (NaN for NaN); the solve kernel on its
+            shape's route (warp at n <= 32, wide up to 128): n = 1, 8, 15, 16,
+            17, 31, 32, 33, 48, 64, 96, 127, 128, batches of 1, 3, 37, 1000 and
+            1001, no row order, perm or ipiv, a vector, one and five right-hand
+            sides, a zero on U's diagonal: solutions bitwise equal NaN for NaN,
+            one launch on the route; forced routes that do not take the shape
+            raise;
 3b. batched the four public functions at B = 10 000, n = 16 (warp
             routes), 64 and 128 (block routes, the solve's wide route),
             f32, plus the noswap kernel as its caller reaches it, and a
@@ -78,9 +75,9 @@ The batched small-matrix path adds, in the same order:
             at its first differing step), info exact on zeroed columns, one
             launch per call on the shape's route (swap, noswap and solve),
             no TF32 on the library-route solve;
-4b. timing  the swap and noswap kernels on their own routes and on the
-            tile route, the solve on its own route and on the block route,
-            and factor+solve at n = 8/16/24/32/48/64/96/128, B = 10 000, in
+4b. timing  the swap kernel on its own route and on the tile route, the
+            noswap kernel and the solve on their own routes, and
+            factor+solve at n = 8/16/24/32/48/64/96/128, B = 10 000, in
             turns beside torch.linalg.lu_factor_ex and lu_solve; f64 at
             n = 64 (factor, noswap, the solve with 1 and 8 right-hand
             sides) and the solve at n = 128; the tall batch (device times;
@@ -287,7 +284,7 @@ utils.warmup.warmup) add:
             info, x; NaN for NaN) on each input and on a second one, one
             replay per program and call, info, the residual gate,
             SingularMatrixError under check, the panel chain launches by
-            plan (``.chain_launches_by_plan``, zeroed before the key's
+            plan (``.counts.chain_launches_by_plan``, zeroed before the key's
             eager calls: each on ``panel_plan``'s own plan of a live
             height); the batched perm and ipiv
             pairs at 10 000 x 16 and 10 000 x 64 captured by
@@ -388,18 +385,14 @@ BATCHED_KERNELS = {
     "batched_lu_swap": ("recursivefactorization_jl_tpu_torch/csrc/batched_lu.cu",
                         "recursivefactorization_jl_tpu/ops/batched_kernel.py:78"),
     # the noswap mode's routes (ops/batched_kernel.py noswap_route): the warp
-    # and block kernels in their noswap mode, the original tile only when forced
+    # and block kernels in their noswap mode
     "batched_lu_noswap_warp": ("recursivefactorization_jl_tpu_torch/csrc/batched_lu.cu",
                                "recursivefactorization_jl_tpu/ops/batched_kernel.py:78"),
     "batched_lu_noswap_block": ("recursivefactorization_jl_tpu_torch/csrc/batched_lu.cu",
                                 "recursivefactorization_jl_tpu/ops/batched_kernel.py:78"),
-    "batched_lu_noswap": ("recursivefactorization_jl_tpu_torch/csrc/batched_lu.cu",
-                          "recursivefactorization_jl_tpu/ops/batched_kernel.py:78"),
-    # the solve's three routes (ops/batched_kernel.py solve_route): the warp
+    # the solve's two routes (ops/batched_kernel.py solve_route): the warp
     # per matrix (n <= 32), the warp with rows l + 32 r per lane (32 < n <=
-    # 128), the original block per matrix (only when forced)
-    "batched_solve": ("recursivefactorization_jl_tpu_torch/csrc/batched_solve.cu",
-                      "recursivefactorization_jl_tpu/ops/batched_kernel.py:415"),
+    # 128)
     "batched_solve_warp": ("recursivefactorization_jl_tpu_torch/csrc/batched_solve.cu",
                            "recursivefactorization_jl_tpu/ops/batched_kernel.py:415"),
     "batched_solve_wide": ("recursivefactorization_jl_tpu_torch/csrc/batched_solve.cu",
@@ -409,9 +402,8 @@ OFFSET_KERNEL = ("recursivefactorization_jl_tpu_torch/csrc/panel_lu.cu",
                  "recursivefactorization_jl_tpu/ops/panel.py:1278")
 BATCH_B = 10000
 ROUTE_KERNEL = {"warp": "batched_lu_warp", "block": "batched_lu_block", "tile": "batched_lu_swap"}
-NOSWAP_KERNEL = {"warp": "batched_lu_noswap_warp", "block": "batched_lu_noswap_block",
-                 "tile": "batched_lu_noswap"}
-SOLVE_KERNEL = {"warp": "batched_solve_warp", "block": "batched_solve", "wide": "batched_solve_wide"}
+NOSWAP_KERNEL = {"warp": "batched_lu_noswap_warp", "block": "batched_lu_noswap_block"}
+SOLVE_KERNEL = {"warp": "batched_solve_warp", "wide": "batched_solve_wide"}
 # the tall batch that takes the tile route on the main path
 TALL_B, TALL_SHAPE = 1000, (300, 24)
 # the tp_ranks phase: D = 2 gloo ranks on the one card
@@ -557,6 +549,7 @@ def tp_rank(rank, world, port, out):
             offset_panel_factor_cuda,
             panel_factor_c64_cuda,
             panel_factor_cuda,
+            reset_counts,
         )
 
         torch.cuda.set_device(0)
@@ -572,14 +565,13 @@ def tp_rank(rank, world, port, out):
             M, v = tp_ranks_input(dt.is_complex)
             A = torch.tensor(M, device="cuda").to(dt)
             b = torch.tensor(v, device="cuda").to(dt)
-            for wr in wrappers.values():
-                wr.launches = 0
+            reset_counts()
             t0 = time.perf_counter()
             F = rt.tp_lu(A, mesh, "tp", TP_RANKS_W)
             x = rt.tp_lu_solve(F, b, mesh, "tp", TP_RANKS_W)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {k: wr.launches for k, wr in wrappers.items()}
+            launches = {k: wr.counts.launches for k, wr in wrappers.items()}
             n = TP_RANKS_N
             wd = torch.complex128 if dt.is_complex else torch.float64
             r = float((F.L.to(wd) @ F.U.to(wd) - A.to(wd)[F.p.long()]).abs().max())
@@ -1002,10 +994,10 @@ def bf16x3_kernel_phase(dev, gen):
             runs = {}
             for upd in ("tiled", "simple"):
                 X = big.clone()
-                k0 = panel_update_bf16x3_cuda.launches
+                k0 = panel_update_bf16x3_cuda.counts.launches
                 panel_update_bf16x3_cuda(*views(X), _update=upd)
                 torch.cuda.synchronize()
-                if panel_update_bf16x3_cuda.launches != k0 + 1:
+                if panel_update_bf16x3_cuda.counts.launches != k0 + 1:
                     fail("the bf16x3 update's launch count")
                 if not torch.equal(X[outside], big[outside]):
                     fail(f"the bf16x3 update wrote outside C ({upd})")
@@ -1054,12 +1046,12 @@ def bf16x3_kernel_phase(dev, gen):
             else:
                 Q = torch.empty(m, lda, device=dev)[:, col:col + w]
                 Q.copy_(A)
-            u0 = panel_factor_cuda.bf16x3_update_launches
-            g0 = panel_factor_cuda.grid_block_launches
+            u0 = panel_factor_cuda.counts.bf16x3_update_launches
+            g0 = panel_factor_cuda.counts.grid_block_launches
             got = panel_factor_cuda(Q, pivot, block=b, precision="bf16x3", _update=upd)
             torch.cuda.synchronize()
-            outs[upd] = (Q, *got, panel_factor_cuda.bf16x3_update_launches - u0,
-                         panel_factor_cuda.grid_block_launches - g0)
+            outs[upd] = (Q, *got, panel_factor_cuda.counts.bf16x3_update_launches - u0,
+                         panel_factor_cuda.counts.grid_block_launches - g0)
         first = outs[updates[0]]
         P, piv, perm, info, updates_n, grid_blocks = first
         f, rpiv, rperm, rinfo = micro_blocked_lu(A, pivot, b, "bf16x3")
@@ -1149,10 +1141,10 @@ def bf16x3_kernel_phase(dev, gen):
         outs = {}
         for chain in ("auto", "grid"):
             Q = A.clone()
-            g0 = panel_factor_cuda.grid_block_launches
+            g0 = panel_factor_cuda.counts.grid_block_launches
             got = panel_factor_cuda(Q, True, block=BF16X3_MICRO, precision="bf16x3", _chain=chain)
             torch.cuda.synchronize()
-            outs[chain] = (Q, *got, panel_factor_cuda.grid_block_launches - g0)
+            outs[chain] = (Q, *got, panel_factor_cuda.counts.grid_block_launches - g0)
         plan = bf16x3_plan(m, w, BF16X3_MICRO, _chain="grid")
         same = all(torch.equal(i32(x), i32(y)) for x, y in zip(outs["auto"][:4], outs["grid"][:4]))
         err = float((outs["grid"][0] - outs["auto"][0]).abs().max())
@@ -1222,6 +1214,7 @@ def bf16x3_main_phase(rt, dev, TF32Watch, resid_gate, solve_resid):
         bf16x3_plan,
         panel_factor_cuda,
         panel_update_bf16x3_cuda,
+        reset_counts,
     )
 
     rng = np.random.default_rng(12)
@@ -1263,23 +1256,20 @@ def bf16x3_main_phase(rt, dev, TF32Watch, resid_gate, solve_resid):
         for schur in ("float32", "bf16x3") if name != "zero_col" and not big else ("float32",):
             knob = rt.LUConfig(panel_boundary_precision="bf16x3", schur_precision=schur)
             watch = TF32Watch()
-            panel_factor_cuda.launches = panel_factor_cuda.grid_route_launches = 0
-            panel_factor_cuda.bf16x3_launches = panel_factor_cuda.bf16x3_update_launches = 0
-            panel_factor_cuda.bf16x3_simple_update_launches = 0
-            panel_factor_cuda.grid_block_launches = 0
-            panel_update_bf16x3_cuda.launches = 0
+            reset_counts()
             t0 = time.perf_counter()
             with watch:
                 F = rt.lu(A, check=False, config=knob)
                 x = rt.lu_solve(F, v)
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            got = dict(panel_launches=panel_factor_cuda.launches,
-                       bf16x3_panel_launches=panel_factor_cuda.bf16x3_launches,
-                       bf16x3_update_launches=panel_factor_cuda.bf16x3_update_launches,
-                       bf16x3_simple_update_launches=panel_factor_cuda.bf16x3_simple_update_launches,
-                       grid_route_launches=panel_factor_cuda.grid_route_launches,
-                       grid_block_launches=panel_factor_cuda.grid_block_launches)
+            got = dict(panel_launches=panel_factor_cuda.counts.launches,
+                       bf16x3_panel_launches=panel_factor_cuda.counts.bf16x3_launches,
+                       bf16x3_update_launches=panel_factor_cuda.counts.bf16x3_update_launches,
+                       bf16x3_simple_update_launches=(
+                           panel_factor_cuda.counts.bf16x3_simple_update_launches),
+                       grid_route_launches=panel_factor_cuda.counts.grid_route_launches,
+                       grid_block_launches=panel_factor_cuda.counts.grid_block_launches)
             counts[(n, name, schur)] = got
             r, g = lu_resid(A, F)
             rec = dict(what="bf16x3", n=n, input=name, schur_precision=schur, route=route,
@@ -1630,6 +1620,7 @@ def graph_phase(rt, dev, card, round_robin, tp_mesh, dp_mesh):
         bf16x3_plan,
         panel_factor_cuda,
         panel_plan,
+        reset_counts,
     )
     from recursivefactorization_jl_tpu_torch.parallel import batched as batched_mod
     from recursivefactorization_jl_tpu_torch.utils import graphs, warmup
@@ -1764,7 +1755,7 @@ def graph_phase(rt, dev, card, round_robin, tp_mesh, dp_mesh):
 
         rec = dict(key=name, shape=list(shape), dtype=dname, config=fields,
                    inputs=list(inputs), card=card)
-        panel_factor_cuda.chain_launches_by_plan = {}
+        reset_counts()
         eager = [no_sync(lambda A=A: call(A)) for A in mats]
         rec["eager_no_sync"] = True
         before = set(graphs.programs())
@@ -1794,7 +1785,7 @@ def graph_phase(rt, dev, card, round_robin, tp_mesh, dp_mesh):
             rec["plan"] = panel_plan(*shape, torch.float32)
         # the chains of the eager calls and of the capture, by plan; on the
         # default schedule each is the launcher's plan of a live height
-        chains = panel_factor_cuda.chain_launches_by_plan
+        chains = panel_factor_cuda.counts.chain_launches_by_plan
         rec["chain_launches_by_plan"] = {f"{d}_b{b}_C{c}": k for (d, b, c), k in chains.items()}
         real = dname in ("float32", "float64")
         heights = range(shape[0], 0, -512) if square and real and not fields else ()
@@ -2230,6 +2221,7 @@ def main(argv):
         micro_plan,
         noswap_plan,
         panel_plan,
+        reset_counts,
     )
     from recursivefactorization_jl_tpu_torch.ops import batched_kernel as bk
     from recursivefactorization_jl_tpu_torch.ops.unblocked import (
@@ -2410,7 +2402,7 @@ def main(argv):
             W = A.clone()
             P = W if view is None else view(W)
             plan = panel_plan(*P.shape, P.dtype, block=block, cluster=cluster)
-            g0 = panel_factor_cuda.grid_route_launches
+            g0 = panel_factor_cuda.counts.grid_route_launches
             piv_k, perm_k, info_k = panel_factor_cuda(P, pivot, block=block, cluster=cluster)
             torch.cuda.synchronize()
             same = {
@@ -2418,7 +2410,7 @@ def main(argv):
                 "perm_equal": bool(torch.equal(perm_k, perm_p)),
                 "info_equal": int(info_k) == int(info_p),
                 "bitwise": bool(torch.equal(bits(P), bits(f_p))),
-                "route_as_expected": (panel_factor_cuda.grid_route_launches - g0
+                "route_as_expected": (panel_factor_cuda.counts.grid_route_launches - g0
                                       == int(grid_route)) and plan["route"] == (
                                           "grid" if grid_route else "cluster"),
             }
@@ -2515,7 +2507,7 @@ def main(argv):
             P = W if view is None else view(W)
             m, w = P.shape
             plan = panel_plan(m, w, P.dtype, block=block, cluster=cluster)
-            g0 = panel_factor_c64_cuda.grid_route_launches
+            g0 = panel_factor_c64_cuda.counts.grid_route_launches
             piv_k, perm_k, info_k = panel_factor_c64_cuda(P, pivot, block=block, cluster=cluster)
             torch.cuda.synchronize()
             same = {
@@ -2523,7 +2515,7 @@ def main(argv):
                 "perm_equal": bool(torch.equal(perm_k, perm_p)),
                 "info_equal": int(info_k) == int(info_p),
                 "bitwise": bool(torch.equal(cbits(P), cbits(f_p))),
-                "route_as_expected": (panel_factor_c64_cuda.grid_route_launches - g0
+                "route_as_expected": (panel_factor_c64_cuda.counts.grid_route_launches - g0
                                       == int(grid_route)) and plan["route"] == (
                                           "grid" if grid_route else "cluster"),
             }
@@ -2660,7 +2652,7 @@ def main(argv):
                 plan = micro_plan(m, w, A.dtype, micro, kern.rsplit("_", 1)[1], block=block,
                                   cluster=cluster, _chain=chain)
                 P = A.clone()
-                g0 = (wrapper.grid_route_launches, wrapper.grid_block_launches)
+                g0 = (wrapper.counts.grid_route_launches, wrapper.counts.grid_block_launches)
                 piv_k, perm_k, info_k = wrapper(P, pivot, micro, block=block, cluster=cluster,
                                                 _chain=chain)
                 torch.cuda.synchronize()
@@ -2670,10 +2662,10 @@ def main(argv):
                     "perm_equal": bool(torch.equal(perm_k, perm_p)),
                     "info_equal": int(info_k) == int(info_p),
                     "bitwise": same_bits_nan(P, f_p),
-                    "route_as_expected": (wrapper.grid_route_launches - g0[0] == int(grid_route)
-                                          and plan["route"] == ("grid" if grid_route
-                                                                else "cluster")),
-                    "grid_blocks_as_planned": wrapper.grid_block_launches - g0[1] == (
+                    "route_as_expected": (
+                        wrapper.counts.grid_route_launches - g0[0] == int(grid_route)
+                        and plan["route"] == ("grid" if grid_route else "cluster")),
+                    "grid_blocks_as_planned": wrapper.counts.grid_block_launches - g0[1] == (
                         0 if grid_route else plan["grid_blocks"]),
                 }
                 if chain == "grid":
@@ -2753,7 +2745,7 @@ def main(argv):
             grid_route = plan["route"] == "grid"
             key = "panel_lu_noswap_grid" if grid_route else "panel_lu_noswap"
             P = A.clone()
-            g0 = panel_factor_noswap_cuda.grid_route_launches
+            g0 = panel_factor_noswap_cuda.counts.grid_route_launches
             prow_k, used_k, info_k = panel_factor_noswap_cuda(P, used0, pivot, live=live,
                                                               block=block, cluster=cluster)
             torch.cuda.synchronize()
@@ -2764,7 +2756,7 @@ def main(argv):
                 "bitwise": same_bits_nan(P, f_p),
                 "taken_rows_untouched": same_bits_nan(P[used0.bool()], A[used0.bool()]),
                 "used_count": int(used_k.sum()) == min(m, taken + min(m, w)),
-                "route_as_expected": (panel_factor_noswap_cuda.grid_route_launches - g0
+                "route_as_expected": (panel_factor_noswap_cuda.counts.grid_route_launches - g0
                                       == int(grid_route)) and grid_route == (block < 0),
             }
             if what.startswith("nan") and pivot:
@@ -2974,7 +2966,7 @@ def main(argv):
             f_p, piv_p, perm_p, info_p = offset_panel_lu(A, ofs, pivot)
             P = A.clone()
             plan = panel_plan(*P.shape, P.dtype, ofs=ofs, block=block, cluster=cluster)
-            g0 = offset_panel_factor_cuda.grid_route_launches
+            g0 = offset_panel_factor_cuda.counts.grid_route_launches
             piv_k, perm_k, info_k = offset_panel_factor_cuda(P, ofs, pivot, block=block,
                                                              cluster=cluster)
             torch.cuda.synchronize()
@@ -2984,7 +2976,7 @@ def main(argv):
                 "info_equal": int(info_k) == int(info_p),
                 "bitwise": bool(torch.equal(bits(P), bits(f_p))),
                 "rows_above_untouched": bool(torch.equal(bits(P[:ofs]), bits(A[:ofs]))),
-                "route_as_expected": (offset_panel_factor_cuda.grid_route_launches - g0
+                "route_as_expected": (offset_panel_factor_cuda.counts.grid_route_launches - g0
                                       == int(grid_route)) and plan["route"] == (
                                           "grid" if grid_route else "cluster"),
             }
@@ -3057,7 +3049,7 @@ def main(argv):
                     for route, block in (("cluster", 0), ("grid", -1)):
                         P = A.clone()
                         plan = panel_plan(H_c, w_c, dt, ofs=ofs, block=block)
-                        g0 = offset_panel_factor_c64_cuda.grid_route_launches
+                        g0 = offset_panel_factor_c64_cuda.counts.grid_route_launches
                         piv_k, perm_k, info_k = offset_panel_factor_c64_cuda(P, ofs, pivot,
                                                                              block=block)
                         torch.cuda.synchronize()
@@ -3069,7 +3061,7 @@ def main(argv):
                             "rows_above_untouched": bool(torch.equal(cbits(P[:ofs]),
                                                                      cbits(A[:ofs]))),
                             "route_as_expected": plan["route"] == route and (
-                                offset_panel_factor_c64_cuda.grid_route_launches - g0
+                                offset_panel_factor_c64_cuda.counts.grid_route_launches - g0
                                 == int(route == "grid")),
                         }
                         if name == "zero_col":
@@ -3187,11 +3179,10 @@ def main(argv):
                 own = bk.lu_route(m, n)
                 # every shape on its own route and on the tile route (the
                 # original design), square ones on the noswap kernel too: its own
-                # route, the tile route and (n <= 32) the block route forced
+                # route and (n <= 32) the block route forced
                 runs = [own] + (["tile"] if own != "tile" else [])
                 if m == n:
-                    runs += ["noswap_" + r for r in dict.fromkeys(
-                        (bk.noswap_route(n), "tile", "block"))]
+                    runs += ["noswap_" + r for r in dict.fromkeys((bk.noswap_route(n), "block"))]
                 plain = bk.batched_lu_plain(A, pivot, True)
                 plain_noswap = bk.batched_lu_noswap_plain(A, pivot) if m == n else None
                 for route in runs:
@@ -3237,13 +3228,13 @@ def main(argv):
                     if not all(same.values()):
                         fail(f"{kern} disagrees with its plain version: {same}")
     # the solve kernel on each shape's own route (ops/batched_kernel.py
-    # solve_route: warp at n <= 32, wide up to 128) and forced onto the block
-    # route: the warp route's lane counts (1, 8, 15, 16, 17, 31, 32), the
-    # wide route's rows per lane (33, 48, 64: two; 96: three; 127, 128:
-    # four), batches that are not a multiple of either's matrices per
-    # block, no row order, perm or ipiv, one right-hand side as a vector, as
-    # a column and 5 (one full and one partial pass of 4), a zero on U's
-    # diagonal in one matrix of each batch (inf / NaN there and only there)
+    # solve_route: warp at n <= 32, wide up to 128): the warp route's lane
+    # counts (1, 8, 15, 16, 17, 31, 32), the wide route's rows per lane (33,
+    # 48, 64: two; 96: three; 127, 128: four), batches that are not a multiple
+    # of either's matrices per block, no row order, perm or ipiv, one
+    # right-hand side as a vector, as a column and 5 (one full and one partial
+    # pass of 4), a zero on U's diagonal in one matrix of each batch (inf / NaN
+    # there and only there)
     solve_cases = [(B, n) for n in (1, 8, 15, 16, 17, 31, 32) for B in (1, 3, 37, 1001)]
     solve_cases += [(B, n) for n in (33, 48, 96, 127) for B in (1, 37)]
     solve_cases += [(1000, 64), (37, 128), (1001, 128)]
@@ -3256,46 +3247,49 @@ def main(argv):
             f[sing, n // 2, n // 2] = 0  # a zero on U's diagonal
             ok_rows = torch.ones(B, dtype=torch.bool, device=dev)
             ok_rows[sing] = False
-            own = bk.solve_route(n, 1)
+            route = bk.solve_route(n, 1)
             for nrhs in (None, 1, 5):
                 b = torch.randn((B, n) if nrhs is None else (B, n, nrhs),
                                 generator=gen, dtype=dt).to(dev)
                 want = {"none": bk.batched_solve_plain(f, b),
                         "perm": bk.batched_solve_plain(f, b, perm=perm)}
                 want["ipiv"] = want["perm"]
-                for route in dict.fromkeys((own, "block")):
-                    for order, kw in (("none", {}), ("perm", {"perm": perm}),
-                                      ("ipiv", {"ipiv": ipiv})):
-                        before = dict(bk.batched_solve_cuda.route_launches)
-                        x_k = bk.batched_solve_cuda(f, b, route=route, **kw)
-                        torch.cuda.synchronize()
-                        after = bk.batched_solve_cuda.route_launches
-                        x_p = want[order]
-                        finite_k = torch.isfinite(x_k.reshape(B, -1)).all(dim=1)
-                        same = {
-                            "bitwise": same_bits(x_k, x_p),
-                            "nonfinite_only_where_singular": bool(torch.equal(
-                                finite_k, ok_rows)),
-                            "one_launch_on_route": after[route] - before[route] == 1
-                            and sum(after.values()) - sum(before.values()) == 1,
-                        }
-                        err = abs_err(x_k[ok_rows], x_p[ok_rows])
-                        solve_err[route] = max(solve_err[route], err)
-                        kern = SOLVE_KERNEL[route]
-                        batched_err[kern] = max(batched_err[kern], err)
-                        n_cases += 1
-                        emit("batched_kernel", kernel=kern, shape=[B, n, n],
-                             rhs=list(b.shape), order=order, route=route,
-                             dtype=str(dt)[6:], max_abs_err=err, **same)
-                        if not all(same.values()):
-                            fail(f"batched_solve ({route} route) disagrees with its plain "
-                                 f"version: {same}")
+                for order, kw in (("none", {}), ("perm", {"perm": perm}),
+                                  ("ipiv", {"ipiv": ipiv})):
+                    before = dict(bk.batched_solve_cuda.route_launches)
+                    x_k = bk.batched_solve_cuda(f, b, route=route, **kw)
+                    torch.cuda.synchronize()
+                    after = bk.batched_solve_cuda.route_launches
+                    x_p = want[order]
+                    finite_k = torch.isfinite(x_k.reshape(B, -1)).all(dim=1)
+                    same = {
+                        "bitwise": same_bits(x_k, x_p),
+                        "nonfinite_only_where_singular": bool(torch.equal(
+                            finite_k, ok_rows)),
+                        "one_launch_on_route": after[route] - before[route] == 1
+                        and sum(after.values()) - sum(before.values()) == 1,
+                    }
+                    err = abs_err(x_k[ok_rows], x_p[ok_rows])
+                    solve_err[route] = max(solve_err[route], err)
+                    kern = SOLVE_KERNEL[route]
+                    batched_err[kern] = max(batched_err[kern], err)
+                    n_cases += 1
+                    emit("batched_kernel", kernel=kern, shape=[B, n, n],
+                         rhs=list(b.shape), order=order, route=route,
+                         dtype=str(dt)[6:], max_abs_err=err, **same)
+                    if not all(same.values()):
+                        fail(f"batched_solve ({route} route) disagrees with its plain "
+                             f"version: {same}")
     for bad in (lambda: bk.batched_solve_cuda(torch.zeros(4, 33, 33, device=dev),
                                               torch.zeros(4, 33, device=dev), route="warp"),
                 lambda: bk.batched_solve_cuda(torch.zeros(4, 32, 32, device=dev),
                                               torch.zeros(4, 32, device=dev), route="wide"),
                 lambda: bk.batched_solve_cuda(torch.zeros(4, 8, 8, device=dev),
                                               torch.zeros(4, 8, device=dev), route="tile"),
+                lambda: bk.batched_solve_cuda(torch.zeros(4, 8, 8, device=dev),
+                                              torch.zeros(4, 8, device=dev), route="block"),
+                lambda: bk.batched_lu_noswap_cuda(torch.zeros(4, 8, 8, device=dev),
+                                                  route="tile"),
                 lambda: bk.batched_lu_noswap_cuda(torch.zeros(4, 33, 33, device=dev),
                                                   route="warp"),
                 lambda: bk.batched_lu_noswap_cuda(torch.zeros(4, 8, 8, device=dev),
@@ -3414,9 +3408,8 @@ def main(argv):
 
     def batched_timing():
         """Phase 4b: the swap kernel on its own route and on the tile route
-        (the original design) per n, the noswap kernel on its own route and on
-        the tile route, the solve on its own route and on the block route,
-        and the factor+solve pairs, in turns beside the library; each
+        (the original design) per n, the noswap kernel and the solve on their
+        own routes, and the factor+solve pairs, in turns beside the library; each
         route's plan and occupancy, and (n = 16, 32, 64, 128) a step's
         phases from the trace build, both modes."""
         rows = {}
@@ -3448,18 +3441,13 @@ def main(argv):
             if route != "tile":
                 fns["swap_tile"] = lambda: bk.batched_lu_cuda(A, True, True, route="tile")
             solve_route = bk.solve_route(n, 1)
-            if solve_route != "block":
-                # the solve's block route (the PR 2 design) on the same inputs
-                fns["solve_block"] = lambda: bk.batched_solve_cuda(f, rhs, route="block")
             if n in (16, 32, 64):
                 # eight right-hand sides: two passes of the warp or wide route
                 rhs8 = torch.randn(BATCH_B, n, 8, generator=gen).to(dev)
                 fns["solve_nrhs8"] = lambda: bk.batched_solve_cuda(f, rhs8)
-                fns["solve_block_nrhs8"] = lambda: bk.batched_solve_cuda(f, rhs8, route="block")
                 fns["library_solve_nrhs8"] = lambda: torch.linalg.lu_solve(f, ident, rhs8)
             fns.update({
                 "noswap": lambda: bk.batched_lu_noswap_cuda(A, True),
-                "noswap_tile": lambda: bk.batched_lu_noswap_cuda(A, True, route="tile"),
                 "solve": lambda: bk.batched_solve_cuda(f, rhs),
                 "solve_with_perm": lambda: bk.batched_solve_cuda(f, b, perm=perm),
                 "solve_with_ipiv": lambda: bk.batched_solve_cuda(f, b, ipiv=ipiv),
@@ -3473,9 +3461,9 @@ def main(argv):
             })
             t = round_robin(fns, inner=4)
             dev_t = {k: device_ms(fns[k]) for k in (
-                "swap", "swap_tile", "noswap", "noswap_tile", "solve", "solve_block",
+                "swap", "swap_tile", "noswap", "solve",
                 "solve_with_perm", "solve_with_ipiv", "library_factor", "library_solve",
-                "solve_nrhs8", "solve_block_nrhs8", "library_solve_nrhs8",
+                "solve_nrhs8", "library_solve_nrhs8",
                 "perm_factor_solve", "ipiv_factor_solve") if k in fns}
             plain = {
                 "swap": timed(lambda: bk.batched_lu_plain(A, True, True), reps=1, warm=0)[0],
@@ -3488,16 +3476,15 @@ def main(argv):
                 "solve": batched_solve_bound(BATCH_B, n, 1, "float32", 4),
             }
             plans = {("swap", r): lu_occupancy(n, r) for r in dict.fromkeys((route, "tile"))}
-            plans.update({("noswap", r): lu_occupancy(n, r, swap=False)
-                          for r in dict.fromkeys((nroute, "tile"))})
-            plans.update({("solve", r): occupancy(bk.solve_plan(n, 1, torch.float32, r))
-                          for r in dict.fromkeys((solve_route, "block"))})
+            plans[("noswap", nroute)] = lu_occupancy(n, nroute, swap=False)
+            plans[("solve", solve_route)] = occupancy(bk.solve_plan(n, 1, torch.float32,
+                                                                    solve_route))
             traces = {}
             if n in (16, 32, 64, 128):
                 traces[("swap", route)] = lu_trace(A, route)
                 traces[("noswap", nroute)] = lu_trace(A, nroute, swap=False)
                 traces[("swap", "tile")] = lu_trace(A, "tile")
-            swaps = [k for k in ("swap", "swap_tile", "noswap", "noswap_tile") if k in t]
+            swaps = [k for k in ("swap", "swap_tile", "noswap") if k in t]
             rows[n] = dict(t=t, dev=dev_t, plain=plain, bounds=bounds, route=route)
             emit("timing", what="batched", card=card, batch=BATCH_B, n=n,
                  dtype="float32", route=route, noswap_route=nroute, solve_route=solve_route,
@@ -3508,8 +3495,7 @@ def main(argv):
                  us_per_step={k: 1e3 * t[k] / n for k in swaps},
                  over_library={k: t[k] / t["library_factor"] for k in swaps},
                  device_over_library={k: dev_t[k] / dev_t["library_factor"] for k in swaps},
-                 solve_device_over_library={k: dev_t[k] / dev_t["library_solve"] for k in
-                                            ("solve", "solve_block") if k in dev_t},
+                 solve_device_over_library=dev_t["solve"] / dev_t["library_solve"],
                  noswap_over_swap=t["noswap"] / t["swap"],
                  noswap_device_over_swap=dev_t["noswap"] / dev_t["swap"])
             for (mode, r), plan in plans.items():
@@ -3520,7 +3506,7 @@ def main(argv):
             del A, b, f, rhs, lib_lu
 
         # f64 at the main size: the same kernels on the card's f64 units;
-        # the solve with 1 and 8 right-hand sides on each route beside lu_solve
+        # the solve with 1 and 8 right-hand sides beside lu_solve
         A = torch.randn(BATCH_B, 64, 64, generator=gen, dtype=torch.float64).to(dev)
         b = torch.randn(BATCH_B, 64, generator=gen, dtype=torch.float64).to(dev)
         b8 = torch.randn(BATCH_B, 64, 8, generator=gen, dtype=torch.float64).to(dev)
@@ -3531,11 +3517,8 @@ def main(argv):
             "swap": lambda: bk.batched_lu_cuda(A, True, True),
             "swap_tile": lambda: bk.batched_lu_cuda(A, True, True, route="tile"),
             "noswap": lambda: bk.batched_lu_noswap_cuda(A, True),
-            "noswap_tile": lambda: bk.batched_lu_noswap_cuda(A, True, route="tile"),
             "solve": lambda: bk.batched_solve_cuda(f, rhs),
-            "solve_block": lambda: bk.batched_solve_cuda(f, rhs, route="block"),
             "solve_nrhs8": lambda: bk.batched_solve_cuda(f, b8),
-            "solve_block_nrhs8": lambda: bk.batched_solve_cuda(f, b8, route="block"),
             "solve_with_perm": lambda: bk.batched_solve_cuda(f, b, perm=perm),
             "library_factor": lambda: torch.linalg.lu_factor_ex(A),
             "library_solve": lambda: torch.linalg.lu_solve(f, ident, rhs[:, :, None]),
@@ -3544,10 +3527,8 @@ def main(argv):
         t = round_robin(fns, inner=4)
         dev_t = {k: device_ms(f_) for k, f_ in fns.items() if k != "solve_with_perm"}
         plans = {ROUTE_KERNEL[r]: lu_occupancy(64, r, torch.float64) for r in ("block", "tile")}
-        plans.update({NOSWAP_KERNEL[r]: lu_occupancy(64, r, torch.float64, swap=False)
-                      for r in ("block", "tile")})
-        plans.update({SOLVE_KERNEL[r]: occupancy(bk.solve_plan(64, 1, torch.float64, r))
-                      for r in ("wide", "block")})
+        plans[NOSWAP_KERNEL["block"]] = lu_occupancy(64, "block", torch.float64, swap=False)
+        plans[SOLVE_KERNEL["wide"]] = occupancy(bk.solve_plan(64, 1, torch.float64, "wide"))
         f64_bounds = {"swap": batched_lu_bound(BATCH_B, 64, 64, "float64", 8),
                       "solve": batched_solve_bound(BATCH_B, 64, 1, "float64", 8)}
         emit("timing", what="batched", card=card, batch=BATCH_B, n=64,
@@ -3558,18 +3539,15 @@ def main(argv):
         rows["f64"] = dict(t=t, dev=dev_t, bounds=f64_bounds)
         del A, b, b8, f, rhs
         # the wide route at n = 128 in f64: one matrix's tile is 33.8 KB
-        # (the block route's 139 KB allows one block per SM)
         A = torch.randn(BATCH_B, 128, 128, generator=gen, dtype=torch.float64).to(dev)
         b = torch.randn(BATCH_B, 128, generator=gen, dtype=torch.float64).to(dev)
         f, perm, _ = rt.batched_lu_factor_perm(A)
         rhs = b.gather(1, perm.long())
         ident = torch.arange(1, 129, dtype=torch.int32, device=dev).repeat(BATCH_B, 1)
         fns = {"solve": lambda: bk.batched_solve_cuda(f, rhs),
-               "solve_block": lambda: bk.batched_solve_cuda(f, rhs, route="block"),
                "library_solve": lambda: torch.linalg.lu_solve(f, ident, rhs[:, :, None])}
         dev_t = {k: device_ms(f_) for k, f_ in fns.items()}
-        plans = {SOLVE_KERNEL[r]: occupancy(bk.solve_plan(128, 1, torch.float64, r))
-                 for r in ("wide", "block")}
+        plans = {SOLVE_KERNEL["wide"]: occupancy(bk.solve_plan(128, 1, torch.float64, "wide"))}
         emit("timing", what="batched_solve", card=card, batch=BATCH_B, n=128,
              dtype="float64", device_ms=dev_t,
              bound_ms=batched_solve_bound(BATCH_B, 128, 1, "float64", 8)[0], plans=plans)
@@ -3691,15 +3669,14 @@ def main(argv):
         route, (pm, pw) = main_shape(n)
         expect = 1 if route == "whole" else -(-n // pw)
         watch = TF32Watch()
-        panel_factor_cuda.launches = 0
-        panel_factor_cuda.grid_route_launches = 0
+        reset_counts()
         with watch:
             F = rt.lu(A, check=False)
             x = rt.lu_solve(F, b)
             torch.cuda.synchronize()
-        got = panel_factor_cuda.launches
+        got = panel_factor_cuda.counts.launches
         launches[(n, name)] = got
-        if panel_factor_cuda.grid_route_launches:
+        if panel_factor_cuda.counts.grid_route_launches:
             fail("a main-path panel took the grid route")
         r, g = resid_gate(A, F)
         sr = solve_resid(A, x, b)
@@ -3763,12 +3740,11 @@ def main(argv):
     bi = torch.tensor(rng.integers(-100, 100, n), dtype=torch.int32, device=dev)
     route, (pm, pw) = main_shape(n)
     expect = 1 if route == "whole" else -(-n // pw)
-    panel_factor_cuda.launches = 0
-    panel_factor_cuda.grid_route_launches = 0
+    reset_counts()
     F = rt.lu(Ai, check=False)
     x = rt.lu_solve(F, bi)
     torch.cuda.synchronize()
-    got = panel_factor_cuda.launches
+    got = panel_factor_cuda.counts.launches
     G = rt.lu(Ai.double(), check=False)
     r, g = resid_gate(Ai.double(), F)
     rec = dict(n=n, input="randint(-100, 100)", dtype="int32",
@@ -3781,7 +3757,7 @@ def main(argv):
                info_equal_f64_run=int(F.info) == int(G.info),
                factors_equal_f64_run=bool(torch.equal(F.factors, G.factors)))
     emit("main", **rec)
-    if not (got == expect and panel_factor_cuda.grid_route_launches == 0 and r < g
+    if not (got == expect and panel_factor_cuda.counts.grid_route_launches == 0 and r < g
             and rec["info"] == 0 and rec["factors_dtype"] == rec["solution_dtype"] == "float64"
             and rec["ipiv_equal_f64_run"] and rec["perm_equal_f64_run"]
             and rec["info_equal_f64_run"] and rec["factors_equal_f64_run"]
@@ -3835,16 +3811,14 @@ def main(argv):
         route = rt.dispatch_route((n, n), torch.float32, True, cfg)
         expect = 1 if route == "whole" else -(-n // w_main)
         watch = TF32Watch()
-        panel_factor_cuda.launches = 0
-        panel_factor_c64_cuda.launches = 0
-        panel_factor_c64_cuda.grid_route_launches = 0
+        reset_counts()
         with watch:
             F = rt.lu(A, check=False)
             xs = {t: rt.lu_solve(F, b, trans=t) for t in ("N", "T", "H")}
             torch.cuda.synchronize()
-        got = {"panel_lu": panel_factor_cuda.launches,
-               "panel_lu_c64": panel_factor_c64_cuda.launches,
-               "panel_lu_c64_grid_route": panel_factor_c64_cuda.grid_route_launches}
+        got = {"panel_lu": panel_factor_cuda.counts.launches,
+               "panel_lu_c64": panel_factor_c64_cuda.counts.launches,
+               "panel_lu_c64_grid_route": panel_factor_c64_cuda.counts.grid_route_launches}
         want = {"panel_lu": 0 if cplx else expect, "panel_lu_c64": expect if cplx else 0,
                 "panel_lu_c64_grid_route": 0}
         launches_c[(n, name, dt)] = got["panel_lu_c64"]
@@ -3965,17 +3939,15 @@ def main(argv):
         expect = -(-n // ocfg.resolved_panel_width())
         route = rt.dispatch_route((n, n), dt, True, ocfg)
         watch = TF32Watch()
-        for wr in panel_wrappers.values():
-            wr.launches = 0
-            wr.grid_route_launches = 0
+        reset_counts()
         with watch:
             F = rt.lu(A, check=False, config=ocfg)
             x = rt.lu_solve(F, b)
             torch.cuda.synchronize()
-        got = {k: wr.launches for k, wr in panel_wrappers.items()}
+        got = {k: wr.counts.launches for k, wr in panel_wrappers.items()}
         want = {k: (expect if k == kern else 0) for k in panel_wrappers}
         # every panel of these sizes fits a cluster: no grid-route launch
-        grid_got = {k: wr.grid_route_launches for k, wr in panel_wrappers.items()}
+        grid_got = {k: wr.counts.grid_route_launches for k, wr in panel_wrappers.items()}
         launches_o.setdefault((what, name, n, dt), got[kern])
         r, g = resid_gate(A, F)
         sr = solve_resid(A, x, b)
@@ -4042,7 +4014,7 @@ def main(argv):
 
     n = 800
     W, wb = wilkinson(n), rng.random(n)
-    panel_factor_cuda.launches = 0
+    reset_counts()
     torch.backends.cuda.matmul.allow_tf32 = True
     watch = TF32Watch()
     with watch:
@@ -4052,7 +4024,7 @@ def main(argv):
     restored = torch.backends.cuda.matmul.allow_tf32 is True
     torch.backends.cuda.matmul.allow_tf32 = tf32_before
     werr = float(np.linalg.norm(W @ xw.cpu().numpy() - wb))
-    rbt_launches = panel_factor_cuda.launches
+    rbt_launches = panel_factor_cuda.counts.launches
     rec = dict(what="rbt_wilkinson", n=n, dtype="float64", err_2norm=werr, gate=1e-10,
                info=int(winfo), launches={"panel_lu": rbt_launches},
                expected_launches={"panel_lu": -(-n // w_main)}, on_card=bool(xw.is_cuda),
@@ -4064,11 +4036,11 @@ def main(argv):
     n = 1536
     Ae = torch.tensor(rng.standard_normal((n, n)) + n * np.eye(n), dtype=f32, device=dev)
     be = torch.tensor(rng.standard_normal(n), dtype=f32, device=dev)
-    panel_factor_cuda.launches = 0
+    reset_counts()
     ws = rt.butterfly_workspace(Ae, be)
     xr = {k: rt.butterfly_solve(ws, refine=k) for k in (0, 2)}
     torch.cuda.synchronize()
-    rbt_launches_1536 = panel_factor_cuda.launches
+    rbt_launches_1536 = panel_factor_cuda.counts.launches
     xp = rt.lu_solve(rt.lu(Ae), be)
     rr = {f"refine_{k}": solve_resid(Ae, v, be) for k, v in xr.items()}
     rr["pivoted"] = solve_resid(Ae, xp, be)
@@ -4303,17 +4275,14 @@ def main(argv):
         bv = v2048 if n == TP_RANKS_N else cnormal(n) if cplx else rng.standard_normal(n)
         b = torch.tensor(bv, device=dev).to(dt)
         watch = TF32Watch()
-        for wr in tp_wrappers.values():
-            wr.launches = 0
-        offset_panel_factor_cuda.grid_route_launches = 0
-        offset_panel_factor_c64_cuda.grid_route_launches = 0
+        reset_counts()
         with watch:
             F = rt.tp_lu(A, tp_mesh, "tp", w, pivot)
             xs = {t: rt.tp_lu_solve(F, b, tp_mesh, "tp", w, trans=t) for t in ("N", "T", "H")}
             torch.cuda.synchronize()
-        got = {k: wr.launches for k, wr in tp_wrappers.items()}
-        if offset_panel_factor_cuda.grid_route_launches + \
-                offset_panel_factor_c64_cuda.grid_route_launches:
+        got = {k: wr.counts.launches for k, wr in tp_wrappers.items()}
+        if offset_panel_factor_cuda.counts.grid_route_launches + \
+                offset_panel_factor_c64_cuda.counts.grid_route_launches:
             fail("a tp panel took the grid route")
         kern = "panel_lu_c64_offset" if cplx else "panel_lu_offset"
         want = {k: (n // w if k == kern else 0) for k in tp_wrappers}
@@ -4453,32 +4422,7 @@ def main(argv):
     del tp_d1, p2
 
     # ---- 4. timing -------------------------------------------------------
-    # the barriers a panel step is built from (csrc/panel_lu.cu
-    # rf_bench_barrier): ns per barrier from two launches of 0 and N
     lib_panel = _kernels.load("panel_lu")
-    sink = torch.zeros(1, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def barrier_ns(kind, n, iters=20000):
-        def run(k):
-            code = lib_panel.rf_bench_barrier(kind, n, k, 0, sink.data_ptr(), stream)
-            _kernels.check(lib_panel, code, "barrier benchmark")
-        t = round_robin({0: lambda: run(0), iters: lambda: run(iters)}, rounds=5)
-        return 1e6 * (t[iters] - t[0]) / iters
-
-    grids = sorted({132, *(panel_plan(m, w, torch.float32, block=-1)["grid"] for m, w in shapes),
-                    *(panel_plan(H_o, w_o, torch.float32, ofs=o, block=-1)["grid"]
-                      for o in (0, H_o - w_o))})
-    barrier = {"syncthreads_512": barrier_ns(2, 1)}
-    for g in grids:
-        barrier[f"grid_sync_{g}"] = barrier_ns(0, g, 5000)
-    for c in (2, 4, 8, 16):
-        barrier[f"cluster_sync_{c}"] = barrier_ns(1, c)
-        barrier[f"dsmem_exchange_{c}"] = barrier_ns(3, c)
-    emit("timing", what="barrier", card=card, ns=barrier,
-         note="grid_sync_G: cooperative grid of G blocks of 256; cluster_sync_C and "
-              "dsmem_exchange_C: a cluster of C CTAs of 512; the exchange is the "
-              "chain kernel's candidate publish + cluster.sync() + reduction")
 
     # where a step of the chain kernel goes: CTA 0 stamps clock64() at each
     # phase boundary (rf_panel_lu_set_trace), one run.  panel_chain_kernel
@@ -4947,18 +4891,14 @@ def main(argv):
         })
     # each route's kernel at the shape of its own main-path run (the warp
     # routes at n = 16, the block and wide routes at n = 64, the tile route
-    # on the tall batch); the routes that only a forced call takes (the
-    # noswap tile, the solve's block route) at n = 64, 0 launches on the
-    # main path
+    # on the tall batch)
     for name, at, key, lib in (("batched_lu_warp", 16, "swap", "library_factor"),
                                ("batched_lu_block", 64, "swap", "library_factor"),
                                ("batched_lu_swap", "tall", "swap", "library_factor"),
                                ("batched_lu_noswap_warp", 16, "noswap", "library_factor"),
                                ("batched_lu_noswap_block", 64, "noswap", "library_factor"),
-                               ("batched_lu_noswap", 64, "noswap_tile", "library_factor"),
                                ("batched_solve_warp", 16, "solve", "library_solve"),
-                               ("batched_solve_wide", 64, "solve", "library_solve"),
-                               ("batched_solve", 64, "solve_block", "library_solve")):
+                               ("batched_solve_wide", 64, "solve", "library_solve")):
         row = batched_rows[at]
         base_key = key.split("_")[0]  # the plain version and the bound
         shape = ([TALL_B, *TALL_SHAPE] if at == "tall"
@@ -4970,7 +4910,7 @@ def main(argv):
             "replaces": BATCHED_KERNELS[name][1],
             "launches": batched_launches[at][name],
             # against the plain version at this shape, in the batched phase
-            # (a forced route: over every case of phase 2b)
+            # (else over every case of phase 2b)
             "max_abs_err": full_err[at].get(name, batched_err[name]),
             "max_abs_err_all_cases": max([batched_err[name]] + [
                 e[name] for e in full_err.values() if name in e]),

@@ -32,9 +32,10 @@
 //
 // Design.  The TPU kernel puts 128 matrices side by side on the lane axis of
 // a transposed (n, m, G) block, pads the batch to a multiple of G and masks
-// whole-block vector passes.  None of that is carried over.  Both modes
-// have three routes, chosen by the shape (`own_route`, mirrored by
-// ops/batched_kernel.py `lu_route` and `noswap_route`); the warp and block
+// whole-block vector passes.  None of that is carried over.  The swap mode
+// has three routes, chosen by the shape (`own_route`, mirrored by
+// ops/batched_kernel.py `lu_route`), the noswap mode the first two
+// (`noswap_route`: its matrices are square, n <= 128); the warp and block
 // routes are one kernel function each with the mode a compile-time choice
 // (the warp kernel's kSwap flag) or a sibling that shares the grid, the
 // pivot reduction and the row publication (the block route):
@@ -67,14 +68,13 @@
 //          out, but the rows of every slot stay in the update (the used
 //          rows are scattered), and the rows leave by the step that picked
 //          them.
-//   tile   every other shape the kernels take (max(m, n) > 128: tall or wide
-//          batches, whose tile does not fit the registers): one block per
-//          matrix, the matrix in a shared-memory tile with row stride n + 1.
-//          Warp 0 searches the pivot and does the step's bookkeeping; the
-//          interchange and the scale share a phase; the update is spread
-//          over the block.  Three __syncthreads() per step.  The noswap
-//          mode's tile kernel (the original noswap kernel) is this route in that mode;
-//          no shape takes it unless it is forced.
+//   tile   every other shape the swap mode takes (max(m, n) > 128: tall or
+//          wide batches, whose tile does not fit the registers): one block
+//          per matrix, the matrix in a shared-memory tile with row stride
+//          n + 1.  Warp 0 searches the pivot and does the step's
+//          bookkeeping; the interchange and the scale share a phase; the
+//          update is spread over the block.  Three __syncthreads() per
+//          step.
 //
 // What bounds them.  By the roofline, bytes: each matrix is read and written
 // once, and the 2n^3/3 operations per matrix are a fraction of that time at
@@ -159,15 +159,14 @@ __device__ __forceinline__ void warp_best(T& best, int& bi) {
   }
 }
 
-// Shared-memory layout of the tile route in both modes (see
-// tile_smem_bytes in ops/batched_kernel.py): tile m x (n + 1), lcol m, then
-// 2 * m ints.
+// Shared-memory layout of the tile route (see tile_smem_bytes in
+// ops/batched_kernel.py): tile m x (n + 1), lcol m, then 2 * m ints.
 template <typename T>
 struct Tile {
   T* s;
   T* lcol;
-  int* ia;  // swap: composed permutation;  noswap: used flags
-  int* ib;  // noswap: pivot row of each step
+  int* ia;  // composed permutation
+  int* ib;  // m ints more, which the swap mode leaves unused
   int ld;
   __device__ Tile(unsigned char* raw, int m, int n) {
     ld = n + 1;
@@ -295,100 +294,6 @@ __global__ void __launch_bounds__(kMaxThreads) batched_lu_swap_kernel(const T* _
   }
   if (tid == 0) info[mat] = info_v;
   RF_TRACE_END(minmn);
-}
-
-// ---- tile route, noswap mode (the original kernel; forced only) --------------
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads) batched_lu_noswap_kernel(const T* __restrict__ a, T* __restrict__ out,
-                                         int* __restrict__ perm, int* __restrict__ info,
-                                         int n, int pivot, int lw) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int s_kp;
-  __shared__ T s_pv;
-  Tile<T> t(smem_raw, n, n);
-  T* s = t.s;
-  int* used = t.ia;
-  int* prow = t.ib;
-  const int ld = t.ld;
-  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
-  const size_t mat = blockIdx.x;
-  const size_t base = mat * n * n;
-  const int count = n * n;
-
-  for (int e = tid; e < count; e += nt) {
-    const int i = e / n, j = e - i * n;
-    s[i * ld + j] = a[base + e];
-  }
-  for (int i = tid; i < n; i += nt) used[i] = 0;
-  int info_v = 0;  // kept by thread 0
-  __syncthreads();
-
-  const int rg = tid / lw, cl = tid - rg * lw, nrg = nt / lw;
-
-  for (int k = 0; k < n; ++k) {
-    // ---- pivot search among the unused rows: warp 0 -----------------------
-    if (tid < 32) {
-      int kp = k;
-      if (pivot) {
-        T best = T(-1);
-        int bi = INT_MAX;
-        for (int i = lane; i < n; i += 32) {
-          if (used[i]) continue;
-          const T v = mag(s[i * ld + k]);
-          if (better(v, i, best, bi)) { best = v; bi = i; }
-        }
-        warp_best(best, bi);
-        kp = (isnan(best) || bi > n - 1) ? n - 1 : bi;
-      }
-      __syncwarp();
-      if (lane == 0) {
-        const T pv = s[kp * ld + k];
-        s_kp = kp;
-        s_pv = pv;
-        prow[k] = kp;
-        // from here on "unused" means: eliminated at this step
-        used[kp] = 1;
-        if (pv == T(0) && info_v == 0) info_v = pivot ? k + 1 : -(k + 1);
-      }
-    }
-    __syncthreads();
-
-    // ---- scale column k of the rows still to eliminate --------------------
-    const int kp = s_kp;
-    const T pv = s_pv;
-    const bool nz = pv != T(0);
-    const T r = nz ? rrcp(pv) : T(1);
-    for (int i = tid; i < n; i += nt) {
-      if (used[i]) continue;
-      T l = s[i * ld + k];
-      if (nz) {
-        l = rmul(l, r);
-        s[i * ld + k] = l;
-      }
-      t.lcol[i] = l;
-    }
-    __syncthreads();
-
-    // ---- rank-1 update of those rows --------------------------------------
-    const T* u = s + kp * ld;
-    for (int i = rg; i < n; i += nrg) {
-      if (used[i]) continue;
-      const T l = t.lcol[i];
-      T* row = s + i * ld;
-      for (int j = k + 1 + cl; j < n; j += lw) {
-        row[j] = rsub(row[j], rmul(l, u[j]));
-      }
-    }
-    __syncthreads();
-  }
-
-  // rows leave in pivot order: logical row i is physical row prow[i]
-  for (int e = tid; e < count; e += nt) {
-    const int i = e / n, j = e - i * n;
-    out[base + e] = s[prow[i] * ld + j];
-  }
-  for (int i = tid; i < n; i += nt) perm[mat * n + i] = prow[i];
-  if (tid == 0) info[mat] = info_v;
 }
 
 // 1/p rounded once, as rrcp, by the reciprocal instruction: the same value
@@ -1150,8 +1055,8 @@ size_t smem_bytes(int m, int n, size_t elem) {
 }
 
 // ---- routes --------------------------------------------------------------------
-// Both modes take the same three routes by shape; the noswap mode's matrices
-// are square (m == n).
+// The swap mode takes three routes by shape; the noswap mode's matrices are
+// square (m == n) and take the warp and block routes alone.
 enum Route { kAuto = 0, kWarp = 1, kBlock = 2, kTile = 3 };
 
 int own_route(int m, int n) {
@@ -1223,7 +1128,7 @@ LuKernel<T> block_kernel(bool swap, int bt, int s) {
 
 // What a launch of `route` (kAuto: the shape's own) does with (m, n) in
 // either mode: the kernel, threads per block, matrices per block and dynamic
-// shared memory.
+// shared memory; no kernel (fn null) for the noswap mode's tile route.
 template <typename T>
 struct LuPlan {
   int route = 0, threads = 0, per_block = 1, lw = 0, cap = 0;
@@ -1253,10 +1158,10 @@ LuPlan<T> lu_plan(bool swap, int m, int n, int route) {
     p.smem = block_smem_bytes(swap, m, n, sizeof(T));
     p.fn = reinterpret_cast<const void*>(p.rk);
   } else {
+    if (!swap) return p;  // no tile route: p.fn stays null
     block_shape(m, n, &p.threads, &p.lw);
     p.smem = smem_bytes(m, n, sizeof(T));
-    p.fn = swap ? reinterpret_cast<const void*>(batched_lu_swap_kernel<T>)
-                : reinterpret_cast<const void*>(batched_lu_noswap_kernel<T>);
+    p.fn = reinterpret_cast<const void*>(batched_lu_swap_kernel<T>);
   }
   return p;
 }
@@ -1271,6 +1176,7 @@ int launch_lu(bool swap, const void* a, void* out, void* ipiv, void* perm, void*
     return static_cast<int>(cudaErrorInvalidValue);
   if (route != kAuto && !route_takes(route, m, n)) return static_cast<int>(cudaErrorInvalidValue);
   const LuPlan<T> p = lu_plan<T>(swap, m, n, route);
+  if (p.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   int err = prepare(p.fn, device, p.smem, smem_given);
   if (err != 0) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1282,12 +1188,9 @@ int launch_lu(bool swap, const void* a, void* out, void* ipiv, void* perm, void*
   if (p.rk != nullptr) {
     const int grid = (batch + p.per_block - 1) / p.per_block;
     p.rk<<<dim3(grid), dim3(p.threads), p.smem, st>>>(A, O, ip, pe, in, batch, m, n, pivot);
-  } else if (swap) {
+  } else {
     batched_lu_swap_kernel<T><<<dim3(batch), dim3(p.threads), p.smem, st>>>(
         A, O, ip, pe, in, m, n, pivot, p.lw);
-  } else {
-    batched_lu_noswap_kernel<T><<<dim3(batch), dim3(p.threads), p.smem, st>>>(
-        A, O, pe, in, n, pivot, p.lw);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1301,6 +1204,7 @@ int plan_lu(bool swap, int m, int n, int route, int device, int* out) {
   if (m < 1 || n < 1 || (!swap && m != n)) return static_cast<int>(cudaErrorInvalidValue);
   if (route != kAuto && !route_takes(route, m, n)) return static_cast<int>(cudaErrorInvalidValue);
   const LuPlan<T> p = lu_plan<T>(swap, m, n, route);
+  if (p.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   int err = prepare(p.fn, device, p.smem, static_cast<int>(p.smem));
   if (err != 0) return err;
   cudaFuncAttributes at;
@@ -1359,7 +1263,8 @@ int rf_batched_lu_swap_plan(int m, int n, int elem, int route, int device, int* 
 
 // The same for square (n, n) matrices in physical order: perm (batch, n)
 // receives the pivot row of each step, and the factors leave in that order.
-// The routes are the swap mode's (warp n <= 32, block n <= 128, tile).
+// The routes are the swap mode's first two (1 warp n <= 32, 2 block n <=
+// 128); the tile route (3), and n > 128 on the shape's own, are refused.
 int rf_batched_lu_noswap_f32(const void* a, void* out, void* perm, void* info,
                              int batch, int n, int pivot, int route, int smem, int device,
                              void* stream) {

@@ -16,7 +16,7 @@
 //
 // Design.  The TPU kernel holds 128 factor matrices side by side on the lane
 // axis of a transposed (n, n, G) block and pads the batch to a multiple of G.
-// None of that is carried over.  Three routes, chosen by the shape
+// None of that is carried over.  Two routes, chosen by the shape
 // (`own_route`, mirrored by ops/batched_kernel.py `solve_route`):
 //
 //   warp   n <= 32: N lanes per matrix (N = 8, 16 or 32, the smallest that
@@ -50,24 +50,12 @@
 //          r and the rhs are constants without it).  perm is read per row;
 //          ipiv is folded per row by tracing every swap backwards from it
 //          (a lane's rows at once, no chain across lanes).  No barrier.
-//   block  any n, when forced: one thread block per matrix (the original
-//          design).  It reads its factor matrix with coalesced loads into a
-//          shared-memory tile with row stride n + 1 (both sweeps walk down
-//          columns, which then touch n different banks), keeps the
-//          right-hand sides (n, nrhs) in shared memory beside it (gathered
-//          by perm as they are read, or exchanged there by the ipiv
-//          sequence), and runs both sweeps with one __syncthreads() per
-//          step.  In the backward sweep every thread of a column divides
-//          the step's entry itself and the finished value goes to a
-//          separate buffer, so that no thread reads an entry another one is
-//          replacing.
 //
 // What bounds them.  Bytes: the factors are read once (each entry is used
 // once per sweep at most), the right-hand sides read and written once; the
 // 2n^2 operations per column are far below the card's rate.  In practice
-// the 2n dependent steps set the time of a matrix: on the block route each
-// step is a barrier, on the warp and wide routes a shuffle and a
-// multiply-subtract (and in the backward sweep a division), with many
+// the 2n dependent steps set the time of a matrix: each step is a shuffle
+// and a multiply-subtract (and in the backward sweep a division), with many
 // matrices in flight per SM to hide their latency; on the wide route also
 // the 2R tile copies, each one memory latency (PERF.md).
 
@@ -81,96 +69,10 @@ namespace {
 
 using namespace rf;
 
-constexpr int kMaxThreads = 256;
-
-// ---- block route ---------------------------------------------------------------
-// `perm` (batch, n), when given, is the composed row permutation: the block
-// reads row perm[i] of its right-hand sides as row i.  `ipiv` (batch, n), when
-// given instead, is the LAPACK swap sequence: the block applies the
-// interchanges k <-> ipiv[k], k = 0 .. n-1, to its right-hand sides in shared
-// memory, one thread per column.  With neither, `b` is already in pivot order.
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-batched_solve_kernel(const T* __restrict__ f, const T* __restrict__ b,
-                     T* __restrict__ x, const int* __restrict__ perm,
-                     const int* __restrict__ ipiv, int /*batch*/, int n, int nrhs) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = n + 1;
-  T* s = reinterpret_cast<T*>(smem_raw);          // factors, n x (n + 1)
-  T* xs = s + static_cast<size_t>(n) * ld;        // working rhs, n x nrhs
-  T* xo = xs + static_cast<size_t>(n) * nrhs;     // solution, n x nrhs
-  int* idx = reinterpret_cast<int*>(xo + static_cast<size_t>(n) * nrhs);  // n
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t mat = blockIdx.x;
-  const size_t fbase = mat * n * n;
-  const size_t xbase = mat * n * nrhs;
-  const int fcount = n * n, xcount = n * nrhs;
-
-  for (int e = tid; e < fcount; e += nt) {
-    const int i = e / n, j = e - i * n;
-    s[i * ld + j] = f[fbase + e];
-  }
-  if (perm != nullptr || ipiv != nullptr) {
-    const int* src = (perm != nullptr ? perm : ipiv) + mat * n;
-    for (int i = tid; i < n; i += nt) idx[i] = src[i];
-    __syncthreads();
-  }
-  if (perm != nullptr) {
-    for (int e = tid; e < xcount; e += nt) {
-      const int i = nrhs == 1 ? e : e / nrhs;
-      const int r = e - i * nrhs;
-      xs[e] = b[xbase + static_cast<size_t>(idx[i]) * nrhs + r];
-    }
-  } else {
-    for (int e = tid; e < xcount; e += nt) xs[e] = b[xbase + e];
-  }
-  __syncthreads();
-  if (perm == nullptr && ipiv != nullptr) {
-    for (int r = tid; r < nrhs; r += nt) {
-      for (int k = 0; k < n; ++k) {
-        const int p = idx[k];
-        const T v = xs[k * nrhs + r];
-        xs[k * nrhs + r] = xs[p * nrhs + r];
-        xs[p * nrhs + r] = v;
-      }
-    }
-    __syncthreads();
-  }
-
-  // forward: unit lower
-  for (int k = 0; k + 1 < n; ++k) {
-    for (int e = (k + 1) * nrhs + tid; e < xcount; e += nt) {
-      const int i = nrhs == 1 ? e : e / nrhs;
-      const int r = e - i * nrhs;
-      xs[e] = rsub(xs[e], rmul(s[i * ld + k], xs[k * nrhs + r]));
-    }
-    __syncthreads();
-  }
-
-  // backward: upper.  Row k of xs is read by every thread of its column and
-  // replaced by none; the quotient goes to xo.
-  for (int k = n - 1; k >= 0; --k) {
-    const T ukk = s[k * ld + k];
-    for (int e = tid; e < (k + 1) * nrhs; e += nt) {
-      const int i = nrhs == 1 ? e : e / nrhs;
-      const int r = e - i * nrhs;
-      const T xk = rdiv(xs[k * nrhs + r], ukk);
-      if (i == k) {
-        xo[e] = xk;
-      } else {
-        xs[e] = rsub(xs[e], rmul(s[i * ld + k], xk));
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int e = tid; e < xcount; e += nt) x[xbase + e] = xo[e];
-}
-
 // ---- warp route ---------------------------------------------------------------
 // N lanes per matrix (8, 16 or 32), RC right-hand sides per pass.
 constexpr int kWarpThreads = 128;
-constexpr int kAuto = 0, kWarp = 1, kBlock = 2, kWide = 3;
+constexpr int kAuto = 0, kWarp = 1, kWide = 2;
 constexpr int kWarpMaxN = 32;
 
 // Resident blocks per SM asked of the register allocator: with 32 f32
@@ -451,12 +353,6 @@ SolveKernel<T> wide_kernel_rc(int n) {
   return batched_solve_wide_kernel<T, 4, RC>;
 }
 
-// The block route's dynamic shared memory.
-size_t smem_bytes(int n, int nrhs, size_t elem) {
-  return (static_cast<size_t>(n) * (n + 1) + 2 * static_cast<size_t>(n) * nrhs) * elem +
-         4 * static_cast<size_t>(n);
-}
-
 // What a launch of `route` (kAuto: the shape's own) does with n and nrhs:
 // the kernel, threads per block, matrices per block, dynamic shared memory
 // and (warp route) lanes per matrix or (wide route) rows per lane.
@@ -467,14 +363,15 @@ struct SolvePlan {
   SolveKernel<T> k = nullptr;
 };
 
-int own_route(int n) {
-  return n <= kWarpMaxN ? kWarp : (n <= kWarpMaxN * kWideMaxR ? kWide : kBlock);
-}
+int own_route(int n) { return n <= kWarpMaxN ? kWarp : kWide; }
 
+// n the kernels take (at most kWarpMaxN * kWideMaxR = 128) and, unless it
+// is kAuto, a route that takes it
 bool route_takes(int route, int n) {
+  if (n > kWarpMaxN * kWideMaxR) return false;
+  if (route == kAuto) return true;
   if (route == kWarp) return n <= kWarpMaxN;
-  if (route == kWide) return n > kWarpMaxN && n <= kWarpMaxN * kWideMaxR;
-  return route == kBlock;
+  return route == kWide && n > kWarpMaxN;
 }
 
 template <typename T>
@@ -487,19 +384,12 @@ SolvePlan<T> solve_plan(int n, int nrhs, int route) {
     p.threads = kWarpThreads;
     p.per_block = kWarpThreads / p.cap;
     p.smem = warp_smem_bytes(n, sizeof(T));
-  } else if (p.route == kWide) {
+  } else {
     p.cap = (n + 31) / 32;
     p.k = nrhs == 1 ? wide_kernel_rc<T, 1>(n) : wide_kernel_rc<T, 4>(n);
     p.per_block = wide_group(n, sizeof(T));
     p.threads = 32 * p.per_block;
     p.smem = wide_smem_bytes(n, sizeof(T));
-  } else {
-    p.k = batched_solve_kernel<T>;
-    p.smem = smem_bytes(n, nrhs, sizeof(T));
-    // enough threads to load the tile quickly and to give every entry of the
-    // right-hand sides its own thread where they are few
-    p.threads = 64;
-    while (p.threads < kMaxThreads && (p.threads < 2 * n || p.threads < n * nrhs)) p.threads <<= 1;
   }
   return p;
 }
@@ -509,7 +399,7 @@ int launch(const void* f, const void* b, void* x, const void* perm,
            const void* ipiv, int batch, int n, int nrhs, int route, int smem_given,
            int device, void* stream) {
   if (batch < 1 || n < 1 || nrhs < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (route != kAuto && !route_takes(route, n)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!route_takes(route, n)) return static_cast<int>(cudaErrorInvalidValue);
   const SolvePlan<T> p = solve_plan<T>(n, nrhs, route);
   const int err = prepare(reinterpret_cast<const void*>(p.k), device, p.smem, smem_given);
   if (err != 0) return err;
@@ -527,7 +417,7 @@ int launch(const void* f, const void* b, void* x, const void* perm,
 template <typename T>
 int plan(int n, int nrhs, int route, int device, int* out) {
   if (n < 1 || nrhs < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (route != kAuto && !route_takes(route, n)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!route_takes(route, n)) return static_cast<int>(cudaErrorInvalidValue);
   const SolvePlan<T> p = solve_plan<T>(n, nrhs, route);
   const void* fn = reinterpret_cast<const void*>(p.k);
   int err = prepare(fn, device, p.smem, static_cast<int>(p.smem));
@@ -559,11 +449,11 @@ extern "C" {
 // (batch, n, nrhs) at `b` into `x` (another buffer than `b`), on `stream`.
 // The rows of `b` are taken by `perm` (batch, n) int32 when it is not null,
 // else exchanged by the swap sequence `ipiv` (batch, n) int32 when that is not
-// null, else used as they are.  `route` 0 takes the shape's own route
-// (warp for n <= 32, wide up to 128, block beyond), 1 / 2 / 3 force the
-// warp / block / wide route (the warp route refuses n > 32, the wide route
-// n <= 32 and n > 128).  `smem` is the caller's count of dynamic
-// shared memory for that route and must equal the kernel's.  Returns a
+// null, else used as they are.  n is at most 128.  `route` 0 takes the
+// shape's own route (warp for n <= 32, wide beyond), 1 / 2 force the warp /
+// wide route (the warp route refuses n > 32, the wide route n <= 32).
+// `smem` is the caller's count of dynamic shared memory for that route and
+// must equal the kernel's.  Returns a
 // cudaError_t code (0 on success) for the launch; faults during the run
 // surface at the next synchronisation.
 int rf_batched_solve_f32(const void* f, const void* b, void* x, const void* perm,

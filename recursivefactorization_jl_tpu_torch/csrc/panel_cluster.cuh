@@ -63,6 +63,19 @@
 
 namespace cg = cooperative_groups;
 
+// What a launch of a panel kernel tells its caller, in host memory; every
+// entry point zeroes it first.  `lookaheads`: the chain launches on a
+// cluster of C > 1, each of which takes the one-column look-ahead and
+// exchanges its candidates on the per-parity mbarriers; `grid_blocks`: the
+// blocks whose chain ran on the grid (panel_grid_chain_kernel); `updates`:
+// the launches of the delayed trailing update.  ops/_kernels.py
+// `PanelStats` mirrors it.  Outside the unnamed namespace: the extern "C"
+// entry points take it, and a type with internal linkage would keep them
+// out of the library's symbols.
+struct PanelStats {
+  int lookaheads, grid_blocks, updates;
+};
+
 namespace {
 
 using namespace rf;
@@ -1810,6 +1823,24 @@ struct Plan {
   size_t gws;
 };
 
+// The plan as every panel family's rf_*_plan hands it out, kPlanInts
+// int32s: route (1 cluster, 0 grid), b (-1 on the grid route), C (the grid
+// route: its grid), blocks, ws reals, iws int32s, and the blocks whose chain
+// runs on the grid (0 where the family has no grid chain).  The caller
+// allocates the two workspaces with those sizes.
+constexpr int kPlanInts = 7;
+
+inline void write_plan(const Plan& pl, int* out) {
+  const bool cluster = pl.route == kRouteCluster;
+  out[0] = pl.route;
+  out[1] = cluster ? pl.b : -1;
+  out[2] = cluster ? pl.C : pl.grid;
+  out[3] = cluster ? pl.blocks : 1;
+  out[4] = static_cast<int>(pl.ws_reals);
+  out[5] = static_cast<int>(pl.iws_ints);
+  out[6] = pl.grid_blocks;
+}
+
 inline int width_at_least(int w) {
   int B = 8;
   while (B < w) B <<= 1;
@@ -2025,21 +2056,13 @@ int delay_opt_in() {
 // panel, the two delayed kernels, in turn on `stream` without a host
 // synchronisation.  `iws` holds pl.iws_ints int32s (the blocks' row moves,
 // then the grid chain's workspace).  kForm: the form of the trailing update
-// (UpdateForm).  `updates`, `grids`, `lookaheads` and `mbarriers`, where
-// given, receive the number of update launches, of grid-chain launches, of
-// chain launches that took the look-ahead step and of those whose
-// candidate exchange ran on the per-parity mbarriers (both: every cluster
-// chain of C > 1 CTAs).  `route`: the bf16x3 form's update kernel
-// (kUpdTiled, or kUpdSimple where forced).
+// (UpdateForm).  `stats` (zeroed by the caller) counts the launches as
+// PanelStats says.  `route`: the bf16x3 form's update kernel (kUpdTiled,
+// or kUpdSimple where forced).
 template <typename T, int kForm = kStepOrder>
 int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl, void* piv,
-                void* perm, void* info, void* iws, cudaStream_t stream,
-                int* updates = nullptr, int route = kUpdTiled, int* grids = nullptr,
-                int* lookaheads = nullptr, int* mbarriers = nullptr) {
-  if (updates != nullptr) *updates = 0;
-  if (grids != nullptr) *grids = 0;
-  if (lookaheads != nullptr) *lookaheads = 0;
-  if (mbarriers != nullptr) *mbarriers = 0;
+                void* perm, void* info, void* iws, cudaStream_t stream, PanelStats* stats,
+                int route = kUpdTiled) {
   int err = delay_opt_in<T, kForm>();
   if (err != 0) return err;
   int* moved = static_cast<int*>(iws);
@@ -2085,7 +2108,7 @@ int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl,
                                         dim3(g), dim3(kGridThreads), args,
                                         static_cast<size_t>(ncol) * sizeof(T), stream);
         if (e != cudaSuccess) return static_cast<int>(e);
-        if (grids != nullptr) ++*grids;
+        ++stats->grid_blocks;
       }
     } else {
       ChainArgs<T> c;
@@ -2110,8 +2133,7 @@ int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl,
           chain_config(pl.C, chain_smem<T>(c.rows, pl.C, pl.B, true).total, stream, attr);
       e = cudaLaunchKernelEx(&cfg, chain_kernel_for<T>(pl.B), c);
       if (e != cudaSuccess) return static_cast<int>(e);
-      if (lookaheads != nullptr && pl.C > 1) ++*lookaheads;
-      if (mbarriers != nullptr && pl.C > 1) ++*mbarriers;
+      if (pl.C > 1) ++stats->lookaheads;
     }
     if (pl.one_block) continue;
     DelayArgs<T> d;
@@ -2157,7 +2179,7 @@ int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl,
         e = cudaGetLastError();
         if (e != cudaSuccess) return static_cast<int>(e);
       }
-      if (updates != nullptr) ++*updates;
+      ++stats->updates;
     }
   }
   return static_cast<int>(cudaGetLastError());

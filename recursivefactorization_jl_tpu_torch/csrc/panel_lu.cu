@@ -91,8 +91,8 @@
 // bit (tests/test_torch_panel_schedule.py emulates both orders on the CPU).
 // A panel no wider than b is one block, with no delayed pass.
 //
-// What the H100 measured (PERF.md; `chip_smoke.py` timing phase, the
-// barrier microbenchmark and this kernel's phase trace, `chain_trace`):
+// What the H100 measured (PERF.md; `chip_smoke.py` timing phase and this
+// kernel's phase trace, `chain_trace`):
 // a cluster barrier costs ~0.5 us after its last arrive, and publishing a
 // candidate ~0.8 us; before the look-ahead a step of ~3.0-3.4 us at C = 16
 // ran the candidate reduction and publish, the barrier, the agreement and
@@ -342,9 +342,9 @@ int full_plan(int m, int w, int ofs, int b, int C, int device, Plan* pl) {
 
 template <typename T, bool kOffset>
 int run(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C, void* piv,
-        void* perm, void* info, void* ws, void* iws, int* lookaheads, int* mbarriers,
-        int device, void* stream_) {
-  *lookaheads = *mbarriers = 0;
+        void* perm, void* info, void* ws, void* iws, PanelStats* stats, int device,
+        void* stream_) {
+  *stats = PanelStats{};
   Plan pl;
   int err = full_plan<T, kOffset>(m, w, ofs, b, C, device, &pl);
   if (err != 0) return err;
@@ -378,8 +378,7 @@ int run(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C, void* 
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
   }
-  return run_cluster<T>(A, m, w, lda, pivot, ofs, pl, piv, perm, info, iws, stream, nullptr,
-                        kUpdTiled, nullptr, lookaheads, mbarriers);
+  return run_cluster<T>(A, m, w, lda, pivot, ofs, pl, piv, perm, info, iws, stream, stats);
 }
 
 template <bool kOffset>
@@ -387,14 +386,8 @@ int plan_entry(int m, int w, int elem_size, int ofs, int b, int C, int device, i
   Plan pl;
   const int err = elem_size == 8 ? full_plan<double, kOffset>(m, w, ofs, b, C, device, &pl)
                                  : full_plan<float, kOffset>(m, w, ofs, b, C, device, &pl);
-  if (err != 0) return err;
-  out[0] = pl.route;
-  out[1] = pl.route == kRouteCluster ? pl.b : -1;
-  out[2] = pl.route == kRouteCluster ? pl.C : pl.grid;
-  out[3] = pl.route == kRouteCluster ? pl.blocks : 1;
-  out[4] = static_cast<int>(pl.ws_reals);
-  out[5] = static_cast<int>(pl.iws_ints);
-  return 0;
+  if (err == 0) write_plan(pl, out);
+  return err;
 }
 
 // ---- panel_boundary_precision='bf16x3' -----------------------------------
@@ -416,108 +409,6 @@ int bf16x3_plan(int m, int w, int b, int C, int chain, int device, Plan* pl) {
   return r != 0 ? r : grid_chain_plan<float>(m, device, pl);
 }
 
-// ---- barrier microbenchmark ------------------------------------------------
-
-__global__ void bench_grid_sync_kernel(int iters, int* sink) {
-  cg::grid_group grid = cg::this_grid();
-  for (int i = 0; i < iters; ++i) grid.sync();
-  if (blockIdx.x == 0 && threadIdx.x == 0) *sink = iters;
-}
-
-__global__ void __launch_bounds__(kChainThreads) bench_cluster_sync_kernel(int iters, int* sink) {
-  cg::cluster_group cluster = cg::this_cluster();
-  for (int i = 0; i < iters; ++i) cluster.sync();
-  if (blockIdx.x == 0 && threadIdx.x == 0) *sink = iters;
-}
-
-__global__ void __launch_bounds__(kChainThreads) bench_syncthreads_kernel(int iters, int* sink) {
-  for (int i = 0; i < iters; ++i) __syncthreads();
-  if (threadIdx.x == 0) *sink = iters;
-}
-
-// One candidate exchange in the cluster-barrier form the chain kernel used
-// before its exchange moved onto per-parity mbarriers (f32, a 32-wide
-// slab): warp 0 writes a candidate (|v|, row, perm id, origin) and its 32
-// entries into a slot of every CTA, lanes spread over the CTAs; one
-// cluster.sync(); every thread reduces the C candidates.
-__global__ void __launch_bounds__(kChainThreads) bench_exchange_kernel(int iters, int* sink) {
-  cg::cluster_group cluster = cg::this_cluster();
-  __shared__ Cand<float> cand[2][kMaxCluster];
-  __shared__ float rows[2][kMaxCluster][32];
-  const int C = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int lane = threadIdx.x & 31;
-  int acc = 0;
-  for (int i = 0; i < iters; ++i) {
-    const int par = i & 1;
-    if (threadIdx.x < 32) {
-      if (lane < C) {
-        Cand<float> cd;
-        cd.val = static_cast<float>(i + rank);
-        cd.idx = rank;
-        cd.pid = i;
-        cd.src = lane;
-        *cluster.map_shared_rank(&cand[par][rank], lane) = cd;
-      }
-      for (int e = lane; e < C * 32; e += 32) {
-        *cluster.map_shared_rank(&rows[par][rank][e % 32], e / 32) = static_cast<float>(e);
-      }
-    }
-    cluster.sync();
-    float bv = -1.0f;
-    int bi = INT_MAX, bg = 0;
-    for (int g = 0; g < C; ++g) {
-      if (better(cand[par][g].val, cand[par][g].idx, bv, bi)) {
-        bv = cand[par][g].val;
-        bi = cand[par][g].idx;
-        bg = g;
-      }
-    }
-    acc += bg + static_cast<int>(rows[par][bg][lane]);
-  }
-  cluster.sync();
-  if (blockIdx.x == 0 && threadIdx.x == 0) *sink = acc;
-}
-
-int bench_barrier(int kind, int n, int iters, int device, void* sink, void* stream_) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  int* out = static_cast<int*>(sink);
-  if (kind == 0) {  // grid.sync() over n blocks of kThreads
-    void* args[] = {&iters, &out};
-    e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(bench_grid_sync_kernel), dim3(n),
-                                    dim3(kThreads), args, 0, stream);
-  } else if (kind == 2) {  // __syncthreads() in one CTA of kChainThreads
-    bench_syncthreads_kernel<<<1, kChainThreads, 0, stream>>>(iters, out);
-    e = cudaGetLastError();
-  } else if (kind == 1 || kind == 3) {  // cluster.sync() / exchange over n CTAs
-    const void* fn = kind == 1 ? reinterpret_cast<const void*>(bench_cluster_sync_kernel)
-                               : reinterpret_cast<const void*>(bench_exchange_kernel);
-    if (n > 8) {
-      e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(n);
-    cfg.blockDim = dim3(kChainThreads);
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = n;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    e = kind == 1 ? cudaLaunchKernelEx(&cfg, bench_cluster_sync_kernel, iters, out)
-                  : cudaLaunchKernelEx(&cfg, bench_exchange_kernel, iters, out);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -526,10 +417,8 @@ extern "C" {
 // (4 or 8) whose elimination starts at row `ofs` (0 for the main-path
 // kernel; 0 <= ofs <= m - w for the offset kernel), with block width `b`
 // and cluster size `C` (0, 0: the launcher's choice; b < 0: the grid
-// route; b >= w: one block).  Fills out[6] = {route (1 cluster, 0 grid),
-// b (-1 on the grid route), C (the grid route: its grid), blocks, ws
-// reals, iws int32s}; the caller allocates the two workspaces with those
-// sizes (at least one element each).  Returns a cudaError_t code, 0 on
+// route; b >= w: one block).  Fills out[kPlanInts] as write_plan says (the
+// workspaces at least one element each).  Returns a cudaError_t code, 0 on
 // success; cudaErrorInvalidConfiguration when an explicit (b, C) does not
 // fit the card.
 int rf_panel_lu_plan(int m, int w, int elem_size, int ofs, int b, int C, int device,
@@ -543,23 +432,21 @@ int rf_offset_panel_lu_plan(int m, int w, int elem_size, int ofs, int b, int C, 
 }
 
 // Factor the panel in place on `stream`, with the plan's (b, C) (0, 0 for
-// the launcher's choice).  `lookaheads` and `mbarriers` (host) get the
-// number of chain launches that took the look-ahead step and the mbarrier
-// exchange (every block's, on a cluster of C > 1).  Returns a cudaError_t
-// code (0 on success) for the launches; faults during the run surface at
-// the next synchronisation.
+// the launcher's choice); `stats` (host) gets the launch's PanelStats.
+// Returns a cudaError_t code (0 on success) for the launches; faults during
+// the run surface at the next synchronisation.
 int rf_panel_lu_f32(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv,
-                    void* perm, void* info, void* ws, void* iws, int* lookaheads, int* mbarriers,
-                    int device, void* stream) {
-  return run<float, false>(a, m, w, lda, pivot, 0, b, C, piv, perm, info, ws, iws, lookaheads,
-                           mbarriers, device, stream);
+                    void* perm, void* info, void* ws, void* iws, PanelStats* stats, int device,
+                    void* stream) {
+  return run<float, false>(a, m, w, lda, pivot, 0, b, C, piv, perm, info, ws, iws, stats,
+                           device, stream);
 }
 
 int rf_panel_lu_f64(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv,
-                    void* perm, void* info, void* ws, void* iws, int* lookaheads, int* mbarriers,
-                    int device, void* stream) {
-  return run<double, false>(a, m, w, lda, pivot, 0, b, C, piv, perm, info, ws, iws, lookaheads,
-                            mbarriers, device, stream);
+                    void* perm, void* info, void* ws, void* iws, PanelStats* stats, int device,
+                    void* stream) {
+  return run<double, false>(a, m, w, lda, pivot, 0, b, C, piv, perm, info, ws, iws, stats,
+                            device, stream);
 }
 
 // The offset kernel: factor rows [ofs, m) of the panel in place on
@@ -567,60 +454,48 @@ int rf_panel_lu_f64(void* a, int m, int w, int lda, int pivot, int b, int C, voi
 // rows, info the signed panel-local step.
 int rf_offset_panel_lu_f32(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C,
                            void* piv, void* perm, void* info, void* ws, void* iws,
-                           int* lookaheads, int* mbarriers, int device, void* stream) {
-  return run<float, true>(a, m, w, lda, pivot, ofs, b, C, piv, perm, info, ws, iws, lookaheads,
-                          mbarriers, device, stream);
+                           PanelStats* stats, int device, void* stream) {
+  return run<float, true>(a, m, w, lda, pivot, ofs, b, C, piv, perm, info, ws, iws, stats,
+                          device, stream);
 }
 
 int rf_offset_panel_lu_f64(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C,
                            void* piv, void* perm, void* info, void* ws, void* iws,
-                           int* lookaheads, int* mbarriers, int device, void* stream) {
-  return run<double, true>(a, m, w, lda, pivot, ofs, b, C, piv, perm, info, ws, iws, lookaheads,
-                           mbarriers, device, stream);
+                           PanelStats* stats, int device, void* stream) {
+  return run<double, true>(a, m, w, lda, pivot, ofs, b, C, piv, perm, info, ws, iws, stats,
+                           device, stream);
 }
 
 // The plan of the bf16x3 form on an (m, w) float32 panel with blocks of b
 // steps (any b >= 1; b >= w: one block, no boundary), cluster size C (0:
 // the launcher's choice) and `chain` 1 to run every block's chain on the
-// grid (0: only the blocks too tall for a cluster).  Fills out[7] as
-// rf_panel_lu_plan fills out[6] (route 1, the cluster route; C 0 where no
-// block's chain runs on a cluster), and out[6] = the blocks whose chain
-// runs on the grid.  Returns cudaErrorInvalidConfiguration when an explicit
-// C does not fit the card.
+// grid (0: only the blocks too tall for a cluster).  Fills out[kPlanInts]
+// (route 1, the cluster route; C 0 where no block's chain runs on a
+// cluster).  Returns cudaErrorInvalidConfiguration when an explicit C does
+// not fit the card.
 int rf_panel_lu_bf16x3_plan(int m, int w, int b, int C, int chain, int device, int* out) {
   Plan pl;
   const int err = bf16x3_plan(m, w, b, C, chain, device, &pl);
-  if (err != 0) return err;
-  out[0] = pl.route;
-  out[1] = pl.b;
-  out[2] = pl.C;
-  out[3] = pl.blocks;
-  out[4] = static_cast<int>(pl.ws_reals);
-  out[5] = static_cast<int>(pl.iws_ints);
-  out[6] = pl.grid_blocks;
-  return 0;
+  if (err == 0) write_plan(pl, out);
+  return err;
 }
 
 // Factor the float32 panel in place on `stream` in the bf16x3 form, with the
-// plan of (b, C, chain); `iws` holds the plan's iws int32s.  `simple` = 1
-// forces the simple update kernel (default 0: the tiled one).  `updates`,
-// `grids`, `lookaheads` and `mbarriers` (host) get the number of bf16x3
-// update launches, of grid chain launches and of cluster chain launches
-// that took the look-ahead step and the mbarrier exchange.  Returns a
-// cudaError_t code.
+// plan of (b, C, chain); `iws` holds the plan's iws int32s, `ws` is unused
+// (the form has no grid route).  `simple` = 1 forces the simple update
+// kernel (default 0: the tiled one).  `stats` (host) gets the launch's
+// PanelStats.  Returns a cudaError_t code.
 int rf_panel_lu_bf16x3_f32(void* a, int m, int w, int lda, int pivot, int b, int C, int simple,
-                           int chain, void* piv, void* perm, void* info, void* iws, int* updates,
-                           int* grids, int* lookaheads, int* mbarriers, int device,
-                           void* stream) {
-  *updates = *grids = *lookaheads = *mbarriers = 0;
+                           int chain, void* piv, void* perm, void* info, void* ws, void* iws,
+                           PanelStats* stats, int device, void* stream) {
+  *stats = PanelStats{};
   if (simple != 0 && simple != 1) return static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
   const int err = bf16x3_plan(m, w, b, C, chain, device, &pl);
   if (err != 0) return err;
   return run_cluster<float, kBf16x3>(static_cast<float*>(a), m, w, lda, pivot, 0, pl, piv,
-                                     perm, info, iws, static_cast<cudaStream_t>(stream),
-                                     updates, simple ? kUpdSimple : kUpdTiled, grids,
-                                     lookaheads, mbarriers);
+                                     perm, info, iws, static_cast<cudaStream_t>(stream), stats,
+                                     simple ? kUpdSimple : kUpdTiled);
 }
 
 // One bf16x3 update on `stream`: c (rows x cols, row stride ldc) -=
@@ -678,18 +553,6 @@ int rf_panel_update_bf16x3_plan(int rows, int cols, int nb, int* out) {
 int rf_panel_lu_set_trace(void* buf) {
   g_trace = static_cast<long long*>(buf);
   return 0;
-}
-
-// Barrier microbenchmark: one launch of `iters` barriers of kind 0
-// (grid.sync() over a cooperative grid of n blocks of 256 threads), 1
-// (cluster.sync() over a cluster of n CTAs of 512), 2 (__syncthreads() in
-// one CTA of 512) or 3 (a candidate exchange in the chain kernel's former
-// cluster-barrier form over a cluster of n: DSMEM writes to every CTA,
-// cluster.sync(), the reduction).
-// `sink` is one int32 on the device.  Time two launches with different
-// `iters` to take the launch out.
-int rf_bench_barrier(int kind, int n, int iters, int device, void* sink, void* stream) {
-  return bench_barrier(kind, n, iters, device, sink, stream);
 }
 
 }  // extern "C"

@@ -362,17 +362,17 @@ int full_plan(int m, int w, int ofs, int b, int C, int device, Plan* pl) {
 
 template <typename T, bool kOffset>
 int run(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C, void* piv,
-        void* perm, void* info, void* ws, void* iws, int* lookaheads, int* mbarriers,
-        int device, void* stream_) {
+        void* perm, void* info, void* ws, void* iws, PanelStats* stats, int device,
+        void* stream_) {
   using C2 = typename Pair<T>::type;
-  *lookaheads = *mbarriers = 0;
+  *stats = PanelStats{};
   Plan pl;
   int err = full_plan<T, kOffset>(m, w, ofs, b, C, device, &pl);
   if (err != 0) return err;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (pl.route == kRouteCluster) {
     return run_cluster<C2>(static_cast<C2*>(a), m, w, lda, pivot, ofs, pl, piv, perm, info,
-                           iws, stream, nullptr, kUpdTiled, nullptr, lookaheads, mbarriers);
+                           iws, stream, stats);
   }
   const int g = pl.grid;
   PanelArgs<T> p;
@@ -411,14 +411,8 @@ int plan_entry(int m, int w, int elem_size, int ofs, int b, int C, int device, i
   Plan pl;
   const int err = elem_size == 16 ? full_plan<double, kOffset>(m, w, ofs, b, C, device, &pl)
                                   : full_plan<float, kOffset>(m, w, ofs, b, C, device, &pl);
-  if (err != 0) return err;
-  out[0] = pl.route;
-  out[1] = pl.route == kRouteCluster ? pl.b : -1;
-  out[2] = pl.route == kRouteCluster ? pl.C : pl.grid;
-  out[3] = pl.route == kRouteCluster ? pl.blocks : 1;
-  out[4] = static_cast<int>(pl.ws_reals);
-  out[5] = static_cast<int>(pl.iws_ints);
-  return 0;
+  if (err == 0) write_plan(pl, out);
+  return err;
 }
 
 }  // namespace
@@ -430,10 +424,8 @@ extern "C" {
 // and cluster size `C` (0, 0: the launcher's choice; b < 0: the grid route;
 // b >= w: one block); `ofs` must be 0 for the main-path kernel (0 <= ofs
 // <= m - w for the offset kernel, rf_offset_panel_lu_c_plan).  Fills
-// out[6] = {route (1 cluster, 0 grid), b (-1 on the grid route), C (the
-// grid route: its grid), blocks, ws reals (of the real type), iws int32s};
-// the caller allocates the two workspaces with those sizes (at least one
-// element each).  Returns a cudaError_t code, 0 on success;
+// out[kPlanInts] as write_plan says (ws counts reals of the real type; the
+// workspaces at least one element each).  Returns a cudaError_t code, 0 on success;
 // cudaErrorInvalidConfiguration when an explicit (b, C) does not fit the
 // card.
 int rf_panel_lu_c_plan(int m, int w, int elem_size, int ofs, int b, int C, int device,
@@ -448,23 +440,22 @@ int rf_offset_panel_lu_c_plan(int m, int w, int elem_size, int ofs, int b, int C
 
 // Factor the panel in place on `stream`, with the plan's (b, C) (0, 0 for
 // the launcher's choice); `a` points at interleaved (re, im) pairs and
-// `lda` counts complex elements.  `lookaheads` and `mbarriers` (host) get
-// the number of chain launches that took the look-ahead step and the
-// mbarrier exchange (on a cluster of C > 1).
+// `lda` counts complex elements.  `stats` (host) gets the launch's
+// PanelStats.
 // Returns a cudaError_t code (0 on success) for the launches; faults during
 // the run surface at the next synchronisation.
 int rf_panel_lu_c64(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv,
-                    void* perm, void* info, void* ws, void* iws, int* lookaheads, int* mbarriers,
-                    int device, void* stream) {
-  return run<float, false>(a, m, w, lda, pivot, 0, b, C, piv, perm, info, ws, iws, lookaheads,
-                           mbarriers, device, stream);
+                    void* perm, void* info, void* ws, void* iws, PanelStats* stats, int device,
+                    void* stream) {
+  return run<float, false>(a, m, w, lda, pivot, 0, b, C, piv, perm, info, ws, iws, stats,
+                           device, stream);
 }
 
 int rf_panel_lu_c128(void* a, int m, int w, int lda, int pivot, int b, int C, void* piv,
-                     void* perm, void* info, void* ws, void* iws, int* lookaheads, int* mbarriers,
-                     int device, void* stream) {
-  return run<double, false>(a, m, w, lda, pivot, 0, b, C, piv, perm, info, ws, iws, lookaheads,
-                            mbarriers, device, stream);
+                     void* perm, void* info, void* ws, void* iws, PanelStats* stats, int device,
+                     void* stream) {
+  return run<double, false>(a, m, w, lda, pivot, 0, b, C, piv, perm, info, ws, iws, stats,
+                            device, stream);
 }
 
 // The offset kernel: factor rows [ofs, m) of the complex panel in place on
@@ -475,16 +466,16 @@ int rf_panel_lu_c128(void* a, int m, int w, int lda, int pivot, int b, int C, vo
 // makes the pivot row m - 1, the last row of the panel.
 int rf_offset_panel_lu_c64(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C,
                            void* piv, void* perm, void* info, void* ws, void* iws,
-                           int* lookaheads, int* mbarriers, int device, void* stream) {
-  return run<float, true>(a, m, w, lda, pivot, ofs, b, C, piv, perm, info, ws, iws, lookaheads,
-                          mbarriers, device, stream);
+                           PanelStats* stats, int device, void* stream) {
+  return run<float, true>(a, m, w, lda, pivot, ofs, b, C, piv, perm, info, ws, iws, stats,
+                          device, stream);
 }
 
 int rf_offset_panel_lu_c128(void* a, int m, int w, int lda, int pivot, int ofs, int b, int C,
                             void* piv, void* perm, void* info, void* ws, void* iws,
-                            int* lookaheads, int* mbarriers, int device, void* stream) {
-  return run<double, true>(a, m, w, lda, pivot, ofs, b, C, piv, perm, info, ws, iws, lookaheads,
-                           mbarriers, device, stream);
+                            PanelStats* stats, int device, void* stream) {
+  return run<double, true>(a, m, w, lda, pivot, ofs, b, C, piv, perm, info, ws, iws, stats,
+                           device, stream);
 }
 
 // Phase trace of the cluster route's chain kernel, as rf_panel_lu_set_trace

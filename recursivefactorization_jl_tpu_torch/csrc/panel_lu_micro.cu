@@ -427,17 +427,16 @@ int full_plan(int m, int w, int micro, int b, int C, int chain, int device, Plan
 
 template <typename T, bool kShadow>
 int run(void* a, int m, int w, int lda, int pivot, int micro, int b, int C, int chain,
-        void* piv, void* perm, void* info, void* ws, void* iws, int* grids, int* lookaheads,
-        int* mbarriers, int device, void* stream_) {
-  *grids = *lookaheads = *mbarriers = 0;
+        void* piv, void* perm, void* info, void* ws, void* iws, PanelStats* stats, int device,
+        void* stream_) {
+  *stats = PanelStats{};
   Plan pl;
   int err = full_plan<T, kShadow>(m, w, micro, b, C, chain, device, &pl);
   if (err != 0) return err;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (pl.route == kRouteCluster) {
     return run_cluster<T, kSumFirst>(static_cast<T*>(a), m, w, lda, pivot, 0, pl, piv, perm, info,
-                                     iws, stream, nullptr, kUpdTiled, grids, lookaheads,
-                                     mbarriers);
+                                     iws, stream, stats);
   }
   const int g = pl.grid;
   const int rows = (m + g - 1) / g;
@@ -481,11 +480,9 @@ int rf_panel_lu_micro_max() { return kMicroMax; }
 // launcher's choice (the cluster route where the panel fits a cluster, or
 // past kMicroMax steps), b < 0 for the grid route (micro <= kMicroMax); C
 // = 0 picks the cluster size; `chain` = 1 runs every block's chain on the
-// grid.  Fills out[7] = {route (1 cluster, 0 grid), b (-1 on the grid
-// route), C (the grid route: its grid), blocks, ws elements, iws int32s,
-// the blocks whose chain runs on the grid}.  Returns a cudaError_t code, 0
-// on success; cudaErrorInvalidConfiguration when an explicit C does not fit
-// the card.
+// grid.  Fills out[kPlanInts] as write_plan says.  Returns a cudaError_t
+// code, 0 on success; cudaErrorInvalidConfiguration when an explicit C does
+// not fit the card.
 int rf_panel_lu_micro_plan(int m, int w, int elem_size, int micro, int shadow, int b, int C,
                            int chain, int device, int* out) {
   Plan pl;
@@ -497,53 +494,40 @@ int rf_panel_lu_micro_plan(int m, int w, int elem_size, int micro, int shadow, i
     err = shadow ? full_plan<float, true>(m, w, micro, b, C, chain, device, &pl)
                  : full_plan<float, false>(m, w, micro, b, C, chain, device, &pl);
   }
-  if (err != 0) return err;
-  out[0] = pl.route;
-  out[1] = pl.route == kRouteCluster ? pl.b : -1;
-  out[2] = pl.route == kRouteCluster ? pl.C : pl.grid;
-  out[3] = pl.route == kRouteCluster ? pl.blocks : 1;
-  out[4] = static_cast<int>(pl.ws_reals);
-  out[5] = static_cast<int>(pl.iws_ints);
-  out[6] = pl.grid_blocks;
-  return 0;
+  if (err == 0) write_plan(pl, out);
+  return err;
 }
 
 // Factor the panel in place on `stream` with the plan of (micro, b, C,
-// chain); `grids`, `lookaheads` and `mbarriers` (host) get the number of
-// grid-chain launches and of cluster chain launches that took the
-// look-ahead step and the mbarrier exchange.  Each returns a cudaError_t
-// code (0 on success) for the launches; faults during the run surface at
-// the next synchronisation.
+// chain); `stats` (host) gets the launch's PanelStats.  Each returns a
+// cudaError_t code (0 on success) for the launches; faults during the run
+// surface at the next synchronisation.
 int rf_panel_lu_shadow_f32(void* a, int m, int w, int lda, int pivot, int micro, int b, int C,
                            int chain, void* piv, void* perm, void* info, void* ws, void* iws,
-                           int* grids, int* lookaheads, int* mbarriers, int device,
-                          void* stream) {
+                           PanelStats* stats, int device, void* stream) {
   return run<float, true>(a, m, w, lda, pivot, micro, b, C, chain, piv, perm, info, ws, iws,
-                          grids, lookaheads, mbarriers, device, stream);
+                          stats, device, stream);
 }
 
 int rf_panel_lu_shadow_f64(void* a, int m, int w, int lda, int pivot, int micro, int b, int C,
                            int chain, void* piv, void* perm, void* info, void* ws, void* iws,
-                           int* grids, int* lookaheads, int* mbarriers, int device,
-                          void* stream) {
+                           PanelStats* stats, int device, void* stream) {
   return run<double, true>(a, m, w, lda, pivot, micro, b, C, chain, piv, perm, info, ws, iws,
-                           grids, lookaheads, mbarriers, device, stream);
+                           stats, device, stream);
 }
 
 int rf_panel_lu_basic_f32(void* a, int m, int w, int lda, int pivot, int micro, int b, int C,
                           int chain, void* piv, void* perm, void* info, void* ws, void* iws,
-                          int* grids, int* lookaheads, int* mbarriers, int device,
-                          void* stream) {
+                          PanelStats* stats, int device, void* stream) {
   return run<float, false>(a, m, w, lda, pivot, micro, b, C, chain, piv, perm, info, ws, iws,
-                           grids, lookaheads, mbarriers, device, stream);
+                           stats, device, stream);
 }
 
 int rf_panel_lu_basic_f64(void* a, int m, int w, int lda, int pivot, int micro, int b, int C,
                           int chain, void* piv, void* perm, void* info, void* ws, void* iws,
-                          int* grids, int* lookaheads, int* mbarriers, int device,
-                          void* stream) {
+                          PanelStats* stats, int device, void* stream) {
   return run<double, false>(a, m, w, lda, pivot, micro, b, C, chain, piv, perm, info, ws, iws,
-                            grids, lookaheads, mbarriers, device, stream);
+                            stats, device, stream);
 }
 
 // Phase trace of the cluster route's chain kernel, as rf_panel_lu_set_trace

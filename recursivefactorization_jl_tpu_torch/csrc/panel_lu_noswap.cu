@@ -716,7 +716,7 @@ int ns_delay_opt_in() {
 template <typename T>
 int run_cluster_noswap(T* A, int m, int w, int lda, int pivot, int live, const Plan& pl,
                        const int* used0, int* used, int* prow, int* info, int* list,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, PanelStats* stats) {
   int err = ns_delay_opt_in<T>();
   if (err != 0) return err;
   const int steps = m < w ? m : w;
@@ -768,6 +768,7 @@ int run_cluster_noswap(T* A, int m, int w, int lda, int pivot, int live, const P
                                 stream>>>(d);
       e = cudaGetLastError();
       if (e != cudaSuccess) return static_cast<int>(e);
+      ++stats->updates;
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -775,7 +776,9 @@ int run_cluster_noswap(T* A, int m, int w, int lda, int pivot, int live, const P
 
 template <typename T>
 int run(void* a, int m, int w, int lda, int pivot, int live, int b, int C, const void* used0,
-        void* used, void* prow, void* info, void* ws, void* iws, int device, void* stream_) {
+        void* prow, void* used, void* info, void* ws, void* iws, PanelStats* stats, int device,
+        void* stream_) {
+  *stats = PanelStats{};
   Plan pl;
   int err = full_plan<T>(m, w, live, b, C, device, &pl);
   if (err != 0) return err;
@@ -784,7 +787,7 @@ int run(void* a, int m, int w, int lda, int pivot, int live, int b, int C, const
     return run_cluster_noswap<T>(static_cast<T*>(a), m, w, lda, pivot, live, pl,
                                  static_cast<const int*>(used0), static_cast<int*>(used),
                                  static_cast<int*>(prow), static_cast<int*>(info),
-                                 static_cast<int*>(iws), stream);
+                                 static_cast<int*>(iws), stream, stats);
   }
   const int g = pl.grid;
   NoswapArgs<T> p;
@@ -818,43 +821,37 @@ extern "C" {
 // (4 or 8) of which `live` rows are available (0 <= live <= m; m when the
 // caller has no count), with block width `b` and cluster size `C` (0, 0:
 // the launcher's choice; b < 0: the grid route; b >= w: one block).
-// Fills out[6] = {route (1 cluster, 0 grid), b (-1 on the grid route), C
-// (the grid route: its grid), blocks, ws elements, iws int32s}; the caller
-// allocates the two workspaces with those sizes.  Returns a cudaError_t
-// code, 0 on success; cudaErrorInvalidConfiguration when an explicit
-// (b, C) does not fit the card.
+// Fills out[kPlanInts] as write_plan says (no block's chain runs on the
+// grid here).  Returns a cudaError_t code, 0 on success;
+// cudaErrorInvalidConfiguration when an explicit (b, C) does not fit the
+// card.
 int rf_panel_lu_noswap_plan(int m, int w, int elem_size, int live, int b, int C, int device,
                             int* out) {
   Plan pl;
   const int err = elem_size == 8 ? full_plan<double>(m, w, live, b, C, device, &pl)
                                  : full_plan<float>(m, w, live, b, C, device, &pl);
-  if (err != 0) return err;
-  out[0] = pl.route;
-  out[1] = pl.route == kRouteCluster ? pl.b : -1;
-  out[2] = pl.route == kRouteCluster ? pl.C : pl.grid;
-  out[3] = pl.route == kRouteCluster ? pl.blocks : 1;
-  out[4] = static_cast<int>(pl.ws_reals);
-  out[5] = static_cast<int>(pl.iws_ints);
-  return 0;
+  if (err == 0) write_plan(pl, out);
+  return err;
 }
 
 // Factor the panel in place on `stream` with the plan of (live, b, C);
-// `used0` and `used` are int32 (m,) and may not overlap.  Returns a
-// cudaError_t code (0 on success) for the launches; faults during the run
-// (a mask with more available rows than `live` allows among them) surface
-// at the next synchronisation.
+// `used0` and `used` are int32 (m,) and may not overlap; `stats` (host)
+// gets the launch's PanelStats (the no-swap chain counts its delayed
+// updates alone).  Returns a cudaError_t code (0 on success) for the
+// launches; faults during the run (a mask with more available rows than
+// `live` allows among them) surface at the next synchronisation.
 int rf_panel_lu_noswap_f32(void* a, int m, int w, int lda, int pivot, int live, int b, int C,
-                           const void* used0, void* used, void* prow, void* info, void* ws,
-                           void* iws, int device, void* stream) {
-  return run<float>(a, m, w, lda, pivot, live, b, C, used0, used, prow, info, ws, iws, device,
-                    stream);
+                           const void* used0, void* prow, void* used, void* info, void* ws,
+                           void* iws, PanelStats* stats, int device, void* stream) {
+  return run<float>(a, m, w, lda, pivot, live, b, C, used0, prow, used, info, ws, iws, stats,
+                    device, stream);
 }
 
 int rf_panel_lu_noswap_f64(void* a, int m, int w, int lda, int pivot, int live, int b, int C,
-                           const void* used0, void* used, void* prow, void* info, void* ws,
-                           void* iws, int device, void* stream) {
-  return run<double>(a, m, w, lda, pivot, live, b, C, used0, used, prow, info, ws, iws, device,
-                     stream);
+                           const void* used0, void* prow, void* used, void* info, void* ws,
+                           void* iws, PanelStats* stats, int device, void* stream) {
+  return run<double>(a, m, w, lda, pivot, live, b, C, used0, prow, used, info, ws, iws, stats,
+                     device, stream);
 }
 
 // Phase trace of the cluster route's chain kernel, as rf_panel_lu_set_trace

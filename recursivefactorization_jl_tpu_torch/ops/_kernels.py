@@ -67,26 +67,39 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# panel, m, w, lda, pivot, micro, b, C, chain, piv, perm, info, ws, iws, grids
-# (host int), lookaheads (host int), mbarriers (host int), device, stream
-_PANEL_MICRO = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                     _P])
-# panel, m, w, lda, pivot, live, b, C, used0, used, prow, info, ws, iws, device,
-# stream
-_PANEL_NOSWAP = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P])
+
+
+class PanelStats(ctypes.Structure):
+    """csrc/panel_cluster.cuh ``PanelStats``: what one launch of a panel
+    kernel reports in host memory (the chain launches that took the
+    look-ahead step and the mbarrier exchange, the blocks whose chain ran on
+    the grid, the delayed update launches)."""
+
+    _fields_ = [("lookaheads", _I), ("grid_blocks", _I), ("updates", _I)]
+
+
+# the int32s of every panel family's plan (csrc/panel_cluster.cuh kPlanInts,
+# write_plan): route, b, C or grid, blocks, ws reals, iws int32s, grid blocks
+PLAN_INTS = 7
+
+
+def _panel(*own):
+    """The signature every panel entry point shares: panel, m, w, lda,
+    pivot, the family's ``own`` arguments, piv, perm, info (the no-swap
+    kernel: prow, used, info), ws, iws, stats, device, stream."""
+    return (_I, [_P, _I, _I, _I, _I, *own, _P, _P, _P, _P, _P, ctypes.POINTER(PanelStats), _I,
+                 _P])
+
+
+_PANEL_BC = _panel(_I, _I)  # b, C
+_PANEL_OFS_BC = _panel(_I, _I, _I)  # ofs, b, C
+# micro, b, C, chain; the bf16x3 form: b, C, simple, chain
+_PANEL_MICRO = _panel(_I, _I, _I, _I)
+_PANEL_NOSWAP = _panel(_I, _I, _I, _P)  # live, b, C, used0
 # csrc/panel_lu.cu, csrc/panel_lu_c64.cu: m, w, elem_size, ofs, b, C, device,
-# out[6]; csrc/panel_lu_noswap.cu the same with the live row count for ofs
+# out[PLAN_INTS]; csrc/panel_lu_noswap.cu the same with the live row count
+# for ofs
 _PANEL_PLAN = (_I, [_I, _I, _I, _I, _I, _I, _I, _P])
-# panel, m, w, lda, pivot, b, C, piv, perm, info, ws, iws, lookaheads (host
-# int), mbarriers (host int), device, stream
-_PANEL_BC = (_I, [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P])
-# the same with the offset after pivot
-_PANEL_OFS_BC = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P])
-# the bf16x3 form: panel, m, w, lda, pivot, b, C, simple, chain, piv, perm,
-# info, iws, updates (host int), grids (host int), lookaheads (host int),
-# mbarriers (host int), device, stream
-_PANEL_BF16X3 = (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                      _P])
 # a, out, ipiv, perm, info, batch, m, n, pivot, route, smem, device, stream
 _BATCHED_SWAP = (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
 # a, out, perm, info, batch, n, pivot, route, smem, device, stream
@@ -113,14 +126,13 @@ SIGNATURES = {
         "rf_offset_panel_lu_plan": _PANEL_PLAN,
         "rf_offset_panel_lu_f32": _PANEL_OFS_BC,
         "rf_offset_panel_lu_f64": _PANEL_OFS_BC,
-        # m, w, b, C, chain, device, out[7]
+        # m, w, b, C, chain, device, out[PLAN_INTS]
         "rf_panel_lu_bf16x3_plan": (_I, [_I, _I, _I, _I, _I, _I, _P]),
-        "rf_panel_lu_bf16x3_f32": _PANEL_BF16X3,
+        "rf_panel_lu_bf16x3_f32": _PANEL_MICRO,
         # l, ldl, u, ldu, c, ldc, rows, cols, nb, simple, device, stream
         "rf_panel_update_bf16x3_f32": (_I, [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P]),
         # rows, cols, nb, out[5]
         "rf_panel_update_bf16x3_plan": (_I, [_I, _I, _I, _P]),
-        "rf_bench_barrier": (_I, [_I, _I, _I, _I, _P, _P]),
         "rf_panel_lu_set_trace": (_I, [_P]),
         "rf_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -136,7 +148,7 @@ SIGNATURES = {
     },
     "panel_lu_micro": {
         "rf_panel_lu_micro_max": (_I, []),
-        # m, w, elem_size, micro, shadow, b, C, chain, device, out[7]
+        # m, w, elem_size, micro, shadow, b, C, chain, device, out[PLAN_INTS]
         "rf_panel_lu_micro_plan": (_I, [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
         "rf_panel_lu_shadow_f32": _PANEL_MICRO,
         "rf_panel_lu_shadow_f64": _PANEL_MICRO,

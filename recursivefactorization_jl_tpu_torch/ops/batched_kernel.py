@@ -21,7 +21,7 @@ csrc/batched_solve.cu):
   is used; on the card the same kernels as the swap mode in their noswap
   mode (:func:`noswap_route`): the warp route at n <= 32 (lane i keeps
   physical row i), the register-tiled block route up to 128 (a used bit
-  per row slot), the shared-memory tile only when forced;
+  per row slot);
 * :func:`batched_solve` -- unit-lower forward then upper backward
   substitution (``_lane_solve_kernel``) on right-hand sides in pivot
   order: already there, or brought there from the factorization's
@@ -29,8 +29,7 @@ csrc/batched_solve.cu):
   one of two kernels by shape (:func:`solve_route`): a warp per matrix
   with its factor rows in registers at n <= 32, a warp per matrix with
   rows l + 32 r of x in lane l and the factors streamed through shared
-  memory 32 columns at a time up to 128; the original block per matrix only
-  when forced.
+  memory 32 columns at a time up to 128.
 
 A CPU tensor goes to the plain version, a CUDA tensor launches the
 kernel or raises; there is no fallback between the two.
@@ -116,10 +115,10 @@ def _route_takes(route: str, m: int, n: int) -> bool:
     return route in LU_ROUTES and LU_ROUTES.index(route) >= LU_ROUTES.index(lu_route(m, n))
 
 
-# The noswap kernel takes the swap kernel's routes on its square (n, n)
-# matrices (csrc/batched_lu.cu, the same kernel functions in their noswap
-# mode): "warp" at n <= 32, "block" up to 128, and "tile" (the original
-# shared-memory kernel) only when forced.
+# The noswap kernel takes the swap kernel's first two routes on its square
+# (n, n) matrices (csrc/batched_lu.cu, the same kernel functions in their
+# noswap mode): "warp" at n <= 32, "block" up to 128.
+NOSWAP_ROUTES = LU_ROUTES[:2]
 
 
 def noswap_route(n: int) -> str:
@@ -133,10 +132,8 @@ def noswap_route(n: int) -> str:
 #            warps per block;
 #   "wide"   32 < n <= 128: a warp per matrix, rows l + 32 r of x in lane
 #            l's registers, the factors through a shared-memory tile of 32
-#            columns at a time; 1, 2 or 4 warps per block;
-#   "block"  any n when forced (the original design): one block per matrix, the
-#            factors and the right-hand sides in shared memory.
-SOLVE_ROUTES = ("warp", "block", "wide")
+#            columns at a time; 1, 2 or 4 warps per block.
+SOLVE_ROUTES = ("warp", "wide")
 SOLVE_WARP_MAX_N = 32
 SOLVE_WIDE_LD = 33
 
@@ -146,19 +143,15 @@ def solve_route(n: int, nrhs: int) -> str:
     right-hand sides: the warp route at n <= 32 whatever nrhs (it takes
     them four at a time; with 8 of them it still took a quarter to a
     third of the block route's time at n = 16 and 32 on the H100,
-    PERF.md), the wide route up to 128 (four at a time as well), the
-    block route beyond (no shape the kernels take)."""
-    if n <= SOLVE_WARP_MAX_N:
-        return "warp"
-    return "wide" if n <= KERNEL_MAX_N else "block"
+    PERF.md), the wide route beyond, up to 128 (four at a time as
+    well)."""
+    return "warp" if n <= SOLVE_WARP_MAX_N else "wide"
 
 
 def _solve_route_takes(route: str, n: int) -> bool:
     if route == "warp":
         return n <= SOLVE_WARP_MAX_N
-    if route == "wide":
-        return SOLVE_WARP_MAX_N < n <= KERNEL_MAX_N
-    return route == "block"
+    return route == "wide" and SOLVE_WARP_MAX_N < n <= KERNEL_MAX_N
 
 
 def wide_group(n: int, itemsize: int) -> int:
@@ -181,9 +174,9 @@ def _solve_lanes(n: int) -> int:
 
 
 def tile_smem_bytes(m: int, n: int, itemsize: int) -> int:
-    """Dynamic shared memory of one shared-memory tile block (the swap
-    kernel's tile route and the noswap kernel): the (m, n + 1) padded
-    tile, a column of m multipliers, and 2 * m int32 of bookkeeping."""
+    """Dynamic shared memory of one block of the swap kernel's tile route:
+    the (m, n + 1) padded tile, a column of m multipliers, and 2 * m int32
+    of bookkeeping."""
     return (m * (n + 1) + m) * itemsize + 8 * m
 
 
@@ -212,34 +205,31 @@ def noswap_smem_bytes(n: int, itemsize: int, route: Optional[str] = None) -> int
     route: per matrix two row-kp exchange buffers of the column capacity
     and the n x (n | 1) staging tile.  The block route: row kp, the
     multipliers, the candidates' values and a[n - 1, k]; the candidates'
-    rows, the pivot row of each step and the step of each row.  The tile
-    route: :func:`tile_smem_bytes`."""
+    rows, the pivot row of each step and the step of each row."""
     route = route or noswap_route(n)
     if route == "warp":
         lanes, cols = _warp_grid(n, n)
         return (_WARP_THREADS // lanes) * (2 * cols + n * (n | 1)) * itemsize
-    if route == "block":
-        side, slots = _block_grid(n, n)
-        cap = side * slots
-        return (2 * cap + side + 1) * itemsize + 4 * (side + 2 * cap)
-    return tile_smem_bytes(n, n, itemsize)
+    if route != "block":
+        raise ValueError(f"the noswap kernel has no route {route!r}: {NOSWAP_ROUTES}")
+    side, slots = _block_grid(n, n)
+    cap = side * slots
+    return (2 * cap + side + 1) * itemsize + 4 * (side + 2 * cap)
 
 
 def solve_smem_bytes(n: int, nrhs: int, itemsize: int, route: Optional[str] = None) -> int:
     """Dynamic shared memory of one solve block under ``route`` (default:
-    the shape's own, :func:`solve_route`).  The block route: the (n, n +
-    1) padded factor tile, the working right-hand sides, the solution,
-    and n int32 of perm or ipiv.  The warp route: per matrix of the block
-    (128 / lanes of them) the factors' staging tile, n x (n | 1),
-    whatever nrhs.  The wide route: per matrix of the block
+    the shape's own, :func:`solve_route`).  The warp route: per matrix of
+    the block (128 / lanes of them) the factors' staging tile, n x (n |
+    1), whatever nrhs.  The wide route: per matrix of the block
     (:func:`wide_group`) an n x 33 tile, whatever nrhs.  The kernel
     refuses a launch whose count differs from its own."""
     route = route or solve_route(n, nrhs)
     if route == "warp":
         return (128 // _solve_lanes(n)) * n * (n | 1) * itemsize
-    if route == "wide":
-        return wide_group(n, itemsize) * n * SOLVE_WIDE_LD * itemsize
-    return (n * (n + 1) + 2 * n * nrhs) * itemsize + 4 * n
+    if route != "wide":
+        raise ValueError(f"the solve kernel has no route {route!r}: {SOLVE_ROUTES}")
+    return wide_group(n, itemsize) * n * SOLVE_WIDE_LD * itemsize
 
 
 def lu_kernel_takes(dtype, m: int, n: int) -> bool:
@@ -542,7 +532,7 @@ def lu_plan(m: int, n: int, dtype=torch.float32, route: Optional[str] = None,
     compiled kernel's registers, local memory (spills) and resident
     blocks per SM as the CUDA runtime reports them."""
     route = route or lu_route(m, n)
-    if not _route_takes(route, m, n) or not (swap or m == n):
+    if not _route_takes(route, m, n) or not (swap or (m == n and route in NOSWAP_ROUTES)):
         raise ValueError(f"lu_plan: route {route!r} does not take ({m}, {n})")
     dev = torch.device("cuda") if device is None else torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
@@ -570,12 +560,12 @@ def batched_lu_noswap_cuda(A: torch.Tensor, pivot: bool = True, route: Optional[
     """Launch the noswap kernel: ``A`` (B, n, n) CUDA f32/f64 ->
     ``(factors, perm, info)``.  The kernel writes the rows back in pivot
     order, so no gather follows it.  ``route`` (default:
-    :func:`noswap_route`) forces "warp", "block" or "tile" where that
-    route takes n, and raises where it does not.  One launch on the
+    :func:`noswap_route`) forces "warp" or "block" where that route takes
+    n, and raises where it does not.  One launch on the
     current stream, no synchronisation; ``batched_lu_noswap_cuda.launches``
     counts them, ``.route_launches`` counts them by route."""
     if route is not None and isinstance(A, torch.Tensor) and A.dim() == 3:
-        if not _route_takes(route, A.shape[1], A.shape[2]):
+        if route not in NOSWAP_ROUTES or not _route_takes(route, A.shape[1], A.shape[2]):
             raise ValueError(f"batched_lu_noswap_cuda: route {route!r} does not take "
                              f"{tuple(A.shape[1:])}")
     A = _cuda_batch(A, "batched_lu_noswap_cuda", square=True)
@@ -604,13 +594,13 @@ def batched_lu_noswap_cuda(A: torch.Tensor, pivot: bool = True, route: Optional[
 
 
 batched_lu_noswap_cuda.launches = 0
-batched_lu_noswap_cuda.route_launches = dict.fromkeys(LU_ROUTES, 0)
+batched_lu_noswap_cuda.route_launches = dict.fromkeys(NOSWAP_ROUTES, 0)
 
 
 def reset_noswap_launches() -> None:
     """Set the noswap kernel's launch counts (all and by route) to 0."""
     batched_lu_noswap_cuda.launches = 0
-    batched_lu_noswap_cuda.route_launches = dict.fromkeys(LU_ROUTES, 0)
+    batched_lu_noswap_cuda.route_launches = dict.fromkeys(NOSWAP_ROUTES, 0)
 
 
 def batched_solve_cuda(factors: torch.Tensor, b: torch.Tensor,
@@ -623,14 +613,13 @@ def batched_solve_cuda(factors: torch.Tensor, b: torch.Tensor,
     are applied to ``b``'s rows inside the kernel; their entries must lie
     in [0, n), which is not checked (that would need a host read).
     ``route`` (default: the shape's own, :func:`solve_route`) forces
-    "warp", "wide" or "block" where that route takes the shape (the warp
-    route n <= 32, the wide route 32 < n <= 128, the block route any n
-    whose tile and right-hand sides fit), and raises where it does not.  One
+    "warp" or "wide" where that route takes the shape (the warp route
+    n <= 32, the wide route 32 < n <= 128), and raises where it does not.  One
     launch on the current stream, no synchronisation;
     ``batched_solve_cuda.launches`` counts them,
     ``batched_solve_cuda.route_launches`` counts them by route."""
     if route is not None and isinstance(factors, torch.Tensor) and factors.dim() == 3:
-        if route not in SOLVE_ROUTES or not _solve_route_takes(route, factors.shape[1]):
+        if not _solve_route_takes(route, factors.shape[1]):
             raise ValueError(f"batched_solve_cuda: route {route!r} does not take "
                              f"n={factors.shape[1]}")
     f = _cuda_batch(factors, "batched_solve_cuda", square=True)
@@ -651,11 +640,6 @@ def batched_solve_cuda(factors: torch.Tensor, b: torch.Tensor,
         )
     route = route or solve_route(n, nrhs)
     smem = solve_smem_bytes(n, nrhs, f.element_size(), route)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"batched_solve_cuda: route {route!r} needs {smem} > {SMEM_LIMIT} bytes of "
-            f"shared memory for n={n}, nrhs={nrhs} {f.dtype}"
-        )
     x = torch.empty_like(rhs)
     if B > 0:
         lib = _kernels.load("batched_solve")
@@ -684,7 +668,7 @@ def solve_plan(n: int, nrhs: int = 1, dtype=torch.float32, route: Optional[str] 
     :func:`lu_plan` ("capacity": lanes per matrix on the warp route,
     rows per lane on the wide route)."""
     route = route or solve_route(n, nrhs)
-    if route not in SOLVE_ROUTES or not _solve_route_takes(route, n):
+    if not _solve_route_takes(route, n):
         raise ValueError(f"solve_plan: route {route!r} does not take n={n}")
     dev = torch.device("cuda") if device is None else torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()

@@ -51,24 +51,22 @@ card and ``offset_panel_lu_cabs1`` on the CPU.
 
 There is no fallback between kernel and plain version: a CUDA tensor
 launches the kernel or raises.  A route is chosen by the panel's shape or
-by an explicit ``block`` (``block=-1``: the grid route); every wrapper
-counts its launches and, apart, those on the grid route; the blocked forms
-count the blocks whose chain ran on the grid (``.grid_block_launches``).
-Every wrapper of a kernel that runs ``panel_chain_kernel`` counts the chain
-launches that took its look-ahead step, on a cluster of more than one CTA
-(``.lookahead_chain_launches``), those whose candidate exchange ran on the
-per-parity mbarriers (``.mbarrier_exchange_launches``: the same launches),
-and every chain launch on a cluster by its
-plan (``.chain_launches_by_plan``: a dict keyed (dtype name, b, C)), so a
-run shows which rule of csrc/panel_cluster.cuh's ``Auto<T>`` its chains
-took.
-Their private ``_chain='grid'`` puts every block's chain on the grid, to
-hold the grid chain against the cluster chain.
+by an explicit ``block`` (``block=-1``: the grid route).  Every wrapper
+launches through one path (``_launch``) and keeps its counts in
+``wrapper.counts`` (:class:`LaunchCounts`; :func:`reset_counts` zeroes every
+wrapper's): its launches, those on the grid route, the blocks whose chain
+ran on the grid, the chain launches that took the look-ahead step and the
+mbarrier exchange on a cluster of more than one CTA, and every chain launch
+on a cluster by its plan (a dict keyed (dtype name, b, C)), so a run shows
+which rule of csrc/panel_cluster.cuh's ``Auto<T>`` its chains took.  The
+blocked forms' private ``_chain='grid'`` puts every block's chain on the
+grid, to hold the grid chain against the cluster chain.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Tuple
 
@@ -87,6 +85,52 @@ from .unblocked import (
 
 _REAL = (torch.float32, torch.float64)
 _COMPLEX = (torch.complex64, torch.complex128)
+# the suffix of each dtype's entry points
+_KIND = {torch.float32: "f32", torch.float64: "f64", torch.complex64: "c64",
+         torch.complex128: "c128"}
+
+
+@dataclasses.dataclass
+class LaunchCounts:
+    """What one panel wrapper launched since the last :func:`reset_counts`
+    (``wrapper.counts``): ``launches``; those on the grid route
+    (``grid_route_launches``); the blocks whose chain ran on the grid
+    (``grid_block_launches``); the chain launches on a cluster of C > 1,
+    each of which takes the look-ahead step and the mbarrier exchange
+    (``lookahead_chain_launches``); every chain launch on a cluster by its
+    plan (``chain_launches_by_plan``, ``{(dtype name, b, C): launches}``);
+    of :func:`panel_factor_cuda`, the bf16x3 form's launches, the update
+    kernels they issued and those on the simple kernel (``bf16x3_*``); of
+    :func:`panel_update_bf16x3_cuda`, the launches on the simple kernel
+    (``simple_launches``).  A count no kernel of the wrapper takes stays
+    0."""
+
+    launches: int = 0
+    grid_route_launches: int = 0
+    grid_block_launches: int = 0
+    lookahead_chain_launches: int = 0
+    chain_launches_by_plan: dict = dataclasses.field(default_factory=dict)
+    bf16x3_launches: int = 0
+    bf16x3_update_launches: int = 0
+    bf16x3_simple_update_launches: int = 0
+    simple_launches: int = 0
+
+
+_COUNTED = []
+
+
+def _counted(wrapper):
+    """Give ``wrapper`` its :class:`LaunchCounts`, which
+    :func:`reset_counts` zeroes."""
+    wrapper.counts = LaunchCounts()
+    _COUNTED.append(wrapper)
+    return wrapper
+
+
+def reset_counts() -> None:
+    """Zero the launch counts of every panel wrapper."""
+    for wrapper in _COUNTED:
+        wrapper.counts = LaunchCounts()
 
 def panel_route(m: int, w: int, dtype, config: LUConfig, device="cuda") -> str:
     """Which implementation factors an (m, w) panel of ``dtype`` on
@@ -163,29 +207,26 @@ def _check_panel(what, panel, dtypes):
     return m, w, lda, index, real, torch.finfo(real).bits // 8
 
 
-@functools.lru_cache(maxsize=256)
-def _plan(cplx, m, w, size, ofs, block, cluster, index):
-    """The plan of csrc/panel_lu.cu (``cplx`` False) or csrc/panel_lu_c64.cu
-    as a tuple (route, b, C or G, blocks, ws reals, iws int32s); ``size``
-    is the element's bytes, ``ofs`` None for the main-path kernel.  Cached:
-    the plan is a function of its arguments on one card."""
-    name = "panel_lu_c64" if cplx else "panel_lu"
-    lib = _kernels.load(name)
-    out = (ctypes.c_int * 6)()
-    if cplx:
-        fn = lib.rf_panel_lu_c_plan if ofs is None else lib.rf_offset_panel_lu_c_plan
-    else:
-        fn = lib.rf_panel_lu_plan if ofs is None else lib.rf_offset_panel_lu_plan
-    code = fn(m, w, size, ofs or 0, block, cluster, index, out)
-    _kernels.check(lib, code, f"{name} plan")
+def _call_plan(lib, fn, *args):
+    """The plan ``fn`` of library ``lib`` makes for ``args``: a tuple of
+    ``_kernels.PLAN_INTS`` ints (route, b, C or G, blocks, ws reals, iws
+    int32s, blocks whose chain runs on the grid; csrc/panel_cluster.cuh
+    ``write_plan``).  The callers cache it: a plan is a function of its
+    arguments on one card."""
+    library = _kernels.load(lib)
+    out = (ctypes.c_int * _kernels.PLAN_INTS)()
+    _kernels.check(library, getattr(library, fn)(*args, out), f"{lib} plan")
     return tuple(out)
 
 
-def _check_plan_request(dtype, block, cluster):
-    if dtype not in _REAL + _COMPLEX:
-        raise ValueError(
-            f"panel dtype must be float32/float64/complex64/complex128, got {dtype}")
-    _check_block_cluster(block, cluster)
+@functools.lru_cache(maxsize=256)
+def _plan(cplx, m, w, size, ofs, block, cluster, index):
+    """The plan of csrc/panel_lu.cu (``cplx`` False) or csrc/panel_lu_c64.cu;
+    ``size`` is the element's bytes, ``ofs`` None for the main-path
+    kernel."""
+    fn = ("rf_panel_lu" if ofs is None else "rf_offset_panel_lu") + ("_c_plan" if cplx else "_plan")
+    return _call_plan("panel_lu_c64" if cplx else "panel_lu", fn, m, w, size, ofs or 0, block,
+                      cluster, index)
 
 
 def _device_index(device):
@@ -194,23 +235,12 @@ def _device_index(device):
 
 
 def _plan_dict(plan) -> dict:
-    route, b, c, blocks, ws, iws = plan[:6]
-    out = {"route": "cluster" if route == 1 else "grid",
-           "block": b if route == 1 else None, "cluster": c if route == 1 else None,
-           "grid": c if route == 0 else None, "blocks": blocks,
-           "ws_reals": ws, "iws_ints": iws}
-    if len(plan) > 6:  # the blocked forms: blocks whose chain runs on the grid
-        out["grid_blocks"] = plan[6]
-    return out
-
-
-def _count_chains(wrapper, dtype, route, b, cluster, chains):
-    """Add ``chains`` chain launches of plan (b, C) to
-    ``wrapper.chain_launches_by_plan``, on the cluster route only."""
-    if route == 1 and cluster > 0 and chains > 0:
-        key = (str(dtype)[6:], b, cluster)
-        counts = wrapper.chain_launches_by_plan
-        counts[key] = counts.get(key, 0) + chains
+    route, b, c, blocks, ws, iws, grid_blocks = plan
+    cluster = route == 1
+    return {"route": "cluster" if cluster else "grid",
+            "block": b if cluster else None, "cluster": c if cluster else None,
+            "grid": None if cluster else c, "blocks": blocks,
+            "ws_reals": ws, "iws_ints": iws, "grid_blocks": grid_blocks}
 
 
 # the blocked forms' chains: "auto" (on a cluster where the block's live
@@ -232,12 +262,17 @@ def panel_plan(m: int, w: int, dtype, ofs=None, block: int = 0,
     csrc/panel_lu_c64.cu for complex64/complex128, likewise.
     Returns ``{"route": "cluster" | "grid", "block": b, "cluster": C,
     "grid": G, "blocks": launches of the chain kernel, "ws_reals",
-    "iws_ints"}`` (workspace sizes).  ``block`` and ``cluster`` 0 ask for
-    the launcher's choice (what the main path runs); ``block < 0`` forces
-    the grid route and ``block >= w`` one block.  Raises ValueError for a
-    dtype the kernels do not take, RuntimeError for an offset outside
-    [0, m - w] and where the card cannot run an explicit choice."""
-    _check_plan_request(dtype, block, cluster)
+    "iws_ints"`` (workspace sizes), ``"grid_blocks"}`` (0 here: the blocks
+    whose chain runs on the grid, in the blocked forms).  ``block`` and
+    ``cluster`` 0 ask for the launcher's choice (what the main path runs);
+    ``block < 0`` forces the grid route and ``block >= w`` one block.
+    Raises ValueError for a dtype the kernels do not take, RuntimeError for
+    an offset outside [0, m - w] and where the card cannot run an explicit
+    choice."""
+    if dtype not in _REAL + _COMPLEX:
+        raise ValueError(
+            f"panel dtype must be float32/float64/complex64/complex128, got {dtype}")
+    _check_block_cluster(block, cluster)
     size = torch.empty((), dtype=dtype).element_size()
     return _plan_dict(_plan(dtype in _COMPLEX, m, w, size, ofs, block, cluster,
                             _device_index(device)))
@@ -245,24 +280,16 @@ def panel_plan(m: int, w: int, dtype, ofs=None, block: int = 0,
 
 @functools.lru_cache(maxsize=256)
 def _micro_plan(m, w, size, micro, shadow, block, cluster, chain, index):
-    """The plan of csrc/panel_lu_micro.cu, as :func:`_plan`'s tuple and the
-    blocks whose chain runs on the grid."""
-    lib = _kernels.load("panel_lu_micro")
-    out = (ctypes.c_int * 7)()
-    code = lib.rf_panel_lu_micro_plan(m, w, size, micro, int(shadow), block, cluster, chain,
-                                      index, out)
-    _kernels.check(lib, code, "panel_lu_micro plan")
-    return tuple(out)
+    """The plan of csrc/panel_lu_micro.cu."""
+    return _call_plan("panel_lu_micro", "rf_panel_lu_micro_plan", m, w, size, micro,
+                      int(shadow), block, cluster, chain, index)
 
 
 @functools.lru_cache(maxsize=256)
 def _noswap_plan(m, w, size, live, block, cluster, index):
-    """The plan of csrc/panel_lu_noswap.cu, as :func:`_plan`'s tuple."""
-    lib = _kernels.load("panel_lu_noswap")
-    out = (ctypes.c_int * 6)()
-    code = lib.rf_panel_lu_noswap_plan(m, w, size, live, block, cluster, index, out)
-    _kernels.check(lib, code, "panel_lu_noswap plan")
-    return tuple(out)
+    """The plan of csrc/panel_lu_noswap.cu."""
+    return _call_plan("panel_lu_noswap", "rf_panel_lu_noswap_plan", m, w, size, live, block,
+                      cluster, index)
 
 
 def _check_micro_request(micro, block, cluster, chain="auto"):
@@ -285,13 +312,15 @@ def _check_micro_request(micro, block, cluster, chain="auto"):
     return chain
 
 
-def _check_grid_micro(micro, block):
-    """The grid route (block=-1) takes blocks of at most PANEL_MICRO_MAX
-    steps (``micro`` already cut to the panel)."""
+def _cut_micro(micro, block, m, w):
+    """``micro`` cut to min(m, w) (one block spans the whole panel); the
+    grid route (block=-1) takes blocks of at most PANEL_MICRO_MAX steps."""
+    micro = min(micro, m, w)
     if block < 0 and micro > PANEL_MICRO_MAX:
         raise ValueError(f"the micro-blocked kernels' grid route (block=-1) takes blocks of "
                          f"at most {PANEL_MICRO_MAX} steps, got micro={micro}; the cluster "
                          f"route (block=0) takes any")
+    return micro
 
 
 def _check_block_cluster(block, cluster):
@@ -319,8 +348,7 @@ def micro_plan(m: int, w: int, dtype, micro: int, variant: str = "shadow",
         raise ValueError(f"the micro-blocked kernels take float32/float64, got {dtype}")
     if variant not in ("shadow", "basic"):
         raise ValueError(f"variant must be 'shadow' or 'basic', got {variant!r}")
-    micro = min(micro, m, w)
-    _check_grid_micro(micro, block)
+    micro = _cut_micro(micro, block, m, w)
     size = torch.empty((), dtype=dtype).element_size()
     return _plan_dict(_micro_plan(m, w, size, micro, variant == "shadow", block, cluster,
                                   chain, _device_index(device)))
@@ -350,59 +378,68 @@ def noswap_plan(m: int, w: int, dtype, live=None, block: int = 0, cluster: int =
     return _plan_dict(_noswap_plan(m, w, size, live, block, cluster, _device_index(device)))
 
 
-def _launch_panel_lu(wrapper, panel, pivot, ofs, block, cluster, dtypes=_REAL):
-    """The checks, plan, allocations and launch of csrc/panel_lu.cu (the
-    offset kernel unless ``ofs`` is None) or, for ``dtypes`` ``_COMPLEX``,
-    csrc/panel_lu_c64.cu.  Adds one to ``wrapper.launches`` at the launch,
-    one to ``wrapper.grid_route_launches`` when the panel takes the grid
-    route, and to ``wrapper.lookahead_chain_launches`` and
-    ``wrapper.mbarrier_exchange_launches`` the chain launches that took the
-    look-ahead step and the mbarrier exchange, as the C launcher reports
-    them; counts
-    the chain launches in ``wrapper.chain_launches_by_plan``.  piv, perm,
-    info and the integer workspace share one allocation."""
-    m, w, lda, index, real, size = _check_panel(wrapper.__name__, panel, dtypes)
-    cplx = panel.is_complex()
-    _check_plan_request(panel.dtype, block, cluster)
-    route, b, c, blocks, ws_reals, iws_ints = _plan(cplx, m, w, panel.element_size(), ofs,
-                                                    block, cluster, index)
+def _launch(wrapper, panel, pivot, dtypes, lib, prefix, plan_of, ofs=0):
+    """The launch path of every panel wrapper: checks ``panel`` (one of
+    ``dtypes``), takes the cached plan and the family's own arguments from
+    ``plan_of(m, w, device index)``, allocates piv, perm, info and the
+    integer workspace in one int32 tensor (and the real workspace on the
+    grid route), calls ``{prefix}_{dtype}`` of library ``lib``, adds the
+    launch and its PanelStats to ``wrapper.counts``, raises on the returned
+    code and counts the cluster chain launches by plan.  A tensor among the
+    own arguments goes as its pointer and lives until the call returns.
+    ``ofs``: the offset kernel's first row (min(m - ofs, w) pivots).
+    Returns ``(piv, perm, info, stats)``."""
+    m, w, lda, index, real, _ = _check_panel(wrapper.__name__, panel, dtypes)
+    plan, own = plan_of(m, w, index)
+    route, b, c, blocks, ws_reals, iws_ints, _ = plan
     dev = panel.device
-    npiv = min(m - (ofs or 0), w)
+    npiv = min(m - ofs, w)
     ints = torch.empty(npiv + m + 1 + iws_ints, dtype=torch.int32, device=dev)
-    piv, perm, info = ints[:npiv], ints[npiv:npiv + m], ints[npiv + m]
     ws = torch.empty(ws_reals, dtype=real, device=dev) if route == 0 else None
-    lib = _kernels.load("panel_lu_c64" if cplx else "panel_lu")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    wrapper.launches += 1
-    if route == 0:
-        wrapper.grid_route_launches += 1
-    kind = ("c64" if size == 4 else "c128") if cplx else ("f32" if size == 4 else "f64")
-    prefix = "rf_panel_lu" if ofs is None else "rf_offset_panel_lu"
-    fn = getattr(lib, f"{prefix}_{kind}")
-    extra = () if ofs is None else (ofs,)
-    lookaheads, mbarriers = ctypes.c_int(0), ctypes.c_int(0)
-    code = fn(
-        panel.data_ptr(), m, w, lda, int(bool(pivot)), *extra, block, cluster,
-        piv.data_ptr(), perm.data_ptr(), info.data_ptr(),
+    library = _kernels.load(lib)
+    stats = _kernels.PanelStats()
+    counts = wrapper.counts
+    counts.launches += 1
+    counts.grid_route_launches += int(route == 0)
+    code = getattr(library, f"{prefix}_{_KIND[panel.dtype]}")(
+        panel.data_ptr(), m, w, lda, int(bool(pivot)),
+        *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in own),
+        ints.data_ptr(), ints[npiv:].data_ptr(), ints[npiv + m:].data_ptr(),
         None if ws is None else ws.data_ptr(), ints[npiv + m + 1:].data_ptr(),
-        ctypes.byref(lookaheads), ctypes.byref(mbarriers), index, stream,
+        ctypes.byref(stats), index, torch.cuda.current_stream(dev).cuda_stream,
     )
-    wrapper.lookahead_chain_launches += lookaheads.value
-    wrapper.mbarrier_exchange_launches += mbarriers.value
-    _kernels.check(lib, code, f"{'panel_lu_c64' if cplx else 'panel_lu'} launch")
-    _count_chains(wrapper, panel.dtype, route, b, c, blocks)
-    return piv, perm, info
+    counts.grid_block_launches += stats.grid_blocks
+    counts.lookahead_chain_launches += stats.lookaheads
+    _kernels.check(library, code, f"{lib} launch")
+    chains = blocks - stats.grid_blocks
+    if route == 1 and c > 0 and chains > 0:
+        key = (str(panel.dtype)[6:], b, c)
+        counts.chain_launches_by_plan[key] = counts.chain_launches_by_plan.get(key, 0) + chains
+    return ints[:npiv], ints[npiv:npiv + m], ints[npiv + m], stats
+
+
+def _launch_panel_lu(wrapper, panel, pivot, ofs, block, cluster, dtypes=_REAL):
+    """:func:`_launch` of csrc/panel_lu.cu (the offset kernel unless ``ofs``
+    is None) or, for ``dtypes`` ``_COMPLEX``, csrc/panel_lu_c64.cu."""
+    cplx = dtypes is _COMPLEX
+
+    def plan_of(m, w, index):
+        if ofs is not None and (not isinstance(ofs, int) or isinstance(ofs, bool)
+                                or not 0 <= ofs <= m - w):
+            raise ValueError(f"offset {ofs!r} outside [0, {m - w}] for a {m} x {w} panel")
+        _check_block_cluster(block, cluster)
+        plan = _plan(cplx, m, w, panel.element_size(), ofs, block, cluster, index)
+        return plan, (() if ofs is None else (ofs,)) + (block, cluster)
+
+    lib = "panel_lu_c64" if cplx else "panel_lu"
+    prefix = "rf_panel_lu" if ofs is None else "rf_offset_panel_lu"
+    return _launch(wrapper, panel, pivot, dtypes, lib, prefix, plan_of, ofs or 0)[:3]
 
 
 @functools.lru_cache(maxsize=256)
 def _bf16x3_plan(m, w, b, cluster, chain, index):
-    """The plan of csrc/panel_lu.cu's bf16x3 form, as :func:`_plan`'s tuple
-    and the blocks whose chain runs on the grid."""
-    lib = _kernels.load("panel_lu")
-    out = (ctypes.c_int * 7)()
-    code = lib.rf_panel_lu_bf16x3_plan(m, w, b, cluster, chain, index, out)
-    _kernels.check(lib, code, "panel_lu bf16x3 plan")
-    return tuple(out)
+    """The plan of csrc/panel_lu.cu's bf16x3 form."""
+    return _call_plan("panel_lu", "rf_panel_lu_bf16x3_plan", m, w, b, cluster, chain, index)
 
 
 def _bf16x3_block(block, m, w):
@@ -467,48 +504,31 @@ def bf16x3_update_plan(rows: int, cols: int, nb: int) -> dict:
 
 
 def _launch_bf16x3(panel, pivot, block, cluster, update, chain):
-    """The checks, plan, allocations and launch of csrc/panel_lu.cu's
-    bf16x3 form, for :func:`panel_factor_cuda`."""
-    wrapper = panel_factor_cuda
+    """:func:`_launch` of csrc/panel_lu.cu's bf16x3 form, for
+    :func:`panel_factor_cuda`."""
     _check_block_cluster(block, cluster)
     if update not in BF16X3_UPDATES:
         raise ValueError(f"_update must be one of {BF16X3_UPDATES}, got {update!r}")
     chain = _check_chain(chain)
-    m, w, lda, index, _, _ = _check_panel(wrapper.__name__, panel, (torch.float32,))
-    b = _bf16x3_block(block, m, w)
-    route, _, c, blocks, _, iws_ints, _ = _bf16x3_plan(m, w, b, cluster, chain, index)
-    dev = panel.device
-    npiv = min(m, w)
-    ints = torch.empty(npiv + m + 1 + iws_ints, dtype=torch.int32, device=dev)
-    piv, perm, info = ints[:npiv], ints[npiv:npiv + m], ints[npiv + m]
-    lib = _kernels.load("panel_lu")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    updates, grids, lookaheads, mbarriers = (ctypes.c_int(0) for _ in range(4))
-    wrapper.launches += 1
-    wrapper.bf16x3_launches += 1
-    code = lib.rf_panel_lu_bf16x3_f32(
-        panel.data_ptr(), m, w, lda, int(bool(pivot)), b, cluster,
-        int(update == "simple"), chain,
-        piv.data_ptr(), perm.data_ptr(), info.data_ptr(), ints[npiv + m + 1:].data_ptr(),
-        ctypes.byref(updates), ctypes.byref(grids), ctypes.byref(lookaheads),
-        ctypes.byref(mbarriers), index, stream,
-    )
-    # the update and chain kernels the launcher issued (one update per block
-    # boundary with rows and columns below and right of the block:
-    # bf16x3_updates; one grid chain per block of the plan's grid_blocks; a
-    # look-ahead chain per other block on a cluster of C > 1, each on the
-    # mbarrier exchange)
-    wrapper.bf16x3_update_launches += updates.value
-    wrapper.grid_block_launches += grids.value
-    wrapper.lookahead_chain_launches += lookaheads.value
-    wrapper.mbarrier_exchange_launches += mbarriers.value
+
+    def plan_of(m, w, index):
+        b = _bf16x3_block(block, m, w)
+        return (_bf16x3_plan(m, w, b, cluster, chain, index),
+                (b, cluster, int(update == "simple"), chain))
+
+    piv, perm, info, stats = _launch(panel_factor_cuda, panel, pivot, (torch.float32,),
+                                     "panel_lu", "rf_panel_lu_bf16x3", plan_of)
+    # one update per block boundary with rows and columns below and right of
+    # the block (bf16x3_updates)
+    counts = panel_factor_cuda.counts
+    counts.bf16x3_launches += 1
+    counts.bf16x3_update_launches += stats.updates
     if update == "simple":
-        wrapper.bf16x3_simple_update_launches += updates.value
-    _kernels.check(lib, code, "panel_lu bf16x3 launch")
-    _count_chains(wrapper, panel.dtype, route, b, c, blocks - grids.value)
+        counts.bf16x3_simple_update_launches += stats.updates
     return piv, perm, info
 
 
+@_counted
 def panel_factor_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
                       cluster: int = 0, precision: str = "float32",
                       _update: str = "tiled", _chain: str = "auto"):
@@ -521,17 +541,9 @@ def panel_factor_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
     info, all on ``panel``'s device, allocated here.  Launches on the
     current stream and does not synchronise.  ``block`` / ``cluster``
     pick the cluster route's block width and cluster size (0: the
-    launcher's choice; see :func:`panel_plan`).
-    ``panel_factor_cuda.launches`` counts the launches,
-    ``panel_factor_cuda.grid_route_launches`` those that took the grid
-    route (panels too tall for a cluster),
-    ``panel_factor_cuda.lookahead_chain_launches`` the chain launches
-    (one per block) that took the look-ahead step on a cluster of C > 1,
-    ``panel_factor_cuda.mbarrier_exchange_launches`` those whose candidate
-    exchange ran on the per-parity mbarriers (every one of them),
-    ``panel_factor_cuda.chain_launches_by_plan`` every chain launch on a
-    cluster by its plan, ``{(dtype name, b, C): launches}``; every wrapper
-    of ``panel_chain_kernel`` keeps all three.
+    launcher's choice; see :func:`panel_plan`).  ``.counts``
+    (:class:`LaunchCounts`) counts the launches, those on the grid route
+    (panels too tall for a cluster) and the chain launches.
 
     ``precision='bf16x3'`` (float32 panels): the form of
     ``panel_boundary_precision='bf16x3'``, blocks of exactly ``block`` steps
@@ -544,11 +556,9 @@ def panel_factor_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
     the cluster chain's result, for comparison).  Each block's trailing
     update runs on the tiled update kernel (:func:`bf16x3_updates` lists
     the launches); ``_update='simple'`` forces the simple update kernel,
-    bit for bit the same result, for comparison.  ``.bf16x3_launches``
-    counts these launches (``.launches`` counts them too),
-    ``.bf16x3_update_launches`` the update kernels they issued,
-    ``.bf16x3_simple_update_launches`` those on the simple kernel,
-    ``.grid_block_launches`` the blocks whose chain ran on the grid."""
+    bit for bit the same result, for comparison.  ``.counts.bf16x3_*``
+    count these launches (``.counts.launches`` counts them too), the update
+    kernels they issued and those on the simple kernel."""
     if precision == "bf16x3":
         return _launch_bf16x3(panel, pivot, block, cluster, _update, _chain)
     if _chain != "auto":
@@ -559,22 +569,12 @@ def panel_factor_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
     return _launch_panel_lu(panel_factor_cuda, panel, pivot, None, block, cluster)
 
 
-panel_factor_cuda.launches = 0
-panel_factor_cuda.grid_route_launches = 0
-panel_factor_cuda.bf16x3_launches = 0
-panel_factor_cuda.bf16x3_update_launches = 0
-panel_factor_cuda.bf16x3_simple_update_launches = 0
-panel_factor_cuda.grid_block_launches = 0
-panel_factor_cuda.lookahead_chain_launches = 0
-panel_factor_cuda.mbarrier_exchange_launches = 0
-panel_factor_cuda.chain_launches_by_plan = {}
-
-
 def _rows_stride(t):
     """The row stride of a 2-D tensor whose rows are contiguous."""
     return t.stride(0) if t.shape[0] > 1 else t.shape[1]
 
 
+@_counted
 def panel_update_bf16x3_cuda(C: torch.Tensor, L: torch.Tensor, U: torch.Tensor, *,
                              _update: str = "tiled"):
     """``C -= hh + (hl + lh)``, the bf16x3 split of ``L @ U``, in place on
@@ -590,8 +590,8 @@ def panel_update_bf16x3_cuda(C: torch.Tensor, L: torch.Tensor, U: torch.Tensor, 
     so the two agree to the bf16x3 class, not bitwise.  ``_update='simple'``
     forces the simple kernel (64 x 64 tiles; bit for bit the tiled kernel's
     result), for comparison.  Returns ``C``; launches on the current stream
-    and does not synchronise.  ``panel_update_bf16x3_cuda.launches`` counts
-    the launches, ``.simple_launches`` those on the simple kernel."""
+    and does not synchronise.  ``panel_update_bf16x3_cuda.counts`` counts
+    the launches and those on the simple kernel (``.simple_launches``)."""
     if _update not in BF16X3_UPDATES:
         raise ValueError(f"_update must be one of {BF16X3_UPDATES}, got {_update!r}")
     for name, t in (("C", C), ("L", L), ("U", U)):
@@ -615,9 +615,9 @@ def panel_update_bf16x3_cuda(C: torch.Tensor, L: torch.Tensor, U: torch.Tensor, 
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     lib = _kernels.load("panel_lu")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    wrapper = panel_update_bf16x3_cuda
-    wrapper.launches += 1
-    wrapper.simple_launches += _update == "simple"
+    counts = panel_update_bf16x3_cuda.counts
+    counts.launches += 1
+    counts.simple_launches += int(_update == "simple")
     code = lib.rf_panel_update_bf16x3_f32(
         L.data_ptr(), _rows_stride(L), U.data_ptr(), _rows_stride(U), C.data_ptr(),
         _rows_stride(C), rows, cols, nb, int(_update == "simple"), index, stream)
@@ -625,10 +625,7 @@ def panel_update_bf16x3_cuda(C: torch.Tensor, L: torch.Tensor, U: torch.Tensor, 
     return C
 
 
-panel_update_bf16x3_cuda.launches = 0
-panel_update_bf16x3_cuda.simple_launches = 0
-
-
+@_counted
 def offset_panel_factor_cuda(panel: torch.Tensor, ofs: int, pivot: bool, *,
                              block: int = 0, cluster: int = 0):
     """Launch the Hopper offset kernel on the full-height ``panel`` in
@@ -642,27 +639,11 @@ def offset_panel_factor_cuda(panel: torch.Tensor, ofs: int, pivot: bool, *,
     int32 signed panel-local info, all allocated here.  Computes
     ``offset_panel_lu(panel, ofs, pivot)`` bitwise.  Launches on the
     current stream and does not synchronise.  ``block`` / ``cluster`` as
-    for :func:`panel_factor_cuda`.  ``offset_panel_factor_cuda.launches``
-    counts the launches, ``.grid_route_launches`` those on the grid
-    route, ``.lookahead_chain_launches`` the chain launches that took the
-    look-ahead step."""
-    _check_offset(offset_panel_factor_cuda, panel, ofs, _REAL)
+    for :func:`panel_factor_cuda`, and so is ``.counts``."""
     return _launch_panel_lu(offset_panel_factor_cuda, panel, pivot, ofs, block, cluster)
 
 
-offset_panel_factor_cuda.launches = 0
-offset_panel_factor_cuda.grid_route_launches = 0
-offset_panel_factor_cuda.lookahead_chain_launches = 0
-offset_panel_factor_cuda.mbarrier_exchange_launches = 0
-offset_panel_factor_cuda.chain_launches_by_plan = {}
-
-
-def _check_offset(wrapper, panel, ofs, dtypes):
-    H, w = _check_panel(wrapper.__name__, panel, dtypes)[:2]
-    if not isinstance(ofs, int) or isinstance(ofs, bool) or not 0 <= ofs <= H - w:
-        raise ValueError(f"offset {ofs!r} outside [0, {H - w}] for a {H} x {w} panel")
-
-
+@_counted
 def panel_factor_c64_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
                           cluster: int = 0):
     """Launch the Hopper complex panel kernel on ``panel`` in place, on
@@ -680,22 +661,13 @@ def panel_factor_c64_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
     :func:`panel_factor_cuda` does, launches on the current stream and
     does not synchronise.  ``block`` / ``cluster`` pick the cluster
     route's block width and cluster size as for :func:`panel_factor_cuda`
-    (0: the launcher's choice; ``block < 0``: the grid route).
-    ``panel_factor_c64_cuda.launches`` counts the launches,
-    ``panel_factor_c64_cuda.grid_route_launches`` those on the grid
-    route, ``.lookahead_chain_launches`` the chain launches that took the
-    look-ahead step."""
+    (0: the launcher's choice; ``block < 0``: the grid route), and so is
+    ``.counts``."""
     return _launch_panel_lu(panel_factor_c64_cuda, panel, pivot, None, block, cluster,
                             _COMPLEX)
 
 
-panel_factor_c64_cuda.launches = 0
-panel_factor_c64_cuda.grid_route_launches = 0
-panel_factor_c64_cuda.lookahead_chain_launches = 0
-panel_factor_c64_cuda.mbarrier_exchange_launches = 0
-panel_factor_c64_cuda.chain_launches_by_plan = {}
-
-
+@_counted
 def offset_panel_factor_c64_cuda(panel: torch.Tensor, ofs: int, pivot: bool, *,
                                  block: int = 0, cluster: int = 0):
     """Launch the offset form of the Hopper complex panel kernel on the
@@ -710,21 +682,10 @@ def offset_panel_factor_c64_cuda(panel: torch.Tensor, ofs: int, pivot: bool, *,
     permutation of all H rows, the signed panel-local info) and computes
     ``offset_panel_lu_cabs1(panel, ofs, pivot)`` bitwise.  Launches on the
     current stream and does not synchronise.  ``block`` / ``cluster`` as
-    for :func:`panel_factor_cuda` (``block=-1``: the grid route).
-    ``offset_panel_factor_c64_cuda.launches`` counts the launches,
-    ``.grid_route_launches`` those on the grid route,
-    ``.lookahead_chain_launches`` the chain launches that took the
-    look-ahead step."""
-    _check_offset(offset_panel_factor_c64_cuda, panel, ofs, _COMPLEX)
+    for :func:`panel_factor_cuda` (``block=-1``: the grid route), and so is
+    ``.counts``."""
     return _launch_panel_lu(offset_panel_factor_c64_cuda, panel, pivot, ofs, block, cluster,
                             _COMPLEX)
-
-
-offset_panel_factor_c64_cuda.launches = 0
-offset_panel_factor_c64_cuda.grid_route_launches = 0
-offset_panel_factor_c64_cuda.lookahead_chain_launches = 0
-offset_panel_factor_c64_cuda.mbarrier_exchange_launches = 0
-offset_panel_factor_c64_cuda.chain_launches_by_plan = {}
 
 
 def micro_max_cuda() -> int:
@@ -740,47 +701,19 @@ def micro_max_cuda() -> int:
 
 
 def _launch_micro(wrapper, panel, pivot, micro, shadow, block, cluster, chain):
-    """The checks, plan, allocations and launch of the two micro-blocked
-    kernels.  Adds one to ``wrapper.launches`` at the launch, one to
-    ``wrapper.grid_route_launches`` when the panel takes the grid route,
-    and to ``wrapper.grid_block_launches`` and
-    ``wrapper.lookahead_chain_launches`` the grid-chain launches and the
-    look-ahead chain launches the C launcher reports; counts the cluster
-    chain launches in ``wrapper.chain_launches_by_plan``.  piv, perm, info
-    and the integer workspace share one allocation."""
+    """:func:`_launch` of the two micro-blocked kernels."""
     chain = _check_micro_request(micro, block, cluster, chain)
-    m, w, lda, index, real, size = _check_panel(wrapper.__name__, panel, _REAL)
-    micro = min(micro, m, w)  # one block spans the whole panel
-    _check_grid_micro(micro, block)
-    route, b, c, blocks, ws_reals, iws_ints, _ = _micro_plan(
-        m, w, size, micro, shadow, block, cluster, chain, index)
-    dev = panel.device
-    npiv = min(m, w)
-    ints = torch.empty(npiv + m + 1 + iws_ints, dtype=torch.int32, device=dev)
-    piv, perm, info = ints[:npiv], ints[npiv:npiv + m], ints[npiv + m]
-    ws = torch.empty(ws_reals, dtype=real, device=dev) if route == 0 else None
-    lib = _kernels.load("panel_lu_micro")
-    which = "shadow" if shadow else "basic"
-    fn = getattr(lib, f"rf_panel_lu_{which}_{'f32' if size == 4 else 'f64'}")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    grids, lookaheads, mbarriers = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
-    wrapper.launches += 1
-    if route == 0:
-        wrapper.grid_route_launches += 1
-    code = fn(
-        panel.data_ptr(), m, w, lda, int(bool(pivot)), micro, block, cluster, chain,
-        piv.data_ptr(), perm.data_ptr(), info.data_ptr(),
-        None if ws is None else ws.data_ptr(), ints[npiv + m + 1:].data_ptr(),
-        ctypes.byref(grids), ctypes.byref(lookaheads), ctypes.byref(mbarriers), index, stream,
-    )
-    wrapper.grid_block_launches += grids.value
-    wrapper.lookahead_chain_launches += lookaheads.value
-    wrapper.mbarrier_exchange_launches += mbarriers.value
-    _kernels.check(lib, code, "panel_lu_micro launch")
-    _count_chains(wrapper, panel.dtype, route, b, c, blocks - grids.value)
-    return piv, perm, info
+
+    def plan_of(m, w, index):
+        mc = _cut_micro(micro, block, m, w)
+        plan = _micro_plan(m, w, panel.element_size(), mc, shadow, block, cluster, chain, index)
+        return plan, (mc, block, cluster, chain)
+
+    prefix = "rf_panel_lu_shadow" if shadow else "rf_panel_lu_basic"
+    return _launch(wrapper, panel, pivot, _REAL, "panel_lu_micro", prefix, plan_of)[:3]
 
 
+@_counted
 def panel_factor_shadow_cuda(panel: torch.Tensor, pivot: bool, micro: int, *,
                              block: int = 0, cluster: int = 0, _chain: str = "auto"):
     """Launch the micro-blocked kernel of ``panel_variant='shadow'`` on
@@ -794,45 +727,23 @@ def panel_factor_shadow_cuda(panel: torch.Tensor, pivot: bool, micro: int, *,
     memory, up to ``PANEL_MICRO_MAX`` steps; past that a taller panel keeps
     the cluster route with its leading blocks' chains on the grid (see
     :func:`micro_plan`; ``_chain='grid'`` puts every block's there).
-    ``panel_factor_shadow_cuda.launches`` counts the launches,
-    ``.grid_route_launches`` those on the grid route,
-    ``.grid_block_launches`` the blocks whose chain ran on the grid,
-    ``.lookahead_chain_launches`` those whose chain took the look-ahead
-    step on a cluster."""
+    ``.counts`` as for :func:`panel_factor_cuda`."""
     return _launch_micro(panel_factor_shadow_cuda, panel, pivot, micro, True, block, cluster,
                          _chain)
 
 
-panel_factor_shadow_cuda.launches = 0
-panel_factor_shadow_cuda.grid_route_launches = 0
-panel_factor_shadow_cuda.grid_block_launches = 0
-panel_factor_shadow_cuda.lookahead_chain_launches = 0
-panel_factor_shadow_cuda.mbarrier_exchange_launches = 0
-panel_factor_shadow_cuda.chain_launches_by_plan = {}
-
-
+@_counted
 def panel_factor_basic_cuda(panel: torch.Tensor, pivot: bool, micro: int, *,
                             block: int = 0, cluster: int = 0, _chain: str = "auto"):
     """Launch the micro-blocked kernel of ``panel_variant='basic'``: as
     :func:`panel_factor_shadow_cuda`, the same cluster route, and on the
     grid route the grid-barrier kernel that reads and writes the current
-    block in device memory.  ``panel_factor_basic_cuda.launches`` counts the
-    launches, ``.grid_route_launches`` those on the grid route,
-    ``.grid_block_launches`` the blocks whose chain ran on the grid,
-    ``.lookahead_chain_launches`` those whose chain took the look-ahead
-    step on a cluster."""
+    block in device memory.  ``.counts`` as for :func:`panel_factor_cuda`."""
     return _launch_micro(panel_factor_basic_cuda, panel, pivot, micro, False, block, cluster,
                          _chain)
 
 
-panel_factor_basic_cuda.launches = 0
-panel_factor_basic_cuda.grid_route_launches = 0
-panel_factor_basic_cuda.grid_block_launches = 0
-panel_factor_basic_cuda.lookahead_chain_launches = 0
-panel_factor_basic_cuda.mbarrier_exchange_launches = 0
-panel_factor_basic_cuda.chain_launches_by_plan = {}
-
-
+@_counted
 def panel_factor_noswap_cuda(panel: torch.Tensor, used0: torch.Tensor,
                              pivot: bool, *, live=None, block: int = 0,
                              cluster: int = 0):
@@ -853,42 +764,22 @@ def panel_factor_noswap_cuda(panel: torch.Tensor, used0: torch.Tensor,
     mask of the rows consumed so far, 0-d int32 info, all allocated
     here.  Computes ``unblocked_lu_noswap(panel, used0, pivot)`` bitwise.
     Launches on the current stream and does not synchronise.
-    ``panel_factor_noswap_cuda.launches`` counts the launches,
-    ``.grid_route_launches`` those on the grid route."""
+    ``.counts`` counts the launches and those on the grid route."""
     _check_block_cluster(block, cluster)
     if isinstance(panel, torch.Tensor) and panel.dim() == 2:
         live = _check_live(live, panel.shape[0])
-    m, w, lda, index, real, size = _check_panel(
-        "panel_factor_noswap_cuda", panel, _REAL)
-    dev = panel.device
-    if (not isinstance(used0, torch.Tensor) or used0.device != dev
-            or used0.shape != (m,) or used0.dtype.is_floating_point
-            or used0.dtype.is_complex):
-        raise ValueError(
-            f"used0 must be an integer or bool ({m},) tensor on {dev}")
-    route, _, _, _, ws_reals, iws_ints = _noswap_plan(m, w, size, live, block, cluster, index)
-    used0 = used0.to(torch.int32).contiguous()
-    npiv = min(m, w)
-    ints = torch.empty(npiv + m + 1 + iws_ints, dtype=torch.int32, device=dev)
-    prow, used, info = ints[:npiv], ints[npiv:npiv + m], ints[npiv + m]
-    ws = torch.empty(ws_reals, dtype=real, device=dev) if route == 0 else None
-    lib = _kernels.load("panel_lu_noswap")
-    fn = lib.rf_panel_lu_noswap_f32 if size == 4 else lib.rf_panel_lu_noswap_f64
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    panel_factor_noswap_cuda.launches += 1
-    if route == 0:
-        panel_factor_noswap_cuda.grid_route_launches += 1
-    code = fn(
-        panel.data_ptr(), m, w, lda, int(bool(pivot)), live, block, cluster,
-        used0.data_ptr(), used.data_ptr(), prow.data_ptr(), info.data_ptr(),
-        None if ws is None else ws.data_ptr(), ints[npiv + m + 1:].data_ptr(), index, stream,
-    )
-    _kernels.check(lib, code, "panel_lu_noswap launch")
-    return prow, used, info
 
+    def plan_of(m, w, index):
+        if (not isinstance(used0, torch.Tensor) or used0.device != panel.device
+                or used0.shape != (m,) or used0.dtype.is_floating_point
+                or used0.dtype.is_complex):
+            raise ValueError(f"used0 must be an integer or bool ({m},) tensor on "
+                             f"{panel.device}")
+        plan = _noswap_plan(m, w, panel.element_size(), live, block, cluster, index)
+        return plan, (live, block, cluster, used0.to(torch.int32).contiguous())
 
-panel_factor_noswap_cuda.launches = 0
-panel_factor_noswap_cuda.grid_route_launches = 0
+    return _launch(panel_factor_noswap_cuda, panel, pivot, _REAL, "panel_lu_noswap",
+                   "rf_panel_lu_noswap", plan_of)[:3]
 
 
 def panel_factor(

@@ -24,10 +24,9 @@ own pool, entry and closed loop (``bench_port/harness.py``), one process:
    with CPU activity too: each device operation put down to the span
    open on the host when it was launched (``launched_by_span``), and the
    panel chain launches of those calls by plan (dtype, b, C), from the
-   port's ``.chain_launches_by_plan`` counters: which rule of the chain's
+   port's ``.counts.chain_launches_by_plan``: which rule of the chain's
    plan the cell took; and per call the chain launches that took the
-   look-ahead and those whose exchange ran on the per-parity mbarriers
-   (``.lookahead_chain_launches``, ``.mbarrier_exchange_launches``);
+   look-ahead and the mbarrier exchange (``.counts.lookahead_chain_launches``);
 5. ``off`` again: recaptured with the recorder off, one more untraced
    window (the two ``off`` windows bracket the others).
 
@@ -74,20 +73,19 @@ def chain_launches() -> dict:
     summed over the wrappers of ``panel_chain_kernel``."""
     out = {}
     for name in CHAIN_WRAPPERS:
-        for (dtype, b, c), k in getattr(panel_mod, name).chain_launches_by_plan.items():
+        for (dtype, b, c), k in getattr(panel_mod, name).counts.chain_launches_by_plan.items():
             key = f"{dtype}_b{b}_C{c}"
             out[key] = out.get(key, 0) + k
     return out
 
 
 def chain_count(attr) -> int:
-    """A chain launch counter (``lookahead_chain_launches``,
-    ``mbarrier_exchange_launches``) summed over the wrappers of
-    ``panel_chain_kernel``; 0 where a wrapper has no such counter."""
-    return sum(getattr(getattr(panel_mod, name), attr, 0) for name in CHAIN_WRAPPERS)
+    """A chain launch count (``lookahead_chain_launches``) summed over the
+    wrappers of ``panel_chain_kernel``."""
+    return sum(getattr(getattr(panel_mod, name).counts, attr) for name in CHAIN_WRAPPERS)
 
 
-COUNTERS = ("lookahead_chain_launches", "mbarrier_exchange_launches")
+COUNTERS = ("lookahead_chain_launches",)
 
 
 def card_line() -> str:

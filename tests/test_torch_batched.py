@@ -255,12 +255,12 @@ def test_shared_memory_counts():
     assert not bk.lu_kernel_takes(torch.float16, 8, 8)
     assert not bk.lu_kernel_takes(torch.float32, 4096, 64)  # tile too large
     assert bk.lu_kernel_takes(torch.float32, 600, 64)
-    assert bk.solve_smem_bytes(64, 1, 4, "block") == (64 * 65 + 2 * 64) * 4 + 4 * 64
+    with pytest.raises(ValueError, match="no route"):  # the solve has no block route
+        bk.solve_smem_bytes(64, 1, 4, "block")
     assert bk.solve_kernel_takes(torch.float64, 128, 8)
-    # the wide route holds a tile of the factors only: any nrhs fits, where
-    # the block route's right-hand sides would not (forcing it raises)
+    # the wide route holds a tile of the factors only: any nrhs fits
     assert bk.solve_kernel_takes(torch.float32, 128, 400)
-    assert bk.solve_smem_bytes(128, 400, 4, "block") > bk.SMEM_LIMIT
+    assert bk.solve_smem_bytes(128, 400, 4) == bk.solve_smem_bytes(128, 1, 4) <= bk.SMEM_LIMIT
     assert not bk.solve_kernel_takes(torch.float32, 0, 1)
     assert not bk.solve_kernel_takes(torch.float32, 129, 1)
 
@@ -331,9 +331,9 @@ def test_solve_route_rule_and_its_shared_memory(n, nrhs, route, lanes):
     """The solve kernel's route of each shape and the byte count its launch
     must give (csrc/batched_solve.cu refuses another), by route: lanes per
     matrix on the warp route, matrices per block on the wide route."""
-    block = (n * (n + 1) + 2 * n * nrhs) * 4 + 4 * n
     assert bk.solve_route(n, nrhs) == route
-    assert bk.solve_smem_bytes(n, nrhs, 4, "block") == block
+    with pytest.raises(ValueError, match="no route"):
+        bk.solve_smem_bytes(n, nrhs, 4, "block")
     if route == "warp":
         warp = (128 // lanes) * n * (n | 1)
         assert bk.solve_smem_bytes(n, nrhs, 4) == warp * 4
@@ -350,15 +350,15 @@ def test_solve_routes_are_counted_apart():
     """The solve wrapper keeps a launch count per route beside the total,
     and the reset sets both to 0; CPU tensors launch nothing."""
     assert (set(bk.batched_solve_cuda.route_launches) == set(bk.SOLVE_ROUTES)
-            == {"warp", "wide", "block"})
+            == {"warp", "wide"})
     bk.batched_solve_cuda.route_launches["warp"] += 1
     bk.reset_solve_launches()
-    assert bk.batched_solve_cuda.route_launches == {"warp": 0, "wide": 0, "block": 0}
+    assert bk.batched_solve_cuda.route_launches == {"warp": 0, "wide": 0}
     assert bk.batched_solve_cuda.launches == 0
     for route in ("warp", "block", "tile"):
         with pytest.raises(ValueError):
             bk.batched_solve_cuda(torch.zeros(2, 4, 4), torch.zeros(2, 4), route=route)
-    assert bk.batched_solve_cuda.route_launches == {"warp": 0, "wide": 0, "block": 0}
+    assert bk.batched_solve_cuda.route_launches == {"warp": 0, "wide": 0}
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
@@ -372,8 +372,8 @@ def test_noswap_route_rule_and_its_shared_memory(n, route, side, slots, itemsize
     its own shared memory: on the warp route one pair of row-kp buffers
     per matrix (the swap mode holds two pairs), on the block route row kp,
     the multipliers, BT candidates and a[n - 1, k], then BT + 2 BT S ints
-    (candidates' rows, pivot row per step, step per row); the tile route
-    is the shared-memory tile's count."""
+    (candidates' rows, pivot row per step, step per row); it has no tile
+    route."""
     assert bk.noswap_route(n) == route == bk.lu_route(n, n)
     if route == "warp":
         lanes = 16 if n <= 16 else 32
@@ -385,7 +385,8 @@ def test_noswap_route_rule_and_its_shared_memory(n, route, side, slots, itemsize
         want = (2 * cap + side + 1) * itemsize + 4 * (side + 2 * cap)
     assert bk.noswap_smem_bytes(n, itemsize) == want
     assert bk.noswap_smem_bytes(n, itemsize, route) == want
-    assert bk.noswap_smem_bytes(n, itemsize, "tile") == bk.tile_smem_bytes(n, n, itemsize)
+    with pytest.raises(ValueError, match="no route"):
+        bk.noswap_smem_bytes(n, itemsize, "tile")
     assert want <= 48 * 1024  # no opt-in on the register routes
 
 
@@ -395,12 +396,12 @@ def test_wide_solve_route_rule(n, itemsize):
     """The solve's route and shared memory at the route boundaries: warp up
     to 32, wide beyond with an n x 33 tile per matrix and 1, 2 or 4
     matrices per block (the most resident warps per SM by shared memory:
-    32 blocks, 64 warps, 228 KB with 1 KB per block), the block route's
-    count whatever route the shape takes."""
+    32 blocks, 64 warps, 228 KB with 1 KB per block); no block route
+    whatever the shape."""
     route = bk.solve_route(n, 1)
     assert route == ("warp" if n <= 32 else "wide")
-    block = (n * (n + 1) + 2 * n) * itemsize + 4 * n
-    assert bk.solve_smem_bytes(n, 1, itemsize, "block") == block
+    with pytest.raises(ValueError, match="no route"):
+        bk.solve_smem_bytes(n, 1, itemsize, "block")
     if route == "wide":
         tile = n * 33 * itemsize
         resident = {g: min(64, min(32, 233472 // (g * tile + 1024)) * g) for g in (1, 2, 4)}
@@ -417,12 +418,16 @@ def test_wide_solve_route_rule(n, itemsize):
     [("noswap", (2, 33, 33), "warp"), ("noswap", (2, 129, 129), "block"),
      ("noswap", (2, 8, 8), "wide"), ("solve", (2, 33, 33), "warp"),
      ("solve", (2, 32, 32), "wide"), ("solve", (2, 129, 129), "wide"),
-     ("solve", (2, 8, 8), "tile")],
+     ("solve", (2, 8, 8), "tile"),
+     # the retired routes: the noswap tile and the solve's block route
+     ("noswap", (2, 8, 8), "tile"), ("noswap", (2, 64, 64), "tile"),
+     ("noswap", (2, 128, 128), "tile"), ("solve", (2, 8, 8), "block"),
+     ("solve", (2, 64, 64), "block"), ("solve", (2, 129, 129), "block")],
 )
 def test_forced_route_that_does_not_take_the_shape_raises(what, shape, route):
-    """Forcing a route that does not take the shape raises before anything
-    else is checked (here: before the CPU tensor is refused), and nothing
-    is launched."""
+    """Forcing a route that does not take the shape, or a route the kernel
+    does not have, raises before anything else is checked (here: before
+    the CPU tensor is refused), and nothing is launched."""
     bk.reset_noswap_launches()
     bk.reset_solve_launches()
     A = torch.zeros(shape)
@@ -436,11 +441,12 @@ def test_forced_route_that_does_not_take_the_shape_raises(what, shape, route):
 
 
 def test_noswap_routes_are_counted_apart():
-    assert set(bk.batched_lu_noswap_cuda.route_launches) == set(bk.LU_ROUTES)
+    assert (set(bk.batched_lu_noswap_cuda.route_launches) == set(bk.NOSWAP_ROUTES)
+            == {"warp", "block"})
     bk.batched_lu_noswap_cuda.route_launches["block"] += 1
     bk.batched_lu_noswap_cuda.launches += 1
     bk.reset_noswap_launches()
-    assert bk.batched_lu_noswap_cuda.route_launches == {"warp": 0, "block": 0, "tile": 0}
+    assert bk.batched_lu_noswap_cuda.route_launches == {"warp": 0, "block": 0}
     assert bk.batched_lu_noswap_cuda.launches == 0
 
 

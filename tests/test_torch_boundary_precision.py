@@ -407,8 +407,8 @@ def test_bf16x3_update_options_refused_before_the_card():
     for bad in ("plain", None, (64, 32)):
         with pytest.raises(ValueError, match="_update"):
             panel_update_bf16x3_cuda(T, T, T, _update=bad)
-    assert panel_factor_cuda.bf16x3_launches == 0
-    assert panel_update_bf16x3_cuda.launches == 0
+    assert panel_factor_cuda.counts.bf16x3_launches == 0
+    assert panel_update_bf16x3_cuda.counts.launches == 0
 
 
 def test_panel_routes_under_the_knob():
@@ -485,5 +485,5 @@ def test_invalid_values_raise():
         panel_factor_cuda(T, True, precision=BF, _chain="wide")
     with pytest.raises(ValueError, match="_chain"):  # the float32 form has no grid chain
         panel_factor_cuda(T, True, _chain="grid")
-    assert panel_factor_cuda.bf16x3_launches == 0
-    assert panel_update_bf16x3_cuda.launches == 0
+    assert panel_factor_cuda.counts.bf16x3_launches == 0
+    assert panel_update_bf16x3_cuda.counts.launches == 0

@@ -190,9 +190,9 @@ def test_workspace_checks_and_device_rule(monkeypatch):
     assert int(info) == -1
     # the pivot-free LU inside is lu_factor(pivot=False): on the CPU it
     # launches no kernel
-    before = panel_factor_cuda.launches
+    before = panel_factor_cuda.counts.launches
     rt.butterfly_solve(rt.butterfly_workspace(np.eye(8) * 2, np.ones(8), device="cpu"))
-    assert panel_factor_cuda.launches == before
+    assert panel_factor_cuda.counts.launches == before
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         rt.butterfly_workspace(np.eye(4), np.ones(4))

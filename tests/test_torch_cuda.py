@@ -88,10 +88,10 @@ def test_kernel_bitwise_equals_plain(dtype, pivot, shape):
     A[:, min(shape) // 2] = 0  # a zero pivot inside the factored steps
     f, piv, perm, info = unblocked_lu(A, pivot)
     P = A.clone()
-    before = panel_factor_cuda.launches
+    before = panel_factor_cuda.counts.launches
     kpiv, kperm, kinfo = panel_factor_cuda(P, pivot)
     torch.cuda.synchronize()
-    assert panel_factor_cuda.launches == before + 1
+    assert panel_factor_cuda.counts.launches == before + 1
     assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
     assert int(kinfo) == int(info) != 0
     assert torch.equal(_bits(P), _bits(f))
@@ -138,10 +138,10 @@ def test_kernel_plans_bitwise_equal_plain(dtype, shape, pivot, block, cluster):
     plan = panel_plan(m, w, dtype, block=block, cluster=cluster)
     assert plan["route"] == "cluster" and (plan["block"], plan["cluster"]) == (block, cluster)
     P = A.clone()
-    g0 = panel_factor_cuda.grid_route_launches
+    g0 = panel_factor_cuda.counts.grid_route_launches
     kpiv, kperm, kinfo = panel_factor_cuda(P, pivot, block=block, cluster=cluster)
     torch.cuda.synchronize()
-    assert panel_factor_cuda.grid_route_launches == g0
+    assert panel_factor_cuda.counts.grid_route_launches == g0
     assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
     assert int(kinfo) == int(info) == (8 if pivot else -8)
     assert torch.equal(_bits(P), _bits(f))
@@ -196,10 +196,10 @@ def test_kernel_grid_route_for_tall_panels(dtype):
         assert panel_plan(*shape, dtype, block=block)["route"] == "grid"
         f, piv, perm, info = unblocked_lu(A, True)
         P = A.clone()
-        g0 = panel_factor_cuda.grid_route_launches
+        g0 = panel_factor_cuda.counts.grid_route_launches
         kpiv, kperm, kinfo = panel_factor_cuda(P, True, block=block)
         torch.cuda.synchronize()
-        assert panel_factor_cuda.grid_route_launches == g0 + 1
+        assert panel_factor_cuda.counts.grid_route_launches == g0 + 1
         assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
         assert torch.equal(_bits(P), _bits(f))
 
@@ -294,10 +294,10 @@ def test_c64_kernel_bitwise_equals_plain(dtype, pivot, shape):
     A[:, min(shape) // 2] = 0  # a zero pivot inside the factored steps
     f, piv, perm, info = unblocked_lu_cabs1(A, pivot)
     P = A.clone()
-    before = panel_factor_c64_cuda.launches
+    before = panel_factor_c64_cuda.counts.launches
     kpiv, kperm, kinfo = panel_factor_c64_cuda(P, pivot)
     torch.cuda.synchronize()
-    assert panel_factor_c64_cuda.launches == before + 1
+    assert panel_factor_c64_cuda.counts.launches == before + 1
     assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
     assert int(kinfo) == int(info) != 0
     assert torch.equal(_cbits(P), _cbits(f))
@@ -351,10 +351,10 @@ def test_c64_kernel_cluster_plans_bitwise_equal_plain(dtype, block, cluster, piv
     plan = panel_plan(m, w, dtype, block=block, cluster=cluster)
     assert plan["route"] == "cluster" and (plan["block"], plan["cluster"]) == (block, cluster)
     P = A.clone()
-    g0 = panel_factor_c64_cuda.grid_route_launches
+    g0 = panel_factor_c64_cuda.counts.grid_route_launches
     kpiv, kperm, kinfo = panel_factor_c64_cuda(P, pivot, block=block, cluster=cluster)
     torch.cuda.synchronize()
-    assert panel_factor_c64_cuda.grid_route_launches == g0
+    assert panel_factor_c64_cuda.counts.grid_route_launches == g0
     assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
     assert int(kinfo) == int(info) == (8 if pivot else -8)
     assert torch.equal(_cbits(P), _cbits(f))
@@ -401,10 +401,10 @@ def test_c64_kernel_grid_route_forced_and_for_tall_panels(dtype):
         assert panel_plan(*shape, dtype, block=block)["route"] == "grid"
         f, piv, perm, info = unblocked_lu_cabs1(A, True)
         P = A.clone()
-        g0 = panel_factor_c64_cuda.grid_route_launches
+        g0 = panel_factor_c64_cuda.counts.grid_route_launches
         kpiv, kperm, kinfo = panel_factor_c64_cuda(P, True, block=block)
         torch.cuda.synchronize()
-        assert panel_factor_c64_cuda.grid_route_launches == g0 + 1
+        assert panel_factor_c64_cuda.counts.grid_route_launches == g0 + 1
         assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
         assert torch.equal(_cbits(P), _cbits(f))
     # the offset form plans the live rows; an offset beyond m - w is refused
@@ -455,9 +455,9 @@ def test_complex_lu_on_the_card_matches_the_cpu_route(dtype, n, w):
     A = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
     cfg = rt.LUConfig(panel_width=w, small_threshold=w)
     At = torch.tensor(A, dtype=dtype)
-    before = panel_factor_c64_cuda.launches
+    before = panel_factor_c64_cuda.counts.launches
     G = rt.lu(At, config=cfg)
-    assert panel_factor_c64_cuda.launches == before + -(-n // w)
+    assert panel_factor_c64_cuda.counts.launches == before + -(-n // w)
     C = rt.lu(At, config=cfg, device="cpu")
     assert G.factors.is_cuda and G.factors.dtype == dtype
     assert torch.equal(G.ipiv.cpu(), C.ipiv) and torch.equal(G.p.cpu(), C.p)
@@ -485,9 +485,9 @@ def test_half_promotes_through_the_f32_kernel_on_the_card(dtype):
     rng = np.random.default_rng(25)
     n = 600
     A = torch.tensor(rng.standard_normal((n, n)) + n * np.eye(n)).to(dtype)
-    before = panel_factor_cuda.launches
+    before = panel_factor_cuda.counts.launches
     F = rt.lu(A)
-    assert panel_factor_cuda.launches == before + 2
+    assert panel_factor_cuda.counts.launches == before + 2
     G = rt.lu(A.float())
     assert F.factors.dtype == dtype and F.factors.is_cuda
     assert torch.equal(F.ipiv, G.ipiv) and torch.equal(F.factors, G.factors.to(dtype))
@@ -508,8 +508,8 @@ def test_batched_complex_and_half_on_the_card():
     B, n = 50, 32
     A = rng.standard_normal((B, n, n)) + 1j * rng.standard_normal((B, n, n))
     b = rng.standard_normal((B, n)) + 1j * rng.standard_normal((B, n))
-    for w in (bk.batched_lu_cuda, bk.batched_solve_cuda):
-        w.launches = 0
+    bk.reset_lu_launches()
+    bk.reset_solve_launches()
     At, bt = torch.tensor(A, dtype=torch.complex64), torch.tensor(b, dtype=torch.complex64)
     for pivot in (True, False):
         M = At + (0 if pivot else n) * torch.eye(n)
@@ -695,21 +695,20 @@ def test_batched_solve_kernel_bitwise_equals_plain(dtype, nrhs, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("route", ["warp", "block"])
 @pytest.mark.parametrize("n", [1, 8, 15, 16, 17, 31, 32])
-def test_batched_solve_routes_bitwise_equal_plain(dtype, route, n):
-    """The solve's warp route (the shape's own at n <= 32) and the block
-    route forced on the same inputs: no row order, perm or ipiv, a vector,
-    one and five right-hand sides, a zero on U's diagonal in one matrix
-    (inf / NaN there only), a batch that is not a multiple of the matrices
-    per block; one launch on the route per call."""
+def test_batched_solve_routes_bitwise_equal_plain(dtype, n):
+    """The solve's warp route (the shape's own at n <= 32), forced: no row
+    order, perm or ipiv, a vector, one and five right-hand sides, a zero on
+    U's diagonal in one matrix (inf / NaN there only), a batch that is not a
+    multiple of the matrices per block; one launch on the route per call."""
     need_cuda()
     g = torch.Generator().manual_seed(27)
     B = 37
     A = torch.randn(B, n, n, generator=g, dtype=dtype).cuda()
     f, ipiv, perm, info = bk.batched_lu_cuda(A, True, True)
     f[B // 2, n // 2, n // 2] = 0
-    assert bk.solve_route(n, 1) == "warp"
+    route = bk.solve_route(n, 1)
+    assert route == "warp"
     for nrhs in (None, 1, 5):
         b = torch.randn((B, n) if nrhs is None else (B, n, nrhs), generator=g,
                         dtype=dtype).cuda()
@@ -756,11 +755,11 @@ def test_batched_solve_warp_route_on_the_public_path():
 @pytest.mark.parametrize("n", [1, 8, 16, 17, 31, 32, 33, 64, 127, 128])
 def test_batched_noswap_routes_bitwise_equal_plain(dtype, n):
     """The noswap kernel on the route its shape names (warp at n <= 32,
-    block beyond) and forced onto the tile route (and, at n <= 32, the
-    block route): batches of 1, 37 and 1001, pivot on and off, exact ties,
-    a zeroed column, a NaN candidate after row n - 1 won the first step
-    (the NaN rule picks it again): factors (NaN for NaN), perm and info
-    equal to the plain version's, one launch on the route per call."""
+    block beyond) and, at n <= 32, forced onto the block route: batches of 1,
+    37 and 1001, pivot on and off, exact ties, a zeroed column, a NaN
+    candidate after row n - 1 won the first step (the NaN rule picks it
+    again): factors (NaN for NaN), perm and info equal to the plain version's,
+    one launch on the route per call."""
     need_cuda()
     own = bk.noswap_route(n)
     assert own == ("warp" if n <= 32 else "block")
@@ -786,12 +785,12 @@ def test_batched_noswap_routes_bitwise_equal_plain(dtype, n):
                 assert (perm[::2, :2] == n - 1).all()
             if name == "zero_col":
                 assert int(info[B // 2]) == (n // 2 + 1) * (1 if pivot else -1)
-            for route in dict.fromkeys((own, "tile", "block")):
+            for route in dict.fromkeys((own, "block")):
                 bk.reset_noswap_launches()
                 kf, kperm, kinfo = bk.batched_lu_noswap_cuda(A, pivot, route=route)
                 torch.cuda.synchronize()
                 assert bk.batched_lu_noswap_cuda.route_launches == {
-                    r: int(r == route) for r in bk.LU_ROUTES}, (name, route)
+                    r: int(r == route) for r in bk.NOSWAP_ROUTES}, (name, route)
                 assert torch.equal(kperm, perm) and torch.equal(kinfo, info), (name, route)
                 assert _same_bits_nan(kf, f), (name, route, B)
     with pytest.raises(ValueError):
@@ -805,13 +804,12 @@ def test_batched_noswap_routes_bitwise_equal_plain(dtype, n):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n", [33, 48, 64, 96, 128])
 def test_batched_solve_wide_route_bitwise_equals_plain(dtype, n):
-    """The solve's wide route (the shape's own at 32 < n <= 128) and the
-    block route forced on the same inputs: no row order, perm or ipiv, one
-    right-hand side as a vector and as a column, five (one full and one
-    partial pass of four), a zero on U's diagonal in one matrix (inf / NaN
-    there only), batches of 1, 37 and 1001 (not a multiple of the matrices
-    per block): bitwise equal to the plain version NaN for NaN, one launch
-    on the route per call."""
+    """The solve's wide route (the shape's own at 32 < n <= 128), forced:
+    no row order, perm or ipiv, one right-hand side as a vector and as a
+    column, five (one full and one partial pass of four), a zero on U's
+    diagonal in one matrix (inf / NaN there only), batches of 1, 37 and
+    1001 (not a multiple of the matrices per block): bitwise equal to the
+    plain version NaN for NaN, one launch on the route per call."""
     need_cuda()
     assert bk.solve_route(n, 1) == "wide"
     g = torch.Generator().manual_seed(30)
@@ -825,17 +823,16 @@ def test_batched_solve_wide_route_bitwise_equals_plain(dtype, n):
                             dtype=dtype).cuda()
             x = bk.batched_solve_plain(f, b)
             xp = bk.batched_solve_plain(f, b, perm=perm)
-            for route in ("wide", "block"):
-                for kw, want in (({}, x), ({"perm": perm}, xp), ({"ipiv": ipiv}, xp)):
-                    bk.reset_solve_launches()
-                    kx = bk.batched_solve_cuda(f, b, route=route, **kw)
-                    torch.cuda.synchronize()
-                    assert bk.batched_solve_cuda.route_launches == {
-                        r: int(r == route) for r in bk.SOLVE_ROUTES}
-                    assert kx.shape == b.shape
-                    assert _same_bits_nan(kx.contiguous(), want.contiguous()), (route, kw, B)
-                    finite = torch.isfinite(kx.reshape(B, -1)).all(dim=1)
-                    assert not bool(finite[sing]) and int(finite.sum()) == B - 1
+            for kw, want in (({}, x), ({"perm": perm}, xp), ({"ipiv": ipiv}, xp)):
+                bk.reset_solve_launches()
+                kx = bk.batched_solve_cuda(f, b, route="wide", **kw)
+                torch.cuda.synchronize()
+                assert bk.batched_solve_cuda.route_launches == {
+                    r: int(r == "wide") for r in bk.SOLVE_ROUTES}
+                assert kx.shape == b.shape
+                assert _same_bits_nan(kx.contiguous(), want.contiguous()), (kw, B)
+                finite = torch.isfinite(kx.reshape(B, -1)).all(dim=1)
+                assert not bool(finite[sing]) and int(finite.sum()) == B - 1
     plan = bk.solve_plan(n, 1, dtype)
     assert plan["route"] == "wide" and plan["per_block"] == bk.wide_group(n, dtype.itemsize)
     assert plan["smem"] == bk.solve_smem_bytes(n, 1, dtype.itemsize)
@@ -881,8 +878,8 @@ def test_batched_public_path_on_the_card(dtype):
     b = rng.standard_normal((B, n, 2))
     At = torch.tensor(A, dtype=dtype)
     bt = torch.tensor(b, dtype=dtype)
-    for w in (bk.batched_lu_cuda, bk.batched_solve_cuda):
-        w.launches = 0
+    bk.reset_lu_launches()
+    bk.reset_solve_launches()
     f, perm, info = rt.batched_lu_factor_perm(At)
     x = rt.batched_lu_solve_perm(f, perm, bt)
     f2, ipiv, _ = rt.batched_lu_factor(At)
@@ -911,8 +908,9 @@ def test_batched_library_routes_on_the_card():
     A = rng.standard_normal((B, n, n)) + n * np.eye(n)
     At = torch.tensor(A, dtype=torch.float32)
     b = torch.tensor(rng.standard_normal((B, n)), dtype=torch.float32)
-    for w in (bk.batched_lu_cuda, bk.batched_lu_noswap_cuda, bk.batched_solve_cuda):
-        w.launches = 0
+    bk.reset_lu_launches()
+    bk.reset_noswap_launches()
+    bk.reset_solve_launches()
     for pivot in (True, False):
         f, perm, info = rt.batched_lu_factor_perm(At, pivot)
         x = rt.batched_lu_solve_perm(f, perm, b, pivot)
@@ -949,10 +947,10 @@ def test_micro_kernels_bitwise_equal_plain_and_each_other(dtype, pivot, shape, m
     f, piv, perm, info = micro_blocked_lu(A, pivot, micro)
     for wrapper in (panel_factor_shadow_cuda, panel_factor_basic_cuda):
         P = A.clone()
-        before = wrapper.launches
+        before = wrapper.counts.launches
         kpiv, kperm, kinfo = wrapper(P, pivot, micro)
         torch.cuda.synchronize()
-        assert wrapper.launches == before + 1
+        assert wrapper.counts.launches == before + 1
         assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
         assert int(kinfo) == int(info) != 0
         assert torch.equal(_bits(P), _bits(f))
@@ -1019,10 +1017,10 @@ def test_noswap_kernel_bitwise_equals_plain(dtype, pivot, shape, taken):
     used0 = used0.cuda()
     f, prow, used, info = unblocked_lu_noswap(A, used0, pivot)
     P = A.clone()
-    before = panel_factor_noswap_cuda.launches
+    before = panel_factor_noswap_cuda.counts.launches
     kprow, kused, kinfo = panel_factor_noswap_cuda(P, used0, pivot)
     torch.cuda.synchronize()
-    assert panel_factor_noswap_cuda.launches == before + 1
+    assert panel_factor_noswap_cuda.counts.launches == before + 1
     assert torch.equal(kprow, prow) and torch.equal(kused, used)
     assert int(kinfo) == int(info) != 0
     assert torch.equal(_bits(P), _bits(f))
@@ -1077,10 +1075,10 @@ def test_micro_kernels_on_both_routes(shape, micro, dtype):
             assert micro_plan(*shape, dtype, micro, variant, block=block)["route"] == \
                 ("cluster" if block == 0 else "grid")
             P = A.clone()
-            before = (wrapper.launches, wrapper.grid_route_launches)
+            before = (wrapper.counts.launches, wrapper.counts.grid_route_launches)
             kpiv, kperm, kinfo = wrapper(P, True, micro, block=block)
             torch.cuda.synchronize()
-            assert (wrapper.launches, wrapper.grid_route_launches) == \
+            assert (wrapper.counts.launches, wrapper.counts.grid_route_launches) == \
                 (before[0] + 1, before[1] + (block < 0))
             assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
             assert int(kinfo) == int(info) == 10 and torch.equal(_bits(P), _bits(f))
@@ -1109,10 +1107,11 @@ def test_micro_kernels_past_64_bitwise_equal_plain(shape, micro, dtype):
             if chain == "grid":
                 assert plan["grid_blocks"] == blocks
             P = A.clone()
-            before = (wrapper.launches, wrapper.grid_route_launches, wrapper.grid_block_launches)
+            c = wrapper.counts
+            before = (c.launches, c.grid_route_launches, c.grid_block_launches)
             kpiv, kperm, kinfo = wrapper(P, True, mc, _chain=chain)
             torch.cuda.synchronize()
-            assert (wrapper.launches, wrapper.grid_route_launches, wrapper.grid_block_launches) \
+            assert (c.launches, c.grid_route_launches, c.grid_block_launches) \
                 == (before[0] + 1, before[1], before[2] + plan["grid_blocks"])
             assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
             assert int(kinfo) == int(info) == 10 and torch.equal(_bits(P), _bits(f))
@@ -1132,12 +1131,12 @@ def test_micro_kernels_past_64_on_panels_too_tall_for_a_cluster(shape, micro, dt
     plan = micro_plan(*shape, dtype, micro)
     assert plan["route"] == "cluster" and plan["grid_blocks"] >= 1
     P = A.clone()
-    before = (panel_factor_basic_cuda.grid_route_launches,
-              panel_factor_basic_cuda.grid_block_launches)
+    before = (panel_factor_basic_cuda.counts.grid_route_launches,
+              panel_factor_basic_cuda.counts.grid_block_launches)
     kpiv, kperm, kinfo = panel_factor_basic_cuda(P, True, micro)
     torch.cuda.synchronize()
-    assert (panel_factor_basic_cuda.grid_route_launches,
-            panel_factor_basic_cuda.grid_block_launches) == \
+    assert (panel_factor_basic_cuda.counts.grid_route_launches,
+            panel_factor_basic_cuda.counts.grid_block_launches) == \
         (before[0], before[1] + plan["grid_blocks"])
     assert torch.equal(kpiv, piv) and torch.equal(kperm, perm) and int(kinfo) == int(info)
     assert torch.equal(_bits(P), _bits(f))
@@ -1166,11 +1165,12 @@ def test_noswap_kernel_on_both_routes_and_plans(dtype, taken):
         plan = noswap_plan(m, w, dtype, **kw)
         assert plan["route"] == ("grid" if kw.get("block", 0) < 0 else "cluster")
         P = A.clone()
-        before = (panel_factor_noswap_cuda.launches, panel_factor_noswap_cuda.grid_route_launches)
+        c = panel_factor_noswap_cuda.counts
+        before = (c.launches, c.grid_route_launches)
         kprow, kused, kinfo = panel_factor_noswap_cuda(P, used0, True, **kw)
         torch.cuda.synchronize()
-        assert panel_factor_noswap_cuda.launches == before[0] + 1
-        assert panel_factor_noswap_cuda.grid_route_launches == before[1] + (plan["route"] == "grid")
+        assert c.launches == before[0] + 1
+        assert c.grid_route_launches == before[1] + (plan["route"] == "grid")
         assert torch.equal(kprow, prow) and torch.equal(kused, used)
         assert int(kinfo) == int(info) and _same_bits_nan(P, f)
         assert torch.equal(_bits(P[used0.bool()]), _bits(A[used0.bool()]))
@@ -1193,10 +1193,10 @@ def test_variant_lu_on_the_card_matches_the_cpu_route(dtype, variant):
     cfg = rt.LUConfig(panel_variant=variant, panel_width=w, small_threshold=w,
                       panel_micro=16)
     At = torch.tensor(A, dtype=dtype)
-    before = (wrapper.launches, panel_factor_cuda.launches)
+    before = (wrapper.counts.launches, panel_factor_cuda.counts.launches)
     G = rt.lu(At, config=cfg)
-    assert wrapper.launches == before[0] + -(-n // w)
-    assert panel_factor_cuda.launches == before[1]
+    assert wrapper.counts.launches == before[0] + -(-n // w)
+    assert panel_factor_cuda.counts.launches == before[1]
     C = rt.lu(At, config=cfg, device="cpu")
     assert torch.equal(G.ipiv.cpu(), C.ipiv) and torch.equal(G.p.cpu(), C.p)
     gate = 20 * n * torch.finfo(dtype).eps * float(np.abs(A).max())
@@ -1207,7 +1207,7 @@ def test_variant_lu_on_the_card_matches_the_cpu_route(dtype, variant):
                                      small_threshold=w, panel_micro=16))
     assert torch.equal(B.factors, G.factors) and torch.equal(B.ipiv, G.ipiv)
     W = rt.lu(At[:w, :w], config=cfg)  # the whole route takes panel_variant
-    assert wrapper.launches == before[0] + 2 * -(-n // w) + 1
+    assert wrapper.counts.launches == before[0] + 2 * -(-n // w) + 1
     assert torch.equal(W.ipiv.cpu(), rt.lu(At[:w, :w], config=cfg, device="cpu").ipiv)
     b = torch.tensor(rng.standard_normal(n), dtype=dtype)
     x = rt.lu_solve(G, b).cpu().double()
@@ -1226,10 +1226,10 @@ def test_physical_lu_on_the_card_matches_the_cpu_route(dtype, shape, w):
     A = rng.standard_normal(shape)
     cfg = rt.LUConfig(schedule="physical", panel_width=w)
     At = torch.tensor(A, dtype=dtype)
-    before = (panel_factor_noswap_cuda.launches, panel_factor_cuda.launches)
+    before = (panel_factor_noswap_cuda.counts.launches, panel_factor_cuda.counts.launches)
     G = rt.lu(At, config=cfg)
-    assert panel_factor_noswap_cuda.launches == before[0] + -(-n // w)
-    assert panel_factor_cuda.launches == before[1]
+    assert panel_factor_noswap_cuda.counts.launches == before[0] + -(-n // w)
+    assert panel_factor_cuda.counts.launches == before[1]
     C = rt.lu(At, config=cfg, device="cpu")
     assert G.factors.is_cuda
     assert torch.equal(G.ipiv.cpu(), C.ipiv) and torch.equal(G.p.cpu(), C.p)
@@ -1263,9 +1263,9 @@ def test_butterfly_solve_on_the_card():
     b = rng.standard_normal((n, 2))
     ws = rt.butterfly_workspace(A, b)
     assert ws.A.is_cuda and ws.uv.is_cuda and ws.A.shape == (604, 604)
-    before = panel_factor_cuda.launches
+    before = panel_factor_cuda.counts.launches
     x, info = rt.butterfly_solve(ws, return_info=True, refine=1)
-    assert panel_factor_cuda.launches == before + 2 and int(info) == 0
+    assert panel_factor_cuda.counts.launches == before + 2 and int(info) == 0
     assert x.is_cuda and tuple(x.shape) == (n, 2)
     assert float(np.abs(A @ x.cpu().numpy() - b).max()) < 1e-9
     xc = rt.butterfly_solve(rt.butterfly_workspace(A, b, device="cpu"), refine=1)
@@ -1304,10 +1304,10 @@ def test_offset_kernel_bitwise_equals_plain(dtype, pivot, shape, ofs):
     A = A.cuda()
     f, piv, perm, info = offset_panel_lu(A, ofs, pivot)
     P = A.clone()
-    before = offset_panel_factor_cuda.launches
+    before = offset_panel_factor_cuda.counts.launches
     kpiv, kperm, kinfo = offset_panel_factor_cuda(P, ofs, pivot)
     torch.cuda.synchronize()
-    assert offset_panel_factor_cuda.launches == before + 1
+    assert offset_panel_factor_cuda.counts.launches == before + 1
     assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
     assert int(kinfo) == int(info) == (w // 2 + 1) * (1 if pivot else -1)
     assert torch.equal(_bits(P), _bits(f)) and torch.equal(_bits(P[:ofs]), _bits(A[:ofs]))
@@ -1341,10 +1341,10 @@ def test_offset_kernel_one_cta_for_128_live_rows_and_grid_route_when_tall():
     assert panel_plan(100000, 8, torch.float32, ofs=10)["route"] == "grid"
     f, piv, perm, info = offset_panel_lu(A, 10, True)
     P = A.clone()
-    g0 = offset_panel_factor_cuda.grid_route_launches
+    g0 = offset_panel_factor_cuda.counts.grid_route_launches
     kpiv, kperm, kinfo = offset_panel_factor_cuda(P, 10, True)
     torch.cuda.synchronize()
-    assert offset_panel_factor_cuda.grid_route_launches == g0 + 1
+    assert offset_panel_factor_cuda.counts.grid_route_launches == g0 + 1
     assert torch.equal(kpiv, piv) and torch.equal(kperm, perm)
     assert torch.equal(_bits(P), _bits(f))
 
@@ -1401,11 +1401,11 @@ def test_tp_on_the_card_in_a_world_of_one_rank():
         n, w = 640, 128
         A = torch.tensor(rng.standard_normal((n, n)), dtype=torch.float32, device="cuda")
         b = torch.tensor(rng.standard_normal(n), dtype=torch.float32, device="cuda")
-        k0, p0 = offset_panel_factor_cuda.launches, panel_factor_cuda.launches
+        k0, p0 = offset_panel_factor_cuda.counts.launches, panel_factor_cuda.counts.launches
         F = rt.tp_lu(A, mesh, "tp", w)
         torch.cuda.synchronize()
-        assert offset_panel_factor_cuda.launches - k0 == n // w
-        assert panel_factor_cuda.launches == p0
+        assert offset_panel_factor_cuda.counts.launches - k0 == n // w
+        assert panel_factor_cuda.counts.launches == p0
         G = rt.lu(A, config=rt.LUConfig(panel_width=w, small_threshold=0))
         assert torch.equal(F.ipiv, G.ipiv) and torch.equal(F.p, G.p) and int(F.info) == 0
         r = (F.L.double() @ F.U.double() - A.double()[F.p.long()]).abs().max()
@@ -1463,11 +1463,12 @@ def test_offset_c64_kernel_bitwise_equals_plain(dtype, pivot, block, shape, ofs)
         A = _offset_complex(H, w, ofs, dtype, pivot, name, g)
         f, piv, perm, info = offset_panel_lu_cabs1(A, ofs, pivot)
         P = A.clone()
-        k0, g0 = offset_panel_factor_c64_cuda.launches, offset_panel_factor_c64_cuda.grid_route_launches
+        c = offset_panel_factor_c64_cuda.counts
+        k0, g0 = c.launches, c.grid_route_launches
         kpiv, kperm, kinfo = offset_panel_factor_c64_cuda(P, ofs, pivot, block=block)
         torch.cuda.synchronize()
-        assert offset_panel_factor_c64_cuda.launches == k0 + 1
-        assert offset_panel_factor_c64_cuda.grid_route_launches - g0 == (block < 0)
+        assert c.launches == k0 + 1
+        assert c.grid_route_launches - g0 == (block < 0)
         assert torch.equal(kpiv, piv) and torch.equal(kperm, perm), name
         assert int(kinfo) == int(info), name
         assert _same_cbits_nan(P, f) and torch.equal(_cbits(P[:ofs]), _cbits(A[:ofs])), name
@@ -1553,11 +1554,12 @@ def test_tp_complex_half_and_integer_on_the_card_in_a_world_of_one_rank():
         for dt, M in cases:
             A = torch.tensor(M, device="cuda").to(dt)
             cplx = dt.is_complex
-            counts = (offset_panel_factor_cuda.launches, offset_panel_factor_c64_cuda.launches)
+            counts = (offset_panel_factor_cuda.counts.launches,
+                      offset_panel_factor_c64_cuda.counts.launches)
             F = rt.tp_lu(A, mesh, "tp", w)
             torch.cuda.synchronize()
-            got = (offset_panel_factor_cuda.launches - counts[0],
-                   offset_panel_factor_c64_cuda.launches - counts[1])
+            got = (offset_panel_factor_cuda.counts.launches - counts[0],
+                   offset_panel_factor_c64_cuda.counts.launches - counts[1])
             assert got == ((0, n // w) if cplx else (n // w, 0)), (dt, got)
             want = torch.float64 if dt == torch.int32 else dt
             assert F.factors.dtype == want and int(F.info) == 0
@@ -1625,11 +1627,12 @@ def test_integer_matrices_run_the_float64_kernels():
     need_cuda()
     rng = np.random.default_rng(43)
     A = torch.tensor(rng.integers(-100, 100, (1536, 1536)), dtype=torch.int32, device="cuda")
-    k0 = panel_factor_cuda.launches
+    k0 = panel_factor_cuda.counts.launches
     F = rt.lu(A)
     x = rt.lu_solve(F, torch.arange(1536, dtype=torch.int32, device="cuda"))
     torch.cuda.synchronize()
-    assert panel_factor_cuda.launches - k0 == 3 and F.factors.dtype == x.dtype == torch.float64
+    assert panel_factor_cuda.counts.launches - k0 == 3
+    assert F.factors.dtype == x.dtype == torch.float64
     G = rt.lu(A.double())
     assert torch.equal(F.factors, G.factors) and torch.equal(F.p, G.p)
     Ab = torch.tensor(rng.integers(-100, 100, (1000, 16, 16)), dtype=torch.int32, device="cuda")
@@ -1681,7 +1684,7 @@ def _check_chain(A, pivot=True, block=0, cluster=0):
     f, piv, perm, info = _plain_for(A.dtype)(A, pivot)
     P = A.clone()
     fn = _factor_for(A.dtype)
-    n0 = fn.lookahead_chain_launches
+    n0 = fn.counts.lookahead_chain_launches
     kpiv, kperm, kinfo = fn(P, pivot, block=block, cluster=cluster)
     torch.cuda.synchronize()
     assert torch.equal(kpiv, piv) and torch.equal(kperm, perm) and int(kinfo) == int(info)
@@ -1689,7 +1692,7 @@ def _check_chain(A, pivot=True, block=0, cluster=0):
         assert _same_bits_nan(torch.view_as_real(P), torch.view_as_real(f))
     else:
         assert _same_bits_nan(P, f)
-    return fn.lookahead_chain_launches - n0
+    return fn.counts.lookahead_chain_launches - n0
 
 
 _CELL_PLANS = [((4096, 512), 16, 16), ((8192, 512), 8, 16)]
@@ -1751,7 +1754,7 @@ def test_lookahead_chain_complex_nan_candidate(where):
 
 
 def test_lookahead_counters_on_every_wrapper_and_in_an_lu(monkeypatch):
-    """`.lookahead_chain_launches` counts the chain launches of a C > 1
+    """`.counts.lookahead_chain_launches` counts the chain launches of a C > 1
     plan on every wrapper of panel_chain_kernel, none on a C = 1 plan or on
     the grid route; in an eager lu at n = 4096 and 8192 every chain launch
     takes it."""
@@ -1775,19 +1778,20 @@ def test_lookahead_counters_on_every_wrapper_and_in_an_lu(monkeypatch):
          micro_plan(1536, 512, torch.float32, 32, "basic")),
     ]
     for fn, call, plan in cases:
-        n0 = fn.lookahead_chain_launches
+        n0 = fn.counts.lookahead_chain_launches
         call(A.clone())
         torch.cuda.synchronize()
         want = (plan["blocks"] - plan.get("grid_blocks", 0)
                 if plan["route"] == "cluster" and plan["cluster"] > 1 else 0)
-        assert fn.lookahead_chain_launches - n0 == want, (plan, want)
+        assert fn.counts.lookahead_chain_launches - n0 == want, (plan, want)
     Z = (A[:, :256] + 1j * A[:, 256:]).to(torch.complex64)
     for fn, call in ((panel_factor_c64_cuda, lambda: panel_factor_c64_cuda(Z.clone(), True)),
                      (offset_panel_factor_c64_cuda,
                       lambda: offset_panel_factor_c64_cuda(Z.clone(), 0, True))):
-        n0 = fn.lookahead_chain_launches
+        n0 = fn.counts.lookahead_chain_launches
         call()
-        assert fn.lookahead_chain_launches - n0 == panel_plan(1536, 256, torch.complex64)["blocks"]
+        blocks = panel_plan(1536, 256, torch.complex64)["blocks"]
+        assert fn.counts.lookahead_chain_launches - n0 == blocks
     from recursivefactorization_jl_tpu_torch.ops import panel as panel_mod
 
     # the lu's panels: a spy in the wrapper's place records their shapes;
@@ -1799,22 +1803,19 @@ def test_lookahead_counters_on_every_wrapper_and_in_an_lu(monkeypatch):
         shapes.append(tuple(P.shape))
         return real(P, *args, **kw)
 
-    for attr in ("launches", "grid_route_launches", "lookahead_chain_launches",
-                 "mbarrier_exchange_launches"):
-        setattr(spy, attr, 0)
-    spy.chain_launches_by_plan = {}
+    spy.counts = panel_mod.LaunchCounts()
     monkeypatch.setattr(panel_mod, "panel_factor_cuda", spy)
     warmup.clear_caches()  # eager calls, through the wrappers
     for n in (4096, 8192):
         M = torch.randn(n, n, generator=g).cuda()
         shapes.clear()
-        n0 = spy.lookahead_chain_launches
+        n0 = spy.counts.lookahead_chain_launches
         rt.lu(M, device="cuda")
         torch.cuda.synchronize()
         plans = [panel_plan(m, w, torch.float32) for m, w in shapes]
         assert shapes, "the lu called no panel kernel"
         assert all(p["route"] == "cluster" and p["cluster"] > 1 for p in plans), (shapes, plans)
-        assert spy.lookahead_chain_launches - n0 == sum(p["blocks"] for p in plans), shapes
+        assert spy.counts.lookahead_chain_launches - n0 == sum(p["blocks"] for p in plans), shapes
 
 
 # ---- the chain's exchange on per-parity mbarriers --------------------------
@@ -1850,9 +1851,9 @@ def test_mbarrier_exchange_on_ragged_heights(dtype, pivot, block, cluster):
         A = _exchange_panel(m, w, dtype, pivot, 61)
         plan = panel_plan(m, w, dtype, block=block, cluster=cluster)
         assert plan["route"] == "cluster" and plan["cluster"] == cluster, plan
-        n0 = fn.mbarrier_exchange_launches
+        n0 = fn.counts.lookahead_chain_launches
         assert _check_chain(A, pivot, block, cluster) == plan["blocks"]
-        assert fn.mbarrier_exchange_launches - n0 == plan["blocks"]
+        assert fn.counts.lookahead_chain_launches - n0 == plan["blocks"]
 
 
 @pytest.mark.parametrize("where", ["first", "boundary", "last_row"])
@@ -1886,7 +1887,7 @@ def test_mbarrier_exchange_offset_kernel(dtype, ofs):
     fn = offset_panel_factor_c64_cuda if cplx else offset_panel_factor_cuda
     f, piv, perm, info = plain(A, ofs, True)
     P = A.clone()
-    n0 = fn.mbarrier_exchange_launches
+    n0 = fn.counts.lookahead_chain_launches
     kpiv, kperm, kinfo = fn(P, ofs, True)
     torch.cuda.synchronize()
     assert torch.equal(kpiv, piv) and torch.equal(kperm, perm) and int(kinfo) == int(info)
@@ -1896,33 +1897,31 @@ def test_mbarrier_exchange_offset_kernel(dtype, ofs):
         assert _same_bits_nan(P, f)
     plan = panel_plan(H, w, dtype, ofs=ofs)
     want = plan["blocks"] if plan["cluster"] > 1 else 0
-    assert fn.mbarrier_exchange_launches - n0 == want
+    assert fn.counts.lookahead_chain_launches - n0 == want
     assert (want == 0) == (ofs == 3968)
 
 
 def test_mbarrier_exchange_counter_in_an_lu_and_on_one_cta():
-    """`.mbarrier_exchange_launches` counts every chain launch of a C > 1
-    plan: in an eager lu at n = 4096, each panel's chain launches (the
-    look-ahead count and the launches by plan agree); none on a C = 1
-    panel."""
+    """`.counts.lookahead_chain_launches` counts every chain launch of a C > 1
+    plan, each on the mbarrier exchange: in an eager lu at n = 4096, each
+    panel's chain launches (the count and the launches by plan agree); none
+    on a C = 1 panel."""
     need_cuda()
     g = torch.Generator().manual_seed(64)
     fn = panel_factor_cuda
-    n0 = fn.mbarrier_exchange_launches
+    n0 = fn.counts.lookahead_chain_launches
     fn(torch.randn(1536, 512, generator=g).cuda(), True, block=32, cluster=1)
     torch.cuda.synchronize()
-    assert fn.mbarrier_exchange_launches == n0
+    assert fn.counts.lookahead_chain_launches == n0
     M = torch.randn(4096, 4096, generator=g).cuda()
     warmup.clear_caches()  # eager calls, through the wrappers
-    by_plan = dict(fn.chain_launches_by_plan)
-    n0, l0 = fn.mbarrier_exchange_launches, fn.lookahead_chain_launches
+    by_plan = dict(fn.counts.chain_launches_by_plan)
     rt.lu(M, device="cuda")
     torch.cuda.synchronize()
-    grown = {k: v - by_plan.get(k, 0) for k, v in fn.chain_launches_by_plan.items()
+    grown = {k: v - by_plan.get(k, 0) for k, v in fn.counts.chain_launches_by_plan.items()
              if v > by_plan.get(k, 0)}
     assert grown and all(c > 1 for _, _, c in grown)
-    n = fn.mbarrier_exchange_launches - n0
-    assert n == fn.lookahead_chain_launches - l0 == sum(grown.values())
+    assert fn.counts.lookahead_chain_launches - n0 == sum(grown.values())
 
 
 # ---- panel_boundary_precision='bf16x3' ---------------------------------------
@@ -1957,10 +1956,10 @@ def test_bf16x3_update_within_its_accumulation_bound(nb, rows, cols):
     U = big[:nb, nb:nb + cols]
     ref, mag = _split_reference(C, L, U)
     before = big.clone()
-    k0 = panel_update_bf16x3_cuda.launches
+    k0 = panel_update_bf16x3_cuda.counts.launches
     assert panel_update_bf16x3_cuda(C, L, U) is C
     torch.cuda.synchronize()
-    assert panel_update_bf16x3_cuda.launches == k0 + 1
+    assert panel_update_bf16x3_cuda.counts.launches == k0 + 1
     bound = 2.0 ** -24 * ((nb + 2) * mag + ref.abs())
     assert bool(((C.double() - ref).abs() <= bound).all())
     outside = torch.ones_like(big, dtype=torch.bool)
@@ -2008,7 +2007,8 @@ def test_bf16x3_tiled_update_bitwise_equals_the_simple_kernel(nb, rows, cols, pa
     g = torch.Generator().manual_seed(7 * nb + rows + cols)
     big = torch.randn(rows + 64, 64 + cols + pad, generator=g).cuda()
     simple, X = big.clone(), big.clone()
-    k0, s0 = panel_update_bf16x3_cuda.launches, panel_update_bf16x3_cuda.simple_launches
+    c = panel_update_bf16x3_cuda.counts
+    k0, s0 = c.launches, c.simple_launches
     panel_update_bf16x3_cuda(*_update_views(simple, rows, cols, nb), _update="simple")
     panel_update_bf16x3_cuda(*_update_views(X, rows, cols, nb))
     torch.cuda.synchronize()
@@ -2016,8 +2016,8 @@ def test_bf16x3_tiled_update_bitwise_equals_the_simple_kernel(nb, rows, cols, pa
     outside = torch.ones_like(big, dtype=torch.bool)
     outside[64:, 64:64 + cols] = False
     assert torch.equal(X[outside], big[outside])
-    assert panel_update_bf16x3_cuda.launches == k0 + 2
-    assert panel_update_bf16x3_cuda.simple_launches == s0 + 1
+    assert panel_update_bf16x3_cuda.counts.launches == k0 + 2
+    assert panel_update_bf16x3_cuda.counts.simple_launches == s0 + 1
 
 
 def test_bf16x3_tiled_update_inf_and_nan_as_the_simple_kernel():
@@ -2091,12 +2091,12 @@ def test_bf16x3_tiled_panel_bitwise_equals_the_simple_update(shape, b, kind):
     outs = {}
     for upd in ("tiled", "simple"):
         P = A.clone()
-        u0 = panel_factor_cuda.bf16x3_update_launches
-        s0 = panel_factor_cuda.bf16x3_simple_update_launches
+        u0 = panel_factor_cuda.counts.bf16x3_update_launches
+        s0 = panel_factor_cuda.counts.bf16x3_simple_update_launches
         got = panel_factor_cuda(P, pivot, block=b, precision="bf16x3", _update=upd)
         torch.cuda.synchronize()
-        assert panel_factor_cuda.bf16x3_update_launches - u0 == want
-        assert panel_factor_cuda.bf16x3_simple_update_launches - s0 == (
+        assert panel_factor_cuda.counts.bf16x3_update_launches - u0 == want
+        assert panel_factor_cuda.counts.bf16x3_simple_update_launches - s0 == (
             want if upd == "simple" else 0)
         outs[upd] = (P, *got)
     for x, y in zip(outs["tiled"], outs["simple"]):
@@ -2193,7 +2193,8 @@ def test_bf16x3_panel_matches_plain(shape, b, pivot, kind):
     if not pivot:
         A += max(shape) * torch.eye(*shape, device="cuda")
     P = A.clone()
-    k0, u0 = panel_factor_cuda.bf16x3_launches, panel_factor_cuda.bf16x3_update_launches
+    c = panel_factor_cuda.counts
+    k0, u0 = c.bf16x3_launches, c.bf16x3_update_launches
     out = (P, *panel_factor_cuda(P, pivot, block=b, precision="bf16x3"))
     torch.cuda.synchronize()
     m, w = shape
@@ -2203,8 +2204,8 @@ def test_bf16x3_panel_matches_plain(shape, b, pivot, kind):
     want = sum(1 for k0_ in range(0, steps, bb)
                if m - k0_ - min(bb, steps - k0_) > 0 and w - k0_ - min(bb, steps - k0_) > 0
                and bb < w)
-    assert panel_factor_cuda.bf16x3_launches == k0 + 1
-    assert panel_factor_cuda.bf16x3_update_launches - u0 == want
+    assert panel_factor_cuda.counts.bf16x3_launches == k0 + 1
+    assert panel_factor_cuda.counts.bf16x3_update_launches - u0 == want
     ref = micro_blocked_lu(A, pivot, b, "bf16x3")
     ref32 = micro_blocked_lu(A, pivot, b)[0]
     _check_bf16x3_panel(A, out, ref, ref32, pivot)
@@ -2216,11 +2217,11 @@ def test_bf16x3_one_block_is_the_float32_kernel():
     need_cuda()
     A = torch.randn(700, 48, generator=torch.Generator().manual_seed(2)).cuda()
     P, Q = A.clone(), A.clone()
-    u0 = panel_factor_cuda.bf16x3_update_launches
+    u0 = panel_factor_cuda.counts.bf16x3_update_launches
     a = panel_factor_cuda(P, True, block=64, precision="bf16x3")
     b = panel_factor_cuda(Q, True)
     torch.cuda.synchronize()
-    assert panel_factor_cuda.bf16x3_update_launches == u0
+    assert panel_factor_cuda.counts.bf16x3_update_launches == u0
     assert torch.equal(P, Q) and all(torch.equal(x, y) for x, y in zip(a, b))
     assert bf16x3_plan(700, 48, 64)["blocks"] == 1
 
@@ -2242,15 +2243,15 @@ def test_bf16x3_panel_too_tall_for_a_cluster_factors():
     ref = micro_blocked_lu(A, True, b, "bf16x3")
     ref32 = micro_blocked_lu(A, True, b)[0]
     P = A.clone()
-    k0 = (panel_factor_cuda.grid_block_launches, panel_factor_cuda.grid_route_launches)
+    c = panel_factor_cuda.counts
+    k0 = (c.grid_block_launches, c.grid_route_launches)
     out = (P, *panel_factor_cuda(P, True, block=b, precision="bf16x3"))
     torch.cuda.synchronize()
-    assert (panel_factor_cuda.grid_block_launches, panel_factor_cuda.grid_route_launches) == \
-        (k0[0] + 16, k0[1])
+    assert (c.grid_block_launches, c.grid_route_launches) == (k0[0] + 16, k0[1])
     _check_bf16x3_panel(A, out, ref, ref32, True)
     F = rt.lu(A, config=rt.LUConfig(panel_boundary_precision="bf16x3"))
     torch.cuda.synchronize()
-    assert panel_factor_cuda.grid_block_launches == k0[0] + 32
+    assert panel_factor_cuda.counts.grid_block_launches == k0[0] + 32
     _check_bf16x3_panel(A, (F.factors, F.ipiv, F.p, F.info), ref, ref32, True)
 
 
@@ -2270,13 +2271,14 @@ def test_bf16x3_grid_chain_bitwise_equals_the_cluster_chain(shape, b):
     outs = {}
     for chain in ("auto", "grid"):
         P = A.clone()
-        k0 = (panel_factor_cuda.grid_block_launches, panel_factor_cuda.bf16x3_update_launches)
+        c = panel_factor_cuda.counts
+        k0 = (c.grid_block_launches, c.bf16x3_update_launches)
         got = panel_factor_cuda(P, True, block=b, precision="bf16x3", _chain=chain)
         torch.cuda.synchronize()
         outs[chain] = (P, *got)
-        assert panel_factor_cuda.grid_block_launches - k0[0] == \
+        assert c.grid_block_launches - k0[0] == \
             (plan["blocks"] if chain == "grid" else plan["grid_blocks"])
-        assert panel_factor_cuda.bf16x3_update_launches - k0[1] == len(bf16x3_updates(*shape, b))
+        assert c.bf16x3_update_launches - k0[1] == len(bf16x3_updates(*shape, b))
     for x, y in zip(outs["auto"], outs["grid"]):
         assert torch.equal(_bits(x), _bits(y))
     assert int(outs["auto"][3]) == 8
@@ -2317,12 +2319,13 @@ def test_bf16x3_lu_and_solve_on_the_card(schur):
     A = torch.randn(n, n, generator=g)
     b = torch.randn(n, generator=g)
     cfg = rt.LUConfig(panel_boundary_precision="bf16x3", schur_precision=schur)
-    k0, u0 = panel_factor_cuda.bf16x3_launches, panel_factor_cuda.bf16x3_update_launches
+    c = panel_factor_cuda.counts
+    k0, u0 = c.bf16x3_launches, c.bf16x3_update_launches
     F = rt.lu(A.cuda(), config=cfg)
     x = rt.lu_solve(F, b.cuda())
     torch.cuda.synchronize()
-    assert panel_factor_cuda.bf16x3_launches - k0 == 3
-    assert panel_factor_cuda.bf16x3_update_launches - u0 == 45
+    assert panel_factor_cuda.counts.bf16x3_launches - k0 == 3
+    assert panel_factor_cuda.counts.bf16x3_update_launches - u0 == 45
     assert int(F.info) == 0
     Ad = A.double().cuda()
     gate = 20 * n * torch.finfo(torch.float32).eps * float(A.abs().max())
@@ -2344,12 +2347,12 @@ def test_bf16x3_knob_leaves_the_batched_library_loop_in_float32():
     need_cuda()
     g = torch.Generator().manual_seed(6)
     B = (torch.randn(2, 300, 300, generator=g) + 300 * torch.eye(300)).cuda()
-    k0 = panel_factor_cuda.bf16x3_launches
+    k0 = panel_factor_cuda.counts.bf16x3_launches
     a = rt.batched_lu_factor(B, pivot=False,
                              config=rt.LUConfig(panel_boundary_precision="bf16x3"))
     b = rt.batched_lu_factor(B, pivot=False)
     torch.cuda.synchronize()
-    assert panel_factor_cuda.bf16x3_launches == k0
+    assert panel_factor_cuda.counts.bf16x3_launches == k0
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
@@ -2468,11 +2471,11 @@ def test_warmed_float64_lu_at_4096_replays_bitwise_on_the_float64_rule(no_progra
     A = torch.rand(n, n, generator=g, device="cuda", dtype=dtype) - 0.5
     b = torch.rand(n, generator=g, device="cuda", dtype=dtype) - 0.5
     wrapper = panel_mod.panel_factor_cuda
-    wrapper.chain_launches_by_plan = {}
-    n0 = wrapper.lookahead_chain_launches
+    panel_mod.reset_counts()
+    n0 = wrapper.counts.lookahead_chain_launches
     eager = rt.lu(A, check=False)
     xe = rt.lu_solve(eager, b)
-    eager_counts = dict(wrapper.chain_launches_by_plan)
+    eager_counts = dict(wrapper.counts.chain_launches_by_plan)
     warmup.warmup(((n, n),), (dtype,))
     r0 = _replays()
     F = rt.lu(A, check=False)
@@ -2482,13 +2485,13 @@ def test_warmed_float64_lu_at_4096_replays_bitwise_on_the_float64_rule(no_progra
     assert _same_results(_lu_outputs(F), _lu_outputs(eager)) and _same_results([x], [xe])
     heights = range(n, 0, -WIDTH)
     rule = {("float64",) + AUTO_PLANS["float64"][m] for m in heights}
-    counts = wrapper.chain_launches_by_plan
+    counts = wrapper.counts.chain_launches_by_plan
     assert eager_counts and set(counts) <= rule, counts
     # one chain launch per block of every panel, each on its own plan
     per_call = sum(-(-WIDTH // AUTO_PLANS["float64"][m][0]) for m in heights)
     assert sum(eager_counts.values()) == per_call
     assert sum(counts.values()) % per_call == 0
-    assert wrapper.lookahead_chain_launches - n0 == sum(counts.values())  # C > 1 everywhere
+    assert wrapper.counts.lookahead_chain_launches - n0 == sum(counts.values())  # C > 1 everywhere
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.complex128])

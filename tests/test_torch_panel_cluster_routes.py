@@ -511,7 +511,7 @@ def test_micro_wrappers_refuse_bad_arguments(variant, kw, match):
     wrapper = panel_mod.panel_factor_shadow_cuda if variant == "shadow" \
         else panel_mod.panel_factor_basic_cuda
     args = {"micro": 4, "block": 0, "cluster": 0, "_chain": "auto", **kw}
-    before = (wrapper.launches, wrapper.grid_route_launches, wrapper.grid_block_launches)
+    before = panel_mod.LaunchCounts(**vars(wrapper.counts))
     with pytest.raises(ValueError, match=match):
         wrapper(torch.zeros(8, 4), True, args["micro"], block=args["block"],
                 cluster=args["cluster"], _chain=args["_chain"])
@@ -519,7 +519,7 @@ def test_micro_wrappers_refuse_bad_arguments(variant, kw, match):
         panel_mod.micro_plan(64, 32, torch.float32, args["micro"], variant,
                              block=args["block"], cluster=args["cluster"], device="cuda:0",
                              _chain=args["_chain"])
-    assert (wrapper.launches, wrapper.grid_route_launches, wrapper.grid_block_launches) == before
+    assert wrapper.counts == before
 
 
 @pytest.mark.parametrize("kw, match", [
@@ -530,12 +530,12 @@ def test_noswap_wrapper_refuses_bad_arguments(kw, match):
     """``live`` is an int in [0, m]; block and cluster ints, cluster not
     negative; nothing is launched or counted."""
     wrapper = panel_mod.panel_factor_noswap_cuda
-    before = (wrapper.launches, wrapper.grid_route_launches)
+    before = panel_mod.LaunchCounts(**vars(wrapper.counts))
     with pytest.raises(ValueError, match=match):
         wrapper(torch.zeros(8, 4), torch.zeros(8, dtype=torch.int32), True, **kw)
     with pytest.raises(ValueError, match=match):
         panel_mod.noswap_plan(8, 4, torch.float32, device="cuda:0", **kw)
-    assert (wrapper.launches, wrapper.grid_route_launches) == before
+    assert wrapper.counts == before
     with pytest.raises(ValueError, match="live"):  # the CPU layer checks it too
         panel_mod.panel_factor_noswap(torch.zeros(8, 4), torch.zeros(8, dtype=torch.int32),
                                       True, live=kw.get("live", 9))
@@ -554,7 +554,7 @@ def test_micro_and_noswap_plans_pass_their_requests_on(monkeypatch):
 
     def fake_noswap(m, w, size, live, block, cluster, index):
         asked.append(("noswap", m, w, size, live, block, cluster, index))
-        return (1, 32, 16, 4, 1, live + 1)
+        return (1, 32, 16, 4, 1, live + 1, 0)
 
     monkeypatch.setattr(panel_mod, "_micro_plan", fake_micro)
     monkeypatch.setattr(panel_mod, "_noswap_plan", fake_noswap)

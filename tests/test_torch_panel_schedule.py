@@ -646,12 +646,12 @@ def test_panel_plan_takes_complex_dtypes_and_refuses_bad_requests(monkeypatch):
 
     def fake_plan(cplx, m, w, size, ofs, block, cluster, index):
         asked.append((cplx, m, w, size, ofs, block, cluster, index))
-        return (1, 16, 4, 3, 1, 99) if block >= 0 else (0, -1, 132, 1, 7, 8)
+        return (1, 16, 4, 3, 1, 99, 0) if block >= 0 else (0, -1, 132, 1, 7, 8, 0)
 
     monkeypatch.setattr(panel_mod, "_plan", fake_plan)
     plan = panel_mod.panel_plan(1000, 40, torch.complex64, device="cuda:0")
     assert plan == {"route": "cluster", "block": 16, "cluster": 4, "grid": None, "blocks": 3,
-                    "ws_reals": 1, "iws_ints": 99}
+                    "ws_reals": 1, "iws_ints": 99, "grid_blocks": 0}
     plan = panel_mod.panel_plan(1000, 40, torch.complex128, block=-1, device="cuda:0")
     assert plan["route"] == "grid" and plan["grid"] == 132 and plan["block"] is None
     panel_mod.panel_plan(1000, 40, torch.float64, ofs=5, block=8, cluster=2, device="cuda:0")
@@ -667,8 +667,34 @@ def test_panel_plan_takes_complex_dtypes_and_refuses_bad_requests(monkeypatch):
     with pytest.raises(ValueError):  # the launching wrapper takes CUDA tensors only
         panel_mod.panel_factor_c64_cuda(torch.zeros(8, 4, dtype=torch.complex64), True,
                                         block=8, cluster=1)
-    assert panel_mod.panel_factor_c64_cuda.launches == 0
-    assert panel_mod.panel_factor_c64_cuda.grid_route_launches == 0
+    assert panel_mod.panel_factor_c64_cuda.counts.launches == 0
+    assert panel_mod.panel_factor_c64_cuda.counts.grid_route_launches == 0
+
+
+def test_reset_counts_zeroes_every_panel_wrapper():
+    """Every launching wrapper of ops/panel.py keeps one LaunchCounts in
+    ``.counts``, and ``reset_counts`` zeroes all of them: the launches, the
+    routes' and chains' counts and the launches by plan."""
+    import dataclasses
+    import inspect
+
+    wrappers = [f for name, f in inspect.getmembers(panel_mod, inspect.isfunction)
+                if name.endswith("_cuda") and name != "micro_max_cuda"]
+    assert {f.__name__ for f in wrappers} == {
+        "panel_factor_cuda", "panel_factor_c64_cuda", "offset_panel_factor_cuda",
+        "offset_panel_factor_c64_cuda", "panel_factor_shadow_cuda", "panel_factor_basic_cuda",
+        "panel_factor_noswap_cuda", "panel_update_bf16x3_cuda"}
+    for k, f in enumerate(wrappers):
+        assert isinstance(f.counts, panel_mod.LaunchCounts), f.__name__
+        for field in dataclasses.fields(f.counts):
+            if field.name != "chain_launches_by_plan":
+                setattr(f.counts, field.name, k + 1)
+        f.counts.chain_launches_by_plan[("float32", 32, 16)] = k + 1
+    assert len({id(f.counts) for f in wrappers}) == len(wrappers)
+    panel_mod.reset_counts()
+    for f in wrappers:
+        assert f.counts == panel_mod.LaunchCounts(), f.__name__
+        assert f.counts.chain_launches_by_plan == {}
 
 
 def test_port_exports_every_public_name_of_the_jax_package():
@@ -711,17 +737,17 @@ def test_ctypes_signatures_match_the_c_entry_points():
     and csrc/batched_solve.cu, and every other one its source spells out
     (some are stamped out by a macro), is declared with as many parameters,
     pointers where ctypes passes pointers: a mismatch would cut a pointer
-    or shift every argument on the card.  The micro-blocked and no-swap
-    entry points take the cluster route's block and cluster (and the
-    no-swap ones the live row count, the micro-blocked ones and their plan
-    the chain to force, the micro-blocked ones a host count of their grid
-    chain launches); the bf16x3 form takes its block, cluster, the update
-    kernel and the chain to force and host counts of its update and grid
-    chain launches, its plan the chain too, its update alone the three row
-    strides, nb and the kernel to force, the update's plan the shape
-    alone.  Every entry point of a panel_chain_kernel launch takes host
-    counts of the launches that took the look-ahead and of those that took
-    the mbarrier exchange, in that order."""
+    or shift every argument on the card.  Every panel entry point ends in
+    one shared tail, the workspaces, ONE host PanelStats record (ctypes'
+    `PanelStats` mirrors csrc/panel_cluster.cuh's field by field), the
+    device and the stream, and takes no other host count; before it, its
+    family's own arguments (the micro-blocked ones micro, block, cluster and
+    the chain to force, the bf16x3 form block, cluster, the update kernel
+    and the chain, the no-swap ones the live row count, block, cluster and
+    the mask).  Every panel family's plan fills the kPlanInts ints that
+    `write_plan` writes, as many as `_kernels.PLAN_INTS`; the bf16x3
+    update alone takes the three row strides, nb and the kernel to force,
+    its plan the shape alone."""
     import ctypes
     import re
 
@@ -740,24 +766,52 @@ def test_ctypes_signatures_match_the_c_entry_points():
     # the bf16x3 form (panel_boundary_precision='bf16x3') and its update alone
     assert {"rf_panel_lu_bf16x3_plan", "rf_panel_lu_bf16x3_f32", "rf_panel_update_bf16x3_f32",
             "rf_panel_update_bf16x3_plan"} <= set(_kernels.SIGNATURES["panel_lu"])
+    cluster = (_kernels.PACKAGE_DIR / "csrc" / "panel_cluster.cuh").read_text()
+    fields = re.search(r"struct PanelStats \{\s*int ([^;]*);\s*\};", cluster).group(1)
+    assert [f.strip() for f in fields.split(",")] == [
+        f for f, _ in _kernels.PanelStats._fields_]
+    assert all(t is ctypes.c_int for _, t in _kernels.PanelStats._fields_)
+    assert int(re.search(r"constexpr int kPlanInts = (\d+);", cluster).group(1)) \
+        == _kernels.PLAN_INTS == 7
+    stats = ctypes.POINTER(_kernels.PanelStats)
+    tail = "void* ws, void* iws, PanelStats* stats, int device, void* stream"
+    entries, plans = set(), set()
+    for lib in ("panel_lu", "panel_lu_c64", "panel_lu_micro", "panel_lu_noswap"):
+        src = _kernels.SOURCES[lib].read_text()
+        for fn, (_, argtypes) in _kernels.SIGNATURES[lib].items():
+            found = re.search(r"\b" + fn + r"\(([^)]*)\)", src)
+            decl = " ".join(found.group(1).split()) if found else ""
+            if stats in argtypes:
+                entries.add(fn)
+                assert decl.endswith(tail) and "int*" not in decl, (fn, decl)
+                assert argtypes.count(stats) == 1 and argtypes[-3] is stats, fn
+            if fn.endswith("_plan") and "update" not in fn:
+                plans.add(fn)
+                body = src[src.index(fn + "("):]
+                body = body[:body.index("\n}\n")]
+                assert "write_plan(pl, out)" in body or "plan_entry<" in body, fn
+                assert decl.endswith("int* out"), (fn, decl)
+    assert entries == {f"rf_{p}_{k}" for p in ("panel_lu", "offset_panel_lu")
+                       for k in ("f32", "f64", "c64", "c128")} | {
+        f"rf_panel_lu_{v}_{k}" for v in ("shadow", "basic", "noswap") for k in ("f32", "f64")
+    } | {"rf_panel_lu_bf16x3_f32"}
+    assert plans == {"rf_panel_lu_plan", "rf_offset_panel_lu_plan", "rf_panel_lu_c_plan",
+                     "rf_offset_panel_lu_c_plan", "rf_panel_lu_micro_plan",
+                     "rf_panel_lu_bf16x3_plan", "rf_panel_lu_noswap_plan"}
+    assert "write_plan(pl, out)" in _kernels.SOURCES["panel_lu"].read_text()
+    assert "write_plan(pl, out)" in _kernels.SOURCES["panel_lu_c64"].read_text()
     for name, params, lib in (
-            ("rf_panel_lu_shadow_f32", ("int micro", "int b", "int C", "int chain",
-                                        "int* grids"), "panel_lu_micro"),
-            # the chain launches' host counts: look-ahead, then mbarrier exchange
-            ("rf_panel_lu_f32", ("int* lookaheads, int* mbarriers, int device",), "panel_lu"),
-            ("rf_offset_panel_lu_f64", ("int ofs", "int* lookaheads, int* mbarriers"),
-             "panel_lu"),
-            ("rf_panel_lu_c128", ("int* lookaheads, int* mbarriers, int device",),
-             "panel_lu_c64"),
-            ("rf_offset_panel_lu_c64", ("int* lookaheads, int* mbarriers",), "panel_lu_c64"),
-            ("rf_panel_lu_basic_f64", ("int* grids, int* lookaheads, int* mbarriers",),
+            ("rf_panel_lu_shadow_f32", ("int pivot, int micro, int b, int C, int chain, void* piv",),
              "panel_lu_micro"),
-            ("rf_panel_lu_bf16x3_f32", ("int* grids, int* lookaheads, int* mbarriers",),
-             "panel_lu"),
             ("rf_panel_lu_micro_plan", ("int micro", "int chain", "int* out"), "panel_lu_micro"),
-            ("rf_panel_lu_noswap_f64", ("int live", "int b", "int C"), "panel_lu_noswap"),
-            ("rf_panel_lu_bf16x3_f32", ("int b", "int C", "int simple", "int chain",
-                                        "int* updates", "int* grids"), "panel_lu"),
+            ("rf_panel_lu_noswap_f64",
+             ("int pivot, int live, int b, int C, const void* used0, void* prow, void* used",),
+             "panel_lu_noswap"),
+            ("rf_offset_panel_lu_f64", ("int pivot, int ofs, int b, int C, void* piv",),
+             "panel_lu"),
+            ("rf_panel_lu_c128", ("int pivot, int b, int C, void* piv",), "panel_lu_c64"),
+            ("rf_panel_lu_bf16x3_f32", ("int pivot, int b, int C, int simple, int chain, void* piv",),
+             "panel_lu"),
             ("rf_panel_lu_bf16x3_plan", ("int b", "int C", "int chain", "int* out"), "panel_lu"),
             ("rf_panel_update_bf16x3_f32", ("int ldl", "int ldu", "int ldc", "int nb",
                                             "int simple"), "panel_lu"),
@@ -778,4 +832,5 @@ def test_ctypes_signatures_match_the_c_entry_points():
             params = [p.strip() for p in decl.group(1).split(",") if p.strip()]
             assert len(params) == len(argtypes), (fn, params)
             for p, t in zip(params, argtypes):
-                assert ("*" in p) == (t is ctypes.c_void_p), (fn, p, t)
+                pointer = t is ctypes.c_void_p or issubclass(t, ctypes._Pointer)
+                assert ("*" in p) == pointer, (fn, p, t)

@@ -136,7 +136,7 @@ def test_offset_panel_factor_routes_complex_panels_and_refuses():
             offset_panel_factor_c64_cuda(bad, 10, True)
     with pytest.raises(ValueError, match="offset"):
         offset_panel_lu_cabs1(A, H - W + 1, True)
-    assert offset_panel_factor_c64_cuda.launches == 0
+    assert offset_panel_factor_c64_cuda.counts.launches == 0
 
 
 @pytest.fixture(scope="module")
