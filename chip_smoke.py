@@ -4468,11 +4468,17 @@ def main(argv):
             extra = dict(exchange_ns_median=float(exchange.median()) / ghz,
                          deferred_warp1_ns_median=float(deferred.median()) / ghz,
                          hidden_share_median=float(hidden[1:].median()))
+        # one block's last %globaltimer to the next block's first: what runs
+        # between two chains (the delayed pass in turn, or only the launch
+        # and the next chain's load where that chain carries the pass)
+        gaps = ends[1:, 0] - ends[:-1, 2]
+        gap = float(gaps.median()) if gaps.numel() else None
         emit("timing", what="chain_trace", card=card, kernel=what, shape=list(shape[:2]),
              ofs=shape[2], dtype=shape[3] if len(shape) > 3 else "float32", plan=plan,
              sm_ghz=ghz, phase_ns_median=ns,
              step_ns_median=float((st[:, len(names)] - st[:, 0]).median()) / ghz,
-             chain_kernels_ms=float((ends[:, 2] - ends[:, 0]).sum()) / 1e6, **extra)
+             chain_kernels_ms=float((ends[:, 2] - ends[:, 0]).sum()) / 1e6,
+             chain_gap_ns_median=gap, **extra)
 
     for (m, w) in shapes + [(8192, 512)]:  # and the n = 8192 lu's first panel
         X = torch.randn(m, w, generator=gen).to(dev)

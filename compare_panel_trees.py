@@ -20,7 +20,11 @@ tree and NEW / OLD of the slower reading of each.
 trace of the chain kernel, ``rf_*_set_trace``) and prints, per case, the
 median device time of a chain step (clock64() from one step's start to the
 next's within a launch, at the SM clock the trace's %globaltimer gives) and
-the chain kernels' time per step, both trees side by side.  The stamps per
+the chain kernels' time per step and the median gap from one block's last
+%globaltimer stamp to the next block's first (what runs between two
+chains), in the eager call and in the replay of the same call captured in a
+CUDA graph (as the benchmark's cells run it), both trees side by side.  The
+stamps per
 step are read from the tree's csrc/panel_cluster.cuh, so trees with
 different phase traces compare; where a tree has the chain kernel's 9
 stamps it also prints the median of each phase (``PHASES``, each named by
@@ -140,10 +144,18 @@ def trace_phases():
 PHASES = ("reduce", "publish", "deferred", "data_in", "agree", "swap", "lookahead")
 
 
+def block_gap(ends):
+    """Median ns from one block's last %globaltimer stamp to the next
+    block's first (per block: first ns, clock, last ns, clock)."""
+    gaps = ends[1:, 0] - ends[:-1, 2]
+    return float(gaps.median()) if gaps.numel() else None
+
+
 def chain_steps(fn, A, steps, set_trace):
     """One traced call of ``fn`` on a copy of ``A``: the median ns of a
-    chain step (one step's start to the next's within a launch) and the
-    chain kernels' ns per step; with 9 stamps a step, the median ns of
+    chain step (one step's start to the next's within a launch), the chain
+    kernels' ns per step and the median gap between two chains, eagerly and
+    in a captured graph's replay; with 9 stamps a step, the median ns of
     each phase, of the exchange and the hidden share of warp 1's deferred
     update."""
     import torch
@@ -172,7 +184,27 @@ def chain_steps(fn, A, steps, set_trace):
     d = d[(d > 0) & (d < 20 * d.median())]
     out = {"step_ns_median": float(d.median()) / ghz,
            "chain_ns_per_step": float((ends[:, 2] - ends[:, 0]).sum()) / steps,
-           "sm_ghz": ghz, "launches": int(ends.shape[0])}
+           "gap_ns_median": block_gap(ends), "sm_ghz": ghz, "launches": int(ends.shape[0])}
+    # the same call captured in a CUDA graph, traced in its replay
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(Q)
+    torch.cuda.current_stream().wait_stream(side)
+    set_trace(buf.data_ptr())
+    try:
+        with torch.cuda.graph(graph):
+            fn(Q)
+    finally:
+        set_trace(None)
+    buf.zero_()
+    Q.copy_(A)
+    graph.replay()
+    torch.cuda.synchronize()
+    ends = buf.cpu().double()[steps * P:].view(steps, 4)
+    out["replay_gap_ns_median"] = block_gap(ends[ends[:, 0] != 0])
+    del graph
     if P == len(PHASES) + 2:
         out["phase_ns_median"] = {name: float((stamps[:, i + 1] - stamps[:, i]).median()) / ghz
                                   for i, name in enumerate(PHASES)}
@@ -296,10 +328,14 @@ def main(argv):
         if a.chain:
             step = {w: [r["chain"][name]["step_ns_median"] for r in res[w]] for w in res}
             per = {w: [r["chain"][name]["chain_ns_per_step"] for r in res[w]] for w in res}
+            gap = {w: [r["chain"][name]["gap_ns_median"] for r in res[w]] for w in res}
+            rgap = {w: [r["chain"][name]["replay_gap_ns_median"] for r in res[w]] for w in res}
             say({"chain_case": name, "old_step_ns": step["old"], "new_step_ns": step["new"],
                  "step_new_over_old": median(step["new"]) / median(step["old"]),
                  "old_chain_ns_per_step": per["old"], "new_chain_ns_per_step": per["new"],
-                 "chain_new_over_old": median(per["new"]) / median(per["old"])})
+                 "chain_new_over_old": median(per["new"]) / median(per["old"]),
+                 "old_gap_ns": gap["old"], "new_gap_ns": gap["new"],
+                 "old_replay_gap_ns": rgap["old"], "new_replay_gap_ns": rgap["new"]})
             for w in res:  # the phases of each tree, by turn
                 runs = [r["chain"][name] for r in res[w] if "phase_ns_median" in r["chain"][name]]
                 if runs:

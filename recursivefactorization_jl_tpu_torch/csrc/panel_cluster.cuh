@@ -1,6 +1,7 @@
 // The cluster route of the panel kernels: the pivot chain of each block of
 // b columns on one thread-block cluster, then the delayed pass on the whole
-// card.  csrc/panel_lu.cu (f32 / f64, main path and offset kernel; f32
+// card, most of it beside the next block's chain (run_cluster's carry).
+// csrc/panel_lu.cu (f32 / f64, main path and offset kernel; f32
 // under panel_boundary_precision='bf16x3' with the trailing update split
 // into bf16 halves on the tensor cores), csrc/panel_lu_c64.cu (complex64 /
 // complex128) and csrc/panel_lu_micro.cu (the micro-blocked kernels: blocks
@@ -68,12 +69,14 @@ namespace cg = cooperative_groups;
 // cluster of C > 1, each of which takes the one-column look-ahead and
 // exchanges its candidates on the per-parity mbarriers; `grid_blocks`: the
 // blocks whose chain ran on the grid (panel_grid_chain_kernel); `updates`:
-// the launches of the delayed trailing update.  ops/_kernels.py
-// `PanelStats` mirrors it.  Outside the unnamed namespace: the extern "C"
-// entry points take it, and a type with internal linkage would keep them
-// out of the library's symbols.
+// the launches of the delayed trailing update; `carried`: the chain launches
+// that took the previous block's delayed pass in their own columns at load
+// while the rest of that pass ran beside them (run_cluster).
+// ops/_kernels.py `PanelStats` mirrors it.  Outside the unnamed namespace:
+// the extern "C" entry points take it, and a type with internal linkage
+// would keep them out of the library's symbols.
 struct PanelStats {
-  int lookaheads, grid_blocks, updates;
+  int lookaheads, grid_blocks, updates, carried;
 };
 
 namespace {
@@ -106,6 +109,11 @@ struct ChainArgs {
   int* perm;
   int* info;
   int* moved;    // [0] count, then (row, row it now holds) pairs
+  // the previous block's delayed pass in this block's columns, taken at load
+  // (run_cluster's carry): its row moves (null: no carry), first step and
+  // steps, and its update's form (sum first: kSumFirst, else step order)
+  const int* pmoved;
+  int pk0, pnb, sum_first;
   // optional phase trace (the set_trace entry points): kChainTracePhases
   // clock64() stamps per step from CTA 0 (threads 0 and 32), then per block
   // the kernel's first and last %globaltimer (ns) and clock64()
@@ -174,6 +182,24 @@ __host__ __device__ inline ChainSmem chain_smem(int rows, int C, int B, bool pad
   s.src = o; o += static_cast<size_t>(rows) * 4;
   s.total = o;
   return s;
+}
+
+// The carry's shared memory (panel_chain_kernel taking the previous block's
+// delayed pass at load), past the chain's own on 16 bytes: that block's U
+// rows in this block's columns ([pnb][B]), its multipliers L_jj and the
+// multipliers of this CTA's `rows` slab rows ([pnb + rows][pnb + 1]: a
+// column of them read by consecutive rows stays on distinct banks), then
+// the rows its U rows came from ([pnb]).  At most kCarryMax steps: a lane
+// per U row in the solve.
+constexpr int kCarryMax = 32;
+
+__host__ __device__ constexpr size_t carry_base(size_t total) { return (total + 15) & ~size_t{15}; }
+
+template <typename T>
+__host__ __device__ constexpr size_t carry_smem(int pnb, int B, int rows) {
+  return (static_cast<size_t>(pnb) * B + static_cast<size_t>(pnb + rows) * (pnb + 1)) *
+             sizeof(T) +
+         static_cast<size_t>(pnb) * 4;
 }
 
 // The bytes a chain CTA receives in step kk of a block on a cluster of C > 1
@@ -335,6 +361,162 @@ __device__ __forceinline__ void warp_best_key(double& v, int& i) {
                                       : __longlong_as_double(static_cast<long long>(mk - 1ull));
 }
 
+// One element from device to shared memory by cp.async (4, 8 or 16 bytes,
+// as the element's size and alignment); cp_async_wait waits for this
+// thread's copies.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned d = smem_u32(dst);
+  if constexpr (sizeof(T) == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
+  } else if constexpr (sizeof(T) == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+  }
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// carry_in's update of the slab rows: each row takes the previous block's
+// pnb rank-1 updates in step order (kSumFirst: an accumulator from 0 takes
+// each product, then one difference), CK columns (32 bytes; 64 of float64)
+// per item, consecutive threads on consecutive rows.  Lr: the rows'
+// multipliers, [own][pnb + 1]; Us: the solved U rows, [pnb][B].
+template <typename T, int B, bool kSumFirst>
+__device__ __forceinline__ void carry_update(T* slab, const T* Lr, const T* Us, int own, int ncol,
+                                             int pnb) {
+  constexpr int RPW = slab_rpw(B, sizeof(T));
+  constexpr int CK = std::is_same<T, double>::value ? 8 : 32 / static_cast<int>(sizeof(T));
+  constexpr int NV = CK * static_cast<int>(sizeof(T)) / 16;  // 16-byte loads of U a step
+  const int nck = (ncol + CK - 1) / CK;
+  for (int e = threadIdx.x; e < own * nck; e += kChainThreads) {
+    const int q = e % own, c0 = e / own * CK;
+    const T* lq = Lr + q * (pnb + 1);
+    T* rq = slab + q * B + q / RPW;
+    T x[CK], acc[CK];
+#pragma unroll
+    for (int j = 0; j < CK; ++j) {
+      x[j] = c0 + j < ncol ? rq[c0 + j] : T{};
+      acc[j] = T{};
+    }
+    for (int s = 0; s < pnb; ++s) {
+      const T l = lq[s];
+      uint4 w[NV];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) w[v] = reinterpret_cast<const uint4*>(Us + s * B + c0)[v];
+      T u[CK];
+      memcpy(u, w, sizeof(u));
+#pragma unroll
+      for (int j = 0; j < CK; ++j) {
+        if constexpr (kSumFirst) {
+          acc[j] = radd(acc[j], rmul(l, u[j]));
+        } else {
+          x[j] = rsub(x[j], rmul(l, u[j]));
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < CK; ++j) {
+      if constexpr (kSumFirst) x[j] = rsub(x[j], acc[j]);
+      if (c0 + j < ncol) rq[c0 + j] = x[j];
+    }
+  }
+}
+
+// The chain's slab load with the previous block's delayed pass in this
+// block's columns, as its two delayed kernels do it there (run_cluster's
+// carry): the rows its moves brought, its U rows solved in step order, then
+// its rank-pnb update of the slab rows in step order (sum_first: an
+// accumulator from 0 takes each product, then one difference).  Every CTA
+// reads the rows it needs from device memory, which no CTA writes before
+// every CTA has sent its step-0 candidate, so after every load; CTA 0
+// writes the U rows back at the end.  Two rounds of copies: what does not
+// depend on the moves (the slab in place, its perm ids, the multipliers,
+// the moves themselves), then the moved slab rows and the U rows from where
+// they came (two copies to one address are ordered only by a wait between
+// them).  Not inlined, so that its registers leave the step loop's as they
+// were.
+template <typename T, int B>
+__device__ __noinline__ void carry_in(const T* a, size_t lda, const int* perm, const int* pmoved,
+                                      int pk0, int pnb, int sum_first, int pr0, int r0, int s0,
+                                      int own, int k0, int ncol, T* slab, int* pid, int* src, T* Us,
+                                      int* ufrom) {
+  constexpr int RPW = slab_rpw(B, sizeof(T));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ld = pnb + 1;
+  T* Ls = Us + pnb * B;  // L_jj's rows, then this CTA's slab rows' ([pnb + own][ld])
+  T* Lr = Ls + pnb * ld;
+  auto row = [&](int q) { return slab + q * B + q / RPW; };
+  // round 1: the moves (at most 2 pnb pairs) in registers, the rest by cp.async
+  int mr = -1, mf = 0;
+  if (tid < 2 * pnb && tid < pmoved[0]) {
+    mr = pmoved[1 + 2 * tid];
+    mf = pmoved[2 + 2 * tid];
+  }
+  for (int e = tid; e < own * B; e += kChainThreads) {
+    const int q = e / B, c = e % B;
+    if (c < ncol) cp_async(row(q) + c, a + (r0 + s0 + q) * lda + k0 + c);
+  }
+  for (int e = tid; e < (pnb + own) * kCarryMax; e += kChainThreads) {
+    const int t = e / kCarryMax, s = e % kCarryMax;
+    const int r = t < pnb ? pr0 + t : r0 + s0 + t - pnb;
+    if (s < pnb) cp_async(Ls + t * ld + s, a + r * lda + pk0 + s);
+  }
+  for (int q = tid; q < own; q += kChainThreads) {
+    cp_async(pid + q, perm + r0 + s0 + q);  // the slab rows' perm ids
+    src[q] = -1;
+  }
+  for (int t = tid; t < pnb; t += kChainThreads) ufrom[t] = pr0 + t;
+  cp_async_wait();  // before round 2 copies a moved row over its slot
+  __syncthreads();
+  if (mr >= 0) {
+    const int q = mr - r0 - s0;
+    if (mr < r0) {
+      ufrom[mr - pr0] = mf;
+    } else if (q >= 0 && q < own) {
+      src[q] = mf;
+    }
+  }
+  __syncthreads();
+  // round 2: the rows that moved into the slab, the U rows
+  for (int e = tid; e < own * B; e += kChainThreads) {
+    const int q = e / B, c = e % B;
+    if (c < ncol && src[q] >= 0) cp_async(row(q) + c, a + src[q] * lda + k0 + c);
+  }
+  for (int e = tid; e < pnb * B; e += kChainThreads) {
+    const int t = e / B, c = e % B;
+    if (c < ncol) {
+      cp_async(Us + e, a + ufrom[t] * lda + k0 + c);
+    } else {
+      Us[e] = T{};
+    }
+  }
+  cp_async_wait();
+  __syncthreads();
+  // U row t takes steps 0 .. t - 1 in order: a warp per column, lane t
+  // holding row t
+  for (int c = warp; c < ncol; c += kChainWarps) {
+    T x = lane < pnb ? Us[lane * B + c] : T{};
+    for (int s = 0; s + 1 < pnb; ++s) {
+      const T us = shfl(x, s, 32);
+      if (lane > s && lane < pnb) x = rsub(x, rmul(Ls[lane * ld + s], us));
+    }
+    if (lane < pnb) Us[lane * B + c] = x;
+  }
+  __syncthreads();
+  // the slab rows' update, CK columns per item, consecutive threads on
+  // consecutive rows
+  if constexpr (!Elem<T>::complex) {
+    if (sum_first) {
+      carry_update<T, B, true>(slab, Lr, Us, own, ncol, pnb);
+      return;
+    }
+  }
+  carry_update<T, B, false>(slab, Lr, Us, own, ncol, pnb);
+}
+
 // The pivot chain of one block on one cluster (see the note at the top of
 // csrc/panel_lu.cu).  Three thread mappings:
 //   groups  a group of G = min(B, 32) lanes owns slab rows grp, grp + NG,
@@ -457,18 +639,32 @@ panel_chain_kernel(ChainArgs<T> p) {
     }
     cluster_arrive_relaxed();  // waited for after the slab is loaded
   }
+  // launched early behind the previous chain (run_cluster's carry): nothing
+  // of device memory before that chain has completed
+  asm volatile("griddepcontrol.wait;" ::: "memory");
   if (first) {  // the rows above the offset never move
     for (int i = rank * kChainThreads + tid; i < p.ofs; i += C * kChainThreads) p.perm[i] = i;
   }
-  for (int e = tid; e < own * B; e += kChainThreads) {
-    const int q = e / B, c = e % B;
-    if (c < ncol) row(q)[c] = p.a[(r0 + s0 + q) * lda + k0 + c];
+  // the carry's shared memory (carry_smem) past the chain's own: the
+  // previous block's U rows first
+  auto carried_u = [&]() { return reinterpret_cast<T*>(smem_raw + carry_base(L.total)); };
+  if (p.pmoved != nullptr) {
+    const int pnb = p.pnb;
+    T* Us = carried_u();
+    carry_in<T, B>(p.a, lda, p.perm, p.pmoved, p.pk0, pnb, p.sum_first, p.ofs + p.pk0, r0, s0,
+                   own, k0, ncol, slab, pid, src, Us,
+                   reinterpret_cast<int*>(Us + pnb * B + (pnb + R_) * (pnb + 1)));
+  } else {
+    for (int e = tid; e < own * B; e += kChainThreads) {
+      const int q = e / B, c = e % B;
+      if (c < ncol) row(q)[c] = p.a[(r0 + s0 + q) * lda + k0 + c];
+    }
+    for (int q = tid; q < own; q += kChainThreads) {
+      const int r = r0 + s0 + q;
+      pid[q] = first ? r : p.perm[r];
+    }
   }
-  for (int q = tid; q < own; q += kChainThreads) {
-    const int r = r0 + s0 + q;
-    pid[q] = first ? r : p.perm[r];
-    src[q] = r;
-  }
+  for (int q = tid; q < own; q += kChainThreads) src[q] = r0 + s0 + q;
   if (C > 1) cluster_wait();  // every CTA's barriers are set up
   __syncthreads();
 
@@ -539,6 +735,8 @@ panel_chain_kernel(ChainArgs<T> p) {
     const int owner = kk / R_;  // the CTA that holds slab row kk
     const int slot = par * C + rank;
     const bool late = kk > 0;   // step kk - 1's update is due in columns > kk
+    // the next chain may launch now and wait for this one's end
+    if (kk == nb - 1) asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
     RF_STAMP(0);
 
     // ---- reduce the CTA's candidate ----------------------------------------
@@ -819,6 +1017,14 @@ panel_chain_kernel(ChainArgs<T> p) {
       p.moved[2 + 2 * e] = src[q];
     }
   }
+  // the previous block's U rows in this block's columns, from one CTA
+  if (p.pmoved != nullptr && rank == 0) {
+    const T* Us = carried_u();
+    for (int e = tid; e < p.pnb * ncol; e += kChainThreads) {
+      const int t = e / ncol, c = e % ncol;
+      p.a[(p.ofs + p.pk0 + t) * lda + k0 + c] = Us[t * B + c];
+    }
+  }
   // no CTA leaves while another may still write into its shared memory
   if (C > 1) cluster.sync();
   if (tr && tid == 0) { ends[2] = global_ns(); ends[3] = clock64(); }
@@ -1027,6 +1233,7 @@ struct DelayArgs {
   int m, w, lda;
   int r0;          // global row of the block's first step
   int k0, nb;      // the block's columns [k0, k0 + nb)
+  int skip;        // the columns past them that the next chain takes (its carry), or 0
   const int* moved;
   int tc, S;       // panel_swap_solve_kernel: columns per CTA, steps of L per chunk
 };
@@ -1061,19 +1268,20 @@ inline SolvePlan solve_plan(int nb) {
 // block's row moves to its columns outside the slab (every old value is
 // read before any is written), then solves the block's U rows in its
 // columns >= k0 + nb: row t takes steps 0 .. t-1 in order (the steps'
-// multipliers staged S at a time, in step order).
+// multipliers staged S at a time, in step order).  The `skip` columns past
+// the block are left to the next chain, which does the same there.
 template <typename T>
 __global__ void __launch_bounds__(kDelayThreads)
 panel_swap_solve_kernel(DelayArgs<T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nb = p.nb, k1 = p.k0 + nb, tc = p.tc, S = p.S;
+  const int nb = p.nb, c1 = p.k0 + nb + p.skip, tc = p.tc, S = p.S;
   T* buf = reinterpret_cast<T*>(smem_raw);  // [moves][tc] the moved rows' old values
   T* U = buf;                                // [nb][tc] once the moves are done
   T* Lc = U + static_cast<size_t>(nb) * tc;  // [nb][S] multipliers of S steps
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const bool on = lane < tc;
   const int c = blockIdx.x * tc + lane;
-  const bool outside = on && c < p.w && (c < p.k0 || c >= k1);
+  const bool outside = on && c < p.w && (c < p.k0 || c >= c1);
   const size_t lda = static_cast<size_t>(p.lda);
   const int moves = p.moved[0];
   for (int e = warp; e < moves; e += kDelayWarps) {
@@ -1083,9 +1291,9 @@ panel_swap_solve_kernel(DelayArgs<T> p) {
   for (int e = warp; e < moves; e += kDelayWarps) {
     if (outside) p.a[p.moved[1 + 2 * e] * lda + c] = buf[e * tc + lane];
   }
-  if ((blockIdx.x + 1) * tc <= k1 || nb < 2) return;  // no U columns here
+  if ((blockIdx.x + 1) * tc <= c1 || nb < 2) return;  // no U columns here
   __syncthreads();  // U takes the moves' buffer
-  const bool right = on && c < p.w && c >= k1;
+  const bool right = on && c < p.w && c >= c1;
   for (int t = warp; t < nb; t += kDelayWarps) {
     if (on) U[t * tc + lane] = right ? p.a[(p.r0 + t) * lda + c] : T{};
   }
@@ -1124,7 +1332,8 @@ panel_swap_solve_kernel(DelayArgs<T> p) {
 enum UpdateForm { kStepOrder, kSumFirst, kBf16x3 };
 
 // The delayed pass, part 2: every row below the block takes the block's nb
-// rank-1 updates in step order; one CTA per 64 rows x 32 columns >= k0+nb.
+// rank-1 updates in step order; one CTA per 64 rows x 32 columns >= k0 + nb
+// + skip (the columns between, the next chain's own, it takes at load).
 // kSumFirst (the micro-blocked kernels, real elements only): the order of
 // ops/unblocked.py `_delayed_update` instead, an accumulator from 0 takes
 // l[i, j] * u[j, c] for j = k0 .. k0+nb-1 in turn, each product and sum
@@ -1180,12 +1389,12 @@ panel_update_kernel(DelayArgs<T> p) {
   static_assert(kForm == kStepOrder || kForm == kSumFirst, "see panel_update_bf16x3_kernel");
   constexpr int kPer = kUpdRows / kDelayWarps;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nb = p.nb, k1 = p.k0 + nb;
+  const int nb = p.nb, c1 = p.k0 + nb + p.skip;
   const int kc = kWide ? kUpdK : nb;       // steps staged per chunk
   T* U = reinterpret_cast<T*>(smem_raw);  // [kc][kTile]
   T* Lr = U + kc * kTile;                  // [kUpdRows][kc]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c = k1 + blockIdx.x * kTile + lane;
+  const int c = c1 + blockIdx.x * kTile + lane;
   const bool on = c < p.w;
   const int i0 = p.r0 + nb + blockIdx.y * kUpdRows;
   const size_t lda = static_cast<size_t>(p.lda);
@@ -1398,16 +1607,6 @@ struct TcTile {
   static constexpr size_t kSmem = kCBytes + 2 * kLBytes + 2 * kUBytes;
 };
 
-__device__ __forceinline__ void tc_copy16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void tc_copy4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
 // four 8 x 8 bf16 matrices from shared memory, lane l addressing row l % 8
 // of matrix l / 8; .trans hands each lane a column pair instead of a row pair
 __device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
@@ -1558,11 +1757,11 @@ panel_update_bf16x3_tiled_kernel(Bf16x3Args p, int vec) {
     const float* g = p.c + static_cast<size_t>(r0 + r) * p.ldc + c0 + c;
     float* s = cs + r * S::kCld + c;
     if (vec && c0 + c + 3 < cols) {
-      tc_copy16(s, g);
+      cp_async(reinterpret_cast<uint4*>(s), reinterpret_cast<const uint4*>(g));
     } else {
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        if (c0 + c + q < cols) tc_copy4(s + q, g + q);
+        if (c0 + c + q < cols) cp_async(s + q, g + q);
     }
   }
 
@@ -1592,7 +1791,7 @@ panel_update_bf16x3_tiled_kernel(Bf16x3Args p, int vec) {
   }
 
   // ---- C - (hi + lo) in this warp's staged rows, then out -----------------
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  cp_async_wait();
   __syncwarp();
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -1735,8 +1934,12 @@ inline int width_index(int B) {
   return -1;
 }
 
+// A chain launch on a cluster of C; `early` (attr holds two entries): a
+// programmatic dependent launch, which may start once the kernel before it
+// on the stream has triggered (griddepcontrol.launch_dependents) and waits
+// for that kernel's completion at its griddepcontrol.wait.
 inline cudaLaunchConfig_t chain_config(int C, size_t smem, cudaStream_t stream,
-                                       cudaLaunchAttribute* attr) {
+                                       cudaLaunchAttribute* attr, bool early = false) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C);
   cfg.blockDim = dim3(kChainThreads);
@@ -1748,6 +1951,11 @@ inline cudaLaunchConfig_t chain_config(int C, size_t smem, cudaStream_t stream,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  if (early) {
+    attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[1].val.programmaticStreamSerializationAllowed = 1;
+    cfg.numAttrs = 2;
+  }
   return cfg;
 }
 
@@ -2050,15 +2258,58 @@ int delay_opt_in() {
   return 0;
 }
 
+// The side branch of run_cluster's carry, per host thread and device: a
+// stream for the far parts of the delayed passes, an event after the chain a
+// far part follows and one after the far part.  In a stream capture each
+// wait on an event becomes an edge of the graph.
+struct Branch {
+  cudaStream_t side;
+  cudaEvent_t chain, far;
+};
+
+inline int branch_for(Branch** out) {
+  static thread_local Branch branches[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && (dev < 0 || dev >= kMaxDevices)) e = cudaErrorInvalidDevice;
+  if (e != cudaSuccess) return static_cast<int>(e);
+  Branch& b = branches[dev];
+  if (b.side == nullptr) {
+    Branch n = {};
+    e = cudaStreamCreateWithFlags(&n.side, cudaStreamNonBlocking);
+    if (e == cudaSuccess) e = cudaEventCreateWithFlags(&n.chain, cudaEventDisableTiming);
+    if (e == cudaSuccess) e = cudaEventCreateWithFlags(&n.far, cudaEventDisableTiming);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    b = n;
+  }
+  *out = &b;
+  return 0;
+}
+
 // Factor the panel on the cluster route of plan `pl` (route kRouteCluster):
 // per block of pl.b steps the chain kernel (on the cluster, or for the
 // plan's leading grid_blocks on the grid), then, unless one block takes the
-// panel, the two delayed kernels, in turn on `stream` without a host
-// synchronisation.  `iws` holds pl.iws_ints int32s (the blocks' row moves,
-// then the grid chain's workspace).  kForm: the form of the trailing update
-// (UpdateForm).  `stats` (zeroed by the caller) counts the launches as
-// PanelStats says.  `route`: the bf16x3 form's update kernel (kUpdTiled,
-// or kUpdSimple where forced).
+// panel, the block's delayed pass (panel_swap_solve_kernel and the update),
+// on `stream` without a host synchronisation.  `iws` holds pl.iws_ints
+// int32s (the blocks' row moves, then the grid chain's workspace).  kForm:
+// the form of the trailing update (UpdateForm).  `stats` (zeroed by the
+// caller) counts the launches as PanelStats says.  `route`: the bf16x3
+// form's update kernel (kUpdTiled, or kUpdSimple where forced).
+//
+// One block of look-ahead (the carry): where blocks j and j + 1 both run
+// their chain on the cluster, the form is kStepOrder or kSumFirst, b is at
+// most kCarryMax and the carry's shared memory fits beside the slab, the
+// chain of block j + 1 takes block j's delayed pass in its own columns at
+// load, and the rest of that pass (its far part: the two delayed kernels
+// with `skip` = block j + 1's columns) runs on the side stream beside it:
+//   far(j) after chain(j); chain(j + 2) after far(j) and chain(j + 1);
+//   far(j + 1) after far(j) (one stream); a pass run in turn after every far
+//   part before it; the side stream joined before the launcher returns.
+// The panel's last block, a block beside a grid-chain block (the
+// cooperative grid takes every SM), the bf16x3 form (its tensor-core update
+// sums in its own order) and one-block plans keep the passes in turn.  Every
+// element takes the same moves, U-row steps and rank-1 updates in the same
+// order either way, each rounded as before, so the bits are the same.
 template <typename T, int kForm = kStepOrder>
 int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl, void* piv,
                 void* perm, void* info, void* iws, cudaStream_t stream, PanelStats* stats,
@@ -2069,73 +2320,20 @@ int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl,
   cudaError_t e = cudaMemsetAsync(moved, 0, pl.iws_ints * sizeof(int), stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int steps = m - ofs < w ? m - ofs : w;
-  for (int k0 = 0, blk = 0; k0 < steps; k0 += pl.b, ++blk) {
-    const int nb = steps - k0 < pl.b ? steps - k0 : pl.b;
-    const int ncol = pl.one_block ? w : nb;
-    int* bmoved = moved + static_cast<size_t>(blk) * (1 + 4 * pl.B);
-    if (blk < pl.grid_blocks) {
-      if constexpr (kForm == kStepOrder) {
-        return static_cast<int>(cudaErrorInvalidValue);  // the float32 forms have no grid chain
-      } else {
-        const int g = pl.gchain;
-        GridChainArgs<T> c;
-        c.a = A;
-        c.m = m;
-        c.lda = lda;
-        c.ofs = ofs;
-        c.pivot = pivot;
-        c.k0 = k0;
-        c.nb = nb;
-        c.ncol = ncol;
-        c.rows = (m - ofs - k0 + g - 1) / g;
-        c.piv = static_cast<int*>(piv);
-        c.perm = static_cast<int*>(perm);
-        c.info = static_cast<int*>(info);
-        c.moved = bmoved;
-        int* ws = grid_chain_ws(moved, pl);
-        T* f = reinterpret_cast<T*>(ws);
-        c.cval = f;
-        c.crow = f + 2 * static_cast<size_t>(g);
-        c.krow = c.crow + 2 * static_cast<size_t>(g) * ncol;
-        int* gi = ws + grid_chain_real_ints<T>(g, pl.b);
-        c.cidx = gi;
-        c.cpid = gi + 2 * g;
-        c.csrc = gi + 4 * g;
-        c.kinf = gi + 6 * g;
-        c.src = gi + 6 * g + 4;
-        void* args[] = {&c};
-        e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(panel_grid_chain_kernel<T>),
-                                        dim3(g), dim3(kGridThreads), args,
-                                        static_cast<size_t>(ncol) * sizeof(T), stream);
-        if (e != cudaSuccess) return static_cast<int>(e);
-        ++stats->grid_blocks;
-      }
-    } else {
-      ChainArgs<T> c;
-      c.a = A;
-      c.m = m;
-      c.lda = lda;
-      c.ofs = ofs;
-      c.pivot = pivot;
-      c.k0 = k0;
-      c.nb = nb;
-      c.ncol = ncol;
-      c.rows = (m - ofs - k0 + pl.C - 1) / pl.C;
-      c.piv = static_cast<int*>(piv);
-      c.perm = static_cast<int*>(perm);
-      c.info = static_cast<int*>(info);
-      c.moved = bmoved;
-      c.trace = g_trace;
-      c.steps = steps;
-      c.blk = blk;
-      cudaLaunchAttribute attr[1];
-      const cudaLaunchConfig_t cfg =
-          chain_config(pl.C, chain_smem<T>(c.rows, pl.C, pl.B, true).total, stream, attr);
-      e = cudaLaunchKernelEx(&cfg, chain_kernel_for<T>(pl.B), c);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      if (pl.C > 1) ++stats->lookaheads;
-    }
-    if (pl.one_block) continue;
+  const size_t per_block = 1 + 4 * static_cast<size_t>(pl.B);  // a block's row-move ints
+  auto chain_rows = [&](int k0) { return (m - ofs - k0 + pl.C - 1) / pl.C; };
+  // does block blk's delayed pass go into chain blk + 1's load and beside it?
+  auto carries = [&](int blk) {
+    const int k1 = (blk + 1) * pl.b;
+    if (kForm == kBf16x3 || pl.one_block || k1 >= steps || blk < pl.grid_blocks ||
+        pl.b > kCarryMax)
+      return false;
+    return carry_base(chain_smem<T>(chain_rows(k1), pl.C, pl.B, true).total) +
+               carry_smem<T>(pl.b, pl.B, chain_rows(k1)) <= kSmemMax;
+  };
+  // the delayed pass of the block at k0 (nb steps) on stream s, but for the
+  // `skip` columns past it
+  auto delayed = [&](int k0, int nb, const int* bmoved, int skip, cudaStream_t s) -> int {
     DelayArgs<T> d;
     d.a = A;
     d.m = m;
@@ -2144,17 +2342,18 @@ int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl,
     d.r0 = ofs + k0;
     d.k0 = k0;
     d.nb = nb;
+    d.skip = skip;
     d.moved = bmoved;
     if (w > nb) {
       const SolvePlan sp = solve_plan<T>(nb);
       if (sp.tc == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
       d.tc = sp.tc;
       d.S = sp.S;
-      panel_swap_solve_kernel<T><<<(w + sp.tc - 1) / sp.tc, kDelayThreads, sp.smem, stream>>>(d);
-      e = cudaGetLastError();
-      if (e != cudaSuccess) return static_cast<int>(e);
+      panel_swap_solve_kernel<T><<<(w + sp.tc - 1) / sp.tc, kDelayThreads, sp.smem, s>>>(d);
+      const cudaError_t le = cudaGetLastError();
+      if (le != cudaSuccess) return static_cast<int>(le);
     }
-    const int cols = w - k0 - nb, rows = m - ofs - k0 - nb;
+    const int cols = w - k0 - nb - skip, rows = m - ofs - k0 - nb;
     if (cols > 0 && rows > 0) {
       if constexpr (kForm == kBf16x3) {
         Bf16x3Args u;
@@ -2165,23 +2364,132 @@ int run_cluster(T* A, int m, int w, int lda, int pivot, int ofs, const Plan& pl,
         u.rows = rows;
         u.cols = cols;
         u.nb = nb;
-        err = launch_update_bf16x3<T>(u, stream, route);
-        if (err != 0) return err;
+        const int ue = launch_update_bf16x3<T>(u, s, route);
+        if (ue != 0) return ue;
       } else {
         const int kc = nb < kUpdK ? nb : kUpdK;
         const dim3 grid((cols + kTile - 1) / kTile, (rows + kUpdRows - 1) / kUpdRows);
         const size_t smem = (kTile * kc + kUpdRows * kc) * sizeof(T);
         if (nb > kUpdK) {
-          panel_update_kernel<T, kForm, true><<<grid, kDelayThreads, smem, stream>>>(d);
+          panel_update_kernel<T, kForm, true><<<grid, kDelayThreads, smem, s>>>(d);
         } else {
-          panel_update_kernel<T, kForm><<<grid, kDelayThreads, smem, stream>>>(d);
+          panel_update_kernel<T, kForm><<<grid, kDelayThreads, smem, s>>>(d);
         }
-        e = cudaGetLastError();
-        if (e != cudaSuccess) return static_cast<int>(e);
+        const cudaError_t le = cudaGetLastError();
+        if (le != cudaSuccess) return static_cast<int>(le);
       }
       ++stats->updates;
     }
-  }
+    return 0;
+  };
+  Branch* br = nullptr;
+  bool joined = true;  // the stream has waited for every far part issued
+  auto join = [&]() -> int {
+    if (joined) return 0;
+    joined = true;
+    return static_cast<int>(cudaStreamWaitEvent(stream, br->far, 0));
+  };
+  auto blocks = [&]() -> int {
+    for (int k0 = 0, blk = 0; k0 < steps; k0 += pl.b, ++blk) {
+      const int nb = steps - k0 < pl.b ? steps - k0 : pl.b;
+      const int ncol = pl.one_block ? w : nb;
+      int* bmoved = moved + blk * per_block;
+      const bool carry = blk > 0 && carries(blk - 1);
+      int r = join();  // this chain after the far part of block blk - 2
+      if (r != 0) return r;
+      if (blk < pl.grid_blocks) {
+        if constexpr (kForm == kStepOrder) {
+          return static_cast<int>(cudaErrorInvalidValue);  // the float32 forms have no grid chain
+        } else {
+          const int g = pl.gchain;
+          GridChainArgs<T> c;
+          c.a = A;
+          c.m = m;
+          c.lda = lda;
+          c.ofs = ofs;
+          c.pivot = pivot;
+          c.k0 = k0;
+          c.nb = nb;
+          c.ncol = ncol;
+          c.rows = (m - ofs - k0 + g - 1) / g;
+          c.piv = static_cast<int*>(piv);
+          c.perm = static_cast<int*>(perm);
+          c.info = static_cast<int*>(info);
+          c.moved = bmoved;
+          int* ws = grid_chain_ws(moved, pl);
+          T* f = reinterpret_cast<T*>(ws);
+          c.cval = f;
+          c.crow = f + 2 * static_cast<size_t>(g);
+          c.krow = c.crow + 2 * static_cast<size_t>(g) * ncol;
+          int* gi = ws + grid_chain_real_ints<T>(g, pl.b);
+          c.cidx = gi;
+          c.cpid = gi + 2 * g;
+          c.csrc = gi + 4 * g;
+          c.kinf = gi + 6 * g;
+          c.src = gi + 6 * g + 4;
+          void* args[] = {&c};
+          const cudaError_t le = cudaLaunchCooperativeKernel(
+              reinterpret_cast<void*>(panel_grid_chain_kernel<T>), dim3(g), dim3(kGridThreads),
+              args, static_cast<size_t>(ncol) * sizeof(T), stream);
+          if (le != cudaSuccess) return static_cast<int>(le);
+          ++stats->grid_blocks;
+        }
+      } else {
+        ChainArgs<T> c;
+        c.a = A;
+        c.m = m;
+        c.lda = lda;
+        c.ofs = ofs;
+        c.pivot = pivot;
+        c.k0 = k0;
+        c.nb = nb;
+        c.ncol = ncol;
+        c.rows = chain_rows(k0);
+        c.piv = static_cast<int*>(piv);
+        c.perm = static_cast<int*>(perm);
+        c.info = static_cast<int*>(info);
+        c.moved = bmoved;
+        c.pmoved = carry ? bmoved - per_block : nullptr;
+        c.pk0 = k0 - pl.b;
+        c.pnb = carry ? pl.b : 0;
+        c.sum_first = kForm == kSumFirst;
+        c.trace = g_trace;
+        c.steps = steps;
+        c.blk = blk;
+        size_t smem = chain_smem<T>(c.rows, pl.C, pl.B, true).total;
+        if (carry) smem = carry_base(smem) + carry_smem<T>(pl.b, pl.B, c.rows);
+        cudaLaunchAttribute attr[2];
+        const cudaLaunchConfig_t cfg = chain_config(pl.C, smem, stream, attr, carry);
+        const cudaError_t le = cudaLaunchKernelEx(&cfg, chain_kernel_for<T>(pl.B), c);
+        if (le != cudaSuccess) return static_cast<int>(le);
+        if (pl.C > 1) ++stats->lookaheads;
+      }
+      if (carry) {  // the rest of block blk - 1's pass, beside this chain
+        cudaError_t le = cudaStreamWaitEvent(br->side, br->chain, 0);
+        if (le != cudaSuccess) return static_cast<int>(le);
+        joined = false;
+        r = delayed(k0 - pl.b, pl.b, bmoved - per_block, nb, br->side);
+        if (r != 0) return r;
+        le = cudaEventRecord(br->far, br->side);
+        if (le != cudaSuccess) return static_cast<int>(le);
+        ++stats->carried;
+      }
+      if (carries(blk)) {  // the next chain takes this block's pass
+        if (br == nullptr && (r = branch_for(&br)) != 0) return r;
+        const cudaError_t le = cudaEventRecord(br->chain, stream);
+        if (le != cudaSuccess) return static_cast<int>(le);
+        continue;
+      }
+      if (pl.one_block) continue;
+      if ((r = join()) != 0) return r;
+      if ((r = delayed(k0, nb, bmoved, 0, stream)) != 0) return r;
+    }
+    return 0;
+  };
+  err = blocks();
+  const int j = join();  // also after a failed launch: nothing is left on the side stream
+  if (err != 0) return err;
+  if (j != 0) return j;
   return static_cast<int>(cudaGetLastError());
 }
 

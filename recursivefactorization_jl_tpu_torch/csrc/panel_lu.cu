@@ -84,7 +84,11 @@
 //      applied to every column outside the slab (rows swap whole, as in the
 //      plain version), the block's U rows are solved in the columns >= k0+b
 //      (row k0+t takes steps k0 .. k0+t-1 in order), and every row below
-//      the block takes the block's b rank-1 updates in step order.
+//      the block takes the block's b rank-1 updates in step order.  With one
+//      block of look-ahead (run_cluster's carry) the next block's chain does
+//      this in its own b columns as it loads its slab, and the two delayed
+//      kernels take the other columns on a second stream beside that chain,
+//      on the SMs its cluster leaves free.
 // Every element still receives its updates in step order, each product and
 // difference rounded on its own: an update is deferred or delayed, never
 // reordered or summed first, so the result is the plain version's bit for
@@ -105,11 +109,14 @@
 // went to local memory.
 //
 // Launch shape: the launcher issues the chain kernel and the two delayed
-// kernels in turn on the caller's stream, 1 + 2 per block, with no host
-// synchronisation (shape (b) of the two considered; shape (a), one
-// cooperative kernel with a cluster dimension whose other CTAs wait at two
-// grid barriers per block, was not built: (b) needs no grid barrier and no
-// launch attribute beyond the cluster's).
+// kernels, 1 + 2 per block, with no host synchronisation (shape (b) of the
+// two considered; shape (a), one cooperative kernel with a cluster dimension
+// whose other CTAs wait at two grid barriers per block, was not built: (b)
+// needs no grid barrier and no launch attribute beyond the cluster's).  The
+// chains run in turn on the caller's stream; each block's delayed kernels
+// but the panel's last run on a side stream forked and joined with events
+// (edges of the graph in a stream capture), beside the next chain, which
+// takes the pass in its own columns (run_cluster in csrc/panel_cluster.cuh).
 //
 // b and C come from the panel's live rows, w and the element size
 // (`plan_for`, values from the H100 sweep `chip_smoke.py --sweep`, PERF.md);

@@ -73,9 +73,11 @@ class PanelStats(ctypes.Structure):
     """csrc/panel_cluster.cuh ``PanelStats``: what one launch of a panel
     kernel reports in host memory (the chain launches that took the
     look-ahead step and the mbarrier exchange, the blocks whose chain ran on
-    the grid, the delayed update launches)."""
+    the grid, the delayed update launches, the chain launches that took the
+    previous block's delayed pass at load while the rest of it ran beside
+    them)."""
 
-    _fields_ = [("lookaheads", _I), ("grid_blocks", _I), ("updates", _I)]
+    _fields_ = [("lookaheads", _I), ("grid_blocks", _I), ("updates", _I), ("carried", _I)]
 
 
 # the int32s of every panel family's plan (csrc/panel_cluster.cuh kPlanInts,

@@ -56,8 +56,9 @@ launches through one path (``_launch``) and keeps its counts in
 ``wrapper.counts`` (:class:`LaunchCounts`; :func:`reset_counts` zeroes every
 wrapper's): its launches, those on the grid route, the blocks whose chain
 ran on the grid, the chain launches that took the look-ahead step and the
-mbarrier exchange on a cluster of more than one CTA, and every chain launch
-on a cluster by its plan (a dict keyed (dtype name, b, C)), so a run shows
+mbarrier exchange on a cluster of more than one CTA, those that took the
+previous block's delayed pass at load (the rest of it running beside them),
+and every chain launch on a cluster by its plan (a dict keyed (dtype name, b, C)), so a run shows
 which rule of csrc/panel_cluster.cuh's ``Auto<T>`` its chains took.  The
 blocked forms' private ``_chain='grid'`` puts every block's chain on the
 grid, to hold the grid chain against the cluster chain.
@@ -97,8 +98,11 @@ class LaunchCounts:
     (``grid_route_launches``); the blocks whose chain ran on the grid
     (``grid_block_launches``); the chain launches on a cluster of C > 1,
     each of which takes the look-ahead step and the mbarrier exchange
-    (``lookahead_chain_launches``); every chain launch on a cluster by its
-    plan (``chain_launches_by_plan``, ``{(dtype name, b, C): launches}``);
+    (``lookahead_chain_launches``); the chain launches that took the
+    previous block's delayed pass in their own columns at load while the
+    rest of that pass ran beside them (``carried_update_launches``); every
+    chain launch on a cluster by its plan (``chain_launches_by_plan``,
+    ``{(dtype name, b, C): launches}``);
     of :func:`panel_factor_cuda`, the bf16x3 form's launches, the update
     kernels they issued and those on the simple kernel (``bf16x3_*``); of
     :func:`panel_update_bf16x3_cuda`, the launches on the simple kernel
@@ -109,6 +113,7 @@ class LaunchCounts:
     grid_route_launches: int = 0
     grid_block_launches: int = 0
     lookahead_chain_launches: int = 0
+    carried_update_launches: int = 0
     chain_launches_by_plan: dict = dataclasses.field(default_factory=dict)
     bf16x3_launches: int = 0
     bf16x3_update_launches: int = 0
@@ -410,6 +415,7 @@ def _launch(wrapper, panel, pivot, dtypes, lib, prefix, plan_of, ofs=0):
     )
     counts.grid_block_launches += stats.grid_blocks
     counts.lookahead_chain_launches += stats.lookaheads
+    counts.carried_update_launches += stats.carried
     _kernels.check(library, code, f"{lib} launch")
     chains = blocks - stats.grid_blocks
     if route == 1 and c > 0 and chains > 0:
@@ -539,7 +545,9 @@ def panel_factor_cuda(panel: torch.Tensor, pivot: bool, *, block: int = 0,
     matrix).  Returns ``(piv, perm, info)``: int32 (min(m, w),) 0-based
     pivot rows, int32 (m,) composed row permutation and a 0-d int32
     info, all on ``panel``'s device, allocated here.  Launches on the
-    current stream and does not synchronise.  ``block`` / ``cluster``
+    current stream and does not synchronise (most of each block's delayed
+    pass runs on a side stream beside the next block's chain, joined back
+    into the current stream before the call returns).  ``block`` / ``cluster``
     pick the cluster route's block width and cluster size (0: the
     launcher's choice; see :func:`panel_plan`).  ``.counts``
     (:class:`LaunchCounts`) counts the launches, those on the grid route

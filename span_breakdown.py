@@ -26,7 +26,9 @@ own pool, entry and closed loop (``bench_port/harness.py``), one process:
    panel chain launches of those calls by plan (dtype, b, C), from the
    port's ``.counts.chain_launches_by_plan``: which rule of the chain's
    plan the cell took; and per call the chain launches that took the
-   look-ahead and the mbarrier exchange (``.counts.lookahead_chain_launches``);
+   look-ahead and the mbarrier exchange (``.counts.lookahead_chain_launches``)
+   and those that took the previous block's delayed pass at load while its
+   far part ran beside them (``.counts.carried_update_launches``);
 5. ``off`` again: recaptured with the recorder off, one more untraced
    window (the two ``off`` windows bracket the others).
 
@@ -80,12 +82,13 @@ def chain_launches() -> dict:
 
 
 def chain_count(attr) -> int:
-    """A chain launch count (``lookahead_chain_launches``) summed over the
-    wrappers of ``panel_chain_kernel``."""
+    """A chain launch count (``lookahead_chain_launches``,
+    ``carried_update_launches``) summed over the wrappers of
+    ``panel_chain_kernel``."""
     return sum(getattr(getattr(panel_mod, name).counts, attr) for name in CHAIN_WRAPPERS)
 
 
-COUNTERS = ("lookahead_chain_launches",)
+COUNTERS = ("lookahead_chain_launches", "carried_update_launches")
 
 
 def card_line() -> str:

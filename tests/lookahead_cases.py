@@ -15,6 +15,11 @@ emulation (tests/test_torch_panel_schedule.py) and the card tests
 * ``"repeat"``: the first row of every CTA scaled by factors falling with
   the CTA, so each is its CTA's candidate in every step until it wins:
   the same row published in many steps running.
+
+``next_block_panel`` puts every pivot of a block of b steps in the next
+block's rows (csrc/panel_cluster.cuh `run_cluster`'s carry: the next chain
+loads the rows a block's moves bring, and the block's U rows come from rows
+that chain holds).
 """
 
 import numpy as np
@@ -47,4 +52,18 @@ def lookahead_panel(kind, m, w, C, dtype=torch.float32, seed=0):
     rows = scaled_rows(kind, m, C)
     for n, r in enumerate(rows):
         A[r] *= 1e3 * (1 + n / len(rows)) if kind == "boundary" else 1e3 * (len(rows) - n)
+    return torch.tensor(A, dtype=dtype)
+
+
+def next_block_panel(m, w, b, dtype=torch.float32, seed=0):
+    """An (m, w) panel whose step k pivots on row k + b wherever that row
+    exists (its entry in column k raised far above the rest): each block of
+    b steps swaps its rows with the next block's, so its moves bring rows
+    into the next chain's slab and its U rows come from rows of that slab."""
+    rng = np.random.default_rng([seed, m, w, b, 7])
+    A = rng.standard_normal((m, w))
+    if dtype.is_complex:
+        A = A + 1j * rng.standard_normal((m, w))
+    for k in range(min(w, m - b)):
+        A[k + b, k] += 1e3 * (m + w)
     return torch.tensor(A, dtype=dtype)

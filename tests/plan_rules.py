@@ -99,3 +99,77 @@ def exchange_bytes(dtype_name, M, rows, C, B, kk, pivot):
     live = min(holders, C) - kk // rows
     row = B * ITEM_BYTES[dtype_name]
     return C * CAND_BYTES[dtype_name] + row + 8 + (live * row if pivot else 0)
+
+
+# ---- the carry: which blocks' delayed pass the next chain takes -----------
+#
+# csrc/panel_cluster.cuh `run_cluster` folds block j's delayed pass into
+# chain j + 1's load (its own columns; the rest runs beside that chain)
+# where blocks j and j + 1 both run their chain on the cluster, the form is
+# the step-order or the sum-first one (not bf16x3), the plan has more than
+# one block, b is at most kCarryMax, and the carry's shared memory fits
+# beside the chain's own (kSmemMax).  ``carries`` mirrors that rule;
+# ``CARRIED_PER_CALL`` pins what it gives for the cells' lu calls.
+
+CARRY_MAX = 32  # kCarryMax
+SMEM_MAX = 232448 - 1024  # kSmemMax
+CARRY_RULE = ("if (kForm == kBf16x3 || pl.one_block || k1 >= steps || blk < pl.grid_blocks || "
+              "pl.b > kCarryMax) return false;")
+# chain launches a call that take the previous block's pass at load, in the
+# benchmark cells' keys (every block of every panel but the panel's last)
+CARRIED_PER_CALL = {("float32", 4096): 200, ("float32", 8192): 704, ("float64", 4096): 136}
+
+
+def chain_smem_bytes(dtype_name, rows, C, B):
+    """csrc/panel_cluster.cuh ``chain_smem<T>(rows, C, B, true).total``: the
+    padded slab, the exchange's slots and candidates, the rows' perm ids and
+    origins."""
+    sz = ITEM_BYTES[dtype_name]
+    cplx = dtype_name.startswith("complex")
+    rpw = max(1, 128 // (min(B, 32) * sz))
+    o = rows * B * sz + -(-rows // rpw) * sz
+    o = (o + 15) & ~15
+    o += 2 * C * B * sz + 2 * B * sz + (B * sz if cplx else 0)
+    o += 2 * C * CAND_BYTES[dtype_name] + 16 + (8 if cplx else 0)
+    return o + rows * 8
+
+
+def carry_bytes(dtype_name, pnb, B, rows):
+    """``carry_smem<T>(pnb, B, rows)``: the previous block's U rows in this
+    block's columns, its L_jj and the CTA's slab rows' multipliers with a
+    padded row, its U rows' origins."""
+    return (pnb * B + (pnb + rows) * (pnb + 1)) * ITEM_BYTES[dtype_name] + pnb * 4
+
+
+def slab_width(b):
+    """The chain's slab width for blocks of b steps (b < w): b rounded up to
+    a power of two, at least 8."""
+    return max(8, 1 << (b - 1).bit_length())
+
+
+def carries(dtype_name, m, w, b, C, blk, form="step", grid_blocks=0):
+    """Does chain blk + 1 of an (m live rows, w) panel on plan (b, C) take
+    block blk's delayed pass at load?"""
+    k1 = (blk + 1) * b
+    if form == "bf16x3" or b >= w or k1 >= min(m, w) or blk < grid_blocks or b > CARRY_MAX:
+        return False
+    B = slab_width(b)
+    rows = -(-(m - k1) // C)
+    return ((chain_smem_bytes(dtype_name, rows, C, B) + 15) & ~15) \
+        + carry_bytes(dtype_name, b, B, rows) <= SMEM_MAX
+
+
+def carried_blocks(dtype_name, m, w, b, C, form="step", grid_blocks=0):
+    """The chain launches of one panel that take the previous block's pass."""
+    blocks = -(-min(m, w) // b)
+    return sum(carries(dtype_name, m, w, b, C, j, form, grid_blocks) for j in range(blocks - 1))
+
+
+def lu_carried(dtype_name, n, w=WIDTH):
+    """The same over the panels of a blocked lu at n (n - w k live rows, w
+    columns), each on its auto plan."""
+    total = 0
+    for m in range(n, 0, -w):
+        b, C = AUTO_PLANS[dtype_name].get(m) or rule_plan(rule_of(dtype_name), m, w)
+        total += carried_blocks(dtype_name, m, min(w, m), b, C)
+    return total

@@ -46,8 +46,8 @@ from recursivefactorization_jl_tpu_torch.ops.unblocked import (
 )
 from recursivefactorization_jl_tpu_torch.utils import graphs, profiling, warmup
 from recursivefactorization_jl_tpu_torch.utils.config import PANEL_MICRO_MAX
-from lookahead_cases import KINDS, lookahead_panel
-from plan_rules import AUTO_PLANS, WIDTH
+from lookahead_cases import KINDS, lookahead_panel, next_block_panel
+from plan_rules import AUTO_PLANS, CARRIED_PER_CALL, WIDTH, carried_blocks
 
 torch.set_num_threads(1)
 
@@ -1922,6 +1922,195 @@ def test_mbarrier_exchange_counter_in_an_lu_and_on_one_cta():
              if v > by_plan.get(k, 0)}
     assert grown and all(c > 1 for _, _, c in grown)
     assert fn.counts.lookahead_chain_launches - n0 == sum(grown.values())
+
+
+# ---- one block of look-ahead: the next chain takes the pass at load --------
+#
+# run_cluster (csrc/panel_cluster.cuh) folds block j's delayed pass in block
+# j + 1's columns into chain j + 1's load and runs the rest of it on a second
+# branch beside that chain.  Every cluster-route instantiation against its
+# plain version (the oracle: nothing forces the old schedule), at the cells'
+# plans and at ragged heights, on random panels and on pivots in the next
+# block's rows; `.counts.carried_update_launches` against tests/plan_rules.py's
+# mirror of the engagement rule.
+
+
+def _carry_case(dtype, m, w, b, C, kind):
+    if kind == "next":
+        return next_block_panel(m, w, b, dtype)
+    return lookahead_panel(kind, m, w, C, dtype)
+
+
+def _check_carry(fn, call, A, want):
+    """``call(P)`` factors a copy P of A on the card with wrapper ``fn``;
+    bitwise (NaN for NaN) against ``want = (factors, piv, perm, info)``.
+    Returns the launch's carried chain launches."""
+    P = A.clone()
+    n0 = fn.counts.carried_update_launches
+    kpiv, kperm, kinfo = call(P)
+    torch.cuda.synchronize()
+    f, piv, perm, info = want
+    assert torch.equal(kpiv, piv) and torch.equal(kperm, perm) and int(kinfo) == int(info)
+    if A.is_complex():
+        assert _same_bits_nan(torch.view_as_real(P), torch.view_as_real(f))
+    else:
+        assert _same_bits_nan(P, f)
+    return fn.counts.carried_update_launches - n0
+
+
+@pytest.mark.parametrize("kind", ["randn", "next"])
+@pytest.mark.parametrize("m,w", [(4096, 512), (2048, 512), (301, 100), (45, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64,
+                                   torch.complex128])
+def test_carry_on_every_element_on_its_own_plan(dtype, m, w, kind):
+    """The launcher's own plan: every chain but the panel's first takes the
+    previous block's pass where the rule says so (all of them at 512
+    columns), and the factors, pivots, perm and info are the plain
+    version's."""
+    need_cuda()
+    plan = panel_plan(m, w, dtype)
+    b, C = plan["block"], plan["cluster"]
+    A = _carry_case(dtype, m, w, b, C, kind).cuda()
+    fn = _factor_for(dtype)
+    got = _check_carry(fn, lambda P: fn(P, True), A, _plain_for(dtype)(A, True))
+    assert got == carried_blocks(str(dtype)[6:], m, w, b, C)
+    if w == 512:
+        assert got == plan["blocks"] - 1
+
+
+@pytest.mark.parametrize("kind", list(KINDS) + ["next"])
+@pytest.mark.parametrize("shape,block,cluster", _CELL_PLANS)
+def test_carry_at_the_cells_plans(shape, block, cluster, kind):
+    need_cuda()
+    m, w = shape
+    A = _carry_case(torch.float32, m, w, block, cluster, kind).cuda()
+    got = _check_carry(panel_factor_cuda,
+                       lambda P: panel_factor_cuda(P, True, block=block, cluster=cluster), A,
+                       unblocked_lu(A, True))
+    assert got == w // block - 1
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 16])
+@pytest.mark.parametrize("block", [8, 16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_carry_on_ragged_heights_at_every_plan(dtype, block, cluster):
+    """Heights that are no multiple of C x rows, ragged last blocks, without
+    pivoting too; b = 64 is past the carry's lanes and keeps the passes in
+    turn."""
+    need_cuda()
+    for (m, w), pivot in (((301, 100), True), ((301, 100), False), ((45, 40), True)):
+        A = _exchange_panel(m, w, dtype, pivot, seed=block + cluster)
+        got = _check_carry(panel_factor_cuda, lambda P: panel_factor_cuda(
+            P, pivot, block=block, cluster=cluster), A, unblocked_lu(A, pivot))
+        assert got == carried_blocks(str(dtype)[6:], m, w, block, cluster)
+        assert (got == 0) == (block >= 64 or block >= w)
+
+
+@pytest.mark.parametrize("variant", ["shadow", "basic"])
+@pytest.mark.parametrize("micro", [8, 16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_carry_on_the_micro_blocked_kernels(dtype, micro, variant):
+    """The sum-first update keeps micro_blocked_lu's order in the next
+    chain's columns too."""
+    need_cuda()
+    fn = panel_factor_shadow_cuda if variant == "shadow" else panel_factor_basic_cuda
+    for (m, w), kind in (((1536, 512), "next"), ((1536, 512), "randn"), ((301, 100), "randn")):
+        plan = micro_plan(m, w, dtype, micro, variant)
+        A = _carry_case(dtype, m, w, micro, plan["cluster"], kind).cuda()
+        got = _check_carry(fn, lambda P: fn(P, True, micro), A, micro_blocked_lu(A, True, micro))
+        assert got == carried_blocks(str(dtype)[6:], m, w, micro, plan["cluster"],
+                                     form="sum_first", grid_blocks=plan["grid_blocks"])
+        assert (got > 0) == (micro <= 32)
+
+
+@pytest.mark.parametrize("kind", ["randn", "next"])
+@pytest.mark.parametrize("ofs", [0, 1000, 3968])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64,
+                                   torch.complex128])
+def test_carry_on_the_offset_kernels(dtype, ofs, kind):
+    """The offset form from row ofs: global pivot rows, the rows above
+    untouched."""
+    need_cuda()
+    H, w = 4096, 128
+    plan = panel_plan(H, w, dtype, ofs=ofs)
+    b, C = plan["block"], plan["cluster"]
+    g = torch.Generator().manual_seed(ofs + 5)
+    A = torch.randn(H, w, generator=g, dtype=torch.float64)
+    if dtype.is_complex:
+        A = torch.complex(A, torch.randn(H, w, generator=g, dtype=torch.float64))
+    A = A.to(dtype)
+    A[ofs:] = _carry_case(dtype, H - ofs, w, b, C, kind)
+    A = A.cuda()
+    fn = offset_panel_factor_c64_cuda if dtype.is_complex else offset_panel_factor_cuda
+    plain = offset_panel_lu_cabs1 if dtype.is_complex else offset_panel_lu
+    want = plain(A, ofs, True)
+    got = _check_carry(fn, lambda P: fn(P, ofs, True), A, want)
+    assert got == carried_blocks(str(dtype)[6:], H - ofs, w, b, C) == w // b - 1
+
+
+def test_carry_counter_in_an_lu_and_zero_where_the_rule_says():
+    """In an eager lu at n = 4096 and 8192 every chain but each panel's
+    first takes the previous block's pass (200 and 704 a call, the cells'
+    keys); none in the bf16x3 form, on grid-chain blocks or on one-block
+    plans."""
+    need_cuda()
+    g = torch.Generator().manual_seed(71)
+    A = torch.randn(1536, 512, generator=g).cuda()
+    for fn, call, X in (
+            (panel_factor_cuda, lambda P: panel_factor_cuda(P, True, precision="bf16x3"), A),
+            (panel_factor_cuda, lambda P: panel_factor_cuda(P, True, block=64, cluster=4),
+             A[:300, :64]),
+            (panel_factor_shadow_cuda, lambda P: panel_factor_shadow_cuda(P, True, 32,
+                                                                          _chain="grid"), A),
+            (panel_factor_basic_cuda, lambda P: panel_factor_basic_cuda(P, True, 16,
+                                                                        _chain="grid"), A)):
+        n0 = fn.counts.carried_update_launches
+        call(X.clone())
+        torch.cuda.synchronize()
+        assert fn.counts.carried_update_launches == n0
+    # panels whose slab leaves no room for the carry beside it (past ~47 000
+    # float32 rows at b 8, C 16) keep the passes in turn; below, every block
+    for m in (60000, 40000):
+        T = torch.randn(m, 512, generator=g).cuda()
+        plan = panel_plan(m, 512, torch.float32)
+        got = _check_carry(panel_factor_cuda, lambda P: panel_factor_cuda(P, True), T,
+                           unblocked_lu(T, True))
+        assert got == carried_blocks("float32", m, 512, plan["block"], plan["cluster"])
+        assert got == (0 if m == 60000 else plan["blocks"] - 1)
+    warmup.clear_caches()  # eager calls, through the wrappers
+    for n in (4096, 8192):
+        M = torch.randn(n, n, generator=g).cuda()
+        n0 = panel_factor_cuda.counts.carried_update_launches
+        rt.lu(M, device="cuda")
+        torch.cuda.synchronize()
+        assert panel_factor_cuda.counts.carried_update_launches - n0 == \
+            CARRIED_PER_CALL[("float32", n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_warmed_lu_at_4096_replays_bitwise_twenty_times(no_programs, dtype):
+    """The race check between the graph's two branches (each far part beside
+    the next chain): a warmed lu + lu_solve at n = 4096 replayed 20 times,
+    every replay bit for bit the eager call, which carried every chain but
+    each panel's first (200 / 136 a call)."""
+    n = 4096
+    g = torch.Generator(device="cuda").manual_seed(2147483701)
+    A = torch.rand(n, n, generator=g, device="cuda", dtype=dtype) - 0.5
+    b = torch.rand(n, generator=g, device="cuda", dtype=dtype) - 0.5
+    n0 = panel_factor_cuda.counts.carried_update_launches
+    eager = rt.lu(A, check=False)
+    xe = rt.lu_solve(eager, b)
+    torch.cuda.synchronize()
+    assert panel_factor_cuda.counts.carried_update_launches - n0 == \
+        CARRIED_PER_CALL[(str(dtype)[6:], n)]
+    warmup.warmup(((n, n),), (dtype,))
+    r0 = _replays()
+    for _ in range(20):
+        F = rt.lu(A, check=False)
+        x = rt.lu_solve(F, b)
+        torch.cuda.synchronize()
+        assert _same_results(_lu_outputs(F), _lu_outputs(eager)) and _same_results([x], [xe])
+    assert _replays() - r0 == 40
 
 
 # ---- panel_boundary_precision='bf16x3' ---------------------------------------

@@ -27,21 +27,28 @@ import torch
 
 import recursivefactorization_jl_tpu as rf
 import recursivefactorization_jl_tpu_torch as rt
-from lookahead_cases import KINDS, lookahead_panel, scaled_rows
+from lookahead_cases import KINDS, lookahead_panel, next_block_panel, scaled_rows
 from plan_rules import (
     AUTO_PLANS,
     CAND_BYTES,
+    CARRIED_PER_CALL,
+    CARRY_MAX,
+    CARRY_RULE,
     EXCHANGE_RULE,
     HEADER,
     ITEM_BYTES,
     WIDTH,
     exchange_bytes,
+    SMEM_MAX,
+    carried_blocks,
     header_exchange_rule,
+    lu_carried,
     rule_of,
     rule_plan,
 )
 from recursivefactorization_jl_tpu_torch.ops import panel as panel_mod
 from recursivefactorization_jl_tpu_torch.ops.unblocked import (
+    micro_blocked_lu,
     offset_panel_lu,
     unblocked_lu,
     unblocked_lu_cabs1,
@@ -225,6 +232,61 @@ def _rank1(E, S, rows, kd, cmin, u):
         S[idx, cmin:] = S[idx, cmin:] - E.mul(S[idx, kd][:, None], u[cmin:][None])
 
 
+def _lookahead_chain(E, S, src, pid, piv, info, k0, r0, nb, ncol, pivot, C, cplx):
+    """The chain kernel's steps on the slab ``S`` (the block's live rows from
+    global row ``r0``, its ``ncol`` columns) on a cluster of ``C`` CTAs, as
+    ``lookahead_order_lu`` describes them; ``src`` / ``pid`` travel with the
+    rows, ``piv`` takes the global pivot rows.  Returns info."""
+    M = S.shape[0]
+    R = -(-M // C)
+    u = None
+    for kk in range(nb):
+        late, ahead = kk > 0, kk + 1 < ncol
+        cands = []
+        if pivot:
+            for s0 in range(0, M, R):
+                lo, hi = max(kk, s0), min(M, s0 + R)
+                if lo < hi:
+                    q = lo + _first_best(E.mag(S[lo:hi, kk]))
+                    cands.append((q, E.mag(S[q, kk])))
+        pub = {q for q, _ in cands} | {kk}
+        if late:
+            _rank1(E, S, sorted(pub), kk - 1, kk + 1, u)
+            _rank1(E, S, [q for q in range(kk, M) if q not in pub], kk - 1, kk + 2, u)
+        kp, urow = kk, S[kk].clone()
+        if pivot:
+            best = min(cands, key=lambda c: (0, 0.0, c[0]) if bool(torch.isnan(c[1]))
+                       else (1, -float(c[1]), c[0]))
+            kp, urow = best[0], S[best[0]].clone()
+            if cplx and bool(torch.isnan(best[1])):
+                kp, urow = M - 1, S[M - 1].clone()
+                if late and ahead and kp not in pub:
+                    urow[kk + 1] = urow[kk + 1] - E.mul(S[kp, kk - 1], u[kk + 1])
+        piv[k0 + kk] = r0 + kp
+        nz = E.nonzero(urow[kk])
+        moved = -1
+        if nz and kp != kk:
+            S[kp] = S[kk].clone()
+            S[kk] = urow
+            src[[kk, kp]] = src[[kp, kk]]
+            pid[[kk, kp]] = pid[[kp, kk]]
+            moved = kp
+        elif not nz and info == 0:
+            info = k0 + kk + 1 if pivot else -(k0 + kk + 1)
+        if nz:
+            S[kk + 1:, kk] = E.mul(S[kk + 1:, kk], E.rcp(urow[kk]))
+        if ahead:
+            due = [q for q in range(kk + 1, M) if late and q != moved and q not in pub]
+            if due:
+                idx = torch.tensor(due)
+                S[idx, kk + 1] = S[idx, kk + 1] - E.mul(S[idx, kk - 1], u[kk + 1])
+            S[kk + 1:, kk + 1] = S[kk + 1:, kk + 1] - E.mul(S[kk + 1:, kk], urow[kk + 1])
+        u = urow
+    if ncol > nb + 1:
+        _rank1(E, S, list(range(nb, M)), nb - 1, nb + 1, u)
+    return info
+
+
 def lookahead_order_lu(A, ofs, pivot, b, C):
     """The cluster route's order with the chain kernel's one-column
     look-ahead, on the (H, w) panel ``A`` from row ``ofs`` (real or
@@ -260,56 +322,10 @@ def lookahead_order_lu(A, ofs, pivot, b, C):
         k1 = min(k0 + b, steps)
         nb, r0 = k1 - k0, ofs + k0
         ncol = w if one else nb
-        M = H - r0
-        R = -(-M // C)
         S = V[r0:, k0:k0 + ncol].clone()
-        src = torch.arange(M)
+        src = torch.arange(H - r0)
         pid = perm[r0:].clone()
-        u = None
-        for kk in range(nb):
-            late, ahead = kk > 0, kk + 1 < ncol
-            cands = []
-            if pivot:
-                for s0 in range(0, M, R):
-                    lo, hi = max(kk, s0), min(M, s0 + R)
-                    if lo < hi:
-                        q = lo + _first_best(E.mag(S[lo:hi, kk]))
-                        cands.append((q, E.mag(S[q, kk])))
-            pub = {q for q, _ in cands} | {kk}
-            if late:
-                _rank1(E, S, sorted(pub), kk - 1, kk + 1, u)
-                _rank1(E, S, [q for q in range(kk, M) if q not in pub], kk - 1, kk + 2, u)
-            kp, urow = kk, S[kk].clone()
-            if pivot:
-                best = min(cands, key=lambda c: (0, 0.0, c[0]) if bool(torch.isnan(c[1]))
-                           else (1, -float(c[1]), c[0]))
-                kp, urow = best[0], S[best[0]].clone()
-                if cplx and bool(torch.isnan(best[1])):
-                    kp, urow = M - 1, S[M - 1].clone()
-                    if late and ahead and kp not in pub:
-                        urow[kk + 1] = urow[kk + 1] - E.mul(S[kp, kk - 1], u[kk + 1])
-            piv[k0 + kk] = r0 + kp
-            nz = E.nonzero(urow[kk])
-            moved = -1
-            if nz and kp != kk:
-                S[kp] = S[kk].clone()
-                S[kk] = urow
-                src[[kk, kp]] = src[[kp, kk]]
-                pid[[kk, kp]] = pid[[kp, kk]]
-                moved = kp
-            elif not nz and info == 0:
-                info = k0 + kk + 1 if pivot else -(k0 + kk + 1)
-            if nz:
-                S[kk + 1:, kk] = E.mul(S[kk + 1:, kk], E.rcp(urow[kk]))
-            if ahead:
-                due = [q for q in range(kk + 1, M) if late and q != moved and q not in pub]
-                if due:
-                    idx = torch.tensor(due)
-                    S[idx, kk + 1] = S[idx, kk + 1] - E.mul(S[idx, kk - 1], u[kk + 1])
-                S[kk + 1:, kk + 1] = S[kk + 1:, kk + 1] - E.mul(S[kk + 1:, kk], urow[kk + 1])
-            u = urow
-        if ncol > nb + 1:
-            _rank1(E, S, list(range(nb, M)), nb - 1, nb + 1, u)
+        info = _lookahead_chain(E, S, src, pid, piv, info, k0, r0, nb, ncol, pivot, C, cplx)
         perm[r0:] = pid
         # the delayed pass: swaps outside the slab, U rows, rows below
         outside = [c for c in range(w) if not k0 <= c < k0 + ncol]
@@ -324,6 +340,90 @@ def lookahead_order_lu(A, ofs, pivot, b, C):
         for s in range(nb):
             rows = slice(r0 + nb, H)
             V[rows, k1:] = V[rows, k1:] - E.mul(V[rows, k0 + s][:, None], V[r0 + s, k1:][None])
+    return A, piv, perm, torch.tensor(info, dtype=torch.int32)
+
+
+def _delayed_pass(E, V, k0, nb, r0, src, cols, sum_first):
+    """Block ``[k0, k0 + nb)``'s delayed pass (its rows from global row
+    ``r0``, ``src`` the slab row each position holds) in the columns
+    ``cols``, as panel_swap_solve_kernel and panel_update_kernel run it: the
+    row moves, then in the columns past the block its U rows solved row by
+    row and the rank-nb update of the rows below in step order (``sum_first``:
+    an accumulator from 0 takes each product, then one difference)."""
+    if not cols:
+        return
+    idx = torch.tensor(cols)
+    V[r0:, idx] = V[r0:][src][:, idx]
+    right = torch.tensor([c for c in cols if c >= k0 + nb])
+    if not right.numel():
+        return
+    for s in range(nb - 1):
+        rows = slice(r0 + s + 1, r0 + nb)
+        V[rows, right] = V[rows, right] - E.mul(V[rows, k0 + s][:, None], V[r0 + s, right][None])
+    rows = slice(r0 + nb, V.shape[0])
+    acc = torch.zeros_like(V[rows, right])
+    for s in range(nb):
+        prod = E.mul(V[rows, k0 + s][:, None], V[r0 + s, right][None])
+        if sum_first:
+            acc = acc + prod
+        else:
+            V[rows, right] = V[rows, right] - prod
+    if sum_first:
+        V[rows, right] = V[rows, right] - acc
+
+
+def carry_order_lu(A, ofs, pivot, b, C, sum_first=False):
+    """The cluster route's order with one block of look-ahead
+    (csrc/panel_cluster.cuh `run_cluster`'s carry), on the (H, w) panel
+    ``A`` from row ``ofs``, each block's chain in the chain kernel's order
+    on a cluster of ``C`` CTAs (``_lookahead_chain``).  Block j's delayed
+    pass is split in two:
+
+    * the near part, block j + 1's own columns: chain j + 1 applies block
+      j's row moves to its slab as it loads it, solves block j's U rows in
+      those columns and updates the slab with block j's rank-nb update,
+      before its first step;
+    * the far part, every other column: the two delayed kernels, run
+      beside chain j + 1 (disjoint columns), after it here.
+
+    The panel's last block takes its whole pass after its chain, as does
+    every block of a one-block plan (none).  ``sum_first``: the
+    micro-blocked kernels' update (``_delayed_update``'s order).  Returns
+    ``(LU, piv, perm, info)`` as ``offset_panel_lu`` does."""
+    cplx = A.is_complex()
+    E = _Cabs1Ops if cplx else _RealOps
+    A = A.clone()
+    V = torch.view_as_real(A) if cplx else A
+    H, w = A.shape
+    steps = min(H - ofs, w)
+    piv = torch.arange(steps, dtype=torch.int32) + ofs
+    perm = torch.arange(H, dtype=torch.int32)
+    info = 0
+    one = b >= w
+    prev = None  # (k0, nb, r0, src) of the block whose far part is due
+    for k0 in range(0, steps, b):
+        k1 = min(k0 + b, steps)
+        nb, r0 = k1 - k0, ofs + k0
+        ncol = w if one else nb
+        if prev is not None:  # the near part, at load
+            _delayed_pass(E, V, *prev, list(range(k0, k1)), sum_first)
+        S = V[r0:, k0:k0 + ncol].clone()
+        src = torch.arange(H - r0)
+        pid = perm[r0:].clone()
+        info = _lookahead_chain(E, S, src, pid, piv, info, k0, r0, nb, ncol, pivot, C, cplx)
+        perm[r0:] = pid
+        V[r0:, k0:k0 + ncol] = S
+        if prev is not None:  # the far part, beside this chain
+            pk0 = prev[0]
+            _delayed_pass(E, V, *prev, [c for c in range(w) if c < pk0 or c >= k1], sum_first)
+        prev = None
+        if one:
+            continue
+        if k1 < steps:
+            prev = (k0, nb, r0, src)
+        else:
+            _delayed_pass(E, V, k0, nb, r0, src, [c for c in range(w) if not k0 <= c < k1],
+                          sum_first)
     return A, piv, perm, torch.tensor(info, dtype=torch.int32)
 
 
@@ -526,6 +626,112 @@ def test_complex_lookahead_order_equals_unblocked_lu_cabs1(b, dtype, name, pivot
                  (want[0].masked_fill(nan.any(-1), 0),) + want[1:])
     if name.startswith("nan"):
         assert (got[1][3:] == m - 1).all() and (got[1][:3] != m - 1).all()
+
+
+# ---- one block of look-ahead: the next chain takes the pass at load --------
+#
+# run_cluster's carry (csrc/panel_cluster.cuh): block j's delayed pass in
+# block j + 1's columns runs inside chain j + 1's load, the rest beside that
+# chain.  carry_order_lu emulates it; every form keeps its plain version's
+# bits, the sum-first one (the micro-blocked kernels) micro_blocked_lu's.
+
+
+@pytest.mark.parametrize("ofs", [0, 37])
+@pytest.mark.parametrize("C", [1, 4, 16])
+@pytest.mark.parametrize("b", [8, 16, 32, 64])
+@pytest.mark.parametrize("m,w", [(45, 40), (301, 100)])
+def test_carry_order_equals_the_plain_versions(m, w, b, C, ofs):
+    """Ragged heights (CTAs with fewer rows, at 45 rows and C = 16 one with
+    none; ragged last blocks), every b of the cluster route, from row 0 and
+    from an offset, with and without pivoting."""
+    H = m + ofs
+    for pivot in (True, False):
+        A = _panel(7 * m + b + ofs, H, w, torch.float32, pivot, ofs)
+        want = offset_panel_lu(A, ofs, pivot) if ofs else unblocked_lu(A, pivot)
+        got = carry_order_lu(A, ofs, pivot, b, C)
+        _assert_same(got, want)
+        assert torch.equal(_bits(got[0][:ofs]), _bits(A[:ofs]))
+
+
+@pytest.mark.parametrize("C", [1, 16])
+@pytest.mark.parametrize("b", [8, 16, 32, 64])
+@pytest.mark.parametrize("m,w", [(45, 40), (301, 100), (100, 301)])
+def test_carry_order_sum_first_equals_micro_blocked_lu(m, w, b, C):
+    """The micro-blocked kernels' form: the update sums its products first
+    (``_delayed_update``'s order), in the near part as in the far part; a
+    fat panel ends with the last block's solve."""
+    for pivot in (True, False):
+        A = _panel(11 * m + b, m, w, torch.float64, pivot)
+        _assert_same(carry_order_lu(A, 0, pivot, b, C, sum_first=True),
+                     micro_blocked_lu(A, pivot, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64])
+@pytest.mark.parametrize("b", [8, 16, 32])
+def test_carry_order_on_pivots_in_the_next_blocks_rows(dtype, b):
+    """Every pivot of a block in the next block's rows: the moves bring rows
+    into the next chain's slab and send its rows into the block's U rows."""
+    m, w, C = 200, 96, 8
+    A = next_block_panel(m, w, b, dtype)
+    plain = unblocked_lu_cabs1 if dtype.is_complex else unblocked_lu
+    want = plain(A, True)
+    k = torch.arange(min(w, m - b), dtype=torch.int32)
+    assert torch.equal(want[1][:len(k)], k + b)  # the panel puts them there
+    _assert_same(carry_order_lu(A, 0, True, b, C), want)
+
+
+@pytest.mark.parametrize("name, pivot", [("randn", True), ("ties", True), ("zero_col", False),
+                                         ("nan_re", True), ("nan_last_row", True)])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("b", [8, 16])
+def test_complex_carry_order_equals_unblocked_lu_cabs1(b, dtype, name, pivot):
+    m, w = 96, 40
+    A = _complex_panel(name, m, w, dtype, pivot)
+    got = carry_order_lu(A, 0, pivot, b, 16)
+    want = unblocked_lu_cabs1(A, pivot)
+    nan = torch.isnan(torch.view_as_real(want[0]))
+    assert torch.equal(torch.isnan(torch.view_as_real(got[0])), nan)
+    _assert_same((got[0].masked_fill(nan.any(-1), 0),) + got[1:],
+                 (want[0].masked_fill(nan.any(-1), 0),) + want[1:])
+
+
+def test_carry_rule_is_the_headers():
+    """tests/plan_rules.py mirrors run_cluster's engagement rule: its
+    conditions, kCarryMax and kSmemMax as the header has them."""
+    import re
+
+    text = HEADER.read_text()
+    assert CARRY_RULE in " ".join(text.split())
+    assert int(re.search(r"constexpr int kCarryMax = (\d+);", text).group(1)) == CARRY_MAX
+    assert "constexpr size_t kSmemMax = 232448 - 1024;" in text and SMEM_MAX == 232448 - 1024
+    assert "carry_base(chain_smem<T>(chain_rows(k1), pl.C, pl.B, true).total) +" in text
+
+
+@pytest.mark.parametrize("dtype_name,n", sorted(CARRIED_PER_CALL))
+def test_carried_blocks_in_the_cells_keys(dtype_name, n):
+    """Every chain of the cells' lu calls but each panel's first takes the
+    previous block's pass: 200 / 704 / 136 a call."""
+    assert lu_carried(dtype_name, n) == CARRIED_PER_CALL[(dtype_name, n)]
+    blocks = sum(-(-min(m, WIDTH) // (AUTO_PLANS[dtype_name].get(m)
+                                       or rule_plan(rule_of(dtype_name), m))[0])
+                 for m in range(n, 0, -WIDTH))
+    assert lu_carried(dtype_name, n) == blocks - n // WIDTH
+
+
+def test_carried_blocks_stay_zero_where_the_rule_says():
+    """None for the bf16x3 form, for one-block plans, for blocks beside a
+    grid-chain block, or past kCarryMax steps; one fewer than the blocks on
+    a plan that fits."""
+    assert carried_blocks("float32", 4096, 512, 16, 16) == 31
+    assert carried_blocks("float32", 4096, 512, 32, 16, form="bf16x3") == 0
+    assert carried_blocks("float32", 4096, 512, 512, 16) == 0  # one block
+    assert carried_blocks("float32", 100, 40, 64, 1) == 0
+    assert carried_blocks("float64", 1536, 512, 64, 16) == 0  # b past kCarryMax
+    assert carried_blocks("float64", 1536, 512, 32, 16, form="sum_first", grid_blocks=4) == 11
+    # a slab too large for the carry's room beside it (the chain alone fits
+    # up to ~89 000 float32 rows at b 8, with the carry ~47 000): no carry
+    assert carried_blocks("float32", 60000, 512, 8, 16) == 0
+    assert carried_blocks("float32", 40000, 512, 8, 16) == 63
 
 
 # ---- the chain's exchange: the bytes each CTA receives in a step -----------
