@@ -153,7 +153,13 @@ The opt-in schedules and the RBT solver add:
             Wilkinson matrix of n=800 in f64 (||Ax - b|| <= 1e-10) and on
             randn + n*I at n=1536 in f32 with refine 0 and 2 beside the
             pivoted ``lu_solve``; the panel kernel's launches with
-            pivot=False;
+            pivot=False; the benchmark's RBT problem (HPL's uniform matrix,
+            n=4096 f32) through ``butterfly_factor`` /
+            ``butterfly_factor_solve`` (refine 0 / 1 / 2: HPL's residual
+            under 16 after one step, bit for bit ``butterfly_solve``), the
+            fused transform's launches, its output bit for bit its tensor
+            code's, and its device time beside the tensor code's and its
+            bound (the ``kernels`` line's ``butterfly_depth2_kernel``);
 4d. timing  the micro-blocked and no-swap kernels per panel shape on their
             cluster and (forced) grid routes in turns beside
             csrc/panel_lu.cu and torch.linalg.lu_factor_ex, the micro
@@ -609,35 +615,45 @@ def device_rows(prof):
 
 # windows a device-time measurement opens before it gives up: on the H100 the
 # profiler has recorded none of a window's kernels, once in three windows in a
-# row (the 8160-row update of phase 4g)
-PROFILER_WINDOWS = 6
+# row (the 8160-row update of phase 4g), and late in a run (after the tp
+# phase's NCCL world) every window of some measurements of phases 4b, 4g and
+# 3h; the second half of the windows records CPU activity too, each empty
+# window is noted, and a measurement that no window records is left out with
+# a note (the smoke's checks do not read these times)
+PROFILER_WINDOWS = 8
 
 
 def profiled_rows(run, rows, what, before=None):
     """``rows(prof)`` of a torch.profiler window over ``run()`` (which
     synchronises; ``before()`` runs ahead of each window, outside it),
     opening up to PROFILER_WINDOWS windows while the profiler records no
-    kernel in one."""
+    kernel in one; then None: the caller notes what it could not measure."""
     import torch
 
+    acts = torch.profiler.ProfilerActivity
     for attempt in range(PROFILER_WINDOWS):
         if attempt:
-            time.sleep(0.5)
+            emit("note", what="profiler_window_empty", of=what, attempt=attempt)
+            torch.cuda.synchronize()
+            time.sleep(0.5 * attempt)
         if before is not None:
             before()
+        late = attempt >= PROFILER_WINDOWS // 2
         with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                activities=[acts.CPU, acts.CUDA] if late else [acts.CUDA]) as prof:
             run()
         got = rows(prof)
         if got:
             return got
-    fail(f"{what}: the profiler recorded no kernel in {PROFILER_WINDOWS} windows")
+    return None
 
 
 def device_ms(fn, calls=5):
     """Device time per call of ``fn`` (every kernel it launches), from
     torch.profiler: at small n a call's host time exceeds its kernels'
-    and the events around queued calls measure the host."""
+    and the events around queued calls measure the host.  Where the
+    profiler records no kernel in PROFILER_WINDOWS windows, those events
+    all the same, in a ``device_ms_by_events`` note."""
     import torch
 
     fn()
@@ -648,7 +664,19 @@ def device_ms(fn, calls=5):
             fn()
         torch.cuda.synchronize()
 
-    return sum(r[0] for r in profiled_rows(run, device_rows, "device_ms")) / calls
+    got = profiled_rows(run, device_rows, "device_ms")
+    if got is not None:
+        return sum(r[0] for r in got) / calls
+    # the profiler recorded nothing in any window: CUDA events around the
+    # synchronised calls instead, the host's gaps between launches included
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    run()
+    e1.record()
+    e1.synchronize()
+    ms = e0.elapsed_time(e1) / calls
+    emit("note", what="device_ms_by_events", windows=PROFILER_WINDOWS, ms=ms)
+    return ms
 
 
 def device_span_ms(fn, setup, calls=5):
@@ -680,6 +708,9 @@ def device_span_ms(fn, setup, calls=5):
     rec = []
     while len(rec) < calls:
         ev = profiled_rows(run, events, "device_span_ms", before)
+        if ev is None:  # no window recorded a kernel: not measured
+            emit("note", what="device_span_ms_unmeasured", windows=PROFILER_WINDOWS)
+            return dict(span=None, busy=None, chain=None, host_enqueue=host[-1] * 1e3)
         rec.append(((max(t for _, t, _ in ev) - min(s for s, _, _ in ev)) / 1e3,
                     sum(t - s for s, t, _ in ev) / 1e3,
                     sum(t - s for s, t, n in ev if "panel_chain_kernel" in n) / 1e3,
@@ -692,7 +723,9 @@ def kernel_device_ms(fn, names, setup=None, calls=3):
     """Device time per call (ms) and launches per call of the kernels of
     ``fn`` whose names hold each of ``names``, from torch.profiler over
     ``calls`` calls (``setup`` before each, inside the window: name the
-    kernels so that its own are not counted)."""
+    kernels so that its own are not counted).  Where the profiler records
+    no kernel in PROFILER_WINDOWS windows: no launches, in a
+    ``kernel_device_ms_unmeasured`` note."""
     import torch
 
     if setup is not None:
@@ -708,6 +741,12 @@ def kernel_device_ms(fn, names, setup=None, calls=3):
         torch.cuda.synchronize()
 
     rows = profiled_rows(run, device_rows, "kernel_device_ms")
+    if rows is None:
+        # no window recorded a kernel: no launch is counted, so the readers
+        # (which keep the names with launches) leave these names out
+        emit("note", what="kernel_device_ms_unmeasured", names=list(names),
+             windows=PROFILER_WINDOWS)
+        return {k: (0.0, 0) for k in names}
     out = {}
     for k in names:
         hit = [r for r in rows if k in r[2]]
@@ -1682,6 +1721,10 @@ def graph_phase(rt, dev, card, round_robin, tp_mesh, dp_mesh):
                 wall.append((time.perf_counter() - t0) * 1e3)
 
             rows = profiled_rows(run, device_rows, f"graph idle {k}")
+            if rows is None:  # no window recorded a kernel: not measured
+                emit("note", what="graph_idle_unmeasured", of=k, windows=PROFILER_WINDOWS)
+                res[k] = dict(idle_share=None, busy_ms=None, device_records=None)
+                continue
             busy = sum(r[0] for r in rows)
             res[k] = dict(idle_share=1 - busy / wall[-1], busy_ms=busy / calls,
                           device_records=sum(r[1] for r in rows) / calls)
@@ -4054,6 +4097,53 @@ def main(argv):
             and rbt_launches_1536 == 2 * -(-n // w_main)):
         fail(f"RBT on the entry matrix: {rec}")
     del Ae, be, ws, xr, xp
+    # the benchmark's RBT problem (rbt_f32): HPL's uniform [-0.5, 0.5) matrix
+    # at n = 4096 through the factor / solve split, the fused transform's
+    # device time beside its tensor code's (one 64 MiB matrix, past the L2)
+    from recursivefactorization_jl_tpu_torch.models import butterfly as rbt_mod
+    from recursivefactorization_jl_tpu_torch.ops.butterfly import butterfly_mul_cuda
+
+    n = 4096
+    gu = torch.Generator(device=dev).manual_seed(2500000301)
+    Au = torch.rand(n, n, generator=gu, device=dev, dtype=f32) - 0.5
+    bu = torch.rand(n, generator=gu, device=dev, dtype=f32) - 0.5
+    reset_counts()
+    ws = rt.butterfly_workspace(Au, bu)
+    F = rt.butterfly_factor(ws)
+    xs = {k: rt.butterfly_factor_solve(F, ws.b, refine=k) for k in (0, 1, 2)}
+    split_is_solve = torch.equal(xs[1], rt.butterfly_solve(ws, refine=1))
+    torch.cuda.synchronize()
+    eps32 = torch.finfo(f32).eps / 2
+    Ad = wide(Au)
+    hpl = {}
+    for k, v in xs.items():
+        xd, bd = wide(v), wide(bu)
+        hpl[f"refine_{k}"] = float((Ad @ xd - bd).abs().max() / (
+            eps32 * (Ad.abs().sum(1).max() * xd.abs().max() + bd.abs().max()) * n))
+    counts = butterfly_mul_cuda.counts
+    rbt_launches = {f"{d}_n{m}": c for (d, m), c in counts.launches.items()}
+    tensor_transforms = counts.tensor_transforms
+    # the kernel against its plain version (the tensor code) on this matrix
+    got_t = butterfly_mul_cuda(ws.A, ws.uv)
+    plain_t = rbt_mod._butterfly_mul_tensor(ws.A, ws.uv)
+    transform_bitwise = torch.equal(got_t, plain_t)
+    transform_err = float((got_t - plain_t).abs().max())
+    del got_t, plain_t
+    kernel_ms = device_ms(lambda: butterfly_mul_cuda(ws.A, ws.uv))
+    tensor_ms = device_ms(lambda: rbt_mod._butterfly_mul_tensor(ws.A, ws.uv))
+    # A read once, U^T A V written once, the 4n values: 8 operations an element
+    least_ms, least_by = roofline(8 * n * n, 4 * (2 * n * n + 4 * n), "float32")
+    rbt_row = dict(what="rbt_hpl_split", n=n, dtype="float32", hpl_resid=hpl, info=int(F.info),
+                   split_is_solve=split_is_solve, transform_launches=rbt_launches,
+                   tensor_transforms=tensor_transforms, transform_bitwise=transform_bitwise,
+                   transform_max_abs_err=transform_err, transform_kernel_ms=kernel_ms,
+                   transform_tensor_ms=tensor_ms, transform_bound_ms=least_ms,
+                   transform_bound_by=least_by, transform_roofline_pct=100 * least_ms / kernel_ms)
+    emit("main", **rbt_row)
+    if not (hpl["refine_1"] < 16.0 and int(F.info) == 0 and split_is_solve and transform_bitwise
+            and rbt_launches == {f"float32_n{n}": 2} and tensor_transforms == 0):
+        fail(f"RBT on HPL's matrix through the factor / solve split: {rbt_row}")
+    del Au, bu, ws, F, xs, Ad
 
     # ---- 3g. lu under panel_boundary_precision='bf16x3' -------------------
     bf16x3_counts = bf16x3_main_phase(rt, dev, TF32Watch, resid_gate, solve_resid)
@@ -5066,6 +5156,24 @@ def main(argv):
         "lu_tall_ms": tall_row["ms"],
         "shape": grow["shape"],
         "block": grow["block"],
+        "dtype": "float32",
+    })
+    # the RBT solver's depth-2 transform: its launches those of phase 3d's
+    # workspace + factor + solve at n = 4096 (one a factor, one a solve),
+    # held bit for bit to the tensor code there, timed on that matrix
+    kernels.append({
+        "name": "butterfly_depth2_kernel",
+        "route": "cuda",
+        "source": "recursivefactorization_jl_tpu_torch/csrc/butterfly.cu",
+        # the JAX package leaves the transform to XLA, which fuses it
+        "replaces": None,
+        "launches": rbt_row["transform_launches"][f"float32_n{rbt_row['n']}"],
+        "max_abs_err": rbt_row["transform_max_abs_err"],
+        "ms": rbt_row["transform_kernel_ms"],
+        "plain_ms": rbt_row["transform_tensor_ms"],
+        "bound_ms": rbt_row["transform_bound_ms"],
+        "bound_by": rbt_row["transform_bound_by"],
+        "shape": [rbt_row["n"], rbt_row["n"]],
         "dtype": "float32",
     })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -34,6 +34,9 @@ Butterfly Transform solves without pivoting:
     F = lu(A, config=LUConfig(schedule="physical"))
     F = lu(A, config=LUConfig(panel_variant="shadow", panel_micro=32))
     x = butterfly_solve(butterfly_workspace(A, b), refine=1)
+    ws = butterfly_workspace(A, b)
+    F = butterfly_factor(ws)                     # keep U^T A V's pivot-free LU
+    x = butterfly_factor_solve(F, ws.b, refine=1)  # and solve with it, any rhs
 
 Batches of small matrices (B, m, n), min(m, n) <= 128, run one more pair
 of hand-written kernels (``csrc/batched_lu.cu``, ``csrc/batched_solve.cu``):
@@ -55,7 +58,10 @@ kernel of ``csrc/panel_lu.cu``, and the batch split over the ranks:
 """
 
 from .models.butterfly import (
+    BFactor,
     BWorkspace,
+    butterfly_factor,
+    butterfly_factor_solve,
     butterfly_from_numpy,
     butterfly_mul,
     butterfly_solve,
@@ -100,7 +106,10 @@ from .utils.perm import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "BFactor",
     "BWorkspace",
+    "butterfly_factor",
+    "butterfly_factor_solve",
     "butterfly_from_numpy",
     "butterfly_mul",
     "butterfly_solve",

@@ -11,12 +11,19 @@ The PyTorch counterpart of the JAX package's models/butterfly.py:
   the implicit ``U^T b`` / ``V y`` the solve uses instead;
 * padding to a multiple of 4 with an identity block;
 * the workspace and the solve: ``A~ = U^T A V``, LU without pivoting,
-  ``x = V (A~)^-1 U^T b``, optionally refined.
+  ``x = V (A~)^-1 U^T b``, optionally refined;
+* the same solve in two parts, at the seam where the Julia reference's
+  butterfly solve calls ``lu!(A, Val(false))`` and then ``ldiv!``:
+  :func:`butterfly_factor` keeps the factorization (:class:`BFactor`) and
+  :func:`butterfly_factor_solve` solves with it, for any number of
+  right-hand sides.
 
-The pivot-free LU is ``lu_factor(A~, pivot=False)``, which on the card
-runs the panel kernel of csrc/panel_lu.cu with ``pivot=False``; the
-transform itself is plain tensor code, as it is plain XLA in the JAX
-package.
+The pivot-free LU is ``lu_factor(A~, pivot=False)`` on the transform's
+own output, which on the card runs the panel kernel of csrc/panel_lu.cu
+with ``pivot=False``.  On the card a float32 / float64 transform is one
+launch of csrc/butterfly.cu (``ops/butterfly.py``), bit for bit
+:func:`butterfly_mul`'s tensor code, which the CPU and the other types
+run (the JAX package leaves the transform to XLA, which fuses it).
 
 The random stream is not part of the API, and ``torch`` cannot reproduce
 JAX's: the values come from an explicit ``torch.Generator`` on the CPU
@@ -36,9 +43,18 @@ package's jitted ``_workspace_arrays``, ``_butterfly_solve_impl`` and
   graph pads ``A`` and ``b``;
 * ``butterfly_solve``: keyed on the padded shapes, ``config`` and
   ``refine``; the cut to ``ws.n`` and ``return_info`` stay outside, so
-  the sizes that pad alike share a program.  The nested pivot-free
-  ``lu_factor`` runs its eager code inside the capture;
+  the sizes that pad alike share a program.  Its graph is the two
+  programs below in turn; the nested pivot-free ``lu_factor`` runs its
+  eager code inside the capture;
+* ``butterfly_factor``: keyed on the padded shape, dtype and device and
+  ``config``; ``butterfly_factor_solve``: on the shapes of the
+  factorization and of the right-hand side, and ``refine``;
 * ``BWorkspace.UV``: keyed on ``uv`` and the padded size.
+
+Spans (``utils/profiling.py``), inside the programs: ``rbt.transform``
+(``U^T A V``), ``rbt.factor`` (the pivot-free LU), ``rbt.apply`` (``U^T
+b``, both substitutions, ``V y``) and ``rbt.refine`` (each refinement
+step: the residual's product with ``A`` and one more apply).
 """
 
 from __future__ import annotations
@@ -49,6 +65,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.butterfly import butterfly_mul_cuda, takes
 from ..utils import graphs
 from ..utils.config import (
     LUConfig,
@@ -56,6 +73,7 @@ from ..utils.config import (
     full_matmul_precision,
     resolve_device,
 )
+from ..utils.profiling import span
 
 DEFAULT_SEED = 888
 
@@ -94,13 +112,27 @@ def butterfly_level(A: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.
 
 def butterfly_mul(A: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """Depth-2 RBT apply: returns ``U^T A V`` with two levels of
-    butterflies.  ``A`` must be square with a size divisible by 4."""
+    butterflies.  ``A`` must be square with a size divisible by 4.  A CUDA
+    float32 / float64 matrix with values of its own type goes to the
+    kernel (``ops.butterfly.butterfly_mul_cuda``), everything else to the
+    tensor code, its plain version (``_butterfly_mul_tensor``; counted in
+    ``butterfly_mul_cuda.counts.tensor_transforms``)."""
     M, N = A.shape
     if M != N or M % 4 != 0:
         raise ValueError(
             f"butterfly_mul needs a square matrix with n % 4 == 0 (pad "
             f"first), got {tuple(A.shape)}"
         )
+    if takes(A, uv):
+        return butterfly_mul_cuda(A, uv)
+    butterfly_mul_cuda.counts.tensor_transforms += 1
+    return _butterfly_mul_tensor(A, uv)
+
+
+def _butterfly_mul_tensor(A: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """:func:`butterfly_mul` in tensor code, on any device (the kernel's
+    plain version)."""
+    M = A.shape[0]
     h = M // 2
     U1, V1 = uv[:h], uv[h:M]
     U2, V2 = uv[M : M + h], uv[M + h : 2 * M]
@@ -263,12 +295,64 @@ def butterfly_from_numpy(A, b, uv, n: int, device=None) -> BWorkspace:
                       n=int(n))
 
 
+@dataclasses.dataclass(frozen=True)
+class BFactor:
+    """A kept RBT factorization (:func:`butterfly_factor`): the packed
+    pivot-free LU of ``A~ = U^T A V`` at the padded size (``factors``), its
+    ``ipiv`` (the identity: no row moves) and ``info`` (0, or minus the
+    1-based first zero pivot), the butterfly values ``uv``, the padded
+    matrix ``A`` that refinement takes residuals against, and the original
+    size ``n``."""
+
+    factors: torch.Tensor
+    ipiv: torch.Tensor
+    info: torch.Tensor
+    uv: torch.Tensor
+    A: torch.Tensor
+    n: int
+
+
+def butterfly_factor(ws: BWorkspace, *, config: Optional[LUConfig] = None) -> BFactor:
+    """The first half of :func:`butterfly_solve`: ``A~ = U^T A V`` and its
+    LU without pivoting, kept for :func:`butterfly_factor_solve`.  Runs on
+    the workspace's device, by the replay of the ``butterfly_factor``
+    program of its key where one was captured."""
+    config = config or default_config()
+    factors, ipiv, info = graphs.call("butterfly_factor", _butterfly_factor_impl,
+                                      (ws.A, ws.uv), (config,))
+    return BFactor(factors=factors, ipiv=ipiv, info=info, uv=ws.uv, A=ws.A, n=ws.n)
+
+
+def butterfly_factor_solve(F: BFactor, b, *, refine: int = 0, return_info: bool = False):
+    """Solve ``A x = b`` with a kept factorization: ``U^T b``, both
+    triangular solves, ``V y`` and ``refine`` steps of iterative refinement
+    against the padded ``A``, cut back to ``F.n`` rows.  ``b`` (a vector
+    or a matrix of right-hand sides) has the matrix's ``F.n`` rows, which
+    are padded with zeros, or already the padded size (``BWorkspace.b``).
+    Runs by the replay of the ``butterfly_factor_solve`` program of its key
+    where one was captured; :func:`butterfly_solve` of the same workspace
+    gives the same bits."""
+    b = torch.as_tensor(b, device=F.factors.device)
+    np_ = F.factors.shape[0]
+    if b.shape[0] != np_:
+        if b.shape[0] != F.n:
+            raise ValueError(f"right-hand side has {b.shape[0]} rows, A has {F.n}")
+        pad = torch.zeros((np_ - F.n,) + tuple(b.shape[1:]), dtype=b.dtype, device=b.device)
+        b = torch.cat([b, pad])
+    x = graphs.call("butterfly_factor_solve", _butterfly_factor_solve_impl,
+                    (F.factors, F.ipiv, F.A, F.uv, b), (refine,))
+    x = x[: F.n]
+    return (x, F.info) if return_info else x
+
+
 def butterfly_solve(ws: BWorkspace, *, config: Optional[LUConfig] = None,
                     return_info: bool = False, refine: int = 0):
     """Pivot-free RBT solve: ``A~ = U^T A V``, LU without pivoting,
     ``x = V (A~)^-1 U^T b``, cut back to the original size.  Runs on the
     workspace's device, by the replay of the ``butterfly_solve`` program
-    of its key where one was captured.
+    of its key where one was captured.  It is :func:`butterfly_factor`
+    and :func:`butterfly_factor_solve` of ``ws.b`` in turn, in one
+    program, with the same bits.
 
     ``refine`` adds that many steps of iterative refinement on the padded
     system with the same factorization (``r = b - A x``, ``x += V A~^-1
@@ -283,23 +367,44 @@ def butterfly_solve(ws: BWorkspace, *, config: Optional[LUConfig] = None,
 
 
 @full_matmul_precision()
-def _butterfly_solve_impl(A, b, uv, config: LUConfig, refine: int):
-    """The program of :func:`butterfly_solve` on the padded system:
-    ``(x, info)``."""
+def _butterfly_factor_impl(A, uv, config: LUConfig):
+    """The program of :func:`butterfly_factor` on the padded matrix:
+    ``(factors, ipiv, info)`` of the transformed matrix, factored in place
+    (it is the transform's own output)."""
     from .lu import lu_factor
+
+    with span("rbt.transform", A):
+        At = butterfly_mul(A, uv)
+    # an integer matrix's factors are float64 and cannot overwrite it
+    donate = At.dtype.is_floating_point or At.dtype.is_complex
+    with span("rbt.factor", A):
+        return lu_factor(At, pivot=False, config=config, donate=donate, device=At.device)
+
+
+@full_matmul_precision()
+def _butterfly_factor_solve_impl(factors, ipiv, A, uv, b, refine: int):
+    """The program of :func:`butterfly_factor_solve` on the padded system:
+    ``x``."""
     from .solve import _lu_solve_impl
 
-    At = butterfly_mul(A, uv)
-    factors, ipiv, info = lu_factor(At, pivot=False, config=config,
-                                    device=At.device)
+    dtype = torch.promote_types(A.dtype, uv.dtype)  # the transformed matrix's
 
     def rbt_apply(rhs):
-        tmp = apply_ut(uv, rhs.to(At.dtype))
+        tmp = apply_ut(uv, rhs.to(dtype))
         y = _lu_solve_impl(factors, ipiv, tmp, pivoted=False, trans=0)
         return apply_v(uv, y)
 
-    x = rbt_apply(b)
+    with span("rbt.apply", A):
+        x = rbt_apply(b)
     for _ in range(refine):
-        r = b.to(x.dtype) - A @ x
-        x = x + rbt_apply(r)
-    return x, info
+        with span("rbt.refine", A):
+            r = b.to(x.dtype) - A @ x
+            x = x + rbt_apply(r)
+    return x
+
+
+def _butterfly_solve_impl(A, b, uv, config: LUConfig, refine: int):
+    """The program of :func:`butterfly_solve` on the padded system:
+    ``(x, info)``."""
+    factors, ipiv, info = _butterfly_factor_impl(A, uv, config)
+    return _butterfly_factor_solve_impl(factors, ipiv, A, uv, b, refine), info

@@ -3,7 +3,9 @@ and the one-shot ``solve``.
 
 A pivoted solve gathers the right-hand side by the composed permutation,
 then runs the unit-lower and the upper triangular solves; a no-pivot
-solve skips the gather.  ``trans`` accepts 'N'/False/0 (``A x = b``),
+solve skips the gather, and substitutes (``trsm.substitute``) where the
+pivoted one applies inverted blocks: without pivoting the multipliers
+are not bounded by 1, and the inverses grow with them.  ``trans`` accepts 'N'/False/0 (``A x = b``),
 'T'/True/1 (``A^T x = b``) and 'H'/2 (``A^H x = b``, the conjugated
 factors for complex types).  Solves run on the factorization's device.
 
@@ -75,18 +77,21 @@ def _lu_solve_impl(factors, perm, b, pivoted: bool, trans=0):
             with span("solve.permute", factors):
                 B = B[perm.long()]
         with span("solve.forward", factors):
-            y = trsm.solve_unit_lower(factors, B)
+            y = (trsm.solve_unit_lower(factors, B) if pivoted
+                 else trsm.substitute(factors, B, upper=False, unit=True))
         with span("solve.backward", factors):
-            x = trsm.solve_upper(factors, y)
+            x = (trsm.solve_upper(factors, y) if pivoted
+                 else trsm.substitute(factors, y, upper=True))
     else:
         # A = P^T L U  =>  A^T x = b  <=>  U^T y = b, L^T z = y, x = P^T z
         ft = factors.T
         if trans == 2 and factors.dtype.is_complex:
             ft = ft.conj()
         with span("solve.forward", factors):
-            y = trsm.solve_lower(ft, B)
+            y = trsm.solve_lower(ft, B) if pivoted else trsm.substitute(ft, B, upper=False)
         with span("solve.backward", factors):
-            x = trsm.solve_unit_upper(ft, y)
+            x = (trsm.solve_unit_upper(ft, y) if pivoted
+                 else trsm.substitute(ft, y, upper=True, unit=True))
         if pivoted:
             with span("solve.permute", factors):
                 x = x[invert_perm(perm).long()]

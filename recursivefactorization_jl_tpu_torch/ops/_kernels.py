@@ -45,7 +45,7 @@ BUILD_DIR = default_build_dir()
 SOURCES = {
     name: PACKAGE_DIR / "csrc" / f"{name}.cu"
     for name in ("panel_lu", "panel_lu_c64", "panel_lu_micro",
-                 "panel_lu_noswap", "batched_lu", "batched_solve")
+                 "panel_lu_noswap", "batched_lu", "batched_solve", "butterfly")
 }
 # second builds of a source with flags of their own, for measurement only:
 # name -> (source, flags).  batched_lu_trace's kernels stamp a phase trace
@@ -119,6 +119,8 @@ _BATCHED_LU = {
     "rf_batched_lu_noswap_plan": (_I, [_I, _I, _I, _I, _P]),
     "rf_error_string": (ctypes.c_char_p, [_I]),
 }
+# a, out, uv, n, width (int*), device, stream
+_BUTTERFLY = (_I, [_P, _P, _P, _I, ctypes.POINTER(_I), _I, _P])
 # C signatures: name -> (restype, argtypes)
 SIGNATURES = {
     "panel_lu": {
@@ -173,6 +175,11 @@ SIGNATURES = {
         "rf_batched_solve_f64": _BATCHED_SOLVE,
         # n, nrhs, elem, route, device, out[10]
         "rf_batched_solve_plan": (_I, [_I, _I, _I, _I, _I, _P]),
+        "rf_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "butterfly": {
+        "rf_butterfly_depth2_f32": _BUTTERFLY,
+        "rf_butterfly_depth2_f64": _BUTTERFLY,
         "rf_error_string": (ctypes.c_char_p, [_I]),
     },
 }

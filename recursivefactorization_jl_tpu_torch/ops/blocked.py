@@ -6,6 +6,9 @@
            columns of rows s: as one row gather (dense) or by moving only
            the rows the panel's swaps touched (sparse)
         3. TRSM:  U12 = L11^-1 @ A12 via triangular inverse + matmul
+           (without pivoting by substitution, ``trsm.substitute``: the
+           multipliers are not bounded by 1 there, and L11's inverse
+           grows with them)
         4. Schur: A22 -= L21 @ U12
 
 Each step is cut into spans with no gap between them
@@ -50,7 +53,7 @@ from ..utils.config import LUConfig, full_matmul_precision
 from ..utils.profiling import span
 from .panel import panel_factor, panel_factor_noswap
 from .schur import schur_product
-from .trsm import solve_unit_lower, unit_lower_inverse
+from .trsm import solve_unit_lower, substitute, unit_lower_inverse
 
 # Trailing blocks of at least this many bytes take the sparse laswp:
 # a composition of w row swaps moves at most 2*w rows, so gathering only
@@ -90,6 +93,17 @@ def _laswp(A, perm, perm_local, piv_local, s: int, cols):
         perm[s:] = perm[s:][pl]
 
 
+def _unit_lower_solve(L, B, pivot: bool, block):
+    """``tril(L, unit diag)^-1 @ B``: after partial pivoting by the
+    triangular inverse (whole, ``block`` None, or in a blocked sweep),
+    without pivoting by substitution (``trsm.substitute``)."""
+    if not pivot:
+        return substitute(L, B, upper=False, unit=True)
+    if block is None:
+        return unit_lower_inverse(L) @ B
+    return solve_unit_lower(L, B, block)
+
+
 def blocked_lu(
     A: torch.Tensor, pivot: bool, config: LUConfig
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -117,7 +131,7 @@ def _blocked_lu(A, pivot, config):
             with span("blocked.laswp", A):
                 AR.copy_(AR[perm.long()])
         with span("blocked.trsm", A):
-            AR.copy_(solve_unit_lower(A[:, :m], AR, config.trsm_block))
+            AR.copy_(_unit_lower_solve(A[:, :m], AR, pivot, config.trsm_block))
         return A, ipiv, perm, info
 
     minmn = n
@@ -151,9 +165,8 @@ def _blocked_lu(A, pivot, config):
                 _laswp(A, perm, perm_l, piv_l, s, [(0, s), (s + ws, n)])
         if s + ws < n:
             with span("blocked.trsm", A):
-                L11_inv = unit_lower_inverse(A[s : s + ws, s : s + ws])
                 A12 = A[s : s + ws, s + ws :]
-                A12.copy_(L11_inv @ A12)
+                A12.copy_(_unit_lower_solve(A[s : s + ws, s : s + ws], A12, pivot, None))
             with span("blocked.schur", A):
                 A[s + ws :, s + ws :].sub_(
                     schur_product(A[s + ws :, s : s + ws], A12, prec).to(A.dtype)

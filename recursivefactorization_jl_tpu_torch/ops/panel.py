@@ -74,7 +74,9 @@ from typing import Tuple
 import torch
 
 from ..utils.config import DEFAULT_PANEL_MICRO, FORI_VARIANTS, PANEL_MICRO_MAX, LUConfig
-from . import _kernels
+from . import _counts, _kernels
+from ._counts import device_index as _device_index
+from ._counts import reset_counts  # noqa: F401  (ops.panel.reset_counts, its callers' name)
 from .unblocked import (
     micro_blocked_lu,
     offset_panel_lu,
@@ -121,21 +123,11 @@ class LaunchCounts:
     simple_launches: int = 0
 
 
-_COUNTED = []
-
-
 def _counted(wrapper):
     """Give ``wrapper`` its :class:`LaunchCounts`, which
     :func:`reset_counts` zeroes."""
-    wrapper.counts = LaunchCounts()
-    _COUNTED.append(wrapper)
-    return wrapper
+    return _counts.counted(wrapper, LaunchCounts)
 
-
-def reset_counts() -> None:
-    """Zero the launch counts of every panel wrapper."""
-    for wrapper in _COUNTED:
-        wrapper.counts = LaunchCounts()
 
 def panel_route(m: int, w: int, dtype, config: LUConfig, device="cuda") -> str:
     """Which implementation factors an (m, w) panel of ``dtype`` on
@@ -232,11 +224,6 @@ def _plan(cplx, m, w, size, ofs, block, cluster, index):
     fn = ("rf_panel_lu" if ofs is None else "rf_offset_panel_lu") + ("_c_plan" if cplx else "_plan")
     return _call_plan("panel_lu_c64" if cplx else "panel_lu", fn, m, w, size, ofs or 0, block,
                       cluster, index)
-
-
-def _device_index(device):
-    dev = torch.device("cuda") if device is None else torch.device(device)
-    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def _plan_dict(plan) -> dict:

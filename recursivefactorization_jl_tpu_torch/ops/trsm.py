@@ -9,6 +9,14 @@ packages' numbers stay comparable: recursive block triangular inversion
 bottoming out in a short substitution loop (n <= 32), and blocked
 substitution sweeps over inverted diagonal blocks for large triangles.
 Every product runs with TF32 off.
+
+An inverse-based solve errs by about ``|T^-1| |T| |X| eps``, a
+substitution by ``|T| |X| eps``.  After partial pivoting ``|L| <= 1`` and
+the two agree; without pivoting the multipliers, and with them the
+inverse of a block of ``L``, grow without bound (the RBT solver's
+transformed matrices: multipliers of 10^3 and more at n >= 512).  So the
+pivot-free paths take :func:`substitute` instead, ``xTRSM`` through
+``torch.linalg.solve_triangular``.
 """
 
 from __future__ import annotations
@@ -214,3 +222,12 @@ def solve_upper(U: torch.Tensor, B: torch.Tensor, block: int = 128):
 def solve_unit_upper(U: torch.Tensor, B: torch.Tensor, block: int = 128):
     """Solve ``triu(U, unit diag) @ X = B``."""
     return _backward(U, B, block, unit_upper_inverse, False, True)
+
+
+@full_matmul_precision()
+def substitute(T: torch.Tensor, B: torch.Tensor, *, upper: bool, unit: bool = False):
+    """Solve ``T @ X = B`` for the lower (``upper=False``) or upper
+    triangle of ``T``, with a unit diagonal where ``unit``, by substitution
+    (``xTRSM``); ``B`` is a matrix.  The pivot-free paths' solve (module
+    docstring)."""
+    return torch.linalg.solve_triangular(T, B, upper=upper, unitriangular=unit)

@@ -28,7 +28,9 @@ own pool, entry and closed loop (``bench_port/harness.py``), one process:
    plan the cell took; and per call the chain launches that took the
    look-ahead and the mbarrier exchange (``.counts.lookahead_chain_launches``)
    and those that took the previous block's delayed pass at load while its
-   far part ran beside them (``.counts.carried_update_launches``);
+   far part ran beside them (``.counts.carried_update_launches``); in the
+   RBT cell also the butterfly transform's launches by (dtype, n) and its
+   tensor-code transforms per call (``butterfly_mul_cuda.counts``);
 5. ``off`` again: recaptured with the recorder off, one more untraced
    window (the two ``off`` windows bracket the others).
 
@@ -57,6 +59,7 @@ sys.path.insert(0, str(ROOT))
 from bench_port import harness, record  # noqa: E402
 from bench_port.traffic import Pool, Traffic  # noqa: E402
 from recursivefactorization_jl_tpu_torch.ops import panel as panel_mod  # noqa: E402
+from recursivefactorization_jl_tpu_torch.ops.butterfly import butterfly_mul_cuda  # noqa: E402
 from recursivefactorization_jl_tpu_torch.utils import graphs, profiling  # noqa: E402
 
 READERS = ("copy_ms", "outside_panel_ms", "panel_ms", "batched_kernel_ms",
@@ -64,6 +67,11 @@ READERS = ("copy_ms", "outside_panel_ms", "panel_ms", "batched_kernel_ms",
 # idle gaps shorter than this are counted, not listed one by one
 GAP_NS = 50_000
 STEPS = ("blocked.schur", "blocked.trsm", "blocked.laswp")
+RBT_STEPS = ("rbt.transform", "rbt.factor", "rbt.apply", "rbt.refine")
+# the program kinds of each entry's call
+KINDS = {"lu_solve": ("lu_factor", "lu_solve"),
+         "batched_solve": ("batched_lu_factor", "batched_lu_solve"),
+         "rbt_solve": ("butterfly_workspace", "butterfly_factor", "butterfly_factor_solve")}
 # the port's wrappers of the kernels that run panel_chain_kernel
 CHAIN_WRAPPERS = ("panel_factor_cuda", "offset_panel_factor_cuda", "panel_factor_c64_cuda",
                   "offset_panel_factor_c64_cuda", "panel_factor_shadow_cuda",
@@ -89,6 +97,15 @@ def chain_count(attr) -> int:
 
 
 COUNTERS = ("lookahead_chain_launches", "carried_update_launches")
+
+
+def transform_counts() -> dict:
+    """The butterfly transform's counts so far: launches by
+    ``"<dtype>_n<n>"`` and ``tensor_transforms``."""
+    counts = butterfly_mul_cuda.counts
+    out = {f"{dtype}_n{n}": k for (dtype, n), k in counts.launches.items()}
+    out["tensor_transforms"] = counts.tensor_transforms
+    return out
 
 
 def card_line() -> str:
@@ -217,7 +234,8 @@ def launched_by_span(entry, traffic, pool, device, calls=3) -> dict:
     a replay's time goes too, with no device clock to line up.  Returns
     ms per call: {"by_span": {span: {"panel"|"copy"|"other": ms}},
     "top_ops": {operation: {span: ms}}}, the chain launches per call by plan
-    ("chains") and the chain launch counters per call ("counters")."""
+    ("chains"), the chain launch counters per call ("counters") and the
+    butterfly transform's counts per call ("transforms")."""
     from torch.profiler import ProfilerActivity, profile
 
     metrics = harness.BENCH_DIR / "metrics"
@@ -227,6 +245,7 @@ def launched_by_span(entry, traffic, pool, device, calls=3) -> dict:
     torch.cuda.synchronize(device)
     chains0 = chain_launches()
     counts0 = {c: chain_count(c) for c in COUNTERS}
+    transforms0 = transform_counts()
     with profiling.recording() as rec:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -248,8 +267,9 @@ def launched_by_span(entry, traffic, pool, device, calls=3) -> dict:
     chains = {k: (v - chains0.get(k, 0)) / calls for k, v in chain_launches().items()
               if v > chains0.get(k, 0)}
     counters = {c: (chain_count(c) - counts0[c]) / calls for c in COUNTERS}
+    transforms = {k: (v - transforms0.get(k, 0)) / calls for k, v in transform_counts().items()}
     return {"by_span": dict(sorted(by_span.items())), "top_ops": dict(top), "chains": chains,
-            "counters": counters}
+            "counters": counters, "transforms": transforms}
 
 
 def idle_by_launch(prof, spans, calls) -> dict:
@@ -303,8 +323,7 @@ def run_cell(cell_name, seed, seconds, device, n=None):
     traffic = Traffic(cell, seed)
     pool = Pool(traffic, config, device)
     trace_s = min(seconds, cell["trace_seconds"])
-    kinds = ("lu_factor", "lu_solve") if cell["entry"] == "lu_solve" else (
-        "batched_lu_factor", "batched_lu_solve")
+    kinds = KINDS[cell["entry"]]
     out = {"cell": cell_name, "seed": seed, "card": card_line() if cuda else "cpu",
            "seconds": seconds, "trace_seconds": trace_s}
 
@@ -385,6 +404,11 @@ def run_cell(cell_name, seed, seconds, device, n=None):
         for name in STEPS:
             derived[name.split(".")[1] + "_ms"] = steps.get(name, 0.0)
         derived["solve_ms"] = derived["lu_solve.replay_ms"]
+    if cell["entry"] == "rbt_solve":
+        steps = {**derived["butterfly_factor.program_steps"],
+                 **derived["butterfly_factor_solve.program_steps"]}
+        for name in RBT_STEPS:
+            derived[name.replace(".", "_") + "_ms"] = steps.get(name, 0.0)
     out["derived"] = derived
 
     if traced_on is not None:
@@ -420,6 +444,7 @@ def run_cell(cell_name, seed, seconds, device, n=None):
         out["launched_top_ops"] = launched["top_ops"]
         out["chain_launches_per_call_by_plan"] = launched["chains"]
         out["chain_counters_per_call"] = launched["counters"]
+        out["transform_counts_per_call"] = launched["transforms"]
         if cell["entry"] == "lu_solve":
             by = launched["by_span"]
             steps = sum(sum(by.get(f"lu_factor:{k}", {}).values()) for k in STEPS)

@@ -2,7 +2,9 @@
 the JAX package's: every function on the same numpy inputs and the
 JAX-generated butterfly values, the implicit applies against the dense
 U and V, padding, the Wilkinson accuracy gate, refinement, the handover
-of a workspace, and the port's own seeded generator."""
+of a workspace, and the port's own seeded generator.  Then the port's own
+factor / solve split against ``butterfly_solve``, the transform's counters
+and the RBT spans."""
 
 import numpy as np
 import pytest
@@ -14,7 +16,9 @@ import recursivefactorization_jl_tpu as rf
 from recursivefactorization_jl_tpu.models import butterfly as jbf
 import recursivefactorization_jl_tpu_torch as rt
 from recursivefactorization_jl_tpu_torch.models import butterfly as tbf
-from recursivefactorization_jl_tpu_torch.ops.panel import panel_factor_cuda
+from recursivefactorization_jl_tpu_torch.ops.butterfly import ButterflyCounts, butterfly_mul_cuda
+from recursivefactorization_jl_tpu_torch.ops.panel import panel_factor_cuda, reset_counts
+from recursivefactorization_jl_tpu_torch.utils import profiling
 from test_torch_common import jx, tc, to_np
 
 torch.set_num_threads(1)
@@ -198,3 +202,108 @@ def test_workspace_checks_and_device_rule(monkeypatch):
         rt.butterfly_workspace(np.eye(4), np.ones(4))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         rt.butterfly_from_numpy(np.eye(4), np.ones(4), np.ones(16), 4)
+
+
+# ---- the factor / solve split, its counters and spans --------------------
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("refine", [0, 2])
+@pytest.mark.parametrize("n", [96, 130, 128])
+def test_factor_then_solve_equals_butterfly_solve_bitwise(n, refine, dtype):
+    """``butterfly_factor`` + ``butterfly_factor_solve`` of ``ws.b`` (and of
+    the unpadded b) give ``butterfly_solve``'s solution and info bit for bit;
+    the factorization is the pivot-free LU of ``butterfly_mul(A, uv)``,
+    with the identity for ``ipiv``."""
+    rng = np.random.default_rng(2500 + n)
+    A = (rng.random((n, n)) - 0.5).astype(dtype)
+    b = (rng.random(n) - 0.5).astype(dtype)
+    ws = rt.butterfly_workspace(A, b, device="cpu")
+    x, info = rt.butterfly_solve(ws, refine=refine, return_info=True)
+    F = rt.butterfly_factor(ws)
+    assert isinstance(F, rt.BFactor) and F.n == n and F.A is ws.A and F.uv is ws.uv
+    np_ = n + (-n) % 4
+    assert F.factors.shape == (np_, np_)
+    assert torch.equal(F.ipiv, torch.arange(np_, dtype=F.ipiv.dtype))
+    want, _, _ = rt.lu_factor(tbf.butterfly_mul(ws.A, ws.uv), pivot=False, device="cpu")
+    assert torch.equal(F.factors, want)
+    x2, info2 = rt.butterfly_factor_solve(F, ws.b, refine=refine, return_info=True)
+    assert torch.equal(x2, x) and torch.equal(info2, info) and x2.shape == (n,)
+    assert torch.equal(rt.butterfly_factor_solve(F, b, refine=refine), x)
+
+
+def test_one_factorization_solves_three_right_hand_sides():
+    """A kept factorization solves a vector, a matrix of two columns and
+    another vector (given unpadded), each bit for bit a fresh
+    ``butterfly_solve`` of its own workspace; wrong row counts raise."""
+    n = 70
+    rng = np.random.default_rng(25)
+    A = rng.random((n, n)) - 0.5
+    F = rt.butterfly_factor(rt.butterfly_workspace(A, np.zeros(n), device="cpu"))
+    for rhs in (rng.random(n), rng.random((n, 2)), rng.random(n)):
+        x = rt.butterfly_factor_solve(F, rhs, refine=1)
+        fresh = rt.butterfly_solve(rt.butterfly_workspace(A, rhs, device="cpu"), refine=1)
+        assert x.shape == rhs.shape and torch.equal(x, fresh)
+    with pytest.raises(ValueError, match="rows"):
+        rt.butterfly_factor_solve(F, np.ones(n + 1))
+
+
+def test_transform_counters_zero_and_count():
+    """``butterfly_mul_cuda.counts``: the CPU transforms count as tensor
+    transforms (one per factor or solve), no launch; ``reset_counts`` of the
+    panel layer zeroes them with the panel wrappers'."""
+    reset_counts()
+    counts = butterfly_mul_cuda.counts
+    assert counts == ButterflyCounts() and counts.launches == {}
+    ws = rt.butterfly_workspace(np.eye(12) * 3, np.ones(12), device="cpu")
+    F = rt.butterfly_factor(ws)
+    rt.butterfly_factor_solve(F, ws.b, refine=2)
+    assert butterfly_mul_cuda.counts.tensor_transforms == 1
+    rt.butterfly_solve(ws)
+    tbf.butterfly_mul(ws.A, ws.uv)
+    assert butterfly_mul_cuda.counts.tensor_transforms == 3
+    assert butterfly_mul_cuda.counts.launches == {}
+    reset_counts()
+    assert butterfly_mul_cuda.counts == ButterflyCounts()
+    with pytest.raises(ValueError, match="CUDA float32/float64"):
+        butterfly_mul_cuda(ws.A, ws.uv)
+
+
+def test_one_reset_zeroes_the_transform_and_the_panel_counts():
+    """The counts registry (``ops._counts``) is shared: the panel layer's
+    ``reset_counts`` is its, and zeroes both kinds, each to its own."""
+    from recursivefactorization_jl_tpu_torch.ops import _counts
+    from recursivefactorization_jl_tpu_torch.ops import panel as panel_mod
+
+    assert panel_mod.reset_counts is _counts.reset_counts
+    butterfly_mul_cuda.counts.tensor_transforms = 3
+    butterfly_mul_cuda.counts.launches[("float32", 4096)] = 2
+    panel_factor_cuda.counts.launches = 5
+    _counts.reset_counts()
+    assert butterfly_mul_cuda.counts == ButterflyCounts()
+    assert panel_factor_cuda.counts == panel_mod.LaunchCounts()
+
+
+def test_the_rbt_spans_lie_inside_their_programs():
+    """``rbt.transform`` and ``rbt.factor`` inside ``butterfly_factor``,
+    ``rbt.apply`` and one ``rbt.refine`` a step inside
+    ``butterfly_factor_solve``; ``butterfly_solve`` holds all four."""
+    ws = rt.butterfly_workspace(np.eye(16) * 2, np.ones(16), device="cpu")
+    with profiling.recording() as rec:
+        F = rt.butterfly_factor(ws)
+        rt.butterfly_factor_solve(F, ws.b, refine=2)
+        rt.butterfly_solve(ws, refine=1)
+    spans = rec.collect()
+    roots = {s.name: s for s in spans if s.parent is None}
+    assert set(roots) == {"butterfly_factor", "butterfly_factor_solve", "butterfly_solve"}
+
+    def children(root):
+        return [s.name for s in spans if s.parent == roots[root].id]
+
+    assert children("butterfly_factor") == ["rbt.transform", "rbt.factor"]
+    assert children("butterfly_factor_solve") == ["rbt.apply", "rbt.refine", "rbt.refine"]
+    assert children("butterfly_solve") == ["rbt.transform", "rbt.factor", "rbt.apply",
+                                           "rbt.refine"]
+    (factor,) = [s for s in spans if s.name == "rbt.factor" and s.call == roots[
+        "butterfly_factor"].id]
+    assert [s.name for s in spans if s.parent == factor.id] == ["lu_factor_donated"]

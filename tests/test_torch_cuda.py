@@ -16,7 +16,9 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 import recursivefactorization_jl_tpu_torch as rt
+from recursivefactorization_jl_tpu_torch.models import butterfly as rbt_mod
 from recursivefactorization_jl_tpu_torch.ops import batched_kernel as bk
+from recursivefactorization_jl_tpu_torch.ops.butterfly import butterfly_mul_cuda
 from recursivefactorization_jl_tpu_torch.ops.panel import (
     bf16x3_plan,
     bf16x3_update_plan,
@@ -34,6 +36,7 @@ from recursivefactorization_jl_tpu_torch.ops.panel import (
     panel_factor_shadow_cuda,
     panel_plan,
     panel_update_bf16x3_cuda,
+    reset_counts,
 )
 from recursivefactorization_jl_tpu_torch.ops.schur import schur_product
 from recursivefactorization_jl_tpu_torch.ops.unblocked import (
@@ -1283,6 +1286,33 @@ def test_butterfly_values_default_to_the_card():
     ws = rt.butterfly_workspace(np.eye(64), np.ones(64), uv=uv)
     assert ws.uv.is_cuda and torch.equal(ws.uv, uv)
     assert micro_max_cuda() == PANEL_MICRO_MAX
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,offset", [(96, 0), (132, 0), (136, 0), (1536, 0), (4096, 0),
+                                      (96, 1)])
+def test_butterfly_kernel_bitwise_equals_the_tensor_code(dtype, n, offset):
+    """csrc/butterfly.cu against ``butterfly_mul``'s tensor code on the card,
+    bit for bit: n = 96 (q = 24: 16-byte accesses), 132 (q = 33: one
+    element), 136 (q = 34: two floats), 1536, 4096, and a matrix one
+    element off its allocation's alignment (one element an access); the
+    launch counted by (dtype, n), no tensor transform."""
+    need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(2500000000 + n + offset)
+    buf = torch.rand(n * n + offset, generator=g, device="cuda", dtype=dtype) - 0.5
+    A = buf[offset:].view(n, n)
+    uv = rt.generate_butterfly_values(n, dtype=dtype)
+    reset_counts()
+    got, width = butterfly_mul_cuda(A, uv, width=True)
+    want = rbt_mod._butterfly_mul_tensor(A, uv)
+    torch.cuda.synchronize()
+    q, vec = n // 4, 16 // A.element_size()
+    expect = 1 if offset else next(v for v in (vec, 2, 1) if q % v == 0)
+    assert width == expect
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(rt.butterfly_mul(A, uv)), _bits(want))
+    counts = butterfly_mul_cuda.counts
+    assert counts.launches == {(str(dtype)[6:], n): 2} and counts.tensor_transforms == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -2830,6 +2860,64 @@ def test_captured_rbt_replays_bitwise_equal_eager(no_programs, dtype, refine, nr
     if dtype == torch.float64 and nrhs is None:
         r = (A.double() @ eager[0][3][:n].double() - b.double()).abs().max()
         assert float(r) <= 1e-10
+
+
+def _uniform_system(n, dtype, seed):
+    """HPL's matrix and right-hand side on the card: uniform on [-0.5, 0.5)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    A = torch.rand(n, n, generator=g, device="cuda", dtype=dtype) - 0.5
+    return A, torch.rand(n, generator=g, device="cuda", dtype=dtype) - 0.5
+
+
+def _rbt_call(A, b, refine):
+    ws = rt.butterfly_workspace(A, b)
+    F = rt.butterfly_factor(ws)
+    return ws, F, rt.butterfly_factor_solve(F, ws.b, refine=refine)
+
+
+def test_warmed_rbt_factor_and_solve_at_4096_replay_bitwise_equal_eager(no_programs):
+    """The benchmark's RBT call at n = 4096 in float32 (workspace, factor,
+    solve with one refinement step): captured by ``graphs.capturing()``,
+    three programs, each replay bit for bit the eager call on two
+    matrices, and the eager call bit for bit ``butterfly_solve``."""
+    n = 4096
+    systems = [_uniform_system(n, torch.float32, s) for s in (2500000101, 2500000102)]
+    eager = []
+    for A, b in systems:
+        ws, F, x = _rbt_call(A, b, 1)
+        eager.append((F.factors, F.ipiv, F.info, x))
+        xs, info = rt.butterfly_solve(ws, refine=1, return_info=True)
+        assert _same_results([xs, info], [x, F.info])
+    with graphs.capturing():
+        _rbt_call(*systems[0], 1)
+    assert sorted(k[0] for k in graphs.programs()) == [
+        "butterfly_factor", "butterfly_factor_solve", "butterfly_workspace"]
+    r0 = _replays()
+    for _ in range(2):
+        for (A, b), want in zip(systems, eager):
+            _, F, x = _rbt_call(A, b, 1)
+            assert _same_results([F.factors, F.ipiv, F.info, x], want)
+    assert _replays() - r0 == 12
+    assert int(eager[0][2]) == 0 and torch.equal(
+        eager[0][1], torch.arange(n, dtype=eager[0][1].dtype, device="cuda"))
+
+
+def test_the_pivot_free_rbt_factor_at_4096_carries_as_the_pivoted_one_does(no_programs):
+    """The pivot-free factor of the RBT cell's key (float32, n = 4096) takes
+    the look-ahead and the mbarrier exchange on every chain launch and the
+    carry on every chain but each panel's first, as the pivoted key does
+    (``CARRIED_PER_CALL``); its transform is one kernel launch."""
+    A, b = _uniform_system(4096, torch.float32, 2500000201)
+    ws = rt.butterfly_workspace(A, b)
+    reset_counts()
+    rt.butterfly_factor(ws)
+    torch.cuda.synchronize()
+    c = panel_factor_cuda.counts
+    chains = sum(c.chain_launches_by_plan.values())
+    assert c.launches == 8 and chains > 0 and c.grid_route_launches == 0
+    assert c.lookahead_chain_launches == chains
+    assert c.carried_update_launches == CARRIED_PER_CALL[("float32", 4096)]
+    assert butterfly_mul_cuda.counts.launches == {("float32", 4096): 1}
 
 
 class _GroupMesh:
