@@ -5,16 +5,31 @@
         2. laswp: apply the panel's composed permutation to the other
            columns of rows s: as one row gather (dense) or by moving only
            the rows the panel's swaps touched (sparse)
-        3. TRSM:  U12 = L11^-1 @ A12 via triangular inverse + matmul
-           (without pivoting by substitution, ``trsm.substitute``: the
-           multipliers are not bounded by 1 there, and L11's inverse
-           grows with them)
-        4. Schur: A22 -= L21 @ U12
+        3. TRSM:  U12 = L11^-1 @ A12 by substitution (``trsm.substitute``,
+           cuBLAS's trsm on the card), with and without pivoting
+        4. Schur: A22 -= L21 @ U12, the subtraction in the product's
+           epilogue (``addmm_``) at full precision
 
-Each step is cut into spans with no gap between them
-(``utils/profiling.py``): ``blocked.panel`` (1, with the ipiv / info
-bookkeeping), ``blocked.laswp`` (2), ``blocked.trsm`` (3),
-``blocked.schur`` (4), and ``blocked.tail`` for the recursive tail's
+One panel of look-ahead.  Panel s + w reads only its own columns, the
+*strip* [s+w, s+2w), until its laswp.  So where the next step is a panel
+with columns past it (``lookahead(n, s, w, pivot, tail)``), steps 2-4 run
+on the strip first, on the current stream, and then on the rest (the
+columns left of the panel in 2, the *trailing block* [s+2w, n) in 2-4),
+which on the card runs on a side stream (the calling thread's own)
+beside panel s + w's kernels and is joined back before that panel's
+laswp (or before the function returns).  Its Schur update runs in row chunks of a partial wave each
+(``TRAILING_TILES``), so that the next panel's chain launches find their
+SMs.  Every element takes the same arithmetic as without the split (the
+products' kernels may differ with their shapes).  On the CPU the two
+parts run one after the other.  ``blocked_lu.counts.lookahead_panels``
+counts the panels that split (eager calls and captures, never replays;
+zeroed by ``ops._counts.reset_counts``).
+
+Each step is cut into spans (``utils/profiling.py``): ``blocked.panel``
+(1, with the ipiv / info bookkeeping), ``blocked.laswp`` (2),
+``blocked.trsm`` (3), ``blocked.schur`` (4) with no gap between them,
+``blocked.trailing`` around the trailing block's share of 2-4 (on the
+side stream on the card), and ``blocked.tail`` for the recursive tail's
 panel call.
 
 The schedule updates ``A`` in place, where the JAX package wrote new
@@ -44,15 +59,18 @@ Its spans: ``blocked.panel`` (1), ``blocked.trsm`` (2, with the mask),
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Tuple
+import threading
+from typing import Dict, Tuple
 
 import torch
 
 from ..utils.config import LUConfig, full_matmul_precision
 from ..utils.profiling import span
+from . import _counts
 from .panel import panel_factor, panel_factor_noswap
-from .schur import schur_product
+from .schur import schur_update_
 from .trsm import solve_unit_lower, substitute, unit_lower_inverse
 
 # Trailing blocks of at least this many bytes take the sparse laswp:
@@ -71,7 +89,8 @@ def _offset_info(info, local_info, s: int):
 
 def _laswp(A, perm, perm_local, piv_local, s: int, cols):
     """Apply panel-local row permutation ``perm_local`` to rows ``s:`` of
-    the column ranges ``cols`` of ``A`` and to the global ``perm``.
+    the column ranges ``cols`` of ``A`` and to the global ``perm`` (None:
+    left as it is).
 
     The sparse branch moves only the rows the panel's swaps touched: the
     first len(piv_local) rows and the pivot rows, with no host sync to
@@ -85,23 +104,89 @@ def _laswp(A, perm, perm_local, piv_local, s: int, cols):
         for c0, c1 in cols:
             if c1 > c0:
                 A[dst, c0:c1] = A[src, c0:c1]
-        perm[dst] = perm[src]
+        if perm is not None:
+            perm[dst] = perm[src]
     else:
         for c0, c1 in cols:
             if c1 > c0:
                 A[s:, c0:c1] = A[s:, c0:c1][pl]
-        perm[s:] = perm[s:][pl]
+        if perm is not None:
+            perm[s:] = perm[s:][pl]
 
 
-def _unit_lower_solve(L, B, pivot: bool, block):
-    """``tril(L, unit diag)^-1 @ B``: after partial pivoting by the
-    triangular inverse (whole, ``block`` None, or in a blocked sweep),
-    without pivoting by substitution (``trsm.substitute``)."""
-    if not pivot:
-        return substitute(L, B, upper=False, unit=True)
-    if block is None:
-        return unit_lower_inverse(L) @ B
-    return solve_unit_lower(L, B, block)
+@dataclasses.dataclass
+class BlockedCounts:
+    """``lookahead_panels``: panels whose trailing block's laswp, TRSM and
+    Schur update were split from the next panel's strip (on the card: ran
+    on the side stream beside the next panel's kernels)."""
+
+    lookahead_panels: int = 0
+
+
+def lookahead(n: int, s: int, w: int, pivot: bool, tail) -> bool:
+    """Does the panel at column ``s`` of an ``n``-column blocked schedule
+    with panels of ``w`` columns split its trailing block from the next
+    panel's strip?  Where the next step is a panel, not the recursive tail
+    (``tail``: the resolved ``tail_threshold``, taken with pivoting only),
+    and columns lie past that panel."""
+    nxt = s + w
+    if pivot and tail is not None and n - nxt <= tail:
+        return False
+    return nxt + w < n
+
+
+# The trailing block's Schur update runs in row chunks of at most about
+# this many 128 x 128 tiles of output.  On an H100 (132 SMs, 16 of them
+# held by the next panel's chain) 64 is under half a wave: no tile of a
+# chunk waits for an SM, and each chunk's end frees SMs for the chain
+# launch queued behind it.  116 tiles (every SM the chain leaves) measured
+# slower at n = 4096 and 8192, 32 faster at 8192 and slower at 4096
+# (PERF.md §6; ``lookahead_variants.py`` runs them in turns).
+TRAILING_TILES = 64
+
+
+def _schur_waves(C, L, U, prec):
+    """``schur_update_`` in row chunks of at most ``TRAILING_TILES``
+    tiles."""
+    rows = 128 * max(1, TRAILING_TILES // -(-C.shape[1] // 128))
+    for i in range(0, C.shape[0], rows):
+        schur_update_(C[i : i + rows], L[i : i + rows], U, prec)
+
+
+class _Side(threading.local):
+    """The side streams of the trailing blocks, one per host thread and
+    device (made once each): a thread that captures a program joins its
+    side stream to the capture, and another thread's calls must not queue
+    their work there, nor wait behind the first thread's."""
+
+    def __init__(self):
+        self.streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+    def get(self, device) -> "torch.cuda.Stream":
+        side = self.streams.get(device)
+        if side is None:
+            side = self.streams[device] = torch.cuda.Stream(device)
+        return side
+
+
+_SIDE = _Side()
+
+
+def _fork(A):
+    """The context of a trailing block's work: on the card this thread's
+    side stream of ``A``'s device after it waits for the current stream;
+    on the CPU none."""
+    if A.device.type != "cuda":
+        return contextlib.nullcontext()
+    side = _SIDE.get(A.device)
+    side.wait_stream(torch.cuda.current_stream(A.device))
+    return torch.cuda.stream(side)
+
+
+def _join(A) -> None:
+    """The current stream waits for this thread's trailing block work."""
+    if A.device.type == "cuda":
+        torch.cuda.current_stream(A.device).wait_stream(_SIDE.get(A.device))
 
 
 def blocked_lu(
@@ -131,7 +216,9 @@ def _blocked_lu(A, pivot, config):
             with span("blocked.laswp", A):
                 AR.copy_(AR[perm.long()])
         with span("blocked.trsm", A):
-            AR.copy_(_unit_lower_solve(A[:, :m], AR, pivot, config.trsm_block))
+            L = A[:, :m]
+            AR.copy_(solve_unit_lower(L, AR, config.trsm_block) if pivot
+                     else substitute(L, AR, upper=False, unit=True))
         return A, ipiv, perm, info
 
     minmn = n
@@ -144,6 +231,7 @@ def _blocked_lu(A, pivot, config):
     info = torch.zeros((), dtype=torch.int32, device=dev)
 
     s = 0
+    held = None  # what the trailing block's work reads, kept until the join
     while s < n:
         if pivot and s > 0 and tail is not None and n - s <= tail:
             # Recursive tail: factor the trailing block in one call, then
@@ -160,19 +248,39 @@ def _blocked_lu(A, pivot, config):
             _, piv_l, perm_l, linfo = panel_factor(A[s:, s : s + ws], pivot, config)
             ipiv[s : s + ws] = piv_l + s
             info = _offset_info(info, linfo, s)
+        if held is not None:
+            _join(A)  # before this panel's laswp touches the trailing block
+            held = None
+        # the strip: every column past the panel, or the next panel's own
+        ahead = lookahead(n, s, w, pivot, tail)
+        c1 = s + 2 * w if ahead else n
         if pivot:
             with span("blocked.laswp", A):
-                _laswp(A, perm, perm_l, piv_l, s, [(0, s), (s + ws, n)])
+                cols = [(s + ws, c1)] if ahead else [(0, s), (s + ws, n)]
+                _laswp(A, perm, perm_l, piv_l, s, cols)
+        L11, L21 = A[s : s + ws, s : s + ws], A[s + ws :, s : s + ws]
         if s + ws < n:
             with span("blocked.trsm", A):
-                A12 = A[s : s + ws, s + ws :]
-                A12.copy_(_unit_lower_solve(A[s : s + ws, s : s + ws], A12, pivot, None))
+                A12 = A[s : s + ws, s + ws : c1]
+                A12.copy_(substitute(L11, A12, upper=False, unit=True))
             with span("blocked.schur", A):
-                A[s + ws :, s + ws :].sub_(
-                    schur_product(A[s + ws :, s : s + ws], A12, prec).to(A.dtype)
-                )
+                schur_update_(A[s + ws :, s + ws : c1], L21, A12, prec)
+        if ahead:
+            with _fork(A), span("blocked.trailing", A):
+                if pivot:
+                    _laswp(A, None, perm_l, piv_l, s, [(0, s), (c1, n)])
+                A12 = A[s : s + ws, c1:]
+                A12.copy_(substitute(L11, A12, upper=False, unit=True))
+                _schur_waves(A[s + ws :, c1:], L21, A12, prec)
+            held = (piv_l, perm_l)
+            blocked_lu.counts.lookahead_panels += 1
         s += ws
+    if held is not None:
+        _join(A)
     return A, ipiv, perm, info
+
+
+_counts.counted(blocked_lu, BlockedCounts)
 
 
 def blocked_lu_physical(
@@ -230,7 +338,7 @@ def _blocked_lu_physical(A, pivot, config):
                 Lm = torch.where(keep, panel, torch.zeros((), dtype=A.dtype, device=dev))
                 U12 = unit_lower_inverse(Lm[rows]) @ A[rows, s + ws :]
             with span("blocked.schur", A):
-                A[:, s + ws :].sub_(schur_product(Lm, U12, prec).to(A.dtype))
+                schur_update_(A[:, s + ws :], Lm, U12, prec)
         s += ws
 
     with span("blocked.laswp", A):

@@ -54,3 +54,18 @@ def schur_update(
 ) -> torch.Tensor:
     """Return ``C - A @ B`` with the requested product precision."""
     return C - schur_product(A, B, precision).to(C.dtype)
+
+
+def schur_update_(
+    C: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    precision: str = "float32",
+) -> torch.Tensor:
+    """``C -= A @ B`` in place, and return ``C``: at full precision (every
+    dtype but float32 takes it) with the subtraction in the product's
+    epilogue (one ``addmm_``), in the reduced modes by
+    :func:`schur_product`."""
+    if C.dtype != torch.float32 or precision == "float32":
+        return C.addmm_(A, B, alpha=-1)
+    return C.sub_(schur_product(A, B, precision).to(C.dtype))

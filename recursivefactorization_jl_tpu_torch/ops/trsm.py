@@ -16,7 +16,10 @@ the two agree; without pivoting the multipliers, and with them the
 inverse of a block of ``L``, grow without bound (the RBT solver's
 transformed matrices: multipliers of 10^3 and more at n >= 512).  So the
 pivot-free paths take :func:`substitute` instead, ``xTRSM`` through
-``torch.linalg.solve_triangular``.
+``torch.linalg.solve_triangular``, and so does the blocked schedule's TRSM
+step with pivoting too: its solve for the next panel's columns waits on
+the critical path, where the inverse's base case costs some eighty small
+launches a panel (``ops/blocked.py``).
 """
 
 from __future__ import annotations

@@ -74,6 +74,7 @@ from ..models.lu import LU, normalize_pivot
 from ..models.solve import normalize_trans
 from ..ops.blocked import _laswp, _offset_info
 from ..ops.panel import offset_panel_factor, offset_panel_route
+from ..ops.schur import schur_update_
 from ..ops.trsm import (
     lower_inverse,
     triangle_inverses,
@@ -164,7 +165,7 @@ def _tp_factor(A_loc, group, D: int, me: int, w: int, pivot: bool, config: LUCon
                 A12 = A_loc[s : s + w, c0:]
                 A12.copy_(unit_lower_inverse(buf[sl : sl + w]) @ A12)
                 if s + w < N:
-                    A_loc[s + w :, c0:].sub_(buf[sl + w :] @ A12)
+                    schur_update_(A_loc[s + w :, c0:], buf[sl + w :], A12)
     return ipiv, perm, info
 
 

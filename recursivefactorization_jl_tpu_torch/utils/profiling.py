@@ -21,9 +21,10 @@ Spans.  The port opens a span at each layer boundary: the entry point
 ``graphs.replay`` / ``graphs.copy_out`` (``graphs.eager`` for a CUDA
 call whose key has no program, ``graphs.capture``), the blocked
 schedule's steps ``blocked.panel`` / ``blocked.laswp`` / ``blocked.trsm``
-/ ``blocked.schur`` / ``blocked.tail``, ``lu.clone``, the solve's
-``solve.permute`` / ``solve.forward`` / ``solve.backward`` and the
-batched ``batched.factor`` / ``batched.solve``.  Off (the default),
+/ ``blocked.schur`` / ``blocked.trailing`` / ``blocked.tail``,
+``lu.clone``, the solve's ``solve.permute`` / ``solve.forward`` /
+``solve.backward`` and the batched ``batched.factor`` /
+``batched.solve``.  Off (the default),
 :func:`span` tests one module variable and returns a shared no-op
 context.  Within :func:`recording` every span is kept in memory until
 :func:`collect`: its name, id, parent, the id of the entry-point call it
@@ -35,11 +36,11 @@ and exit, in ms from the call's first event.
 Inside a CUDA graph capture made while recording
 (``utils/graphs.py``) a span records its events as graph nodes
 (``external=True``) and no host time; it starts at the end event of the
-sibling span that closed just before it, so a parent's children
-partition it.  Every replay of that program records the events again,
-and the program's spans are read, as children of its ``graphs.replay``
-span, before its next replay (which waits for the previous one while
-recording) or at :func:`collect`.  A program captured while not
+sibling span that closed just before it on the same stream, so a
+parent's children on one stream partition it.  Every replay of that
+program records the events again, and the program's spans are read, as
+children of its ``graphs.replay`` span, before its next replay (which
+waits for the previous one while recording) or at :func:`collect`.  A program captured while not
 recording holds no such node: its replays give the host spans and the
 device times of the copies and of the replay as a whole only.  Outside
 captures the timing events are reused once read (the recorder reads the
@@ -456,11 +457,13 @@ class _Open:
                     self.index = len(template)
                     parent = up.index if up is not None and up.template is template else None
                     last = rec._local.last
-                    if last is not None and last[0] is template and last[1] == parent:
+                    stream = rec.stream(self.device)
+                    if (last is not None and last[0] is template and last[1] == parent
+                            and last[3] is stream):
                         self.ev0 = last[2]  # the end of the sibling just closed
                     else:
                         self.ev0 = torch.cuda.Event(enable_timing=True, external=True)
-                        self.ev0.record(rec.stream(self.device))
+                        self.ev0.record(stream)
                     rec._local.last = None
                     template.append([self.name, parent, self.ev0, None])
             else:
@@ -480,10 +483,11 @@ class _Open:
         rec = self.rec
         rec._stack().pop()
         if self.template is not None:
+            stream = rec.stream(self.device)
             end = torch.cuda.Event(enable_timing=True, external=True)
-            end.record(rec.stream(self.device))
+            end.record(stream)
             self.template[self.index][3] = end
-            rec._local.last = (self.template, self.template[self.index][1], end)
+            rec._local.last = (self.template, self.template[self.index][1], end, stream)
         elif self.ev0 is not None:
             end = rec.event(self.device)
             end.record(rec.stream(self.device))

@@ -28,11 +28,21 @@ own pool, entry and closed loop (``bench_port/harness.py``), one process:
    plan the cell took; and per call the chain launches that took the
    look-ahead and the mbarrier exchange (``.counts.lookahead_chain_launches``)
    and those that took the previous block's delayed pass at load while its
-   far part ran beside them (``.counts.carried_update_launches``); in the
+   far part ran beside them (``.counts.carried_update_launches``); the
+   blocked schedule's panels whose trailing block ran beside the next
+   panel (``blocked_lu.counts.lookahead_panels``, per call); in the
    RBT cell also the butterfly transform's launches by (dtype, n) and its
    tensor-code transforms per call (``butterfly_mul_cuda.counts``);
 5. ``off`` again: recaptured with the recorder off, one more untraced
    window (the two ``off`` windows bracket the others).
+
+The profiler window of 1 also gives ``chain_gaps``: from one panel's last
+``panel_chain_kernel`` to the next panel's first, by panel boundary
+(median over the window's whole calls; the chains of a call split by the
+panels' plans), the median gap between two chains of one panel and the chains'
+device ms per call; the spans of 3 give
+``trailing``: ``blocked.trailing``'s device ms per call and the share of
+it that overlapped a ``blocked.panel`` span (the next panel's kernels).
 
 Prints one JSON line per cell and writes it, with every span total, to
 ``<out>/<cell>.<seed>.json``.  Needs the card unless ``--device cpu`` (then
@@ -58,6 +68,8 @@ sys.path.insert(0, str(ROOT))
 
 from bench_port import harness, record  # noqa: E402
 from bench_port.traffic import Pool, Traffic  # noqa: E402
+from recursivefactorization_jl_tpu_torch import LUConfig  # noqa: E402
+from recursivefactorization_jl_tpu_torch.ops import blocked  # noqa: E402
 from recursivefactorization_jl_tpu_torch.ops import panel as panel_mod  # noqa: E402
 from recursivefactorization_jl_tpu_torch.ops.butterfly import butterfly_mul_cuda  # noqa: E402
 from recursivefactorization_jl_tpu_torch.utils import graphs, profiling  # noqa: E402
@@ -97,6 +109,86 @@ def chain_count(attr) -> int:
 
 
 COUNTERS = ("lookahead_chain_launches", "carried_update_launches")
+
+
+def lookahead_panels():
+    """The blocked schedule's look-ahead panels so far (None where the
+    port has no such count)."""
+    counts = getattr(blocked.blocked_lu, "counts", None)
+    return getattr(counts, "lookahead_panels", None)
+
+
+CHAIN = "panel_chain_kernel"
+
+
+def chain_sizes(n, dtype, device) -> list:
+    """The chain launches of each panel of a blocked lu at order n, by the
+    panels' plans at the default panel width."""
+    w = LUConfig().resolved_panel_width()
+    dt = getattr(torch, dtype)
+    return [panel_mod.panel_plan(n - s, min(w, n - s), dt, device=device)["blocks"]
+            for s in range(0, n, w)]
+
+
+def chain_gaps(run, sizes) -> dict:
+    """From each panel's last ``panel_chain_kernel`` to the next panel's
+    first in a traced window: the median µs at each panel boundary and
+    over all of them, the median µs between two chains of one panel, the
+    median ms from a call's first chain to its last (``span_ms``), and the
+    chains' device ms per call.  Each chain goes to the call whose
+    host window (its start to the end of its synchronise) holds its
+    midpoint; a call's chains are split into panels of ``sizes``, and a
+    call whose chains the profiler did not all record is left out.  None
+    but the counts where no call is whole."""
+    chain = sorted((op for op in run.ops if op.kind == "kernel" and CHAIN in op.name),
+                   key=lambda op: op.start_ns)
+    per_call = sum(sizes)
+    ends = [sum(sizes[: i + 1]) for i in range(len(sizes) - 1)]
+    by_boundary = [[] for _ in ends]
+    within, spans, whole, k = [], [], 0, 0
+    for call in run.calls:
+        ops = []
+        while k < len(chain) and (chain[k].start_ns + chain[k].end_ns) // 2 < call.done_ns:
+            if (chain[k].start_ns + chain[k].end_ns) // 2 >= call.start_ns:
+                ops.append(chain[k])
+            k += 1
+        if len(ops) != per_call:
+            continue
+        whole += 1
+        spans.append((ops[-1].end_ns - ops[0].start_ns) * 1e-6)
+        gaps = [(b.start_ns - a.end_ns) * 1e-3 for a, b in zip(ops, ops[1:])]
+        for i, e in enumerate(ends):
+            by_boundary[i].append(gaps[e - 1])
+        within += [g for e, g in enumerate(gaps, 1) if e not in ends]
+    out = {"chains": len(chain), "calls": len(run.calls), "whole_calls": whole}
+    if not whole:
+        return out
+    every = [g for gaps in by_boundary for g in gaps]
+    out.update(median_us=statistics.median(every) if every else None,
+               by_boundary_us=[statistics.median(g) for g in by_boundary],
+               within_panel_us=statistics.median(within) if within else None,
+               span_ms=statistics.median(spans),
+               chain_ms_per_call=sum(op.seconds for op in chain) * 1e3 / len(run.calls))
+    return out
+
+
+def trailing_overlap(spans, calls) -> dict:
+    """``blocked.trailing``'s device ms per call and the ms of it that
+    overlapped a ``blocked.panel`` span of the same parent."""
+    panels = {}
+    for sp in spans:
+        if sp.name == "blocked.panel" and sp.device_ms:
+            panels.setdefault(sp.parent, []).append(sp.device_ms)
+    total = beside = 0.0
+    for sp in spans:
+        if sp.name != "blocked.trailing" or not sp.device_ms:
+            continue
+        t0, t1 = sp.device_ms
+        total += t1 - t0
+        beside += sum(max(0.0, min(t1, p1) - max(t0, p0))
+                      for p0, p1 in panels.get(sp.parent, ()))
+    return {"ms_per_call": total / calls, "beside_panel_ms_per_call": beside / calls,
+            "beside_share": beside / total if total else None}
 
 
 def transform_counts() -> dict:
@@ -235,7 +327,9 @@ def launched_by_span(entry, traffic, pool, device, calls=3) -> dict:
     ms per call: {"by_span": {span: {"panel"|"copy"|"other": ms}},
     "top_ops": {operation: {span: ms}}}, the chain launches per call by plan
     ("chains"), the chain launch counters per call ("counters") and the
-    butterfly transform's counts per call ("transforms")."""
+    butterfly transform's counts per call ("transforms"); the counters
+    hold the blocked schedule's ``lookahead_panels`` too (None where the
+    port has no such count)."""
     from torch.profiler import ProfilerActivity, profile
 
     metrics = harness.BENCH_DIR / "metrics"
@@ -245,6 +339,7 @@ def launched_by_span(entry, traffic, pool, device, calls=3) -> dict:
     torch.cuda.synchronize(device)
     chains0 = chain_launches()
     counts0 = {c: chain_count(c) for c in COUNTERS}
+    ahead0 = lookahead_panels()
     transforms0 = transform_counts()
     with profiling.recording() as rec:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -267,6 +362,8 @@ def launched_by_span(entry, traffic, pool, device, calls=3) -> dict:
     chains = {k: (v - chains0.get(k, 0)) / calls for k, v in chain_launches().items()
               if v > chains0.get(k, 0)}
     counters = {c: (chain_count(c) - counts0[c]) / calls for c in COUNTERS}
+    ahead = lookahead_panels()
+    counters["lookahead_panels"] = None if ahead is None else (ahead - ahead0) / calls
     transforms = {k: (v - transforms0.get(k, 0)) / calls for k, v in transform_counts().items()}
     return {"by_span": dict(sorted(by_span.items())), "top_ops": dict(top), "chains": chains,
             "counters": counters, "transforms": transforms}
@@ -344,6 +441,8 @@ def run_cell(cell_name, seed, seconds, device, n=None):
     if cuda:
         traced = window(entry, traffic, pool, trace_s, device, dtype, kind, True, seed)
         out["traced_off"] = readings(traced)
+        if cell["entry"] in ("lu_solve", "rbt_solve"):
+            out["chain_gaps"] = chain_gaps(traced, chain_sizes(cell["n"], dtype, device))
     entry.release()
 
     # 2. the recorder on, the programs captured before it was: host spans
@@ -410,6 +509,7 @@ def run_cell(cell_name, seed, seconds, device, n=None):
         for name in RBT_STEPS:
             derived[name.replace(".", "_") + "_ms"] = steps.get(name, 0.0)
     out["derived"] = derived
+    out["trailing"] = trailing_overlap(spans, calls)
 
     if traced_on is not None:
         out["traced_on"] = readings(traced_on)

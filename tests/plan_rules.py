@@ -173,3 +173,40 @@ def lu_carried(dtype_name, n, w=WIDTH):
         b, C = AUTO_PLANS[dtype_name].get(m) or rule_plan(rule_of(dtype_name), m, w)
         total += carried_blocks(dtype_name, m, min(w, m), b, C)
     return total
+
+
+# ---- the blocked schedule's look-ahead: which panels split their trailing block
+#
+# ops/blocked.py `lookahead`: the panel at column s splits the columns past
+# the next panel (its trailing block) from that panel's own (the strip),
+# and on the card runs them beside the next panel's kernels, where the next
+# step is a panel, not the recursive tail (taken with pivoting only), and
+# columns lie past it.  ``lookahead_panels`` mirrors the count of one
+# blocked lu; ``LOOKAHEAD_PER_CALL`` pins it in the benchmark cells' keys.
+
+
+def lookahead(n, s, w=WIDTH, pivot=True, tail=None):
+    """Does the panel at column s of an n-column blocked lu split its
+    trailing block from the next panel's strip?"""
+    nxt = s + w
+    if pivot and tail is not None and n - nxt <= tail:
+        return False
+    return nxt + w < n
+
+
+def lookahead_panels(n, w=WIDTH, pivot=True, tail=None):
+    """The panels of one blocked lu of n columns that split their trailing
+    block (the panels before the recursive tail)."""
+    total = 0
+    for s in range(0, n, w):
+        if pivot and s > 0 and tail is not None and n - s <= tail:
+            break
+        total += lookahead(n, s, w, pivot, tail)
+    return total
+
+
+# per call in the cells' keys (panel width 512, no tail): the pivoted lu
+# ("float32", "float64"), RBT's pivot-free factor ("rbt_float32"); the
+# batched cell runs no blocked schedule
+LOOKAHEAD_PER_CALL = {("float32", 4096): 6, ("float32", 8192): 14, ("float64", 4096): 6,
+                      ("rbt_float32", 4096): 6, ("float32", 1536): 1, ("batched_float32", 64): 0}

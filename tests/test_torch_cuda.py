@@ -18,6 +18,7 @@ from torch.distributed.device_mesh import init_device_mesh
 import recursivefactorization_jl_tpu_torch as rt
 from recursivefactorization_jl_tpu_torch.models import butterfly as rbt_mod
 from recursivefactorization_jl_tpu_torch.ops import batched_kernel as bk
+from recursivefactorization_jl_tpu_torch.ops.blocked import blocked_lu
 from recursivefactorization_jl_tpu_torch.ops.butterfly import butterfly_mul_cuda
 from recursivefactorization_jl_tpu_torch.ops.panel import (
     bf16x3_plan,
@@ -50,7 +51,7 @@ from recursivefactorization_jl_tpu_torch.ops.unblocked import (
 from recursivefactorization_jl_tpu_torch.utils import graphs, profiling, warmup
 from recursivefactorization_jl_tpu_torch.utils.config import PANEL_MICRO_MAX
 from lookahead_cases import KINDS, lookahead_panel, next_block_panel
-from plan_rules import AUTO_PLANS, CARRIED_PER_CALL, WIDTH, carried_blocks
+from plan_rules import AUTO_PLANS, CARRIED_PER_CALL, LOOKAHEAD_PER_CALL, WIDTH, carried_blocks
 
 torch.set_num_threads(1)
 
@@ -2918,6 +2919,145 @@ def test_the_pivot_free_rbt_factor_at_4096_carries_as_the_pivoted_one_does(no_pr
     assert c.lookahead_chain_launches == chains
     assert c.carried_update_launches == CARRIED_PER_CALL[("float32", 4096)]
     assert butterfly_mul_cuda.counts.launches == {("float32", 4096): 1}
+
+
+def _scaled_residual(L, U, A):
+    """max |L U - A| / (n eps max(|L| |U|)) in float64: xGET01's form
+    against |L||U|, which a pivot-free factorization's growth does not
+    inflate (the gate is 20)."""
+    L, U = L.double(), U.double()
+    eps = torch.finfo(A.dtype).eps
+    r = (L @ U - A.double()).abs().max()
+    return float(r / (A.shape[0] * eps * (L.abs() @ U.abs()).max()))
+
+
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 4096), (torch.float32, 8192),
+                                     (torch.float64, 4096)])
+def test_lookahead_lu_replays_bitwise_twenty_times(no_programs, dtype, n):
+    """The race check of the blocked schedule's look-ahead (each panel's
+    trailing block on a side stream beside the next panel's kernels): the
+    eager lu of a cell's key splits ``LOOKAHEAD_PER_CALL`` panels and meets
+    the residual gate; after ``warmup`` 20 replays are bit for bit the eager
+    call."""
+    A, _ = _uniform_system(n, dtype, 2626000000 + n)
+    reset_counts()
+    eager = rt.lu(A, check=False)
+    torch.cuda.synchronize()
+    assert blocked_lu.counts.lookahead_panels == LOOKAHEAD_PER_CALL[(str(dtype)[6:], n)]
+    assert int(eager.info) == 0
+    assert _scaled_residual(eager.L, eager.U, A[eager.p.long()]) < 20
+    warmup.warmup(((n, n),), (dtype,), solve=False)
+    r0 = _replays()
+    for _ in range(20):
+        F = rt.lu(A, check=False)
+        torch.cuda.synchronize()
+        assert _same_results(_lu_outputs(F), _lu_outputs(eager))
+    assert _replays() - r0 == 20
+
+
+def test_lookahead_rbt_factor_replays_bitwise_twenty_times(no_programs):
+    """The same for RBT's pivot-free ``butterfly_factor`` at the cell's key
+    (float32, n = 4096): the strip and the trailing block substituted apart,
+    6 look-ahead panels a call, the factors of the transformed matrix under
+    the residual gate, 20 replays bit for bit the eager call."""
+    n = 4096
+    A, b = _uniform_system(n, torch.float32, 2626004097)
+    ws = rt.butterfly_workspace(A, b)
+    reset_counts()
+    eager = rt.butterfly_factor(ws)
+    torch.cuda.synchronize()
+    assert blocked_lu.counts.lookahead_panels == LOOKAHEAD_PER_CALL[("rbt_float32", n)]
+    assert int(eager.info) == 0
+    f = eager.factors
+    L = torch.tril(f, -1) + torch.eye(n, dtype=f.dtype, device=f.device)
+    assert _scaled_residual(L, torch.triu(f), rbt_mod.butterfly_mul(ws.A, ws.uv)) < 20
+    with graphs.capturing():
+        rt.butterfly_factor(ws)
+    r0 = _replays()
+    for _ in range(20):
+        F = rt.butterfly_factor(ws)
+        torch.cuda.synchronize()
+        assert _same_results([F.factors, F.ipiv, F.info], [eager.factors, eager.ipiv, eager.info])
+    assert _replays() - r0 == 20
+
+
+def test_lookahead_side_stream_is_each_threads_own(no_programs, monkeypatch):
+    """One thread captures the f32 lu key at 2048 while another runs eager
+    lu calls at 1536 on the same card: the capture stops at its first fork
+    to the side stream, inside the capture, until the other thread's two
+    calls are done.  Each thread has a side stream of its own, so both
+    finish, the eager calls are bit for bit the single-threaded call, and
+    the program's replays are bit for bit its key's eager call."""
+    import threading
+
+    from recursivefactorization_jl_tpu_torch.ops import blocked as blocked_mod
+
+    A, _ = _uniform_system(2048, torch.float32, 2626002048)
+    B, _ = _uniform_system(1536, torch.float32, 2626011536)
+    want_a = _lu_outputs(rt.lu(A, check=False))
+    want_b = _lu_outputs(rt.lu(B, check=False))
+    torch.cuda.synchronize()
+    forked, eager_done = threading.Event(), threading.Event()
+    fork = blocked_mod._fork
+
+    def fork_then_wait(M):
+        ctx = fork(M)  # the side stream has joined the capture
+        if torch.cuda.is_current_stream_capturing() and not forked.is_set():
+            forked.set()
+            assert eager_done.wait(300)
+        return ctx
+
+    monkeypatch.setattr(blocked_mod, "_fork", fork_then_wait)
+    errors, got_b = [], []
+
+    def capture():
+        try:
+            with graphs.capturing():
+                rt.lu(A, check=False)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+        finally:
+            forked.set()
+
+    def eager():
+        try:
+            assert forked.wait(300)
+            for _ in range(2):
+                got_b.append(_lu_outputs(rt.lu(B, check=False)))
+            torch.cuda.current_stream().synchronize()
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+        finally:
+            eager_done.set()
+
+    threads = [threading.Thread(target=capture), threading.Thread(target=eager)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert len(got_b) == 2 and all(_same_results(g, want_b) for g in got_b)
+    r0 = _replays()
+    for _ in range(3):
+        F = rt.lu(A, check=False)
+        torch.cuda.synchronize()
+        assert _same_results(_lu_outputs(F), want_a)
+    assert _replays() - r0 == 3
+
+
+def test_lookahead_panels_in_the_short_and_batched_keys(no_programs):
+    """The bypass cells: one look-ahead panel in the f32 lu at 1536 (panel 0
+    of three), none in the batched factor of 64 x 64 systems."""
+    A, _ = _uniform_system(1536, torch.float32, 2626001536)
+    reset_counts()
+    rt.lu(A, check=False)
+    torch.cuda.synchronize()
+    assert blocked_lu.counts.lookahead_panels == LOOKAHEAD_PER_CALL[("float32", 1536)]
+    reset_counts()
+    rt.batched_lu_factor(_card_matrix((100, 64, 64), torch.float32, 45))
+    torch.cuda.synchronize()
+    assert blocked_lu.counts.lookahead_panels == LOOKAHEAD_PER_CALL[("batched_float32", 64)]
 
 
 class _GroupMesh:

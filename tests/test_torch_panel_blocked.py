@@ -14,7 +14,7 @@ import torch
 import recursivefactorization_jl_tpu as rf
 from recursivefactorization_jl_tpu.ops.panel import panel_factor_pallas
 import recursivefactorization_jl_tpu_torch as rt
-from recursivefactorization_jl_tpu_torch.ops import _kernels, blocked
+from recursivefactorization_jl_tpu_torch.ops import _counts, _kernels, blocked
 from recursivefactorization_jl_tpu_torch.ops.blocked import _offset_info, blocked_lu
 from recursivefactorization_jl_tpu_torch.ops.panel import (
     panel_factor,
@@ -22,6 +22,7 @@ from recursivefactorization_jl_tpu_torch.ops.panel import (
     panel_route,
 )
 from recursivefactorization_jl_tpu_torch.ops.unblocked import unblocked_lu
+from plan_rules import LOOKAHEAD_PER_CALL, lookahead_panels
 from test_torch_common import (
     assert_pivots_equal,
     jx,
@@ -84,6 +85,123 @@ def test_blocked_matches_jax_blocked(pivot, tail):
     gate = residual_gate(A, np.float32, pivot)
     np.testing.assert_allclose(to_np(port[0]), np.asarray(ref[0]), atol=gate)
     assert lu_residual(A, port[0], port[2]) < gate
+
+
+@pytest.mark.parametrize("n", [96, 160])
+@pytest.mark.parametrize("pivot,tail", [(True, None), (False, None), (True, 64)])
+def test_lookahead_schedule_matches_jax_blocked(n, pivot, tail):
+    """The split schedule (each look-ahead panel's strip, then its trailing
+    block), 32-wide panels, against the JAX blocked schedule with the same
+    widths: at n = 96 panel 0 splits and the last two keep the whole
+    order (with the tail, taken at column 32, none splits); at n = 160
+    panels 0-2 split, or with the tail (taken at column 96) panels 0-1, the
+    panel before the tail keeping the whole order."""
+    A = _matrix((n, n), pivot)
+    cfg = dataclasses.replace(CPU, tail_threshold=tail)
+    _counts.reset_counts()
+    port = blocked_lu(tc(A, np.float32), pivot, cfg)
+    assert blocked_lu.counts.lookahead_panels == lookahead_panels(n, 32, pivot, tail)
+    assert lookahead_panels(n, 32, pivot, tail) == {96: 1, 160: 3}[n] - (tail is not None)
+    jcfg = rf.LUConfig(backend="pallas", panel_width=32, small_threshold=32,
+                       tail_threshold=tail, schur_precision="float32")
+    ref = rf.lu_factor_p(jx(A, np.float32), pivot, config=jcfg)
+    assert_pivots_equal(port, ref)
+    gate = residual_gate(A, np.float32, pivot)
+    np.testing.assert_allclose(to_np(port[0]), np.asarray(ref[0]), atol=gate)
+    assert lu_residual(A, port[0], port[2]) < gate
+
+
+@pytest.mark.parametrize("n,w", [(16, 16), (32, 16), (48, 16), (49, 16), (100, 16),
+                                 (200, 32), (130, 48), (96, 96), (97, 32)])
+@pytest.mark.parametrize("pivot,tail", [(True, None), (False, None), (True, 40),
+                                        (False, 40), (True, 64)])
+def test_lookahead_panels_follow_the_rule(n, w, pivot, tail):
+    """``lookahead_panels`` counts, per call, what tests/plan_rules.py's rule
+    says over n, w, pivoting and the tail (a pivot-free call never takes
+    the tail); ``reset_counts`` zeroes it, and a second call adds as many."""
+    A = _matrix((n, n), pivot, dtype=np.float64)
+    cfg = rt.LUConfig(panel_width=w, small_threshold=8, tail_threshold=tail)
+    _counts.reset_counts()
+    assert blocked_lu.counts.lookahead_panels == 0
+    f, _, perm, _ = blocked_lu(tc(A, np.float64), pivot, cfg)
+    want = lookahead_panels(n, w, pivot, tail)
+    assert blocked_lu.counts.lookahead_panels == want
+    blocked_lu(tc(A, np.float64), pivot, cfg)
+    assert blocked_lu.counts.lookahead_panels == 2 * want
+    assert lu_residual(A, f, perm) < residual_gate(A, np.float64, pivot)
+
+
+def test_lookahead_counts_in_the_cells_keys():
+    """The pinned per-call counts of the benchmark cells' keys (w 512, no
+    tail) are the rule's; the batched cell runs no blocked schedule."""
+    for (kind, n), want in LOOKAHEAD_PER_CALL.items():
+        got = 0 if kind.startswith("batched") else lookahead_panels(
+            n, pivot=not kind.startswith("rbt"))
+        assert got == want, (kind, n)
+
+
+@pytest.mark.parametrize("pivot", [False, True])
+def test_the_strip_and_the_trailing_block_are_substituted_apart(pivot, monkeypatch):
+    """With and without pivoting each look-ahead panel substitutes L11 into
+    its strip (the next panel's w columns) and then into its trailing
+    block, apart; the last two panels into all their columns at once.  The
+    factors are those of the unsplit order to the residual gate's scale,
+    the pivots and info the same."""
+    n, w = 160, 32
+    A = _matrix((n, n), pivot)
+    shapes = []
+    substitute = blocked.substitute
+
+    def spy(T, B, **kw):
+        shapes.append(tuple(B.shape))
+        return substitute(T, B, **kw)
+
+    monkeypatch.setattr(blocked, "substitute", spy)
+    split = blocked_lu(tc(A, np.float32), pivot, CPU)
+    assert shapes == [(w, w), (w, n - 2 * w), (w, w), (w, n - 3 * w), (w, w), (w, n - 4 * w),
+                      (w, w)]
+    monkeypatch.setattr(blocked, "lookahead", lambda *a: False)
+    shapes.clear()
+    whole = blocked_lu(tc(A, np.float32), pivot, CPU)
+    assert shapes == [(w, n - w), (w, n - 2 * w), (w, n - 3 * w), (w, n - 4 * w)]
+    gate = residual_gate(A, np.float32, pivot)
+    np.testing.assert_allclose(to_np(split[0]), to_np(whole[0]), atol=gate)
+    for a, b in zip(split[1:], whole[1:]):
+        assert torch.equal(a, b)
+
+
+def test_the_trailing_schur_update_runs_in_row_chunks(monkeypatch):
+    """The trailing block's Schur update goes in row chunks of at most
+    ``TRAILING_TILES`` 128 x 128 tiles; at one tile a chunk is 128 rows, and
+    the factors are those of one chunk to the residual gate's scale."""
+    n = 400
+    A = _matrix((n, n), True, dtype=np.float64)
+    cfg = rt.LUConfig(panel_width=64, small_threshold=64)
+    whole = blocked_lu(tc(A, np.float64), True, cfg)
+    rows = []
+    schur = blocked.schur_update_
+
+    def spy(C, L, U, prec):
+        rows.append(C.shape[0])
+        return schur(C, L, U, prec)
+
+    monkeypatch.setattr(blocked, "schur_update_", spy)
+    monkeypatch.setattr(blocked, "TRAILING_TILES", 1)
+    chunked = blocked_lu(tc(A, np.float64), True, cfg)
+    # each look-ahead panel at s: its strip's update, then 128-row chunks of n - s - 64 rows
+    want = []
+    for s in range(0, n, 64):
+        m = n - s - 64
+        if m <= 0:
+            break
+        want.append(m)
+        if s + 128 < n:
+            want += [min(128, m - i) for i in range(0, m, 128)]
+    assert rows == want
+    gate = residual_gate(A, np.float64, True)
+    np.testing.assert_allclose(to_np(chunked[0]), to_np(whole[0]), atol=gate)
+    for a, b in zip(chunked[1:], whole[1:]):
+        assert torch.equal(a, b)
 
 
 def test_blocked_fat_matches_jax():

@@ -56,7 +56,9 @@ def test_lu_and_lu_solve_spans_name_each_step_under_one_call_each():
     factor, solve = _root(spans, "lu_factor"), _root(spans, "lu_solve")
     assert factor.call == factor.id and solve.call == solve.id and factor.call != solve.call
     step = ["blocked.panel", "blocked.laswp", "blocked.trsm", "blocked.schur"]
-    assert _children(spans, factor) == ["lu.clone"] + step * 3 + step[:2]
+    # 4 panels of 8: the first two run their trailing block beside the next
+    assert _children(spans, factor) == (
+        ["lu.clone"] + (step + ["blocked.trailing"]) * 2 + step + step[:2])
     assert _children(spans, solve) == ["solve.permute", "solve.forward", "solve.backward"]
     assert {s.call for s in spans} == {factor.call, solve.call}
     by_id = {s.id: s for s in spans}
@@ -75,8 +77,9 @@ def test_the_tail_and_the_physical_schedule_have_their_spans():
                                               tail_threshold=16), device="cpu")
     spans = rec.collect()
     step = ["blocked.panel", "blocked.laswp", "blocked.trsm", "blocked.schur"]
+    # the panel before the tail has no next panel: no trailing block of its own
     assert _children(spans, _root(spans, "lu_factor")) == (
-        ["lu.clone"] + step * 2 + ["blocked.tail", "blocked.laswp"])
+        ["lu.clone"] + step + ["blocked.trailing"] + step + ["blocked.tail", "blocked.laswp"])
 
     with profiling.recording() as rec:
         rt.lu(_matrix(32), config=rt.LUConfig(panel_width=8, small_threshold=8,
@@ -269,3 +272,68 @@ def test_stats_count_replays_captures_and_eager_calls(monkeypatch):
     assert graphs.stats()["replays"] == before["replays"] + 2
     graphs.clear()
     assert graphs.stats()["replays"] == before["replays"] + 2
+
+
+def _span_breakdown():
+    import importlib
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("span_breakdown")
+
+
+def test_the_chain_gaps_split_each_call_by_the_panels_plans():
+    """``span_breakdown.chain_gaps``: a window's ``panel_chain_kernel``
+    launches go to the calls whose host windows hold them, each call's
+    into panels of ``sizes``; the gap at each boundary runs from one
+    panel's last chain to the next panel's first (µs); the other kernels
+    are ignored, and a call with a chain missing is left out."""
+    sb = _span_breakdown()
+    from bench_port.record import Call, DeviceOp, Run
+
+    ops, calls, t = [], [], 0
+    for call in range(3):
+        t0 = t
+        for panel, blocks in enumerate((3, 2, 1)):
+            for _ in range(blocks):
+                ops.append(DeviceOp("kernel", "void panel_chain_kernel<float, 16>(...)", t,
+                                    t + 40_000))
+                ops.append(DeviceOp("kernel", "panel_update_kernel", t + 40_000, t + 45_000))
+                t += 47_000
+            t += (100_000 if panel == 0 else 60_000) + 1000 * call
+        calls.append(Call(t0, t0 + 1000, t))
+        t += 1_000_000
+    del ops[-2]  # the third call's last chain was not recorded
+    run = Run("float32", "card", 0.0, 1.0, calls, [1.0] * 3, [0.1] * 3, 0.0, 0.0,
+              ops=ops, traced=True)
+    got = sb.chain_gaps(run, [3, 2, 1])
+    assert (got["chains"], got["calls"], got["whole_calls"]) == (17, 3, 2)
+    assert got["by_boundary_us"] == [107.5, 67.5]
+    assert got["median_us"] == pytest.approx(87.5)
+    assert got["within_panel_us"] == 7.0
+    # first chain to last: 5 strides of 47 µs, the last chain's 40, the two gaps' 160 + 1000 ns
+    # times the call (0 and 1: median 1)
+    assert got["span_ms"] == pytest.approx(0.436)
+    assert got["chain_ms_per_call"] == pytest.approx(17 * 0.04 / 3)
+    # plans that do not match the recorded chains give no gap
+    assert sb.chain_gaps(run, [3, 2, 2]) == {"chains": 17, "calls": 3, "whole_calls": 0}
+
+
+def test_the_trailing_blocks_overlap_is_read_against_the_panel_spans():
+    """``span_breakdown.trailing_overlap``: ``blocked.trailing``'s device ms
+    per call, and the part of it inside a ``blocked.panel`` span of the same
+    parent (the next panel's kernels)."""
+    sb = _span_breakdown()
+    spans = [profiling.Span(2, "blocked.panel", 1, 1, None, (0.0, 1.0)),
+             profiling.Span(3, "blocked.trailing", 1, 1, None, (1.2, 2.2)),
+             profiling.Span(4, "blocked.panel", 1, 1, None, (1.3, 1.9)),
+             profiling.Span(6, "blocked.panel", 5, 5, None, (2.0, 3.0)),
+             profiling.Span(7, "blocked.trailing", 5, 5, None, (3.0, 3.5))]
+    got = sb.trailing_overlap(spans, 2)
+    assert got["ms_per_call"] == pytest.approx(0.75)
+    assert got["beside_panel_ms_per_call"] == pytest.approx(0.3)
+    assert got["beside_share"] == pytest.approx(0.4)
+    assert sb.trailing_overlap(spans[:1], 1)["beside_share"] is None

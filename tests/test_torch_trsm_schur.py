@@ -96,6 +96,28 @@ def test_schur_update_modes_match_jax(precision, tol):
     assert np.max(np.abs(got - ref)) < tol * scale
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64])
+@pytest.mark.parametrize("precision", ["float32", "bf16x3", "bf16"])
+def test_schur_update_in_place_matches_the_returned_update(dtype, precision):
+    """``schur_update_`` writes into ``C`` and returns it; in float32's
+    reduced modes it is ``schur_update`` bit for bit, at full precision
+    (every other dtype takes it, whatever the mode) one ``addmm_``, the
+    same product to the dtype's rounding."""
+    m, k, n = 40, 24, 36
+    C, A, B = (torch.tensor(RNG.standard_normal(s), dtype=torch.float64).to(dtype)
+               for s in ((m, n), (m, k), (k, n)))
+    want = schur.schur_update(C, A, B, precision)
+    C0 = C.clone()
+    got = schur.schur_update_(C, A, B, precision)
+    assert got is C
+    if dtype == torch.float32 and precision != "float32":
+        assert torch.equal(got, want)
+    else:
+        assert torch.equal(got, torch.addmm(C0, A, B, alpha=-1))
+        eps = torch.finfo(got.real.dtype).eps
+        assert float((got - want).abs().max()) < 8 * k * eps * float((A @ B).abs().max())
+
+
 def test_schur_f64_ignores_reduced_modes():
     A = RNG.standard_normal((8, 4))
     B = RNG.standard_normal((4, 8))
