@@ -6,6 +6,7 @@
     python3 chip_smoke.py --bf16x3   # build + phases 2g and 4g only
     python3 chip_smoke.py --graph    # build + phase 3h only
     python3 chip_smoke.py --plans    # build + the float64 b x C sweep only
+    python3 chip_smoke.py --mixed    # build + the mixed-precision (DSGESV) phase only
     python3 chip_smoke.py --profile  # every phase + a device-time breakdown
     python3 chip_smoke.py --sweep    # every phase + the panel routing sweep
     python3 chip_smoke.py --log F    # also write the phase lines to file F
@@ -42,7 +43,14 @@ Phases, JSON lines each:
             with ``--sweep`` the width/route/tail sweep behind the routing
             defaults of utils/config.py;
 5. kernels  one line for every kernel function and route (launches,
-            error, times, bound, library time).
+            error, times, bound, library time); before it, ``mixed``:
+            ``mixed_lu`` + ``mixed_lu_solve`` (LAPACK's DSGESV) at n = 4096
+            and 8192, ITER, the route, both kernels of
+            csrc/mixed_refine.cu bit for bit their twins, LAPACK's test and
+            HPL's residual in float64, the kernels' ms beside their bounds,
+            and the call's replay ms in turns beside ``lu`` in float64 and
+            ``torch.linalg.solve`` (also alone with ``--mixed``, which then
+            prints a ``kernels`` line of the two mixed kernels only).
 
 The batched small-matrix path adds, in the same order:
 
@@ -1637,6 +1645,153 @@ GRAPH_MORE = (
 GRAPH_WORKSPACE_SLACK = 64 << 20
 
 
+# the mixed phase: LAPACK's DSGESV through mixed_lu / mixed_lu_solve
+MIXED_NS, MIXED_SEED = (4096, 8192), 27
+
+
+def mixed_phase(rt, dev, card, round_robin):
+    """``mixed_lu`` + ``mixed_lu_solve`` on HPL's float64 matrix at n = 4096
+    and 8192: ITER, the float32 factorization's route, the two kernels of
+    ``csrc/mixed_refine.cu`` bit for bit their tensor twins (on the call's
+    own A and x), LAPACK's stopping test and HPL's float64 residual, the
+    kernels' device ms beside their bounds (bytes at 3.35 TB/s), and the
+    call's ms by replay in turns beside ``lu`` + ``lu_solve`` in float64
+    (replayed) and ``torch.linalg.solve`` in float64 (TF32 off).  Returns
+    the ``kernels`` line's rows of the two kernels, measured at 4096."""
+    import torch
+
+    from recursivefactorization_jl_tpu_torch.ops import _counts
+    from recursivefactorization_jl_tpu_torch.ops import mixed_refine as mr
+    from recursivefactorization_jl_tpu_torch.utils import graphs, warmup
+
+    def bits(t):
+        return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
+
+    def max_err(got, want):
+        return max(float((p.double() - q.double()).abs().max()) if p.numel() else 0.0
+                   for p, q in zip(got, want))
+
+    kernel_rows = []
+    for n in MIXED_NS:
+        g = torch.Generator(device=dev).manual_seed(MIXED_SEED + n)
+        A = torch.rand(n, n, generator=g, device=dev, dtype=torch.float64) - 0.5
+        b = torch.rand(n, generator=g, device=dev, dtype=torch.float64) - 0.5
+        A0 = A.clone()
+        _counts.reset_counts()
+        F = rt.mixed_lu(A)
+        x, it = rt.mixed_lu_solve(F, b, return_iter=True)
+        torch.cuda.synchronize()
+        launches = dict(rt.mixed_lu_solve.counts.kernel_launches)
+        # the kernels against their twins on this call's A and x
+        narrow, narrow_twin = mr.narrow_cuda(A), mr.narrow_tensor(A)
+        X, B = x[:, None].contiguous(), b[:, None].contiguous()
+        s1 = torch.zeros(2, dtype=torch.int32, device=dev)
+        s2 = s1.clone()
+        res = mr.residual_cuda(A, X, B, F.anrm, s1, True, 30)
+        res_twin = mr.residual_tensor(A, X, B, F.anrm, s2, True, 30)
+        torch.cuda.synchronize()
+        narrow_equal = all(torch.equal(bits(p), bits(q)) for p, q in zip(narrow, narrow_twin))
+        residual_equal = (all(torch.equal(bits(p), bits(q)) for p, q in zip(res, res_twin))
+                          and s1.tolist() == s2.tolist())
+        cte = float(A.abs().sum(1).max()) * 2.0 ** -53 * n ** 0.5
+        r = b - A @ x
+        lapack_ratio = float(r.abs().max()) / (float(x.abs().max()) * cte)
+        hpl = float(r.abs().max()) / (2.0 ** -53 * (float(A.abs().sum(1).max()) * float(
+            x.abs().max()) + float(b.abs().max())) * n)
+
+        def status():
+            return torch.zeros(2, dtype=torch.int32, device=dev)
+
+        def narrow_library():
+            # the same three outputs by torch's ops
+            return A.float(), A.abs().sum(1).amax(), ((A < -mr.RMAX) | (A > mr.RMAX)).any()
+
+        def residual_library():
+            # r by cuBLAS's DGEMV, then single(r), max|r| and max|x|
+            r = torch.addmm(B, A, X, alpha=-1.0)
+            return r, r.float(), r.abs().amax(0), X.abs().amax(0)
+
+        fns = {
+            "narrow": lambda: mr.narrow_cuda(A),
+            "narrow_plain": lambda: mr.narrow_tensor(A),
+            "narrow_library": narrow_library,
+            "residual": lambda: mr.residual_cuda(A, X, B, F.anrm, status(), True, 30),
+            "residual_plain": lambda: mr.residual_tensor(A, X, B, F.anrm, status(), True, 30),
+            "residual_library": residual_library}
+        # device time (torch.profiler): the kernel's own, and every kernel
+        # the twin and the library ops launch; beside it the CUDA-event time
+        # of a call in turns, the host's launches included
+        names = {"narrow": mr.NARROW_KERNEL, "residual": mr.RESIDUAL_KERNEL}
+        ms = {}
+        for k, fn in fns.items():
+            ms[k] = (kernel_device_ms(fn, [names[k]])[names[k]][0] if k in names
+                     else device_ms(fn))
+        call_ms = round_robin(fns, rounds=7, mirror=True)
+        bw = 3.35e12
+        bounds = {"narrow": 12.0 * n * n / bw * 1e3,
+                  "residual": (8.0 * n * n + 28 * n) / bw * 1e3}
+        if n == MIXED_NS[0]:
+            for kind, name, err in (("narrow", mr.NARROW_KERNEL, max_err(narrow, narrow_twin)),
+                                    ("residual", mr.RESIDUAL_KERNEL, max_err(res, res_twin))):
+                kernel_rows.append({
+                    "name": name,
+                    "route": "cuda",
+                    "source": "recursivefactorization_jl_tpu_torch/csrc/mixed_refine.cu",
+                    # the JAX package has no mixed-precision solver
+                    "replaces": None,
+                    # the first mixed_lu + mixed_lu_solve of this phase's matrix
+                    "launches": launches.get(name, 0),
+                    # against its tensor twin on the card, on that call's A and x
+                    "max_abs_err": err,
+                    "ms": ms[kind],
+                    "call_ms": call_ms[kind],
+                    "plain_ms": ms[f"{kind}_plain"],
+                    "plain_call_ms": call_ms[f"{kind}_plain"],
+                    "bound_ms": bounds[kind],
+                    "bound_by": "bytes",
+                    "library_ms": ms[f"{kind}_library"],
+                    "library_call_ms": call_ms[f"{kind}_library"],
+                    "shape": [n, n],
+                    "dtype": "float64",
+                })
+        # warmed: the mixed_lu program, lu / lu_solve in float64
+        with graphs.capturing():
+            rt.mixed_lu_solve(rt.mixed_lu(A), b)
+        warmup.warmup(shapes=[(n, n)], dtypes=[torch.float64])
+
+        def mixed():
+            rt.mixed_lu_solve(rt.mixed_lu(A), b)
+
+        def lu64():
+            rt.lu_solve(rt.lu(A, check=False), b)
+
+        def library():
+            torch.linalg.solve(A, b)
+
+        solve_ms = round_robin({"mixed": mixed, "lu_f64": lu64, "torch_linalg_solve_f64": library},
+                               rounds=7, mirror=True)
+        _counts.reset_counts()
+        mixed()
+        torch.cuda.synchronize()
+        replay_counts = rt.mixed_lu_solve.counts
+        warmup.clear_caches()
+        flops = 2.0 / 3.0 * n ** 3 + 1.5 * n ** 2
+        row = dict(what="mixed_dsgesv", card=card, n=n, iter=it, route=rt.dispatch_route(
+            (n, n), torch.float32), info=int(F.info), fallback=F.fallback is not None,
+            launches=launches, replay_host_checks=replay_counts.host_checks,
+            replay_iters=dict(replay_counts.iters), narrow_equal=narrow_equal,
+            residual_equal=residual_equal, a_unchanged=bool(torch.equal(A, A0)),
+            lapack_ratio=lapack_ratio, hpl_resid=hpl,
+            narrow_ms=ms["narrow"], narrow_bound_ms=bounds["narrow"],
+            residual_ms=ms["residual"], residual_bound_ms=bounds["residual"],
+            ms=solve_ms, gflops={k: flops / v / 1e6 for k, v in solve_ms.items()})
+        emit("mixed", **row)
+        if not (narrow_equal and residual_equal and row["a_unchanged"] and it >= 0
+                and lapack_ratio <= 1 and hpl <= 16):
+            fail(f"mixed-precision solve at n = {n}: {row}")
+    return kernel_rows
+
+
 def graph_phase(rt, dev, card, round_robin, tp_mesh, dp_mesh):
     """Phase 3h: the compiled entry points.  For every key of GRAPH_KEYS,
     the batched pairs at GRAPH_BATCHES, the entry step captured whole and
@@ -2384,6 +2539,10 @@ def main(argv):
             warmup.clear_caches()
             dist.destroy_process_group()
         print(json.dumps({"ok": True, "graph_only": True}))
+        return 0
+    if "--mixed" in argv:  # phase 1 and the mixed phase only
+        print(json.dumps({"kernels": mixed_phase(rt, dev, card, round_robin)}), flush=True)
+        print(json.dumps({"ok": True, "mixed_only": True}))
         return 0
     if "--bf16x3" in argv:  # phases 1, 2g and 4g (and the bf16x3 profile) only
         bf16x3_kernel_phase(dev, gen)
@@ -5176,6 +5335,8 @@ def main(argv):
         "shape": [rbt_row["n"], rbt_row["n"]],
         "dtype": "float32",
     })
+    # the mixed refinement's narrowing and residual kernels (the mixed phase)
+    kernels += mixed_phase(rt, dev, card, round_robin)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -38,6 +38,13 @@ Butterfly Transform solves without pivoting:
     F = butterfly_factor(ws)                     # keep U^T A V's pivot-free LU
     x = butterfly_factor_solve(F, ws.b, refine=1)  # and solve with it, any rhs
 
+Mixed-precision refinement, as LAPACK's DSGESV: a float32 LU of a float64
+matrix refined to float64 accuracy (two float64 passes of
+``csrc/mixed_refine.cu``), falling back to the float64 LU where it fails:
+
+    F = mixed_lu(A)                                 # A float64, never written
+    x, it = mixed_lu_solve(F, b, return_iter=True)  # it: LAPACK's ITER
+
 Batches of small matrices (B, m, n), min(m, n) <= 128, run one more pair
 of hand-written kernels (``csrc/batched_lu.cu``, ``csrc/batched_solve.cu``):
 
@@ -82,6 +89,7 @@ from .models.lu import (
     lu_inplace,
     normalize_pivot,
 )
+from .models.mixed import MixedLU, mixed_lu, mixed_lu_solve
 from .models.solve import ldiv, lu_solve, lu_solve_refined, normalize_trans, solve
 from .parallel import (
     batched_lu_factor,
@@ -138,6 +146,9 @@ __all__ = [
     "lu_factor_p",
     "lu_inplace",
     "normalize_pivot",
+    "MixedLU",
+    "mixed_lu",
+    "mixed_lu_solve",
     "ldiv",
     "lu_solve",
     "lu_solve_refined",

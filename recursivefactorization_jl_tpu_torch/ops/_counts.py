@@ -2,7 +2,8 @@
 
 Each counting wrapper keeps one counts object in ``wrapper.counts`` (the
 panel wrappers' ``ops.panel.LaunchCounts``, the butterfly transform's
-``ops.butterfly.ButterflyCounts``); :func:`reset_counts` replaces every
+``ops.butterfly.ButterflyCounts``, the mixed refinement's kernels'
+``ops.mixed_refine.KernelCounts``); :func:`reset_counts` replaces every
 one with a fresh object of its kind.
 """
 
@@ -23,7 +24,7 @@ def counted(wrapper, counts):
 
 def reset_counts() -> None:
     """Zero the counts of every counting wrapper (the panel kernels' and
-    the butterfly transform's)."""
+    the butterfly transform's and the mixed refinement's)."""
     for wrapper in _COUNTED:
         wrapper.counts = type(wrapper.counts)()
 

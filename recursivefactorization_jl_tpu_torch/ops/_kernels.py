@@ -45,7 +45,8 @@ BUILD_DIR = default_build_dir()
 SOURCES = {
     name: PACKAGE_DIR / "csrc" / f"{name}.cu"
     for name in ("panel_lu", "panel_lu_c64", "panel_lu_micro",
-                 "panel_lu_noswap", "batched_lu", "batched_solve", "butterfly")
+                 "panel_lu_noswap", "batched_lu", "batched_solve", "butterfly",
+                 "mixed_refine")
 }
 # second builds of a source with flags of their own, for measurement only:
 # name -> (source, flags).  batched_lu_trace's kernels stamp a phase trace
@@ -121,6 +122,10 @@ _BATCHED_LU = {
 }
 # a, out, uv, n, width (int*), device, stream
 _BUTTERFLY = (_I, [_P, _P, _P, _I, ctypes.POINTER(_I), _I, _P])
+# a, sa, anrm, overflow, n, device, stream
+_MIXED_NARROW = (_I, [_P, _P, _P, _P, _I, _I, _P])
+# a, x, b, anrm, r, sr, status, work, n, k, step, itermax, device, stream
+_MIXED_RESIDUAL = (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 # C signatures: name -> (restype, argtypes)
 SIGNATURES = {
     "panel_lu": {
@@ -180,6 +185,11 @@ SIGNATURES = {
     "butterfly": {
         "rf_butterfly_depth2_f32": _BUTTERFLY,
         "rf_butterfly_depth2_f64": _BUTTERFLY,
+        "rf_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "mixed_refine": {
+        "rf_mixed_narrow_f64": _MIXED_NARROW,
+        "rf_mixed_residual_f64": _MIXED_RESIDUAL,
         "rf_error_string": (ctypes.c_char_p, [_I]),
     },
 }

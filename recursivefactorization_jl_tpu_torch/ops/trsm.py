@@ -19,7 +19,10 @@ pivot-free paths take :func:`substitute` instead, ``xTRSM`` through
 ``torch.linalg.solve_triangular``, and so does the blocked schedule's TRSM
 step with pivoting too: its solve for the next panel's columns waits on
 the critical path, where the inverse's base case costs some eighty small
-launches a panel (``ops/blocked.py``).
+launches a panel (``ops/blocked.py``).  ``lu_solve`` (models/solve.py)
+substitutes on every route as well: with one right-hand side on the card
+it took a third to two thirds of the inverted blocks' time replayed, and
+a tenth or less eagerly.
 """
 
 from __future__ import annotations

@@ -32,7 +32,10 @@ own pool, entry and closed loop (``bench_port/harness.py``), one process:
    blocked schedule's panels whose trailing block ran beside the next
    panel (``blocked_lu.counts.lookahead_panels``, per call); in the
    RBT cell also the butterfly transform's launches by (dtype, n) and its
-   tensor-code transforms per call (``butterfly_mul_cuda.counts``);
+   tensor-code transforms per call (``butterfly_mul_cuda.counts``); in the
+   DSGESV cell the mixed solver's counts per call
+   (``mixed_lu_solve.counts``: calls, refinement steps, host reads of the
+   status, kernel launches by kernel, ITER and fallbacks by code);
 5. ``off`` again: recaptured with the recorder off, one more untraced
    window (the two ``off`` windows bracket the others).
 
@@ -71,19 +74,23 @@ from bench_port.traffic import Pool, Traffic  # noqa: E402
 from recursivefactorization_jl_tpu_torch import LUConfig  # noqa: E402
 from recursivefactorization_jl_tpu_torch.ops import blocked  # noqa: E402
 from recursivefactorization_jl_tpu_torch.ops import panel as panel_mod  # noqa: E402
+from recursivefactorization_jl_tpu_torch.models.mixed import mixed_lu_solve  # noqa: E402
 from recursivefactorization_jl_tpu_torch.ops.butterfly import butterfly_mul_cuda  # noqa: E402
 from recursivefactorization_jl_tpu_torch.utils import graphs, profiling  # noqa: E402
 
 READERS = ("copy_ms", "outside_panel_ms", "panel_ms", "batched_kernel_ms",
-           "host_issue_ms.replay", "device_idle_pct.replay")
+           "host_issue_ms.replay", "device_idle_pct.replay", "mixed_ms", "mixed_passes",
+           "mixed_narrow_roofline", "mixed_residual_roofline")
 # idle gaps shorter than this are counted, not listed one by one
 GAP_NS = 50_000
 STEPS = ("blocked.schur", "blocked.trsm", "blocked.laswp")
 RBT_STEPS = ("rbt.transform", "rbt.factor", "rbt.apply", "rbt.refine")
+MIXED_STEPS = ("mixed.narrow", "mixed.factor", "mixed.solve", "mixed.residual")
 # the program kinds of each entry's call
 KINDS = {"lu_solve": ("lu_factor", "lu_solve"),
          "batched_solve": ("batched_lu_factor", "batched_lu_solve"),
-         "rbt_solve": ("butterfly_workspace", "butterfly_factor", "butterfly_factor_solve")}
+         "rbt_solve": ("butterfly_workspace", "butterfly_factor", "butterfly_factor_solve"),
+         "dsgesv_solve": ("mixed_lu",)}
 # the port's wrappers of the kernels that run panel_chain_kernel
 CHAIN_WRAPPERS = ("panel_factor_cuda", "offset_panel_factor_cuda", "panel_factor_c64_cuda",
                   "offset_panel_factor_c64_cuda", "panel_factor_shadow_cuda",
@@ -197,6 +204,18 @@ def transform_counts() -> dict:
     counts = butterfly_mul_cuda.counts
     out = {f"{dtype}_n{n}": k for (dtype, n), k in counts.launches.items()}
     out["tensor_transforms"] = counts.tensor_transforms
+    return out
+
+
+def mixed_counts() -> dict:
+    """The mixed solver's counts so far, flat: ``calls``, ``steps``,
+    ``host_checks``, ``launches.<kernel>``, ``iter.<ITER>`` and
+    ``fallback.<code>``."""
+    counts = mixed_lu_solve.counts
+    out = {"calls": counts.calls, "steps": counts.steps, "host_checks": counts.host_checks}
+    out.update({f"launches.{k}": v for k, v in counts.kernel_launches.items()})
+    out.update({f"iter.{k}": v for k, v in counts.iters.items()})
+    out.update({f"fallback.{k}": v for k, v in counts.fallbacks.items()})
     return out
 
 
@@ -327,9 +346,9 @@ def launched_by_span(entry, traffic, pool, device, calls=3) -> dict:
     ms per call: {"by_span": {span: {"panel"|"copy"|"other": ms}},
     "top_ops": {operation: {span: ms}}}, the chain launches per call by plan
     ("chains"), the chain launch counters per call ("counters") and the
-    butterfly transform's counts per call ("transforms"); the counters
-    hold the blocked schedule's ``lookahead_panels`` too (None where the
-    port has no such count)."""
+    butterfly transform's counts per call ("transforms") and the mixed
+    solver's ("mixed"); the counters hold the blocked schedule's
+    ``lookahead_panels`` too (None where the port has no such count)."""
     from torch.profiler import ProfilerActivity, profile
 
     metrics = harness.BENCH_DIR / "metrics"
@@ -341,6 +360,7 @@ def launched_by_span(entry, traffic, pool, device, calls=3) -> dict:
     counts0 = {c: chain_count(c) for c in COUNTERS}
     ahead0 = lookahead_panels()
     transforms0 = transform_counts()
+    mixed0 = mixed_counts()
     with profiling.recording() as rec:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -365,8 +385,9 @@ def launched_by_span(entry, traffic, pool, device, calls=3) -> dict:
     ahead = lookahead_panels()
     counters["lookahead_panels"] = None if ahead is None else (ahead - ahead0) / calls
     transforms = {k: (v - transforms0.get(k, 0)) / calls for k, v in transform_counts().items()}
+    mixed = {k: (v - mixed0.get(k, 0)) / calls for k, v in mixed_counts().items()}
     return {"by_span": dict(sorted(by_span.items())), "top_ops": dict(top), "chains": chains,
-            "counters": counters, "transforms": transforms}
+            "counters": counters, "transforms": transforms, "mixed": mixed}
 
 
 def idle_by_launch(prof, spans, calls) -> dict:
@@ -441,8 +462,10 @@ def run_cell(cell_name, seed, seconds, device, n=None):
     if cuda:
         traced = window(entry, traffic, pool, trace_s, device, dtype, kind, True, seed)
         out["traced_off"] = readings(traced)
-        if cell["entry"] in ("lu_solve", "rbt_solve"):
-            out["chain_gaps"] = chain_gaps(traced, chain_sizes(cell["n"], dtype, device))
+        if cell["entry"] in ("lu_solve", "rbt_solve", "dsgesv_solve"):
+            # DSGESV factors single(A): its chains are float32's
+            chain_dtype = "float32" if cell["entry"] == "dsgesv_solve" else dtype
+            out["chain_gaps"] = chain_gaps(traced, chain_sizes(cell["n"], chain_dtype, device))
     entry.release()
 
     # 2. the recorder on, the programs captured before it was: host spans
@@ -508,6 +531,15 @@ def run_cell(cell_name, seed, seconds, device, n=None):
                  **derived["butterfly_factor_solve.program_steps"]}
         for name in RBT_STEPS:
             derived[name.replace(".", "_") + "_ms"] = steps.get(name, 0.0)
+    if cell["entry"] == "dsgesv_solve":
+        # narrowing and factor inside the mixed_lu program; the solves, the
+        # residual passes, the host's reads of the status and the fallbacks
+        # outside it (eager)
+        steps = {**dev, **derived["mixed_lu.program_steps"]}
+        for name in MIXED_STEPS:
+            derived[name.replace(".", "_") + "_ms"] = steps.get(name, 0.0)
+        for name in ("mixed.check", "mixed.fallback"):
+            derived[name.replace(".", "_") + "_host_ms"] = out["host_ms_per_call"].get(name, 0.0)
     out["derived"] = derived
     out["trailing"] = trailing_overlap(spans, calls)
 
@@ -545,6 +577,7 @@ def run_cell(cell_name, seed, seconds, device, n=None):
         out["chain_launches_per_call_by_plan"] = launched["chains"]
         out["chain_counters_per_call"] = launched["counters"]
         out["transform_counts_per_call"] = launched["transforms"]
+        out["mixed_counts_per_call"] = launched["mixed"]
         if cell["entry"] == "lu_solve":
             by = launched["by_span"]
             steps = sum(sum(by.get(f"lu_factor:{k}", {}).values()) for k in STEPS)

@@ -1615,9 +1615,9 @@ def test_tp_complex_half_and_integer_on_the_card_in_a_world_of_one_rank():
 
 def test_full_precision_under_the_current_tf32_api_on_the_card():
     """With ``fp32_precision = 'tf32'`` set by the caller, ``lu`` +
-    ``lu_solve`` on the card run every matmul under ``'ieee'`` (no TF32
-    product: the residual stays under the float32 gate) and the caller's
-    setting comes back."""
+    ``lu_solve`` on the card run every matmul and triangular solve under
+    ``'ieee'`` (no TF32 product: the residual stays under the float32 gate)
+    and the caller's setting comes back."""
     need_cuda()
     from torch.overrides import TorchFunctionMode
 
@@ -1627,7 +1627,8 @@ def test_full_precision_under_the_current_tf32_api_on_the_card():
 
     class Watch(TorchFunctionMode):
         def __torch_function__(self, func, types, args=(), kwargs=None):
-            if func in (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__, torch.mm):
+            if func in (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__, torch.mm,
+                        torch.linalg.solve_triangular):
                 seen.append(mm.fp32_precision)
             return func(*args, **(kwargs or {}))
 

@@ -65,7 +65,7 @@ def test_wheel_carries_the_kernel_sources_and_builds_into_a_user_cache(tmp_path)
                 if n.startswith("recursivefactorization_jl_tpu_torch/csrc/")}
     sources = {p.name for p in set(_kernels.SOURCES.values())}
     headers = {h.name for h in _kernels.HEADERS}
-    assert len(sources) == 7 and headers == {"panel_cluster.cuh", "rf_common.cuh"}
+    assert len(sources) == 8 and headers == {"panel_cluster.cuh", "rf_common.cuh"}
     assert csrc == sources | headers
 
     site = tmp_path / "site"

@@ -4,8 +4,9 @@ A caller who set ``torch.backends.cuda.matmul.fp32_precision`` (the
 current API) makes PyTorch refuse to read the legacy ``allow_tf32``
 flags.  ``utils.config.full_matmul_precision`` then sets and restores the
 current attributes instead, so ``lu`` and ``lu_solve`` run, every matmul
-inside sees ``'ieee'`` (and convolutions no ``'tf32'``), and the caller's
-setting comes back.  The legacy
+and every triangular solve inside (``lu_solve`` substitutes, xTRSM, which
+cuBLAS runs under the handle's math mode) sees ``'ieee'`` (and
+convolutions no ``'tf32'``), and the caller's setting comes back.  The legacy
 API keeps working as before (tests/test_torch_trsm_schur.py).  The
 setting is global to a process, so each case runs in a child process.
 """
@@ -36,7 +37,8 @@ seen = []
 
 class Watch(TorchFunctionMode):
     def __torch_function__(self, func, types, args=(), kwargs=None):
-        if func in (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__, torch.mm):
+        if func in (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__, torch.mm,
+                    torch.linalg.solve_triangular):
             seen.append((mm.fp32_precision, conv.fp32_precision))
         return func(*args, **(kwargs or {}))
 
@@ -61,7 +63,7 @@ def test_lu_runs_under_the_current_tf32_api_and_restores_it(matmul, conv):
                           capture_output=True, text=True, timeout=300)
     assert done.returncode == 0, done.stderr
     got = json.loads(done.stdout.strip().splitlines()[-1])
-    # matmuls in full float32; convolutions never in TF32 ('none' defers to
+    # matmuls and triangular solves in full float32; convolutions never in TF32 ('none' defers to
     # the legacy flag, which the block has turned off where it set that one)
     assert got["products"] > 0 and {m for m, _ in got["seen"]} == {"ieee"}, got["seen"]
     assert "tf32" not in {c for _, c in got["seen"]}, got["seen"]
